@@ -1,0 +1,212 @@
+"""Structured run metrics: JSONL records and streaming summaries.
+
+A copy of ``ddp_tpu/utils/metrics.py`` (pure host code): the port keeps
+its own so that it imports nothing of the JAX package. The writer emits
+machine-readable JSONL, one record per event, each stamped with wall
+time; ``StatSummary`` keeps bounded latency summaries for ``/stats``.
+"""
+
+from __future__ import annotations
+
+import atexit
+import json
+import math
+import os
+import random
+import time
+from typing import Any, IO
+
+
+class StatSummary:
+    """Streaming scalar summary: count / mean / min / max / percentiles.
+
+    The serving engine (ddp_tpu_torch.serve) feeds per-request latencies
+    (TTFT, decode tokens/s) through these; ``snapshot()`` is what the
+    server's /stats endpoint publishes.
+    Memory is bounded — a long-lived server must not grow a float per
+    request forever: count/mean/min/max are exact running values, and
+    percentiles come from a fixed-size uniform reservoir
+    (Vitter's algorithm R; exact until ``max_samples`` requests).
+    The server snapshots under the lock that gates the decode loop,
+    so ``snapshot()`` sorts the bounded reservoir once, not an
+    unbounded list per percentile.
+    """
+
+    def __init__(self, *, max_samples: int = 4096, seed: int = 0) -> None:
+        self._samples: list[float] = []
+        self._max = max_samples
+        self._rng = random.Random(seed)
+        self._count = 0
+        self._sum = 0.0
+        self._min = math.inf
+        self._max_v = -math.inf
+
+    def add(self, value: float) -> None:
+        v = float(value)
+        if not math.isfinite(v):
+            return
+        self._count += 1
+        self._sum += v
+        self._min = min(self._min, v)
+        self._max_v = max(self._max_v, v)
+        if len(self._samples) < self._max:
+            self._samples.append(v)
+        else:
+            j = self._rng.randrange(self._count)
+            if j < self._max:
+                self._samples[j] = v
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    def percentile(self, q: float) -> float | None:
+        """Nearest-rank percentile, q in [0, 100]; None when empty."""
+        if not self._samples:
+            return None
+        s = sorted(self._samples)
+        return self._percentile_sorted(s, q)
+
+    @staticmethod
+    def _percentile_sorted(s: list, q: float) -> float:
+        rank = max(0, min(len(s) - 1, round(q / 100.0 * (len(s) - 1))))
+        return s[rank]
+
+    def snapshot(self, *, ndigits: int = 4) -> dict:
+        """One JSON-ready dict: {count, mean, sum, min, p50, p95, max}.
+
+        ``sum`` is the EXACT running total (rounded for display, which
+        preserves monotonicity) — the Prometheus summary exposition's
+        ``_sum`` counter must come from it, not from ``mean × count``:
+        a counter reconstructed from the rounded mean can DECREASE
+        between scrapes, which scrapers read as a reset.
+        """
+        if not self._count:
+            return {"count": 0}
+        s = sorted(self._samples)
+        r = lambda v: round(v, ndigits)  # noqa: E731
+        return {
+            "count": self._count,
+            "mean": r(self._sum / self._count),
+            "sum": r(self._sum),
+            "min": r(self._min),
+            "p50": r(self._percentile_sorted(s, 50)),
+            "p95": r(self._percentile_sorted(s, 95)),
+            "max": r(self._max_v),
+        }
+
+    # ---- cross-process merging ------------------------------------
+
+    def to_state(self) -> dict:
+        """JSON-ready full state: exact scalars + the reservoir.
+
+        What a per-rank trace file embeds so summaries can be merged
+        offline; ``snapshot()`` stays the lossy human-facing view.
+        """
+        return {
+            "count": self._count,
+            "sum": self._sum,
+            "min": None if self._count == 0 else self._min,
+            "max": None if self._count == 0 else self._max_v,
+            "max_samples": self._max,
+            "samples": list(self._samples),
+        }
+
+    @classmethod
+    def from_state(cls, state: dict, *, seed: int = 0) -> "StatSummary":
+        s = cls(max_samples=int(state.get("max_samples", 4096)), seed=seed)
+        s._count = int(state["count"])
+        s._sum = float(state["sum"])
+        if s._count:
+            s._min = float(state["min"])
+            s._max_v = float(state["max"])
+        s._samples = [float(v) for v in state.get("samples", [])][: s._max]
+        return s
+
+    def merge(self, other: "StatSummary") -> "StatSummary":
+        """Fold ``other`` into self (per-rank → global summaries).
+
+        count/sum(→mean)/min/max combine EXACTLY (pinned by a property
+        test). The percentile reservoir merges by weighted subsampling:
+        each side's samples are kept with probability proportional to
+        the count it represents, so the merged reservoir stays an
+        (approximately) uniform draw from the union stream.
+        """
+        if other._count == 0:
+            return self
+        self._sum += other._sum
+        self._min = min(self._min, other._min)
+        self._max_v = max(self._max_v, other._max_v)
+        merged_count = self._count + other._count
+        pool = self._samples + other._samples
+        if len(pool) > self._max:
+            # Weight by represented counts: index < len(self._samples)
+            # stands for self's stream, the rest for other's.
+            weights = [
+                (self._count / max(1, len(self._samples)))
+                if i < len(self._samples)
+                else (other._count / max(1, len(other._samples)))
+                for i in range(len(pool))
+            ]
+            total = sum(weights)
+            picks = []
+            # Weighted sampling without replacement (Efraimidis-
+            # Spirakis keys): fine at reservoir scale (≤ 2·max_samples).
+            keyed = sorted(
+                (
+                    (self._rng.random() ** (total / (w * len(pool))), v)
+                    for w, v in zip(weights, pool)
+                ),
+                reverse=True,
+            )
+            picks = [v for _, v in keyed[: self._max]]
+            self._samples = picks
+        else:
+            self._samples = pool
+        self._count = merged_count
+        return self
+
+
+class MetricsWriter:
+    """Append-only JSONL metrics stream; no-op when disabled.
+
+    Flushes on ``atexit`` as a backstop: line buffering covers the
+    normal case, but a short-lived process (serving smoke
+    runs, aborted CLIs) must not lose the tail of the stream because
+    nobody reached ``close()``. Explicit ``close()`` unregisters the
+    hook so writers don't accumulate across many constructions.
+    """
+
+    def __init__(self, path: str | None, *, enabled: bool = True):
+        self._f: IO[str] | None = None
+        if path and enabled:
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+            self._f = open(path, "a", buffering=1)  # line-buffered
+            atexit.register(self.close)
+
+    def write(self, kind: str, **fields: Any) -> None:
+        if self._f is None:
+            return
+        rec = {"kind": kind, "time": round(time.time(), 3), **fields}
+        # Strict JSON: NaN/Infinity (e.g. diverged loss, empty-epoch
+        # mean) serialize as null, not the bare `NaN` jq/JSON.parse
+        # reject — divergence is precisely when the stream gets read.
+        rec = {
+            k: (
+                None
+                if isinstance(v, float) and not math.isfinite(v)
+                else v
+            )
+            for k, v in rec.items()
+        }
+        self._f.write(json.dumps(rec, allow_nan=False) + "\n")
+
+    def flush(self) -> None:
+        if self._f is not None:
+            self._f.flush()
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+            atexit.unregister(self.close)
