@@ -20,9 +20,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    seeded sampling), once with fp32 and once with int8 KV. The launch
    counters are set to 0 just before each run and read just after;
    each run must launch its kernel decode steps x depth times. The
-   greedy requests then run through decode_attn="reference" and their
-   streams must match (a divergence passes only where the top-2 logit
-   gap at the first divergent token is below 1e-3).
+   greedy requests then run alone (a fixed schedule), through the
+   kernel and through decode_attn="reference", and their streams must
+   match (a divergence passes only where the top-2 logit gap at the
+   first divergent token is below 1e-3). Last, torch.profiler reads
+   the device busy share of steady decode steps.
 5. A "kernels" JSON line, the card line, and the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -229,15 +231,14 @@ def _post(url: str, body: dict) -> dict:
         return json.loads(r.read())
 
 
-def serve_run(torch, model, prompts, *, kv_dtype, decode_attn, only=None):
-    """Serve REQUESTS (or the subset ``only``) over HTTP, concurrently
-    → (completions by index, engine)."""
+def serve_run(torch, model, prompts, *, kv_dtype):
+    """Serve every request of REQUESTS over HTTP, concurrently, on the
+    kernel path → (completions by index, engine)."""
     from ddp_tpu_torch.serve.engine import ServeEngine
     from ddp_tpu_torch.serve.server import LMServer
 
     engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
-                         kv_dtype=kv_dtype, decode_attn=decode_attn)
-    picks = range(len(REQUESTS)) if only is None else only
+                         kv_dtype=kv_dtype)
     results: dict[int, dict] = {}
     errors: list[str] = []
     with LMServer(engine) as server:
@@ -250,7 +251,8 @@ def serve_run(torch, model, prompts, *, kv_dtype, decode_attn, only=None):
             except Exception as e:  # noqa: BLE001 — reported below
                 errors.append(f"request {i}: {type(e).__name__}: {e}")
 
-        threads = [threading.Thread(target=client, args=(i,)) for i in picks]
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(REQUESTS))]
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -262,17 +264,16 @@ def serve_run(torch, model, prompts, *, kv_dtype, decode_attn, only=None):
     torch.cuda.synchronize()
     if errors:
         raise AssertionError("; ".join(errors))
-    for i in picks:
-        plen, n_new, _ = REQUESTS[i]
+    for i, (plen, n_new, _) in enumerate(REQUESTS):
         r = results[i]
         if r["status"] != "complete" or len(r["tokens"]) != n_new:
             raise AssertionError(
                 f"request {i}: {r['status']}, {len(r['tokens'])}/{n_new}")
         if not all(0 <= t < FULL["vocab_size"] for t in r["tokens"]):
             raise AssertionError(f"request {i}: token out of the vocab")
-    decode_tokens = sum(len(results[i]["tokens"]) - 1 for i in picks)
+    decode_tokens = sum(len(r["tokens"]) - 1 for r in results.values())
     log(f"[serve] kv={kv_dtype} attn={engine.decode_attn}: "
-        f"{len(picks)} requests complete in {wall:.3f} s, "
+        f"{len(REQUESTS)} requests complete in {wall:.3f} s, "
         f"{engine.decode_steps} decode steps, decode {decode_tokens / wall:.1f} "
         f"tokens/s, TTFT p50 {engine.ttft.percentile(50) * 1e3:.1f} ms, "
         f"step latency p50 {engine.step_latency.percentile(50) * 1e3:.2f} ms "
@@ -280,20 +281,109 @@ def serve_run(torch, model, prompts, *, kv_dtype, decode_attn, only=None):
     return results, engine
 
 
-def top2_gap(torch, model, tokens, kv_dtype) -> float:
-    """Top-2 logit gap after ``tokens``, fed one at a time through the
-    plain decode path on a one-slot cache of the given KV type."""
-    from ddp_tpu_torch.models.generate import init_slot_cache, slot_decode_step
+def lone_streams(torch, model, prompts, picks, *, kv_dtype, decode_attn):
+    """Each request of ``picks`` served alone, in-process, one after the
+    other → {index: tokens}. A lone request's schedule (its prompt's
+    chunk split) is the same on every run, so two runs differ only in
+    their decode attention. Under concurrency it is not: a first chunk
+    attends its own unquantized K/V and later chunks the dequantized
+    lane, so int8 streams legitimately depend on the arrival order."""
+    from ddp_tpu_torch.serve.engine import ServeEngine
 
+    engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
+                         kv_dtype=kv_dtype, decode_attn=decode_attn)
+    out = {}
+    for i in picks:
+        rid = engine.submit(prompts[i], REQUESTS[i][1]).request.rid
+        engine.run()
+        c = engine.pop_result(rid)
+        if c.status != "complete" or len(c.tokens) != REQUESTS[i][1]:
+            raise AssertionError(f"lone request {i}: {c.status}")
+        out[i] = c.tokens
+    return out
+
+
+def replay_gap(torch, model, prompt, stream, j, kv_dtype) -> float:
+    """Top-2 logit gap of the plain path at token ``j`` (>= 1) of a lone
+    request: the engine's chunk plan for the prompt, then one plain
+    decode step per earlier token, on a one-slot cache."""
+    from ddp_tpu_torch.models.generate import (
+        init_slot_cache,
+        prefill_chunk,
+        slot_decode_step,
+    )
+    from ddp_tpu_torch.serve.engine import resolve_engine_knobs
+    from ddp_tpu_torch.serve.scheduler import Scheduler
+
+    if j < 1:
+        raise AssertionError("streams part at the first token, which "
+                             "prefill computes alike on both paths")
+    spec, dev = model.spec, model.device
+    knobs = resolve_engine_knobs(spec, device=dev, slots=SLOTS,
+                                 prefill_len=PREFILL_LEN)
+    sched = Scheduler(max_queue=1, prefill_len=PREFILL_LEN,
+                      total_len=spec.total_len, chunk=knobs["chunk"],
+                      min_bucket=knobs["min_bucket"],
+                      token_budget=knobs["step_token_budget"])
     cache = init_slot_cache(
-        model.spec, 1, device=model.device,
+        spec, 1, device=dev,
         dtype=torch.int8 if kv_dtype == "int8" else torch.float32)
-    for t in tokens:
-        logits = slot_decode_step(
-            model, cache, torch.tensor([t], device=model.device),
-            attn_impl="reference")
+    state = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(3)]
+    state += [torch.zeros(1, device=dev), torch.ones(1, device=dev)]
+    start = 0
+    while start < len(prompt):
+        [(_, width)] = sched.plan_chunks([(0, start, len(prompt) - start)], 0)
+        live = min(width, len(prompt) - start)
+        buf = torch.zeros(width, dtype=torch.int64)
+        buf[:live] = torch.tensor(prompt[start:start + live])
+        prefill_chunk(model, cache, *state, 0, buf.to(dev), start, live,
+                      start + live == len(prompt), 0, 0.0, 1.0,
+                      lane_attend=start != 0)
+        start += live
+    for t in stream[:j]:
+        logits = slot_decode_step(model, cache, torch.tensor([t], device=dev),
+                                  attn_impl="reference")
     top = torch.topk(logits[0], 2).values
     return float(top[0] - top[1])
+
+
+def profile_steps(torch, model, *, steps=16) -> None:
+    """Device busy share of steady decode steps (all 8 lanes decoding,
+    fp32 KV, kernel path), from torch.profiler: summed CUDA kernel time
+    over the wall time of ``steps`` engine steps, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddp_tpu_torch.serve.engine import ServeEngine
+
+    engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN)
+    rng = np.random.default_rng(2)
+    for _ in range(SLOTS):
+        engine.submit(rng.integers(0, model.spec.vocab_size, 64).tolist(), 64)
+    for _ in range(8):  # prefill done, every lane decoding
+        engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    if not rows:
+        log("[profile] torch.profiler reported no device time")
+        return
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"[profile] {steps} decode steps, 8 lanes, fp32 KV: wall "
+        f"{wall * 1e3:.2f} ms, device kernel time {busy_us / 1e3:.2f} ms, "
+        f"busy share {busy_us / 1e6 / wall:.3f}")
+    for e in top:
+        log(f"[profile]   {e.self_device_time_total / steps:9.1f} us/step "
+            f"x{e.count // steps:<3d} {e.key[:90]}")
 
 
 def check_serving(torch) -> dict:
@@ -317,13 +407,11 @@ def check_serving(torch) -> dict:
                for n, _, _ in REQUESTS]
     launches = dec.flash_decode_attention.launches
     counted = {}
-    streams = {}
     for kv_dtype, name in (("fp32", "flash_decode_fp32"),
                            ("int8", "flash_decode_int8")):
         for k in launches:
             launches[k] = 0
-        res, engine = serve_run(torch, model, prompts, kv_dtype=kv_dtype,
-                                decode_attn="auto")
+        _, engine = serve_run(torch, model, prompts, kv_dtype=kv_dtype)
         got = dict(launches)
         want = engine.decode_steps * spec.depth
         log(f"[serve] kv={kv_dtype} launches {got} (decode steps x depth "
@@ -333,27 +421,33 @@ def check_serving(torch) -> dict:
         if sum(got.values()) != got[name]:
             raise AssertionError(f"unexpected launches {got}")
         counted[name] = got[name]
-        streams[kv_dtype] = res
     greedy = [i for i, (_, _, s) in enumerate(REQUESTS) if not s]
     for kv_dtype in ("fp32", "int8"):
+        kernel = lone_streams(torch, model, prompts, greedy,
+                              kv_dtype=kv_dtype, decode_attn="flash")
         for k in launches:
             launches[k] = 0
-        ref, _ = serve_run(torch, model, prompts, kv_dtype=kv_dtype,
-                           decode_attn="reference", only=greedy)
+        plain = lone_streams(torch, model, prompts, greedy,
+                             kv_dtype=kv_dtype, decode_attn="reference")
         if any(launches.values()):
             raise AssertionError(f"the reference path launched {launches}")
+        parted = 0
         for i in greedy:
-            a, b = streams[kv_dtype][i]["tokens"], ref[i]["tokens"]
+            a, b = kernel[i], plain[i]
             if a == b:
                 continue
+            parted += 1
             j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
-            gap = top2_gap(torch, model, prompts[i] + b[:j], kv_dtype)
+            gap = replay_gap(torch, model, prompts[i], b, j, kv_dtype)
             log(f"[serve] kv={kv_dtype} request {i}: kernel and plain "
                 f"streams part at token {j}; top-2 logit gap {gap:.3e}")
             if gap >= DIVERGENCE_GAP:
                 raise AssertionError(f"request {i} diverged at gap {gap}")
-        log(f"[serve] kv={kv_dtype}: {len(greedy)} greedy streams checked "
-            "against the plain decode path")
+        log(f"[serve] kv={kv_dtype}: {len(greedy)} greedy requests served "
+            f"alone through the kernel and the plain decode path: "
+            f"{len(greedy) - parted} streams identical, {parted} parted at "
+            f"a near tie")
+    profile_steps(torch, model)
     return counted
 
 
@@ -378,7 +472,6 @@ def main() -> int:
 
     t0 = time.perf_counter()
     seconds = _build.build()
-    dec.build()
     log(f"[build] {json.dumps(seconds)} (wall {time.perf_counter() - t0:.2f} s)")
 
     timings = check_kernels(torch)

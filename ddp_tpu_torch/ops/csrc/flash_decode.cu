@@ -29,8 +29,11 @@
 // and a final divide by max(l, 1e-30), as the TPU kernel does.
 //
 // This first version is plain on purpose: 64 blocks at full width leave
-// half of the 132 SMs idle, loads are scalar, and there is no cp.async or
-// TMA pipeline. Split-K over L and vector loads are later work.
+// half of the 132 SMs idle, loads are scalar (coalesced across a warp),
+// and the only latency hiding is that a warp loads the K rows of several
+// keys, and a thread several V rows, before using them; there is no
+// cp.async or TMA pipeline. Split-K over L and vector loads are later
+// work.
 //
 // Build (a plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -46,6 +49,7 @@ constexpr int kThreads = 128;              // 4 warps per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;                  // keys per tile
 constexpr int kMaxChunks = 8;              // Dh <= 32 * kMaxChunks
+constexpr int kKeysPerWarp = 4;            // K rows a warp loads at once
 constexpr int kGroupChunk = 8;             // query heads per register pass
 constexpr size_t kMaxSmem = 48 * 1024;     // no opt-in attribute needed
 
@@ -116,27 +120,42 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
     for (int t0 = 0; t0 < n_keys; t0 += kTile) {
         const int tn = min(kTile, n_keys - t0);
 
-        // 1. Scores: one warp per key; the row is read once and dotted
-        //    with all G queries of the group.
-        for (int j = warp; j < tn; j += kWarps) {
-            const int64_t key = t0 + j;
-            const KV* row = kb + key * kv_sl;
-            const float ks = ksb ? ksb[key * sc_sl] : 1.f;
-            float kr[kMaxChunks];
+        // 1. Scores: each warp loads the rows of kKeysPerWarp keys
+        //    before reducing any of them (their loads are in flight
+        //    together); a row is read once and dotted with all G
+        //    queries of the group.
+        for (int j0 = warp * kKeysPerWarp; j0 < tn;
+             j0 += kWarps * kKeysPerWarp) {
+            float kr[kKeysPerWarp][kMaxChunks];
 #pragma unroll
-            for (int c = 0; c < kMaxChunks; ++c) {
-                const int d = lane + 32 * c;
-                kr[c] = d < Dh ? widen(row[d], ks) : 0.f;
-            }
-            for (int g = 0; g < G; ++g) {
-                float dot = 0.f;
+            for (int b = 0; b < kKeysPerWarp; ++b) {
+                // Past the tile end, reload its last key: the result
+                // is discarded and the read stays inside the band.
+                const int64_t key = t0 + min(j0 + b, tn - 1);
+                const KV* row = kb + key * kv_sl;
+                const float ks = ksb ? ksb[key * sc_sl] : 1.f;
 #pragma unroll
                 for (int c = 0; c < kMaxChunks; ++c) {
                     const int d = lane + 32 * c;
-                    if (d < Dh) dot += kr[c] * q_s[g * Dh + d];
+                    kr[b][c] = d < Dh ? widen(row[d], ks) : 0.f;
                 }
-                dot = warp_sum(dot);
-                if (lane == 0) p_s[g * kTile + j] = dot;
+            }
+            for (int g = 0; g < G; ++g) {
+                float dot[kKeysPerWarp];
+#pragma unroll
+                for (int b = 0; b < kKeysPerWarp; ++b) {
+                    dot[b] = 0.f;
+#pragma unroll
+                    for (int c = 0; c < kMaxChunks; ++c) {
+                        const int d = lane + 32 * c;
+                        if (d < Dh) dot[b] += kr[b][c] * q_s[g * Dh + d];
+                    }
+                }
+#pragma unroll
+                for (int b = 0; b < kKeysPerWarp; ++b) {
+                    dot[b] = warp_sum(dot[b]);
+                    if (lane == 0 && j0 + b < tn) p_s[g * kTile + j0 + b] = dot[b];
+                }
             }
         }
         __syncthreads();
@@ -175,6 +194,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
 #pragma unroll
                 for (int i = 0; i < kGroupChunk; ++i)
                     a[i] = i < gn ? acc_s[(g0 + i) * Dh + d] * c_s[g0 + i] : 0.f;
+                // Unrolled so that several V loads are in flight at once.
+#pragma unroll 8
                 for (int j = 0; j < tn; ++j) {
                     const int64_t key = t0 + j;
                     const float vs = vsb ? vsb[key * sc_sl] : 1.f;

@@ -9,9 +9,10 @@
 ``--init_demo`` serves seeded random weights (``--seed``); ``--params_npz``
 serves a JAX causal-LM parameter tree saved as a flat ``/``-keyed
 ``.npz`` (``numpy.savez(path, **{"/".join(keys): leaf})``), mapped by
-``interop/jax_params.py``. Runs on the GPU (decode attention through the
-CUDA flash-decode kernel) unless ``--device cpu`` is given. Prints one
-JSON line when it serves, then serves until SIGTERM or Ctrl-C.
+``interop/jax_params.py``. Runs on the GPU, where decode attention always
+goes through the CUDA flash-decode kernel, unless ``--device cpu`` is
+given (the plain versions run there). Prints one JSON line when it
+serves, then serves until SIGTERM or Ctrl-C.
 """
 
 from __future__ import annotations
@@ -44,18 +45,10 @@ def main(argv=None) -> None:
     p.add_argument("--num_heads", type=int, default=4,
                    help="attention heads (also needed for --params_npz: "
                    "shapes do not carry it)")
-    p.add_argument("--num_kv_heads", type=int, default=0,
-                   help="--init_demo GQA kv heads (0 = MHA)")
     p.add_argument("--slots", type=int, default=4)
-    p.add_argument("--prefill_len", type=int, default=None)
-    p.add_argument("--prefill_chunk", type=int, default=None)
-    p.add_argument("--min_bucket", type=int, default=None)
-    p.add_argument("--step_token_budget", type=int, default=None)
-    p.add_argument("--max_queue", type=int, default=64)
+    p.add_argument("--prefill_len", type=int, default=None,
+                   help="longest admissible prompt (default total_len/2)")
     p.add_argument("--kv_dtype", default="fp32", choices=["fp32", "int8"])
-    p.add_argument("--decode_attn", default="auto",
-                   choices=["auto", "flash", "reference"],
-                   help="'auto' is the CUDA kernel on the GPU")
     p.add_argument("--device", default=None,
                    help="default: the GPU; 'cpu' runs the plain versions")
     p.add_argument("--metrics_file", default=None)
@@ -82,7 +75,7 @@ def main(argv=None) -> None:
         spec = LMSpec(
             vocab_size=args.vocab_size, total_len=args.seq_len,
             d_model=args.d_model, depth=args.depth,
-            num_heads=args.num_heads, num_kv_heads=args.num_kv_heads,
+            num_heads=args.num_heads,
         )
         model = init_lm(spec, seed=args.seed, device=args.device)
     metrics = MetricsWriter(args.metrics_file)
@@ -90,12 +83,7 @@ def main(argv=None) -> None:
         model,
         slots=args.slots,
         prefill_len=args.prefill_len,
-        prefill_chunk=args.prefill_chunk,
-        min_bucket=args.min_bucket,
-        step_token_budget=args.step_token_budget,
-        max_queue=args.max_queue,
         metrics=metrics,
-        decode_attn=args.decode_attn,
         kv_dtype=args.kv_dtype,
     )
     stop = threading.Event()

@@ -89,7 +89,6 @@ class Completion:
 class _Slot:
     """Host-side bookkeeping for one lane."""
 
-    index: int = -1
     request: Optional[Request] = None
     tokens: list[int] = field(default_factory=list)
     # Tokens SCHEDULED on device for this request, including ones whose
@@ -175,7 +174,6 @@ def resolve_engine_knobs(
             f"slots ({slots}) x decode tokens per lane (1)"
         )
     return {
-        "slots": slots,
         "prefill_len": prefill_len,
         "decode_attn": decode_attn,
         "kv_dtype": kv_dtype,
@@ -259,7 +257,7 @@ class ServeEngine:
             clock=clock,
         )
         self.buckets = self.scheduler.bucket_list()
-        self._slots = [_Slot(index=i) for i in range(slots)]
+        self._slots = [_Slot() for _ in range(slots)]
         dev = self.device
         self._cache: SlotCache = init_slot_cache(
             spec, slots,

@@ -27,6 +27,7 @@ import json
 import math
 import threading
 import time
+import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
@@ -40,7 +41,7 @@ _IDLE_SLEEP_S = 0.002
 
 
 class LMServer:
-    """Engine + driver thread + ThreadingHTTPServer, lifecycle-managed.
+    """Engine + engine thread + ThreadingHTTPServer, lifecycle-managed.
 
     ``port=0`` binds an ephemeral port; ``server.port`` is the bound
     one. Use as a context manager or call ``start()``/``stop()``.
@@ -111,6 +112,7 @@ class LMServer:
                     if not busy:
                         time.sleep(_IDLE_SLEEP_S)
         except Exception as e:  # noqa: BLE001 — terminal, reported
+            traceback.print_exc()
             self._engine_error = f"{type(e).__name__}: {e}"
 
     def submit_and_wait(

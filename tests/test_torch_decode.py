@@ -115,6 +115,8 @@ def test_quantize_kv_matches_jax(scale):
     rng = np.random.default_rng(int(scale * 100))
     x = (rng.standard_normal((4, 16, 2, 8)) * scale).astype(np.float32)
     x[0, 3] = 0.0
+    # amax 127 → scale exactly 1: exact .5 ties, which round half to even.
+    x[1, 2, 0] = [127, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5]
     tq, ts = tdec.quantize_kv(torch.from_numpy(x))
     jq, js = jdec.quantize_kv(jnp.asarray(x))
     assert tq.dtype == torch.int8

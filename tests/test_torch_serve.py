@@ -126,6 +126,32 @@ def test_tail_chunk_near_unaligned_total_len_matches_jax():
     _assert_gaps(model, prompt, port_streams[0])
 
 
+def test_engine_chunk_calls_self_attend_only_the_first_chunk(monkeypatch):
+    """A 21-token prompt at chunk 8 / min_bucket 4 is ingested as chunks
+    (start, live, width) (0, 8, 8), (8, 8, 8), (16, 5, 8); only the
+    first self-attends (lane_attend=False), as the JAX engine's
+    first-chunk program does. At this model size int8 streams do not
+    show the difference, so the call itself is pinned."""
+    import ddp_tpu_torch.serve.engine as engine_mod
+
+    calls = []
+    real = engine_mod.prefill_chunk
+
+    def spy(model, cache, *state_and_args, lane_attend):
+        slot, chunk, start, live, final = state_and_args[5:10]
+        calls.append((start, live, chunk.shape[0], final, lane_attend))
+        return real(model, cache, *state_and_args, lane_attend=lane_attend)
+
+    monkeypatch.setattr(engine_mod, "prefill_chunk", spy)
+    _, _, model = make_pair(0)
+    eng = ServeEngine(model, slots=2, prefill_len=24, prefill_chunk=8,
+                      min_bucket=4, kv_dtype="int8")
+    eng.submit(list(range(21)), 3)
+    eng.run()
+    assert calls == [(0, 8, 8, False, False), (8, 8, 8, False, True),
+                     (16, 5, 8, True, True)]
+
+
 def test_engine_validation_and_stats():
     _, _, model = make_pair(0)
     with pytest.raises(ValueError, match="step_token_budget"):
