@@ -25,7 +25,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    match (a divergence passes only where the top-2 logit gap at the
    first divergent token is below 1e-3). Last, torch.profiler reads
    the device busy share of steady decode steps.
-5. A "kernels" JSON line, the card line, and the last line
+   (3b runs between 3 and 4.)
+3b. The flash-attention kernels B1 (forward), B2 (dQ) and B3 (dK/dV),
+   bf16 and fp32, against their plain versions: out, lse and the three
+   gradients through autograd (random dO, nonzero dLSE), then B2 and B3
+   alone, at full width causal and non-causal, T < S, T > S (empty
+   rows), a ragged T and head dim 64; then kernel, plain and SDPA
+   times beside the bound at the training shape, and fwd+bwd kernel vs
+   plain per length (the data for re-measuring FLASH_MIN_LEN).
+5. The training slice end to end: ``python -m ddp_tpu_torch.train``'s
+   own main() at the repo's full-width training configuration (bench.py
+   run_lm_bench: 111.3 M params, T 2048, batch 8, Adam 3e-4, bf16), 12
+   steps and an eval each epoch, launch counters set to 0 before and
+   read after (each of B1-B3 at least depth x steps times), finite
+   losses falling from epoch 1 to 2, a torch.profiler read of steady
+   steps, and one step through the kernels vs the plain attention from
+   the same weights and batch; then the fp32 variant at depth 2.
+6. A "kernels" JSON line, the card line, and the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -221,6 +237,235 @@ def check_kernels(torch) -> dict:
     return results
 
 
+# ---- phase 3b: flash attention B1-B3 against their plain versions ---------
+
+H100_BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM data sheet
+# fp32: kernel and plain version sum the same products in another order;
+# bf16: the kernel (bf16 tiles, P and dS rounded to bf16 for their
+# products, bf16 outputs) against the plain version run in fp32 on the
+# same bf16 inputs. Each is scaled by max(1, max |plain|) of the tensor.
+FLASH_TOL = {"fp32": 1e-4, "bf16": 2e-2}
+FLASH_SHAPES = [  # label, B, T, S, H, D, causal
+    ("full causal", 8, 2048, 2048, 8, 128, True),
+    ("full non-causal", 8, 2048, 2048, 8, 128, False),
+    ("causal T<S", 2, 512, 1536, 8, 128, True),
+    ("causal T>S (empty rows)", 2, 1536, 512, 8, 128, True),
+    ("causal ragged T=S=1000", 2, 1000, 1000, 8, 128, True),
+    ("causal head dim 64", 2, 1024, 1024, 16, 64, True),
+]
+FLASH_NAMES = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")
+
+
+def _flash_inputs(torch, B, T, S, H, D, dtype, seed):
+    """q/k/v as the model hands them over: strided views of one fused
+    [B, T, H, 3, D] projection when T == S (token stride 3·H·D), else
+    separate tensors; plus dO and a nonzero dLSE."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    if T == S:
+        qkv = rnd(B, T, H, 3, D)
+        q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    else:
+        q, k, v = rnd(B, T, H, D), rnd(B, S, H, D), rnd(B, S, H, D)
+    return q, k, v, rnd(B, T, H, D), torch.randn(B, T, H, generator=g,
+                                                  device="cuda")
+
+
+def _max_err(torch, got, want):
+    """max |got - want| (both -inf counts as equal) and max(1, |want|)."""
+    got, want = got.detach().float(), want.detach().float()
+    both_inf = torch.isinf(got) & torch.isinf(want) & (got == want)
+    diff = torch.where(both_inf, torch.zeros_like(got), (got - want).abs())
+    finite = want[torch.isfinite(want)]
+    scale = max(1.0, float(finite.abs().max())) if finite.numel() else 1.0
+    return float(diff.max()), scale
+
+
+def _flash_counts(B, T, S, H, D, causal, elem):
+    """(live (query, key) pairs, bytes of each kernel's inputs and
+    outputs read or written once) at this shape."""
+    if causal:
+        pairs = sum(max(0, min(S, t + 1 + S - T)) for t in range(T))
+    else:
+        pairs = T * S
+    pairs *= B * H
+    qo = B * T * H * D * elem  # q, out, dO or dq
+    kv = B * S * H * D * elem  # k, v, dk or dv
+    row = B * T * H * 4  # lse or delta
+    nbytes = {
+        "flash_attn_fwd": 2 * qo + 2 * kv + row,
+        "flash_attn_dq": 3 * qo + 2 * kv + 2 * row,
+        "flash_attn_dkv": 2 * qo + 4 * kv + 2 * row,
+    }
+    return pairs, nbytes
+
+
+def _flash_bound(name, pairs, nbytes, D, dtype_name):
+    """Least time on an H100: tile products (2 flops a multiply-add;
+    B1 does 2 products, B2 3, B3 4, over the live pairs) over the peak
+    of the dtype's units vs the bytes over the memory rate."""
+    products = {"flash_attn_fwd": 2, "flash_attn_dq": 3,
+                "flash_attn_dkv": 4}[name]
+    flops = 2 * products * pairs * D
+    peak = H100_BF16_FLOPS if dtype_name == "bf16" else H100_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes[name] / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_flash(torch) -> dict:
+    """Phase 3b: each of B1-B3 against its plain version on the card,
+    both dtypes, at every shape of FLASH_SHAPES (out, lse and the three
+    gradients through autograd with a random dO and nonzero dLSE, then
+    B2 and B3 alone); then times at the main path's shape and the
+    fwd+bwd kernel vs plain data for FLASH_MIN_LEN."""
+    import torch.nn.functional as F
+
+    from ddp_tpu_torch.ops import flash as fl
+
+    lib = fl._lib()
+    log("[flash] shared memory a block at D 128, bytes: " + ", ".join(
+        f"{name} {dname} {lib.flash_attn_smem_bytes(i, int(dname == 'bf16'), 128)}"
+        for i, name in enumerate(FLASH_NAMES) for dname in ("bf16", "fp32")))
+    results = {}
+    for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        errs = {n: 0.0 for n in FLASH_NAMES}
+        for i, (label, B, T, S, H, D, causal) in enumerate(FLASH_SHAPES):
+            q, k, v, dout, dlse = _flash_inputs(torch, B, T, S, H, D, dtype,
+                                                seed=i)
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            out, lse = fl.flash_attention_with_lse(*leaves, causal)
+            grads = torch.autograd.grad((out, lse), leaves, (dout, dlse))
+            ref_leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+            r_out, r_lse = fl.attention_with_lse_reference(*ref_leaves, causal)
+            r_grads = torch.autograd.grad((r_out, r_lse), ref_leaves,
+                                          (dout.float(), dlse))
+            # B2 and B3 alone, on the kernel forward's own out and lse.
+            delta = fl.backward_delta(out.detach(), dout, dlse)
+            dq2 = fl.flash_dq(q, k, v, dout, lse.detach(), delta, causal)
+            dk2, dv2 = fl.flash_dkv(q, k, v, dout, lse.detach(), delta, causal)
+            p_dq = fl.flash_dq_reference(q.float(), k.float(), v.float(),
+                                         dout.float(), lse.detach(), delta,
+                                         causal)
+            p_dk, p_dv = fl.flash_dkv_reference(
+                q.float(), k.float(), v.float(), dout.float(), lse.detach(),
+                delta, causal)
+            torch.cuda.synchronize()
+            checks = {
+                "flash_attn_fwd": [("out", out, r_out), ("lse", lse, r_lse)],
+                "flash_attn_dq": [("dq", grads[0], r_grads[0]),
+                                  ("dq alone", dq2, p_dq)],
+                "flash_attn_dkv": [("dk", grads[1], r_grads[1]),
+                                   ("dv", grads[2], r_grads[2]),
+                                   ("dk alone", dk2, p_dk),
+                                   ("dv alone", dv2, p_dv)],
+            }
+            parts = []
+            for name, items in checks.items():
+                for what, got, want in items:
+                    err, scale = _max_err(torch, got, want)
+                    parts.append(f"{what} {err:.2e}")
+                    if not err <= FLASH_TOL[dname] * scale:
+                        raise AssertionError(
+                            f"{name} {dname} {label}: {what} error {err} > "
+                            f"{FLASH_TOL[dname]} x {scale:.3g}")
+                    errs[name] = max(errs[name], err)
+            log(f"[flash] {dname} {label} B={B} T={T} S={S} H={H} D={D}: "
+                + ", ".join(parts) + f" (tolerance {FLASH_TOL[dname]} x "
+                "max(1, max|plain|))")
+            del q, k, v, out, lse, grads, r_out, r_lse, r_grads, leaves
+            torch.cuda.empty_cache()
+        results[dname] = _time_flash(torch, F, fl, dtype, dname, errs)
+    _flash_min_len_data(torch, fl)
+    return results
+
+
+def _time_flash(torch, F, fl, dtype, dname, errs) -> dict:
+    """Kernel, plain version and SDPA times at the main path's shape
+    (the training step's: B 8, T = S 2048, H 8, D 128, causal)."""
+    B, T, S, H, D, causal = 8, 2048, 2048, 8, 128, True
+    q, k, v, dout, _ = _flash_inputs(torch, B, T, S, H, D, dtype, seed=99)
+    out, lse = fl.flash_forward(q, k, v, causal)
+    delta = fl.backward_delta(out, dout)
+    qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
+    n, reps = (10, 5) if dname == "bf16" else (2, 3)
+    kernel = {
+        "flash_attn_fwd": lambda: fl.flash_forward(q, k, v, causal),
+        "flash_attn_dq": lambda: fl.flash_dq(q, k, v, dout, lse, delta, causal),
+        "flash_attn_dkv": lambda: fl.flash_dkv(q, k, v, dout, lse, delta,
+                                               causal),
+    }
+    plain = {
+        "flash_attn_fwd": lambda: fl.attention_with_lse_reference(
+            qf, kf, vf, causal),
+        "flash_attn_dq": lambda: fl.flash_dq_reference(
+            qf, kf, vf, df, lse, delta, causal),
+        "flash_attn_dkv": lambda: fl.flash_dkv_reference(
+            qf, kf, vf, df, lse, delta, causal),
+    }
+    # The yardstick: SDPA forward, and its backward (dq, dk and dv in one
+    # call), on the same tensors in [B, H, T, D]; timed only.
+    qs, ks, vs = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    sdpa_fwd_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True), n=n, reps=reps)
+    o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    do_s = dout.transpose(1, 2)
+    sdpa_bwd_ms = _median_ms(torch, lambda: torch.autograd.grad(
+        o_s, (qs, ks, vs), do_s, retain_graph=True), n=n, reps=reps)
+    pairs, nbytes = _flash_counts(B, T, S, H, D, causal, q.element_size())
+    res = {}
+    for name in FLASH_NAMES:
+        ms = _median_ms(torch, kernel[name], n=n, reps=reps)
+        plain_ms = _median_ms(torch, plain[name], n=2, reps=3)
+        bound_ms, bound_by = _flash_bound(name, pairs, nbytes, D, dname)
+        library_ms = sdpa_fwd_ms if name == "flash_attn_fwd" else None
+        log(f"[flash] {name} {dname} B={B} T=S={T} H={H} D={D} causal: "
+            f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+            f"sdpa {'fwd' if library_ms else 'bwd (dq+dk+dv)'} "
+            f"{(library_ms or sdpa_bwd_ms) * 1e3:.1f} us, bound "
+            f"{bound_ms * 1e3:.1f} us ({bound_by}), "
+            f"{bound_ms / ms:.3f} of the bound")
+        res[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms, sdpa_bwd_ms=sdpa_bwd_ms)
+    del q, k, v, dout, out, lse, qs, ks, vs, o_s
+    torch.cuda.empty_cache()
+    return res
+
+
+def _flash_min_len_data(torch, fl) -> None:
+    """fwd+bwd time, kernel vs plain (and the dense bf16 path of
+    ops.attention), at B 8, H 8, D 128, causal, bf16, per length: the
+    data for re-measuring FLASH_MIN_LEN on this card."""
+    from ddp_tpu_torch.ops.attention import dot_product_attention
+
+    for T in (256, 512, 1024, 2048):
+        q, k, v, dout, _ = _flash_inputs(torch, 8, T, T, 8, 128,
+                                         torch.bfloat16, seed=T)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+        def run(fn):
+            out = fn(*leaves)
+            torch.autograd.grad(out, leaves, dout)
+
+        ms = {
+            "kernel": _median_ms(torch, lambda: run(
+                lambda *a: fl.flash_attention(*a, True)), n=5, reps=3),
+            "plain": _median_ms(torch, lambda: run(
+                lambda *a: fl.attention_with_lse_reference(*a, True)[0]),
+                n=2, reps=3),
+            "dense bf16": _median_ms(torch, lambda: run(
+                lambda *a: dot_product_attention(*a, causal=True)),
+                n=2, reps=3),
+        }
+        log(f"[flash] FLASH_MIN_LEN data, T={T} bf16 causal fwd+bwd: "
+            + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in ms.items()))
+        del q, k, v, dout, leaves
+        torch.cuda.empty_cache()
+
+
 # ---- phase 4: the serving slice end to end ----------------------------
 
 
@@ -386,6 +631,178 @@ def profile_steps(torch, model, *, steps=16) -> None:
             f"x{e.count // steps:<3d} {e.key[:90]}")
 
 
+# ---- phase 5: the training slice end to end ----------------------------
+
+# The repo's full-width training configuration (bench.py run_lm_bench:
+# vocab 8192, d_model 1024, depth 8, 8 heads, T 2048, batch 8, Adam 3e-4,
+# bf16 compute): 48 sequences = 6 steps per epoch, an eval of 8.
+TRAIN_ARGS = [
+    "--model", "causal_lm", "--dataset", "synthetic_seq",
+    "--synthetic_size", "48", "--seq_len", "2048", "--vocab_size", "8192",
+    "--model_dim", "1024", "--model_depth", "8", "--num_heads", "8",
+    "--batch_size", "8", "--epochs", "2", "--optimizer", "adam",
+    "--lr", "3e-4", "--compute_dtype", "bfloat16",
+]
+# The fp32 variants on the same path: depth 2, one epoch.
+TRAIN_FP32_ARGS = TRAIN_ARGS[:-1] + ["float32"]
+TRAIN_FP32_ARGS[TRAIN_FP32_ARGS.index("--model_depth") + 1] = "2"
+TRAIN_FP32_ARGS[TRAIN_FP32_ARGS.index("--epochs") + 1] = "1"
+# One step through the kernels vs through the plain attention, from the
+# same weights and batch: relative error of the loss and of the whole
+# gradient vector. bf16: the kernel rounds P and dS to bf16 for their
+# products, the plain version does not; fp32: summation order only.
+STEP_TOL = {"bf16": (1e-2, 5e-2), "fp32": (1e-4, 1e-3)}
+
+
+def _lm_flops_per_token(spec) -> float:
+    """Training flops per token, bench.py run_lm_bench's estimate: 6·N
+    (tied embedding counted once) + causal attention 3.5 × 2 matmuls ×
+    T/2 keys × d × depth."""
+    d, T = spec.d_model, spec.total_len
+    n_params = spec.depth * 12 * d * d + spec.vocab_size * d
+    return 6 * n_params + 3.5 * 2 * 2 * (T / 2) * d * spec.depth
+
+
+def _zero(counts: dict) -> None:
+    for k in counts:
+        counts[k] = 0
+
+
+def compare_step(torch, trainer, dname, *, batch=2) -> None:
+    """One Adam step from the trainer's current weights on its first
+    ``batch`` sequences, through the kernels and through the plain
+    attention; the plain run must launch nothing."""
+    from ddp_tpu_torch.models.lm import CausalLM, make_lm_train_step
+    from ddp_tpu_torch.ops import flash as fl
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    state = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    toks = trainer.tokens[:batch]
+    out = {}
+    for path, block_fn in (("kernel", None),
+                           ("plain", fl.attention_with_lse_reference)):
+        model = CausalLM.from_state(trainer.spec, state, trainer.device,
+                                    trainable=True)
+        opt = make_optimizer(model.parameters(), "adam", lr=3e-4)
+        step = make_lm_train_step(model, opt,
+                                  compute_dtype=trainer.compute_dtype,
+                                  block_fn=block_fn)
+        if path == "plain":
+            _zero(fl.flash_attention.launches)
+        m = step(toks)
+        grad = torch.cat([p.grad.flatten() for p in model.parameters()])
+        torch.cuda.synchronize()
+        out[path] = (float(m.loss), grad)
+        if path == "plain" and any(fl.flash_attention.launches.values()):
+            raise AssertionError(
+                f"the plain path launched {fl.flash_attention.launches}")
+        del model, opt, step
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    loss_err = abs(lk - lp) / abs(lp)
+    grad_err = float((gk - gp).norm() / gp.norm())
+    tol_loss, tol_grad = STEP_TOL[dname]
+    log(f"[train] {dname} one step, kernel vs plain attention "
+        f"(batch {batch}): loss {lk:.6f} vs {lp:.6f} (rel {loss_err:.2e}, "
+        f"tolerance {tol_loss}), gradient rel err {grad_err:.2e} "
+        f"(tolerance {tol_grad})")
+    if not (loss_err <= tol_loss and grad_err <= tol_grad):
+        raise AssertionError(f"{dname} kernel step disagrees with plain")
+    del out, gk, gp
+    torch.cuda.empty_cache()
+
+
+def profile_train_steps(torch, trainer, *, steps=3) -> None:
+    """Device busy share of steady training steps from torch.profiler:
+    summed CUDA kernel time over the wall time of ``steps`` steps, and
+    the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B = trainer.config.batch_size
+    batches = [trainer.tokens[i * B:(i + 1) * B] for i in range(steps + 1)]
+    trainer.runner.step(batches[0])  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            trainer.runner.step(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    if not rows:
+        log("[profile] torch.profiler reported no device time")
+        return
+    busy_us = sum(e.self_device_time_total for e in rows)
+    flash_us = sum(e.self_device_time_total for e in rows
+                   if "fwd_kernel" in e.key or "dq_kernel" in e.key
+                   or "dkv_kernel" in e.key)
+    log(f"[profile] {steps} training steps (bf16, batch {B}, T "
+        f"{trainer.config.seq_len}): wall {wall * 1e3:.2f} ms, device kernel "
+        f"time {busy_us / 1e3:.2f} ms, busy share {busy_us / 1e6 / wall:.3f}, "
+        f"flash kernels B1-B3 {flash_us / busy_us:.3f} of device time")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[profile]   {e.self_device_time_total / steps / 1e3:9.2f} "
+            f"ms/step x{e.count // steps:<4d} {e.key[:90]}")
+
+
+def check_training(torch) -> dict:
+    """Phase 5: ``python -m ddp_tpu_torch.train``'s own main() at the
+    full width (bf16), then its fp32 variant at depth 2 → the launch
+    counts of each run, by counter name."""
+    from ddp_tpu_torch.ops import flash as fl
+    from ddp_tpu_torch.train.trainer import main as train_main
+
+    launches = fl.flash_attention.launches
+    counted = {}
+    for args, dname in ((TRAIN_ARGS, "bf16"), (TRAIN_FP32_ARGS, "fp32")):
+        log(f"[train] python -m ddp_tpu_torch.train {' '.join(args)}")
+        _zero(launches)
+        trainer = train_main(args)
+        torch.cuda.synchronize()
+        got = dict(launches)
+        spec, cfg = trainer.spec, trainer.config
+        steps = trainer.runner.steps_per_epoch * cfg.epochs
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        want = spec.depth * steps
+        log(f"[train] {dname}: {n_params / 1e6:.1f} M params, {steps} steps, "
+            f"launches {got} (depth x steps = {want})")
+        for name in FLASH_NAMES:
+            if got[f"{name}_{dname}"] < want:
+                raise AssertionError(f"{name} {dname}: {got} < {want}")
+        other = "fp32" if dname == "bf16" else "bf16"
+        if any(got[f"{n}_{other}"] for n in FLASH_NAMES):
+            raise AssertionError(f"{other} kernels launched in a {dname} run")
+        losses = [l for h in trainer.history for l in h["loss"]]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite loss in {losses}")
+        flops = _lm_flops_per_token(spec)
+        for h in trainer.history:
+            p50_rate = cfg.batch_size * cfg.seq_len / h["step_p50_s"]
+            mfu = (f", est. MFU {p50_rate * flops / H100_BF16_FLOPS:.3f}"
+                   if dname == "bf16" else "")
+            log(f"[train] {dname} epoch {h['epoch']}: mean loss "
+                f"{h['train_loss']:.4f}, test loss {h['test_loss']:.4f}, "
+                f"tokens/s {h['tokens_per_s']:.1f} (epoch wall), "
+                f"{p50_rate:.1f} at the p50 step{mfu}, step p50 "
+                f"{h['step_p50_s'] * 1e3:.2f} ms, steps "
+                + ", ".join(f"{s * 1e3:.1f}" for s in h["step_seconds"]))
+        if dname == "bf16":
+            first, second = (h["train_loss"] for h in trainer.history)
+            if not second < first:
+                raise AssertionError(f"loss did not fall: {first} -> {second}")
+            counted["bf16"] = {n: got[f"{n}_bf16"] for n in FLASH_NAMES}
+            profile_train_steps(torch, trainer)
+        else:
+            counted["fp32"] = {n: got[f"{n}_fp32"] for n in FLASH_NAMES}
+        compare_step(torch, trainer, dname)
+        del trainer
+        torch.cuda.empty_cache()
+    return counted
+
+
 def check_serving(torch) -> dict:
     from ddp_tpu_torch.models.lm import LMSpec, init_lm
     from ddp_tpu_torch.ops import decode as dec
@@ -475,10 +892,15 @@ def main() -> int:
     log(f"[build] {json.dumps(seconds)} (wall {time.perf_counter() - t0:.2f} s)")
 
     timings = check_kernels(torch)
+    flash = check_flash(torch)
     launches = check_serving(torch)
+    trained = check_training(torch)
 
     replaces = {"flash_decode_fp32": "ddp_tpu/ops/decode.py:260",
-                "flash_decode_int8": "ddp_tpu/ops/decode.py:270"}
+                "flash_decode_int8": "ddp_tpu/ops/decode.py:270",
+                "flash_attn_fwd": "ddp_tpu/ops/flash.py:88",
+                "flash_attn_dq": "ddp_tpu/ops/flash.py:152",
+                "flash_attn_dkv": "ddp_tpu/ops/flash.py:209"}
     kernels = [
         {"name": name, "route": "cuda",
          "source": "ddp_tpu_torch/ops/csrc/flash_decode.cu",
@@ -486,6 +908,21 @@ def main() -> int:
          **timings[name]}
         for name in ("flash_decode_fp32", "flash_decode_int8")
     ]
+    # B1-B3: the bf16 variant is the main path (the training run's
+    # numbers); the fp32 variant's, from its own run, ride beside them.
+    for name in FLASH_NAMES:
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ddp_tpu_torch/ops/csrc/flash_attn.cu",
+            "replaces": replaces[name], "launches": trained["bf16"][name],
+            **{k: flash["bf16"][name][k] for k in keys},
+            "sdpa_bwd_ms": flash["bf16"][name]["sdpa_bwd_ms"],
+            "variants": {"fp32": {
+                "launches": trained["fp32"][name],
+                **{k: flash["fp32"][name][k] for k in keys}}},
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

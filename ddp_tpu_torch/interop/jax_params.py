@@ -93,3 +93,36 @@ def lm_params_from_jax(
     if extra:
         raise ValueError(f"unexpected parameters {extra[:5]}")
     return derive_lm_spec(state, num_heads=num_heads), state
+
+
+def lm_params_to_jax(state) -> dict:
+    """A CausalLM state dict (arrays or tensors, e.g. ``model.state_dict()``
+    or the gradients keyed alike) → the nested JAX tree of numpy fp32
+    arrays; the inverse of :func:`lm_params_from_jax`."""
+
+    def arr(x):
+        if hasattr(x, "detach"):
+            x = x.detach().float().cpu().numpy()
+        return np.asarray(x, np.float32)
+
+    tree: dict = {}
+
+    def put(path: str, value) -> None:
+        node = tree
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+
+    for key, val in state.items():
+        *mod, kind = key.split(".")
+        path = "/".join(mod)
+        if kind == "weight" and mod[-1] in ("ln1", "ln2", "ln_final"):
+            put(path + "/scale", arr(val))
+        elif kind == "weight":
+            put(path + "/kernel", np.ascontiguousarray(arr(val).T))
+        elif kind == "bias":
+            put(path + "/bias", arr(val))
+        else:  # embed, pos_embed
+            put(key, arr(val))
+    return tree

@@ -10,8 +10,17 @@ transposes alone. Numerics follow Flax: LayerNorm in fp32 with eps
 1e-6, tanh-approximated GELU, and the fused qkv columns head-major
 ``[H, 3, Dh]`` under MHA and group-major ``[H_kv, G+2, Dh]`` under GQA.
 
-MoE blocks, tensor/expert/sequence parallelism and training wait for
-later slices; this module serves.
+It serves (``forward``, the slot-level decode in ``models/generate``)
+and trains: ``train_forward`` casts the fp32 master weights to the
+compute dtype inside the forward, as ``ddp_tpu.models.lm`` does
+(``lm.py:368-371``), and sends attention through
+``parallel/ring.ring_attention`` → ``default_block_fn`` (the flash
+kernels B1–B3 on a CUDA tensor), as the JAX step does through
+``_sharded_lm``. ``make_lm_train_step`` / ``make_lm_eval_step`` are the
+one-rank counterparts of the JAX steps (``lm.py:492-712``).
+
+MoE blocks, remat and tensor/expert/sequence parallelism wait for
+later slices.
 """
 
 from __future__ import annotations
@@ -25,6 +34,9 @@ from torch import nn
 
 from ddp_tpu_torch.device import resolve_device
 from ddp_tpu_torch.ops.attention import dot_product_attention
+from ddp_tpu_torch.parallel.ddp import StepMetrics
+from ddp_tpu_torch.parallel.ring import ring_attention
+from ddp_tpu_torch.train.optim import global_norm
 
 LN_EPS = 1e-6  # Flax's LayerNorm default (torch's is 1e-5)
 
@@ -172,16 +184,27 @@ class CausalLM(nn.Module):
         return self.embed.device
 
     @classmethod
-    def from_state(cls, spec: LMSpec, state: dict, device=None) -> "CausalLM":
+    def from_state(
+        cls, spec: LMSpec, state: dict, device=None, *, trainable: bool = False
+    ) -> "CausalLM":
         """Build on ``device`` (the GPU unless ``"cpu"`` is asked for)
-        from a state dict of arrays or tensors; inference only."""
+        from a state dict of arrays or tensors. Inference only, unless
+        ``trainable``: then the fp32 weights are the master copy and
+        require gradients."""
         dev = resolve_device(device)
         model = cls(spec)
         model.load_state_dict(
-            {k: torch.as_tensor(np.asarray(v)) for k, v in state.items()},
+            {
+                k: v.detach() if torch.is_tensor(v)
+                else torch.as_tensor(np.array(v))
+                for k, v in state.items()
+            },
             strict=True,
         )
-        return model.to(dev).requires_grad_(False).eval()
+        model = model.to(dev).float()
+        if trainable:
+            return model.requires_grad_(True).train()
+        return model.requires_grad_(False).eval()
 
     def head(self, x):
         """Final LayerNorm → tied-embedding logits, fp32."""
@@ -204,6 +227,179 @@ class CausalLM(nn.Module):
             )
             x = blk.finish(x, attn.reshape(*x.shape))
         return self.head(x)
+
+    def train_forward(self, tokens, *, compute_dtype=torch.float32,
+                      block_fn=None):
+        """The training forward → [B, T, vocab] fp32 logits.
+
+        Every parameter is cast to ``compute_dtype`` here, so gradients
+        flow back through the cast into the fp32 masters. LayerNorms
+        compute in fp32 and cast back (``vit.py:203,215``); ``ln_final``
+        and the tied-head logits stay fp32 (``lm.py:129-131``). Under GQA
+        K/V are repeated to H heads before attention (``vit.py:152``).
+        ``block_fn`` overrides the attention block of the one-rank ring
+        (``parallel.ring.default_block_fn`` by default).
+        """
+        s = self.spec
+        p = {
+            name: w if w.dtype == compute_dtype else w.to(compute_dtype)
+            for name, w in self.named_parameters()
+        }
+
+        def norm(x, name):
+            return F.layer_norm(
+                x.float(), (s.d_model,), p[name + ".weight"].float(),
+                p[name + ".bias"].float(), LN_EPS,
+            )
+
+        def dense(x, name):
+            return F.linear(x, p[name + ".weight"], p[name + ".bias"])
+
+        B, T = tokens.shape
+        x = p["embed"][tokens.long()] + p["pos_embed"][:, :T]
+        G = s.num_heads // s.kv_heads
+        for i in range(1, s.depth + 1):
+            b = f"block{i}."
+            y = norm(x, b + "ln1").to(x.dtype)
+            q, k, v = split_qkv(dense(y, b + "attn.qkv"), s.num_heads,
+                                s.kv_heads, s.head_dim)
+            if G > 1:
+                k = k.repeat_interleave(G, dim=2)
+                v = v.repeat_interleave(G, dim=2)
+            o = ring_attention(q, k, v, causal=True, block_fn=block_fn)
+            x = x + dense(o.reshape(B, T, s.d_model), b + "attn.proj")
+            y = norm(x, b + "ln2").to(x.dtype)
+            h = F.gelu(dense(y, b + "mlp1"), approximate="tanh")
+            x = x + dense(h, b + "mlp2")
+        x = norm(x, "ln_final")
+        return x @ p["embed"].float().T
+
+
+# ---- training and evaluation steps -------------------------------------
+
+
+def _per_token_nll(logits32, targets, label_smoothing: float):
+    """[B, T] next-token NLL from fp32 logits (``lm.py:402``): with
+    smoothing ε, against (1−ε)·one-hot + ε·uniform, from log-probs."""
+    if label_smoothing:
+        eps = label_smoothing
+        logp = torch.log_softmax(logits32, dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        return (1.0 - eps) * nll - (eps / logits32.shape[-1]) * logp.sum(-1)
+    # Classes on the last dim of a 2-D view: the row softmax kernel, not
+    # the strided "spatial" one a [B, V, T] layout would take.
+    B, T, V = logits32.shape
+    return F.cross_entropy(
+        logits32.reshape(B * T, V), targets.reshape(B * T), reduction="none"
+    ).reshape(B, T)
+
+
+def _shifted_targets(tokens):
+    """Position t predicts token t+1; the last position has no target
+    (target 0, weight 0) → (targets [B, T] int64, mask [T] fp32)."""
+    tokens = tokens.long()
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], 1)
+    mask = torch.ones(tokens.shape[1], device=tokens.device)
+    mask[-1] = 0.0
+    return targets, mask
+
+
+def next_token_loss(logits, tokens, *, label_smoothing: float = 0.0):
+    """Mean causal-LM loss over the B·(T−1) targets (``lm.py:266``)."""
+    targets, mask = _shifted_targets(tokens)
+    per_tok = _per_token_nll(logits.float(), targets, label_smoothing)
+    return (per_tok * mask).sum() / (mask.sum() * tokens.shape[0])
+
+
+def _token_metrics(logits, tokens, label_smoothing: float):
+    """(mean loss, correct count) over the next-token targets — the
+    one-rank ``_make_sharded_token_metrics`` (``lm.py:414``)."""
+    targets, mask = _shifted_targets(tokens)
+    correct = ((logits.argmax(-1) == targets).float() * mask).sum()
+    loss = next_token_loss(logits, tokens, label_smoothing=label_smoothing)
+    return loss, correct
+
+
+def make_lm_train_step(
+    model: CausalLM,
+    optimizer,
+    *,
+    compute_dtype=torch.float32,
+    grad_accum_steps: int = 1,
+    label_smoothing: float = 0.0,
+    block_fn=None,
+):
+    """The one-rank causal-LM step (``lm.py:572``): ``step(tokens) ->
+    StepMetrics`` updates ``model``'s parameters in place.
+
+    ``grad_accum_steps=k`` splits the batch into k STRIDED microbatches
+    (rows ``i::k``, ``lm.py:650-656``), sums their gradients and divides
+    by k. Loss is the mean next-token cross-entropy, accuracy the
+    next-token top-1, grad_norm the global norm of the (averaged,
+    unclipped) gradient. Metrics stay on the device: no host read.
+    """
+    params = [p for p in model.parameters() if p.requires_grad]
+    if not params:
+        raise ValueError("the model has no trainable parameters: build it "
+                         "with CausalLM.from_state(..., trainable=True)")
+
+    def loss_and_correct(tokens):
+        logits = model.train_forward(
+            tokens, compute_dtype=compute_dtype, block_fn=block_fn
+        )
+        return _token_metrics(logits, tokens, label_smoothing)
+
+    def step(tokens) -> StepMetrics:
+        B, T = tokens.shape
+        for p in params:
+            p.grad = None
+        if grad_accum_steps == 1:
+            loss, correct = loss_and_correct(tokens)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            if B % grad_accum_steps:
+                raise ValueError(
+                    f"batch {B} not divisible by grad_accum_steps "
+                    f"{grad_accum_steps}"
+                )
+            loss = correct = 0.0
+            for i in range(grad_accum_steps):
+                l_i, c_i = loss_and_correct(tokens[i::grad_accum_steps])
+                l_i.backward()
+                loss = loss + l_i.detach()
+                correct = correct + c_i
+            for p in params:
+                p.grad.div_(grad_accum_steps)
+            loss = loss / grad_accum_steps
+        grads = [p.grad for p in params]
+        grad_norm = global_norm(grads)
+        optimizer.step()
+        return StepMetrics(
+            loss=loss, accuracy=correct / (B * (T - 1)), grad_norm=grad_norm
+        )
+
+    return step
+
+
+def make_lm_eval_step(model: CausalLM, *, compute_dtype=torch.float32):
+    """Eval over held-out tokens (``lm.py:492``): ``step(tokens,
+    weights) -> (Σ w·per-sequence token accuracy, Σ w·per-sequence mean
+    loss)``, device scalars; the caller divides by the split size."""
+
+    @torch.no_grad()
+    def step(tokens, weights):
+        logits = model.train_forward(tokens, compute_dtype=compute_dtype)
+        targets, mask = _shifted_targets(tokens)
+        logits32 = logits.float()
+        per_tok = _per_token_nll(logits32, targets, 0.0)
+        denom = tokens.shape[1] - 1
+        seq_loss = (per_tok * mask).sum(1) / denom
+        seq_acc = ((logits32.argmax(-1) == targets).float() * mask).sum(1) / denom
+        w = weights.float()
+        return (seq_acc * w).sum(), (seq_loss * w).sum()
+
+    return step
 
 
 def init_lm_state(spec: LMSpec, *, seed: int = 0) -> dict[str, np.ndarray]:

@@ -1,15 +1,22 @@
-"""Plain softmax attention on [B, T, H, D] tensors.
+"""Attention on [B, T, H, D] tensors.
 
-The PyTorch counterpart of ``ddp_tpu/ops/attention.py``'s
-``dot_product_attention``: the chunked-prefill attention of the serving
-engine and the dense causal forward of ``models/lm.CausalLM``. Plain
-torch by design (einsum + softmax); the training-side flash kernels
-(B1–B3) arrive with a later slice.
+The PyTorch counterpart of ``ddp_tpu/ops/attention.py``:
+
+- ``dot_product_attention`` — plain torch by design (einsum + softmax):
+  the chunked-prefill attention of the serving engine and the dense
+  causal forward of ``models/lm.CausalLM``.
+- ``best_attention`` — the framework's default ``(q, k, v) -> out``:
+  the flash kernels B1–B3 (``ops/flash.py``) on a CUDA tensor at every
+  length, ``dot_product_attention`` on the CPU. The JAX package switches
+  to its kernel only from ``FLASH_MIN_LEN = 1024`` keys, a TPU v5e
+  measurement; chip_smoke.py prints the H100 data for re-measuring it.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ddp_tpu_torch.ops.flash import flash_attention
 
 # Large-negative mask value (not -inf): a fully masked row stays finite.
 MASK_VALUE = -0.5 * torch.finfo(torch.float32).max
@@ -37,3 +44,15 @@ def dot_product_attention(q, k, v, *, causal: bool = False, q_offset=None):
         logits = logits.masked_fill(~mask, MASK_VALUE)
     weights = torch.softmax(logits, dim=-1)
     return torch.einsum("bhts,bshd->bthd", weights.to(dtype), v)
+
+
+def best_attention(*, causal: bool = False):
+    """Device-resolved default attention → ``(q, k, v) -> out``: the
+    flash kernels on a CUDA tensor, the plain path elsewhere."""
+
+    def fn(q, k, v):
+        if q.device.type == "cuda":
+            return flash_attention(q, k, v, causal)
+        return dot_product_attention(q, k, v, causal=causal)
+
+    return fn
