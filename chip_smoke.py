@@ -25,12 +25,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    match (a divergence passes only where the top-2 logit gap at the
    first divergent token is below 1e-3). Last, torch.profiler reads
    the device busy share of steady decode steps.
-   (3b runs between 3 and 4.)
-3b. The flash-attention kernels B1 (forward), B2 (dQ) and B3 (dK/dV),
-   bf16 and fp32, against their plain versions: out, lse and the three
-   gradients through autograd (random dO, nonzero dLSE), then B2 and B3
-   alone, at full width causal and non-causal, T < S, T > S (empty
-   rows), a ragged T and head dim 64; then kernel, plain and SDPA
+3b. (Runs after 4, so that its large allocations come after the serving
+   run's timings.) The flash-attention kernels B1 (forward), B2 (dQ) and
+   B3 (dK/dV), bf16 and fp32, against their plain versions: out, lse and
+   the three gradients through autograd (random dO, nonzero dLSE), then
+   B2 and B3 alone, at full width causal and non-causal, T < S, T > S
+   (empty rows), a ragged T and head dim 64, each tensor held to a
+   relative norm error and an element-wise atol + rtol·|want|
+   (FLASH_TOL); two wrong attentions (a dropped interior tile, a dropped
+   ragged tail) must fail the same check. Then kernel, plain and SDPA
    times beside the bound at the training shape, and fwd+bwd kernel vs
    plain per length (the data for re-measuring FLASH_MIN_LEN).
 5. The training slice end to end: ``python -m ddp_tpu_torch.train``'s
@@ -40,7 +43,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    read after (each of B1-B3 at least depth x steps times), finite
    losses falling from epoch 1 to 2, a torch.profiler read of steady
    steps, and one step through the kernels vs the plain attention from
-   the same weights and batch; then the fp32 variant at depth 2.
+   the same weights and batch (loss, whole gradient and every parameter's
+   gradient, STEP_TOL; a B3 that drops a dK tile must fail the same
+   limits); then the fp32 variant at depth 2.
 6. A "kernels" JSON line, the card line, and the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -240,11 +245,14 @@ def check_kernels(torch) -> dict:
 # ---- phase 3b: flash attention B1-B3 against their plain versions ---------
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM data sheet
-# fp32: kernel and plain version sum the same products in another order;
-# bf16: the kernel (bf16 tiles, P and dS rounded to bf16 for their
-# products, bf16 outputs) against the plain version run in fp32 on the
-# same bf16 inputs. Each is scaled by max(1, max |plain|) of the tensor.
-FLASH_TOL = {"fp32": 1e-4, "bf16": 2e-2}
+# Each tensor is held to both limits: its relative norm error
+# |got - want| / |want| <= rel, and every element |got - want| <= atol +
+# rtol·|want|. fp32: kernel and plain version sum the same products in
+# another order. bf16: the kernel (bf16 tiles, P and dS rounded to bf16
+# for their products, bf16 outputs) against the plain version run in fp32
+# on the same bf16 inputs.
+FLASH_TOL = {"fp32": dict(rel=1e-5, atol=1e-4, rtol=0.0),
+             "bf16": dict(rel=1e-2, atol=1e-2, rtol=2e-2)}
 FLASH_SHAPES = [  # label, B, T, S, H, D, causal
     ("full causal", 8, 2048, 2048, 8, 128, True),
     ("full non-causal", 8, 2048, 2048, 8, 128, False),
@@ -274,14 +282,86 @@ def _flash_inputs(torch, B, T, S, H, D, dtype, seed):
                                                   device="cuda")
 
 
-def _max_err(torch, got, want):
-    """max |got - want| (both -inf counts as equal) and max(1, |want|)."""
+def _compare(torch, got, want, tol) -> tuple[bool, str]:
+    """got vs want under ``tol`` → (within both limits, a reading): the
+    relative norm error, the worst element's share of atol + rtol·|want|,
+    and want's scale (max and median |want|). Equal infinities (an empty
+    row's lse) count as equal; an infinity against a finite value, or a
+    NaN, fails."""
     got, want = got.detach().float(), want.detach().float()
-    both_inf = torch.isinf(got) & torch.isinf(want) & (got == want)
-    diff = torch.where(both_inf, torch.zeros_like(got), (got - want).abs())
-    finite = want[torch.isfinite(want)]
-    scale = max(1.0, float(finite.abs().max())) if finite.numel() else 1.0
-    return float(diff.max()), scale
+    finite = torch.isfinite(want)
+    diff = torch.where(finite, (got - want).abs(),
+                       torch.where(got == want, 0.0, float("inf")))
+    mag = torch.where(finite, want.abs(), 0.0)
+    rel = float(torch.where(finite, diff, 0.0).norm() / mag.norm())
+    share = float((diff / (tol["atol"] + tol["rtol"] * mag)).max())
+    ok = rel <= tol["rel"] and share <= 1.0
+    return ok, (f"rel {rel:.2e} worst {share:.2f} (max|d| "
+                f"{float(diff.max()):.2e}, |want| max {float(mag.max()):.3g} "
+                f"median {float(mag[finite].median()):.2e})")
+
+
+def _with_grads(torch, fn, q, k, v, dout, dlse):
+    """fn(q, k, v) -> (out, lse) on fresh leaves → out, lse and the three
+    gradients for the cotangents (dO, dLSE)."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out, lse = fn(*leaves)
+    grads = torch.autograd.grad((out, lse), leaves,
+                                (dout.to(out.dtype), dlse))
+    return dict(out=out.detach(), lse=lse.detach(), dq=grads[0],
+                dk=grads[1], dv=grads[2])
+
+
+def _masked_attention(torch, mask):
+    """Dense fp32 attention → (out, lse) under an explicit [T, S] mask:
+    a kernel that attends the wrong keys, for the negative controls."""
+    def fn(q, k, v):
+        s = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+        s = (s * q.shape[-1] ** -0.5).masked_fill(~mask, float("-inf"))
+        lse = torch.logsumexp(s, dim=-1)
+        out = torch.einsum("bhts,bshd->bthd", torch.exp(s - lse[..., None]),
+                           v.float())
+        return out, lse.transpose(1, 2)
+    return fn
+
+
+def _reject_wrong_kernels(torch, fl, dtype, dname) -> list[str]:
+    """Negative controls: the phase-3b check must reject an attention
+    that is wrong by a typical amount. At the ragged shape (B 2, T = S
+    1000, H 8, D 128, causal), a dense attention that drops one interior
+    64-key tile (keys 512-575 for queries 576 on), or the off-diagonal
+    keys of the ragged last tile (queries 960-999 see keys < 960 and
+    themselves), is held against the plain version as the kernel is; each
+    of out, dq, dk and dv must fail → what did not."""
+    B, T, H, D = 2, 1000, 8, 128
+    q, k, v, dout, dlse = _flash_inputs(torch, B, T, T, H, D, dtype, seed=4)
+    want = _with_grads(
+        torch, lambda *a: fl.attention_with_lse_reference(*a, True),
+        q.float(), k.float(), v.float(), dout.float(), dlse)
+    idx = torch.arange(T, device="cuda")
+    causal = idx[:, None] >= idx[None, :]
+    tile = causal.clone()
+    tile[576:, 512:576] = False
+    ragged = causal.clone()
+    ragged[960:, 960:] = torch.eye(T - 960, dtype=torch.bool, device="cuda")
+    tol = FLASH_TOL[dname]
+    failed = []
+    for label, mask in (("interior tile 512-575 dropped", tile),
+                        ("ragged last tile's off-diagonal keys dropped",
+                         ragged)):
+        got = _with_grads(torch, _masked_attention(torch, mask), q, k, v,
+                          dout, dlse)
+        parts, passed = [], []
+        for what in ("out", "dq", "dk", "dv"):
+            ok, text = _compare(torch, got[what], want[what], tol)
+            parts.append(f"{what} {text}")
+            if ok:
+                passed.append(what)
+        log(f"[flash] {dname} control, {label}: " + "; ".join(parts))
+        if passed:
+            failed.append(f"the check passes a wrong attention ({label}): "
+                          f"{passed}")
+    return failed
 
 
 def _flash_counts(B, T, S, H, D, causal, elem):
@@ -319,8 +399,10 @@ def check_flash(torch) -> dict:
     """Phase 3b: each of B1-B3 against its plain version on the card,
     both dtypes, at every shape of FLASH_SHAPES (out, lse and the three
     gradients through autograd with a random dO and nonzero dLSE, then
-    B2 and B3 alone); then times at the main path's shape and the
-    fwd+bwd kernel vs plain data for FLASH_MIN_LEN."""
+    B2 and B3 alone), each tensor within FLASH_TOL, and two wrong
+    attentions outside it; then times at the main path's shape and the
+    fwd+bwd kernel vs plain data for FLASH_MIN_LEN. Every reading is
+    printed before a failure is raised."""
     import torch.nn.functional as F
 
     from ddp_tpu_torch.ops import flash as fl
@@ -329,56 +411,63 @@ def check_flash(torch) -> dict:
     log("[flash] shared memory a block at D 128, bytes: " + ", ".join(
         f"{name} {dname} {lib.flash_attn_smem_bytes(i, int(dname == 'bf16'), 128)}"
         for i, name in enumerate(FLASH_NAMES) for dname in ("bf16", "fp32")))
-    results = {}
+    results, failures = {}, {}
     for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        tol = FLASH_TOL[dname]
         errs = {n: 0.0 for n in FLASH_NAMES}
+        failed = []
         for i, (label, B, T, S, H, D, causal) in enumerate(FLASH_SHAPES):
             q, k, v, dout, dlse = _flash_inputs(torch, B, T, S, H, D, dtype,
                                                 seed=i)
-            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-            out, lse = fl.flash_attention_with_lse(*leaves, causal)
-            grads = torch.autograd.grad((out, lse), leaves, (dout, dlse))
-            ref_leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
-            r_out, r_lse = fl.attention_with_lse_reference(*ref_leaves, causal)
-            r_grads = torch.autograd.grad((r_out, r_lse), ref_leaves,
-                                          (dout.float(), dlse))
+            got = _with_grads(
+                torch, lambda *a: fl.flash_attention_with_lse(*a, causal),
+                q, k, v, dout, dlse)
+            want = _with_grads(
+                torch, lambda *a: fl.attention_with_lse_reference(*a, causal),
+                q.float(), k.float(), v.float(), dout.float(), dlse)
             # B2 and B3 alone, on the kernel forward's own out and lse.
-            delta = fl.backward_delta(out.detach(), dout, dlse)
-            dq2 = fl.flash_dq(q, k, v, dout, lse.detach(), delta, causal)
-            dk2, dv2 = fl.flash_dkv(q, k, v, dout, lse.detach(), delta, causal)
+            out, lse = got["out"], got["lse"]
+            delta = fl.backward_delta(out, dout, dlse)
+            dq2 = fl.flash_dq(q, k, v, dout, lse, delta, causal)
+            dk2, dv2 = fl.flash_dkv(q, k, v, dout, lse, delta, causal)
             p_dq = fl.flash_dq_reference(q.float(), k.float(), v.float(),
-                                         dout.float(), lse.detach(), delta,
-                                         causal)
+                                         dout.float(), lse, delta, causal)
             p_dk, p_dv = fl.flash_dkv_reference(
-                q.float(), k.float(), v.float(), dout.float(), lse.detach(),
-                delta, causal)
+                q.float(), k.float(), v.float(), dout.float(), lse, delta,
+                causal)
             torch.cuda.synchronize()
             checks = {
-                "flash_attn_fwd": [("out", out, r_out), ("lse", lse, r_lse)],
-                "flash_attn_dq": [("dq", grads[0], r_grads[0]),
+                "flash_attn_fwd": [("out", out, want["out"]),
+                                   ("lse", lse, want["lse"])],
+                "flash_attn_dq": [("dq", got["dq"], want["dq"]),
                                   ("dq alone", dq2, p_dq)],
-                "flash_attn_dkv": [("dk", grads[1], r_grads[1]),
-                                   ("dv", grads[2], r_grads[2]),
+                "flash_attn_dkv": [("dk", got["dk"], want["dk"]),
+                                   ("dv", got["dv"], want["dv"]),
                                    ("dk alone", dk2, p_dk),
                                    ("dv alone", dv2, p_dv)],
             }
-            parts = []
+            log(f"[flash] {dname} {label} B={B} T={T} S={S} H={H} D={D} "
+                f"(rel <= {tol['rel']:g}, |d| <= {tol['atol']:g} + "
+                f"{tol['rtol']:g}·|want|):")
             for name, items in checks.items():
-                for what, got, want in items:
-                    err, scale = _max_err(torch, got, want)
-                    parts.append(f"{what} {err:.2e}")
-                    if not err <= FLASH_TOL[dname] * scale:
-                        raise AssertionError(
-                            f"{name} {dname} {label}: {what} error {err} > "
-                            f"{FLASH_TOL[dname]} x {scale:.3g}")
-                    errs[name] = max(errs[name], err)
-            log(f"[flash] {dname} {label} B={B} T={T} S={S} H={H} D={D}: "
-                + ", ".join(parts) + f" (tolerance {FLASH_TOL[dname]} x "
-                "max(1, max|plain|))")
-            del q, k, v, out, lse, grads, r_out, r_lse, r_grads, leaves
+                for what, a, b in items:
+                    ok, text = _compare(torch, a, b, tol)
+                    log(f"[flash]   {what}: {text}"
+                        + ("" if ok else "  <-- FAILS"))
+                    if not ok:
+                        failed.append(f"{label} {what}")
+                    errs[name] = max(errs[name], float(
+                        (a.float() - b.float()).abs().nan_to_num(0.0).max()))
+            del q, k, v, dout, dlse, got, want, out, lse, delta
+            del dq2, dk2, dv2, p_dq, p_dk, p_dv
             torch.cuda.empty_cache()
+        failed += _reject_wrong_kernels(torch, fl, dtype, dname)
+        if failed:
+            failures[dname] = failed
         results[dname] = _time_flash(torch, F, fl, dtype, dname, errs)
     _flash_min_len_data(torch, fl)
+    if failures:
+        raise AssertionError(f"flash kernels vs plain: {failures}")
     return results
 
 
@@ -648,10 +737,13 @@ TRAIN_FP32_ARGS = TRAIN_ARGS[:-1] + ["float32"]
 TRAIN_FP32_ARGS[TRAIN_FP32_ARGS.index("--model_depth") + 1] = "2"
 TRAIN_FP32_ARGS[TRAIN_FP32_ARGS.index("--epochs") + 1] = "1"
 # One step through the kernels vs through the plain attention, from the
-# same weights and batch: relative error of the loss and of the whole
-# gradient vector. bf16: the kernel rounds P and dS to bf16 for their
-# products, the plain version does not; fp32: summation order only.
-STEP_TOL = {"bf16": (1e-2, 5e-2), "fp32": (1e-4, 1e-3)}
+# same weights and batch: relative error of the loss, of the whole
+# gradient, and of each parameter's gradient, the worst over every
+# block's attn.qkv and attn.proj apart. bf16: the kernel rounds P and dS
+# to bf16 for their products, the plain version does not; fp32: summation
+# order only.
+STEP_TOL = {"bf16": dict(loss=1e-5, grad=1e-2, leaf=2e-2, attn=2e-2),
+            "fp32": dict(loss=1e-5, grad=1e-4, leaf=1e-4, attn=1e-4)}
 
 
 def _lm_flops_per_token(spec) -> float:
@@ -668,47 +760,118 @@ def _zero(counts: dict) -> None:
         counts[k] = 0
 
 
+def _step_grads(torch, trainer, toks, block_fn):
+    """One Adam step from the trainer's current weights on ``toks`` →
+    (loss, {parameter name: gradient})."""
+    from ddp_tpu_torch.models.lm import CausalLM, make_lm_train_step
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    state = {k: v.detach().clone()
+             for k, v in trainer.model.state_dict().items()}
+    model = CausalLM.from_state(trainer.spec, state, trainer.device,
+                                trainable=True)
+    opt = make_optimizer(model.parameters(), "adam", lr=3e-4)
+    step = make_lm_train_step(model, opt, compute_dtype=trainer.compute_dtype,
+                              block_fn=block_fn)
+    m = step(toks)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    return float(m.loss), grads
+
+
+def _grad_errors(got, want) -> dict:
+    """Relative errors: of the loss, of the whole gradient, the worst
+    parameter (name, error) and the worst attn.qkv/attn.proj one."""
+    def rel(n):
+        return float((got[1][n] - want[1][n]).norm()
+                     / want[1][n].norm().clamp_min(1e-30))
+
+    per = {n: rel(n) for n in want[1]}
+    diff2 = sum(float((got[1][n] - want[1][n]).norm()) ** 2 for n in want[1])
+    norm2 = sum(float(want[1][n].norm()) ** 2 for n in want[1])
+    attn = {n: e for n, e in per.items() if ".attn." in n}
+    return dict(loss=abs(got[0] - want[0]) / abs(want[0]),
+                grad=(diff2 / norm2) ** 0.5,
+                leaf=max(per.items(), key=lambda x: x[1]),
+                attn=max(attn.items(), key=lambda x: x[1]))
+
+
+def _errors_text(e) -> str:
+    return (f"loss rel {e['loss']:.2e}, gradient rel {e['grad']:.2e}, worst "
+            f"leaf {e['leaf'][1]:.2e} ({e['leaf'][0]}), worst attention leaf "
+            f"{e['attn'][1]:.2e} ({e['attn'][0]})")
+
+
+def _within(e, tol) -> bool:
+    return (e["loss"] <= tol["loss"] and e["grad"] <= tol["grad"]
+            and e["leaf"][1] <= tol["leaf"] and e["attn"][1] <= tol["attn"])
+
+
 def compare_step(torch, trainer, dname, *, batch=2) -> None:
     """One Adam step from the trainer's current weights on its first
     ``batch`` sequences, through the kernels and through the plain
-    attention; the plain run must launch nothing."""
-    from ddp_tpu_torch.models.lm import CausalLM, make_lm_train_step
+    attention (which must launch nothing), held to STEP_TOL. Then a
+    negative control that the same limits must reject: the plain
+    attention with the dK of one 64-key tile (keys 512-575) dropped, as a
+    B3 that skipped a tile would give. In bf16 one more reading, for
+    information only: an attention computed in bf16 throughout (S,
+    softmax and P·V) lands next to the kernel's own bf16 rounding here,
+    so no limit can tell the two apart."""
     from ddp_tpu_torch.ops import flash as fl
-    from ddp_tpu_torch.train.optim import make_optimizer
 
-    state = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    class DropKeyGrad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, k):
+            return k.view_as(k)
+
+        @staticmethod
+        def backward(ctx, g):
+            g = g.clone()
+            g[:, 512:576] = 0
+            return g
+
+    def dropped_dk(q, k, v, causal):
+        return fl.attention_with_lse_reference(q, DropKeyGrad.apply(k), v,
+                                               causal)
+
+    def low_precision(q, k, v, causal):
+        T = q.shape[1]
+        s = torch.einsum("bthd,bshd->bhts", q, k) * q.shape[-1] ** -0.5
+        mask = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+        s = s.bfloat16().masked_fill(~mask, float("-inf"))
+        lse = torch.logsumexp(s.float(), dim=-1).transpose(1, 2)
+        out = torch.einsum("bhts,bshd->bthd", torch.softmax(s, dim=-1),
+                           v.bfloat16())
+        return out.to(q.dtype), lse
+
     toks = trainer.tokens[:batch]
-    out = {}
-    for path, block_fn in (("kernel", None),
-                           ("plain", fl.attention_with_lse_reference)):
-        model = CausalLM.from_state(trainer.spec, state, trainer.device,
-                                    trainable=True)
-        opt = make_optimizer(model.parameters(), "adam", lr=3e-4)
-        step = make_lm_train_step(model, opt,
-                                  compute_dtype=trainer.compute_dtype,
-                                  block_fn=block_fn)
-        if path == "plain":
-            _zero(fl.flash_attention.launches)
-        m = step(toks)
-        grad = torch.cat([p.grad.flatten() for p in model.parameters()])
-        torch.cuda.synchronize()
-        out[path] = (float(m.loss), grad)
-        if path == "plain" and any(fl.flash_attention.launches.values()):
-            raise AssertionError(
-                f"the plain path launched {fl.flash_attention.launches}")
-        del model, opt, step
-    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
-    loss_err = abs(lk - lp) / abs(lp)
-    grad_err = float((gk - gp).norm() / gp.norm())
-    tol_loss, tol_grad = STEP_TOL[dname]
-    log(f"[train] {dname} one step, kernel vs plain attention "
-        f"(batch {batch}): loss {lk:.6f} vs {lp:.6f} (rel {loss_err:.2e}, "
-        f"tolerance {tol_loss}), gradient rel err {grad_err:.2e} "
-        f"(tolerance {tol_grad})")
-    if not (loss_err <= tol_loss and grad_err <= tol_grad):
-        raise AssertionError(f"{dname} kernel step disagrees with plain")
-    del out, gk, gp
+    tol = STEP_TOL[dname]
+    kernel = _step_grads(torch, trainer, toks, None)
+    _zero(fl.flash_attention.launches)
+    plain = _step_grads(torch, trainer, toks, fl.attention_with_lse_reference)
+    e = _grad_errors(kernel, plain)
+    log(f"[train] {dname} one step, kernel vs plain attention (batch "
+        f"{batch}): loss {kernel[0]:.6f} vs {plain[0]:.6f}; {_errors_text(e)} "
+        f"(tolerances {tol})")
+    failed = [] if _within(e, tol) else ["the kernel step disagrees"]
+    del kernel
+    e = _grad_errors(_step_grads(torch, trainer, toks, dropped_dk),
+                     plain)
+    log(f"[train] {dname} control, dK tile dropped vs plain: "
+        f"{_errors_text(e)}")
+    if _within(e, tol):
+        failed.append("the check passes a B3 that drops a dK tile")
+    if dname == "bf16":
+        e = _grad_errors(_step_grads(torch, trainer, toks, low_precision),
+                         plain)
+        log(f"[train] bf16 reading, attention in bf16 throughout vs plain "
+            f"(not a limit): {_errors_text(e)}")
+    if any(fl.flash_attention.launches.values()):
+        failed.append(f"the plain path launched {fl.flash_attention.launches}")
+    del plain
     torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"{dname} step: {failed}")
 
 
 def profile_train_steps(torch, trainer, *, steps=3) -> None:
@@ -892,8 +1055,8 @@ def main() -> int:
     log(f"[build] {json.dumps(seconds)} (wall {time.perf_counter() - t0:.2f} s)")
 
     timings = check_kernels(torch)
-    flash = check_flash(torch)
     launches = check_serving(torch)
+    flash = check_flash(torch)
     trained = check_training(torch)
 
     replaces = {"flash_decode_fp32": "ddp_tpu/ops/decode.py:260",

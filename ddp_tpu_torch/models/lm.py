@@ -34,9 +34,8 @@ from torch import nn
 
 from ddp_tpu_torch.device import resolve_device
 from ddp_tpu_torch.ops.attention import dot_product_attention
-from ddp_tpu_torch.parallel.ddp import StepMetrics
+from ddp_tpu_torch.parallel.ddp import StepMetrics, global_norm
 from ddp_tpu_torch.parallel.ring import ring_attention
-from ddp_tpu_torch.train.optim import global_norm
 
 LN_EPS = 1e-6  # Flax's LayerNorm default (torch's is 1e-5)
 

@@ -7,10 +7,10 @@ causal-LM training step runs it once forward and once backward:
   einsum-softmax giving ``(out, lse)``, the end-anchored causal mask
   (key ≤ t + S − T), and out 0 / lse −inf on a row with no live key
   (what the kernel gives; JAX's ``_reference`` gives NaN there).
-- :func:`flash_attention` and :func:`flash_attention_with_lse` — each a
-  ``torch.autograd.Function`` over the hand-written CUDA kernels of
-  ``ops/csrc/flash_attn.cu`` (B1 forward, B2 dQ, B3 dK/dV; bf16 and
-  fp32; the source note there says what bounds them and how). The
+- :func:`flash_attention_with_lse` and :func:`flash_attention` (its
+  ``out``) — one ``torch.autograd.Function`` over the hand-written CUDA
+  kernels of ``ops/csrc/flash_attn.cu`` (B1 forward, B2 dQ, B3 dK/dV;
+  bf16 and fp32; the source note there says what bounds them and how). The
   forward saves ``(q, k, v, out, lse)`` as ``_fa_fwd`` does; the
   backward folds the lse cotangent in as
   ``delta' = rowsum(dO∘O) − dLSE`` (fp32) and runs B2 then B3. On a
@@ -286,21 +286,6 @@ class _FlashAttentionWithLse(torch.autograd.Function):
                 None)
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = flash_forward(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        return (*flash_backward(q, k, v, out, lse, dout, None, ctx.causal),
-                None)
-
-
 def flash_attention_with_lse(q, k, v, causal: bool = False):
     """Attention → ``(out, lse)``, differentiable in both outputs.
 
@@ -315,10 +300,9 @@ def flash_attention_with_lse(q, k, v, causal: bool = False):
 
 
 def flash_attention(q, k, v, causal: bool = False):
-    """Attention on [B, T, H, D] through kernels B1–B3 (out only)."""
-    if q.device.type == "cpu":
-        return attention_with_lse_reference(q, k, v, causal)[0]
-    return _FlashAttention.apply(q, k, v, causal)
+    """Attention on [B, T, H, D] through kernels B1–B3 (out only; the
+    unused lse's cotangent reaches the backward as zeros)."""
+    return flash_attention_with_lse(q, k, v, causal)[0]
 
 
 flash_attention.launches = {

@@ -23,12 +23,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ddp_tpu_torch.parallel.ddp import global_norm
+
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-
-
-def global_norm(tensors) -> torch.Tensor:
-    """√Σ‖t‖², as ``optax.global_norm``; on the tensors' device."""
-    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
 class Optimizer:
