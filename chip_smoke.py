@@ -7,7 +7,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. The card (nvidia-smi name and power limit), torch, CUDA and nvcc.
 2. Build the CUDA kernels from ddp_tpu_torch/ops/csrc (one nvcc per
-   source, started together) and print the build seconds.
+   source, started together), print the build seconds and, from ptxas's
+   report, each flash-attention kernel's registers, shared memory and
+   spill bytes.
 3. Each kernel against its plain PyTorch version on the card, at the
    serving model's full width, a GQA shape and a ragged cache length;
    then the median time of kernel, plain version and the library
@@ -30,12 +32,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    B3 (dK/dV), bf16 and fp32, against their plain versions: out, lse and
    the three gradients through autograd (random dO, nonzero dLSE), then
    B2 and B3 alone, at full width causal and non-causal, T < S, T > S
-   (empty rows), a ragged T and head dim 64, each tensor held to a
-   relative norm error and an element-wise atol + rtol·|want|
-   (FLASH_TOL); two wrong attentions (a dropped interior tile, a dropped
-   ragged tail) must fail the same check. Then kernel, plain and SDPA
-   times beside the bound at the training shape, and fwd+bwd kernel vs
-   plain per length (the data for re-measuring FLASH_MIN_LEN).
+   (empty rows), a ragged T, head dim 64 and head dim 96 (a padded
+   head-dim tile), each tensor held to a relative norm error and an
+   element-wise atol + rtol·|want| (FLASH_TOL); two wrong attentions (a
+   dropped interior tile, a dropped ragged tail) must fail the same
+   check; B1 and B3 run twice on the same inputs must agree bit for bit
+   (no atomics). Then kernel, plain and SDPA times beside the bound at
+   the training shape, and fwd+bwd kernel vs plain per length (the data
+   for re-measuring FLASH_MIN_LEN).
 5. The training slice end to end: ``python -m ddp_tpu_torch.train``'s
    own main() at the repo's full-width training configuration (bench.py
    run_lm_bench: 111.3 M params, T 2048, batch 8, Adam 3e-4, bf16), 12
@@ -260,8 +264,14 @@ FLASH_SHAPES = [  # label, B, T, S, H, D, causal
     ("causal T>S (empty rows)", 2, 1536, 512, 8, 128, True),
     ("causal ragged T=S=1000", 2, 1000, 1000, 8, 128, True),
     ("causal head dim 64", 2, 1024, 1024, 16, 64, True),
+    ("causal head dim 96", 2, 512, 512, 8, 96, True),
 ]
 FLASH_NAMES = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")
+# The device functions of flash_attn.cu (the bf16 sm90 kernels of B1 and
+# B3; the shared-memory template of fp32 B1-B3 and bf16 B2), as profiler
+# keys and ptxas entries name them.
+FLASH_SYMBOLS = ("fwd_sm90", "dkv_sm90", "fwd_kernel", "dq_kernel",
+                 "dkv_kernel")
 
 
 def _flash_inputs(torch, B, T, S, H, D, dtype, seed):
@@ -364,6 +374,27 @@ def _reject_wrong_kernels(torch, fl, dtype, dname) -> list[str]:
     return failed
 
 
+def _check_deterministic(torch, fl, dtype, dname) -> list[str]:
+    """B1 and B3 twice on the same inputs (the training shape, causal)
+    must give the same bits: no atomics, no order that changes between
+    runs → what differed."""
+    q, k, v, dout, _ = _flash_inputs(torch, 8, 2048, 2048, 8, 128, dtype,
+                                     seed=7)
+    runs = []
+    for _ in range(2):
+        out, lse = fl.flash_forward(q, k, v, True)
+        delta = fl.backward_delta(out, dout)
+        dk, dv = fl.flash_dkv(q, k, v, dout, lse, delta, True)
+        runs.append(dict(out=out, lse=lse, dk=dk, dv=dv))
+    torch.cuda.synchronize()
+    differ = [n for n in runs[0] if not torch.equal(runs[0][n], runs[1][n])]
+    log(f"[flash] {dname} B1 and B3 run twice at the training shape: "
+        + (f"differ in {differ}" if differ else "bitwise equal"))
+    del q, k, v, dout, runs
+    torch.cuda.empty_cache()
+    return [f"not deterministic: {differ}"] if differ else []
+
+
 def _flash_counts(B, T, S, H, D, causal, elem):
     """(live (query, key) pairs, bytes of each kernel's inputs and
     outputs read or written once) at this shape."""
@@ -462,6 +493,7 @@ def check_flash(torch) -> dict:
             del dq2, dk2, dv2, p_dq, p_dk, p_dv
             torch.cuda.empty_cache()
         failed += _reject_wrong_kernels(torch, fl, dtype, dname)
+        failed += _check_deterministic(torch, fl, dtype, dname)
         if failed:
             failures[dname] = failed
         results[dname] = _time_flash(torch, F, fl, dtype, dname, errs)
@@ -471,21 +503,45 @@ def check_flash(torch) -> dict:
     return results
 
 
-def _time_flash(torch, F, fl, dtype, dname, errs) -> dict:
-    """Kernel, plain version and SDPA times at the main path's shape
-    (the training step's: B 8, T = S 2048, H 8, D 128, causal)."""
-    B, T, S, H, D, causal = 8, 2048, 2048, 8, 128, True
-    q, k, v, dout, _ = _flash_inputs(torch, B, T, S, H, D, dtype, seed=99)
-    out, lse = fl.flash_forward(q, k, v, causal)
-    delta = fl.backward_delta(out, dout)
-    qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
-    n, reps = (10, 5) if dname == "bf16" else (2, 3)
-    kernel = {
+TRAIN_SHAPE = (8, 2048, 2048, 8, 128, True)  # B, T, S, H, D, causal
+
+
+def _kernel_calls(fl, q, k, v, dout, lse, delta, causal) -> dict:
+    """One call of each of B1-B3 on these inputs, by name."""
+    return {
         "flash_attn_fwd": lambda: fl.flash_forward(q, k, v, causal),
         "flash_attn_dq": lambda: fl.flash_dq(q, k, v, dout, lse, delta, causal),
         "flash_attn_dkv": lambda: fl.flash_dkv(q, k, v, dout, lse, delta,
                                                causal),
     }
+
+
+def time_flash_kernels(torch) -> dict:
+    """B1-B3 in bf16 at the training shape, kernel times only (medians
+    of 5 x 10 calls) → {name: ms}: the reading that compares two trees
+    in one call (``--time-flash [--root DIR]``)."""
+    from ddp_tpu_torch.ops import flash as fl
+
+    B, T, S, H, D, causal = TRAIN_SHAPE
+    q, k, v, dout, _ = _flash_inputs(torch, B, T, S, H, D, torch.bfloat16,
+                                     seed=99)
+    out, lse = fl.flash_forward(q, k, v, causal)
+    delta = fl.backward_delta(out, dout)
+    calls = _kernel_calls(fl, q, k, v, dout, lse, delta, causal)
+    return {name: _median_ms(torch, fn, n=10, reps=5)
+            for name, fn in calls.items()}
+
+
+def _time_flash(torch, F, fl, dtype, dname, errs) -> dict:
+    """Kernel, plain version and SDPA times at the main path's shape
+    (the training step's: B 8, T = S 2048, H 8, D 128, causal)."""
+    B, T, S, H, D, causal = TRAIN_SHAPE
+    q, k, v, dout, _ = _flash_inputs(torch, B, T, S, H, D, dtype, seed=99)
+    out, lse = fl.flash_forward(q, k, v, causal)
+    delta = fl.backward_delta(out, dout)
+    qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
+    n, reps = (10, 5) if dname == "bf16" else (2, 3)
+    kernel = _kernel_calls(fl, q, k, v, dout, lse, delta, causal)
     plain = {
         "flash_attn_fwd": lambda: fl.attention_with_lse_reference(
             qf, kf, vf, causal),
@@ -900,8 +956,7 @@ def profile_train_steps(torch, trainer, *, steps=3) -> None:
         return
     busy_us = sum(e.self_device_time_total for e in rows)
     flash_us = sum(e.self_device_time_total for e in rows
-                   if "fwd_kernel" in e.key or "dq_kernel" in e.key
-                   or "dkv_kernel" in e.key)
+                   if any(sym in e.key for sym in FLASH_SYMBOLS))
     log(f"[profile] {steps} training steps (bf16, batch {B}, T "
         f"{trainer.config.seq_len}): wall {wall * 1e3:.2f} ms, device kernel "
         f"time {busy_us / 1e3:.2f} ms, busy share {busy_us / 1e6 / wall:.3f}, "
@@ -1031,7 +1086,59 @@ def check_serving(torch) -> dict:
     return counted
 
 
+def log_ptxas(_build) -> None:
+    """Phase 2: ptxas's report of each flash-attention kernel, and any
+    line where ptxas serialised wgmma products or ignored setmaxnreg. A
+    spill in an sm90 kernel would undo its register accumulators: it
+    raises."""
+    path = _build.log_path("flash_attn.cu")
+    for line in (path.read_text() if path.is_file() else "").splitlines():
+        if "Performance Loss" in line or "setmaxnreg ignored" in line:
+            log(f"[build] ptxas: {line.strip()[:200]}")
+    spills = []
+    for r in _build.ptxas_report("flash_attn.cu"):
+        name = next((sym for sym in FLASH_SYMBOLS if sym in r["kernel"]),
+                    r["kernel"])
+        name += ("<128>" if "ILi128E" in r["kernel"] else "<64>"
+                 if "ILi64E" in r["kernel"] else "<bf16>"
+                 if "bfloat16" in r["kernel"] else "<fp32>")
+        log(f"[build] ptxas {name}: {r['registers']} registers at launch, "
+            f"{r['smem']} bytes static smem, {r['stack']} bytes stack, "
+            f"spill stores {r['spill_stores']} / loads {r['spill_loads']} "
+            "bytes")
+        if "sm90" in name and (r["spill_stores"] or r["spill_loads"]):
+            spills.append(name)
+    if spills:
+        raise AssertionError(f"ptxas spilled in {spills}")
+
+
+def time_flash_main(argv) -> int:
+    """``--time-flash [--root DIR]``: build flash_attn.cu of the package
+    under DIR (default: this script's tree), print the card and one JSON
+    line of B1-B3 bf16 times at the training shape. Run it on two trees in
+    turns (parent, change, change, parent) within one call to compare
+    them on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if "--root" in argv:
+        sys.path.insert(0, argv[argv.index("--root") + 1])
+    from ddp_tpu_torch.ops import _build
+
+    root = str(_build.CSRC.parents[2])
+    _build.build(("flash_attn.cu",))
+    times = time_flash_kernels(torch)
+    log(card_line())
+    print(json.dumps({"root": root, "us": {
+        n: round(ms * 1e3, 1) for n, ms in times.items()}}), flush=True)
+    return 0
+
+
 def main() -> int:
+    if "--time-flash" in sys.argv:
+        return time_flash_main(sys.argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1053,6 +1160,7 @@ def main() -> int:
     t0 = time.perf_counter()
     seconds = _build.build()
     log(f"[build] {json.dumps(seconds)} (wall {time.perf_counter() - t0:.2f} s)")
+    log_ptxas(_build)
 
     timings = check_kernels(torch)
     launches = check_serving(torch)

@@ -6,36 +6,66 @@
 //   B2 _flash_backward (:344) -> pl.pallas_call (:369) -> _dq_kernel (:152)
 //   B3 _flash_backward (:344) -> pl.pallas_call (:389) -> _dkv_kernel (:209)
 // flash_attn_fwd is B1, flash_attn_dq is B2, flash_attn_dkv is B3; each
-// has a bf16 and an fp32 variant (one template, two element types).
+// has a bf16 and an fp32 variant.
 //
 // What bounds them on an H100: operations. At the training shape (B 8,
 // T = S 2048, H 8, D 128, causal) B1 does 2 tile products per live
-// (q-tile, k-tile) pair, B2 3 and B3 4: 69, 103 and 137 GFLOP, which at
-// 989 TFLOP/s (dense bf16) take 69-139 us, against ~40 us for the bytes
-// each input and output moves once. The design answers that only in
-// part, on purpose (a right kernel first; wgmma/TMA is later work):
-//   - the [T, S] score matrix never reaches device memory: one block
-//     owns a q-tile (B1, B2) or a k-tile (B3), streams the other side's
-//     tiles through shared memory and keeps its accumulators there in
-//     fp32 (B1's output is rescaled row by row by the online softmax);
-//   - bf16 products run on the tensor cores through WMMA (16x16x16,
-//     fp32 accumulate), P and dS rounded to bf16 for their products as
-//     usual for flash attention; fp32 uses plain FMA, not TF32, so it
-//     matches the fp32 plain version to ~1e-6;
-//   - causal tiles past the diagonal are never visited: B1/B2 loop over
-//     k-tiles only up to the last live key of their q-tile, B3 starts at
-//     the first q-tile that sees its keys; blocks with the most tiles are
-//     scheduled first;
-//   - two backward kernels and no atomics, so gradients are
-//     deterministic;
-//   - q/k/v/dO are read in place through their strides (the fused qkv
-//     projection's views, token stride 3*H*D), 16 bytes per thread; the
-//     TPU path's transpose to [B*H, T, D] has no counterpart;
-//   - the ragged tail is masked in the kernel (zero-filled rows, masked
-//     keys), so any T and S work: no whole-length block fallback.
-// What it does not do yet: no cp.async/TMA double buffering (loads and
-// products do not overlap), WMMA fragments are loaded from shared memory
-// for every product, and one or two blocks fit on an SM.
+// (query, key) pair, B2 3 and B3 4: 69, 103 and 137 GFLOP, which at 989
+// TFLOP/s (dense bf16) take 69-139 us, against ~40 us for the bytes each
+// input and output moves once. So the products have to run at the
+// tensor cores' rate, which only wgmma reaches.
+//
+// bf16 B1 and B3 (fwd_sm90, dkv_sm90) are built for that, from the pieces
+// of sm90.cuh:
+//   - warp specialisation: one producer warp issues TMA loads (tensor
+//     maps over the strided [B, T, H, D] views, 128-byte swizzle, zero
+//     fill past T, S and D) into a ring of shared memory (3 K/V stages for
+//     B1, 2 Q/dO stages for B3) with full/empty mbarriers, while two
+//     consumer warpgroups (setmaxnreg: 24 registers for the producer, 240
+//     for each consumer) run wgmma on the tiles that have arrived: loads
+//     overlap products;
+//   - every accumulator lives in registers: B1's S = Q.K^T (m64n128k16,
+//     both operands in shared memory) and its output O; B3's transposed
+//     S^T = K.Q^T and dP^T = V.dO^T (m64n64k16) and its dK, dV across the
+//     whole q loop. The online softmax (B1) runs on S in registers with
+//     exp2 (one MUFU.EX2) and the scale folded in, the row max and sum
+//     over the 4 threads of a quad;
+//   - P (B1), P^T and dS^T (B3) never touch shared memory: the fp32
+//     accumulator layout, regrouped 16 columns at a time, is the A
+//     fragment of the next product (O += P.V, dV += P^T.dO, dK +=
+//     dS^T.Q), an RS wgmma (m64n128k16 at D 128) that reads V, dO or Q
+//     MN-major;
+//   - the softmax runs while the tensor cores work: in B1 each warpgroup
+//     issues S_j and then O += P_{j-1}.V_{j-1} and computes the softmax of
+//     S_j while the second product runs (the other warpgroup's products
+//     fill the tensor cores too; making the two take turns measured
+//     slower, flash_variants.py in PERF.md);
+//   - B1: a work item is 128 query rows and streams 128-key K/V tiles; the
+//     kernel is persistent (one CTA per SM draws items from a counter, the
+//     longest first), so that an item's epilogue overlaps the next one's
+//     loads. B3: a CTA owns 128 keys (64 per warpgroup) and streams 64-row
+//     Q/dO tiles with their lse and delta'. Heads are scheduled in groups
+//     whose streamed tiles fit in a third of the L2 cache. The mask is
+//     evaluated only on tiles that straddle the diagonal or the end of the
+//     keys, and a warpgroup skips the products of a tile in which none of
+//     its rows is live;
+//   - head dims up to 64 run a 64-column tile, up to 128 a 128-column one
+//     (two TMA boxes); TMA fills the padding columns with zeros, which add
+//     nothing to Q.K^T, and the epilogue does not store them.
+// The fp32 variants and bf16 B2 keep the first design: one block per
+// q-tile (B1, B2) or k-tile (B3), tiles and fp32 accumulators in shared
+// memory, bf16 products through WMMA (16x16x16, fp32 accumulate), fp32
+// through plain FMA (not TF32, so it matches the fp32 plain version to
+// ~1e-6), synchronous 16-byte loads between two __syncthreads.
+//
+// Common to both: the [T, S] score matrix never reaches device memory;
+// causal tiles past the diagonal are never visited (B1/B2 stop at the
+// last live key of their q-tile, B3 starts at the first q-tile that sees
+// its keys) and the tiles with the most work are scheduled first; two
+// backward kernels and no atomics on the data, so every result is
+// deterministic; q/k/v/dO are read in place through their strides (the
+// fused qkv projection's views, token stride 3*H*D); ragged tails are
+// masked in the kernel, so any T and S work.
 //
 // Masks and empty rows follow the TPU kernel: the causal mask is
 // end-anchored (key <= t + S - T); a row with no live key gives out 0
@@ -53,7 +83,10 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -105,6 +138,8 @@ struct Args {
     const float* delta;  // [B, T, H]: rowsum(dO * O) - dLSE
     int B, T, S, H, D, causal;
     float scale;
+    int group;  // sm90 kernels: heads per L2 group of the grid
+    int* ticket;  // B1 (sm90): the next work item, 0 at launch
 };
 
 // ---- shared memory layout ------------------------------------------
@@ -295,7 +330,7 @@ __device__ void load_row_stats(float* lse_s, float* dl_s, const Args& a,
     }
 }
 
-// ---- B1: forward ----------------------------------------------------
+// ---- B1: forward (fp32; bf16 runs fwd_sm90) ------------------------------
 
 // grid (B*H, q-tiles): the last q-tile (most live k-tiles) first.
 template <typename T>
@@ -435,7 +470,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
     }
 }
 
-// ---- B3: dK, dV ---------------------------------------------------------
+// ---- B3: dK, dV (fp32; bf16 runs dkv_sm90) -------------------------------
 
 // grid (B*H, k-tiles): the first k-tile (most live q-tiles) first.
 template <typename T>
@@ -485,9 +520,543 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
     }
 }
 
+// ---- bf16 B1 and B3 for Hopper: TMA, mbarriers and wgmma ------------------
+
+constexpr int kConsumers = 2;  // consumer warpgroups, 64 rows each
+constexpr int kSm90Threads = (kConsumers + 1) * 128;  // + the producer's
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// B1: 128 query rows a work item, 128-key K/V tiles. B3: 128 keys a CTA,
+// 64-row Q/dO tiles.
+constexpr int kFwdBQ = 128, kFwdBK = 128;
+constexpr int kDkvBK = 128, kDkvBQ = 64;
+// Ring depth: 3 K/V stages for B1 (224 KB with Q at D 128), 2 Q/dO
+// stages for B3 (~130 KB).
+constexpr int kFwdStages = 3, kDkvStages = 2;
+// Heads per group of the schedule: their streamed tiles (B1's K+V, B3's
+// Q+dO) within 16 MB, a third of the H100's 50 MB L2.
+constexpr int64_t kL2GroupBytes = 16LL << 20;
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+    return reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+// A K-major operand: the 16 columns [16 kk, 16 kk + 16) of a tile of
+// `rows` rows whose 64-column regions follow each other.
+__device__ __forceinline__ uint64_t k_major(uint32_t base, int rows, int kk) {
+    return sm90::desc_sw128(
+        base + (kk / 4) * rows * sm90::kRowBytes + (kk % 4) * 32, 16,
+        sm90::kAtomBytes);
+}
+
+// D[64 x DT] += A . B for the k16 A fragment `a` and B the rows [16 kk,
+// 16 kk + 16) of an MN-major tile of `rows` rows and DT columns (DT/64
+// regions of `rows` x 128 bytes): one m64n128k16 (or m64n64k16) RS wgmma.
+template <int DT>
+__device__ __forceinline__ void mma_mn(float (&d)[DT / 2],
+                                       const uint32_t (&a)[4], uint32_t base,
+                                       int rows, int kk) {
+    const uint32_t addr = base + kk * 2 * sm90::kAtomBytes;
+    if constexpr (DT == 128)
+        sm90::wgmma_rs_n128(d, a, sm90::desc_sw128(addr, rows * sm90::kRowBytes,
+                                                   sm90::kAtomBytes));
+    else
+        sm90::wgmma_rs_n64(d, a, sm90::desc_sw128(addr, sm90::kAtomBytes,
+                                                  sm90::kAtomBytes));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// B1's online softmax of one 128-key tile at key k0, in place on the
+// scores S (this thread's two rows t0 and t0 + 8): masked keys to -inf
+// (only on a tile where a key may be dead: past S, or past the diagonal
+// of the warpgroup's first row qw), the running max m in log2 units (x =
+// s * scale * log2 e), P = exp2(x - m) into S, and the row sums l (this
+// thread's share) rescaled by corr = exp2(m_old - m).
+__device__ __forceinline__ void fwd_softmax(float (&sc)[64], float (&m)[2],
+                                            float (&l)[2], float (&corr)[2],
+                                            int k0, int t0, int qw, int cq,
+                                            float sl2, const Args& a) {
+    const int diag = a.S - a.T;
+    const bool mask = k0 + kFwdBK > a.S ||
+                      (a.causal && k0 + kFwdBK - 1 > qw + diag);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+        if (mask) {
+            const int key = k0 + (i / 4) * 8 + cq + (i & 1);
+            const int t = t0 + ((i >> 1) & 1) * 8;
+            if (key >= a.S || (a.causal && key > t + diag)) sc[i] = -INFINITY;
+        }
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+    float shift[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const float mn = fmaxf(m[r], quad_max(mx[r]) * sl2);
+        // A row with no live key yet: exp2(-inf - -inf) would be NaN.
+        shift[r] = mn == -INFINITY ? 0.f : mn;
+        corr[r] = sm90::exp2_ftz(m[r] - shift[r]);
+        m[r] = mn;
+        l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+        const float p = sm90::exp2_ftz(fmaf(sc[i], sl2, -shift[(i >> 1) & 1]));
+        sc[i] = p;
+        l[(i >> 1) & 1] += p;
+    }
+}
+
+// The (b*h, tile rank) of work item `idx` of B*H*tiles, ordered
+// group-major: heads are taken a.group at a time and every tile of a
+// group's heads runs before the next group's, so that the tiles the
+// group's CTAs all stream (K/V for B1, Q/dO for B3) stay in the L2
+// cache; within a group, rank 0 (the most work) first.
+__device__ __forceinline__ void grid_slot(const Args& a, int tiles, int idx,
+                                          int& bh, int& rank) {
+    const int bhs = a.B * a.H;
+    const int per_group = a.group * tiles;
+    const int g = idx / per_group;
+    const int rem = idx - g * per_group;
+    const int size = min(a.group, bhs - g * a.group);  // the last may be short
+    rank = rem / size;
+    bh = g * a.group + rem % size;
+}
+
+// Shared memory of fwd_sm90 at a head-dim tile DT (64 or 128): Q, then
+// kFwdStages K tiles and as many V tiles, then the barriers; offsets from a
+// 1024-byte aligned base.
+template <int DT> struct FwdSm90 {
+    static constexpr int kRegions = DT / 64;
+    static constexpr int kQBytes = kRegions * kFwdBQ * sm90::kRowBytes;
+    static constexpr int kKVBytes = kRegions * kFwdBK * sm90::kRowBytes;
+    static constexpr int kQ = 0;
+    static constexpr int kK = kQ + kQBytes;
+    static constexpr int kV = kK + kFwdStages * kKVBytes;
+    static constexpr int kBar = kV + kFwdStages * kKVBytes;
+    static constexpr int kItem = kBar + 8 * (2 + 2 * kFwdStages);
+    static constexpr int kBytes = kItem + 16 + 1024;
+};
+
+// One work item of B1: 128 query rows of one (b, h), and its k-tiles.
+struct FwdItem {
+    int b, h, q0, n_tiles;
+    __device__ FwdItem(const Args& a, int q_tiles, int item) {
+        int bh, rank;
+        grid_slot(a, q_tiles, item, bh, rank);
+        b = bh / a.H;
+        h = bh % a.H;
+        q0 = (q_tiles - 1 - rank) * kFwdBQ;  // the most k-tiles first
+        const int end = a.causal ? min(a.S, q0 + kFwdBQ + a.S - a.T) : a.S;
+        n_tiles = end > 0 ? (end + kFwdBK - 1) / kFwdBK : 0;
+    }
+};
+
+// Persistent: a grid of at most one CTA per SM. Thread 256 (the
+// producer) draws work items from a.ticket in the group-major order of
+// grid_slot, the longest first, and hands each to the consumers through
+// shared memory with its Q; threads 0-255 (warpgroup w owns rows q0 + 64w
+// .. q0 + 64w + 63 of an item) compute it. The next item's first K/V
+// tiles load while the consumers finish the last one, and its Q as soon
+// as both warpgroups are done with the last Q, so that one item's
+// epilogue overlaps the next one's loads. Item -1 ends the loop.
+template <int DT>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+fwd_sm90(const __grid_constant__ CUtensorMap tq,
+         const __grid_constant__ CUtensorMap tk,
+         const __grid_constant__ CUtensorMap tv, Args a) {
+    using L = FwdSm90<DT>;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* sm = align1024(smem_raw);
+    uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + L::kBar);
+    uint64_t* qempty = qfull + 1;
+    uint64_t* full = qempty + 1;
+    uint64_t* empty = full + kFwdStages;
+    volatile int* item_slot = reinterpret_cast<volatile int*>(sm + L::kItem);
+    const int q_tiles = (a.T + kFwdBQ - 1) / kFwdBQ;
+    const int items = a.B * a.H * q_tiles;
+    const int diag = a.S - a.T;  // key k is live for row t iff k <= t + diag
+    if (threadIdx.x == 0) {
+        sm90::mbar_init(qfull, 1);
+        sm90::mbar_init(qempty, kConsumers * 128);
+        for (int s = 0; s < kFwdStages; ++s) {
+            sm90::mbar_init(&full[s], 1);
+            sm90::mbar_init(&empty[s], kConsumers * 128);
+        }
+        sm90::mbar_fence_init();
+    }
+    __syncthreads();
+    const int wg = threadIdx.x / 128;
+    if (wg == kConsumers) {
+        sm90::regs_dealloc<kProducerRegs>();
+        if (threadIdx.x == kConsumers * 128) {
+            int it = 0;  // K/V tiles loaded so far, over all items
+            for (int n = 0;; ++n) {
+                const int item = atomicAdd(a.ticket, 1);
+                if (item >= items) {
+                    sm90::mbar_wait(qempty, (n & 1) ^ 1);
+                    *item_slot = -1;
+                    sm90::mbar_arrive(qfull);
+                    break;
+                }
+                const FwdItem w(a, q_tiles, item);
+                auto load_kv = [&](int j) {
+                    const int s = it % kFwdStages;
+                    sm90::mbar_wait(&empty[s], ((it / kFwdStages) & 1) ^ 1);
+                    sm90::mbar_arrive_expect_tx(&full[s], 2 * L::kKVBytes);
+                    for (int r = 0; r < L::kRegions; ++r) {
+                        const int off = s * L::kKVBytes + r * kFwdBK * sm90::kRowBytes;
+                        sm90::tma_load_4d(sm + L::kK + off, &tk, &full[s],
+                                          r * 64, w.h, j * kFwdBK, w.b);
+                        sm90::tma_load_4d(sm + L::kV + off, &tv, &full[s],
+                                          r * 64, w.h, j * kFwdBK, w.b);
+                    }
+                    ++it;
+                };
+                // The first K/V tiles go out while the consumers still read
+                // the previous item's Q; this item's Q once they are done.
+                const int early = min(w.n_tiles, kFwdStages - 1);
+                for (int j = 0; j < early; ++j) load_kv(j);
+                sm90::mbar_wait(qempty, (n & 1) ^ 1);
+                *item_slot = item;
+                sm90::mbar_arrive_expect_tx(qfull, L::kQBytes);
+                for (int r = 0; r < L::kRegions; ++r)
+                    sm90::tma_load_4d(sm + L::kQ + r * kFwdBQ * sm90::kRowBytes,
+                                      &tq, qfull, r * 64, w.h, w.q0, w.b);
+                for (int j = early; j < w.n_tiles; ++j) load_kv(j);
+            }
+        }
+    } else {
+        sm90::regs_alloc<kConsumerRegs>();
+        const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+        const int cq = 2 * (lane & 3);  // first column of each pair
+        const float sl2 = a.scale * kLog2e;
+        const uint32_t q_base =
+            sm90::smem_addr(sm + L::kQ) + wg * 64 * sm90::kRowBytes;
+        int it = 0;  // K/V tiles consumed so far, over all items
+        for (int n = 0;; ++n) {
+            sm90::mbar_wait(qfull, n & 1);  // the item, and its Q
+            const int item = *item_slot;
+            if (item < 0) break;
+            const FwdItem w(a, q_tiles, item);
+            const int qw = w.q0 + wg * 64;  // this warpgroup's first row
+            const int t0 = qw + 16 * warp + lane / 4;  // rows t0 and t0 + 8
+            float o[DT / 2];
+#pragma unroll
+            for (int i = 0; i < DT / 2; ++i) o[i] = 0.f;
+            float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+            float sc[64];
+            uint32_t pa[kFwdBK / 16][4];
+            // Tiles past this warpgroup's last live key are only released.
+            const int end_w = a.causal ? min(a.S, qw + 64 + diag) : a.S;
+            const int n_live = end_w > 0 ? (end_w + kFwdBK - 1) / kFwdBK : 0;
+            // Tile 0: S_0 = Q.K_0^T and its softmax. Tile j > 0: issue S_j,
+            // then O += P_{j-1}.V_{j-1}; the softmax of S_j runs while the
+            // second product is in flight. (No product sits in a branch of
+            // its own: ptxas would serialise them.)
+            if (n_live > 0) {
+                const int s = it % kFwdStages;
+                sm90::mbar_wait(&full[s], (it / kFwdStages) & 1);
+                const uint32_t k_base = sm90::smem_addr(sm + L::kK + s * L::kKVBytes);
+                sm90::wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < DT / 16; ++kk)
+                    sm90::wgmma_ss_n128(sc, k_major(q_base, kFwdBQ, kk),
+                                        k_major(k_base, kFwdBK, kk), kk > 0);
+                sm90::wgmma_commit();
+                sm90::wgmma_wait<0>();
+                sm90::fence_regs(sc);
+                float corr[2];
+                fwd_softmax(sc, m, l, corr, 0, t0, qw, cq, sl2, a);
+#pragma unroll
+                for (int kk = 0; kk < kFwdBK / 16; ++kk) sm90::acc_to_a(sc, kk, pa[kk]);
+            }
+            for (int j = 1; j < n_live; ++j) {
+                const int s = (it + j) % kFwdStages;
+                const int sp = (it + j - 1) % kFwdStages;
+                sm90::mbar_wait(&full[s], ((it + j) / kFwdStages) & 1);
+                const uint32_t k_base = sm90::smem_addr(sm + L::kK + s * L::kKVBytes);
+                const uint32_t v_prev = sm90::smem_addr(sm + L::kV + sp * L::kKVBytes);
+                sm90::wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < DT / 16; ++kk)
+                    sm90::wgmma_ss_n128(sc, k_major(q_base, kFwdBQ, kk),
+                                        k_major(k_base, kFwdBK, kk), kk > 0);
+                sm90::wgmma_commit();
+#pragma unroll
+                for (int kk = 0; kk < kFwdBK / 16; ++kk)
+                    mma_mn<DT>(o, pa[kk], v_prev, kFwdBK, kk);
+                sm90::wgmma_commit();
+                sm90::wgmma_wait<1>();
+                sm90::fence_regs(sc);
+                float corr[2];
+                fwd_softmax(sc, m, l, corr, j * kFwdBK, t0, qw, cq, sl2, a);
+                sm90::wgmma_wait<0>();  // O += P_{j-1}.V_{j-1} is done
+                sm90::fence_regs(o);
+                sm90::mbar_arrive(&empty[sp]);
+#pragma unroll
+                for (int i = 0; i < DT / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+                for (int kk = 0; kk < kFwdBK / 16; ++kk) sm90::acc_to_a(sc, kk, pa[kk]);
+            }
+            if (n_live > 0) {  // the last tile's O += P.V
+                const int sp = (it + n_live - 1) % kFwdStages;
+                const uint32_t v_prev = sm90::smem_addr(sm + L::kV + sp * L::kKVBytes);
+                sm90::wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < kFwdBK / 16; ++kk)
+                    mma_mn<DT>(o, pa[kk], v_prev, kFwdBK, kk);
+                sm90::wgmma_commit();
+                sm90::wgmma_wait<0>();
+                sm90::fence_regs(o);
+                sm90::mbar_arrive(&empty[sp]);
+            }
+            sm90::mbar_arrive(qempty);  // done with this item's Q
+            for (int j = n_live; j < w.n_tiles; ++j) {
+                const int s = (it + j) % kFwdStages;
+                sm90::mbar_wait(&full[s], ((it + j) / kFwdStages) & 1);
+                sm90::mbar_arrive(&empty[s]);
+            }
+            it += w.n_tiles;
+            bf16* ob = static_cast<bf16*>(a.o.p) + w.b * a.o.sb + w.h * a.o.sh;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const float lsum = quad_sum(l[half]);
+                const int t = t0 + 8 * half;
+                if (t >= a.T) continue;
+                const float inv = 1.f / fmaxf(lsum, 1e-30f);
+                bf16* row = ob + static_cast<int64_t>(t) * a.o.st;
+#pragma unroll
+                for (int jj = 0; jj < DT / 8; ++jj) {
+                    const int col = jj * 8 + cq;
+                    if (col < a.D)
+                        *reinterpret_cast<uint32_t*>(row + col) = sm90::pack_bf16(
+                            o[4 * jj + 2 * half] * inv, o[4 * jj + 2 * half + 1] * inv);
+                }
+                if ((lane & 3) == 0)
+                    a.lse[(static_cast<int64_t>(w.b) * a.T + t) * a.H + w.h] =
+                        lsum > 0.f ? m[half] * kLn2 + logf(lsum) : -INFINITY;
+            }
+        }
+    }
+}
+
+// Shared memory of dkv_sm90: K and V (128 rows), kDkvStages Q and dO tiles
+// (64 rows), each stage's lse·log2(e) and delta', then the barriers.
+template <int DT> struct DkvSm90 {
+    static constexpr int kRegions = DT / 64;
+    static constexpr int kKBytes = kRegions * kDkvBK * sm90::kRowBytes;
+    static constexpr int kQBytes = kRegions * kDkvBQ * sm90::kRowBytes;
+    static constexpr int kK = 0;
+    static constexpr int kV = kK + kKBytes;
+    static constexpr int kQ = kV + kKBytes;
+    static constexpr int kDo = kQ + kDkvStages * kQBytes;
+    static constexpr int kStats = kDo + kDkvStages * kQBytes;
+    static constexpr int kBar = kStats + 2 * kDkvStages * kDkvBQ * 4;
+    static constexpr int kBytes = kBar + 8 * (1 + 2 * kDkvStages) + 1024;
+};
+
+// grid B*H*k-tiles (grid_slot): within a group of heads the first k-tile
+// (most live q-tiles) first.
+// Consumer warpgroup w owns keys k0 + 64w .. k0 + 64w + 63 and computes
+// transposed: S^T = K.Q^T and dP^T = V.dO^T with K and V resident, so
+// P^T and dS^T are already the A operands of dV += P^T.dO and dK +=
+// dS^T.Q. Warp 8 (the producer) streams Q/dO by TMA and each tile's row
+// statistics with plain loads.
+template <int DT>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+dkv_sm90(const __grid_constant__ CUtensorMap tq,
+         const __grid_constant__ CUtensorMap tk,
+         const __grid_constant__ CUtensorMap tv,
+         const __grid_constant__ CUtensorMap tdo, Args a) {
+    using L = DkvSm90<DT>;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* sm = align1024(smem_raw);
+    float* stats = reinterpret_cast<float*>(sm + L::kStats);
+    uint64_t* kvbar = reinterpret_cast<uint64_t*>(sm + L::kBar);
+    uint64_t* full = kvbar + 1;
+    uint64_t* empty = full + kDkvStages;
+    int bh, rank;
+    grid_slot(a, (a.S + kDkvBK - 1) / kDkvBK, blockIdx.x, bh, rank);
+    const int b = bh / a.H, h = bh % a.H;
+    const int k0 = rank * kDkvBK;
+    const int diag = a.S - a.T;
+    // The first query row that sees key k0 is k0 - diag.
+    const int q_first = a.causal ? (max(0, k0 - diag) / kDkvBQ) * kDkvBQ : 0;
+    const int n_tiles = (a.T - q_first + kDkvBQ - 1) / kDkvBQ;
+    if (threadIdx.x == 0) {
+        sm90::mbar_init(kvbar, 1);
+        for (int s = 0; s < kDkvStages; ++s) {
+            sm90::mbar_init(&full[s], 32);  // the producer warp's lanes
+            sm90::mbar_init(&empty[s], kConsumers * 128);
+        }
+        sm90::mbar_fence_init();
+    }
+    __syncthreads();
+    const int wg = threadIdx.x / 128;
+    const int lane = threadIdx.x & 31;
+    if (wg == kConsumers) {
+        sm90::regs_dealloc<kProducerRegs>();
+        if (threadIdx.x < kConsumers * 128 + 32) {
+            if (lane == 0) {
+                sm90::mbar_arrive_expect_tx(kvbar, 2 * L::kKBytes);
+                for (int r = 0; r < L::kRegions; ++r) {
+                    const int off = r * kDkvBK * sm90::kRowBytes;
+                    sm90::tma_load_4d(sm + L::kK + off, &tk, kvbar, r * 64, h, k0, b);
+                    sm90::tma_load_4d(sm + L::kV + off, &tv, kvbar, r * 64, h, k0, b);
+                }
+            }
+            for (int j = 0; j < n_tiles; ++j) {
+                const int s = j % kDkvStages;
+                const int q0 = q_first + j * kDkvBQ;
+                sm90::mbar_wait(&empty[s], ((j / kDkvStages) & 1) ^ 1);
+                // lse (non-finite -> 0.5 FLT_MAX, so that P = 0; rows past
+                // T likewise) in log2 units, and delta'.
+                for (int r = lane; r < kDkvBQ; r += 32) {
+                    const int t = q0 + r;
+                    float lse = kBigLse, dl = 0.f;
+                    if (t < a.T) {
+                        const int64_t i = (static_cast<int64_t>(b) * a.T + t) * a.H + h;
+                        lse = a.lse[i];
+                        if (!isfinite(lse)) lse = kBigLse;
+                        dl = a.delta[i];
+                    }
+                    stats[s * kDkvBQ + r] = lse * kLog2e;
+                    stats[(kDkvStages + s) * kDkvBQ + r] = dl;
+                }
+                if (lane == 0) {
+                    sm90::mbar_arrive_expect_tx(&full[s], 2 * L::kQBytes);
+                    for (int r = 0; r < L::kRegions; ++r) {
+                        const int off = s * L::kQBytes + r * kDkvBQ * sm90::kRowBytes;
+                        sm90::tma_load_4d(sm + L::kQ + off, &tq, &full[s], r * 64,
+                                          h, q0, b);
+                        sm90::tma_load_4d(sm + L::kDo + off, &tdo, &full[s],
+                                          r * 64, h, q0, b);
+                    }
+                } else {
+                    sm90::mbar_arrive(&full[s]);
+                }
+            }
+        }
+    } else {
+        sm90::regs_alloc<kConsumerRegs>();
+        const int warp = (threadIdx.x >> 5) & 3;
+        const int kw = k0 + wg * 64;  // this warpgroup's first key
+        const int key0 = kw + 16 * warp + lane / 4;  // keys key0 and key0 + 8
+        const int cq = 2 * (lane & 3);
+        const float sl2 = a.scale * kLog2e;
+        const uint32_t k_base =
+            sm90::smem_addr(sm + L::kK) + wg * 64 * sm90::kRowBytes;
+        const uint32_t v_base =
+            sm90::smem_addr(sm + L::kV) + wg * 64 * sm90::kRowBytes;
+        float dk[DT / 2], dv[DT / 2];
+#pragma unroll
+        for (int i = 0; i < DT / 2; ++i) dk[i] = dv[i] = 0.f;
+        sm90::mbar_wait(kvbar, 0);
+        for (int j = 0; j < n_tiles; ++j) {
+            const int s = j % kDkvStages;
+            const int q0 = q_first + j * kDkvBQ;
+            sm90::mbar_wait(&full[s], (j / kDkvStages) & 1);
+            if (a.causal && kw > q0 + kDkvBQ - 1 + diag) {  // no live pair
+                sm90::mbar_arrive(&empty[s]);
+                continue;
+            }
+            const uint32_t q_base = sm90::smem_addr(sm + L::kQ + s * L::kQBytes);
+            const uint32_t do_base = sm90::smem_addr(sm + L::kDo + s * L::kQBytes);
+            float st[32], dpt[32];
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < DT / 16; ++kk)
+                sm90::wgmma_ss_n64(st, k_major(k_base, kDkvBK, kk),
+                                   k_major(q_base, kDkvBQ, kk), kk > 0);
+#pragma unroll
+            for (int kk = 0; kk < DT / 16; ++kk)
+                sm90::wgmma_ss_n64(dpt, k_major(v_base, kDkvBK, kk),
+                                   k_major(do_base, kDkvBQ, kk), kk > 0);
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(st);
+            sm90::fence_regs(dpt);
+            const float* lse_s = stats + s * kDkvBQ;
+            const float* dl_s = stats + (kDkvStages + s) * kDkvBQ;
+            // The causal mask only where a key of ours passes the
+            // diagonal of the tile's first row.
+            const bool mask = a.causal && kw + 63 > q0 + diag;
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+                const int c = (i / 4) * 8 + cq + (i & 1);  // query q0 + c
+                float p = sm90::exp2_ftz(fmaf(st[i], sl2, -lse_s[c]));
+                if (mask && key0 + ((i >> 1) & 1) * 8 > q0 + c + diag) p = 0.f;
+                dpt[i] = p * (dpt[i] - dl_s[c]);
+                st[i] = p;
+            }
+            uint32_t pa[kDkvBQ / 16][4], da[kDkvBQ / 16][4];
+#pragma unroll
+            for (int kk = 0; kk < kDkvBQ / 16; ++kk) {
+                sm90::acc_to_a(st, kk, pa[kk]);
+                sm90::acc_to_a(dpt, kk, da[kk]);
+            }
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kDkvBQ / 16; ++kk)
+                mma_mn<DT>(dv, pa[kk], do_base, kDkvBQ, kk);
+#pragma unroll
+            for (int kk = 0; kk < kDkvBQ / 16; ++kk)
+                mma_mn<DT>(dk, da[kk], q_base, kDkvBQ, kk);
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(dv);
+            sm90::fence_regs(dk);
+            sm90::mbar_arrive(&empty[s]);
+        }
+        bf16* dkb = static_cast<bf16*>(a.dk.p) + b * a.dk.sb + h * a.dk.sh;
+        bf16* dvb = static_cast<bf16*>(a.dv.p) + b * a.dv.sb + h * a.dv.sh;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int key = key0 + 8 * half;
+            if (key >= a.S) continue;
+            bf16* krow = dkb + static_cast<int64_t>(key) * a.dk.st;
+            bf16* vrow = dvb + static_cast<int64_t>(key) * a.dv.st;
+#pragma unroll
+            for (int jj = 0; jj < DT / 8; ++jj) {
+                const int col = jj * 8 + cq;
+                const int i = 4 * jj + 2 * half;
+                if (col < a.D) {
+                    *reinterpret_cast<uint32_t*>(krow + col) = sm90::pack_bf16(
+                        dk[i] * a.scale, dk[i + 1] * a.scale);
+                    *reinterpret_cast<uint32_t*>(vrow + col) =
+                        sm90::pack_bf16(dv[i], dv[i + 1]);
+                }
+            }
+        }
+    }
+}
+
 // ---- launch ---------------------------------------------------------
 
 enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
+
+// bf16 B1 and B3 run the sm90 kernels; everything else the shared-memory
+// template.
+bool is_sm90(int is_bf16, int kernel) { return is_bf16 && kernel != kDq; }
+
+int head_tile(int D) { return D <= 64 ? 64 : 128; }
+
+size_t sm90_smem_bytes(int kernel, int D) {
+    if (kernel == kFwd)
+        return head_tile(D) == 64 ? FwdSm90<64>::kBytes : FwdSm90<128>::kBytes;
+    return head_tile(D) == 64 ? DkvSm90<64>::kBytes : DkvSm90<128>::kBytes;
+}
 
 template <typename T> size_t smem_bytes(int kernel, int D) {
     switch (kernel) {
@@ -501,22 +1070,28 @@ View view(const void* p, const int64_t* st) {
     return View{const_cast<void*>(p), st[0], st[1], st[2]};
 }
 
+bool valid(const Args& a) {
+    return a.B >= 1 && a.H >= 1 && a.T >= 1 && a.S >= 1 && a.D >= 16 &&
+           a.D <= kMaxHeadDim && a.D % 16 == 0 &&
+           static_cast<int64_t>(a.B) * a.H <= 0x7fffffff;
+}
+
+// The shared-memory template: fp32 B1-B3 and bf16 B2.
 template <typename T>
 int launch(int kernel, Args a, void* stream) {
-    if (a.B < 1 || a.H < 1 || a.T < 1 || a.S < 1 || a.D < 16 ||
-        a.D > kMaxHeadDim || a.D % 16 != 0 ||
-        static_cast<int64_t>(a.B) * a.H > 0x7fffffff) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+    if (!valid(a)) return static_cast<int>(cudaErrorInvalidValue);
     const int rows = kernel == kDkv ? a.S : a.T;
     const int tile = kernel == kDkv ? Tiles<T>::BK : Tiles<T>::BQ;
     const int tiles = (rows + tile - 1) / tile;
     if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(a.B * a.H, tiles);
     const size_t smem = smem_bytes<T>(kernel, a.D);
-    void (*fn)(Args) = kernel == kFwd  ? fwd_kernel<T>
-                       : kernel == kDq ? dq_kernel<T>
-                                       : dkv_kernel<T>;
+    void (*fn)(Args);
+    if constexpr (std::is_same<T, float>::value)
+        fn = kernel == kFwd ? fwd_kernel<T> : kernel == kDq ? dq_kernel<T>
+                                                             : dkv_kernel<T>;
+    else
+        fn = dq_kernel<T>;
     // Above 48 KB of dynamic shared memory only after an explicit opt-in.
     cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -525,9 +1100,73 @@ int launch(int kernel, Args a, void* stream) {
     return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(int is_bf16, int kernel, const Args& a, void* stream) {
-    return is_bf16 ? launch<bf16>(kernel, a, stream)
-                   : launch<float>(kernel, a, stream);
+// One operand's tensor map from the wrapper's geometry (11 values: dims,
+// byte strides, box), whose box must be 64 columns by `rows` rows.
+int tile_map(CUtensorMap* map, const void* base, const int64_t* geom,
+             int rows) {
+    if (geom[7] != sm90::kRegionCols || geom[8] != 1 || geom[9] != rows ||
+        geom[10] != 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    return sm90::encode_tile_map(map, base, geom);
+}
+
+template <int DT>
+int launch_sm90(int kernel, const Args& a, const int64_t* tma,
+                cudaStream_t stream) {
+    CUtensorMap mq, mk, mv, mdo;
+    const bool fwd = kernel == kFwd;
+    const int q_rows = fwd ? kFwdBQ : kDkvBQ, kv_rows = fwd ? kFwdBK : kDkvBK;
+    int err = tile_map(&mq, a.q.p, tma, q_rows);
+    if (!err) err = tile_map(&mk, a.k.p, tma + 11, kv_rows);
+    if (!err) err = tile_map(&mv, a.v.p, tma + 22, kv_rows);
+    if (!err && !fwd) err = tile_map(&mdo, a.o.p, tma + 33, q_rows);
+    if (err) return err;
+    const int rows = fwd ? a.T : a.S;
+    const int tiles = (rows + kv_rows - 1) / kv_rows;  // 128 for both
+    const int64_t items = static_cast<int64_t>(a.B) * a.H * tiles;
+    if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    // B1 is persistent (at most one CTA per SM), B3 one CTA per item.
+    int64_t ctas = items;
+    if (fwd) {
+        int device = 0, sms = 0;
+        cudaError_t e = cudaGetDevice(&device);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        ctas = std::min<int64_t>(items, sms);
+    }
+    const dim3 grid(static_cast<unsigned>(ctas));
+    const int64_t per_head = 2LL * (fwd ? a.S : a.T) * a.D * sizeof(bf16);
+    Args g = a;
+    g.group = static_cast<int>(std::max<int64_t>(
+        1, std::min<int64_t>(a.B * a.H, kL2GroupBytes / per_head)));
+    const int smem = static_cast<int>(sm90_smem_bytes(kernel, a.D));
+    cudaError_t e;
+    if (fwd) {
+        e = cudaFuncSetAttribute(fwd_sm90<DT>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e == cudaSuccess)
+            fwd_sm90<DT><<<grid, kSm90Threads, smem, stream>>>(mq, mk, mv, g);
+    } else {
+        e = cudaFuncSetAttribute(dkv_sm90<DT>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e == cudaSuccess)
+            dkv_sm90<DT><<<grid, kSm90Threads, smem, stream>>>(mq, mk, mv, mdo, g);
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(int is_bf16, int kernel, const Args& a, const int64_t* tma,
+             void* stream) {
+    if (!is_sm90(is_bf16, kernel))
+        return is_bf16 ? launch<bf16>(kernel, a, stream)
+                       : launch<float>(kernel, a, stream);
+    if (!valid(a) || tma == nullptr || (kernel == kFwd && a.ticket == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return head_tile(a.D) == 64 ? launch_sm90<64>(kernel, a, tma, s)
+                                : launch_sm90<128>(kernel, a, tma, s);
 }
 
 Args base_args(int B, int T, int S, int H, int D, int causal, float scale) {
@@ -543,24 +1182,29 @@ extern "C" {
 
 // Shared memory one block of `kernel` (0 fwd, 1 dq, 2 dkv) needs (bytes).
 size_t flash_attn_smem_bytes(int kernel, int is_bf16, int D) {
+    if (is_sm90(is_bf16, kernel)) return sm90_smem_bytes(kernel, D);
     return is_bf16 ? smem_bytes<bf16>(kernel, D) : smem_bytes<float>(kernel, D);
 }
 
 // B1. q [B,T,H,D], k/v [B,S,H,D] -> out [B,T,H,D] (input dtype), lse
 // [B,T,H] fp32 (contiguous). `strides` holds (b, t, h) element strides
-// of q, k, v, out; the last dim of every view is contiguous. Returns
-// cudaGetLastError() after the launch (0 = launched).
+// of q, k, v, out; the last dim of every view is contiguous. For bf16,
+// `tma` holds the tensor-map geometry of q, k, v (11 values each) and
+// `ticket` one int32 on the device, 0 at launch (the work counter); both
+// may be null for fp32. Returns cudaGetLastError() after the launch (0 =
+// launched), or the error that kept it from launching.
 int flash_attn_fwd(int is_bf16, const void* q, const void* k, const void* v,
                    void* out, void* lse, int B, int T, int S, int H, int D,
                    int causal, float scale, const int64_t* strides,
-                   void* stream) {
+                   const int64_t* tma, void* ticket, void* stream) {
     Args a = base_args(B, T, S, H, D, causal, scale);
+    a.ticket = static_cast<int*>(ticket);
     a.q = view(q, strides);
     a.k = view(k, strides + 3);
     a.v = view(v, strides + 6);
     a.o = view(out, strides + 9);
     a.lse = static_cast<float*>(lse);
-    return dispatch(is_bf16, kFwd, a, stream);
+    return dispatch(is_bf16, kFwd, a, tma, stream);
 }
 
 // B2. + dout [B,T,H,D], lse and delta [B,T,H] fp32 -> dq [B,T,H,D].
@@ -577,15 +1221,16 @@ int flash_attn_dq(int is_bf16, const void* q, const void* k, const void* v,
     a.dq = view(dq, strides + 12);
     a.lse = const_cast<float*>(static_cast<const float*>(lse));
     a.delta = static_cast<const float*>(delta);
-    return dispatch(is_bf16, kDq, a, stream);
+    return dispatch(is_bf16, kDq, a, nullptr, stream);
 }
 
-// B3. -> dk, dv [B,S,H,D]. `strides`: q, k, v, dout, dk, dv.
+// B3. -> dk, dv [B,S,H,D]. `strides`: q, k, v, dout, dk, dv; `tma`: the
+// tensor-map geometry of q, k, v, dout (bf16; may be null for fp32).
 int flash_attn_dkv(int is_bf16, const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dk, void* dv, int B, int T, int S, int H, int D,
                    int causal, float scale, const int64_t* strides,
-                   void* stream) {
+                   const int64_t* tma, void* stream) {
     Args a = base_args(B, T, S, H, D, causal, scale);
     a.q = view(q, strides);
     a.k = view(k, strides + 3);
@@ -595,7 +1240,7 @@ int flash_attn_dkv(int is_bf16, const void* q, const void* k, const void* v,
     a.dv = view(dv, strides + 15);
     a.lse = const_cast<float*>(static_cast<const float*>(lse));
     a.delta = static_cast<const float*>(delta);
-    return dispatch(is_bf16, kDkv, a, stream);
+    return dispatch(is_bf16, kDkv, a, tma, stream);
 }
 
 }  // extern "C"

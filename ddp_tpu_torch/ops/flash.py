@@ -10,7 +10,8 @@ causal-LM training step runs it once forward and once backward:
 - :func:`flash_attention_with_lse` and :func:`flash_attention` (its
   ``out``) — one ``torch.autograd.Function`` over the hand-written CUDA
   kernels of ``ops/csrc/flash_attn.cu`` (B1 forward, B2 dQ, B3 dK/dV;
-  bf16 and fp32; the source note there says what bounds them and how). The
+  bf16 and fp32; the source note there says what bounds them and how;
+  :func:`kernel_config` says which design runs for a dtype and head dim). The
   forward saves ``(q, k, v, out, lse)`` as ``_fa_fwd`` does; the
   backward folds the lse cotangent in as
   ``delta' = rowsum(dO∘O) − dLSE`` (fp32) and runs B2 then B3. On a
@@ -33,11 +34,61 @@ import torch
 from ddp_tpu_torch.ops import _build
 
 # The kernels' limits (ops/csrc/flash_attn.cu): head_dim a multiple of
-# 16 up to 128 (WMMA tiles; shared memory is sized for 128).
+# 16 up to 128 (tensor-core k-steps of 16; tiles are sized for 128).
 MAX_HEAD_DIM = 128
 _IS_BF16 = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAME = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 KERNELS = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")
+# Rows of the tiles the sm90 kernels load by TMA (flash_attn.cu kFwdBQ,
+# kFwdBK, kDkvBQ, kDkvBK): B1 128 query rows and 128-key tiles; B3 128
+# keys and 64-row Q/dO tiles. A TMA box is 64 columns (128 bytes of bf16,
+# the swizzle span) by that many rows.
+SM90_ROWS = {"flash_attn_fwd": {"q": 128, "kv": 128},
+             "flash_attn_dkv": {"q": 64, "kv": 128}}
+TMA_BOX_COLS = 64
+
+
+def kernel_config(name: str, dtype: torch.dtype, head_dim: int) -> dict:
+    """Which kernel ``name`` runs for ``dtype`` and ``head_dim``.
+
+    ``design`` is "sm90" (TMA, mbarriers and wgmma with register
+    accumulators: bf16 B1 and B3), "wmma" (tiles and accumulators in
+    shared memory, WMMA products: bf16 B2) or "fma" (the same template on
+    plain FMA: fp32). An sm90 kernel runs a head-dim tile of 64 columns
+    for D ≤ 64 and 128 above, TMA zero-filling the padding. Raises
+    outside the kernels' range, as the wrappers do.
+    """
+    _check(name in KERNELS, f"unknown kernel {name}")
+    _check(dtype in _IS_BF16, f"unsupported dtype {dtype}")
+    _check(
+        head_dim % 16 == 0 and 16 <= head_dim <= MAX_HEAD_DIM,
+        f"head_dim {head_dim} must be a multiple of 16 in [16, {MAX_HEAD_DIM}]",
+    )
+    if dtype == torch.bfloat16 and name in SM90_ROWS:
+        return {"design": "sm90", "head_tile": 64 if head_dim <= 64 else 128,
+                **{f"{k}_rows": v for k, v in SM90_ROWS[name].items()}}
+    return {"design": "wmma" if dtype == torch.bfloat16 else "fma",
+            "head_tile": None}
+
+
+def tma_geometry(x: torch.Tensor, rows: int) -> tuple:
+    """The 4-D tiled tensor map of a [B, L, H, D] view as the sm90
+    kernels read it: dims (D, H, L, B) innermost first, the byte strides
+    of H, L and B, and the box (64 columns, 1 head, ``rows`` rows, 1
+    batch) → 11 ints. Rows past L and columns past D arrive as zeros."""
+    B, L, H, D = x.shape
+    size = x.element_size()
+    sb, st, sh = (s * size for s in x.stride()[:3])
+    return (D, H, L, B, sh, st, sb, TMA_BOX_COLS, 1, rows, 1)
+
+
+def _tma_array(name, tensors):
+    """The geometry of q, k, v (and dO for B3) for an sm90 launch."""
+    rows = SM90_ROWS[name]
+    vals = []
+    for x, side in zip(tensors, ("q", "kv", "kv", "q")):
+        vals += tma_geometry(x, rows[side])
+    return (ctypes.c_int64 * len(vals))(*vals)
 
 
 # ---- the plain version ----------------------------------------------
@@ -117,10 +168,12 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attn.cu")
     head = [_I, _P, _P, _P]
-    shape = [_I, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P]
-    lib.flash_attn_fwd.argtypes = head + [_P, _P] + shape
-    lib.flash_attn_dq.argtypes = head + [_P, _P, _P, _P] + shape
-    lib.flash_attn_dkv.argtypes = head + [_P, _P, _P, _P, _P] + shape
+    shape = [_I, _I, _I, _I, _I, _I, ctypes.c_float, _P]  # ..., strides
+    # B1 and B3 take the tensor-map geometry before the stream, B1 also
+    # its work counter.
+    lib.flash_attn_fwd.argtypes = head + [_P, _P] + shape + [_P, _P, _P]
+    lib.flash_attn_dq.argtypes = head + [_P, _P, _P, _P] + shape + [_P]
+    lib.flash_attn_dkv.argtypes = head + [_P, _P, _P, _P, _P] + shape + [_P, _P]
     for fn in (lib.flash_attn_fwd, lib.flash_attn_dq, lib.flash_attn_dkv):
         fn.restype = _I
     lib.flash_attn_smem_bytes.argtypes = [_I, _I, _I]
@@ -134,8 +187,8 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _aligned(x: torch.Tensor) -> bool:
-    """16-byte loads reach every row: last dim contiguous, the base and
-    the (b, t, h) strides on 16-byte boundaries."""
+    """16-byte loads and TMA reach every row: last dim contiguous, the
+    base and the (b, t, h) strides on 16-byte boundaries."""
     size = x.element_size()
     return (
         x.stride(-1) == 1
@@ -197,13 +250,19 @@ def flash_forward(q, k, v, causal: bool):
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, T, H), dtype=torch.float32, device=q.device)
     lib = _lib()
+    tma = ticket = None
+    if kernel_config("flash_attn_fwd", q.dtype, D)["design"] == "sm90":
+        tma = _tma_array("flash_attn_fwd", (q, k, v))
+        # The persistent kernel's work counter, 0 at launch.
+        ticket = torch.zeros(1, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch(
             "flash_attn_fwd", q.dtype, lib.flash_attn_fwd,
             _IS_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), B, T, S, H, D, int(causal),
-            D**-0.5, _strides(q, k, v, out), stream,
+            D**-0.5, _strides(q, k, v, out), tma,
+            None if ticket is None else ticket.data_ptr(), stream,
         )
     return out, lse
 
@@ -244,6 +303,9 @@ def flash_dkv(q, k, v, dout, lse, delta, causal: bool):
     B, T, H, D = q.shape
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    tma = (_tma_array("flash_attn_dkv", (q, k, v, dout))
+           if kernel_config("flash_attn_dkv", q.dtype, D)["design"] == "sm90"
+           else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch(
@@ -251,7 +313,8 @@ def flash_dkv(q, k, v, dout, lse, delta, causal: bool):
             _IS_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, T, k.shape[1], H, D,
-            int(causal), D**-0.5, _strides(q, k, v, dout, dk, dv), stream,
+            int(causal), D**-0.5, _strides(q, k, v, dout, dk, dv), tma,
+            stream,
         )
     return dk, dv
 

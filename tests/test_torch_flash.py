@@ -236,3 +236,114 @@ def test_kernel_source_is_built_with_the_rest(monkeypatch):
     monkeypatch.setattr(_build.Path, "is_file", lambda self: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(("flash_attn.cu",))
+
+
+# ---- which kernel runs, and what the wrapper hands it (no card needed) ----
+
+
+@pytest.mark.parametrize("D", range(16, 129, 16))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_config_per_dtype_and_head_dim(dtype, D):
+    """bf16 B1 and B3 run the sm90 kernels (TMA, wgmma, register
+    accumulators) with a 64-column head-dim tile up to D 64 and a
+    128-column one above; bf16 B2 keeps the WMMA template, fp32 the FMA
+    one."""
+    fwd, dq, dkv = (tflash.kernel_config(n, dtype, D) for n in tflash.KERNELS)
+    if dtype == torch.bfloat16:
+        tile = 64 if D <= 64 else 128
+        assert fwd == {"design": "sm90", "head_tile": tile,
+                       "q_rows": 128, "kv_rows": 128}
+        assert dkv == {"design": "sm90", "head_tile": tile,
+                       "q_rows": 64, "kv_rows": 128}
+        assert dq == {"design": "wmma", "head_tile": None}
+    else:
+        for cfg in (fwd, dq, dkv):
+            assert cfg == {"design": "fma", "head_tile": None}
+
+
+@pytest.mark.parametrize("D", [0, 8, 24, 100, 144, 256])
+def test_kernel_config_raises_outside_the_kernels_range(D):
+    for name in tflash.KERNELS:
+        with pytest.raises(ValueError, match=f"head_dim {D} must be"):
+            tflash.kernel_config(name, torch.bfloat16, D)
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        tflash.kernel_config("flash_attn_fwd", torch.float16, 64)
+
+
+def test_tma_geometry_of_a_fused_qkv_view():
+    """q/k/v as the model hands them over: views of one [B, T, H, 3, D]
+    projection, read in place (token stride 3·H·D, head stride 3·D)."""
+    B, T, H, D = 2, 256, 8, 128
+    qkv = torch.zeros(B, T, H, 3, D, dtype=torch.bfloat16)
+    q, k = qkv[:, :, :, 0], qkv[:, :, :, 1]
+    assert tflash._aligned(q) and tflash._aligned(k)
+    assert tflash.tma_geometry(q, 128) == (
+        D, H, T, B, 3 * D * 2, 3 * H * D * 2, 3 * H * D * T * 2, 64, 1, 128, 1)
+    # k starts D elements further on; the geometry is the same.
+    assert tflash.tma_geometry(k, 64)[:7] == tflash.tma_geometry(q, 64)[:7]
+    assert k.data_ptr() - q.data_ptr() == D * 2
+
+
+@pytest.mark.parametrize("T,D", [(2048, 128), (1000, 128), (512, 96), (64, 16)])
+def test_tma_geometry_of_contiguous_tensors(T, D):
+    """A contiguous [B, T, H, D] tensor, a ragged T (TMA zero-fills rows
+    past T) and a head dim that is not a tile width (the box stays 64
+    columns; columns past D arrive as zeros)."""
+    B, H = 3, 4
+    x = torch.zeros(B, T, H, D, dtype=torch.bfloat16)
+    geom = tflash.tma_geometry(x, 128)
+    assert geom == (D, H, T, B, D * 2, H * D * 2, T * H * D * 2, 64, 1, 128, 1)
+    assert all(s % 16 == 0 for s in geom[4:7])  # TMA's stride rule
+
+
+def test_tma_array_per_kernel():
+    """B1 loads 128-row tiles of q, k and v; B3 128-row k/v and 64-row q
+    and dO tiles: 11 values an operand, in the C entry points' order."""
+    q = torch.zeros(1, 200, 2, 96, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 300, 2, 96, dtype=torch.bfloat16)
+    fwd = list(tflash._tma_array("flash_attn_fwd", (q, kv, kv)))
+    dkv = list(tflash._tma_array("flash_attn_dkv", (q, kv, kv, q)))
+    assert len(fwd) == 33 and len(dkv) == 44
+    assert [fwd[i * 11 + 9] for i in range(3)] == [128, 128, 128]
+    assert [dkv[i * 11 + 9] for i in range(4)] == [64, 128, 128, 64]
+    assert fwd[:4] == [96, 2, 200, 1] and fwd[11:15] == [96, 2, 300, 1]
+
+
+def test_build_flags_and_sources_carry_the_sm90_kernels(tmp_path, monkeypatch):
+    """sm_90a (wgmma, setmaxnreg), ptxas's report kept, and the library
+    keyed by every header beside the sources as well: editing sm90.cuh
+    builds anew."""
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-Xptxas -v" in flags and "-lcuda" not in flags
+    assert "flash_attn.cu" in _build.SOURCES
+    assert (_build.CSRC / "sm90.cuh").is_file()
+    assert '#include "sm90.cuh"' in (_build.CSRC / "flash_attn.cu").read_text()
+    (tmp_path / "k.cu").write_text("// kernel")
+    (tmp_path / "h.cuh").write_text("// v1")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("k.cu")
+    assert _build.log_path("k.cu") == before.with_suffix(".log")
+    (tmp_path / "h.cuh").write_text("// v2")
+    assert _build.library_path("k.cu") != before
+
+
+def test_ptxas_report_is_parsed():
+    text = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN2ns8fwd_sm90ILi128EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN2ns8fwd_sm90ILi128EEEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN2ns9dq_kernelIfEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN2ns9dq_kernelIfEEvNS_4ArgsE
+    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 40 registers, 2048 bytes smem, 400 bytes cmem[0]
+"""
+    assert _build.parse_ptxas(text) == [
+        {"kernel": "_ZN2ns8fwd_sm90ILi128EEEv", "registers": 168, "smem": 0,
+         "stack": 0, "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "_ZN2ns9dq_kernelIfEEvNS_4ArgsE", "registers": 40,
+         "smem": 2048, "stack": 16, "spill_stores": 8, "spill_loads": 12},
+    ]
+    assert _build.parse_ptxas("") == []
