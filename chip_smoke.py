@@ -38,8 +38,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    dropped interior tile, a dropped ragged tail) must fail the same
    check; B1 and B3 run twice on the same inputs must agree bit for bit
    (no atomics). Then kernel, plain and SDPA times beside the bound at
-   the training shape, and fwd+bwd kernel vs plain per length (the data
-   for re-measuring FLASH_MIN_LEN).
+   the training shape (in fp32 also SDPA's kernel names and its error
+   against the plain version: the yardstick's own numerics), and fwd+bwd
+   kernel vs plain per length (the data for re-measuring FLASH_MIN_LEN).
 5. The training slice end to end: ``python -m ddp_tpu_torch.train``'s
    own main() at the repo's full-width training configuration (bench.py
    run_lm_bench: 111.3 M params, T 2048, batch 8, Adam 3e-4, bf16), 12
@@ -249,6 +250,7 @@ def check_kernels(torch) -> dict:
 # ---- phase 3b: flash attention B1-B3 against their plain versions ---------
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM data sheet
+H100_TF32_FLOPS = 494.7e12  # dense tensor-core TF32, H100 SXM data sheet
 # Each tensor is held to both limits: its relative norm error
 # |got - want| / |want| <= rel, and every element |got - want| <= atol +
 # rtol·|want|. fp32: kernel and plain version sum the same products in
@@ -267,11 +269,12 @@ FLASH_SHAPES = [  # label, B, T, S, H, D, causal
     ("causal head dim 96", 2, 512, 512, 8, 96, True),
 ]
 FLASH_NAMES = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")
-# The device functions of flash_attn.cu (the bf16 sm90 kernels of B1 and
-# B3; the shared-memory template of fp32 B1-B3 and bf16 B2), as profiler
-# keys and ptxas entries name them.
-FLASH_SYMBOLS = ("fwd_sm90", "dkv_sm90", "fwd_kernel", "dq_kernel",
-                 "dkv_kernel")
+# The device functions of flash_attn.cu (B1 and B3: the sm90 kernels in
+# bf16, the three-pass TF32 kernels in fp32; B2: the shared-memory
+# template), as profiler keys and ptxas entries name them.
+FLASH_SYMBOLS = ("fwd_sm90", "dkv_sm90", "fwd_tf32", "dkv_tf32", "dq_kernel")
+# Kernels built to keep every accumulator in registers: a spill raises.
+REGISTER_KERNELS = ("fwd_sm90", "dkv_sm90", "fwd_tf32", "dkv_tf32")
 
 
 def _flash_inputs(torch, B, T, S, H, D, dtype, seed):
@@ -416,13 +419,19 @@ def _flash_counts(B, T, S, H, D, causal, elem):
 
 def _flash_bound(name, pairs, nbytes, D, dtype_name):
     """Least time on an H100: tile products (2 flops a multiply-add;
-    B1 does 2 products, B2 3, B3 4, over the live pairs) over the peak
-    of the dtype's units vs the bytes over the memory rate."""
+    B1 does 2 products, B2 3, B3 4, over the live pairs) at the fastest
+    rate that keeps the dtype's accuracy, vs the bytes over the memory
+    rate. bf16: the tensor cores' bf16 peak. fp32: the faster of the FMA
+    units (67 TFLOP/s) and three TF32 passes a product on the tensor
+    cores (494.7 / 3 TFLOP/s), whatever design runs the kernel."""
     products = {"flash_attn_fwd": 2, "flash_attn_dq": 3,
                 "flash_attn_dkv": 4}[name]
     flops = 2 * products * pairs * D
-    peak = H100_BF16_FLOPS if dtype_name == "bf16" else H100_FP32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes[name] / H100_BYTES_PER_S
+    if dtype_name == "bf16":
+        t_ops = flops / H100_BF16_FLOPS
+    else:
+        t_ops = min(flops / H100_FP32_FLOPS, 3 * flops / H100_TF32_FLOPS)
+    t_bytes = nbytes[name] / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -516,15 +525,14 @@ def _kernel_calls(fl, q, k, v, dout, lse, delta, causal) -> dict:
     }
 
 
-def time_flash_kernels(torch) -> dict:
-    """B1-B3 in bf16 at the training shape, kernel times only (medians
-    of 5 x 10 calls) → {name: ms}: the reading that compares two trees
-    in one call (``--time-flash [--root DIR]``)."""
+def time_flash_kernels(torch, dtype) -> dict:
+    """B1-B3 in ``dtype`` at the training shape, kernel times only
+    (medians of 5 x 10 calls) → {name: ms}: the reading that compares two
+    trees in one call (``--time-flash [--root DIR]``)."""
     from ddp_tpu_torch.ops import flash as fl
 
     B, T, S, H, D, causal = TRAIN_SHAPE
-    q, k, v, dout, _ = _flash_inputs(torch, B, T, S, H, D, torch.bfloat16,
-                                     seed=99)
+    q, k, v, dout, _ = _flash_inputs(torch, B, T, S, H, D, dtype, seed=99)
     out, lse = fl.flash_forward(q, k, v, causal)
     delta = fl.backward_delta(out, dout)
     calls = _kernel_calls(fl, q, k, v, dout, lse, delta, causal)
@@ -540,7 +548,7 @@ def _time_flash(torch, F, fl, dtype, dname, errs) -> dict:
     out, lse = fl.flash_forward(q, k, v, causal)
     delta = fl.backward_delta(out, dout)
     qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
-    n, reps = (10, 5) if dname == "bf16" else (2, 3)
+    n, reps = (10, 5) if dname == "bf16" else (5, 3)
     kernel = _kernel_calls(fl, q, k, v, dout, lse, delta, causal)
     plain = {
         "flash_attn_fwd": lambda: fl.attention_with_lse_reference(
@@ -559,6 +567,8 @@ def _time_flash(torch, F, fl, dtype, dname, errs) -> dict:
     do_s = dout.transpose(1, 2)
     sdpa_bwd_ms = _median_ms(torch, lambda: torch.autograd.grad(
         o_s, (qs, ks, vs), do_s, retain_graph=True), n=n, reps=reps)
+    if dname == "fp32":
+        _log_sdpa_numerics(torch, F, fl, qs, ks, vs, qf, kf, vf)
     pairs, nbytes = _flash_counts(B, T, S, H, D, causal, q.element_size())
     res = {}
     for name in FLASH_NAMES:
@@ -578,6 +588,29 @@ def _time_flash(torch, F, fl, dtype, dname, errs) -> dict:
     del q, k, v, dout, out, lse, qs, ks, vs, o_s
     torch.cuda.empty_cache()
     return res
+
+
+def _log_sdpa_numerics(torch, F, fl, qs, ks, vs, qf, kf, vf) -> None:
+    """The fp32 yardstick's numerics: the device kernels one SDPA forward
+    and backward launch (torch.profiler), and its out against the plain
+    version's at the training shape, in the phase's own measure."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        torch.autograd.grad(o, (qs, ks, vs), torch.ones_like(o))
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if getattr(e, "self_device_time_total", 0) > 0})
+    want = fl.attention_with_lse_reference(qf, kf, vf, True)[0]
+    _, text = _compare(torch, o.detach().transpose(1, 2), want,
+                       FLASH_TOL["fp32"])
+    log(f"[flash] sdpa fp32 (allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}) kernels: "
+        + "; ".join(n[:120] for n in names))
+    log(f"[flash] sdpa fp32 forward vs plain at the training shape: {text}")
+    del o, want
+    torch.cuda.empty_cache()
 
 
 def _flash_min_len_data(torch, fl) -> None:
@@ -1089,8 +1122,8 @@ def check_serving(torch) -> dict:
 def log_ptxas(_build) -> None:
     """Phase 2: ptxas's report of each flash-attention kernel, and any
     line where ptxas serialised wgmma products or ignored setmaxnreg. A
-    spill in an sm90 kernel would undo its register accumulators: it
-    raises."""
+    spill in a kernel of REGISTER_KERNELS would undo its register
+    accumulators: it raises."""
     path = _build.log_path("flash_attn.cu")
     for line in (path.read_text() if path.is_file() else "").splitlines():
         if "Performance Loss" in line or "setmaxnreg ignored" in line:
@@ -1106,18 +1139,20 @@ def log_ptxas(_build) -> None:
             f"{r['smem']} bytes static smem, {r['stack']} bytes stack, "
             f"spill stores {r['spill_stores']} / loads {r['spill_loads']} "
             "bytes")
-        if "sm90" in name and (r["spill_stores"] or r["spill_loads"]):
+        if (name.split("<")[0] in REGISTER_KERNELS
+                and (r["spill_stores"] or r["spill_loads"])):
             spills.append(name)
     if spills:
         raise AssertionError(f"ptxas spilled in {spills}")
 
 
 def time_flash_main(argv) -> int:
-    """``--time-flash [--root DIR]``: build flash_attn.cu of the package
-    under DIR (default: this script's tree), print the card and one JSON
-    line of B1-B3 bf16 times at the training shape. Run it on two trees in
-    turns (parent, change, change, parent) within one call to compare
-    them on one card."""
+    """``--time-flash [--root DIR] [--dtype bf16|fp32|both]``: build
+    flash_attn.cu of the package under DIR (default: this script's tree),
+    print the card and one JSON line of B1-B3 times (µs) at the training
+    shape, per dtype (default both). Run it on two trees in turns
+    (parent, change, change, parent) within one call to compare them on
+    one card."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1127,12 +1162,18 @@ def time_flash_main(argv) -> int:
         sys.path.insert(0, argv[argv.index("--root") + 1])
     from ddp_tpu_torch.ops import _build
 
+    which = argv[argv.index("--dtype") + 1] if "--dtype" in argv else "both"
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    names = list(dtypes) if which == "both" else [which]
     root = str(_build.CSRC.parents[2])
     _build.build(("flash_attn.cu",))
-    times = time_flash_kernels(torch)
+    us = {}
+    for dname in names:
+        times = time_flash_kernels(torch, dtypes[dname])
+        us[dname] = {n: round(ms * 1e3, 1) for n, ms in times.items()}
+        torch.cuda.empty_cache()
     log(card_line())
-    print(json.dumps({"root": root, "us": {
-        n: round(ms * 1e3, 1) for n, ms in times.items()}}), flush=True)
+    print(json.dumps({"root": root, "us": us}), flush=True)
     return 0
 
 

@@ -1,5 +1,5 @@
 // Flash attention for Hopper: the forward, dQ and dK/dV kernels of the
-// causal-LM training step, in bf16 (tensor cores) and fp32 (plain FMA).
+// causal-LM training step, in bf16 and fp32, all on the tensor cores.
 //
 // Replaces the TPU kernels of ddp_tpu/ops/flash.py:
 //   B1 _flash_forward (:293) -> pl.pallas_call (:306) -> _fwd_kernel (:88)
@@ -52,13 +52,40 @@
 //   - head dims up to 64 run a 64-column tile, up to 128 a 128-column one
 //     (two TMA boxes); TMA fills the padding columns with zeros, which add
 //     nothing to Q.K^T, and the epilogue does not store them.
-// The fp32 variants and bf16 B2 keep the first design: one block per
-// q-tile (B1, B2) or k-tile (B3), tiles and fp32 accumulators in shared
-// memory, bf16 products through WMMA (16x16x16, fp32 accumulate), fp32
-// through plain FMA (not TF32, so it matches the fp32 plain version to
-// ~1e-6), synchronous 16-byte loads between two __syncthreads.
 //
-// Common to both: the [T, S] score matrix never reaches device memory;
+// fp32 B1 and B3 (fwd_tf32, dkv_tf32) keep fp32 accuracy on the tensor
+// cores: every product is three-pass TF32 (tf32x3.cuh: each operand split
+// into a TF32 big part and a TF32 remainder, big.big + big.small +
+// small.big into one fp32 accumulator, ~2^-21 relative error a product)
+// through mma.sync m16n8k8, which reads its fragments from shared memory
+// in any layout (tf32 wgmma takes K-major operands only, and V, dO and Q
+// are read MN-major here). At 494.7 TFLOP/s dense TF32 that is ~165
+// TFLOP/s of fp32-accurate products, 2.5x the 67 of the FMA units.
+//   - a CTA is 8 warps; a warp owns 16 query rows (B1) or 16 keys (B3,
+//     computed transposed as dkv_sm90 is) and keeps every accumulator in
+//     registers: S and O (B1), S^T, dP^T, dK and dV (B3). The online
+//     softmax runs on the fragments (exp2, scale folded in, quad
+//     shuffles);
+//   - P (B1), P^T and dS^T (B3) stay in registers: an m16n8 C fragment
+//     is the A fragment of the next product once k is permuted inside each
+//     8-column block, and the B operand (V, dO or Q) is read in that order;
+//   - tiles stream through a 2-stage cp.async ring (16-byte copies, zero
+//     fill past T, S and D), one __syncthreads a tile; rows are padded to
+//     D + 4 floats so that both reads of a Q or dO tile (row-wise for
+//     S^T, dP^T; column-wise for dK, dV) hit 32 distinct banks;
+//   - B1: 128 query rows a CTA, 64-key K/V tiles; B3: 128 keys a CTA,
+//     32-row Q/dO tiles (at D 128, ~200 KB of shared memory either way;
+//     dK and dV take 128 registers a thread, so the S^T and dP^T tiles are
+//     kept to 32 queries). The schedule is fp32's as much as bf16's: the
+//     longest work first, heads in L2-sized groups, masks only on
+//     straddling tiles, a warp skips a tile with no live pair; head dims
+//     up to 64 run a 64-column tile, up to 128 a 128-column one.
+// B2 (dq_kernel) keeps the first design: one block per q-tile, tiles and
+// fp32 accumulators in shared memory, bf16 products through WMMA
+// (16x16x16, fp32 accumulate), fp32 through plain FMA, synchronous
+// 16-byte loads between two __syncthreads.
+//
+// Common to all: the [T, S] score matrix never reaches device memory;
 // causal tiles past the diagonal are never visited (B1/B2 stop at the
 // last live key of their q-tile, B3 starts at the first q-tile that sees
 // its keys) and the tiles with the most work are scheduled first; two
@@ -87,6 +114,7 @@
 #include <type_traits>
 
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -100,8 +128,8 @@ constexpr int kPad = 8;    // elements added to a row of a Q/K/V/P tile
 constexpr int kPadF = 4;   // floats added to a row of an fp32 tile
 constexpr float kBigLse = 0.5f * FLT_MAX;
 
-// Tile rows per element type: 64 for bf16 (4 WMMA tiles a side), 32
-// for fp32 (its FMA tiles keep the shared memory of B3 under 130 KB).
+// B2's tile rows per element type: 64 for bf16 (4 WMMA tiles a side),
+// 32 for fp32 (plain FMA).
 template <typename T> struct Tiles;
 template <> struct Tiles<bf16> { static constexpr int BQ = 64, BK = 64; };
 template <> struct Tiles<float> { static constexpr int BQ = 32, BK = 32; };
@@ -110,19 +138,6 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
     return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-    return x;
 }
 
 // A [B, rows, H, D] view whose last dim is contiguous; strides in elements.
@@ -138,7 +153,7 @@ struct Args {
     const float* delta;  // [B, T, H]: rowsum(dO * O) - dLSE
     int B, T, S, H, D, causal;
     float scale;
-    int group;  // sm90 kernels: heads per L2 group of the grid
+    int group;  // sm90 and tf32 kernels: heads per group of the grid
     int* ticket;  // B1 (sm90): the next work item, 0 at launch
 };
 
@@ -160,24 +175,6 @@ struct Carver {
     }
 };
 
-template <typename T> struct FwdSmem {
-    T *q, *k, *v, *p;
-    float *s, *o, *m, *l;
-    __host__ __device__ size_t carve(unsigned char* base, int D) {
-        constexpr int BQ = Tiles<T>::BQ, BK = Tiles<T>::BK;
-        Carver c{base};
-        q = c.take<T>(BQ * (D + kPad));
-        k = c.take<T>(BK * (D + kPad));
-        v = c.take<T>(BK * (D + kPad));
-        p = c.take<T>(BQ * (BK + kPad));
-        s = c.take<float>(BQ * (BK + kPadF));
-        o = c.take<float>(BQ * (D + kPadF));
-        m = c.take<float>(BQ);
-        l = c.take<float>(BQ);
-        return c.off;
-    }
-};
-
 template <typename T> struct DqSmem {
     T *q, *dout, *k, *v, *ds;
     float *s, *dp, *dq, *lse, *dl;
@@ -192,28 +189,6 @@ template <typename T> struct DqSmem {
         s = c.take<float>(BQ * (BK + kPadF));
         dp = c.take<float>(BQ * (BK + kPadF));
         dq = c.take<float>(BQ * (D + kPadF));
-        lse = c.take<float>(BQ);
-        dl = c.take<float>(BQ);
-        return c.off;
-    }
-};
-
-template <typename T> struct DkvSmem {
-    T *k, *v, *q, *dout, *p, *ds;
-    float *s, *dp, *dk, *dv, *lse, *dl;
-    __host__ __device__ size_t carve(unsigned char* base, int D) {
-        constexpr int BQ = Tiles<T>::BQ, BK = Tiles<T>::BK;
-        Carver c{base};
-        k = c.take<T>(BK * (D + kPad));
-        v = c.take<T>(BK * (D + kPad));
-        q = c.take<T>(BQ * (D + kPad));
-        dout = c.take<T>(BQ * (D + kPad));
-        p = c.take<T>(BQ * (BK + kPad));
-        ds = c.take<T>(BQ * (BK + kPad));
-        s = c.take<float>(BQ * (BK + kPadF));
-        dp = c.take<float>(BQ * (BK + kPadF));
-        dk = c.take<float>(BK * (D + kPadF));
-        dv = c.take<float>(BK * (D + kPadF));
         lse = c.take<float>(BQ);
         dl = c.take<float>(BQ);
         return c.off;
@@ -330,101 +305,20 @@ __device__ void load_row_stats(float* lse_s, float* dl_s, const Args& a,
     }
 }
 
-// ---- B1: forward (fp32; bf16 runs fwd_sm90) ------------------------------
-
-// grid (B*H, q-tiles): the last q-tile (most live k-tiles) first.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
-    constexpr int BQ = Tiles<T>::BQ, BK = Tiles<T>::BK;
-    extern __shared__ __align__(128) unsigned char smem[];
-    FwdSmem<T> sm;
-    sm.carve(smem, a.D);
-    const int D = a.D, ldt = D + kPad, lds = BK + kPadF, ldp = BK + kPad,
-              ldo = D + kPadF;
-    const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
-    const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int kv_end = a.causal ? min(a.S, q0 + BQ + a.S - a.T) : a.S;
-
-    load_rows(sm.q, ldt, slice<T>(a.q, b, h), a.q.st, q0, BQ, a.T, D);
-    zero(sm.o, BQ * ldo);
-    for (int r = threadIdx.x; r < BQ; r += kThreads) {
-        sm.m[r] = -INFINITY;
-        sm.l[r] = 0.f;
-    }
-    const T* kb = slice<T>(a.k, b, h);
-    const T* vb = slice<T>(a.v, b, h);
-    for (int k0 = 0; k0 < kv_end; k0 += BK) {
-        __syncthreads();  // the previous tile's products are done
-        load_rows(sm.k, ldt, kb, a.k.st, k0, BK, a.S, D);
-        load_rows(sm.v, ldt, vb, a.v.st, k0, BK, a.S, D);
-        __syncthreads();
-        gemm<false, true>(sm.q, ldt, sm.k, ldt, sm.s, lds, BQ, BK, D, false);
-        __syncthreads();
-        // Online softmax, one warp per row.
-        for (int r = warp; r < BQ; r += kWarps) {
-            const int t = q0 + r;
-            float* srow = sm.s + r * lds;
-            float mx = -INFINITY;
-            for (int c = lane; c < BK; c += 32) {
-                const float x = live(t, k0 + c, a) ? srow[c] * a.scale : -INFINITY;
-                srow[c] = x;
-                mx = fmaxf(mx, x);
-            }
-            mx = warp_max(mx);
-            const float m_old = sm.m[r];
-            const float m_new = fmaxf(m_old, mx);
-            // A row with no live key yet: exp(-inf - -inf) would be NaN.
-            const float shift = isfinite(m_new) ? m_new : 0.f;
-            float sum = 0.f;
-            for (int c = lane; c < BK; c += 32) {
-                const float e = expf(srow[c] - shift);
-                sm.p[r * ldp + c] = from_f<T>(e);
-                sum += e;
-            }
-            sum = warp_sum(sum);
-            const float corr = isfinite(m_old) ? expf(m_old - shift) : 0.f;
-            for (int d = lane; d < D; d += 32) sm.o[r * ldo + d] *= corr;
-            if (lane == 0) {
-                sm.m[r] = m_new;
-                sm.l[r] = sm.l[r] * corr + sum;
-            }
-        }
-        __syncthreads();
-        gemm<false, false>(sm.p, ldp, sm.v, ldt, sm.o, ldo, BQ, D, BK, true);
-    }
-    __syncthreads();
-    T* ob = slice_out<T>(a.o, b, h);
-    for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
-        const int r = i / D, d = i - r * D;
-        if (q0 + r < a.T)
-            ob[(q0 + r) * a.o.st + d] =
-                from_f<T>(sm.o[r * ldo + d] / fmaxf(sm.l[r], 1e-30f));
-    }
-    for (int r = threadIdx.x; r < BQ; r += kThreads) {
-        const int t = q0 + r;
-        if (t >= a.T) continue;
-        const float l = sm.l[r], m = sm.m[r];
-        a.lse[(static_cast<int64_t>(b) * a.T + t) * a.H + h] =
-            l > 0.f ? (isfinite(m) ? m : 0.f) + logf(fmaxf(l, 1e-30f)) : -INFINITY;
-    }
-}
-
 // ---- B2: dQ ------------------------------------------------------------
 
 // dS = P * (dO.V^T - delta'), P = exp(scale * Q.K^T - lse) (0 where
-// masked), into ds (element type) and, for B3, P into p.
+// masked), into ds (element type).
 template <typename T>
 __device__ void scores_to_ds(const float* s, const float* dp, int lds,
-                             const float* lse_s, const float* dl_s, T* p,
-                             T* ds, int ldp, int q0, int k0, int BQ, int BK,
+                             const float* lse_s, const float* dl_s, T* ds,
+                             int ldp, int q0, int k0, int BQ, int BK,
                              const Args& a) {
     for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
         const int r = i / BK, c = i - r * BK;
         const float pv = live(q0 + r, k0 + c, a)
                              ? expf(s[r * lds + c] * a.scale - lse_s[r])
                              : 0.f;
-        if (p) p[r * ldp + c] = from_f<T>(pv);
         ds[r * ldp + c] = from_f<T>(pv * (dp[r * lds + c] - dl_s[r]));
     }
 }
@@ -456,8 +350,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
         gemm<false, true>(sm.q, ldt, sm.k, ldt, sm.s, lds, BQ, BK, D, false);
         gemm<false, true>(sm.dout, ldt, sm.v, ldt, sm.dp, lds, BQ, BK, D, false);
         __syncthreads();
-        scores_to_ds<T>(sm.s, sm.dp, lds, sm.lse, sm.dl, nullptr, sm.ds, ldp,
-                        q0, k0, BQ, BK, a);
+        scores_to_ds<T>(sm.s, sm.dp, lds, sm.lse, sm.dl, sm.ds, ldp, q0, k0,
+                        BQ, BK, a);
         __syncthreads();
         gemm<false, false>(sm.ds, ldp, sm.k, ldt, sm.dq, ldo, BQ, D, BK, true);
     }
@@ -467,56 +361,6 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
         const int r = i / D, d = i - r * D;
         if (q0 + r < a.T)
             out[(q0 + r) * a.dq.st + d] = from_f<T>(sm.dq[r * ldo + d] * a.scale);
-    }
-}
-
-// ---- B3: dK, dV (fp32; bf16 runs dkv_sm90) -------------------------------
-
-// grid (B*H, k-tiles): the first k-tile (most live q-tiles) first.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
-    constexpr int BQ = Tiles<T>::BQ, BK = Tiles<T>::BK;
-    extern __shared__ __align__(128) unsigned char smem[];
-    DkvSmem<T> sm;
-    sm.carve(smem, a.D);
-    const int D = a.D, ldt = D + kPad, lds = BK + kPadF, ldp = BK + kPad,
-              ldo = D + kPadF;
-    const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
-    const int k0 = blockIdx.y * BK;
-    // The first query row that sees key k0 is k0 - (S - T).
-    const int q_lo = a.causal ? max(0, k0 - (a.S - a.T)) : 0;
-
-    load_rows(sm.k, ldt, slice<T>(a.k, b, h), a.k.st, k0, BK, a.S, D);
-    load_rows(sm.v, ldt, slice<T>(a.v, b, h), a.v.st, k0, BK, a.S, D);
-    zero(sm.dk, BK * ldo);
-    zero(sm.dv, BK * ldo);
-    const T* qb = slice<T>(a.q, b, h);
-    const T* db = slice<T>(a.o, b, h);
-    for (int q0 = (q_lo / BQ) * BQ; q0 < a.T; q0 += BQ) {
-        __syncthreads();
-        load_rows(sm.q, ldt, qb, a.q.st, q0, BQ, a.T, D);
-        load_rows(sm.dout, ldt, db, a.o.st, q0, BQ, a.T, D);
-        load_row_stats(sm.lse, sm.dl, a, b, h, q0, BQ);
-        __syncthreads();
-        gemm<false, true>(sm.q, ldt, sm.k, ldt, sm.s, lds, BQ, BK, D, false);
-        gemm<false, true>(sm.dout, ldt, sm.v, ldt, sm.dp, lds, BQ, BK, D, false);
-        __syncthreads();
-        scores_to_ds<T>(sm.s, sm.dp, lds, sm.lse, sm.dl, sm.p, sm.ds, ldp, q0,
-                        k0, BQ, BK, a);
-        __syncthreads();
-        // dV += P^T . dO and dK += dS^T . Q: P and dS read transposed.
-        gemm<true, false>(sm.p, ldp, sm.dout, ldt, sm.dv, ldo, BK, D, BQ, true);
-        gemm<true, false>(sm.ds, ldp, sm.q, ldt, sm.dk, ldo, BK, D, BQ, true);
-    }
-    __syncthreads();
-    T* dkb = slice_out<T>(a.dk, b, h);
-    T* dvb = slice_out<T>(a.dv, b, h);
-    for (int i = threadIdx.x; i < BK * D; i += kThreads) {
-        const int r = i / D, d = i - r * D;
-        if (k0 + r < a.S) {
-            dkb[(k0 + r) * a.dk.st + d] = from_f<T>(sm.dk[r * ldo + d] * a.scale);
-            dvb[(k0 + r) * a.dv.st + d] = from_f<T>(sm.dv[r * ldo + d]);
-        }
     }
 }
 
@@ -1042,27 +886,430 @@ dkv_sm90(const __grid_constant__ CUtensorMap tq,
     }
 }
 
+// ---- fp32 B1 and B3: three-pass TF32 with register accumulators -----------
+
+constexpr int kTfThreads = 256;  // 8 warps, 16 query rows (B1) or keys (B3) each
+// B1: 128 query rows a CTA, 64-key K/V tiles. B3: 128 keys a CTA, 32-row
+// Q/dO tiles.
+constexpr int kTfFwdBQ = 128, kTfFwdBK = 64;
+constexpr int kTfDkvBK = 128, kTfDkvBQ = 32;
+// Depth of the cp.async ring of streamed tiles (K/V for B1, Q/dO for B3);
+// 1 loads each tile between two __syncthreads, with no overlap.
+constexpr int kTfStages = 2;
+// mma.sync adds its products to the fp32 accumulator with truncation, not
+// round-to-nearest, so a long chain of products into one accumulator
+// drifts toward zero (at T 2048 dK, dV and a non-causal O read 1.5-2.2e-5
+// relative error through a chain over every key or query). So every chain
+// is one tile long and starts from zero (S over the head dim, O over a
+// 64-key tile, dK and dV over a 32-query tile), and the tiles' sums are
+// added with FADD, which rounds to nearest.
+
+// Row stride of an fp32 tile of head-dim tile DT: DT + 4 floats, so that
+// every fragment read of tf32x3.cuh hits 32 distinct banks.
+template <int DT> __host__ __device__ constexpr int tf_ld() { return DT + 4; }
+
+// Rows [r0, r0 + R) and columns [0, DT) of one (b, h) slice into dst by
+// cp.async, 16 bytes a thread; rows at or past `rows` and columns at or
+// past D arrive as zeros.
+template <int DT>
+__device__ __forceinline__ void tf_load(float* dst, const float* src,
+                                        int64_t st, int r0, int R, int rows,
+                                        int D) {
+    constexpr int chunks = DT / 4;
+    for (int i = threadIdx.x; i < R * chunks; i += kTfThreads) {
+        const int r = i / chunks, c = (i - r * chunks) * 4;
+        const bool in = r0 + r < rows && c < D;
+        tf32x3::cp_async16(dst + r * tf_ld<DT>() + c,
+                           in ? src + static_cast<int64_t>(r0 + r) * st + c : src,
+                           in ? 16 : 0);
+    }
+}
+
+// Waits for stream tile j of the ring (every thread's copies, then the
+// block), after which the stage that tile j - 1 used is free.
+__device__ __forceinline__ void tf_ring_wait() {
+    tf32x3::cp_async_wait<(kTfStages > 1 ? kTfStages - 2 : 0)>();
+    __syncthreads();
+}
+
+// Shared memory of fwd_tf32 (floats): Q (128 rows), then kTfStages K tiles
+// and as many V tiles (64 rows each).
+template <int DT> struct TfFwdSmem {
+    static constexpr int kTile = kTfFwdBK * tf_ld<DT>();
+    static constexpr int kQ = 0;
+    static constexpr int kK = kTfFwdBQ * tf_ld<DT>();
+    static constexpr int kV = kK + kTfStages * kTile;
+    static constexpr size_t kBytes = (kV + kTfStages * kTile) * sizeof(float);
+};
+
+// grid B*H*q-tiles (grid_slot, one group of all heads): the last q-tiles
+// (most live k-tiles) first. Warp w owns rows q0 + 16w .. q0 + 16w + 15
+// and keeps S (16 x 64) and O (16 x DT) in registers.
+template <int DT>
+__global__ void __launch_bounds__(kTfThreads, 1) fwd_tf32(Args a) {
+    using L = TfFwdSmem<DT>;
+    constexpr int ld = tf_ld<DT>(), NT = DT / 8, NK = kTfFwdBK / 8;
+    extern __shared__ __align__(128) float smf[];
+    const int q_tiles = (a.T + kTfFwdBQ - 1) / kTfFwdBQ;
+    int bh, rank;
+    grid_slot(a, q_tiles, blockIdx.x, bh, rank);
+    const int b = bh / a.H, h = bh % a.H;
+    const int q0 = (q_tiles - 1 - rank) * kTfFwdBQ;
+    const int diag = a.S - a.T;  // key k is live for row t iff k <= t + diag
+    const int end = a.causal ? min(a.S, q0 + kTfFwdBQ + diag) : a.S;
+    const int n_tiles = end > 0 ? (end + kTfFwdBK - 1) / kTfFwdBK : 0;
+    const float* kb = slice<float>(a.k, b, h);
+    const float* vb = slice<float>(a.v, b, h);
+    auto load_kv = [&](int j) {  // one cp.async group, empty past the end
+        if (j < n_tiles) {
+            const int s = j % kTfStages;
+            tf_load<DT>(smf + L::kK + s * L::kTile, kb, a.k.st, j * kTfFwdBK,
+                        kTfFwdBK, a.S, a.D);
+            tf_load<DT>(smf + L::kV + s * L::kTile, vb, a.v.st, j * kTfFwdBK,
+                        kTfFwdBK, a.S, a.D);
+        }
+        tf32x3::cp_async_commit();
+    };
+    // Q rides in the first group.
+    tf_load<DT>(smf + L::kQ, slice<float>(a.q, b, h), a.q.st, q0, kTfFwdBQ,
+                a.T, a.D);
+    for (int j = 0; j < kTfStages - 1; ++j) load_kv(j);
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int qw = q0 + 16 * warp;  // this warp's first row
+    const int row0 = qw + g;        // this thread's rows row0 and row0 + 8
+    const float sl2 = a.scale * kLog2e;
+    const float* qs = smf + L::kQ + 16 * warp * ld;
+    // Keys past end_w are dead for every row of this warp.
+    const int end_w = qw >= a.T ? 0 : a.causal ? min(a.S, qw + 16 + diag) : a.S;
+    float o[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int j = 0; j < n_tiles; ++j) {
+        if constexpr (kTfStages == 1) load_kv(j);
+        tf_ring_wait();
+        if constexpr (kTfStages > 1) load_kv(j + kTfStages - 1);
+        const int k0 = j * kTfFwdBK;
+        if (k0 < end_w) {
+            const float* ks = smf + L::kK + (j % kTfStages) * L::kTile;
+            const float* vs = smf + L::kV + (j % kTfStages) * L::kTile;
+            // S = Q.K^T.
+            float sc[NK][4] = {};
+#pragma unroll
+            for (int kd = 0; kd < DT; kd += 8) {
+                float af[4];
+                uint32_t ab[4], as[4];
+                tf32x3::a_rows(qs, ld, kd, af);
+                tf32x3::split(af, ab, as);
+#pragma unroll
+                for (int n = 0; n < NK; ++n) {
+                    float bf[2];
+                    uint32_t bb[2], bs[2];
+                    tf32x3::b_cols(ks + 8 * n * ld, ld, kd, bf);
+                    tf32x3::split(bf, bb, bs);
+                    tf32x3::mma3(sc[n], ab, as, bb, bs);
+                }
+            }
+            // Online softmax in log2 units (x = s * scale * log2 e); the mask
+            // only on a tile where a key may be dead (past S, or past the
+            // diagonal of the warp's first row).
+            const bool mask = k0 + kTfFwdBK > a.S ||
+                              (a.causal && k0 + kTfFwdBK - 1 > qw + diag);
+            float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+            for (int n = 0; n < NK; ++n)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    if (mask) {
+                        const int key = k0 + 8 * n + 2 * t + (i & 1);
+                        const int row = row0 + 8 * (i >> 1);
+                        if (key >= a.S || (a.causal && key > row + diag))
+                            sc[n][i] = -INFINITY;
+                    }
+                    mx[i >> 1] = fmaxf(mx[i >> 1], sc[n][i]);
+                }
+            float shift[2], corr[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const float mn = fmaxf(m[r], quad_max(mx[r]) * sl2);
+                // A row with no live key yet: exp2(-inf - -inf) would be NaN.
+                shift[r] = mn == -INFINITY ? 0.f : mn;
+                corr[r] = sm90::exp2_ftz(m[r] - shift[r]);
+                m[r] = mn;
+                l[r] *= corr[r];
+            }
+#pragma unroll
+            for (int n = 0; n < NK; ++n)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const float p = sm90::exp2_ftz(fmaf(sc[n][i], sl2, -shift[i >> 1]));
+                    sc[n][i] = p;
+                    l[i >> 1] += p;
+                }
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) o[n][i] *= corr[i >> 1];
+            // O += P.V, P from registers: one chain over the tile's keys
+            // for each 8 columns of O.
+            uint32_t pb[NK][4], ps[NK][4];
+#pragma unroll
+            for (int kk = 0; kk < NK; ++kk) {
+                float af[4];
+                tf32x3::c_to_a(sc[kk], af);
+                tf32x3::split(af, pb[kk], ps[kk]);
+            }
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+                float acc[4] = {};
+#pragma unroll
+                for (int kk = 0; kk < NK; ++kk) {
+                    float bf[2];
+                    uint32_t bb[2], bs[2];
+                    tf32x3::b_rows_paired(vs + 8 * kk * ld, ld, 8 * n, bf);
+                    tf32x3::split(bf, bb, bs);
+                    tf32x3::mma3(acc, pb[kk], ps[kk], bb, bs);
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i) o[n][i] += acc[i];
+            }
+        }
+        if constexpr (kTfStages == 1) __syncthreads();
+    }
+    tf32x3::cp_async_wait<0>();  // no copy in flight at exit (n_tiles 0)
+    float* ob = slice_out<float>(a.o, b, h);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        const float lsum = quad_sum(l[half]);
+        const int row = row0 + 8 * half;
+        if (row >= a.T) continue;
+        const float inv = 1.f / fmaxf(lsum, 1e-30f);
+        float* orow = ob + static_cast<int64_t>(row) * a.o.st;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            const int col = 8 * n + 2 * t;
+            if (col < a.D)
+                *reinterpret_cast<float2*>(orow + col) =
+                    make_float2(o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
+        }
+        if (t == 0)
+            a.lse[(static_cast<int64_t>(b) * a.T + row) * a.H + h] =
+                lsum > 0.f ? m[half] * kLn2 + logf(lsum) : -INFINITY;
+    }
+}
+
+// Shared memory of dkv_tf32 (floats): K and V (128 rows), kTfStages Q
+// and dO tiles (32 rows), then each stage's lse·log2(e) and delta'.
+template <int DT> struct TfDkvSmem {
+    static constexpr int kTile = kTfDkvBQ * tf_ld<DT>();
+    static constexpr int kK = 0;
+    static constexpr int kV = kTfDkvBK * tf_ld<DT>();
+    static constexpr int kQ = 2 * kV;
+    static constexpr int kDo = kQ + kTfStages * kTile;
+    static constexpr int kStats = kDo + kTfStages * kTile;
+    static constexpr size_t kBytes =
+        (kStats + kTfStages * 2 * kTfDkvBQ) * sizeof(float);
+};
+
+// grid B*H*k-tiles (grid_slot, one group of all heads): the first k-tiles
+// (most live q-tiles) first. Warp w owns keys k0 + 16w .. k0 + 16w + 15 and
+// computes transposed: S^T = K.Q^T and dP^T = V.dO^T, so that P^T and dS^T
+// are the A operands of dV += P^T.dO and dK += dS^T.Q; dK and dV stay in
+// registers across the whole q loop.
+template <int DT>
+__global__ void __launch_bounds__(kTfThreads, 1) dkv_tf32(Args a) {
+    using L = TfDkvSmem<DT>;
+    constexpr int ld = tf_ld<DT>(), NT = DT / 8, NQ = kTfDkvBQ / 8;
+    extern __shared__ __align__(128) float smf[];
+    int bh, rank;
+    grid_slot(a, (a.S + kTfDkvBK - 1) / kTfDkvBK, blockIdx.x, bh, rank);
+    const int b = bh / a.H, h = bh % a.H;
+    const int k0 = rank * kTfDkvBK;
+    const int diag = a.S - a.T;
+    // The first query row that sees key k0 is k0 - diag.
+    const int q_first = a.causal ? (max(0, k0 - diag) / kTfDkvBQ) * kTfDkvBQ : 0;
+    const int n_tiles = max(0, (a.T - q_first + kTfDkvBQ - 1) / kTfDkvBQ);
+    const float* qb = slice<float>(a.q, b, h);
+    const float* db = slice<float>(a.o, b, h);
+    float* stats = smf + L::kStats;
+    auto load_q = [&](int j) {  // one cp.async group, empty past the end
+        if (j < n_tiles) {
+            const int s = j % kTfStages, q0 = q_first + j * kTfDkvBQ;
+            tf_load<DT>(smf + L::kQ + s * L::kTile, qb, a.q.st, q0, kTfDkvBQ,
+                        a.T, a.D);
+            tf_load<DT>(smf + L::kDo + s * L::kTile, db, a.o.st, q0, kTfDkvBQ,
+                        a.T, a.D);
+            // lse (non-finite -> 0.5 FLT_MAX, so that P = 0; rows past T
+            // likewise) in log2 units, and delta'.
+            for (int r = threadIdx.x; r < kTfDkvBQ; r += kTfThreads) {
+                float lse = kBigLse, dl = 0.f;
+                if (q0 + r < a.T) {
+                    const int64_t i = (static_cast<int64_t>(b) * a.T + q0 + r) * a.H + h;
+                    lse = a.lse[i];
+                    if (!isfinite(lse)) lse = kBigLse;
+                    dl = a.delta[i];
+                }
+                stats[2 * s * kTfDkvBQ + r] = lse * kLog2e;
+                stats[(2 * s + 1) * kTfDkvBQ + r] = dl;
+            }
+        }
+        tf32x3::cp_async_commit();
+    };
+    // K and V ride in the first group.
+    tf_load<DT>(smf + L::kK, slice<float>(a.k, b, h), a.k.st, k0, kTfDkvBK,
+                a.S, a.D);
+    tf_load<DT>(smf + L::kV, slice<float>(a.v, b, h), a.v.st, k0, kTfDkvBK,
+                a.S, a.D);
+    for (int j = 0; j < kTfStages - 1; ++j) load_q(j);
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int kw = k0 + 16 * warp;  // this warp's first key
+    const int key0 = kw + g;        // this thread's keys key0 and key0 + 8
+    const float sl2 = a.scale * kLog2e;
+    const float* ks = smf + L::kK + 16 * warp * ld;
+    const float* vs = smf + L::kV + 16 * warp * ld;
+    float dk[NT][4], dv[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
+    for (int j = 0; j < n_tiles; ++j) {
+        if constexpr (kTfStages == 1) load_q(j);
+        tf_ring_wait();
+        if constexpr (kTfStages > 1) load_q(j + kTfStages - 1);
+        const int q0 = q_first + j * kTfDkvBQ;
+        // Products only where one of this warp's keys is live for a row.
+        if (kw < a.S && !(a.causal && kw > q0 + kTfDkvBQ - 1 + diag)) {
+            const int s = j % kTfStages;
+            const float* qs = smf + L::kQ + s * L::kTile;
+            const float* dos = smf + L::kDo + s * L::kTile;
+            const float* lse2 = stats + 2 * s * kTfDkvBQ;
+            const float* dl = lse2 + kTfDkvBQ;
+            // S^T = K.Q^T and dP^T = V.dO^T.
+            float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+            for (int n = 0; n < NQ; ++n)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) st[n][i] = dpt[n][i] = 0.f;
+#pragma unroll
+            for (int kd = 0; kd < DT; kd += 8) {
+                float kf[4], vf[4];
+                uint32_t kbig[4], ksmall[4], vbig[4], vsmall[4];
+                tf32x3::a_rows(ks, ld, kd, kf);
+                tf32x3::split(kf, kbig, ksmall);
+                tf32x3::a_rows(vs, ld, kd, vf);
+                tf32x3::split(vf, vbig, vsmall);
+#pragma unroll
+                for (int n = 0; n < NQ; ++n) {
+                    float bf[2];
+                    uint32_t bb[2], bs[2];
+                    tf32x3::b_cols(qs + 8 * n * ld, ld, kd, bf);
+                    tf32x3::split(bf, bb, bs);
+                    tf32x3::mma3(st[n], kbig, ksmall, bb, bs);
+                    tf32x3::b_cols(dos + 8 * n * ld, ld, kd, bf);
+                    tf32x3::split(bf, bb, bs);
+                    tf32x3::mma3(dpt[n], vbig, vsmall, bb, bs);
+                }
+            }
+            // P^T and dS^T = P^T * (dP^T - delta'); the causal mask only
+            // where a key of ours passes the diagonal of the tile's first row.
+            const bool mask = a.causal && kw + 15 > q0 + diag;
+#pragma unroll
+            for (int n = 0; n < NQ; ++n)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int c = 8 * n + 2 * t + (i & 1);  // query q0 + c
+                    float p = sm90::exp2_ftz(fmaf(st[n][i], sl2, -lse2[c]));
+                    if (mask && key0 + 8 * (i >> 1) > q0 + c + diag) p = 0.f;
+                    dpt[n][i] = p * (dpt[n][i] - dl[c]);
+                    st[n][i] = p;
+                }
+            // dV += P^T.dO and dK += dS^T.Q, both A operands from
+            // registers: one chain over the tile's queries for each 8
+            // columns of dK and dV.
+            uint32_t pb[NQ][4], ps[NQ][4], gb[NQ][4], gs[NQ][4];
+#pragma unroll
+            for (int kk = 0; kk < NQ; ++kk) {
+                float af[4];
+                tf32x3::c_to_a(st[kk], af);
+                tf32x3::split(af, pb[kk], ps[kk]);
+                tf32x3::c_to_a(dpt[kk], af);
+                tf32x3::split(af, gb[kk], gs[kk]);
+            }
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+                float av[4] = {}, ak[4] = {};
+#pragma unroll
+                for (int kk = 0; kk < NQ; ++kk) {
+                    float bf[2];
+                    uint32_t bb[2], bs[2];
+                    tf32x3::b_rows_paired(dos + 8 * kk * ld, ld, 8 * n, bf);
+                    tf32x3::split(bf, bb, bs);
+                    tf32x3::mma3(av, pb[kk], ps[kk], bb, bs);
+                    tf32x3::b_rows_paired(qs + 8 * kk * ld, ld, 8 * n, bf);
+                    tf32x3::split(bf, bb, bs);
+                    tf32x3::mma3(ak, gb[kk], gs[kk], bb, bs);
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    dv[n][i] += av[i];
+                    dk[n][i] += ak[i];
+                }
+            }
+        }
+        if constexpr (kTfStages == 1) __syncthreads();
+    }
+    tf32x3::cp_async_wait<0>();  // no copy in flight at exit (n_tiles 0)
+    float* dkb = slice_out<float>(a.dk, b, h);
+    float* dvb = slice_out<float>(a.dv, b, h);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        const int key = key0 + 8 * half;
+        if (key >= a.S) continue;
+        float* krow = dkb + static_cast<int64_t>(key) * a.dk.st;
+        float* vrow = dvb + static_cast<int64_t>(key) * a.dv.st;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            const int col = 8 * n + 2 * t;
+            if (col < a.D) {
+                *reinterpret_cast<float2*>(krow + col) = make_float2(
+                    dk[n][2 * half] * a.scale, dk[n][2 * half + 1] * a.scale);
+                *reinterpret_cast<float2*>(vrow + col) =
+                    make_float2(dv[n][2 * half], dv[n][2 * half + 1]);
+            }
+        }
+    }
+}
+
 // ---- launch ---------------------------------------------------------
 
 enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// bf16 B1 and B3 run the sm90 kernels; everything else the shared-memory
-// template.
-bool is_sm90(int is_bf16, int kernel) { return is_bf16 && kernel != kDq; }
+// B1 and B3 run the sm90 kernels in bf16 and the tf32 kernels in fp32;
+// B2 runs the shared-memory template (dq_kernel) in both.
+enum Design { kTemplate, kSm90, kTf32 };
+Design design(int is_bf16, int kernel) {
+    return kernel == kDq ? kTemplate : is_bf16 ? kSm90 : kTf32;
+}
 
 int head_tile(int D) { return D <= 64 ? 64 : 128; }
 
-size_t sm90_smem_bytes(int kernel, int D) {
-    if (kernel == kFwd)
-        return head_tile(D) == 64 ? FwdSm90<64>::kBytes : FwdSm90<128>::kBytes;
-    return head_tile(D) == 64 ? DkvSm90<64>::kBytes : DkvSm90<128>::kBytes;
-}
-
-template <typename T> size_t smem_bytes(int kernel, int D) {
-    switch (kernel) {
-        case kFwd: { FwdSmem<T> s; return s.carve(nullptr, D); }
-        case kDq: { DqSmem<T> s; return s.carve(nullptr, D); }
-        default: { DkvSmem<T> s; return s.carve(nullptr, D); }
+size_t smem_bytes(int is_bf16, int kernel, int D) {
+    const bool fwd = kernel == kFwd, narrow = head_tile(D) == 64;
+    switch (design(is_bf16, kernel)) {
+        case kSm90:
+            if (fwd) return narrow ? FwdSm90<64>::kBytes : FwdSm90<128>::kBytes;
+            return narrow ? DkvSm90<64>::kBytes : DkvSm90<128>::kBytes;
+        case kTf32:
+            if (fwd) return narrow ? TfFwdSmem<64>::kBytes : TfFwdSmem<128>::kBytes;
+            return narrow ? TfDkvSmem<64>::kBytes : TfDkvSmem<128>::kBytes;
+        default:
+            if (is_bf16) { DqSmem<bf16> s; return s.carve(nullptr, D); }
+            DqSmem<float> s;
+            return s.carve(nullptr, D);
     }
 }
 
@@ -1076,28 +1323,44 @@ bool valid(const Args& a) {
            static_cast<int64_t>(a.B) * a.H <= 0x7fffffff;
 }
 
-// The shared-memory template: fp32 B1-B3 and bf16 B2.
-template <typename T>
-int launch(int kernel, Args a, void* stream) {
-    if (!valid(a)) return static_cast<int>(cudaErrorInvalidValue);
-    const int rows = kernel == kDkv ? a.S : a.T;
-    const int tile = kernel == kDkv ? Tiles<T>::BK : Tiles<T>::BQ;
-    const int tiles = (rows + tile - 1) / tile;
-    if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid(a.B * a.H, tiles);
-    const size_t smem = smem_bytes<T>(kernel, a.D);
-    void (*fn)(Args);
-    if constexpr (std::is_same<T, float>::value)
-        fn = kernel == kFwd ? fwd_kernel<T> : kernel == kDq ? dq_kernel<T>
-                                                             : dkv_kernel<T>;
-    else
-        fn = dq_kernel<T>;
-    // Above 48 KB of dynamic shared memory only after an explicit opt-in.
-    cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fn<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+// Launches fn<<<grid, threads, smem, stream>>>(args...) after the opt-in
+// that dynamic shared memory above 48 KB needs.
+template <typename... P>
+int launch(void (*fn)(P...), dim3 grid, int threads, int smem,
+           cudaStream_t stream, P... args) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fn<<<grid, threads, smem, stream>>>(args...);
     return static_cast<int>(cudaGetLastError());
+}
+
+// B2: the shared-memory template.
+template <typename T>
+int launch_dq(const Args& a, cudaStream_t stream) {
+    const int tiles = (a.T + Tiles<T>::BQ - 1) / Tiles<T>::BQ;
+    if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    return launch(dq_kernel<T>, dim3(a.B * a.H, tiles), kThreads,
+                  static_cast<int>(smem_bytes(std::is_same<T, bf16>::value,
+                                              kDq, a.D)),
+                  stream, a);
+}
+
+// fp32 B1 and B3: one CTA per item, B*H*tiles items, every head's
+// longest tiles first (head groups measured no faster here: at ~1.7 and
+// ~3.7 ms the products, not the L2, set the pace).
+template <int DT>
+int launch_tf32(int kernel, const Args& a, cudaStream_t stream) {
+    const bool fwd = kernel == kFwd;
+    const int rows = fwd ? a.T : a.S, tile = fwd ? kTfFwdBQ : kTfDkvBK;
+    const int64_t items =
+        static_cast<int64_t>(a.B) * a.H * ((rows + tile - 1) / tile);
+    if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    Args g = a;
+    g.group = a.B * a.H;
+    const int smem = static_cast<int>(smem_bytes(0, kernel, a.D));
+    return launch(fwd ? fwd_tf32<DT> : dkv_tf32<DT>,
+                  dim3(static_cast<unsigned>(items)), kTfThreads, smem, stream, g);
 }
 
 // One operand's tensor map from the wrapper's geometry (11 values: dims,
@@ -1140,33 +1403,31 @@ int launch_sm90(int kernel, const Args& a, const int64_t* tma,
     Args g = a;
     g.group = static_cast<int>(std::max<int64_t>(
         1, std::min<int64_t>(a.B * a.H, kL2GroupBytes / per_head)));
-    const int smem = static_cast<int>(sm90_smem_bytes(kernel, a.D));
-    cudaError_t e;
-    if (fwd) {
-        e = cudaFuncSetAttribute(fwd_sm90<DT>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e == cudaSuccess)
-            fwd_sm90<DT><<<grid, kSm90Threads, smem, stream>>>(mq, mk, mv, g);
-    } else {
-        e = cudaFuncSetAttribute(dkv_sm90<DT>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e == cudaSuccess)
-            dkv_sm90<DT><<<grid, kSm90Threads, smem, stream>>>(mq, mk, mv, mdo, g);
-    }
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(cudaGetLastError());
+    const int smem = static_cast<int>(smem_bytes(1, kernel, a.D));
+    if (fwd)
+        return launch(fwd_sm90<DT>, grid, kSm90Threads, smem, stream, mq, mk,
+                      mv, g);
+    return launch(dkv_sm90<DT>, grid, kSm90Threads, smem, stream, mq, mk, mv,
+                  mdo, g);
 }
 
 int dispatch(int is_bf16, int kernel, const Args& a, const int64_t* tma,
              void* stream) {
-    if (!is_sm90(is_bf16, kernel))
-        return is_bf16 ? launch<bf16>(kernel, a, stream)
-                       : launch<float>(kernel, a, stream);
-    if (!valid(a) || tma == nullptr || (kernel == kFwd && a.ticket == nullptr))
-        return static_cast<int>(cudaErrorInvalidValue);
+    if (!valid(a)) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return head_tile(a.D) == 64 ? launch_sm90<64>(kernel, a, tma, s)
-                                : launch_sm90<128>(kernel, a, tma, s);
+    const bool narrow = head_tile(a.D) == 64;
+    switch (design(is_bf16, kernel)) {
+        case kTemplate:
+            return is_bf16 ? launch_dq<bf16>(a, s) : launch_dq<float>(a, s);
+        case kTf32:
+            return narrow ? launch_tf32<64>(kernel, a, s)
+                          : launch_tf32<128>(kernel, a, s);
+        default:
+            if (tma == nullptr || (kernel == kFwd && a.ticket == nullptr))
+                return static_cast<int>(cudaErrorInvalidValue);
+            return narrow ? launch_sm90<64>(kernel, a, tma, s)
+                          : launch_sm90<128>(kernel, a, tma, s);
+    }
 }
 
 Args base_args(int B, int T, int S, int H, int D, int causal, float scale) {
@@ -1182,8 +1443,7 @@ extern "C" {
 
 // Shared memory one block of `kernel` (0 fwd, 1 dq, 2 dkv) needs (bytes).
 size_t flash_attn_smem_bytes(int kernel, int is_bf16, int D) {
-    if (is_sm90(is_bf16, kernel)) return sm90_smem_bytes(kernel, D);
-    return is_bf16 ? smem_bytes<bf16>(kernel, D) : smem_bytes<float>(kernel, D);
+    return smem_bytes(is_bf16, kernel, D);
 }
 
 // B1. q [B,T,H,D], k/v [B,S,H,D] -> out [B,T,H,D] (input dtype), lse

@@ -18,6 +18,9 @@ causal-LM training step runs it once forward and once backward:
   CUDA tensor they launch the kernels or raise; on a CPU tensor they
   take the plain version, because there is no kernel to run there.
 - :func:`make_flash_attention` — the ``(q, k, v) -> out`` contract.
+- :func:`tf32_round` and :func:`tf32x3_matmul` — a plain emulation of the
+  fp32 kernels' three-pass TF32 products, for the tests (nothing on the
+  main path calls them).
 
 Launches are counted per kernel and dtype in ``flash_attention.launches``
 (one increment where a kernel is launched, nowhere else).
@@ -46,17 +49,24 @@ KERNELS = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")
 SM90_ROWS = {"flash_attn_fwd": {"q": 128, "kv": 128},
              "flash_attn_dkv": {"q": 64, "kv": 128}}
 TMA_BOX_COLS = 64
+# Rows of the tiles of the fp32 kernels (flash_attn.cu kTfFwdBQ, kTfFwdBK,
+# kTfDkvBQ, kTfDkvBK): B1 128 query rows and 64-key tiles; B3 128 keys and
+# 32-row Q/dO tiles.
+TF32_ROWS = {"flash_attn_fwd": {"q": 128, "kv": 64},
+             "flash_attn_dkv": {"q": 32, "kv": 128}}
 
 
 def kernel_config(name: str, dtype: torch.dtype, head_dim: int) -> dict:
     """Which kernel ``name`` runs for ``dtype`` and ``head_dim``.
 
     ``design`` is "sm90" (TMA, mbarriers and wgmma with register
-    accumulators: bf16 B1 and B3), "wmma" (tiles and accumulators in
-    shared memory, WMMA products: bf16 B2) or "fma" (the same template on
-    plain FMA: fp32). An sm90 kernel runs a head-dim tile of 64 columns
-    for D ≤ 64 and 128 above, TMA zero-filling the padding. Raises
-    outside the kernels' range, as the wrappers do.
+    accumulators: bf16 B1 and B3), "tf32x3" (three-pass TF32 mma.sync
+    products with register accumulators and a cp.async ring: fp32 B1 and
+    B3), "wmma" (tiles and accumulators in shared memory, WMMA products:
+    bf16 B2) or "fma" (the same template on plain FMA: fp32 B2). The sm90
+    and tf32x3 kernels run a head-dim tile of 64 columns for D ≤ 64 and
+    128 above, the padding filled with zeros. Raises outside the kernels'
+    range, as the wrappers do.
     """
     _check(name in KERNELS, f"unknown kernel {name}")
     _check(dtype in _IS_BF16, f"unsupported dtype {dtype}")
@@ -64,11 +74,13 @@ def kernel_config(name: str, dtype: torch.dtype, head_dim: int) -> dict:
         head_dim % 16 == 0 and 16 <= head_dim <= MAX_HEAD_DIM,
         f"head_dim {head_dim} must be a multiple of 16 in [16, {MAX_HEAD_DIM}]",
     )
-    if dtype == torch.bfloat16 and name in SM90_ROWS:
-        return {"design": "sm90", "head_tile": 64 if head_dim <= 64 else 128,
-                **{f"{k}_rows": v for k, v in SM90_ROWS[name].items()}}
-    return {"design": "wmma" if dtype == torch.bfloat16 else "fma",
-            "head_tile": None}
+    bf16 = dtype == torch.bfloat16
+    if name in SM90_ROWS:
+        rows = SM90_ROWS if bf16 else TF32_ROWS
+        return {"design": "sm90" if bf16 else "tf32x3",
+                "head_tile": 64 if head_dim <= 64 else 128,
+                **{f"{k}_rows": v for k, v in rows[name].items()}}
+    return {"design": "wmma" if bf16 else "fma", "head_tile": None}
 
 
 def tma_geometry(x: torch.Tensor, rows: int) -> tuple:
@@ -156,6 +168,35 @@ def flash_dkv_reference(q, k, v, dout, lse, delta, causal: bool = False):
     dk = torch.einsum("bhts,bthd->bshd", ds, q.float()) * q.shape[-1] ** -0.5
     dv = torch.einsum("bhts,bthd->bshd", p, dout.float())
     return dk.to(q.dtype), dv.to(q.dtype)
+
+
+# ---- the fp32 kernels' products, emulated ------------------------------
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 → the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: on the fp32 bits, add half a
+    TF32 ulp to the magnitude and clear the 13 low bits. A finite value
+    that rounds past the largest TF32 becomes ±inf; ±inf and NaN stay."""
+    bits = x.float().contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x.float())
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3):
+    """a @ b in fp32 as the fp32 kernels multiply: each operand split into
+    big = tf32(x) and small = tf32(x − big), and small·big + big·small +
+    big·big summed in fp32 (each of those products is exact in fp32).
+    ``passes=1`` keeps big·big alone: one TF32 pass, the control. The
+    card's accumulation truncates where this one rounds to nearest; the
+    kernels keep each accumulation chain one tile long for that."""
+    a_big, b_big = tf32_round(a), tf32_round(b)
+    out = a_big @ b_big
+    if passes == 3:
+        a_small = tf32_round(a.float() - a_big)
+        b_small = tf32_round(b.float() - b_big)
+        out = a_small @ b_big + a_big @ b_small + out
+    return out
 
 
 # ---- the kernels -----------------------------------------------------

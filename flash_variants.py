@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
 """Time source variants of the flash-attention kernels on one GPU.
 
-    python3 flash_variants.py [NAME ...]
+    python3 flash_variants.py [--dtype bf16|fp32] [NAME ...]
 
-Each variant is ddp_tpu_torch/ops/csrc/flash_attn.cu with one design
-choice undone or one part removed (VARIANTS: a named text edit). Every
-variant is built into its own directory under ops/_build/variants/ (one
-nvcc each, started together), loaded in place of the real library, and
-B1 and B3 (bf16) are timed at the training shape (B 8, T = S 2048, H 8,
-D 128, causal) with chip_smoke's timer, twice in turns, beside the
-unedited source ("base"). A "diagnostic" variant computes a wrong result
-on purpose, to show what one part costs; the others must give base's
-bits or differ from them by rounding only (exp2f). Prints the card, one
-line per variant and round, then one JSON line {variant: {"fwd_us":
-[...], "dkv_us": [...], "same": bool}} ("same": B1's and B3's outputs
-equal base's bit for bit).
+Each variant is ddp_tpu_torch/ops/csrc/flash_attn.cu (and the headers
+beside it) with one design choice undone or one part removed (VARIANTS:
+a named text edit, for the bf16 or the fp32 kernels). Every variant is
+built into its own directory under ops/_build/variants/ (one nvcc each,
+started together), loaded in place of the real library, and B1 and B3
+in the chosen dtype (default bf16; the variants of that dtype unless
+named) are timed at the training shape (B 8, T = S 2048, H 8, D 128,
+causal) with chip_smoke's timer, twice in turns, beside the unedited
+source ("base"). A "diagnostic" variant computes a wrong result on
+purpose, to show what one part costs; the others must give base's bits
+or differ from them by rounding only (exp2f, the fp32 chain lengths).
+B3 runs on the plain version's lse and delta', and each variant's B1 out
+and B3 dk, dv are held against the plain version as phase 3b holds them
+("err": relative norm error and the worst element's share of its limit,
+under FLASH_TOL). Prints the card, one line per variant and round, then
+one JSON line {variant: {"fwd_us": [...], "dkv_us": [...], "same": bool,
+"err": {...}}} ("same": B1's and B3's outputs equal base's bit for bit),
+after each variant's ptxas registers and spills.
 """
 
 from __future__ import annotations
@@ -27,23 +33,45 @@ from pathlib import Path
 
 import chip_smoke as cs
 
-# name -> (what it shows, diagnostic?, [(old, new), ...] edits of the source)
+# name -> (what it shows, dtype, diagnostic?, [(old, new), ...] edits of
+# flash_attn.cu or a header beside it; each `old` must occur in one file)
 VARIANTS = {
     "exp2f": ("exp2f (ex2 with denormal handling) instead of one MUFU.EX2",
-              False, [("sm90::exp2_ftz(", "exp2f(")]),
-    "fwd_stages2": ("a 2-stage K/V ring in B1", False,
+              "bf16", False, [("sm90::exp2_ftz(", "exp2f(")]),
+    "fwd_stages2": ("a 2-stage K/V ring in B1", "bf16", False,
                     [("kFwdStages = 3, kDkvStages = 2", "kFwdStages = 2, kDkvStages = 2")]),
-    "dkv_stages3": ("a 3-stage Q/dO ring in B3", False,
+    "dkv_stages3": ("a 3-stage Q/dO ring in B3", "bf16", False,
                     [("kFwdStages = 3, kDkvStages = 2", "kFwdStages = 3, kDkvStages = 3")]),
     "one_group": ("no head groups: every head's first tiles first, as a "
-                  "plain (b*h, tile) grid runs", False,
+                  "plain (b*h, tile) grid runs", "bf16", False,
                   [("kL2GroupBytes = 16LL << 20", "kL2GroupBytes = 1LL << 40")]),
     "no_softmax": ("B1 without the softmax of tiles after the first "
-                   "(products and pipeline only)", True,
+                   "(products and pipeline only)", "bf16", True,
                    [("fwd_softmax(sc, m, l, corr, j * kFwdBK, t0, qw, cq, sl2, a);",
                      "corr[0] = corr[1] = 1.f;")]),
-    "no_pv": ("B1 without O += P.V", True,
+    "no_pv": ("B1 without O += P.V", "bf16", True,
               [("mma_mn<DT>(o, pa[kk], v_prev, kFwdBK, kk);", "(void)v_prev;")]),
+    "tf32_one_pass": ("one TF32 pass a product (big.big alone) in fp32 B1 "
+                      "and B3", "fp32", True,
+                      [("    mma(d, as, bb);\n    mma(d, ab, bs);\n", "")]),
+    "tf32_stages1": ("a shallower ring in fp32 B1 and B3: one stage, each "
+                     "tile loaded between two __syncthreads", "fp32", False,
+                     [("kTfStages = 2;", "kTfStages = 1;")]),
+    "tf32_one_chain": ("fp32 B1 and B3: O, dK and dV accumulated in one "
+                       "mma chain over every key or query (the truncating "
+                       "accumulation's drift)", "fp32", False,
+                       [("tf32x3::mma3(acc, pb[kk], ps[kk], bb, bs);",
+                         "tf32x3::mma3(o[n], pb[kk], ps[kk], bb, bs);"),
+                        ("tf32x3::mma3(av, pb[kk], ps[kk], bb, bs);",
+                         "tf32x3::mma3(dv[n], pb[kk], ps[kk], bb, bs);"),
+                        ("tf32x3::mma3(ak, gb[kk], gs[kk], bb, bs);",
+                         "tf32x3::mma3(dk[n], gb[kk], gs[kk], bb, bs);")]),
+    "tf32_groups": ("fp32 B1 and B3 scheduled in head groups of <= 16 MB "
+                    "streamed tiles, as the bf16 kernels are", "fp32", False,
+                    [("    g.group = a.B * a.H;\n",
+                      "    g.group = static_cast<int>(std::max<int64_t>(1, "
+                      "std::min<int64_t>(a.B * a.H, kL2GroupBytes / (2LL * "
+                      "(fwd ? a.S : a.T) * a.D * 4))));\n")]),
 }
 
 
@@ -51,20 +79,21 @@ def build(names) -> dict[str, Path]:
     """Each variant's library, built in parallel → {name: path}."""
     from ddp_tpu_torch.ops import _build
 
-    source = (_build.CSRC / "flash_attn.cu").read_text()
+    files = [_build.CSRC / "flash_attn.cu", *_build.CSRC.glob("*.cuh")]
+    sources = {f.name: f.read_text() for f in files}
     root = _build.BUILD_DIR / "variants"
     procs = {}
     for name in names:
-        text = source
-        for old, new in ([] if name == "base" else VARIANTS[name][2]):
-            if old not in text:
-                raise ValueError(f"variant {name}: {old!r} is not in the source")
-            text = text.replace(old, new)
+        texts = dict(sources)
+        for old, new in ([] if name == "base" else VARIANTS[name][3]):
+            hits = [f for f, text in texts.items() if old in text]
+            if len(hits) != 1:
+                raise ValueError(f"variant {name}: {old!r} is in {hits}")
+            texts[hits[0]] = texts[hits[0]].replace(old, new)
         d = root / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "flash_attn.cu").write_text(text)
-        for header in _build.CSRC.glob("*.cuh"):
-            (d / header.name).write_text(header.read_text())
+        for fname, text in texts.items():
+            (d / fname).write_text(text)
         procs[name] = (d / "lib.so", subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
              str(d / "flash_attn.cu")],
@@ -74,6 +103,7 @@ def build(names) -> dict[str, Path]:
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode:
             raise RuntimeError(f"variant {name} failed to build:\n{log[-4000:]}")
+        path.with_suffix(".log").write_text(log)  # ptxas's report
         libs[name] = path
     return libs
 
@@ -87,37 +117,59 @@ def main(argv) -> int:
     from ddp_tpu_torch.ops import _build
     from ddp_tpu_torch.ops import flash as fl
 
-    names = ["base"] + (argv or list(VARIANTS))
+    dname = "bf16"
+    if "--dtype" in argv:
+        i = argv.index("--dtype")
+        dname, argv = argv[i + 1], argv[:i] + argv[i + 2:]
+    names = ["base"] + (argv or [n for n, v in VARIANTS.items()
+                                 if v[1] == dname])
     libs = build(names)
+    for name, path in libs.items():
+        cs.log(f"[variants] {name} ptxas: " + ", ".join(
+            f"{r['kernel'].split('_flash_attn_cu_')[-1][:24]} {r['registers']} "
+            f"registers, spill {r['spill_stores']}/{r['spill_loads']} bytes"
+            for r in _build.parse_ptxas(path.with_suffix(".log").read_text())
+            if any(k in r["kernel"] for k in cs.REGISTER_KERNELS)))
     B, T, S, H, D, causal = cs.TRAIN_SHAPE
-    q, k, v, dout, _ = cs._flash_inputs(torch, B, T, S, H, D, torch.bfloat16,
-                                        seed=99)
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dname]
+    q, k, v, dout, _ = cs._flash_inputs(torch, B, T, S, H, D, dtype, seed=99)
+    qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
+    ref_out, lse = fl.attention_with_lse_reference(qf, kf, vf, causal)
+    delta = fl.backward_delta(ref_out, df)
+    ref_dk, ref_dv = fl.flash_dkv_reference(qf, kf, vf, df, lse, delta, causal)
+    del qf, kf, vf, df
     real_load = _build.load
-    results = {n: {"fwd_us": [], "dkv_us": [], "same": None} for n in names}
+    results = {n: {"fwd_us": [], "dkv_us": [], "same": None, "err": {}}
+               for n in names}
     base = None
     try:
         for rnd in range(2):
             for name in names:
                 _build.load = lambda source, p=libs[name]: ctypes.CDLL(str(p))
                 fl._lib.cache_clear()
-                out, lse = fl.flash_forward(q, k, v, causal)
-                delta = fl.backward_delta(out, dout)
+                out, lse_k = fl.flash_forward(q, k, v, causal)
                 dk, dv = fl.flash_dkv(q, k, v, dout, lse, delta, causal)
                 if name == "base":
-                    base = (out, lse, dk, dv)
+                    base = (out, lse_k, dk, dv)
                 same = all(torch.equal(a, b) for a, b in
-                           zip((out, lse, dk, dv), base))
+                           zip((out, lse_k, dk, dv), base))
+                r = results[name]
+                for what, got, want in (("out", out, ref_out),
+                                        ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+                    r["err"][what] = cs._compare(
+                        torch, got, want, cs.FLASH_TOL[dname])[1].split(" (")[0]
+                del out, lse_k, dk, dv
                 calls = cs._kernel_calls(fl, q, k, v, dout, lse, delta, causal)
                 fwd = cs._median_ms(torch, calls["flash_attn_fwd"], n=10, reps=5)
                 dkv = cs._median_ms(torch, calls["flash_attn_dkv"], n=10, reps=5)
-                r = results[name]
                 r["fwd_us"].append(round(fwd * 1e3, 1))
                 r["dkv_us"].append(round(dkv * 1e3, 1))
                 r["same"] = same
                 what = "base" if name == "base" else VARIANTS[name][0] + (
-                    "; diagnostic, wrong on purpose" if VARIANTS[name][1] else "")
-                cs.log(f"[variants] round {rnd} {name}: B1 {fwd * 1e3:.1f} us, "
-                       f"B3 {dkv * 1e3:.1f} us, bits as base: {same} ({what})")
+                    "; diagnostic, wrong on purpose" if VARIANTS[name][2] else "")
+                cs.log(f"[variants] {dname} round {rnd} {name}: B1 {fwd * 1e3:.1f} us, "
+                       f"B3 {dkv * 1e3:.1f} us, bits as base: {same}, vs plain "
+                       f"{r['err']} ({what})")
     finally:
         _build.load = real_load
         fl._lib.cache_clear()

@@ -15,6 +15,11 @@ from the same bf16 inputs and round the results to bf16, so they differ
 by one or two bf16 ulps (2^-8 relative) at these magnitudes.
 """
 
+import importlib.util
+import math
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -244,21 +249,25 @@ def test_kernel_source_is_built_with_the_rest(monkeypatch):
 @pytest.mark.parametrize("D", range(16, 129, 16))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_config_per_dtype_and_head_dim(dtype, D):
-    """bf16 B1 and B3 run the sm90 kernels (TMA, wgmma, register
-    accumulators) with a 64-column head-dim tile up to D 64 and a
-    128-column one above; bf16 B2 keeps the WMMA template, fp32 the FMA
-    one."""
+    """B1 and B3 run a 64-column head-dim tile up to D 64 and a
+    128-column one above: in bf16 the sm90 kernels (TMA, wgmma, register
+    accumulators), in fp32 the three-pass TF32 kernels (mma.sync,
+    register accumulators, a cp.async ring). B2 keeps the shared-memory
+    template: WMMA in bf16, FMA in fp32."""
     fwd, dq, dkv = (tflash.kernel_config(n, dtype, D) for n in tflash.KERNELS)
+    tile = 64 if D <= 64 else 128
     if dtype == torch.bfloat16:
-        tile = 64 if D <= 64 else 128
         assert fwd == {"design": "sm90", "head_tile": tile,
                        "q_rows": 128, "kv_rows": 128}
         assert dkv == {"design": "sm90", "head_tile": tile,
                        "q_rows": 64, "kv_rows": 128}
         assert dq == {"design": "wmma", "head_tile": None}
     else:
-        for cfg in (fwd, dq, dkv):
-            assert cfg == {"design": "fma", "head_tile": None}
+        assert fwd == {"design": "tf32x3", "head_tile": tile,
+                       "q_rows": 128, "kv_rows": 64}
+        assert dkv == {"design": "tf32x3", "head_tile": tile,
+                       "q_rows": 32, "kv_rows": 128}
+        assert dq == {"design": "fma", "head_tile": None}
 
 
 @pytest.mark.parametrize("D", [0, 8, 24, 100, 144, 256])
@@ -318,7 +327,18 @@ def test_build_flags_and_sources_carry_the_sm90_kernels(tmp_path, monkeypatch):
     assert "-Xptxas -v" in flags and "-lcuda" not in flags
     assert "flash_attn.cu" in _build.SOURCES
     assert (_build.CSRC / "sm90.cuh").is_file()
-    assert '#include "sm90.cuh"' in (_build.CSRC / "flash_attn.cu").read_text()
+    assert (_build.CSRC / "tf32x3.cuh").is_file()
+    source = (_build.CSRC / "flash_attn.cu").read_text()
+    assert '#include "sm90.cuh"' in source
+    assert '#include "tf32x3.cuh"' in source
+    # fp32 B1 and B3 are the three-pass TF32 kernels; the shared-memory
+    # template is left for B2 alone.
+    for kernel in ("fwd_sm90", "dkv_sm90", "fwd_tf32", "dkv_tf32", "dq_kernel"):
+        assert re.search(rf"__global__ .*\n?{kernel}\(", source), kernel
+    for gone in ("fwd_kernel", "dkv_kernel", "FwdSmem", "DkvSmem"):
+        assert not re.search(rf"\b{gone}\b", source), gone
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in (
+        _build.CSRC / "tf32x3.cuh").read_text()
     (tmp_path / "k.cu").write_text("// kernel")
     (tmp_path / "h.cuh").write_text("// v1")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
@@ -347,3 +367,137 @@ ptxas info    : Used 40 registers, 2048 bytes smem, 400 bytes cmem[0]
          "smem": 2048, "stack": 16, "spill_stores": 8, "spill_loads": 12},
     ]
     assert _build.parse_ptxas("") == []
+
+
+# ---- the fp32 kernels' numerics: three-pass TF32, emulated ------------------
+
+
+def _chip_smoke():
+    """chip_smoke.py of this checkout (its FLASH_TOL and _compare: the
+    on-card check's limits), loaded by path."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tf32_attention(q, k, v, do, dl, causal, passes=3):
+    """out, lse, dq, dk, dv with every tile product through
+    ``tf32x3_matmul`` (``passes`` TF32 passes), as the fp32 kernels form
+    them: O = (exp(S − m)·V) / l, P = exp(S − lse), dV = Pᵀ·dO, dP =
+    dO·Vᵀ, dS = P∘(dP − δ′), dQ = scale·dS·K, dK = scale·dSᵀ·Q; softmax
+    and sums in fp32. Inputs [B, T|S, H, D] fp32 tensors."""
+    mm = lambda a, b: tflash.tf32x3_matmul(a, b, passes)  # noqa: E731
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    s = mm(qh, kh.transpose(-1, -2)) * scale
+    if causal:
+        T, S = s.shape[-2:]
+        live = torch.arange(T)[:, None] + (S - T) >= torch.arange(S)[None, :]
+        s = s.masked_fill(~live, -math.inf)
+    m = s.amax(-1, keepdim=True)
+    shift = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.exp(s - shift)
+    l = e.sum(-1, keepdim=True)
+    out = mm(e, vh) / l.clamp_min(1e-30)
+    lse = torch.where(l > 0, shift + torch.log(l.clamp_min(1e-30)),
+                      torch.full_like(l, -math.inf))[..., 0]
+    delta = (doh * out).sum(-1) - dl.transpose(1, 2)
+    big = torch.full_like(lse, 0.5 * torch.finfo(torch.float32).max)
+    p = torch.exp(s - torch.where(torch.isfinite(lse), lse, big)[..., None])
+    dv = mm(p.transpose(-1, -2), doh)
+    ds = p * (mm(doh, vh.transpose(-1, -2)) - delta[..., None])
+    dq = mm(ds, kh) * scale
+    dk = mm(ds.transpose(-1, -2), qh) * scale
+    return [x.transpose(1, 2) for x in (out, lse, dq, dk, dv)]
+
+
+@pytest.mark.parametrize("x", [1.0, -3.5, 0.0, -0.0, 1 + 2**-10, 2.0**-126,
+                               -(2 - 2**-10) * 2.0**127])
+def test_tf32_round_keeps_exact_values(x):
+    """A value with at most 10 mantissa bits is a TF32 value already
+    (signed zero and the largest TF32 included)."""
+    got = float(tflash.tf32_round(torch.tensor([x], dtype=torch.float32)))
+    assert got == x and math.copysign(1.0, got) == math.copysign(1.0, x)
+
+
+@pytest.mark.parametrize("x,want", [
+    (1 + 2**-11, 1 + 2**-10),          # a tie: away from zero
+    (-(1 + 2**-11), -(1 + 2**-10)),
+    (1 + 3 * 2**-11, 1 + 2**-9),       # a tie with an odd last bit: away, too
+    (1 + 2**-12, 1.0),                 # below half an ulp: down
+    (1 + 2**-11 + 2**-20, 1 + 2**-10),  # above half an ulp: up
+    (2 - 2**-12, 2.0),                 # the carry reaches the exponent
+    (float(np.finfo(np.float32).max), math.inf),  # past the largest TF32
+])
+def test_tf32_round_rounds_to_nearest_ties_away(x, want):
+    got = tflash.tf32_round(torch.tensor([x], dtype=torch.float32))
+    assert float(got) == want
+
+
+def test_tf32_round_keeps_infinities_and_nan():
+    x = torch.tensor([math.inf, -math.inf, math.nan])
+    # A NaN whose payload sits in the low bits must not round to inf.
+    x = torch.cat([x, torch.tensor([0x7F800001], dtype=torch.int32)
+                   .view(torch.float32)])
+    got = tflash.tf32_round(x)
+    assert got[0] == math.inf and got[1] == -math.inf
+    assert torch.isnan(got[2:]).all()
+
+
+def test_tf32x3_matmul_error_per_pass():
+    """Against float64: three passes keep ~2^-21 relative error, one pass
+    ~2^-11, at D 128."""
+    rng = np.random.default_rng(3)
+    a, b = (torch.tensor(rng.standard_normal(s, dtype=np.float32))
+            for s in ((64, 128), (128, 64)))
+    exact = a.double() @ b.double()
+
+    def rel(got):
+        return float((got.double() - exact).norm() / exact.norm())
+
+    assert rel(tflash.tf32x3_matmul(a, b)) < 4e-7
+    assert rel(tflash.tf32x3_matmul(a, b, passes=1)) > 1e-4
+
+
+@pytest.mark.parametrize("B,T,S,H,D,causal,block", CASES)
+def test_tf32x3_attention_matches_jax_kernel(B, T, S, H, D, causal, block):
+    """Attention whose every product is three-pass TF32 (what the fp32
+    B1 and B3 compute) ≡ the Pallas kernels in interpret mode, forward
+    and backward with a nonzero dLSE, within ATOL."""
+    x = _inputs(T * 100 + S, B, T, S, H, D)
+    got = _tf32_attention(*(torch.tensor(a) for a in x), causal)
+    want = _jax_with_lse(*x, causal, block)
+    for g, w in zip(got, want):
+        _assert_close(g.numpy(), w, ATOL)
+
+
+def _tf32_vs_plain(passes):
+    """_tf32_attention vs the plain fp32 attention and its autograd at
+    B 1, T = S 256, H 2, D 128, causal, under chip_smoke's fp32 limits →
+    {tensor: (within them, reading)}."""
+    cs = _chip_smoke()
+    q, k, v, do, dl = (torch.tensor(a) for a in _inputs(21, 1, 256, 256, 2, 128))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out, lse = tflash.attention_with_lse_reference(*leaves, True)
+    want = [out, lse, *torch.autograd.grad((out, lse), leaves, (do, dl))]
+    got = _tf32_attention(q, k, v, do, dl, True, passes)
+    names = ("out", "lse", "dq", "dk", "dv")
+    return {n: cs._compare(torch, g, w, cs.FLASH_TOL["fp32"])
+            for n, g, w in zip(names, got, want)}
+
+
+def test_tf32x3_attention_meets_the_fp32_limits():
+    """At a larger shape (B 1, T = S 256, H 2, D 128, causal) three-pass
+    TF32 stays within FLASH_TOL["fp32"] (rel 1e-5, atol 1e-4) of the
+    plain fp32 attention, the limits the kernels are held to on the card."""
+    for name, (ok, text) in _tf32_vs_plain(3).items():
+        assert ok, f"{name}: {text}"
+
+
+def test_one_pass_tf32_fails_the_fp32_limits():
+    """The control: one TF32 pass a product misses rel 1e-5 on every
+    tensor, so the fp32 limits do tell one pass from three."""
+    for name, (ok, text) in _tf32_vs_plain(1).items():
+        assert not ok, f"{name}: {text}"
