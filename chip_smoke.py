@@ -36,11 +36,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    head-dim tile), each tensor held to a relative norm error and an
    element-wise atol + rtol·|want| (FLASH_TOL); two wrong attentions (a
    dropped interior tile, a dropped ragged tail) must fail the same
-   check; B1 and B3 run twice on the same inputs must agree bit for bit
-   (no atomics). Then kernel, plain and SDPA times beside the bound at
-   the training shape (in fp32 also SDPA's kernel names and its error
-   against the plain version: the yardstick's own numerics), and fwd+bwd
-   kernel vs plain per length (the data for re-measuring FLASH_MIN_LEN).
+   check; B1, B2 and B3 run twice on the same inputs must agree bit for
+   bit (no atomics). Then B2's ptxas report, kernel, plain and SDPA
+   times beside the bound at the training shape (in fp32 also SDPA's
+   kernel names and its error against the plain version: the
+   yardstick's own numerics), and fwd+bwd kernel vs plain per length
+   (the data for re-measuring FLASH_MIN_LEN).
 5. The training slice end to end: ``python -m ddp_tpu_torch.train``'s
    own main() at the repo's full-width training configuration (bench.py
    run_lm_bench: 111.3 M params, T 2048, batch 8, Adam 3e-4, bf16), 12
@@ -269,12 +270,14 @@ FLASH_SHAPES = [  # label, B, T, S, H, D, causal
     ("causal head dim 96", 2, 512, 512, 8, 96, True),
 ]
 FLASH_NAMES = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")
-# The device functions of flash_attn.cu (B1 and B3: the sm90 kernels in
-# bf16, the three-pass TF32 kernels in fp32; B2: the shared-memory
-# template), as profiler keys and ptxas entries name them.
-FLASH_SYMBOLS = ("fwd_sm90", "dkv_sm90", "fwd_tf32", "dkv_tf32", "dq_kernel")
+# The device functions of flash_attn.cu (B1-B3: the sm90 kernels in bf16,
+# the three-pass TF32 kernels in fp32), as profiler keys and ptxas entries
+# name them.
+FLASH_SYMBOLS = ("fwd_sm90", "dq_sm90", "dkv_sm90", "fwd_tf32", "dq_tf32",
+                 "dkv_tf32")
 # Kernels built to keep every accumulator in registers: a spill raises.
-REGISTER_KERNELS = ("fwd_sm90", "dkv_sm90", "fwd_tf32", "dkv_tf32")
+# Every flash kernel is one.
+REGISTER_KERNELS = FLASH_SYMBOLS
 
 
 def _flash_inputs(torch, B, T, S, H, D, dtype, seed):
@@ -378,7 +381,7 @@ def _reject_wrong_kernels(torch, fl, dtype, dname) -> list[str]:
 
 
 def _check_deterministic(torch, fl, dtype, dname) -> list[str]:
-    """B1 and B3 twice on the same inputs (the training shape, causal)
+    """B1, B2 and B3 twice on the same inputs (the training shape, causal)
     must give the same bits: no atomics, no order that changes between
     runs → what differed."""
     q, k, v, dout, _ = _flash_inputs(torch, 8, 2048, 2048, 8, 128, dtype,
@@ -387,11 +390,12 @@ def _check_deterministic(torch, fl, dtype, dname) -> list[str]:
     for _ in range(2):
         out, lse = fl.flash_forward(q, k, v, True)
         delta = fl.backward_delta(out, dout)
+        dq = fl.flash_dq(q, k, v, dout, lse, delta, True)
         dk, dv = fl.flash_dkv(q, k, v, dout, lse, delta, True)
-        runs.append(dict(out=out, lse=lse, dk=dk, dv=dv))
+        runs.append(dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv))
     torch.cuda.synchronize()
     differ = [n for n in runs[0] if not torch.equal(runs[0][n], runs[1][n])]
-    log(f"[flash] {dname} B1 and B3 run twice at the training shape: "
+    log(f"[flash] {dname} B1, B2 and B3 run twice at the training shape: "
         + (f"differ in {differ}" if differ else "bitwise equal"))
     del q, k, v, dout, runs
     torch.cuda.empty_cache()
@@ -447,10 +451,15 @@ def check_flash(torch) -> dict:
 
     from ddp_tpu_torch.ops import flash as fl
 
+    from ddp_tpu_torch.ops import _build
+
     lib = fl._lib()
     log("[flash] shared memory a block at D 128, bytes: " + ", ".join(
         f"{name} {dname} {lib.flash_attn_smem_bytes(i, int(dname == 'bf16'), 128)}"
         for i, name in enumerate(FLASH_NAMES) for dname in ("bf16", "fp32")))
+    for name, r in ptxas_rows(_build):
+        if name.startswith("dq_"):
+            log(f"[flash] B2 {_ptxas_text(name, r)}")
     results, failures = {}, {}
     for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         tol = FLASH_TOL[dname]
@@ -1119,6 +1128,26 @@ def check_serving(torch) -> dict:
     return counted
 
 
+def ptxas_rows(_build) -> list[tuple[str, dict]]:
+    """ptxas's report of each flash-attention kernel → [(name with its
+    head-dim tile, e.g. "dq_sm90<128>", report row)]."""
+    rows = []
+    for r in _build.ptxas_report("flash_attn.cu"):
+        name = next((sym for sym in FLASH_SYMBOLS if sym in r["kernel"]),
+                    r["kernel"])
+        name += ("<128>" if "ILi128E" in r["kernel"] else "<64>"
+                 if "ILi64E" in r["kernel"] else "")
+        rows.append((name, r))
+    return rows
+
+
+def _ptxas_text(name, r) -> str:
+    return (f"ptxas {name}: {r['registers']} registers at launch, "
+            f"{r['smem']} bytes static smem, {r['stack']} bytes stack, "
+            f"spill stores {r['spill_stores']} / loads {r['spill_loads']} "
+            "bytes")
+
+
 def log_ptxas(_build) -> None:
     """Phase 2: ptxas's report of each flash-attention kernel, and any
     line where ptxas serialised wgmma products or ignored setmaxnreg. A
@@ -1129,16 +1158,8 @@ def log_ptxas(_build) -> None:
         if "Performance Loss" in line or "setmaxnreg ignored" in line:
             log(f"[build] ptxas: {line.strip()[:200]}")
     spills = []
-    for r in _build.ptxas_report("flash_attn.cu"):
-        name = next((sym for sym in FLASH_SYMBOLS if sym in r["kernel"]),
-                    r["kernel"])
-        name += ("<128>" if "ILi128E" in r["kernel"] else "<64>"
-                 if "ILi64E" in r["kernel"] else "<bf16>"
-                 if "bfloat16" in r["kernel"] else "<fp32>")
-        log(f"[build] ptxas {name}: {r['registers']} registers at launch, "
-            f"{r['smem']} bytes static smem, {r['stack']} bytes stack, "
-            f"spill stores {r['spill_stores']} / loads {r['spill_loads']} "
-            "bytes")
+    for name, r in ptxas_rows(_build):
+        log(f"[build] {_ptxas_text(name, r)}")
         if (name.split("<")[0] in REGISTER_KERNELS
                 and (r["spill_stores"] or r["spill_loads"])):
             spills.append(name)

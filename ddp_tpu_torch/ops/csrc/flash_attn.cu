@@ -15,75 +15,78 @@
 // input and output moves once. So the products have to run at the
 // tensor cores' rate, which only wgmma reaches.
 //
-// bf16 B1 and B3 (fwd_sm90, dkv_sm90) are built for that, from the pieces
-// of sm90.cuh:
+// bf16 B1, B2 and B3 (fwd_sm90, dq_sm90, dkv_sm90) are built for that,
+// from the pieces of sm90.cuh:
 //   - warp specialisation: one producer warp issues TMA loads (tensor
 //     maps over the strided [B, T, H, D] views, 128-byte swizzle, zero
 //     fill past T, S and D) into a ring of shared memory (3 K/V stages for
-//     B1, 2 Q/dO stages for B3) with full/empty mbarriers, while two
-//     consumer warpgroups (setmaxnreg: 24 registers for the producer, 240
-//     for each consumer) run wgmma on the tiles that have arrived: loads
-//     overlap products;
+//     B1 and B2, 2 Q/dO stages for B3) with full/empty mbarriers, while
+//     two consumer warpgroups (setmaxnreg: 24 registers for the producer,
+//     240 for each consumer) run wgmma on the tiles that have arrived:
+//     loads overlap products;
 //   - every accumulator lives in registers: B1's S = Q.K^T (m64n128k16,
-//     both operands in shared memory) and its output O; B3's transposed
-//     S^T = K.Q^T and dP^T = V.dO^T (m64n64k16) and its dK, dV across the
-//     whole q loop. The online softmax (B1) runs on S in registers with
-//     exp2 (one MUFU.EX2) and the scale folded in, the row max and sum
-//     over the 4 threads of a quad;
-//   - P (B1), P^T and dS^T (B3) never touch shared memory: the fp32
-//     accumulator layout, regrouped 16 columns at a time, is the A
-//     fragment of the next product (O += P.V, dV += P^T.dO, dK +=
-//     dS^T.Q), an RS wgmma (m64n128k16 at D 128) that reads V, dO or Q
-//     MN-major;
-//   - the softmax runs while the tensor cores work: in B1 each warpgroup
-//     issues S_j and then O += P_{j-1}.V_{j-1} and computes the softmax of
-//     S_j while the second product runs (the other warpgroup's products
-//     fill the tensor cores too; making the two take turns measured
-//     slower, flash_variants.py in PERF.md);
-//   - B1: a work item is 128 query rows and streams 128-key K/V tiles; the
-//     kernel is persistent (one CTA per SM draws items from a counter, the
-//     longest first), so that an item's epilogue overlaps the next one's
-//     loads. B3: a CTA owns 128 keys (64 per warpgroup) and streams 64-row
-//     Q/dO tiles with their lse and delta'. Heads are scheduled in groups
-//     whose streamed tiles fit in a third of the L2 cache. The mask is
-//     evaluated only on tiles that straddle the diagonal or the end of the
-//     keys, and a warpgroup skips the products of a tile in which none of
-//     its rows is live;
+//     both operands in shared memory) and its output O; B2's S = Q.K^T
+//     and dP = dO.V^T (m64n64k16) and its dQ across the whole key loop;
+//     B3's transposed S^T = K.Q^T and dP^T = V.dO^T (m64n64k16) and its
+//     dK, dV across the whole q loop. The online softmax (B1) and B2's dS =
+//     P * (dP - delta') run on S in registers with exp2 (one MUFU.EX2) and
+//     the scale folded in, B1's row max and sum over the 4 threads of a
+//     quad;
+//   - P (B1), dS (B2), P^T and dS^T (B3) never touch shared memory: the
+//     fp32 accumulator layout, regrouped 16 columns at a time, is the A
+//     fragment of the next product (O += P.V, dQ += dS.K, dV += P^T.dO,
+//     dK += dS^T.Q), an RS wgmma (m64n128k16 at D 128) that reads V, K, dO
+//     or Q MN-major (B2 reads its K tile K-major for S and MN-major for
+//     dQ, as B3 reads its Q tile);
+//   - the scores' epilogue runs while the tensor cores work: in B1 and B2
+//     each warpgroup issues the score products of tile j and then the
+//     accumulation of tile j - 1 (O += P.V, dQ += dS.K) and computes the
+//     softmax or dS of tile j while the second product runs (the other
+//     warpgroup's products fill the tensor cores too; making the two take
+//     turns measured slower, flash_variants.py in PERF.md);
+//   - B1 and B2: a work item is 128 query rows and streams K/V tiles (128
+//     keys for B1, 64 for B2: S, dP and dQ take 128 registers a thread);
+//     the kernels are persistent (one CTA per SM draws items from a
+//     counter, the longest first), so that an item's epilogue overlaps the
+//     next one's loads. B3: a CTA owns 128 keys (64 per warpgroup) and
+//     streams 64-row Q/dO tiles with their lse and delta'. Heads are
+//     scheduled in groups whose streamed tiles fit in a third of the L2
+//     cache. The mask is evaluated only on tiles that straddle the
+//     diagonal or the end of the keys, and a warpgroup skips the products
+//     of a tile in which none of its rows is live;
 //   - head dims up to 64 run a 64-column tile, up to 128 a 128-column one
 //     (two TMA boxes); TMA fills the padding columns with zeros, which add
 //     nothing to Q.K^T, and the epilogue does not store them.
 //
-// fp32 B1 and B3 (fwd_tf32, dkv_tf32) keep fp32 accuracy on the tensor
-// cores: every product is three-pass TF32 (tf32x3.cuh: each operand split
-// into a TF32 big part and a TF32 remainder, big.big + big.small +
-// small.big into one fp32 accumulator, ~2^-21 relative error a product)
-// through mma.sync m16n8k8, which reads its fragments from shared memory
-// in any layout (tf32 wgmma takes K-major operands only, and V, dO and Q
-// are read MN-major here). At 494.7 TFLOP/s dense TF32 that is ~165
-// TFLOP/s of fp32-accurate products, 2.5x the 67 of the FMA units.
-//   - a CTA is 8 warps; a warp owns 16 query rows (B1) or 16 keys (B3,
-//     computed transposed as dkv_sm90 is) and keeps every accumulator in
-//     registers: S and O (B1), S^T, dP^T, dK and dV (B3). The online
-//     softmax runs on the fragments (exp2, scale folded in, quad
-//     shuffles);
-//   - P (B1), P^T and dS^T (B3) stay in registers: an m16n8 C fragment
-//     is the A fragment of the next product once k is permuted inside each
-//     8-column block, and the B operand (V, dO or Q) is read in that order;
+// fp32 B1, B2 and B3 (fwd_tf32, dq_tf32, dkv_tf32) keep fp32 accuracy on
+// the tensor cores: every product is three-pass TF32 (tf32x3.cuh: each
+// operand split into a TF32 big part and a TF32 remainder, big.big +
+// big.small + small.big into one fp32 accumulator, ~2^-21 relative error
+// a product) through mma.sync m16n8k8, which reads its fragments from
+// shared memory in any layout (tf32 wgmma takes K-major operands only, and
+// V, K, dO and Q are read MN-major here). At 494.7 TFLOP/s dense TF32
+// that is ~165 TFLOP/s of fp32-accurate products, 2.5x the 67 of the FMA
+// units.
+//   - a CTA is 8 warps; a warp owns 16 query rows (B1, B2) or 16 keys
+//     (B3, computed transposed as dkv_sm90 is) and keeps every accumulator
+//     in registers: S and O (B1), S, dP and dQ (B2), S^T, dP^T, dK and dV
+//     (B3). The online softmax and dS run on the fragments (exp2, scale
+//     folded in, quad shuffles);
+//   - P (B1), dS (B2), P^T and dS^T (B3) stay in registers: an m16n8 C
+//     fragment is the A fragment of the next product once k is permuted
+//     inside each 8-column block, and the B operand (V, K, dO or Q) is
+//     read in that order;
 //   - tiles stream through a 2-stage cp.async ring (16-byte copies, zero
 //     fill past T, S and D), one __syncthreads a tile; rows are padded to
-//     D + 4 floats so that both reads of a Q or dO tile (row-wise for
-//     S^T, dP^T; column-wise for dK, dV) hit 32 distinct banks;
-//   - B1: 128 query rows a CTA, 64-key K/V tiles; B3: 128 keys a CTA,
-//     32-row Q/dO tiles (at D 128, ~200 KB of shared memory either way;
-//     dK and dV take 128 registers a thread, so the S^T and dP^T tiles are
-//     kept to 32 queries). The schedule is fp32's as much as bf16's: the
-//     longest work first, heads in L2-sized groups, masks only on
-//     straddling tiles, a warp skips a tile with no live pair; head dims
-//     up to 64 run a 64-column tile, up to 128 a 128-column one.
-// B2 (dq_kernel) keeps the first design: one block per q-tile, tiles and
-// fp32 accumulators in shared memory, bf16 products through WMMA
-// (16x16x16, fp32 accumulate), fp32 through plain FMA, synchronous
-// 16-byte loads between two __syncthreads.
+//     D + 4 floats so that both reads of a tile (row-wise for S or S^T;
+//     column-wise for O, dQ, dK, dV) hit 32 distinct banks;
+//   - B1: 128 query rows a CTA, 64-key K/V tiles; B2: 128 query rows with
+//     their dO, 32-key K/V tiles; B3: 128 keys a CTA, 32-row Q/dO tiles (at
+//     D 128, ~200 KB of shared memory each; dK and dV take 128 registers a
+//     thread, so B3's S^T and dP^T tiles are kept to 32 queries). The
+//     schedule is fp32's as much as bf16's: the longest work first, masks
+//     only on straddling tiles, a warp skips a tile with no live pair;
+//     head dims up to 64 run a 64-column tile, up to 128 a 128-column one.
 //
 // Common to all: the [T, S] score matrix never reaches device memory;
 // causal tiles past the diagonal are never visited (B1/B2 stop at the
@@ -97,7 +100,7 @@
 // Masks and empty rows follow the TPU kernel: the causal mask is
 // end-anchored (key <= t + S - T); a row with no live key gives out 0
 // and lse -inf, and B2/B3 replace such an lse by 0.5 * FLT_MAX so that
-// P = 0 there, not NaN.
+// P = 0 there (dQ 0), not NaN.
 //
 // Build (a plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -107,38 +110,21 @@
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
-#include <type_traits>
 
 #include "sm90.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;  // 8 warps per block
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxHeadDim = 128;
-constexpr int kPad = 8;    // elements added to a row of a Q/K/V/P tile
-constexpr int kPadF = 4;   // floats added to a row of an fp32 tile
 constexpr float kBigLse = 0.5f * FLT_MAX;
-
-// B2's tile rows per element type: 64 for bf16 (4 WMMA tiles a side),
-// 32 for fp32 (plain FMA).
-template <typename T> struct Tiles;
-template <> struct Tiles<bf16> { static constexpr int BQ = 64, BK = 64; };
-template <> struct Tiles<float> { static constexpr int BQ = 32, BK = 32; };
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-    return __float2bfloat16(x);
-}
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // A [B, rows, H, D] view whose last dim is contiguous; strides in elements.
 struct View {
@@ -153,125 +139,9 @@ struct Args {
     const float* delta;  // [B, T, H]: rowsum(dO * O) - dLSE
     int B, T, S, H, D, causal;
     float scale;
-    int group;  // sm90 and tf32 kernels: heads per group of the grid
-    int* ticket;  // B1 (sm90): the next work item, 0 at launch
+    int group;  // heads per group of the grid
+    int* ticket;  // B1 and B2 (sm90): the next work item, 0 at launch
 };
-
-// ---- shared memory layout ------------------------------------------
-
-__host__ __device__ inline size_t align128(size_t x) {
-    return (x + 127) & ~static_cast<size_t>(127);
-}
-
-// Hands out 128-byte aligned buffers from one dynamic allocation; on
-// the host (base == nullptr) it only counts the bytes.
-struct Carver {
-    unsigned char* base;
-    size_t off = 0;
-    template <typename U> __host__ __device__ U* take(size_t n) {
-        U* p = reinterpret_cast<U*>(base + off);
-        off = align128(off + n * sizeof(U));
-        return p;
-    }
-};
-
-template <typename T> struct DqSmem {
-    T *q, *dout, *k, *v, *ds;
-    float *s, *dp, *dq, *lse, *dl;
-    __host__ __device__ size_t carve(unsigned char* base, int D) {
-        constexpr int BQ = Tiles<T>::BQ, BK = Tiles<T>::BK;
-        Carver c{base};
-        q = c.take<T>(BQ * (D + kPad));
-        dout = c.take<T>(BQ * (D + kPad));
-        k = c.take<T>(BK * (D + kPad));
-        v = c.take<T>(BK * (D + kPad));
-        ds = c.take<T>(BQ * (BK + kPad));
-        s = c.take<float>(BQ * (BK + kPadF));
-        dp = c.take<float>(BQ * (BK + kPadF));
-        dq = c.take<float>(BQ * (D + kPadF));
-        lse = c.take<float>(BQ);
-        dl = c.take<float>(BQ);
-        return c.off;
-    }
-};
-
-// ---- tiles and products in shared memory ---------------------------
-
-// Rows [r0, r0 + R) of one (b, h) slice into dst[R][ld], 16 bytes per
-// thread per load; rows at or past `rows` are zero.
-template <typename T>
-__device__ void load_rows(T* dst, int ld, const T* src, int64_t st, int r0,
-                          int R, int rows, int D) {
-    constexpr int V = 16 / sizeof(T);
-    const int chunks = D / V;
-    for (int i = threadIdx.x; i < R * chunks; i += kThreads) {
-        const int r = i / chunks;
-        const int c = (i - r * chunks) * V;
-        uint4 x = make_uint4(0u, 0u, 0u, 0u);
-        if (r0 + r < rows)
-            x = *reinterpret_cast<const uint4*>(src + (r0 + r) * st + c);
-        *reinterpret_cast<uint4*>(dst + r * ld + c) = x;
-    }
-}
-
-__device__ void zero(float* dst, int n) {
-    for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = 0.f;
-}
-
-// Offsets of element (m, k) of A [M x K] and (k, n) of B [K x N], each
-// stored row-major or column-major (a transposed tile is read in place).
-template <bool kCol> __device__ __forceinline__ int a_off(int m, int k, int ld) {
-    return kCol ? m + k * ld : m * ld + k;
-}
-template <bool kCol> __device__ __forceinline__ int b_off(int k, int n, int ld) {
-    return kCol ? k + n * ld : k * ld + n;
-}
-
-// C [M x N] fp32 (row-major, ldc) = (accumulate ? C : 0) + A . B.
-// bf16: WMMA 16x16x16 on the tensor cores, one output tile per warp per
-// pass (M, N, K multiples of 16).
-template <bool kColA, bool kColB>
-__device__ void gemm(const bf16* A, int lda, const bf16* B, int ldb, float* C,
-                     int ldc, int M, int N, int K, bool accumulate) {
-    using LA = typename std::conditional<kColA, wmma::col_major,
-                                         wmma::row_major>::type;
-    using LB = typename std::conditional<kColB, wmma::col_major,
-                                         wmma::row_major>::type;
-    const int warp = threadIdx.x >> 5;
-    const int tiles_n = N / 16;
-    for (int t = warp; t < (M / 16) * tiles_n; t += kWarps) {
-        const int m0 = (t / tiles_n) * 16;
-        const int n0 = (t % tiles_n) * 16;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-        if (accumulate)
-            wmma::load_matrix_sync(c, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
-        else
-            wmma::fill_fragment(c, 0.f);
-        for (int k0 = 0; k0 < K; k0 += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-            wmma::load_matrix_sync(a, A + a_off<kColA>(m0, k0, lda), lda);
-            wmma::load_matrix_sync(b, B + b_off<kColB>(k0, n0, ldb), ldb);
-            wmma::mma_sync(c, a, b, c);
-        }
-        wmma::store_matrix_sync(C + m0 * ldc + n0, c, ldc, wmma::mem_row_major);
-    }
-}
-
-// fp32: plain FMA, one output per thread per pass.
-template <bool kColA, bool kColB>
-__device__ void gemm(const float* A, int lda, const float* B, int ldb,
-                     float* C, int ldc, int M, int N, int K, bool accumulate) {
-    for (int i = threadIdx.x; i < M * N; i += kThreads) {
-        const int m = i / N;
-        const int n = i - m * N;
-        float acc = accumulate ? C[m * ldc + n] : 0.f;
-#pragma unroll 4
-        for (int k = 0; k < K; ++k)
-            acc = fmaf(A[a_off<kColA>(m, k, lda)], B[b_off<kColB>(k, n, ldb)], acc);
-        C[m * ldc + n] = acc;
-    }
-}
 
 template <typename T>
 __device__ __forceinline__ const T* slice(const View& x, int b, int h) {
@@ -282,104 +152,38 @@ __device__ __forceinline__ T* slice_out(const View& x, int b, int h) {
     return static_cast<T*>(x.p) + b * x.sb + h * x.sh;
 }
 
-// Key `key` is live for query row t (both in range, end-anchored mask).
-__device__ __forceinline__ bool live(int t, int key, const Args& a) {
-    return t < a.T && key < a.S && (!a.causal || key <= t + a.S - a.T);
+// lse * log2(e) and delta' of query row t of (b, h): a non-finite
+// lse (a row with no live key) and a row past T give 0.5 FLT_MAX, so that
+// P = 0 there.
+__device__ __forceinline__ void row_stats(const Args& a, int b, int h, int t,
+                                          float& lse2, float& dl) {
+    float lse = kBigLse, d = 0.f;
+    if (t < a.T) {
+        const int64_t i = (static_cast<int64_t>(b) * a.T + t) * a.H + h;
+        lse = a.lse[i];
+        d = a.delta[i];
+    }
+    lse2 = (isfinite(lse) ? lse : kBigLse) * kLog2e;
+    dl = d;
 }
 
-// Per-row statistics of B2/B3: lse (non-finite -> 0.5 FLT_MAX, so that
-// P = 0) and delta' for rows [q0, q0 + R); rows past T get lse big.
-__device__ void load_row_stats(float* lse_s, float* dl_s, const Args& a,
-                               int b, int h, int q0, int R) {
-    for (int r = threadIdx.x; r < R; r += kThreads) {
-        const int t = q0 + r;
-        float lse = kBigLse, dl = 0.f;
-        if (t < a.T) {
-            const int64_t i = (static_cast<int64_t>(b) * a.T + t) * a.H + h;
-            lse = a.lse[i];
-            if (!isfinite(lse)) lse = kBigLse;
-            dl = a.delta[i];
-        }
-        lse_s[r] = lse;
-        dl_s[r] = dl;
-    }
-}
-
-// ---- B2: dQ ------------------------------------------------------------
-
-// dS = P * (dO.V^T - delta'), P = exp(scale * Q.K^T - lse) (0 where
-// masked), into ds (element type).
-template <typename T>
-__device__ void scores_to_ds(const float* s, const float* dp, int lds,
-                             const float* lse_s, const float* dl_s, T* ds,
-                             int ldp, int q0, int k0, int BQ, int BK,
-                             const Args& a) {
-    for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
-        const int r = i / BK, c = i - r * BK;
-        const float pv = live(q0 + r, k0 + c, a)
-                             ? expf(s[r * lds + c] * a.scale - lse_s[r])
-                             : 0.f;
-        ds[r * ldp + c] = from_f<T>(pv * (dp[r * lds + c] - dl_s[r]));
-    }
-}
-
-// grid (B*H, q-tiles): the last q-tile first.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
-    constexpr int BQ = Tiles<T>::BQ, BK = Tiles<T>::BK;
-    extern __shared__ __align__(128) unsigned char smem[];
-    DqSmem<T> sm;
-    sm.carve(smem, a.D);
-    const int D = a.D, ldt = D + kPad, lds = BK + kPadF, ldp = BK + kPad,
-              ldo = D + kPadF;
-    const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
-    const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-    const int kv_end = a.causal ? min(a.S, q0 + BQ + a.S - a.T) : a.S;
-
-    load_rows(sm.q, ldt, slice<T>(a.q, b, h), a.q.st, q0, BQ, a.T, D);
-    load_rows(sm.dout, ldt, slice<T>(a.o, b, h), a.o.st, q0, BQ, a.T, D);
-    load_row_stats(sm.lse, sm.dl, a, b, h, q0, BQ);
-    zero(sm.dq, BQ * ldo);
-    const T* kb = slice<T>(a.k, b, h);
-    const T* vb = slice<T>(a.v, b, h);
-    for (int k0 = 0; k0 < kv_end; k0 += BK) {
-        __syncthreads();
-        load_rows(sm.k, ldt, kb, a.k.st, k0, BK, a.S, D);
-        load_rows(sm.v, ldt, vb, a.v.st, k0, BK, a.S, D);
-        __syncthreads();
-        gemm<false, true>(sm.q, ldt, sm.k, ldt, sm.s, lds, BQ, BK, D, false);
-        gemm<false, true>(sm.dout, ldt, sm.v, ldt, sm.dp, lds, BQ, BK, D, false);
-        __syncthreads();
-        scores_to_ds<T>(sm.s, sm.dp, lds, sm.lse, sm.dl, sm.ds, ldp, q0, k0,
-                        BQ, BK, a);
-        __syncthreads();
-        gemm<false, false>(sm.ds, ldp, sm.k, ldt, sm.dq, ldo, BQ, D, BK, true);
-    }
-    __syncthreads();
-    T* out = slice_out<T>(a.dq, b, h);
-    for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
-        const int r = i / D, d = i - r * D;
-        if (q0 + r < a.T)
-            out[(q0 + r) * a.dq.st + d] = from_f<T>(sm.dq[r * ldo + d] * a.scale);
-    }
-}
-
-// ---- bf16 B1 and B3 for Hopper: TMA, mbarriers and wgmma ------------------
+// ---- bf16 B1, B2 and B3 for Hopper: TMA, mbarriers and wgmma --------------
 
 constexpr int kConsumers = 2;  // consumer warpgroups, 64 rows each
 constexpr int kSm90Threads = (kConsumers + 1) * 128;  // + the producer's
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-// B1: 128 query rows a work item, 128-key K/V tiles. B3: 128 keys a CTA,
-// 64-row Q/dO tiles.
+// B1: 128 query rows a work item, 128-key K/V tiles. B2: 128 query rows a
+// work item, 64-key K/V tiles. B3: 128 keys a CTA, 64-row Q/dO tiles.
 constexpr int kFwdBQ = 128, kFwdBK = 128;
+constexpr int kDqBQ = 128, kDqBK = 64;
 constexpr int kDkvBK = 128, kDkvBQ = 64;
 // Ring depth: 3 K/V stages for B1 (224 KB with Q at D 128), 2 Q/dO
 // stages for B3 (~130 KB).
 constexpr int kFwdStages = 3, kDkvStages = 2;
-// Heads per group of the schedule: their streamed tiles (B1's K+V, B3's
-// Q+dO) within 16 MB, a third of the H100's 50 MB L2.
+// 3 K/V stages for B2 (~162 KB with Q and dO at D 128).
+constexpr int kDqStages = 3;
+// Heads per group of the schedule: their streamed tiles (B1's and B2's
+// K+V, B3's Q+dO) within 16 MB, a third of the H100's 50 MB L2.
 constexpr int64_t kL2GroupBytes = 16LL << 20;
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
@@ -492,17 +296,18 @@ template <int DT> struct FwdSm90 {
     static constexpr int kBytes = kItem + 16 + 1024;
 };
 
-// One work item of B1: 128 query rows of one (b, h), and its k-tiles.
-struct FwdItem {
+// One work item of B1 or B2: BQ query rows of one (b, h), and its tiles
+// of BK keys.
+template <int BQ, int BK> struct QItem {
     int b, h, q0, n_tiles;
-    __device__ FwdItem(const Args& a, int q_tiles, int item) {
+    __device__ QItem(const Args& a, int q_tiles, int item) {
         int bh, rank;
         grid_slot(a, q_tiles, item, bh, rank);
         b = bh / a.H;
         h = bh % a.H;
-        q0 = (q_tiles - 1 - rank) * kFwdBQ;  // the most k-tiles first
-        const int end = a.causal ? min(a.S, q0 + kFwdBQ + a.S - a.T) : a.S;
-        n_tiles = end > 0 ? (end + kFwdBK - 1) / kFwdBK : 0;
+        q0 = (q_tiles - 1 - rank) * BQ;  // the most k-tiles first
+        const int end = a.causal ? min(a.S, q0 + BQ + a.S - a.T) : a.S;
+        n_tiles = end > 0 ? (end + BK - 1) / BK : 0;
     }
 };
 
@@ -520,6 +325,7 @@ fwd_sm90(const __grid_constant__ CUtensorMap tq,
          const __grid_constant__ CUtensorMap tk,
          const __grid_constant__ CUtensorMap tv, Args a) {
     using L = FwdSm90<DT>;
+    using Item = QItem<kFwdBQ, kFwdBK>;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* sm = align1024(smem_raw);
     uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + L::kBar);
@@ -553,7 +359,7 @@ fwd_sm90(const __grid_constant__ CUtensorMap tq,
                     sm90::mbar_arrive(qfull);
                     break;
                 }
-                const FwdItem w(a, q_tiles, item);
+                const Item w(a, q_tiles, item);
                 auto load_kv = [&](int j) {
                     const int s = it % kFwdStages;
                     sm90::mbar_wait(&empty[s], ((it / kFwdStages) & 1) ^ 1);
@@ -592,7 +398,7 @@ fwd_sm90(const __grid_constant__ CUtensorMap tq,
             sm90::mbar_wait(qfull, n & 1);  // the item, and its Q
             const int item = *item_slot;
             if (item < 0) break;
-            const FwdItem w(a, q_tiles, item);
+            const Item w(a, q_tiles, item);
             const int qw = w.q0 + wg * 64;  // this warpgroup's first row
             const int t0 = qw + 16 * warp + lane / 4;  // rows t0 and t0 + 8
             float o[DT / 2];
@@ -690,6 +496,270 @@ fwd_sm90(const __grid_constant__ CUtensorMap tq,
                 if ((lane & 3) == 0)
                     a.lse[(static_cast<int64_t>(w.b) * a.T + t) * a.H + w.h] =
                         lsum > 0.f ? m[half] * kLn2 + logf(lsum) : -INFINITY;
+            }
+        }
+    }
+}
+
+// Shared memory of dq_sm90 at a head-dim tile DT: Q and dO (128 rows),
+// then kDqStages K tiles and as many V tiles (64 rows), then the barriers;
+// offsets from a 1024-byte aligned base.
+template <int DT> struct DqSm90 {
+    static constexpr int kRegions = DT / 64;
+    static constexpr int kQBytes = kRegions * kDqBQ * sm90::kRowBytes;
+    static constexpr int kKVBytes = kRegions * kDqBK * sm90::kRowBytes;
+    static constexpr int kQ = 0;
+    static constexpr int kDo = kQ + kQBytes;
+    static constexpr int kK = kDo + kQBytes;
+    static constexpr int kV = kK + kDqStages * kKVBytes;
+    static constexpr int kBar = kV + kDqStages * kKVBytes;
+    static constexpr int kItem = kBar + 8 * (2 + 2 * kDqStages);
+    static constexpr int kBytes = kItem + 16 + 1024;
+};
+
+// D[64 x N] (+)= A . B, both K-major in shared memory: m64n64k16 or
+// m64n128k16.
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
+                                       uint64_t b, int scale_d) {
+    if constexpr (N == 128)
+        sm90::wgmma_ss_n128(d, a, b, scale_d);
+    else
+        sm90::wgmma_ss_n64(d, a, b, scale_d);
+}
+
+// B2's S = Q.K^T and dP = dO.V^T of one K/V tile (`off` bytes into the
+// rings of K and V tiles), every operand K-major in shared memory.
+template <int DT>
+__device__ __forceinline__ void dq_products(float (&sc)[kDqBK / 2],
+                                            float (&dp)[kDqBK / 2],
+                                            uint32_t q_base, uint32_t do_base,
+                                            uint32_t k_ring, uint32_t v_ring,
+                                            uint32_t off) {
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk)
+        mma_ss<kDqBK>(sc, k_major(q_base, kDqBQ, kk),
+                      k_major(k_ring + off, kDqBK, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk)
+        mma_ss<kDqBK>(dp, k_major(do_base, kDqBQ, kk),
+                      k_major(v_ring + off, kDqBK, kk), kk > 0);
+}
+
+// B2's dQ += dS.K: dS from registers (the A fragments `da`), the K tile at
+// `k_base` read MN-major.
+template <int DT>
+__device__ __forceinline__ void dq_accumulate(float (&dq)[DT / 2],
+                                              const uint32_t (&da)[kDqBK / 16][4],
+                                              uint32_t k_base) {
+#pragma unroll
+    for (int kk = 0; kk < kDqBK / 16; ++kk) mma_mn<DT>(dq, da[kk], k_base, kDqBK, kk);
+}
+
+// B2's dS of one kDqBK-key tile at key k0, in place on dP (this thread's
+// rows t0 and t0 + 8, their lse2 = lse * log2 e and delta' dl): P =
+// exp2(S * scale * log2 e - lse2), 0 for a dead key (looked at only on a
+// tile where a key may be dead: past S, or past the diagonal of the
+// warpgroup's first row qw), and dS = P * (dP - delta').
+__device__ __forceinline__ void dq_scores(const float (&sc)[kDqBK / 2],
+                                          float (&dp)[kDqBK / 2],
+                                          const float (&lse2)[2],
+                                          const float (&dl)[2], int k0,
+                                          int t0, int qw, int cq, float sl2,
+                                          const Args& a) {
+    const int diag = a.S - a.T;
+    const bool mask = k0 + kDqBK > a.S ||
+                      (a.causal && k0 + kDqBK - 1 > qw + diag);
+#pragma unroll
+    for (int i = 0; i < kDqBK / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = sm90::exp2_ftz(fmaf(sc[i], sl2, -lse2[r]));
+        if (mask) {
+            const int key = k0 + (i / 4) * 8 + cq + (i & 1);
+            if (key >= a.S || (a.causal && key > t0 + 8 * r + diag)) p = 0.f;
+        }
+        dp[i] = p * (dp[i] - dl[r]);
+    }
+}
+
+// Persistent, as fwd_sm90: thread 256 (the producer) draws work items of
+// 128 query rows from a.ticket (grid_slot order, the longest first), loads
+// each item's Q and dO once and streams its K/V tiles through the ring;
+// warpgroup w computes rows q0 + 64w .. q0 + 64w + 63 of an item. Per K/V
+// tile j: S_j = Q.K_j^T and dP_j = dO.V_j^T (SS), then dQ += dS_{j-1}.K_{j-1}
+// (RS, K_{j-1} read MN-major) while dS_j is computed on the registers.
+// The epilogue stores dQ * scale; rows past T and columns past D are not
+// stored.
+template <int DT>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+dq_sm90(const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv,
+        const __grid_constant__ CUtensorMap tdo, Args a) {
+    using L = DqSm90<DT>;
+    using Item = QItem<kDqBQ, kDqBK>;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* sm = align1024(smem_raw);
+    uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + L::kBar);
+    uint64_t* qempty = qfull + 1;
+    uint64_t* full = qempty + 1;
+    uint64_t* empty = full + kDqStages;
+    volatile int* item_slot = reinterpret_cast<volatile int*>(sm + L::kItem);
+    const int q_tiles = (a.T + kDqBQ - 1) / kDqBQ;
+    const int items = a.B * a.H * q_tiles;
+    const int diag = a.S - a.T;  // key k is live for row t iff k <= t + diag
+    if (threadIdx.x == 0) {
+        sm90::mbar_init(qfull, 1);
+        sm90::mbar_init(qempty, kConsumers * 128);
+        for (int s = 0; s < kDqStages; ++s) {
+            sm90::mbar_init(&full[s], 1);
+            sm90::mbar_init(&empty[s], kConsumers * 128);
+        }
+        sm90::mbar_fence_init();
+    }
+    __syncthreads();
+    const int wg = threadIdx.x / 128;
+    if (wg == kConsumers) {
+        sm90::regs_dealloc<kProducerRegs>();
+        if (threadIdx.x == kConsumers * 128) {
+            int it = 0;  // K/V tiles loaded so far, over all items
+            for (int n = 0;; ++n) {
+                const int item = atomicAdd(a.ticket, 1);
+                if (item >= items) {
+                    sm90::mbar_wait(qempty, (n & 1) ^ 1);
+                    *item_slot = -1;
+                    sm90::mbar_arrive(qfull);
+                    break;
+                }
+                const Item w(a, q_tiles, item);
+                auto load_kv = [&](int j) {
+                    const int s = it % kDqStages;
+                    sm90::mbar_wait(&empty[s], ((it / kDqStages) & 1) ^ 1);
+                    sm90::mbar_arrive_expect_tx(&full[s], 2 * L::kKVBytes);
+                    for (int r = 0; r < L::kRegions; ++r) {
+                        const int off = s * L::kKVBytes + r * kDqBK * sm90::kRowBytes;
+                        sm90::tma_load_4d(sm + L::kK + off, &tk, &full[s],
+                                          r * 64, w.h, j * kDqBK, w.b);
+                        sm90::tma_load_4d(sm + L::kV + off, &tv, &full[s],
+                                          r * 64, w.h, j * kDqBK, w.b);
+                    }
+                    ++it;
+                };
+                // The first K/V tiles go out while the consumers still read
+                // the previous item's Q and dO; this item's once they are
+                // done.
+                const int early = min(w.n_tiles, kDqStages - 1);
+                for (int j = 0; j < early; ++j) load_kv(j);
+                sm90::mbar_wait(qempty, (n & 1) ^ 1);
+                *item_slot = item;
+                sm90::mbar_arrive_expect_tx(qfull, 2 * L::kQBytes);
+                for (int r = 0; r < L::kRegions; ++r) {
+                    const int off = r * kDqBQ * sm90::kRowBytes;
+                    sm90::tma_load_4d(sm + L::kQ + off, &tq, qfull, r * 64,
+                                      w.h, w.q0, w.b);
+                    sm90::tma_load_4d(sm + L::kDo + off, &tdo, qfull, r * 64,
+                                      w.h, w.q0, w.b);
+                }
+                for (int j = early; j < w.n_tiles; ++j) load_kv(j);
+            }
+        }
+    } else {
+        sm90::regs_alloc<kConsumerRegs>();
+        const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+        const int cq = 2 * (lane & 3);  // first column of each pair
+        const float sl2 = a.scale * kLog2e;
+        const uint32_t q_base =
+            sm90::smem_addr(sm + L::kQ) + wg * 64 * sm90::kRowBytes;
+        const uint32_t do_base =
+            sm90::smem_addr(sm + L::kDo) + wg * 64 * sm90::kRowBytes;
+        int it = 0;  // K/V tiles consumed so far, over all items
+        for (int n = 0;; ++n) {
+            sm90::mbar_wait(qfull, n & 1);  // the item, its Q and dO
+            const int item = *item_slot;
+            if (item < 0) break;
+            const Item w(a, q_tiles, item);
+            const int qw = w.q0 + wg * 64;  // this warpgroup's first row
+            const int t0 = qw + 16 * warp + lane / 4;  // rows t0 and t0 + 8
+            float lse2[2], dl[2];
+            row_stats(a, w.b, w.h, t0, lse2[0], dl[0]);
+            row_stats(a, w.b, w.h, t0 + 8, lse2[1], dl[1]);
+            float dq[DT / 2];
+#pragma unroll
+            for (int i = 0; i < DT / 2; ++i) dq[i] = 0.f;
+            float sc[kDqBK / 2], dp[kDqBK / 2];
+            uint32_t da[kDqBK / 16][4];
+            // Tiles past this warpgroup's last live key are only released.
+            const int end_w = a.causal ? min(a.S, qw + 64 + diag) : a.S;
+            const int n_live = end_w > 0 ? (end_w + kDqBK - 1) / kDqBK : 0;
+            const uint32_t k_ring = sm90::smem_addr(sm + L::kK);
+            const uint32_t v_ring = sm90::smem_addr(sm + L::kV);
+            // Tile 0: S_0, dP_0 and dS_0. Tile j > 0: issue S_j and dP_j,
+            // then dQ += dS_{j-1}.K_{j-1}; dS_j is computed while the
+            // second product is in flight. (No product sits in a branch of
+            // its own: ptxas would serialise them.)
+            if (n_live > 0) {
+                sm90::mbar_wait(&full[it % kDqStages], (it / kDqStages) & 1);
+                sm90::wgmma_fence();
+                dq_products<DT>(sc, dp, q_base, do_base, k_ring, v_ring,
+                                (it % kDqStages) * L::kKVBytes);
+                sm90::wgmma_commit();
+                sm90::wgmma_wait<0>();
+                sm90::fence_regs(sc);
+                sm90::fence_regs(dp);
+                dq_scores(sc, dp, lse2, dl, 0, t0, qw, cq, sl2, a);
+#pragma unroll
+                for (int kk = 0; kk < kDqBK / 16; ++kk) sm90::acc_to_a(dp, kk, da[kk]);
+            }
+            for (int j = 1; j < n_live; ++j) {
+                const int s = (it + j) % kDqStages;
+                sm90::mbar_wait(&full[s], ((it + j) / kDqStages) & 1);
+                sm90::wgmma_fence();
+                dq_products<DT>(sc, dp, q_base, do_base, k_ring, v_ring,
+                                s * L::kKVBytes);
+                sm90::wgmma_commit();
+                dq_accumulate<DT>(dq, da,
+                                  k_ring + ((it + j - 1) % kDqStages) * L::kKVBytes);
+                sm90::wgmma_commit();
+                sm90::wgmma_wait<1>();
+                sm90::fence_regs(sc);
+                sm90::fence_regs(dp);
+                dq_scores(sc, dp, lse2, dl, j * kDqBK, t0, qw, cq, sl2, a);
+                sm90::wgmma_wait<0>();  // dQ += dS_{j-1}.K_{j-1} is done
+                sm90::fence_regs(dq);
+                sm90::mbar_arrive(&empty[(it + j - 1) % kDqStages]);
+#pragma unroll
+                for (int kk = 0; kk < kDqBK / 16; ++kk) sm90::acc_to_a(dp, kk, da[kk]);
+            }
+            if (n_live > 0) {  // the last tile's dQ += dS.K
+                sm90::wgmma_fence();
+                dq_accumulate<DT>(
+                    dq, da, k_ring + ((it + n_live - 1) % kDqStages) * L::kKVBytes);
+                sm90::wgmma_commit();
+                sm90::wgmma_wait<0>();
+                sm90::fence_regs(dq);
+                sm90::mbar_arrive(&empty[(it + n_live - 1) % kDqStages]);
+            }
+            sm90::mbar_arrive(qempty);  // done with this item's Q and dO
+            for (int j = n_live; j < w.n_tiles; ++j) {
+                const int s = (it + j) % kDqStages;
+                sm90::mbar_wait(&full[s], ((it + j) / kDqStages) & 1);
+                sm90::mbar_arrive(&empty[s]);
+            }
+            it += w.n_tiles;
+            bf16* qb = static_cast<bf16*>(a.dq.p) + w.b * a.dq.sb + w.h * a.dq.sh;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int t = t0 + 8 * half;
+                if (t >= a.T) continue;
+                bf16* row = qb + static_cast<int64_t>(t) * a.dq.st;
+#pragma unroll
+                for (int jj = 0; jj < DT / 8; ++jj) {
+                    const int col = jj * 8 + cq;
+                    const int i = 4 * jj + 2 * half;
+                    if (col < a.D)
+                        *reinterpret_cast<uint32_t*>(row + col) = sm90::pack_bf16(
+                            dq[i] * a.scale, dq[i + 1] * a.scale);
+                }
             }
         }
     }
@@ -886,22 +956,26 @@ dkv_sm90(const __grid_constant__ CUtensorMap tq,
     }
 }
 
-// ---- fp32 B1 and B3: three-pass TF32 with register accumulators -----------
+// ---- fp32 B1, B2 and B3: three-pass TF32 with register accumulators -------
 
-constexpr int kTfThreads = 256;  // 8 warps, 16 query rows (B1) or keys (B3) each
-// B1: 128 query rows a CTA, 64-key K/V tiles. B3: 128 keys a CTA, 32-row
-// Q/dO tiles.
+// 8 warps, 16 query rows (B1, B2) or keys (B3) each
+constexpr int kTfThreads = 256;
+// B1: 128 query rows a CTA, 64-key K/V tiles. B2: 128 query rows a CTA,
+// 32-key K/V tiles (Q and dO take 135 KB at D 128). B3: 128 keys a CTA,
+// 32-row Q/dO tiles.
 constexpr int kTfFwdBQ = 128, kTfFwdBK = 64;
+constexpr int kTfDqBQ = 128, kTfDqBK = 32;
 constexpr int kTfDkvBK = 128, kTfDkvBQ = 32;
-// Depth of the cp.async ring of streamed tiles (K/V for B1, Q/dO for B3);
-// 1 loads each tile between two __syncthreads, with no overlap.
+// Depth of the cp.async ring of streamed tiles (K/V for B1 and B2, Q/dO
+// for B3); 1 loads each tile between two __syncthreads, with no overlap.
 constexpr int kTfStages = 2;
 // mma.sync adds its products to the fp32 accumulator with truncation, not
 // round-to-nearest, so a long chain of products into one accumulator
 // drifts toward zero (at T 2048 dK, dV and a non-causal O read 1.5-2.2e-5
 // relative error through a chain over every key or query). So every chain
-// is one tile long and starts from zero (S over the head dim, O over a
-// 64-key tile, dK and dV over a 32-query tile), and the tiles' sums are
+// is one tile long and starts from zero (S and dP over the head dim, O
+// over a 64-key tile, dQ over a 32-key tile, dK and dV over a 32-query
+// tile), and the tiles' sums are
 // added with FADD, which rounds to nearest.
 
 // Row stride of an fp32 tile of head-dim tile DT: DT + 4 floats, so that
@@ -1100,6 +1174,159 @@ __global__ void __launch_bounds__(kTfThreads, 1) fwd_tf32(Args a) {
     }
 }
 
+// Shared memory of dq_tf32 (floats): Q and dO (128 rows), then kTfStages K
+// tiles and as many V tiles (32 rows each).
+template <int DT> struct TfDqSmem {
+    static constexpr int kTile = kTfDqBK * tf_ld<DT>();
+    static constexpr int kQ = 0;
+    static constexpr int kDo = kTfDqBQ * tf_ld<DT>();
+    static constexpr int kK = 2 * kDo;
+    static constexpr int kV = kK + kTfStages * kTile;
+    static constexpr size_t kBytes = (kV + kTfStages * kTile) * sizeof(float);
+};
+
+// grid B*H*q-tiles (grid_slot, one group of all heads): the last q-tiles
+// (most live k-tiles) first. Warp w owns rows q0 + 16w .. q0 + 16w + 15
+// and keeps S and dP (16 x 32) and dQ (16 x DT) in registers; dS =
+// P * (dP - delta') is the A fragment of dQ += dS.K, whose B operand is
+// read from the K tile in the order of a C fragment (b_rows_paired).
+template <int DT>
+__global__ void __launch_bounds__(kTfThreads, 1) dq_tf32(Args a) {
+    using L = TfDqSmem<DT>;
+    constexpr int ld = tf_ld<DT>(), NT = DT / 8, NK = kTfDqBK / 8;
+    extern __shared__ __align__(128) float smf[];
+    const int q_tiles = (a.T + kTfDqBQ - 1) / kTfDqBQ;
+    int bh, rank;
+    grid_slot(a, q_tiles, blockIdx.x, bh, rank);
+    const int b = bh / a.H, h = bh % a.H;
+    const int q0 = (q_tiles - 1 - rank) * kTfDqBQ;
+    const int diag = a.S - a.T;  // key k is live for row t iff k <= t + diag
+    const int end = a.causal ? min(a.S, q0 + kTfDqBQ + diag) : a.S;
+    const int n_tiles = end > 0 ? (end + kTfDqBK - 1) / kTfDqBK : 0;
+    const float* kb = slice<float>(a.k, b, h);
+    const float* vb = slice<float>(a.v, b, h);
+    auto load_kv = [&](int j) {  // one cp.async group, empty past the end
+        if (j < n_tiles) {
+            const int s = j % kTfStages;
+            tf_load<DT>(smf + L::kK + s * L::kTile, kb, a.k.st, j * kTfDqBK,
+                        kTfDqBK, a.S, a.D);
+            tf_load<DT>(smf + L::kV + s * L::kTile, vb, a.v.st, j * kTfDqBK,
+                        kTfDqBK, a.S, a.D);
+        }
+        tf32x3::cp_async_commit();
+    };
+    // Q and dO ride in the first group.
+    tf_load<DT>(smf + L::kQ, slice<float>(a.q, b, h), a.q.st, q0, kTfDqBQ,
+                a.T, a.D);
+    tf_load<DT>(smf + L::kDo, slice<float>(a.o, b, h), a.o.st, q0, kTfDqBQ,
+                a.T, a.D);
+    for (int j = 0; j < kTfStages - 1; ++j) load_kv(j);
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int qw = q0 + 16 * warp;  // this warp's first row
+    const int row0 = qw + g;        // this thread's rows row0 and row0 + 8
+    const float sl2 = a.scale * kLog2e;
+    const float* qs = smf + L::kQ + 16 * warp * ld;
+    const float* dos = smf + L::kDo + 16 * warp * ld;
+    // Keys past end_w are dead for every row of this warp.
+    const int end_w = qw >= a.T ? 0 : a.causal ? min(a.S, qw + 16 + diag) : a.S;
+    float lse2[2], dl[2];
+    row_stats(a, b, h, row0, lse2[0], dl[0]);
+    row_stats(a, b, h, row0 + 8, lse2[1], dl[1]);
+    float dq[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+    for (int j = 0; j < n_tiles; ++j) {
+        if constexpr (kTfStages == 1) load_kv(j);
+        tf_ring_wait();
+        if constexpr (kTfStages > 1) load_kv(j + kTfStages - 1);
+        const int k0 = j * kTfDqBK;
+        if (k0 < end_w) {
+            const float* ks = smf + L::kK + (j % kTfStages) * L::kTile;
+            const float* vs = smf + L::kV + (j % kTfStages) * L::kTile;
+            // S = Q.K^T and dP = dO.V^T.
+            float sc[NK][4] = {}, dp[NK][4] = {};
+#pragma unroll
+            for (int kd = 0; kd < DT; kd += 8) {
+                float qf[4], of[4];
+                uint32_t qbig[4], qsmall[4], obig[4], osmall[4];
+                tf32x3::a_rows(qs, ld, kd, qf);
+                tf32x3::split(qf, qbig, qsmall);
+                tf32x3::a_rows(dos, ld, kd, of);
+                tf32x3::split(of, obig, osmall);
+#pragma unroll
+                for (int n = 0; n < NK; ++n) {
+                    float bf[2];
+                    uint32_t bb[2], bs[2];
+                    tf32x3::b_cols(ks + 8 * n * ld, ld, kd, bf);
+                    tf32x3::split(bf, bb, bs);
+                    tf32x3::mma3(sc[n], qbig, qsmall, bb, bs);
+                    tf32x3::b_cols(vs + 8 * n * ld, ld, kd, bf);
+                    tf32x3::split(bf, bb, bs);
+                    tf32x3::mma3(dp[n], obig, osmall, bb, bs);
+                }
+            }
+            // dS = P * (dP - delta'); the mask only on a tile where a key
+            // may be dead (past S, or past the diagonal of the warp's first
+            // row).
+            const bool mask = k0 + kTfDqBK > a.S ||
+                              (a.causal && k0 + kTfDqBK - 1 > qw + diag);
+#pragma unroll
+            for (int n = 0; n < NK; ++n)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    float p = sm90::exp2_ftz(fmaf(sc[n][i], sl2, -lse2[i >> 1]));
+                    if (mask) {
+                        const int key = k0 + 8 * n + 2 * t + (i & 1);
+                        const int row = row0 + 8 * (i >> 1);
+                        if (key >= a.S || (a.causal && key > row + diag)) p = 0.f;
+                    }
+                    dp[n][i] = p * (dp[n][i] - dl[i >> 1]);
+                }
+            // dQ += dS.K, dS from registers: one chain over the tile's keys
+            // for each 8 columns of dQ.
+            uint32_t gb[NK][4], gs[NK][4];
+#pragma unroll
+            for (int kk = 0; kk < NK; ++kk) {
+                float af[4];
+                tf32x3::c_to_a(dp[kk], af);
+                tf32x3::split(af, gb[kk], gs[kk]);
+            }
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+                float acc[4] = {};
+#pragma unroll
+                for (int kk = 0; kk < NK; ++kk) {
+                    float bf[2];
+                    uint32_t bb[2], bs[2];
+                    tf32x3::b_rows_paired(ks + 8 * kk * ld, ld, 8 * n, bf);
+                    tf32x3::split(bf, bb, bs);
+                    tf32x3::mma3(acc, gb[kk], gs[kk], bb, bs);
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i) dq[n][i] += acc[i];
+            }
+        }
+        if constexpr (kTfStages == 1) __syncthreads();
+    }
+    tf32x3::cp_async_wait<0>();  // no copy in flight at exit (n_tiles 0)
+    float* qb = slice_out<float>(a.dq, b, h);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        const int row = row0 + 8 * half;
+        if (row >= a.T) continue;
+        float* out = qb + static_cast<int64_t>(row) * a.dq.st;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            const int col = 8 * n + 2 * t;
+            if (col < a.D)
+                *reinterpret_cast<float2*>(out + col) = make_float2(
+                    dq[n][2 * half] * a.scale, dq[n][2 * half + 1] * a.scale);
+        }
+    }
+}
+
 // Shared memory of dkv_tf32 (floats): K and V (128 rows), kTfStages Q
 // and dO tiles (32 rows), then each stage's lse·log2(e) and delta'.
 template <int DT> struct TfDkvSmem {
@@ -1141,19 +1368,9 @@ __global__ void __launch_bounds__(kTfThreads, 1) dkv_tf32(Args a) {
                         a.T, a.D);
             tf_load<DT>(smf + L::kDo + s * L::kTile, db, a.o.st, q0, kTfDkvBQ,
                         a.T, a.D);
-            // lse (non-finite -> 0.5 FLT_MAX, so that P = 0; rows past T
-            // likewise) in log2 units, and delta'.
-            for (int r = threadIdx.x; r < kTfDkvBQ; r += kTfThreads) {
-                float lse = kBigLse, dl = 0.f;
-                if (q0 + r < a.T) {
-                    const int64_t i = (static_cast<int64_t>(b) * a.T + q0 + r) * a.H + h;
-                    lse = a.lse[i];
-                    if (!isfinite(lse)) lse = kBigLse;
-                    dl = a.delta[i];
-                }
-                stats[2 * s * kTfDkvBQ + r] = lse * kLog2e;
-                stats[(2 * s + 1) * kTfDkvBQ + r] = dl;
-            }
+            for (int r = threadIdx.x; r < kTfDkvBQ; r += kTfThreads)
+                row_stats(a, b, h, q0 + r, stats[2 * s * kTfDkvBQ + r],
+                          stats[(2 * s + 1) * kTfDkvBQ + r]);
         }
         tf32x3::cp_async_commit();
     };
@@ -1288,29 +1505,22 @@ __global__ void __launch_bounds__(kTfThreads, 1) dkv_tf32(Args a) {
 
 enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// B1 and B3 run the sm90 kernels in bf16 and the tf32 kernels in fp32;
-// B2 runs the shared-memory template (dq_kernel) in both.
-enum Design { kTemplate, kSm90, kTf32 };
-Design design(int is_bf16, int kernel) {
-    return kernel == kDq ? kTemplate : is_bf16 ? kSm90 : kTf32;
-}
-
+// Every kernel has a bf16 design (sm90: TMA, mbarriers and wgmma) and an
+// fp32 one (tf32: three-pass TF32 mma.sync), at a head-dim tile of 64 or
+// 128 columns.
 int head_tile(int D) { return D <= 64 ? 64 : 128; }
 
+template <int DT> size_t smem_bytes_at(int is_bf16, int kernel) {
+    if (is_bf16)
+        return kernel == kFwd ? FwdSm90<DT>::kBytes
+               : kernel == kDq ? DqSm90<DT>::kBytes : DkvSm90<DT>::kBytes;
+    return kernel == kFwd ? TfFwdSmem<DT>::kBytes
+           : kernel == kDq ? TfDqSmem<DT>::kBytes : TfDkvSmem<DT>::kBytes;
+}
+
 size_t smem_bytes(int is_bf16, int kernel, int D) {
-    const bool fwd = kernel == kFwd, narrow = head_tile(D) == 64;
-    switch (design(is_bf16, kernel)) {
-        case kSm90:
-            if (fwd) return narrow ? FwdSm90<64>::kBytes : FwdSm90<128>::kBytes;
-            return narrow ? DkvSm90<64>::kBytes : DkvSm90<128>::kBytes;
-        case kTf32:
-            if (fwd) return narrow ? TfFwdSmem<64>::kBytes : TfFwdSmem<128>::kBytes;
-            return narrow ? TfDkvSmem<64>::kBytes : TfDkvSmem<128>::kBytes;
-        default:
-            if (is_bf16) { DqSmem<bf16> s; return s.carve(nullptr, D); }
-            DqSmem<float> s;
-            return s.carve(nullptr, D);
-    }
+    return head_tile(D) == 64 ? smem_bytes_at<64>(is_bf16, kernel)
+                              : smem_bytes_at<128>(is_bf16, kernel);
 }
 
 View view(const void* p, const int64_t* st) {
@@ -1335,32 +1545,23 @@ int launch(void (*fn)(P...), dim3 grid, int threads, int smem,
     return static_cast<int>(cudaGetLastError());
 }
 
-// B2: the shared-memory template.
-template <typename T>
-int launch_dq(const Args& a, cudaStream_t stream) {
-    const int tiles = (a.T + Tiles<T>::BQ - 1) / Tiles<T>::BQ;
-    if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    return launch(dq_kernel<T>, dim3(a.B * a.H, tiles), kThreads,
-                  static_cast<int>(smem_bytes(std::is_same<T, bf16>::value,
-                                              kDq, a.D)),
-                  stream, a);
-}
-
-// fp32 B1 and B3: one CTA per item, B*H*tiles items, every head's
-// longest tiles first (head groups measured no faster here: at ~1.7 and
-// ~3.7 ms the products, not the L2, set the pace).
+// fp32: one CTA per item, B*H*tiles items, every head's longest tiles
+// first (head groups measured no faster here: at ~1.7 and ~3.7 ms the
+// products, not the L2, set the pace).
 template <int DT>
 int launch_tf32(int kernel, const Args& a, cudaStream_t stream) {
-    const bool fwd = kernel == kFwd;
-    const int rows = fwd ? a.T : a.S, tile = fwd ? kTfFwdBQ : kTfDkvBK;
+    const int rows = kernel == kDkv ? a.S : a.T;
+    const int tile = kernel == kFwd ? kTfFwdBQ : kernel == kDq ? kTfDqBQ : kTfDkvBK;
     const int64_t items =
         static_cast<int64_t>(a.B) * a.H * ((rows + tile - 1) / tile);
     if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
     Args g = a;
     g.group = a.B * a.H;
     const int smem = static_cast<int>(smem_bytes(0, kernel, a.D));
-    return launch(fwd ? fwd_tf32<DT> : dkv_tf32<DT>,
-                  dim3(static_cast<unsigned>(items)), kTfThreads, smem, stream, g);
+    void (*fn)(Args) = kernel == kFwd ? fwd_tf32<DT>
+                       : kernel == kDq ? dq_tf32<DT> : dkv_tf32<DT>;
+    return launch(fn, dim3(static_cast<unsigned>(items)), kTfThreads, smem,
+                  stream, g);
 }
 
 // One operand's tensor map from the wrapper's geometry (11 values: dims,
@@ -1377,20 +1578,21 @@ template <int DT>
 int launch_sm90(int kernel, const Args& a, const int64_t* tma,
                 cudaStream_t stream) {
     CUtensorMap mq, mk, mv, mdo;
-    const bool fwd = kernel == kFwd;
-    const int q_rows = fwd ? kFwdBQ : kDkvBQ, kv_rows = fwd ? kFwdBK : kDkvBK;
+    const int q_rows = kernel == kFwd ? kFwdBQ : kernel == kDq ? kDqBQ : kDkvBQ;
+    const int kv_rows = kernel == kFwd ? kFwdBK : kernel == kDq ? kDqBK : kDkvBK;
     int err = tile_map(&mq, a.q.p, tma, q_rows);
     if (!err) err = tile_map(&mk, a.k.p, tma + 11, kv_rows);
     if (!err) err = tile_map(&mv, a.v.p, tma + 22, kv_rows);
-    if (!err && !fwd) err = tile_map(&mdo, a.o.p, tma + 33, q_rows);
+    if (!err && kernel != kFwd) err = tile_map(&mdo, a.o.p, tma + 33, q_rows);
     if (err) return err;
-    const int rows = fwd ? a.T : a.S;
-    const int tiles = (rows + kv_rows - 1) / kv_rows;  // 128 for both
-    const int64_t items = static_cast<int64_t>(a.B) * a.H * tiles;
+    // A work item is 128 query rows (B1, B2) or 128 keys (B3).
+    const int rows = kernel == kDkv ? a.S : a.T;
+    const int64_t items = static_cast<int64_t>(a.B) * a.H * ((rows + 127) / 128);
     if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-    // B1 is persistent (at most one CTA per SM), B3 one CTA per item.
+    // B1 and B2 are persistent (at most one CTA per SM), B3 one CTA per item.
+    const bool persistent = kernel != kDkv;
     int64_t ctas = items;
-    if (fwd) {
+    if (persistent) {
         int device = 0, sms = 0;
         cudaError_t e = cudaGetDevice(&device);
         if (e == cudaSuccess)
@@ -1399,16 +1601,17 @@ int launch_sm90(int kernel, const Args& a, const int64_t* tma,
         ctas = std::min<int64_t>(items, sms);
     }
     const dim3 grid(static_cast<unsigned>(ctas));
-    const int64_t per_head = 2LL * (fwd ? a.S : a.T) * a.D * sizeof(bf16);
+    // The streamed tiles of a head: K and V (B1, B2) or Q and dO (B3).
+    const int64_t per_head = 2LL * (kernel == kDkv ? a.T : a.S) * a.D * sizeof(bf16);
     Args g = a;
     g.group = static_cast<int>(std::max<int64_t>(
         1, std::min<int64_t>(a.B * a.H, kL2GroupBytes / per_head)));
     const int smem = static_cast<int>(smem_bytes(1, kernel, a.D));
-    if (fwd)
+    if (kernel == kFwd)
         return launch(fwd_sm90<DT>, grid, kSm90Threads, smem, stream, mq, mk,
                       mv, g);
-    return launch(dkv_sm90<DT>, grid, kSm90Threads, smem, stream, mq, mk, mv,
-                  mdo, g);
+    return launch(kernel == kDq ? dq_sm90<DT> : dkv_sm90<DT>, grid,
+                  kSm90Threads, smem, stream, mq, mk, mv, mdo, g);
 }
 
 int dispatch(int is_bf16, int kernel, const Args& a, const int64_t* tma,
@@ -1416,18 +1619,13 @@ int dispatch(int is_bf16, int kernel, const Args& a, const int64_t* tma,
     if (!valid(a)) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool narrow = head_tile(a.D) == 64;
-    switch (design(is_bf16, kernel)) {
-        case kTemplate:
-            return is_bf16 ? launch_dq<bf16>(a, s) : launch_dq<float>(a, s);
-        case kTf32:
-            return narrow ? launch_tf32<64>(kernel, a, s)
-                          : launch_tf32<128>(kernel, a, s);
-        default:
-            if (tma == nullptr || (kernel == kFwd && a.ticket == nullptr))
-                return static_cast<int>(cudaErrorInvalidValue);
-            return narrow ? launch_sm90<64>(kernel, a, tma, s)
-                          : launch_sm90<128>(kernel, a, tma, s);
-    }
+    if (!is_bf16)
+        return narrow ? launch_tf32<64>(kernel, a, s)
+                      : launch_tf32<128>(kernel, a, s);
+    if (tma == nullptr || (kernel != kDkv && a.ticket == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return narrow ? launch_sm90<64>(kernel, a, tma, s)
+                  : launch_sm90<128>(kernel, a, tma, s);
 }
 
 Args base_args(int B, int T, int S, int H, int D, int causal, float scale) {
@@ -1468,12 +1666,15 @@ int flash_attn_fwd(int is_bf16, const void* q, const void* k, const void* v,
 }
 
 // B2. + dout [B,T,H,D], lse and delta [B,T,H] fp32 -> dq [B,T,H,D].
-// `strides`: q, k, v, dout, dq.
+// `strides`: q, k, v, dout, dq; `tma`: the tensor-map geometry of q, k, v,
+// dout, and `ticket` the work counter (bf16; both may be null for fp32).
 int flash_attn_dq(int is_bf16, const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dq, int B, int T, int S, int H, int D, int causal,
-                  float scale, const int64_t* strides, void* stream) {
+                  float scale, const int64_t* strides, const int64_t* tma,
+                  void* ticket, void* stream) {
     Args a = base_args(B, T, S, H, D, causal, scale);
+    a.ticket = static_cast<int*>(ticket);
     a.q = view(q, strides);
     a.k = view(k, strides + 3);
     a.v = view(v, strides + 6);
@@ -1481,7 +1682,7 @@ int flash_attn_dq(int is_bf16, const void* q, const void* k, const void* v,
     a.dq = view(dq, strides + 12);
     a.lse = const_cast<float*>(static_cast<const float*>(lse));
     a.delta = static_cast<const float*>(delta);
-    return dispatch(is_bf16, kDq, a, nullptr, stream);
+    return dispatch(is_bf16, kDq, a, tma, stream);
 }
 
 // B3. -> dk, dv [B,S,H,D]. `strides`: q, k, v, dout, dk, dv; `tma`: the

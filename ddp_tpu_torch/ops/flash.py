@@ -43,30 +43,34 @@ _IS_BF16 = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_NAME = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 KERNELS = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")
 # Rows of the tiles the sm90 kernels load by TMA (flash_attn.cu kFwdBQ,
-# kFwdBK, kDkvBQ, kDkvBK): B1 128 query rows and 128-key tiles; B3 128
-# keys and 64-row Q/dO tiles. A TMA box is 64 columns (128 bytes of bf16,
-# the swizzle span) by that many rows.
+# kFwdBK, kDqBQ, kDqBK, kDkvBQ, kDkvBK): B1 128 query rows and 128-key
+# tiles; B2 128 query rows (Q and dO) and 64-key tiles; B3 128 keys and
+# 64-row Q/dO tiles. A TMA box is 64 columns (128 bytes of bf16, the
+# swizzle span) by that many rows.
 SM90_ROWS = {"flash_attn_fwd": {"q": 128, "kv": 128},
+             "flash_attn_dq": {"q": 128, "kv": 64},
              "flash_attn_dkv": {"q": 64, "kv": 128}}
 TMA_BOX_COLS = 64
+# The sm90 kernels that draw work items from a counter (persistent).
+PERSISTENT = ("flash_attn_fwd", "flash_attn_dq")
 # Rows of the tiles of the fp32 kernels (flash_attn.cu kTfFwdBQ, kTfFwdBK,
-# kTfDkvBQ, kTfDkvBK): B1 128 query rows and 64-key tiles; B3 128 keys and
-# 32-row Q/dO tiles.
+# kTfDqBQ, kTfDqBK, kTfDkvBQ, kTfDkvBK): B1 128 query rows and 64-key
+# tiles; B2 128 query rows and 32-key tiles; B3 128 keys and 32-row Q/dO
+# tiles.
 TF32_ROWS = {"flash_attn_fwd": {"q": 128, "kv": 64},
+             "flash_attn_dq": {"q": 128, "kv": 32},
              "flash_attn_dkv": {"q": 32, "kv": 128}}
 
 
 def kernel_config(name: str, dtype: torch.dtype, head_dim: int) -> dict:
     """Which kernel ``name`` runs for ``dtype`` and ``head_dim``.
 
-    ``design`` is "sm90" (TMA, mbarriers and wgmma with register
-    accumulators: bf16 B1 and B3), "tf32x3" (three-pass TF32 mma.sync
-    products with register accumulators and a cp.async ring: fp32 B1 and
-    B3), "wmma" (tiles and accumulators in shared memory, WMMA products:
-    bf16 B2) or "fma" (the same template on plain FMA: fp32 B2). The sm90
-    and tf32x3 kernels run a head-dim tile of 64 columns for D ≤ 64 and
-    128 above, the padding filled with zeros. Raises outside the kernels'
-    range, as the wrappers do.
+    ``design`` is "sm90" in bf16 (TMA, mbarriers and wgmma with register
+    accumulators) and "tf32x3" in fp32 (three-pass TF32 mma.sync products
+    with register accumulators and a cp.async ring), for each of B1–B3.
+    Both run a head-dim tile of 64 columns for D ≤ 64 and 128 above, the
+    padding filled with zeros. Raises outside the kernels' range, as the
+    wrappers do.
     """
     _check(name in KERNELS, f"unknown kernel {name}")
     _check(dtype in _IS_BF16, f"unsupported dtype {dtype}")
@@ -75,12 +79,10 @@ def kernel_config(name: str, dtype: torch.dtype, head_dim: int) -> dict:
         f"head_dim {head_dim} must be a multiple of 16 in [16, {MAX_HEAD_DIM}]",
     )
     bf16 = dtype == torch.bfloat16
-    if name in SM90_ROWS:
-        rows = SM90_ROWS if bf16 else TF32_ROWS
-        return {"design": "sm90" if bf16 else "tf32x3",
-                "head_tile": 64 if head_dim <= 64 else 128,
-                **{f"{k}_rows": v for k, v in rows[name].items()}}
-    return {"design": "wmma" if bf16 else "fma", "head_tile": None}
+    rows = SM90_ROWS if bf16 else TF32_ROWS
+    return {"design": "sm90" if bf16 else "tf32x3",
+            "head_tile": 64 if head_dim <= 64 else 128,
+            **{f"{k}_rows": v for k, v in rows[name].items()}}
 
 
 def tma_geometry(x: torch.Tensor, rows: int) -> tuple:
@@ -95,12 +97,29 @@ def tma_geometry(x: torch.Tensor, rows: int) -> tuple:
 
 
 def _tma_array(name, tensors):
-    """The geometry of q, k, v (and dO for B3) for an sm90 launch."""
+    """The geometry of q, k, v (and dO for B2 and B3) for an sm90 launch."""
     rows = SM90_ROWS[name]
     vals = []
     for x, side in zip(tensors, ("q", "kv", "kv", "q")):
         vals += tma_geometry(x, rows[side])
     return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def _sm90_extras(name, tensors):
+    """(tensor-map geometry, work counter) of a launch of ``name`` on
+    ``tensors`` (q, k, v and dO where the kernel reads it): the counter,
+    one int32 at 0, only for the persistent kernels; (None, None) in fp32,
+    whose kernels take neither."""
+    q = tensors[0]
+    if kernel_config(name, q.dtype, q.shape[-1])["design"] != "sm90":
+        return None, None
+    ticket = (torch.zeros(1, dtype=torch.int32, device=q.device)
+              if name in PERSISTENT else None)
+    return _tma_array(name, tensors), ticket
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 # ---- the plain version ----------------------------------------------
@@ -210,10 +229,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attn.cu")
     head = [_I, _P, _P, _P]
     shape = [_I, _I, _I, _I, _I, _I, ctypes.c_float, _P]  # ..., strides
-    # B1 and B3 take the tensor-map geometry before the stream, B1 also
-    # its work counter.
+    # Each takes the tensor-map geometry before the stream, B1 and B2 also
+    # their work counter.
     lib.flash_attn_fwd.argtypes = head + [_P, _P] + shape + [_P, _P, _P]
-    lib.flash_attn_dq.argtypes = head + [_P, _P, _P, _P] + shape + [_P]
+    lib.flash_attn_dq.argtypes = head + [_P, _P, _P, _P] + shape + [_P, _P, _P]
     lib.flash_attn_dkv.argtypes = head + [_P, _P, _P, _P, _P] + shape + [_P, _P]
     for fn in (lib.flash_attn_fwd, lib.flash_attn_dq, lib.flash_attn_dkv):
         fn.restype = _I
@@ -290,20 +309,14 @@ def flash_forward(q, k, v, causal: bool):
     S = k.shape[1]
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, T, H), dtype=torch.float32, device=q.device)
-    lib = _lib()
-    tma = ticket = None
-    if kernel_config("flash_attn_fwd", q.dtype, D)["design"] == "sm90":
-        tma = _tma_array("flash_attn_fwd", (q, k, v))
-        # The persistent kernel's work counter, 0 at launch.
-        ticket = torch.zeros(1, dtype=torch.int32, device=q.device)
+    tma, ticket = _sm90_extras("flash_attn_fwd", (q, k, v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch(
-            "flash_attn_fwd", q.dtype, lib.flash_attn_fwd,
+            "flash_attn_fwd", q.dtype, _lib().flash_attn_fwd,
             _IS_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), B, T, S, H, D, int(causal),
-            D**-0.5, _strides(q, k, v, out), tma,
-            None if ticket is None else ticket.data_ptr(), stream,
+            D**-0.5, _strides(q, k, v, out), tma, _ptr(ticket), stream,
         )
     return out, lse
 
@@ -326,6 +339,7 @@ def flash_dq(q, k, v, dout, lse, delta, causal: bool):
     q, k, v, dout, lse, delta = _dq_dkv_args(q, k, v, dout, lse, delta)
     B, T, H, D = q.shape
     dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    tma, ticket = _sm90_extras("flash_attn_dq", (q, k, v, dout))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch(
@@ -333,7 +347,7 @@ def flash_dq(q, k, v, dout, lse, delta, causal: bool):
             _IS_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), B, T, k.shape[1], H, D, int(causal), D**-0.5,
-            _strides(q, k, v, dout, dq), stream,
+            _strides(q, k, v, dout, dq), tma, _ptr(ticket), stream,
         )
     return dq
 
@@ -344,9 +358,7 @@ def flash_dkv(q, k, v, dout, lse, delta, causal: bool):
     B, T, H, D = q.shape
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    tma = (_tma_array("flash_attn_dkv", (q, k, v, dout))
-           if kernel_config("flash_attn_dkv", q.dtype, D)["design"] == "sm90"
-           else None)
+    tma, _ = _sm90_extras("flash_attn_dkv", (q, k, v, dout))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch(

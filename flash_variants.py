@@ -7,20 +7,21 @@ Each variant is ddp_tpu_torch/ops/csrc/flash_attn.cu (and the headers
 beside it) with one design choice undone or one part removed (VARIANTS:
 a named text edit, for the bf16 or the fp32 kernels). Every variant is
 built into its own directory under ops/_build/variants/ (one nvcc each,
-started together), loaded in place of the real library, and B1 and B3
-in the chosen dtype (default bf16; the variants of that dtype unless
+started together), loaded in place of the real library, and B1, B2 and
+B3 in the chosen dtype (default bf16; the variants of that dtype unless
 named) are timed at the training shape (B 8, T = S 2048, H 8, D 128,
 causal) with chip_smoke's timer, twice in turns, beside the unedited
 source ("base"). A "diagnostic" variant computes a wrong result on
 purpose, to show what one part costs; the others must give base's bits
 or differ from them by rounding only (exp2f, the fp32 chain lengths).
-B3 runs on the plain version's lse and delta', and each variant's B1 out
-and B3 dk, dv are held against the plain version as phase 3b holds them
-("err": relative norm error and the worst element's share of its limit,
-under FLASH_TOL). Prints the card, one line per variant and round, then
-one JSON line {variant: {"fwd_us": [...], "dkv_us": [...], "same": bool,
-"err": {...}}} ("same": B1's and B3's outputs equal base's bit for bit),
-after each variant's ptxas registers and spills.
+B2 and B3 run on the plain version's lse and delta', and each variant's
+B1 out, B2 dq and B3 dk, dv are held against the plain version as phase
+3b holds them ("err": relative norm error and the worst element's share
+of its limit, under FLASH_TOL). Prints the card, one line per variant
+and round, then one JSON line {variant: {"fwd_us": [...], "dq_us":
+[...], "dkv_us": [...], "same": bool, "err": {...}}} ("same": the
+outputs equal base's bit for bit), after each variant's ptxas registers
+and spills.
 """
 
 from __future__ import annotations
@@ -42,6 +43,18 @@ VARIANTS = {
                     [("kFwdStages = 3, kDkvStages = 2", "kFwdStages = 2, kDkvStages = 2")]),
     "dkv_stages3": ("a 3-stage Q/dO ring in B3", "bf16", False,
                     [("kFwdStages = 3, kDkvStages = 2", "kFwdStages = 3, kDkvStages = 3")]),
+    "dq_stages2": ("a 2-stage K/V ring in B2", "bf16", False,
+                   [("kDqStages = 3;", "kDqStages = 2;")]),
+    "dq_stages4": ("a 4-stage K/V ring in B2", "bf16", False,
+                   [("kDqStages = 3;", "kDqStages = 4;")]),
+    "dq_bk128": ("128-key K/V tiles in B2 (S, dP and dQ: 192 registers a "
+                 "thread) and a 2-stage ring (3 stages exceed 227 KB)",
+                 "bf16", False,
+                 [("kDqBQ = 128, kDqBK = 64;", "kDqBQ = 128, kDqBK = 128;"),
+                  ("kDqStages = 3;", "kDqStages = 2;")]),
+    "dq_one_cta": ("B2 not persistent: one CTA an item", "bf16", False,
+                   [("const bool persistent = kernel != kDkv;",
+                     "const bool persistent = kernel == kFwd;")]),
     "one_group": ("no head groups: every head's first tiles first, as a "
                   "plain (b*h, tile) grid runs", "bf16", False,
                   [("kL2GroupBytes = 16LL << 20", "kL2GroupBytes = 1LL << 40")]),
@@ -49,6 +62,10 @@ VARIANTS = {
                    "(products and pipeline only)", "bf16", True,
                    [("fwd_softmax(sc, m, l, corr, j * kFwdBK, t0, qw, cq, sl2, a);",
                      "corr[0] = corr[1] = 1.f;")]),
+    "dq_no_ds": ("B2 without dS of tiles after the first (products and "
+                 "pipeline only)", "bf16", True,
+                 [("dq_scores(sc, dp, lse2, dl, j * kDqBK, t0, qw, cq, sl2, a);",
+                   "(void)sc;")]),
     "no_pv": ("B1 without O += P.V", "bf16", True,
               [("mma_mn<DT>(o, pa[kk], v_prev, kFwdBK, kk);", "(void)v_prev;")]),
     "tf32_one_pass": ("one TF32 pass a product (big.big alone) in fp32 B1 "
@@ -62,17 +79,30 @@ VARIANTS = {
                        "accumulation's drift)", "fp32", False,
                        [("tf32x3::mma3(acc, pb[kk], ps[kk], bb, bs);",
                          "tf32x3::mma3(o[n], pb[kk], ps[kk], bb, bs);"),
+                        ("tf32x3::mma3(acc, gb[kk], gs[kk], bb, bs);",
+                         "tf32x3::mma3(dq[n], gb[kk], gs[kk], bb, bs);"),
                         ("tf32x3::mma3(av, pb[kk], ps[kk], bb, bs);",
                          "tf32x3::mma3(dv[n], pb[kk], ps[kk], bb, bs);"),
                         ("tf32x3::mma3(ak, gb[kk], gs[kk], bb, bs);",
                          "tf32x3::mma3(dk[n], gb[kk], gs[kk], bb, bs);")]),
-    "tf32_groups": ("fp32 B1 and B3 scheduled in head groups of <= 16 MB "
+    "tf32_dq_bk64": ("64-key K/V tiles in fp32 B2, and a 1-stage ring in "
+                     "all three (64-key tiles and 2 stages exceed 227 KB "
+                     "at D 128)", "fp32", False,
+                     [("kTfDqBQ = 128, kTfDqBK = 32;",
+                       "kTfDqBQ = 128, kTfDqBK = 64;"),
+                      ("kTfStages = 2;", "kTfStages = 1;")]),
+    "tf32_groups": ("fp32 B1-B3 scheduled in head groups of <= 16 MB "
                     "streamed tiles, as the bf16 kernels are", "fp32", False,
                     [("    g.group = a.B * a.H;\n",
                       "    g.group = static_cast<int>(std::max<int64_t>(1, "
                       "std::min<int64_t>(a.B * a.H, kL2GroupBytes / (2LL * "
-                      "(fwd ? a.S : a.T) * a.D * 4))));\n")]),
+                      "(kernel == kDkv ? a.T : a.S) * a.D * 4))));\n")]),
 }
+
+
+# Variants whose tiles differ from the wrappers' TMA boxes: the rows
+# ops/flash.SM90_ROWS must hand the kernel while they run.
+SM90_ROWS = {"dq_bk128": {"flash_attn_dq": {"q": 128, "kv": 128}}}
 
 
 def build(names) -> dict[str, Path]:
@@ -136,10 +166,16 @@ def main(argv) -> int:
     qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
     ref_out, lse = fl.attention_with_lse_reference(qf, kf, vf, causal)
     delta = fl.backward_delta(ref_out, df)
-    ref_dk, ref_dv = fl.flash_dkv_reference(qf, kf, vf, df, lse, delta, causal)
-    del qf, kf, vf, df
+    ref = {"out": ref_out,
+           "dq": fl.flash_dq_reference(qf, kf, vf, df, lse, delta, causal)}
+    ref["dk"], ref["dv"] = fl.flash_dkv_reference(qf, kf, vf, df, lse, delta,
+                                                  causal)
+    del qf, kf, vf, df, ref_out
     real_load = _build.load
-    results = {n: {"fwd_us": [], "dkv_us": [], "same": None, "err": {}}
+    base_rows = dict(fl.SM90_ROWS)
+    keys = {"fwd": "flash_attn_fwd", "dq": "flash_attn_dq",
+            "dkv": "flash_attn_dkv"}
+    results = {n: {**{f"{k}_us": [] for k in keys}, "same": None, "err": {}}
                for n in names}
     base = None
     try:
@@ -147,32 +183,37 @@ def main(argv) -> int:
             for name in names:
                 _build.load = lambda source, p=libs[name]: ctypes.CDLL(str(p))
                 fl._lib.cache_clear()
-                out, lse_k = fl.flash_forward(q, k, v, causal)
-                dk, dv = fl.flash_dkv(q, k, v, dout, lse, delta, causal)
+                fl.SM90_ROWS.update(base_rows)
+                fl.SM90_ROWS.update(SM90_ROWS.get(name, {}))
+                got = dict(zip(("out", "lse"), fl.flash_forward(q, k, v, causal)))
+                got["dq"] = fl.flash_dq(q, k, v, dout, lse, delta, causal)
+                got["dk"], got["dv"] = fl.flash_dkv(q, k, v, dout, lse, delta,
+                                                    causal)
                 if name == "base":
-                    base = (out, lse_k, dk, dv)
-                same = all(torch.equal(a, b) for a, b in
-                           zip((out, lse_k, dk, dv), base))
+                    base = got
+                same = all(torch.equal(got[n], base[n]) for n in got)
                 r = results[name]
-                for what, got, want in (("out", out, ref_out),
-                                        ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+                for what, want in ref.items():
                     r["err"][what] = cs._compare(
-                        torch, got, want, cs.FLASH_TOL[dname])[1].split(" (")[0]
-                del out, lse_k, dk, dv
+                        torch, got[what], want,
+                        cs.FLASH_TOL[dname])[1].split(" (")[0]
+                del got
                 calls = cs._kernel_calls(fl, q, k, v, dout, lse, delta, causal)
-                fwd = cs._median_ms(torch, calls["flash_attn_fwd"], n=10, reps=5)
-                dkv = cs._median_ms(torch, calls["flash_attn_dkv"], n=10, reps=5)
-                r["fwd_us"].append(round(fwd * 1e3, 1))
-                r["dkv_us"].append(round(dkv * 1e3, 1))
+                us = {}
+                for key, kname in keys.items():
+                    us[key] = round(cs._median_ms(torch, calls[kname], n=10,
+                                                  reps=5) * 1e3, 1)
+                    r[f"{key}_us"].append(us[key])
                 r["same"] = same
                 what = "base" if name == "base" else VARIANTS[name][0] + (
                     "; diagnostic, wrong on purpose" if VARIANTS[name][2] else "")
-                cs.log(f"[variants] {dname} round {rnd} {name}: B1 {fwd * 1e3:.1f} us, "
-                       f"B3 {dkv * 1e3:.1f} us, bits as base: {same}, vs plain "
-                       f"{r['err']} ({what})")
+                cs.log(f"[variants] {dname} round {rnd} {name}: B1 {us['fwd']} us, "
+                       f"B2 {us['dq']} us, B3 {us['dkv']} us, bits as base: "
+                       f"{same}, vs plain {r['err']} ({what})")
     finally:
         _build.load = real_load
         fl._lib.cache_clear()
+        fl.SM90_ROWS.update(base_rows)
     cs.log(cs.card_line())
     print(json.dumps(results), flush=True)
     return 0

@@ -15,6 +15,7 @@ from the same bf16 inputs and round the results to bf16, so they differ
 by one or two bf16 ulps (2^-8 relative) at these magnitudes.
 """
 
+import functools
 import importlib.util
 import math
 import re
@@ -249,25 +250,27 @@ def test_kernel_source_is_built_with_the_rest(monkeypatch):
 @pytest.mark.parametrize("D", range(16, 129, 16))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_config_per_dtype_and_head_dim(dtype, D):
-    """B1 and B3 run a 64-column head-dim tile up to D 64 and a
+    """B1, B2 and B3 run a 64-column head-dim tile up to D 64 and a
     128-column one above: in bf16 the sm90 kernels (TMA, wgmma, register
-    accumulators), in fp32 the three-pass TF32 kernels (mma.sync,
-    register accumulators, a cp.async ring). B2 keeps the shared-memory
-    template: WMMA in bf16, FMA in fp32."""
+    accumulators; B2 128 query rows with 64-key tiles), in fp32 the
+    three-pass TF32 kernels (mma.sync, register accumulators, a cp.async
+    ring; B2 128 query rows with 32-key tiles)."""
     fwd, dq, dkv = (tflash.kernel_config(n, dtype, D) for n in tflash.KERNELS)
     tile = 64 if D <= 64 else 128
     if dtype == torch.bfloat16:
         assert fwd == {"design": "sm90", "head_tile": tile,
                        "q_rows": 128, "kv_rows": 128}
+        assert dq == {"design": "sm90", "head_tile": tile,
+                      "q_rows": 128, "kv_rows": 64}
         assert dkv == {"design": "sm90", "head_tile": tile,
                        "q_rows": 64, "kv_rows": 128}
-        assert dq == {"design": "wmma", "head_tile": None}
     else:
         assert fwd == {"design": "tf32x3", "head_tile": tile,
                        "q_rows": 128, "kv_rows": 64}
+        assert dq == {"design": "tf32x3", "head_tile": tile,
+                      "q_rows": 128, "kv_rows": 32}
         assert dkv == {"design": "tf32x3", "head_tile": tile,
                        "q_rows": 32, "kv_rows": 128}
-        assert dq == {"design": "fma", "head_tile": None}
 
 
 @pytest.mark.parametrize("D", [0, 8, 24, 100, 144, 256])
@@ -306,16 +309,35 @@ def test_tma_geometry_of_contiguous_tensors(T, D):
 
 
 def test_tma_array_per_kernel():
-    """B1 loads 128-row tiles of q, k and v; B3 128-row k/v and 64-row q
-    and dO tiles: 11 values an operand, in the C entry points' order."""
+    """B1 loads 128-row tiles of q, k and v; B2 128-row q and dO and
+    64-row k/v tiles; B3 128-row k/v and 64-row q and dO tiles: 11 values
+    an operand, in the C entry points' order."""
     q = torch.zeros(1, 200, 2, 96, dtype=torch.bfloat16)
     kv = torch.zeros(1, 300, 2, 96, dtype=torch.bfloat16)
     fwd = list(tflash._tma_array("flash_attn_fwd", (q, kv, kv)))
+    dq = list(tflash._tma_array("flash_attn_dq", (q, kv, kv, q)))
     dkv = list(tflash._tma_array("flash_attn_dkv", (q, kv, kv, q)))
-    assert len(fwd) == 33 and len(dkv) == 44
+    assert len(fwd) == 33 and len(dq) == 44 and len(dkv) == 44
     assert [fwd[i * 11 + 9] for i in range(3)] == [128, 128, 128]
+    assert [dq[i * 11 + 9] for i in range(4)] == [128, 64, 64, 128]
     assert [dkv[i * 11 + 9] for i in range(4)] == [64, 128, 128, 64]
     assert fwd[:4] == [96, 2, 200, 1] and fwd[11:15] == [96, 2, 300, 1]
+    assert dq[33:37] == [96, 2, 200, 1]  # dO, as q
+
+
+def test_sm90_extras_per_kernel_and_dtype():
+    """bf16 launches take the tensor maps, and the persistent B1 and B2 a
+    work counter at 0; B3 takes no counter; fp32 launches take neither."""
+    q = torch.zeros(1, 200, 2, 64, dtype=torch.bfloat16)
+    for name, persistent in (("flash_attn_fwd", True), ("flash_attn_dq", True),
+                             ("flash_attn_dkv", False)):
+        tma, ticket = tflash._sm90_extras(name, (q, q, q, q))
+        assert len(tma) == 44
+        if persistent:
+            assert ticket.dtype == torch.int32 and ticket.tolist() == [0]
+        else:
+            assert ticket is None
+        assert tflash._sm90_extras(name, (q.float(),) * 4) == (None, None)
 
 
 def test_build_flags_and_sources_carry_the_sm90_kernels(tmp_path, monkeypatch):
@@ -331,12 +353,13 @@ def test_build_flags_and_sources_carry_the_sm90_kernels(tmp_path, monkeypatch):
     source = (_build.CSRC / "flash_attn.cu").read_text()
     assert '#include "sm90.cuh"' in source
     assert '#include "tf32x3.cuh"' in source
-    # fp32 B1 and B3 are the three-pass TF32 kernels; the shared-memory
-    # template is left for B2 alone.
-    for kernel in ("fwd_sm90", "dkv_sm90", "fwd_tf32", "dkv_tf32", "dq_kernel"):
+    # Every kernel is an sm90 (bf16) or a three-pass TF32 (fp32) one; the
+    # shared-memory template of the first port is gone.
+    for kernel in _chip_smoke().FLASH_SYMBOLS:
         assert re.search(rf"__global__ .*\n?{kernel}\(", source), kernel
-    for gone in ("fwd_kernel", "dkv_kernel", "FwdSmem", "DkvSmem"):
-        assert not re.search(rf"\b{gone}\b", source), gone
+    for gone in ("fwd_kernel", "dkv_kernel", "dq_kernel", "FwdSmem",
+                 "DkvSmem", "DqSmem", "wmma", "mma.h", "kTemplate"):
+        assert not re.search(rf"\b{re.escape(gone)}\b", source), gone
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in (
         _build.CSRC / "tf32x3.cuh").read_text()
     (tmp_path / "k.cu").write_text("// kernel")
@@ -355,18 +378,48 @@ ptxas info    : Compiling entry function '_ZN2ns8fwd_sm90ILi128EEEv' for 'sm_90a
 ptxas info    : Function properties for _ZN2ns8fwd_sm90ILi128EEEv
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN2ns9dq_kernelIfEEvNS_4ArgsE' for 'sm_90a'
-ptxas info    : Function properties for _ZN2ns9dq_kernelIfEEvNS_4ArgsE
+ptxas info    : Compiling entry function '_ZN2ns7dq_tf32ILi64EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN2ns7dq_tf32ILi64EEEvNS_4ArgsE
     16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 40 registers, 2048 bytes smem, 400 bytes cmem[0]
 """
     assert _build.parse_ptxas(text) == [
         {"kernel": "_ZN2ns8fwd_sm90ILi128EEEv", "registers": 168, "smem": 0,
          "stack": 0, "spill_stores": 0, "spill_loads": 0},
-        {"kernel": "_ZN2ns9dq_kernelIfEEvNS_4ArgsE", "registers": 40,
+        {"kernel": "_ZN2ns7dq_tf32ILi64EEEvNS_4ArgsE", "registers": 40,
          "smem": 2048, "stack": 16, "spill_stores": 8, "spill_loads": 12},
     ]
     assert _build.parse_ptxas("") == []
+
+
+def test_every_flash_kernel_is_held_to_no_spill():
+    """Every flash kernel keeps its accumulators in registers, so the
+    spill check of chip_smoke's build phase covers every symbol."""
+    cs = _chip_smoke()
+    assert set(cs.FLASH_SYMBOLS) <= set(cs.REGISTER_KERNELS)
+    assert {"dq_sm90", "dq_tf32"} <= set(cs.FLASH_SYMBOLS)
+
+
+def test_ptxas_rows_name_the_kernels_and_a_b2_spill_raises(monkeypatch):
+    """chip_smoke names each ptxas entry by symbol and head-dim tile, and
+    its build phase raises on a spill in B2 as in any flash kernel."""
+    cs = _chip_smoke()
+    row = {"registers": 200, "smem": 0, "stack": 0, "spill_stores": 0,
+           "spill_loads": 0}
+    report = [
+        {**row, "kernel": "_ZN12_GLOBAL__N_17dq_sm90ILi128EEEv14CUtensorMap_st"},
+        {**row, "kernel": "_ZN12_GLOBAL__N_17dq_tf32ILi64EEEvNS_4ArgsE"},
+        {**row, "kernel": "_ZN12_GLOBAL__N_18dkv_sm90ILi64EEEv14CUtensorMap_st"},
+    ]
+    monkeypatch.setattr(_build, "ptxas_report", lambda source: report)
+    monkeypatch.setattr(_build, "log_path",
+                        lambda source: Path("/nonexistent/flash_attn.log"))
+    assert [n for n, _ in cs.ptxas_rows(_build)] == [
+        "dq_sm90<128>", "dq_tf32<64>", "dkv_sm90<64>"]
+    cs.log_ptxas(_build)  # no spill: passes
+    report[1]["spill_stores"] = 4
+    with pytest.raises(AssertionError, match=r"dq_tf32<64>"):
+        cs.log_ptxas(_build)
 
 
 # ---- the fp32 kernels' numerics: three-pass TF32, emulated ------------------
@@ -501,3 +554,93 @@ def test_one_pass_tf32_fails_the_fp32_limits():
     tensor, so the fp32 limits do tell one pass from three."""
     for name, (ok, text) in _tf32_vs_plain(1).items():
         assert not ok, f"{name}: {text}"
+
+
+# ---- fp32 B2 (dq_tf32), emulated in its own tile order -------------------
+
+DQ_CASES = [  # B, T, S, H, D, causal: ragged against the kernel's tiles
+    (1, 40, 72, 2, 64, True),    # T < S, end-anchored
+    (1, 72, 40, 2, 96, True),    # T > S: rows t < 32 have no live key
+    (1, 40, 72, 2, 96, False),
+    (1, 72, 40, 2, 64, False),
+]
+
+
+def _tf32_dq_tiled(q, k, v, do, lse, delta, causal, passes=3):
+    """dq as fp32 B2 (dq_tf32) forms it, on [B, T|S, H, D] fp32 tensors:
+    for each q-tile and each of its k-tiles (kernel_config's rows; k-tiles
+    past the q-tile's last live key are not visited), S = Q·Kᵀ and dP =
+    dO·Vᵀ through ``tf32x3_matmul`` (``passes`` TF32 passes), P = exp(S ·
+    scale − lse) (0 where masked; a non-finite lse counts as 0.5·FLT_MAX)
+    and dS = P∘(dP − δ′) in fp32, the tile's dS·K from zero, added to the
+    running dQ in fp32; dQ · scale at the end."""
+    cfg = tflash.kernel_config("flash_attn_dq", torch.float32, q.shape[-1])
+    bq, bk = cfg["q_rows"], cfg["kv_rows"]
+    mm = lambda a, b: tflash.tf32x3_matmul(a, b, passes)  # noqa: E731
+    T, S, D = q.shape[1], k.shape[1], q.shape[-1]
+    scale = D**-0.5
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    big = torch.full_like(lse, 0.5 * torch.finfo(torch.float32).max)
+    lse = torch.where(torch.isfinite(lse), lse, big).transpose(1, 2)
+    dl = delta.transpose(1, 2)
+    dq = torch.zeros_like(qh)
+    for q0 in range(0, T, bq):
+        rows = torch.arange(q0, min(q0 + bq, T))
+        end = min(S, q0 + bq + S - T) if causal else S
+        for k0 in range(0, max(end, 0), bk):
+            keys = torch.arange(k0, min(k0 + bk, S))
+            kt = kh[:, :, keys]
+            s = mm(qh[:, :, rows], kt.transpose(-1, -2))
+            dp = mm(doh[:, :, rows], vh[:, :, keys].transpose(-1, -2))
+            p = torch.exp(s * scale - lse[:, :, rows, None])
+            if causal:
+                p = p.masked_fill(keys[None, :] > rows[:, None] + S - T, 0.0)
+            ds = p * (dp - dl[:, :, rows, None])
+            dq[:, :, rows] += mm(ds, kt)
+    return (dq * scale).transpose(1, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_dq(case):
+    """The Pallas forward (out, lse) and ``_dq_kernel``'s dq through
+    ``_flash_backward`` in interpret mode (block 8 a side), with a nonzero
+    dLSE → numpy inputs, lse, delta' and dq."""
+    B, T, S, H, D, causal = case
+    q, k, v, do, dl = _inputs(T * 1000 + S + D, B, T, S, H, D)
+    jq, jk, jv, jdo, jdl = map(jnp.asarray, (q, k, v, do, dl))
+    out, lse = jflash.flash_attention_with_lse(jq, jk, jv, causal, 8, 8, True)
+    dq, _, _ = jflash._flash_backward(jq, jk, jv, out, lse, jdo, jdl,
+                                      causal=causal, block_q=8, block_k=8,
+                                      interpret=True)
+    delta = (np.asarray(do) * np.asarray(out)).sum(-1) - dl
+    return (q, k, v, do), np.asarray(lse), delta, np.asarray(dq)
+
+
+def _tf32_dq_vs_pallas(case, passes):
+    inputs, lse, delta, want = _pallas_dq(case)
+    got = _tf32_dq_tiled(*(torch.tensor(a) for a in inputs), torch.tensor(lse),
+                         torch.tensor(delta), case[-1], passes)
+    cs = _chip_smoke()
+    return cs._compare(torch, got, torch.tensor(want), cs.FLASH_TOL["fp32"])
+
+
+@pytest.mark.parametrize("case", DQ_CASES)
+def test_tf32_dq_tiled_matches_the_pallas_dq_kernel(case):
+    """fp32 B2's arithmetic (three-pass TF32 products, one-tile chains
+    over 32-key tiles added in fp32) ≡ the Pallas ``_dq_kernel`` in
+    interpret mode, within the on-card limits FLASH_TOL["fp32"] (rel
+    1e-5, atol 1e-4); rows with no live key give 0."""
+    ok, text = _tf32_dq_vs_pallas(case, 3)
+    assert ok, text
+    _, T, S, _, _, causal = case
+    if causal and T > S:
+        _, _, _, want = _pallas_dq(case)
+        assert (want[:, : T - S] == 0).all()
+
+
+@pytest.mark.parametrize("case", DQ_CASES)
+def test_one_pass_tf32_dq_fails_the_fp32_limits(case):
+    """The control: with one TF32 pass a product, the same tile order
+    misses FLASH_TOL["fp32"], so the limits tell one pass from three."""
+    ok, text = _tf32_dq_vs_pallas(case, 1)
+    assert not ok, text
