@@ -2,19 +2,31 @@
 """Smoke run of the PyTorch/CUDA port (ddp_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-flash | --time-decode [--root DIR]
 
-Phases, in order; any failure exits non-zero and prints no result:
+The second form only times B1-B3 or B4/B5 of the package under DIR
+(time_flash_main, time_decode_main). The first runs these phases, in
+order; any failure exits non-zero and prints no result:
 
 1. The card (nvidia-smi name and power limit), torch, CUDA and nvcc.
 2. Build the CUDA kernels from ddp_tpu_torch/ops/csrc (one nvcc per
    source, started together), print the build seconds and, from ptxas's
-   report, each flash-attention kernel's registers, shared memory and
-   spill bytes.
-3. Each kernel against its plain PyTorch version on the card, at the
-   serving model's full width, a GQA shape and a ragged cache length;
-   then the median time of kernel, plain version and the library
-   yardstick (scaled_dot_product_attention, timed here only), beside
-   the least time the card could take (the bound).
+   report, each flash-attention and flash-decode kernel's registers,
+   shared memory and spill bytes (a spill raises).
+3. The flash-decode kernels B4 (fp32 K/V) and B5 (int8 K/V) against their
+   plain PyTorch version on the card (KERNEL_ATOL), at the serving
+   model's full width, a GQA shape, a ragged cache length and a long
+   cache (L 8192, random positions and every lane at L-1), with lanes at
+   the first key, inside the first chunk, at the last key and at the
+   position ceiling; each result the same bits on a second call and with
+   every cache row past the band poisoned with NaN (never read); the
+   kernel's split emulated with one chunk dropped must fail the check;
+   shapes the kernel does not take route to the plain version (counted)
+   and an explicit kernel call on them raises. Then, at L 256 and L 8192
+   with every lane at L-1, the median time of kernel, plain version and
+   the library yardstick (scaled_dot_product_attention with the band
+   mask, timed here only), beside the least time the card could take
+   (the bound).
 4. The serving slice end to end: the full-width causal LM (vocab 8192,
    d_model 1024, depth 8, 8 heads, total_len 256) from seeded random
    weights, ServeEngine(slots=8, prefill_len=128) behind LMServer on
@@ -42,11 +54,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernel names and its error against the plain version: the
    yardstick's own numerics), and fwd+bwd kernel vs plain per length
    (the data for re-measuring FLASH_MIN_LEN).
+5a. The causal LM at head dim 24, which B1-B3 do not take, trains a
+   step or two on the card through the plain block (counted, no kernel
+   launch, finite losses).
 5. The training slice end to end: ``python -m ddp_tpu_torch.train``'s
    own main() at the repo's full-width training configuration (bench.py
    run_lm_bench: 111.3 M params, T 2048, batch 8, Adam 3e-4, bf16), 12
    steps and an eval each epoch, launch counters set to 0 before and
-   read after (each of B1-B3 at least depth x steps times), finite
+   read after (each of B1-B3 at least depth x steps times, no block
+   routed to the plain block), finite
    losses falling from epoch 1 to 2, a torch.profiler read of steady
    steps, and one step through the kernels vs the plain attention from
    the same weights and batch (loss, whole gradient and every parameter's
@@ -59,6 +75,7 @@ Phases, in order; any failure exits non-zero and prints no result:
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -70,7 +87,8 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12  # non-tensor-core fp32, H100 SXM data sheet
 # Kernel vs plain version, fp32: both sum the same products, in another
-# order (online softmax over 64-key tiles vs one softmax per row).
+# order (online softmax per row group, merged over warps and over the
+# split's chunks, vs one softmax per row).
 KERNEL_ATOL = 1e-4
 # Greedy streams may part only at a near tie of the top-2 logits.
 DIVERGENCE_GAP = 1e-3
@@ -178,74 +196,221 @@ def _bound(S, H, H_kv, Dh, pos, L, quantized):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+DECODE_SHAPES = [  # label, S, H, H_kv, Dh, L
+    ("full", 8, 8, 8, 128, 256),
+    ("gqa", 8, 8, 2, 128, 256),
+    ("ragged", 8, 8, 8, 128, 200),
+    ("long cache", 8, 8, 8, 128, 8192),
+]
+DECODE_TIMED_L = (256, 8192)  # the serving cache, and a long one past L2
+
+
+def _decode_plan(torch, dec, S, H, H_kv, Dh, L, quantized):
+    """(keys a chunk, chunks) of the kernel's split at this shape."""
+    G = H // H_kv
+    y = H_kv * -(-G // dec.group_tile(G))
+    return dec.split_plan(L, S * y, dec._sm_count(torch.cuda.current_device()),
+                          torch.int8 if quantized else torch.float32, Dh)
+
+
+def _decode_positions(rng, S, L, chunk):
+    """Random lane positions, and four set ones: the first key, a band
+    that ends inside the first chunk (every later chunk lies past it),
+    the last key and the position ceiling (pos == L: every key)."""
+    pos = rng.integers(0, L, S)
+    pos[:4] = 0, min(chunk, L) // 2, L - 1, L
+    return pos.tolist()
+
+
+def _poisoned(torch, args):
+    """The same inputs with every cache row past its lane's band (key >
+    pos, key < L) made NaN (fp32 K/V; int8: the rows' scales), copied."""
+    q, k, v, pos, ks, vs = args
+    L = k.shape[1]
+    dead = torch.arange(L, device="cuda")[None, :] > pos[:, None].long()
+    if ks is None:
+        k, v = k.clone(), v.clone()
+        k[dead], v[dead] = float("nan"), float("nan")
+    else:
+        ks, vs = ks.clone(), vs.clone()
+        ks[dead], vs[dead] = float("nan"), float("nan")
+    return q, k, v, pos, ks, vs
+
+
+def _reject_dropped_chunk(torch, dec, args, want, label) -> list[str]:
+    """Negative control: the kernel's split emulated on the card
+    (ops/decode.decode_split_partials and merge_split_partials, the
+    kernel's chunks) must pass phase 3's check, and the same merge with
+    chunk 1 dropped must fail it → what did not."""
+    q, k = args[:2]
+    chunk, n = _decode_plan(torch, dec, *q.shape[:2], *k.shape[2:],
+                            k.shape[1], k.dtype == torch.int8)
+    if n < 2:
+        return [f"{label}: one chunk, so no merge to control"]
+    o, lse = dec.decode_split_partials(*args, chunk=chunk)
+    good = float((dec.merge_split_partials(o, lse) - want).abs().max())
+    lse[..., 1] = float("-inf")
+    bad = float((dec.merge_split_partials(o, lse) - want).abs().max())
+    log(f"[kernels] control {label}, split emulated ({n} chunks of "
+        f"{chunk}): max_abs_err {good:.3e}; chunk 1 dropped: {bad:.3e} "
+        f"(tolerance {KERNEL_ATOL})")
+    failed = [] if good <= KERNEL_ATOL else [f"{label}: the emulated split "
+                                             f"fails ({good})"]
+    if bad <= KERNEL_ATOL:
+        failed.append(f"{label}: the check passes a merge that drops a chunk")
+    return failed
+
+
+def _time_decode(torch, F, dec, quantized, L) -> dict:
+    """Kernel, plain version and SDPA (with the band mask) times at full
+    width, every lane at pos L-1 (a full cache read), beside the bound."""
+    _, S, H, H_kv, Dh, _ = DECODE_SHAPES[0]
+    pos = [L - 1] * S
+    q, k, v, pos_t, ks, vs = _inputs(torch, S, H, H_kv, Dh, L, pos,
+                                     quantized, seed=99)
+    kf = dec.dequantize_kv(k, ks) if quantized else k
+    vf = dec.dequantize_kv(v, vs) if quantized else v
+    q4 = q[:, :, None, :]
+    k4 = kf.permute(0, 2, 1, 3).contiguous()
+    v4 = vf.permute(0, 2, 1, 3).contiguous()
+    mask = (torch.arange(L, device="cuda")[None, :]
+            <= pos_t[:, None])[:, None, None, :]
+    del kf, vf
+
+    def library():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+    lib_err = float((library()[:, :, 0] - dec.decode_attention_reference(
+        q, k, v, pos_t, ks, vs)).abs().max())
+    ms = _median_ms(torch, lambda: dec.flash_decode_attention(
+        q, k, v, pos_t, ks, vs))
+    plain_ms = _median_ms(torch, lambda: dec.decode_attention_reference(
+        q, k, v, pos_t, ks, vs), n=10, reps=5)
+    library_ms = _median_ms(torch, library, n=20)
+    bound_ms, bound_by = _bound(S, H, H_kv, Dh, pos, L, quantized)
+    chunk, n = _decode_plan(torch, dec, S, H, H_kv, Dh, L, quantized)
+    log(f"[kernels] {'int8' if quantized else 'fp32'} S={S} H={H} "
+        f"H_kv={H_kv} Dh={Dh} L={L}, pos={L - 1} on every lane ({n} chunks "
+        f"of {chunk} keys): kernel {ms * 1e3:.2f} us, plain "
+        f"{plain_ms * 1e3:.2f} us, sdpa {library_ms * 1e3:.2f} us (its "
+        f"error vs plain {lib_err:.1e}), bound {bound_ms * 1e3:.2f} us "
+        f"({bound_by}), {bound_ms / ms:.3f} of the bound")
+    del q, k, v, ks, vs, q4, k4, v4
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def _check_decode_routing(torch, dec) -> list[str]:
+    """Shapes the kernel does not take (fp32 head dim 320, int8 head dim
+    24): ``auto`` takes the plain version on the card and counts it, no
+    launch; an explicit kernel call raises → what did not hold."""
+    failed = []
+    for quantized, Dh in ((False, 320), (True, 24)):
+        args = _inputs(torch, 2, 4, 2, Dh, 64, [5, 64], quantized, seed=3)
+        before, routed = dict(dec.flash_decode_attention.launches), \
+            dec.flash_decode_attention.plain_routed
+        got = dec.decode_attention(*args, impl="auto")
+        ok = (torch.equal(got, dec.decode_attention_reference(*args))
+              and dec.flash_decode_attention.plain_routed == routed + 1
+              and dec.flash_decode_attention.launches == before)
+        try:
+            dec.flash_decode_attention(*args)
+            raised = False
+        except ValueError:
+            raised = True
+        log(f"[kernels] {'int8' if quantized else 'fp32'} head dim {Dh} "
+            f"(not taken): auto routed to the plain version and counted: "
+            f"{ok}; an explicit kernel call raises: {raised}")
+        if not (ok and raised):
+            failed.append(f"routing at head dim {Dh}")
+    return failed
+
+
 def check_kernels(torch) -> dict:
+    """Phase 3: B4 and B5 against the plain version at every shape of
+    DECODE_SHAPES (positions from _decode_positions; the long cache also
+    with every lane at L-1), KERNEL_ATOL; the same bits again on a second
+    call and with every row past the band poisoned (never read); the
+    split emulated with a chunk dropped must fail the check; the routing
+    of shapes the kernel does not take; then times at L 256 and L 8192.
+    Every reading is printed before a failure is raised."""
     import torch.nn.functional as F
 
     from ddp_tpu_torch.ops import decode as dec
 
-    results = {}
-    shapes = [  # name, S, H, H_kv, Dh, L
-        ("full", 8, 8, 8, 128, 256),
-        ("gqa", 8, 8, 2, 128, 256),
-        ("ragged", 8, 8, 8, 128, 200),
-    ]
+    for quantized in (False, True):
+        dtype = torch.int8 if quantized else torch.float32
+        taken = dec._lib().flash_decode_tile_keys(int(quantized), 128)
+        if taken != dec.tile_keys(dtype, 128):
+            raise AssertionError(f"tile keys: kernel {taken}, wrapper "
+                                 f"{dec.tile_keys(dtype, 128)}")
+    results, failed = {}, []
     rng = np.random.default_rng(0)
     for quantized, name in ((False, "flash_decode_fp32"),
                             (True, "flash_decode_int8")):
         errs = []
-        for label, S, H, H_kv, Dh, L in shapes:
-            pos = rng.integers(0, L, S)
-            pos[0], pos[1], pos[2] = 0, L - 1, L  # first key, last, ceiling
-            args = _inputs(torch, S, H, H_kv, Dh, L, pos.tolist(), quantized,
-                           seed=len(errs) + 10 * quantized)
+        cases = []
+        for label, S, H, H_kv, Dh, L in DECODE_SHAPES:
+            chunk, _ = _decode_plan(torch, dec, S, H, H_kv, Dh, L, quantized)
+            cases.append((label, S, H, H_kv, Dh, L,
+                          _decode_positions(rng, S, L, chunk)))
+        _, S, H, H_kv, Dh, L = DECODE_SHAPES[-1]
+        cases.append(("long cache, every lane at L-1", S, H, H_kv, Dh, L,
+                      [L - 1] * S))
+        for i, (label, S, H, H_kv, Dh, L, pos) in enumerate(cases):
+            args = _inputs(torch, S, H, H_kv, Dh, L, pos, quantized,
+                           seed=i + 10 * quantized)
             out = dec.flash_decode_attention(*args)
+            again = dec.flash_decode_attention(*args)
+            poisoned = dec.flash_decode_attention(*_poisoned(torch, args))
             ref = dec.decode_attention_reference(*args)
             torch.cuda.synchronize()
+            chunk, n = _decode_plan(torch, dec, S, H, H_kv, Dh, L, quantized)
             err = float((out - ref).abs().max())
+            same, clean = torch.equal(out, again), torch.equal(out, poisoned)
             log(f"[kernels] {name} {label} S={S} H={H} H_kv={H_kv} "
-                f"Dh={Dh} L={L}: max_abs_err {err:.3e} "
-                f"(tolerance {KERNEL_ATOL})")
-            if not err <= KERNEL_ATOL:
-                raise AssertionError(f"{name} {label}: error {err}")
+                f"Dh={Dh} L={L} ({n} chunks of {chunk}), pos "
+                f"{pos[:4]}...: max_abs_err {err:.3e} (tolerance "
+                f"{KERNEL_ATOL}); bitwise equal on a second call: {same}; "
+                f"rows past the band poisoned, same bits: {clean}")
+            if not (err <= KERNEL_ATOL and same and clean):
+                failed.append(f"{name} {label}")
             errs.append(err)
-        # Timing at the main path's shapes: full width, every lane at
-        # the last position (a full cache read).
-        S, H, H_kv, Dh, L = 8, 8, 8, 128, 256
-        pos = [L - 1] * S
-        q, k, v, pos_t, ks, vs = _inputs(torch, S, H, H_kv, Dh, L, pos,
-                                         quantized, seed=99)
-        kf = dec.dequantize_kv(k, ks) if quantized else k
-        vf = dec.dequantize_kv(v, vs) if quantized else v
-        q4 = q[:, :, None, :]
-        k4 = kf.permute(0, 2, 1, 3).contiguous()
-        v4 = vf.permute(0, 2, 1, 3).contiguous()
-        mask = (torch.arange(L, device="cuda")[None, :]
-                <= pos_t[:, None])[:, None, None, :]
-
-        gqa = {"enable_gqa": True} if H != H_kv else {}
-
-        def library():
-            return F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=mask, **gqa)
-
-        lib_err = float(
-            (library()[:, :, 0] - dec.decode_attention_reference(
-                q, k, v, pos_t, ks, vs)).abs().max())
-        ms = _median_ms(torch, lambda: dec.flash_decode_attention(
-            q, k, v, pos_t, ks, vs))
-        plain_ms = _median_ms(torch, lambda: dec.decode_attention_reference(
-            q, k, v, pos_t, ks, vs))
-        library_ms = _median_ms(torch, library)
-        bound_ms, bound_by = _bound(S, H, H_kv, Dh, pos, L, quantized)
-        log(f"[kernels] {name} full width, pos={L - 1} on every lane: "
-            f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-            f"sdpa {library_ms * 1e3:.2f} us (its error vs plain "
-            f"{lib_err:.1e}), bound {bound_ms * 1e3:.2f} us ({bound_by})")
-        results[name] = dict(
-            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-        )
+            if label in ("full", "long cache, every lane at L-1") and n > 1:
+                failed += _reject_dropped_chunk(torch, dec, args, ref,
+                                                f"{name} {label}")
+            del args, out, again, poisoned, ref
+            torch.cuda.empty_cache()
+        short, long = (_time_decode(torch, F, dec, quantized, L)
+                       for L in DECODE_TIMED_L)
+        results[name] = dict(max_abs_err=max(errs), **short,
+                             long_cache=dict(L=DECODE_TIMED_L[1], **long))
+    failed += _check_decode_routing(torch, dec)
+    if failed:
+        raise AssertionError(f"decode kernels: {failed}")
     return results
+
+
+def time_decode_kernels(torch) -> dict:
+    """B4 and B5 kernel times (medians of 5 x 20 calls) at full width,
+    every lane at pos L-1, for each L of DECODE_TIMED_L → {"fp32" |
+    "int8": {L: ms}}: the reading that compares two trees in one call
+    (``--time-decode [--root DIR]``)."""
+    from ddp_tpu_torch.ops import decode as dec
+
+    out = {}
+    for quantized in (False, True):
+        row = {}
+        for L in DECODE_TIMED_L:
+            args = _inputs(torch, 8, 8, 8, 128, L, [L - 1] * 8, quantized,
+                           seed=99)
+            row[L] = _median_ms(torch, lambda: dec.flash_decode_attention(
+                *args), n=20, reps=5)
+            del args
+            torch.cuda.empty_cache()
+        out["int8" if quantized else "fp32"] = row
+    return out
 
 
 # ---- phase 3b: flash attention B1-B3 against their plain versions ---------
@@ -1020,9 +1185,14 @@ def check_training(torch) -> dict:
     for args, dname in ((TRAIN_ARGS, "bf16"), (TRAIN_FP32_ARGS, "fp32")):
         log(f"[train] python -m ddp_tpu_torch.train {' '.join(args)}")
         _zero(launches)
+        fl.flash_attention.plain_routed = 0
         trainer = train_main(args)
         torch.cuda.synchronize()
         got = dict(launches)
+        if fl.flash_attention.plain_routed:
+            raise AssertionError(
+                f"{dname}: {fl.flash_attention.plain_routed} blocks routed to "
+                "the plain block on the main training path")
         spec, cfg = trainer.spec, trainer.config
         steps = trainer.runner.steps_per_epoch * cfg.epochs
         n_params = sum(p.numel() for p in trainer.model.parameters())
@@ -1063,6 +1233,43 @@ def check_training(torch) -> dict:
     return counted
 
 
+# A head dim the flash kernels do not take (D 24 = 96 / 4): the causal LM
+# trains through the plain block on the card (fault C1 of ROADMAP).
+TRAIN_ROUTED_ARGS = [
+    "--model", "causal_lm", "--dataset", "synthetic_seq",
+    "--synthetic_size", "8", "--seq_len", "256", "--vocab_size", "256",
+    "--model_dim", "96", "--model_depth", "2", "--num_heads", "4",
+    "--batch_size", "4", "--epochs", "1", "--optimizer", "adam",
+    "--lr", "3e-4", "--compute_dtype", "bfloat16",
+]
+
+
+def check_routed_training(torch) -> None:
+    """Phase 5a: ``python -m ddp_tpu_torch.train`` at head dim 24, which
+    B1-B3 do not take: every attention block must take the plain block on
+    the card (counted > 0), launch no kernel, and give finite losses."""
+    from ddp_tpu_torch.ops import flash as fl
+    from ddp_tpu_torch.train.trainer import main as train_main
+
+    log(f"[train] python -m ddp_tpu_torch.train {' '.join(TRAIN_ROUTED_ARGS)}")
+    _zero(fl.flash_attention.launches)
+    fl.flash_attention.plain_routed = 0
+    trainer = train_main(TRAIN_ROUTED_ARGS)
+    torch.cuda.synchronize()
+    routed = fl.flash_attention.plain_routed
+    launched = sum(fl.flash_attention.launches.values())
+    losses = [l for h in trainer.history for l in h["loss"]]
+    log(f"[train] head dim {trainer.spec.head_dim} on {trainer.device}: "
+        f"{len(losses)} steps, losses {losses}, blocks routed to the plain "
+        f"block {routed}, B1-B3 launches {launched}")
+    if not (routed > 0 and launched == 0 and losses
+            and all(np.isfinite(losses))):
+        raise AssertionError("head dim 24 did not train through the plain "
+                             "block")
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def check_serving(torch) -> dict:
     from ddp_tpu_torch.models.lm import LMSpec, init_lm
     from ddp_tpu_torch.ops import decode as dec
@@ -1088,13 +1295,18 @@ def check_serving(torch) -> dict:
                            ("int8", "flash_decode_int8")):
         for k in launches:
             launches[k] = 0
+        dec.flash_decode_attention.plain_routed = 0
         _, engine = serve_run(torch, model, prompts, kv_dtype=kv_dtype)
         got = dict(launches)
+        routed = dec.flash_decode_attention.plain_routed
         want = engine.decode_steps * spec.depth
         log(f"[serve] kv={kv_dtype} launches {got} (decode steps x depth "
-            f"= {want})")
+            f"= {want}), routed to the plain version by shape: {routed}")
         if engine.decode_attn != "flash" or got[name] < want or want == 0:
             raise AssertionError(f"{name}: {got[name]} launches < {want}")
+        if routed:
+            raise AssertionError(f"the serving path routed {routed} calls "
+                                 "to the plain version")
         if sum(got.values()) != got[name]:
             raise AssertionError(f"unexpected launches {got}")
         counted[name] = got[name]
@@ -1167,6 +1379,54 @@ def log_ptxas(_build) -> None:
         raise AssertionError(f"ptxas spilled in {spills}")
 
 
+def decode_kernel_name(mangled: str) -> str:
+    """A flash-decode kernel's mangled name → e.g. "split<int8,GT=4>" or
+    "merge<GT=1>"."""
+    m = re.search(r"flash_decode_(split|merge)I([fa]?)Li(\d+)E", mangled)
+    if not m:
+        return mangled[:60]
+    kv = {"f": "fp32,", "a": "int8,", "": ""}[m.group(2)]
+    return f"{m.group(1)}<{kv}GT={m.group(3)}>"
+
+
+def log_decode_ptxas(_build) -> None:
+    """Phase 2: ptxas's report of each flash-decode kernel (B4/B5 per
+    query-head tile, and the merge). Its accumulators live in registers:
+    a spill raises."""
+    spills = []
+    for r in _build.ptxas_report("flash_decode.cu"):
+        name = decode_kernel_name(r["kernel"])
+        log(f"[build] {_ptxas_text(name, r)}")
+        if r["spill_stores"] or r["spill_loads"]:
+            spills.append(name)
+    if spills:
+        raise AssertionError(f"ptxas spilled in {spills}")
+
+
+def time_decode_main(argv) -> int:
+    """``--time-decode [--root DIR]``: build flash_decode.cu of the
+    package under DIR (default: this script's tree), print the card and
+    one JSON line of B4/B5 times (µs) at full width, every lane at L-1,
+    at L 256 and L 8192. Run it on two trees in turns (parent, change,
+    change, parent) within one call to compare them on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if "--root" in argv:
+        sys.path.insert(0, argv[argv.index("--root") + 1])
+    from ddp_tpu_torch.ops import _build
+
+    root = str(_build.CSRC.parents[2])
+    _build.build(("flash_decode.cu",))
+    us = {kv: {str(L): round(ms * 1e3, 2) for L, ms in row.items()}
+          for kv, row in time_decode_kernels(torch).items()}
+    log(card_line())
+    print(json.dumps({"root": root, "us": us}), flush=True)
+    return 0
+
+
 def time_flash_main(argv) -> int:
     """``--time-flash [--root DIR] [--dtype bf16|fp32|both]``: build
     flash_attn.cu of the package under DIR (default: this script's tree),
@@ -1201,6 +1461,8 @@ def time_flash_main(argv) -> int:
 def main() -> int:
     if "--time-flash" in sys.argv:
         return time_flash_main(sys.argv)
+    if "--time-decode" in sys.argv:
+        return time_decode_main(sys.argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1223,10 +1485,12 @@ def main() -> int:
     seconds = _build.build()
     log(f"[build] {json.dumps(seconds)} (wall {time.perf_counter() - t0:.2f} s)")
     log_ptxas(_build)
+    log_decode_ptxas(_build)
 
     timings = check_kernels(torch)
     launches = check_serving(torch)
     flash = check_flash(torch)
+    check_routed_training(torch)
     trained = check_training(torch)
 
     replaces = {"flash_decode_fp32": "ddp_tpu/ops/decode.py:260",

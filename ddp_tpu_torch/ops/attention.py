@@ -6,8 +6,8 @@ The PyTorch counterpart of ``ddp_tpu/ops/attention.py``:
   the chunked-prefill attention of the serving engine and the dense
   causal forward of ``models/lm.CausalLM``.
 - ``best_attention`` — the framework's default ``(q, k, v) -> out``:
-  the flash kernels B1–B3 (``ops/flash.py``) on a CUDA tensor at every
-  length, ``dot_product_attention`` on the CPU. The JAX package switches
+  the flash kernels B1–B3 (``ops/flash.py``) on a CUDA tensor of a
+  shape they take, at every length, ``dot_product_attention`` elsewhere. The JAX package switches
   to its kernel only from ``FLASH_MIN_LEN = 1024`` keys, a TPU v5e
   measurement; chip_smoke.py prints the H100 data for re-measuring it.
 """
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ddp_tpu_torch.ops.flash import flash_attention
+from ddp_tpu_torch.ops.flash import flash_attention, takes_block
 
 # Large-negative mask value (not -inf): a fully masked row stays finite.
 MASK_VALUE = -0.5 * torch.finfo(torch.float32).max
@@ -48,10 +48,11 @@ def dot_product_attention(q, k, v, *, causal: bool = False, q_offset=None):
 
 def best_attention(*, causal: bool = False):
     """Device-resolved default attention → ``(q, k, v) -> out``: the
-    flash kernels on a CUDA tensor, the plain path elsewhere."""
+    flash kernels on a device tensor of a shape they take, the plain path
+    elsewhere (``ops.flash.takes_block``)."""
 
     def fn(q, k, v):
-        if q.device.type == "cuda":
+        if takes_block(q):
             return flash_attention(q, k, v, causal)
         return dot_product_attention(q, k, v, causal=causal)
 

@@ -11,7 +11,8 @@ causal-LM training step runs it once forward and once backward:
   ``out``) — one ``torch.autograd.Function`` over the hand-written CUDA
   kernels of ``ops/csrc/flash_attn.cu`` (B1 forward, B2 dQ, B3 dK/dV;
   bf16 and fp32; the source note there says what bounds them and how;
-  :func:`kernel_config` says which design runs for a dtype and head dim). The
+  :func:`kernel_config` says which design runs for a dtype and head dim;
+  :func:`kernels_take` says which shapes the kernels take). The
   forward saves ``(q, k, v, out, lse)`` as ``_fa_fwd`` does; the
   backward folds the lse cotangent in as
   ``delta' = rowsum(dO∘O) − dLSE`` (fp32) and runs B2 then B3. On a
@@ -62,6 +63,31 @@ TF32_ROWS = {"flash_attn_fwd": {"q": 128, "kv": 64},
              "flash_attn_dkv": {"q": 32, "kv": 128}}
 
 
+def kernels_take(dtype: torch.dtype, head_dim: int) -> bool:
+    """True when B1–B3 take q/k/v of ``dtype`` at ``head_dim``: bf16 or
+    fp32, head_dim a multiple of 16 in [16, 128]."""
+    return (dtype in _IS_BF16 and head_dim % 16 == 0
+            and 16 <= head_dim <= MAX_HEAD_DIM)
+
+
+def route(device_type: str, dtype: torch.dtype, head_dim: int) -> str:
+    """Where one block of attention runs: "kernel" (B1–B3), "routed" (the
+    plain block on the device, because the kernels do not take the shape
+    — the JAX dispatch's choice by shape) or "plain" (a CPU tensor)."""
+    if device_type == "cpu":
+        return "plain"
+    return "kernel" if kernels_take(dtype, head_dim) else "routed"
+
+
+def takes_block(q: torch.Tensor) -> bool:
+    """:func:`route` for ``q``: True → the kernels. A call routed to the
+    plain block on a device is counted in ``flash_attention.plain_routed``."""
+    way = route(q.device.type, q.dtype, q.shape[-1])
+    if way == "routed":
+        flash_attention.plain_routed += 1
+    return way == "kernel"
+
+
 def kernel_config(name: str, dtype: torch.dtype, head_dim: int) -> dict:
     """Which kernel ``name`` runs for ``dtype`` and ``head_dim``.
 
@@ -75,7 +101,7 @@ def kernel_config(name: str, dtype: torch.dtype, head_dim: int) -> dict:
     _check(name in KERNELS, f"unknown kernel {name}")
     _check(dtype in _IS_BF16, f"unsupported dtype {dtype}")
     _check(
-        head_dim % 16 == 0 and 16 <= head_dim <= MAX_HEAD_DIM,
+        kernels_take(dtype, head_dim),
         f"head_dim {head_dim} must be a multiple of 16 in [16, {MAX_HEAD_DIM}]",
     )
     bf16 = dtype == torch.bfloat16
@@ -283,7 +309,7 @@ def _check_inputs(q, k, v) -> None:
         f"{q.dtype}/{k.dtype}/{v.dtype}",
     )
     _check(
-        D % 16 == 0 and 16 <= D <= MAX_HEAD_DIM,
+        kernels_take(q.dtype, D),
         f"head_dim {D} must be a multiple of 16 in [16, {MAX_HEAD_DIM}]",
     )
     _check(T >= 1 and S >= 1 and B >= 1 and H >= 1, "empty q or k")
@@ -425,6 +451,10 @@ flash_attention.launches = {
     f"{name}_{dt}": 0 for name in KERNELS for dt in ("bf16", "fp32")
 }
 flash_attention_with_lse.launches = flash_attention.launches
+# Blocks that the dispatchers (parallel/ring.default_block_fn,
+# ops/attention.best_attention) sent to the plain block on a device
+# because B1–B3 do not take their shape (:func:`takes_block`).
+flash_attention.plain_routed = 0
 
 
 def make_flash_attention(*, causal: bool = False):

@@ -12,8 +12,8 @@ module ports exactly that:
   end-anchored mask when T == S, which is every block a one-rank ring
   sees).
 - :func:`default_block_fn` — the flash kernels B1–B3
-  (``ops.flash.flash_attention_with_lse``) on a CUDA tensor, at every
-  length, and the plain block on the CPU.
+  (``ops.flash.flash_attention_with_lse``) on a CUDA tensor of a shape
+  they take, at every length, and the plain block elsewhere.
 - :func:`combine_attention_partials` — the (out, lse) log-space merge of
   two partial results over disjoint keys; differentiable, so it pins the
   lse gradient of the kernels.
@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from ddp_tpu_torch.ops.flash import flash_attention_with_lse
+from ddp_tpu_torch.ops.flash import flash_attention_with_lse, takes_block
 
 
 def _xla_block_with_lse(q, k, v, causal: bool):
@@ -50,11 +50,11 @@ def _xla_block_with_lse(q, k, v, causal: bool):
 
 
 def default_block_fn(q, k, v, causal: bool):
-    """Per-hop block attention: the flash kernels on a CUDA tensor (at
-    every length — the JAX threshold FLASH_MIN_LEN is a TPU measurement
-    and is re-measured on the H100 by chip_smoke.py), the plain block
-    elsewhere."""
-    if q.device.type == "cuda":
+    """Per-hop block attention: the flash kernels on a device tensor of a
+    shape they take (at every length — the JAX threshold FLASH_MIN_LEN is
+    a TPU measurement and is re-measured on the H100 by chip_smoke.py),
+    the plain block elsewhere (``ops.flash.takes_block``)."""
+    if takes_block(q):
         return flash_attention_with_lse(q, k, v, causal)
     return _xla_block_with_lse(q, k, v, causal)
 

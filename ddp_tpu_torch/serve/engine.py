@@ -151,9 +151,13 @@ def resolve_engine_knobs(
             f"prefill_len {prefill_len} must leave room to decode "
             f"inside total_len {spec.total_len}"
         )
-    decode_attn = decode_ops.resolve_impl(decode_attn, device)
     if kv_dtype not in ("fp32", "int8"):
         raise ValueError(f"kv_dtype must be fp32|int8, got {kv_dtype!r}")
+    # The path for this model's cache: ``auto`` takes the plain version
+    # on the card where the kernel does not take the shape.
+    shape = (spec.num_heads, spec.kv_heads, spec.head_dim,
+             torch.int8 if kv_dtype == "int8" else torch.float32)
+    resolved = decode_ops.resolve_impl(decode_attn, device, shape)
     chunk = next_pow2(
         prefill_chunk if prefill_chunk else min(next_pow2(prefill_len), 64)
     )
@@ -175,7 +179,8 @@ def resolve_engine_knobs(
         )
     return {
         "prefill_len": prefill_len,
-        "decode_attn": decode_attn,
+        "decode_attn": resolved,
+        "decode_attn_requested": decode_attn,
         "kv_dtype": kv_dtype,
         "chunk": chunk,
         "min_bucket": min_bucket,
@@ -200,8 +205,8 @@ class ServeEngine:
     """Fixed-slot continuous-batching engine for one ``CausalLM``.
 
     Runs on the model's device. ``decode_attn`` is ``auto`` (the CUDA
-    flash-decode kernel on the GPU, the plain version on the CPU),
-    ``flash`` or ``reference``; ``kv_dtype`` is ``fp32`` or ``int8``.
+    flash-decode kernel on the GPU where it takes the model's head shape,
+    the plain version elsewhere), ``flash`` or ``reference``; ``kv_dtype`` is ``fp32`` or ``int8``.
     The other knobs are the JAX engine's: ``slots``, ``prefill_len``
     (admission ceiling), ``prefill_chunk``, ``min_bucket``,
     ``step_token_budget``, ``max_queue``; ``clock`` is injectable.
@@ -243,6 +248,9 @@ class ServeEngine:
         self.min_bucket = knobs["min_bucket"]
         self.step_token_budget = knobs["step_token_budget"]
         self.decode_attn = knobs["decode_attn"]
+        # Passed to every decode step: ``auto`` routes (and counts) per
+        # call, as ops/decode.decode_attention does.
+        self._attn_impl = knobs["decode_attn_requested"]
         self.kv_dtype = knobs["kv_dtype"]
         self.clock = clock
         self.metrics = metrics or MetricsWriter(None)
@@ -464,7 +472,7 @@ class ServeEngine:
             self._toks = slot_decode_sample_step(
                 self.model, self._cache, self._toks, self._seeds,
                 self._sample_steps, self._temps, self._top_ps,
-                attn_impl=self.decode_attn,
+                attn_impl=self._attn_impl,
                 sampling=any(r.temperature > 0 for r in reqs),
                 nucleus=any(r.temperature > 0 and r.top_p < 1 for r in reqs),
             )

@@ -2,6 +2,7 @@
 """Time source variants of the flash-attention kernels on one GPU.
 
     python3 flash_variants.py [--dtype bf16|fp32] [NAME ...]
+    python3 flash_variants.py --decode [NAME ...]
 
 Each variant is ddp_tpu_torch/ops/csrc/flash_attn.cu (and the headers
 beside it) with one design choice undone or one part removed (VARIANTS:
@@ -22,6 +23,12 @@ and round, then one JSON line {variant: {"fwd_us": [...], "dq_us":
 [...], "dkv_us": [...], "same": bool, "err": {...}}} ("same": the
 outputs equal base's bit for bit), after each variant's ptxas registers
 and spills.
+
+``--decode`` does the same for the flash-decode kernels B4/B5
+(flash_decode.cu, DECODE_VARIANTS: text edits and the wrapper's split
+constants), timed at full width (S 8, H 8, Dh 128), every lane at L-1,
+at L 256 and L 8192; each output's max error against the plain version
+and its bits against base's.
 """
 
 from __future__ import annotations
@@ -104,18 +111,57 @@ VARIANTS = {
 # ops/flash.SM90_ROWS must hand the kernel while they run.
 SM90_ROWS = {"dq_bk128": {"flash_attn_dq": {"q": 128, "kv": 128}}}
 
+# The flash-decode kernels B4/B5 (``--decode``): name -> (what it shows,
+# [(old, new), ...] edits of flash_decode.cu, {name: value} set on
+# ops/decode while the variant runs — the wrapper's split constants).
+_FP32 = "kKeys = 2;\n    static constexpr int kStages = 3;"
+_INT8 = "kKeys = 4;\n    static constexpr int kStages = 2;"
+DECODE_VARIANTS = {
+    "ring1": ("a 1-stage ring: each tile loaded between two __syncthreads",
+              [(_FP32, _FP32[:-2] + "1;"), (_INT8, _INT8[:-2] + "1;")], {}),
+    "fp32_ring2": ("a 2-stage ring in B4", [(_FP32, _FP32[:-2] + "2;")], {}),
+    "int8_ring3": ("a 3-stage ring in B5", [(_INT8, _INT8[:-2] + "3;")], {}),
+    "ring4": ("a 4-stage ring", [(_FP32, _FP32[:-2] + "4;"),
+                                 (_INT8, _INT8[:-2] + "4;")], {}),
+    "copy4": ("4-byte cp.async copies (scalar loads into the ring)",
+              [("kCopyBytes = 16;", "kCopyBytes = 4;")], {}),
+    "ctas2": ("chunks for ~2 CTAs per SM", [],
+              {"SPLIT_CTAS_PER_SM": {"fp32": 2, "int8": 2}}),
+    "ctas4": ("chunks for ~4 CTAs per SM", [],
+              {"SPLIT_CTAS_PER_SM": {"fp32": 4, "int8": 4}}),
+    "ctas8": ("chunks for ~8 CTAs per SM", [],
+              {"SPLIT_CTAS_PER_SM": {"fp32": 8, "int8": 8}}),
+    "ctas16": ("chunks for ~16 CTAs per SM", [],
+               {"SPLIT_CTAS_PER_SM": {"fp32": 16, "int8": 16}}),
+    "no_split": ("one chunk a (lane, head): no split", [],
+                 {"MIN_CHUNK_BYTES": 1 << 40}),
+    "min_chunk_0": ("no least chunk: chunks of one tile at L 256", [],
+                    {"MIN_CHUNK_BYTES": 0}),
+    "min_chunk_32k": ("chunks of at least 32 KB of K and V", [],
+                      {"MIN_CHUNK_BYTES": 32 * 1024}),
+    "min_chunk_128k": ("chunks of at least 128 KB of K and V", [],
+                       {"MIN_CHUNK_BYTES": 128 * 1024}),
+    "fp32_keys4": ("B4 tiles of 4 keys a row group (64 keys at Dh 128)",
+                   [(_FP32, "kKeys = 4;" + _FP32[10:])],
+                   {"KEYS_PER_ROW_GROUP": {"fp32": 4, "int8": 4}}),
+    "int8_keys8": ("B5 tiles of 8 keys a row group (128 keys at Dh 128)",
+                   [(_INT8, "kKeys = 8;" + _INT8[10:])],
+                   {"KEYS_PER_ROW_GROUP": {"fp32": 2, "int8": 8}}),
+}
 
-def build(names) -> dict[str, Path]:
-    """Each variant's library, built in parallel → {name: path}."""
+
+def build(names, source="flash_attn.cu", edits=lambda n: VARIANTS[n][3]) -> dict[str, Path]:
+    """Each variant's library (``edits(name)`` applied to ``source`` and
+    the headers beside it), built in parallel → {name: path}."""
     from ddp_tpu_torch.ops import _build
 
-    files = [_build.CSRC / "flash_attn.cu", *_build.CSRC.glob("*.cuh")]
+    files = [_build.CSRC / source, *_build.CSRC.glob("*.cuh")]
     sources = {f.name: f.read_text() for f in files}
-    root = _build.BUILD_DIR / "variants"
+    root = _build.BUILD_DIR / "variants" / Path(source).stem
     procs = {}
     for name in names:
         texts = dict(sources)
-        for old, new in ([] if name == "base" else VARIANTS[name][3]):
+        for old, new in ([] if name == "base" else edits(name)):
             hits = [f for f, text in texts.items() if old in text]
             if len(hits) != 1:
                 raise ValueError(f"variant {name}: {old!r} is in {hits}")
@@ -126,7 +172,7 @@ def build(names) -> dict[str, Path]:
             (d / fname).write_text(text)
         procs[name] = (d / "lib.so", subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-             str(d / "flash_attn.cu")],
+             str(d / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     libs = {}
     for name, (path, proc) in procs.items():
@@ -138,12 +184,86 @@ def build(names) -> dict[str, Path]:
     return libs
 
 
+def decode_main(names) -> int:
+    """B4 and B5 under each decode variant (default: all), at full width,
+    every lane at L-1, L 256 and L 8192: two rounds in turns with base,
+    each output's bits against base's and its max error against the
+    plain version, and the kernel's median time (µs)."""
+    import torch
+
+    from ddp_tpu_torch.ops import _build
+    from ddp_tpu_torch.ops import decode as dec
+
+    names = ["base"] + (names or list(DECODE_VARIANTS))
+    libs = build(names, "flash_decode.cu", lambda n: DECODE_VARIANTS[n][1])
+    for name, path in libs.items():
+        cs.log(f"[variants] {name} ptxas: " + ", ".join(
+            f"{cs.decode_kernel_name(r['kernel'])} {r['registers']} "
+            f"registers, spill {r['spill_stores']}/{r['spill_loads']} bytes"
+            for r in _build.parse_ptxas(path.with_suffix(".log").read_text())))
+    _, S, H, H_kv, Dh, _ = cs.DECODE_SHAPES[0]
+    cases = {}
+    for kv in ("fp32", "int8"):
+        for L in cs.DECODE_TIMED_L:
+            args = cs._inputs(torch, S, H, H_kv, Dh, L, [L - 1] * S,
+                              kv == "int8", seed=99)
+            cases[f"{kv} L={L}"] = (args, dec.decode_attention_reference(*args))
+    real_load = _build.load
+    keys = {"fp32": torch.float32, "int8": torch.int8}
+    saved = {a: getattr(dec, a) for a in ("SPLIT_CTAS_PER_SM",
+                                          "KEYS_PER_ROW_GROUP",
+                                          "MIN_CHUNK_BYTES")}
+    results = {n: {"us": {c: [] for c in cases}, "same": None, "err": {}}
+               for n in names}
+    base = {}
+    try:
+        for rnd in range(2):
+            for name in names:
+                _build.load = lambda source, p=libs[name]: ctypes.CDLL(str(p))
+                dec._lib.cache_clear()
+                for a, val in saved.items():
+                    setattr(dec, a, val)
+                for a, val in ({} if name == "base"
+                               else DECODE_VARIANTS[name][2]).items():
+                    if a in ("KEYS_PER_ROW_GROUP", "SPLIT_CTAS_PER_SM"):
+                        val = {keys[k]: n for k, n in val.items()}
+                    setattr(dec, a, val)
+                r = results[name]
+                same = True
+                for c, (args, ref) in cases.items():
+                    got = dec.flash_decode_attention(*args)
+                    torch.cuda.synchronize()
+                    if name == "base":
+                        base[c] = got
+                    same = same and torch.equal(got, base[c])
+                    r["err"][c] = float((got - ref).abs().max())
+                    r["us"][c].append(round(cs._median_ms(
+                        torch, lambda: dec.flash_decode_attention(*args),
+                        n=20, reps=5) * 1e3, 2))
+                r["same"] = same
+                what = "base" if name == "base" else DECODE_VARIANTS[name][0]
+                cs.log(f"[variants] decode round {rnd} {name}: " + ", ".join(
+                    f"{c} {r['us'][c][-1]} us" for c in cases)
+                    + f"; bits as base: {same}; max err vs plain "
+                    f"{max(r['err'].values()):.2e} ({what})")
+    finally:
+        _build.load = real_load
+        dec._lib.cache_clear()
+        for a, val in saved.items():
+            setattr(dec, a, val)
+    cs.log(cs.card_line())
+    print(json.dumps(results), flush=True)
+    return 0
+
+
 def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("flash_variants: no CUDA device is available", file=sys.stderr)
         return 2
+    if "--decode" in argv:
+        return decode_main([a for a in argv if a != "--decode"])
     from ddp_tpu_torch.ops import _build
     from ddp_tpu_torch.ops import flash as fl
 

@@ -148,6 +148,150 @@ def test_cpu_tensor_takes_plain_version_without_launch():
         tdec.decode_attention(q, k, v, pos, impl="dense")
 
 
+# ---- the kernel's split (split-K over the cache), emulated ------------
+
+
+@pytest.mark.parametrize(
+    "S,H,H_kv,Dh,L,chunk,quantized",
+    [
+        (4, 4, 4, 8, 40, 8, False),    # ragged L: 5 chunks, the last short
+        (4, 8, 2, 16, 32, 4, False),   # GQA group 4, 8 chunks
+        (4, 4, 2, 8, 24, 64, False),   # one chunk wider than L
+        (4, 4, 4, 16, 48, 16, True),   # int8 K/V
+        (4, 8, 2, 8, 37, 5, True),     # int8, GQA, ragged, 8 chunks
+    ],
+)
+def test_split_emulation_matches_jax_and_reference(
+        S, H, H_kv, Dh, L, chunk, quantized):
+    """The kernel's algorithm — per-chunk partials (o, lse) merged in chunk
+    order — ≡ JAX's Pallas flash-decode kernel (interpret mode) and the
+    plain version, with lanes at pos 0 (every later chunk wholly past the
+    band), inside the first chunk, L-1 and L (the idle ceiling)."""
+    q, k, v, pos = _qkv(S * 1000 + L * 10 + chunk, S, H, H_kv, Dh, L)
+    pos[:4] = 0, min(chunk, L) // 2, L - 1, L
+    scales = ()
+    if quantized:
+        k, ks = (np.asarray(a) for a in jdec.quantize_kv(jnp.asarray(k)))
+        v, vs = (np.asarray(a) for a in jdec.quantize_kv(jnp.asarray(v)))
+        scales = (ks, vs)
+    got = tdec.decode_attention_split_reference(
+        *_t(q, k, v, pos, *scales), chunk=chunk).numpy()
+    ref = tdec.decode_attention_reference(*_t(q, k, v, pos, *scales))
+    fl = jdec.flash_decode_attention(
+        *_j(q, k, v, pos, *scales), block_k=8, interpret=True)
+    np.testing.assert_allclose(got, ref.numpy(), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got, np.asarray(fl), atol=ATOL, rtol=RTOL)
+
+
+def test_split_partials_of_dead_chunks_and_the_merge():
+    """A chunk wholly past a lane's band is empty (lse −inf, o 0) and
+    weighs nothing; dropping a live chunk from the merge changes the
+    result (the chip check's negative control); and the merge of two
+    chunks is ``parallel/ring.combine_attention_partials``."""
+    from ddp_tpu_torch.parallel.ring import combine_attention_partials
+
+    q, k, v, pos = _t(*_qkv(21, 3, 4, 2, 8, 16))
+    pos = torch.tensor([0, 9, 15], dtype=torch.int32)
+    o, lse = tdec.decode_split_partials(q, k, v, pos, chunk=8)
+    assert o.shape == (3, 4, 2, 8) and lse.shape == (3, 4, 2)
+    assert torch.isinf(lse[0, :, 1]).all() and (o[0, :, 1] == 0).all()
+    assert torch.isfinite(lse[1:]).all()
+    ref = tdec.decode_attention_reference(q, k, v, pos)
+    merged = tdec.merge_split_partials(o, lse)
+    torch.testing.assert_close(merged, ref, atol=ATOL, rtol=RTOL)
+    o2, l2 = combine_attention_partials(o[..., 0, :], lse[..., 0],
+                                        o[..., 1, :], lse[..., 1])
+    torch.testing.assert_close(merged, o2, atol=1e-6, rtol=0)
+    dropped = lse.clone()
+    dropped[..., 0] = -torch.inf
+    assert (tdec.merge_split_partials(o, dropped) - ref).abs().max() > 1e-2
+
+
+# ---- which shapes the kernel takes, and how it splits them ------------
+
+
+@pytest.mark.parametrize(
+    "Dh,fp32,int8",
+    [
+        (8, True, False),     # two float4; not a whole int8 vector
+        (24, True, False),    # six float4; 24 % 16 != 0
+        (128, True, True),    # the serving model
+        (144, True, True),    # R = 16 threads a row, 9 of them loading
+        (256, True, True),    # the widest row (R = 16)
+        (320, False, False),  # past MAX_HEAD_DIM
+    ],
+)
+def test_kernel_takes_per_head_dim(Dh, fp32, int8):
+    """B4 takes fp32 K/V at Dh % 4 == 0, B5 int8 at Dh % 16 == 0, both up
+    to 256; the answer for each head dim is stated above. ``auto``
+    resolves to the plain version on the card where it is false, and an
+    explicit ``flash`` raises there."""
+    assert tdec.kernel_takes(8, 8, Dh, torch.float32) is fp32
+    assert tdec.kernel_takes(8, 2, Dh, torch.int8) is int8
+    cuda = torch.device("cuda")
+    for dtype, taken in ((torch.float32, fp32), (torch.int8, int8)):
+        shape = (8, 8, Dh, dtype)
+        want = "flash" if taken else "reference"
+        assert tdec.resolve_impl("auto", cuda, shape) == want
+        assert tdec.resolve_impl("auto", torch.device("cpu"), shape) == "reference"
+        assert tdec.resolve_impl("reference", cuda, shape) == "reference"
+        if taken:
+            assert tdec.resolve_impl("flash", cuda, shape) == "flash"
+        else:
+            with pytest.raises(ValueError, match="does not take"):
+                tdec.resolve_impl("flash", cuda, shape)
+
+
+def test_kernel_takes_heads_dtypes_and_strides():
+    """H must be a multiple of H_kv, K/V fp32 or int8, the last dim
+    contiguous and every row on a 16-byte boundary; ``_tensors_take``
+    adds q fp32 and K/V strides equal."""
+    take = tdec.kernel_takes
+    assert not take(6, 4, 128, torch.float32)
+    assert not take(8, 8, 128, torch.bfloat16)
+    L, H_kv, Dh = 16, 2, 128
+    cont = (L * H_kv * Dh, H_kv * Dh, Dh, 1)
+    assert take(8, H_kv, Dh, torch.float32, cont)
+    assert take(8, H_kv, Dh, torch.int8, cont)
+    assert not take(8, H_kv, Dh, torch.float32, cont[:3] + (2,))
+    assert not take(8, H_kv, Dh, torch.float32, (cont[0], cont[1] + 1, Dh, 1))
+    assert take(8, H_kv, Dh, torch.float32, (cont[0], cont[1] + 4, Dh, 1))
+    assert not take(8, H_kv, Dh, torch.int8, (cont[0], cont[1] + 4, Dh, 1))
+    q, k, v, _ = _t(*_qkv(5, 2, 4, 2, 8, 16))
+    assert tdec._tensors_take(q, k, v)
+    assert not tdec._tensors_take(q.double(), k, v)
+    assert not tdec._tensors_take(q, k, v.clone().transpose(1, 2)
+                                  .contiguous().transpose(1, 2))
+    # One layer of a [depth, S, L, H_kv, Dh] cache, as the engine passes it.
+    cache = torch.zeros(2, 2, 16, 2, 8)
+    assert tdec._tensors_take(q, cache[1], cache[1])
+
+
+@pytest.mark.parametrize(
+    "L,dtype,Dh,pairs,want",
+    [
+        (256, torch.float32, 128, 64, (64, 4)),     # serving: 256 CTAs
+        (8192, torch.float32, 128, 64, (512, 16)),  # long cache: 1024
+        (256, torch.int8, 128, 64, (256, 1)),       # 64 KB: no split
+        (8192, torch.int8, 128, 64, (1664, 5)),     # all CTAs resident
+        (200, torch.float32, 128, 64, (64, 4)),     # ragged: last chunk 8
+        (256, torch.float32, 128, 2048, (256, 1)),  # many lanes: no split
+        (256, torch.float32, 64, 64, (128, 2)),     # R 4: 64-key tiles
+    ],
+)
+def test_split_plan(L, dtype, Dh, pairs, want):
+    """Chunks are whole tiles (kKeys x 128 / R keys: 2 keys a row group
+    in fp32, 4 in int8), as many as give ~SPLIT_CTAS_PER_SM CTAs per SM
+    (8 in fp32, 2 in int8) on a 132-SM H100 but each of at least
+    MIN_CHUNK_BYTES of K and V, and the chunks cover L."""
+    tile = tdec.tile_keys(dtype, Dh)
+    chunk, n = tdec.split_plan(L, pairs, 132, dtype, Dh)
+    assert (chunk, n) == want
+    assert chunk % tile == 0 and (n - 1) * chunk < L <= n * chunk
+    assert tdec.threads_a_row(Dh) * 16 >= Dh
+    assert [tdec.group_tile(g) for g in (1, 2, 3, 4, 8)] == [1, 2, 4, 4, 4]
+
+
 @pytest.mark.parametrize(
     "T,S,q_offset", [(6, 6, None), (4, 10, None), (4, 16, 3), (8, 16, 0)]
 )

@@ -273,6 +273,44 @@ def test_kernel_config_per_dtype_and_head_dim(dtype, D):
                        "q_rows": 32, "kv_rows": 128}
 
 
+@pytest.mark.parametrize("D,taken", [(8, False), (16, True), (24, False),
+                                     (128, True), (144, False)])
+def test_kernels_take_and_the_routing_by_device_and_shape(D, taken):
+    """B1-B3 take bf16/fp32 at D a multiple of 16 in [16, 128]. A device
+    tensor of another shape takes the plain block on the device
+    ("routed", the JAX dispatch's choice by shape), a CPU tensor the
+    plain block ("plain"); float16 is never taken."""
+    for dtype in (torch.bfloat16, torch.float32):
+        assert tflash.kernels_take(dtype, D) is taken
+        assert tflash.route("cuda", dtype, D) == ("kernel" if taken
+                                                  else "routed")
+        assert tflash.route("cpu", dtype, D) == "plain"
+    assert not tflash.kernels_take(torch.float16, D)
+    assert tflash.route("cuda", torch.float16, D) == "routed"
+
+
+@pytest.mark.parametrize("D", [8, 24, 144])
+def test_dispatchers_route_and_count_shapes_the_kernels_do_not_take(D):
+    """On a device tensor (a meta tensor stands in for a CUDA one) whose
+    head dim the kernels do not take, ``default_block_fn`` and
+    ``best_attention`` take the plain block, count each call in
+    ``flash_attention.plain_routed`` and launch nothing; the kernel entry
+    itself still raises on that shape."""
+    q, k, v = (torch.empty(1, 8, 2, D, device="meta") for _ in range(3))
+    before = dict(tflash.flash_attention.launches)
+    routed = tflash.flash_attention.plain_routed
+    out, lse = tring.default_block_fn(q, k, v, True)
+    assert out.shape == q.shape and lse.shape == (1, 8, 2)
+    assert tattn.best_attention(causal=True)(q, k, v).shape == q.shape
+    assert tflash.flash_attention.plain_routed == routed + 2
+    assert tflash.flash_attention.launches == before
+    cpu = [torch.zeros(1, 8, 2, D) for _ in range(3)]
+    tring.default_block_fn(*cpu, True)  # the CPU is not counted
+    assert tflash.flash_attention.plain_routed == routed + 2
+    with pytest.raises(ValueError):  # an explicit kernel call never routes
+        tflash.flash_attention(q, k, v, True)
+
+
 @pytest.mark.parametrize("D", [0, 8, 24, 100, 144, 256])
 def test_kernel_config_raises_outside_the_kernels_range(D):
     for name in tflash.KERNELS:

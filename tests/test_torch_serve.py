@@ -211,3 +211,39 @@ def test_http_generate_malformed_and_queue_full():
             .encode())
         assert status == 429 and out["error"] == QUEUE_FULL
         assert int(headers["Retry-After"]) >= 1
+
+
+@pytest.mark.parametrize(
+    "d_model,heads,kv_dtype,want",
+    [
+        (256, 2, "fp32", "flash"),      # Dh 128: the kernel's shape
+        (256, 2, "int8", "flash"),
+        (96, 4, "fp32", "flash"),       # Dh 24: whole float4 rows
+        (96, 4, "int8", "reference"),   # Dh 24: not whole int8 vectors
+        (640, 2, "fp32", "reference"),  # Dh 320 > 256
+    ],
+)
+def test_engine_resolves_decode_attention_by_shape(d_model, heads, kv_dtype,
+                                                   want):
+    """On a CUDA device the engine's ``auto`` decode attention resolves to
+    the kernel only where ``ops/decode.kernel_takes`` the model's head
+    shape and cache dtype, else to the plain version (reported as
+    ``decode_attn``, the path /stats shows); the request itself is kept,
+    so each call routes, and is counted, in ``decode_attention``. An
+    explicit ``flash`` on a shape the kernel does not take raises."""
+    from ddp_tpu_torch.models.lm import LMSpec
+    from ddp_tpu_torch.serve.engine import resolve_engine_knobs
+
+    spec = LMSpec(vocab_size=64, total_len=32, d_model=d_model, depth=1,
+                  num_heads=heads)
+    cuda = torch.device("cuda")
+    knobs = resolve_engine_knobs(spec, device=cuda, kv_dtype=kv_dtype)
+    assert knobs["decode_attn"] == want
+    assert knobs["decode_attn_requested"] == "auto"
+    cpu = resolve_engine_knobs(spec, device=torch.device("cpu"),
+                               kv_dtype=kv_dtype)
+    assert cpu["decode_attn"] == "reference"
+    if want == "reference":
+        with pytest.raises(ValueError, match="does not take"):
+            resolve_engine_knobs(spec, device=cuda, kv_dtype=kv_dtype,
+                                 decode_attn="flash")

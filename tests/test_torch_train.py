@@ -67,16 +67,16 @@ B, T, V = 4, 16, 32
 H, DH = 4, 8
 
 
-def _setup(num_kv_heads=0, seed=0):
+def _setup(num_kv_heads=0, seed=0, heads=H, head_dim=DH):
     """(JAX spec, JAX params, 1×1 mesh, port model on the CPU): seeded
     numpy weights in the JAX tree layout, carried into the port by
     ``lm_params_from_jax``."""
-    jspec = jlm.LMSpec(vocab_size=V, total_len=T, d_model=H * DH, depth=2,
-                       num_heads=H, num_kv_heads=num_kv_heads)
-    spec = LMSpec(vocab_size=V, total_len=T, d_model=H * DH, depth=2,
-                  num_heads=H, num_kv_heads=num_kv_heads)
+    jspec = jlm.LMSpec(vocab_size=V, total_len=T, d_model=heads * head_dim,
+                       depth=2, num_heads=heads, num_kv_heads=num_kv_heads)
+    spec = LMSpec(vocab_size=V, total_len=T, d_model=heads * head_dim,
+                  depth=2, num_heads=heads, num_kv_heads=num_kv_heads)
     params = lm_params_to_jax(init_lm_state(spec, seed=seed))
-    spec2, state = lm_params_from_jax(params, num_heads=H)
+    spec2, state = lm_params_from_jax(params, num_heads=heads)
     assert spec2 == spec
     model = CausalLM.from_state(spec, state, "cpu", trainable=True)
     mesh = make_mesh(MeshSpec(data=1, seq=1), devices=jax.devices()[:1])
@@ -115,8 +115,9 @@ def _assert_trees_close(port_state, jax_tree, atol, *, k_bias=None):
 
 def _run_both(opt_kw, *, steps=3, num_kv_heads=0, jax_dtype=jnp.float32,
               torch_dtype=torch.float32, grad_accum_steps=1,
-              label_smoothing=0.0):
-    jspec, params, mesh, model = _setup(num_kv_heads)
+              label_smoothing=0.0, heads=H, head_dim=DH):
+    jspec, params, mesh, model = _setup(num_kv_heads, heads=heads,
+                                        head_dim=head_dim)
     tx = jax_make_optimizer(**opt_kw)
     jstate = replicated_train_state(params, tx, mesh)
     jstep = jlm.make_lm_train_step(
@@ -194,6 +195,20 @@ def test_step_options_match_jax(opt_kw, accum, smoothing):
                                    atol=1e-6)
     _assert_trees_close(model.state_dict(), jstate.params, ATOL,
                         k_bias=(0, 2 * opt_kw["lr"]))
+
+
+def test_step_at_a_head_dim_the_kernels_do_not_take_matches_jax():
+    """Head dim 24, which B1-B3 do not take (on the card the step's
+    attention takes the plain block there, ops/flash.route): one fp32
+    SGD step ≡ JAX's (loss, grad norm, parameters), as the head-dim-8
+    steps above are pinned."""
+    model, jstate, rows = _run_both(dict(name="sgd", lr=0.1), steps=1,
+                                    heads=2, head_dim=24)
+    [(tm, jm)] = rows
+    np.testing.assert_allclose(float(tm.loss), float(jm.loss), rtol=RTOL)
+    np.testing.assert_allclose(float(tm.grad_norm), float(jm.grad_norm),
+                               rtol=RTOL)
+    _assert_trees_close(model.state_dict(), jstate.params, ATOL)
 
 
 def test_bf16_compute_matches_jax():
