@@ -68,7 +68,35 @@ order; any failure exits non-zero and prints no result:
    the same weights and batch (loss, whole gradient and every parameter's
    gradient, STEP_TOL; a B3 that drops a dK tile must fail the same
    limits); then the fp32 variant at depth 2.
-6. A "kernels" JSON line, the card line, and the last line
+6. The reference trainer's main path (train.py --epochs 3 --batch_size
+   64, which BASELINE.json measures): ``python -m ddp_tpu_torch.train
+   --model simple_cnn``'s own main() on the synthetic split at MNIST's
+   full size (60,000 / 10,000), SimpleCNN at full width (32, 64), world 1
+   over nccl, SGD 0.01 with momentum 0.9 (so the restored optimizer
+   state has buffers). No kernel of the repo lies on it (its convs and
+   linear are cuDNN's and cuBLAS's through torch).
+   6a: 3 epochs, losses finite and falling, epoch_0..2 with verified
+   manifests, final_accuracy= printed; the same command again restores
+   epoch 2's parameters, step count and momentum buffers bit for bit;
+   --epochs 4 prints "Resumed from checkpoint epoch 2" and trains epoch 3
+   alone; one flipped byte in epoch_3's state file, then --epochs 5:
+   quarantine.epoch-3 appears and training resumes from epoch 2.
+   6b: one epoch through --fast_epoch against one through the loader on
+   the same plan, deterministic cuDNN: parameters within FAST_ATOL.
+   6c: one step on the card (fp32, TF32 off) against the same step on
+   the CPU, from the same weights and batch (CNN_STEP_TOL: loss, whole
+   gradient, worst leaf gradient and worst updated parameter); the same
+   at a forced world of 2 in-process; a world-2 average divided by the
+   world twice must fail the limits.
+   6d: the reference recipe (SGD 0.01, batch 32, 3 epochs) on the
+   vendored uci_digits: its test accuracy, a reading.
+   6e: --spawn 2 --backend gloo, both ranks on the one card at batch 32
+   each, against world 1 at batch 64 on the same plan (SPAWN_ATOL).
+   Timing, with the card's name and power limit: images/s per card, step
+   p50 (CUDA events) and the busy share of one more epoch under
+   torch.profiler, for the step and fast paths at batch 64 and at global
+   batch 16384 (bench.py's), and the fast path at 16384 in bf16.
+7. A "kernels" JSON line, the card line, and the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -1270,6 +1298,401 @@ def check_routed_training(torch) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- phase 6: the reference trainer's main path (SimpleCNN on MNIST) -----
+
+# train.py --epochs 3 --batch_size 64 (the flow BASELINE.json measures),
+# offline: the synthetic split at MNIST's full size (60,000 train, 10,000
+# test), SimpleCNN at the reference's width (32, 64), world 1 over nccl.
+# Momentum 0.9 gives the restored optimizer state buffers to compare.
+CNN_ARGS = ["--model", "simple_cnn", "--synthetic_data", "--batch_size", "64",
+            "--log_interval", "300", "--momentum", "0.9"]
+CNN_DEVICE_ARGS: list[str] = []  # ["--device", "cpu"] when rehearsing
+# The fast path against the step path, one epoch on the same plan, with
+# deterministic cuDNN: the same step on the same batches (host gather vs
+# device gather of the same bytes), so the parameters should agree bit for
+# bit; the limit leaves room for one rounding.
+FAST_ATOL = 1e-6
+# One step on the card (fp32, TF32 off) vs the same step on the CPU:
+# summation order only.
+CNN_STEP_TOL = dict(loss=1e-5, grad=1e-4, leaf=1e-4)
+# Two gloo ranks on the card (per-rank batch 32) vs world 1 (batch 64),
+# SPAWN_SIZE synthetic images (200 steps): each step's union of the two
+# strided shards is the world-1 batch, so only summation order (the
+# bucket sum, cuDNN at batch 32 vs 64) parts them; it compounds over the
+# steps.
+SPAWN_SIZE, SPAWN_ATOL = 12800, 1e-4
+BENCH_BATCH = 16384  # bench.py run_bench's global batch (bench.py:88-92)
+# Training flops per image, SimpleCNN at (32, 64): forward
+# 2·784·(1·32 + 32·64)·9 + 2·50176·10, times 3 for the backward.
+CNN_TRAIN_FLOPS = 3 * (2 * 784 * (32 + 32 * 64) * 9 + 2 * 50176 * 10)
+
+
+class _Tee:
+    """stdout to the terminal and to a buffer (the trainer's log lines are
+    part of what phase 6 checks)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def _train(args: list[str]):
+    """``python -m ddp_tpu_torch.train``'s own main() in-process →
+    (trainer or None, the lines it printed)."""
+    import contextlib
+
+    from ddp_tpu_torch.train.trainer import main as train_main
+
+    argv = CNN_ARGS + CNN_DEVICE_ARGS + args
+    log(f"[cnn] python -m ddp_tpu_torch.train {' '.join(argv)}")
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        trainer = train_main(argv)
+    return trainer, tee.text()
+
+
+def _cnn_state_errors(torch, trainer, blob) -> list[str]:
+    """Where ``trainer``'s live state differs from a checkpoint dict (bit
+    for bit): parameters, step count, optimizer count and buffers."""
+    bad = [k for k, v in trainer.state.model.state_dict().items()
+           if not torch.equal(v.cpu(), blob["params"][k])]
+    opt = trainer.state.optimizer.state_dict()
+    if trainer.state.step != blob["step"]:
+        bad.append(f"step {trainer.state.step} != {blob['step']}")
+    if opt["count"] != blob["opt_state"]["count"]:
+        bad.append("optimizer count")
+    bad += [f"momentum buffer {i}" for i, (a, b) in enumerate(
+        zip(opt["trace"], blob["opt_state"]["trace"])) if not torch.equal(a, b)]
+    return bad
+
+
+def _epoch_line(h, label) -> str:
+    return (f"[cnn] {label} epoch {h['epoch']}: mean loss "
+            f"{h['train_loss']:.4f}, train accuracy {h['train_accuracy']:.4f}, "
+            f"test accuracy {h.get('test_accuracy', float('nan')):.4f}, "
+            f"{h['images_per_s_per_card']:.1f} images/s per card (epoch wall), "
+            f"step p50 {h['step_p50_s'] * 1e3:.3f} ms, "
+            f"{len(h['loss'])} steps")
+
+
+def check_cnn_main_path(torch, tmp) -> dict:
+    """Phase 6a: train 3 epochs, resume, quarantine a corrupt epoch →
+    the step path's readings."""
+    from ddp_tpu_torch.train.checkpoint import CheckpointManager
+
+    ckdir = f"{tmp}/main"
+    failed = []
+    trainer, out = _train(["--epochs", "3", "--checkpoint_dir", ckdir])
+    for h in trainer.history:
+        log(_epoch_line(h, "step path, batch 64,"))
+    losses = [h["train_loss"] for h in trainer.history]
+    mgr = CheckpointManager(ckdir)
+    verified = {e: mgr.verify_epoch(e) for e in mgr.all_epochs()}
+    log(f"[cnn] epochs saved {sorted(verified)}, manifest problems "
+        f"{verified}, final line {out.strip().splitlines()[-1]!r}")
+    if not (len(losses) == 3 and all(np.isfinite(l) for h in trainer.history
+                                      for l in h["loss"])
+            and losses[2] < losses[0]):
+        failed.append(f"losses not finite and falling: {losses}")
+    if sorted(verified) != [0, 1, 2] or any(v != [] for v in verified.values()):
+        failed.append("epoch_0..2 missing or unverified")
+    if "final_accuracy=" not in out:
+        failed.append("no final_accuracy= line")
+    readings = {"step_64": trainer.history[-1], "main_trainer": trainer}
+
+    # The same run again: nothing left to train; the restored state must
+    # be epoch 2's, bit for bit.
+    again, out = _train(["--epochs", "3", "--checkpoint_dir", ckdir])
+    bad = _cnn_state_errors(torch, again, mgr.read(2))
+    log(f"[cnn] re-run at --epochs 3: epochs trained {len(again.history)}, "
+        f"state vs epoch_2 differs in {bad or 'nothing'}")
+    if "Resumed from checkpoint epoch 2" not in out or again.history or bad:
+        failed.append("the restore is not epoch 2's state")
+    del again
+    resumed, out = _train(["--epochs", "4", "--checkpoint_dir", ckdir])
+    log(f"[cnn] --epochs 4: epochs trained "
+        f"{[h['epoch'] for h in resumed.history]}")
+    if ("Resumed from checkpoint epoch 2" not in out
+            or [h["epoch"] for h in resumed.history] != [3]):
+        failed.append("--epochs 4 did not resume at epoch 3 for one epoch")
+    del resumed
+
+    # One flipped byte in epoch 3's state file: discovery quarantines it and
+    # resumes from epoch 2.
+    path = f"{ckdir}/epoch_3/state.pt"
+    with open(path, "r+b") as f:
+        f.seek(-100, 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    healed, out = _train(["--epochs", "5", "--checkpoint_dir", ckdir])
+    import os
+
+    quarantined = os.path.isdir(f"{ckdir}/quarantine.epoch-3")
+    log(f"[cnn] --epochs 5 after a flipped byte in epoch_3: quarantine.epoch-3 "
+        f"{'present' if quarantined else 'absent'}, epochs trained "
+        f"{[h['epoch'] for h in healed.history]}")
+    if not (quarantined and "Resumed from checkpoint epoch 2" in out
+            and [h["epoch"] for h in healed.history] == [3, 4]):
+        failed.append("the corrupt epoch was not quarantined with a fallback "
+                      "to epoch 2")
+    del healed
+    if failed:
+        raise AssertionError(f"phase 6a: {failed}")
+    return readings
+
+
+def check_cnn_fast_path(torch, tmp) -> None:
+    """Phase 6b: one epoch through the fast path against one through the
+    step path, from the same seeded weights on the same plan."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        step, _ = _train(["--epochs", "1", "--checkpoint_dir", f"{tmp}/s"])
+        fast, _ = _train(["--epochs", "1", "--fast_epoch", "--checkpoint_dir",
+                          f"{tmp}/f"])
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    err = max(float((a - b).abs().max()) for a, b in zip(
+        step.state.model.state_dict().values(),
+        fast.state.model.state_dict().values()))
+    log(f"[cnn] fast vs step path after one epoch: max |param diff| {err:.3e} "
+        f"(limit {FAST_ATOL}); losses equal at every step: "
+        f"{step.history[-1]['loss'] == fast.history[-1]['loss']}")
+    if not err <= FAST_ATOL:
+        raise AssertionError(f"phase 6b: fast path parts from the step path "
+                             f"by {err}")
+
+
+def _cnn_step(torch, state_np, x, y, device, *, world=1, rank=0, reduce=None):
+    """One SGD step of SimpleCNN from ``state_np`` on this rank's rows of
+    (x, y) → (loss, {name: averaged gradient}, {name: updated param})."""
+    from ddp_tpu_torch.models.cnn import SimpleCNN
+    from ddp_tpu_torch.parallel.ddp import TrainState, make_train_step
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    model = SimpleCNN.from_state(state_np, device)
+    state = TrainState(0, model, make_optimizer(model.parameters(), "sgd",
+                                                lr=0.01))
+    step = make_train_step(state, world=world,
+                           reduce=reduce or (lambda t: t))
+    local = len(y) // world
+    rows = slice(rank * local, (rank + 1) * local)
+    m = step(torch.from_numpy(x[rows]).to(device),
+             torch.from_numpy(y[rows]).to(device))
+    return (float(m.loss),
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: p.detach().cpu() for n, p in model.named_parameters()})
+
+
+def _cnn_step_errors(got, want) -> dict:
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    g, w = got[1], want[1]
+    diff2 = sum(float((g[n] - w[n]).norm()) ** 2 for n in w)
+    norm2 = sum(float(w[n].norm()) ** 2 for n in w)
+    return dict(loss=abs(got[0] - want[0]) / abs(want[0]),
+                grad=(diff2 / norm2) ** 0.5,
+                leaf=max(((n, rel(g[n], w[n])) for n in w), key=lambda x: x[1]),
+                param=max(((n, rel(got[2][n], want[2][n])) for n in w),
+                          key=lambda x: x[1]))
+
+
+def _cnn_within(e) -> bool:
+    t = CNN_STEP_TOL
+    return (e["loss"] <= t["loss"] and e["grad"] <= t["grad"]
+            and e["leaf"][1] <= t["leaf"] and e["param"][1] <= t["leaf"])
+
+
+def _cnn_errors_text(e) -> str:
+    return (f"loss rel {e['loss']:.2e}, gradient rel {e['grad']:.2e}, worst "
+            f"leaf gradient {e['leaf'][1]:.2e} ({e['leaf'][0]}), worst "
+            f"updated parameter {e['param'][1]:.2e} ({e['param'][0]})")
+
+
+def check_cnn_step(torch, device="cuda") -> None:
+    """Phase 6c: one step on the card (fp32, TF32 off) against the same
+    step on the CPU, from the same seeded full-width weights and batch of
+    64; the same at a forced world of 2 (two replicas, half the batch
+    each, the bucket summed over both); and the negative control, a world
+    2 whose average divides by the world twice, which must fail."""
+    from ddp_tpu_torch.data.mnist import synthetic
+    from ddp_tpu_torch.models.cnn import init_cnn_state
+
+    state_np = init_cnn_state(seed=0)
+    data = synthetic(64, seed=3)
+    x, y = data.images, data.labels
+    want = _cnn_step(torch, state_np, x, y, "cpu")
+    got = _cnn_step(torch, state_np, x, y, device)
+    e = _cnn_errors_text(_cnn_step_errors(got, want))
+    log(f"[cnn] one step, card vs CPU (fp32, TF32 off, batch 64): loss "
+        f"{got[0]:.6f} vs {want[0]:.6f}; {e} (limits {CNN_STEP_TOL})")
+    failed = [] if _cnn_within(_cnn_step_errors(got, want)) else [
+        "the card's step disagrees with the CPU's"]
+    from ddp_tpu_torch.runtime.dist import ThreadWorld
+
+    for extra, label in ((1, "world 2"), (2, "control, world 2 averaged twice")):
+        tw = ThreadWorld(2)
+
+        def rank_step(r):
+            total = tw.reduce(r)
+            return _cnn_step(torch, state_np, x, y, device, world=2, rank=r,
+                             reduce=lambda t: total(t).div_(extra))
+
+        two = tw.run(rank_step)[0]
+        e = _cnn_step_errors(two, want)
+        log(f"[cnn] {label} on the card vs the CPU's world 1: "
+            f"{_cnn_errors_text(e)}")
+        if extra == 1 and not _cnn_within(e):
+            failed.append("the world-2 step disagrees")
+        if extra == 2 and _cnn_within(e):
+            failed.append("the check passes a gradient divided by the world "
+                          "twice")
+    if failed:
+        raise AssertionError(f"phase 6c: {failed}")
+
+
+def check_cnn_real_digits(repo: str) -> float:
+    """Phase 6d: the reference recipe (SGD 0.01, batch 32, 3 epochs;
+    bench.py:3301-3330) on the vendored uci_digits → test accuracy (a
+    reading)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, _ = _train([
+            "--dataset", "uci_digits", "--data_root", f"{repo}/data",
+            "--batch_size", "32", "--momentum", "0", "--epochs", "3",
+            "--checkpoint_dir", tmp, "--log_interval", "1000"])
+    acc = trainer.summary["final_accuracy"]
+    log(f"[cnn] uci_digits (1,437 train / 360 test), reference recipe, 3 "
+        f"epochs: test accuracy {acc:.4f} (a reading, not a limit)")
+    return acc
+
+
+def check_cnn_two_ranks(torch, tmp) -> None:
+    """Phase 6e: ``--spawn 2 --backend gloo``, both ranks on the one card
+    at per-rank batch 32, against world 1 at batch 64 on the same plan."""
+    base = ["--epochs", "1", "--synthetic_size", str(SPAWN_SIZE),
+            "--momentum", "0"]
+    _train(base + ["--spawn", "2", "--backend", "gloo", "--batch_size", "32",
+                   "--checkpoint_dir", f"{tmp}/w2"])
+    _train(base + ["--checkpoint_dir", f"{tmp}/w1"])
+    a = torch.load(f"{tmp}/w1/epoch_0/state.pt", weights_only=True)
+    b = torch.load(f"{tmp}/w2/epoch_0/state.pt", weights_only=True)
+    err = max(float((a["params"][k] - b["params"][k]).abs().max())
+              for k in a["params"])
+    log(f"[cnn] --spawn 2 over gloo on one card (batch 32 each) vs world 1 "
+        f"(batch 64), {a['step']} / {b['step']} steps: max |param diff| "
+        f"{err:.3e} (limit {SPAWN_ATOL})")
+    if a["step"] != b["step"] or not err <= SPAWN_ATOL:
+        raise AssertionError("phase 6e: two ranks part from world 1")
+
+
+def profile_cnn_epoch(torch, trainer, label) -> float:
+    """Busy share of one more epoch of ``trainer`` under torch.profiler:
+    summed CUDA kernel time over the wall time (the profiler's own host
+    cost included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddp_tpu_torch.runtime import dist
+    from ddp_tpu_torch.train.fast import run_steps
+
+    epoch = trainer.config.epochs + 7
+    dist.setup(device=str(trainer.device))  # the step all-reduces
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if trainer.fast_runner is not None:
+                trainer.fast_runner(epoch)
+            else:
+                run_steps(trainer.train_step, trainer.loader.epoch(epoch),
+                          on_gpu=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        dist.cleanup()
+    events = prof.key_averages()
+    rows = [e for e in events
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    steps = trainer.steps_per_epoch
+    log(f"[profile] {label}: {steps} steps, wall {wall * 1e3:.2f} ms, device "
+        f"kernel time {busy * 1e3:.2f} ms, busy share {busy / wall:.3f}")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"[profile]   {e.self_device_time_total / steps:9.2f} us/step "
+            f"x{e.count / steps:<5.1f} {e.key[:90]}")
+    host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]
+    for e in host:
+        log(f"[profile]   host {e.self_cpu_time_total / steps:9.2f} us/step "
+            f"x{e.count / steps:<5.1f} {e.key[:90]}")
+    return busy / wall
+
+
+def time_cnn(torch, readings, tmp, card) -> dict:
+    """images/s per card, step p50 and busy share: the step path at batch
+    64 (6a's last epoch), the fast path at batch 64, then both paths at
+    global batch 16384 (fp32) and the fast path there in bf16, each after
+    a warm-up epoch, with cuDNN's default (non-deterministic) choices."""
+    out = {}
+    runs = [("step path, batch 64", readings["main_trainer"])]
+    for label, batch, flags in (
+            ("fast path, batch 64", 64, ["--fast_epoch"]),
+            ("step path, batch 16384", BENCH_BATCH, []),
+            ("fast path, batch 16384", BENCH_BATCH, ["--fast_epoch"]),
+            ("fast path, batch 16384, bf16", BENCH_BATCH,
+             ["--fast_epoch", "--compute_dtype", "bfloat16"])):
+        trainer, _ = _train(["--batch_size", str(batch), "--epochs", "2",
+                             "--eval_every", "0", "--checkpoint_dir",
+                             f"{tmp}/b{len(runs)}"] + flags)
+        runs.append((label, trainer))
+    for label, trainer in runs:
+        h = trainer.history[-1]
+        busy = profile_cnn_epoch(torch, trainer, label)
+        rate = trainer.global_batch_size / h["step_p50_s"]
+        peak = H100_BF16_FLOPS if "bf16" in label else H100_FP32_FLOPS
+        out[label] = dict(images_per_s=h["images_per_s_per_card"],
+                          step_p50_ms=h["step_p50_s"] * 1e3, busy=busy)
+        log(f"[time] {label} ({card}): {h['images_per_s_per_card']:.1f} "
+            f"images/s per card over the epoch, {rate:.1f} at the p50 step "
+            f"{h['step_p50_s'] * 1e3:.3f} ms, est. "
+            f"{rate * CNN_TRAIN_FLOPS / 1e12:.2f} TFLOP/s "
+            f"({rate * CNN_TRAIN_FLOPS / peak:.3f} of the "
+            f"{'bf16' if 'bf16' in label else 'fp32'} peak), busy share "
+            f"{busy:.3f} (under the profiler)")
+    return out
+
+
+def check_cnn(torch, card) -> dict:
+    """Phase 6: the reference trainer's main path, every reading printed
+    before any raise."""
+    import os
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        readings = check_cnn_main_path(torch, tmp)
+        check_cnn_fast_path(torch, tmp)
+        check_cnn_step(torch)
+        readings["uci_digits_accuracy"] = check_cnn_real_digits(repo)
+        check_cnn_two_ranks(torch, tmp)
+        readings["timing"] = time_cnn(torch, readings, tmp, card)
+    return readings
+
+
 def check_serving(torch) -> dict:
     from ddp_tpu_torch.models.lm import LMSpec, init_lm
     from ddp_tpu_torch.ops import decode as dec
@@ -1492,6 +1915,7 @@ def main() -> int:
     flash = check_flash(torch)
     check_routed_training(torch)
     trained = check_training(torch)
+    check_cnn(torch, card)
 
     replaces = {"flash_decode_fp32": "ddp_tpu/ops/decode.py:260",
                 "flash_decode_int8": "ddp_tpu/ops/decode.py:270",

@@ -1,1 +1,2 @@
-"""Training data: synthetic token streams and byte-level text."""
+"""Training data: synthetic token streams, byte-level text, and the MNIST
+family with its sampler and loader."""

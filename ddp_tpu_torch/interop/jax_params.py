@@ -1,9 +1,10 @@
-"""JAX causal-LM parameter trees → the port's ``CausalLM`` state.
+"""JAX parameter trees → the port's state dicts: the causal LM's
+(``CausalLM``) and SimpleCNN's (:func:`cnn_params_from_jax`).
 
-The inverse of ``ddp_tpu.models.lm.init_lm``'s tree layout (and of a
-checkpoint's): ``embed`` [V, d], ``pos_embed`` [1, L, d], ``blockN``
-{``ln1``/``ln2`` {scale, bias}, ``attn`` {``qkv``, ``proj``} {kernel,
-bias}, ``mlp1``, ``mlp2``}, ``ln_final``. Flax's ``Dense.kernel`` is
+For the causal LM, the inverse of ``ddp_tpu.models.lm.init_lm``'s tree
+layout (and of a checkpoint's): ``embed`` [V, d], ``pos_embed`` [1, L,
+d], ``blockN`` {``ln1``/``ln2`` {scale, bias}, ``attn`` {``qkv``,
+``proj``} {kernel, bias}, ``mlp1``, ``mlp2``}, ``ln_final``. Flax's ``Dense.kernel`` is
 [in, out] and ``nn.Linear.weight`` its transpose; LayerNorm ``scale``
 is ``weight``. The fused qkv column order (head-major under MHA,
 group-major under GQA) carries over unchanged.
@@ -15,6 +16,7 @@ needs JAX to read a JAX model.
 
 from __future__ import annotations
 
+import math
 import re
 
 import numpy as np
@@ -126,3 +128,63 @@ def lm_params_to_jax(state) -> dict:
         else:  # embed, pos_embed
             put(key, arr(val))
     return tree
+
+
+def cnn_params_from_jax(tree) -> dict[str, np.ndarray]:
+    """A JAX ``SimpleCNN`` tree ({conv1, conv2, fc} {kernel, bias}, NHWC)
+    → the port's NCHW ``SimpleCNN`` state dict (numpy fp32).
+
+    Conv kernels go HWIO → OIHW. ``fc.kernel`` [H·W·C, out] follows an
+    NHWC flatten (channel-minor) and the port flattens NCHW
+    (channel-major), so each output unit's weights are re-gathered
+    (out, H, W, C) → (out, C, H, W): the same function, not just the
+    same parameter multiset (``ddp_tpu/interop/torch_checkpoint.py``'s
+    ``params_to_torch_state_dict`` does the same map).
+    """
+    flat = flatten_tree(tree)
+    k1 = np.asarray(flat["conv1/kernel"], np.float32)
+    k2 = np.asarray(flat["conv2/kernel"], np.float32)
+    fc = np.asarray(flat["fc/kernel"], np.float32)  # [H*W*C, out]
+    n, out = fc.shape
+    channels = k2.shape[-1]
+    side = math.isqrt(n // channels)
+    if side * side * channels != n:
+        raise ValueError(f"fc kernel width {n} is not H·W·{channels} square")
+    fl = (fc.T.reshape(out, side, side, channels).transpose(0, 3, 1, 2)
+          .reshape(out, n))
+    f32 = lambda a: np.ascontiguousarray(np.asarray(a, np.float32))  # noqa: E731
+    return {
+        "net.0.weight": f32(k1.transpose(3, 2, 0, 1)),
+        "net.0.bias": f32(flat["conv1/bias"]),
+        "net.2.weight": f32(k2.transpose(3, 2, 0, 1)),
+        "net.2.bias": f32(flat["conv2/bias"]),
+        "fl.weight": f32(fl),
+        "fl.bias": f32(flat["fc/bias"]),
+    }
+
+
+def cnn_params_to_jax(state) -> dict:
+    """The port's ``SimpleCNN`` state dict (arrays or tensors, or
+    gradients keyed alike) → the nested JAX tree of numpy fp32 arrays;
+    the inverse of :func:`cnn_params_from_jax`."""
+
+    def arr(x):
+        if hasattr(x, "detach"):
+            x = x.detach().float().cpu().numpy()
+        return np.asarray(x, np.float32)
+
+    w2 = arr(state["net.2.weight"])
+    fl = arr(state["fl.weight"])  # [out, C*H*W]
+    out, n = fl.shape
+    channels = w2.shape[0]
+    side = math.isqrt(n // channels)
+    fc = (fl.reshape(out, channels, side, side).transpose(0, 2, 3, 1)
+          .reshape(out, n).T)
+    c = np.ascontiguousarray
+    return {
+        "conv1": {"kernel": c(arr(state["net.0.weight"]).transpose(2, 3, 1, 0)),
+                  "bias": arr(state["net.0.bias"])},
+        "conv2": {"kernel": c(w2.transpose(2, 3, 1, 0)),
+                  "bias": arr(state["net.2.bias"])},
+        "fc": {"kernel": c(fc), "bias": arr(state["fl.bias"])},
+    }

@@ -1,1 +1,1 @@
-"""The causal LM and its slot-level decode primitives."""
+"""The causal LM with its slot-level decode primitives, and SimpleCNN."""

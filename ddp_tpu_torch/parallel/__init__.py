@@ -1,1 +1,2 @@
-"""Parallel strategies of the port (the one-rank subset so far)."""
+"""Parallel strategies of the port: data parallelism over
+torch.distributed, and the one-rank ring attention."""

@@ -1,7 +1,7 @@
-"""``python -m ddp_tpu_torch.train --model causal_lm [flags]``.
+"""``python -m ddp_tpu_torch.train [--model simple_cnn|causal_lm] [flags]``.
 
-Trains the causal LM on one GPU (``--device cpu`` runs it on the CPU,
-for tests); ``--help`` lists the flags.
+Trains on the GPU (``--device cpu`` runs on the CPU, over gloo);
+``--spawn N`` starts N local ranks. ``--help`` lists the flags.
 """
 
 import sys
