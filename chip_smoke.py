@@ -2,10 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (ddp_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --time-flash | --time-decode [--root DIR]
+    python3 chip_smoke.py --time-flash | --time-decode | --time-serve \
+        [--root DIR]
 
-The second form only times B1-B3 or B4/B5 of the package under DIR
-(time_flash_main, time_decode_main). The first runs these phases, in
+The second form only times B1-B3, B4/B5 or the steady serving step of
+the package under DIR (time_flash_main, time_decode_main,
+time_serve_main). The first runs these phases, in
 order; any failure exits non-zero and prints no result:
 
 1. The card (nvidia-smi name and power limit), torch, CUDA and nvcc.
@@ -27,6 +29,20 @@ order; any failure exits non-zero and prints no result:
    the library yardstick (scaled_dot_product_attention with the band
    mask, timed here only), beside the least time the card could take
    (the bound).
+3c. The paged kernels B4p (fp32) and B5p (int8), which read K/V from a
+   page pool through each lane's int32 page table, against the plain
+   paged version (the gather, then the plain version; KERNEL_ATOL) at
+   S 8, H 8, H_kv 8 and 2, Dh 128, page sizes 16 and 64 at L 256 and L
+   8192, page size 8 at L 200, tables from a seeded permutation of the
+   pool with lanes sharing pages and the scratch page 0 past each lane's
+   pages; each result bitwise the fixed-lane kernel's over the gathered
+   lanes, the same bits again, and the same bits with every pool row no
+   band reads poisoned with NaN; a table with two live entries swapped
+   must fail the check; a page size the kernel does not take is routed
+   (counted) and raises on an explicit call. Then at L 256 and L 8192,
+   page 16, every lane at L-1: the kernel, the JAX design (the gather,
+   then B4/B5), the plain version and the library call (the gather,
+   then SDPA with the band mask), beside the bound.
 4. The serving slice end to end: the full-width causal LM (vocab 8192,
    d_model 1024, depth 8, 8 heads, total_len 256) from seeded random
    weights, ServeEngine(slots=8, prefill_len=128) behind LMServer on
@@ -39,6 +55,21 @@ order; any failure exits non-zero and prints no result:
    match (a divergence passes only where the top-2 logit gap at the
    first divergent token is below 1e-3). Last, torch.profiler reads
    the device busy share of steady decode steps.
+4c. Paged serving end to end: ``python -m ddp_tpu_torch.serve``'s own
+   main() at phase 4's full width with --page_size 16, serving over
+   HTTP bench.py run_serve_prefix_bench's traffic (a seed request with
+   a 96-token system prompt, then 24 concurrent requests of that prefix
+   plus a 16-token tail, 32 new tokens each, greedy; prompts from
+   PREFIX_SEED), in fp32 and int8 KV, then fp32 on a pool of 24 pages
+   (LRU eviction and starved binds). Counters set to 0 before each run
+   and read after: the paged kernel launched at least decode steps x
+   depth times, no fixed-lane launch, nothing routed to a plain
+   version. Every request completes; each stream equals the fixed-lane
+   engine's on the same traffic (or parts only at a near tie, as in
+   phase 4); prefix-hit rate >= 0.5 and peak effective-slots multiplier
+   > 1.5 (bench.py's floors). It prints TTFT p50/p99 split hit against
+   miss, decode tokens/s and step p50/p99, and the busy share of steady
+   paged decode steps.
 3b. (Runs after 4, so that its large allocations come after the serving
    run's timings.) The flash-attention kernels B1 (forward), B2 (dQ) and
    B3 (dK/dV), bf16 and fp32, against their plain versions: out, lse and
@@ -439,6 +470,257 @@ def time_decode_kernels(torch) -> dict:
             torch.cuda.empty_cache()
         out["int8" if quantized else "fp32"] = row
     return out
+
+
+# ---- phase 3c: the paged kernels B4p/B5p against their plain versions ----
+
+PAGED_SHAPES = [  # label, S, H, H_kv, Dh, L, page size
+    ("full", 8, 8, 8, 128, 256, 16),
+    ("full", 8, 8, 8, 128, 256, 64),
+    ("gqa", 8, 8, 2, 128, 256, 16),
+    ("gqa", 8, 8, 2, 128, 256, 64),
+    ("ragged", 8, 8, 8, 128, 200, 8),
+    ("long cache", 8, 8, 8, 128, 8192, 16),
+    ("long cache", 8, 8, 8, 128, 8192, 64),
+]
+SERVE_PAGE = 16  # phase 4c's --page_size: the paged times are taken at it
+PAGED_NAMES = ("flash_decode_paged_fp32", "flash_decode_paged_int8")
+
+
+def _paged_inputs(torch, S, H, H_kv, Dh, L, ps, pos, quantized, seed, *,
+                  share=True, device="cuda"):
+    """q, one layer's slice of a 2-layer page pool [2, P, ps, H_kv, Dh]
+    (read in place through strides, as the engine passes it), and an
+    int32 table [S, L / ps]: lane s maps the pages of its band (keys <=
+    pos[s]; at the position ceiling the whole lane) plus up to two more
+    (its decode budget), drawn from a seeded permutation of the pool;
+    with ``share`` lanes 0/1 and 2/3 map their first pages in common (a
+    forked prefix); past each lane's pages the table holds the scratch
+    page 0, and three pages of the pool no lane maps."""
+    from ddp_tpu_torch.ops.decode import quantize_kv
+
+    rng = np.random.default_rng(seed)
+    lane_pages = L // ps
+    demand = [min(lane_pages, -(-(min(p, L - 1) + 1) // ps)
+                  + int(rng.integers(0, 3))) for p in pos]
+    shared = {}  # (lane, page index) -> the lane whose page it maps
+    if share:
+        for a, b in ((0, 1), (2, 3)):
+            for j in range(min(demand[a], demand[b]) // 2):
+                shared[(b, j)] = a
+    P = 1 + sum(demand) - len(shared) + 3
+    free = [int(x) for x in rng.permutation(np.arange(1, P))]
+    table = np.zeros((S, lane_pages), np.int32)
+    for s_ in range(S):
+        for j in range(demand[s_]):
+            table[s_, j] = (table[shared[(s_, j)], j] if (s_, j) in shared
+                            else free.pop())
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(S, H, Dh, generator=g, device=device)
+    kf = torch.randn(P, ps, H_kv, Dh, generator=g, device=device)
+    vf = torch.randn(P, ps, H_kv, Dh, generator=g, device=device)
+    dtype = torch.int8 if quantized else torch.float32
+    k = torch.zeros(2, P, ps, H_kv, Dh, dtype=dtype, device=device)
+    v = torch.zeros_like(k)
+    ks = vs = None
+    if quantized:
+        ks = torch.zeros(2, P, ps, H_kv, device=device)
+        vs = torch.zeros_like(ks)
+        k[1], ks[1] = quantize_kv(kf)
+        v[1], vs[1] = quantize_kv(vf)
+        ks, vs = ks[1], vs[1]
+    else:
+        k[1], v[1] = kf, vf
+    return (q, k[1], v[1], torch.from_numpy(table).to(device),
+            torch.tensor(pos, dtype=torch.int32, device=device), ks, vs)
+
+
+def _paged_poisoned(torch, args):
+    """The same inputs with every pool row that no lane's band reads (no
+    s, key <= min(pos[s], L-1) maps to it; the scratch page and the
+    unmapped pages included) made NaN (fp32 K/V; int8: the rows'
+    scales), copied."""
+    q, k, v, table, pos, ks, vs = args
+    P, ps = k.shape[:2]
+    L = table.shape[1] * ps
+    keys = torch.arange(L, device=k.device)
+    band = keys[None, :] <= torch.clamp(pos.long(), max=L - 1)[:, None]
+    rows = table.long()[:, keys // ps] * ps + keys % ps
+    live = torch.zeros(P * ps, dtype=torch.bool, device=k.device)
+    live[rows[band]] = True
+    dead = ~live.reshape(P, ps)
+    if ks is None:
+        k, v = k.clone(), v.clone()
+        k[dead], v[dead] = float("nan"), float("nan")
+    else:
+        ks, vs = ks.clone(), vs.clone()
+        ks[dead], vs[dead] = float("nan"), float("nan")
+    return q, k, v, table, pos, ks, vs
+
+
+def _gathered(dec, args):
+    """The fixed-lane kernel's inputs for a paged case: the lanes'
+    views through the table (``gather_paged_kv``), as the JAX path
+    makes them before its kernel."""
+    q, k, v, table, pos, ks, vs = args
+    g = dec.gather_paged_kv
+    return (q, g(k, table), g(v, table), pos,
+            None if ks is None else g(ks, table),
+            None if vs is None else g(vs, table))
+
+
+def _paged_bound(S, H, H_kv, Dh, pos, L, ps, quantized):
+    """:func:`_bound` plus the table entries the bands read (4 bytes
+    each): the paged kernel moves the fixed-lane kernel's bytes and
+    those."""
+    ms, by = _bound(S, H, H_kv, Dh, pos, L, quantized)
+    entries = sum(-(-min(int(p) + 1, L) // ps) for p in pos)
+    t_bytes = ms * 1e-3 + 4 * entries / H100_BYTES_PER_S
+    return (1e3 * t_bytes, "bytes") if by == "bytes" else (ms, by)
+
+
+def _time_paged(torch, F, dec, quantized, L) -> dict:
+    """At full width, every lane at L-1, page size SERVE_PAGE, each lane
+    its own pages in a shuffled pool: the paged kernel; the JAX design
+    (gather_paged_kv, then the fixed-lane kernel); the library call
+    (the gather, dequantized for int8, then SDPA with the band mask);
+    and the plain version, beside the bound."""
+    _, S, H, H_kv, Dh, _, _ = PAGED_SHAPES[0]
+    ps = SERVE_PAGE
+    pos = [L - 1] * S
+    args = _paged_inputs(torch, S, H, H_kv, Dh, L, ps, pos, quantized,
+                         seed=99, share=False)
+    q, k, v, table, pos_t, ks, vs = args
+    q4 = q[:, :, None, :]
+    mask = (torch.arange(L, device="cuda")[None, :]
+            <= pos_t[:, None])[:, None, None, :]
+
+    def library():
+        _, gk, gv, _, gks, gvs = _gathered(dec, args)
+        if quantized:
+            gk, gv = dec.dequantize_kv(gk, gks), dec.dequantize_kv(gv, gvs)
+        return F.scaled_dot_product_attention(
+            q4, gk.permute(0, 2, 1, 3), gv.permute(0, 2, 1, 3),
+            attn_mask=mask)
+
+    lib_err = float((library()[:, :, 0] - dec.paged_decode_attention_reference(
+        *args)).abs().max())
+    ms = _median_ms(torch, lambda: dec.flash_decode_paged_attention(*args))
+    gather_ms = _median_ms(torch, lambda: dec.flash_decode_attention(
+        *_gathered(dec, args)), n=20)
+    plain_ms = _median_ms(torch, lambda: dec.paged_decode_attention_reference(
+        *args), n=10, reps=5)
+    library_ms = _median_ms(torch, library, n=20)
+    bound_ms, bound_by = _paged_bound(S, H, H_kv, Dh, pos, L, ps, quantized)
+    log(f"[paged] {'int8' if quantized else 'fp32'} S={S} H={H} "
+        f"H_kv={H_kv} Dh={Dh} L={L} page {ps}, pos={L - 1} on every lane: "
+        f"kernel {ms * 1e3:.2f} us, gather + fixed-lane kernel "
+        f"{gather_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, gather + "
+        f"sdpa {library_ms * 1e3:.2f} us (its error vs plain {lib_err:.1e}), "
+        f"bound {bound_ms * 1e3:.2f} us ({bound_by}), {bound_ms / ms:.3f} of "
+        "the bound")
+    del args, q, k, v, ks, vs, q4
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+                gather_fixed_ms=gather_ms)
+
+
+def _check_paged_case(torch, dec, args, label) -> tuple[float, list[str]]:
+    """One paged case: the kernel against the plain paged version
+    (KERNEL_ATOL), bitwise the fixed-lane kernel over the gathered
+    lanes, the same bits again and with every row no band reads
+    poisoned; a table with two live entries of a lane swapped must fail
+    the check: page 0 of lanes 2 and 4 (a swap inside one lane's band
+    would only permute its keys, which attention cannot see) →
+    (max_abs_err, what did not hold)."""
+    q, k, v, table, pos, ks, vs = args
+    out = dec.flash_decode_paged_attention(*args)
+    again = dec.flash_decode_paged_attention(*args)
+    poisoned = dec.flash_decode_paged_attention(*_paged_poisoned(torch, args))
+    fixed = dec.flash_decode_attention(*_gathered(dec, args))
+    ref = dec.paged_decode_attention_reference(*args)
+    swapped = table.clone()
+    swapped[[2, 4], 0] = table[[4, 2], 0]
+    bad = dec.flash_decode_paged_attention(q, k, v, swapped, pos, ks, vs)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    bad_err = float((bad - ref).abs().max())
+    same, clean = torch.equal(out, again), torch.equal(out, poisoned)
+    as_fixed = torch.equal(out, fixed)
+    log(f"[paged] {label}: max_abs_err {err:.3e} (tolerance {KERNEL_ATOL}); "
+        f"bitwise the fixed-lane kernel over the gathered lanes: {as_fixed}; "
+        f"same bits on a second call: {same}; rows no band reads poisoned, "
+        f"same bits: {clean}; page 0 of lanes 2 and 4 swapped: "
+        f"max_abs_err {bad_err:.3e}")
+    failed = []
+    if not (err <= KERNEL_ATOL and same and clean and as_fixed):
+        failed.append(label)
+    if bad_err <= KERNEL_ATOL:
+        failed.append(f"{label}: the check passes a swapped table")
+    return err, failed
+
+
+def check_paged_kernels(torch) -> dict:
+    """Phase 3c: B4p and B5p at every shape of PAGED_SHAPES (positions
+    from _decode_positions; the long caches also with every lane at
+    L-1) through _check_paged_case, a call of a shape the paged kernel
+    does not take (page size 3) routed and counted, then the times at L
+    256 and L 8192. Every reading is printed before a failure is
+    raised."""
+    import torch.nn.functional as F
+
+    from ddp_tpu_torch.ops import decode as dec
+
+    results, failed = {}, []
+    rng = np.random.default_rng(4)
+    for quantized, name in zip((False, True), PAGED_NAMES):
+        errs = []
+        cases = []
+        for label, S, H, H_kv, Dh, L, ps in PAGED_SHAPES:
+            chunk, _ = _decode_plan(torch, dec, S, H, H_kv, Dh, L, quantized)
+            cases.append((label, S, H, H_kv, Dh, L, ps,
+                          _decode_positions(rng, S, L, chunk)))
+            if label == "long cache":
+                cases.append((label + ", every lane at L-1", S, H, H_kv, Dh,
+                              L, ps, [L - 1] * S))
+        for i, (label, S, H, H_kv, Dh, L, ps, pos) in enumerate(cases):
+            args = _paged_inputs(torch, S, H, H_kv, Dh, L, ps, pos,
+                                 quantized, seed=i + 10 * quantized)
+            chunk, n = _decode_plan(torch, dec, S, H, H_kv, Dh, L, quantized)
+            err, bad = _check_paged_case(
+                torch, dec, args,
+                f"{name} {label} S={S} H={H} H_kv={H_kv} Dh={Dh} L={L} "
+                f"page {ps} ({L // ps} a lane, pool {args[1].shape[0]}; "
+                f"{n} chunks of {chunk}), pos {pos[:4]}...")
+            errs.append(err)
+            failed += bad
+            del args
+            torch.cuda.empty_cache()
+        short, long = (_time_paged(torch, F, dec, quantized, L)
+                       for L in DECODE_TIMED_L)
+        results[name] = dict(max_abs_err=max(errs), **short,
+                             long_cache=dict(L=DECODE_TIMED_L[1], **long))
+    args = _paged_inputs(torch, 2, 4, 2, 128, 24, 3, [5, 24], False, seed=5,
+                         share=False)
+    before = (dict(dec.flash_decode_paged_attention.launches),
+              dec.flash_decode_paged_attention.plain_routed)
+    got = dec.paged_decode_attention(*args, impl="auto")
+    ok = (torch.equal(got, dec.paged_decode_attention_reference(*args))
+          and dec.flash_decode_paged_attention.plain_routed == before[1] + 1
+          and dec.flash_decode_paged_attention.launches == before[0])
+    try:
+        dec.flash_decode_paged_attention(*args)
+        raised = False
+    except ValueError:
+        raised = True
+    log(f"[paged] page size 3 (not taken): auto routed to the plain version "
+        f"and counted: {ok}; an explicit kernel call raises: {raised}")
+    if not (ok and raised):
+        failed.append("paged routing at page size 3")
+    if failed:
+        raise AssertionError(f"paged decode kernels: {failed}")
+    return results
 
 
 # ---- phase 3b: flash attention B1-B3 against their plain versions ---------
@@ -972,15 +1254,17 @@ def replay_gap(torch, model, prompt, stream, j, kv_dtype) -> float:
     return float(top[0] - top[1])
 
 
-def profile_steps(torch, model, *, steps=16) -> None:
+def profile_steps(torch, model, *, steps=16, page_size=0) -> None:
     """Device busy share of steady decode steps (all 8 lanes decoding,
-    fp32 KV, kernel path), from torch.profiler: summed CUDA kernel time
-    over the wall time of ``steps`` engine steps, and the top kernels."""
+    fp32 KV, kernel path; paged with ``page_size``), from torch.profiler:
+    summed CUDA kernel time over the wall time of ``steps`` engine steps,
+    and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from ddp_tpu_torch.serve.engine import ServeEngine
 
-    engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN)
+    engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
+                         page_size=page_size)
     rng = np.random.default_rng(2)
     for _ in range(SLOTS):
         engine.submit(rng.integers(0, model.spec.vocab_size, 64).tolist(), 64)
@@ -1003,12 +1287,282 @@ def profile_steps(torch, model, *, steps=16) -> None:
         log("[profile] torch.profiler reported no device time")
         return
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"[profile] {steps} decode steps, 8 lanes, fp32 KV: wall "
+    log(f"[profile] {steps} decode steps, 8 lanes, fp32 KV"
+        f"{f', page {page_size}' if page_size else ''}: wall "
         f"{wall * 1e3:.2f} ms, device kernel time {busy_us / 1e3:.2f} ms, "
         f"busy share {busy_us / 1e6 / wall:.3f}")
     for e in top:
         log(f"[profile]   {e.self_device_time_total / steps:9.1f} us/step "
             f"x{e.count // steps:<3d} {e.key[:90]}")
+
+
+# ---- phase 4c: paged serving with a shared prefix, end to end -----------
+
+# bench.py run_serve_prefix_bench's traffic (bench.py:1107): one seed
+# request publishes the 96-token system prompt, then a burst of requests
+# of that prefix plus a 16-token tail, 32 new tokens each, greedy.
+PREFIX_TOKENS, TAIL_TOKENS, PREFIX_NEW, PREFIX_BURST = 96, 16, 32, 24
+PREFIX_SEED = 0
+# Extra flags for main(): empty on the card (rehearse on the CPU with
+# ["--device", "cpu"]).
+SERVE_DEVICE_ARGS: list[str] = []
+# A pool that cannot hold every lane's pages at once: 6 shared prefix
+# pages + 8 lanes x 3 private pages need 30 of its 23 usable pages, so
+# binds starve and retired tails are evicted (LRU).
+EVICT_KV_PAGES = 24
+# bench.py's floors: scheduling facts of this traffic, not timings.
+MIN_HIT_RATE, MIN_EFFECTIVE_SLOTS = 0.5, 1.5
+
+
+def prefix_prompts(vocab: int, seed: int = PREFIX_SEED) -> list[list[int]]:
+    """The seed request's prompt, then the burst's: one prefix, a tail
+    each, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, PREFIX_TOKENS).tolist()
+    return [prefix + rng.integers(0, vocab, TAIL_TOKENS).tolist()
+            for _ in range(1 + PREFIX_BURST)]
+
+
+def _get(url: str, route: str) -> dict:
+    with urllib.request.urlopen(url + route, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def serve_main_run(torch, prompts, *, kv_dtype, kv_pages=None):
+    """``python -m ddp_tpu_torch.serve``'s own main() at phase 4's full
+    width with --page_size SERVE_PAGE, run in this thread (it serves
+    until SIGTERM), while a client thread sends the seed request alone
+    and then the burst concurrently over HTTP and ends main() with
+    SIGTERM → (replies by index, the engine, peak effective-slots
+    multiplier, wall seconds of the traffic)."""
+    import contextlib
+    import io
+    import os
+    import signal
+
+    import ddp_tpu_torch.serve.engine as engine_mod
+    from ddp_tpu_torch.serve.__main__ import main as serve_main
+
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    made = []
+    base = engine_mod.ServeEngine
+
+    replies, errors, peaks, wall = {}, [], [], []
+
+    class Seen(base):
+        """main() builds its engine inside: keep a handle, and read the
+        effective-slots multiplier after every step (in the engine's
+        thread, under the server's lock), as bench.py reads it."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+        def step(self):
+            out = super().step()
+            peaks.append(self.page_stats()["effective_slots_multiplier"]
+                         or 0.0)
+            return out
+
+    over = threading.Event()
+
+    def request(i):
+        try:
+            replies[i] = _post(url, {"prompt_tokens": prompts[i],
+                                     "max_new_tokens": PREFIX_NEW})
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    def traffic():
+        try:
+            deadline = time.perf_counter() + 300
+            while True:
+                try:
+                    _get(url, "/healthz")
+                    break
+                except OSError:
+                    if over.is_set() or time.perf_counter() > deadline:
+                        raise
+                    time.sleep(0.2)
+            t0 = time.perf_counter()
+            request(0)
+            burst = [threading.Thread(target=request, args=(i,))
+                     for i in range(1, len(prompts))]
+            for t in burst:
+                t.start()
+            for t in burst:
+                t.join(timeout=900)
+            wall.append(time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"traffic: {type(e).__name__}: {e}")
+        finally:
+            if not over.is_set():
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    spec = FULL
+    argv = ["--init_demo", "--seed", "0",
+            "--vocab_size", str(spec["vocab_size"]),
+            "--seq_len", str(spec["total_len"]),
+            "--d_model", str(spec["d_model"]), "--depth", str(spec["depth"]),
+            "--num_heads", str(spec["num_heads"]), "--slots", str(SLOTS),
+            "--prefill_len", str(PREFILL_LEN), "--kv_dtype", kv_dtype,
+            "--page_size", str(SERVE_PAGE), "--port", str(port)]
+    if kv_pages:
+        argv += ["--kv_pages", str(kv_pages)]
+    argv += SERVE_DEVICE_ARGS
+    old = signal.getsignal(signal.SIGTERM)
+    printed = io.StringIO()
+    engine_mod.ServeEngine = Seen
+    client = threading.Thread(target=traffic)
+    client.start()
+    try:
+        with contextlib.redirect_stdout(printed):
+            serve_main(argv)
+    finally:
+        over.set()
+        engine_mod.ServeEngine = base
+        signal.signal(signal.SIGTERM, old)
+        client.join(timeout=900)
+    torch.cuda.synchronize()
+    log(f"[serve-paged] main({' '.join(argv)}) printed "
+        f"{printed.getvalue().strip()}")
+    if errors or client.is_alive():
+        raise AssertionError("; ".join(errors) or "the client did not finish")
+    return replies, made[0], max(peaks, default=0.0), wall[0]
+
+
+def fixed_lane_streams(torch, model, prompts, *, kv_dtype) -> list:
+    """The same traffic on the fixed-lane engine in this process (the
+    seed request alone, then the burst) → each request's tokens."""
+    from ddp_tpu_torch.serve.engine import ServeEngine
+
+    engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
+                         kv_dtype=kv_dtype, max_queue=len(prompts))
+    rids = [engine.submit(prompts[0], PREFIX_NEW).request.rid]
+    engine.run()
+    rids += [engine.submit(p, PREFIX_NEW).request.rid for p in prompts[1:]]
+    engine.run()
+    out = []
+    for r in rids:
+        c = engine.pop_result(r)
+        if c.status != "complete":
+            raise AssertionError(f"fixed-lane request {r}: {c.status}")
+        out.append(c.tokens)
+    return out
+
+
+def _pct_ms(values, q):
+    return float(np.percentile(values, q)) * 1e3 if values else float("nan")
+
+
+def check_paged_run(torch, model, prompts, fixed, *, kv_dtype, kv_pages=None):
+    """One phase-4c run: counters to 0 just before main(), read just
+    after; every request complete; streams identical to the fixed-lane
+    engine's (or parted only at a near tie, as phase 4 allows); the
+    floors of bench.py; paged kernel launches >= decode steps x depth,
+    no fixed-lane launch, nothing routed to a plain version → the paged
+    kernel's launches."""
+    from ddp_tpu_torch.ops import decode as dec
+
+    paged, flat = dec.flash_decode_paged_attention, dec.flash_decode_attention
+    for counts in (paged.launches, flat.launches):
+        for k in counts:
+            counts[k] = 0
+    paged.plain_routed = flat.plain_routed = 0
+    replies, engine, peak, wall = serve_main_run(
+        torch, prompts, kv_dtype=kv_dtype, kv_pages=kv_pages)
+    launches, fixed_launches = dict(paged.launches), dict(flat.launches)
+    routed = paged.plain_routed + flat.plain_routed
+    name = PAGED_NAMES[kv_dtype == "int8"]
+    label = f"kv={kv_dtype}" + (f" kv_pages={kv_pages}" if kv_pages else "")
+    failed = []
+    for i in range(len(prompts)):
+        r = replies.get(i)
+        if (r is None or r["status"] != "complete"
+                or len(r["tokens"]) != PREFIX_NEW):
+            failed.append(f"request {i}: {r and r['status']}")
+    if failed:
+        raise AssertionError(f"phase 4c {label}: {failed}")
+    parted = 0
+    for i in range(len(prompts)):
+        a, b = replies[i]["tokens"], fixed[i]
+        if a == b:
+            continue
+        parted += 1
+        j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
+        gap = replay_gap(torch, model, prompts[i], b, j, kv_dtype)
+        log(f"[serve-paged] {label} request {i}: paged and fixed-lane "
+            f"streams part at token {j}; top-2 logit gap {gap:.3e}")
+        if gap >= DIVERGENCE_GAP:
+            failed.append(f"request {i} diverged at gap {gap}")
+    st = engine.page_stats()
+    hits = [r["ttft_s"] for r in replies.values() if r["prefix_hit_tokens"]]
+    misses = [r["ttft_s"] for r in replies.values()
+              if not r["prefix_hit_tokens"]]
+    steps = engine.decode_steps
+    decode_tokens = sum(len(r["tokens"]) - 1 for r in replies.values())
+    log(f"[serve-paged] {label}: {len(prompts)} requests complete, "
+        f"{len(prompts) - parted} streams identical to the fixed-lane "
+        f"engine's, {parted} parted at a near tie; wall {wall:.3f} s, "
+        f"{steps} decode steps, decode {decode_tokens / wall:.1f} tokens/s; "
+        f"TTFT hit p50 {_pct_ms(hits, 50):.1f} ms p99 "
+        f"{_pct_ms(hits, 99):.1f} ms ({len(hits)}), miss p50 "
+        f"{_pct_ms(misses, 50):.1f} ms p99 {_pct_ms(misses, 99):.1f} ms "
+        f"({len(misses)}); step p50 "
+        f"{engine.step_latency.percentile(50) * 1e3:.2f} ms p99 "
+        f"{engine.step_latency.percentile(99) * 1e3:.2f} ms")
+    log(f"[serve-paged] {label}: prefix hit rate {st['prefix_hit_rate']} "
+        f"(floor {MIN_HIT_RATE}), peak effective slots {peak} (floor "
+        f"{MIN_EFFECTIVE_SLOTS}), evicted pages {st['evicted_pages']}, "
+        f"starved binds {st['page_starved_binds']}; launches {launches} "
+        f"(decode steps x depth = {steps * FULL['depth']}), fixed-lane "
+        f"{fixed_launches}, routed to a plain version {routed}")
+    if st["prefix_hit_rate"] is None or st["prefix_hit_rate"] < MIN_HIT_RATE:
+        failed.append(f"hit rate {st['prefix_hit_rate']}")
+    if peak <= MIN_EFFECTIVE_SLOTS:
+        failed.append(f"peak effective slots {peak}")
+    if (engine.decode_attn != "flash" or launches[name] == 0
+            or launches[name] < steps * FULL["depth"]
+            or sum(launches.values()) != launches[name]):
+        failed.append(f"{name} launches {launches}")
+    if any(fixed_launches.values()) or routed:
+        failed.append(f"fixed-lane launches {fixed_launches}, routed {routed}")
+    if kv_pages and not (st["evicted_pages"] and st["page_starved_binds"]):
+        failed.append("the small pool neither evicted nor starved a bind")
+    if failed:
+        raise AssertionError(f"phase 4c {label}: {failed}")
+    return launches[name]
+
+
+def check_paged_serving(torch) -> dict:
+    """Phase 4c: paged serving of bench.py's shared-prefix traffic through
+    ``python -m ddp_tpu_torch.serve``'s main(), fp32 and int8 KV, then
+    fp32 on a pool of EVICT_KV_PAGES; then the busy share of steady
+    paged decode steps → the paged kernels' launches."""
+    from ddp_tpu_torch.models.lm import LMSpec, init_lm
+
+    spec = LMSpec(**FULL)
+    model = init_lm(spec, seed=0)
+    prompts = prefix_prompts(spec.vocab_size)
+    counted = {}
+    for kv_dtype, name in zip(("fp32", "int8"), PAGED_NAMES):
+        fixed = fixed_lane_streams(torch, model, prompts, kv_dtype=kv_dtype)
+        counted[name] = check_paged_run(torch, model, prompts, fixed,
+                                        kv_dtype=kv_dtype)
+        if kv_dtype == "fp32":
+            check_paged_run(torch, model, prompts, fixed, kv_dtype=kv_dtype,
+                            kv_pages=EVICT_KV_PAGES)
+    profile_steps(torch, model, page_size=SERVE_PAGE)
+    return counted
 
 
 # ---- phase 5: the training slice end to end ----------------------------
@@ -1803,13 +2357,15 @@ def log_ptxas(_build) -> None:
 
 
 def decode_kernel_name(mangled: str) -> str:
-    """A flash-decode kernel's mangled name → e.g. "split<int8,GT=4>" or
-    "merge<GT=1>"."""
-    m = re.search(r"flash_decode_(split|merge)I([fa]?)Li(\d+)E", mangled)
+    """A flash-decode kernel's mangled name → e.g. "split<int8,GT=4>",
+    "split<fp32,GT=1,paged>" (B4p/B5p) or "merge<GT=1>"."""
+    m = re.search(r"flash_decode_(split|merge)I([fa]?)Li(\d+)E(Lb1E)?",
+                  mangled)
     if not m:
         return mangled[:60]
     kv = {"f": "fp32,", "a": "int8,", "": ""}[m.group(2)]
-    return f"{m.group(1)}<{kv}GT={m.group(3)}>"
+    paged = ",paged" if m.group(4) else ""
+    return f"{m.group(1)}<{kv}GT={m.group(3)}{paged}>"
 
 
 def log_decode_ptxas(_build) -> None:
@@ -1850,6 +2406,79 @@ def time_decode_main(argv) -> int:
     return 0
 
 
+def time_serve_steps(torch, model, *, kv_dtype, page_size=0, steps=40,
+                     reps=4) -> float:
+    """Median host time (ms) of one steady engine step at 8 lanes, every
+    lane decoding (prompts of 32 tokens, prefill done), over ``reps``
+    windows of ``steps`` steps, each ended by a synchronize: the decode
+    step latency free of arrival order."""
+    from ddp_tpu_torch.serve.engine import ServeEngine
+
+    knobs = {"page_size": page_size} if page_size else {}
+    engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
+                         kv_dtype=kv_dtype, **knobs)
+    rng = np.random.default_rng(3)
+    prompt_len = 32
+    for _ in range(SLOTS):
+        adm = engine.submit(
+            rng.integers(0, model.spec.vocab_size, prompt_len).tolist(),
+            model.spec.total_len - prompt_len - 1)
+        if not adm.accepted:
+            raise AssertionError(f"time_serve_steps: {adm.reason}")
+    for _ in range(16):
+        engine.step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        before = engine.decode_steps
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / steps * 1e3)
+        if engine.decode_steps - before != steps or engine.active != SLOTS:
+            raise AssertionError("time_serve_steps: a timed step did not "
+                                 "decode every lane")
+    return float(np.median(times))
+
+
+def time_serve_main(argv) -> int:
+    """``--time-serve [--root DIR]``: the median steady decode step (ms)
+    of the serving engine of the package under DIR (default: this
+    script's tree) at phase 4's full width, 8 lanes, fp32 and int8 KV;
+    paged too (page 16) where that tree serves paged. Run it on two
+    trees in turns (parent, change, change, parent) within one call to
+    compare them on one card."""
+    import inspect
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if "--root" in argv:
+        sys.path.insert(0, argv[argv.index("--root") + 1])
+    from ddp_tpu_torch.models.lm import LMSpec, init_lm
+    from ddp_tpu_torch.ops import _build
+    from ddp_tpu_torch.serve.engine import ServeEngine
+
+    root = str(_build.CSRC.parents[2])
+    _build.build(("flash_decode.cu",))
+    model = init_lm(LMSpec(**FULL), seed=0)
+    paged = "page_size" in inspect.signature(ServeEngine).parameters
+    time_serve_steps(torch, model, kv_dtype="fp32", steps=8, reps=1)  # warm
+    ms = {}  # fixed-lane first, in the same order on every tree
+    for kv_dtype in ("fp32", "int8"):
+        ms[kv_dtype] = round(time_serve_steps(torch, model,
+                                              kv_dtype=kv_dtype), 3)
+    for kv_dtype in ("fp32", "int8") if paged else ():
+        ms[f"{kv_dtype}_paged"] = round(time_serve_steps(
+            torch, model, kv_dtype=kv_dtype, page_size=SERVE_PAGE), 3)
+    log(card_line())
+    print(json.dumps({"root": root, "step_ms": ms}), flush=True)
+    return 0
+
+
 def time_flash_main(argv) -> int:
     """``--time-flash [--root DIR] [--dtype bf16|fp32|both]``: build
     flash_attn.cu of the package under DIR (default: this script's tree),
@@ -1886,6 +2515,8 @@ def main() -> int:
         return time_flash_main(sys.argv)
     if "--time-decode" in sys.argv:
         return time_decode_main(sys.argv)
+    if "--time-serve" in sys.argv:
+        return time_serve_main(sys.argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1911,7 +2542,9 @@ def main() -> int:
     log_decode_ptxas(_build)
 
     timings = check_kernels(torch)
+    paged_timings = check_paged_kernels(torch)
     launches = check_serving(torch)
+    paged_launches = check_paged_serving(torch)
     flash = check_flash(torch)
     check_routed_training(torch)
     trained = check_training(torch)
@@ -1928,6 +2561,15 @@ def main() -> int:
          "replaces": replaces[name], "launches": launches[name],
          **timings[name]}
         for name in ("flash_decode_fp32", "flash_decode_int8")
+    ]
+    # B4p/B5p: library_ms is the gather then SDPA; gather_fixed_ms the
+    # JAX design on the card (the gather, then B4/B5).
+    kernels += [
+        {"name": name, "route": "cuda",
+         "source": "ddp_tpu_torch/ops/csrc/flash_decode.cu",
+         "replaces": "ddp_tpu/ops/decode.py:371",
+         "launches": paged_launches[name], **paged_timings[name]}
+        for name in PAGED_NAMES
     ]
     # B1-B3: the bf16 variant is the main path (the training run's
     # numbers); the fp32 variant's, from its own run, ride beside them.

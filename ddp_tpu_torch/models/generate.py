@@ -14,6 +14,12 @@ batch of S slots alive; requests of different ages share it:
   step never reads a value back to the host.
 - :func:`prefill_chunk` — one chunk of a prompt written into one lane
   (Sarathi-style chunked prefill), plain-torch attention.
+- :class:`PagedSlotCache` — the paged layout (``serve/pages.py``): K/V
+  in a pool of ``page_size``-token pages, each lane's positions spelled
+  by its row of an int32 page table, so lanes whose prompts share a
+  prefix map the same pages. Both :func:`slot_decode_step` (through
+  ``ops/decode.paged_decode_attention``: the paged CUDA kernel on the
+  GPU) and :func:`prefill_chunk` take either cache.
 - Seeded sampling by Gumbel-max from a counter-based generator keyed by
   (seed, emitted-token index, vocab id), in torch integer ops on the
   device, with no ``torch.Generator`` per lane. A seeded stream thus
@@ -38,6 +44,8 @@ from ddp_tpu_torch.ops.attention import dot_product_attention
 from ddp_tpu_torch.ops.decode import (
     decode_attention,
     dequantize_kv,
+    gather_paged_kv,
+    paged_decode_attention,
     quantize_kv,
 )
 
@@ -88,6 +96,94 @@ def init_slot_cache(
     )
 
 
+@dataclass
+class PagedSlotCache:
+    """Paged variant of :class:`SlotCache` (``ddp_tpu/models/generate.py``
+    ``PagedSlotCache``): ``k``/``v`` [depth, num_pages, page_size, H_kv,
+    Dh], int8 scales [depth, num_pages, page_size, H_kv]; ``table`` [S,
+    lane_pages] int32 page ids on the device (lane_pages = total_len /
+    page_size) and ``pos`` [S] as in SlotCache.
+
+    Page 0 is the engine's SCRATCH page: all-zero table rows (idle
+    lanes) read and write it, and writes at or past a lane's table end
+    land in it (JAX drops them; torch's indexed writes have no drop
+    mode, and page 0 is never attended at a live position, so routing
+    them there is the same to every live lane).
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    table: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    quantized = SlotCache.quantized
+    lane_scales = SlotCache.lane_scales
+    nbytes = SlotCache.nbytes
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def num_pages(self) -> int:
+        return self.k.shape[1]
+
+
+def init_paged_slot_cache(
+    spec: LMSpec, slots: int, *, num_pages: int, page_size: int,
+    dtype=torch.float32, device,
+) -> PagedSlotCache:
+    """A zeroed pool and all-zero (scratch-mapped) tables; the pool holds
+    ``num_pages · page_size`` cache lines whatever ``slots`` is."""
+    if spec.total_len % page_size:
+        raise ValueError(
+            f"page_size {page_size} must divide total_len {spec.total_len}"
+        )
+    shape = (spec.depth, num_pages, page_size, spec.kv_heads, spec.head_dim)
+    quant = dtype == torch.int8
+    return PagedSlotCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.zeros(slots, dtype=torch.int32, device=device),
+        table=torch.zeros(slots, spec.total_len // page_size,
+                          dtype=torch.int32, device=device),
+        k_scale=torch.zeros(shape[:-1], device=device) if quant else None,
+        v_scale=torch.zeros(shape[:-1], device=device) if quant else None,
+    )
+
+
+def _page_scatter_ids(table, posns, page_size: int):
+    """Absolute positions → (page ids, in-page offsets) for writes, both
+    int64 and shaped like ``posns``. ``table``: [..., lane_pages] int32
+    rows with the leading dims of ``posns`` (a decode step passes the
+    whole table with [S, T] positions, a chunk one lane's row with [C]).
+    Positions at or past the table's end map to the scratch page 0, on
+    the device (no host sync)."""
+    lane_pages = table.shape[-1]
+    pidx = torch.clamp(posns // page_size, max=lane_pages - 1)
+    pids = torch.gather(table.long(), -1, pidx)
+    pids = torch.where(posns < lane_pages * page_size, pids,
+                       torch.zeros_like(pids))
+    return pids, posns % page_size
+
+
+def _write_pages(cache: PagedSlotCache, layer: int, pids, offs, k, v):
+    """Rows ``k``/``v`` [..., H_kv, Dh] into the pool at (pids, offs) of
+    :func:`_page_scatter_ids`, in place, quantized on an int8 pool (the
+    paged row write of JAX's ``_paged_write_rows``; the callers compute
+    the ids once, outside the layer loop)."""
+    if cache.quantized():
+        qk, ks = quantize_kv(k)
+        qv, vs = quantize_kv(v)
+        cache.k_scale[layer][pids, offs] = ks
+        cache.v_scale[layer][pids, offs] = vs
+        k, v = qk, qv
+    cache.k[layer][pids, offs] = k.to(cache.k.dtype)
+    cache.v[layer][pids, offs] = v.to(cache.v.dtype)
+
+
 def _write_kv_rows(cache: SlotCache, layer: int, k, v, pos) -> None:
     """Write each lane's T rows [S, T, H_kv, Dh] at ``pos[s]``, in place.
 
@@ -123,7 +219,10 @@ def slot_decode_step(
     ``pos`` clamps at ``total_len`` so an idle slot can sit in the batch
     indefinitely; the position embedding reads ``pos_embed[min(pos,
     L-1)]``. ``attn_impl`` picks the decode attention (``reference`` the
-    plain version, ``flash``/``auto`` the CUDA kernel on the GPU).
+    plain version, ``flash``/``auto`` the CUDA kernel on the GPU). On a
+    :class:`PagedSlotCache` the rows scatter through the page table and
+    the attention reads the pool through it
+    (``ops/decode.paged_decode_attention``).
     """
     spec = model.spec
     L = spec.total_len
@@ -132,13 +231,25 @@ def slot_decode_step(
     x = model.embed[tokens.long()][:, None, :]  # [S, 1, d]
     pe = model.pos_embed[0]
     x = x + pe[torch.clamp(pos, max=L - 1).long()][:, None, :]
+    paged = isinstance(cache, PagedSlotCache)
+    if paged:  # each lane's row lands at pos[s] through its table
+        pids, offs = _page_scatter_ids(cache.table, pos.long()[:, None],
+                                       cache.page_size)
     for i, blk in enumerate(model.blocks):
         q, k, v = blk.qkv(x)
-        _write_kv_rows(cache, i, k, v, pos)
         ksc, vsc = cache.lane_scales(i)
-        attn = decode_attention(
-            q[:, 0], cache.k[i], cache.v[i], pos, ksc, vsc, impl=attn_impl
-        )  # [S, H, Dh] fp32
+        if paged:
+            _write_pages(cache, i, pids, offs, k, v)
+            attn = paged_decode_attention(
+                q[:, 0], cache.k[i], cache.v[i], cache.table, pos, ksc, vsc,
+                impl=attn_impl,
+            )
+        else:
+            _write_kv_rows(cache, i, k, v, pos)
+            attn = decode_attention(
+                q[:, 0], cache.k[i], cache.v[i], pos, ksc, vsc,
+                impl=attn_impl,
+            )  # [S, H, Dh] fp32
         x = blk.finish(x, attn.reshape(S, 1, spec.d_model).to(x.dtype))
     logits = model.head(x[:, 0])
     pos.add_(1).clamp_(max=L)
@@ -281,6 +392,14 @@ def prefill_chunk(
     (the first chunk, ``start == 0``). The write start and the position
     embedding slice clamp at ``L - C`` as JAX's dynamic slices do.
 
+    On a :class:`PagedSlotCache` the chunk's positions [start, start +
+    C) map through lane ``slot``'s table row (computed once, outside the
+    layer loop) and the lane's view is gathered through it, so a
+    continuation chunk after a prefix hit attends the matched prefix
+    pages, which it never prefilled. The engine keeps start + C <=
+    total_len; a position past the table's end would write the scratch
+    page.
+
     Sets ``pos[slot] = start + length`` and installs the request's
     sampling state at ``slot`` (``steps`` 1 on the final chunk, else
     0). On the final chunk the request's first token is sampled at step
@@ -294,22 +413,41 @@ def prefill_chunk(
     w0 = max(0, min(start, L - C))
     x = model.embed[chunk.long()][None] + model.pos_embed[:, w0 : w0 + C]
     quant = cache.quantized()
+    paged = isinstance(cache, PagedSlotCache)
+    if paged:
+        row = cache.table[slot]  # [lane_pages] int32
+        pids, offs = _page_scatter_ids(
+            row, start + torch.arange(C, device=row.device), cache.page_size)
     for i, blk in enumerate(model.blocks):
         q, k, v = blk.qkv(x)  # [1, C, H, Dh], [1, C, H_kv, Dh]
-        if quant:
+        if paged:
+            _write_pages(cache, i, pids, offs, k[0], v[0])
+        elif quant:
             wk, ks = quantize_kv(k[0])
             wv, vs = quantize_kv(v[0])
             cache.k_scale[i, slot, w0 : w0 + C] = ks
             cache.v_scale[i, slot, w0 : w0 + C] = vs
+            cache.k[i, slot, w0 : w0 + C] = wk
+            cache.v[i, slot, w0 : w0 + C] = wv
         else:
-            wk, wv = k[0], v[0]
-        cache.k[i, slot, w0 : w0 + C] = wk.to(cache.k.dtype)
-        cache.v[i, slot, w0 : w0 + C] = wv.to(cache.v.dtype)
+            cache.k[i, slot, w0 : w0 + C] = k[0].to(cache.k.dtype)
+            cache.v[i, slot, w0 : w0 + C] = v[0].to(cache.v.dtype)
         if lane_attend:
-            lane_k, lane_v = cache.k[i, slot], cache.v[i, slot]
+            if paged:
+                lane_k = gather_paged_kv(cache.k[i], row[None])[0]
+                lane_v = gather_paged_kv(cache.v[i], row[None])[0]
+                lane_ks = lane_vs = None
+                if quant:
+                    lane_ks = gather_paged_kv(cache.k_scale[i], row[None])[0]
+                    lane_vs = gather_paged_kv(cache.v_scale[i], row[None])[0]
+            else:
+                lane_k, lane_v = cache.k[i, slot], cache.v[i, slot]
+                if quant:
+                    lane_ks, lane_vs = cache.k_scale[i, slot], \
+                        cache.v_scale[i, slot]
             if quant:
-                lane_k = dequantize_kv(lane_k, cache.k_scale[i, slot])
-                lane_v = dequantize_kv(lane_v, cache.v_scale[i, slot])
+                lane_k = dequantize_kv(lane_k, lane_ks)
+                lane_v = dequantize_kv(lane_v, lane_vs)
             attn = dot_product_attention(
                 q.float(),
                 lane_k.repeat_interleave(G, dim=1)[None].float(),

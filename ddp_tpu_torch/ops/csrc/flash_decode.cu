@@ -7,6 +7,20 @@
 // B4 is flash_decode_fp32, B5 is flash_decode_int8 (one template, two
 // K/V element types).
 //
+// The paged forms, B4p flash_decode_paged_fp32 and B5p
+// flash_decode_paged_int8, replace the paged path of the same file:
+//   paged_decode_attention (decode.py:371) = gather_paged_kv (:362), then
+//   the call above. They read K/V from a pool of pages [num_pages,
+//   page_size, H_kv, Dh] through the lane's int32 page table, with no
+//   gather: key `key` of lane s lives at page table[s, key >> log2(page
+//   size)], row key & (page_size - 1). Only the row's address changes (the
+//   kPaged flag of flash_decode_split); the split, the ring, the loads
+//   and the merge are the fixed-lane kernel's, so over a table the paged
+//   kernel computes, per row, the same bits as the fixed-lane kernel over
+//   the gathered lanes. Its bound is the fixed-lane kernel's bytes plus the
+//   table's few; the gather the TPU path runs first moves every lane's
+//   whole view (L keys, not pos + 1) out and back in.
+//
 // What bounds it on an H100: the bytes of K/V it reads. One call reads
 // each live cache line once (S lanes x min(pos+1, L) keys x H_kv x Dh x 2
 // tensors) and does 4 operations per (K, V) element pair and query head:
@@ -113,10 +127,14 @@ struct Params {
     float* out;
     float* part_o;    // [S, Y, n_chunks, GT, Dh], Y = H_kv x n_gb
     float* part_lse;  // [S, Y, n_chunks, GT], base 2
+    const int32_t* table;  // paged: [S, lane_pages] page ids
+    int lane_pages, log2ps;  // paged: table width, log2(page size)
     int H, G, Dh, L;
     int R, log2R;     // threads a row, and its log2
     int chunk;        // keys a chunk, a multiple of the tile
     int n_chunks, n_gb, Y;
+    // Element strides of K/V and of the scales: lane (paged: page), row
+    // (key), head.
     int64_t q_ss, q_sh, kv_ss, kv_sl, kv_sh, sc_ss, sc_sl, sc_sh;
     float scale;      // log2(e) / sqrt(Dh)
 };
@@ -247,8 +265,9 @@ __device__ __forceinline__ int live_chunks(const Params& p, int n_keys) {
 // ---- the split kernel ------------------------------------------------------------
 
 // grid (n_chunks, H_kv x n_gb, S), kThreads threads; dynamic shared
-// memory: min(kStages, tiles a chunk) ring stages.
-template <typename KV, int GT>
+// memory: min(kStages, tiles a chunk) ring stages. kPaged: K/V rows and
+// scales are read through the lane's page table.
+template <typename KV, int GT, bool kPaged>
 __global__ void __launch_bounds__(kThreads) flash_decode_split(const Params p) {
     using T_ = Traits<KV>;
     constexpr int kKeys = T_::kKeys;
@@ -301,10 +320,27 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split(const Params p) {
         for (int e = 0; e < kCols; ++e) acc[g][e] = 0.f;
     }
 
-    const KV* kb = static_cast<const KV*>(p.k) + s * p.kv_ss + kvh * p.kv_sh;
-    const KV* vb = static_cast<const KV*>(p.v) + s * p.kv_ss + kvh * p.kv_sh;
-    const float* ksb = T_::kScaled ? p.k_scale + s * p.sc_ss + kvh * p.sc_sh : nullptr;
-    const float* vsb = T_::kScaled ? p.v_scale + s * p.sc_ss + kvh * p.sc_sh : nullptr;
+    // Bases of this (lane, kv head): a fixed lane starts at s x the lane
+    // stride; a paged lane's rows start at their pages (row_of below).
+    const int64_t lane_at = kPaged ? 0 : static_cast<int64_t>(s);
+    const KV* kb = static_cast<const KV*>(p.k) + lane_at * p.kv_ss + kvh * p.kv_sh;
+    const KV* vb = static_cast<const KV*>(p.v) + lane_at * p.kv_ss + kvh * p.kv_sh;
+    const float* ksb = T_::kScaled ? p.k_scale + lane_at * p.sc_ss + kvh * p.sc_sh : nullptr;
+    const float* vsb = T_::kScaled ? p.v_scale + lane_at * p.sc_ss + kvh * p.sc_sh : nullptr;
+    const int32_t* trow = kPaged ? p.table + static_cast<int64_t>(s) * p.lane_pages : nullptr;
+    // (slot, row) of key `key` in units of (lane or page stride, row
+    // stride): (0, key) in a fixed lane, (table[s, page], key's row in
+    // its page) when paged. `key` < L always (masked rows fall back to
+    // c0), so the table is never read past lane_pages.
+    auto row_of = [&](int key, int64_t& slot, int64_t& row) {
+        if constexpr (kPaged) {
+            slot = __ldg(trow + (key >> p.log2ps));
+            row = key & ((1 << p.log2ps) - 1);
+        } else {
+            slot = 0;
+            row = key;
+        }
+    };
 
     // Copies of one tile into a ring stage: chunks of kCopyBytes, each
     // row padded to `pitch` elements (padding columns are not copied).
@@ -322,8 +358,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split(const Params p) {
             if (cc >= live_row) continue;
             const int key = key0 + r;
             const bool ok = key < c1;
-            const int64_t off = static_cast<int64_t>(ok ? key : c0) * p.kv_sl +
-                                cc * kPerCopy;
+            int64_t slot, row;
+            row_of(ok ? key : c0, slot, row);
+            const int64_t off = slot * p.kv_ss + row * p.kv_sl + cc * kPerCopy;
             cp_async<kCopyBytes>(k_s + r * pitch + cc * kPerCopy, kb + off, ok);
             cp_async<kCopyBytes>(v_s + r * pitch + cc * kPerCopy, vb + off, ok);
         }
@@ -333,7 +370,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split(const Params p) {
             for (int r = tid; r < T; r += kThreads) {
                 const int key = key0 + r;
                 const bool ok = key < c1;
-                const int64_t off = static_cast<int64_t>(ok ? key : c0) * p.sc_sl;
+                int64_t slot, row;
+                row_of(ok ? key : c0, slot, row);
+                const int64_t off = slot * p.sc_ss + row * p.sc_sl;
                 cp_async<4>(ks_s + r, ksb + off, ok);
                 cp_async<4>(vs_s + r, vsb + off, ok);
             }
@@ -512,9 +551,9 @@ int log2_int(int x) {
     return r;
 }
 
-template <typename KV, int GT>
+template <typename KV, int GT, bool kPaged>
 int launch_gt(Params p, int S, int tiles_per_chunk, cudaStream_t stream) {
-    auto kernel = flash_decode_split<KV, GT>;
+    auto kernel = flash_decode_split<KV, GT, kPaged>;
     constexpr int kStages = Traits<KV>::kStages;
     const int stages = tiles_per_chunk < kStages ? tiles_per_chunk : kStages;
     const int smem = stages * stage_bytes<KV>();
@@ -543,9 +582,21 @@ int tile_keys(int Dh) {
 
 int group_tile(int G) { return G == 1 ? 1 : G == 2 ? 2 : kMaxGroup; }
 
+// Keys of a paged lane, lane_pages x 2^log2ps, or 0 (refused by launch)
+// for a table width or page size out of range.
+int paged_len(int lane_pages, int log2ps) {
+    if (lane_pages < 1 || log2ps < 0 || log2ps > 30) return 0;
+    const int64_t L = static_cast<int64_t>(lane_pages) << log2ps;
+    return L <= (1LL << 30) ? static_cast<int>(L) : 0;
+}
+
+// table: nullptr for a fixed-lane cache; else the [S, lane_pages] page
+// table, L = paged_len(lane_pages, log2ps), and kv_ss / sc_ss are page
+// strides.
 template <typename KV>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
-           const void* v_scale, const void* pos, void* out, int S, int H,
+           const void* v_scale, const void* table, int lane_pages,
+           int log2ps, const void* pos, void* out, int S, int H,
            int H_kv, int Dh, int L, int64_t q_ss, int64_t q_sh, int64_t kv_ss,
            int64_t kv_sl, int64_t kv_sh, int64_t sc_ss, int64_t sc_sl,
            int64_t sc_sh, float scale, void* partial, int chunk,
@@ -562,7 +613,11 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
         !on16(kv_sl) || !on16(kv_sh)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
+    const bool paged = table != nullptr;
     Params p{};
+    p.table = static_cast<const int32_t*>(table);
+    p.lane_pages = lane_pages;
+    p.log2ps = log2ps;
     p.G = H / H_kv;
     const int GT = group_tile(p.G);
     p.q = static_cast<const float*>(q);
@@ -599,10 +654,17 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
     p.scale = scale * kLog2e;
     const int tiles_per_chunk = chunk / T;
     const auto st = static_cast<cudaStream_t>(stream);
+    if (paged) {
+        switch (GT) {
+            case 1: return launch_gt<KV, 1, true>(p, S, tiles_per_chunk, st);
+            case 2: return launch_gt<KV, 2, true>(p, S, tiles_per_chunk, st);
+            default: return launch_gt<KV, kMaxGroup, true>(p, S, tiles_per_chunk, st);
+        }
+    }
     switch (GT) {
-        case 1: return launch_gt<KV, 1>(p, S, tiles_per_chunk, st);
-        case 2: return launch_gt<KV, 2>(p, S, tiles_per_chunk, st);
-        default: return launch_gt<KV, kMaxGroup>(p, S, tiles_per_chunk, st);
+        case 1: return launch_gt<KV, 1, false>(p, S, tiles_per_chunk, st);
+        case 2: return launch_gt<KV, 2, false>(p, S, tiles_per_chunk, st);
+        default: return launch_gt<KV, kMaxGroup, false>(p, S, tiles_per_chunk, st);
     }
 }
 
@@ -627,9 +689,9 @@ int flash_decode_fp32(const void* q, const void* k, const void* v,
                       int64_t kv_ss, int64_t kv_sl, int64_t kv_sh,
                       float scale, void* partial, int chunk,
                       void* stream) {
-    return launch<float>(q, k, v, nullptr, nullptr, pos, out, S, H, H_kv, Dh,
-                         L, q_ss, q_sh, kv_ss, kv_sl, kv_sh, 0, 0, 0, scale,
-                         partial, chunk, stream);
+    return launch<float>(q, k, v, nullptr, nullptr, nullptr, 0, 0, pos, out,
+                         S, H, H_kv, Dh, L, q_ss, q_sh, kv_ss, kv_sl, kv_sh,
+                         0, 0, 0, scale, partial, chunk, stream);
 }
 
 // B5: int8 K/V with per-(position, head) fp32 scales [S, L, H_kv].
@@ -641,9 +703,46 @@ int flash_decode_int8(const void* q, const void* k, const void* v,
                       int64_t sc_ss, int64_t sc_sl, int64_t sc_sh,
                       float scale, void* partial, int chunk,
                       void* stream) {
-    return launch<int8_t>(q, k, v, k_scale, v_scale, pos, out, S, H, H_kv, Dh,
-                          L, q_ss, q_sh, kv_ss, kv_sl, kv_sh, sc_ss, sc_sl,
-                          sc_sh, scale, partial, chunk, stream);
+    return launch<int8_t>(q, k, v, k_scale, v_scale, nullptr, 0, 0, pos, out,
+                          S, H, H_kv, Dh, L, q_ss, q_sh, kv_ss, kv_sl, kv_sh,
+                          sc_ss, sc_sl, sc_sh, scale, partial, chunk, stream);
+}
+
+// B4p: fp32 K/V in a page pool [num_pages, page_size, H_kv, Dh], read
+// through `table` [S, lane_pages] int32 (contiguous); page_size =
+// 2^log2ps, L = lane_pages x page_size. pg_sp / pg_sr / pg_sh: the
+// pool's page, row and head strides in elements. Otherwise as B4.
+int flash_decode_paged_fp32(const void* q, const void* k, const void* v,
+                            const void* table, const void* pos, void* out,
+                            int S, int H, int H_kv, int Dh, int lane_pages,
+                            int log2ps, int64_t q_ss, int64_t q_sh,
+                            int64_t pg_sp, int64_t pg_sr, int64_t pg_sh,
+                            float scale, void* partial, int chunk,
+                            void* stream) {
+    if (!table) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<float>(q, k, v, nullptr, nullptr, table, lane_pages, log2ps,
+                         pos, out, S, H, H_kv, Dh,
+                         paged_len(lane_pages, log2ps), q_ss, q_sh, pg_sp,
+                         pg_sr, pg_sh, 0, 0, 0, scale, partial, chunk, stream);
+}
+
+// B5p: int8 K/V pages with per-(row, head) fp32 scale pages [num_pages,
+// page_size, H_kv] (strides sc_sp / sc_sr / sc_sh). Otherwise as B4p.
+int flash_decode_paged_int8(const void* q, const void* k, const void* v,
+                            const void* k_scale, const void* v_scale,
+                            const void* table, const void* pos, void* out,
+                            int S, int H, int H_kv, int Dh, int lane_pages,
+                            int log2ps, int64_t q_ss, int64_t q_sh,
+                            int64_t pg_sp, int64_t pg_sr, int64_t pg_sh,
+                            int64_t sc_sp, int64_t sc_sr, int64_t sc_sh,
+                            float scale, void* partial, int chunk,
+                            void* stream) {
+    if (!table) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<int8_t>(q, k, v, k_scale, v_scale, table, lane_pages,
+                          log2ps, pos, out, S, H, H_kv, Dh,
+                          paged_len(lane_pages, log2ps), q_ss, q_sh, pg_sp,
+                          pg_sr, pg_sh, sc_sp, sc_sr, sc_sh, scale, partial,
+                          chunk, stream);
 }
 
 }  // extern "C"

@@ -24,12 +24,22 @@ of up to ``total_len`` keys, once per layer:
 - :func:`decode_attention` — the engine-facing switch (``impl`` =
   ``auto | flash | reference``; ``auto`` is the kernel on a CUDA tensor
   of a shape it takes and the plain version elsewhere).
+- The paged forms, over a page pool ([num_pages, page_size, H_kv, Dh])
+  and an int32 page table [S, lane_pages] (``models/generate.
+  PagedSlotCache``): :func:`gather_paged_kv` (the lanes' views, the
+  plain version's first step), :func:`paged_decode_attention_reference`
+  (gather, then :func:`decode_attention_reference`),
+  :func:`flash_decode_paged_attention` (kernels B4p/B5p: the same CUDA
+  kernel reading each K/V row through the lane's page table, with no
+  gather) and :func:`paged_decode_attention` (the engine's switch, with
+  the routing rules of :func:`decode_attention`).
 
 Launches are counted per kernel in ``flash_decode_attention.launches``
-(one increment where a kernel is launched, nowhere else), so a run can
-show that its main path went through the kernels; calls that ``auto``
-routes to the plain version on a device by shape are counted in
-``flash_decode_attention.plain_routed``.
+and ``flash_decode_paged_attention.launches`` (one increment where a
+kernel is launched, nowhere else), so a run can show that its main path
+went through the kernels; calls that ``auto`` routes to the plain
+version on a device by shape are counted in each wrapper's
+``plain_routed``.
 """
 
 from __future__ import annotations
@@ -267,6 +277,17 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_float, _P, _I, _P,
     ]
     lib.flash_decode_int8.restype = _I
+    lib.flash_decode_paged_fp32.argtypes = [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        _I64, _I64, _I64, _I64, _I64, ctypes.c_float, _P, _I, _P,
+    ]
+    lib.flash_decode_paged_fp32.restype = _I
+    lib.flash_decode_paged_int8.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+        ctypes.c_float, _P, _I, _P,
+    ]
+    lib.flash_decode_paged_int8.restype = _I
     lib.flash_decode_tile_keys.argtypes = [_I, _I]
     lib.flash_decode_tile_keys.restype = _I
     return lib
@@ -394,6 +415,161 @@ flash_decode_attention.launches = {
 flash_decode_attention.plain_routed = 0
 
 
+# ---- paged K/V: the lanes' views through int32 page tables ------------
+
+
+def gather_paged_kv(pages, table):
+    """[num_pages, page_size, ...] pool + [S, n] int32 table →
+    [S, n·page_size, ...] per-lane views (K/V rows and their int8
+    per-head scale planes alike: anything page-major)."""
+    g = pages[table.long()]  # [S, n, page_size, ...]
+    S, n, ps = g.shape[:3]
+    return g.reshape(S, n * ps, *g.shape[3:])
+
+
+def paged_decode_attention_reference(q, k_pages, v_pages, table, pos,
+                                     k_scale=None, v_scale=None):
+    """The plain paged version: the lanes' views gathered through
+    ``table``, then :func:`decode_attention_reference` → [S, H, Dh] fp32
+    (``ddp_tpu/ops/decode.py`` ``paged_decode_attention``'s semantics:
+    positions past ``pos[s]``, scratch-page entries included, are
+    masked)."""
+    ks = gather_paged_kv(k_scale, table) if k_scale is not None else None
+    vs = gather_paged_kv(v_scale, table) if v_scale is not None else None
+    return decode_attention_reference(
+        q, gather_paged_kv(k_pages, table), gather_paged_kv(v_pages, table),
+        pos, ks, vs)
+
+
+def _paged_tensors_take(q, k_pages, v_pages, table) -> bool:
+    """:func:`_tensors_take` for a page pool: the pool's [num_pages,
+    page_size, H_kv, Dh] strides as the kernel takes a lane's, a power
+    of two page size, and a contiguous int32 [S, lane_pages] table."""
+    ps = k_pages.shape[1] if k_pages.dim() == 4 else 0
+    return (
+        _tensors_take(q, k_pages, v_pages)
+        and ps > 0 and ps & (ps - 1) == 0
+        and table.dtype == torch.int32 and table.dim() == 2
+        and table.is_contiguous() and table.shape[0] == q.shape[0]
+        and 0 < table.shape[1] * ps <= 2**30
+    )
+
+
+def _check_paged_inputs(q, k_pages, v_pages, table, pos, k_scale,
+                        v_scale) -> None:
+    """Raise on inputs no paged decode attention takes."""
+    S, H, Dh = q.shape
+    _check(k_pages.dim() == 4 and k_pages.shape == v_pages.shape,
+           f"k/v pages must be one [num_pages, page_size, H_kv, Dh] "
+           f"shape, got {tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    P, ps, H_kv = k_pages.shape[:3]
+    _check(k_pages.shape[3] == Dh, f"head dim {k_pages.shape[3]} != {Dh}")
+    _check(H % H_kv == 0, f"H {H} is not a multiple of H_kv {H_kv}")
+    _check(table.dim() == 2 and table.shape[0] == S
+           and table.dtype == torch.int32,
+           f"table must be int32 [{S}, lane_pages], got {table.dtype} "
+           f"{tuple(table.shape)}")
+    _check(pos.dtype == torch.int32 and tuple(pos.shape) == (S,)
+           and pos.is_contiguous(),
+           f"pos must be a contiguous int32 [{S}], got {pos.dtype} "
+           f"{tuple(pos.shape)}")
+    tensors = [q, k_pages, v_pages, table, pos]
+    if k_pages.dtype == torch.int8:
+        _check(k_scale is not None and v_scale is not None,
+               "int8 K/V need k_scale and v_scale")
+        _check(tuple(k_scale.shape) == (P, ps, H_kv)
+               and k_scale.shape == v_scale.shape
+               and k_scale.dtype == v_scale.dtype == torch.float32
+               and k_scale.stride() == v_scale.stride(),
+               "scales must be float32 [num_pages, page_size, H_kv] with "
+               "equal strides")
+        tensors += [k_scale, v_scale]
+    _check(all(t.device == q.device for t in tensors),
+           "all inputs must be on one device")
+
+
+def flash_decode_paged_attention(q, k_pages, v_pages, table, pos,
+                                 k_scale=None, v_scale=None):
+    """Banded single-query attention over paged lanes through the CUDA
+    kernel (B4p fp32, B5p int8) → [S, H, Dh] fp32, the contract of
+    :func:`paged_decode_attention_reference`.
+
+    The kernel reads key ``key`` of lane ``s`` at page ``table[s, key >>
+    log2(page_size)]``, row ``key & (page_size - 1)``, in place: no lane
+    view is gathered. Everything else is :func:`flash_decode_attention`'s
+    kernel, with the same split plan for L = lane_pages · page_size, so
+    per row it computes exactly what that kernel computes over
+    ``gather_paged_kv(pool, table)``. Table entries must lie in [0,
+    num_pages) (the engine's tables hold page ids of its pool and 0, the
+    scratch page). A CPU tensor takes the plain version; a CUDA tensor
+    of a shape the kernel does not take raises.
+    """
+    if q.device.type == "cpu":
+        return paged_decode_attention_reference(
+            q, k_pages, v_pages, table, pos, k_scale, v_scale)
+    _check(q.device.type == "cuda", f"unsupported device {q.device}")
+    _check_paged_inputs(q, k_pages, v_pages, table, pos, k_scale, v_scale)
+    _check(
+        _paged_tensors_take(q, k_pages, v_pages, table),
+        f"the paged kernel does not take q {q.dtype} / K,V "
+        f"{k_pages.dtype} at head_dim {q.shape[-1]}, page size "
+        f"{k_pages.shape[1]}, pool strides {k_pages.stride()}, table "
+        f"{tuple(table.shape)} (contiguous: {table.is_contiguous()}) "
+        f"(kernel_takes, a power-of-two page size, a contiguous int32 "
+        "table)",
+    )
+    S, H, Dh = q.shape
+    ps, H_kv = k_pages.shape[1], k_pages.shape[2]
+    lane_pages = table.shape[1]
+    L = lane_pages * ps
+    G = H // H_kv
+    gt = group_tile(G)
+    y = H_kv * -(-G // gt)
+    chunk, n_chunks = split_plan(L, S * y, _sm_count(q.device.index),
+                                 k_pages.dtype, Dh)
+    out = torch.empty((S, H, Dh), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        partial = None
+        if n_chunks > 1:
+            partial = torch.empty(S * y * n_chunks * gt * (Dh + 1),
+                                  dtype=torch.float32, device=q.device)
+        common = (S, H, H_kv, Dh, lane_pages, ps.bit_length() - 1,
+                  q.stride(0), q.stride(1), k_pages.stride(0),
+                  k_pages.stride(1), k_pages.stride(2))
+        tail = (Dh**-0.5, None if partial is None else partial.data_ptr(),
+                chunk, stream)
+        if k_pages.dtype == torch.int8:
+            name = "flash_decode_paged_int8"
+            err = _lib().flash_decode_paged_int8(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
+                pos.data_ptr(), out.data_ptr(), *common,
+                k_scale.stride(0), k_scale.stride(1), k_scale.stride(2),
+                *tail,
+            )
+        else:
+            name = "flash_decode_paged_fp32"
+            err = _lib().flash_decode_paged_fp32(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                table.data_ptr(), pos.data_ptr(), out.data_ptr(), *common,
+                *tail,
+            )
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    flash_decode_paged_attention.launches[name] += 1
+    return out
+
+
+flash_decode_paged_attention.launches = {
+    "flash_decode_paged_fp32": 0,
+    "flash_decode_paged_int8": 0,
+}
+# Calls that ``auto`` sent to the plain paged version on a device by
+# shape (a CPU tensor is not counted).
+flash_decode_paged_attention.plain_routed = 0
+
+
 # ---- runtime selection ----------------------------------------------
 
 
@@ -434,3 +610,26 @@ def decode_attention(
         flash_decode_attention.plain_routed += 1
         return decode_attention_reference(q, k, v, pos, k_scale, v_scale)
     return flash_decode_attention(q, k, v, pos, k_scale, v_scale)
+
+
+def paged_decode_attention(
+    q, k_pages, v_pages, table, pos, k_scale=None, v_scale=None, *,
+    impl: str = "reference",
+):
+    """The engine-facing paged entry, with :func:`decode_attention`'s
+    rules: ``auto`` takes the paged kernel on a CUDA tensor of a shape it
+    takes, and the plain paged version elsewhere (on a device, counted
+    in ``flash_decode_paged_attention.plain_routed``); ``flash`` takes
+    the kernel or raises; a CPU tensor always takes the plain version.
+    Neither path gathers the lanes for the kernel."""
+    resolve_impl(impl, q.device)  # raises on an unknown impl
+    if impl == "reference" or q.device.type == "cpu":
+        return paged_decode_attention_reference(
+            q, k_pages, v_pages, table, pos, k_scale, v_scale)
+    if impl == "auto" and not _paged_tensors_take(q, k_pages, v_pages,
+                                                  table):
+        flash_decode_paged_attention.plain_routed += 1
+        return paged_decode_attention_reference(
+            q, k_pages, v_pages, table, pos, k_scale, v_scale)
+    return flash_decode_paged_attention(
+        q, k_pages, v_pages, table, pos, k_scale, v_scale)

@@ -2,7 +2,7 @@
 
     python -m ddp_tpu_torch.serve --init_demo --vocab_size 8192 \\
         --seq_len 256 --d_model 1024 --depth 8 --num_heads 8 \\
-        --slots 8 --kv_dtype int8 --port 8000
+        --slots 8 --kv_dtype int8 --page_size 16 --port 8000
     curl -s localhost:8000/generate -d \\
         '{"prompt_tokens": [1, 2, 3], "max_new_tokens": 32}'
 
@@ -10,8 +10,9 @@
 serves a JAX causal-LM parameter tree saved as a flat ``/``-keyed
 ``.npz`` (``numpy.savez(path, **{"/".join(keys): leaf})``), mapped by
 ``interop/jax_params.py``. Runs on the GPU, where decode attention always
-goes through the CUDA flash-decode kernel, unless ``--device cpu`` is
-given (the plain versions run there). Prints one JSON line when it
+goes through the CUDA flash-decode kernel (its paged form with
+``--page_size``), unless ``--device cpu`` is given (the plain versions
+run there). Prints one JSON line when it
 serves, then serves until SIGTERM or Ctrl-C.
 """
 
@@ -49,6 +50,20 @@ def main(argv=None) -> None:
     p.add_argument("--prefill_len", type=int, default=None,
                    help="longest admissible prompt (default total_len/2)")
     p.add_argument("--kv_dtype", default="fp32", choices=["fp32", "int8"])
+    p.add_argument(
+        "--page_size", type=int, default=0,
+        help="paged KV + radix prefix cache (serve/pages.py): KV lives in "
+        "a pool of this-many-token pages and prompts sharing a prefix "
+        "prefill it once and fork the pages copy-free (power of two "
+        "dividing total_len; 0 = the fixed-lane cache)",
+    )
+    p.add_argument(
+        "--kv_pages", type=int, default=None,
+        help="page-pool size for --page_size (default: slots x "
+        "total_len/page_size + 1 scratch — capacity-neutral vs fixed "
+        "lanes; smaller pools lean on prefix sharing, admission waits "
+        "on free pages)",
+    )
     p.add_argument("--device", default=None,
                    help="default: the GPU; 'cpu' runs the plain versions")
     p.add_argument("--metrics_file", default=None)
@@ -85,6 +100,8 @@ def main(argv=None) -> None:
         prefill_len=args.prefill_len,
         metrics=metrics,
         kv_dtype=args.kv_dtype,
+        page_size=args.page_size,
+        kv_pages=args.kv_pages,
     )
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
@@ -100,6 +117,8 @@ def main(argv=None) -> None:
                 "decode_attn": engine.decode_attn,
                 "kv_dtype": engine.kv_dtype,
                 "cache_bytes_per_slot": engine.cache_bytes_per_slot(),
+                **({"page_size": engine.page_size,
+                    "kv_pages": engine.kv_pages} if engine.paged else {}),
             }), flush=True)
             try:
                 stop.wait()

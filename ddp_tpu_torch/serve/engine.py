@@ -17,9 +17,17 @@ every step:
    pinned memory when it was dispatched, so the host waits only for
    work it already queued a step ago.
 
-Paged KV, prefix caching, speculative decoding, request tracing, SLOs,
-compile introspection and hot-swap are features of the JAX engine that
-later slices bring over.
+With ``page_size`` > 0 the cache is paged (``PagedSlotCache``): K/V
+live in a pool of pages that lanes map through int32 page tables, and a
+radix prefix index (``serve/pages.PrefixCache``) lets prompts that share
+a prefix prefill it once and map its pages copy-free. Admission then
+counts free pages; the decode attention reads the pool through the
+tables (the paged CUDA kernel on the GPU).
+
+Speculative decoding, request tracing, SLOs, compile introspection,
+hot-swap (with its prefix-index flush) and the page export/install of
+disaggregated serving are features of the JAX engine that later slices
+bring over.
 """
 
 from __future__ import annotations
@@ -29,16 +37,18 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ddp_tpu_torch.models.generate import (
-    SlotCache,
+    init_paged_slot_cache,
     init_slot_cache,
     prefill_chunk,
     slot_decode_sample_step,
 )
 from ddp_tpu_torch.models.lm import CausalLM, LMSpec
 from ddp_tpu_torch.ops import decode as decode_ops
+from ddp_tpu_torch.serve.pages import PrefixCache, page_demand
 from ddp_tpu_torch.serve.scheduler import (
     Admission,
     Request,
@@ -69,6 +79,9 @@ class Completion:
     submitted: float
     finished: float
     queue_s: Optional[float] = None  # submit → lane bind
+    # Paged engines: prompt tokens served from cached prefix pages (0 =
+    # a miss); None on fixed-lane engines.
+    prefix_hit_tokens: Optional[int] = None
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -89,6 +102,7 @@ class Completion:
 class _Slot:
     """Host-side bookkeeping for one lane."""
 
+    index: int = -1
     request: Optional[Request] = None
     tokens: list[int] = field(default_factory=list)
     # Tokens SCHEDULED on device for this request, including ones whose
@@ -97,6 +111,10 @@ class _Slot:
     prefill_pos: int = 0  # prompt tokens ingested so far
     first_token_at: Optional[float] = None
     queue_s: Optional[float] = None
+    # Paged mode: the page ids the lane's table maps (prefix + private,
+    # in position order) and the prompt tokens its prefix hit covered.
+    pages: list[int] = field(default_factory=list)
+    matched_tokens: int = 0
 
     @property
     def free(self) -> bool:
@@ -140,9 +158,11 @@ def resolve_engine_knobs(
     step_token_budget: Optional[int] = None,
     decode_attn: str = "auto",
     kv_dtype: str = "fp32",
+    page_size: int = 0,
+    kv_pages: Optional[int] = None,
 ) -> dict:
-    """Validate + resolve the engine's knobs (the fixed-lane subset of
-    the JAX rule set, same messages and defaults)."""
+    """Validate + resolve the engine's knobs (the JAX rule set without
+    speculative decoding, same messages and defaults)."""
     if slots < 1:
         raise ValueError(f"slots must be >= 1, got {slots}")
     prefill_len = prefill_len or max(1, spec.total_len // 2)
@@ -153,6 +173,41 @@ def resolve_engine_knobs(
         )
     if kv_dtype not in ("fp32", "int8"):
         raise ValueError(f"kv_dtype must be fp32|int8, got {kv_dtype!r}")
+    if kv_pages is not None and not page_size:
+        raise ValueError(
+            "--kv_pages needs --page_size (the page pool only "
+            "exists in paged mode)"
+        )
+    paged = bool(page_size)
+    page_size = int(page_size)
+    lane_pages = resolved_kv_pages = None
+    if paged:
+        if page_size < 1 or (page_size & (page_size - 1)):
+            raise ValueError(
+                f"--page_size must be a power of two, got {page_size}"
+            )
+        if spec.total_len % page_size:
+            raise ValueError(
+                f"--page_size {page_size} must divide the model's "
+                f"total_len {spec.total_len}: a partial tail page "
+                "would break the page-granular tail-chunk "
+                "invariant (every chunk write maps through whole "
+                "pages)"
+            )
+        lane_pages = spec.total_len // page_size
+        # Capacity-neutral default: the fixed-lane layout's lines plus
+        # the scratch page, so any sharing is headroom.
+        resolved_kv_pages = int(
+            kv_pages if kv_pages is not None else slots * lane_pages + 1
+        )
+        if resolved_kv_pages < lane_pages + 1:
+            raise ValueError(
+                f"--kv_pages {resolved_kv_pages} cannot hold one "
+                f"full-context lane: needs >= total_len/"
+                f"--page_size + 1 scratch = {lane_pages + 1}"
+                " (a maximal request could never bind — permanent "
+                "queue head starvation)"
+            )
     # The path for this model's cache: ``auto`` takes the plain version
     # on the card where the kernel does not take the shape.
     shape = (spec.num_heads, spec.kv_heads, spec.head_dim,
@@ -185,6 +240,10 @@ def resolve_engine_knobs(
         "chunk": chunk,
         "min_bucket": min_bucket,
         "step_token_budget": step_token_budget,
+        "paged": paged,
+        "page_size": page_size,
+        "lane_pages": lane_pages,
+        "kv_pages": resolved_kv_pages,
     }
 
 
@@ -210,6 +269,13 @@ class ServeEngine:
     The other knobs are the JAX engine's: ``slots``, ``prefill_len``
     (admission ceiling), ``prefill_chunk``, ``min_bucket``,
     ``step_token_budget``, ``max_queue``; ``clock`` is injectable.
+
+    ``page_size`` > 0 (a power of two dividing ``total_len``) makes the
+    cache paged: a pool of ``kv_pages`` pages (default slots ·
+    total_len/page_size + 1, the fixed-lane capacity plus the scratch
+    page), lanes mapping pages through an int32 table, and a radix
+    prefix index whose hits skip the matched tokens' prefill. Greedy
+    streams stay token-identical to the fixed-lane engine.
     """
 
     def __init__(
@@ -226,6 +292,8 @@ class ServeEngine:
         clock: Callable[[], float] = time.monotonic,
         decode_attn: str = "auto",
         kv_dtype: str = "fp32",
+        page_size: int = 0,
+        kv_pages: Optional[int] = None,
     ):
         spec = model.spec
         self.device = model.device
@@ -239,6 +307,8 @@ class ServeEngine:
             step_token_budget=step_token_budget,
             decode_attn=decode_attn,
             kv_dtype=kv_dtype,
+            page_size=page_size,
+            kv_pages=kv_pages,
         )
         self.spec = spec
         self.model = model
@@ -252,6 +322,10 @@ class ServeEngine:
         # call, as ops/decode.decode_attention does.
         self._attn_impl = knobs["decode_attn_requested"]
         self.kv_dtype = knobs["kv_dtype"]
+        self.paged = knobs["paged"]
+        self.page_size = knobs["page_size"]
+        self.kv_pages = knobs["kv_pages"]
+        self._lane_pages = knobs["lane_pages"]
         self.clock = clock
         self.metrics = metrics or MetricsWriter(None)
         self.scheduler = Scheduler(
@@ -265,13 +339,26 @@ class ServeEngine:
             clock=clock,
         )
         self.buckets = self.scheduler.bucket_list()
-        self._slots = [_Slot() for _ in range(slots)]
+        self._slots = [_Slot(index=i) for i in range(slots)]
         dev = self.device
-        self._cache: SlotCache = init_slot_cache(
-            spec, slots,
-            dtype=torch.int8 if self.kv_dtype == "int8" else torch.float32,
-            device=dev,
-        )
+        cache_dtype = torch.int8 if self.kv_dtype == "int8" else torch.float32
+        if self.paged:
+            self._cache = init_paged_slot_cache(
+                spec, slots, num_pages=self.kv_pages,
+                page_size=self.page_size, dtype=cache_dtype, device=dev,
+            )
+            self._prefix = PrefixCache(self.kv_pages, self.page_size)
+            # Host mirror of the device page table: mutated at bind and
+            # retire, uploaded once before the next dispatch.
+            self._table_np = np.zeros((slots, self._lane_pages), np.int32)
+            self._table_dirty = False
+            # Binds refused because the FIFO head's page demand outran
+            # the pool (requeued at the front, retried next step).
+            self.page_starved_binds = 0
+        else:
+            self._cache = init_slot_cache(
+                spec, slots, dtype=cache_dtype, device=dev,
+            )
         # Device-resident decode state: the token vector (output of one
         # step, input to the next) and per-slot sampling state, written
         # at refill by the chunk path, never re-uploaded per step.
@@ -352,8 +439,29 @@ class ServeEngine:
     def queue_drain_eta_s(self) -> Optional[float]:
         return drain_eta_s(list(self._retire_times), self.scheduler.depth)
 
+    def page_stats(self) -> Optional[dict]:
+        """The pool and prefix index (None on fixed-lane engines).
+        ``effective_slots_multiplier`` is the reuse win: the pages that
+        lane copies would keep resident (Σ per-lane mappings) over the
+        unique mapped pages — 1.0 with no sharing, > 1 when prefix pages
+        are forked."""
+        if not self.paged:
+            return None
+        refs = self._prefix.mapped_page_refs
+        uniq = self._prefix.mapped_pages
+        return {
+            **self._prefix.stats(),
+            "lane_pages": self._lane_pages,
+            "pages_mapped": uniq,
+            "page_starved_binds": self.page_starved_binds,
+            "effective_slots_multiplier": (
+                round(refs / uniq, 3) if uniq else None
+            ),
+        }
+
     def stats(self) -> dict:
-        """JSON-ready operational snapshot (the /stats endpoint)."""
+        """JSON-ready operational snapshot (the /stats endpoint); the
+        ``paged`` block only on paged engines."""
         return {
             "slots": self.num_slots,
             "active": self.active,
@@ -381,6 +489,7 @@ class ServeEngine:
                 "cache_bytes_per_slot": self.cache_bytes_per_slot(),
             },
             "device": str(self.device),
+            **({"paged": self.page_stats()} if self.paged else {}),
         }
 
     # ---- engine loop ------------------------------------------------
@@ -418,7 +527,18 @@ class ServeEngine:
             req = self.scheduler.next_request()
             if req is None:
                 break
-            self._admit_to_slot(slot, req)
+            if self._admit_to_slot(slot, req) == "starved":
+                # The FIFO head went back to the queue front: later
+                # requests must not overtake it.
+                break
+
+        # Paged mode: the binds above and the retires at the top of this
+        # step upload the table once, before any dispatch. The copy is of
+        # a fresh host tensor, so later edits of the mirror cannot reach
+        # a copy still in flight.
+        if self.paged and self._table_dirty:
+            self._cache.table.copy_(torch.from_numpy(self._table_np.copy()))
+            self._table_dirty = False
 
         prev_pending = self._pending
         self._pending = []
@@ -490,6 +610,16 @@ class ServeEngine:
         self._steps += 1
         self.tokens_emitted_total += produced
         self.step_latency.add(time.perf_counter() - t_step)
+        paged_fields = {}
+        if self.paged:
+            p = self._prefix
+            hr = p.hit_rate()
+            paged_fields = dict(
+                pages_free=p.free_pages,
+                pages_resident=p.resident_pages,
+                pages_shared=p.shared_pages,
+                prefix_hit_rate=None if hr is None else round(hr, 4),
+            )
         self.metrics.write(
             "serve_step",
             step=self._steps,
@@ -501,6 +631,7 @@ class ServeEngine:
             prefill_chunk_tokens=chunk_tokens,
             dispatch_s=round(dispatch_s, 6),
             retire_s=round(retire_s, 6),
+            **paged_fields,
         )
         return produced
 
@@ -520,7 +651,10 @@ class ServeEngine:
     # ---- internals --------------------------------------------------
 
     def _admit_to_slot(self, slot: _Slot, req: Request) -> str:
-        """Bind a popped request to a lane → "bound" | "rejected"."""
+        """Bind a popped request to a lane → "bound" | "rejected" |
+        "starved" (paged only: the pool cannot hold the request's page
+        demand even after LRU eviction; the request went back to the
+        queue front)."""
         if len(req.prompt) > min(self.prefill_len, self.spec.total_len - 1):
             c = Completion(
                 rid=req.rid, status=REJECTED_TOO_LONG, prompt=req.prompt,
@@ -530,11 +664,38 @@ class ServeEngine:
             self._completed[req.rid] = c
             self._record_request(c)
             return "rejected"
+        matched = 0
+        pids: list[int] = []
+        if self.paged:
+            # The lane must own every page it could write: prompt + the
+            # decode budget, in pages.
+            got = self._prefix.acquire(
+                req.prompt,
+                page_demand(len(req.prompt), req.max_new_tokens,
+                            self.page_size, total_len=self.spec.total_len),
+            )
+            if got is None:
+                self.page_starved_binds += 1
+                self.scheduler.push_front(req)
+                return "starved"
+            pids, matched = got
         slot.request = req
         slot.tokens = []
         slot.emitted = 0
-        slot.prefill_pos = 0
+        slot.prefill_pos = matched
         slot.first_token_at = None
+        slot.pages = pids
+        slot.matched_tokens = matched
+        if self.paged:
+            self._table_np[slot.index] = 0
+            self._table_np[slot.index, : len(pids)] = pids
+            self._table_dirty = True
+            # Position floor at the matched length, on the device before
+            # any dispatch: idle-shape decode steps write at each lane's
+            # pos between chunks, and pos >= matched keeps those writes
+            # out of the shared prefix pages. The first chunk then starts
+            # at ``matched`` as a continuation chunk.
+            self._cache.pos[slot.index] = matched
         slot.queue_s = max(0.0, self.clock() - req.submitted)
         self.queue_wait.add(slot.queue_s)
         return "bound"
@@ -578,6 +739,7 @@ class ServeEngine:
             submitted=req.submitted,
             finished=now,
             queue_s=slot.queue_s,
+            prefix_hit_tokens=slot.matched_tokens if self.paged else None,
         )
         self._completed[req.rid] = c
         self._retire_times.append(now)
@@ -586,12 +748,22 @@ class ServeEngine:
         if c.tpot_s is not None:
             self.tpot.add(c.tpot_s)
         self._record_request(c)
+        if self.paged and slot.pages:
+            # Publish the prompt's fully prefilled pages into the index
+            # (decode output stays private) and unmap the lane's pages;
+            # the zeroed table row points the idle lane at the scratch
+            # page, so its decode writes never reach a freed page.
+            self._prefix.release(req.prompt, slot.pages, slot.prefill_pos)
+            self._table_np[slot.index] = 0
+            self._table_dirty = True
         slot.request = None
         slot.tokens = []
         slot.emitted = 0
         slot.prefill_pos = 0
         slot.first_token_at = None
         slot.queue_s = None
+        slot.pages = []
+        slot.matched_tokens = 0
 
     def _record_request(self, c: Completion) -> None:
         self.status_counts[c.status] = self.status_counts.get(c.status, 0) + 1
@@ -608,4 +780,6 @@ class ServeEngine:
             fields["queue_s"] = round(c.queue_s, 6)
         if c.tpot_s is not None:
             fields["tpot_s"] = round(c.tpot_s, 6)
+        if c.prefix_hit_tokens is not None:
+            fields["prefix_hit_tokens"] = c.prefix_hit_tokens
         self.metrics.write("serve_request", **fields)

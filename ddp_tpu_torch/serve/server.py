@@ -40,6 +40,12 @@ from ddp_tpu_torch.serve.scheduler import QUEUE_FULL
 _IDLE_SLEEP_S = 0.002
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    # socketserver's listen backlog is 5: a burst of concurrent clients
+    # (a shared-prefix fan-out) overflows it and connections are reset.
+    request_queue_size = 128
+
+
 class LMServer:
     """Engine + engine thread + ThreadingHTTPServer, lifecycle-managed.
 
@@ -62,7 +68,7 @@ class LMServer:
         # exists to derive one from.
         self.retry_after = float(retry_after)
         self._engine_error: Optional[str] = None
-        self._httpd = ThreadingHTTPServer((host, port), _make_handler(self))
+        self._httpd = _HTTPServer((host, port), _make_handler(self))
         self.host = host
         self.port = int(self._httpd.server_address[1])
         self._threads: list[threading.Thread] = []
@@ -173,6 +179,9 @@ class LMServer:
             "tokens": done.tokens,
             "ttft_s": round(done.ttft, 4) if done.ttft is not None else None,
             "decode_tokens_per_s": round(done.decode_tokens_per_s, 2),
+            # Paged engines only: prompt tokens served from cached pages.
+            **({"prefix_hit_tokens": done.prefix_hit_tokens}
+               if done.prefix_hit_tokens is not None else {}),
         }
 
     def snapshot(self, route: str) -> Optional[dict]:

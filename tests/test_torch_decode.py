@@ -364,3 +364,4 @@ def test_port_imports_no_jax():
     )
     assert res.returncode == 0, res.stderr[-2000:]
     assert "ddp_tpu_torch.serve.__main__" in mods
+    assert "ddp_tpu_torch.serve.pages" in mods  # the PrefixCache copy
