@@ -70,6 +70,27 @@ order; any failure exits non-zero and prints no result:
    > 1.5 (bench.py's floors). It prints TTFT p50/p99 split hit against
    miss, decode tokens/s and step p50/p99, and the busy share of steady
    paged decode steps.
+4d. Speculative decoding at phase 4's full width: a draft proposes γ 4
+   tokens a lane through B4 on its own fp32 cache, the target verifies
+   them in one step. With ``truncated_draft(model, 4)`` (the target's
+   first 4 blocks, bench.py's zero-training draft), fp32 and int8
+   target KV, phase 4's REQUESTS run in-process on a fixed schedule
+   (SPEC_BUDGET: every prompt's chunk split is its own), and every
+   greedy and seeded stream must equal the plain engine's or part only
+   at a near tie (for a sampled token, of the scores its draw compares).
+   The self-draft (all 8 blocks) on the greedy requests: every rejected
+   position must be a near tie of the target. Paged (page 16) on phase
+   4c's prefix traffic: streams equal the plain fixed-lane engine's.
+   Counters set to 0 before each run and read after: flash_decode_fp32
+   launched exactly rounds x γ x draft depth times, no B5, B4p or B5p
+   launch, nothing routed to a plain version. A verify that counts the
+   first mismatch as a match must fail the stream check. Then, on
+   bench.py _variant's traffic (16 requests, prompts 8-64, 128 new
+   tokens, seed 1), the plain engine, the truncated draft and the
+   self-draft: tokens/s, step p50/p99, acceptance, tokens a target
+   step, B4 launches a round and the steady round's split (γ draft
+   steps against one verify, CUDA events); then the busy share of
+   steady speculative rounds.
 3b. (Runs after 4, so that its large allocations come after the serving
    run's timings.) The flash-attention kernels B1 (forward), B2 (dQ) and
    B3 (dK/dV), bf16 and fp32, against their plain versions: out, lse and
@@ -1210,12 +1231,18 @@ def lone_streams(torch, model, prompts, picks, *, kv_dtype, decode_attn):
     return out
 
 
-def replay_gap(torch, model, prompt, stream, j, kv_dtype) -> float:
+def replay_gap(torch, model, prompt, stream, j, kv_dtype,
+               sampling=None) -> float:
     """Top-2 logit gap of the plain path at token ``j`` (>= 1) of a lone
     request: the engine's chunk plan for the prompt, then one plain
-    decode step per earlier token, on a one-slot cache."""
+    decode step per earlier token, on a one-slot cache. For a sampled
+    request (``sampling``: its temperature, top_p and seed) the gap is
+    of the scores its draw compares: logits / T, nucleus-filtered, plus
+    the Gumbel noise of step ``j``."""
     from ddp_tpu_torch.models.generate import (
+        gumbel_noise,
         init_slot_cache,
+        nucleus_filter,
         prefill_chunk,
         slot_decode_step,
     )
@@ -1250,13 +1277,25 @@ def replay_gap(torch, model, prompt, stream, j, kv_dtype) -> float:
     for t in stream[:j]:
         logits = slot_decode_step(model, cache, torch.tensor([t], device=dev),
                                   attn_impl="reference")
-    top = torch.topk(logits[0], 2).values
+    scores = logits[0]
+    temp = (sampling or {}).get("temperature", 0.0)
+    if temp > 0:
+        scores = scores / temp
+        top_p = sampling.get("top_p", 1.0)
+        if top_p < 1.0:
+            scores = nucleus_filter(scores, top_p)
+        scores = scores + gumbel_noise(
+            torch.tensor([sampling.get("seed", 0)], device=dev),
+            torch.tensor([j], device=dev), spec.vocab_size)[0]
+    top = torch.topk(scores, 2).values
     return float(top[0] - top[1])
 
 
-def profile_steps(torch, model, *, steps=16, page_size=0) -> None:
+def profile_steps(torch, model, *, steps=16, page_size=0, label="",
+                  **engine_kw) -> None:
     """Device busy share of steady decode steps (all 8 lanes decoding,
-    fp32 KV, kernel path; paged with ``page_size``), from torch.profiler:
+    fp32 KV, kernel path; paged with ``page_size``; other engine knobs,
+    such as speculation's, in ``engine_kw``), from torch.profiler:
     summed CUDA kernel time over the wall time of ``steps`` engine steps,
     and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -1264,10 +1303,15 @@ def profile_steps(torch, model, *, steps=16, page_size=0) -> None:
     from ddp_tpu_torch.serve.engine import ServeEngine
 
     engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
-                         page_size=page_size)
+                         page_size=page_size, **engine_kw)
     rng = np.random.default_rng(2)
+    # Budgets long enough for every timed step to decode every lane,
+    # under speculation too (up to γ tokens a step).
+    n_new = 64 if not engine.spec_tokens else (
+        model.spec.total_len - 64 - engine.spec_tokens)
     for _ in range(SLOTS):
-        engine.submit(rng.integers(0, model.spec.vocab_size, 64).tolist(), 64)
+        engine.submit(rng.integers(0, model.spec.vocab_size, 64).tolist(),
+                      n_new)
     for _ in range(8):  # prefill done, every lane decoding
         engine.step()
     torch.cuda.synchronize()
@@ -1288,7 +1332,7 @@ def profile_steps(torch, model, *, steps=16, page_size=0) -> None:
         return
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
     log(f"[profile] {steps} decode steps, 8 lanes, fp32 KV"
-        f"{f', page {page_size}' if page_size else ''}: wall "
+        f"{f', page {page_size}' if page_size else ''}{label}: wall "
         f"{wall * 1e3:.2f} ms, device kernel time {busy_us / 1e3:.2f} ms, "
         f"busy share {busy_us / 1e6 / wall:.3f}")
     for e in top:
@@ -1562,6 +1606,351 @@ def check_paged_serving(torch) -> dict:
             check_paged_run(torch, model, prompts, fixed, kv_dtype=kv_dtype,
                             kv_pages=EVICT_KV_PAGES)
     profile_steps(torch, model, page_size=SERVE_PAGE)
+    return counted
+
+
+# ---- phase 4d: speculative decoding in serving, end to end ---------------
+
+# bench.py's speculative variants (bench.py:960-983): γ 4, a draft of the
+# target's first depth // 2 blocks sharing its weights; the self-draft is
+# all of them.
+SPEC_GAMMA, DRAFT_DEPTH = 4, 4
+# A budget no chunk plan ever meets: each prompt's chunk split is then
+# its own (as a lone request's), whatever the decode lanes cost, so the
+# speculative and plain engines ingest every prompt alike.
+SPEC_BUDGET = SLOTS * (64 + SPEC_GAMMA)
+# bench.py _variant's traffic (bench.py:909-923): 2 x slots requests,
+# prompts of 8-64 tokens, 128 new tokens each, from seed 1.
+VARIANT_NEW, VARIANT_SEED = 128, 1
+
+
+def _spec_counters(dec) -> None:
+    for wrapper in (dec.flash_decode_attention,
+                    dec.flash_decode_paged_attention):
+        for k in wrapper.launches:
+            wrapper.launches[k] = 0
+        wrapper.plain_routed = 0
+
+
+def _spec_launch_failures(dec, engine, depth) -> tuple[dict, list[str]]:
+    """Counters read after a speculative run: B4 launched exactly draft
+    steps x draft depth times, no B5, B4p or B5p launch, nothing routed
+    to a plain version → (launches, failures)."""
+    flat = dict(dec.flash_decode_attention.launches)
+    paged = dict(dec.flash_decode_paged_attention.launches)
+    routed = (dec.flash_decode_attention.plain_routed
+              + dec.flash_decode_paged_attention.plain_routed)
+    want = engine.decode_steps * engine.spec_tokens * depth
+    failed = []
+    if engine.draft_decode_attn != "flash" or want == 0:
+        failed.append(f"draft path {engine.draft_decode_attn}, {want} "
+                      "draft layer steps")
+    if flat["flash_decode_fp32"] != want:
+        failed.append(f"flash_decode_fp32 {flat['flash_decode_fp32']} != "
+                      f"draft steps x depth {want}")
+    if flat["flash_decode_int8"] or any(paged.values()) or routed:
+        failed.append(f"unexpected launches {flat} {paged}, routed {routed}")
+    return {**flat, **paged, "routed": routed, "want": want}, failed
+
+
+def _stream_failures(torch, model, prompts, got, want, kv_dtype, label,
+                     sampling=None) -> tuple[int, list[str]]:
+    """Streams ``got`` against ``want`` (index → tokens): equal, or
+    parted only at a near tie of the plain path (replay_gap; sampled
+    requests by the scores their draw compares) → (parted, failures)."""
+    parted, failed = 0, []
+    for i in sorted(want):
+        a, b = got[i], want[i]
+        if a == b:
+            continue
+        parted += 1
+        if len(a) != len(b):
+            failed.append(f"request {i}: {len(a)} tokens, not {len(b)}")
+            continue
+        j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
+        if j == 0:
+            failed.append(f"request {i} parts at its first token")
+            continue
+        gap = replay_gap(torch, model, prompts[i], b, j, kv_dtype,
+                         sampling=(sampling or {}).get(i))
+        log(f"[spec] {label} request {i}: streams part at token {j}; "
+            f"gap {gap:.3e}")
+        if gap >= DIVERGENCE_GAP:
+            failed.append(f"request {i} diverged at token {j}, gap {gap}")
+    return parted, failed
+
+
+def spec_requests() -> dict:
+    """Phase 4's REQUESTS by index, each budget capped at the speculative
+    admission ceiling (total_len - (γ - 1): the verify round's reserve;
+    only the 128 + 128 request shrinks, to 125 new tokens)."""
+    ceiling = FULL["total_len"] - (SPEC_GAMMA - 1)
+    return {i: (n, min(new, ceiling - n), s)
+            for i, (n, new, s) in enumerate(REQUESTS)}
+
+
+def spec_streams(torch, model, prompts, *, kv_dtype, draft=None,
+                 cases=None, watch=None) -> tuple[dict, object]:
+    """``cases`` (index → (prompt_len, new tokens, sampling); default
+    spec_requests()) submitted at once and run to idle in-process under
+    SPEC_BUDGET, speculative with ``draft`` at SPEC_GAMMA or plain
+    without one; ``watch(engine)`` is called before the first step →
+    ({index: tokens}, engine)."""
+    from ddp_tpu_torch.serve.engine import ServeEngine
+
+    cases = cases or spec_requests()
+    knobs = dict(spec_tokens=SPEC_GAMMA, draft_model=draft) if draft else {}
+    engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
+                         kv_dtype=kv_dtype, step_token_budget=SPEC_BUDGET,
+                         max_queue=len(cases), **knobs)
+    if watch:
+        watch(engine)
+    rids = {i: engine.submit(prompts[i], n_new, **sampling).request.rid
+            for i, (_, n_new, sampling) in cases.items()}
+    engine.run()
+    torch.cuda.synchronize()
+    out = {}
+    for i, rid in rids.items():
+        c = engine.pop_result(rid)
+        if c.status != "complete" or len(c.tokens) != cases[i][1]:
+            raise AssertionError(f"phase 4d request {i}: {c.status}, "
+                                 f"{len(c.tokens)}/{cases[i][1]}")
+        out[i] = c.tokens
+    return out, engine
+
+
+def _rejections_at_near_ties(torch, engine, gaps: list) -> None:
+    """Wrap the engine's verify to append to ``gaps``, every round, the
+    target's top-2 logit gap at each live lane's first rejected position
+    (a self-draft rejects only where draft and target order a near tie
+    differently). Reads the logits through generate's block sampler."""
+    import ddp_tpu_torch.models.generate as gen
+
+    seen = []
+    real_sampler, real_verify = gen.sample_slot_tokens_block, engine._verify
+
+    def sampler(logits, *a, **kw):
+        top = torch.topk(logits, 2, dim=-1).values
+        seen.append(top[..., 0] - top[..., 1])  # [S, K]
+        return real_sampler(logits, *a, **kw)
+
+    def verify(drafts, reqs):
+        live = [i for i, s in enumerate(engine._slots)
+                if s.decoding and s.emitted < s.request.max_new_tokens]
+        gen.sample_slot_tokens_block = sampler
+        try:
+            out = real_verify(drafts, reqs)
+        finally:
+            gen.sample_slot_tokens_block = real_sampler
+        matched = out[:, -1].tolist()
+        gap = seen.pop().tolist()
+        gaps.extend(gap[i][matched[i]] for i in live
+                    if matched[i] < engine.spec_tokens)
+        return out
+
+    engine._verify = verify
+
+
+def _time_round(torch, engine) -> dict:
+    """Wrap the engine's draft proposal and verify in CUDA events (no
+    synchronize: the round runs as it would) → per part, the list of
+    (start, end) event pairs, filled as the engine runs; read them after
+    a synchronize."""
+    split = {"draft_ms": [], "verify_ms": []}
+    propose, verify = engine._draft_propose, engine._verify
+
+    def timed(fn, key):
+        def call(*a):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*a)
+            end.record()
+            split[key].append((start, end))
+            return out
+        return call
+
+    engine._draft_propose = timed(propose, "draft_ms")
+    engine._verify = timed(verify, "verify_ms")
+    return split
+
+
+def time_spec_variant(torch, model, label, draft=None) -> None:
+    """bench.py _variant's traffic on one engine (fp32 KV, default
+    budget): 16 requests submitted at once, one step to settle, then the
+    step latencies and the wall time of the rest, logged."""
+    from ddp_tpu_torch.ops import decode as dec
+    from ddp_tpu_torch.serve.engine import ServeEngine
+    from ddp_tpu_torch.utils.metrics import StatSummary
+
+    knobs = dict(spec_tokens=SPEC_GAMMA, draft_model=draft) if draft else {}
+    engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
+                         max_queue=4 * SLOTS, **knobs)
+    split = _time_round(torch, engine) if draft else None
+    rng = np.random.default_rng(VARIANT_SEED)
+    for _ in range(2 * SLOTS):
+        plen = int(rng.integers(8, max(9, PREFILL_LEN // 2 + 1)))
+        adm = engine.submit(
+            rng.integers(0, model.spec.vocab_size, plen).tolist(),
+            VARIANT_NEW)
+        if not adm.accepted:
+            raise AssertionError(f"phase 4d {label}: {adm.reason}")
+    _spec_counters(dec)
+    engine.step()
+    engine.step_latency = StatSummary()
+    t0 = time.perf_counter()
+    while engine.pending:
+        engine.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(c.tokens) for c in engine._completed.values())
+    lat = engine.step_latency
+    out = {
+        "tokens_per_s": tokens / wall, "tokens": tokens, "wall_s": wall,
+        "step_p50_ms": lat.percentile(50) * 1e3,
+        "step_p99_ms": lat.percentile(99) * 1e3,
+        "target_steps": engine.decode_steps,
+        "tokens_per_target_step": tokens / max(1, engine.decode_steps),
+        "acceptance": engine.spec_acceptance_rate(),
+        "b4_launches": dec.flash_decode_attention.launches[
+            "flash_decode_fp32"],
+    }
+    if draft:
+        out["b4_per_round"] = out["b4_launches"] / engine.decode_steps
+        # The steady rounds: all but the first 8 (prefill waves settle).
+        for key in ("draft_ms", "verify_ms"):
+            out[key + "_p50"] = float(np.median(
+                [a.elapsed_time(b) for a, b in split[key][8:]]))
+    log(f"[spec-time] {label}: {tokens} tokens in {wall:.3f} s = "
+        f"{out['tokens_per_s']:.1f} tokens/s, {engine.decode_steps} target "
+        f"steps ({out['tokens_per_target_step']:.3f} tokens a step), step "
+        f"p50 {out['step_p50_ms']:.2f} ms p99 {out['step_p99_ms']:.2f} ms, "
+        f"acceptance {out['acceptance']}, B4 launches {out['b4_launches']}"
+        + (f" ({out['b4_per_round']:.1f} a round); steady round: "
+           f"{SPEC_GAMMA} draft steps {out['draft_ms_p50']:.3f} ms, verify "
+           f"{out['verify_ms_p50']:.3f} ms (CUDA events, median)"
+           if draft else ""))
+
+
+def check_spec_serving(torch, card) -> dict:
+    """Phase 4d: speculative decoding at phase 4's full width → the
+    truncated draft's B4 launches in its fp32 run."""
+    import ddp_tpu_torch.serve.engine as engine_mod
+    from ddp_tpu_torch.models.lm import LMSpec, init_lm, truncated_draft
+    from ddp_tpu_torch.ops import decode as dec
+
+    spec = LMSpec(**FULL)
+    model = init_lm(spec, seed=0)
+    draft = truncated_draft(model, DRAFT_DEPTH)
+    selfd = truncated_draft(model, spec.depth)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, spec.vocab_size, n).tolist()
+               for n, _, _ in REQUESTS]
+    sampling = {i: s for i, (_, _, s) in enumerate(REQUESTS) if s}
+    failed, counted = [], {}
+
+    # 1-2. REQUESTS with the truncated draft, fp32 and int8 target KV.
+    for kv_dtype in ("fp32", "int8"):
+        want, _ = spec_streams(torch, model, prompts, kv_dtype=kv_dtype)
+        _spec_counters(dec)
+        got, engine = spec_streams(torch, model, prompts, kv_dtype=kv_dtype,
+                                   draft=draft)
+        launches, bad = _spec_launch_failures(dec, engine, DRAFT_DEPTH)
+        parted, bad2 = _stream_failures(torch, model, prompts, got, want,
+                                        kv_dtype, f"kv={kv_dtype}", sampling)
+        log(f"[spec] kv={kv_dtype} truncated draft (depth {DRAFT_DEPTH}), "
+            f"γ {SPEC_GAMMA}: {len(got)} streams, {len(got) - parted} "
+            f"identical to the plain engine's, {parted} parted at a near "
+            f"tie; acceptance {engine.spec_acceptance_rate():.4f}, "
+            f"{engine.decode_steps} rounds; launches {launches}")
+        failed += [f"kv={kv_dtype}: {f}" for f in bad + bad2]
+        counted[kv_dtype] = launches["flash_decode_fp32"]
+
+    # 3. The self-draft: every rejection a near tie of the target.
+    greedy = {i: c for i, c in spec_requests().items() if not c[2]}
+    rejected: list = []
+    _spec_counters(dec)
+    got, engine = spec_streams(
+        torch, model, prompts, kv_dtype="fp32", draft=selfd, cases=greedy,
+        watch=lambda e: _rejections_at_near_ties(torch, e, rejected))
+    launches, bad = _spec_launch_failures(dec, engine, spec.depth)
+    want_greedy, _ = spec_streams(torch, model, prompts, kv_dtype="fp32",
+                                  cases=greedy)
+    parted, bad2 = _stream_failures(torch, model, prompts, got, want_greedy,
+                                    "fp32", "self-draft")
+    wide = [g for g in rejected if g >= DIVERGENCE_GAP]
+    log(f"[spec] self-draft (depth {spec.depth}), γ {SPEC_GAMMA}, greedy: "
+        f"acceptance {engine.spec_acceptance_rate():.4f}, {len(rejected)} "
+        f"rejections, largest target gap at one "
+        f"{max(rejected, default=0.0):.3e}; {parted} streams parted; "
+        f"launches {launches}")
+    failed += [f"self-draft: {f}" for f in bad + bad2]
+    if wide:
+        failed.append(f"self-draft rejected {len(wide)} positions with a "
+                      f"target gap >= {DIVERGENCE_GAP}: {wide[:5]}")
+
+    # 4. Paged (page 16) on phase 4c's prefix traffic, against the plain
+    #    fixed-lane engine.
+    from ddp_tpu_torch.serve.engine import ServeEngine
+
+    pprompts = prefix_prompts(spec.vocab_size)
+    fixed = fixed_lane_streams(torch, model, pprompts, kv_dtype="fp32")
+    _spec_counters(dec)
+    engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
+                         page_size=SERVE_PAGE, max_queue=len(pprompts),
+                         spec_tokens=SPEC_GAMMA, draft_model=draft)
+    rids = [engine.submit(pprompts[0], PREFIX_NEW).request.rid]
+    engine.run()
+    rids += [engine.submit(p, PREFIX_NEW).request.rid for p in pprompts[1:]]
+    engine.run()
+    torch.cuda.synchronize()
+    done = [engine.pop_result(r) for r in rids]
+    launches, bad = _spec_launch_failures(dec, engine, DRAFT_DEPTH)
+    if any(c.status != "complete" for c in done):
+        bad.append("a paged request did not complete")
+    parted, bad2 = _stream_failures(
+        torch, model, pprompts, {i: c.tokens for i, c in enumerate(done)},
+        dict(enumerate(fixed)), "fp32", "paged")
+    st = engine.page_stats()
+    log(f"[spec] paged (page {SERVE_PAGE}), truncated draft, γ "
+        f"{SPEC_GAMMA}: {len(done)} requests, {len(done) - parted} streams "
+        f"identical to the plain fixed-lane engine's, {parted} parted at a "
+        f"near tie; hit rate {st['prefix_hit_rate']}, acceptance "
+        f"{engine.spec_acceptance_rate():.4f}; launches {launches}")
+    failed += [f"paged: {f}" for f in bad + bad2]
+
+    # 6. Negative control: a verify that counts the first mismatch as a
+    #    match must fail the stream check.
+    real = engine_mod.slot_verify_step
+
+    def over_accepts(*a, **kw):
+        nxt, tgt, matched = real(*a, **kw)
+        return nxt, tgt, torch.clamp(matched + 1, max=tgt.shape[1])
+
+    engine_mod.slot_verify_step = over_accepts
+    try:
+        got, _ = spec_streams(torch, model, prompts, kv_dtype="fp32",
+                              draft=draft, cases=greedy)
+    finally:
+        engine_mod.slot_verify_step = real
+    _, caught = _stream_failures(torch, model, prompts, got, want_greedy,
+                                 "fp32", "over-accepting verify")
+    log(f"[spec] negative control (matched + 1): the stream check "
+        f"{'rejects' if caught else 'ACCEPTS'} it ({len(caught)} streams)")
+    if not caught:
+        failed.append("the stream check accepted an over-accepting verify")
+    if failed:
+        raise AssertionError(f"phase 4d: {failed}")
+
+    # 7. Timing on bench.py _variant's traffic, then the busy share of
+    #    steady rounds.
+    log(f"[spec-time] {card}")
+    time_spec_variant(torch, model, "plain")
+    time_spec_variant(torch, model, "spec, truncated draft", draft)
+    time_spec_variant(torch, model, "spec, self-draft", selfd)
+    for label, d in (("truncated draft", draft), ("self-draft", selfd)):
+        profile_steps(torch, model, label=f", spec γ {SPEC_GAMMA} {label}",
+                      spec_tokens=SPEC_GAMMA, draft_model=d)
     return counted
 
 
@@ -2407,22 +2796,24 @@ def time_decode_main(argv) -> int:
 
 
 def time_serve_steps(torch, model, *, kv_dtype, page_size=0, steps=40,
-                     reps=4) -> float:
+                     reps=4, **spec_kw) -> float:
     """Median host time (ms) of one steady engine step at 8 lanes, every
     lane decoding (prompts of 32 tokens, prefill done), over ``reps``
     windows of ``steps`` steps, each ended by a synchronize: the decode
-    step latency free of arrival order."""
+    step latency free of arrival order. ``spec_kw`` (spec_tokens,
+    draft_model) makes every step a speculative round."""
     from ddp_tpu_torch.serve.engine import ServeEngine
 
     knobs = {"page_size": page_size} if page_size else {}
     engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
-                         kv_dtype=kv_dtype, **knobs)
+                         kv_dtype=kv_dtype, **knobs, **spec_kw)
     rng = np.random.default_rng(3)
     prompt_len = 32
     for _ in range(SLOTS):
         adm = engine.submit(
             rng.integers(0, model.spec.vocab_size, prompt_len).tolist(),
-            model.spec.total_len - prompt_len - 1)
+            model.spec.total_len - prompt_len
+            - max(1, spec_kw.get("spec_tokens", 0)))
         if not adm.accepted:
             raise AssertionError(f"time_serve_steps: {adm.reason}")
     for _ in range(16):
@@ -2446,7 +2837,9 @@ def time_serve_main(argv) -> int:
     """``--time-serve [--root DIR]``: the median steady decode step (ms)
     of the serving engine of the package under DIR (default: this
     script's tree) at phase 4's full width, 8 lanes, fp32 and int8 KV;
-    paged too (page 16) where that tree serves paged. Run it on two
+    paged too (page 16) where that tree serves paged, and one
+    speculative round a step (fp32, phase 4d's truncated draft, γ 4)
+    where it has spec_tokens. Run it on two
     trees in turns (parent, change, change, parent) within one call to
     compare them on one card."""
     import inspect
@@ -2465,7 +2858,8 @@ def time_serve_main(argv) -> int:
     root = str(_build.CSRC.parents[2])
     _build.build(("flash_decode.cu",))
     model = init_lm(LMSpec(**FULL), seed=0)
-    paged = "page_size" in inspect.signature(ServeEngine).parameters
+    knobs = inspect.signature(ServeEngine).parameters
+    paged = "page_size" in knobs
     time_serve_steps(torch, model, kv_dtype="fp32", steps=8, reps=1)  # warm
     ms = {}  # fixed-lane first, in the same order on every tree
     for kv_dtype in ("fp32", "int8"):
@@ -2474,6 +2868,12 @@ def time_serve_main(argv) -> int:
     for kv_dtype in ("fp32", "int8") if paged else ():
         ms[f"{kv_dtype}_paged"] = round(time_serve_steps(
             torch, model, kv_dtype=kv_dtype, page_size=SERVE_PAGE), 3)
+    if "spec_tokens" in knobs:  # one speculative round a step
+        from ddp_tpu_torch.models.lm import truncated_draft
+
+        ms["fp32_spec"] = round(time_serve_steps(
+            torch, model, kv_dtype="fp32", spec_tokens=SPEC_GAMMA,
+            draft_model=truncated_draft(model, DRAFT_DEPTH)), 3)
     log(card_line())
     print(json.dumps({"root": root, "step_ms": ms}), flush=True)
     return 0
@@ -2545,6 +2945,7 @@ def main() -> int:
     paged_timings = check_paged_kernels(torch)
     launches = check_serving(torch)
     paged_launches = check_paged_serving(torch)
+    spec_launches = check_spec_serving(torch, card)
     flash = check_flash(torch)
     check_routed_training(torch)
     trained = check_training(torch)
@@ -2562,6 +2963,9 @@ def main() -> int:
          **timings[name]}
         for name in ("flash_decode_fp32", "flash_decode_int8")
     ]
+    # B4 is also the draft's decode attention on the speculative path
+    # (phase 4d, truncated draft, fp32 and int8 target KV).
+    kernels[0]["spec_launches"] = spec_launches
     # B4p/B5p: library_ms is the gather then SDPA; gather_fixed_ms the
     # JAX design on the card (the gather, then B4/B5).
     kernels += [

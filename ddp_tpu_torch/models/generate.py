@@ -20,6 +20,12 @@ batch of S slots alive; requests of different ages share it:
   prefix map the same pages. Both :func:`slot_decode_step` (through
   ``ops/decode.paged_decode_attention``: the paged CUDA kernel on the
   GPU) and :func:`prefill_chunk` take either cache.
+- :func:`slot_verify_step` — speculative decoding's verify: K draft
+  tokens per lane scored in ONE target step (plain-torch attention over
+  :func:`_full_kv`, as the JAX package computes it outside any Pallas
+  kernel), sampled by :func:`sample_slot_tokens_block` at the counters
+  the non-speculative loop would use, so the accepted prefix is exactly
+  that loop's stream.
 - Seeded sampling by Gumbel-max from a counter-based generator keyed by
   (seed, emitted-token index, vocab id), in torch integer ops on the
   device, with no ``torch.Generator`` per lane. A seeded stream thus
@@ -34,6 +40,7 @@ is always live, so their outputs are finite garbage the engine ignores.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -209,6 +216,23 @@ def _write_kv_rows(cache: SlotCache, layer: int, k, v, pos) -> None:
         cache.v[layer][lanes, idx] = v.to(cache.v.dtype)
 
 
+def _full_kv(cache, layer: int):
+    """All S lanes' [S, L, H_kv, Dh] fp32 views of ``layer`` —
+    dequantized if int8, gathered through the tables if paged (JAX's
+    ``_full_kv``): the verify step's key/value source."""
+    kf, vf = cache.k[layer], cache.v[layer]
+    ksc, vsc = cache.lane_scales(layer)
+    if isinstance(cache, PagedSlotCache):
+        kf = gather_paged_kv(kf, cache.table)
+        vf = gather_paged_kv(vf, cache.table)
+        if ksc is not None:
+            ksc = gather_paged_kv(ksc, cache.table)
+            vsc = gather_paged_kv(vsc, cache.table)
+    if ksc is not None:
+        return dequantize_kv(kf, ksc), dequantize_kv(vf, vsc)
+    return kf.float(), vf.float()
+
+
 @torch.no_grad()
 def slot_decode_step(
     model: CausalLM, cache: SlotCache, tokens, *, attn_impl: str = "reference"
@@ -360,6 +384,106 @@ def slot_decode_sample_step(
     )
     steps.add_(1)
     return toks
+
+
+def sample_slot_tokens_block(
+    logits, seeds, steps, temps, top_ps, *,
+    sampling: bool = True, nucleus: bool = True,
+):
+    """Per-(slot, offset) sampling over [S, K, V] logits → [S, K] int64.
+
+    The verify step's sibling of :func:`sample_slot_tokens`: offset j of
+    lane s draws with the noise of step ``steps[s] + j``, so row (s, j)
+    is the very token :func:`sample_slot_tokens` draws for lane s at
+    that step — what keeps seeded acceptance exact. The [S·K] rows go
+    through :func:`sample_slot_tokens` at once, under the same host
+    flags.
+    """
+    S, K, V = logits.shape
+    offs = torch.arange(K, device=steps.device)
+    toks = sample_slot_tokens(
+        logits.reshape(S * K, V),
+        seeds.repeat_interleave(K),
+        (steps[:, None] + offs[None, :]).reshape(-1),
+        temps.repeat_interleave(K),
+        top_ps.repeat_interleave(K),
+        sampling=sampling, nucleus=nucleus,
+    )
+    return toks.reshape(S, K)
+
+
+@torch.no_grad()
+def slot_verify_step(
+    model: CausalLM, cache, tokens, drafts, seeds, steps, temps, top_ps,
+    *, sampling: bool = True, nucleus: bool = True,
+):
+    """Speculative decoding's verify: score K draft tokens per lane in
+    ONE target step → ``(next_toks [S], target [S, K], matched [S])``.
+
+    ``tokens`` [S]: each lane's last accepted token; ``drafts`` [S, K]:
+    the draft's proposals d_1..d_K. The inputs ``[token, d_1..d_{K-1}]``
+    run at positions ``pos[s] + j`` (the position embedding clamped at
+    L-1), K/V written (quantized on an int8 cache) before the attention,
+    which is plain fp32 over :func:`_full_kv` under the banded mask
+    ``key <= pos[s] + j``. The write start clamps at ``L - K`` (on a
+    paged cache the clamped positions map through the tables, writes of
+    an unmapped lane landing in the scratch page): the engine reserves
+    K-1 positions at admission, so only an idle lane parked at the
+    position ceiling meets the clamp. ``target[s, j]`` is sampled at
+    step ``steps[s] + j`` (:func:`sample_slot_tokens_block`), i.e. the
+    token the non-speculative loop emits there.
+
+    ``matched`` counts the leading positions where draft == target. The
+    lane emits n = min(matched + 1, K) tokens, ``target[s, :n]``;
+    ``next_toks`` is ``target[s, n - 1]``, and ``cache.pos`` (clamped at
+    L) and ``steps`` advance by n in place, so rejected rows sit above
+    ``pos`` until the next round overwrites them. No host sync.
+    ``ddp_tpu/models/generate.py`` ``slot_verify_step``, line for line.
+    """
+    spec = model.spec
+    L = spec.total_len
+    S, K = drafts.shape
+    G = spec.num_heads // spec.kv_heads
+    dev = drafts.device
+    pos = cache.pos.long()
+    inputs = torch.cat([tokens[:, None].long(), drafts[:, :-1].long()], dim=1)
+    offs = torch.arange(K, device=dev)
+    q_end = pos[:, None] + offs[None, :]  # [S, K] absolute positions
+    x = model.embed[inputs] + model.pos_embed[0][
+        torch.clamp(q_end, max=L - 1)]
+    wstart = torch.clamp(pos, max=L - K)
+    paged = isinstance(cache, PagedSlotCache)
+    if paged:
+        pids, woffs = _page_scatter_ids(
+            cache.table, wstart[:, None] + offs[None, :], cache.page_size)
+    live = (torch.arange(L, device=dev)[None, None, :]
+            <= q_end[:, :, None])[:, None]  # [S, 1, K, L]
+    for i, blk in enumerate(model.blocks):
+        q, k, v = blk.qkv(x)  # [S, K, H, Dh], [S, K, H_kv, Dh]
+        if paged:
+            _write_pages(cache, i, pids, woffs, k, v)
+        else:
+            _write_kv_rows(cache, i, k, v, wstart)
+        kf, vf = _full_kv(cache, i)  # [S, L, H_kv, Dh] fp32
+        logits = torch.einsum(
+            "sqhd,slhd->shql", q.float(), kf.repeat_interleave(G, dim=2)
+        ) * spec.head_dim**-0.5
+        w = torch.softmax(logits.masked_fill(~live, -math.inf), dim=-1)
+        attn = torch.einsum("shql,slhd->sqhd", w,
+                            vf.repeat_interleave(G, dim=2))
+        x = blk.finish(x, attn.reshape(S, K, spec.d_model).to(x.dtype))
+    target = sample_slot_tokens_block(
+        model.head(x), seeds, steps, temps, top_ps,
+        sampling=sampling, nucleus=nucleus,
+    )
+    # Leading exact matches: cumprod makes the first mismatch a
+    # permanent zero, so the sum is the accepted prefix's length.
+    matched = torch.cumprod((target == drafts.long()).long(), dim=1).sum(dim=1)
+    n = torch.clamp(matched + 1, max=K)
+    next_toks = torch.gather(target, 1, (n - 1)[:, None])[:, 0]
+    cache.pos.copy_(torch.clamp(pos + n, max=L))
+    steps.add_(n)
+    return next_toks, target, matched
 
 
 @torch.no_grad()

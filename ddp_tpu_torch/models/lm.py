@@ -18,6 +18,8 @@ compute dtype inside the forward, as ``ddp_tpu.models.lm`` does
 kernels B1–B3 on a CUDA tensor), as the JAX step does through
 ``_sharded_lm``. ``make_lm_train_step`` / ``make_lm_eval_step`` are the
 one-rank counterparts of the JAX steps (``lm.py:492-712``).
+``truncated_draft`` is a speculative-decoding draft made of the first
+blocks of a model, sharing its tensors.
 
 MoE blocks, remat and tensor/expert/sequence parallelism wait for
 later slices.
@@ -438,3 +440,23 @@ def init_lm_state(spec: LMSpec, *, seed: int = 0) -> dict[str, np.ndarray]:
 def init_lm(spec: LMSpec, *, seed: int = 0, device=None) -> CausalLM:
     """A seeded random model on ``device`` (the GPU unless ``"cpu"``)."""
     return CausalLM.from_state(spec, init_lm_state(spec, seed=seed), device)
+
+
+def truncated_draft(model: CausalLM, depth: int) -> CausalLM:
+    """A speculative-decoding draft that shares ``model``'s weights: its
+    first ``depth`` blocks with ``embed``, ``pos_embed`` and
+    ``ln_final``, the same tensors (no copy). The zero-training draft of
+    ``bench.py``'s speculative variants."""
+    if not 1 <= depth <= model.spec.depth:
+        raise ValueError(
+            f"draft depth {depth} must be in 1..{model.spec.depth}"
+        )
+    draft = CausalLM.__new__(CausalLM)
+    nn.Module.__init__(draft)
+    draft.spec = model.spec._replace(depth=depth)
+    draft.embed = model.embed
+    draft.pos_embed = model.pos_embed
+    for i in range(depth):
+        draft.add_module(f"block{i + 1}", getattr(model, f"block{i + 1}"))
+    draft.ln_final = model.ln_final
+    return draft.train(model.training)

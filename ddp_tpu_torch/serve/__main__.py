@@ -14,6 +14,13 @@ goes through the CUDA flash-decode kernel (its paged form with
 ``--page_size``), unless ``--device cpu`` is given (the plain versions
 run there). Prints one JSON line when it
 serves, then serves until SIGTERM or Ctrl-C.
+
+``--spec_tokens N`` serves with speculative decoding: a draft model
+proposes N tokens a step (through the flash-decode kernel on its own
+fp32 cache) and the target verifies them in one step, the streams
+unchanged. The draft is ``--draft_params_npz`` (a JAX tree, as
+``--params_npz``, with as many heads) or, under ``--init_demo``, a
+seeded half-width, half-depth sibling of the demo model (seed 1).
 """
 
 from __future__ import annotations
@@ -64,6 +71,11 @@ def main(argv=None) -> None:
         "lanes; smaller pools lean on prefix sharing, admission waits "
         "on free pages)",
     )
+    p.add_argument("--spec_tokens", type=int, default=0,
+                   help="speculative decoding: draft tokens per step "
+                   "(0 = off)")
+    p.add_argument("--draft_params_npz", default=None,
+                   help="the draft's JAX parameter tree, as --params_npz")
     p.add_argument("--device", default=None,
                    help="default: the GPU; 'cpu' runs the plain versions")
     p.add_argument("--metrics_file", default=None)
@@ -71,21 +83,15 @@ def main(argv=None) -> None:
     p.add_argument("--port", type=int, default=8000)
     args = p.parse_args(argv)
 
-    from ddp_tpu_torch.models.lm import CausalLM, LMSpec, init_lm
+    from ddp_tpu_torch.models.lm import LMSpec, init_lm
     from ddp_tpu_torch.serve.engine import ServeEngine
     from ddp_tpu_torch.serve.server import LMServer
     from ddp_tpu_torch.utils.metrics import MetricsWriter
 
     if args.params_npz:
-        from ddp_tpu_torch.interop.jax_params import lm_params_from_jax
-
-        with np.load(args.params_npz) as npz:
-            tree = {k: npz[k] for k in npz.files}
-        try:
-            spec, state = lm_params_from_jax(tree, num_heads=args.num_heads)
-        except ValueError as e:
-            raise SystemExit(f"--params_npz {args.params_npz}: {e}")
-        model = CausalLM.from_state(spec, state, args.device)
+        model = _load_npz("--params_npz", args.params_npz,
+                          args.num_heads, args.device)
+        spec = model.spec
     else:
         spec = LMSpec(
             vocab_size=args.vocab_size, total_len=args.seq_len,
@@ -93,6 +99,21 @@ def main(argv=None) -> None:
             num_heads=args.num_heads,
         )
         model = init_lm(spec, seed=args.seed, device=args.device)
+    draft = None
+    if args.spec_tokens:
+        if args.draft_params_npz:
+            draft = _load_npz("--draft_params_npz", args.draft_params_npz,
+                              args.num_heads, args.device)
+        elif args.init_demo:
+            draft = init_lm(
+                spec._replace(d_model=max(16, spec.d_model // 2),
+                              depth=max(1, spec.depth // 2)),
+                seed=1, device=args.device)
+        else:
+            raise SystemExit(
+                "--spec_tokens needs --draft_params_npz (or --init_demo, "
+                "which synthesizes a draft)"
+            )
     metrics = MetricsWriter(args.metrics_file)
     engine = ServeEngine(
         model,
@@ -102,6 +123,8 @@ def main(argv=None) -> None:
         kv_dtype=args.kv_dtype,
         page_size=args.page_size,
         kv_pages=args.kv_pages,
+        spec_tokens=args.spec_tokens,
+        draft_model=draft,
     )
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
@@ -119,6 +142,9 @@ def main(argv=None) -> None:
                 "cache_bytes_per_slot": engine.cache_bytes_per_slot(),
                 **({"page_size": engine.page_size,
                     "kv_pages": engine.kv_pages} if engine.paged else {}),
+                **({"spec_tokens": engine.spec_tokens,
+                    "draft_spec": draft.spec._asdict()}
+                   if engine.spec_tokens else {}),
             }), flush=True)
             try:
                 stop.wait()
@@ -126,6 +152,20 @@ def main(argv=None) -> None:
                 pass
     finally:
         metrics.close()
+
+
+def _load_npz(flag: str, path: str, num_heads: int, device):
+    """A causal LM from a flat '/'-keyed JAX tree saved as ``.npz``."""
+    from ddp_tpu_torch.interop.jax_params import lm_params_from_jax
+    from ddp_tpu_torch.models.lm import CausalLM
+
+    with np.load(path) as npz:
+        tree = {k: npz[k] for k in npz.files}
+    try:
+        spec, state = lm_params_from_jax(tree, num_heads=num_heads)
+    except ValueError as e:
+        raise SystemExit(f"{flag} {path}: {e}")
+    return CausalLM.from_state(spec, state, device)
 
 
 if __name__ == "__main__":

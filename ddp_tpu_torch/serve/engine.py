@@ -17,6 +17,16 @@ every step:
    pinned memory when it was dispatched, so the host waits only for
    work it already queued a step ago.
 
+With ``spec_tokens`` γ > 0 (speculative decoding) step 4 becomes a
+ROUND: a draft model proposes γ greedy tokens per lane (γ
+``slot_decode_step`` calls on its own fixed-lane fp32 cache, the
+flash-decode kernel B4 on the GPU), and ``slot_verify_step`` scores
+them in one target step. Each lane emits its accepted prefix plus the
+target's correction, 1..γ tokens, and the streams are exactly the
+non-speculative ones. The emit counts are data-dependent, so the host
+reads the round's [S, γ] tokens and [S] match counts in the same step
+(this step's first-token scalars first, to keep each stream in order).
+
 With ``page_size`` > 0 the cache is paged (``PagedSlotCache``): K/V
 live in a pool of pages that lanes map through int32 page tables, and a
 radix prefix index (``serve/pages.PrefixCache``) lets prompts that share
@@ -24,10 +34,9 @@ a prefix prefill it once and map its pages copy-free. Admission then
 counts free pages; the decode attention reads the pool through the
 tables (the paged CUDA kernel on the GPU).
 
-Speculative decoding, request tracing, SLOs, compile introspection,
-hot-swap (with its prefix-index flush) and the page export/install of
-disaggregated serving are features of the JAX engine that later slices
-bring over.
+Request tracing, SLOs, compile introspection, hot-swap (with its
+prefix-index flush) and the page export/install of disaggregated
+serving are features of the JAX engine that later slices bring over.
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ from ddp_tpu_torch.models.generate import (
     init_slot_cache,
     prefill_chunk,
     slot_decode_sample_step,
+    slot_decode_step,
+    slot_verify_step,
 )
 from ddp_tpu_torch.models.lm import CausalLM, LMSpec
 from ddp_tpu_torch.ops import decode as decode_ops
@@ -82,6 +93,9 @@ class Completion:
     # Paged engines: prompt tokens served from cached prefix pages (0 =
     # a miss); None on fixed-lane engines.
     prefix_hit_tokens: Optional[int] = None
+    # Speculative engines: the fraction of this request's draft tokens
+    # the target accepted; None when no verify round ran for it.
+    spec_acceptance: Optional[float] = None
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -115,6 +129,10 @@ class _Slot:
     # in position order) and the prompt tokens its prefix hit covered.
     pages: list[int] = field(default_factory=list)
     matched_tokens: int = 0
+    # Speculative rounds: draft tokens proposed for / accepted by this
+    # request.
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
     @property
     def free(self) -> bool:
@@ -160,9 +178,11 @@ def resolve_engine_knobs(
     kv_dtype: str = "fp32",
     page_size: int = 0,
     kv_pages: Optional[int] = None,
+    spec_tokens: int = 0,
+    draft_spec: Optional[LMSpec] = None,
 ) -> dict:
-    """Validate + resolve the engine's knobs (the JAX rule set without
-    speculative decoding, same messages and defaults)."""
+    """Validate + resolve the engine's knobs (the JAX rule set, same
+    messages and defaults; ``draft_spec`` is the draft model's)."""
     if slots < 1:
         raise ValueError(f"slots must be >= 1, got {slots}")
     prefill_len = prefill_len or max(1, spec.total_len // 2)
@@ -208,11 +228,51 @@ def resolve_engine_knobs(
                 " (a maximal request could never bind — permanent "
                 "queue head starvation)"
             )
+    if spec_tokens:
+        if spec_tokens < 1:
+            raise ValueError(f"spec_tokens must be >= 1, got {spec_tokens}")
+        if draft_spec is None:
+            raise ValueError(
+                "speculative decoding needs a draft_model alongside "
+                "spec_tokens"
+            )
+        if draft_spec.vocab_size != spec.vocab_size:
+            raise ValueError(
+                f"draft vocab {draft_spec.vocab_size} != target "
+                f"vocab {spec.vocab_size}"
+            )
+        if draft_spec.total_len != spec.total_len:
+            raise ValueError(
+                f"draft total_len {draft_spec.total_len} != target "
+                f"total_len {spec.total_len} (the caches track the "
+                "same positions)"
+            )
+        if spec_tokens >= spec.total_len - prefill_len:
+            raise ValueError(
+                f"spec_tokens {spec_tokens} leaves no decode room "
+                f"past prefill_len {prefill_len} in total_len "
+                f"{spec.total_len}"
+            )
+    spec_tokens = int(spec_tokens)
+    # Admission context ceiling: the verify round's K-1 reserve comes off
+    # the budget check, never the cache geometry.
+    ctx_len = spec.total_len - max(0, spec_tokens - 1)
+    # Decode-path tokens dispatched per running lane per step: 1 plain,
+    # γ under speculation (the verify step runs γ positions a lane).
+    tokens_per_decode = max(1, spec_tokens)
     # The path for this model's cache: ``auto`` takes the plain version
     # on the card where the kernel does not take the shape.
     shape = (spec.num_heads, spec.kv_heads, spec.head_dim,
              torch.int8 if kv_dtype == "int8" else torch.float32)
     resolved = decode_ops.resolve_impl(decode_attn, device, shape)
+    # The draft decodes on its own fixed-lane fp32 cache: its own shape
+    # (an explicit ``flash`` the kernel cannot take raises here too).
+    draft_resolved = None
+    if spec_tokens:
+        draft_resolved = decode_ops.resolve_impl(
+            decode_attn, device,
+            (draft_spec.num_heads, draft_spec.kv_heads, draft_spec.head_dim,
+             torch.float32))
     chunk = next_pow2(
         prefill_chunk if prefill_chunk else min(next_pow2(prefill_len), 64)
     )
@@ -225,12 +285,13 @@ def resolve_engine_knobs(
         next_pow2(min_bucket) if min_bucket else min(8, chunk),
         prev_pow2(spec.total_len - prefill_len + 1),
     )
-    step_token_budget = step_token_budget or chunk + slots
-    if step_token_budget < min_bucket + slots:
+    step_token_budget = step_token_budget or chunk + slots * tokens_per_decode
+    if step_token_budget < min_bucket + slots * tokens_per_decode:
         raise ValueError(
             f"step_token_budget {step_token_budget} cannot sustain "
             f"prefill progress: needs >= min_bucket ({min_bucket}) + "
-            f"slots ({slots}) x decode tokens per lane (1)"
+            f"slots ({slots}) x decode tokens per lane "
+            f"({tokens_per_decode})"
         )
     return {
         "prefill_len": prefill_len,
@@ -244,6 +305,10 @@ def resolve_engine_knobs(
         "page_size": page_size,
         "lane_pages": lane_pages,
         "kv_pages": resolved_kv_pages,
+        "spec_tokens": spec_tokens,
+        "draft_decode_attn": draft_resolved,
+        "ctx_len": ctx_len,
+        "tokens_per_decode": tokens_per_decode,
     }
 
 
@@ -276,6 +341,16 @@ class ServeEngine:
     page), lanes mapping pages through an int32 table, and a radix
     prefix index whose hits skip the matched tokens' prefill. Greedy
     streams stay token-identical to the fixed-lane engine.
+
+    ``spec_tokens`` γ > 0 with a ``draft_model`` (same vocab and
+    total_len, on the target's device) turns on speculative decoding:
+    γ draft proposals and one batched verify per step, with each stream
+    exactly the non-speculative one. The draft keeps its own fixed-lane
+    fp32 cache whatever the target's is; admission keeps γ-1 positions
+    (and on a paged engine their pages) in reserve for the verify
+    writes. On a prefix hit the draft lane is not prefilled over the
+    matched tokens: that can lower acceptance there, never change a
+    token.
     """
 
     def __init__(
@@ -294,9 +369,17 @@ class ServeEngine:
         kv_dtype: str = "fp32",
         page_size: int = 0,
         kv_pages: Optional[int] = None,
+        spec_tokens: int = 0,
+        draft_model: Optional[CausalLM] = None,
     ):
         spec = model.spec
         self.device = model.device
+        if (spec_tokens and draft_model is not None
+                and draft_model.device != self.device):
+            raise ValueError(
+                f"draft model on {draft_model.device} but the target on "
+                f"{self.device}: build the draft on the target's device"
+            )
         knobs = resolve_engine_knobs(
             spec,
             device=self.device,
@@ -309,6 +392,8 @@ class ServeEngine:
             kv_dtype=kv_dtype,
             page_size=page_size,
             kv_pages=kv_pages,
+            spec_tokens=spec_tokens,
+            draft_spec=draft_model.spec if draft_model is not None else None,
         )
         self.spec = spec
         self.model = model
@@ -326,12 +411,16 @@ class ServeEngine:
         self.page_size = knobs["page_size"]
         self.kv_pages = knobs["kv_pages"]
         self._lane_pages = knobs["lane_pages"]
+        self.spec_tokens = knobs["spec_tokens"]
+        self.draft_model = draft_model if self.spec_tokens else None
+        self.draft_decode_attn = knobs["draft_decode_attn"]
+        self._tokens_per_decode = knobs["tokens_per_decode"]
         self.clock = clock
         self.metrics = metrics or MetricsWriter(None)
         self.scheduler = Scheduler(
             max_queue=max_queue,
             prefill_len=self.prefill_len,
-            total_len=spec.total_len,
+            total_len=knobs["ctx_len"],
             vocab_size=spec.vocab_size,
             chunk=self.prefill_chunk,
             min_bucket=self.min_bucket,
@@ -367,13 +456,32 @@ class ServeEngine:
         self._sample_steps = torch.zeros(slots, dtype=torch.int64, device=dev)
         self._temps = torch.zeros(slots, dtype=torch.float32, device=dev)
         self._top_ps = torch.ones(slots, dtype=torch.float32, device=dev)
+        if self.spec_tokens:
+            # The draft's own fp32 fixed-lane cache (it tracks the same
+            # token history at its own width) and dummy sampling state
+            # for prefill_chunk: the draft proposes greedily, so none of
+            # it is read.
+            self._draft_cache = init_slot_cache(
+                self.draft_model.spec, slots, device=dev)
+            self._d_state = [
+                torch.zeros(slots, dtype=torch.int64, device=dev)
+                for _ in range(3)
+            ] + [torch.zeros(slots, device=dev), torch.ones(slots, device=dev)]
+        # Speculative tallies, engine-wide (the /stats source) and of
+        # the current step (the serve_step record's).
+        self.spec_drafted_total = 0
+        self.spec_accepted_total = 0
+        self.accept_rate = StatSummary()  # per-request acceptance
+        self._step_spec = (0, 0)
         # Dispatched values not yet read back:
         # ("first", snapshot, slot) | ("decode", snapshot, lanes).
         self._pending: list[tuple[str, tuple, object]] = []
         self._completed: dict[int, Completion] = {}
         self._started_at = clock()
         self._steps = 0
-        self.decode_steps = 0  # fused decode+sample dispatches
+        # Target decode dispatches: fused decode+sample steps, or the
+        # verify steps of speculative rounds (each after γ draft steps).
+        self.decode_steps = 0
         self.ttft = StatSummary()
         self.decode_rate = StatSummary()
         self.step_latency = StatSummary()
@@ -459,9 +567,17 @@ class ServeEngine:
             ),
         }
 
+    def spec_acceptance_rate(self) -> Optional[float]:
+        """Lifetime draft-acceptance fraction; None before any verify
+        round (or when speculation is off)."""
+        if not self.spec_drafted_total:
+            return None
+        return self.spec_accepted_total / self.spec_drafted_total
+
     def stats(self) -> dict:
         """JSON-ready operational snapshot (the /stats endpoint); the
-        ``paged`` block only on paged engines."""
+        ``paged`` block only on paged engines, the speculative keys of
+        ``decode_path`` only on speculative ones."""
         return {
             "slots": self.num_slots,
             "active": self.active,
@@ -487,6 +603,17 @@ class ServeEngine:
                 "attn_impl": self.decode_attn,
                 "kv_dtype": self.kv_dtype,
                 "cache_bytes_per_slot": self.cache_bytes_per_slot(),
+                **({
+                    "spec_tokens": self.spec_tokens,
+                    "draft_attn_impl": self.draft_decode_attn,
+                    "spec_acceptance": self.spec_acceptance_rate(),
+                    "spec_drafted_total": self.spec_drafted_total,
+                    "spec_accepted_total": self.spec_accepted_total,
+                    # The lifetime ratio hides stragglers; one cold
+                    # request in a warm fleet shows up here.
+                    "spec_acceptance_per_request":
+                        self.accept_rate.snapshot(),
+                } if self.spec_tokens else {}),
             },
             "device": str(self.device),
             **({"paged": self.page_stats()} if self.paged else {}),
@@ -543,6 +670,7 @@ class ServeEngine:
         prev_pending = self._pending
         self._pending = []
         produced = 0
+        self._step_spec = (0, 0)  # (drafted, accepted) this step
         t_dispatch = time.perf_counter()
 
         prefilling = [
@@ -554,8 +682,11 @@ class ServeEngine:
         prefilling.sort(key=lambda t: self._slots[t[0]].request.rid)
         decode_lanes = [i for i, s in enumerate(self._slots) if s.decoding]
         chunk_tokens = 0
+        # A decoding lane costs tokens_per_decode budget tokens: 1 on
+        # the plain path, γ under speculation (the verify step runs γ
+        # positions a lane).
         for i, width in self.scheduler.plan_chunks(
-            prefilling, len(decode_lanes)
+            prefilling, len(decode_lanes) * self._tokens_per_decode
         ):
             slot = self._slots[i]
             req = slot.request
@@ -564,15 +695,27 @@ class ServeEngine:
             final = start + live == len(req.prompt)
             buf = torch.zeros(width, dtype=torch.int64)
             buf[:live] = torch.as_tensor(req.prompt[start : start + live])
+            buf = buf.to(self.device)
             first = prefill_chunk(
                 self.model, self._cache, self._toks, self._seeds,
                 self._sample_steps, self._temps, self._top_ps,
-                i, buf.to(self.device), start, live, final,
+                i, buf, start, live, final,
                 req.seed, req.temperature, req.top_p,
                 # First chunk: self-contained causal attention; later
                 # chunks attend the full lane under the banded mask.
                 lane_attend=start != 0,
             )
+            if self.spec_tokens:
+                # The same chunk into the draft's lane, never final: the
+                # request's first token is the target's draw. After a
+                # prefix hit the lane starts at ``matched``, as the
+                # target's does.
+                prefill_chunk(
+                    self.draft_model, self._draft_cache, *self._d_state,
+                    i, buf, start, live, False,
+                    req.seed, req.temperature, req.top_p,
+                    lane_attend=start != 0,
+                )
             slot.prefill_pos = start + live
             chunk_tokens += live
             if final:
@@ -587,7 +730,9 @@ class ServeEngine:
             if self._slots[i].emitted < self._slots[i].request.max_new_tokens
         ]
         # Dispatch only when some lane will actually emit.
-        if emit_lanes:
+        if emit_lanes and self.spec_tokens:
+            produced += self._spec_round(emit_lanes)
+        elif emit_lanes:
             reqs = [self._slots[i].request for i in emit_lanes]
             self._toks = slot_decode_sample_step(
                 self.model, self._cache, self._toks, self._seeds,
@@ -610,11 +755,22 @@ class ServeEngine:
         self._steps += 1
         self.tokens_emitted_total += produced
         self.step_latency.add(time.perf_counter() - t_step)
-        paged_fields = {}
+        # Speculative and paged fields only on such engines: the plain
+        # fixed-lane record keeps its schema.
+        extra = {}
+        if self.spec_tokens:
+            drafted, accepted = self._step_spec
+            extra = dict(
+                spec_drafted=drafted,
+                spec_accepted=accepted,
+                spec_acceptance=(
+                    round(accepted / drafted, 4) if drafted else None
+                ),
+            )
         if self.paged:
             p = self._prefix
             hr = p.hit_rate()
-            paged_fields = dict(
+            extra.update(
                 pages_free=p.free_pages,
                 pages_resident=p.resident_pages,
                 pages_shared=p.shared_pages,
@@ -631,7 +787,7 @@ class ServeEngine:
             prefill_chunk_tokens=chunk_tokens,
             dispatch_s=round(dispatch_s, 6),
             retire_s=round(retire_s, 6),
-            **paged_fields,
+            **extra,
         )
         return produced
 
@@ -649,6 +805,66 @@ class ServeEngine:
         )
 
     # ---- internals --------------------------------------------------
+
+    def _draft_propose(self) -> torch.Tensor:
+        """γ greedy draft proposals per lane → [S, γ], on the device.
+        The first draft step adopts the target's positions (the draft
+        advanced γ last round, the target only as far as acceptance
+        went); every step is ``slot_decode_step`` on the draft's cache
+        (the flash-decode kernel B4 on the GPU)."""
+        self._draft_cache.pos.copy_(self._cache.pos)
+        t = self._toks
+        drafts = []
+        for _ in range(self.spec_tokens):
+            logits = slot_decode_step(self.draft_model, self._draft_cache,
+                                      t, attn_impl=self._attn_impl)
+            t = torch.argmax(logits, dim=-1)
+            drafts.append(t)
+        return torch.stack(drafts, dim=1)
+
+    def _verify(self, drafts, reqs) -> torch.Tensor:
+        """One ``slot_verify_step`` of the target over ``drafts`` →
+        [S, γ + 1] int64 on the device: each lane's γ target tokens,
+        then its match count. ``_toks``, ``pos`` and the sampling steps
+        advance on the device."""
+        self._toks, target, matched = slot_verify_step(
+            self.model, self._cache, self._toks, drafts, self._seeds,
+            self._sample_steps, self._temps, self._top_ps,
+            sampling=any(r.temperature > 0 for r in reqs),
+            nucleus=any(r.temperature > 0 and r.top_p < 1 for r in reqs),
+        )
+        return torch.cat([target, matched[:, None]], dim=1)
+
+    def _spec_round(self, emit_lanes: list[int]) -> int:
+        """One speculative round → tokens emitted (1..γ a lane): γ draft
+        proposals, one batched verify, then ONE synchronous read of the
+        [S, γ] target tokens and [S] match counts (small integers, never
+        logits) — the emit counts depend on the data, so speculation
+        trades the one-step-late read for up to γ tokens a target step.
+        Each lane emits min(matched + 1, γ, budget left) tokens."""
+        gamma = self.spec_tokens
+        # First-token scalars of THIS step's final chunks land before
+        # the verify tokens: slot.tokens is in stream order.
+        self._drain()
+        reqs = [self._slots[i].request for i in emit_lanes]
+        out = self._verify(self._draft_propose(), reqs).cpu().tolist()
+        self.decode_steps += 1
+        produced = drafted = accepted = 0
+        for i in emit_lanes:
+            slot = self._slots[i]
+            *target, m = out[i]
+            n = min(m + 1, gamma, slot.request.max_new_tokens - slot.emitted)
+            slot.tokens.extend(target[:n])
+            slot.emitted += n
+            slot.spec_drafted += gamma
+            slot.spec_accepted += m
+            produced += n
+            drafted += gamma
+            accepted += m
+        self.spec_drafted_total += drafted
+        self.spec_accepted_total += accepted
+        self._step_spec = (drafted, accepted)
+        return produced
 
     def _admit_to_slot(self, slot: _Slot, req: Request) -> str:
         """Bind a popped request to a lane → "bound" | "rejected" |
@@ -668,11 +884,12 @@ class ServeEngine:
         pids: list[int] = []
         if self.paged:
             # The lane must own every page it could write: prompt + the
-            # decode budget, in pages.
+            # decode budget + the verify round's γ-1 reserve, in pages.
             got = self._prefix.acquire(
                 req.prompt,
                 page_demand(len(req.prompt), req.max_new_tokens,
-                            self.page_size, total_len=self.spec.total_len),
+                            self.page_size, total_len=self.spec.total_len,
+                            reserve=max(0, self.spec_tokens - 1)),
             )
             if got is None:
                 self.page_starved_binds += 1
@@ -686,6 +903,7 @@ class ServeEngine:
         slot.first_token_at = None
         slot.pages = pids
         slot.matched_tokens = matched
+        slot.spec_drafted = slot.spec_accepted = 0
         if self.paged:
             self._table_np[slot.index] = 0
             self._table_np[slot.index, : len(pids)] = pids
@@ -740,6 +958,10 @@ class ServeEngine:
             finished=now,
             queue_s=slot.queue_s,
             prefix_hit_tokens=slot.matched_tokens if self.paged else None,
+            spec_acceptance=(
+                round(slot.spec_accepted / slot.spec_drafted, 4)
+                if slot.spec_drafted else None
+            ),
         )
         self._completed[req.rid] = c
         self._retire_times.append(now)
@@ -747,6 +969,8 @@ class ServeEngine:
             self.decode_rate.add(c.decode_tokens_per_s)
         if c.tpot_s is not None:
             self.tpot.add(c.tpot_s)
+        if c.spec_acceptance is not None:
+            self.accept_rate.add(c.spec_acceptance)
         self._record_request(c)
         if self.paged and slot.pages:
             # Publish the prompt's fully prefilled pages into the index
@@ -764,6 +988,7 @@ class ServeEngine:
         slot.queue_s = None
         slot.pages = []
         slot.matched_tokens = 0
+        slot.spec_drafted = slot.spec_accepted = 0
 
     def _record_request(self, c: Completion) -> None:
         self.status_counts[c.status] = self.status_counts.get(c.status, 0) + 1
@@ -776,6 +1001,8 @@ class ServeEngine:
         )
         if c.ttft is not None:
             fields["ttft_s"] = round(c.ttft, 4)
+        if c.spec_acceptance is not None:
+            fields["spec_acceptance"] = c.spec_acceptance
         if c.queue_s is not None:
             fields["queue_s"] = round(c.queue_s, 6)
         if c.tpot_s is not None:

@@ -62,8 +62,8 @@ def page_demand(
     emission budget by up to γ-1 positions) — in paged mode the reserve
     is accounted in PAGES here, not just in the scheduler's token
     ceiling, so a verify-round write can never land in an unowned
-    (scratch) page. The port's engine has no speculation yet and passes
-    0.
+    (scratch) page. The engine passes ``spec_tokens - 1`` when it
+    speculates, else 0.
     """
     need = min(total_len, prompt_len + max_new_tokens + max(0, reserve))
     return -(-need // page_size)
