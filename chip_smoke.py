@@ -96,16 +96,20 @@ order; any failure exits non-zero and prints no result:
    B3 (dK/dV), bf16 and fp32, against their plain versions: out, lse and
    the three gradients through autograd (random dO, nonzero dLSE), then
    B2 and B3 alone, at full width causal and non-causal, T < S, T > S
-   (empty rows), a ragged T, head dim 64 and head dim 96 (a padded
-   head-dim tile), each tensor held to a relative norm error and an
-   element-wise atol + rtol·|want| (FLASH_TOL); two wrong attentions (a
-   dropped interior tile, a dropped ragged tail) must fail the same
-   check; B1, B2 and B3 run twice on the same inputs must agree bit for
-   bit (no atomics). Then B2's ptxas report, kernel, plain and SDPA
-   times beside the bound at the training shape (in fp32 also SDPA's
+   (empty rows), a ragged T, head dim 64, head dim 96 (a padded
+   head-dim tile) and ViT-Tiny's attention (B 256, T = S = 65, H 3, D 64,
+   non-causal, q/k/v strided views of one fused qkv), each tensor held
+   to a relative norm error and an element-wise atol + rtol·|want|
+   (FLASH_TOL); three wrong attentions (a dropped interior tile, a
+   dropped ragged tail, and at ViT's shape a dK/dV that drops key row
+   64) must fail the same check; B1, B2 and B3 run twice on the same
+   inputs (the training shape and ViT's) must agree bit for bit (no
+   atomics). Then B2's ptxas report, kernel, plain and SDPA times beside
+   the bound at the training shape and at ViT's (in fp32 also SDPA's
    kernel names and its error against the plain version: the
-   yardstick's own numerics), and fwd+bwd kernel vs plain per length
-   (the data for re-measuring FLASH_MIN_LEN).
+   yardstick's own numerics), and fwd+bwd kernel vs plain per length,
+   and at ViT's shape kernel vs the dense bf16 path vs SDPA (the data
+   for re-measuring FLASH_MIN_LEN).
 5a. The causal LM at head dim 24, which B1-B3 do not take, trains a
    step or two on the card through the plain block (counted, no kernel
    launch, finite losses).
@@ -148,7 +152,27 @@ order; any failure exits non-zero and prints no result:
    p50 (CUDA events) and the busy share of one more epoch under
    torch.profiler, for the step and fast paths at batch 64 and at global
    batch 16384 (bench.py's), and the fast path at 16384 in bf16.
-7. A "kernels" JSON line, the card line, and the last line
+7. The image families of BASELINE.json through ``python -m
+   ddp_tpu_torch.train``'s own main(), on synthetic splits of 12,800
+   images, world 1 over nccl.
+   7a: ViT-Tiny on CIFAR-100 (configs 4; bench.py run_vit_bench's model,
+   batch 256 and SGD 0.01 + momentum 0.9, bf16, crop-and-flip), 2 epochs:
+   launch counters set to 0 before and read after (each of B1-B3 at
+   least depth x steps in bf16, nothing routed to the plain block),
+   losses finite and falling, epoch_0..1 verified and a re-run resuming
+   epoch 1's state bit for bit, one bf16 step through the kernels vs the
+   plain attention from the trained weights (STEP_TOL; a B3 that drops
+   key row 64 must fail it); step p50, images/s per card, est. MFU and
+   the busy share and B1-B3's share of device time under torch.profiler.
+   7b: ResNet-18 on CIFAR-10 (config 3; He et al. 2016 §4.2's recipe:
+   batch 128, SGD 0.1, momentum 0.9, weight decay 1e-4, crop-and-flip),
+   fp32, 2 epochs: losses, checkpoints and a bit-exact resume (BatchNorm
+   running buffers included), one step on the card (TF32 off) vs the CPU
+   (CNN_STEP_TOL, the running buffers after the step included), the eval
+   loss (running averages) against a train-mode forward's; images/s,
+   step p50 and busy share, then the same figures in bf16. No kernel of
+   the repo lies on ResNet (its convs are cuDNN's).
+8. A "kernels" JSON line, the card line, and the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -764,7 +788,12 @@ FLASH_SHAPES = [  # label, B, T, S, H, D, causal
     ("causal ragged T=S=1000", 2, 1000, 1000, 8, 128, True),
     ("causal head dim 64", 2, 1024, 1024, 16, 64, True),
     ("causal head dim 96", 2, 512, 512, 8, 96, True),
+    # ViT-Tiny's attention (phase 7a): 64 patches + cls at batch 256,
+    # non-causal, one mostly empty key tile, q/k/v strided views of the
+    # fused qkv projection.
+    ("ViT non-causal T=S=65", 256, 65, 65, 3, 64, False),
 ]
+VIT_SHAPE = FLASH_SHAPES[-1]
 FLASH_NAMES = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")
 # The device functions of flash_attn.cu (B1-B3: the sm90 kernels in bf16,
 # the three-pass TF32 kernels in fp32), as profiler keys and ptxas entries
@@ -876,22 +905,68 @@ def _reject_wrong_kernels(torch, fl, dtype, dname) -> list[str]:
     return failed
 
 
-def _check_deterministic(torch, fl, dtype, dname) -> list[str]:
-    """B1, B2 and B3 twice on the same inputs (the training shape, causal)
-    must give the same bits: no atomics, no order that changes between
-    runs → what differed."""
-    q, k, v, dout, _ = _flash_inputs(torch, 8, 2048, 2048, 8, 128, dtype,
-                                     seed=7)
+def _drop_key_grad(torch, rows: slice):
+    """An identity whose backward zeroes key rows ``rows`` of its
+    [B, S, H, D] input's gradient: applied to k (and v), what a B3 that
+    skipped those keys would give."""
+    class DropKeyGrad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            g = g.clone()
+            g[:, rows] = 0
+            return g
+
+    return DropKeyGrad.apply
+
+
+def _reject_dropped_tail(torch, fl, dtype, dname) -> list[str]:
+    """Negative control at ViT's shape: the plain attention with the dK
+    and dV of key row 64 (the ragged tail of the one key tile) dropped,
+    held against the plain version as the kernel is: dk and dv must fail
+    → what did not."""
+    _, B, T, S, H, D, causal = VIT_SHAPE
+    q, k, v, dout, dlse = _flash_inputs(torch, B, T, S, H, D, dtype, seed=5)
+    plain = lambda *a: fl.attention_with_lse_reference(*a, causal)  # noqa: E731
+    want = _with_grads(torch, plain, q.float(), k.float(), v.float(),
+                       dout.float(), dlse)
+    drop = _drop_key_grad(torch, slice(-1, None))
+    got = _with_grads(torch, lambda q, k, v: plain(q, drop(k), drop(v)),
+                      q, k, v, dout, dlse)
+    parts, passed = [], []
+    for what in ("dk", "dv"):
+        ok, text = _compare(torch, got[what], want[what], FLASH_TOL[dname])
+        parts.append(f"{what} {text}")
+        if ok:
+            passed.append(what)
+    log(f"[flash] {dname} control, key row 64 of {VIT_SHAPE[0]} dropped from "
+        "dK/dV: " + "; ".join(parts))
+    del q, k, v, dout, dlse, want, got
+    return ([f"the check passes a B3 that drops the ragged tail: {passed}"]
+            if passed else [])
+
+
+def _check_deterministic(torch, fl, dtype, dname,
+                         shape=("the training shape", 8, 2048, 2048, 8, 128,
+                                True)) -> list[str]:
+    """B1, B2 and B3 twice on the same inputs (``shape``: a FLASH_SHAPES
+    entry) must give the same bits: no atomics, no order that changes
+    between runs → what differed."""
+    label, B, T, S, H, D, causal = shape
+    q, k, v, dout, _ = _flash_inputs(torch, B, T, S, H, D, dtype, seed=7)
     runs = []
     for _ in range(2):
-        out, lse = fl.flash_forward(q, k, v, True)
+        out, lse = fl.flash_forward(q, k, v, causal)
         delta = fl.backward_delta(out, dout)
-        dq = fl.flash_dq(q, k, v, dout, lse, delta, True)
-        dk, dv = fl.flash_dkv(q, k, v, dout, lse, delta, True)
+        dq = fl.flash_dq(q, k, v, dout, lse, delta, causal)
+        dk, dv = fl.flash_dkv(q, k, v, dout, lse, delta, causal)
         runs.append(dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv))
     torch.cuda.synchronize()
     differ = [n for n in runs[0] if not torch.equal(runs[0][n], runs[1][n])]
-    log(f"[flash] {dname} B1, B2 and B3 run twice at the training shape: "
+    log(f"[flash] {dname} B1, B2 and B3 run twice at {label}: "
         + (f"differ in {differ}" if differ else "bitwise equal"))
     del q, k, v, dout, runs
     torch.cuda.empty_cache()
@@ -960,6 +1035,7 @@ def check_flash(torch) -> dict:
     for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         tol = FLASH_TOL[dname]
         errs = {n: 0.0 for n in FLASH_NAMES}
+        vit_errs = dict(errs)
         failed = []
         for i, (label, B, T, S, H, D, causal) in enumerate(FLASH_SHAPES):
             q, k, v, dout, dlse = _flash_inputs(torch, B, T, S, H, D, dtype,
@@ -1001,17 +1077,25 @@ def check_flash(torch) -> dict:
                         + ("" if ok else "  <-- FAILS"))
                     if not ok:
                         failed.append(f"{label} {what}")
-                    errs[name] = max(errs[name], float(
-                        (a.float() - b.float()).abs().nan_to_num(0.0).max()))
+                    err = float(
+                        (a.float() - b.float()).abs().nan_to_num(0.0).max())
+                    errs[name] = max(errs[name], err)
+                    if label == VIT_SHAPE[0]:
+                        vit_errs[name] = max(vit_errs[name], err)
             del q, k, v, dout, dlse, got, want, out, lse, delta
             del dq2, dk2, dv2, p_dq, p_dk, p_dv
             torch.cuda.empty_cache()
         failed += _reject_wrong_kernels(torch, fl, dtype, dname)
+        failed += _reject_dropped_tail(torch, fl, dtype, dname)
         failed += _check_deterministic(torch, fl, dtype, dname)
+        failed += _check_deterministic(torch, fl, dtype, dname, VIT_SHAPE)
         if failed:
             failures[dname] = failed
         results[dname] = _time_flash(torch, F, fl, dtype, dname, errs)
+        results[f"vit_{dname}"] = _time_flash(torch, F, fl, dtype, dname,
+                                              vit_errs, VIT_SHAPE)
     _flash_min_len_data(torch, fl)
+    _vit_attention_data(torch, F, fl)
     if failures:
         raise AssertionError(f"flash kernels vs plain: {failures}")
     return results
@@ -1045,10 +1129,12 @@ def time_flash_kernels(torch, dtype) -> dict:
             for name, fn in calls.items()}
 
 
-def _time_flash(torch, F, fl, dtype, dname, errs) -> dict:
-    """Kernel, plain version and SDPA times at the main path's shape
-    (the training step's: B 8, T = S 2048, H 8, D 128, causal)."""
-    B, T, S, H, D, causal = TRAIN_SHAPE
+def _time_flash(torch, F, fl, dtype, dname, errs,
+                shape=("the training shape",) + TRAIN_SHAPE) -> dict:
+    """Kernel, plain version and SDPA times at a main path's shape: the
+    causal LM's training step (B 8, T = S 2048, H 8, D 128, causal), or
+    ViT-Tiny's (VIT_SHAPE)."""
+    label, B, T, S, H, D, causal = shape
     q, k, v, dout, _ = _flash_inputs(torch, B, T, S, H, D, dtype, seed=99)
     out, lse = fl.flash_forward(q, k, v, causal)
     delta = fl.backward_delta(out, dout)
@@ -1067,12 +1153,12 @@ def _time_flash(torch, F, fl, dtype, dname, errs) -> dict:
     # call), on the same tensors in [B, H, T, D]; timed only.
     qs, ks, vs = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
     sdpa_fwd_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True), n=n, reps=reps)
-    o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        qs, ks, vs, is_causal=causal), n=n, reps=reps)
+    o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
     do_s = dout.transpose(1, 2)
     sdpa_bwd_ms = _median_ms(torch, lambda: torch.autograd.grad(
         o_s, (qs, ks, vs), do_s, retain_graph=True), n=n, reps=reps)
-    if dname == "fp32":
+    if dname == "fp32" and shape[1:] == TRAIN_SHAPE:
         _log_sdpa_numerics(torch, F, fl, qs, ks, vs, qf, kf, vf)
     pairs, nbytes = _flash_counts(B, T, S, H, D, causal, q.element_size())
     res = {}
@@ -1081,7 +1167,8 @@ def _time_flash(torch, F, fl, dtype, dname, errs) -> dict:
         plain_ms = _median_ms(torch, plain[name], n=2, reps=3)
         bound_ms, bound_by = _flash_bound(name, pairs, nbytes, D, dname)
         library_ms = sdpa_fwd_ms if name == "flash_attn_fwd" else None
-        log(f"[flash] {name} {dname} B={B} T=S={T} H={H} D={D} causal: "
+        log(f"[flash] {name} {dname} {label} B={B} T=S={T} H={H} D={D} "
+            f"{'causal' if causal else 'non-causal'}: "
             f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
             f"sdpa {'fwd' if library_ms else 'bwd (dq+dk+dv)'} "
             f"{(library_ms or sdpa_bwd_ms) * 1e3:.1f} us, bound "
@@ -1147,6 +1234,39 @@ def _flash_min_len_data(torch, fl) -> None:
             + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in ms.items()))
         del q, k, v, dout, leaves
         torch.cuda.empty_cache()
+
+
+def _vit_attention_data(torch, F, fl) -> None:
+    """fwd+bwd time at ViT's shape (VIT_SHAPE, bf16, non-causal): the
+    kernels, the dense bf16 path of ops.attention (what the JAX package
+    runs below FLASH_MIN_LEN keys) and SDPA (the yardstick): the data for
+    re-measuring FLASH_MIN_LEN at T 65."""
+    from ddp_tpu_torch.ops.attention import dot_product_attention
+
+    _, B, T, S, H, D, causal = VIT_SHAPE
+    q, k, v, dout, _ = _flash_inputs(torch, B, T, S, H, D, torch.bfloat16,
+                                     seed=65)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def run(fn, layout=lambda x: x):
+        out = fn(*(layout(x) for x in leaves))
+        torch.autograd.grad(out, leaves, layout(dout))
+
+    heads_first = lambda x: x.transpose(1, 2)  # noqa: E731
+    ms = {
+        "kernel": _median_ms(torch, lambda: run(
+            lambda *a: fl.flash_attention(*a, causal)), n=10, reps=5),
+        "dense bf16": _median_ms(torch, lambda: run(
+            lambda *a: dot_product_attention(*a, causal=causal)), n=10,
+            reps=5),
+        "sdpa": _median_ms(torch, lambda: run(
+            lambda *a: F.scaled_dot_product_attention(*a, is_causal=causal),
+            heads_first), n=10, reps=5),
+    }
+    log(f"[flash] FLASH_MIN_LEN data, {VIT_SHAPE[0]} B={B} H={H} D={D} bf16 "
+        "fwd+bwd: " + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in ms.items()))
+    del q, k, v, dout, leaves
+    torch.cuda.empty_cache()
 
 
 # ---- phase 4: the serving slice end to end ----------------------------
@@ -2053,20 +2173,10 @@ def compare_step(torch, trainer, dname, *, batch=2) -> None:
     so no limit can tell the two apart."""
     from ddp_tpu_torch.ops import flash as fl
 
-    class DropKeyGrad(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, k):
-            return k.view_as(k)
-
-        @staticmethod
-        def backward(ctx, g):
-            g = g.clone()
-            g[:, 512:576] = 0
-            return g
+    drop_tile = _drop_key_grad(torch, slice(512, 576))
 
     def dropped_dk(q, k, v, causal):
-        return fl.attention_with_lse_reference(q, DropKeyGrad.apply(k), v,
-                                               causal)
+        return fl.attention_with_lse_reference(q, drop_tile(k), v, causal)
 
     def low_precision(q, k, v, causal):
         T = q.shape[1]
@@ -2288,14 +2398,14 @@ class _Tee:
         return "".join(self.parts)
 
 
-def _train(args: list[str]):
-    """``python -m ddp_tpu_torch.train``'s own main() in-process →
-    (trainer or None, the lines it printed)."""
+def _train(args: list[str], base=CNN_ARGS):
+    """``python -m ddp_tpu_torch.train``'s own main() in-process on
+    ``base`` + ``args`` → (trainer or None, the lines it printed)."""
     import contextlib
 
     from ddp_tpu_torch.train.trainer import main as train_main
 
-    argv = CNN_ARGS + CNN_DEVICE_ARGS + args
+    argv = base + CNN_DEVICE_ARGS + args
     log(f"[cnn] python -m ddp_tpu_torch.train {' '.join(argv)}")
     tee = _Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
@@ -2541,10 +2651,13 @@ def check_cnn_two_ranks(torch, tmp) -> None:
         raise AssertionError("phase 6e: two ranks part from world 1")
 
 
-def profile_cnn_epoch(torch, trainer, label) -> float:
-    """Busy share of one more epoch of ``trainer`` under torch.profiler:
-    summed CUDA kernel time over the wall time (the profiler's own host
-    cost included)."""
+def profile_cnn_epoch(torch, trainer, label, steps=None) -> float:
+    """Busy share of one more epoch of ``trainer`` under torch.profiler
+    (its first ``steps`` steps on the loader path, when given): summed
+    CUDA kernel time over the wall time (the profiler's own host cost
+    included)."""
+    import itertools
+
     from torch.profiler import ProfilerActivity, profile
 
     from ddp_tpu_torch.runtime import dist
@@ -2553,6 +2666,11 @@ def profile_cnn_epoch(torch, trainer, label) -> float:
     epoch = trainer.config.epochs + 7
     dist.setup(device=str(trainer.device))  # the step all-reduces
     try:
+        if steps is not None and trainer.fast_runner is None:
+            # One step first: the new group's first all-reduce sets up its
+            # communicator, which a short window would count as host time.
+            run_steps(trainer.train_step, itertools.islice(
+                trainer.loader.epoch(epoch - 1), 1), on_gpu=True)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2560,8 +2678,8 @@ def profile_cnn_epoch(torch, trainer, label) -> float:
             if trainer.fast_runner is not None:
                 trainer.fast_runner(epoch)
             else:
-                run_steps(trainer.train_step, trainer.loader.epoch(epoch),
-                          on_gpu=True)
+                run_steps(trainer.train_step, itertools.islice(
+                    trainer.loader.epoch(epoch), steps), on_gpu=True)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
@@ -2572,9 +2690,14 @@ def profile_cnn_epoch(torch, trainer, label) -> float:
             and str(e.device_type).endswith("CUDA")
             and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in rows) / 1e6
-    steps = trainer.steps_per_epoch
+    flash = sum(e.self_device_time_total for e in rows
+                if any(sym in e.key for sym in FLASH_SYMBOLS)) / 1e6
+    steps = min(steps or trainer.steps_per_epoch, trainer.steps_per_epoch)
+    if trainer.fast_runner is not None:
+        steps = trainer.steps_per_epoch
     log(f"[profile] {label}: {steps} steps, wall {wall * 1e3:.2f} ms, device "
-        f"kernel time {busy * 1e3:.2f} ms, busy share {busy / wall:.3f}")
+        f"kernel time {busy * 1e3:.2f} ms, busy share {busy / wall:.3f}, "
+        f"flash kernels B1-B3 {flash / busy:.3f} of device time")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile]   {e.self_device_time_total / steps:9.2f} us/step "
             f"x{e.count / steps:<5.1f} {e.key[:90]}")
@@ -2634,6 +2757,423 @@ def check_cnn(torch, card) -> dict:
         check_cnn_two_ranks(torch, tmp)
         readings["timing"] = time_cnn(torch, readings, tmp, card)
     return readings
+
+
+# ---- phase 7: the image families of BASELINE.json --------------------------
+
+# BASELINE.json config 4, ViT-Tiny on CIFAR-100 (attention path, bf16):
+# bench.py run_vit_bench's model, batch and optimizer (bench.py:380-416),
+# the synthetic split cut to 12,800 images (50 steps an epoch) so that the
+# phase stays short.
+VIT_ARGS = ["--model", "vit_tiny", "--dataset", "cifar100", "--synthetic_data",
+            "--synthetic_size", "12800", "--batch_size", "256", "--epochs",
+            "2", "--optimizer", "sgd", "--lr", "0.01", "--momentum", "0.9",
+            "--compute_dtype", "bfloat16", "--augment", "crop_flip",
+            "--log_interval", "1000"]
+# The bf16 step's loss limit (STEP_TOL's 1e-5 is below the floor here):
+# ViT's residual stream is bf16, so a one-ulp change in a few attention
+# outputs moves the loss, a mean over 64 images, by ~1e-4. On an NVIDIA
+# H100 80GB HBM3 at 700 W, kernel vs plain read 1.33e-4, and a B1 that
+# counts the tile's zero-filled keys 3.36e-2.
+VIT_BF16_LOSS_TOL = 1e-3
+# Train flops an image, bench.py:454-457's count for ViT-Tiny at 32×32.
+VIT_TRAIN_FLOPS = 2_187_095_040
+# Steps profiled for phase 7's busy share: the profiler's processing of a
+# whole epoch (over 1,000 launches a ViT step) takes over a minute.
+PROFILE_STEPS = 12
+# BASELINE.json config 3, ResNet-18 on CIFAR-10: He et al. 2016 §4.2's
+# CIFAR recipe (batch 128, lr 0.1, momentum 0.9, weight decay 1e-4), fp32,
+# the synthetic split cut to 12,800 images (100 steps an epoch).
+RESNET_ARGS = ["--model", "resnet18", "--dataset", "cifar10",
+               "--synthetic_data", "--synthetic_size", "12800",
+               "--batch_size", "128", "--epochs", "2", "--lr", "0.1",
+               "--momentum", "0.9", "--weight_decay", "1e-4", "--augment",
+               "crop_flip", "--log_interval", "1000"]
+
+
+def _losses_fall(trainer) -> list[str]:
+    losses = [l for h in trainer.history for l in h["loss"]]
+    means = [h["train_loss"] for h in trainer.history]
+    if not (losses and all(np.isfinite(losses)) and len(means) == 2
+            and means[1] < means[0]):
+        return [f"losses not finite and falling: epoch means {means}"]
+    return []
+
+
+def _resume_failures(torch, args, base, ckdir) -> list[str]:
+    """epoch_0..1 verified; the same command again resumes from epoch 1
+    with nothing to train and the state of epoch_1 bit for bit
+    (parameters, BatchNorm buffers, step count, momentum)."""
+    from ddp_tpu_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(ckdir)
+    verified = {e: mgr.verify_epoch(e) for e in mgr.all_epochs()}
+    again, out = _train(args, base)
+    bad = _cnn_state_errors(torch, again, mgr.read(1))
+    log(f"[image] epochs saved {sorted(verified)}, manifest problems "
+        f"{verified}; re-run: epochs trained {len(again.history)}, state vs "
+        f"epoch_1 differs in {bad or 'nothing'}")
+    failed = []
+    if sorted(verified) != [0, 1] or any(v != [] for v in verified.values()):
+        failed.append("epoch_0..1 missing or unverified")
+    if "Resumed from checkpoint epoch 1" not in out or again.history or bad:
+        failed.append("the re-run does not resume epoch 1's state")
+    return failed
+
+
+def _image_readings(torch, trainer, label, card, flops=None) -> dict:
+    """The last epoch's images/s and step p50, the busy share of
+    PROFILE_STEPS more steps under torch.profiler, and the estimated MFU
+    (bf16 peak) given the train flops an image."""
+    h = trainer.history[-1]
+    busy = profile_cnn_epoch(torch, trainer, label, PROFILE_STEPS)
+    rate = trainer.global_batch_size / h["step_p50_s"]
+    mfu = rate * flops / H100_BF16_FLOPS if flops else None
+    log(f"[time] {label} ({card}): {h['images_per_s_per_card']:.1f} images/s "
+        f"per card over the epoch, {rate:.1f} at the p50 step "
+        f"{h['step_p50_s'] * 1e3:.3f} ms"
+        + (f", est. MFU {mfu:.4f}" if mfu else "")
+        + f", busy share {busy:.3f} (under the profiler)")
+    return dict(images_per_s=h["images_per_s_per_card"],
+                step_p50_ms=h["step_p50_s"] * 1e3, busy=busy, mfu=mfu)
+
+
+def _vit_step(torch, trainer, x, y, attention_fn, dtype):
+    """One SGD-momentum step in ``dtype`` of a copy of ``trainer``'s ViT
+    on (x, y), every block's attention through ``attention_fn`` (None:
+    the default, B1-B3) → (loss, {parameter name: gradient})."""
+    from ddp_tpu_torch.models import get_model
+    from ddp_tpu_torch.parallel.ddp import TrainState, make_train_step
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    src = trainer.state.model
+    model = get_model("vit_tiny", num_classes=src.head.out_features, side=32,
+                      in_channels=3, depth=len(src.block_names))
+    model.load_state_dict(src.state_dict())
+    model = model.to(trainer.device)
+    for name in model.block_names:
+        getattr(model, name).attn.attention_fn = attention_fn
+    state = TrainState(0, model, make_optimizer(model.parameters(), "sgd",
+                                                lr=0.01, momentum=0.9))
+    m = make_train_step(state, reduce=lambda t: t, compute_dtype=dtype)(x, y)
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    return float(m.loss), grads
+
+
+def _zero_keys_counted(torch, q, k, v):
+    """The plain non-causal attention over the one 128-key tile with the
+    63 rows past S filled with zeros and counted by the softmax: what a
+    B1 that forgot the key mask of TMA's zero fill would give."""
+    pad = (0, 0, 0, 0, 0, 128 - k.shape[1])
+    s = torch.einsum("bthd,bshd->bhts", q.float(),
+                     torch.nn.functional.pad(k.float(), pad))
+    p = torch.softmax(s * q.shape[-1] ** -0.5, dim=-1)
+    o = torch.einsum("bhts,bshd->bthd", p,
+                     torch.nn.functional.pad(v.float(), pad))
+    return o.to(q.dtype)
+
+
+def check_vit_step(torch, trainer, *, batch=64) -> list[str]:
+    """Phase 7a's step check: one step through B1-B3 against the same step
+    through the plain attention (which must launch nothing), from the
+    trained weights on the first ``batch`` training images, held to
+    STEP_TOL (in bf16 with VIT_BF16_LOSS_TOL for the loss). Two negative
+    controls must fail the same limits: a B1 that counts the tile's
+    zero-filled keys past row 64 (it moves the loss), and a B3 that drops
+    the ragged tail (the dK and dV of key row 64; it leaves the loss and
+    moves the gradients)."""
+    from ddp_tpu_torch.ops import flash as fl
+
+    images, labels = trainer.train_split
+    x = torch.from_numpy(images[:batch]).to(trainer.device)
+    y = torch.from_numpy(labels[:batch]).to(trainer.device)
+    drop = _drop_key_grad(torch, slice(-1, None))
+
+    def plain(q, k, v):
+        return fl.attention_with_lse_reference(q, k, v, False)[0]
+
+    controls = {
+        "zero-filled keys 65-127 counted by the softmax":
+            lambda q, k, v: _zero_keys_counted(torch, q, k, v),
+        "dK/dV of key row 64 dropped": lambda q, k, v: plain(q, drop(k),
+                                                             drop(v)),
+    }
+    failed = []
+    for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        limits = STEP_TOL[dname]
+        if dname == "bf16":
+            limits = dict(limits, loss=VIT_BF16_LOSS_TOL)
+        kernel = _vit_step(torch, trainer, x, y, None, dtype)
+        _zero(fl.flash_attention.launches)
+        want = _vit_step(torch, trainer, x, y, plain, dtype)
+        e = _grad_errors(kernel, want)
+        log(f"[vit] one {dname} step, kernel vs plain attention (batch "
+            f"{batch}): loss {kernel[0]:.6f} vs {want[0]:.6f}; "
+            f"{_errors_text(e)} (limits {limits})")
+        if not _within(e, limits):
+            failed.append(f"the {dname} kernel step disagrees with the "
+                          "plain one")
+        del kernel
+        for label, attention_fn in controls.items():
+            e = _grad_errors(_vit_step(torch, trainer, x, y, attention_fn,
+                                       dtype), want)
+            log(f"[vit] {dname} control, {label}, vs plain: "
+                f"{_errors_text(e)}")
+            if _within(e, limits):
+                failed.append(f"the {dname} check passes a control: {label}")
+        if any(fl.flash_attention.launches.values()):
+            failed.append(f"the plain path launched "
+                          f"{fl.flash_attention.launches}")
+    return failed
+
+
+def check_vit(torch, card, tmp) -> dict:
+    """Phase 7a: ViT-Tiny on CIFAR-100 through ``python -m
+    ddp_tpu_torch.train``'s main(), the launch counts of its run (each of
+    B1-B3 at least depth x steps, nothing routed), losses, checkpoints and
+    resume, the kernel-vs-plain step, and the readings."""
+    from ddp_tpu_torch.ops import flash as fl
+
+    launches = fl.flash_attention.launches
+    ckdir = f"{tmp}/vit"
+    _zero(launches)
+    fl.flash_attention.plain_routed = 0
+    trainer, _ = _train(["--checkpoint_dir", ckdir], VIT_ARGS)
+    torch.cuda.synchronize()
+    got, routed = dict(launches), fl.flash_attention.plain_routed
+    depth = len(trainer.state.model.block_names)
+    steps = trainer.steps_per_epoch * trainer.config.epochs
+    log(f"[vit] {sum(p.numel() for p in trainer.state.model.parameters()) / 1e6:.2f}"
+        f" M params, depth {depth}, {steps} steps: launches {got} (depth x "
+        f"steps = {depth * steps}), blocks routed to the plain block {routed}")
+    for h in trainer.history:
+        log(_epoch_line(h, "vit_tiny cifar100 bf16,").replace("[cnn]", "[vit]"))
+    failed = [f"{n} bf16 launched {got[f'{n}_bf16']} < {depth * steps}"
+              for n in FLASH_NAMES if got[f"{n}_bf16"] < depth * steps]
+    if routed:
+        failed.append(f"{routed} blocks routed to the plain block")
+    if any(got[f"{n}_fp32"] for n in FLASH_NAMES):
+        failed.append("fp32 kernels launched in a bf16 run")
+    failed += _losses_fall(trainer)
+    failed += _resume_failures(torch, ["--checkpoint_dir", ckdir], VIT_ARGS,
+                               ckdir)
+    failed += check_vit_step(torch, trainer)
+    readings = _image_readings(torch, trainer, "vit_tiny cifar100 bf16, "
+                               "batch 256", card, VIT_TRAIN_FLOPS)
+    readings["launches"] = {n: got[f"{n}_bf16"] for n in FLASH_NAMES}
+    if failed:
+        raise AssertionError(f"phase 7a: {failed}")
+    return readings
+
+
+class _TiedRelu:
+    """Stands in for ``torch.nn.functional`` in ``models/resnet`` during one
+    step: ``relu`` records each call's sign pattern (no ``masks`` given)
+    or applies the recorded one and counts where its own input's sign
+    differs (``flips``). A ReLU's kink is the one place where a rounding
+    of ~1e-7 can change the step by more than that: a pre-activation of
+    ~1e-6 that two fp32 sums put on opposite sides of 0 moves the
+    gradient of every layer below it. Tied masks compare two steps on
+    the same piece of the piecewise-linear function."""
+
+    def __init__(self, F, masks=None):
+        self._F, self.record = F, masks is None
+        self.masks, self.flips, self._i = masks or [], 0, 0
+
+    def __getattr__(self, name):
+        return getattr(self._F, name)
+
+    def relu(self, x):
+        if self.record:
+            self.masks.append((x > 0).cpu())
+            return self._F.relu(x)
+        m = self.masks[self._i].to(x.device)
+        self._i += 1
+        self.flips += int(((x > 0) != m).sum())
+        return x.where(m, x.new_zeros(()))
+
+
+def _resnet_step(torch, state_np, x, y, device, dtype=None, relu=None):
+    """One step of the recipe (SGD 0.1, momentum 0.9, wd 1e-4, fp32, or
+    fp64 with ``dtype=torch.float64``) of ResNet-18 from ``state_np`` on
+    (x, y) on ``device``, its ReLUs through ``relu`` (a _TiedRelu) if
+    given → (loss, and as CPU tensors the gradients, the updated
+    parameters and the BatchNorm buffers after the step)."""
+    from ddp_tpu_torch.models import get_model, resnet
+    from ddp_tpu_torch.parallel.ddp import TrainState, make_train_step
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    dtype = dtype or torch.float32
+    model = get_model("resnet18", num_classes=10, side=32, in_channels=3)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state_np.items()})
+    model = model.to(device, dtype)
+    state = TrainState(0, model, make_optimizer(
+        model.parameters(), "sgd", lr=0.1, momentum=0.9, weight_decay=1e-4))
+    F = resnet.F
+    resnet.F = relu or F
+    try:
+        m = make_train_step(state, reduce=lambda t: t, compute_dtype=dtype)(
+            torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+    finally:
+        resnet.F = F
+    cpu = {n: t.detach().cpu() for n, t in model.state_dict().items()}
+    return (float(m.loss),
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: cpu[n] for n, _ in model.named_parameters()},
+            {n: t for n, t in cpu.items() if "running" in n})
+
+
+def _live_bn_scales(state_np, seed=1) -> dict:
+    """``state_np`` with every BatchNorm scale drawn from U[0.5, 1.5], as
+    the CPU tests draw them. At the zero-gamma init the gradients of both
+    convs and the first BatchNorm of every block are exactly 0 on both
+    sides, so a step compared there would not test them."""
+    rng = np.random.default_rng(seed)
+    return {n: (rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+                if n.endswith(".weight") and v.ndim == 1 else v)
+            for n, v in state_np.items()}
+
+
+def _resnet_errors(got, want) -> tuple[dict, tuple[str, float]]:
+    """_cnn_step_errors, and the worst running buffer (name, error)."""
+    bufs = max(((n, float((got[3][n] - w).norm() / w.norm().clamp_min(1e-30)))
+                for n, w in want[3].items()), key=lambda t: t[1])
+    return _cnn_step_errors(got, want), bufs
+
+
+def _resnet_text(e, bufs) -> str:
+    return (f"{_cnn_errors_text(e)}; worst running buffer {bufs[1]:.2e} "
+            f"({bufs[0]})")
+
+
+def check_resnet_step(torch, trainer, *, batch=32) -> list[str]:
+    """Phase 7b's step check, as phase 6c's: one step on the card (fp32,
+    TF32 off) against the same step on the CPU on the first ``batch``
+    training images, from the seeded weights with live BatchNorm scales
+    (_live_bn_scales) and from the trained weights, with the CPU's ReLU
+    masks tied to the card's (_TiedRelu), held to CNN_STEP_TOL: loss,
+    gradient, every gradient, every updated parameter and every running
+    buffer after the step. A control must fail it: the card's step with
+    the gradients of the blocks' convs zeroed (what the zero-gamma init
+    would let pass). Readings: the masks' flips, the CPU's step with its
+    own masks, and a witness, the CPU's fp64 step on the card's masks,
+    from which each fp32 step's distance is printed."""
+    import torch.nn.functional as F
+
+    images, labels = trainer.train_split
+    x, y = images[:batch], labels[:batch]
+    seeded = _live_bn_scales(trainer.state.model.init_state(
+        trainer.config.seed))
+    trained = {k: v.detach().cpu().numpy()
+               for k, v in trainer.state.model.state_dict().items()}
+    failed = []
+    for label, state_np in (("seeded", seeded), ("trained", trained)):
+        card = _TiedRelu(F)
+        got = _resnet_step(torch, state_np, x, y, trainer.device, relu=card)
+        tied = _TiedRelu(F, card.masks)
+        want = _resnet_step(torch, state_np, x, y, "cpu", relu=tied)
+        own = _resnet_step(torch, state_np, x, y, "cpu")
+        exact = _resnet_step(torch, state_np, x, y, "cpu", torch.float64,
+                             relu=_TiedRelu(F, card.masks))
+        e, bufs = _resnet_errors(got, want)
+        log(f"[resnet] one step from the {label} weights, card vs CPU (fp32, "
+            f"TF32 off, batch {batch}, ReLU masks tied): loss {got[0]:.6f} "
+            f"vs {want[0]:.6f}; {_resnet_text(e, bufs)} (limits "
+            f"{CNN_STEP_TOL})")
+        log(f"[resnet] reading, {label}: {tied.flips} of "
+            f"{sum(m.numel() for m in card.masks)} ReLU inputs on the other "
+            f"side of 0 on the CPU; the CPU's step with its own masks vs the "
+            f"card's: {_resnet_text(*_resnet_errors(got, own))}")
+        for side, step in (("card", got), ("CPU", want)):
+            log(f"[resnet] witness, {label}: the {side}'s fp32 step vs the "
+                f"CPU's fp64 (masks tied): "
+                f"{_resnet_text(*_resnet_errors(step, exact))}")
+        if not (_cnn_within(e) and bufs[1] <= CNN_STEP_TOL["leaf"]):
+            failed.append(f"the card's step from the {label} weights "
+                          "disagrees with the CPU's")
+        if label == "seeded":
+            blind = (got[0], {n: g * 0 if ".Conv_" in n else g
+                              for n, g in got[1].items()}, got[2], got[3])
+            e, bufs = _resnet_errors(blind, want)
+            log(f"[resnet] control, the card's step with the blocks' conv "
+                f"gradients zeroed: {_resnet_text(e, bufs)}")
+            if _cnn_within(e):
+                failed.append("the check passes a step without the blocks' "
+                              "conv gradients")
+    return failed
+
+
+def check_resnet_eval(torch, trainer, *, batch=128) -> list[str]:
+    """Evaluation normalises by the running averages: the eval step's
+    loss on a batch differs from a train-mode forward's on the same
+    batch."""
+    import torch.nn.functional as F
+
+    from ddp_tpu_torch.parallel.common import _preprocess
+    from ddp_tpu_torch.parallel.ddp import make_eval_step
+
+    images, labels = trainer.test_split
+    batch = min(batch, len(labels))
+    x = torch.from_numpy(images[:batch]).to(trainer.device)
+    y = torch.from_numpy(labels[:batch]).to(trainer.device)
+    model = trainer.state.model
+    _, total = make_eval_step(model, reduce=lambda t: t)(
+        x, y, torch.ones(batch, device=trainer.device))
+    model.train()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        train_loss = F.cross_entropy(model(_preprocess(x, torch.float32)),
+                                     y.long(), reduction="sum")
+    model.load_state_dict(state)  # the forward advanced the running stats
+    eval_loss, train_loss = float(total) / batch, float(train_loss) / batch
+    log(f"[resnet] loss on a test batch of {batch}: eval mode (running "
+        f"averages) {eval_loss:.6f}, train mode (batch statistics) "
+        f"{train_loss:.6f}")
+    if abs(eval_loss - train_loss) <= 1e-3 * abs(eval_loss):
+        return ["evaluation does not use the running averages"]
+    return []
+
+
+def check_resnet(torch, card, tmp) -> dict:
+    """Phase 7b: ResNet-18 on CIFAR-10 through ``python -m
+    ddp_tpu_torch.train``'s main(), fp32 and then bf16: losses,
+    checkpoints and resume, the card-vs-CPU step with the running
+    buffers, evaluation by the running averages, and the readings."""
+    ckdir = f"{tmp}/resnet"
+    trainer, _ = _train(["--checkpoint_dir", ckdir], RESNET_ARGS)
+    for h in trainer.history:
+        log(_epoch_line(h, "resnet18 cifar10 fp32,").replace("[cnn]",
+                                                             "[resnet]"))
+    failed = _losses_fall(trainer)
+    failed += _resume_failures(torch, ["--checkpoint_dir", ckdir],
+                               RESNET_ARGS, ckdir)
+    failed += check_resnet_step(torch, trainer)
+    failed += check_resnet_eval(torch, trainer)
+    readings = {"fp32": _image_readings(
+        torch, trainer, "resnet18 cifar10 fp32, batch 128", card)}
+    del trainer
+    bf16, _ = _train(["--checkpoint_dir", f"{tmp}/resnet_bf16",
+                      "--compute_dtype", "bfloat16", "--eval_every", "0"],
+                     RESNET_ARGS)
+    failed += _losses_fall(bf16)
+    readings["bf16"] = _image_readings(
+        torch, bf16, "resnet18 cifar10 bf16, batch 128", card)
+    if failed:
+        raise AssertionError(f"phase 7b: {failed}")
+    return readings
+
+
+def check_image_families(torch, card) -> dict:
+    """Phase 7: ViT-Tiny / CIFAR-100 (7a), then ResNet-18 / CIFAR-10
+    (7b); every reading printed before any raise."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        vit = check_vit(torch, card, tmp)
+        torch.cuda.empty_cache()
+        resnet = check_resnet(torch, card, tmp)
+    return {"vit": vit, "resnet": resnet}
 
 
 def check_serving(torch) -> dict:
@@ -2950,6 +3490,7 @@ def main() -> int:
     check_routed_training(torch)
     trained = check_training(torch)
     check_cnn(torch, card)
+    images = check_image_families(torch, card)
 
     replaces = {"flash_decode_fp32": "ddp_tpu/ops/decode.py:260",
                 "flash_decode_int8": "ddp_tpu/ops/decode.py:270",
@@ -2975,20 +3516,29 @@ def main() -> int:
          "launches": paged_launches[name], **paged_timings[name]}
         for name in PAGED_NAMES
     ]
-    # B1-B3: the bf16 variant is the main path (the training run's
-    # numbers); the fp32 variant's, from its own run, ride beside them.
+    # B1-B3: the bf16 variant is the main path (the causal-LM training
+    # run's numbers); the fp32 variant's, from its own run, ride beside
+    # them, and so do both at ViT-Tiny's shape (launches from phase 7a,
+    # which runs bf16 only).
     for name in FLASH_NAMES:
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
+        vit_launches = {"bf16": images["vit"]["launches"][name], "fp32": 0}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "ddp_tpu_torch/ops/csrc/flash_attn.cu",
             "replaces": replaces[name], "launches": trained["bf16"][name],
             **{k: flash["bf16"][name][k] for k in keys},
             "sdpa_bwd_ms": flash["bf16"][name]["sdpa_bwd_ms"],
-            "variants": {"fp32": {
-                "launches": trained["fp32"][name],
-                **{k: flash["fp32"][name][k] for k in keys}}},
+            "variants": {
+                "fp32": {"launches": trained["fp32"][name],
+                         **{k: flash["fp32"][name][k] for k in keys}},
+                **{f"vit_{d}": {"launches": vit_launches[d],
+                                **{k: flash[f"vit_{d}"][name][k]
+                                   for k in keys},
+                                "sdpa_bwd_ms":
+                                    flash[f"vit_{d}"][name]["sdpa_bwd_ms"]}
+                   for d in ("bf16", "fp32")}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

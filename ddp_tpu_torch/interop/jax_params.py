@@ -1,5 +1,7 @@
 """JAX parameter trees → the port's state dicts: the causal LM's
-(``CausalLM``) and SimpleCNN's (:func:`cnn_params_from_jax`).
+(``CausalLM``), SimpleCNN's (:func:`cnn_params_from_jax`), ResNet's
+(:func:`resnet_params_from_jax`, with its BatchNorm ``batch_stats``) and
+ViT's (:func:`vit_params_from_jax`), and back.
 
 For the causal LM, the inverse of ``ddp_tpu.models.lm.init_lm``'s tree
 layout (and of a checkpoint's): ``embed`` [V, d], ``pos_embed`` [1, L,
@@ -188,3 +190,92 @@ def cnn_params_to_jax(state) -> dict:
                   "bias": arr(state["net.2.bias"])},
         "fc": {"kernel": c(fc), "bias": arr(state["fl.bias"])},
     }
+
+
+# ---- ResNet and ViT: Flax names, module for module ----------------------
+#
+# The port's ResNet and ViT name their submodules as the Flax modules do
+# (``stage1_block1.Conv_0``, ``block3.attn.qkv``), so a tree path maps to
+# a state-dict key by "/" → "." and the leaf name: ``kernel`` → ``weight``
+# (Conv HWIO → OIHW, Dense [in, out] → [out, in]), a norm's ``scale`` →
+# ``weight``, ``bias`` → ``bias``; ``cls_token`` and ``pos_embed`` as they
+# are; BatchNorm ``batch_stats`` ``mean``/``var`` → the buffers
+# ``running_mean``/``running_var``.
+
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _flax_from_jax(params, batch_stats=None) -> dict[str, np.ndarray]:
+    state = {}
+    for path, a in flatten_tree(params).items():
+        *mod, leaf = path.split("/")
+        key = ".".join(mod)
+        a = np.asarray(a, np.float32)
+        if leaf == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            state[f"{key}.weight"] = a
+        elif leaf == "scale":
+            state[f"{key}.weight"] = a
+        elif leaf == "bias":
+            state[f"{key}.bias"] = a
+        else:  # cls_token, pos_embed
+            state[path.replace("/", ".")] = a
+    for path, a in flatten_tree(batch_stats or {}).items():
+        *mod, leaf = path.split("/")
+        state[".".join(mod + [_STATS[leaf]])] = np.asarray(a, np.float32)
+    return {k: np.ascontiguousarray(v) for k, v in state.items()}
+
+
+def _flax_to_jax(state) -> tuple[dict, dict]:
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree, path, val):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(val)
+
+    inverse = {v: k for k, v in _STATS.items()}
+    for key, val in state.items():
+        if hasattr(val, "detach"):
+            val = val.detach().float().cpu().numpy()
+        a = np.asarray(val, np.float32)
+        *mod, leaf = key.split(".")
+        if leaf in inverse:
+            put(stats, mod + [inverse[leaf]], a)
+        elif leaf == "weight" and a.ndim == 4:
+            put(params, mod + ["kernel"], a.transpose(2, 3, 1, 0))
+        elif leaf == "weight" and a.ndim == 2:
+            put(params, mod + ["kernel"], a.T)
+        elif leaf == "weight":
+            put(params, mod + ["scale"], a)
+        elif leaf == "bias":
+            put(params, mod + ["bias"], a)
+        else:
+            put(params, key.split("."), a)
+    return params, stats
+
+
+def resnet_params_from_jax(params, batch_stats) -> dict[str, np.ndarray]:
+    """A JAX ``ResNet`` ``params`` tree and its ``batch_stats`` → the
+    port's ``ResNet`` state dict (numpy fp32, buffers included)."""
+    return _flax_from_jax(params, batch_stats)
+
+
+def resnet_params_to_jax(state) -> tuple[dict, dict]:
+    """The port's ``ResNet`` state dict (or gradients keyed alike) →
+    (``params``, ``batch_stats``) as nested trees of numpy fp32 arrays;
+    the inverse of :func:`resnet_params_from_jax`."""
+    return _flax_to_jax(state)
+
+
+def vit_params_from_jax(params) -> dict[str, np.ndarray]:
+    """A JAX ``ViT`` ``params`` tree → the port's ``ViT`` state dict."""
+    return _flax_from_jax(params)
+
+
+def vit_params_to_jax(state) -> dict:
+    """The port's ``ViT`` state dict (or gradients keyed alike) → the
+    nested JAX tree; the inverse of :func:`vit_params_from_jax`."""
+    return _flax_to_jax(state)[0]

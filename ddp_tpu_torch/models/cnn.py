@@ -16,6 +16,8 @@ the JAX step casts its params. TF32 is the caller's decision
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -40,6 +42,14 @@ class SimpleCNN(nn.Module):
         x = F.relu(F.conv2d(x, c1.weight.to(dt), c1.bias.to(dt), padding=1))
         x = F.relu(F.conv2d(x, c2.weight.to(dt), c2.bias.to(dt), padding=1))
         return F.linear(x.flatten(1), self.fl.weight.to(dt), self.fl.bias.to(dt))
+
+    def init_state(self, seed: int = 0) -> dict[str, np.ndarray]:
+        """:func:`init_cnn_state` at this model's widths."""
+        c1, c2 = self.net[0], self.net[2]
+        side = math.isqrt(self.fl.in_features // c2.out_channels)
+        return init_cnn_state((c1.out_channels, c2.out_channels),
+                              num_classes=self.fl.out_features, side=side,
+                              in_channels=c1.in_channels, seed=seed)
 
     @classmethod
     def from_state(cls, state: dict, device, *, num_classes: int = 10):

@@ -55,6 +55,8 @@ from ddp_tpu_torch.ops.decode import (
     paged_decode_attention,
     quantize_kv,
 )
+from ddp_tpu_torch.utils.counter_rng import M32 as _M32
+from ddp_tpu_torch.utils.counter_rng import mix32 as _mix32
 
 
 @dataclass
@@ -281,26 +283,6 @@ def slot_decode_step(
 
 
 # ---- sampling ---------------------------------------------------------
-
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x, c: int):
-    """(x · c) mod 2³² for int64 tensors holding uint32 values, with no
-    int64 overflow (the product is formed from 16-bit halves)."""
-    lo = x & 0xFFFF
-    hi = x >> 16
-    return (lo * c + ((hi * (c & 0xFFFF)) << 16)) & _M32
-
-
-def _mix32(x):
-    """A 32-bit integer hash (Wellons' lowbias32), a bijection on
-    uint32 values held in int64 tensors."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
 
 
 def gumbel_noise(seeds, steps, vocab: int):

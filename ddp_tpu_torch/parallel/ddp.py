@@ -1,13 +1,19 @@
 """The data-parallel train and eval steps (``ddp_tpu/parallel/ddp.py``).
 
 DDP's whole job is one line of the JAX step, ``lax.pmean(grads)``
-(``ddp.py:160``). Here it is one ``all_reduce`` of one flat fp32 bucket
-per optimizer step: every gradient, then the local loss and correct
-count, summed over the world; gradients and loss are then divided by the
-world. No ``DistributedDataParallel`` wrapper: the per-rank step and the
-epoch runner (``train/fast.py``) share this one body, and gradient
-accumulation keeps one all-reduce per update. Replicas start identical
-(the same seeded weights on every rank), so no broadcast is needed.
+(``ddp.py:160``), and one more for the non-gradient state,
+``lax.pmean(new_ms)`` (``ddp.py:168-173``). Here both are one
+``all_reduce`` of one flat fp32 bucket per optimizer step: every
+gradient, every floating-point buffer of the model (BatchNorm's running
+mean and variance, after this step's forward advanced them), then the
+local loss and correct count, summed over the world; all but the count
+are then divided by the world. Averaging the running statistics keeps
+the replicas identical; it is not SyncBN (each rank normalises by its own
+batch's statistics). No ``DistributedDataParallel`` wrapper: the
+per-rank step and the epoch runner (``train/fast.py``) share this one
+body, and gradient accumulation keeps one all-reduce per update. Replicas
+start identical (the same seeded weights on every rank), so no broadcast
+is needed.
 
 ``reduce`` sums a tensor over the world in place:
 ``runtime/dist.all_reduce_sum`` in a run; the tests pass an in-process
@@ -21,6 +27,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ddp_tpu_torch.data.augment import step_key
 from ddp_tpu_torch.parallel.common import (
     _preprocess,
     check_accum_divisible,
@@ -45,8 +52,10 @@ class StepMetrics(NamedTuple):
 @dataclasses.dataclass
 class TrainState:
     """What a checkpoint carries (``ddp.py:44``): the optimizer-step
-    count, the model (its parameters), the optimizer (its state), and
-    the non-gradient collections (empty for SimpleCNN)."""
+    count, the model (its parameters, and its buffers: BatchNorm's
+    running statistics, JAX's ``batch_stats`` collection, ride the
+    model's ``state_dict()``), the optimizer (its state), and any other
+    non-gradient collection (none of the ported models has one)."""
 
     step: int
     model: torch.nn.Module
@@ -59,9 +68,12 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
-def _loss_and_correct(model, images, labels, compute_dtype, label_smoothing):
-    logits = model(_preprocess(images, compute_dtype),
-                   compute_dtype=compute_dtype).float()
+def _loss_and_correct(model, images, labels, compute_dtype, label_smoothing,
+                      augment_fn=None, key=None):
+    x = _preprocess(images, compute_dtype)
+    if augment_fn is not None:
+        x = augment_fn(key, x)
+    logits = model(x, compute_dtype=compute_dtype).float()
     loss = xent(logits, labels, label_smoothing).mean()
     correct = (logits.argmax(-1) == labels.long()).sum().float()
     return loss, correct
@@ -75,28 +87,45 @@ def make_train_step(
     compute_dtype=torch.float32,
     grad_accum_steps: int = 1,
     label_smoothing: float = 0.0,
+    augment_fn=None,
+    seed: int = 0,
+    rank: int = 0,
 ):
     """``step(images, labels) -> StepMetrics`` (``ddp.py:98-235``):
-    this rank's uint8 batch through forward and backward, the one
-    all-reduce, one optimizer update; ``state.step`` counts it.
+    this rank's uint8 batch through forward (the model in train mode)
+    and backward, the one all-reduce, one optimizer update;
+    ``state.step`` counts it.
 
     ``grad_accum_steps=k`` splits the local batch into k contiguous
-    microbatches and averages their gradients. Metrics (``ddp.py:170``):
-    loss is the mean over ranks, accuracy Σcorrect / (n·world), grad_norm
-    the norm of the averaged, unclipped gradient. No host read.
+    microbatches and averages their gradients; the running statistics
+    advance once a microbatch (``grad_accum_scan`` threads
+    ``model_state``). ``augment_fn(key, x)`` (``data/augment``) runs on
+    the scaled batch with the key of (``seed``, step, ``rank``,
+    microbatch). Metrics (``ddp.py:170``): loss is the mean over ranks,
+    accuracy Σcorrect / (n·world), grad_norm the norm of the averaged,
+    unclipped gradient. No host read.
     """
     model, optimizer = state.model, state.optimizer
     params = [p for p in model.parameters() if p.requires_grad]
+    buffers = [b for b in model.buffers() if b.is_floating_point()]
     sizes = [p.numel() for p in params]
+    n_grad = sum(sizes)
+    buf_sizes = [b.numel() for b in buffers]
+    n_buf = sum(buf_sizes)
+
+    def key(micro):
+        return augment_fn and step_key(seed, state.step, rank, micro)
 
     def step(images, labels) -> StepMetrics:
         n = labels.shape[0]
+        model.train()
         for p in params:
             p.grad = None
         with precision(compute_dtype):
             if grad_accum_steps == 1:
                 loss, correct = _loss_and_correct(
-                    model, images, labels, compute_dtype, label_smoothing)
+                    model, images, labels, compute_dtype, label_smoothing,
+                    augment_fn, key(0))
                 loss.backward()
             else:
                 mb = check_accum_divisible(n, grad_accum_steps)
@@ -105,18 +134,24 @@ def make_train_step(
                     rows = slice(i * mb, (i + 1) * mb)
                     l_i, c_i = _loss_and_correct(
                         model, images[rows], labels[rows], compute_dtype,
-                        label_smoothing)
+                        label_smoothing, augment_fn, key(i))
                     l_i.backward()
                     loss, correct = loss + l_i.detach(), correct + c_i
         bucket = torch.cat([p.grad.reshape(-1) for p in params]
+                           + [b.reshape(-1) for b in buffers]
                            + [loss.detach().reshape(1), correct.reshape(1)])
+        grads = bucket[:n_grad]
         if grad_accum_steps > 1:
-            bucket[:-1].div_(grad_accum_steps)
+            grads.div_(grad_accum_steps)
+            bucket[-2:-1].div_(grad_accum_steps)
         reduce(bucket)
         bucket[:-1].div_(world)
-        for p, g in zip(params, bucket[:-2].split(sizes)):
+        for p, g in zip(params, grads.split(sizes)):
             p.grad = g.view_as(p)
-        grad_norm = torch.linalg.vector_norm(bucket[:-2])  # one reduction
+        stats = bucket[n_grad:n_grad + n_buf].split(buf_sizes)
+        for b, v in zip(buffers, stats):
+            b.copy_(v.view_as(b))
+        grad_norm = torch.linalg.vector_norm(grads)  # one reduction
         optimizer.step()
         state.step += 1
         loss, correct = bucket[-2:].clone()  # not views: the bucket is freed
@@ -129,11 +164,13 @@ def make_train_step(
 def make_eval_step(model, *, reduce=all_reduce_sum,
                    compute_dtype=torch.float32):
     """``step(images, labels, weights) -> (Σ w·correct, Σ w·loss)`` summed
-    over the world (``ddp.py:237-268``); weights zero the wraparound
+    over the world (``ddp.py:237-268``), the model in eval mode (BatchNorm
+    normalises by its running averages); weights zero the wraparound
     padding of the last batch, so the caller divides by the split size."""
 
     @torch.no_grad()
     def step(images, labels, weights):
+        model.eval()
         with precision(compute_dtype):
             logits = model(_preprocess(images, compute_dtype),
                            compute_dtype=compute_dtype).float()

@@ -4,7 +4,9 @@
 Layout under the checkpoint directory, as the JAX package's:
 
 - ``epoch_N/state.pt``: ``torch.save`` of ``{step, params, opt_state,
-  spe, mid_batch, fmt}`` (``checkpoint.py:609-665``), written by rank 0
+  spe, mid_batch, fmt}`` (``checkpoint.py:609-665``; ``params`` is the
+  model's ``state_dict()``, so BatchNorm's running statistics, JAX's
+  ``batch_stats``, are saved and restored with it), written by rank 0
   into a temporary directory first; the rename to ``epoch_N`` is the
   commit point, so a crash mid-save leaves no half-written latest;
 - ``epoch_N.manifest.json``: every file's size and CRC-32

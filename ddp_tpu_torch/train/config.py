@@ -1,5 +1,5 @@
-"""Flags of ``python -m ddp_tpu_torch.train`` (the SimpleCNN and causal-LM
-subset of ``ddp_tpu/train/config.py``, under the JAX names and
+"""Flags of ``python -m ddp_tpu_torch.train`` (the image-model and
+causal-LM subset of ``ddp_tpu/train/config.py``, under the JAX names and
 defaults)."""
 
 from __future__ import annotations
@@ -7,30 +7,32 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-MODELS = ("simple_cnn", "causal_lm")
+from ddp_tpu_torch.models import IMAGE_MODELS
+
+MODELS = IMAGE_MODELS + ("causal_lm",)
 # JAX-package models the port does not train yet, by name prefix, with the
 # ROADMAP item that brings them.
-UNPORTED = {"resnet": "A2.2", "vit_moe": "A2.4", "vit": "A2.1",
-            "long_context": "A2.4", "pipe_vit": "A4"}
-IMAGE_DATASETS = ("mnist", "fashion_mnist", "kmnist", "uci_digits")
+UNPORTED = {"vit_moe": "A2.4", "long_context": "A2.4", "pipe_vit": "A4"}
+IMAGE_DATASETS = ("mnist", "fashion_mnist", "kmnist", "uci_digits",
+                  "cifar10", "cifar100")
 SEQ_DATASETS = ("synthetic_seq", "text")
 
 
 @dataclasses.dataclass
 class TrainConfig:
     model: str = "simple_cnn"
-    # "auto": mnist for simple_cnn, synthetic_seq for causal_lm.
+    # "auto": mnist for the image models, synthetic_seq for causal_lm.
     dataset: str = "auto"
     data_root: str = "./data"
-    synthetic_data: bool = False  # simple_cnn: the offline synthetic split
+    synthetic_data: bool = False  # image models: the offline synthetic split
     text_file: str | None = None
-    # simple_cnn: the synthetic train split (None → 60000; test n // 6).
-    # causal_lm: sequences (None → 2048).
+    # Image models: the synthetic train split (None → the dataset's size;
+    # test n // 6, CIFAR n // 5). causal_lm: sequences (None → 2048).
     synthetic_size: int | None = None
     seq_len: int = 2048
     vocab_size: int = 256
     model_dim: int | None = None  # None → 64
-    model_depth: int | None = None  # None → 2
+    model_depth: int | None = None  # None → 2 (causal_lm), the model's own
     num_heads: int = 4
     num_kv_heads: int = 0  # 0 → MHA
     batch_size: int = 32  # per rank (data shard)
@@ -45,10 +47,11 @@ class TrainConfig:
     lr_decay_factor: float = 0.1
     grad_clip_norm: float = 0.0
     label_smoothing: float = 0.0
+    augment: str = "none"  # image models, on the device: crop_flip | flip | shift
     grad_accum_steps: int = 1
     compute_dtype: str = "float32"  # float32 | bfloat16
     seed: int = 0
-    # simple_cnn only: checkpoints, evaluation, logging, the fast path,
+    # Image models only: checkpoints, evaluation, logging, the fast path,
     # and the ranks.
     checkpoint_dir: str = "./checkpoints"
     max_checkpoints: int | None = None  # None = keep all
@@ -64,14 +67,16 @@ class TrainConfig:
     def parser(cls) -> argparse.ArgumentParser:
         p = argparse.ArgumentParser(
             prog="python -m ddp_tpu_torch.train",
-            description="Train SimpleCNN data-parallel, or the causal LM on "
-            "one GPU (the PyTorch/CUDA port of train.py).",
+            description="Train an image model (SimpleCNN, ResNet, ViT) "
+            "data-parallel, or the causal LM on one GPU (the PyTorch/CUDA "
+            "port of train.py).",
         )
         choices = {
             "optimizer": ("sgd", "adam", "adamw"),
             "compute_dtype": ("float32", "bfloat16"),
             "dataset": ("auto",) + IMAGE_DATASETS + SEQ_DATASETS,
             "backend": ("nccl", "gloo"),
+            "augment": ("none", "crop_flip", "flip", "shift"),
         }
         for f in dataclasses.fields(cls):
             kw = {"default": f.default}
@@ -94,7 +99,7 @@ class TrainConfig:
                          if config.model.startswith(k)), None)
             raise ValueError(
                 f"--model {config.model!r} is not ported: the port trains "
-                f"{' and '.join(MODELS)}"
+                f"{', '.join(MODELS)}"
                 + (f"; {config.model} waits for ROADMAP {item}" if item else "")
             )
         return config

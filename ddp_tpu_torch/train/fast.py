@@ -1,4 +1,4 @@
-"""The compiled-epoch paths (``ddp_tpu/train/fast.py``): SimpleCNN's
+"""The compiled-epoch paths (``ddp_tpu/train/fast.py``): the image models'
 :func:`make_epoch_runner` (``fast.py:86-157``) and the causal LM's
 :func:`make_lm_epoch_runner` (``fast.py:160-242``).
 
@@ -82,6 +82,7 @@ def make_epoch_runner(
     compute_dtype=torch.float32,
     seed: int = 0,
     label_smoothing: float = 0.0,
+    augment_fn=None,
     permutation=None,
 ):
     """``run(epoch) -> StepMetrics`` of [steps] device tensors.
@@ -91,7 +92,8 @@ def make_epoch_runner(
     the epoch's permutation (``fast.py:133-140``; the loader's strided
     shards differ, and both are the reference's); the tail that does not
     fill a global batch is dropped. The step is
-    ``parallel/ddp.make_train_step``'s, one all-reduce each.
+    ``parallel/ddp.make_train_step``'s, one all-reduce each (BatchNorm's
+    running statistics in its bucket; ``augment_fn`` on the device).
     ``run.step_seconds()`` gives the last epoch's per-step times.
     """
     if global_batch_size % world:
@@ -108,7 +110,8 @@ def make_epoch_runner(
     plan = permutation or default_permutation(n, seed)
     step = make_train_step(state, world=world, reduce=reduce,
                            compute_dtype=compute_dtype,
-                           label_smoothing=label_smoothing)
+                           label_smoothing=label_smoothing,
+                           augment_fn=augment_fn, seed=seed, rank=rank)
     offset = rank * local
 
     def run(epoch: int) -> StepMetrics:

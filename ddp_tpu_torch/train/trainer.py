@@ -1,15 +1,18 @@
 """The trainers behind ``python -m ddp_tpu_torch.train``.
 
-:class:`CNNTrainer` is ``train.py``'s main path
-(``ddp_tpu/train/trainer.py:2047-3006``, the SimpleCNN subset):
-MNIST-family data sharded over the ranks of ``torch.distributed``
-(``data/loader``, ``data/sampler``), the data-parallel step
-(``parallel/ddp``, one all-reduce a step) or the compiled-epoch runner
-(``--fast_epoch``), a checkpoint with an integrity manifest every epoch,
-auto-resume from ``--checkpoint_dir`` with the optimizer state, and an
-evaluation on the test split every ``eval_every`` epochs. Rank 0 prints
-the JAX trainer's log lines (0-based epoch tags, as the reference's
-checkpoints) and ``final_accuracy=``.
+:class:`ImageTrainer` is the port's counterpart of the JAX package's
+``Trainer`` for the image models (``ddp_tpu/train/trainer.py:2047-3006``,
+the data-parallel subset), ``train.py``'s main path: SimpleCNN, ResNet
+or ViT (``models.get_model``) on MNIST-family or CIFAR data sharded over
+the ranks of ``torch.distributed`` (``data/loader``, ``data/sampler``),
+the data-parallel step (``parallel/ddp``, one all-reduce a step,
+BatchNorm's running statistics averaged in it, ``--augment`` on the
+device) or the compiled-epoch runner (``--fast_epoch``), a checkpoint
+with an integrity manifest every epoch, auto-resume from
+``--checkpoint_dir`` with the optimizer state and the running
+statistics, and an evaluation on the test split every ``eval_every``
+epochs. Rank 0 prints the JAX trainer's log lines (0-based epoch tags, as
+the reference's checkpoints) and ``final_accuracy=``.
 
 :class:`LMTrainer` trains the causal LM on one card
 (``trainer.py:812-966``, causal-LM subset): synthetic token streams or a
@@ -33,11 +36,12 @@ import numpy as np
 import torch
 
 from ddp_tpu_torch.data import sequences
+from ddp_tpu_torch.data.augment import get_augmentation
 from ddp_tpu_torch.data.loader import ShardedLoader
 from ddp_tpu_torch.data.registry import NUM_CLASSES, load_dataset
 from ddp_tpu_torch.data.text import Split, load_text_corpus
 from ddp_tpu_torch.device import resolve_device
-from ddp_tpu_torch.models.cnn import SimpleCNN, init_cnn_state
+from ddp_tpu_torch.models import get_model
 from ddp_tpu_torch.models.lm import (
     CausalLM,
     LMSpec,
@@ -47,7 +51,7 @@ from ddp_tpu_torch.models.lm import (
 from ddp_tpu_torch.parallel.ddp import TrainState, make_eval_step, make_train_step
 from ddp_tpu_torch.runtime import dist
 from ddp_tpu_torch.train.checkpoint import CheckpointManager
-from ddp_tpu_torch.train.config import IMAGE_DATASETS, TrainConfig
+from ddp_tpu_torch.train.config import IMAGE_DATASETS, IMAGE_MODELS, TrainConfig
 from ddp_tpu_torch.train.fast import (
     make_epoch_runner,
     make_lm_epoch_runner,
@@ -189,21 +193,23 @@ class LMTrainer:
         return self.summary
 
 
-class CNNTrainer:
-    """SimpleCNN on an MNIST-family split, data-parallel over the ranks of
+class ImageTrainer:
+    """An image model on an image split, data-parallel over the ranks of
     ``ctx`` (a ``runtime/dist`` context). ``--batch_size`` is per rank;
-    the global batch is batch_size × world × grad_accum_steps."""
+    the global batch is batch_size × world × grad_accum_steps. The
+    dataset gives the classes and the input shape; ``--dataset auto`` is
+    mnist for every image model, as in the JAX trainer."""
 
     def __init__(self, config: TrainConfig, ctx: dist.DistContext):
-        if config.model != "simple_cnn":
-            raise ValueError(f"CNNTrainer trains --model simple_cnn, not "
+        if config.model not in IMAGE_MODELS:
+            raise ValueError(f"ImageTrainer trains {IMAGE_MODELS}, not "
                              f"{config.model!r}")
         self.config, self.ctx = config, ctx
         self.device = ctx.device
         self.rank, self.world = ctx.process_id, ctx.num_processes
         self.dataset = "mnist" if config.dataset == "auto" else config.dataset
         if self.dataset not in IMAGE_DATASETS:
-            raise ValueError(f"--model simple_cnn trains on images, not "
+            raise ValueError(f"--model {config.model} trains on images, not "
                              f"{self.dataset!r}")
         self.train_split, self.test_split = load_dataset(
             self.dataset, config.data_root,
@@ -214,12 +220,16 @@ class CNNTrainer:
         self.per_shard_batch = config.batch_size
         self.global_batch_size = (config.batch_size * self.world
                                   * config.grad_accum_steps)
-        side = self.train_split.images.shape[1]
-        classes = NUM_CLASSES[self.dataset]
-        model = SimpleCNN.from_state(
-            init_cnn_state(num_classes=classes, side=side, seed=config.seed),
-            self.device, num_classes=classes,
+        _, side, _, channels = self.train_split.images.shape
+        model = get_model(
+            config.model, num_classes=NUM_CLASSES[self.dataset], side=side,
+            in_channels=channels,
+            **({"depth": config.model_depth} if config.model_depth else {}),
         )
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                               model.init_state(config.seed).items()})
+        model = model.to(self.device)
+        augment_fn = get_augmentation(config.augment)
         lr = make_schedule(
             config.lr, warmup_steps=config.warmup_steps,
             decay_steps=config.decay_steps, lr_milestones=config.milestones,
@@ -243,7 +253,7 @@ class CNNTrainer:
                 torch.from_numpy(self.train_split.labels).to(self.device),
                 self.global_batch_size, rank=self.rank, world=self.world,
                 compute_dtype=self.compute_dtype, seed=config.seed,
-                label_smoothing=config.label_smoothing,
+                label_smoothing=config.label_smoothing, augment_fn=augment_fn,
             )
             self.steps_per_epoch = self.fast_runner.steps_per_epoch
             self.train_step = self.fast_runner.step
@@ -259,6 +269,7 @@ class CNNTrainer:
                 compute_dtype=self.compute_dtype,
                 grad_accum_steps=config.grad_accum_steps,
                 label_smoothing=config.label_smoothing,
+                augment_fn=augment_fn, seed=config.seed, rank=self.rank,
             )
         self.ckpt = CheckpointManager(
             config.checkpoint_dir, max_to_keep=config.max_checkpoints,
@@ -378,14 +389,15 @@ class CNNTrainer:
         return self.summary
 
 
-def run_cnn(config: TrainConfig, ctx: dist.DistContext | None = None) -> CNNTrainer:
-    """One rank of ``--model simple_cnn``: the process group (world 1
-    unless ``ctx`` is given), training, teardown; rank 0 prints
+def run_image(config: TrainConfig,
+              ctx: dist.DistContext | None = None) -> ImageTrainer:
+    """One rank of an image model: the process group (world 1 unless
+    ``ctx`` is given), training, teardown; rank 0 prints
     ``final_accuracy=`` last."""
     if ctx is None:
         ctx = dist.setup(backend=config.backend, device=config.device)
     try:
-        trainer = CNNTrainer(config, ctx)
+        trainer = ImageTrainer(config, ctx)
         summary = trainer.train()
     finally:
         dist.cleanup()
@@ -402,8 +414,8 @@ def _spawned_worker(rank: int, world: int, argv: list, port: int) -> None:
     config = TrainConfig.from_args(argv)
     if config.device == "cpu":  # ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    run_cnn(config, dist.setup(rank, world, backend=config.backend,
-                               device=config.device))
+    run_image(config, dist.setup(rank, world, backend=config.backend,
+                                 device=config.device))
 
 
 def spawn(config: TrainConfig, argv: list) -> None:
@@ -438,4 +450,4 @@ def main(argv=None):
     if config.spawn > 1:
         spawn(config, args)
         return None
-    return run_cnn(config)
+    return run_image(config)
