@@ -123,7 +123,8 @@ order; any failure exits non-zero and prints no result:
    steps, and one step through the kernels vs the plain attention from
    the same weights and batch (loss, whole gradient and every parameter's
    gradient, STEP_TOL; a B3 that drops a dK tile must fail the same
-   limits); then the fp32 variant at depth 2.
+   limits); then the fp32 variant at depth 2. Both write checkpoints to a
+   temporary directory each (phase 8a), which phase 8 serves.
 6. The reference trainer's main path (train.py --epochs 3 --batch_size
    64, which BASELINE.json measures): ``python -m ddp_tpu_torch.train
    --model simple_cnn``'s own main() on the synthetic split at MNIST's
@@ -172,12 +173,52 @@ order; any failure exits non-zero and prints no result:
    loss (running averages) against a train-mode forward's; images/s,
    step p50 and busy share, then the same figures in bf16. No kernel of
    the repo lies on ResNet (its convs are cuDNN's).
-8. A "kernels" JSON line, the card line, and the last line
+8. (Runs right after 5, on its checkpoints: about 3.1 GB, removed at the
+   end of the phase; check_lm_phases runs 5a, 5 and 8 alone.) From
+   training to serving. It prints its wall seconds.
+   8a (inside phase 5): epoch_0..1 (bf16) and epoch_0 (fp32) with
+   verified manifests and the lm_spec.json sidecar; restore_for_inference
+   equals the trainer's parameters bit for bit; the bf16 command again
+   with --epochs 3 prints "Resumed from checkpoint epoch 1", trains epoch
+   2 alone, and the parameters and Adam moments it restored equal the
+   saved ones bit for bit.
+   8b: ``python -m ddp_tpu_torch.serve``'s main() with --checkpoint_dir
+   <bf16> --epoch 0 --page_size 16 --slots 8, counters set to 0 before
+   and read after: phase 4c's traffic shape from the training
+   distribution (lm_prompts), with POST /reload of epoch 1 once 8
+   requests are in flight (200, the prefix flushed; every request
+   completes, each stream equal to the fixed-lane engine's under the
+   version it reports, near ties excepted), the traffic again (streams
+   equal a fresh paged engine's on epoch 1; the first request after the
+   swap misses the index), the same reload again (no flush; the index
+   keeps its hits), and three reloads that must answer 409 (the depth-2
+   directory: spec_skew; an empty one: manifest_missing; the depth-2 one
+   with a byte flipped: crc_mismatch), each followed by an unchanged
+   stream. B4p launched >= decode steps x depth, no fixed-lane launch,
+   nothing routed. In-process, where the batching is the same on both
+   sides: a paged engine on epoch 0 given epoch 1 through install_params
+   with the flush equals a fresh engine's first logits bit for bit and
+   its streams; without the flush (the control) it must not.
+   8c-8d: main() with --checkpoint_dir <bf16> --draft_checkpoint_dir
+   <fp32 depth 2> --spec_tokens 4 --model draft=<fp32 depth 2>: phase
+   4d's requests (streams equal the plain engine's, near ties by
+   replay_gap), flash_decode_fp32 launched exactly rounds x γ x draft
+   depth + the named engine's steps x its depth; acceptance, tokens a
+   target step, tokens/s and the round's split printed; "model": "draft"
+   served by the depth-2 engine (its stream equals that engine's
+   in-process, only its counters move), "model": "nope" answers 400
+   unknown_model; SIGTERM with 8 requests in flight: a new POST answers
+   503 with Retry-After, the 8 complete, main() returns drained.
+   8e: main() with --streaming_restore --stream_layers 1 on epoch 1: the
+   streams equal 8b's fresh engine's; seconds to admission, to full
+   residency and of the monolithic restore printed.
+9. A "kernels" JSON line, the card line, and the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -1502,75 +1543,22 @@ def _free_port() -> int:
 
 def serve_main_run(torch, prompts, *, kv_dtype, kv_pages=None):
     """``python -m ddp_tpu_torch.serve``'s own main() at phase 4's full
-    width with --page_size SERVE_PAGE, run in this thread (it serves
-    until SIGTERM), while a client thread sends the seed request alone
-    and then the burst concurrently over HTTP and ends main() with
-    SIGTERM → (replies by index, the engine, peak effective-slots
+    width with --page_size SERVE_PAGE (serve_main_with), while a client
+    thread sends the seed request alone and then the burst concurrently
+    over HTTP → (replies by index, the engine, peak effective-slots
     multiplier, wall seconds of the traffic)."""
-    import contextlib
-    import io
-    import os
-    import signal
+    replies, peaks, wall = {}, [], []
 
-    import ddp_tpu_torch.serve.engine as engine_mod
-    from ddp_tpu_torch.serve.__main__ import main as serve_main
+    def traffic(url, made, stop):
+        t0 = time.perf_counter()
+        replies.update(prefix_traffic(url, prompts))
+        wall.append(time.perf_counter() - t0)
 
-    port = _free_port()
-    url = f"http://127.0.0.1:{port}"
-    made = []
-    base = engine_mod.ServeEngine
-
-    replies, errors, peaks, wall = {}, [], [], []
-
-    class Seen(base):
-        """main() builds its engine inside: keep a handle, and read the
-        effective-slots multiplier after every step (in the engine's
-        thread, under the server's lock), as bench.py reads it."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            made.append(self)
-
-        def step(self):
-            out = super().step()
-            peaks.append(self.page_stats()["effective_slots_multiplier"]
-                         or 0.0)
-            return out
-
-    over = threading.Event()
-
-    def request(i):
-        try:
-            replies[i] = _post(url, {"prompt_tokens": prompts[i],
-                                     "max_new_tokens": PREFIX_NEW})
-        except Exception as e:  # noqa: BLE001 — reported below
-            errors.append(f"request {i}: {type(e).__name__}: {e}")
-
-    def traffic():
-        try:
-            deadline = time.perf_counter() + 300
-            while True:
-                try:
-                    _get(url, "/healthz")
-                    break
-                except OSError:
-                    if over.is_set() or time.perf_counter() > deadline:
-                        raise
-                    time.sleep(0.2)
-            t0 = time.perf_counter()
-            request(0)
-            burst = [threading.Thread(target=request, args=(i,))
-                     for i in range(1, len(prompts))]
-            for t in burst:
-                t.start()
-            for t in burst:
-                t.join(timeout=900)
-            wall.append(time.perf_counter() - t0)
-        except Exception as e:  # noqa: BLE001 — reported below
-            errors.append(f"traffic: {type(e).__name__}: {e}")
-        finally:
-            if not over.is_set():
-                os.kill(os.getpid(), signal.SIGTERM)
+    def peak(engine):
+        # The effective-slots multiplier after every step, as bench.py
+        # reads it.
+        peaks.append(engine.page_stats()["effective_slots_multiplier"]
+                     or 0.0)
 
     spec = FULL
     argv = ["--init_demo", "--seed", "0",
@@ -1579,28 +1567,10 @@ def serve_main_run(torch, prompts, *, kv_dtype, kv_pages=None):
             "--d_model", str(spec["d_model"]), "--depth", str(spec["depth"]),
             "--num_heads", str(spec["num_heads"]), "--slots", str(SLOTS),
             "--prefill_len", str(PREFILL_LEN), "--kv_dtype", kv_dtype,
-            "--page_size", str(SERVE_PAGE), "--port", str(port)]
+            "--page_size", str(SERVE_PAGE)]
     if kv_pages:
         argv += ["--kv_pages", str(kv_pages)]
-    argv += SERVE_DEVICE_ARGS
-    old = signal.getsignal(signal.SIGTERM)
-    printed = io.StringIO()
-    engine_mod.ServeEngine = Seen
-    client = threading.Thread(target=traffic)
-    client.start()
-    try:
-        with contextlib.redirect_stdout(printed):
-            serve_main(argv)
-    finally:
-        over.set()
-        engine_mod.ServeEngine = base
-        signal.signal(signal.SIGTERM, old)
-        client.join(timeout=900)
-    torch.cuda.synchronize()
-    log(f"[serve-paged] main({' '.join(argv)}) printed "
-        f"{printed.getvalue().strip()}")
-    if errors or client.is_alive():
-        raise AssertionError("; ".join(errors) or "the client did not finish")
+    made, _ = serve_main_with(torch, argv, traffic, on_step=peak)
     return replies, made[0], max(peaks, default=0.0), wall[0]
 
 
@@ -1744,7 +1714,7 @@ SPEC_BUDGET = SLOTS * (64 + SPEC_GAMMA)
 VARIANT_NEW, VARIANT_SEED = 128, 1
 
 
-def _spec_counters(dec) -> None:
+def _zero_decode_counters(dec) -> None:
     for wrapper in (dec.flash_decode_attention,
                     dec.flash_decode_paged_attention):
         for k in wrapper.launches:
@@ -1915,7 +1885,7 @@ def time_spec_variant(torch, model, label, draft=None) -> None:
             VARIANT_NEW)
         if not adm.accepted:
             raise AssertionError(f"phase 4d {label}: {adm.reason}")
-    _spec_counters(dec)
+    _zero_decode_counters(dec)
     engine.step()
     engine.step_latency = StatSummary()
     t0 = time.perf_counter()
@@ -1972,7 +1942,7 @@ def check_spec_serving(torch, card) -> dict:
     # 1-2. REQUESTS with the truncated draft, fp32 and int8 target KV.
     for kv_dtype in ("fp32", "int8"):
         want, _ = spec_streams(torch, model, prompts, kv_dtype=kv_dtype)
-        _spec_counters(dec)
+        _zero_decode_counters(dec)
         got, engine = spec_streams(torch, model, prompts, kv_dtype=kv_dtype,
                                    draft=draft)
         launches, bad = _spec_launch_failures(dec, engine, DRAFT_DEPTH)
@@ -1989,7 +1959,7 @@ def check_spec_serving(torch, card) -> dict:
     # 3. The self-draft: every rejection a near tie of the target.
     greedy = {i: c for i, c in spec_requests().items() if not c[2]}
     rejected: list = []
-    _spec_counters(dec)
+    _zero_decode_counters(dec)
     got, engine = spec_streams(
         torch, model, prompts, kv_dtype="fp32", draft=selfd, cases=greedy,
         watch=lambda e: _rejections_at_near_ties(torch, e, rejected))
@@ -2015,7 +1985,7 @@ def check_spec_serving(torch, card) -> dict:
 
     pprompts = prefix_prompts(spec.vocab_size)
     fixed = fixed_lane_streams(torch, model, pprompts, kv_dtype="fp32")
-    _spec_counters(dec)
+    _zero_decode_counters(dec)
     engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
                          page_size=SERVE_PAGE, max_queue=len(pprompts),
                          spec_tokens=SPEC_GAMMA, draft_model=draft)
@@ -2254,20 +2224,24 @@ def profile_train_steps(torch, trainer, *, steps=3) -> None:
             f"ms/step x{e.count // steps:<4d} {e.key[:90]}")
 
 
-def check_training(torch) -> dict:
+def check_training(torch, ckdirs: dict) -> dict:
     """Phase 5: ``python -m ddp_tpu_torch.train``'s own main() at the
-    full width (bf16), then its fp32 variant at depth 2 → the launch
-    counts of each run, by counter name."""
+    full width (bf16), then its fp32 variant at depth 2, each with
+    ``--checkpoint_dir ckdirs[dtype]`` (phase 8a checks what they write,
+    and the bf16 run's resume) → the launch counts of each run, by
+    counter name."""
     from ddp_tpu_torch.ops import flash as fl
     from ddp_tpu_torch.train.trainer import main as train_main
 
     launches = fl.flash_attention.launches
     counted = {}
     for args, dname in ((TRAIN_ARGS, "bf16"), (TRAIN_FP32_ARGS, "fp32")):
+        args = args + ["--checkpoint_dir", ckdirs[dname]]
         log(f"[train] python -m ddp_tpu_torch.train {' '.join(args)}")
         _zero(launches)
         fl.flash_attention.plain_routed = 0
-        trainer = train_main(args)
+        with _timed_saves() as save_s:
+            trainer = train_main(args)
         torch.cuda.synchronize()
         got = dict(launches)
         if fl.flash_attention.plain_routed:
@@ -2300,6 +2274,7 @@ def check_training(torch) -> dict:
                 f"{p50_rate:.1f} at the p50 step{mfu}, step p50 "
                 f"{h['step_p50_s'] * 1e3:.2f} ms, steps "
                 + ", ".join(f"{s * 1e3:.1f}" for s in h["step_seconds"]))
+        check_lm_checkpoint(torch, trainer, ckdirs[dname], dname, save_s)
         if dname == "bf16":
             first, second = (h["train_loss"] for h in trainer.history)
             if not second < first:
@@ -2311,6 +2286,7 @@ def check_training(torch) -> dict:
         compare_step(torch, trainer, dname)
         del trainer
         torch.cuda.empty_cache()
+    check_lm_resume(torch, TRAIN_ARGS + ["--checkpoint_dir", ckdirs["bf16"]])
     return counted
 
 
@@ -2325,17 +2301,18 @@ TRAIN_ROUTED_ARGS = [
 ]
 
 
-def check_routed_training(torch) -> None:
+def check_routed_training(torch, ckdir: str) -> None:
     """Phase 5a: ``python -m ddp_tpu_torch.train`` at head dim 24, which
     B1-B3 do not take: every attention block must take the plain block on
     the card (counted > 0), launch no kernel, and give finite losses."""
     from ddp_tpu_torch.ops import flash as fl
     from ddp_tpu_torch.train.trainer import main as train_main
 
-    log(f"[train] python -m ddp_tpu_torch.train {' '.join(TRAIN_ROUTED_ARGS)}")
+    args = TRAIN_ROUTED_ARGS + ["--checkpoint_dir", ckdir]
+    log(f"[train] python -m ddp_tpu_torch.train {' '.join(args)}")
     _zero(fl.flash_attention.launches)
     fl.flash_attention.plain_routed = 0
-    trainer = train_main(TRAIN_ROUTED_ARGS)
+    trainer = train_main(args)
     torch.cuda.synchronize()
     routed = fl.flash_attention.plain_routed
     launched = sum(fl.flash_attention.launches.values())
@@ -2349,6 +2326,857 @@ def check_routed_training(torch) -> None:
                              "block")
     del trainer
     torch.cuda.empty_cache()
+
+
+# ---- phase 8: from training to serving -----------------------------------
+
+# Phase 8's traffic comes from the training distribution (synthetic_tokens
+# at PHASE8_SEED, vocab 8192): phase 4c's shape, a 96-token prefix (the
+# first sequence's start) and a 16-token tail of each other sequence.
+PHASE8_SEED = 0
+LM_SLOTS = 8
+# POST /reload lands once this many requests are in flight; while it
+# verifies and loads, more requests arrive, one every RELOAD_EXTRA_GAP_S
+# (at most RELOAD_EXTRA), and once admission has paused RELOAD_QUEUED
+# more, which wait in the queue for the swap.
+RELOAD_IN_FLIGHT, RELOAD_EXTRA, RELOAD_EXTRA_GAP_S = 8, 200, 0.1
+RELOAD_QUEUED = 8
+# 8d: requests in flight when SIGTERM drains the server.
+DRAIN_REQUESTS, DRAIN_NEW = 8, 128
+
+
+@contextlib.contextmanager
+def _timed_saves():
+    """Seconds of each ``CheckpointManager.save`` inside the block."""
+    from ddp_tpu_torch.train.checkpoint import CheckpointManager
+
+    real, seconds = CheckpointManager.save, []
+
+    def save(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = real(self, *a, **kw)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    CheckpointManager.save = save
+    try:
+        yield seconds
+    finally:
+        CheckpointManager.save = real
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def check_lm_checkpoint(torch, trainer, ckdir, dname, save_s) -> None:
+    """Phase 8a, after a phase-5 run: one verified epoch directory per
+    epoch and the lm_spec.json sidecar, and the served parameters
+    (``restore_for_inference``, memory-mapped) equal to the trainer's bit
+    for bit."""
+    from ddp_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        load_lm_spec_fields,
+    )
+
+    mgr = CheckpointManager(ckdir)
+    epochs = list(range(trainer.config.epochs))
+    t0 = time.perf_counter()
+    problems = {e: mgr.verify_epoch(e) for e in mgr.all_epochs()}
+    verify_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, epoch = mgr.restore_for_inference()
+    differ = [k for k, v in trainer.model.state_dict().items()
+              if not torch.equal(state[k], v.cpu())]
+    restore_s = time.perf_counter() - t0
+    sidecar = load_lm_spec_fields(ckdir)
+    log(f"[ckpt] {dname}: epochs {mgr.all_epochs()} in {ckdir} "
+        f"({_dir_bytes(ckdir) / 1e9:.3f} GB), saves "
+        + ", ".join(f"{s:.2f}" for s in save_s)
+        + f" s, manifests verified in {verify_s:.2f} s ({problems}), "
+        f"restore_for_inference epoch {epoch} read and compared in "
+        f"{restore_s:.2f} s, {len(state)} tensors, {len(differ)} differ; "
+        f"sidecar {sidecar}")
+    failed = []
+    if mgr.all_epochs() != epochs or any(p != [] for p in problems.values()):
+        failed.append(f"epochs {mgr.all_epochs()} / manifests {problems}")
+    if epoch != epochs[-1] or differ or set(state) != set(
+            trainer.model.state_dict()):
+        failed.append(f"restore_for_inference epoch {epoch} differs: "
+                      f"{differ[:5]}")
+    if sidecar != trainer.spec._asdict():
+        failed.append(f"sidecar {sidecar} != {trainer.spec._asdict()}")
+    if failed:
+        raise AssertionError(f"phase 8a {dname}: {failed}")
+
+
+def check_lm_resume(torch, args) -> None:
+    """Phase 8a: the bf16 command again with ``--epochs 3`` resumes from
+    epoch 1 (its log line), trains epoch 2 alone, and the parameters and
+    Adam moments it restored equal epoch 1's saved ones bit for bit."""
+    from ddp_tpu_torch.train.checkpoint import CheckpointManager
+    from ddp_tpu_torch.train.trainer import main as train_main
+
+    args = list(args)
+    args[args.index("--epochs") + 1] = "3"
+    mgr = CheckpointManager(args[args.index("--checkpoint_dir") + 1])
+    real, restored = CheckpointManager.restore, []
+
+    def restore(self, state, epoch=None):
+        out = real(self, state, epoch)
+        opt = state.optimizer.state_dict()  # copies on the card only
+        restored.append((out, {
+            k: [t.clone() for t in v] if isinstance(v, list) else v
+            for k, v in opt.items()}, {
+            k: v.cpu().clone() for k, v in state.model.state_dict().items()}))
+        return out
+
+    log(f"[ckpt] python -m ddp_tpu_torch.train {' '.join(args)}")
+    tee = _Tee(sys.stdout)
+    CheckpointManager.restore = restore
+    try:
+        with contextlib.redirect_stdout(tee):
+            trainer = train_main(args)
+    finally:
+        CheckpointManager.restore = real
+    torch.cuda.synchronize()
+    epoch, opt, params = restored[0]
+    blob = mgr.read(1)
+    moments = [(k, i) for k in ("mu", "nu")
+               for i, (a, b) in enumerate(zip(opt[k], blob["opt_state"][k]))
+               if not torch.equal(a, b)]
+    differ = [k for k, v in params.items()
+              if not torch.equal(v, blob["params"][k])]
+    lines = tee.text().splitlines()
+    log(f"[ckpt] resumed run: first line {lines[0]!r}; restored epoch "
+        f"{epoch}, count {opt['count']} (saved {blob['opt_state']['count']}), "
+        f"{len(moments)} moment buffers and {len(differ)} parameters differ "
+        f"from the saved ones; trained epochs "
+        f"{[h['epoch'] for h in trainer.history]}; epochs on disk "
+        f"{mgr.all_epochs()}")
+    if (lines[0] != "Resumed from checkpoint epoch 1" or epoch != 1
+            or moments or differ or opt["count"] != blob["opt_state"]["count"]
+            or [h["epoch"] for h in trainer.history] != [3]
+            or mgr.all_epochs() != [0, 1, 2]):
+        raise AssertionError("phase 8a: the bf16 run did not resume epoch "
+                             "1's state bit for bit")
+    del trainer, blob, opt, params
+    torch.cuda.empty_cache()
+
+
+def lm_prompts(vocab: int) -> list[list[int]]:
+    """Phase 8's prefix traffic: 1 + PREFIX_BURST prompts of one 96-token
+    prefix and a 16-token tail each, from the training distribution."""
+    from ddp_tpu_torch.data.sequences import synthetic_tokens
+
+    toks = synthetic_tokens(2 + PREFIX_BURST, total_len=PREFIX_TOKENS,
+                            vocab_size=vocab, seed=PHASE8_SEED)
+    return [toks[0].tolist() + toks[1 + i, :TAIL_TOKENS].tolist()
+            for i in range(1 + PREFIX_BURST)]
+
+
+def _post_status(url: str, route: str, body: dict):
+    """POST → (status, headers, payload), whatever the status."""
+    import urllib.error
+
+    req = urllib.request.Request(url + route, data=json.dumps(body).encode(),
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def _concurrent(fn, items, during=None) -> dict:
+    """``fn(item)`` for every item in its own thread, ``during()`` in this
+    one while they run → {index: result}; raises on any error."""
+    out, errors = {}, []
+
+    def run(i, item):
+        try:
+            out[i] = fn(item)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(f"{i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=run, args=(i, x))
+               for i, x in enumerate(items)]
+    for t in threads:
+        t.start()
+    if during is not None:
+        during()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"requests failed: {errors[:5]}")
+    return out
+
+
+def prefix_traffic(url, prompts, during=None) -> dict:
+    """The seed request alone, then the burst concurrently (``during()``
+    runs while it does) → {index: reply}."""
+    def ask(p):
+        return _post(url, {"prompt_tokens": p, "max_new_tokens": PREFIX_NEW})
+
+    first = ask(prompts[0])
+    burst = _concurrent(ask, prompts[1:], during)
+    return {0: first, **{i + 1: r for i, r in burst.items()}}
+
+
+def serve_main_with(torch, argv, traffic, *, on_step=None):
+    """``python -m ddp_tpu_torch.serve``'s own main(argv) in this thread
+    (it serves until SIGTERM) while ``traffic(url, made, stop)`` runs in
+    a client thread: ``made`` lists the engines main() built, in order,
+    ``stop()`` sends the one SIGTERM (sent after ``traffic`` returns, if
+    it did not). ``on_step(engine)`` runs after every engine step (in the
+    engine's thread, under the server's lock) → (made, the lines main()
+    printed)."""
+    import io
+    import os
+    import signal
+
+    import ddp_tpu_torch.serve.engine as engine_mod
+    from ddp_tpu_torch.serve.__main__ import main as serve_main
+
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    base = engine_mod.ServeEngine
+    made, errors, signalled = [], [], []
+    sending, over = threading.Lock(), threading.Event()
+
+    class Seen(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+        def step(self):
+            out = super().step()
+            if on_step is not None:
+                on_step(self)
+            return out
+
+    def stop():
+        # Never after main() returned: its SIGTERM handler is gone then.
+        with sending:
+            if not signalled and not over.is_set():
+                signalled.append(True)
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    def client():
+        try:
+            deadline = time.perf_counter() + 600
+            while True:
+                try:
+                    _get(url, "/healthz")
+                    break
+                except OSError:
+                    if over.is_set() or time.perf_counter() > deadline:
+                        raise
+                    time.sleep(0.2)
+            traffic(url, made, stop)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"traffic: {type(e).__name__}: {e}")
+        finally:
+            stop()
+
+    argv = argv + ["--port", str(port)] + SERVE_DEVICE_ARGS
+    old = signal.getsignal(signal.SIGTERM)
+    printed = io.StringIO()
+    engine_mod.ServeEngine = Seen
+    thread = threading.Thread(target=client)
+    thread.start()
+    try:
+        with contextlib.redirect_stdout(printed):
+            serve_main(argv)
+    finally:
+        with sending:
+            over.set()
+        engine_mod.ServeEngine = base
+        signal.signal(signal.SIGTERM, old)
+        thread.join(timeout=900)
+    torch.cuda.synchronize()
+    lines = printed.getvalue().strip().splitlines()
+    log(f"[serve] main({' '.join(argv)}) printed {' '.join(lines)}")
+    if errors or thread.is_alive():
+        raise AssertionError("; ".join(errors) or "the client did not finish")
+    return made, lines
+
+
+def _lm_launches(dec) -> tuple[dict, dict, int]:
+    return (dict(dec.flash_decode_attention.launches),
+            dict(dec.flash_decode_paged_attention.launches),
+            dec.flash_decode_attention.plain_routed
+            + dec.flash_decode_paged_attention.plain_routed)
+
+
+def _restored(torch, directory, epoch=None):
+    """(model on the card, its state, epoch) from a checkpoint."""
+    from ddp_tpu_torch.models.lm import CausalLM
+    from ddp_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        derive_spec_with_sidecar,
+    )
+
+    state, epoch = CheckpointManager(directory).restore_for_inference(epoch)
+    spec = derive_spec_with_sidecar(directory, state, num_heads_fallback=1)
+    return CausalLM.from_state(spec, state), state, epoch
+
+
+def paged_streams(torch, model, prompts, *, watch=None, engine=None):
+    """Phase 8's prefix traffic in-process on a paged engine (page
+    SERVE_PAGE, LM_SLOTS lanes, main()'s defaults): the seed request
+    alone, then the burst at once; ``watch`` is installed for the burst
+    only → (completions in prompt order, engine)."""
+    from ddp_tpu_torch.serve.engine import ServeEngine
+
+    engine = engine or ServeEngine(model, slots=LM_SLOTS,
+                                   page_size=SERVE_PAGE,
+                                   max_queue=len(prompts))
+    rids = [engine.submit(prompts[0], PREFIX_NEW).request.rid]
+    engine.run()
+    with (watch(engine) if watch else contextlib.nullcontext()):
+        rids += [engine.submit(p, PREFIX_NEW).request.rid
+                 for p in prompts[1:]]
+        engine.run()
+    torch.cuda.synchronize()
+    done = [engine.pop_result(r) for r in rids]
+    if any(c.status != "complete" for c in done):
+        raise AssertionError("phase 8: an in-process request did not "
+                             "complete")
+    return done, engine
+
+
+@contextlib.contextmanager
+def first_logits(engine, seen: dict):
+    """Record into ``seen``, by request id, the logits each request's
+    first token is drawn from (its final prefill chunk's)."""
+    import ddp_tpu_torch.models.generate as gen
+    import ddp_tpu_torch.serve.engine as engine_mod
+
+    real_chunk, real_sample = engine_mod.prefill_chunk, gen.sample_slot_tokens
+
+    def chunk(*a, **kw):
+        slot, final = a[7], a[11]
+        if not final or a[0] is not engine.model:
+            return real_chunk(*a, **kw)
+
+        def sample(logits, *sa, **skw):
+            seen[engine._slots[slot].request.rid] = logits.detach().clone()
+            return real_sample(logits, *sa, **skw)
+
+        gen.sample_slot_tokens = sample
+        try:
+            return real_chunk(*a, **kw)
+        finally:
+            gen.sample_slot_tokens = real_sample
+
+    engine_mod.prefill_chunk = chunk
+    try:
+        yield seen
+    finally:
+        engine_mod.prefill_chunk = real_chunk
+
+
+def check_swap_in_process(torch, state0, state1, model1, prompts, fresh):
+    """Phase 8b's bit check and its control, in-process where the
+    batching is the same on both sides: a paged engine on epoch 0 serves
+    the traffic, takes epoch 1 through ``install_params`` with the flush
+    a new version gets (``invalidate_prefix=True``, what POST /reload
+    does), or without it (the control), and serves the traffic again. Its
+    burst (every request a 96-token prefix hit) is held against a fresh
+    engine's on epoch 1: the first logits bit for bit, and the streams.
+    The flushed swap must pass, the control must fail → failures."""
+    from ddp_tpu_torch.models.lm import CausalLM
+
+    want_done, want_bits = fresh
+    failed = []
+    for flush in (True, False):
+        model = CausalLM.from_state(model1.spec, state0, model1.device)
+        _, engine = paged_streams(torch, model, prompts)
+        engine.install_params(state1, model_version="epoch1",
+                              invalidate_prefix=flush)
+        bits: dict = {}
+        done, _ = paged_streams(torch, model, prompts, engine=engine,
+                                watch=lambda e: first_logits(e, bits))
+        same_bits = sum(torch.equal(bits[c.rid], want_bits[w.rid])
+                        for c, w in zip(done[1:], want_done[1:]))
+        same_streams = sum(c.tokens == w.tokens
+                           for c, w in zip(done, want_done))
+        hits = [c.prefix_hit_tokens for c in done]
+        label = "flushed swap" if flush else "control, no flush"
+        log(f"[swap] in-process {label}: first logits bitwise equal to the "
+            f"fresh engine's for {same_bits}/{len(done) - 1} burst requests, "
+            f"streams equal for {same_streams}/{len(done)}; prefix hits "
+            f"{hits[0]} (first request after the swap), burst "
+            f"{min(hits[1:])}-{max(hits[1:])}")
+        passes = same_bits == len(done) - 1 and same_streams == len(done)
+        if flush and (not passes or hits[0] != 0):
+            failed.append("the flushed swap parts from a fresh engine")
+        if not flush and passes:
+            failed.append("the check passes a stale prefix")
+        del engine, model
+        torch.cuda.empty_cache()
+    return failed
+
+
+def _swap_traffic(prompts, bf16_dir, fp32_dir, empty_dir, out):
+    """Phase 8b's client: run A at epoch 0 with POST /reload of epoch 1
+    while RELOAD_IN_FLIGHT requests are in flight (and the extra ones
+    arriving until it pauses admission, then RELOAD_QUEUED more:
+    ``out["A_extra"]``, by arrival, of (prompt index, reply, sent after
+    the pause)), run B, the same reload again, run C, then the three
+    rejected reloads, each followed by one request."""
+    import os
+
+    def traffic(url, made, stop):
+        def reload_when_busy():
+            # The engine's own count, read without its lock: /healthz
+            # waits for the lock, and a burst can pass between two reads.
+            deadline = time.perf_counter() + 120
+            while ((busy := made[0].active) < RELOAD_IN_FLIGHT
+                   and time.perf_counter() < deadline):
+                time.sleep(0.001)
+            out["in_flight"] = busy
+            reload = threading.Thread(target=lambda: out.__setitem__(
+                "reload", _post_status(url, "/reload", {
+                    "checkpoint_dir": bf16_dir, "epoch": 1})))
+            reload.start()
+            extra, threads = {}, []
+
+            def ask(k, paused):
+                i = 1 + k % PREFIX_BURST
+                extra[k] = (i, _post(url, {"prompt_tokens": prompts[i],
+                                           "max_new_tokens": PREFIX_NEW}),
+                            paused)
+
+            def send(paused=False):
+                threads.append(threading.Thread(
+                    target=ask, args=(len(threads), paused)))
+                threads[-1].start()
+
+            next_send = 0.0
+            while reload.is_alive() and not made[0]._admission_paused:
+                if (time.perf_counter() >= next_send
+                        and len(threads) < RELOAD_EXTRA):
+                    send()
+                    next_send = time.perf_counter() + RELOAD_EXTRA_GAP_S
+                time.sleep(0.001)
+            # Admission is paused (the server sets the flag right after
+            # the load): these wait in the queue for the swap.
+            for _ in range(RELOAD_QUEUED if reload.is_alive() else 0):
+                send(paused=True)
+            for t in [reload, *threads]:
+                t.join(timeout=900)
+            out["A_extra"] = [extra[k] for k in sorted(extra)]
+            if len(extra) != len(threads):
+                raise AssertionError("an extra request of run A failed")
+
+        out["A"] = prefix_traffic(url, prompts, reload_when_busy)
+        out["B"] = prefix_traffic(url, prompts)
+        out["again"] = _post_status(url, "/reload",
+                                    {"checkpoint_dir": bf16_dir, "epoch": 1})
+        out["C"] = prefix_traffic(url, prompts)
+        torn = os.path.join(fp32_dir, "epoch_0", "state.pt")
+        for reason, directory in (("spec_skew", fp32_dir),
+                                  ("manifest_missing", empty_dir),
+                                  ("crc_mismatch", fp32_dir)):
+            if reason == "crc_mismatch":
+                _flip_byte(torn)
+            try:
+                out[reason] = _post_status(url, "/reload",
+                                           {"checkpoint_dir": directory})
+            finally:
+                if reason == "crc_mismatch":
+                    _flip_byte(torn)
+            out[reason + "_next"] = _post(url, {
+                "prompt_tokens": prompts[0], "max_new_tokens": PREFIX_NEW})
+
+    return traffic
+
+
+def _flip_byte(path: str, offset: int = -100) -> None:
+    with open(path, "r+b") as f:
+        f.seek(offset, 2)
+        b = f.read(1)
+        f.seek(offset, 2)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def _parts(torch, model, prompts, got: dict, want: list, label) -> list:
+    """Streams ``got`` (index → tokens) against ``want`` (a list): equal,
+    or parted only at a near tie (phase 4's rule) → failures."""
+    failed = []
+    for i, tokens in got.items():
+        if tokens == want[i]:
+            continue
+        j = next((n for n, (x, y) in enumerate(zip(tokens, want[i]))
+                  if x != y), None)
+        if j is None or j == 0:
+            failed.append(f"{label} request {i} parts at token {j}")
+            continue
+        gap = replay_gap(torch, model, prompts[i], want[i], j, "fp32")
+        log(f"[swap] {label} request {i}: streams part at token {j}; top-2 "
+            f"gap {gap:.3e}")
+        if gap >= DIVERGENCE_GAP:
+            failed.append(f"{label} request {i} diverged at gap {gap}")
+    return failed
+
+
+def check_lm_swap(torch, dirs, empty_dir) -> dict:
+    """Phase 8b: serving the trained checkpoint through main() with
+    --page_size 16, the hot-swap under load and its controls → readings
+    (B4p's launches, the reload's seconds)."""
+    from ddp_tpu_torch.ops import decode as dec
+    from ddp_tpu_torch.serve.lifecycle import model_version_token
+
+    bf16_dir, fp32_dir = dirs["bf16"], dirs["fp32"]
+    model0, state0, _ = _restored(torch, bf16_dir, 0)
+    model1, state1, _ = _restored(torch, bf16_dir, 1)
+    prompts = lm_prompts(model0.spec.vocab_size)
+    out: dict = {}
+    argv = ["--checkpoint_dir", bf16_dir, "--epoch", "0", "--page_size",
+            str(SERVE_PAGE), "--slots", str(LM_SLOTS)]
+    _zero_decode_counters(dec)
+    t0 = time.perf_counter()
+    made, _ = serve_main_with(
+        torch, argv, _swap_traffic(prompts, bf16_dir, fp32_dir, empty_dir,
+                                   out))
+    wall = time.perf_counter() - t0
+    flat, paged, routed = _lm_launches(dec)
+    engine = made[0]
+    v0, v1 = (model_version_token(bf16_dir, e) for e in (0, 1))
+    fixed = {v0: fixed_lane_streams(torch, model0, prompts, kv_dtype="fp32"),
+             v1: fixed_lane_streams(torch, model1, prompts, kv_dtype="fp32")}
+    bits: dict = {}
+    fresh_done, _ = paged_streams(torch, model1, prompts,
+                                  watch=lambda e: first_logits(e, bits))
+    fresh = [c.tokens for c in fresh_done]
+    failed = []
+    status, _, reload = out["reload"]
+    # Run A: (prompt index, reply), the burst and the extra requests.
+    a = list(out["A"].items()) + [(i, r) for i, r, _ in out["A_extra"]]
+    queued = [r for _, r, paused in out["A_extra"] if paused]
+    after = [r for _, r in a if r.get("model_version") == v1]
+    # The first request bound after the swap: run A's first under epoch 1
+    # (rids rise in submission order, and the queue binds FIFO), else run
+    # B's seed request.
+    first_after = (min(after, key=lambda r: r["rid"]) if after
+                   else out["B"][0])
+    log(f"[swap] POST /reload epoch 1 with {out['in_flight']} requests in "
+        f"flight and {len(out['A_extra'])} more arriving until it answered: "
+        f"{status} {reload}; run A: {len(a)} requests, "
+        f"{sum(r['status'] == 'complete' for _, r in a)} complete, "
+        f"{len(a) - len(after)} under {v0}, {len(after)} under {v1} "
+        f"({len(queued)} sent after the pause, "
+        f"{sum(r.get('model_version') == v1 for r in queued)} of them under "
+        f"{v1}); the first bound after the swap (rid {first_after['rid']}) "
+        f"hit {first_after['prefix_hit_tokens']} prefix tokens")
+    if (status != 200 or not reload["invalidated_prefix"]
+            or reload["model_version"] != v1 or reload["previous_version"] != v0
+            or out["in_flight"] < RELOAD_IN_FLIGHT):
+        failed.append(f"reload {status} {reload}, in flight {out['in_flight']}")
+    if any(r["status"] != "complete" or len(r["tokens"]) != PREFIX_NEW
+           or r.get("model_version") not in fixed for _, r in a):
+        failed.append("run A: a request did not complete under a version")
+    if first_after["prefix_hit_tokens"] != 0:
+        failed.append("the first request after the swap hit the flushed index")
+    if not queued or any(r.get("model_version") != v1 for r in queued):
+        failed.append(f"requests queued at the barrier: {len(queued)}, not "
+                      f"all under {v1}")
+    for i, r in a:
+        v = r["model_version"]
+        failed += _parts(torch, model0 if v == v0 else model1, prompts,
+                         {i: r["tokens"]}, fixed[v], f"run A {v}")
+    for run in ("B", "C"):
+        replies = out[run]
+        if any(r.get("model_version") != v1 for r in replies.values()):
+            failed.append(f"run {run} served another version")
+        failed += _parts(torch, model1, prompts,
+                         {i: r["tokens"] for i, r in replies.items()}, fresh,
+                         f"run {run} vs fresh")
+    hits_c = [out["C"][i]["prefix_hit_tokens"] for i in sorted(out["C"])]
+    status, _, again = out["again"]
+    log(f"[swap] runs B and C against a fresh engine on epoch 1: "
+        f"{sum(out['B'][i]['tokens'] == fresh[i] for i in out['B'])} and "
+        f"{sum(out['C'][i]['tokens'] == fresh[i] for i in out['C'])} of "
+        f"{len(prompts)} streams identical; the same reload again: {status} "
+        f"{again}; run C prefix hits {min(hits_c)}-{max(hits_c)}")
+    if status != 200 or again["invalidated_prefix"] or min(hits_c) == 0:
+        failed.append(f"the same-version reload: {status} {again}, hits "
+                      f"{hits_c}")
+    for reason in ("spec_skew", "manifest_missing", "crc_mismatch"):
+        status, _, payload = out[reason]
+        nxt = out[reason + "_next"]
+        log(f"[swap] control POST /reload → {status} {payload['error']}: "
+            f"{payload.get('detail', '')[:160]}; next stream unchanged: "
+            f"{nxt['tokens'] == out['C'][0]['tokens']}")
+        if (status, payload["error"]) != (409, reason) or (
+                nxt["tokens"] != out["C"][0]["tokens"]
+                or nxt["model_version"] != v1):
+            failed.append(f"control {reason}: {status} {payload}")
+    steps, depth = engine.decode_steps, model0.spec.depth
+    name = "flash_decode_paged_fp32"
+    log(f"[swap] launches {paged} (decode steps x depth = {steps * depth}), "
+        f"fixed-lane {flat}, routed {routed}; stats lifecycle "
+        f"{engine.stats().get('lifecycle')}; wall {wall:.2f} s")
+    if (paged[name] < steps * depth or sum(paged.values()) != paged[name]
+            or any(flat.values()) or routed):
+        failed.append(f"launches {paged} {flat}, routed {routed}")
+    failed += check_swap_in_process(torch, state0, state1, model1, prompts,
+                                    (fresh_done, bits))
+    if failed:
+        raise AssertionError(f"phase 8b: {failed}")
+    return {"b4p": paged[name], "epoch1_streams": fresh,
+            "reload": reload, "model1": model1}
+
+
+def _spec_traffic(torch, prompts, cases, out):
+    """Phase 8c-8d's client: ``cases`` (phase 4d's requests) at once
+    (speculative, the target from the bf16 checkpoint, the trained
+    depth-2 draft), the named model, an unknown one, then SIGTERM with
+    DRAIN_REQUESTS in flight and a request during the drain."""
+    def traffic(url, made, stop):
+        engine, named = made
+        out["split"] = _time_round(torch, engine)
+
+        def ask(i):
+            _, n_new, sampling = cases[i]
+            return _post(url, {"prompt_tokens": prompts[i],
+                               "max_new_tokens": n_new, **sampling})
+
+        t0 = time.perf_counter()
+        out["spec"] = _concurrent(ask, range(len(cases)))
+        out["spec_wall"] = time.perf_counter() - t0
+        before = (engine.tokens_emitted_total, named.tokens_emitted_total)
+        out["named"] = _post(url, {"prompt_tokens": prompts[0],
+                                   "max_new_tokens": PREFIX_NEW,
+                                   "model": "draft"})
+        out["named_counts"] = (before, (engine.tokens_emitted_total,
+                                        named.tokens_emitted_total))
+        out["nope"] = _post_status(url, "/generate", {
+            "prompt_tokens": prompts[0], "max_new_tokens": 2,
+            "model": "nope"})
+
+        def drain():
+            deadline = time.perf_counter() + 120
+            while ((busy := engine.active) < DRAIN_REQUESTS
+                   and time.perf_counter() < deadline):
+                time.sleep(0.001)
+            out["drain_in_flight"] = busy
+            stop()
+            while not _get(url, "/healthz")["draining"]:
+                time.sleep(0.002)
+            out["refused"] = _post_status(url, "/generate", {
+                "prompt_tokens": prompts[0], "max_new_tokens": 2})
+
+        out["drained"] = _concurrent(
+            lambda i: _post(url, {"prompt_tokens": prompts[i],
+                                  "max_new_tokens": out["drain_new"][i]}),
+            range(DRAIN_REQUESTS), drain)
+
+    return traffic
+
+
+def check_trained_draft(torch, card, dirs) -> dict:
+    """Phases 8c and 8d on one main() run: --checkpoint_dir (the bf16
+    run's latest epoch) with --draft_checkpoint_dir (the fp32 depth-2
+    run) at γ SPEC_GAMMA, fixed-lane fp32 KV, and --model draft=<the
+    depth-2 directory> → readings (B4's launches, acceptance)."""
+    from ddp_tpu_torch.ops import decode as dec
+    from ddp_tpu_torch.serve.engine import ServeEngine
+
+    target, _, _ = _restored(torch, dirs["bf16"])
+    draft, _, _ = _restored(torch, dirs["fp32"])
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, target.spec.vocab_size, n).tolist()
+               for n, _, _ in REQUESTS]
+    sampling = {i: s for i, (_, _, s) in enumerate(REQUESTS) if s}
+    # The speculative admission ceiling (total_len - (γ - 1)) caps the
+    # budgets, as spec_requests() does at phase 4's length.
+    ceiling = target.spec.total_len - (SPEC_GAMMA - 1)
+    cases = {i: (n, min(new, ceiling - n), s)
+             for i, (n, new, s) in enumerate(REQUESTS)}
+    drain_new = [min(DRAIN_NEW, ceiling - len(p)) for p in prompts]
+    out: dict = {"drain_new": drain_new}
+    argv = ["--checkpoint_dir", dirs["bf16"], "--draft_checkpoint_dir",
+            dirs["fp32"], "--spec_tokens", str(SPEC_GAMMA), "--slots",
+            str(LM_SLOTS), "--model", f"draft={dirs['fp32']}"]
+    _zero_decode_counters(dec)
+    made, lines = serve_main_with(torch, argv,
+                                  _spec_traffic(torch, prompts, cases, out))
+    flat, paged, routed = _lm_launches(dec)
+    engine, named = made
+    failed = []
+    # 8c: the streams against the plain engine on the same weights.
+    plain = ServeEngine(target, slots=LM_SLOTS, max_queue=len(prompts))
+    rids = {i: plain.submit(prompts[i], n, **s).request.rid
+            for i, (_, n, s) in cases.items()}
+    plain.run()
+    want = {i: plain.pop_result(r).tokens for i, r in rids.items()}
+    got = {i: r["tokens"] for i, r in out["spec"].items()}
+    parted, bad = _stream_failures(torch, target, prompts, got, want, "fp32",
+                                   "trained draft", sampling)
+    failed += bad
+    depth = draft.spec.depth
+    want_b4 = (engine.decode_steps * SPEC_GAMMA * depth
+               + named.decode_steps * named.spec.depth)
+    tokens = sum(len(t) for t in got.values())
+    split = {k: float(np.median([a.elapsed_time(b) for a, b in v[8:]]))
+             if len(v) > 8 else None for k, v in out["split"].items()}
+    log(f"[draft] {card}")
+    log(f"[draft] target {dirs['bf16']} (depth {target.spec.depth}), trained "
+        f"draft {dirs['fp32']} (depth {depth}), γ {SPEC_GAMMA}: "
+        f"{len(got)} streams, {len(got) - parted} identical to the plain "
+        f"engine's, {parted} parted at a near tie; acceptance "
+        f"{engine.spec_acceptance_rate()}, {engine.decode_steps} target "
+        f"steps, {tokens / max(1, engine.decode_steps):.3f} tokens a target "
+        f"step, {tokens} tokens in {out['spec_wall']:.3f} s = "
+        f"{tokens / out['spec_wall']:.1f} tokens/s; steady round: "
+        f"{SPEC_GAMMA} draft steps {split['draft_ms']} ms, verify "
+        f"{split['verify_ms']} ms (CUDA events, median)")
+    log(f"[draft] launches {flat} (target rounds x γ x draft depth + the "
+        f"named engine's steps x depth = {want_b4}), paged {paged}, routed "
+        f"{routed}")
+    if (engine.draft_decode_attn != "flash" or flat["flash_decode_fp32"]
+            != want_b4 or flat["flash_decode_int8"] or any(paged.values())
+            or routed):
+        failed.append(f"launches {flat} {paged} routed {routed} != {want_b4}")
+    # 8d: the named model, an unknown one, the drain.
+    mine = ServeEngine(draft, slots=LM_SLOTS)
+    rid = mine.submit(prompts[0], PREFIX_NEW).request.rid
+    mine.run()
+    named_want = mine.pop_result(rid).tokens
+    (e0, n0), (e1, n1) = out["named_counts"]
+    status, _, nope = out["nope"]
+    r_status, r_headers, refused = out["refused"]
+    drained = out["drained"]
+    log(f"[named] model=draft: {out['named']['model_version']}, stream "
+        f"{'equals' if out['named']['tokens'] == named_want else 'PARTS FROM'}"
+        f" the depth-2 engine's in-process; tokens default {e0}->{e1}, draft "
+        f"{n0}->{n1}; model=nope: {status} {nope}")
+    failed += _parts(torch, draft, prompts, {0: out["named"]["tokens"]},
+                     [named_want], "named")
+    if e1 != e0 or n1 - n0 != PREFIX_NEW:
+        failed.append(f"per-model counters {out['named_counts']}")
+    if (status, nope.get("error"), nope.get("models")) != (
+            400, "unknown_model", ["draft"]):
+        failed.append(f"model=nope: {status} {nope}")
+    log(f"[drain] SIGTERM with {out['drain_in_flight']} requests in flight: "
+        f"a new POST → {r_status} {refused} Retry-After "
+        f"{r_headers.get('Retry-After')}; in flight: "
+        f"{sum(r['status'] == 'complete' and len(r['tokens']) == drain_new[i] for i, r in drained.items())}"
+        f"/{len(drained)} complete; main printed {lines[-1]}")
+    if (r_status != 503 or refused.get("error") != "draining"
+            or not r_headers.get("Retry-After")
+            or out["drain_in_flight"] < DRAIN_REQUESTS
+            or any(r["status"] != "complete"
+                   or len(r["tokens"]) != drain_new[i]
+                   for i, r in drained.items())
+            or json.loads(lines[-1]).get("drained") is not True):
+        failed.append("the drain")
+    if failed:
+        raise AssertionError(f"phase 8c-8d: {failed}")
+    return {"b4": flat["flash_decode_fp32"],
+            "acceptance": engine.spec_acceptance_rate()}
+
+
+def check_streaming_restore(torch, bf16_dir, want, model1) -> dict:
+    """Phase 8e: main() with --streaming_restore --stream_layers 1 on the
+    bf16 checkpoint's epoch 1, phase 8b's prefix traffic: the streams
+    against the fresh epoch-1 engine's (phase 8b), and the seconds to
+    admission against those of full residency and of the monolithic
+    restore."""
+    from ddp_tpu_torch.ops import decode as dec
+
+    prompts = lm_prompts(model1.spec.vocab_size)
+    out = {}
+
+    def traffic(url, made, stop):
+        out["replies"] = prefix_traffic(url, prompts)
+
+    argv = ["--checkpoint_dir", bf16_dir, "--epoch", "1",
+            "--streaming_restore", "--stream_layers", "1", "--page_size",
+            str(SERVE_PAGE), "--slots", str(LM_SLOTS)]
+    _zero_decode_counters(dec)
+    _, lines = serve_main_with(torch, argv, traffic)
+    _, paged, routed = _lm_launches(dec)
+    started = json.loads(lines[0])
+    streamed = json.loads(lines[1])
+    from ddp_tpu_torch.train.checkpoint import CheckpointManager
+
+    # The monolithic restore of the same state, as the streaming clock
+    # counts it (its manifest check runs before start()): read, then copy
+    # to the card; the manifest check timed apart.
+    mgr = CheckpointManager(bf16_dir)
+    t0 = time.perf_counter()
+    mgr.verified_epoch(1)
+    verify_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mono = {k: v.to(model1.device) for k, v in mgr.read_params(1).items()}
+    torch.cuda.synchronize()
+    mono_s = time.perf_counter() - t0
+    del mono
+    failed = _parts(torch, model1, prompts,
+                    {i: r["tokens"] for i, r in out["replies"].items()}, want,
+                    "streaming restore")
+    log(f"[stream] admission group {started['streaming_restore']}, admission "
+        f"open after {streamed['admission_ready_s']} s, fully resident after "
+        f"{streamed['complete_s']} s (from the restore thread's start); the "
+        f"monolithic restore of the same state (read + copy to the card) "
+        f"{mono_s:.4f} s, its manifest check {verify_s:.4f} s; "
+        f"{sum(out['replies'][i]['tokens'] == want[i] for i in out['replies'])}"
+        f"/{len(prompts)} streams identical to phase 8b's fresh epoch-1 "
+        f"engine; launches {paged}, routed {routed}")
+    if routed or not paged["flash_decode_paged_fp32"]:
+        failed.append(f"launches {paged}, routed {routed}")
+    if failed:
+        raise AssertionError(f"phase 8e: {failed}")
+    return {"admission_ready_s": streamed["admission_ready_s"],
+            "complete_s": streamed["complete_s"], "monolithic_s": mono_s,
+            "verify_s": verify_s}
+
+
+def check_lm_phases(torch, card) -> tuple[dict, dict]:
+    """Phases 5a, 5 (with 8a) and 8b-8e on one set of temporary
+    directories: phase 5's checkpoints (about 3.1 GB) live until phase 8
+    has served them → (phase 5's launch counts, phase 8's readings)."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+        dirs = {d: os.path.join(tmp, d) for d in ("bf16", "fp32", "routed")}
+        check_routed_training(torch, dirs["routed"])
+        t0 = time.perf_counter()
+        trained = check_training(torch, dirs)
+        log(f"[phase 8] 8a (the checkpoints and the resume, inside phase 5) "
+            f"and phase 5: {time.perf_counter() - t0:.1f} s")
+        return trained, check_lm_serving(torch, card, dirs)
+
+
+def check_lm_serving(torch, card, dirs) -> dict:
+    """Phase 8b-8e on phase 5's checkpoints → readings."""
+    import os
+
+    t0 = time.perf_counter()
+    empty = os.path.join(os.path.dirname(dirs["bf16"]), "empty")
+    os.makedirs(empty, exist_ok=True)
+    log(f"[swap] {card}")
+    swap = check_lm_swap(torch, dirs, empty)
+    torch.cuda.empty_cache()
+    draft = check_trained_draft(torch, card, dirs)
+    torch.cuda.empty_cache()
+    stream = check_streaming_restore(torch, dirs["bf16"],
+                                     swap.pop("epoch1_streams"),
+                                     swap.pop("model1"))
+    torch.cuda.empty_cache()
+    log(f"[phase 8] wall {time.perf_counter() - t0:.1f} s (8b-8e)")
+    return {"b4p": swap["b4p"], "b4": draft["b4"],
+            "acceptance": draft["acceptance"], "reload": swap["reload"],
+            "stream": stream}
 
 
 # ---- phase 6: the reference trainer's main path (SimpleCNN on MNIST) -----
@@ -2481,12 +3309,7 @@ def check_cnn_main_path(torch, tmp) -> dict:
 
     # One flipped byte in epoch 3's state file: discovery quarantines it and
     # resumes from epoch 2.
-    path = f"{ckdir}/epoch_3/state.pt"
-    with open(path, "r+b") as f:
-        f.seek(-100, 2)
-        byte = f.read(1)
-        f.seek(-1, 1)
-        f.write(bytes([byte[0] ^ 0xFF]))
+    _flip_byte(f"{ckdir}/epoch_3/state.pt")
     healed, out = _train(["--epochs", "5", "--checkpoint_dir", ckdir])
     import os
 
@@ -3317,6 +4140,9 @@ def time_decode_main(argv) -> int:
     one JSON line of B4/B5 times (µs) at full width, every lane at L-1,
     at L 256 and L 8192. Run it on two trees in turns (parent, change,
     change, parent) within one call to compare them on one card."""
+    import os
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3384,6 +4210,9 @@ def time_serve_main(argv) -> int:
     compare them on one card."""
     import inspect
 
+    import os
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3426,6 +4255,9 @@ def time_flash_main(argv) -> int:
     shape, per dtype (default both). Run it on two trees in turns
     (parent, change, change, parent) within one call to compare them on
     one card."""
+    import os
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3487,8 +4319,7 @@ def main() -> int:
     paged_launches = check_paged_serving(torch)
     spec_launches = check_spec_serving(torch, card)
     flash = check_flash(torch)
-    check_routed_training(torch)
-    trained = check_training(torch)
+    trained, served = check_lm_phases(torch, card)
     check_cnn(torch, card)
     images = check_image_families(torch, card)
 
@@ -3505,8 +4336,10 @@ def main() -> int:
         for name in ("flash_decode_fp32", "flash_decode_int8")
     ]
     # B4 is also the draft's decode attention on the speculative path
-    # (phase 4d, truncated draft, fp32 and int8 target KV).
+    # (phase 4d, truncated draft, fp32 and int8 target KV; phase 8c, the
+    # trained draft, with phase 8d's named depth-2 engine).
     kernels[0]["spec_launches"] = spec_launches
+    kernels[0]["trained_draft_launches"] = served["b4"]
     # B4p/B5p: library_ms is the gather then SDPA; gather_fixed_ms the
     # JAX design on the card (the gather, then B4/B5).
     kernels += [
@@ -3516,6 +4349,8 @@ def main() -> int:
          "launches": paged_launches[name], **paged_timings[name]}
         for name in PAGED_NAMES
     ]
+    # Phase 8b: B4p serving the trained checkpoint across the hot-swap.
+    kernels[2]["lm_serve_launches"] = served["b4p"]
     # B1-B3: the bf16 variant is the main path (the causal-LM training
     # run's numbers); the fp32 variant's, from its own run, ride beside
     # them, and so do both at ViT-Tiny's shape (launches from phase 7a,

@@ -62,13 +62,26 @@ class LMSpec(NamedTuple):
         return self.d_model // self.num_heads
 
 
-def derive_lm_spec(state: dict, *, num_heads: int) -> LMSpec:
-    """Recover an :class:`LMSpec` from a CausalLM state dict's shapes.
+def derive_lm_spec(state: dict, *, num_heads: int, **overrides) -> LMSpec:
+    """Recover an :class:`LMSpec` from a CausalLM state dict's shapes
+    (``ddp_tpu/models/lm.py:157-204``).
 
     Everything but the head count shows in the shapes (embed [V, d],
     pos_embed [1, L, d], blockN count, qkv rows (H + 2·H_kv)·Dh, mlp1
     rows); raises ValueError when the head count cannot explain them.
+    ``overrides`` (an ``lm_spec.json`` sidecar's fields) fill only what
+    the shapes cannot carry: shape-derived fields win, and fields this
+    dense spec does not know (``strategy``, ``remat``, ``moe_*``) are
+    dropped. A sidecar with ``num_experts`` > 0 describes an MoE model,
+    which the port does not serve yet: it raises rather than serving
+    the dense blocks alone.
     """
+    if int(overrides.get("num_experts") or 0) > 0:
+        raise ValueError(
+            f"the checkpoint is an MoE model (num_experts "
+            f"{overrides['num_experts']}): MoE is not ported yet "
+            "(ROADMAP A2.4/A3.3)"
+        )
     try:
         vocab_size, d_model = (int(s) for s in state["embed"].shape)
         total_len = int(state["pos_embed"].shape[1])
@@ -93,7 +106,7 @@ def derive_lm_spec(state: dict, *, num_heads: int) -> LMSpec:
             f"inconsistent shapes: num_heads {num_heads}, kv heads "
             f"{kv_heads}, mlp width {mlp_dim}, d_model {d_model}"
         )
-    return LMSpec(
+    fields = dict(
         vocab_size=vocab_size,
         total_len=total_len,
         d_model=d_model,
@@ -102,6 +115,9 @@ def derive_lm_spec(state: dict, *, num_heads: int) -> LMSpec:
         num_kv_heads=0 if kv_heads == num_heads else kv_heads,
         mlp_ratio=mlp_dim // d_model,
     )
+    fields.update((k, v) for k, v in overrides.items()
+                  if k in LMSpec._fields and k not in fields)
+    return LMSpec(**fields)
 
 
 def split_qkv(qkv, H: int, H_kv: int, Dh: int):

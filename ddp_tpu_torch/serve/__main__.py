@@ -1,26 +1,42 @@
 """Serving CLI: stand up the continuous-batching engine behind HTTP.
 
-    python -m ddp_tpu_torch.serve --init_demo --vocab_size 8192 \\
-        --seq_len 256 --d_model 1024 --depth 8 --num_heads 8 \\
-        --slots 8 --kv_dtype int8 --page_size 16 --port 8000
+    python -m ddp_tpu_torch.train --model causal_lm --checkpoint_dir ck ...
+    python -m ddp_tpu_torch.serve --checkpoint_dir ck --page_size 16 \\
+        --port 8000
     curl -s localhost:8000/generate -d \\
         '{"prompt_tokens": [1, 2, 3], "max_new_tokens": 32}'
+    curl -s localhost:8000/reload -d '{"checkpoint_dir": "ck", "epoch": 3}'
 
-``--init_demo`` serves seeded random weights (``--seed``); ``--params_npz``
-serves a JAX causal-LM parameter tree saved as a flat ``/``-keyed
-``.npz`` (``numpy.savez(path, **{"/".join(keys): leaf})``), mapped by
-``interop/jax_params.py``. Runs on the GPU, where decode attention always
-goes through the CUDA flash-decode kernel (its paged form with
-``--page_size``), unless ``--device cpu`` is given (the plain versions
-run there). Prints one JSON line when it
-serves, then serves until SIGTERM or Ctrl-C.
+The weights come from one of three sources. ``--checkpoint_dir`` serves
+a checkpoint of ``python -m ddp_tpu_torch.train --model causal_lm``
+(``--epoch``, default the latest intact one), its architecture taken
+from the parameter shapes and the ``lm_spec.json`` sidecar beside the
+epochs (``--num_heads`` only for a checkpoint without one);
+``--init_demo`` serves seeded random weights (``--seed``);
+``--params_npz`` serves a JAX causal-LM parameter tree saved as a flat
+``/``-keyed ``.npz`` (``numpy.savez(path, **{"/".join(keys): leaf})``),
+mapped by ``interop/jax_params.py``. Runs on the GPU, where decode
+attention always goes through the CUDA flash-decode kernel (its paged
+form with ``--page_size``), unless ``--device cpu`` is given (the plain
+versions run there). Prints one JSON line when it serves, then serves
+until SIGTERM, which drains (new requests answer 503, running ones
+finish, up to ``--drain_timeout`` seconds), or Ctrl-C.
+
+``POST /reload`` hot-swaps a verified checkpoint of the same spec
+(``serve/lifecycle.py``); ``--streaming_restore`` opens admission once
+the embedding and the first ``--stream_layers`` blocks are on the
+device, and dispatches once the rest is. ``--model NAME=DIR`` (again for
+more) serves another checkpoint as its own engine, reached by
+``"model": NAME`` in a request.
 
 ``--spec_tokens N`` serves with speculative decoding: a draft model
 proposes N tokens a step (through the flash-decode kernel on its own
 fp32 cache) and the target verifies them in one step, the streams
-unchanged. The draft is ``--draft_params_npz`` (a JAX tree, as
-``--params_npz``, with as many heads) or, under ``--init_demo``, a
-seeded half-width, half-depth sibling of the demo model (seed 1).
+unchanged. The draft is ``--draft_checkpoint_dir`` (its latest intact
+epoch), ``--draft_params_npz`` (a JAX tree, as ``--params_npz``, with
+``--num_heads`` heads) or, under ``--init_demo``, a seeded half-width,
+half-depth sibling of the demo model (seed 1); it must share the
+target's vocabulary and total_len.
 """
 
 from __future__ import annotations
@@ -43,6 +59,12 @@ def main(argv=None) -> None:
                      help="serve seeded random weights")
     src.add_argument("--params_npz", default=None,
                      help="JAX parameter tree as a flat '/'-keyed .npz")
+    src.add_argument("--checkpoint_dir", default=None,
+                     help="a causal-LM checkpoint directory of "
+                     "python -m ddp_tpu_torch.train")
+    p.add_argument("--epoch", type=int, default=None,
+                   help="--checkpoint_dir epoch (default: the latest "
+                   "intact one)")
     p.add_argument("--seed", type=int, default=0,
                    help="--init_demo weight seed")
     p.add_argument("--vocab_size", type=int, default=256)
@@ -51,8 +73,9 @@ def main(argv=None) -> None:
     p.add_argument("--d_model", type=int, default=64)
     p.add_argument("--depth", type=int, default=2)
     p.add_argument("--num_heads", type=int, default=4,
-                   help="attention heads (also needed for --params_npz: "
-                   "shapes do not carry it)")
+                   help="attention heads of --init_demo and --params_npz "
+                   "(shapes do not carry them), and of a checkpoint "
+                   "without an lm_spec.json sidecar")
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--prefill_len", type=int, default=None,
                    help="longest admissible prompt (default total_len/2)")
@@ -74,62 +97,120 @@ def main(argv=None) -> None:
     p.add_argument("--spec_tokens", type=int, default=0,
                    help="speculative decoding: draft tokens per step "
                    "(0 = off)")
+    p.add_argument("--draft_checkpoint_dir", default=None,
+                   help="the draft's checkpoint directory")
     p.add_argument("--draft_params_npz", default=None,
                    help="the draft's JAX parameter tree, as --params_npz")
+    p.add_argument("--model", action="append", default=None,
+                   metavar="NAME=DIR",
+                   help="serve the checkpoint in DIR as model NAME as well "
+                   "(repeatable)")
+    p.add_argument("--drain_timeout", type=float, default=30.0,
+                   help="seconds SIGTERM waits for running requests")
+    p.add_argument("--streaming_restore", action="store_true",
+                   help="--checkpoint_dir: open admission once the "
+                   "embedding and the first --stream_layers blocks are "
+                   "on the device; dispatch once all of it is")
+    p.add_argument("--stream_layers", type=int, default=1,
+                   help="blocks that gate admission under "
+                   "--streaming_restore")
     p.add_argument("--device", default=None,
                    help="default: the GPU; 'cpu' runs the plain versions")
     p.add_argument("--metrics_file", default=None)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     args = p.parse_args(argv)
+    if args.streaming_restore and not args.checkpoint_dir:
+        p.error("--streaming_restore needs --checkpoint_dir")
 
-    from ddp_tpu_torch.models.lm import LMSpec, init_lm
+    from ddp_tpu_torch.device import resolve_device
+    from ddp_tpu_torch.models.lm import CausalLM, LMSpec, init_lm
     from ddp_tpu_torch.serve.engine import ServeEngine
+    from ddp_tpu_torch.serve.lifecycle import StreamingRestore
     from ddp_tpu_torch.serve.server import LMServer
     from ddp_tpu_torch.utils.metrics import MetricsWriter
 
-    if args.params_npz:
+    device = resolve_device(args.device)
+    streaming = epoch = version = None
+    if args.streaming_restore:
+        try:
+            streaming = StreamingRestore(
+                args.checkpoint_dir, device=device, epoch=args.epoch,
+                first_blocks=args.stream_layers,
+                num_heads_fallback=args.num_heads)
+        except (FileNotFoundError, RuntimeError, ValueError) as e:
+            raise SystemExit(f"--checkpoint_dir {args.checkpoint_dir}: {e}")
+        epoch, version = streaming.epoch, streaming.version
+        model = CausalLM.from_state(streaming.spec,
+                                    streaming.placeholder_state(), device)
+        streaming.start()
+    elif args.checkpoint_dir:
+        model, epoch, version = _load_checkpoint(
+            "--checkpoint_dir", args.checkpoint_dir, args.epoch,
+            args.num_heads, device)
+    elif args.params_npz:
         model = _load_npz("--params_npz", args.params_npz,
-                          args.num_heads, args.device)
-        spec = model.spec
+                          args.num_heads, device)
     else:
-        spec = LMSpec(
+        model = init_lm(LMSpec(
             vocab_size=args.vocab_size, total_len=args.seq_len,
             d_model=args.d_model, depth=args.depth,
             num_heads=args.num_heads,
-        )
-        model = init_lm(spec, seed=args.seed, device=args.device)
+        ), seed=args.seed, device=device)
+    spec = model.spec
     draft = None
     if args.spec_tokens:
-        if args.draft_params_npz:
+        if args.draft_checkpoint_dir:
+            draft, _, _ = _load_checkpoint(
+                "--draft_checkpoint_dir", args.draft_checkpoint_dir, None,
+                args.num_heads, device)
+        elif args.draft_params_npz:
             draft = _load_npz("--draft_params_npz", args.draft_params_npz,
-                              args.num_heads, args.device)
+                              args.num_heads, device)
         elif args.init_demo:
             draft = init_lm(
                 spec._replace(d_model=max(16, spec.d_model // 2),
                               depth=max(1, spec.depth // 2)),
-                seed=1, device=args.device)
+                seed=1, device=device)
         else:
             raise SystemExit(
-                "--spec_tokens needs --draft_params_npz (or --init_demo, "
-                "which synthesizes a draft)"
+                "--spec_tokens needs --draft_checkpoint_dir or "
+                "--draft_params_npz (or --init_demo, which synthesizes a "
+                "draft)"
             )
+        for field in ("vocab_size", "total_len"):
+            if getattr(draft.spec, field) != getattr(spec, field):
+                raise SystemExit(
+                    f"the draft's {field} {getattr(draft.spec, field)} "
+                    f"differs from the target's {getattr(spec, field)}: a "
+                    "draft must share the target's vocabulary and length"
+                )
     metrics = MetricsWriter(args.metrics_file)
+    knobs = dict(slots=args.slots, metrics=metrics, kv_dtype=args.kv_dtype,
+                 page_size=args.page_size, kv_pages=args.kv_pages)
     engine = ServeEngine(
-        model,
-        slots=args.slots,
-        prefill_len=args.prefill_len,
-        metrics=metrics,
-        kv_dtype=args.kv_dtype,
-        page_size=args.page_size,
-        kv_pages=args.kv_pages,
-        spec_tokens=args.spec_tokens,
-        draft_model=draft,
-    )
+        model, prefill_len=args.prefill_len, spec_tokens=args.spec_tokens,
+        draft_model=draft, model_version=version, **knobs)
+    if streaming is not None:
+        engine.pause_admission()  # requests queue until the weights land
+    models = {}
+    for entry in args.model or []:
+        name, _, mdir = entry.partition("=")
+        if not name or not mdir:
+            raise SystemExit(f"--model wants NAME=DIR, got {entry!r}")
+        if name in models:
+            raise SystemExit(f"--model {name!r} registered twice")
+        mmodel, _, mversion = _load_checkpoint(
+            f"--model {name}", mdir, None, args.num_heads, device)
+        models[name] = ServeEngine(mmodel, model_version=mversion, **knobs)
+    # SIGTERM only sets an event: this thread wakes, drains and returns.
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     try:
-        with LMServer(engine, host=args.host, port=args.port) as server:
+        with LMServer(engine, host=args.host, port=args.port,
+                      models=models) as server:
+            if streaming is not None:
+                streaming.wait_admission()
             print(json.dumps({
                 "serving": server.url,
                 "device": str(engine.device),
@@ -145,13 +226,59 @@ def main(argv=None) -> None:
                 **({"spec_tokens": engine.spec_tokens,
                     "draft_spec": draft.spec._asdict()}
                    if engine.spec_tokens else {}),
+                **({"model_version": version, "epoch": epoch}
+                   if version is not None else {}),
+                **({"models": sorted(models)} if models else {}),
+                **({"streaming_restore": {
+                    "admission_ready_s": streaming.admission_ready_s,
+                    "admission_group": streaming.admission_group}}
+                   if streaming is not None else {}),
             }), flush=True)
+            if streaming is not None:
+                # The whole state goes in through the hot-swap path; a
+                # failed stream is fatal (never serve the placeholder).
+                full = streaming.wait(timeout=600.0)
+                with server._lock:
+                    engine.install_params(full, model_version=version)
+                    engine.resume_admission()
+                print(json.dumps({
+                    "streamed": True,
+                    "admission_ready_s": streaming.admission_ready_s,
+                    "complete_s": streaming.complete_s,
+                }), flush=True)
             try:
                 stop.wait()
             except KeyboardInterrupt:
                 pass
+            if stop.is_set():
+                drained = server.drain(args.drain_timeout)
+                print(json.dumps({"draining": True, "drained": drained,
+                                  "drain_timeout": args.drain_timeout}),
+                      flush=True)
     finally:
         metrics.close()
+
+
+def _load_checkpoint(flag: str, directory: str, epoch, num_heads: int,
+                     device):
+    """A causal LM from a checkpoint directory → (model, epoch, version
+    label); the spec from its shapes and its ``lm_spec.json``."""
+    from ddp_tpu_torch.models.lm import CausalLM
+    from ddp_tpu_torch.serve.lifecycle import model_version_token
+    from ddp_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        derive_spec_with_sidecar,
+    )
+
+    try:
+        state, epoch = CheckpointManager(directory).restore_for_inference(
+            epoch)
+        spec = derive_spec_with_sidecar(directory, state,
+                                        num_heads_fallback=num_heads)
+    except (FileNotFoundError, RuntimeError, ValueError) as e:
+        raise SystemExit(f"{flag} {directory}: {e}")
+    return (CausalLM.from_state(spec, state, device), epoch,
+            model_version_token(directory, epoch))
 
 
 def _load_npz(flag: str, path: str, num_heads: int, device):

@@ -34,9 +34,16 @@ a prefix prefill it once and map its pages copy-free. Admission then
 counts free pages; the decode attention reads the pool through the
 tables (the paged CUDA kernel on the GPU).
 
-Request tracing, SLOs, compile introspection, hot-swap (with its
-prefix-index flush) and the page export/install of disaggregated
-serving are features of the JAX engine that later slices bring over.
+The model lifecycle (``engine.py:977-1048``): ``pause_admission``
+holds queued requests in the queue (nothing is dropped) while bound
+lanes decode to completion, and ``install_params`` swaps the serving
+weights in place at that barrier (``serve/lifecycle.py`` verifies the
+checkpoint first, ``serve/server.py`` runs the whole reload). Each
+completion carries the ``model_version`` it was served under.
+
+Request tracing, SLOs, compile introspection and the page
+export/install of disaggregated serving are features of the JAX engine
+that later slices bring over.
 """
 
 from __future__ import annotations
@@ -96,6 +103,8 @@ class Completion:
     # Speculative engines: the fraction of this request's draft tokens
     # the target accepted; None when no verify round ran for it.
     spec_acceptance: Optional[float] = None
+    # The serving weights' label (None on an engine that has none).
+    model_version: Optional[str] = None
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -371,6 +380,7 @@ class ServeEngine:
         kv_pages: Optional[int] = None,
         spec_tokens: int = 0,
         draft_model: Optional[CausalLM] = None,
+        model_version: Optional[str] = None,
     ):
         spec = model.spec
         self.device = model.device
@@ -491,6 +501,12 @@ class ServeEngine:
         self._retire_times: deque = deque(maxlen=32)
         self.reject_counts: dict[str, int] = {}
         self.status_counts: dict[str, int] = {}
+        # Model lifecycle: the serving weights' label, the swaps made and
+        # rolled back, and the hot-swap barrier.
+        self.model_version = model_version
+        self.reloads_total = 0
+        self.rollbacks_total = 0
+        self._admission_paused = False
         if self.decode_attn == "flash" and dev.type == "cuda":
             # Build the kernel now, not inside the first request.
             decode_ops.build()
@@ -539,7 +555,85 @@ class ServeEngine:
 
     @property
     def pending(self) -> bool:
+        # Paused at the hot-swap barrier, queued work is not steppable:
+        # only running lanes keep the loop busy.
+        if self._admission_paused:
+            return self.active > 0
         return self.active > 0 or self.scheduler.depth > 0
+
+    # ---- model lifecycle (serve/lifecycle.py) ---------------------------
+
+    def pause_admission(self) -> None:
+        """Stop binding queued requests to lanes (``step()`` skips the
+        admit phase) while bound lanes decode to completion: the
+        drain-to-a-barrier half of a hot-swap. Submissions still queue;
+        nothing is dropped."""
+        self._admission_paused = True
+
+    def resume_admission(self) -> None:
+        self._admission_paused = False
+
+    def install_params(
+        self,
+        state: dict,
+        *,
+        model_version: Optional[str] = None,
+        invalidate_prefix: bool = False,
+    ) -> None:
+        """Swap the serving weights for ``state`` (a CausalLM state dict)
+        in place, so every cache, buffer and captured reference stays
+        valid. Needs a drained engine (``active == 0``). Any key, shape
+        or dtype skew raises ``ValueError("spec_skew: ...")`` before
+        anything changes; a copy that fails midway restores the old
+        weights and re-raises. The copy has finished on the device when
+        this returns. ``invalidate_prefix`` flushes the prefix index and
+        the page table of a paged engine: its K/V was computed under the
+        old weights (a same-version reinstall keeps it). The draft model
+        is left alone, as the JAX engine leaves it.
+        """
+        if self.active:
+            raise RuntimeError(
+                "install_params() requires a drained engine "
+                f"({self.active} lanes still bound — pause admission and "
+                "wait for retirement)"
+            )
+        live = self.model.state_dict()
+        if set(state) != set(live):
+            diff = sorted(set(state) ^ set(live))
+            raise ValueError(
+                f"spec_skew: parameter names differ from the serving "
+                f"model's: {diff[:5]}"
+            )
+        for k, old in live.items():
+            new = state[k]
+            if tuple(new.shape) != tuple(old.shape) or new.dtype != old.dtype:
+                raise ValueError(
+                    f"spec_skew: {k} {tuple(new.shape)}/{new.dtype} != "
+                    f"serving {tuple(old.shape)}/{old.dtype}"
+                )
+        backup = {k: v.clone() for k, v in live.items()}
+        try:
+            with torch.no_grad():
+                for k, v in live.items():
+                    v.copy_(state[k])
+        except BaseException:
+            with torch.no_grad():
+                for k, v in live.items():
+                    v.copy_(backup[k])
+            raise
+        finally:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        if model_version is not None:
+            self.model_version = model_version
+        self.reloads_total += 1
+        if invalidate_prefix and self.paged:
+            # No lane owns a page at the barrier, so every mapped page
+            # belongs to the stale index: rebuild it and zero the table,
+            # the startup state.
+            self._prefix = PrefixCache(self.kv_pages, self.page_size)
+            self._table_np[:] = 0
+            self._table_dirty = True
 
     def cache_bytes_per_slot(self) -> int:
         return self._cache.nbytes() // self.num_slots
@@ -617,6 +711,14 @@ class ServeEngine:
             },
             "device": str(self.device),
             **({"paged": self.page_stats()} if self.paged else {}),
+            # Absent until a version is set or a swap has happened.
+            **({"lifecycle": {
+                **({"model_version": self.model_version}
+                   if self.model_version is not None else {}),
+                "reloads_total": self.reloads_total,
+                "rollbacks_total": self.rollbacks_total,
+            }} if self.model_version is not None or self.reloads_total
+                or self.rollbacks_total else {}),
         }
 
     # ---- engine loop ------------------------------------------------
@@ -649,6 +751,9 @@ class ServeEngine:
             evictions += 1
 
         for slot in self._slots:
+            # Paused at the hot-swap barrier: queue heads stay queued.
+            if self._admission_paused:
+                break
             if not slot.free or self.scheduler.depth == 0:
                 continue
             req = self.scheduler.next_request()
@@ -962,6 +1067,7 @@ class ServeEngine:
                 round(slot.spec_accepted / slot.spec_drafted, 4)
                 if slot.spec_drafted else None
             ),
+            model_version=self.model_version,
         )
         self._completed[req.rid] = c
         self._retire_times.append(now)
@@ -1009,4 +1115,6 @@ class ServeEngine:
             fields["tpot_s"] = round(c.tpot_s, 6)
         if c.prefix_hit_tokens is not None:
             fields["prefix_hit_tokens"] = c.prefix_hit_tokens
+        if c.model_version is not None:
+            fields["model_version"] = c.model_version
         self.metrics.write("serve_request", **fields)

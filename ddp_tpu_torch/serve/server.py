@@ -1,23 +1,38 @@
 """Stdlib-HTTP frontend for the serve engine.
 
-The counterpart of ``ddp_tpu/serve/server.py``'s core routes, with the
-same JSON shapes:
+The counterpart of ``ddp_tpu/serve/server.py``'s core and lifecycle
+routes, with the same JSON shapes:
 
   POST /generate   {"prompt_tokens": [...], "max_new_tokens": N,
-                    "temperature"?, "top_p"?, "seed"?, "timeout"?}
+                    "temperature"?, "top_p"?, "seed"?, "timeout"?,
+                    "model"?: a registered model name (absent: the
+                    default model)}
                    → 200 {"rid", "status", "prompt_tokens", "tokens",
-                     "ttft_s", "decode_tokens_per_s"}
+                     "ttft_s", "decode_tokens_per_s", "model_version"?}
                    → 429 {"error": "queue_full", "retry_after_s"} +
                      ``Retry-After`` on backpressure
                    → 400 {"error": reason} on invalid requests and
-                     malformed bodies
-  GET  /healthz    → 200 {"ok": true, "slots", "active", "queue_depth"}
+                     malformed bodies, {"error": "unknown_model"}
+                   → 503 {"error": "draining"} + ``Retry-After`` while
+                     the server drains for shutdown
+  POST /reload     {"checkpoint_dir": D, "epoch"?, "model"?,
+                    "drain_timeout"?}: a verified hot-swap
+                    (serve/lifecycle.py) — verify, load on the host while
+                    the old weights serve, drain the lanes to a barrier,
+                    swap under the lock, roll back on any failure
+                   → 200 {"reloaded", "model_version", ...}
+                   → 409 {"error": "manifest_missing" | "crc_mismatch" |
+                     "spec_skew" | "reload_in_progress", "detail"?}
+                   → 500 load_failed / swap_failed (rolled_back)
+                   → 503 swap_drain_timeout (the lanes never retired)
+  GET  /healthz    → 200 {"ok": true, "slots", "active", "queue_depth",
+                    "draining", "model_version"?, "models"?}
   GET  /stats      → 200 engine.stats()
 
-One background thread drives ``ServeEngine.step()`` whenever work is
-pending; HTTP handler threads touch the engine only under the same lock
-(the engine is single-threaded by design). Each handler blocks until its
-request completes.
+One background thread steps every engine (the default one, then the
+named ones) whenever it has work; HTTP handler threads touch an engine
+only under the same lock (the engine is single-threaded by design).
+Each handler blocks until its request completes.
 """
 
 from __future__ import annotations
@@ -33,6 +48,7 @@ from typing import Optional
 
 import torch
 
+from ddp_tpu_torch.serve import lifecycle as lc
 from ddp_tpu_torch.serve.engine import ServeEngine
 from ddp_tpu_torch.serve.scheduler import QUEUE_FULL
 
@@ -51,6 +67,8 @@ class LMServer:
 
     ``port=0`` binds an ephemeral port; ``server.port`` is the bound
     one. Use as a context manager or call ``start()``/``stop()``.
+    ``models`` names extra engines, each with its own scheduler, slots
+    and pages; a /generate body's ``model`` routes to one.
     """
 
     def __init__(
@@ -59,15 +77,24 @@ class LMServer:
         *,
         host: str = "127.0.0.1",
         port: int = 0,
-        retry_after: float = 5.0,
+        drain_retry_after: float = 5.0,
+        models: Optional[dict] = None,
     ):
         self.engine = engine
+        self.models: dict = dict(models or {})
         self._lock = threading.Lock()
         self._stop = threading.Event()
-        # Retry-After fallback for a 429 before any retirement rate
-        # exists to derive one from.
-        self.retry_after = float(retry_after)
+        self._draining = threading.Event()
+        # The Retry-After of a 503 while draining, and of a 429 before
+        # any retirement rate exists to derive one from.
+        self.drain_retry_after = float(drain_retry_after)
         self._engine_error: Optional[str] = None
+        # One reload at a time: a second POST /reload answers 409.
+        self._reload_lock = threading.Lock()
+        # POST handlers between reading a body and writing the reply
+        # (under _lock): a drain waits for them, so that no finished
+        # request's reply is lost when the process exits.
+        self._responding = 0
         self._httpd = _HTTPServer((host, port), _make_handler(self))
         self.host = host
         self.port = int(self._httpd.server_address[1])
@@ -100,6 +127,52 @@ class LMServer:
     def url(self) -> str:
         return f"http://{self.host}:{self.port}"
 
+    # ---- graceful drain ---------------------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
+
+    def begin_drain(self) -> None:
+        """Stop admitting (a new POST answers 503 + Retry-After) while
+        running lanes decode to completion. Idempotent."""
+        self._draining.set()
+
+    def drain(self, timeout: float = 30.0, *, poll: float = 0.01) -> bool:
+        """``begin_drain``, then wait up to ``timeout`` seconds for every
+        engine to go idle and every reply to be written → whether they
+        were (the SIGTERM path of ``python -m ddp_tpu_torch.serve``)."""
+        self.begin_drain()
+        deadline = time.monotonic() + max(0.0, timeout)
+        while time.monotonic() < deadline:
+            if self._idle() or self._engine_error is not None:
+                return True
+            time.sleep(poll)
+        return self._idle()
+
+    def _idle(self) -> bool:
+        with self._lock:
+            return self._responding == 0 and not any(
+                e.pending for e in self._engines())
+
+    # ---- engine driving ---------------------------------------------
+
+    def _engines(self) -> list[ServeEngine]:
+        """The default engine, then the named ones."""
+        return [self.engine, *self.models.values()]
+
+    def _engine_for(self, body: dict):
+        """``(engine, None)`` for a body's ``model`` (absent: the default
+        engine), or ``(None, (400, payload))`` for an unknown name —
+        serving it on the default model would serve the wrong weights."""
+        model = body.get("model")
+        if model is None:
+            return self.engine, None
+        if model not in self.models:
+            return None, (400, {"error": "unknown_model", "model": model,
+                                "models": sorted(self.models)})
+        return self.models[model], None
+
     def _engine_loop(self) -> None:
         # An exception escaping step() must not kill this thread
         # silently: record it, flip health, and fail waiters fast.
@@ -111,10 +184,12 @@ class LMServer:
         try:
             with ctx:
                 while not self._stop.is_set():
-                    with self._lock:
-                        busy = self.engine.pending
-                        if busy:
-                            self.engine.step()
+                    busy = False
+                    for eng in self._engines():
+                        with self._lock:
+                            if eng.pending:
+                                busy = True
+                                eng.step()
                     if not busy:
                         time.sleep(_IDLE_SLEEP_S)
         except Exception as e:  # noqa: BLE001 — terminal, reported
@@ -138,9 +213,16 @@ class LMServer:
                 "max_new_tokens (int); temperature/top_p/seed/timeout "
                 "must be numeric"
             }
+        engine, refused = self._engine_for(body)
+        if refused:
+            return refused
         if self._engine_error is not None:
             return 500, {"error": f"engine failed: {self._engine_error}"}
-        engine = self.engine
+        if self._draining.is_set():
+            # New work goes to the replacement process; admitted work
+            # finishes.
+            return 503, {"error": "draining",
+                         "retry_after_s": self.drain_retry_after}
         with self._lock:
             adm = engine.submit(
                 prompt, max_new, temperature=temperature, top_p=top_p,
@@ -154,7 +236,7 @@ class LMServer:
                     eta = engine.queue_drain_eta_s()
                 retry_after = (
                     min(60.0, max(1.0, eta)) if eta is not None
-                    else self.retry_after
+                    else self.drain_retry_after
                 )
                 return 429, {
                     "error": adm.reason,
@@ -163,13 +245,16 @@ class LMServer:
             return 400, {"error": adm.reason}
         rid = adm.request.rid
         while True:
+            # Read the stop flag before the result: a request that finished
+            # before the server stopped is answered, never 503.
+            stopping = self._stop.is_set()
             with self._lock:
                 done = engine.pop_result(rid)
             if done is not None:
                 break
             if self._engine_error is not None:
                 return 500, {"error": f"engine failed: {self._engine_error}"}
-            if self._stop.is_set():
+            if stopping:
                 return 503, {"error": "server stopping"}
             time.sleep(poll)
         return 200, {
@@ -182,6 +267,132 @@ class LMServer:
             # Paged engines only: prompt tokens served from cached pages.
             **({"prefix_hit_tokens": done.prefix_hit_tokens}
                if done.prefix_hit_tokens is not None else {}),
+            # The weights this request was served under.
+            **({"model_version": done.model_version}
+               if done.model_version is not None else {}),
+        }
+
+    # ---- verified hot-swap (serve/lifecycle.py) ----------------------
+
+    def reload_model(self, body: dict, *, poll: float = 0.005
+                     ) -> tuple[int, dict]:
+        """The POST /reload implementation → (http_status, payload).
+
+        verify → load → drain to the barrier → swap → (roll back). The
+        old weights serve until the swap and again after any failure.
+        Verify and load run outside the engine lock; the swap runs in
+        the lock hold that observes ``active == 0``.
+        """
+        directory = body.get("checkpoint_dir")
+        if not isinstance(directory, str) or not directory:
+            return 400, {"error": "body needs checkpoint_dir (str)"}
+        try:
+            epoch = (int(body["epoch"]) if body.get("epoch") is not None
+                     else None)
+            drain_timeout = float(body.get("drain_timeout", 30.0))
+        except (TypeError, ValueError):
+            return 400, {"error": "epoch/drain_timeout must be numeric"}
+        engine, refused = self._engine_for(body)
+        if refused:
+            return refused
+        if self._engine_error is not None:
+            return 500, {"error": f"engine failed: {self._engine_error}"}
+        if not self._reload_lock.acquire(blocking=False):
+            return 409, {"error": "reload_in_progress"}
+        try:
+            return self._reload_locked(engine, directory, epoch,
+                                       drain_timeout, poll)
+        finally:
+            self._reload_lock.release()
+
+    def _reload_locked(self, engine, directory, epoch, drain_timeout, poll
+                       ) -> tuple[int, dict]:
+        def record(outcome: str, **fields) -> None:
+            engine.metrics.write("serve_reload", outcome=outcome,
+                                 directory=directory, **fields)
+
+        # 1. Verify on the host: manifest, CRCs, spec.
+        t0 = time.monotonic()
+        try:
+            target = lc.verify_reload_target(
+                directory, epoch=epoch, current_spec=engine.spec,
+                num_heads_fallback=engine.spec.num_heads,
+            )
+        except lc.ReloadRejected as e:
+            record("rejected", reason=e.reason)
+            return 409, {"error": e.reason, "detail": e.detail}
+        verify_s = round(time.monotonic() - t0, 4)
+
+        # 2. Load on the host while the old weights serve.
+        t0 = time.monotonic()
+        try:
+            state = lc.load_reload_target(target)
+        except Exception as e:  # noqa: BLE001 — named in the payload
+            record("load_failed", model_version=target.version)
+            return 500, {"error": "load_failed",
+                         "detail": f"{type(e).__name__}: {e}"}
+        load_s = round(time.monotonic() - t0, 4)
+
+        # 3. Drain to the barrier: admission pauses (new work queues)
+        #    while bound lanes finish; the swap runs in the lock hold
+        #    that sees active == 0, so no lane binds in between. The flag
+        #    is set without the lock: the engine reads it at its next
+        #    admit phase, and an engine loop that takes the lock step
+        #    after step must not hold the pause back while the queue
+        #    drains.
+        t_swap = time.monotonic()
+        engine.pause_admission()
+        deadline = time.monotonic() + max(0.0, drain_timeout)
+        try:
+            while True:
+                with self._lock:
+                    if engine.active == 0:
+                        return self._swap_at_barrier(
+                            engine, target, state, t_swap, verify_s,
+                            load_s, record)
+                if time.monotonic() > deadline:
+                    record("drain_timeout", model_version=target.version)
+                    return 503, {
+                        "error": "swap_drain_timeout",
+                        "detail": f"lanes still bound after "
+                        f"{drain_timeout}s",
+                    }
+                time.sleep(poll)
+        finally:
+            # Whatever happened, the front door reopens.
+            engine.resume_admission()
+
+    def _swap_at_barrier(self, engine, target, state, t_swap, verify_s,
+                         load_s, record) -> tuple[int, dict]:
+        """Install under the held lock with ``engine.active == 0``; on any
+        failure the old weights stay (``install_params`` restores them)
+        and the old version label with them."""
+        previous = engine.model_version
+        invalidate = previous != target.version
+        try:
+            engine.install_params(state, model_version=target.version,
+                                  invalidate_prefix=invalidate)
+        except Exception as e:  # noqa: BLE001 — rolled back, reported
+            engine.model_version = previous
+            engine.rollbacks_total += 1
+            record("swap_failed", model_version=target.version,
+                   rolled_back=True)
+            return 500, {"error": "swap_failed", "rolled_back": True,
+                         "detail": f"{type(e).__name__}: {e}"}
+        swap_s = round(time.monotonic() - t_swap, 4)
+        record("swapped", model_version=target.version,
+               **({"previous_version": previous} if previous else {}),
+               epoch=target.epoch, verify_s=verify_s, load_s=load_s,
+               swap_s=swap_s, invalidated_prefix=invalidate)
+        return 200, {
+            "reloaded": True,
+            "model_version": target.version,
+            "previous_version": previous,
+            "epoch": target.epoch,
+            "verify_s": verify_s,
+            "load_s": load_s,
+            "swap_s": swap_s,
+            "invalidated_prefix": invalidate,
         }
 
     def snapshot(self, route: str) -> Optional[dict]:
@@ -193,6 +404,18 @@ class LMServer:
                     "slots": self.engine.num_slots,
                     "active": self.engine.active,
                     "queue_depth": self.engine.scheduler.depth,
+                    "draining": self.draining,
+                    **({"model_version": self.engine.model_version}
+                       if self.engine.model_version is not None else {}),
+                    **({"models": {
+                        name: {
+                            **({"model_version": e.model_version}
+                               if e.model_version is not None else {}),
+                            "slots": e.num_slots,
+                            "active": e.active,
+                            "queue_depth": e.scheduler.depth,
+                        } for name, e in self.models.items()
+                    }} if self.models else {}),
                     **(
                         {"engine_error": self._engine_error}
                         if self._engine_error
@@ -230,7 +453,16 @@ def _make_handler(server: LMServer):
                            payload)
 
         def do_POST(self):  # noqa: N802
-            if self.path != "/generate":
+            with server._lock:
+                server._responding += 1
+            try:
+                self._post()
+            finally:
+                with server._lock:
+                    server._responding -= 1
+
+        def _post(self):
+            if self.path not in ("/generate", "/reload"):
                 self._send(404, {"error": f"no route {self.path}"})
                 return
             try:
@@ -241,9 +473,14 @@ def _make_handler(server: LMServer):
             except (ValueError, TypeError) as e:
                 self._send(400, {"error": f"bad JSON body: {e}"})
                 return
+            if self.path == "/reload":
+                self._send(*server.reload_model(body))
+                return
             status, payload = server.submit_and_wait(body)
             headers = None
-            if status == 429:
+            if status == 503 and payload.get("error") == "draining":
+                headers = {"Retry-After": str(int(server.drain_retry_after))}
+            elif status == 429:
                 headers = {
                     "Retry-After": str(
                         max(1, math.ceil(payload["retry_after_s"]))

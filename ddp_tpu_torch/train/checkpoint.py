@@ -15,9 +15,16 @@ Layout under the checkpoint directory, as the JAX package's:
   renamed aside (never deleted) by discovery, which then falls back to
   the previous intact epoch.
 
+- ``lm_spec.json``: a causal LM's architecture fields beside the
+  epochs (``checkpoint.py:235-292``), which serving merges over the
+  spec its shapes give (:func:`derive_spec_with_sidecar`).
+
 The optimizer state is restored with the parameters (the reference
 dropped it). Rank 0 verifies and quarantines; every rank reads after a
 barrier. Reads use ``weights_only=True``: a checkpoint is data.
+Inference reads (:meth:`CheckpointManager.restore_for_inference`,
+:meth:`~CheckpointManager.params_metadata`) map the file (``mmap=True``)
+and touch only the parameters, never the optimizer's moments.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ CHECKPOINT_FORMAT = 3  # the JAX package's format number (``fmt``)
 STATE_FILE = "state.pt"
 MANIFEST_SUFFIX = ".manifest.json"
 QUARANTINE_PREFIX = "quarantine."
+LM_SPEC_FILENAME = "lm_spec.json"
 _EPOCH_DIR = re.compile(r"epoch_(\d+)$")
 
 
@@ -55,6 +63,51 @@ def _crc32_file(path: str, chunk: int = 1 << 20) -> int:
 
 def _manifest_path(root: str, epoch: int) -> str:
     return os.path.join(root, f"epoch_{epoch}{MANIFEST_SUFFIX}")
+
+
+def save_lm_spec(directory: str, spec) -> str:
+    """Write ``spec`` (an ``LMSpec``) as JSON beside the checkpoints,
+    atomically (tmp, then ``os.replace``), keys sorted."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, LM_SPEC_FILENAME)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(dict(spec._asdict()), f, indent=2, sort_keys=True)
+    os.replace(tmp, path)
+    return path
+
+
+def load_lm_spec_fields(directory: str) -> dict:
+    """The sidecar's fields that the port's ``LMSpec`` knows, and
+    ``num_experts`` (so that ``derive_lm_spec`` can refuse an MoE
+    checkpoint); {} when the file is absent or unreadable."""
+    from ddp_tpu_torch.models.lm import LMSpec
+
+    try:
+        with open(os.path.join(directory, LM_SPEC_FILENAME)) as f:
+            fields = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    if not isinstance(fields, dict):
+        return {}
+    known = LMSpec._fields + ("num_experts",)
+    return {k: v for k, v in fields.items() if k in known}
+
+
+def derive_spec_with_sidecar(directory: str, state, *,
+                             num_heads_fallback: int):
+    """Parameter shapes + ``lm_spec.json`` → ``LMSpec``: the shapes are
+    ground truth, the sidecar gives the head count (``num_heads_fallback``
+    for a checkpoint without one). Raises ValueError when the state is
+    not a causal LM's, the head count does not explain the shapes, or the
+    sidecar describes an MoE model."""
+    from ddp_tpu_torch.models.lm import derive_lm_spec
+
+    sidecar = load_lm_spec_fields(directory)
+    return derive_lm_spec(
+        state, num_heads=sidecar.pop("num_heads", num_heads_fallback),
+        **sidecar,
+    )
 
 
 def build_manifest(step_dir: str) -> dict:
@@ -253,23 +306,53 @@ class CheckpointManager:
         path = os.path.join(self._dir, f"epoch_{epoch}", STATE_FILE)
         return torch.load(path, map_location=device, weights_only=True)
 
-    def restore(self, state: TrainState, epoch: int | None = None) -> int:
-        """Load ``epoch`` (None: the latest intact one) into ``state`` in
-        place — parameters, optimizer state and step count — and return
-        the epoch. An explicit epoch that fails its manifest raises."""
+    def read_params(self, epoch: int) -> dict:
+        """``epoch``'s parameters, memory-mapped from the file: a tensor's
+        bytes are read when it is used, and nothing else of the
+        checkpoint (the optimizer's moments) is read at all."""
+        path = os.path.join(self._dir, f"epoch_{epoch}", STATE_FILE)
+        return torch.load(path, map_location="cpu", weights_only=True,
+                          mmap=True)["params"]
+
+    def params_metadata(self, epoch: int) -> dict:
+        """``epoch``'s parameter shapes and dtypes as meta tensors (no
+        data), read through the same map as :meth:`read_params`."""
+        return {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                for k, v in self.read_params(epoch).items()}
+
+    def verified_epoch(self, epoch: int | None = None) -> int:
+        """The epoch to read: ``None`` → the latest intact one (a corrupt
+        latest is quarantined, then discovery falls back;
+        FileNotFoundError when none is left); an explicit epoch that
+        fails its manifest raises RuntimeError."""
         if epoch is None:
             epoch = self.latest_intact_epoch()
             if epoch is None:
                 raise FileNotFoundError(f"no checkpoints in {self._dir}")
-        else:
-            problems = self.verify_epoch(epoch)
-            if problems:
-                raise RuntimeError(
-                    f"checkpoint epoch {epoch} fails integrity "
-                    f"verification: {'; '.join(problems)} — restore a "
-                    "different epoch, or delete its manifest to force "
-                    "an unverified read"
-                )
+            return epoch
+        problems = self.verify_epoch(epoch)
+        if problems:
+            raise RuntimeError(
+                f"checkpoint epoch {epoch} fails integrity "
+                f"verification: {'; '.join(problems)} — restore a "
+                "different epoch, or delete its manifest to force "
+                "an unverified read"
+            )
+        return epoch
+
+    def restore_for_inference(self, epoch: int | None = None
+                              ) -> tuple[dict, int]:
+        """``(parameters, epoch)`` for serving (``checkpoint.py:902-930``),
+        no optimizer built, the epoch as :meth:`verified_epoch` picks it.
+        The parameters are :meth:`read_params`' memory-mapped tensors."""
+        epoch = self.verified_epoch(epoch)
+        return self.read_params(epoch), epoch
+
+    def restore(self, state: TrainState, epoch: int | None = None) -> int:
+        """Load ``epoch`` (as :meth:`verified_epoch` picks it) into
+        ``state`` in place — parameters, optimizer state and step count —
+        and return the epoch."""
+        epoch = self.verified_epoch(epoch)
         blob = self.read(epoch)
         state.model.load_state_dict(blob["params"])
         state.optimizer.load_state_dict(blob["opt_state"])

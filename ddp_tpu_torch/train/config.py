@@ -51,11 +51,11 @@ class TrainConfig:
     grad_accum_steps: int = 1
     compute_dtype: str = "float32"  # float32 | bfloat16
     seed: int = 0
-    # Image models only: checkpoints, evaluation, logging, the fast path,
-    # and the ranks.
+    # Checkpoints, every model (causal_lm adds the lm_spec.json sidecar).
     checkpoint_dir: str = "./checkpoints"
     max_checkpoints: int | None = None  # None = keep all
     resume_epoch: int | None = None  # rewind: later epochs are deleted
+    # Image models only: evaluation, logging, the fast path, the ranks.
     eval_every: int = 1  # epochs between test-split evals (0 = only final)
     log_interval: int = 100
     fast_epoch: bool = False  # dataset on the device, one host read an epoch

@@ -17,8 +17,11 @@ the reference's checkpoints) and ``final_accuracy=``.
 :class:`LMTrainer` trains the causal LM on one card
 (``trainer.py:812-966``, causal-LM subset): synthetic token streams or a
 byte-level text file, fp32 master weights, the epoch runner of
-``train/fast.py``, one host read per epoch and an eval every epoch; no
-ranks or checkpoints yet (ROADMAP A2.4).
+``train/fast.py``, one host read per epoch and an eval every epoch, a
+checkpoint every epoch (with the ``lm_spec.json`` sidecar that
+``python -m ddp_tpu_torch.serve --checkpoint_dir`` reads) and auto-resume
+with the Adam state and the step count, as the image trainer's. It runs
+one rank (ROADMAP A2.4).
 
 :func:`main` is the CLI: ``--spawn N`` starts N local ranks through
 ``torch.multiprocessing`` (nccl: one card each, never more ranks than
@@ -50,7 +53,7 @@ from ddp_tpu_torch.models.lm import (
 )
 from ddp_tpu_torch.parallel.ddp import TrainState, make_eval_step, make_train_step
 from ddp_tpu_torch.runtime import dist
-from ddp_tpu_torch.train.checkpoint import CheckpointManager
+from ddp_tpu_torch.train.checkpoint import CheckpointManager, save_lm_spec
 from ddp_tpu_torch.train.config import IMAGE_DATASETS, IMAGE_MODELS, TrainConfig
 from ddp_tpu_torch.train.fast import (
     make_epoch_runner,
@@ -90,6 +93,27 @@ def build_splits(config: TrainConfig) -> tuple[Split, Split]:
     return split(n, config.seed), split(max(1, n // 6), config.seed + 1)
 
 
+def restore_or_init(ckpt: CheckpointManager, state: TrainState,
+                    config: TrainConfig, log) -> int:
+    """The start epoch: ``--resume_epoch`` (its later epochs deleted),
+    else the latest intact checkpoint + 1, else 0; ``log`` prints rank
+    0's lines."""
+    if config.resume_epoch is not None:
+        epoch = ckpt.restore(state, config.resume_epoch)
+        stale = ckpt.delete_after(epoch)
+        if stale:
+            log(f"Rewind to epoch {epoch}: deleted the abandoned "
+                f"branch's checkpoints {stale}")
+        log(f"Resumed from requested epoch {epoch}")
+        return epoch + 1
+    start = ckpt.restore_or_init(state)  # logs any quarantine
+    if start:
+        log(f"Resumed from checkpoint epoch {start - 1}")
+    else:
+        log("No checkpoint found — starting from scratch")
+    return start
+
+
 class LMTrainer:
     def __init__(self, config: TrainConfig):
         if config.model != "causal_lm":
@@ -126,6 +150,11 @@ class LMTrainer:
         self.eval_step = make_lm_eval_step(
             self.model, compute_dtype=self.compute_dtype
         )
+        self.state = TrainState(step=0, model=self.model,
+                                optimizer=self.optimizer)
+        self.ckpt = CheckpointManager(
+            config.checkpoint_dir, max_to_keep=config.max_checkpoints
+        )
         self.history: list[dict] = []
 
     def evaluate(self) -> tuple[float, float]:
@@ -150,9 +179,14 @@ class LMTrainer:
 
     def train(self) -> dict:
         cfg = self.config
+        # The sidecar is written here, not at construction: a trainer
+        # that never trains creates no checkpoint directory.
+        save_lm_spec(cfg.checkpoint_dir, self.spec)
+        start = restore_or_init(self.ckpt, self.state, cfg,
+                                lambda msg: print(msg, flush=True))
         steps = self.runner.steps_per_epoch
         tokens_per_step = cfg.batch_size * cfg.seq_len
-        for epoch in range(cfg.epochs):
+        for epoch in range(start, cfg.epochs):
             t0 = time.perf_counter()
             metrics = self.runner(epoch)
             # The epoch's one host read.
@@ -183,11 +217,17 @@ class LMTrainer:
                 f"{rec['step_p50_s'] * 1e3:.2f} ms ({self.device})",
                 flush=True,
             )
-        last = self.history[-1] if self.history else None
+            self.state.step = self.optimizer.count
+            self.ckpt.save(epoch, self.state, steps_per_epoch=steps)
+        if self.history:
+            final_acc = self.history[-1]["test_accuracy"]
+            final_loss = self.history[-1]["test_loss"]
+        else:  # every epoch was already trained: evaluate the restored
+            final_acc, final_loss = self.evaluate()
         self.summary = {
             "epochs_run": len(self.history),
-            "final_accuracy": last["test_accuracy"] if last else None,
-            "final_loss": last["test_loss"] if last else None,
+            "final_accuracy": final_acc,
+            "final_loss": final_loss,
             "history": self.history,
         }
         return self.summary
@@ -281,25 +321,6 @@ class ImageTrainer:
         if self.ctx.is_main:
             print(msg, flush=True)
 
-    def _restore_or_init(self) -> int:
-        """The start epoch: ``--resume_epoch`` (its later epochs deleted),
-        else the latest intact checkpoint + 1, else 0."""
-        cfg = self.config
-        if cfg.resume_epoch is not None:
-            epoch = self.ckpt.restore(self.state, cfg.resume_epoch)
-            stale = self.ckpt.delete_after(epoch)
-            if stale:
-                self.log(f"Rewind to epoch {epoch}: deleted the abandoned "
-                         f"branch's checkpoints {stale}")
-            self.log(f"Resumed from requested epoch {epoch}")
-            return epoch + 1
-        start = self.ckpt.restore_or_init(self.state)  # logs any quarantine
-        if start:
-            self.log(f"Resumed from checkpoint epoch {start - 1}")
-        else:
-            self.log("No checkpoint found — starting from scratch")
-        return start
-
     def _train_epoch(self, epoch: int) -> dict:
         cfg = self.config
         on_gpu = self.device.type == "cuda"
@@ -365,7 +386,7 @@ class ImageTrainer:
 
     def train(self) -> dict:
         cfg = self.config
-        start = self._restore_or_init()
+        start = restore_or_init(self.ckpt, self.state, cfg, self.log)
         last_eval = None
         for epoch in range(start, cfg.epochs):
             rec = self._train_epoch(epoch)
@@ -444,8 +465,7 @@ def main(argv=None):
             raise ValueError("--model causal_lm trains on one card: no --spawn")
         trainer = LMTrainer(config)
         summary = trainer.train()
-        if summary["final_accuracy"] is not None:
-            print(f"final_accuracy={summary['final_accuracy']:.4f}", flush=True)
+        print(f"final_accuracy={summary['final_accuracy']:.4f}", flush=True)
         return trainer
     if config.spawn > 1:
         spawn(config, args)

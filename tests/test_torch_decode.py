@@ -365,6 +365,7 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr[-2000:]
     assert "ddp_tpu_torch.serve.__main__" in mods
     assert "ddp_tpu_torch.serve.pages" in mods  # the PrefixCache copy
+    assert "ddp_tpu_torch.serve.lifecycle" in mods  # the reasons, the token
     for m in ("models.resnet", "models.vit", "data.cifar", "data.augment",
               "interop.jax_params"):  # the image families' modules
         assert f"ddp_tpu_torch.{m}" in mods

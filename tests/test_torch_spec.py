@@ -616,7 +616,7 @@ def _serve_main_once(argv):
         signal.signal(signal.SIGTERM, old)
         thread.join(timeout=60)
     assert not thread.is_alive() and not errors, errors
-    return json.loads(printed.getvalue().strip().splitlines()[-1]), out
+    return json.loads(printed.getvalue().strip().splitlines()[0]), out
 
 
 def test_cli_serves_with_spec_tokens(tmp_path):

@@ -328,14 +328,15 @@ def test_params_to_jax_inverts_from_jax():
 CLI = [sys.executable, "-m", "ddp_tpu_torch.train", "--device", "cpu"]
 
 
-def test_train_cli_on_cpu_prints_final_accuracy():
+def test_train_cli_on_cpu_prints_final_accuracy(tmp_path):
     """``python -m ddp_tpu_torch.train --device cpu`` at a tiny size runs
     its epochs and prints final_accuracy=."""
     res = subprocess.run(
         CLI + ["--model", "causal_lm", "--synthetic_size", "16",
                "--seq_len", "16", "--vocab_size", "32", "--model_dim",
                "32", "--num_heads", "4", "--batch_size", "8",
-               "--epochs", "2", "--optimizer", "adam", "--lr", "3e-3"],
+               "--epochs", "2", "--optimizer", "adam", "--lr", "3e-3",
+               "--checkpoint_dir", str(tmp_path)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     lines = res.stdout.strip().splitlines()
