@@ -91,6 +91,30 @@ order; any failure exits non-zero and prints no result:
    step, B4 launches a round and the steady round's split (γ draft
    steps against one verify, CUDA events); then the busy share of
    steady speculative rounds.
+4e. Serving observability at phase 4c's full width. (a) main() with
+   --page_size 16 --reqtrace --slo OBS_SLO --trace_dir --flight_dir, fp32:
+   phase 4c's prefix traffic plus a request with a valid trace context
+   and one with a malformed one. Counters set to 0 before and read after:
+   B4p launched exactly decode steps x depth, nothing else, nothing
+   routed. Streams equal phase 4c's fixed-lane ones (near ties excepted);
+   /metricsz lints, agrees with /stats (steps, tokens, requests by
+   status, prefix hits and misses, page gauges), has each objective's
+   ddp_tpu_slo_* gauges and a build_info naming the card; every
+   completion's /requestz?id=0x<trace id> timeline validates, its prefill
+   tokens are the prompt minus the prefix hit, its decode tokens the new
+   ones minus one, and it retires complete; the valid context is adopted
+   (its id, its span as parent) and echoed, the malformed one counted
+   orphaned and served; /statusz's trace loads as a traceEvents
+   document; after SIGTERM the exported trace validates and holds every
+   request, and the flight dump loads. (b) Phase 4d's truncated draft
+   with request tracing on: the spec_round events of all timelines sum
+   to the engine's drafted and accepted totals, B4 launched rounds x γ x
+   draft depth. (c) The synchronizing calls of 32 steady decode steps of
+   the fixed-lane fp32 engine (torch's sync debug mode "warn", plus
+   wrappers for the waits it does not report): request tracing and an
+   SLO engine add none; the tracer's measuring mode adds one a waiting
+   span. (d) Not gated: steady decode step p50/p99 off / request
+   tracing + SLO / plus the measuring mode, in turns, beside the card.
 3b. (Runs after 4, so that its large allocations come after the serving
    run's timings.) The flash-attention kernels B1 (forward), B2 (dQ) and
    B3 (dK/dV), bf16 and fp32, against their plain versions: out, lse and
@@ -1780,19 +1804,19 @@ def spec_requests() -> dict:
 
 
 def spec_streams(torch, model, prompts, *, kv_dtype, draft=None,
-                 cases=None, watch=None) -> tuple[dict, object]:
+                 cases=None, watch=None, **engine_kw) -> tuple[dict, object]:
     """``cases`` (index → (prompt_len, new tokens, sampling); default
     spec_requests()) submitted at once and run to idle in-process under
     SPEC_BUDGET, speculative with ``draft`` at SPEC_GAMMA or plain
-    without one; ``watch(engine)`` is called before the first step →
-    ({index: tokens}, engine)."""
+    without one (other engine knobs in ``engine_kw``); ``watch(engine)``
+    is called before the first step → ({index: tokens}, engine)."""
     from ddp_tpu_torch.serve.engine import ServeEngine
 
     cases = cases or spec_requests()
     knobs = dict(spec_tokens=SPEC_GAMMA, draft_model=draft) if draft else {}
     engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
                          kv_dtype=kv_dtype, step_token_budget=SPEC_BUDGET,
-                         max_queue=len(cases), **knobs)
+                         max_queue=len(cases), **knobs, **engine_kw)
     if watch:
         watch(engine)
     rids = {i: engine.submit(prompts[i], n_new, **sampling).request.rid
@@ -2042,6 +2066,476 @@ def check_spec_serving(torch, card) -> dict:
         profile_steps(torch, model, label=f", spec γ {SPEC_GAMMA} {label}",
                       spec_tokens=SPEC_GAMMA, draft_model=d)
     return counted
+
+
+# ---- phase 4e: serving observability --------------------------------------
+
+# scripts/serve.py's example objectives (its --slo help): every objective
+# kind, and a TTFT bound this traffic's burst can breach.
+OBS_SLO = "ttft_p99<0.5s,tpot_p50<80ms,availability>0.999"
+# A context no parser takes: counted orphaned, the request still served.
+BAD_CONTEXT = "00-not-a-trace-context"
+SYNC_STEPS = 32  # (c): steady decode steps counted
+OVERHEAD_STEPS = 64  # (d): steady decode steps timed a run
+
+
+def _get_text(url: str, route: str) -> tuple[str, str]:
+    with urllib.request.urlopen(url + route, timeout=60) as r:
+        return r.headers["Content-Type"], r.read().decode()
+
+
+def requestz_events(doc: dict) -> list[dict]:
+    """A /requestz timeline → the events reconstruct_requests makes of an
+    exported trace (µs; spans with their dur, instants as "n"; the
+    request umbrella from the digest's total), for
+    validate_request_timeline."""
+    out = [{"name": "request", "ph": "X", "ts": 0.0,
+            "dur": doc["summary"]["total_s"] * 1e6}]
+    for e in doc["events"]:
+        ev = {"name": e["name"], "ts": e["t_s"] * 1e6,
+              **({"args": e["args"]} if e.get("args") else {})}
+        if e["dur_s"] > 0:
+            ev.update(ph="X", dur=e["dur_s"] * 1e6)
+        else:
+            ev["ph"] = "n"
+        out.append(ev)
+    return sorted(out, key=lambda e: e["ts"])
+
+
+def _timeline_failures(doc, prompt_len, reply, label) -> list[str]:
+    """One completion's /requestz timeline: it validates, its prefill
+    tokens are the prompt minus the prefix hit, its decode tokens the new
+    tokens minus the first, and it retires complete."""
+    from ddp_tpu_torch.obs.reqtrace import validate_request_timeline
+
+    failed = []
+    try:
+        summary = validate_request_timeline(requestz_events(doc))
+    except ValueError as e:
+        return [f"{label}: {e}"]
+    args = {}
+    for e in doc["events"]:
+        args.setdefault(e["name"], []).append(e.get("args") or {})
+    prefill = sum(a["tokens"] for a in args.get("req.prefill_chunk", []))
+    decode = sum(a["tokens"] for a in args.get("req.decode", []))
+    if prefill != prompt_len - reply["prefix_hit_tokens"]:
+        failed.append(f"{label}: prefill tokens {prefill} != "
+                      f"{prompt_len} - {reply['prefix_hit_tokens']}")
+    if decode != len(reply["tokens"]) - 1:
+        failed.append(f"{label}: decode tokens {decode} != "
+                      f"{len(reply['tokens'])} - 1")
+    if summary["reason"] != "complete":
+        failed.append(f"{label}: retired {summary['reason']}")
+    return failed
+
+
+def _metricsz_failures(torch, ctype, text, stats) -> list[str]:
+    """/metricsz lints, agrees with /stats, has every objective's gauges
+    and a build_info naming the card."""
+    from ddp_tpu_torch.obs.promtext import CONTENT_TYPE, validate_promtext
+
+    failed = []
+    try:
+        n = validate_promtext(text)
+    except ValueError as e:
+        return [f"/metricsz does not lint: {e}"]
+    if ctype != CONTENT_TYPE:
+        failed.append(f"/metricsz content type {ctype!r}")
+    lines = set(text.splitlines())
+    pg = stats["paged"]
+    want = {"ddp_tpu_serve_steps_total": stats["steps"],
+            "ddp_tpu_serve_tokens_total": stats["tokens_total"],
+            "ddp_tpu_serve_prefix_hits_total": pg["prefix_hits"],
+            "ddp_tpu_serve_prefix_misses_total": pg["prefix_misses"],
+            "ddp_tpu_serve_pages_free": pg["pages_free"],
+            "ddp_tpu_serve_pages_resident": pg["pages_resident"],
+            "ddp_tpu_serve_pages_shared": pg["pages_shared"]}
+    want.update({f'ddp_tpu_serve_requests_total{{status="{s}"}}': c
+                 for s, c in stats["requests_by_status"].items()})
+    for name, value in want.items():
+        if f"{name} {value}" not in lines:
+            failed.append(f"/metricsz {name} is not /stats' {value}")
+    for obj in ("ttft_p99", "tpot_p50", "availability"):
+        for gauge in ("target", "current", "breached"):
+            if not any(l.startswith(f'ddp_tpu_slo_{gauge}{{objective="{obj}"')
+                       for l in lines):
+                failed.append(f"/metricsz lacks ddp_tpu_slo_{gauge} of {obj}")
+    card = torch.cuda.get_device_name(0)
+    info = [l for l in lines if l.startswith("ddp_tpu_build_info{")]
+    if len(info) != 1 or f'device="{card}"' not in info[0]:
+        failed.append(f"build_info does not name {card}: {info}")
+    log(f"[obs] /metricsz: {n} samples, lint clean"
+        if not failed else f"[obs] /metricsz: {failed}")
+    return failed
+
+
+def check_obs_http(torch, model, prompts, fixed, tmp) -> tuple[int, list]:
+    """Phase 4e (a): main() with every observability flag on, paged fp32
+    (phase 4c's run), bench.py's prefix traffic plus a request with a
+    valid trace context and one with a malformed one; counters to 0 just
+    before main(), read just after → (B4p launches, failures)."""
+    import os
+
+    from ddp_tpu_torch.obs.recorder import load_dump
+    from ddp_tpu_torch.obs.reqtrace import (
+        encode_trace_context,
+        format_trace_id,
+        reconstruct_requests,
+    )
+    from ddp_tpu_torch.obs.tracer import validate_trace_file
+    from ddp_tpu_torch.ops import decode as dec
+
+    good_tid, good_span = 0x5EED0000C0FFEE01, 0x00000000000ABCDE
+    extra = {1: encode_trace_context(good_tid, good_span),
+             2: BAD_CONTEXT}  # prompt index → context
+    replies, reads = {}, {}
+
+    def traffic(url, made, stop):
+        replies.update(prefix_traffic(url, prompts))
+        for i, ctx in extra.items():
+            replies[f"ctx{i}"] = _post(url, {
+                "prompt_tokens": prompts[i], "max_new_tokens": PREFIX_NEW,
+                "trace": ctx})
+        reads["stats"] = _get(url, "/stats")
+        reads["metricsz"] = _get_text(url, "/metricsz")
+        reads["statusz"] = _get(url, "/statusz")
+        for key, r in replies.items():
+            tid = _get(url, f"/requestz?id={r['rid']}")["trace_id"]
+            reads[key] = _get(url, f"/requestz?id={tid}")
+
+    spec = FULL
+    trace_dir, flight_dir = os.path.join(tmp, "trace"), os.path.join(
+        tmp, "flight")
+    argv = ["--init_demo", "--seed", "0",
+            "--vocab_size", str(spec["vocab_size"]),
+            "--seq_len", str(spec["total_len"]),
+            "--d_model", str(spec["d_model"]), "--depth", str(spec["depth"]),
+            "--num_heads", str(spec["num_heads"]), "--slots", str(SLOTS),
+            "--prefill_len", str(PREFILL_LEN), "--page_size",
+            str(SERVE_PAGE), "--reqtrace", "--slo", OBS_SLO,
+            "--trace_dir", trace_dir, "--flight_dir", flight_dir]
+    _zero_decode_counters(dec)
+    t0 = time.perf_counter()
+    made, lines = serve_main_with(torch, argv, traffic)
+    wall = time.perf_counter() - t0
+    paged = dict(dec.flash_decode_paged_attention.launches)
+    flat = dict(dec.flash_decode_attention.launches)
+    routed = (dec.flash_decode_attention.plain_routed
+              + dec.flash_decode_paged_attention.plain_routed)
+    engine, failed = made[0], []
+    steps = engine.decode_steps
+    # Streams: phase 4c's fixed-lane ones (near ties excepted, as there).
+    got = {i: replies[i]["tokens"] for i in range(len(prompts))}
+    got.update({100 + i: replies[f"ctx{i}"]["tokens"] for i in extra})
+    want = {**dict(enumerate(fixed)), **{100 + i: fixed[i] for i in extra}}
+    ps = {**dict(enumerate(prompts)), **{100 + i: prompts[i] for i in extra}}
+    if any(r["status"] != "complete" for r in replies.values()):
+        failed.append("a request did not complete")
+    parted, bad = _stream_failures(torch, model, ps, got, want, "fp32",
+                                   "obs")
+    failed += bad
+    want_b4p = steps * FULL["depth"]
+    if (paged["flash_decode_paged_fp32"] != want_b4p or want_b4p == 0
+            or paged["flash_decode_paged_int8"] or any(flat.values())
+            or routed):
+        failed.append(f"launches {paged} {flat} (want B4p = decode steps x "
+                      f"depth = {want_b4p}), routed {routed}")
+    failed += _metricsz_failures(torch, *reads["metricsz"], reads["stats"])
+    # /requestz: every completion's timeline.
+    for key, r in replies.items():
+        plen = len(prompts[key if isinstance(key, int) else int(key[3:])])
+        failed += _timeline_failures(reads[key], plen, r, f"request {key}")
+    # Inbound contexts: the valid one adopted and echoed, the malformed
+    # one orphaned and served.
+    ok_doc = reads["ctx1"]
+    if (replies["ctx1"].get("trace_id") != format_trace_id(good_tid)
+            or ok_doc["trace_id"] != format_trace_id(good_tid)
+            or ok_doc["summary"].get("parent") != f"{good_span:016x}"):
+        failed.append(f"the valid context was not adopted: "
+                      f"{replies['ctx1'].get('trace_id')} {ok_doc['summary']}")
+    if "trace_id" in replies["ctx2"]:
+        failed.append("the malformed context was echoed")
+    rt = reads["stats"]["reqtrace"]
+    if (rt.get("propagated"), rt.get("orphaned")) != (1, 1):
+        failed.append(f"propagated/orphaned {rt}")
+    # /statusz's trace loads as a traceEvents document.
+    status_path = os.path.join(tmp, "statusz_trace.json")
+    with open(status_path, "w") as f:
+        json.dump(reads["statusz"]["trace"], f)
+    try:
+        n_status = len(validate_trace_file(status_path)["traceEvents"])
+    except ValueError as e:
+        failed.append(f"/statusz trace: {e}")
+        n_status = 0
+    # Shutdown: the exported trace and the flight dump.
+    printed = {k: v for line in lines if line.startswith("{")
+               for k, v in json.loads(line).items()}
+    ids = {doc["trace_id"] for key, doc in reads.items()
+           if key not in ("stats", "metricsz", "statusz")}
+    try:
+        doc = validate_trace_file(printed["trace"])
+        found = set(reconstruct_requests(doc["traceEvents"]))
+        summaries = doc["ddp_tpu"]["span_summaries"]
+        if found != ids:
+            failed.append(f"the exported trace holds {len(found)} requests, "
+                          f"not the {len(ids)} served")
+    except (KeyError, ValueError) as e:
+        failed.append(f"exported trace: {e!r}")
+        summaries = {}
+    try:
+        dump = load_dump(printed["flight"])
+    except (KeyError, ValueError) as e:
+        failed.append(f"flight dump: {e!r}")
+        dump = {"records": []}
+    slo = reads["stats"]["slo"]
+    log(f"[obs] (a) main() with --reqtrace --slo --trace_dir --flight_dir, "
+        f"paged fp32: {len(replies)} requests in {wall:.1f} s, {steps} decode "
+        f"steps, B4p launches {paged['flash_decode_paged_fp32']} (= {want_b4p}"
+        f"), routed {routed}; {len(got) - parted} streams identical to phase "
+        f"4c's fixed-lane engine, {parted} parted at a near tie; reqtrace "
+        f"{rt}; SLO {[(o['name'], o['current'], o['breached']) for o in slo['objectives']]}"
+        f"; /statusz trace {n_status} events; exported trace "
+        f"{len(ids)} requests, spans "
+        f"{ {k: v['count'] for k, v in summaries.items()} }; flight dump "
+        f"{len(dump['records'])} records")
+    for name, s in sorted(summaries.items()):
+        state_n = s["count"]
+        mean = s["sum"] / state_n if state_n else float("nan")
+        log(f"[obs]   span {name}: {state_n} spans, mean {mean * 1e3:.3f} ms "
+            "(the tracer in its measuring mode)")
+    return paged["flash_decode_paged_fp32"], failed
+
+
+def check_obs_spec(torch, model, prompts) -> tuple[int, list]:
+    """Phase 4e (b): phase 4d's γ 4 truncated draft on its REQUESTS with
+    request tracing on: the spec_round events summed over every timeline
+    are the engine's drafted and accepted totals; B4 launches rounds x γ
+    x draft depth → (B4 launches, failures)."""
+    from ddp_tpu_torch.models.lm import truncated_draft
+    from ddp_tpu_torch.ops import decode as dec
+
+    draft = truncated_draft(model, DRAFT_DEPTH)
+    _zero_decode_counters(dec)
+    _, engine = spec_streams(torch, model, prompts, kv_dtype="fp32",
+                             draft=draft, reqtrace=True)
+    launches, failed = _spec_launch_failures(dec, engine, DRAFT_DEPTH)
+    drafted = accepted = rounds = 0
+    recent = engine._reqtrace.recent(limit=len(REQUESTS))
+    for r in recent:
+        for e in engine.request_timeline(r["rid"])["events"]:
+            if e["name"] == "req.spec_round":
+                drafted += e["args"]["drafted"]
+                accepted += e["args"]["accepted"]
+                rounds += 1
+    if len(recent) != len(REQUESTS):
+        failed.append(f"{len(recent)} timelines for {len(REQUESTS)} requests")
+    if (drafted, accepted) != (engine.spec_drafted_total,
+                               engine.spec_accepted_total):
+        failed.append(f"spec_round events drafted {drafted} accepted "
+                      f"{accepted} != engine {engine.spec_drafted_total} "
+                      f"{engine.spec_accepted_total}")
+    log(f"[obs] (b) speculative, truncated draft γ {SPEC_GAMMA}, request "
+        f"tracing on: {rounds} spec_round events over {len(recent)} "
+        f"timelines, drafted {drafted} / accepted {accepted} (engine "
+        f"{engine.spec_drafted_total} / {engine.spec_accepted_total}); "
+        f"{engine.decode_steps} rounds; launches {launches}")
+    return launches["flash_decode_fp32"], failed
+
+
+def steady_engine(torch, model, *, steps=16, **engine_kw):
+    """A fixed-lane or paged engine at 8 lanes with every lane decoding
+    (prompts of 32 tokens from seed 3, prefill done after ``steps``
+    steps, budgets long enough that no lane finishes for ~200 steps)."""
+    from ddp_tpu_torch.serve.engine import ServeEngine
+
+    engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
+                         **engine_kw)
+    rng = np.random.default_rng(3)
+    prompt_len = 32
+    for _ in range(SLOTS):
+        adm = engine.submit(
+            rng.integers(0, model.spec.vocab_size, prompt_len).tolist(),
+            model.spec.total_len - prompt_len
+            - max(1, engine_kw.get("spec_tokens", 0)))
+        if not adm.accepted:
+            raise AssertionError(f"steady_engine: {adm.reason}")
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    return engine
+
+
+def _sync_kinds(torch) -> dict:
+    """Which waits torch's sync debug mode reports: a stream synchronize,
+    an event synchronize and a device synchronize, each called once under
+    the "warn" mode → {kind: seen}."""
+    import warnings
+
+    event = torch.cuda.Event()
+    event.record()
+    calls = {"stream": lambda: torch.cuda.current_stream().synchronize(),
+             "event": event.synchronize,
+             "device": torch.cuda.synchronize}
+    seen = {}
+    for kind, call in calls.items():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        seen[kind] = any("synchroniz" in str(w.message) for w in caught)
+    return seen
+
+
+def count_syncs(torch, engine, steps, seen) -> dict:
+    """``steps`` engine steps under the sync debug mode "warn": its
+    warnings, plus, through wrappers, the waits the mode does not report
+    (``seen`` from _sync_kinds) → {"debug_mode": n, "<kind>_wrapper": n,
+    "total": n}."""
+    import warnings
+
+    counts = {"debug_mode": 0}
+    originals = {"stream": (torch.cuda.Stream, "synchronize"),
+                 "event": (torch.cuda.Event, "synchronize"),
+                 "device": (torch.cuda, "synchronize")}
+    saved = {}
+    for kind, (owner, attr) in originals.items():
+        if seen[kind]:
+            continue
+        counts[f"{kind}_wrapper"] = 0
+        real = getattr(owner, attr)
+        saved[kind] = vars(owner).get(attr)
+
+        def wrapped(*a, _real=real, _key=f"{kind}_wrapper", **kw):
+            counts[_key] += 1
+            return _real(*a, **kw)
+
+        setattr(owner, attr, wrapped)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(steps):
+                    engine.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        for kind, own in saved.items():
+            owner, attr = originals[kind]
+            if own is None:
+                delattr(owner, attr)  # the inherited method shows again
+            else:
+                setattr(owner, attr, own)
+    counts["debug_mode"] = sum("synchroniz" in str(w.message) for w in caught)
+    counts["total"] = sum(counts.values())
+    return counts
+
+
+def check_obs_syncs(torch, model) -> list:
+    """Phase 4e (c): synchronizing calls over SYNC_STEPS steady decode
+    steps of the fixed-lane fp32 engine, with request tracing and an SLO
+    engine on (tracer off) and with everything off: equal. With the
+    tracer's measuring mode on too: more by exactly one wait a span that
+    waits (serve.decode, serve.prefill_chunk) → failures."""
+    from ddp_tpu_torch.obs.slo import SLOEngine
+    from ddp_tpu_torch.obs.tracer import Tracer
+
+    seen = _sync_kinds(torch)
+    runs = {
+        "off": {},
+        "reqtrace+slo": dict(reqtrace=True, slo=SLOEngine(OBS_SLO)),
+        "reqtrace+slo+tracer": dict(reqtrace=True, slo=SLOEngine(OBS_SLO),
+                                    tracer=Tracer(enabled=True)),
+    }
+    counts, spans = {}, {}
+    for label, kw in runs.items():
+        engine = steady_engine(torch, model, **kw)
+        before = {k: v["count"] for k, v in engine.tracer.summaries().items()}
+        counts[label] = count_syncs(torch, engine, SYNC_STEPS, seen)
+        after = engine.tracer.summaries()
+        spans[label] = sum(
+            after[k]["count"] - before.get(k, 0)
+            for k in ("serve.decode", "serve.prefill_chunk") if k in after)
+        if engine.active != SLOTS:
+            raise AssertionError(f"phase 4e (c) {label}: a lane finished")
+    log(f"[obs] (c) the sync debug mode reports {seen} (the others are "
+        f"counted by wrappers); {SYNC_STEPS} steady decode steps: "
+        + "; ".join(f"{k}: {v}, waiting spans {spans[k]}"
+                    for k, v in counts.items()))
+    failed = []
+    if counts["reqtrace+slo"] != counts["off"]:
+        failed.append(f"request tracing changed the synchronizing calls: "
+                      f"{counts['reqtrace+slo']} vs {counts['off']}")
+    traced = counts["reqtrace+slo+tracer"]["total"]
+    if traced != counts["off"]["total"] + spans["reqtrace+slo+tracer"]:
+        failed.append(f"the measuring mode made {traced} synchronizing calls,"
+                      f" not {counts['off']['total']} + one a span "
+                      f"({spans['reqtrace+slo+tracer']})")
+    return failed
+
+
+def time_obs_overhead(torch, model, card) -> dict:
+    """Phase 4e (d), not gated: steady decode step p50/p99 (host clock,
+    the engine's step_latency over OVERHEAD_STEPS steps after a warm
+    prefill) on one seeded schedule, everything off / request tracing +
+    SLO / that + the tracer's measuring mode, in turns (ABCCBA) →
+    {label: [(p50 ms, p99 ms), ...]}."""
+    from ddp_tpu_torch.obs.slo import SLOEngine
+    from ddp_tpu_torch.obs.tracer import Tracer
+    from ddp_tpu_torch.utils.metrics import StatSummary
+
+    def knobs(label):
+        return {"off": {},
+                "reqtrace+slo": dict(reqtrace=True, slo=SLOEngine(OBS_SLO)),
+                "reqtrace+slo+tracer": dict(
+                    reqtrace=True, slo=SLOEngine(OBS_SLO),
+                    tracer=Tracer(enabled=True))}[label]
+
+    order = ["off", "reqtrace+slo", "reqtrace+slo+tracer"]
+    out = {label: [] for label in order}
+    for label in order + order[::-1]:
+        engine = steady_engine(torch, model, **knobs(label))
+        engine.step_latency = StatSummary()
+        for _ in range(OVERHEAD_STEPS):
+            engine.step()
+        torch.cuda.synchronize()
+        lat = engine.step_latency
+        out[label].append((round(lat.percentile(50) * 1e3, 4),
+                           round(lat.percentile(99) * 1e3, 4)))
+    log(f"[obs] (d) {card}; steady fp32 decode step p50 / p99 ms over "
+        f"{OVERHEAD_STEPS} steps, runs in turns ABCCBA: "
+        + "; ".join(f"{k} {v}" for k, v in out.items()))
+    return out
+
+
+def check_serving_obs(torch, card) -> dict:
+    """Phase 4e: serving observability at phase 4c's full width →
+    {"b4p": B4p launches of (a), "b4": B4 launches of (b), "overhead"}."""
+    import tempfile
+
+    from ddp_tpu_torch.models.lm import LMSpec, init_lm
+
+    t0 = time.perf_counter()
+    spec = LMSpec(**FULL)
+    model = init_lm(spec, seed=0)
+    pprompts = prefix_prompts(spec.vocab_size)
+    fixed = fixed_lane_streams(torch, model, pprompts, kv_dtype="fp32")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, spec.vocab_size, n).tolist()
+               for n, _, _ in REQUESTS]
+    with tempfile.TemporaryDirectory() as tmp:
+        b4p, failed = check_obs_http(torch, model, pprompts, fixed, tmp)
+    b4, bad = check_obs_spec(torch, model, prompts)
+    failed += bad
+    failed += check_obs_syncs(torch, model)
+    overhead = time_obs_overhead(torch, model, card)
+    log(f"[obs] phase 4e wall {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError(f"phase 4e: {failed}")
+    return {"b4p": b4p, "b4": b4, "overhead": overhead}
 
 
 # ---- phase 5: the training slice end to end ----------------------------
@@ -4168,23 +4662,9 @@ def time_serve_steps(torch, model, *, kv_dtype, page_size=0, steps=40,
     windows of ``steps`` steps, each ended by a synchronize: the decode
     step latency free of arrival order. ``spec_kw`` (spec_tokens,
     draft_model) makes every step a speculative round."""
-    from ddp_tpu_torch.serve.engine import ServeEngine
-
     knobs = {"page_size": page_size} if page_size else {}
-    engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
-                         kv_dtype=kv_dtype, **knobs, **spec_kw)
-    rng = np.random.default_rng(3)
-    prompt_len = 32
-    for _ in range(SLOTS):
-        adm = engine.submit(
-            rng.integers(0, model.spec.vocab_size, prompt_len).tolist(),
-            model.spec.total_len - prompt_len
-            - max(1, spec_kw.get("spec_tokens", 0)))
-        if not adm.accepted:
-            raise AssertionError(f"time_serve_steps: {adm.reason}")
-    for _ in range(16):
-        engine.step()
-    torch.cuda.synchronize()
+    engine = steady_engine(torch, model, kv_dtype=kv_dtype, **knobs,
+                           **spec_kw)
     times = []
     for _ in range(reps):
         before = engine.decode_steps
@@ -4318,6 +4798,7 @@ def main() -> int:
     launches = check_serving(torch)
     paged_launches = check_paged_serving(torch)
     spec_launches = check_spec_serving(torch, card)
+    obs = check_serving_obs(torch, card)
     flash = check_flash(torch)
     trained, served = check_lm_phases(torch, card)
     check_cnn(torch, card)
@@ -4339,6 +4820,8 @@ def main() -> int:
     # (phase 4d, truncated draft, fp32 and int8 target KV; phase 8c, the
     # trained draft, with phase 8d's named depth-2 engine).
     kernels[0]["spec_launches"] = spec_launches
+    # Phase 4e (b): the truncated draft again, with request tracing on.
+    kernels[0]["obs_spec_launches"] = obs["b4"]
     kernels[0]["trained_draft_launches"] = served["b4"]
     # B4p/B5p: library_ms is the gather then SDPA; gather_fixed_ms the
     # JAX design on the card (the gather, then B4/B5).
@@ -4351,6 +4834,8 @@ def main() -> int:
     ]
     # Phase 8b: B4p serving the trained checkpoint across the hot-swap.
     kernels[2]["lm_serve_launches"] = served["b4p"]
+    # Phase 4e (a): B4p under every observability flag.
+    kernels[2]["obs_launches"] = obs["b4p"]
     # B1-B3: the bf16 variant is the main path (the causal-LM training
     # run's numbers); the fp32 variant's, from its own run, ride beside
     # them, and so do both at ViT-Tiny's shape (launches from phase 7a,

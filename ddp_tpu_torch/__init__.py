@@ -12,4 +12,6 @@ points run on the GPU unless the caller passes ``device="cpu"``.
 
 from ddp_tpu_torch.device import resolve_device
 
+__version__ = "0.2.0"
+
 __all__ = ["resolve_device"]

@@ -37,6 +37,19 @@ epoch), ``--draft_params_npz`` (a JAX tree, as ``--params_npz``, with
 ``--num_heads`` heads) or, under ``--init_demo``, a seeded half-width,
 half-depth sibling of the demo model (seed 1); it must share the
 target's vocabulary and total_len.
+
+Observability (``ddp_tpu_torch/obs``): ``GET /metricsz`` (Prometheus
+text) and ``GET /statusz`` always; ``--trace_dir`` turns on the span
+tracer's measuring mode, serves its tail at /statusz and exports
+``trace_rank{--trace_rank}.trace.json`` there on shutdown;
+``--reqtrace`` gives every request a trace id and a timeline at
+``GET /requestz?id=<rid|0xTRACE>``; ``--slo "ttft_p99<0.5s,..."``
+evaluates objectives live (per model: ``"clauses;NAME:clauses"``);
+``--flight_dir`` receives the flight recorder's dump on shutdown.
+
+    curl -s localhost:8000/metricsz
+    curl -s localhost:8000/statusz
+    curl -s 'localhost:8000/requestz?id=0'
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from __future__ import annotations
 import argparse
 import json
 import signal
+import sys
 import threading
 
 import numpy as np
@@ -117,14 +131,57 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None,
                    help="default: the GPU; 'cpu' runs the plain versions")
     p.add_argument("--metrics_file", default=None)
+    p.add_argument("--trace_dir", default=None,
+                   help="span-trace chunk/decode/verify/sample work (the "
+                   "measuring mode: each span waits on the engine's "
+                   "stream), serve the tail at /statusz and export a "
+                   "Perfetto trace_event JSON here on shutdown")
+    p.add_argument("--trace_ring_events", type=int, default=65536,
+                   help="bounded trace memory: keep the last N events")
+    p.add_argument("--trace_rank", type=int, default=0,
+                   help="tracer process id: names the exported file "
+                   "(trace_rank{N}.trace.json) and scopes span pairing in "
+                   "a merged document")
+    p.add_argument("--reqtrace", action="store_true",
+                   help="per-request tracing: a 64-bit trace id at "
+                   "admission, the lifecycle at /requestz?id=..., "
+                   "exported as Perfetto async spans under --trace_dir")
+    p.add_argument("--slo", default=None, metavar="SPEC",
+                   help="serving objectives over rolling 5m/1h windows, "
+                   "e.g. 'ttft_p99<0.5s,tpot_p50<80ms,availability>0.999'; "
+                   "per model 'clauses;NAME:clauses' — state on /statusz, "
+                   "ddp_tpu_slo_* gauges on /metricsz, breaches into the "
+                   "metrics stream and the flight recorder")
+    p.add_argument("--flight_dir", default=None,
+                   help="flight-recorder directory: the ring (SLO breach "
+                   "records) is dumped here on shutdown "
+                   "(flight_rank0.json)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     args = p.parse_args(argv)
     if args.streaming_restore and not args.checkpoint_dir:
         p.error("--streaming_restore needs --checkpoint_dir")
+    from ddp_tpu_torch.obs.slo import SLOEngine, parse_model_slos
+
+    # Per-model groups: each registered model gets its own SLOEngine.
+    try:
+        model_slos = parse_model_slos(args.slo) if args.slo else {}
+    except ValueError as e:
+        raise SystemExit(f"--slo: {e}")
+    registered = {m.partition("=")[0] for m in args.model or []}
+    for name in model_slos:
+        if name is not None and name not in registered:
+            raise SystemExit(f"--slo names model {name!r} but no --model "
+                             f"{name}=DIR registers it")
 
     from ddp_tpu_torch.device import resolve_device
     from ddp_tpu_torch.models.lm import CausalLM, LMSpec, init_lm
+    from ddp_tpu_torch.obs.recorder import (
+        FlightRecorder,
+        build_info,
+        snapshot_env,
+    )
+    from ddp_tpu_torch.obs.tracer import Tracer
     from ddp_tpu_torch.serve.engine import ServeEngine
     from ddp_tpu_torch.serve.lifecycle import StreamingRestore
     from ddp_tpu_torch.serve.server import LMServer
@@ -186,11 +243,23 @@ def main(argv=None) -> None:
                     "draft must share the target's vocabulary and length"
                 )
     metrics = MetricsWriter(args.metrics_file)
+    tracer = Tracer(enabled=bool(args.trace_dir),
+                    ring_events=args.trace_ring_events,
+                    process_id=args.trace_rank)
+    recorder = FlightRecorder(args.flight_dir)
+    recorder.set_context(build_info=build_info(device), env=snapshot_env(),
+                         slo=args.slo, role="serve")
+
+    def slo_for(name):
+        return SLOEngine(model_slos[name]) if model_slos.get(name) else None
+
     knobs = dict(slots=args.slots, metrics=metrics, kv_dtype=args.kv_dtype,
                  page_size=args.page_size, kv_pages=args.kv_pages)
     engine = ServeEngine(
         model, prefill_len=args.prefill_len, spec_tokens=args.spec_tokens,
-        draft_model=draft, model_version=version, **knobs)
+        draft_model=draft, model_version=version, tracer=tracer,
+        reqtrace=args.reqtrace, slo=slo_for(None), recorder=recorder,
+        **knobs)
     if streaming is not None:
         engine.pause_admission()  # requests queue until the weights land
     models = {}
@@ -202,7 +271,8 @@ def main(argv=None) -> None:
             raise SystemExit(f"--model {name!r} registered twice")
         mmodel, _, mversion = _load_checkpoint(
             f"--model {name}", mdir, None, args.num_heads, device)
-        models[name] = ServeEngine(mmodel, model_version=mversion, **knobs)
+        models[name] = ServeEngine(mmodel, model_version=mversion,
+                                   slo=slo_for(name), **knobs)
     # SIGTERM only sets an event: this thread wakes, drains and returns.
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
@@ -221,6 +291,9 @@ def main(argv=None) -> None:
                 "decode_attn": engine.decode_attn,
                 "kv_dtype": engine.kv_dtype,
                 "cache_bytes_per_slot": engine.cache_bytes_per_slot(),
+                "build_info": build_info(device),
+                "reqtrace": bool(args.reqtrace),
+                **({"slo": args.slo} if args.slo else {}),
                 **({"page_size": engine.page_size,
                     "kv_pages": engine.kv_pages} if engine.paged else {}),
                 **({"spec_tokens": engine.spec_tokens,
@@ -256,6 +329,21 @@ def main(argv=None) -> None:
                                   "drain_timeout": args.drain_timeout}),
                       flush=True)
     finally:
+        # The telemetry tail survives a short session: request spans,
+        # then the trace (an unwritable --trace_dir must not turn a
+        # clean shutdown into a crash), then the flight dump (never
+        # raises).
+        if args.trace_dir:
+            try:
+                engine.emit_request_spans()
+                path = tracer.export_to_dir(args.trace_dir)
+                print(json.dumps({"trace": path}), flush=True)
+            except OSError as e:
+                print(json.dumps({"trace_error": str(e)}), file=sys.stderr,
+                      flush=True)
+        dump = recorder.dump("shutdown")
+        if dump:
+            print(json.dumps({"flight": dump}), flush=True)
         metrics.close()
 
 

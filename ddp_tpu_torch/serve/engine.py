@@ -41,13 +41,22 @@ weights in place at that barrier (``serve/lifecycle.py`` verifies the
 checkpoint first, ``serve/server.py`` runs the whole reload). Each
 completion carries the ``model_version`` it was served under.
 
-Request tracing, SLOs, compile introspection and the page
-export/install of disaggregated serving are features of the JAX engine
-that later slices bring over.
+Observability (``ddp_tpu_torch/obs``), all off by default: a span
+``tracer`` whose measuring mode waits on the engine's stream before it
+closes each ``serve.prefill_chunk`` / ``serve.decode`` /
+``serve.spec_verify`` / ``serve.sample`` span (so spans cover device
+work, and the dispatch/retire overlap is given up); per-request tracing
+(``reqtrace``: events stamped only where the engine already touches the
+host, so it adds no device wait); an ``SLOEngine`` fed by every retired
+request; and a flight recorder that receives SLO breach records.
+
+Compile introspection and the page export/install of disaggregated
+serving are features of the JAX engine that later slices bring over.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -65,6 +74,9 @@ from ddp_tpu_torch.models.generate import (
     slot_verify_step,
 )
 from ddp_tpu_torch.models.lm import CausalLM, LMSpec
+from ddp_tpu_torch.obs.recorder import FlightRecorder, build_info
+from ddp_tpu_torch.obs.reqtrace import RequestTracer, parse_trace_context
+from ddp_tpu_torch.obs.tracer import Tracer
 from ddp_tpu_torch.ops import decode as decode_ops
 from ddp_tpu_torch.serve.pages import PrefixCache, page_demand
 from ddp_tpu_torch.serve.scheduler import (
@@ -105,6 +117,9 @@ class Completion:
     spec_acceptance: Optional[float] = None
     # The serving weights' label (None on an engine that has none).
     model_version: Optional[str] = None
+    # Request tracing: the per-completion digest (RequestTrace.summary);
+    # None when tracing is off.
+    trace: Optional[dict] = None
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -360,6 +375,15 @@ class ServeEngine:
     writes. On a prefix hit the draft lane is not prefilled over the
     matched tokens: that can lower acceptance there, never change a
     token.
+
+    Observability, as the JAX engine's: ``tracer`` (an enabled
+    ``obs.tracer.Tracer`` turns on the measuring mode of the module
+    docstring), ``reqtrace`` with ``reqtrace_keep`` retired timelines
+    (``request_timeline``, ``emit_request_spans``), ``trace_seed`` for
+    the trace ids (default os.urandom; ids equal the JAX engine's for
+    the same seed and rid), ``slo`` (an ``obs.slo.SLOEngine``; its
+    breaches become ``slo_breach`` records in ``metrics`` and in
+    ``recorder``, an ``obs.recorder.FlightRecorder``).
     """
 
     def __init__(
@@ -381,6 +405,12 @@ class ServeEngine:
         spec_tokens: int = 0,
         draft_model: Optional[CausalLM] = None,
         model_version: Optional[str] = None,
+        tracer: Optional[Tracer] = None,
+        reqtrace: bool = False,
+        reqtrace_keep: int = 512,
+        trace_seed: Optional[int] = None,
+        slo=None,
+        recorder: Optional[FlightRecorder] = None,
     ):
         spec = model.spec
         self.device = model.device
@@ -427,6 +457,34 @@ class ServeEngine:
         self._tokens_per_decode = knobs["tokens_per_decode"]
         self.clock = clock
         self.metrics = metrics or MetricsWriter(None)
+        # Span tracing: disabled by default and free when off; enabled,
+        # each span waits on the engine's stream before it closes.
+        self.tracer = tracer or Tracer()
+        # Trace ids: deterministic when the caller seeds them, apart
+        # across replicas when left to entropy.
+        if trace_seed is None:
+            trace_seed = int.from_bytes(os.urandom(8), "little")
+        # Request tracing: every recording site guards on one ``is not
+        # None`` check, so a disabled engine keeps no per-request state.
+        self._reqtrace = (
+            RequestTracer(keep=reqtrace_keep) if reqtrace else None)
+        # Inbound trace contexts adopted (valid) and orphaned (malformed:
+        # counted, never fatal).
+        self.trace_propagated = 0
+        self.trace_orphaned = 0
+        self._recorder = recorder if recorder is not None else (
+            FlightRecorder(None))
+        self._slo = slo
+        self._user_breach_cb = None
+        if slo is not None:
+            prev = slo.on_breach
+            # A fresh engine over the same SLOEngine adopts the caller's
+            # original hook, not the dead engine's interceptor.
+            if getattr(prev, "__func__", None) is ServeEngine._on_slo_breach:
+                prev = prev.__self__._user_breach_cb
+            self._user_breach_cb = prev
+            slo.on_breach = self._on_slo_breach
+        self._build_info = build_info(self.device)
         self.scheduler = Scheduler(
             max_queue=max_queue,
             prefill_len=self.prefill_len,
@@ -435,6 +493,7 @@ class ServeEngine:
             chunk=self.prefill_chunk,
             min_bucket=self.min_bucket,
             token_budget=self.step_token_budget,
+            trace_seed=trace_seed,
             clock=clock,
         )
         self.buckets = self.scheduler.bucket_list()
@@ -522,8 +581,24 @@ class ServeEngine:
         top_p: float = 1.0,
         seed: int = 0,
         timeout: Optional[float] = None,
+        trace: Optional[str] = None,
     ) -> Admission:
-        """Admission-checked enqueue; rejections carry a reason."""
+        """Admission-checked enqueue; rejections carry a reason.
+
+        ``trace`` is an inbound trace-context line
+        (``00-<trace>-<span>-<parent>``): a valid one is adopted — the
+        request's trace id becomes the caller's, its parent span the
+        caller's span — and counted ``trace_propagated``; a malformed one
+        is counted ``trace_orphaned`` and the engine mints its own id, as
+        if nothing arrived (a peer's garbage never rejects a request).
+        """
+        adopted = None
+        if trace is not None:
+            adopted = parse_trace_context(trace)
+            if adopted is None:
+                self.trace_orphaned += 1
+            else:
+                self.trace_propagated += 1
         adm = self.scheduler.submit(
             prompt,
             max_new_tokens,
@@ -531,6 +606,7 @@ class ServeEngine:
             top_p=top_p,
             seed=seed,
             timeout=timeout,
+            trace_id=adopted[0] if adopted else None,
         )
         if not adm.accepted:
             self.reject_counts[adm.reason] = (
@@ -540,6 +616,13 @@ class ServeEngine:
                 "serve_reject",
                 reason=adm.reason,
                 queue_depth=self.scheduler.depth,
+            )
+            return adm
+        if self._reqtrace is not None:
+            # The admit event: submit is already a host-side touch point.
+            self._reqtrace.admit(
+                adm.request.rid, adm.request.trace_id,
+                parent=f"{adopted[1]:016x}" if adopted else None,
             )
         return adm
 
@@ -668,10 +751,13 @@ class ServeEngine:
             return None
         return self.spec_accepted_total / self.spec_drafted_total
 
-    def stats(self) -> dict:
+    def stats(self, *, include_states: bool = False) -> dict:
         """JSON-ready operational snapshot (the /stats endpoint); the
         ``paged`` block only on paged engines, the speculative keys of
-        ``decode_path`` only on speculative ones."""
+        ``decode_path`` only on speculative ones, ``slo`` only with an
+        SLO engine, ``reqtrace`` only with request tracing on.
+        ``include_states`` adds the latency summaries' mergeable states
+        (what /statusz serves, so an aggregator merges exactly)."""
         return {
             "slots": self.num_slots,
             "active": self.active,
@@ -687,6 +773,23 @@ class ServeEngine:
             "step_latency_s": self.step_latency.snapshot(ndigits=6),
             "rejects": dict(self.reject_counts),
             "requests_by_status": dict(self.status_counts),
+            "build_info": dict(self._build_info),
+            **({"summary_states": {
+                "ttft_s": self.ttft.to_state(),
+                "tpot_s": self.tpot.to_state(),
+                "queue_s": self.queue_wait.to_state(),
+                "decode_tokens_per_s": self.decode_rate.to_state(),
+            }} if include_states else {}),
+            **({"slo": self._slo.state()} if self._slo is not None else {}),
+            **({"reqtrace": {
+                "live": self._reqtrace.live_count,
+                "retained": self._reqtrace.retired_count,
+                # Only once a trace context has arrived.
+                **({"propagated": self.trace_propagated,
+                    "orphaned": self.trace_orphaned}
+                   if self.trace_propagated or self.trace_orphaned
+                   else {}),
+            }} if self._reqtrace is not None else {}),
             "prefill": {
                 "chunk": self.prefill_chunk,
                 "min_bucket": self.min_bucket,
@@ -728,6 +831,7 @@ class ServeEngine:
         module docstring for the order of its phases)."""
         now = self.clock()
         t_step = time.perf_counter()
+        traced = self.tracer.enabled
         evictions = 0
         for slot in self._slots:
             req = slot.request
@@ -747,6 +851,7 @@ class ServeEngine:
                 submitted=req.submitted, finished=self.clock(),
             )
             self._completed[req.rid] = c
+            self._retire_trace(c)
             self._record_request(c)
             evictions += 1
 
@@ -800,6 +905,7 @@ class ServeEngine:
             final = start + live == len(req.prompt)
             buf = torch.zeros(width, dtype=torch.int64)
             buf[:live] = torch.as_tensor(req.prompt[start : start + live])
+            t0 = time.perf_counter()
             buf = buf.to(self.device)
             first = prefill_chunk(
                 self.model, self._cache, self._toks, self._seeds,
@@ -823,6 +929,19 @@ class ServeEngine:
                 )
             slot.prefill_pos = start + live
             chunk_tokens += live
+            if traced:
+                self._wait_device()
+            chunk_dur = time.perf_counter() - t0
+            self.tracer.complete(
+                "serve.prefill_chunk", t0, chunk_dur,
+                {"rid": req.rid, "slot": i, "start": start, "width": width,
+                 "final": final} if traced else None,
+            )
+            if self._reqtrace is not None:
+                tr = self._reqtrace.get(req.rid)
+                if tr is not None:
+                    tr.prefill_chunk(t0, chunk_dur, start=start,
+                                     bucket=width, tokens=live, final=final)
             if final:
                 slot.emitted = 1
                 produced += 1
@@ -839,6 +958,7 @@ class ServeEngine:
             produced += self._spec_round(emit_lanes)
         elif emit_lanes:
             reqs = [self._slots[i].request for i in emit_lanes]
+            t0 = time.perf_counter()
             self._toks = slot_decode_sample_step(
                 self.model, self._cache, self._toks, self._seeds,
                 self._sample_steps, self._temps, self._top_ps,
@@ -847,8 +967,20 @@ class ServeEngine:
                 nucleus=any(r.temperature > 0 and r.top_p < 1 for r in reqs),
             )
             self.decode_steps += 1
+            if traced:
+                self._wait_device()
+            self.tracer.complete(
+                "serve.decode", t0, time.perf_counter() - t0,
+                {"lanes": len(decode_lanes)} if traced else None,
+            )
             for i in emit_lanes:
                 self._slots[i].emitted += 1
+                if self._reqtrace is not None:
+                    # One counter bump a lane a step, folded into ONE
+                    # req.decode span at retire.
+                    tr = self._reqtrace.get(self._slots[i].request.rid)
+                    if tr is not None:
+                        tr.decode_step(t0)
             self._pending.append(("decode", _snapshot(self._toks), emit_lanes))
             produced += len(emit_lanes)
 
@@ -952,7 +1084,9 @@ class ServeEngine:
         # the verify tokens: slot.tokens is in stream order.
         self._drain()
         reqs = [self._slots[i].request for i in emit_lanes]
+        t0 = time.perf_counter()
         out = self._verify(self._draft_propose(), reqs).cpu().tolist()
+        round_dur = time.perf_counter() - t0
         self.decode_steps += 1
         produced = drafted = accepted = 0
         for i in emit_lanes:
@@ -966,9 +1100,20 @@ class ServeEngine:
             produced += n
             drafted += gamma
             accepted += m
+            if self._reqtrace is not None:
+                tr = self._reqtrace.get(slot.request.rid)
+                if tr is not None:
+                    tr.spec_round(t0, round_dur, drafted=gamma, accepted=m,
+                                  emitted=n)
         self.spec_drafted_total += drafted
         self.spec_accepted_total += accepted
         self._step_spec = (drafted, accepted)
+        # The read above waited for the round: no extra wait to trace it.
+        self.tracer.complete(
+            "serve.spec_verify", t0, round_dur,
+            {"lanes": len(emit_lanes), "drafted": drafted,
+             "accepted": accepted} if self.tracer.enabled else None,
+        )
         return produced
 
     def _admit_to_slot(self, slot: _Slot, req: Request) -> str:
@@ -983,6 +1128,7 @@ class ServeEngine:
                 submitted=req.submitted, finished=self.clock(),
             )
             self._completed[req.rid] = c
+            self._retire_trace(c)
             self._record_request(c)
             return "rejected"
         matched = 0
@@ -1021,6 +1167,10 @@ class ServeEngine:
             self._cache.pos[slot.index] = matched
         slot.queue_s = max(0.0, self.clock() - req.submitted)
         self.queue_wait.add(slot.queue_s)
+        if self._reqtrace is not None:
+            tr = self._reqtrace.get(req.rid)
+            if tr is not None:
+                tr.bind(self._reqtrace.clock())
         return "bound"
 
     def _drain(self, items: Optional[list] = None) -> int:
@@ -1030,6 +1180,9 @@ class ServeEngine:
         if items is None:
             items = self._pending
             self._pending = []
+        if not items:
+            return 0
+        t0 = time.perf_counter()
         appended = 0
         for kind, (host, event), meta in items:
             if event is not None:
@@ -1046,6 +1199,10 @@ class ServeEngine:
                 for i in meta:
                     self._slots[i].tokens.append(int(vals[i]))
                     appended += 1
+        self.tracer.complete(
+            "serve.sample", t0, time.perf_counter() - t0,
+            {"tokens": appended} if self.tracer.enabled else None,
+        )
         return appended
 
     def _finish(self, slot: _Slot, status: str) -> None:
@@ -1077,6 +1234,7 @@ class ServeEngine:
             self.tpot.add(c.tpot_s)
         if c.spec_acceptance is not None:
             self.accept_rate.add(c.spec_acceptance)
+        self._retire_trace(c)
         self._record_request(c)
         if self.paged and slot.pages:
             # Publish the prompt's fully prefilled pages into the index
@@ -1113,8 +1271,70 @@ class ServeEngine:
             fields["queue_s"] = round(c.queue_s, 6)
         if c.tpot_s is not None:
             fields["tpot_s"] = round(c.tpot_s, 6)
+        if c.trace is not None:
+            fields["trace_id"] = c.trace["trace_id"]
         if c.prefix_hit_tokens is not None:
             fields["prefix_hit_tokens"] = c.prefix_hit_tokens
         if c.model_version is not None:
             fields["model_version"] = c.model_version
         self.metrics.write("serve_request", **fields)
+        # The SLIs are host floats already in hand. Availability counts
+        # every service-terminal status (a timeout is unavailability);
+        # a prompt rejected as too long is the client's fault and burns
+        # no budget.
+        if self._slo is not None and c.status != REJECTED_TOO_LONG:
+            self._slo.observe(ttft_s=c.ttft, tpot_s=c.tpot_s,
+                              queue_s=c.queue_s, ok=c.status == COMPLETE)
+
+    def _wait_device(self) -> None:
+        """The tracer's measuring mode: wait for the work queued on the
+        engine's stream, so a span covers device time."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _retire_trace(self, c: Completion) -> None:
+        """Close the request's trace (if tracing) and hang its digest on
+        the completion — called from every retirement path."""
+        if self._reqtrace is None:
+            return
+        t = self._reqtrace.retire(c.rid, c.status, tracer=self.tracer)
+        if t is not None:
+            c.trace = t.summary()
+
+    def _on_slo_breach(self, state: dict) -> None:
+        """SLO alert transition: one ``slo_breach`` record into the
+        metrics stream and one into the flight recorder's ring, then the
+        caller's hook if any."""
+        fields = dict(
+            objective=state["name"],
+            target=state["target"],
+            current=state["current"],
+            burn_rate_fast=state["burn_rate_fast"],
+            burn_rate_slow=state["burn_rate_slow"],
+            window_n=state["window_n"],
+        )
+        self.metrics.write("slo_breach", **fields)
+        self._recorder.record("slo_breach", **fields)
+        if self._user_breach_cb is not None:
+            self._user_breach_cb(state)
+
+    def request_timeline(self, key) -> Optional[dict]:
+        """One request's event timeline by rid or hex trace id (the
+        /requestz payload); None when unknown or tracing is off."""
+        if self._reqtrace is None:
+            return None
+        t = self._reqtrace.lookup(key)
+        if t is None:
+            return None
+        doc = t.timeline()
+        doc["live"] = t.retire_t is None
+        return doc
+
+    def emit_request_spans(self) -> int:
+        """Emit retired request traces into the span tracer after the
+        fact (→ count): a timed run keeps the measuring mode off and
+        exports the request spans afterwards, with the stamps taken
+        live."""
+        if self._reqtrace is None:
+            return 0
+        return self._reqtrace.emit_all(self.tracer)

@@ -34,6 +34,8 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
+from ddp_tpu_torch.obs.reqtrace import derive_trace_id
+
 
 # Machine-readable rejection reasons (the HTTP layer maps these to 4xx
 # bodies; tests assert on them).
@@ -46,20 +48,6 @@ TOKEN_OUT_OF_RANGE = "token_out_of_range"
 TOP_P_OUT_OF_RANGE = "top_p_out_of_range"
 TOP_P_WITHOUT_SAMPLING = "top_p_without_sampling"
 SEED_OUT_OF_RANGE = "seed_out_of_range"
-
-
-def splitmix64(x: int) -> int:
-    """SplitMix64 finalizer: a cheap, well-mixed 64-bit hash."""
-    x = (x + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    return x ^ (x >> 31)
-
-
-def derive_trace_id(seed: int, rid: int) -> int:
-    """The request's 64-bit trace id, assigned at admission:
-    deterministic in (seed, rid), never zero (0 = "no id")."""
-    return splitmix64((int(seed) & 0xFFFFFFFFFFFFFFFF) ^ (int(rid) << 1)) or 1
 
 
 def next_pow2(n: int) -> int:
@@ -118,7 +106,7 @@ class Request:
     deadline: Optional[float] = None  # absolute, in clock() time
     submitted: float = 0.0
     # 64-bit distributed-tracing id, assigned AT ADMISSION
-    # (derive_trace_id): the one key that follows the
+    # (obs/reqtrace.derive_trace_id): the one key that follows the
     # request through the HTTP response, the metrics stream, the
     # Perfetto trace and /requestz. 0 = unassigned (bare schedulers
     # constructed without a trace seed in tests).
@@ -163,7 +151,7 @@ class Scheduler:
     chunk: int = 0  # 0 = one prefill_len-wide chunk per prompt
     min_bucket: int = 0  # 0 = no bucketing below the chunk width
     token_budget: int = 0  # 0 = unlimited (no co-scheduling bound)
-    # Seed for the per-request 64-bit trace ids (derive_trace_id):
+    # Seed for the per-request 64-bit trace ids (obs/reqtrace.py):
     # deterministic in (seed, rid) so tests can pin ids; a serving
     # process seeds from os.urandom so two replicas' id spaces don't
     # collide in a merged fleet trace.

@@ -1,14 +1,16 @@
 """Stdlib-HTTP frontend for the serve engine.
 
-The counterpart of ``ddp_tpu/serve/server.py``'s core and lifecycle
-routes, with the same JSON shapes:
+The counterpart of ``ddp_tpu/serve/server.py``'s core, lifecycle and
+observability routes, with the same JSON shapes:
 
   POST /generate   {"prompt_tokens": [...], "max_new_tokens": N,
                     "temperature"?, "top_p"?, "seed"?, "timeout"?,
                     "model"?: a registered model name (absent: the
-                    default model)}
+                    default model), "trace"?: an inbound trace context
+                    ``00-<trace>-<span>-<parent>`` (obs/reqtrace.py)}
                    → 200 {"rid", "status", "prompt_tokens", "tokens",
-                     "ttft_s", "decode_tokens_per_s", "model_version"?}
+                     "ttft_s", "decode_tokens_per_s", "model_version"?,
+                     "trace_id"?: echoed for a valid inbound context}
                    → 429 {"error": "queue_full", "retry_after_s"} +
                      ``Retry-After`` on backpressure
                    → 400 {"error": reason} on invalid requests and
@@ -28,6 +30,13 @@ routes, with the same JSON shapes:
   GET  /healthz    → 200 {"ok": true, "slots", "active", "queue_depth",
                     "draining", "model_version"?, "models"?}
   GET  /stats      → 200 engine.stats()
+  GET  /metricsz   → 200 Prometheus text (obs/promtext.render_serve) of
+                    the default engine's stats, with up and draining
+  GET  /statusz    → 200 {"ok", "draining", "stats" (with the summaries'
+                    mergeable states), "models"? (each named engine's),
+                    "trace": the span tracer's tail, a traceEvents doc}
+  GET  /requestz[?id=rid|0xTRACE] → one request's timeline, or the
+                    recently retired ones; 404 when tracing is off
 
 One background thread steps every engine (the default one, then the
 named ones) whenever it has work; HTTP handler threads touch an engine
@@ -48,6 +57,8 @@ from typing import Optional
 
 import torch
 
+from ddp_tpu_torch.obs.promtext import CONTENT_TYPE, render_serve
+from ddp_tpu_torch.obs.reqtrace import format_trace_id, parse_trace_context
 from ddp_tpu_torch.serve import lifecycle as lc
 from ddp_tpu_torch.serve.engine import ServeEngine
 from ddp_tpu_torch.serve.scheduler import QUEUE_FULL
@@ -224,9 +235,11 @@ class LMServer:
             return 503, {"error": "draining",
                          "retry_after_s": self.drain_retry_after}
         with self._lock:
+            # A malformed trace context is the engine's orphan count,
+            # never a 400.
             adm = engine.submit(
                 prompt, max_new, temperature=temperature, top_p=top_p,
-                seed=seed, timeout=timeout,
+                seed=seed, timeout=timeout, trace=body.get("trace"),
             )
         if not adm.accepted:
             # Only queue_full is transient; validation reasons are
@@ -270,6 +283,8 @@ class LMServer:
             # The weights this request was served under.
             **({"model_version": done.model_version}
                if done.model_version is not None else {}),
+            # Only for a valid inbound trace context.
+            **_trace_echo(body.get("trace")),
         }
 
     # ---- verified hot-swap (serve/lifecycle.py) ----------------------
@@ -396,7 +411,8 @@ class LMServer:
         }
 
     def snapshot(self, route: str) -> Optional[dict]:
-        """GET route → JSON-ready dict, or None for an unknown route."""
+        """GET route → JSON-ready dict (Prometheus text for /metricsz),
+        or None for an unknown route."""
         if route == "/healthz":
             with self._lock:
                 return {
@@ -425,7 +441,59 @@ class LMServer:
         if route == "/stats":
             with self._lock:
                 return self.engine.stats()
+        if route == "/metricsz":
+            # Prometheus text, not JSON, from the same snapshot as /stats.
+            with self._lock:
+                return render_serve(self.engine.stats(),
+                                    up=self._engine_error is None,
+                                    draining=self.draining)
+        if route == "/statusz":
+            # ``trace`` is itself a Chrome/Perfetto traceEvents document.
+            with self._lock:
+                return {
+                    "ok": self._engine_error is None,
+                    "draining": self.draining,
+                    "stats": self.engine.stats(include_states=True),
+                    **({"models": {
+                        name: e.stats(include_states=True)
+                        for name, e in self.models.items()
+                    }} if self.models else {}),
+                    "trace": self.engine.tracer.snapshot(limit=512),
+                }
         return None
+
+    def requestz(self, query: str) -> tuple[int, dict]:
+        """GET /requestz[?id=...] → (status, payload): one request's
+        lifecycle timeline (obs/reqtrace.py) by rid or 0x trace id, or
+        the recently retired set when no id is given."""
+        from urllib.parse import parse_qs
+
+        tracer = self.engine._reqtrace
+        if tracer is None:
+            return 404, {
+                "error": "request tracing is off (python -m "
+                "ddp_tpu_torch.serve --reqtrace, or "
+                "ServeEngine(reqtrace=True))"
+            }
+        key = (parse_qs(query or "").get("id") or [None])[0]
+        with self._lock:
+            if key is None:
+                return 200, {"enabled": True, "live": tracer.live_count,
+                             "recent": tracer.recent()}
+            timeline = self.engine.request_timeline(key)
+        if timeline is None:
+            return 404, {
+                "error": f"unknown request {key!r} (rid or 0x-prefixed "
+                "trace id; retired timelines are retained up to the "
+                "reqtrace_keep bound)"
+            }
+        return 200, timeline
+
+
+def _trace_echo(trace) -> dict:
+    """``{"trace_id"}`` of a valid inbound trace context, else empty."""
+    ctx = parse_trace_context(trace) if trace is not None else None
+    return {"trace_id": format_trace_id(ctx[0])} if ctx else {}
 
 
 def _make_handler(server: LMServer):
@@ -433,10 +501,13 @@ def _make_handler(server: LMServer):
         def log_message(self, fmt, *args):  # noqa: D102 — quiet
             pass
 
-        def _send(self, status: int, payload: dict, headers=None) -> None:
-            data = json.dumps(payload).encode()
+        def _send(self, status: int, payload, headers=None) -> None:
+            if isinstance(payload, str):  # /metricsz: Prometheus text
+                data, ctype = payload.encode(), CONTENT_TYPE
+            else:
+                data, ctype = json.dumps(payload).encode(), "application/json"
             self.send_response(status)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(data)))
             for k, v in (headers or {}).items():
                 self.send_header(k, v)
@@ -444,9 +515,15 @@ def _make_handler(server: LMServer):
             self.wfile.write(data)
 
         def do_GET(self):  # noqa: N802
-            payload = server.snapshot(self.path.partition("?")[0])
+            route, _, query = self.path.partition("?")
+            if route == "/requestz":
+                self._send(*server.requestz(query))
+                return
+            payload = server.snapshot(route)
             if payload is None:
                 self._send(404, {"error": f"no route {self.path}"})
+            elif isinstance(payload, str):
+                self._send(200, payload)
             else:
                 # A dead engine fails status-code liveness probes.
                 self._send(503 if payload.get("ok") is False else 200,

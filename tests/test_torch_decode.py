@@ -369,3 +369,5 @@ def test_port_imports_no_jax():
     for m in ("models.resnet", "models.vit", "data.cifar", "data.augment",
               "interop.jax_params"):  # the image families' modules
         assert f"ddp_tpu_torch.{m}" in mods
+    for m in ("tracer", "reqtrace", "slo", "recorder", "promtext"):
+        assert f"ddp_tpu_torch.obs.{m}" in mods  # serving observability
