@@ -47,9 +47,12 @@ order; any failure exits non-zero and prints no result:
    d_model 1024, depth 8, 8 heads, total_len 256) from seeded random
    weights, ServeEngine(slots=8, prefill_len=128) behind LMServer on
    127.0.0.1, ten concurrent POST /generate requests (greedy and
-   seeded sampling), once with fp32 and once with int8 KV. The launch
-   counters are set to 0 just before each run and read just after;
-   each run must launch its kernel decode steps x depth times. The
+   seeded sampling), once with fp32 and once with int8 KV. Each engine
+   is warmed up first (warmup(): its step programs captured as CUDA
+   graphs, as the serve CLI does); the launch counters are set to 0
+   just after warmup and read just after the run; each run must launch
+   its kernel exactly decode steps x depth times (all by graph
+   replays). The
    greedy requests then run alone (a fixed schedule), through the
    kernel and through decode_attn="reference", and their streams must
    match (a divergence passes only where the top-2 logit gap at the
@@ -61,10 +64,10 @@ order; any failure exits non-zero and prints no result:
    a 96-token system prompt, then 24 concurrent requests of that prefix
    plus a 16-token tail, 32 new tokens each, greedy; prompts from
    PREFIX_SEED), in fp32 and int8 KV, then fp32 on a pool of 24 pages
-   (LRU eviction and starved binds). Counters set to 0 before each run
-   and read after: the paged kernel launched at least decode steps x
-   depth times, no fixed-lane launch, nothing routed to a plain
-   version. Every request completes; each stream equals the fixed-lane
+   (LRU eviction and starved binds). main() warms up before it
+   serves; counters set to 0 once its server answers and read after:
+   the paged kernel launched exactly decode steps x depth times, no
+   fixed-lane launch, nothing routed to a plain version. Every request completes; each stream equals the fixed-lane
    engine's on the same traffic (or parts only at a near tie, as in
    phase 4); prefix-hit rate >= 0.5 and peak effective-slots multiplier
    > 1.5 (bench.py's floors). It prints TTFT p50/p99 split hit against
@@ -90,14 +93,19 @@ order; any failure exits non-zero and prints no result:
    self-draft: tokens/s, step p50/p99, acceptance, tokens a target
    step, B4 launches a round and the steady round's split (γ draft
    steps against one verify, CUDA events); then the busy share of
-   steady speculative rounds.
+   steady speculative rounds. In-process engines run their programs as
+   CUDA graphs from a program's first (eager, counted) run on; the
+   timed ones warm up first. The self-draft's rejection probe replaces
+   generate's block sampler for the whole run, so the verify graph
+   captures it.
 4e. Serving observability at phase 4c's full width. (a) main() with
    --page_size 16 --reqtrace --slo OBS_SLO --trace_dir --flight_dir, fp32:
    phase 4c's prefix traffic plus a request with a valid trace context
    and one with a malformed one. Counters set to 0 before and read after:
    B4p launched exactly decode steps x depth, nothing else, nothing
    routed. Streams equal phase 4c's fixed-lane ones (near ties excepted);
-   /metricsz lints, agrees with /stats (steps, tokens, requests by
+   /metricsz (read once the SLO engine's 1 s evaluation throttle has
+   passed) lints, agrees with /stats (steps, tokens, requests by
    status, prefix hits and misses, page gauges), has each objective's
    ddp_tpu_slo_* gauges and a build_info naming the card; every
    completion's /requestz?id=0x<trace id> timeline validates, its prefill
@@ -115,6 +123,28 @@ order; any failure exits non-zero and prints no result:
    SLO engine add none; the tracer's measuring mode adds one a waiting
    span. (d) Not gated: steady decode step p50/p99 off / request
    tracing + SLO / plus the measuring mode, in turns, beside the card.
+4f. The serving engine's compile contract at phase 4's full width: its
+   step programs (the fused decode+sample step, a first-chunk and a
+   continuation-chunk program per bucket width; with speculation the
+   draft's chunk programs, the draft-decode and the verify step) as
+   CUDA graphs. (a) warmup() on fixed-lane fp32 and int8, paged fp32
+   and γ 4 speculative engines: JAX's counts, their sum the budget;
+   capture seconds and the graphs' pool bytes. (g) the fp32 warmup runs
+   under torch's sync debug mode "error". (b) phase 4's REQUESTS as one
+   fixed schedule, eager (cuda_graphs=False) against graphs, fp32,
+   int8, paged fp32 and paged int8: every stream, greedy and seeded,
+   equal token for token; no program added by the traffic. (c) counters
+   set to 0 after warmup equal Σ replays x the launches each program
+   recorded at capture, and decode steps x depth. (e) γ 4 rounds
+   through the draft_decode and spec_verify graphs: streams equal the
+   plain graph engine's (near ties as 4d), B4 = rounds x γ x draft
+   depth; tokens/s on bench.py _variant's traffic, plain and self-draft,
+   graphs and eager, and the truncated draft. (f) the control: a weight
+   rebound (not copied) after warmup is unseen by the warmed engine, so
+   its streams part from a fresh engine's. (d) not gated: steady
+   fixed-lane fp32 decode step p50/p99 eager against graphs in turns
+   ABBA over 64 steps, the stream's span of each step (CUDA events),
+   and the busy share of each from torch.profiler, beside the card.
 3b. (Runs after 4, so that its large allocations come after the serving
    run's timings.) The flash-attention kernels B1 (forward), B2 (dQ) and
    B3 (dK/dV), bf16 and fp32, against their plain versions: out, lse and
@@ -207,8 +237,8 @@ order; any failure exits non-zero and prints no result:
    2 alone, and the parameters and Adam moments it restored equal the
    saved ones bit for bit.
    8b: ``python -m ddp_tpu_torch.serve``'s main() with --checkpoint_dir
-   <bf16> --epoch 0 --page_size 16 --slots 8, counters set to 0 before
-   and read after: phase 4c's traffic shape from the training
+   <bf16> --epoch 0 --page_size 16 --slots 8, counters read after:
+   phase 4c's traffic shape from the training
    distribution (lm_prompts), with POST /reload of epoch 1 once 8
    requests are in flight (200, the prefix flushed; every request
    completes, each stream equal to the fixed-lane engine's under the
@@ -218,11 +248,16 @@ order; any failure exits non-zero and prints no result:
    keeps its hits), and three reloads that must answer 409 (the depth-2
    directory: spec_skew; an empty one: manifest_missing; the depth-2 one
    with a byte flipped: crc_mismatch), each followed by an unchanged
-   stream. B4p launched >= decode steps x depth, no fixed-lane launch,
+   stream. B4p launched == decode steps x depth (counters set to 0 once
+   the server answers, after main()'s warmup), no fixed-lane launch,
    nothing routed. In-process, where the batching is the same on both
-   sides: a paged engine on epoch 0 given epoch 1 through install_params
-   with the flush equals a fresh engine's first logits bit for bit and
-   its streams; without the flush (the control) it must not.
+   sides (eager engines: the first logits are read by a Python hook,
+   which a graph replay does not run): a paged engine on epoch 0 given
+   epoch 1 through install_params with the flush equals a fresh engine's
+   first logits bit for bit and its streams; without the flush (the
+   control) it must not. 8b-8e serve through main(), which warms up
+   before it serves (8e: while the restore thread copies on its own
+   stream).
    8c-8d: main() with --checkpoint_dir <bf16> --draft_checkpoint_dir
    <fp32 depth 2> --spec_tokens 4 --model draft=<fp32 depth 2>: phase
    4d's requests (streams equal the plain engine's, near ties by
@@ -1346,12 +1381,17 @@ def _post(url: str, body: dict) -> dict:
 
 def serve_run(torch, model, prompts, *, kv_dtype):
     """Serve every request of REQUESTS over HTTP, concurrently, on the
-    kernel path → (completions by index, engine)."""
+    kernel path, after ``warmup()`` (the serve CLI's start) and with the
+    launch counters set to 0 after it → (completions by index,
+    engine)."""
+    from ddp_tpu_torch.ops import decode as dec
     from ddp_tpu_torch.serve.engine import ServeEngine
     from ddp_tpu_torch.serve.server import LMServer
 
     engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
                          kv_dtype=kv_dtype)
+    engine.warmup()
+    _zero_decode_counters(dec)
     results: dict[int, dict] = {}
     errors: list[str] = []
     with LMServer(engine) as server:
@@ -1477,12 +1517,14 @@ def replay_gap(torch, model, prompt, stream, j, kv_dtype,
 
 
 def profile_steps(torch, model, *, steps=16, page_size=0, label="",
-                  **engine_kw) -> None:
+                  **engine_kw) -> dict:
     """Device busy share of steady decode steps (all 8 lanes decoding,
     fp32 KV, kernel path; paged with ``page_size``; other engine knobs,
-    such as speculation's, in ``engine_kw``), from torch.profiler:
-    summed CUDA kernel time over the wall time of ``steps`` engine steps,
-    and the top kernels."""
+    such as speculation's or ``cuda_graphs``, in ``engine_kw``), from
+    torch.profiler: summed CUDA kernel time over the wall time of
+    ``steps`` engine steps, and the top kernels → {"busy": share,
+    "kernel_us_per_step": µs} (empty when the profiler saw no device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ddp_tpu_torch.serve.engine import ServeEngine
@@ -1514,15 +1556,19 @@ def profile_steps(torch, model, *, steps=16, page_size=0, label="",
     busy_us = sum(e.self_device_time_total for e in rows)
     if not rows:
         log("[profile] torch.profiler reported no device time")
-        return
+        return {}
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    kernels = sum(e.count for e in rows) / steps
     log(f"[profile] {steps} decode steps, 8 lanes, fp32 KV"
         f"{f', page {page_size}' if page_size else ''}{label}: wall "
         f"{wall * 1e3:.2f} ms, device kernel time {busy_us / 1e3:.2f} ms, "
-        f"busy share {busy_us / 1e6 / wall:.3f}")
+        f"busy share {busy_us / 1e6 / wall:.3f}, {kernels:.1f} kernels a "
+        f"step")
     for e in top:
         log(f"[profile]   {e.self_device_time_total / steps:9.1f} us/step "
             f"x{e.count // steps:<3d} {e.key[:90]}")
+    return {"busy": busy_us / 1e6 / wall, "kernel_us_per_step": busy_us / steps,
+            "kernels_per_step": kernels}
 
 
 # ---- phase 4c: paged serving with a shared prefix, end to end -----------
@@ -1623,12 +1669,12 @@ def _pct_ms(values, q):
 
 
 def check_paged_run(torch, model, prompts, fixed, *, kv_dtype, kv_pages=None):
-    """One phase-4c run: counters to 0 just before main(), read just
-    after; every request complete; streams identical to the fixed-lane
-    engine's (or parted only at a near tie, as phase 4 allows); the
-    floors of bench.py; paged kernel launches >= decode steps x depth,
-    no fixed-lane launch, nothing routed to a plain version → the paged
-    kernel's launches."""
+    """One phase-4c run: counters to 0 once main()'s server answers
+    (after its warmup), read just after; every request complete; streams
+    identical to the fixed-lane engine's (or parted only at a near tie,
+    as phase 4 allows); the floors of bench.py; paged kernel launches ==
+    decode steps x depth, no fixed-lane launch, nothing routed to a
+    plain version → the paged kernel's launches."""
     from ddp_tpu_torch.ops import decode as dec
 
     paged, flat = dec.flash_decode_paged_attention, dec.flash_decode_attention
@@ -1689,7 +1735,7 @@ def check_paged_run(torch, model, prompts, fixed, *, kv_dtype, kv_pages=None):
     if peak <= MIN_EFFECTIVE_SLOTS:
         failed.append(f"peak effective slots {peak}")
     if (engine.decode_attn != "flash" or launches[name] == 0
-            or launches[name] < steps * FULL["depth"]
+            or launches[name] != steps * FULL["depth"]
             or sum(launches.values()) != launches[name]):
         failed.append(f"{name} launches {launches}")
     if any(fixed_launches.values()) or routed:
@@ -1804,12 +1850,16 @@ def spec_requests() -> dict:
 
 
 def spec_streams(torch, model, prompts, *, kv_dtype, draft=None,
-                 cases=None, watch=None, **engine_kw) -> tuple[dict, object]:
+                 cases=None, watch=None, warmup=False,
+                 **engine_kw) -> tuple[dict, object]:
     """``cases`` (index → (prompt_len, new tokens, sampling); default
     spec_requests()) submitted at once and run to idle in-process under
     SPEC_BUDGET, speculative with ``draft`` at SPEC_GAMMA or plain
-    without one (other engine knobs in ``engine_kw``); ``watch(engine)``
-    is called before the first step → ({index: tokens}, engine)."""
+    without one (other engine knobs in ``engine_kw``); ``warmup``
+    prepares the program set first and then sets the decode counters to
+    0; ``watch(engine)`` is called before the first step → ({index:
+    tokens}, engine)."""
+    from ddp_tpu_torch.ops import decode as dec
     from ddp_tpu_torch.serve.engine import ServeEngine
 
     cases = cases or spec_requests()
@@ -1817,6 +1867,9 @@ def spec_streams(torch, model, prompts, *, kv_dtype, draft=None,
     engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
                          kv_dtype=kv_dtype, step_token_budget=SPEC_BUDGET,
                          max_queue=len(cases), **knobs, **engine_kw)
+    if warmup:
+        engine.warmup()
+        _zero_decode_counters(dec)
     if watch:
         watch(engine)
     rids = {i: engine.submit(prompts[i], n_new, **sampling).request.rid
@@ -1833,36 +1886,48 @@ def spec_streams(torch, model, prompts, *, kv_dtype, draft=None,
     return out, engine
 
 
-def _rejections_at_near_ties(torch, engine, gaps: list) -> None:
-    """Wrap the engine's verify to append to ``gaps``, every round, the
-    target's top-2 logit gap at each live lane's first rejected position
-    (a self-draft rejects only where draft and target order a near tie
-    differently). Reads the logits through generate's block sampler."""
+@contextlib.contextmanager
+def near_tie_probe(torch, gaps: list):
+    """While open, every speculative engine built inside appends to
+    ``gaps``, every round, the target's top-2 logit gap at each live
+    lane's first rejected position (a self-draft rejects only where draft
+    and target order a near tie differently). generate's block sampler
+    is replaced for the whole run, so the verify program's graph captures
+    the probe: it copies each round's [S, γ] gaps into a buffer made at
+    the program's first (side-stream, uncaptured) call, which the host
+    reads after the round. ``watch(engine)`` installs the reading."""
     import ddp_tpu_torch.models.generate as gen
 
-    seen = []
-    real_sampler, real_verify = gen.sample_slot_tokens_block, engine._verify
+    real_sampler = gen.sample_slot_tokens_block
+    buf = []
 
     def sampler(logits, *a, **kw):
         top = torch.topk(logits, 2, dim=-1).values
-        seen.append(top[..., 0] - top[..., 1])  # [S, K]
+        if not buf:
+            buf.append(torch.empty(top.shape[:-1], device=logits.device))
+        buf[0].copy_(top[..., 0] - top[..., 1])
         return real_sampler(logits, *a, **kw)
 
-    def verify(drafts, reqs):
-        live = [i for i, s in enumerate(engine._slots)
-                if s.decoding and s.emitted < s.request.max_new_tokens]
-        gen.sample_slot_tokens_block = sampler
-        try:
-            out = real_verify(drafts, reqs)
-        finally:
-            gen.sample_slot_tokens_block = real_sampler
-        matched = out[:, -1].tolist()
-        gap = seen.pop().tolist()
-        gaps.extend(gap[i][matched[i]] for i in live
-                    if matched[i] < engine.spec_tokens)
-        return out
+    def watch(engine):
+        real_verify = engine._verify
 
-    engine._verify = verify
+        def verify():
+            live = [i for i, s in enumerate(engine._slots)
+                    if s.decoding and s.emitted < s.request.max_new_tokens]
+            out = real_verify()
+            matched = out[:, -1].tolist()
+            gap = buf[0].tolist()
+            gaps.extend(gap[i][matched[i]] for i in live
+                        if matched[i] < engine.spec_tokens)
+            return out
+
+        engine._verify = verify
+
+    gen.sample_slot_tokens_block = sampler
+    try:
+        yield watch
+    finally:
+        gen.sample_slot_tokens_block = real_sampler
 
 
 def _time_round(torch, engine) -> dict:
@@ -1889,17 +1954,19 @@ def _time_round(torch, engine) -> dict:
     return split
 
 
-def time_spec_variant(torch, model, label, draft=None) -> None:
+def time_spec_variant(torch, model, label, draft=None, **engine_kw) -> dict:
     """bench.py _variant's traffic on one engine (fp32 KV, default
-    budget): 16 requests submitted at once, one step to settle, then the
-    step latencies and the wall time of the rest, logged."""
+    budget, other knobs in ``engine_kw``): 16 requests submitted at once,
+    one step to settle, then the step latencies and the wall time of the
+    rest, logged → the readings."""
     from ddp_tpu_torch.ops import decode as dec
     from ddp_tpu_torch.serve.engine import ServeEngine
     from ddp_tpu_torch.utils.metrics import StatSummary
 
     knobs = dict(spec_tokens=SPEC_GAMMA, draft_model=draft) if draft else {}
     engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
-                         max_queue=4 * SLOTS, **knobs)
+                         max_queue=4 * SLOTS, **knobs, **engine_kw)
+    engine.warmup()  # the serve CLI's start: no capture in the timed run
     split = _time_round(torch, engine) if draft else None
     rng = np.random.default_rng(VARIANT_SEED)
     for _ in range(2 * SLOTS):
@@ -1944,6 +2011,7 @@ def time_spec_variant(torch, model, label, draft=None) -> None:
            f"{SPEC_GAMMA} draft steps {out['draft_ms_p50']:.3f} ms, verify "
            f"{out['verify_ms_p50']:.3f} ms (CUDA events, median)"
            if draft else ""))
+    return out
 
 
 def check_spec_serving(torch, card) -> dict:
@@ -1984,9 +2052,9 @@ def check_spec_serving(torch, card) -> dict:
     greedy = {i: c for i, c in spec_requests().items() if not c[2]}
     rejected: list = []
     _zero_decode_counters(dec)
-    got, engine = spec_streams(
-        torch, model, prompts, kv_dtype="fp32", draft=selfd, cases=greedy,
-        watch=lambda e: _rejections_at_near_ties(torch, e, rejected))
+    with near_tie_probe(torch, rejected) as watch:
+        got, engine = spec_streams(torch, model, prompts, kv_dtype="fp32",
+                                   draft=selfd, cases=greedy, watch=watch)
     launches, bad = _spec_launch_failures(dec, engine, spec.depth)
     want_greedy, _ = spec_streams(torch, model, prompts, kv_dtype="fp32",
                                   cases=greedy)
@@ -2196,6 +2264,11 @@ def check_obs_http(torch, model, prompts, fixed, tmp) -> tuple[int, list]:
             replies[f"ctx{i}"] = _post(url, {
                 "prompt_tokens": prompts[i], "max_new_tokens": PREFIX_NEW,
                 "trace": ctx})
+        # The SLO engine evaluates at most once a min_eval_interval_s and
+        # serves its cached states in between (JAX's throttle); with the
+        # step graphs the whole burst can retire inside one interval of
+        # its construction, so the scrape waits the interval out.
+        time.sleep(made[0]._slo.min_eval_interval_s)
         reads["stats"] = _get(url, "/stats")
         reads["metricsz"] = _get_text(url, "/metricsz")
         reads["statusz"] = _get(url, "/statusz")
@@ -2345,11 +2418,14 @@ def check_obs_spec(torch, model, prompts) -> tuple[int, list]:
 def steady_engine(torch, model, *, steps=16, **engine_kw):
     """A fixed-lane or paged engine at 8 lanes with every lane decoding
     (prompts of 32 tokens from seed 3, prefill done after ``steps``
-    steps, budgets long enough that no lane finishes for ~200 steps)."""
+    steps, budgets long enough that no lane finishes for ~200 steps),
+    warmed up first where the engine has ``warmup()``."""
     from ddp_tpu_torch.serve.engine import ServeEngine
 
     engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
                          **engine_kw)
+    if hasattr(engine, "warmup"):  # the serve CLI's start (this tree's)
+        engine.warmup()
     rng = np.random.default_rng(3)
     prompt_len = 32
     for _ in range(SLOTS):
@@ -2536,6 +2612,304 @@ def check_serving_obs(torch, card) -> dict:
     if failed:
         raise AssertionError(f"phase 4e: {failed}")
     return {"b4p": b4p, "b4": b4, "overhead": overhead}
+
+
+# ---- phase 4f: the compile contract, step programs as CUDA graphs ---------
+
+GRAPH_STEPS = 64  # (d): steady decode steps timed a turn
+# (b): phase 4's REQUESTS as one fixed schedule (all at once, in-process,
+# under SPEC_BUDGET), on each cache layout and dtype.
+GRAPH_RUNS = {"fp32": {"kv_dtype": "fp32"}, "int8": {"kv_dtype": "int8"},
+              "paged fp32": {"kv_dtype": "fp32", "page_size": SERVE_PAGE},
+              "paged int8": {"kv_dtype": "int8", "page_size": SERVE_PAGE}}
+
+
+def _expected_counts(engine) -> dict:
+    """JAX's warmup() counts for the engine's knobs: a first-chunk and a
+    continuation program per bucket, one decode; with speculation the
+    draft's chunk programs, one draft-decode and one verify."""
+    n = len(engine.buckets)
+    want = {"prefill_first": n, "prefill_chunk": n, "decode": 1}
+    if engine.spec_tokens:
+        want.update(draft_prefill_first=n, draft_prefill_chunk=n,
+                    draft_decode=1, spec_verify=1)
+    return want
+
+
+def check_graph_warmup(torch, model, draft) -> tuple[dict, list]:
+    """Phase 4f (a) and (g): ``warmup()`` on an idle engine of each kind
+    (fixed-lane fp32 and int8, paged fp32, speculative γ SPEC_GAMMA with
+    the truncated draft) → counts equal JAX's and their sum the budget;
+    capture seconds and the graph pool's bytes printed. The fixed-lane
+    fp32 engine warms up under torch's sync debug mode "error": a host
+    sync (or an upload of a Python scalar) inside a captured step
+    raises → (readings, failures)."""
+    from ddp_tpu_torch.serve.engine import ServeEngine
+
+    kinds = {"fp32": {}, "int8": {"kv_dtype": "int8"},
+             "paged fp32": {"page_size": SERVE_PAGE},
+             f"spec γ {SPEC_GAMMA}": {"spec_tokens": SPEC_GAMMA,
+                                      "draft_model": draft}}
+    readings, failed = {}, []
+    for label, kw in kinds.items():
+        engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
+                             **kw)
+        t0 = time.perf_counter()
+        if label == "fp32":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            counts = engine.warmup()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        wall = time.perf_counter() - t0
+        want = _expected_counts(engine)
+        pool = engine.graph_pool_bytes()
+        readings[label] = {"counts": counts, "budget":
+                           engine.compile_budget(), "warmup_s": wall,
+                           "capture_s": engine.capture_seconds(),
+                           "pool_bytes": pool}
+        log(f"[graphs] (a) {label}: warmup() {counts} (JAX's {want}), sum "
+            f"{sum(counts.values())} / budget {engine.compile_budget()}; "
+            f"{wall:.3f} s ({engine.capture_seconds():.3f} s in warm runs "
+            f"and captures"
+            f"{', under the sync debug mode error' if label == 'fp32' else ''}"
+            f"); graph pool {pool} bytes; launches a replay "
+            f"{engine._programs.per_replay()}")
+        if (counts != want or sum(counts.values()) != engine.compile_budget()
+                or not engine.cuda_graphs):
+            failed.append(f"(a) {label}: counts {counts}, want {want}, "
+                          f"graphs {engine.cuda_graphs}")
+        del engine
+    return readings, failed
+
+
+def _graph_launch_failures(dec, engine, label) -> tuple[dict, list]:
+    """Phase 4f (c), after a run of an engine warmed up with the counters
+    set to 0 after warmup: every launch since was a graph replay's, so
+    each counter equals Σ replays x the launches its program recorded at
+    capture, and the target's kernel launched decode steps x depth (or,
+    speculative, rounds x γ x draft depth) → (launches, failures)."""
+    got = {**dec.flash_decode_attention.launches,
+           **dec.flash_decode_paged_attention.launches,
+           "routed": dec.flash_decode_attention.plain_routed
+           + dec.flash_decode_paged_attention.plain_routed}
+    replayed = engine._programs.replayed_counts()
+    failed = []
+    for k, n in got.items():
+        key = k if k != "routed" else None
+        want = 0 if key is None else replayed.get(key, 0)
+        if n != want:
+            failed.append(f"(c) {label}: {k} {n} != replays x per-replay "
+                          f"{want}")
+    if engine.spec_tokens:
+        name = "flash_decode_fp32"
+        want = (engine.decode_steps * engine.spec_tokens
+                * engine.draft_model.spec.depth)
+    else:
+        name = ("flash_decode_paged_" if engine.paged else "flash_decode_"
+                ) + engine.kv_dtype
+        want = engine.decode_steps * engine.spec.depth
+    if got[name] != want or want == 0:
+        failed.append(f"(c) {label}: {name} {got[name]} != {want}")
+    return got, failed
+
+
+def check_graph_streams(torch, model, prompts) -> tuple[dict, list]:
+    """Phase 4f (b) and (c): phase 4's fixed schedule, eager
+    (``cuda_graphs=False``) against graphs (warmed up, counters to 0
+    after), fp32 / int8 / paged fp32 / paged int8: every stream, greedy
+    and seeded, equal token for token; the graph run's counters equal its
+    replays' (c); no program added after warmup → (graph launches by
+    kernel, failures)."""
+    from ddp_tpu_torch.ops import decode as dec
+
+    cases = dict(enumerate(REQUESTS))
+    launched, failed = {}, []
+    for label, kw in GRAPH_RUNS.items():
+        eager, _ = spec_streams(torch, model, prompts, cases=cases,
+                                cuda_graphs=False, **kw)
+        got, engine = spec_streams(torch, model, prompts, cases=cases,
+                                   warmup=True, **kw)
+        launches, bad = _graph_launch_failures(dec, engine, label)
+        same = sum(got[i] == eager[i] for i in cases)
+        counts = engine.compile_counts()
+        log(f"[graphs] (b) {label}: {same}/{len(cases)} streams of the graph "
+            f"engine equal the eager engine's token for token; "
+            f"{engine.decode_steps} decode steps, launches {launches} "
+            f"(replays x per-replay: {engine._programs.replayed_counts()}); "
+            f"compile_counts after the traffic {counts}")
+        if same != len(cases):
+            bad.append(f"(b) {label}: {len(cases) - same} streams differ")
+        if counts != _expected_counts(engine):
+            bad.append(f"(b) {label}: the traffic added programs {counts}")
+        failed += bad
+        for k, n in launches.items():
+            if k != "routed" and n:
+                launched[k] = launched.get(k, 0) + n
+    return launched, failed
+
+
+def time_graph_steps(torch, model, card) -> dict:
+    """Phase 4f (d), not gated: steady fixed-lane fp32 decode step
+    p50/p99 (host clock, the engine's step_latency over GRAPH_STEPS steps
+    after warmup and the prefill), eager against graphs in turns ABBA,
+    with CUDA events around each step (the stream's span of the step's
+    work: for a graph its replay, for eager its launches and the gaps
+    between them); then the busy share of each from torch.profiler →
+    readings."""
+    from ddp_tpu_torch.utils.metrics import StatSummary
+
+    out = {"eager": [], "graphs": []}
+    for label in ("eager", "graphs", "graphs", "eager"):
+        engine = steady_engine(torch, model, cuda_graphs=label == "graphs")
+        engine.step_latency = StatSummary()
+        spans = []
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_STEPS):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            engine.step()
+            end.record()
+            spans.append((start, end))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lat = engine.step_latency
+        span_ms = sum(a.elapsed_time(b) for a, b in spans)
+        out[label].append({"p50_ms": lat.percentile(50) * 1e3,
+                           "p99_ms": lat.percentile(99) * 1e3,
+                           "stream_span_share": span_ms / 1e3 / wall})
+        if engine.decode_steps < GRAPH_STEPS or engine.active != SLOTS:
+            raise AssertionError("phase 4f (d): a timed step did not "
+                                 "decode every lane")
+        del engine
+    prof = {label: profile_steps(torch, model, steps=GRAPH_STEPS,
+                                 label=f", {label}",
+                                 cuda_graphs=label == "graphs")
+            for label in ("eager", "graphs")}
+    log(f"[graphs] (d) {card}; steady fixed-lane fp32 decode step over "
+        f"{GRAPH_STEPS} steps, turns ABBA (eager, graphs, graphs, eager): "
+        + "; ".join(f"{k}: " + ", ".join(
+            f"p50 {r['p50_ms']:.4f} ms p99 {r['p99_ms']:.4f} ms stream span "
+            f"share {r['stream_span_share']:.3f}" for r in v)
+            for k, v in out.items())
+        + "; torch.profiler busy share / kernel µs a step / kernels a "
+        "step: " + ", ".join(
+            f"{k} {v.get('busy')} / {v.get('kernel_us_per_step')} / "
+            f"{v.get('kernels_per_step')}" for k, v in prof.items()))
+    return {"turns": out, "profile": prof}
+
+
+def check_graph_spec(torch, model, prompts, draft) -> tuple[dict, list]:
+    """Phase 4f (e): γ SPEC_GAMMA rounds through the draft_decode and
+    spec_verify graphs (truncated draft, fp32, warmed up): phase 4d's
+    requests, streams equal the plain graph engine's (near ties by
+    replay_gap, as 4d), launches equal the replays'; then tokens/s on
+    bench.py _variant's traffic, plain and self-draft, graphs and eager,
+    beside the truncated draft with graphs → (readings, failures)."""
+    from ddp_tpu_torch.models.lm import truncated_draft
+    from ddp_tpu_torch.ops import decode as dec
+
+    sampling = {i: s for i, (_, _, s) in enumerate(REQUESTS) if s}
+    want, _ = spec_streams(torch, model, prompts, kv_dtype="fp32",
+                           warmup=True)
+    got, engine = spec_streams(torch, model, prompts, kv_dtype="fp32",
+                               draft=draft, warmup=True)
+    launches, failed = _graph_launch_failures(dec, engine, "spec")
+    parted, bad = _stream_failures(torch, model, prompts, got, want, "fp32",
+                                   "graphs, spec", sampling)
+    failed += bad
+    log(f"[graphs] (e) γ {SPEC_GAMMA} truncated draft through the graphs: "
+        f"{len(got) - parted}/{len(got)} streams identical to the plain "
+        f"graph engine's, {parted} parted at a near tie; {engine.decode_steps}"
+        f" rounds, launches {launches}")
+    selfd = truncated_draft(model, model.spec.depth)
+    rates = {}
+    for label, d, graphs in (("plain, graphs", None, True),
+                             ("plain, eager", None, False),
+                             ("self-draft, graphs", selfd, True),
+                             ("self-draft, eager", selfd, False),
+                             ("truncated draft, graphs", draft, True)):
+        r = time_spec_variant(torch, model, f"4f {label}", d,
+                              cuda_graphs=graphs)
+        rates[label] = r["tokens_per_s"]
+    log(f"[graphs] (e) tokens/s on _variant's traffic: {rates}")
+    return {"tokens_per_s": rates, "b4": launches["flash_decode_fp32"]}, failed
+
+
+def check_rebound_weight(torch, prompts) -> list:
+    """Phase 4f (f), the control: a graph reads each weight at its
+    address at capture, so a weight REBOUND after warmup (a new Parameter,
+    not a copy into the old one) is invisible to the warmed engine. Its
+    greedy streams must part from a fresh engine's on the rebound model
+    (which is what check (b) would catch), while an eager engine on the
+    rebound model equals the fresh one → failures."""
+    from ddp_tpu_torch.models.lm import LMSpec, init_lm
+    from ddp_tpu_torch.serve.engine import ServeEngine
+
+    spec = LMSpec(**FULL)
+    model = init_lm(spec, seed=0)
+    other = init_lm(spec, seed=5)
+    greedy = {i: c for i, c in enumerate(REQUESTS) if not c[2]}
+    stale = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
+                        step_token_budget=SPEC_BUDGET, max_queue=len(greedy))
+    stale.warmup()
+    blk = model.blocks[0]
+    kept = blk.mlp2.weight  # the captured storage stays alive
+    blk.mlp2.weight = torch.nn.Parameter(other.blocks[0].mlp2.weight.detach()
+                                         .clone())
+    rids = {i: stale.submit(prompts[i], n).request.rid
+            for i, (_, n, _) in greedy.items()}
+    stale.run()
+    warmed = {i: stale.pop_result(r).tokens for i, r in rids.items()}
+    fresh, _ = spec_streams(torch, model, prompts, kv_dtype="fp32",
+                            cases=greedy, warmup=True)
+    eager, _ = spec_streams(torch, model, prompts, kv_dtype="fp32",
+                            cases=greedy, cuda_graphs=False)
+    parted = sum(warmed[i] != fresh[i] for i in greedy)
+    same = sum(eager[i] == fresh[i] for i in greedy)
+    log(f"[graphs] (f) control, block 0's mlp2 weight rebound after "
+        f"warmup: {parted}/{len(greedy)} greedy streams of the warmed "
+        f"engine part from a fresh graph engine's on the rebound model "
+        f"(must be > 0); an eager engine equals the fresh one on "
+        f"{same}/{len(greedy)}")
+    del kept
+    failed = []
+    if not parted:
+        failed.append("(f) a rebound weight went unseen by the stream check")
+    if same != len(greedy):
+        failed.append(f"(f) eager and fresh graph engines part on "
+                      f"{len(greedy) - same} streams")
+    return failed
+
+
+def check_graphs(torch, card) -> dict:
+    """Phase 4f: the serving engine's compile contract at phase 4's full
+    width → {"launches": graph launches by kernel, "b4_spec": B4 launches
+    of (e), readings}."""
+    from ddp_tpu_torch.models.lm import LMSpec, init_lm, truncated_draft
+
+    t0 = time.perf_counter()
+    spec = LMSpec(**FULL)
+    model = init_lm(spec, seed=0)
+    draft = truncated_draft(model, DRAFT_DEPTH)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, spec.vocab_size, n).tolist()
+               for n, _, _ in REQUESTS]
+    log(f"[graphs] {card}")
+    warm, failed = check_graph_warmup(torch, model, draft)
+    launched, bad = check_graph_streams(torch, model, prompts)
+    failed += bad
+    spec_readings, bad = check_graph_spec(torch, model, prompts, draft)
+    failed += bad
+    failed += check_rebound_weight(torch, prompts)
+    timing = time_graph_steps(torch, model, card)
+    log(f"[graphs] phase 4f wall {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError(f"phase 4f: {failed}")
+    return {"launches": launched, "b4_spec": spec_readings["b4"],
+            "warmup": warm, "timing": timing,
+            "tokens_per_s": spec_readings["tokens_per_s"]}
 
 
 # ---- phase 5: the training slice end to end ----------------------------
@@ -3025,14 +3399,17 @@ def serve_main_with(torch, argv, traffic, *, on_step=None):
     (it serves until SIGTERM) while ``traffic(url, made, stop)`` runs in
     a client thread: ``made`` lists the engines main() built, in order,
     ``stop()`` sends the one SIGTERM (sent after ``traffic`` returns, if
-    it did not). ``on_step(engine)`` runs after every engine step (in the
-    engine's thread, under the server's lock) → (made, the lines main()
-    printed)."""
+    it did not). The decode launch counters are set to 0 when the server
+    first answers, after main()'s warmup (which captures the step graphs,
+    running each program once) and before ``traffic``. ``on_step(engine)``
+    runs after every engine step (in the engine's thread, under the
+    server's lock) → (made, the lines main() printed)."""
     import io
     import os
     import signal
 
     import ddp_tpu_torch.serve.engine as engine_mod
+    from ddp_tpu_torch.ops import decode as dec
     from ddp_tpu_torch.serve.__main__ import main as serve_main
 
     port = _free_port()
@@ -3070,6 +3447,7 @@ def serve_main_with(torch, argv, traffic, *, on_step=None):
                     if over.is_set() or time.perf_counter() > deadline:
                         raise
                     time.sleep(0.2)
+            _zero_decode_counters(dec)
             traffic(url, made, stop)
         except Exception as e:  # noqa: BLE001 — reported below
             errors.append(f"traffic: {type(e).__name__}: {e}")
@@ -3119,16 +3497,17 @@ def _restored(torch, directory, epoch=None):
     return CausalLM.from_state(spec, state), state, epoch
 
 
-def paged_streams(torch, model, prompts, *, watch=None, engine=None):
+def paged_streams(torch, model, prompts, *, watch=None, engine=None,
+                  **engine_kw):
     """Phase 8's prefix traffic in-process on a paged engine (page
-    SERVE_PAGE, LM_SLOTS lanes, main()'s defaults): the seed request
-    alone, then the burst at once; ``watch`` is installed for the burst
-    only → (completions in prompt order, engine)."""
+    SERVE_PAGE, LM_SLOTS lanes, main()'s defaults, ``engine_kw``): the
+    seed request alone, then the burst at once; ``watch`` is installed
+    for the burst only → (completions in prompt order, engine)."""
     from ddp_tpu_torch.serve.engine import ServeEngine
 
     engine = engine or ServeEngine(model, slots=LM_SLOTS,
                                    page_size=SERVE_PAGE,
-                                   max_queue=len(prompts))
+                                   max_queue=len(prompts), **engine_kw)
     rids = [engine.submit(prompts[0], PREFIX_NEW).request.rid]
     engine.run()
     with (watch(engine) if watch else contextlib.nullcontext()):
@@ -3146,14 +3525,17 @@ def paged_streams(torch, model, prompts, *, watch=None, engine=None):
 @contextlib.contextmanager
 def first_logits(engine, seen: dict):
     """Record into ``seen``, by request id, the logits each request's
-    first token is drawn from (its final prefill chunk's)."""
+    first token is drawn from (its final prefill chunk's). A Python hook
+    at each chunk call: the engine must run its programs eagerly
+    (``cuda_graphs=False``)."""
     import ddp_tpu_torch.models.generate as gen
     import ddp_tpu_torch.serve.engine as engine_mod
 
-    real_chunk, real_sample = engine_mod.prefill_chunk, gen.sample_slot_tokens
+    real_chunk = engine_mod.prefill_chunk_device
+    real_sample = gen.sample_slot_tokens
 
     def chunk(*a, **kw):
-        slot, final = a[7], a[11]
+        slot, final = int(a[7]), bool(a[11])
         if not final or a[0] is not engine.model:
             return real_chunk(*a, **kw)
 
@@ -3167,11 +3549,11 @@ def first_logits(engine, seen: dict):
         finally:
             gen.sample_slot_tokens = real_sample
 
-    engine_mod.prefill_chunk = chunk
+    engine_mod.prefill_chunk_device = chunk
     try:
         yield seen
     finally:
-        engine_mod.prefill_chunk = real_chunk
+        engine_mod.prefill_chunk_device = real_chunk
 
 
 def check_swap_in_process(torch, state0, state1, model1, prompts, fresh):
@@ -3189,7 +3571,7 @@ def check_swap_in_process(torch, state0, state1, model1, prompts, fresh):
     failed = []
     for flush in (True, False):
         model = CausalLM.from_state(model1.spec, state0, model1.device)
-        _, engine = paged_streams(torch, model, prompts)
+        _, engine = paged_streams(torch, model, prompts, cuda_graphs=False)
         engine.install_params(state1, model_version="epoch1",
                               invalidate_prefix=flush)
         bits: dict = {}
@@ -3345,7 +3727,7 @@ def check_lm_swap(torch, dirs, empty_dir) -> dict:
     fixed = {v0: fixed_lane_streams(torch, model0, prompts, kv_dtype="fp32"),
              v1: fixed_lane_streams(torch, model1, prompts, kv_dtype="fp32")}
     bits: dict = {}
-    fresh_done, _ = paged_streams(torch, model1, prompts,
+    fresh_done, _ = paged_streams(torch, model1, prompts, cuda_graphs=False,
                                   watch=lambda e: first_logits(e, bits))
     fresh = [c.tokens for c in fresh_done]
     failed = []
@@ -3416,7 +3798,7 @@ def check_lm_swap(torch, dirs, empty_dir) -> dict:
     log(f"[swap] launches {paged} (decode steps x depth = {steps * depth}), "
         f"fixed-lane {flat}, routed {routed}; stats lifecycle "
         f"{engine.stats().get('lifecycle')}; wall {wall:.2f} s")
-    if (paged[name] < steps * depth or sum(paged.values()) != paged[name]
+    if (paged[name] != steps * depth or sum(paged.values()) != paged[name]
             or any(flat.values()) or routed):
         failed.append(f"launches {paged} {flat}, routed {routed}")
     failed += check_swap_in_process(torch, state0, state1, model1, prompts,
@@ -4516,17 +4898,15 @@ def check_serving(torch) -> dict:
     counted = {}
     for kv_dtype, name in (("fp32", "flash_decode_fp32"),
                            ("int8", "flash_decode_int8")):
-        for k in launches:
-            launches[k] = 0
-        dec.flash_decode_attention.plain_routed = 0
         _, engine = serve_run(torch, model, prompts, kv_dtype=kv_dtype)
         got = dict(launches)
         routed = dec.flash_decode_attention.plain_routed
         want = engine.decode_steps * spec.depth
         log(f"[serve] kv={kv_dtype} launches {got} (decode steps x depth "
-            f"= {want}), routed to the plain version by shape: {routed}")
-        if engine.decode_attn != "flash" or got[name] < want or want == 0:
-            raise AssertionError(f"{name}: {got[name]} launches < {want}")
+            f"= {want}; all by graph replays: {engine.cuda_graphs}), routed "
+            f"to the plain version by shape: {routed}")
+        if engine.decode_attn != "flash" or got[name] != want or want == 0:
+            raise AssertionError(f"{name}: {got[name]} launches != {want}")
         if routed:
             raise AssertionError(f"the serving path routed {routed} calls "
                                  "to the plain version")
@@ -4799,6 +5179,7 @@ def main() -> int:
     paged_launches = check_paged_serving(torch)
     spec_launches = check_spec_serving(torch, card)
     obs = check_serving_obs(torch, card)
+    graphs = check_graphs(torch, card)
     flash = check_flash(torch)
     trained, served = check_lm_phases(torch, card)
     check_cnn(torch, card)
@@ -4836,6 +5217,13 @@ def main() -> int:
     kernels[2]["lm_serve_launches"] = served["b4p"]
     # Phase 4e (a): B4p under every observability flag.
     kernels[2]["obs_launches"] = obs["b4p"]
+    # Phase 4f: each decode kernel's launches inside CUDA graph replays
+    # ((b)'s four runs; B4 also (e)'s draft steps). Phases 4-4e and 8
+    # serve with graphs too: after warmup, or in-process from a
+    # program's first (eager, counted) run on.
+    for k in kernels:
+        k["graph_launches"] = graphs["launches"].get(k["name"], 0)
+    kernels[0]["graph_spec_launches"] = graphs["b4_spec"]
     # B1-B3: the bf16 variant is the main path (the causal-LM training
     # run's numbers); the fp32 variant's, from its own run, ride beside
     # them, and so do both at ViT-Tiny's shape (launches from phase 7a,

@@ -13,7 +13,9 @@ batch of S slots alive; requests of different ages share it:
   flash-decode kernel on the GPU). ``pos`` stays on the device: the
   step never reads a value back to the host.
 - :func:`prefill_chunk` — one chunk of a prompt written into one lane
-  (Sarathi-style chunked prefill), plain-torch attention.
+  (Sarathi-style chunked prefill), plain-torch attention; a host-int
+  wrapper of :func:`prefill_chunk_device`, the same over 0-dim device
+  scalars (no host branch, no upload: what a CUDA graph captures).
 - :class:`PagedSlotCache` — the paged layout (``serve/pages.py``): K/V
   in a pool of ``page_size``-token pages, each lane's positions spelled
   by its row of an int32 page table, so lanes whose prompts share a
@@ -469,6 +471,126 @@ def slot_verify_step(
 
 
 @torch.no_grad()
+def prefill_chunk_device(
+    model: CausalLM,
+    cache: SlotCache,
+    toks,
+    seeds,
+    steps,
+    temps,
+    top_ps,
+    slot,
+    chunk,
+    start,
+    length,
+    final,
+    seed,
+    temperature,
+    top_p,
+    *,
+    lane_attend: bool = True,
+):
+    """:func:`prefill_chunk` over DEVICE scalars, with no host branch on
+    a value and no host→device copy: the traced ``prefill_chunk`` of
+    ``ddp_tpu/models/generate.py``, and what a CUDA graph of a chunk
+    captures (``serve/programs.py``).
+
+    ``slot``, ``start``, ``length``, ``final``, ``seed`` are 0-dim
+    integer tensors and ``temperature``, ``top_p`` 0-dim float tensors,
+    on ``chunk``'s device; only ``chunk``'s width C and ``lane_attend``
+    shape the work. The write start ``max(0, min(start, L - C))``, the
+    position-embedding rows, the lane's view and its table row are
+    device index operations, the banded mask takes ``start`` as a
+    tensor, and the request's first token is always drawn (at step 0,
+    with the fused sampler: greedy where ``temperature <= 0``) and lands
+    in ``toks[slot]`` only where ``final``. The lane's ``pos`` becomes
+    ``start + length`` and its sampling state the request's (``steps``
+    1 if final, else 0). Returns the drawn token as a 0-dim tensor
+    (meaningful only where final).
+    """
+    spec = model.spec
+    L = spec.total_len
+    C = chunk.shape[0]
+    G = spec.num_heads // spec.kv_heads
+    dev = chunk.device
+    lane = slot.reshape(1).long()
+    start = start.long()
+    offs = torch.arange(C, device=dev)
+    wpos = torch.clamp(torch.clamp(start, max=L - C), min=0) + offs
+    x = (model.embed[chunk.long()][None]
+         + model.pos_embed[0].index_select(0, wpos)[None])
+    quant = cache.quantized()
+    paged = isinstance(cache, PagedSlotCache)
+    if paged:
+        row = cache.table.index_select(0, lane)[0]  # [lane_pages] int32
+        pids, poffs = _page_scatter_ids(row, start + offs, cache.page_size)
+    else:
+        at = (lane.expand(C), wpos)
+    for i, blk in enumerate(model.blocks):
+        q, k, v = blk.qkv(x)  # [1, C, H, Dh], [1, C, H_kv, Dh]
+        if paged:
+            _write_pages(cache, i, pids, poffs, k[0], v[0])
+        elif quant:
+            wk, ks = quantize_kv(k[0])
+            wv, vs = quantize_kv(v[0])
+            cache.k_scale[i].index_put_(at, ks)
+            cache.v_scale[i].index_put_(at, vs)
+            cache.k[i].index_put_(at, wk)
+            cache.v[i].index_put_(at, wv)
+        else:
+            cache.k[i].index_put_(at, k[0].to(cache.k.dtype))
+            cache.v[i].index_put_(at, v[0].to(cache.v.dtype))
+        if lane_attend:
+            lane_ks = lane_vs = None
+            if paged:
+                lane_k = gather_paged_kv(cache.k[i], row[None])[0]
+                lane_v = gather_paged_kv(cache.v[i], row[None])[0]
+                if quant:
+                    lane_ks = gather_paged_kv(cache.k_scale[i], row[None])[0]
+                    lane_vs = gather_paged_kv(cache.v_scale[i], row[None])[0]
+            else:
+                lane_k = cache.k[i].index_select(0, lane)[0]
+                lane_v = cache.v[i].index_select(0, lane)[0]
+                if quant:
+                    lane_ks = cache.k_scale[i].index_select(0, lane)[0]
+                    lane_vs = cache.v_scale[i].index_select(0, lane)[0]
+            if quant:
+                lane_k = dequantize_kv(lane_k, lane_ks)
+                lane_v = dequantize_kv(lane_v, lane_vs)
+            attn = dot_product_attention(
+                q.float(),
+                lane_k.repeat_interleave(G, dim=1)[None].float(),
+                lane_v.repeat_interleave(G, dim=1)[None].float(),
+                causal=True,
+                q_offset=start,
+            )
+        else:
+            attn = dot_product_attention(
+                q.float(),
+                k.repeat_interleave(G, dim=2).float(),
+                v.repeat_interleave(G, dim=2).float(),
+                causal=True,
+            )
+        x = blk.finish(x, attn.reshape(1, C, spec.d_model).to(x.dtype))
+    last = (torch.clamp(length.long(), min=1, max=C) - 1).reshape(1)
+    logits = model.head(x.index_select(1, last)[:, 0])  # [1, V]
+    fin = final.reshape(1) != 0
+    first = sample_slot_tokens(
+        logits, seed.reshape(1).long(),
+        torch.zeros(1, dtype=torch.int64, device=dev),
+        temperature.reshape(1).float(), top_p.reshape(1).float(),
+    )
+    toks.index_put_((lane,), torch.where(
+        fin, first.to(toks.dtype), toks.index_select(0, lane)))
+    cache.pos.index_put_((lane,), (start + length).reshape(1).to(
+        cache.pos.dtype))
+    seeds.index_put_((lane,), seed.reshape(1).to(seeds.dtype))
+    steps.index_put_((lane,), fin.to(steps.dtype))
+    temps.index_put_((lane,), temperature.reshape(1).to(temps.dtype))
+    top_ps.index_put_((lane,), top_p.reshape(1).to(top_ps.dtype))
+    return first[0]
+
+
 def prefill_chunk(
     model: CausalLM,
     cache: SlotCache,
@@ -496,7 +618,7 @@ def prefill_chunk(
     full dequantized lane under the banded mask ``key <= start + i``
     (continuation chunks), ``False`` attends the chunk against itself
     (the first chunk, ``start == 0``). The write start and the position
-    embedding slice clamp at ``L - C`` as JAX's dynamic slices do.
+    embedding rows clamp at ``L - C`` as JAX's dynamic slices do.
 
     On a :class:`PagedSlotCache` the chunk's positions [start, start +
     C) map through lane ``slot``'s table row (computed once, outside the
@@ -511,82 +633,21 @@ def prefill_chunk(
     0). On the final chunk the request's first token is sampled at step
     0 and spliced into ``toks[slot]``; returns it as a device scalar,
     else None.
+
+    A host-argument wrapper of :func:`prefill_chunk_device`: the scalars
+    go to the device, and the work is that function's.
     """
-    spec = model.spec
-    L = spec.total_len
-    C = chunk.shape[0]
-    G = spec.num_heads // spec.kv_heads
-    w0 = max(0, min(start, L - C))
-    x = model.embed[chunk.long()][None] + model.pos_embed[:, w0 : w0 + C]
-    quant = cache.quantized()
-    paged = isinstance(cache, PagedSlotCache)
-    if paged:
-        row = cache.table[slot]  # [lane_pages] int32
-        pids, offs = _page_scatter_ids(
-            row, start + torch.arange(C, device=row.device), cache.page_size)
-    for i, blk in enumerate(model.blocks):
-        q, k, v = blk.qkv(x)  # [1, C, H, Dh], [1, C, H_kv, Dh]
-        if paged:
-            _write_pages(cache, i, pids, offs, k[0], v[0])
-        elif quant:
-            wk, ks = quantize_kv(k[0])
-            wv, vs = quantize_kv(v[0])
-            cache.k_scale[i, slot, w0 : w0 + C] = ks
-            cache.v_scale[i, slot, w0 : w0 + C] = vs
-            cache.k[i, slot, w0 : w0 + C] = wk
-            cache.v[i, slot, w0 : w0 + C] = wv
-        else:
-            cache.k[i, slot, w0 : w0 + C] = k[0].to(cache.k.dtype)
-            cache.v[i, slot, w0 : w0 + C] = v[0].to(cache.v.dtype)
-        if lane_attend:
-            if paged:
-                lane_k = gather_paged_kv(cache.k[i], row[None])[0]
-                lane_v = gather_paged_kv(cache.v[i], row[None])[0]
-                lane_ks = lane_vs = None
-                if quant:
-                    lane_ks = gather_paged_kv(cache.k_scale[i], row[None])[0]
-                    lane_vs = gather_paged_kv(cache.v_scale[i], row[None])[0]
-            else:
-                lane_k, lane_v = cache.k[i, slot], cache.v[i, slot]
-                if quant:
-                    lane_ks, lane_vs = cache.k_scale[i, slot], \
-                        cache.v_scale[i, slot]
-            if quant:
-                lane_k = dequantize_kv(lane_k, lane_ks)
-                lane_v = dequantize_kv(lane_v, lane_vs)
-            attn = dot_product_attention(
-                q.float(),
-                lane_k.repeat_interleave(G, dim=1)[None].float(),
-                lane_v.repeat_interleave(G, dim=1)[None].float(),
-                causal=True,
-                q_offset=start,
-            )
-        else:
-            attn = dot_product_attention(
-                q.float(),
-                k.repeat_interleave(G, dim=2).float(),
-                v.repeat_interleave(G, dim=2).float(),
-                causal=True,
-            )
-        x = blk.finish(x, attn.reshape(1, C, spec.d_model).to(x.dtype))
-    first = None
-    if final:
-        last = min(max(length, 1), C) - 1
-        logits = model.head(x[:, last])  # [1, V]
-        dev = toks.device
-        first = sample_slot_tokens(
-            logits,
-            torch.tensor([seed], dtype=torch.int64, device=dev),
-            torch.zeros(1, dtype=torch.int64, device=dev),
-            torch.tensor([temperature], dtype=torch.float32, device=dev),
-            torch.tensor([top_p], dtype=torch.float32, device=dev),
-            sampling=temperature > 0,
-            nucleus=temperature > 0 and top_p < 1.0,
-        )[0]
-        toks[slot] = first
-    cache.pos[slot] = start + length
-    seeds[slot] = seed
-    steps[slot] = 1 if final else 0
-    temps[slot] = temperature
-    top_ps[slot] = top_p
-    return first
+    dev = toks.device
+
+    def i64(v):
+        return torch.tensor(int(v), dtype=torch.int64, device=dev)
+
+    def f32(v):
+        return torch.tensor(float(v), dtype=torch.float32, device=dev)
+
+    first = prefill_chunk_device(
+        model, cache, toks, seeds, steps, temps, top_ps, i64(slot), chunk,
+        i64(start), i64(length), i64(bool(final)), i64(seed),
+        f32(temperature), f32(top_p), lane_attend=lane_attend,
+    )
+    return first if final else None

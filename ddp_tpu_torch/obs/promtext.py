@@ -356,6 +356,14 @@ def render_serve(
     )
     _render_slo(b, stats.get("slo"))
     _render_build_info(b, stats.get("build_info"), "ddp_tpu_build_info")
+    for prog, count in sorted((stats.get("compile_counts") or {}).items()):
+        b.add(
+            "ddp_tpu_serve_compiled_programs", count,
+            labels={"program": prog},
+            help="step programs prepared: CUDA graphs captured on the "
+            "card, registered eager programs elsewhere (static-shape pin "
+            "observable)",
+        )
     # Decode hot path: cache footprint + speculative acceptance.
     # Absent keys (spec off) render nothing — absent and zero are
     # different facts.

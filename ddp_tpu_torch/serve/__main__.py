@@ -50,6 +50,13 @@ evaluates objectives live (per model: ``"clauses;NAME:clauses"``);
     curl -s localhost:8000/metricsz
     curl -s localhost:8000/statusz
     curl -s 'localhost:8000/requestz?id=0'
+
+Before it serves, each engine (the main one and every ``--model``)
+prepares its whole step-program set (``ServeEngine.warmup()``): on the
+GPU every decode, speculative and prefill-chunk step is captured as a
+CUDA graph then, so no request meets a capture; the startup line
+carries ``compile_counts`` and the graphs' pool bytes. ``--no_warmup``
+skips it (each program is then prepared at its first use).
 """
 
 from __future__ import annotations
@@ -156,6 +163,10 @@ def main(argv=None) -> None:
                    help="flight-recorder directory: the ring (SLO breach "
                    "records) is dumped here on shutdown "
                    "(flight_rank0.json)")
+    p.add_argument("--no_warmup", action="store_true",
+                   help="skip preparing the engine program set before "
+                   "serving (each CUDA graph is then captured at its first "
+                   "use, inside a request)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     args = p.parse_args(argv)
@@ -273,6 +284,13 @@ def main(argv=None) -> None:
             f"--model {name}", mdir, None, args.num_heads, device)
         models[name] = ServeEngine(mmodel, model_version=mversion,
                                    slo=slo_for(name), **knobs)
+    if not args.no_warmup:
+        # The whole program set before the first request (under
+        # --streaming_restore, while the restore thread copies: graphs
+        # read the weights' addresses, and install_params copies into
+        # them).
+        for eng in [engine, *models.values()]:
+            eng.warmup()
     # SIGTERM only sets an event: this thread wakes, drains and returns.
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
@@ -291,6 +309,9 @@ def main(argv=None) -> None:
                 "decode_attn": engine.decode_attn,
                 "kv_dtype": engine.kv_dtype,
                 "cache_bytes_per_slot": engine.cache_bytes_per_slot(),
+                "compile_counts": engine.compile_counts(),
+                "cuda_graphs": engine.cuda_graphs,
+                "graph_pool_bytes": engine.graph_pool_bytes(),
                 "build_info": build_info(device),
                 "reqtrace": bool(args.reqtrace),
                 **({"slo": args.slo} if args.slo else {}),

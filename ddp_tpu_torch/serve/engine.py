@@ -50,8 +50,21 @@ work, and the dispatch/retire overlap is given up); per-request tracing
 host, so it adds no device wait); an ``SLOEngine`` fed by every retired
 request; and a flight recorder that receives SLO breach records.
 
-Compile introspection and the page export/install of disaggregated
-serving are features of the JAX engine that later slices bring over.
+The compile contract (``serve/programs.py``): every step's device
+work is one program of a bounded set — the fused decode+sample program,
+a first-chunk and a continuation-chunk program per bucket width, and
+with speculation the draft's chunk programs, one draft-decode and one
+verify program — over static inputs and engine-owned state. On the card
+each program is a captured CUDA graph (``cuda_graphs=False`` runs the
+same functions eagerly); ``warmup()`` prepares the whole set on an idle
+engine, ``compile_counts()`` and ``compile_budget()`` keep the JAX
+engine's keys and counts, and no request mix adds a program after
+warmup. A graph reads every tensor at the address it had at capture:
+weights change only by an in-place copy (``install_params``), and no
+engine state is ever rebound.
+
+The page export/install of disaggregated serving is a feature of the
+JAX engine that a later slice brings over.
 """
 
 from __future__ import annotations
@@ -68,7 +81,7 @@ import torch
 from ddp_tpu_torch.models.generate import (
     init_paged_slot_cache,
     init_slot_cache,
-    prefill_chunk,
+    prefill_chunk_device,
     slot_decode_sample_step,
     slot_decode_step,
     slot_verify_step,
@@ -79,6 +92,7 @@ from ddp_tpu_torch.obs.reqtrace import RequestTracer, parse_trace_context
 from ddp_tpu_torch.obs.tracer import Tracer
 from ddp_tpu_torch.ops import decode as decode_ops
 from ddp_tpu_torch.serve.pages import PrefixCache, page_demand
+from ddp_tpu_torch.serve.programs import ProgramSet
 from ddp_tpu_torch.serve.scheduler import (
     Admission,
     Request,
@@ -349,6 +363,17 @@ def _snapshot(t: torch.Tensor):
     return t.clone(), None
 
 
+def _upload(dst: torch.Tensor, host: torch.Tensor) -> None:
+    """Copy a host tensor into a static device buffer. On the GPU it
+    goes through pinned memory without blocking (the allocator keeps the
+    pinned block until the copy has run), ordered on the stream before
+    the programs that read ``dst``."""
+    if dst.device.type == "cuda":
+        dst.copy_(host.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(host)
+
+
 class ServeEngine:
     """Fixed-slot continuous-batching engine for one ``CausalLM``.
 
@@ -384,6 +409,10 @@ class ServeEngine:
     the same seed and rid), ``slo`` (an ``obs.slo.SLOEngine``; its
     breaches become ``slo_breach`` records in ``metrics`` and in
     ``recorder``, an ``obs.recorder.FlightRecorder``).
+
+    ``cuda_graphs`` (default True) captures each step program as a CUDA
+    graph on the card; False runs the same programs eagerly (always the
+    case on the CPU). See the module docstring's compile contract.
     """
 
     def __init__(
@@ -411,6 +440,7 @@ class ServeEngine:
         trace_seed: Optional[int] = None,
         slo=None,
         recorder: Optional[FlightRecorder] = None,
+        cuda_graphs: bool = True,
     ):
         spec = model.spec
         self.device = model.device
@@ -536,6 +566,23 @@ class ServeEngine:
                 torch.zeros(slots, dtype=torch.int64, device=dev)
                 for _ in range(3)
             ] + [torch.zeros(slots, device=dev), torch.ones(slots, device=dev)]
+            # A round's outputs: the [S, γ] proposals, then each lane's γ
+            # target tokens and its match count.
+            self._drafts = torch.zeros(slots, self.spec_tokens,
+                                       dtype=torch.int64, device=dev)
+            self._verify_out = torch.zeros(slots, self.spec_tokens + 1,
+                                           dtype=torch.int64, device=dev)
+            self._never = torch.zeros((), dtype=torch.int64, device=dev)
+        # The step programs' static inputs: per bucket width the chunk's
+        # tokens, then slot, start, length, final and seed; the
+        # request's temperature and top_p.
+        self._chunk_in = {
+            w: torch.zeros(w + 5, dtype=torch.int64, device=dev)
+            for w in self.buckets
+        }
+        self._chunk_f = torch.zeros(2, dtype=torch.float32, device=dev)
+        self._programs = ProgramSet(dev, graphs=cuda_graphs)
+        self.cuda_graphs = self._programs.graphs
         # Speculative tallies, engine-wide (the /stats source) and of
         # the current step (the serve_step record's).
         self.spec_drafted_total = 0
@@ -664,11 +711,12 @@ class ServeEngine:
         invalidate_prefix: bool = False,
     ) -> None:
         """Swap the serving weights for ``state`` (a CausalLM state dict)
-        in place, so every cache, buffer and captured reference stays
-        valid. Needs a drained engine (``active == 0``). Any key, shape
-        or dtype skew raises ``ValueError("spec_skew: ...")`` before
-        anything changes; a copy that fails midway restores the old
-        weights and re-raises. The copy has finished on the device when
+        in place, so every cache, buffer and captured CUDA graph stays
+        valid: a graph reads each weight at its address at capture, so a
+        weight must never be rebound, only copied into. Needs a drained
+        engine (``active == 0``). Any key, shape or dtype skew raises
+        ``ValueError("spec_skew: ...")`` before anything changes; a copy
+        that fails midway restores the old weights and re-raises. The copy has finished on the device when
         this returns. ``invalidate_prefix`` flushes the prefix index and
         the page table of a paged engine: its K/V was computed under the
         old weights (a same-version reinstall keeps it). The draft model
@@ -790,6 +838,7 @@ class ServeEngine:
                    if self.trace_propagated or self.trace_orphaned
                    else {}),
             }} if self._reqtrace is not None else {}),
+            "compile_counts": self.compile_counts(),
             "prefill": {
                 "chunk": self.prefill_chunk,
                 "min_bucket": self.min_bucket,
@@ -823,6 +872,151 @@ class ServeEngine:
             }} if self.model_version is not None or self.reloads_total
                 or self.rollbacks_total else {}),
         }
+
+    # ---- the compile contract (serve/programs.py) ---------------------
+
+    def compile_counts(self) -> dict[str, int]:
+        """Prepared programs per engine function, JAX's keys (the
+        static-shape pin: after ``warmup()`` these never grow;
+        prefill_first and prefill_chunk are each bounded by
+        ``len(self.buckets)``). Speculative engines add the draft chunk
+        programs (same bound), one draft-decode and one verify
+        program."""
+        names = ["prefill_first", "prefill_chunk", "decode"]
+        if self.spec_tokens:
+            names += ["draft_prefill_first", "draft_prefill_chunk",
+                      "draft_decode", "spec_verify"]
+        return {n: self._programs.prepared(n) for n in names}
+
+    def compile_budget(self) -> int:
+        """The whole program set's ceiling: 2 chunk programs per bucket
+        + 1 decode, and as many again + draft-decode + verify when
+        speculating."""
+        base = 2 * len(self.buckets) + 1
+        if self.spec_tokens:
+            base += 2 * len(self.buckets) + 2
+        return base
+
+    def warmup(self) -> dict[str, int]:
+        """Prepare the engine's whole program set → ``compile_counts()``.
+
+        On the card each program runs once and is captured as a CUDA
+        graph, so no request meets a capture; on the CPU (or without
+        graphs) the programs are only registered. Needs an idle engine:
+        the warm runs write garbage K/V into lane 0 (on a paged engine
+        into the scratch page its zeroed table row maps), which the
+        refill invariant makes harmless only while no request owns a
+        lane.
+        """
+        if self.active:
+            raise RuntimeError("warmup() requires an idle engine")
+        self._sync_table()
+        chunks = ["prefill_first", "prefill_chunk"]
+        if self.spec_tokens:
+            chunks += ["draft_prefill_first", "draft_prefill_chunk"]
+        for kind in chunks:
+            for w in self.buckets:
+                # JAX's warmup inputs: lane 0, start 0, a full chunk of
+                # zeros, not final, greedy.
+                self._stage_chunk(w, [], 0, 0, False, 0, 0.0, 1.0,
+                                  length=w)
+                self._program(kind, w).prepare()
+        self._program("decode").prepare()
+        if self.spec_tokens:
+            self._program("draft_decode").prepare()
+            self._program("spec_verify").prepare()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self.compile_counts()
+
+    def graph_pool_bytes(self) -> Optional[int]:
+        """Bytes the step graphs' memory pool holds on the card (0
+        without graphs)."""
+        return self._programs.pool_bytes()
+
+    def capture_seconds(self) -> float:
+        """Seconds spent preparing programs (warm run + capture)."""
+        return self._programs.capture_seconds()
+
+    def _program(self, name: str, width: Optional[int] = None):
+        return self._programs.get(name, width,
+                                  lambda: self._program_fn(name, width))
+
+    def _program_fn(self, name: str, width: Optional[int]):
+        """The function of program ``name`` (at bucket ``width`` for the
+        chunk programs): engine-owned tensors in, results written into
+        them in place. Module functions are looked up at each call, so
+        an eager program runs what the module holds then."""
+        if name == "decode":
+            def fn():
+                self._toks.copy_(slot_decode_sample_step(
+                    self.model, self._cache, self._toks, self._seeds,
+                    self._sample_steps, self._temps, self._top_ps,
+                    attn_impl=self._attn_impl))
+        elif name == "draft_decode":
+            def fn():
+                with torch.no_grad():
+                    self._draft_cache.pos.copy_(self._cache.pos)
+                    t = self._toks
+                    for j in range(self.spec_tokens):
+                        logits = slot_decode_step(
+                            self.draft_model, self._draft_cache, t,
+                            attn_impl=self._attn_impl)
+                        t = torch.argmax(logits, dim=-1)
+                        self._drafts[:, j].copy_(t)
+        elif name == "spec_verify":
+            def fn():
+                nxt, target, matched = slot_verify_step(
+                    self.model, self._cache, self._toks, self._drafts,
+                    self._seeds, self._sample_steps, self._temps,
+                    self._top_ps)
+                with torch.no_grad():
+                    self._toks.copy_(nxt)
+                    self._verify_out[:, :-1].copy_(target)
+                    self._verify_out[:, -1].copy_(matched)
+        else:
+            buf, f = self._chunk_in[width], self._chunk_f
+            chunk, slot, start, length, final, seed = (
+                buf[:width], *buf[width:].unbind())
+            draft = name.startswith("draft_")
+            lane_attend = name.endswith("prefill_chunk")
+            if draft:
+                def fn():
+                    prefill_chunk_device(
+                        self.draft_model, self._draft_cache, *self._d_state,
+                        slot, chunk, start, length, self._never, seed,
+                        f[0], f[1], lane_attend=lane_attend)
+            else:
+                def fn():
+                    prefill_chunk_device(
+                        self.model, self._cache, self._toks, self._seeds,
+                        self._sample_steps, self._temps, self._top_ps,
+                        slot, chunk, start, length, final, seed, f[0], f[1],
+                        lane_attend=lane_attend)
+        return fn
+
+    def _stage_chunk(self, width, tokens, slot, start, final, seed,
+                     temperature, top_p, *, length=None) -> None:
+        """Upload one chunk's static inputs: ``tokens`` zero-padded to
+        ``width``, then slot, start, length (default ``len(tokens)``),
+        final and seed; the temperature and top_p."""
+        host = torch.zeros(width + 5, dtype=torch.int64)
+        host[: len(tokens)] = torch.as_tensor(tokens, dtype=torch.int64)
+        host[width:] = torch.tensor(
+            [slot, start, len(tokens) if length is None else length,
+             int(final), seed])
+        _upload(self._chunk_in[width], host)
+        _upload(self._chunk_f, torch.tensor([temperature, top_p],
+                                            dtype=torch.float32))
+
+    def _sync_table(self) -> None:
+        """Paged mode: upload the host mirror of the page table once,
+        before any dispatch, if a bind or retire changed it. The copy is
+        of a fresh host tensor, so later edits of the mirror cannot reach
+        a copy still in flight."""
+        if self.paged and self._table_dirty:
+            _upload(self._cache.table, torch.from_numpy(self._table_np.copy()))
+            self._table_dirty = False
 
     # ---- engine loop ------------------------------------------------
 
@@ -873,9 +1067,7 @@ class ServeEngine:
         # step upload the table once, before any dispatch. The copy is of
         # a fresh host tensor, so later edits of the mirror cannot reach
         # a copy still in flight.
-        if self.paged and self._table_dirty:
-            self._cache.table.copy_(torch.from_numpy(self._table_np.copy()))
-            self._table_dirty = False
+        self._sync_table()
 
         prev_pending = self._pending
         self._pending = []
@@ -903,30 +1095,20 @@ class ServeEngine:
             start = slot.prefill_pos
             live = min(width, len(req.prompt) - start)
             final = start + live == len(req.prompt)
-            buf = torch.zeros(width, dtype=torch.int64)
-            buf[:live] = torch.as_tensor(req.prompt[start : start + live])
             t0 = time.perf_counter()
-            buf = buf.to(self.device)
-            first = prefill_chunk(
-                self.model, self._cache, self._toks, self._seeds,
-                self._sample_steps, self._temps, self._top_ps,
-                i, buf, start, live, final,
-                req.seed, req.temperature, req.top_p,
-                # First chunk: self-contained causal attention; later
-                # chunks attend the full lane under the banded mask.
-                lane_attend=start != 0,
-            )
+            self._stage_chunk(width, req.prompt[start : start + live],
+                              i, start, final, req.seed, req.temperature,
+                              req.top_p)
+            # First chunk: self-contained causal attention; later chunks
+            # attend the full lane under the banded mask.
+            kind = "prefill_chunk" if start else "prefill_first"
+            self._program(kind, width).run()
             if self.spec_tokens:
                 # The same chunk into the draft's lane, never final: the
                 # request's first token is the target's draw. After a
                 # prefix hit the lane starts at ``matched``, as the
                 # target's does.
-                prefill_chunk(
-                    self.draft_model, self._draft_cache, *self._d_state,
-                    i, buf, start, live, False,
-                    req.seed, req.temperature, req.top_p,
-                    lane_attend=start != 0,
-                )
+                self._program("draft_" + kind, width).run()
             slot.prefill_pos = start + live
             chunk_tokens += live
             if traced:
@@ -945,7 +1127,7 @@ class ServeEngine:
             if final:
                 slot.emitted = 1
                 produced += 1
-                self._pending.append(("first", _snapshot(first), i))
+                self._pending.append(("first", _snapshot(self._toks[i]), i))
                 decode_lanes.append(i)
 
         emit_lanes = [
@@ -957,15 +1139,8 @@ class ServeEngine:
         if emit_lanes and self.spec_tokens:
             produced += self._spec_round(emit_lanes)
         elif emit_lanes:
-            reqs = [self._slots[i].request for i in emit_lanes]
             t0 = time.perf_counter()
-            self._toks = slot_decode_sample_step(
-                self.model, self._cache, self._toks, self._seeds,
-                self._sample_steps, self._temps, self._top_ps,
-                attn_impl=self._attn_impl,
-                sampling=any(r.temperature > 0 for r in reqs),
-                nucleus=any(r.temperature > 0 and r.top_p < 1 for r in reqs),
-            )
+            self._program("decode").run()
             self.decode_steps += 1
             if traced:
                 self._wait_device()
@@ -1044,33 +1219,22 @@ class ServeEngine:
     # ---- internals --------------------------------------------------
 
     def _draft_propose(self) -> torch.Tensor:
-        """γ greedy draft proposals per lane → [S, γ], on the device.
-        The first draft step adopts the target's positions (the draft
-        advanced γ last round, the target only as far as acceptance
-        went); every step is ``slot_decode_step`` on the draft's cache
-        (the flash-decode kernel B4 on the GPU)."""
-        self._draft_cache.pos.copy_(self._cache.pos)
-        t = self._toks
-        drafts = []
-        for _ in range(self.spec_tokens):
-            logits = slot_decode_step(self.draft_model, self._draft_cache,
-                                      t, attn_impl=self._attn_impl)
-            t = torch.argmax(logits, dim=-1)
-            drafts.append(t)
-        return torch.stack(drafts, dim=1)
+        """The ``draft_decode`` program → the [S, γ] greedy proposals
+        (``_drafts``), on the device. The first draft step adopts the
+        target's positions (the draft advanced γ last round, the target
+        only as far as acceptance went); every step is
+        ``slot_decode_step`` on the draft's cache (the flash-decode
+        kernel B4 on the GPU)."""
+        self._program("draft_decode").run()
+        return self._drafts
 
-    def _verify(self, drafts, reqs) -> torch.Tensor:
-        """One ``slot_verify_step`` of the target over ``drafts`` →
-        [S, γ + 1] int64 on the device: each lane's γ target tokens,
-        then its match count. ``_toks``, ``pos`` and the sampling steps
-        advance on the device."""
-        self._toks, target, matched = slot_verify_step(
-            self.model, self._cache, self._toks, drafts, self._seeds,
-            self._sample_steps, self._temps, self._top_ps,
-            sampling=any(r.temperature > 0 for r in reqs),
-            nucleus=any(r.temperature > 0 and r.top_p < 1 for r in reqs),
-        )
-        return torch.cat([target, matched[:, None]], dim=1)
+    def _verify(self) -> torch.Tensor:
+        """The ``spec_verify`` program (one ``slot_verify_step`` of the
+        target over ``_drafts``) → [S, γ + 1] int64 on the device: each
+        lane's γ target tokens, then its match count. ``_toks``, ``pos``
+        and the sampling steps advance on the device."""
+        self._program("spec_verify").run()
+        return self._verify_out
 
     def _spec_round(self, emit_lanes: list[int]) -> int:
         """One speculative round → tokens emitted (1..γ a lane): γ draft
@@ -1083,9 +1247,9 @@ class ServeEngine:
         # First-token scalars of THIS step's final chunks land before
         # the verify tokens: slot.tokens is in stream order.
         self._drain()
-        reqs = [self._slots[i].request for i in emit_lanes]
         t0 = time.perf_counter()
-        out = self._verify(self._draft_propose(), reqs).cpu().tolist()
+        self._draft_propose()
+        out = self._verify().cpu().tolist()
         round_dur = time.perf_counter() - t0
         self.decode_steps += 1
         produced = drafted = accepted = 0

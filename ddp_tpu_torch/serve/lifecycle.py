@@ -220,21 +220,29 @@ class StreamingRestore:
         self._thread.start()
         return self
 
-    def _copy_group(self, host: dict, group: list[str]) -> None:
+    def _copy_group(self, host: dict, group: list[str], stream) -> None:
         names = set(group)
-        for k, v in host.items():
-            if _child(k) in names:
-                self._state[k] = v.to(self.device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # resident, not queued
+        with torch.cuda.stream(stream):  # a no-op for None (the CPU)
+            for k, v in host.items():
+                if _child(k) in names:
+                    self._state[k] = v.to(self.device)
+        if stream is not None:
+            # Resident, not queued. The wait is on this thread's own
+            # stream, never the whole device: the engine may be
+            # capturing its step graphs meanwhile (warmup overlaps the
+            # restore), and a device-wide synchronize would meet the
+            # capture.
+            stream.synchronize()
 
     def _run(self) -> None:
+        stream = (torch.cuda.Stream(self.device)
+                  if self.device.type == "cuda" else None)
         try:
             host = self._mgr.read_params(self.epoch)
-            self._copy_group(host, self.admission_group)
+            self._copy_group(host, self.admission_group, stream)
             self.admission_ready_s = round(time.monotonic() - self._t0, 4)
             self._admission_evt.set()
-            self._copy_group(host, self.deep_group)
+            self._copy_group(host, self.deep_group, stream)
             missing = sorted(set(self._meta) - set(self._state))
             if missing:
                 raise RuntimeError(

@@ -29,9 +29,12 @@ observability routes, with the same JSON shapes:
                    → 503 swap_drain_timeout (the lanes never retired)
   GET  /healthz    → 200 {"ok": true, "slots", "active", "queue_depth",
                     "draining", "model_version"?, "models"?}
-  GET  /stats      → 200 engine.stats()
+  GET  /stats      → 200 engine.stats() (with ``compile_counts``: the
+                    step programs prepared, the static-shape pin as an
+                    observable)
   GET  /metricsz   → 200 Prometheus text (obs/promtext.render_serve) of
                     the default engine's stats, with up and draining
+                    (``ddp_tpu_serve_compiled_programs{program=...}``)
   GET  /statusz    → 200 {"ok", "draining", "stats" (with the summaries'
                     mergeable states), "models"? (each named engine's),
                     "trace": the span tracer's tail, a traceEvents doc}

@@ -366,6 +366,7 @@ def test_port_imports_no_jax():
     assert "ddp_tpu_torch.serve.__main__" in mods
     assert "ddp_tpu_torch.serve.pages" in mods  # the PrefixCache copy
     assert "ddp_tpu_torch.serve.lifecycle" in mods  # the reasons, the token
+    assert "ddp_tpu_torch.serve.programs" in mods  # the step programs
     for m in ("models.resnet", "models.vit", "data.cifar", "data.augment",
               "interop.jax_params"):  # the image families' modules
         assert f"ddp_tpu_torch.{m}" in mods

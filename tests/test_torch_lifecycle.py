@@ -266,7 +266,8 @@ def test_same_version_keeps_the_prefix_index_new_version_flushes(
     _close(srv)
 
 
-REAL_CHUNK, REAL_SAMPLE = engine_mod.prefill_chunk, gen.sample_slot_tokens
+REAL_CHUNK, REAL_SAMPLE = (engine_mod.prefill_chunk_device,
+                           gen.sample_slot_tokens)
 
 
 def _first_logits(engine):
@@ -276,7 +277,7 @@ def _first_logits(engine):
     real_chunk, real_sample = REAL_CHUNK, REAL_SAMPLE
 
     def chunk(*a, **kw):
-        slot, final = a[7], a[11]
+        slot, final = int(a[7]), bool(a[11])
         if not final:
             return real_chunk(*a, **kw)
 
@@ -313,7 +314,7 @@ def test_stale_prefix_control_fails_the_check(monkeypatch, ckpt_b,
     got = []
     for eng in (swapped, fresh):
         seen, chunk = _first_logits(eng)
-        monkeypatch.setattr(engine_mod, "prefill_chunk", chunk)
+        monkeypatch.setattr(engine_mod, "prefill_chunk_device", chunk)
         done = _run(eng, PROMPTS[1:], together=True)
         got.append(([c.tokens for c in done],
                     [seen[c.rid] for c in done],

@@ -211,9 +211,11 @@ def _serve_main(argv, traffic):
 
 
 def test_cli_every_flag_on(tmp_path):
-    """--reqtrace --slo --trace_dir --flight_dir --trace_rank: every
-    request's exported timeline validates with JAX's tools, the flight
-    dump loads with JAX's load_dump, /metricsz carries the SLO gauges."""
+    """--reqtrace --slo --trace_dir --flight_dir --trace_rank
+    --no_warmup: every request's exported timeline validates with JAX's
+    tools, the flight dump loads with JAX's load_dump, /metricsz carries
+    the SLO gauges; without warmup nothing is prepared before serving,
+    and the traffic prepares what it uses."""
     trace_dir, flight_dir = tmp_path / "trace", tmp_path / "flight"
 
     def traffic(url):
@@ -225,9 +227,12 @@ def test_cli_every_flag_on(tmp_path):
         ["--init_demo", "--reqtrace", "--slo",
          "ttft_p99<0.5s,tpot_p50<80ms,availability>0.999",
          "--trace_dir", str(trace_dir), "--trace_ring_events", "4096",
-         "--trace_rank", "2", "--flight_dir", str(flight_dir)], traffic)
+         "--trace_rank", "2", "--flight_dir", str(flight_dir),
+         "--no_warmup"], traffic)
     first = lines[0]
     assert first["reqtrace"] is True and first["slo"].startswith("ttft_p99")
+    assert set(first["compile_counts"].values()) == {0}
+    assert 'ddp_tpu_serve_compiled_programs{program="decode"} 1' in text
     assert first["build_info"]["backend"] == "cpu"
     validate_promtext(text)
     for obj in ("ttft_p99", "tpot_p50", "availability"):

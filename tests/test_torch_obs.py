@@ -10,7 +10,8 @@ JAX module on the same inputs:
   paged, speculative, lifecycle, SLO, request tracing, build_info):
   every sample line and ``# TYPE`` line is byte-identical to JAX's, and
   the ``# HELP`` lines differ only in HELP_DIFFERS (the lines that name
-  the stack).
+  the stack: build_info, and the compile gauges, CUDA graphs in the port
+  where JAX has jit cache entries).
 - ``parse_slo`` / ``parse_model_slos`` give the same objectives and the
   same ``ValueError`` messages; ``SLOEngine.state()`` equals JAX's after
   the same observations under an injected clock, and the breach hook
@@ -56,6 +57,10 @@ HELP_DIFFERS = {
     "# HELP ddp_tpu_build_info package/jax/backend provenance (value is "
     "always 1)": "# HELP ddp_tpu_build_info package/torch/backend "
     "provenance (value is always 1)",
+    "# HELP ddp_tpu_serve_compiled_programs jit cache entries (static-shape "
+    "pin observable)": "# HELP ddp_tpu_serve_compiled_programs step "
+    "programs prepared: CUDA graphs captured on the card, registered eager "
+    "programs elsewhere (static-shape pin observable)",
 }
 
 

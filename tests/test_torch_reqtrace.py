@@ -187,7 +187,8 @@ def test_tracing_changes_no_token(layout, tmp_path):
 
 def test_off_is_free_and_keeps_the_stats_schema(monkeypatch):
     """reqtrace off: no request tracer, no digest, no trace_id; the stats
-    keys are the untraced engine's plus build_info. Request tracing on
+    keys are the untraced engine's plus build_info and compile_counts
+    (JAX's /stats has both). Request tracing on
     (tracer off) never waits on the device; the measuring mode waits
     once a chunk or decode span."""
     waits = []
@@ -202,8 +203,8 @@ def test_off_is_free_and_keeps_the_stats_schema(monkeypatch):
         "slots", "active", "queue_depth", "steps", "decode_steps",
         "completed", "tokens_total", "ttft_s", "tpot_s", "queue_s",
         "decode_tokens_per_s", "step_latency_s", "rejects",
-        "requests_by_status", "build_info", "prefill", "decode_path",
-        "device"}
+        "requests_by_status", "build_info", "compile_counts", "prefill",
+        "decode_path", "device"}
     assert eng.tracer.snapshot()["traceEvents"] == []
     traced = ServeEngine(model, **KNOBS, reqtrace=True,
                          slo=SLOEngine("ttft_p99<1s"))

@@ -131,18 +131,20 @@ def test_engine_chunk_calls_self_attend_only_the_first_chunk(monkeypatch):
     (start, live, width) (0, 8, 8), (8, 8, 8), (16, 5, 8); only the
     first self-attends (lane_attend=False), as the JAX engine's
     first-chunk program does. At this model size int8 streams do not
-    show the difference, so the call itself is pinned."""
+    show the difference, so the call itself is pinned (the chunk
+    programs' device-scalar function, read as the engine calls it)."""
     import ddp_tpu_torch.serve.engine as engine_mod
 
     calls = []
-    real = engine_mod.prefill_chunk
+    real = engine_mod.prefill_chunk_device
 
     def spy(model, cache, *state_and_args, lane_attend):
         slot, chunk, start, live, final = state_and_args[5:10]
-        calls.append((start, live, chunk.shape[0], final, lane_attend))
+        calls.append((int(start), int(live), chunk.shape[0], bool(final),
+                      lane_attend))
         return real(model, cache, *state_and_args, lane_attend=lane_attend)
 
-    monkeypatch.setattr(engine_mod, "prefill_chunk", spy)
+    monkeypatch.setattr(engine_mod, "prefill_chunk_device", spy)
     _, _, model = make_pair(0)
     eng = ServeEngine(model, slots=2, prefill_len=24, prefill_chunk=8,
                       min_bucket=4, kv_dtype="int8")

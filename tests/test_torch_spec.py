@@ -532,11 +532,11 @@ def test_speculative_paged_identity():
                    spec_tokens=K, decode_attn="reference")
     plain = ServeEngine(model, slots=2, prefill_len=8)
     starts = []
-    real = engine_mod.prefill_chunk
+    real = engine_mod.prefill_chunk_device
 
     def spy(m, *a, **kw):
         if m is dmodel:
-            starts.append(a[8])  # the chunk's start
+            starts.append(int(a[8]))  # the chunk's start
         return real(m, *a, **kw)
 
     got = _serve(eng, cases)
@@ -544,7 +544,7 @@ def test_speculative_paged_identity():
     assert got == want
     assert got[0] == _serve(jeng, cases[:1])[0]
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(engine_mod, "prefill_chunk", spy)
+        mp.setattr(engine_mod, "prefill_chunk_device", spy)
         (toks,) = _serve(eng, hit)
     done = eng.result(max(eng._completed))
     assert done.prefix_hit_tokens == 4 and starts == [4]
