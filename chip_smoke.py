@@ -145,6 +145,27 @@ order; any failure exits non-zero and prints no result:
    fixed-lane fp32 decode step p50/p99 eager against graphs in turns
    ABBA over 64 steps, the stream's span of each step (CUDA events),
    and the busy share of each from torch.profiler, beside the card.
+4g. MoE serving at bench.py decode_moe's width (phase 4's model with 2 KV
+   heads and 8 experts, top-2, normalised gates, every 2nd block routed;
+   seeded weights): phase 4's REQUESTS as one fixed schedule on
+   fixed-lane fp32 and int8 and paged fp32 (page 16) engines, each warmed
+   up as CUDA graphs under the sync debug mode "error" with JAX's counts;
+   every stream, greedy and seeded, equal eager against graphs; the
+   greedy streams through the kernel equal decode_attn="reference" on the
+   same schedule, near ties excepted; counters set to 0 after warmup and
+   read after: B4 / B5 / B4p = decode steps x depth exactly, every launch
+   a replay's, nothing routed. γ 4 with truncated_draft(model, 4) (routed
+   blocks 2 and 4): streams equal the plain graph engine's, B4 = rounds x
+   γ x 4. The control: the same weights serving top-1 (the second choice
+   dropped from the combine) must fail the stream check. Not gated: the
+   steady 8-lane fp32 step p50/p99 with graphs against the dense phase-4
+   model in turns ABBA, and the busy share of each.
+4h. The MoE layer (models/moe.py) at d 1024, F 4096, 8 experts, top-2, n
+   2048: the index form the models run against the one-hot plain
+   version, fp32 (TF32 off) and bf16, capacity factors 0.5 (drops) and
+   2.0: the experts' input buffer bit for bit in fp32; output, aux, the
+   input gradient and each parameter's gradient within MOE_LAYER_TOL; a
+   dispatch that ignores the capacity must fail; fwd+bwd times of both.
 3b. (Runs after 4, so that its large allocations come after the serving
    run's timings.) The flash-attention kernels B1 (forward), B2 (dQ) and
    B3 (dK/dV), bf16 and fp32, against their plain versions: out, lse and
@@ -179,6 +200,18 @@ order; any failure exits non-zero and prints no result:
    gradient, STEP_TOL; a B3 that drops a dK tile must fail the same
    limits); then the fp32 variant at depth 2. Both write checkpoints to a
    temporary directory each (phase 8a), which phase 8 serves.
+5m. (Runs after 8e, on the same temporary directories.) The MoE causal LM
+   trained through main() at run_lm_bench's width with --moe_experts 8
+   --moe_every 2 --moe_top_k 2 --num_kv_heads 2 (bf16, 2 epochs of 6
+   steps, --max_checkpoints 1): each of B1-B3 at least depth x steps,
+   nothing routed; losses finite and falling; the reported loss is CE +
+   0.01 x the mean aux; the sidecar carries the routing; one step through
+   the kernels against the plain attention within STEP_TOL, routing held
+   to the kernel step's (a near-tie token would otherwise route to
+   another expert on the attention's rounding; the count is printed), and
+   a dropped dK tile must fail it; --epochs 3 resumes epoch 1's
+   parameters and Adam moments bit for bit; step p50, tokens/s, est. MFU
+   by JAX's active-expert flops, busy share and B1-B3's share.
 6. The reference trainer's main path (train.py --epochs 3 --batch_size
    64, which BASELINE.json measures): ``python -m ddp_tpu_torch.train
    --model simple_cnn``'s own main() on the synthetic split at MNIST's
@@ -227,6 +260,11 @@ order; any failure exits non-zero and prints no result:
    loss (running averages) against a train-mode forward's; images/s,
    step p50 and busy share, then the same figures in bf16. No kernel of
    the repo lies on ResNet (its convs are cuDNN's).
+   7c: vit_moe_tiny (8 experts, top-2, every 2nd of 12 blocks routed, 64
+   tokens) on CIFAR-100 with 7a's recipe: launch counters, falling
+   losses, a bit-exact resume, one step through the kernels against the
+   plain attention (7a's limits and controls; routing held to the kernel
+   step's, as 5m); step p50, images/s and busy share.
 8. (Runs right after 5, on its checkpoints: about 3.1 GB, removed at the
    end of the phase; check_lm_phases runs 5a, 5 and 8 alone.) From
    training to serving. It prints its wall seconds.
@@ -271,7 +309,16 @@ order; any failure exits non-zero and prints no result:
    8e: main() with --streaming_restore --stream_layers 1 on epoch 1: the
    streams equal 8b's fresh engine's; seconds to admission, to full
    residency and of the monolithic restore printed.
-9. A "kernels" JSON line, the card line, and the last line
+   8f (after 5m): main() with --checkpoint_dir <5m> --page_size 16 on
+   lm_prompts traffic: streams equal an in-process fixed-lane engine's on
+   the restored weights (near ties excepted), B4p = decode steps x depth,
+   nothing else; POST /reload of the dense bf16 directory answers 409
+   spec_skew; where the training forward dropped no token, the served
+   prompt's last-position logits equal train_forward's (fp32) within
+   MOE_LOGITS_ATOL. 5m's checkpoint is removed at the end.
+9. A "kernels" JSON line (each decode kernel's launches on the MoE path,
+   moe_launches, beside its own; B1-B3's in 5m and 7c), the card line,
+   and the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -1850,15 +1897,16 @@ def spec_requests() -> dict:
 
 
 def spec_streams(torch, model, prompts, *, kv_dtype, draft=None,
-                 cases=None, watch=None, warmup=False,
+                 cases=None, watch=None, warmup=False, sync_error=False,
                  **engine_kw) -> tuple[dict, object]:
     """``cases`` (index → (prompt_len, new tokens, sampling); default
     spec_requests()) submitted at once and run to idle in-process under
     SPEC_BUDGET, speculative with ``draft`` at SPEC_GAMMA or plain
     without one (other engine knobs in ``engine_kw``); ``warmup``
-    prepares the program set first and then sets the decode counters to
-    0; ``watch(engine)`` is called before the first step → ({index:
-    tokens}, engine)."""
+    prepares the program set first (``sync_error``: under torch's sync
+    debug mode "error", which raises at a host sync inside a captured
+    step) and then sets the decode counters to 0; ``watch(engine)`` is
+    called before the first step → ({index: tokens}, engine)."""
     from ddp_tpu_torch.ops import decode as dec
     from ddp_tpu_torch.serve.engine import ServeEngine
 
@@ -1868,7 +1916,16 @@ def spec_streams(torch, model, prompts, *, kv_dtype, draft=None,
                          kv_dtype=kv_dtype, step_token_budget=SPEC_BUDGET,
                          max_queue=len(cases), **knobs, **engine_kw)
     if warmup:
-        engine.warmup()
+        if sync_error:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            counts = engine.warmup()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if counts != _expected_counts(engine) or not engine.cuda_graphs:
+            raise AssertionError(f"warmup() {counts}, want "
+                                 f"{_expected_counts(engine)}, graphs "
+                                 f"{engine.cuda_graphs}")
         _zero_decode_counters(dec)
     if watch:
         watch(engine)
@@ -2912,6 +2969,295 @@ def check_graphs(torch, card) -> dict:
             "tokens_per_s": spec_readings["tokens_per_s"]}
 
 
+# ---- phase 4g: MoE serving at bench.py decode_moe's width ----------------
+
+# bench.py decode_moe, run_decode_bench(num_kv_heads=2, num_experts=8)
+# (bench.py:3537-3538, 600-629): phase 4's model with 2 KV heads and 8
+# experts, top-2, normalised gates, routing every 2nd block's MLP.
+MOE_FULL = dict(FULL, num_kv_heads=2, num_experts=8)
+MOE_RUNS = {"fp32": {"kv_dtype": "fp32"}, "int8": {"kv_dtype": "int8"},
+            "paged fp32": {"kv_dtype": "fp32", "page_size": SERVE_PAGE}}
+
+
+def check_moe_runs(torch, model, prompts) -> tuple[dict, dict, list]:
+    """Phase 4g (a)-(c): phase 4's REQUESTS as one fixed schedule on the
+    MoE model, fixed-lane fp32 and int8 and paged fp32 (page 16): eager
+    (``cuda_graphs=False``) against graphs (warmed up under the sync debug
+    mode "error", JAX's warmup counts, counters set to 0 after), every
+    stream equal token for token; the graph run's counters equal its
+    replays' and decode steps x depth, nothing routed; then the greedy
+    streams through the kernel against ``decode_attn="reference"`` on the
+    same schedule, near ties excepted (phase 4's rule) → (launches by
+    kernel, fp32 graph streams, failures)."""
+    from ddp_tpu_torch.ops import decode as dec
+
+    cases = dict(enumerate(REQUESTS))
+    greedy = {i for i, (_, _, smp) in cases.items() if not smp}
+    launched, failed, fp32 = {}, [], {}
+    for label, kw in MOE_RUNS.items():
+        eager, _ = spec_streams(torch, model, prompts, cases=cases,
+                                cuda_graphs=False, **kw)
+        got, engine = spec_streams(torch, model, prompts, cases=cases,
+                                   warmup=True, sync_error=True, **kw)
+        launches, bad = _graph_launch_failures(dec, engine, f"4g {label}")
+        steps = engine.decode_steps
+        parted, bad_ref = 0, []
+        if "page_size" not in kw:  # phase 4's pair: fp32 and int8
+            ref, _ = spec_streams(torch, model, prompts, cases=cases,
+                                  decode_attn="reference", warmup=True, **kw)
+            parted, bad_ref = _stream_failures(
+                torch, model, prompts, {i: got[i] for i in greedy},
+                {i: ref[i] for i in greedy}, kw["kv_dtype"], f"4g {label}")
+        same = sum(got[i] == eager[i] for i in cases)
+        log(f"[moe] (b) {label}: {same}/{len(cases)} graph streams equal the "
+            f"eager engine's token for token; greedy kernel vs reference "
+            + (f"{len(greedy) - parted}/{len(greedy)} identical, {parted} "
+               f"parted at a near tie" if "page_size" not in kw else
+               "not run (fixed-lane only)")
+            + f"; {steps} decode steps, launches {launches} "
+            f"(replays x per-replay {engine._programs.replayed_counts()}); "
+            f"compile_counts {engine.compile_counts()}")
+        if same != len(cases):
+            bad.append(f"(b) {label}: {len(cases) - same} streams differ")
+        if engine.compile_counts() != _expected_counts(engine):
+            bad.append(f"(b) {label}: the traffic added programs")
+        failed += bad + bad_ref
+        for k, n in launches.items():
+            if k != "routed" and n:
+                launched[k] = launched.get(k, 0) + n
+        if label == "fp32":
+            fp32 = got
+        del engine
+    return launched, fp32, failed
+
+
+def check_moe_spec_and_control(torch, model, prompts, fp32) -> tuple[int, list]:
+    """Phase 4g (d): γ SPEC_GAMMA speculation with ``truncated_draft(model,
+    DRAFT_DEPTH)`` (routed blocks 2 and 4) through the draft_decode and
+    spec_verify graphs (warmed up under the sync debug mode "error", as
+    (b)'s engines): streams equal the plain graph engine's (near
+    ties by replay_gap), B4 = rounds x γ x draft depth. (e) the control:
+    the same weights serving top-1 (the second choice dropped from the
+    combine) must fail phase 4's stream check against the top-2 graph
+    streams → (B4 launches, failures)."""
+    from ddp_tpu_torch.models.lm import CausalLM, truncated_draft
+    from ddp_tpu_torch.ops import decode as dec
+
+    draft = truncated_draft(model, DRAFT_DEPTH)
+    routed = [i + 1 for i in range(DRAFT_DEPTH) if draft.spec.routed(i)]
+    sampling = {i: smp for i, (_, _, smp) in enumerate(REQUESTS) if smp}
+    want, _ = spec_streams(torch, model, prompts, kv_dtype="fp32",
+                           warmup=True)
+    got, engine = spec_streams(torch, model, prompts, kv_dtype="fp32",
+                               draft=draft, warmup=True, sync_error=True)
+    launches, failed = _graph_launch_failures(dec, engine, "4g spec")
+    parted, bad = _stream_failures(torch, model, prompts, got, want, "fp32",
+                                   "4g spec", sampling)
+    failed += bad
+    log(f"[moe] (d) γ {SPEC_GAMMA}, truncated draft of depth {DRAFT_DEPTH} "
+        f"(routed blocks {routed}): {len(got) - parted}/{len(got)} streams "
+        f"identical to the plain graph engine's, {parted} parted at a near "
+        f"tie; {engine.decode_steps} rounds, launches {launches}, "
+        f"acceptance {engine.spec_acceptance_rate()}")
+    if routed != [2, 4]:
+        failed.append(f"(d) the draft routes blocks {routed}")
+    b4 = launches["flash_decode_fp32"]
+    del engine
+    control = CausalLM.from_state(model.spec._replace(moe_top_k=1),
+                                  model.state_dict())
+    greedy = {i: c for i, c in enumerate(REQUESTS) if not c[2]}
+    top1, _ = spec_streams(torch, control, prompts, kv_dtype="fp32",
+                           cases=greedy, warmup=True)
+    del control
+    n_parted, bad = _stream_failures(torch, model, prompts, top1,
+                                     {i: fp32[i] for i in greedy}, "fp32",
+                                     "4g control top-1")
+    log(f"[moe] (e) control, top-1 combine on the same weights: "
+        f"{n_parted}/{len(greedy)} greedy streams part from top-2's, "
+        f"{len(bad)} past a near tie (must be > 0)")
+    if not bad:
+        failed.append("(e) the stream check passes a top-1 combine")
+    return b4, failed
+
+
+def time_moe_steps(torch, model, card) -> dict:
+    """Phase 4g (f), not gated: steady 8-lane fixed-lane fp32 decode step
+    p50/p99 with graphs, the MoE model against phase 4's dense model (the
+    same seed), in turns ABBA over GRAPH_STEPS steps; then the busy share
+    of each from torch.profiler → readings."""
+    from ddp_tpu_torch.models.lm import LMSpec, init_lm
+    from ddp_tpu_torch.utils.metrics import StatSummary
+
+    dense = init_lm(LMSpec(**FULL), seed=0)
+    models = {"moe": model, "dense": dense}
+    out = {"moe": [], "dense": []}
+    for label in ("moe", "dense", "dense", "moe"):
+        engine = steady_engine(torch, models[label])
+        engine.step_latency = StatSummary()
+        for _ in range(GRAPH_STEPS):
+            engine.step()
+        torch.cuda.synchronize()
+        if engine.decode_steps < GRAPH_STEPS or engine.active != SLOTS:
+            raise AssertionError("phase 4g (f): a timed step did not decode "
+                                 "every lane")
+        out[label].append({"p50_ms": engine.step_latency.percentile(50) * 1e3,
+                           "p99_ms": engine.step_latency.percentile(99) * 1e3})
+        del engine
+    prof = {label: profile_steps(torch, m, steps=GRAPH_STEPS,
+                                 label=f", {label}")
+            for label, m in models.items()}
+    del dense, models
+    torch.cuda.empty_cache()
+    log(f"[moe] (f) {card}; steady 8-lane fp32 decode step with graphs over "
+        f"{GRAPH_STEPS} steps, turns ABBA (moe, dense, dense, moe): "
+        + "; ".join(f"{k}: " + ", ".join(
+            f"p50 {r['p50_ms']:.4f} ms p99 {r['p99_ms']:.4f} ms" for r in v)
+            for k, v in out.items())
+        + "; torch.profiler busy share / kernel µs a step / kernels a step: "
+        + ", ".join(f"{k} {v.get('busy')} / {v.get('kernel_us_per_step')} / "
+                    f"{v.get('kernels_per_step')}" for k, v in prof.items()))
+    return {"turns": out, "profile": prof}
+
+
+def check_moe_serving(torch, card) -> dict:
+    """Phase 4g: the MoE causal LM served at decode_moe's width from
+    seeded weights → {"launches": graph launches by kernel, "b4_spec":
+    (d)'s B4 launches, "timing": (f)}."""
+    from ddp_tpu_torch.models.lm import LMSpec, init_lm
+
+    t0 = time.perf_counter()
+    spec = LMSpec(**MOE_FULL)
+    model = init_lm(spec, seed=0)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, spec.vocab_size, n).tolist()
+               for n, _, _ in REQUESTS]
+    log(f"[moe] {card}; {sum(p.numel() for p in model.parameters()) / 1e6:.1f}"
+        f" M params, routed blocks "
+        f"{[i + 1 for i in range(spec.depth) if spec.routed(i)]}")
+    launched, fp32, failed = check_moe_runs(torch, model, prompts)
+    b4, bad = check_moe_spec_and_control(torch, model, prompts, fp32)
+    failed += bad
+    timing = time_moe_steps(torch, model, card)
+    log(f"[moe] phase 4g wall {time.perf_counter() - t0:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"phase 4g: {failed}")
+    return {"launches": launched, "b4_spec": b4, "timing": timing}
+
+
+# ---- phase 4h: the MoE layer, index form against its plain version --------
+
+# The layer at the training forward's width (d 1024, F 4096, 8 experts,
+# top-2) at n 2048 tokens, where the one-hot plain version's [n, E, C]
+# tensors fit: relative norm error of the output, the aux loss, the input
+# gradient and each parameter's gradient. fp32 (TF32 off): the dispatch is
+# a selection (bit for bit), the combine sums ≤ 2 products in another
+# order; bf16: the combine's one rounding, as the einsum's.
+MOE_LAYER = dict(n=2048, d=1024, mlp=4096, experts=8, top_k=2)
+MOE_LAYER_TOL = {"fp32": 1e-5, "bf16": 1e-2}
+
+
+def _moe_layer_run(torch, layer, x, dy, form, dt, wrong=False):
+    """One forward and backward of ``layer`` (weights cast to ``dt``) →
+    {"y", "aux", "x", <parameter>: gradient}; ``wrong``: a dispatch that
+    ignores the capacity (every assignment kept, its slot modulo C)."""
+    from ddp_tpu_torch.models import moe
+
+    layer.zero_grad()
+    xt = x.to(dt).detach().requires_grad_()
+    w = layer.weights(dt)
+    tokens = xt.reshape(-1, xt.shape[-1])
+    r = moe.route(tokens, w["router.weight"], w["router.bias"],
+                  num_experts=layer.num_experts, top_k=layer.top_k,
+                  capacity_factor=layer.capacity_factor,
+                  normalize_gates=layer.normalize_gates)
+    if wrong:
+        r = r._replace(kept=torch.ones_like(r.kept), slot=r.slot % r.capacity)
+    y = moe.combine(moe._ffn(moe.dispatch(tokens, r, layer.num_experts, form),
+                             w), r, form)
+    ((y.float() * dy).sum() + r.aux).backward()
+    out = {"y": y.detach().float(), "aux": r.aux.detach().reshape(1),
+           "x": xt.grad.float(), "kept": float(r.kept.float().mean())}
+    out.update((n, p.grad.float()) for n, p in layer.named_parameters())
+    return out
+
+
+def check_moe_layer(torch, device="cuda") -> dict:
+    """Phase 4h: the MoE layer's index form (the models' path) against the
+    one-hot plain version on the card, fp32 and bf16, at capacity factors
+    0.5 (drops) and 2.0: the experts' input buffer bit for bit in fp32,
+    the output, aux and every gradient within MOE_LAYER_TOL; a dispatch
+    that ignores the capacity must fail at 0.5; then fwd+bwd times of
+    both forms → readings."""
+    from ddp_tpu_torch.models import moe
+
+    c = MOE_LAYER
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(1, c["n"], c["d"], device=device, generator=gen)
+    dy = torch.randn(1, c["n"], c["d"], device=device, generator=gen)
+    failed, readings = [], {}
+    layer = moe.MoEMLP(c["d"], c["mlp"], c["experts"], top_k=c["top_k"])
+    state = {}
+    moe.moe_init(state, "", np.random.default_rng(7), dim=c["d"],
+                 mlp_dim=c["mlp"], num_experts=c["experts"])
+    layer.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    layer = layer.to(device)
+    for cf in (0.5, 2.0):
+        layer.capacity_factor = cf
+        for dname, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            runs = {form: _moe_layer_run(torch, layer, x, dy, form, dt)
+                    for form in moe.FORMS}
+            if dname == "fp32":
+                w = layer.weights()
+                toks = x.reshape(-1, c["d"])
+                r = moe.route(toks, w["router.weight"], w["router.bias"],
+                              num_experts=c["experts"], top_k=c["top_k"],
+                              capacity_factor=cf, normalize_gates=True)
+                exact = torch.equal(moe.dispatch(toks, r, c["experts"]),
+                                    moe.dispatch(toks, r, c["experts"],
+                                                 "onehot"))
+                if not exact:
+                    failed.append(f"cf {cf}: the fp32 dispatch differs")
+            want = runs["onehot"]
+            errs = {k: float((runs["indexed"][k] - v).norm()
+                             / v.norm().clamp_min(1e-30))
+                    for k, v in want.items() if k != "kept"}
+            worst = max(errs.items(), key=lambda kv: kv[1])
+            tol = MOE_LAYER_TOL[dname]
+            log(f"[moe] (4h) cf {cf} {dname}: kept {want['kept']:.4f}, "
+                f"capacity {moe.expert_capacity(c['n'], c['experts'], c['top_k'], cf)}; "
+                f"index vs one-hot rel errors y {errs['y']:.2e}, aux "
+                f"{errs['aux']:.2e}, dx {errs['x']:.2e}, router "
+                f"{errs['router.weight']:.2e}, wi {errs['wi']:.2e}, wo "
+                f"{errs['wo']:.2e}; worst {worst[0]} {worst[1]:.2e} (limit "
+                f"{tol})" + (f"; fp32 dispatch bit for bit: {exact}"
+                             if dname == "fp32" else ""))
+            if worst[1] > tol:
+                failed.append(f"cf {cf} {dname}: {worst}")
+            if cf == 0.5 and dname == "fp32":
+                wrong = _moe_layer_run(torch, layer, x, dy, "indexed", dt,
+                                       wrong=True)
+                e = float((wrong["y"] - want["y"]).norm() / want["y"].norm())
+                log(f"[moe] (4h) control, a dispatch that ignores the "
+                    f"capacity: output rel error {e:.2e} (must exceed {tol})")
+                if e <= tol:
+                    failed.append("the check passes a dispatch that ignores "
+                                  "the capacity")
+            if cf == 2.0:
+                for form in moe.FORMS:
+                    readings[f"{dname}_{form}_ms"] = _median_ms(
+                        torch, lambda f=form: _moe_layer_run(
+                            torch, layer, x, dy, f, dt), n=3, reps=3)
+    del layer
+    log(f"[moe] (4h) fwd+bwd ms at n {c['n']}, cf 2.0 (route, dispatch, "
+        f"FFN, combine, backward): {readings}")
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"phase 4h: {failed}")
+    return readings
+
+
 # ---- phase 5: the training slice end to end ----------------------------
 
 # The repo's full-width training configuration (bench.py run_lm_bench:
@@ -2939,17 +3285,77 @@ STEP_TOL = {"bf16": dict(loss=1e-5, grad=1e-2, leaf=2e-2, attn=2e-2),
 
 
 def _lm_flops_per_token(spec) -> float:
-    """Training flops per token, bench.py run_lm_bench's estimate: 6·N
-    (tied embedding counted once) + causal attention 3.5 × 2 matmuls ×
-    T/2 keys × d × depth."""
+    """Training flops per token. A dense MHA model: bench.py
+    run_lm_bench's estimate, 6·N (tied embedding counted once) + causal
+    attention 3.5 × 2 matmuls × T/2 keys × d × depth. Under GQA or MoE:
+    the structural count of ``ddp_tpu/obs/goodput.py:160-252`` (copied):
+    3 × (the kv-narrowed qkv, the projection, the two causal attention
+    matmuls, and the MLP — in a routed block top_k experts' worth plus
+    the router: the ACTIVE flops, not the capacity buffer's) + the tied
+    head."""
     d, T = spec.d_model, spec.total_len
-    n_params = spec.depth * 12 * d * d + spec.vocab_size * d
-    return 6 * n_params + 3.5 * 2 * 2 * (T / 2) * d * spec.depth
+    if not (spec.num_experts or spec.num_kv_heads):
+        n_params = spec.depth * 12 * d * d + spec.vocab_size * d
+        return 6 * n_params + 3.5 * 2 * 2 * (T / 2) * d * spec.depth
+    fwd = 0.0
+    for i in range(spec.depth):
+        qkv = 2.0 * d * d * (spec.num_heads + 2 * spec.kv_heads) / spec.num_heads
+        attn = 2.0 * 2.0 * (T / 2) * d
+        mlp = 2.0 * 2.0 * spec.mlp_ratio * d * d
+        if spec.routed(i):
+            mlp = spec.moe_top_k * mlp + 2.0 * d * spec.num_experts
+        fwd += qkv + 2.0 * d * d + attn + mlp
+    return 3.0 * (fwd + 2.0 * d * spec.vocab_size)
 
 
 def _zero(counts: dict) -> None:
     for k in counts:
         counts[k] = 0
+
+
+@contextlib.contextmanager
+def fixed_routing(torch, record: list, flips: list):
+    """While open, every routed block's ``models.moe.route`` call is
+    recorded in ``record`` (when ``record`` is empty at entry), or, in a
+    later block of the same calls, takes the recorded decisions (each
+    token's experts, slots, and which were kept) of the call at its
+    position, its gates and aux recomputed from its own router; the
+    decisions it would have taken otherwise that differ are counted into
+    ``flips``. A step check compares attention paths: a token whose top-2
+    gates are a near tie routes to another expert on a 1e-3 change of its
+    input, which moves that expert's gradient by the token's share, not
+    by an attention error. Nothing is recorded for a dense model."""
+    from ddp_tpu_torch.models import moe
+
+    real, replay, calls = moe.route, bool(record), [0]
+
+    def route(tokens, router_weight, router_bias, *, num_experts, top_k,
+              capacity_factor, normalize_gates):
+        r = real(tokens, router_weight, router_bias, num_experts=num_experts,
+                 top_k=top_k, capacity_factor=capacity_factor,
+                 normalize_gates=normalize_gates)
+        if not replay:
+            record.append(r)
+            return r
+        old = record[calls[0]]
+        calls[0] += 1
+        flips.append(int((r.expert != old.expert).sum()))
+        gates = torch.softmax(torch.nn.functional.linear(
+            tokens.float(), router_weight.float(), router_bias.float()), -1)
+        gate = torch.stack([gates.gather(-1, e[:, None])[:, 0]
+                            for e in old.expert]) * old.kept
+        if normalize_gates:
+            gate = gate / torch.clamp(gate.sum(0, keepdim=True), min=1e-9)
+        first = (old.expert[0][:, None]
+                 == torch.arange(num_experts, device=tokens.device)).float()
+        aux = num_experts * torch.sum(gates.mean(0) * first.mean(0))
+        return old._replace(gates=gate, aux=aux)
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = real
 
 
 def _step_grads(torch, trainer, toks, block_fn):
@@ -3028,24 +3434,35 @@ def compare_step(torch, trainer, dname, *, batch=2) -> None:
 
     toks = trainer.tokens[:batch]
     tol = STEP_TOL[dname]
-    kernel = _step_grads(torch, trainer, toks, None)
+    routes, flips = [], []
+    with fixed_routing(torch, routes, flips):
+        kernel = _step_grads(torch, trainer, toks, None)
     _zero(fl.flash_attention.launches)
-    plain = _step_grads(torch, trainer, toks, fl.attention_with_lse_reference)
+    with fixed_routing(torch, routes, flips):
+        plain = _step_grads(torch, trainer, toks,
+                            fl.attention_with_lse_reference)
     e = _grad_errors(kernel, plain)
     log(f"[train] {dname} one step, kernel vs plain attention (batch "
         f"{batch}): loss {kernel[0]:.6f} vs {plain[0]:.6f}; {_errors_text(e)} "
-        f"(tolerances {tol})")
+        f"(tolerances {tol})"
+        + (f"; routing held to the kernel step's, routed blocks' own "
+           f"choices would differ at {flips} of {toks.numel() * 2} "
+           f"(token, k) per block" if routes else ""))
     failed = [] if _within(e, tol) else ["the kernel step disagrees"]
     del kernel
-    e = _grad_errors(_step_grads(torch, trainer, toks, dropped_dk),
-                     plain)
+    with fixed_routing(torch, routes, []):
+        dropped = _step_grads(torch, trainer, toks, dropped_dk)
+    e = _grad_errors(dropped, plain)
+    del dropped
     log(f"[train] {dname} control, dK tile dropped vs plain: "
         f"{_errors_text(e)}")
     if _within(e, tol):
         failed.append("the check passes a B3 that drops a dK tile")
     if dname == "bf16":
-        e = _grad_errors(_step_grads(torch, trainer, toks, low_precision),
-                         plain)
+        with fixed_routing(torch, routes, []):
+            low = _step_grads(torch, trainer, toks, low_precision)
+        e = _grad_errors(low, plain)
+        del low
         log(f"[train] bf16 reading, attention in bf16 throughout vs plain "
             f"(not a limit): {_errors_text(e)}")
     if any(fl.flash_attention.launches.values()):
@@ -4017,10 +4434,13 @@ def check_streaming_restore(torch, bf16_dir, want, model1) -> dict:
 
 
 def check_lm_phases(torch, card) -> tuple[dict, dict]:
-    """Phases 5a, 5 (with 8a) and 8b-8e on one set of temporary
-    directories: phase 5's checkpoints (about 3.1 GB) live until phase 8
-    has served them → (phase 5's launch counts, phase 8's readings)."""
+    """Phases 5a, 5 (with 8a), 8b-8e, then 5m and 8f on one set of
+    temporary directories: phase 5's checkpoints (about 3.1 GB) live until
+    phase 8 has served them (8f's reload of the dense one included); 5m's
+    (about 4 GB, one epoch kept) are removed once 8f has served them →
+    (phase 5's launch counts with 5m's, phase 8's readings with 8f's)."""
     import os
+    import shutil
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
@@ -4030,7 +4450,15 @@ def check_lm_phases(torch, card) -> tuple[dict, dict]:
         trained = check_training(torch, dirs)
         log(f"[phase 8] 8a (the checkpoints and the resume, inside phase 5) "
             f"and phase 5: {time.perf_counter() - t0:.1f} s")
-        return trained, check_lm_serving(torch, card, dirs)
+        served = check_lm_serving(torch, card, dirs)
+        t0 = time.perf_counter()
+        moe_dir = os.path.join(tmp, "moe")
+        trained["moe"] = check_moe_training(torch, card, moe_dir)
+        served["moe_b4p"] = check_moe_served(torch, moe_dir,
+                                             dirs["bf16"])["b4p"]
+        shutil.rmtree(moe_dir)
+        log(f"[phase 8] 5m and 8f: {time.perf_counter() - t0:.1f} s")
+        return trained, served
 
 
 def check_lm_serving(torch, card, dirs) -> dict:
@@ -4053,6 +4481,281 @@ def check_lm_serving(torch, card, dirs) -> dict:
     return {"b4p": swap["b4p"], "b4": draft["b4"],
             "acceptance": draft["acceptance"], "reload": swap["reload"],
             "stream": stream}
+
+
+# ---- phases 5m and 8f: the MoE causal LM from training to serving --------
+
+# run_lm_bench's width (TRAIN_ARGS) with decode_moe's routing: 8 experts in
+# every 2nd block, top-2, 2 KV heads; one epoch of 6 steps, then a second
+# by resuming. One epoch's checkpoint with its Adam moments is about 4 GB,
+# so only the latest is kept (it is what 8f serves).
+TRAIN_MOE_ARGS = TRAIN_ARGS + ["--moe_experts", "8", "--moe_every", "2",
+                               "--moe_top_k", "2", "--num_kv_heads", "2",
+                               "--max_checkpoints", "1"]
+TRAIN_MOE_ARGS[TRAIN_MOE_ARGS.index("--epochs") + 1] = "1"
+# 8f: the served prompt's last-position logits (the serving forward, fp32)
+# against train_forward's (fp32, capacity routing, B1 through its fp32
+# kernel) where the training forward dropped no token.
+MOE_LOGITS_ATOL = 1e-3
+
+
+def _aux_in_reported_loss(torch, trainer) -> tuple[float, float, float]:
+    """The step's reported loss against CE + aux_loss_weight · mean aux
+    of the same forward, from a copy of the trained weights on the first
+    batch (lr 0) → (reported, CE, aux)."""
+    from ddp_tpu_torch.models.lm import (
+        CausalLM,
+        make_lm_train_step,
+        next_token_loss,
+    )
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    toks = trainer.tokens[:trainer.config.batch_size]
+    model = CausalLM.from_state(trainer.spec, {
+        k: v.detach().clone() for k, v in trainer.model.state_dict().items()},
+        trainer.device, trainable=True)
+    with torch.no_grad():
+        logits, aux = model.train_forward(
+            toks, compute_dtype=trainer.compute_dtype, return_aux=True)
+        ce = float(next_token_loss(logits, toks))
+    m = make_lm_train_step(model, make_optimizer(model.parameters(), "sgd",
+                                                 lr=0.0),
+                           compute_dtype=trainer.compute_dtype)(toks)
+    out = float(m.loss), ce, float(aux)
+    del model, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_moe_resume(torch, args):
+    """Phase 5m's second epoch: the command again with ``--epochs 2``
+    resumes epoch 0 (its log line; the only epoch kept), trains epoch 1
+    alone, and the parameters and Adam moments it restored equal the
+    file's bit for bit (compared at the restore: the save of epoch 1
+    removes epoch 0) → (trainer, failures)."""
+    from ddp_tpu_torch.train.checkpoint import CheckpointManager
+    from ddp_tpu_torch.train.trainer import main as train_main
+
+    args = list(args)
+    args[args.index("--epochs") + 1] = "2"
+    real, seen = CheckpointManager.restore, []
+
+    def restore(self, state, epoch=None):
+        out = real(self, state, epoch)
+        blob = self.read(out)
+        opt = state.optimizer.state_dict()
+        seen.append((out, [k for k, v in state.model.state_dict().items()
+                           if not torch.equal(v.cpu(), blob["params"][k])],
+                     [(k, i) for k in ("mu", "nu") for i, (a, b) in
+                      enumerate(zip(opt[k], blob["opt_state"][k]))
+                      if not torch.equal(a.cpu(), b)],
+                     opt["count"] == blob["opt_state"]["count"]))
+        del blob
+        return out
+
+    log(f"[moe-train] python -m ddp_tpu_torch.train {' '.join(args)}")
+    tee = _Tee(sys.stdout)
+    CheckpointManager.restore = restore
+    try:
+        with contextlib.redirect_stdout(tee):
+            trainer = train_main(args)
+    finally:
+        CheckpointManager.restore = real
+    epoch, params, moments, count = seen[0]
+    mgr = CheckpointManager(args[args.index("--checkpoint_dir") + 1])
+    lines = tee.text().splitlines()
+    log(f"[moe-train] resumed run: first line {lines[0]!r}; restored epoch "
+        f"{epoch}, {len(params)} parameters and {len(moments)} moment buffers "
+        f"differ from the file, count equal {count}; trained epochs "
+        f"{[h['epoch'] for h in trainer.history]}; epochs on disk "
+        f"{mgr.all_epochs()}")
+    if (lines[0] != "Resumed from checkpoint epoch 0" or epoch != 0 or params
+            or moments or not count or mgr.all_epochs() != [1]
+            or [h["epoch"] for h in trainer.history] != [2]):
+        return trainer, ["the MoE run did not resume epoch 0's state bit "
+                         "for bit"]
+    return trainer, []
+
+
+def _moe_epoch_readings(spec, cfg, h) -> dict:
+    flops = _lm_flops_per_token(spec)
+    rate = cfg.batch_size * cfg.seq_len / h["step_p50_s"]
+    out = dict(step_p50_ms=h["step_p50_s"] * 1e3, tokens_per_s=rate,
+               tokens_per_s_wall=h["tokens_per_s"],
+               mfu=rate * flops / H100_BF16_FLOPS)
+    log(f"[moe-train] epoch {h['epoch']}: mean loss {h['train_loss']:.4f}, "
+        f"test loss {h['test_loss']:.4f}, tokens/s {h['tokens_per_s']:.1f} "
+        f"(epoch wall), {rate:.1f} at the p50 step, step p50 "
+        f"{h['step_p50_s'] * 1e3:.2f} ms, est. MFU {out['mfu']:.3f} "
+        f"(active-expert flops, {flops / 1e9:.3f} GFLOP a token; the [E, C, "
+        f"d] capacity buffer computes 2x the active expert rows), steps "
+        + ", ".join(f"{x * 1e3:.1f}" for x in h["step_seconds"]))
+    return out
+
+
+def check_moe_training(torch, card, ckdir) -> dict:
+    """Phase 5m: ``python -m ddp_tpu_torch.train``'s main() on the MoE LM
+    at run_lm_bench's width (TRAIN_MOE_ARGS, bf16): epoch 0 (6 steps),
+    each of B1-B3 at least depth x steps, nothing routed to the plain
+    block; the reported loss is CE + 0.01 · aux; the sidecar carries the
+    routing; one step through the kernels against the plain attention
+    (STEP_TOL, a dropped dK tile must fail it); then the same command
+    with --epochs 2 resumes epoch 0 bit for bit and trains epoch 1; the
+    losses finite and falling over the two; readings of epoch 1 →
+    {"launches", "readings"}."""
+    from ddp_tpu_torch.ops import flash as fl
+    from ddp_tpu_torch.train.checkpoint import load_lm_spec_fields
+    from ddp_tpu_torch.train.trainer import main as train_main
+
+    launches = fl.flash_attention.launches
+    args = TRAIN_MOE_ARGS + ["--checkpoint_dir", ckdir]
+    log(f"[moe-train] {card}; python -m ddp_tpu_torch.train {' '.join(args)}")
+    _zero(launches)
+    fl.flash_attention.plain_routed = 0
+    with _timed_saves() as save_s:
+        trainer = train_main(args)
+    torch.cuda.synchronize()
+    got, routed = dict(launches), fl.flash_attention.plain_routed
+    spec, cfg = trainer.spec, trainer.config
+    steps = trainer.runner.steps_per_epoch * cfg.epochs
+    want = spec.depth * steps
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    log(f"[moe-train] {n_params / 1e6:.1f} M params (routed blocks "
+        f"{[i + 1 for i in range(spec.depth) if spec.routed(i)]}), {steps} "
+        f"steps, launches {got} (depth x steps = {want}), routed to the "
+        f"plain block {routed}; saves "
+        + ", ".join(f"{x:.2f}" for x in save_s) + " s")
+    failed = [f"{n} bf16 launched {got[f'{n}_bf16']} < {want}"
+              for n in FLASH_NAMES if got[f"{n}_bf16"] < want]
+    if routed or any(got[f"{n}_fp32"] for n in FLASH_NAMES):
+        failed.append(f"routed {routed}, or fp32 kernels launched")
+    history = list(trainer.history)
+    _moe_epoch_readings(spec, cfg, history[0])
+    sidecar = load_lm_spec_fields(ckdir)
+    if sidecar != spec._asdict() or sidecar["num_experts"] != 8:
+        failed.append(f"sidecar {sidecar}")
+    reported, ce, aux = _aux_in_reported_loss(torch, trainer)
+    log(f"[moe-train] reported loss {reported:.6f} = CE {ce:.6f} + "
+        f"{spec.aux_loss_weight} x aux {aux:.6f} "
+        f"({ce + spec.aux_loss_weight * aux:.6f})")
+    if (abs(reported - ce - spec.aux_loss_weight * aux) > 1e-5 * abs(reported)
+            or spec.aux_loss_weight * aux < 1e-3):
+        failed.append("the reported loss is not CE + weight x aux")
+    profile_train_steps(torch, trainer)
+    try:
+        compare_step(torch, trainer, "bf16")
+    except AssertionError as e:
+        failed.append(str(e))
+    del trainer
+    torch.cuda.empty_cache()
+    trainer, bad = check_moe_resume(torch, args)
+    failed += bad
+    history += trainer.history
+    readings = _moe_epoch_readings(spec, cfg, history[-1])
+    del trainer
+    torch.cuda.empty_cache()
+    losses = [x for h in history for x in h["loss"]]
+    means = [h["train_loss"] for h in history]
+    if not (all(np.isfinite(losses)) and len(means) == 2
+            and means[1] < means[0]):
+        failed.append(f"losses not finite and falling: {means}")
+    if failed:
+        raise AssertionError(f"phase 5m: {failed}")
+    return {"launches": {n: got[f"{n}_bf16"] for n in FLASH_NAMES},
+            "readings": readings}
+
+
+def check_moe_served(torch, moe_dir, dense_dir) -> dict:
+    """Phase 8f: ``python -m ddp_tpu_torch.serve``'s main() with
+    --checkpoint_dir <5m> --page_size 16 on lm_prompts traffic: every
+    stream equals an in-process fixed-lane engine's on the restored
+    weights (near ties excepted), B4p = decode steps x depth, nothing
+    else launched or routed; POST /reload of the dense phase-5 directory
+    answers 409 spec_skew; each served prompt's last-position logits
+    against the full-sequence serving forward (``CausalLM.forward``), and
+    against train_forward's (fp32, each prompt alone) where that dropped
+    no token → B4p's launches."""
+    import ddp_tpu_torch.models.lm as lm_mod
+    from ddp_tpu_torch.ops import decode as dec
+    from ddp_tpu_torch.serve.engine import ServeEngine
+
+    model, _, epoch = _restored(torch, moe_dir)
+    prompts = lm_prompts(model.spec.vocab_size)
+    out = {}
+
+    def traffic(url, made, stop):
+        out["replies"] = prefix_traffic(url, prompts)
+        out["skew"] = _post_status(url, "/reload",
+                                   {"checkpoint_dir": dense_dir})
+
+    made, _ = serve_main_with(torch, ["--checkpoint_dir", moe_dir,
+                                      "--page_size", str(SERVE_PAGE),
+                                      "--slots", str(LM_SLOTS)], traffic)
+    flat, paged, routed = _lm_launches(dec)
+    engine = made[0]
+    want_b4p = engine.decode_steps * engine.spec.depth
+    failed = []
+    if (paged["flash_decode_paged_fp32"] != want_b4p or want_b4p == 0
+            or any(flat.values()) or paged["flash_decode_paged_int8"]
+            or routed):
+        failed.append(f"launches {flat} {paged} routed {routed}, B4p want "
+                      f"{want_b4p}")
+    replies = out["replies"]
+    if any(r["status"] != "complete" for r in replies.values()):
+        failed.append("a served request did not complete")
+    fixed, _ = paged_streams(torch, model, prompts, engine=ServeEngine(
+        model, slots=LM_SLOTS, max_queue=len(prompts)))
+    failed += _parts(torch, model, prompts,
+                     {i: r["tokens"] for i, r in replies.items()},
+                     [c.tokens for c in fixed], "8f")
+    status, _, body = out["skew"]
+    if status != 409 or body.get("error") != "spec_skew":
+        failed.append(f"/reload of the dense directory: {status} {body}")
+    seen = {}
+    eager = ServeEngine(model, slots=LM_SLOTS, page_size=SERVE_PAGE,
+                        max_queue=len(prompts), cuda_graphs=False)
+    with first_logits(eager, seen):
+        rids = [eager.submit(p, 1).request.rid for p in prompts]
+        eager.run()
+    kept, gaps, dense_gaps = [], [], []
+    real = lm_mod.moe_mlp
+
+    def spy(*a, **kw):
+        res = real(*a, **kw)
+        kept[-1] = kept[-1] and bool(res[2].kept.all())
+        return res
+
+    lm_mod.moe_mlp = spy
+    try:
+        with torch.no_grad():
+            for rid, p in zip(rids, prompts):
+                kept.append(True)
+                toks = torch.tensor([p], device=model.device)
+                served = seen[rid].reshape(-1)
+                dense_gaps.append(float((served - model(toks)[0, -1])
+                                        .abs().max()))
+                train = model.train_forward(toks)[0, -1]
+                if kept[-1]:
+                    gaps.append(float((served - train).abs().max()))
+    finally:
+        lm_mod.moe_mlp = real
+    gap = max(gaps, default=float("nan"))
+    log(f"[moe-serve] epoch {epoch}: {len(replies)} requests, "
+        f"{engine.decode_steps} decode steps, B4p {paged} (want {want_b4p}), "
+        f"fixed {flat}, routed {routed}; /reload of the dense directory "
+        f"{status} {body.get('error')}; last-position logits of the served "
+        f"prompts (the paged engine's prefill) vs the full-sequence serving "
+        f"forward: max |diff| {max(dense_gaps):.3e}; vs train_forward (fp32, "
+        f"each prompt alone): {len(gaps)}/{len(prompts)} prompts without a "
+        f"dropped token, max |diff| over them {gap:.3e} (limit "
+        f"{MOE_LOGITS_ATOL} both)")
+    if max(dense_gaps) > MOE_LOGITS_ATOL or (gaps and gap > MOE_LOGITS_ATOL):
+        failed.append(f"served logits differ: {max(dense_gaps)}, {gap}")
+    del model, eager, made
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"phase 8f: {failed}")
+    return {"b4p": paged["flash_decode_paged_fp32"]}
 
 
 # ---- phase 6: the reference trainer's main path (SimpleCNN on MNIST) -----
@@ -4546,8 +5249,8 @@ def _vit_step(torch, trainer, x, y, attention_fn, dtype):
     from ddp_tpu_torch.train.optim import make_optimizer
 
     src = trainer.state.model
-    model = get_model("vit_tiny", num_classes=src.head.out_features, side=32,
-                      in_channels=3, depth=len(src.block_names))
+    model = get_model(trainer.config.model, num_classes=src.head.out_features,
+                      side=32, in_channels=3, depth=len(src.block_names))
     model.load_state_dict(src.state_dict())
     model = model.to(trainer.device)
     for name in model.block_names:
@@ -4573,7 +5276,7 @@ def _zero_keys_counted(torch, q, k, v):
     return o.to(q.dtype)
 
 
-def check_vit_step(torch, trainer, *, batch=64) -> list[str]:
+def check_vit_step(torch, trainer, *, batch=64, tag="vit") -> list[str]:
     """Phase 7a's step check: one step through B1-B3 against the same step
     through the plain attention (which must launch nothing), from the
     trained weights on the first ``batch`` training images, held to
@@ -4603,21 +5306,29 @@ def check_vit_step(torch, trainer, *, batch=64) -> list[str]:
         limits = STEP_TOL[dname]
         if dname == "bf16":
             limits = dict(limits, loss=VIT_BF16_LOSS_TOL)
-        kernel = _vit_step(torch, trainer, x, y, None, dtype)
+        routes, flips = [], []
+        with fixed_routing(torch, routes, flips):
+            kernel = _vit_step(torch, trainer, x, y, None, dtype)
         _zero(fl.flash_attention.launches)
-        want = _vit_step(torch, trainer, x, y, plain, dtype)
+        with fixed_routing(torch, routes, flips):
+            want = _vit_step(torch, trainer, x, y, plain, dtype)
         e = _grad_errors(kernel, want)
-        log(f"[vit] one {dname} step, kernel vs plain attention (batch "
+        log(f"[{tag}] one {dname} step, kernel vs plain attention (batch "
             f"{batch}): loss {kernel[0]:.6f} vs {want[0]:.6f}; "
-            f"{_errors_text(e)} (limits {limits})")
+            f"{_errors_text(e)} (limits {limits})"
+            + (f"; routing held to the kernel step's, own choices would "
+               f"differ at {flips} (token, k) per routed block"
+               if routes else ""))
         if not _within(e, limits):
             failed.append(f"the {dname} kernel step disagrees with the "
                           "plain one")
         del kernel
         for label, attention_fn in controls.items():
-            e = _grad_errors(_vit_step(torch, trainer, x, y, attention_fn,
-                                       dtype), want)
-            log(f"[vit] {dname} control, {label}, vs plain: "
+            with fixed_routing(torch, routes, []):
+                got = _vit_step(torch, trainer, x, y, attention_fn, dtype)
+            e = _grad_errors(got, want)
+            del got
+            log(f"[{tag}] {dname} control, {label}, vs plain: "
                 f"{_errors_text(e)}")
             if _within(e, limits):
                 failed.append(f"the {dname} check passes a control: {label}")
@@ -4663,6 +5374,53 @@ def check_vit(torch, card, tmp) -> dict:
     readings["launches"] = {n: got[f"{n}_bf16"] for n in FLASH_NAMES}
     if failed:
         raise AssertionError(f"phase 7a: {failed}")
+    return readings
+
+
+# Phase 7c: vit_moe_tiny (8 experts, top-2, every 2nd of 12 blocks
+# routed; 64 tokens, no cls) on the same split and recipe as 7a.
+VIT_MOE_ARGS = VIT_ARGS[:1] + ["vit_moe_tiny"] + VIT_ARGS[2:]
+
+
+def check_vit_moe(torch, card, tmp) -> dict:
+    """Phase 7c: vit_moe_tiny on CIFAR-100 through main(), as 7a: each of
+    B1-B3 at least depth x steps, nothing routed; losses finite and
+    falling; epoch_0..1 verified and a bit-exact resume; one step through
+    the kernels against the plain attention (7a's limits and controls;
+    the loss includes 0.01 x the routed blocks' aux sum) → readings."""
+    from ddp_tpu_torch.ops import flash as fl
+
+    launches = fl.flash_attention.launches
+    ckdir = f"{tmp}/vit_moe"
+    _zero(launches)
+    fl.flash_attention.plain_routed = 0
+    trainer, _ = _train(["--checkpoint_dir", ckdir], VIT_MOE_ARGS)
+    torch.cuda.synchronize()
+    got, routed = dict(launches), fl.flash_attention.plain_routed
+    model = trainer.state.model
+    depth = len(model.block_names)
+    steps = trainer.steps_per_epoch * trainer.config.epochs
+    log(f"[vit-moe] {card}; {sum(p.numel() for p in model.parameters()) / 1e6:.2f}"
+        f" M params, depth {depth} (routed "
+        f"{sum(hasattr(getattr(model, b), 'moe') for b in model.block_names)}"
+        f"), {steps} steps: launches {got} (depth x steps = {depth * steps}), "
+        f"blocks routed to the plain block {routed}")
+    for h in trainer.history:
+        log(_epoch_line(h, "vit_moe_tiny cifar100 bf16,").replace("[cnn]",
+                                                                  "[vit-moe]"))
+    failed = [f"{n} bf16 launched {got[f'{n}_bf16']} < {depth * steps}"
+              for n in FLASH_NAMES if got[f"{n}_bf16"] < depth * steps]
+    if routed or any(got[f"{n}_fp32"] for n in FLASH_NAMES):
+        failed.append(f"routed {routed}, or fp32 kernels launched")
+    failed += _losses_fall(trainer)
+    failed += _resume_failures(torch, ["--checkpoint_dir", ckdir],
+                               VIT_MOE_ARGS, ckdir)
+    failed += check_vit_step(torch, trainer, tag="vit-moe")
+    readings = _image_readings(torch, trainer, "vit_moe_tiny cifar100 bf16, "
+                               "batch 256", card)
+    readings["launches"] = {n: got[f"{n}_bf16"] for n in FLASH_NAMES}
+    if failed:
+        raise AssertionError(f"phase 7c: {failed}")
     return readings
 
 
@@ -4864,15 +5622,17 @@ def check_resnet(torch, card, tmp) -> dict:
 
 
 def check_image_families(torch, card) -> dict:
-    """Phase 7: ViT-Tiny / CIFAR-100 (7a), then ResNet-18 / CIFAR-10
-    (7b); every reading printed before any raise."""
+    """Phase 7: ViT-Tiny / CIFAR-100 (7a), ResNet-18 / CIFAR-10 (7b),
+    then vit_moe_tiny / CIFAR-100 (7c)."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         vit = check_vit(torch, card, tmp)
         torch.cuda.empty_cache()
         resnet = check_resnet(torch, card, tmp)
-    return {"vit": vit, "resnet": resnet}
+        torch.cuda.empty_cache()
+        vit_moe = check_vit_moe(torch, card, tmp)
+    return {"vit": vit, "resnet": resnet, "vit_moe": vit_moe}
 
 
 def check_serving(torch) -> dict:
@@ -5180,6 +5940,8 @@ def main() -> int:
     spec_launches = check_spec_serving(torch, card)
     obs = check_serving_obs(torch, card)
     graphs = check_graphs(torch, card)
+    moe = check_moe_serving(torch, card)
+    check_moe_layer(torch)
     flash = check_flash(torch)
     trained, served = check_lm_phases(torch, card)
     check_cnn(torch, card)
@@ -5224,6 +5986,13 @@ def main() -> int:
     for k in kernels:
         k["graph_launches"] = graphs["launches"].get(k["name"], 0)
     kernels[0]["graph_spec_launches"] = graphs["b4_spec"]
+    # The MoE causal LM (decode_moe's width): phase 4g's graph runs (B4
+    # fixed-lane fp32, B5 int8, B4p paged fp32), (d)'s draft steps (B4),
+    # and phase 8f serving the trained MoE checkpoint (B4p).
+    for k in kernels:
+        k["moe_launches"] = moe["launches"].get(k["name"], 0)
+    kernels[0]["moe_spec_launches"] = moe["b4_spec"]
+    kernels[2]["moe_lm_serve_launches"] = served["moe_b4p"]
     # B1-B3: the bf16 variant is the main path (the causal-LM training
     # run's numbers); the fp32 variant's, from its own run, ride beside
     # them, and so do both at ViT-Tiny's shape (launches from phase 7a,
@@ -5236,6 +6005,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "ddp_tpu_torch/ops/csrc/flash_attn.cu",
             "replaces": replaces[name], "launches": trained["bf16"][name],
+            # Phase 5m (the MoE LM, bf16) and 7c (vit_moe_tiny, bf16).
+            "moe_launches": trained["moe"]["launches"][name],
+            "vit_moe_launches": images["vit_moe"]["launches"][name],
             **{k: flash["bf16"][name][k] for k in keys},
             "sdpa_bwd_ms": flash["bf16"][name]["sdpa_bwd_ms"],
             "variants": {

@@ -6,10 +6,13 @@ ViT's (:func:`vit_params_from_jax`), and back.
 For the causal LM, the inverse of ``ddp_tpu.models.lm.init_lm``'s tree
 layout (and of a checkpoint's): ``embed`` [V, d], ``pos_embed`` [1, L,
 d], ``blockN`` {``ln1``/``ln2`` {scale, bias}, ``attn`` {``qkv``,
-``proj``} {kernel, bias}, ``mlp1``, ``mlp2``}, ``ln_final``. Flax's ``Dense.kernel`` is
-[in, out] and ``nn.Linear.weight`` its transpose; LayerNorm ``scale``
-is ``weight``. The fused qkv column order (head-major under MHA,
-group-major under GQA) carries over unchanged.
+``proj``} {kernel, bias}, ``mlp1``, ``mlp2``} — or, in a routed block,
+``moe`` {``router`` {kernel, bias}, ``wi``, ``bi``, ``wo``, ``bo``}
+instead of the MLP —, ``ln_final``. Flax's ``Dense.kernel`` is [in, out]
+and ``nn.Linear.weight`` its transpose; LayerNorm ``scale`` is
+``weight``; the expert tensors keep their layout. The fused qkv column
+order (head-major under MHA, group-major under GQA) carries over
+unchanged. The MoE ViT's routed blocks map the same way, name for name.
 
 Takes numpy arrays only — nested dicts, or a flat dict with
 ``/``-joined keys (an ``np.load`` of an ``.npz``) — so the port never
@@ -28,6 +31,9 @@ from ddp_tpu_torch.models.lm import LMSpec, derive_lm_spec
 _BLOCK = re.compile(r"block(\d+)$")
 _LINEARS = ("attn/qkv", "attn/proj", "mlp1", "mlp2")
 _NORMS = ("ln1", "ln2")
+# A routed block's expert tensors, with their rank: [E, d, F], [E, 1, F],
+# [E, F, d], [E, 1, d].
+_EXPERTS = {"wi": 3, "bi": 3, "wo": 3, "bo": 3}
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -45,19 +51,16 @@ def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
 def lm_params_from_jax(
     tree, *, num_heads: int
 ) -> tuple[LMSpec, dict[str, np.ndarray]]:
-    """A dense JAX causal-LM tree → (spec, CausalLM state dict).
+    """A JAX causal-LM tree, dense or routed → (spec, CausalLM state
+    dict).
 
-    The spec is derived from the shapes, as ``derive_lm_spec`` does;
-    only the head count is an argument. Raises ValueError on trees this
-    slice does not cover — a routed ``moe`` block, a missing or extra
-    leaf, a gap in the block numbering.
+    The spec is derived from the shapes, as ``derive_lm_spec`` does; only
+    the head count is an argument (routing the shapes cannot carry,
+    ``moe_top_k`` and ``moe_normalize_gates``, takes JAX's defaults).
+    Raises ValueError on a missing or extra leaf, a malformed ``moe``
+    subtree (the message names ``moe``), or a gap in the block numbering.
     """
     flat = flatten_tree(tree)
-    if any("/moe/" in f"/{k}/" for k in flat):
-        raise ValueError(
-            "the tree has MoE blocks ('moe' subtree): the port serves "
-            "dense causal LMs only"
-        )
     blocks = sorted(
         {
             int(m.group(1))
@@ -82,7 +85,22 @@ def lm_params_from_jax(
     state["pos_embed"] = take("pos_embed")
     for i in blocks:
         b = f"block{i}"
-        for name in _LINEARS:
+        routed = any(k.startswith(f"{b}/moe/") for k in flat)
+        if routed:
+            for name, rank in (("router/kernel", 2), ("router/bias", 1),
+                               *_EXPERTS.items()):
+                key = f"{b}/moe/{name}"
+                if key not in flat or np.ndim(flat[key]) != rank:
+                    raise ValueError(
+                        f"malformed moe subtree: {key} "
+                        + ("is missing" if key not in flat else
+                           f"has rank {np.ndim(flat[key])}, not {rank}"))
+            state[f"{b}.moe.router.weight"] = np.ascontiguousarray(
+                take(f"{b}/moe/router/kernel").T)
+            state[f"{b}.moe.router.bias"] = take(f"{b}/moe/router/bias")
+            for name in _EXPERTS:
+                state[f"{b}.moe.{name}"] = take(f"{b}/moe/{name}")
+        for name in _LINEARS[:2] if routed else _LINEARS:
             dst = f"{b}.{name.replace('/', '.')}"
             state[dst + ".weight"] = np.ascontiguousarray(
                 take(f"{b}/{name}/kernel").T
@@ -127,8 +145,8 @@ def lm_params_to_jax(state) -> dict:
             put(path + "/kernel", np.ascontiguousarray(arr(val).T))
         elif kind == "bias":
             put(path + "/bias", arr(val))
-        else:  # embed, pos_embed
-            put(key, arr(val))
+        else:  # embed, pos_embed, an expert tensor (wi, bi, wo, bo)
+            put(key.replace(".", "/"), arr(val))
     return tree
 
 

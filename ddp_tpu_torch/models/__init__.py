@@ -1,5 +1,6 @@
-"""Models: the causal LM with its slot-level decode primitives, and the
-image families of ``ddp_tpu/models/__init__.py``'s registry.
+"""Models: the causal LM (dense or expert-routed) with its slot-level
+decode primitives, and the image families of
+``ddp_tpu/models/__init__.py``'s registry (the MoE ViTs among them).
 
 :func:`get_model` builds an image model by its registry name; every one
 takes ``num_classes``, ``side`` and ``in_channels`` (the dataset's) and
@@ -9,6 +10,7 @@ has ``init_state(seed)``, its seeded numpy weights.
 from __future__ import annotations
 
 from ddp_tpu_torch.models.cnn import SimpleCNN
+from ddp_tpu_torch.models.moe import MoEViTTiny, moe_vit_micro
 from ddp_tpu_torch.models.resnet import ResNet18, ResNet34, ResNet50
 from ddp_tpu_torch.models.vit import ViTTiny, vit_micro
 
@@ -30,6 +32,9 @@ _REGISTRY = {
     # BASELINE.json config 4: ViT-Tiny / CIFAR-100 (attention path)
     "vit_tiny": ViTTiny,
     "vit_micro": vit_micro,
+    # The expert-routed family (no reference counterpart)
+    "vit_moe_tiny": MoEViTTiny,
+    "vit_moe_micro": moe_vit_micro,
 }
 IMAGE_MODELS = tuple(_REGISTRY)
 

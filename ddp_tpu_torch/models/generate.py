@@ -36,6 +36,13 @@ batch of S slots alive; requests of different ages share it:
   JAX's threefry, so seeded streams are held to the sampling invariants
   and greedy streams to token identity.
 
+Every step's block ends in ``models/lm.Block.finish``, the counterpart
+of JAX's ``_block_finish`` (:150): a routed block of an MoE model takes
+the serving expert MLP there, ``MoEMLP.serve`` (``generate.py:107-147``'s
+``_moe_mlp``: no capacity, the spec's top-k and gate normalisation, a
+dense E-way FFN), per token and of static shape, so decode, prefill
+chunks and the verify step all run it and a CUDA graph captures it.
+
 Idle lanes are decoded too (the batch shape never changes); position 0
 is always live, so their outputs are finite garbage the engine ignores.
 """

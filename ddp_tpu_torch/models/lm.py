@@ -1,11 +1,14 @@
-"""Decoder-only causal language model (dense), as an ``nn.Module``.
+"""Decoder-only causal language model, as an ``nn.Module``.
 
-The PyTorch counterpart of ``ddp_tpu/models/lm.py``'s dense
-``CausalLM``: token embedding → learned position embedding → pre-LN
-blocks → final LayerNorm → logits through the TIED embedding
-transpose. Parameter names follow the JAX tree (``embed``,
-``pos_embed``, ``blockN.{ln1, attn.qkv, attn.proj, ln2, mlp1, mlp2}``,
-``ln_final``), so ``interop/jax_params.py`` maps a JAX tree by
+The PyTorch counterpart of ``ddp_tpu/models/lm.py``'s ``CausalLM``:
+token embedding → learned position embedding → pre-LN blocks → final
+LayerNorm → logits through the TIED embedding transpose. With
+``num_experts`` > 0 every ``moe_every``-th block routes its MLP to
+experts (``models/moe.py``; GShard top-k with capacity when training,
+the no-capacity serving form in ``Block.finish``). Parameter names
+follow the JAX tree (``embed``, ``pos_embed``, ``blockN.{ln1, attn.qkv,
+attn.proj, ln2, mlp1, mlp2}`` or ``blockN.moe.{router, wi, bi, wo,
+bo}``, ``ln_final``), so ``interop/jax_params.py`` maps a JAX tree by
 transposes alone. Numerics follow Flax: LayerNorm in fp32 with eps
 1e-6, tanh-approximated GELU, and the fused qkv columns head-major
 ``[H, 3, Dh]`` under MHA and group-major ``[H_kv, G+2, Dh]`` under GQA.
@@ -21,8 +24,7 @@ one-rank counterparts of the JAX steps (``lm.py:492-712``).
 ``truncated_draft`` is a speculative-decoding draft made of the first
 blocks of a model, sharing its tensors.
 
-MoE blocks, remat and tensor/expert/sequence parallelism wait for
-later slices.
+Remat and tensor/expert/sequence parallelism wait for later slices.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddp_tpu_torch.device import resolve_device
+from ddp_tpu_torch.models.moe import PARAM_NAMES as MOE_PARAMS
+from ddp_tpu_torch.models.moe import MoEMLP, is_moe_block, moe_init, moe_mlp
 from ddp_tpu_torch.ops.attention import dot_product_attention
 from ddp_tpu_torch.parallel.ddp import StepMetrics, global_norm
 from ddp_tpu_torch.parallel.ring import ring_attention
@@ -43,7 +47,8 @@ LN_EPS = 1e-6  # Flax's LayerNorm default (torch's is 1e-5)
 
 
 class LMSpec(NamedTuple):
-    """The dense subset of ``ddp_tpu.models.lm.LMSpec``."""
+    """``ddp_tpu.models.lm.LMSpec`` without ``strategy`` and ``remat``
+    (one rank, no remat), under JAX's names and defaults."""
 
     vocab_size: int
     total_len: int
@@ -52,6 +57,15 @@ class LMSpec(NamedTuple):
     num_heads: int = 4
     num_kv_heads: int = 0  # 0 → num_heads (MHA)
     mlp_ratio: int = 4
+    num_experts: int = 0  # > 0: routed MLPs every moe_every-th block
+    moe_every: int = 2
+    moe_top_k: int = 2
+    moe_normalize_gates: bool = True
+    aux_loss_weight: float = 0.01  # GShard load-balance loss weight
+
+    def routed(self, i: int) -> bool:
+        """Block ``i`` (0-based) routes its MLP."""
+        return is_moe_block(i, self.num_experts, self.moe_every)
 
     @property
     def kv_heads(self) -> int:
@@ -66,30 +80,54 @@ def derive_lm_spec(state: dict, *, num_heads: int, **overrides) -> LMSpec:
     """Recover an :class:`LMSpec` from a CausalLM state dict's shapes
     (``ddp_tpu/models/lm.py:157-204``).
 
-    Everything but the head count shows in the shapes (embed [V, d],
-    pos_embed [1, L, d], blockN count, qkv rows (H + 2·H_kv)·Dh, mlp1
-    rows); raises ValueError when the head count cannot explain them.
-    ``overrides`` (an ``lm_spec.json`` sidecar's fields) fill only what
-    the shapes cannot carry: shape-derived fields win, and fields this
-    dense spec does not know (``strategy``, ``remat``, ``moe_*``) are
-    dropped. A sidecar with ``num_experts`` > 0 describes an MoE model,
-    which the port does not serve yet: it raises rather than serving
-    the dense blocks alone.
+    Everything but the head count and the routing knobs shows in the
+    shapes: embed [V, d], pos_embed [1, L, d], the blockN count, qkv rows
+    (H + 2·H_kv)·Dh, the MLP width (mlp1's rows or an expert's [E, d, F]),
+    and which blocks are routed (``blockN.moe.wi``: ``num_experts`` is
+    its E, ``moe_every`` the first routed block's number). Raises
+    ValueError when the head count cannot explain them. ``overrides`` (an
+    ``lm_spec.json`` sidecar's fields) fill only what the shapes cannot
+    carry (``moe_top_k``, ``moe_normalize_gates``, ``aux_loss_weight``):
+    shape-derived fields win, and fields the port's spec does not know
+    (``strategy``, ``remat``) are dropped. A sidecar whose
+    ``num_experts`` / ``moe_every`` route other blocks than the shapes
+    do raises, naming both.
     """
-    if int(overrides.get("num_experts") or 0) > 0:
-        raise ValueError(
-            f"the checkpoint is an MoE model (num_experts "
-            f"{overrides['num_experts']}): MoE is not ported yet "
-            "(ROADMAP A2.4/A3.3)"
-        )
     try:
         vocab_size, d_model = (int(s) for s in state["embed"].shape)
         total_len = int(state["pos_embed"].shape[1])
         qkv_rows = int(state["block1.attn.qkv.weight"].shape[0])
-        mlp_dim = int(state["block1.mlp1.weight"].shape[0])
     except (KeyError, IndexError, AttributeError) as e:
         raise ValueError(f"not a causal-LM state (missing {e})") from None
     depth = len({k.split(".")[0] for k in state if k.startswith("block")})
+    routed = [i for i in range(1, depth + 1) if f"block{i}.moe.wi" in state]
+    widths = {int(state[f"block{i}.mlp1.weight"].shape[0])
+              for i in range(1, depth + 1) if f"block{i}.mlp1.weight" in state}
+    moe = {}
+    if routed:
+        E, _, F_ = (int(s) for s in state[f"block{routed[0]}.moe.wi"].shape)
+        widths.add(F_)
+        moe = dict(num_experts=E, moe_every=routed[0])
+        if routed != list(range(routed[0], depth + 1, routed[0])):
+            raise ValueError(
+                f"routed blocks {routed} of {depth} follow no moe_every")
+    if len(widths) != 1:
+        raise ValueError(f"MLP widths {sorted(widths)} differ between blocks")
+    mlp_dim = widths.pop()
+    side = {k: overrides[k] for k in ("num_experts", "moe_every")
+            if k in overrides}
+    if side:
+        E_side = int(side.get("num_experts") or 0)
+        every = int(side.get("moe_every", 2))
+        want = [i for i in range(1, depth + 1)
+                if is_moe_block(i - 1, E_side, every)]
+        if want != routed or (routed and E_side != moe["num_experts"]):
+            raise ValueError(
+                f"the sidecar says num_experts {E_side}, moe_every {every} "
+                f"(routed blocks {want}), the state's shapes say "
+                f"num_experts {moe.get('num_experts', 0)}, moe_every "
+                f"{moe.get('moe_every', '-')} (routed blocks {routed})"
+            )
     if d_model % num_heads:
         raise ValueError(
             f"num_heads {num_heads} does not divide d_model {d_model}"
@@ -114,6 +152,7 @@ def derive_lm_spec(state: dict, *, num_heads: int, **overrides) -> LMSpec:
         num_heads=num_heads,
         num_kv_heads=0 if kv_heads == num_heads else kv_heads,
         mlp_ratio=mlp_dim // d_model,
+        **moe,
     )
     fields.update((k, v) for k, v in overrides.items()
                   if k in LMSpec._fields and k not in fields)
@@ -149,19 +188,26 @@ class Attention(nn.Module):
 class Block(nn.Module):
     """Pre-LN block. ``qkv`` and ``finish`` are its two halves — the
     counterparts of ``ddp_tpu.models.generate._block_qkv`` (:84) and
-    ``_block_finish`` (:150, dense branch) — shared by the dense
-    forward, the chunked prefill and the decode step, so the three
-    paths cannot drift apart numerically."""
+    ``_block_finish`` (:150) — shared by the dense forward, the chunked
+    prefill, the decode step and the speculative verify, so the paths
+    cannot drift apart numerically. A ``routed`` block holds ``moe`` (a
+    :class:`~ddp_tpu_torch.models.moe.MoEMLP` with the spec's routing)
+    instead of ``mlp1``/``mlp2``."""
 
-    def __init__(self, spec: LMSpec):
+    def __init__(self, spec: LMSpec, routed: bool = False):
         super().__init__()
         self.spec = spec
         d = spec.d_model
         self.ln1 = nn.LayerNorm(d, eps=LN_EPS)
         self.attn = Attention(spec)
         self.ln2 = nn.LayerNorm(d, eps=LN_EPS)
-        self.mlp1 = nn.Linear(d, d * spec.mlp_ratio)
-        self.mlp2 = nn.Linear(d * spec.mlp_ratio, d)
+        if routed:
+            self.moe = MoEMLP(d, d * spec.mlp_ratio, spec.num_experts,
+                              top_k=spec.moe_top_k,
+                              normalize_gates=spec.moe_normalize_gates)
+        else:
+            self.mlp1 = nn.Linear(d, d * spec.mlp_ratio)
+            self.mlp2 = nn.Linear(d * spec.mlp_ratio, d)
 
     def qkv(self, x):
         """ln1 → fused qkv → (q [B,T,H,Dh], k/v [B,T,H_kv,Dh])."""
@@ -172,8 +218,13 @@ class Block(nn.Module):
 
     def finish(self, x, attn_vec):
         """Output projection residual + MLP residual; ``attn_vec`` is
-        [B, T, d] (heads concatenated)."""
+        [B, T, d] (heads concatenated). A routed block takes the serving
+        expert path, with the spec's top-k and gate normalisation."""
         x = x + self.attn.proj(attn_vec)
+        if hasattr(self, "moe"):
+            return x + self.moe.serve(
+                self.ln2(x), top_k=self.spec.moe_top_k,
+                normalize_gates=self.spec.moe_normalize_gates)
         h = F.gelu(self.mlp1(self.ln2(x)), approximate="tanh")
         return x + self.mlp2(h)
 
@@ -189,7 +240,7 @@ class CausalLM(nn.Module):
             torch.empty(1, spec.total_len, spec.d_model)
         )
         for i in range(spec.depth):
-            self.add_module(f"block{i + 1}", Block(spec))
+            self.add_module(f"block{i + 1}", Block(spec, spec.routed(i)))
         self.ln_final = nn.LayerNorm(spec.d_model, eps=LN_EPS)
 
     @property
@@ -228,8 +279,10 @@ class CausalLM(nn.Module):
         return self.ln_final(x).float() @ self.embed.float().T
 
     def forward(self, tokens):
-        """Dense full-sequence forward — the counterpart of
-        ``ddp_tpu.models.lm.dense_lm_apply``."""
+        """Full-sequence forward through ``Block.finish`` — the
+        counterpart of ``ddp_tpu.models.lm.dense_lm_apply`` (for a routed
+        model the no-capacity serving form: equal where training's
+        capacity drops nothing)."""
         s = self.spec
         T = tokens.shape[1]
         x = self.embed[tokens.long()] + self.pos_embed[:, :T]
@@ -246,8 +299,10 @@ class CausalLM(nn.Module):
         return self.head(x)
 
     def train_forward(self, tokens, *, compute_dtype=torch.float32,
-                      block_fn=None):
-        """The training forward → [B, T, vocab] fp32 logits.
+                      block_fn=None, return_aux: bool = False):
+        """The training forward → [B, T, vocab] fp32 logits; with
+        ``return_aux``, ``(logits, aux)``: the mean of the routed blocks'
+        load-balance losses (``lm.py:377-380``; 0 for a dense model).
 
         Every parameter is cast to ``compute_dtype`` here, so gradients
         flow back through the cast into the fp32 masters. LayerNorms
@@ -255,13 +310,17 @@ class CausalLM(nn.Module):
         and the tied-head logits stay fp32 (``lm.py:129-131``). Under GQA
         K/V are repeated to H heads before attention (``vit.py:152``).
         ``block_fn`` overrides the attention block of the one-rank ring
-        (``parallel.ring.default_block_fn`` by default).
+        (``parallel.ring.default_block_fn`` by default). Routed blocks
+        route the B·T tokens of this forward with capacity
+        (``models/moe.moe_mlp``), their router in fp32 over the cast
+        weights (``moe.py:70-72``).
         """
         s = self.spec
         p = {
             name: w if w.dtype == compute_dtype else w.to(compute_dtype)
             for name, w in self.named_parameters()
         }
+        auxes = []
 
         def norm(x, name):
             return F.layer_norm(
@@ -286,10 +345,23 @@ class CausalLM(nn.Module):
             o = ring_attention(q, k, v, causal=True, block_fn=block_fn)
             x = x + dense(o.reshape(B, T, s.d_model), b + "attn.proj")
             y = norm(x, b + "ln2").to(x.dtype)
-            h = F.gelu(dense(y, b + "mlp1"), approximate="tanh")
-            x = x + dense(h, b + "mlp2")
+            if s.routed(i - 1):
+                y, aux, _ = moe_mlp(
+                    y, {k: p[b + "moe." + k] for k in MOE_PARAMS},
+                    num_experts=s.num_experts, top_k=s.moe_top_k,
+                    normalize_gates=s.moe_normalize_gates)
+                auxes.append(aux)
+                x = x + y
+            else:
+                h = F.gelu(dense(y, b + "mlp1"), approximate="tanh")
+                x = x + dense(h, b + "mlp2")
         x = norm(x, "ln_final")
-        return x @ p["embed"].float().T
+        logits = x @ p["embed"].float().T
+        if not return_aux:
+            return logits
+        aux = (sum(auxes) / len(auxes) if auxes
+               else logits.new_zeros((), dtype=torch.float32))
+        return logits, aux
 
 
 # ---- training and evaluation steps -------------------------------------
@@ -351,20 +423,29 @@ def make_lm_train_step(
 
     ``grad_accum_steps=k`` splits the batch into k STRIDED microbatches
     (rows ``i::k``, ``lm.py:650-656``), sums their gradients and divides
-    by k. Loss is the mean next-token cross-entropy, accuracy the
-    next-token top-1, grad_norm the global norm of the (averaged,
-    unclipped) gradient. Metrics stay on the device: no host read.
+    by k. Loss is the mean next-token cross-entropy, plus, for a routed
+    model, ``spec.aux_loss_weight`` × the mean aux loss of its routed
+    blocks, in the loss differentiated and the loss reported
+    (``lm.py:633-636``); accuracy the next-token top-1, grad_norm the
+    global norm of the (averaged, unclipped) gradient. Metrics stay on
+    the device: no host read.
     """
     params = [p for p in model.parameters() if p.requires_grad]
     if not params:
         raise ValueError("the model has no trainable parameters: build it "
                          "with CausalLM.from_state(..., trainable=True)")
 
+    spec = model.spec
+
     def loss_and_correct(tokens):
-        logits = model.train_forward(
-            tokens, compute_dtype=compute_dtype, block_fn=block_fn
+        logits, aux = model.train_forward(
+            tokens, compute_dtype=compute_dtype, block_fn=block_fn,
+            return_aux=True,
         )
-        return _token_metrics(logits, tokens, label_smoothing)
+        loss, correct = _token_metrics(logits, tokens, label_smoothing)
+        if spec.num_experts:
+            loss = loss + spec.aux_loss_weight * aux
+        return loss, correct
 
     def step(tokens) -> StepMetrics:
         B, T = tokens.shape
@@ -423,7 +504,8 @@ def init_lm_state(spec: LMSpec, *, seed: int = 0) -> dict[str, np.ndarray]:
     """Seeded random weights, made with numpy, as a CausalLM state dict.
 
     Embeddings draw N(0, 0.02²) and linear weights N(0, 1/fan_in) (the
-    scales of Flax's defaults), biases zero, LayerNorms identity.
+    scales of Flax's defaults), biases zero, LayerNorms identity; a
+    routed block's experts as ``models/moe.moe_init`` draws them.
     """
     rng = np.random.default_rng(seed)
     f32 = np.float32
@@ -441,12 +523,15 @@ def init_lm_state(spec: LMSpec, *, seed: int = 0) -> dict[str, np.ndarray]:
     }
     for i in range(spec.depth):
         b = f"block{i + 1}."
-        for name, (n_out, n_in) in (
-            ("attn.qkv", (cols, d)), ("attn.proj", (d, d)),
-            ("mlp1", (mlp, d)), ("mlp2", (d, mlp)),
-        ):
+        linears = [("attn.qkv", (cols, d)), ("attn.proj", (d, d))]
+        if not spec.routed(i):
+            linears += [("mlp1", (mlp, d)), ("mlp2", (d, mlp))]
+        for name, (n_out, n_in) in linears:
             state[b + name + ".weight"] = normal((n_out, n_in), n_in**-0.5)
             state[b + name + ".bias"] = np.zeros(n_out, f32)
+        if spec.routed(i):
+            moe_init(state, b + "moe.", rng, dim=d, mlp_dim=mlp,
+                     num_experts=spec.num_experts)
         for ln in ("ln1", "ln2"):
             state[b + ln + ".weight"] = np.ones(d, f32)
             state[b + ln + ".bias"] = np.zeros(d, f32)

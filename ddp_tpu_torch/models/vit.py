@@ -130,8 +130,11 @@ class ViT(nn.Module):
         self.ln_final = nn.LayerNorm(d)
         self.head = nn.Linear(d, num_classes)
 
-    def forward(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-        """``x`` [B, C, H, W] → fp32 logits [B, num_classes]."""
+    def forward(self, x: torch.Tensor, compute_dtype=None, *,
+                with_aux: bool = False):
+        """``x`` [B, C, H, W] → fp32 logits [B, num_classes]; with
+        ``with_aux``, ``(logits, aux)``: the sum of the routed blocks'
+        load-balance losses (0 for a model without one)."""
         dt = compute_dtype or x.dtype
         pe = self.patch_embed
         x = F.conv2d(x.to(dt), pe.weight.to(dt), pe.bias.to(dt),
@@ -141,12 +144,17 @@ class ViT(nn.Module):
             cls = self.cls_token.to(dt).expand(x.shape[0], -1, -1)
             x = torch.cat([cls, x], dim=1)
         x = x + self.pos_embed.to(dt)
+        aux = x.new_zeros((), dtype=torch.float32)
         for name in self.block_names:
             x = getattr(self, name)(x, dt)
+            if isinstance(x, tuple):  # a routed block: (x, aux)
+                x, a = x
+                aux = aux + a
         x = _layer_norm(self.ln_final, x, dt)  # stays fp32
         x = x[:, 0] if self.use_cls_token else x.mean(dim=1)
-        return F.linear(x, self.head.weight.to(dt).float(),
-                        self.head.bias.to(dt).float())
+        logits = F.linear(x, self.head.weight.to(dt).float(),
+                          self.head.bias.to(dt).float())
+        return (logits, aux) if with_aux else logits
 
     def init_state(self, seed: int = 0) -> dict[str, np.ndarray]:
         """Seeded random weights made with numpy (the scales of the JAX

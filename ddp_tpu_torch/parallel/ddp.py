@@ -68,13 +68,26 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
+# The weight of a routed model's load-balance losses in its loss
+# (``ddp.py:106``'s default, the only value the trainers use).
+AUX_LOSS_WEIGHT = 0.01
+
+
 def _loss_and_correct(model, images, labels, compute_dtype, label_smoothing,
                       augment_fn=None, key=None):
     x = _preprocess(images, compute_dtype)
     if augment_fn is not None:
         x = augment_fn(key, x)
-    logits = model(x, compute_dtype=compute_dtype).float()
-    loss = xent(logits, labels, label_smoothing).mean()
+    if getattr(model, "routed", False):
+        # A routed model (MoE): the cross-entropy plus the weighted SUM of
+        # its blocks' load-balance losses (``common.py:103-106``).
+        logits, aux = model(x, compute_dtype=compute_dtype, with_aux=True)
+        logits = logits.float()
+        loss = (xent(logits, labels, label_smoothing).mean()
+                + AUX_LOSS_WEIGHT * aux)
+    else:
+        logits = model(x, compute_dtype=compute_dtype).float()
+        loss = xent(logits, labels, label_smoothing).mean()
     correct = (logits.argmax(-1) == labels.long()).sum().float()
     return loss, correct
 
@@ -103,7 +116,8 @@ def make_train_step(
     the scaled batch with the key of (``seed``, step, ``rank``,
     microbatch). Metrics (``ddp.py:170``): loss is the mean over ranks,
     accuracy Σcorrect / (n·world), grad_norm the norm of the averaged,
-    unclipped gradient. No host read.
+    unclipped gradient. No host read. A routed model's loss adds
+    AUX_LOSS_WEIGHT × the sum of its blocks' aux losses.
     """
     model, optimizer = state.model, state.optimizer
     params = [p for p in model.parameters() if p.requires_grad]

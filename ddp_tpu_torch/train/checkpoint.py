@@ -78,9 +78,9 @@ def save_lm_spec(directory: str, spec) -> str:
 
 
 def load_lm_spec_fields(directory: str) -> dict:
-    """The sidecar's fields that the port's ``LMSpec`` knows, and
-    ``num_experts`` (so that ``derive_lm_spec`` can refuse an MoE
-    checkpoint); {} when the file is absent or unreadable."""
+    """The sidecar's fields that the port's ``LMSpec`` knows (the MoE
+    routing fields among them); {} when the file is absent or
+    unreadable."""
     from ddp_tpu_torch.models.lm import LMSpec
 
     try:
@@ -90,17 +90,18 @@ def load_lm_spec_fields(directory: str) -> dict:
         return {}
     if not isinstance(fields, dict):
         return {}
-    known = LMSpec._fields + ("num_experts",)
-    return {k: v for k, v in fields.items() if k in known}
+    return {k: v for k, v in fields.items() if k in LMSpec._fields}
 
 
 def derive_spec_with_sidecar(directory: str, state, *,
                              num_heads_fallback: int):
     """Parameter shapes + ``lm_spec.json`` → ``LMSpec``: the shapes are
     ground truth, the sidecar gives the head count (``num_heads_fallback``
-    for a checkpoint without one). Raises ValueError when the state is
-    not a causal LM's, the head count does not explain the shapes, or the
-    sidecar describes an MoE model."""
+    for a checkpoint without one) and the routing the shapes cannot carry
+    (``moe_top_k``, ``moe_normalize_gates``). Raises ValueError when the
+    state is not a causal LM's, the head count does not explain the
+    shapes, or the sidecar's ``num_experts`` / ``moe_every`` route other
+    blocks than the shapes do."""
     from ddp_tpu_torch.models.lm import derive_lm_spec
 
     sidecar = load_lm_spec_fields(directory)

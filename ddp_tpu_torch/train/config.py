@@ -11,8 +11,9 @@ from ddp_tpu_torch.models import IMAGE_MODELS
 
 MODELS = IMAGE_MODELS + ("causal_lm",)
 # JAX-package models the port does not train yet, by name prefix, with the
-# ROADMAP item that brings them.
-UNPORTED = {"vit_moe": "A2.4", "long_context": "A2.4", "pipe_vit": "A4"}
+# ROADMAP item that brings them: the long-context classifier (A2.4) and
+# the pipelined ViT (A4).
+UNPORTED = {"long_context": "A2.4", "pipe_vit": "A4"}
 IMAGE_DATASETS = ("mnist", "fashion_mnist", "kmnist", "uci_digits",
                   "cifar10", "cifar100")
 SEQ_DATASETS = ("synthetic_seq", "text")
@@ -35,6 +36,14 @@ class TrainConfig:
     model_depth: int | None = None  # None → 2 (causal_lm), the model's own
     num_heads: int = 4
     num_kv_heads: int = 0  # 0 → MHA
+    # causal_lm: route every --moe_every-th block's MLP to this many
+    # experts (0 = dense), top --moe_top_k each, gates renormalised unless
+    # --moe_raw_gates (``ddp_tpu/train/config.py:103-116``). The image
+    # family has its own models: vit_moe_tiny, vit_moe_micro.
+    moe_experts: int = 0
+    moe_every: int = 2
+    moe_top_k: int = 2
+    moe_raw_gates: bool = False
     batch_size: int = 32  # per rank (data shard)
     epochs: int = 10
     optimizer: str = "sgd"  # sgd | adam | adamw
@@ -102,6 +111,15 @@ class TrainConfig:
                 f"{', '.join(MODELS)}"
                 + (f"; {config.model} waits for ROADMAP {item}" if item else "")
             )
+        # JAX's guards (``ddp_tpu/train/trainer.py:251-262``).
+        if config.moe_experts and config.model != "causal_lm":
+            raise ValueError(
+                "--moe_experts routes the causal LM's MLPs: use --model "
+                "causal_lm (images have --model vit_moe_tiny)"
+            )
+        if config.moe_experts and config.moe_every < 1:
+            raise ValueError(
+                f"--moe_every must be >= 1, got {config.moe_every}")
         return config
 
     @property

@@ -4,7 +4,8 @@
 ``Trainer`` for the image models (``ddp_tpu/train/trainer.py:2047-3006``,
 the data-parallel subset), ``train.py``'s main path: SimpleCNN, ResNet
 or ViT (``models.get_model``) on MNIST-family or CIFAR data sharded over
-the ranks of ``torch.distributed`` (``data/loader``, ``data/sampler``),
+the ranks of ``torch.distributed`` (``data/loader``, ``data/sampler``;
+the MoE ViTs add their blocks' load-balance losses to the loss),
 the data-parallel step (``parallel/ddp``, one all-reduce a step,
 BatchNorm's running statistics averaged in it, ``--augment`` on the
 device) or the compiled-epoch runner (``--fast_epoch``), a checkpoint
@@ -14,7 +15,8 @@ statistics, and an evaluation on the test split every ``eval_every``
 epochs. Rank 0 prints the JAX trainer's log lines (0-based epoch tags, as
 the reference's checkpoints) and ``final_accuracy=``.
 
-:class:`LMTrainer` trains the causal LM on one card
+:class:`LMTrainer` trains the causal LM, dense or expert-routed
+(``--moe_experts``), on one card
 (``trainer.py:812-966``, causal-LM subset): synthetic token streams or a
 byte-level text file, fp32 master weights, the epoch runner of
 ``train/fast.py``, one host read per epoch and an eval every epoch, a
@@ -130,6 +132,10 @@ class LMTrainer:
             depth=config.model_depth or 2,
             num_heads=config.num_heads,
             num_kv_heads=config.num_kv_heads,
+            num_experts=config.moe_experts,
+            moe_every=config.moe_every,
+            moe_top_k=config.moe_top_k,
+            moe_normalize_gates=not config.moe_raw_gates,
         )
         self.model = CausalLM.from_state(
             self.spec, init_lm_state(self.spec, seed=config.seed),

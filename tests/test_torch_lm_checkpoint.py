@@ -1,8 +1,9 @@
 """The causal LM from training to serving in ddp_tpu_torch, on the CPU.
 
 - The ``lm_spec.json`` sidecar crosses between the packages both ways
-  (held on the dense fields), and a JAX sidecar of an MoE model is
-  refused: the port does not serve MoE yet.
+  (every field the port's spec knows, the MoE fields among them), and a
+  JAX sidecar of an MoE model over dense shapes is refused, naming the
+  sidecar's routing and the shapes'; a real MoE checkpoint serves.
 - ``derive_spec_with_sidecar`` equals the JAX package's on the same
   shapes (MHA, GQA, no sidecar), and both raise on a head count the
   shapes refute.
@@ -36,10 +37,13 @@ from ddp_tpu.models.lm import LMSpec as JSpec
 from ddp_tpu.serve.engine import ServeEngine as JEngine
 from ddp_tpu.train import checkpoint as jck
 from ddp_tpu_torch.interop.jax_params import lm_params_from_jax, lm_params_to_jax
-from ddp_tpu_torch.models.lm import LMSpec
+from ddp_tpu_torch.models.lm import CausalLM, LMSpec, init_lm_state
+from ddp_tpu_torch.parallel.ddp import TrainState
 from ddp_tpu_torch.serve.__main__ import main as serve_main
+from ddp_tpu_torch.serve.engine import ServeEngine
 from ddp_tpu_torch.train import checkpoint as ck
 from ddp_tpu_torch.train.config import TrainConfig
+from ddp_tpu_torch.train.optim import make_optimizer
 from ddp_tpu_torch.train.trainer import LMTrainer
 from ddp_tpu_torch.train.trainer import main as train_main
 from test_torch_generate import numpy_lm_tree
@@ -82,16 +86,18 @@ def test_sidecar_crosses_between_packages(tmp_path, writer):
     else:
         jck.save_lm_spec(str(tmp_path), JSpec(**_dense(spec)))
         got = ck.load_lm_spec_fields(str(tmp_path))
-        assert set(got) == set(DENSE) | {"num_experts"}
-        assert got.pop("num_experts") == 0
+        assert set(got) == set(DENSE)
+        assert got["num_experts"] == 0
     assert {f: got[f] for f in DENSE} == _dense(spec)
     assert ck.LM_SPEC_FILENAME == jck.LM_SPEC_FILENAME
 
 
 def test_moe_sidecar_is_refused(tmp_path):
-    """A JAX MoE sidecar over dense-looking shapes must not serve as a
-    dense model: the port raises and names MoE; JAX derives the MoE spec
-    from the same files."""
+    """A JAX MoE sidecar over dense shapes must not serve as a dense
+    model: the port raises and names the sidecar's routing and the
+    shapes' (JAX, which reads MoE from the sidecar alone, derives an MoE
+    spec from the same files). Beside it, a real MoE checkpoint (routed
+    shapes under the same sidecar) derives and serves."""
     jspec = JSpec(vocab_size=VOCAB, total_len=T, d_model=D, depth=DEPTH,
                   num_heads=HEADS, num_experts=4)
     jck.save_lm_spec(str(tmp_path), jspec)
@@ -99,9 +105,26 @@ def test_moe_sidecar_is_refused(tmp_path):
     _, state = lm_params_from_jax(tree, num_heads=HEADS)
     assert jck.derive_spec_with_sidecar(
         str(tmp_path), tree, num_heads_fallback=HEADS).num_experts == 4
-    with pytest.raises(ValueError, match="MoE"):
+    with pytest.raises(ValueError, match=r"sidecar says num_experts 4.*"
+                       r"routed blocks \[2\].*shapes say num_experts 0"):
         ck.derive_spec_with_sidecar(str(tmp_path), state,
                                     num_heads_fallback=HEADS)
+
+    moe = LMSpec(vocab_size=VOCAB, total_len=T, d_model=D, depth=DEPTH,
+                 num_heads=HEADS, num_experts=4)
+    routed = CausalLM.from_state(moe, init_lm_state(moe, seed=1), "cpu",
+                                 trainable=True)
+    ck.CheckpointManager(str(tmp_path)).save(
+        0, TrainState(0, routed, make_optimizer(routed.parameters(), "sgd")))
+    state, _ = ck.CheckpointManager(str(tmp_path)).restore_for_inference()
+    spec = ck.derive_spec_with_sidecar(str(tmp_path), state,
+                                       num_heads_fallback=1)
+    assert spec == moe
+    served = CausalLM.from_state(spec, state, "cpu")
+    eng = ServeEngine(served, slots=2, prefill_len=8)
+    rid = eng.submit([1, 2, 3], 4).request.rid
+    eng.run()
+    assert len(eng.result(rid).tokens) == 4
 
 
 @pytest.mark.parametrize("case", ["mha", "gqa", "no_sidecar", "wrong_heads"])

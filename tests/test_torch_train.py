@@ -347,7 +347,7 @@ def test_train_cli_on_cpu_prints_final_accuracy(tmp_path):
 def test_train_cli_refuses_other_models():
     """A model the port does not train yet is refused with a message
     naming the ROADMAP item that brings it."""
-    for model, item in (("vit_moe_tiny", "A2.4"), ("pipe_vit", "A4")):
+    for model, item in (("long_context", "A2.4"), ("pipe_vit", "A4")):
         bad = subprocess.run(CLI + ["--model", model], cwd=REPO,
                              capture_output=True, text=True, timeout=120)
         assert bad.returncode != 0 and f"ROADMAP {item}" in bad.stderr
