@@ -316,9 +316,48 @@ order; any failure exits non-zero and prints no result:
    spec_skew; where the training forward dropped no token, the served
    prompt's last-position logits equal train_forward's (fp32) within
    MOE_LOGITS_ATOL. 5m's checkpoint is removed at the end.
-9. A "kernels" JSON line (each decode kernel's launches on the MoE path,
-   moe_launches, beside its own; B1-B3's in 5m and 7c), the card line,
-   and the last line
+9. The trainer's fault tolerance (check_fault_tolerance; every command
+   on the card, every generation's run_start naming it).
+   9a: phase 5's LM at run_lm_bench's width (bf16, 2 epochs of 6 steps)
+   through main(): the uninterrupted command twice (bitwise equal, or
+   their spread logged); the same under --chaos sigterm:rank0@step8
+   exits clean with epoch 1 saved at mid_batch 2 (the save's seconds
+   printed); the re-run resumes it (seconds from the call to the first
+   resumed step's end printed) and ends on the uninterrupted run's
+   parameters and Adam state (bitwise, or within the spread); B1-B3
+   launched in training steps x depth over the two invocations (the
+   evaluations' B1 counted apart); the control, re-entering one batch
+   late, must fail the comparison; the synchronizing calls of 8 steady
+   LM steps with the watchdog, a chaos engine and the SIGTERM handler
+   armed equal those with none; the steady step without and with the
+   parameter EMA, timed in turns (a reading).
+   9b: SimpleCNN on the reference's path (--epochs 3 --batch_size 64,
+   SGD 0.01) on 12,800 synthetic MNIST images, --deterministic, each run
+   under the supervisor: two uninterrupted runs; --max_restarts 1 --chaos
+   kill:rank0@step300 (the supervisor logs "killed by SIGKILL",
+   relaunches, and the run ends on the uninterrupted state by the same
+   rule; kill to the next run_start printed); ckpt_corrupt:latest on
+   that directory (epoch 2 quarantined, a fallback record, epoch 2
+   retrained from epoch 1); --watchdog_timeout 5 --max_restarts 1 --chaos
+   stall:input@step250:30s (one exit 124 classified as a watchdog
+   timeout, the run completes, the stall in the ledger once).
+   9c: --spawn 2 --backend gloo --elastic --min_world 1 --max_restarts 2
+   --chaos shrink:rank1@step300,grow:+1@epoch2 on the one card: worlds
+   2, 1, 2 by their run_start records, the global batch 64 in each,
+   elastic.json as the first generation wrote it, equal epochs.
+   9d: phase 7a's ViT-Tiny (bf16, B1-B3 at T 65) with --ema_decay 0.999
+   --keep_best --max_checkpoints 1: the EMA within FT_EMA_TOL of an fp64
+   recurrence over the card's own parameters after every update (decay
+   and 1 - decay rounded to fp32 as JAX applies them), every
+   evaluation on the EMA, the EMA bitwise through the checkpoint, the
+   directory holding exactly best ∪ latest with their manifests.
+   9e: a reference .pt (seeded weights, the module. prefix) through
+   python -m ddp_tpu_torch.interop.import_torch_checkpoint: logits on
+   the card within FT_IMPORT_ATOL of the CPU forward, then one epoch
+   from the imported checkpoint with a finite, falling loss.
+10. A "kernels" JSON line (each decode kernel's launches on the MoE path,
+   moe_launches, beside its own; B1-B3's in 5m and 7c, and phase 9's as
+   fault_tolerance_launches), the card line, and the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -2522,11 +2561,11 @@ def _sync_kinds(torch) -> dict:
     return seen
 
 
-def count_syncs(torch, engine, steps, seen) -> dict:
-    """``steps`` engine steps under the sync debug mode "warn": its
-    warnings, plus, through wrappers, the waits the mode does not report
-    (``seen`` from _sync_kinds) → {"debug_mode": n, "<kind>_wrapper": n,
-    "total": n}."""
+def count_syncs(torch, engine, steps, seen, run=None) -> dict:
+    """``steps`` engine steps (or ``run()``, when given) under the sync
+    debug mode "warn": its warnings, plus, through wrappers, the waits the
+    mode does not report (``seen`` from _sync_kinds) → {"debug_mode": n,
+    "<kind>_wrapper": n, "total": n}."""
     import warnings
 
     counts = {"debug_mode": 0}
@@ -2551,6 +2590,8 @@ def count_syncs(torch, engine, steps, seen) -> dict:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
+                if run is not None:
+                    run()
                 for _ in range(steps):
                     engine.step()
             finally:
@@ -5635,6 +5676,665 @@ def check_image_families(torch, card) -> dict:
     return {"vit": vit, "resnet": resnet, "vit_moe": vit_moe}
 
 
+# ---- phase 9: the trainer's fault tolerance --------------------------------
+
+# Appended to every phase-9 command (["--device", "cpu"] when rehearsing).
+FT_DEVICE_ARGS: list[str] = []
+# 9a: run_lm_bench's width (phase 5's TRAIN_ARGS: 2 epochs of 6 steps,
+# bf16); the SIGTERM lands before global step 8, epoch 1's batch 2.
+FT_SIGTERM_STEP = 8
+# 9b: the reference's path (train.py --epochs 3 --batch_size 64, SGD
+# 0.01) on synthetic MNIST cut from 60,000 to 12,800 images (200 steps an
+# epoch), every run under the supervisor (one worker process, as the
+# drills run), cuDNN deterministic (without it two uninterrupted runs
+# part by ~6e-8: a conv backward's order); the kill lands in epoch 1, the
+# stall in epoch 1.
+FT_CNN_ARGS = ["--model", "simple_cnn", "--synthetic_data",
+               "--synthetic_size", "12800", "--epochs", "3", "--batch_size",
+               "64", "--log_interval", "300", "--deterministic"]
+FT_KILL_STEP = 300
+FT_STALL = "stall:input@step250:30s"
+# 9c: two gloo ranks on the one card at 32 each (global 64), 3 epochs of
+# 200 steps; rank 1 is lost in epoch 1, a host comes back at epoch 2.
+FT_ELASTIC_CHAOS = "shrink:rank1@step300,grow:+1@epoch2"
+# 9d: phase 7a's ViT-Tiny recipe with the EMA and keep_best.
+FT_EMA_DECAY = 0.999
+FT_EMA_TOL = 1e-6  # relative norm error, card fp32 EMA vs fp64 recurrence
+# 9e: the imported network's logits, card (fp32, TF32 off) vs the CPU.
+FT_IMPORT_ATOL = 1e-5
+FT_SYNC_STEPS = 8  # steady LM steps counted with and without the arming
+
+
+@contextlib.contextmanager
+def _patched(*triples):
+    """``setattr(owner, name, value)`` for each (owner, name, value) inside
+    the block; afterwards each attribute is as it was (an inherited one
+    shows through again)."""
+    saved = [(owner, name, vars(owner).get(name, _patched))
+             for owner, name, _ in triples]
+    for owner, name, value in triples:
+        setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        for owner, name, old in saved:
+            if old is _patched:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, old)
+
+
+def _records(path) -> list[dict]:
+    import os
+
+    if not os.path.exists(path):
+        return []
+    return [json.loads(line) for line in open(path) if line.strip()]
+
+
+def _finished(records) -> bool:
+    """The stream ends with the run's ``final`` record, a finite loss."""
+    return bool(records) and records[-1]["kind"] == "final" and \
+        records[-1]["loss"] is not None
+
+
+def _platform_failures(records, label) -> list[str]:
+    """Every generation's run_start names the card (build_info)."""
+    starts = [r for r in records if r["kind"] == "run_start"]
+    bad = [s["build_info"] for s in starts
+           if s["build_info"].get("platform") != "gpu"]
+    if not starts or bad:
+        return [f"{label}: a generation ran off the card ({len(starts)} "
+                f"run_start records, off-card {bad})"]
+    return []
+
+
+def _state_of(trainer):
+    """(parameters, optimizer buffers by name and index), on the card."""
+    opt = trainer.optimizer
+    bufs = {f"{k}{i}": b for k in ("trace", "mu", "nu", "ema")
+            for i, b in enumerate(getattr(opt, k, None) or [])}
+    return dict(trainer.model.state_dict()), bufs, opt.count
+
+
+def _state_diff(torch, a, b) -> tuple[bool, float]:
+    """(bit for bit, the largest element-wise difference) of two
+    _state_of results."""
+    (pa, oa, ca), (pb, ob, cb) = a, b
+    same = ca == cb and set(pa) == set(pb) and set(oa) == set(ob)
+    worst = 0.0
+    for x, y in [(pa[k], pb[k]) for k in pa] + [(oa[k], ob[k]) for k in oa]:
+        if not torch.equal(x, y):
+            same = False
+            worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return same, worst
+
+
+def _lm_ft_run(torch, args, *, late=0, timing=None):
+    """``python -m ddp_tpu_torch.train``'s main() on ``args`` in-process
+    → (trainer, B1-B3 launches of training alone, of evaluation alone).
+    ``late`` re-enters a preempted epoch that many batches late (the
+    control); ``timing`` receives the seconds from the call to the first
+    resumed step's end and each save's seconds."""
+    from ddp_tpu_torch.ops import flash as fl
+    from ddp_tpu_torch.train import trainer as tr
+    from ddp_tpu_torch.train.checkpoint import CheckpointManager
+
+    launches = fl.flash_attention.launches
+    evals = dict.fromkeys(launches, 0)
+    real_eval, real_between = tr.LMTrainer.evaluate_raw, \
+        tr.LMTrainer._between_steps
+    real_entry, real_save = tr.LMTrainer._mid_epoch_entry, \
+        CheckpointManager.save
+    t0 = time.perf_counter()
+
+    def evaluate_raw(self):
+        before = dict(launches)
+        out = real_eval(self)
+        for k in launches:
+            evals[k] += launches[k] - before[k]
+        return out
+
+    def between_steps(self, step0, skip):
+        between = real_between(self, step0, skip)
+
+        def timed(k):
+            if k == 1 and timing is not None and "first_step_s" not in timing:
+                torch.cuda.synchronize()
+                timing["first_step_s"] = time.perf_counter() - t0
+            return between(k)
+
+        return timed
+
+    def entry(self, start):
+        epoch, batch = real_entry(self, start)
+        return epoch, batch + late if batch else batch
+
+    def save(self, *a, **kw):
+        s0 = time.perf_counter()
+        out = real_save(self, *a, **kw)
+        if timing is not None:
+            timing.setdefault("saves", []).append(
+                (kw.get("mid_batch", 0), time.perf_counter() - s0))
+        return out
+
+    _zero(launches)
+    fl.flash_attention.plain_routed = 0
+    with _patched((tr.LMTrainer, "evaluate_raw", evaluate_raw),
+                  (tr.LMTrainer, "_between_steps", between_steps),
+                  (tr.LMTrainer, "_mid_epoch_entry", entry),
+                  (CheckpointManager, "save", save)):
+        trainer = tr.main(args)
+    torch.cuda.synchronize()
+    train = {k: launches[k] - evals[k] for k in launches}
+    return trainer, train, evals
+
+
+def _lm_sync_failures(torch, trainer, seen) -> list:
+    """FT_SYNC_STEPS steady LM steps of ``trainer`` with the watchdog,
+    a chaos engine (an event past the run) and the SIGTERM handler armed,
+    against the same steps with none: the synchronizing calls (sync
+    debug mode "warn" plus wrappers) must be equal."""
+    from ddp_tpu_torch.runtime.chaos import ChaosEngine
+    from ddp_tpu_torch.train.fast import run_steps
+    from ddp_tpu_torch.utils.watchdog import StepWatchdog
+
+    G = trainer.global_batch_size
+    batches = [(trainer.tokens[(i * G) % len(trainer.tokens):][:G],)
+               for i in range(FT_SYNC_STEPS)]
+    for args in batches[:2]:  # warm
+        trainer.runner.step(*args)
+    torch.cuda.synchronize()
+    counts = {}
+    trainer.chaos = ChaosEngine("stall:input@step1000000:1s")
+    trainer.watchdog = StepWatchdog(600.0)
+    for label in ("off", "armed"):
+        between = None
+        installed = False
+        if label == "armed":
+            trainer.watchdog.start()
+            installed, prev = trainer._install_preemption_handler()
+            between = trainer._between_steps(trainer.optimizer.count, 0)
+        try:
+            counts[label] = count_syncs(
+                torch, None, 0, seen,
+                run=lambda: run_steps(trainer.runner.step, batches,
+                                      on_gpu=trainer.device.type == "cuda",
+                                      between=between))
+        finally:
+            trainer.watchdog.stop()
+            if installed:
+                import signal
+
+                signal.signal(signal.SIGTERM, prev)
+    log(f"[ft] 9a {FT_SYNC_STEPS} steady LM steps, synchronizing calls: "
+        f"off {counts['off']}, watchdog + chaos + preempt check armed "
+        f"{counts['armed']}")
+    if counts["armed"] != counts["off"]:
+        return [f"arming added synchronizing calls: {counts}"]
+    return []
+
+
+def time_lm_ema(torch, trainer) -> None:
+    """Not gated: the steady LM step without and with the parameter EMA
+    (``--ema_decay``'s update after every step), in turns off, on, on,
+    off, FT_SYNC_STEPS steps each between CUDA events."""
+    from ddp_tpu_torch.train.optim import param_ema
+
+    opt, G = trainer.optimizer, trainer.global_batch_size
+    batches = [(trainer.tokens[(i * G) % len(trainer.tokens):][:G],)
+               for i in range(FT_SYNC_STEPS)]
+    ms = {"off": [], "on": []}
+    for arm in ("off", "on", "on", "off"):
+        opt.ema_state = param_ema(opt.params, 0.999) if arm == "on" else None
+        trainer.runner.step(*batches[0])  # warm
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        start.record()
+        for args in batches:
+            trainer.runner.step(*args)
+        end.record()
+        torch.cuda.synchronize()
+        ms[arm].append(start.elapsed_time(end) / len(batches))
+    opt.ema_state = None
+    log(f"[ft] 9a steady bf16 LM step (CUDA events, {FT_SYNC_STEPS} steps a "
+        f"turn, off/on/on/off): without the EMA "
+        + ", ".join(f"{m:.3f}" for m in ms["off"]) + " ms, with it "
+        + ", ".join(f"{m:.3f}" for m in ms["on"]) + " ms")
+
+
+def check_lm_preemption(torch, tmp, seen) -> tuple[dict, list]:
+    """Phase 9a → (B1-B3 training launches of the preempted and resumed
+    invocations, failures)."""
+    import os
+    import shutil
+
+    from ddp_tpu_torch.train.checkpoint import CheckpointManager
+
+    failed, readings = [], {}
+
+    def args(name, *extra):
+        return TRAIN_ARGS + FT_DEVICE_ARGS + [
+            "--checkpoint_dir", os.path.join(tmp, name),
+            "--metrics_file", os.path.join(tmp, f"{name}.jsonl"), *extra]
+
+    runs = []
+    for name in ("whole1", "whole2"):
+        t, _, _ = _lm_ft_run(torch, args(name, "--max_checkpoints", "1"))
+        runs.append(_state_of(t))
+        failed += _platform_failures(_records(f"{tmp}/{name}.jsonl"), name)
+        shutil.rmtree(os.path.join(tmp, name))  # 1.34 GB an epoch
+        del t
+    bitwise, spread = _state_diff(torch, runs[0], runs[1])
+    log(f"[ft] 9a two uninterrupted runs ({' '.join(TRAIN_ARGS)}): "
+        + ("bitwise equal" if bitwise else f"spread {spread:.3e}"))
+    chaos = ["--chaos", f"sigterm:rank0@step{FT_SIGTERM_STEP}"]
+    timing = {}
+    cut, train1, eval1 = _lm_ft_run(torch, args("cut", *chaos), timing=timing)
+    spe = cut.steps_per_epoch
+    mid_epoch, mid = divmod(FT_SIGTERM_STEP, spe)
+    mgr = CheckpointManager(os.path.join(tmp, "cut"))
+    blob = mgr.read_partial(mid_epoch, ("mid_batch", "step"))
+    pre_s = [s for m, s in timing.get("saves", []) if m]
+    log(f"[ft] 9a --chaos sigterm:rank0@step{FT_SIGTERM_STEP}: preempted "
+        f"{cut.summary.get('preempted')}, epochs {mgr.all_epochs()}, epoch "
+        f"{mid_epoch} saved at mid_batch {blob.get('mid_batch')} (step "
+        f"{blob.get('step')}), the preemption save "
+        + ", ".join(f"{s:.2f}" for s in pre_s) + " s")
+    if not (cut.summary.get("preempted") and blob.get("mid_batch") == mid
+            and mgr.all_epochs() == [0, mid_epoch] and pre_s
+            and mgr.verify_epoch(mid_epoch) == []):
+        failed.append(f"the SIGTERM run did not save epoch {mid_epoch} at "
+                      f"mid_batch {mid}")
+    del cut
+    # The control resumes a hard-linked copy of the preempted directory.
+    shutil.copytree(os.path.join(tmp, "cut"), os.path.join(tmp, "late"),
+                    copy_function=os.link)
+    timing = {}
+    resumed, train2, eval2 = _lm_ft_run(torch, args("cut", *chaos),
+                                        timing=timing)
+    got = _state_of(resumed)
+    same, err = _state_diff(torch, got, runs[0])
+    ok = same if bitwise else err <= spread
+    log(f"[ft] 9a the re-run resumed epoch {mid_epoch} at batch {mid}: "
+        f"{timing.get('first_step_s', float('nan')):.2f} s from the call to "
+        f"the first resumed step's end; trained "
+        f"{[len(h['loss']) for h in resumed.history]} steps; final "
+        f"parameters and Adam state vs the uninterrupted run: "
+        + ("bitwise equal" if same else f"max |diff| {err:.3e}")
+        + f" (held to {'bitwise' if bitwise else f'the spread {spread:.3e}'})")
+    if not ok or resumed.summary.get("preempted"):
+        failed.append(f"the resumed run differs from the uninterrupted one "
+                      f"({err:.3e})")
+    steps = spe * resumed.config.epochs
+    depth = resumed.spec.depth
+    for name in FLASH_NAMES:
+        k = f"{name}_bf16"
+        n = train1[k] + train2[k]
+        readings[name] = n
+        log(f"[ft] 9a {name}: {train1[k]} + {train2[k]} = {n} launches in "
+            f"training over both invocations (steps x depth = "
+            f"{steps * depth}); evaluation {eval1[k] + eval2[k]}")
+        if n != steps * depth:
+            failed.append(f"{name}: {n} training launches, not steps x depth "
+                          f"{steps * depth}")
+    failed += _platform_failures(_records(f"{tmp}/cut.jsonl"), "sigterm")
+    failed += _lm_sync_failures(torch, resumed, seen)
+    time_lm_ema(torch, resumed)
+    del resumed
+    late, _, _ = _lm_ft_run(torch, args("late", *chaos), late=1)
+    same, err = _state_diff(torch, _state_of(late), runs[0])
+    log(f"[ft] 9a control, re-entering one batch late: "
+        + ("bitwise equal" if same else f"max |diff| {err:.3e}"))
+    if same or (not bitwise and err <= spread):
+        failed.append("a resume one batch late passed the comparison")
+    del late, runs, got
+    torch.cuda.empty_cache()
+    return readings, failed
+
+
+def _launch(argv, log_path):
+    """``python -m ddp_tpu_torch.train`` on ``argv`` in a process of its
+    own (its supervisor and ranks below it), output to ``log_path``."""
+    import os
+
+    log(f"[ft] python -m ddp_tpu_torch.train {' '.join(argv)}")
+    out = open(log_path, "w")
+    return subprocess.Popen([sys.executable, "-m", "ddp_tpu_torch.train",
+                             *argv], stdout=out, stderr=subprocess.STDOUT,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run_all(commands: dict, tmp) -> dict:
+    """The commands (name → argv) at once, each in its own process, all
+    awaited (and killed on the way out) → name → (exit code, the lines
+    of its output)."""
+    procs = {name: _launch(argv, f"{tmp}/{name}.log")
+             for name, argv in commands.items()}
+    try:
+        codes = {name: p.wait(timeout=600) for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return {name: (codes[name], open(f"{tmp}/{name}.log").read().splitlines())
+            for name in commands}
+
+
+def _final_state(torch, ckdir):
+    from ddp_tpu_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(ckdir)
+    return mgr.read(mgr.latest_epoch())
+
+
+def _blob_diff(torch, a, b) -> tuple[bool, float]:
+    pa = dict(a["params"], **{f"t{i}": t for i, t in
+                              enumerate(a["opt_state"]["trace"] or [])})
+    pb = dict(b["params"], **{f"t{i}": t for i, t in
+                              enumerate(b["opt_state"]["trace"] or [])})
+    same, worst = a["step"] == b["step"], 0.0
+    for k in pa:
+        if not torch.equal(pa[k], pb[k]):
+            same = False
+            worst = max(worst, float((pa[k] - pb[k]).abs().max()))
+    return same, worst
+
+
+def _drill_failed(label, code, lines) -> list[str]:
+    if code == 0:
+        return []
+    log(f"[ft] {label} exited {code}; its last lines:\n"
+        + "\n".join(lines[-30:]))
+    return [f"{label}: exit {code}"]
+
+
+def check_drills(torch, tmp) -> list:
+    """Phases 9b and 9c, their supervised commands run at once (each
+    supervisor and its ranks in processes of their own, sharing the card)
+    → failures, each named by its phase."""
+    import os
+
+    from ddp_tpu_torch.train.checkpoint import load_elastic_contract
+
+    base = FT_CNN_ARGS + FT_DEVICE_ARGS
+    kill, wd, el = f"{tmp}/kill", f"{tmp}/wd", f"{tmp}/elastic"
+    runs = _run_all({
+        # Two uninterrupted runs, under the drills' conditions (a worker
+        # process).
+        "w1": base + ["--checkpoint_dir", f"{tmp}/w1", "--max_restarts", "1"],
+        "w2": base + ["--checkpoint_dir", f"{tmp}/w2", "--max_restarts", "1"],
+        "kill": base + ["--checkpoint_dir", kill, "--metrics_file",
+                        f"{kill}.jsonl", "--max_restarts", "1", "--chaos",
+                        f"kill:rank0@step{FT_KILL_STEP}"],
+        # The stall outlasts the timeout → exit 124, classified; the
+        # restart completes, and a second stall would time it out too.
+        "wd": base + ["--checkpoint_dir", wd, "--metrics_file", f"{wd}.jsonl",
+                      "--watchdog_timeout", "5", "--max_restarts", "1",
+                      "--chaos", FT_STALL],
+        "elastic": base + ["--batch_size", "32", "--spawn", "2", "--backend",
+                           "gloo", "--elastic", "--min_world", "1",
+                           "--max_restarts", "2", "--chaos", FT_ELASTIC_CHAOS,
+                           "--checkpoint_dir", el, "--metrics_file",
+                           f"{el}.jsonl"],
+    }, tmp)
+    failed = []
+    for name in ("w1", "w2"):
+        failed += _drill_failed(f"uninterrupted run {name}", *runs[name])
+    if failed:
+        return [f"9b: {f}" for f in failed]
+    whole = [_final_state(torch, f"{tmp}/{name}") for name in ("w1", "w2")]
+    bitwise, spread = _blob_diff(torch, whole[0], whole[1])
+    log(f"[ft] 9b two uninterrupted runs: "
+        + ("bitwise equal" if bitwise else f"spread {spread:.3e}"))
+
+    code, lines = runs["kill"]
+    failed += _drill_failed("kill drill", code, lines)
+    records = _records(f"{kill}.jsonl")
+    starts = [r for r in records if r["kind"] == "run_start"]
+    killed_at = os.path.getmtime(f"{kill}/chaos_ledger.rank0.json")
+    back_s = starts[-1]["time"] - killed_at if len(starts) == 2 else None
+    same, err = _blob_diff(torch, _final_state(torch, kill), whole[0])
+    restart = [l for l in lines if "killed by SIGKILL" in l]
+    log(f"[ft] 9b kill drill: supervisor {restart}; generations "
+        f"{len(starts)}, restarts {[s['restarts'] for s in starts]}; kill to "
+        f"the relaunched generation's run_start (restore done) "
+        f"{back_s if back_s is None else f'{back_s:.2f}'} s; final state vs "
+        f"the uninterrupted run: "
+        + ("bitwise equal" if same else f"max |diff| {err:.3e}"))
+    if (not restart or len(starts) != 2 or not _finished(records)
+            or not (same if bitwise else err <= spread)):
+        failed.append(f"kill drill: {restart}, {len(starts)} generations, "
+                      f"diff {err:.3e}")
+    failed += _platform_failures(records, "kill drill")
+
+    # Corrupt: the kill drill's latest epoch; the same command again, here.
+    corrupt = f"{tmp}/corrupt.jsonl"
+    trainer, _ = _train(["--checkpoint_dir", kill, "--metrics_file", corrupt,
+                         "--chaos", "ckpt_corrupt:latest"], base)
+    records = _records(corrupt)
+    fallback = [r for r in records if r["kind"] == "fallback"]
+    trained = [h["epoch"] for h in trainer.history]
+    log(f"[ft] 9b ckpt_corrupt:latest: fallback records {fallback}; "
+        f"quarantine.epoch-2 {os.path.isdir(f'{kill}/quarantine.epoch-2')}; "
+        f"epochs trained {trained}")
+    if not (len(fallback) == 1 and fallback[0]["epoch"] == 2
+            and fallback[0]["resumed_epoch"] == 1 and trained == [2]
+            and os.path.isdir(f"{kill}/quarantine.epoch-2")):
+        failed.append(f"corrupt drill: {fallback}, trained {trained}")
+    failed += _platform_failures(records, "corrupt drill")
+
+    code, lines = runs["wd"]
+    failed += _drill_failed("watchdog drill", code, lines)
+    records = _records(f"{wd}.jsonl")
+    timeouts = [l for l in lines if "watchdog timeout (hang converted to "
+                "exit 124)" in l]
+    ledger = json.load(open(f"{wd}/chaos_ledger.rank0.json"))
+    log(f"[ft] 9b watchdog drill: supervisor {timeouts}; ledger {ledger}; "
+        f"generations {sum(r['kind'] == 'run_start' for r in records)}; "
+        f"final record {_finished(records)}")
+    if (len(timeouts) != 1 or ledger != {"fired": [FT_STALL]}
+            or not _finished(records)):
+        failed.append(f"watchdog drill: {timeouts}, {ledger}")
+    failed += _platform_failures(records, "watchdog drill")
+
+    # 9c: two gloo ranks on the one card; rank 1 lost in epoch 1 (the world
+    # shrinks to 1 with the global batch kept), a host back at epoch 2.
+    code, lines = runs["elastic"]
+    elastic_failed = _drill_failed("elastic drill", code, lines)
+    records = _records(f"{el}.jsonl")
+    starts = [r for r in records if r["kind"] == "run_start"]
+    epochs = [(r["epoch"], r["batches"]) for r in records
+              if r["kind"] == "epoch"]
+    resizes = [l for l in lines if "launch: elastic" in l]
+    contract = load_elastic_contract(el)
+    log(f"[ft] 9c elastic: supervisor {resizes}; generations "
+        f"{[(s['data_shards'], s['global_batch_size'], s['start_epoch']) for s in starts]}"
+        f" (shards, global batch, start epoch); epoch records {epochs}; "
+        f"elastic.json {contract}")
+    if (len(resizes) != 2 or [s["data_shards"] for s in starts] != [2, 1, 2]
+            or any(s["global_batch_size"] != 64 for s in starts)
+            or contract != {"global_batch_size": 64, "world_size": 2}
+            or [e for e, _ in epochs][-2:] != [1, 2]
+            or len({b for _, b in epochs}) != 1 or not _finished(records)):
+        elastic_failed.append(f"elastic drill: {resizes}, {starts}, "
+                              f"{epochs}, {contract}")
+    elastic_failed += _platform_failures(records, "elastic drill")
+    return [f"9b: {f}" for f in failed] + [f"9c: {f}" for f in elastic_failed]
+
+
+def check_vit_ema(torch, tmp) -> tuple[dict, list]:
+    """Phase 9d: ViT-Tiny bf16 with --ema_decay --keep_best
+    --max_checkpoints 1 → (B1-B3 launches, failures)."""
+    import os
+
+    from ddp_tpu_torch.ops import flash as fl
+    from ddp_tpu_torch.train import optim
+    from ddp_tpu_torch.train.checkpoint import CheckpointManager
+    from ddp_tpu_torch.train.trainer import ImageTrainer
+
+    ckdir = f"{tmp}/vit_ema"
+    # The fp64 recurrence over the card's parameters after every update,
+    # with decay and 1 - decay as JAX's param_ema applies them (rounded to
+    # fp32, EmaState.factors); the exact 0.999 beside it, a reading.
+    d, w = optim.EmaState([], FT_EMA_DECAY).factors
+    ref, exact, raw_calls, ema_evals = {}, {}, [], []
+    real_step, real_eval = optim.Optimizer.step, ImageTrainer.evaluate_raw
+    real_evaluate = ImageTrainer.evaluate
+
+    def step(self):
+        if self.ema_state is not None and id(self) not in ref:
+            ref[id(self)] = [p.detach().double() for p in self.params]
+            exact[id(self)] = [p.detach().double() for p in self.params]
+        real_step(self)
+        if self.ema_state is not None:
+            new = [p.detach().double() for p in self.params]
+            for r, (a, b) in ((ref, (d, w)),
+                              (exact, (FT_EMA_DECAY, 1.0 - FT_EMA_DECAY))):
+                torch._foreach_mul_(r[id(self)], a)
+                torch._foreach_add_(r[id(self)], new, alpha=b)
+
+    def evaluate_raw(self):
+        ema = optim.ema_params(self.optimizer)
+        raw_calls.append(all(torch.equal(p, e) for p, e in
+                             zip(self.optimizer.params, ema)))
+        return real_eval(self)
+
+    def evaluate(self, **kw):
+        out = real_evaluate(self, **kw)
+        ema_evals.append(raw_calls[-1])  # the pass whose figures it returned
+        return out
+
+    launches = fl.flash_attention.launches
+    _zero(launches)
+    with _patched((optim.Optimizer, "step", step),
+                  (ImageTrainer, "evaluate_raw", evaluate_raw),
+                  (ImageTrainer, "evaluate", evaluate)):
+        trainer, _ = _train(FT_DEVICE_ARGS + [
+            "--checkpoint_dir", ckdir, "--ema_decay", str(FT_EMA_DECAY),
+            "--keep_best", "--max_checkpoints", "1"], VIT_ARGS)
+    torch.cuda.synchronize()
+    got = {n: launches[f"{n}_bf16"] for n in FLASH_NAMES}
+    ema = optim.ema_params(trainer.optimizer)
+
+    def rel_err(want):
+        num = sum(float((e.double() - r).pow(2).sum())
+                  for e, r in zip(ema, want))
+        return (num / sum(float(r.pow(2).sum()) for r in want)) ** 0.5
+
+    rel = rel_err(ref[id(trainer.optimizer)])
+    rel_exact = rel_err(exact[id(trainer.optimizer)])
+    mgr = CheckpointManager(ckdir)
+    kept = mgr.all_epochs()
+    accs = [h["test_accuracy"] for h in trainer.history]
+    best = int(np.argmax(accs))  # ties: the earliest, as the ranking keeps
+    manifests = sorted(n for n in os.listdir(ckdir)
+                       if n.endswith(".manifest.json"))
+    saved = mgr.read(kept[-1])["opt_state"]["ema"]
+    round_trip = all(torch.equal(s, e.cpu()) for s, e in zip(saved, ema))
+    depth = len(trainer.state.model.block_names)
+    steps = trainer.steps_per_epoch * trainer.config.epochs
+    log(f"[ft] 9d ViT-Tiny bf16 --ema_decay {FT_EMA_DECAY}: EMA vs the fp64 "
+        f"recurrence over the card's parameters, relative norm error "
+        f"{rel:.3e} (limit {FT_EMA_TOL}; with the exact decay "
+        f"{rel_exact:.3e}); evaluations on the EMA "
+        f"{ema_evals}; test accuracy by epoch {accs}; kept epochs {kept}, "
+        f"manifests {manifests}; EMA after the checkpoint round trip "
+        f"{'bitwise equal' if round_trip else 'differs'}; launches {got} "
+        f"(depth x steps = {depth * steps})")
+    failed = []
+    if not rel <= FT_EMA_TOL:
+        failed.append(f"EMA off its fp64 recurrence: {rel:.3e}")
+    if not ema_evals or not all(ema_evals):
+        failed.append(f"evaluation not on the EMA: {ema_evals}")
+    if kept != sorted({best, len(accs) - 1}) or manifests != [
+            f"epoch_{e}.manifest.json" for e in kept]:
+        failed.append(f"keep_best kept {kept} with {manifests}")
+    if not round_trip:
+        failed.append("the EMA changed through the checkpoint")
+    if any(got[n] != depth * steps for n in FLASH_NAMES[1:]) or \
+            got[FLASH_NAMES[0]] < depth * steps:
+        failed.append(f"B1-B3 launches {got}")
+    del trainer, ref, exact, ema
+    torch.cuda.empty_cache()
+    return got, failed
+
+
+def check_pt_import(torch, tmp) -> list:
+    """Phase 9e: a reference .pt (seeded weights, ``module.`` prefix) →
+    the import CLI → logits on the card vs the CPU forward, then one epoch
+    from the imported checkpoint → failures."""
+    from ddp_tpu_torch.interop import import_torch_checkpoint as import_cli
+    from ddp_tpu_torch.models.cnn import SimpleCNN, init_cnn_state
+    from ddp_tpu_torch.train.checkpoint import CheckpointManager
+
+    pt, ckdir = f"{tmp}/epoch_0.pt", f"{tmp}/imported"
+    state = {f"module.{k}": torch.from_numpy(v)
+             for k, v in init_cnn_state(seed=5).items()}
+    torch.save({"epoch": 0, "model": state, "optimizer": {
+        "state": {}, "param_groups": [{"lr": 0.01, "params": list(range(6))}]}},
+        pt)
+    import_cli.main(["--pt", pt, "--checkpoint_dir", ckdir])
+    params = CheckpointManager(ckdir).read_params(0)
+    x = torch.from_numpy(np.random.default_rng(6).random(
+        (256, 1, 28, 28), dtype=np.float32))
+    cpu = SimpleCNN.from_state({k: v.numpy() for k, v in params.items()},
+                               "cpu")
+    dev = "cpu" if FT_DEVICE_ARGS else "cuda"
+    card = SimpleCNN.from_state({k: v.numpy() for k, v in params.items()},
+                                dev)
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.to(dev)).cpu()
+    err = float((got - want).abs().max())
+    trainer, out = _train(FT_DEVICE_ARGS + ["--checkpoint_dir", ckdir,
+                                            "--epochs", "2"], FT_CNN_ARGS)
+    losses = trainer.history[0]["loss"] if trainer.history else []
+    tenth = max(1, len(losses) // 10)
+    first, last = (float(np.mean(losses[:tenth])),
+                   float(np.mean(losses[-tenth:]))) if losses else (0, 0)
+    log(f"[ft] 9e reference .pt import: logits card vs CPU max |diff| "
+        f"{err:.3e} (limit {FT_IMPORT_ATOL}); one epoch from it "
+        f"({len(losses)} steps): mean loss of the first tenth {first:.4f}, "
+        f"of the last {last:.4f}; resumed "
+        f"{'Resumed from checkpoint epoch 0' in out}")
+    failed = []
+    if not err <= FT_IMPORT_ATOL:
+        failed.append(f"imported logits differ: {err:.3e}")
+    if not (losses and np.all(np.isfinite(losses)) and last < first
+            and "Resumed from checkpoint epoch 0" in out
+            and [h["epoch"] for h in trainer.history] == [1]):
+        failed.append(f"the imported run did not train epoch 1 with a "
+                      f"falling loss: {first} -> {last}")
+    return failed
+
+
+def check_fault_tolerance(torch, card) -> dict:
+    """Phase 9, every reading printed before any raise → the B1-B3
+    launches of 9a and 9d."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    seen = _sync_kinds(torch)
+    failed, readings = [], {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ft_") as tmp:
+        steps = [("9a", lambda: check_lm_preemption(torch, tmp, seen)),
+                 ("9b, 9c", lambda: ([], check_drills(torch, tmp))),
+                 ("9d", lambda: check_vit_ema(torch, tmp)),
+                 ("9e", lambda: ([], check_pt_import(torch, tmp)))]
+        for label, run in steps:
+            s0 = time.perf_counter()
+            got, bad = run()
+            readings[label] = got
+            failed += [f"{label}: {b}" for b in bad]
+            log(f"[ft] {label}: {time.perf_counter() - s0:.1f} s")
+    log(f"[ft] phase 9: {time.perf_counter() - t0:.1f} s on {card}")
+    if failed:
+        raise AssertionError(f"phase 9: {failed}")
+    return readings
+
+
 def check_serving(torch) -> dict:
     from ddp_tpu_torch.models.lm import LMSpec, init_lm
     from ddp_tpu_torch.ops import decode as dec
@@ -5946,6 +6646,7 @@ def main() -> int:
     trained, served = check_lm_phases(torch, card)
     check_cnn(torch, card)
     images = check_image_families(torch, card)
+    fault = check_fault_tolerance(torch, card)
 
     replaces = {"flash_decode_fp32": "ddp_tpu/ops/decode.py:260",
                 "flash_decode_int8": "ddp_tpu/ops/decode.py:270",
@@ -6010,6 +6711,11 @@ def main() -> int:
             "vit_moe_launches": images["vit_moe"]["launches"][name],
             **{k: flash["bf16"][name][k] for k in keys},
             "sdpa_bwd_ms": flash["bf16"][name]["sdpa_bwd_ms"],
+            # Phase 9: the LM's SIGTERM-and-resume (training launches over
+            # both invocations) and ViT-Tiny with the EMA and keep_best.
+            "fault_tolerance_launches": {"lm_preempt_resume":
+                                         fault["9a"][name],
+                                         "vit_ema": fault["9d"][name]},
             "variants": {
                 "fp32": {"launches": trained["fp32"][name],
                          **{k: flash["fp32"][name][k] for k in keys}},

@@ -38,6 +38,7 @@ class DistContext:
 
 
 _ACTIVE: DistContext | None = None
+_PICKS = 3  # tries of a free port for a world of one
 
 
 def free_port() -> int:
@@ -86,14 +87,20 @@ def setup(
         torch.cuda.set_device(dev)
     addr = os.environ.get("MASTER_ADDR", "localhost")
     port = os.environ.get("MASTER_PORT")
-    if port is None:
-        if world > 1:
-            raise ValueError(f"world {world} needs MASTER_ADDR/MASTER_PORT")
-        port = free_port()
-    coordinator = f"{addr}:{port}"
-    tdist.init_process_group(
-        want, init_method=f"tcp://{coordinator}", rank=rank, world_size=world
-    )
+    if port is None and world > 1:
+        raise ValueError(f"world {world} needs MASTER_ADDR/MASTER_PORT")
+    # A port picked here (one process alone) can be taken by another
+    # socket between free_port() and the store's bind: pick again.
+    for attempt in range(_PICKS if port is None else 1):
+        coordinator = f"{addr}:{port or free_port()}"
+        try:
+            tdist.init_process_group(want, init_method=f"tcp://{coordinator}",
+                                     rank=rank, world_size=world)
+            break
+        except tdist.DistNetworkError as e:
+            if port is not None or "EADDRINUSE" not in str(e) \
+                    or attempt == _PICKS - 1:
+                raise
     actual = tdist.get_backend()
     if backend is not None and actual != backend:
         tdist.destroy_process_group()

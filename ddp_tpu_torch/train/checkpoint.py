@@ -4,20 +4,30 @@
 Layout under the checkpoint directory, as the JAX package's:
 
 - ``epoch_N/state.pt``: ``torch.save`` of ``{step, params, opt_state,
-  spe, mid_batch, fmt}`` (``checkpoint.py:609-665``; ``params`` is the
+  spe, mid_batch, fmt}`` (``checkpoint.py:609-665``; ``mid_batch`` > 0
+  tags an epoch preempted after that many batches; ``params`` is the
   model's ``state_dict()``, so BatchNorm's running statistics, JAX's
   ``batch_stats``, are saved and restored with it), written by rank 0
   into a temporary directory first; the rename to ``epoch_N`` is the
   commit point, so a crash mid-save leaves no half-written latest;
+- ``epoch_N/metrics.json``: the metrics a save was given (the eval
+  accuracy ``--keep_best`` ranks by); a save without metrics (a
+  preemption's) has none and is never pruned by rank;
 - ``epoch_N.manifest.json``: every file's size and CRC-32
-  (``build_manifest``, same JSON form);
+  (``build_manifest``, same JSON form); an epoch that is pruned or
+  deleted loses its manifest with it, so no manifest outlives its epoch;
 - ``quarantine.epoch-N``: a committed epoch that failed its manifest,
   renamed aside (never deleted) by discovery, which then falls back to
   the previous intact epoch.
 
 - ``lm_spec.json``: a causal LM's architecture fields beside the
   epochs (``checkpoint.py:235-292``), which serving merges over the
-  spec its shapes give (:func:`derive_spec_with_sidecar`).
+  spec its shapes give (:func:`derive_spec_with_sidecar`);
+- ``elastic.json``: the run's global batch and first world, written
+  once (``checkpoint.py:310-345``), which a resized relaunch honours;
+- ``generations.json``: how many times a trainer has started on this
+  directory and at what world, the ``restarts`` and
+  ``prev_data_shards`` of the metrics stream's ``run_start`` record.
 
 The optimizer state is restored with the parameters (the reference
 dropped it). Rank 0 verifies and quarantines; every rank reads after a
@@ -48,6 +58,9 @@ STATE_FILE = "state.pt"
 MANIFEST_SUFFIX = ".manifest.json"
 QUARANTINE_PREFIX = "quarantine."
 LM_SPEC_FILENAME = "lm_spec.json"
+METRICS_FILE = "metrics.json"
+ELASTIC_FILENAME = "elastic.json"
+GENERATIONS_FILENAME = "generations.json"
 _EPOCH_DIR = re.compile(r"epoch_(\d+)$")
 
 
@@ -109,6 +122,58 @@ def derive_spec_with_sidecar(directory: str, state, *,
         state, num_heads=sidecar.pop("num_heads", num_heads_fallback),
         **sidecar,
     )
+
+
+def _write_json(path: str, obj: dict) -> None:
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def _read_json(path: str) -> dict:
+    try:
+        with open(path) as f:
+            obj = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    return obj if isinstance(obj, dict) else {}
+
+
+def save_elastic_contract(directory: str, *, global_batch_size: int,
+                          world_size: int) -> str | None:
+    """Record the run's global-batch contract (the first generation
+    only: an existing contract is never overwritten) → its path, or None
+    when one existed. Flags are per rank, so a resized world would
+    otherwise change what a step means: the step counter, the schedule
+    and the mid-epoch markers."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, ELASTIC_FILENAME)
+    if os.path.exists(path):
+        return None
+    _write_json(path, {"global_batch_size": int(global_batch_size),
+                       "world_size": int(world_size)})
+    return path
+
+
+def load_elastic_contract(directory: str) -> dict:
+    """The recorded contract, or {} (no contract to honour)."""
+    return _read_json(os.path.join(directory, ELASTIC_FILENAME))
+
+
+def record_generation(directory: str, world_size: int) -> dict:
+    """Count this start of a trainer on ``directory`` (rank 0 calls it):
+    → ``{"restarts": starts before this one, "prev_world": the world of
+    the last start, or None}``, and the file updated."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, GENERATIONS_FILENAME)
+    prev = _read_json(path)
+    seen = "restarts" in prev
+    out = {"restarts": int(prev["restarts"]) + 1 if seen else 0,
+           "prev_world": prev.get("world_size") if seen else None}
+    _write_json(path, {"restarts": out["restarts"],
+                       "world_size": int(world_size)})
+    return out
 
 
 def build_manifest(step_dir: str) -> dict:
@@ -174,15 +239,30 @@ class CheckpointManager:
     """Per-epoch checkpoints with latest-intact-epoch auto-resume.
 
     ``max_to_keep`` keeps the newest N epochs (None: all, like the
-    reference). ``is_main`` marks the one writer (rank 0).
+    reference). With ``keep_best_metric`` it keeps the N saves with the
+    highest value of that metric (given to :meth:`save`) plus the
+    latest epoch (the auto-resume anchor) plus every save without
+    metrics (a preemption's) — ``checkpoint.py:357-400``'s retention;
+    each pruned epoch loses its manifest with it. ``is_main`` marks the
+    one writer (rank 0).
+
+    ``last_restored_spe`` / ``last_restored_mid_batch``: what the last
+    restored checkpoint recorded — the steps per epoch it was written
+    under, and how many batches into its epoch the state is (0: the
+    epoch completed). The trainer re-enters a preempted epoch by this
+    explicit marker, never by step arithmetic.
     """
 
     def __init__(self, directory: str = "./checkpoints", *,
-                 max_to_keep: int | None = None, is_main: bool = True):
+                 max_to_keep: int | None = None, is_main: bool = True,
+                 keep_best_metric: str | None = None):
         self._dir = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.keep_best_metric = keep_best_metric
         self.is_main = is_main
         self.quarantined: list[dict] = []
+        self.last_restored_spe: int | None = None
+        self.last_restored_mid_batch = 0
 
     def all_epochs(self) -> list[int]:
         """Every committed epoch tag, ascending."""
@@ -209,17 +289,64 @@ class CheckpointManager:
         except OSError:
             pass
 
-    def save(self, epoch: int, state: TrainState, *,
-             steps_per_epoch: int = 0, mid_batch: int = 0) -> bool:
-        """Write ``epoch``'s checkpoint from rank 0, then a barrier.
+    def saved_metrics(self, epoch: int) -> dict | None:
+        """The metrics ``epoch`` was saved with, or None (a save without
+        metrics)."""
+        path = os.path.join(self._dir, f"epoch_{epoch}", METRICS_FILE)
+        return _read_json(path) if os.path.exists(path) else None
 
-        An existing ``epoch_N`` is kept (a later save supersedes it), as
-        the JAX manager does without ``overwrite``. Returns whether this
-        rank wrote.
+    def _prune(self) -> None:
+        epochs = self.all_epochs()
+        if not epochs:
+            return
+        if self.keep_best_metric:
+            name, seen = self.keep_best_metric, {}
+            for e in epochs:
+                m = self.saved_metrics(e)
+                if m is not None and m.get(name) is not None:
+                    seen[e] = float(m[name])
+            best = sorted(seen, key=lambda e: seen[e], reverse=True)
+            if self.max_to_keep is not None:
+                best = best[:self.max_to_keep]
+            keep = set(best) | {epochs[-1]}
+            keep |= {e for e in epochs if e not in seen}  # metric-less
+        elif self.max_to_keep:
+            keep = set(epochs[-self.max_to_keep:])
+        else:
+            return
+        for e in epochs:
+            if e not in keep:
+                self._delete_epoch(e)
+
+    def save(self, epoch: int, state: TrainState, *, overwrite: bool = False,
+             steps_per_epoch: int = 0, mid_batch: int = 0,
+             metrics: dict | None = None) -> bool:
+        """Write ``epoch``'s checkpoint from rank 0 → whether it was
+        saved (the same answer on every rank).
+
+        A collective: every rank calls it; barriers before (every rank
+        sees the same directory) and after. Same-epoch conflicts
+        (``checkpoint.py:629-639``): an existing ``epoch_N`` (a
+        preemption's artifact) is kept without ``overwrite`` and the
+        save is skipped — a later save supersedes it, and no crash
+        window leaves the directory without a usable latest; with
+        ``overwrite`` it is deleted, then saved (a crash in between
+        falls back to the epoch before: recompute, never corruption).
+        ``mid_batch`` > 0 marks a preempted epoch; ``metrics`` ride in
+        ``metrics.json`` for ``keep_best_metric``.
         """
-        wrote = False
         final = os.path.join(self._dir, f"epoch_{epoch}")
-        if self.is_main and not os.path.isdir(final):
+        sync_global_devices("ckpt_save_begin")
+        exists = os.path.isdir(final)
+        sync_global_devices("ckpt_save_looked")  # no write before every look
+        if exists and not overwrite:
+            logger.info("Checkpoint for epoch %d already exists (preemption "
+                        "artifact) — keeping it; a later save supersedes it",
+                        epoch)
+            return False
+        if self.is_main:
+            if exists:
+                self._delete_epoch(epoch)
             os.makedirs(self._dir, exist_ok=True)
             tmp = f"{final}.tmp-{os.getpid()}"
             shutil.rmtree(tmp, ignore_errors=True)
@@ -239,14 +366,13 @@ class CheckpointManager:
                 torch.save(blob, f)
                 f.flush()
                 os.fsync(f.fileno())
+            if metrics is not None:
+                _write_json(os.path.join(tmp, METRICS_FILE), dict(metrics))
             os.rename(tmp, final)  # the commit point
             write_manifest(self._dir, epoch)
-            if self.max_to_keep:
-                for old in self.all_epochs()[:-self.max_to_keep]:
-                    self._delete_epoch(old)
-            wrote = True
+            self._prune()
         sync_global_devices("ckpt_save")
-        return wrote
+        return True
 
     def quarantine_epoch(self, epoch: int, problems: list[str]) -> str | None:
         """Rename a corrupt epoch aside to ``quarantine.epoch-N`` (its
@@ -349,16 +475,33 @@ class CheckpointManager:
         epoch = self.verified_epoch(epoch)
         return self.read_params(epoch), epoch
 
+    def read_partial(self, epoch: int, keys: tuple[str, ...]) -> dict:
+        """Only ``keys`` of ``epoch``'s checkpoint (``checkpoint.py:817``):
+        the file is memory-mapped, so entries not asked for are never
+        read (an Adam state is twice the parameters)."""
+        path = os.path.join(self._dir, f"epoch_{epoch}", STATE_FILE)
+        blob = torch.load(path, map_location="cpu", weights_only=True,
+                          mmap=True)
+        return {k: blob[k] for k in keys if k in blob}
+
     def restore(self, state: TrainState, epoch: int | None = None) -> int:
         """Load ``epoch`` (as :meth:`verified_epoch` picks it) into
         ``state`` in place — parameters, optimizer state and step count —
-        and return the epoch."""
+        and return the epoch; ``last_restored_spe`` /
+        ``last_restored_mid_batch`` take its position markers."""
         epoch = self.verified_epoch(epoch)
         blob = self.read(epoch)
         state.model.load_state_dict(blob["params"])
         state.optimizer.load_state_dict(blob["opt_state"])
         state.model_state = blob.get("model_state") or {}
         state.step = int(blob["step"])
+        self.last_restored_spe = int(blob.get("spe", 0)) or None
+        if "mid_batch" in blob:
+            self.last_restored_mid_batch = int(blob["mid_batch"])
+        elif self.last_restored_spe:  # a checkpoint from before the marker
+            self.last_restored_mid_batch = state.step % self.last_restored_spe
+        else:
+            self.last_restored_mid_batch = 0
         return epoch
 
     def restore_or_init(self, state: TrainState) -> int:

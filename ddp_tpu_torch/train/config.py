@@ -1,6 +1,6 @@
 """Flags of ``python -m ddp_tpu_torch.train`` (the image-model and
 causal-LM subset of ``ddp_tpu/train/config.py``, under the JAX names and
-defaults)."""
+defaults), with the JAX trainer's guards on them."""
 
 from __future__ import annotations
 
@@ -71,6 +71,35 @@ class TrainConfig:
     spawn: int = 1  # >1: N local ranks through torch.multiprocessing
     backend: str | None = None  # None: nccl on CUDA, gloo on the CPU
     device: str | None = None  # None → the GPU; "cpu" only when asked
+    # Fault tolerance (``ddp_tpu/train/config.py:67-270``, ROADMAP A1).
+    # >0: an EMA of the parameters in the optimizer state, used by eval.
+    ema_decay: float = 0.0
+    # Restore only the weights; the optimizer (count, moments, EMA)
+    # starts fresh: the escape hatch for a changed recipe.
+    reset_opt_state: bool = False
+    # Keep the --max_checkpoints best-accuracy epochs plus the latest
+    # (needs --eval_every 1 and --max_checkpoints).
+    keep_best: bool = False
+    metrics_file: str | None = None  # JSONL records from rank 0
+    # Abort (exit 124) when no step completes for this many seconds.
+    watchdog_timeout: float = 0.0
+    # Deterministic fault drills (runtime/chaos.py), e.g.
+    # "kill:rank1@step20,stall:input@step5:2.5s,ckpt_corrupt:latest".
+    chaos: str | None = None
+    # The supervisor's restart loop (runtime/launch.py): a dead rank
+    # reaps the world, which is relaunched and resumes. The port runs it
+    # for a world of one too (--spawn 1).
+    max_restarts: int = 0
+    restart_backoff: float = 1.0  # seconds, doubled each restart (<= 30)
+    # Elastic resize: a rank exiting SHRINK relaunches the world one
+    # smaller (down to --min_world), GROW one larger; the per-rank batch
+    # is rescaled to keep elastic.json's global batch.
+    elastic: bool = False
+    min_world: int = 1
+    # cuDNN's deterministic algorithms (process-wide): a rerun or a
+    # resume reproduces the run bit for bit. The card's default picks
+    # faster, nondeterministic ones for some conv backward passes.
+    deterministic: bool = False
 
     @classmethod
     def parser(cls) -> argparse.ArgumentParser:
@@ -103,6 +132,16 @@ class TrainConfig:
     @classmethod
     def from_args(cls, argv=None) -> "TrainConfig":
         config = cls(**vars(cls.parser().parse_args(argv)))
+        if config.elastic and config.model.startswith("pipe_"):
+            # ``trainer.py:627-642``'s guard, before the port's own.
+            raise ValueError(
+                "--elastic excludes the in-graph pipeline family: stage "
+                "params rest per-device, so a resize would need stage "
+                "re-placement, not a reshard. For an elastic pipeline use "
+                "the MPMD runtime (python -m ddp_tpu.parallel.mpmd) — one "
+                "process per stage, per-stage restart and checkpoint-sliced "
+                "resume — or drop --elastic"
+            )
         if config.model not in MODELS:
             item = next((v for k, v in UNPORTED.items()
                          if config.model.startswith(k)), None)
@@ -120,7 +159,48 @@ class TrainConfig:
         if config.moe_experts and config.moe_every < 1:
             raise ValueError(
                 f"--moe_every must be >= 1, got {config.moe_every}")
+        # The supervisor's guards (``train.py:79-96``).
+        if config.min_world != cls.min_world and not config.elastic:
+            raise ValueError(
+                "--min_world bounds --elastic's scale-down; add --elastic "
+                "(or drop --min_world)"
+            )
+        if config.elastic and not 1 <= config.min_world <= config.spawn:
+            raise ValueError(
+                f"--min_world {config.min_world} must be in "
+                f"[1, --spawn {config.spawn}]"
+            )
         return config
+
+    def check_robustness(self, *, has_step_events: bool) -> None:
+        """The trainer's guards on the fault-tolerance flags
+        (``trainer.py:1387-1393``, ``:1469-1478``, ``:1553``);
+        ``has_step_events``: the --chaos plan has a step trigger."""
+        if self.keep_best and self.eval_every != 1:
+            raise ValueError(
+                "--keep_best ranks checkpoints by eval accuracy, so "
+                "every epoch needs one: set --eval_every 1"
+            )
+        if self.keep_best and self.max_checkpoints is None:
+            raise ValueError(
+                "--keep_best retains the --max_checkpoints best epochs; "
+                "without --max_checkpoints it would keep everything — "
+                "set --max_checkpoints N (or drop --keep_best)"
+            )
+        if self.fast_epoch and self.watchdog_timeout > 0:
+            raise ValueError(
+                "--fast_epoch runs a whole epoch as one dispatch with no "
+                "per-step progress beats, so a step-scale "
+                "--watchdog_timeout would kill healthy runs; drop one of "
+                "the two flags"
+            )
+        if self.fast_epoch and has_step_events:
+            raise ValueError(
+                "--chaos step-triggered events need the per-step loop, "
+                "but --fast_epoch runs a whole epoch as ONE dispatch — "
+                "use epoch-triggered events (…@epochN) or drop "
+                "--fast_epoch"
+            )
 
     @property
     def milestones(self) -> tuple[int, ...]:

@@ -42,16 +42,21 @@ def _mark(on_gpu: bool):
     return event
 
 
-def run_steps(step, batches, *, on_gpu: bool):
+def run_steps(step, batches, *, on_gpu: bool, between=None):
     """``step(*args)`` over ``batches`` → (StepMetrics of [steps] device
     tensors, or None for no batch; the per-step marks: CUDA events on a
-    GPU, host clock readings on the CPU)."""
+    GPU, host clock readings on the CPU).
+
+    ``between(k) -> stop`` runs on the host before the dispatch of the
+    ``k``-th batch (from 0), once that batch exists: the trainer's
+    chaos trigger, watchdog beat and preemption check. It must not read
+    the device. True stops the loop before that dispatch."""
     marks, metrics = [], []
     batches = iter(batches)
     while True:
         marks.append(_mark(on_gpu))  # the batch's slicing counts as its step's
         args = next(batches, None)
-        if args is None:
+        if args is None or (between is not None and between(len(metrics))):
             break
         metrics.append(step(*args))
     if not metrics:
@@ -149,7 +154,10 @@ def make_lm_epoch_runner(
     """``run(epoch) -> StepMetrics`` of [steps] device tensors.
 
     ``tokens`` [N, T] int lives on the model's device; the tail that
-    does not fill a batch is dropped. ``run.step_seconds`` holds the
+    does not fill a batch is dropped. ``run(epoch, skip_batches,
+    between)`` starts at batch ``skip_batches`` of the epoch's plan (a
+    preempted epoch's re-entry) and hands ``between`` to
+    :func:`run_steps`. ``run.step_seconds`` holds the
     last epoch's per-step times (CUDA events on a GPU, read after the
     epoch's one host sync).
     """
@@ -167,13 +175,15 @@ def make_lm_epoch_runner(
         grad_accum_steps=grad_accum_steps, label_smoothing=label_smoothing,
     )
 
-    def run(epoch: int) -> StepMetrics:
+    def run(epoch: int, skip_batches: int = 0, between=None) -> StepMetrics:
         perm = torch.as_tensor(np.array(plan(epoch)), dtype=torch.long)
         perm = perm.to(tokens.device, non_blocking=True)
         G = global_batch_size
-        batches = ((tokens[perm[t * G:(t + 1) * G]],) for t in range(steps))
+        batches = ((tokens[perm[t * G:(t + 1) * G]],)
+                   for t in range(skip_batches, steps))
         metrics, run.marks = run_steps(step, batches,
-                                       on_gpu=tokens.device.type == "cuda")
+                                       on_gpu=tokens.device.type == "cuda",
+                                       between=between)
         return metrics
 
     run.marks = []

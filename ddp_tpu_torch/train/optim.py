@@ -18,7 +18,14 @@ The updates run as ``torch._foreach_*`` ops on the device with no host
 read; the step count is a host integer, and the learning rate of update
 ``k`` (from 0) is ``schedule(k)``, as optax's ``scale_by_schedule``
 counts. ``state_dict`` / ``load_state_dict`` carry the count and the
-moment buffers through checkpoints. Parameter EMA waits (ROADMAP A1).
+moment buffers through checkpoints.
+
+Parameter EMA (``optim.py:20-67``, ``param_ema``): with ``ema_decay``
+set, the optimizer keeps ``ema = decay·ema + (1 − decay)·p`` of the
+post-update parameters, starting from a copy of the parameters. It lives
+in the optimizer's state (:class:`EmaState`), so it checkpoints and
+restores with the moments, and it is updated on the device by
+``_foreach`` ops after each update, with no host read.
 """
 
 from __future__ import annotations
@@ -29,7 +36,46 @@ import torch
 from ddp_tpu_torch.parallel.ddp import global_norm
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-_STATE = ("trace", "mu", "nu")
+_STATE = ("trace", "mu", "nu", "ema")
+
+
+class EmaState:
+    """The exponential moving average of the parameters (not of the
+    updates), one fp32 buffer per parameter: ``param_ema``'s state."""
+
+    def __init__(self, params, decay: float):
+        if not 0.0 < decay < 1.0:
+            raise ValueError(f"ema decay must be in (0, 1), got {decay}")
+        self.decay = decay
+        # decay and 1 − decay as JAX applies them (a Python float meets an
+        # fp32 array as fp32), whatever precision a kernel takes its
+        # scalar in.
+        self.factors = (float(np.float32(decay)), float(np.float32(1.0 - decay)))
+        # A real copy: the EMA must not alias the live parameters.
+        self.ema = [p.detach().clone() for p in params]
+
+    @torch.no_grad()
+    def update(self, params) -> None:
+        """``ema = decay·ema + (1 − decay)·p``, on the device: ``(1 −
+        decay)·p`` first, then ``+ decay·ema`` in one multiply-add (XLA's
+        order for JAX's update: the same bits on the CPU, one rounding of
+        the EMA a step)."""
+        new = torch._foreach_mul(list(params), self.factors[1])
+        torch._foreach_add_(new, self.ema, alpha=self.factors[0])
+        self.ema = new
+
+
+def param_ema(params, decay: float) -> EmaState:
+    """An EMA of ``params``, initialised from them (JAX's
+    ``param_ema(decay).init``); raises for a decay outside (0, 1)."""
+    return EmaState(params, decay)
+
+
+def ema_params(optimizer) -> list | None:
+    """The EMA buffers of an :class:`Optimizer` (in its parameter
+    order), or None without an EMA."""
+    state = getattr(optimizer, "ema_state", None)
+    return None if state is None else state.ema
 
 
 def make_schedule(
@@ -100,7 +146,8 @@ class Optimizer:
     a float or a :func:`make_schedule` callable."""
 
     def __init__(self, params, *, name: str, lr, momentum: float,
-                 weight_decay: float, grad_clip_norm: float):
+                 weight_decay: float, grad_clip_norm: float,
+                 ema_decay: float = 0.0):
         self.params = [p for p in params if p.requires_grad]
         self.name, self.lr, self.momentum = name, lr, momentum
         self.weight_decay, self.grad_clip_norm = weight_decay, grad_clip_norm
@@ -109,6 +156,12 @@ class Optimizer:
         self.trace = zeros() if name == "sgd" and momentum else None
         if name in ("adam", "adamw"):
             self.mu, self.nu = zeros(), zeros()
+        self.ema_state = (param_ema(self.params, ema_decay) if ema_decay
+                          else None)
+
+    @property
+    def ema(self) -> list | None:
+        return None if self.ema_state is None else self.ema_state.ema
 
     def _clip(self, grads) -> None:
         norm = global_norm(grads)
@@ -118,6 +171,11 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
+        self._update()
+        if self.ema_state is not None:
+            self.ema_state.update(self.params)
+
+    def _update(self) -> None:
         grads = [p.grad for p in self.params]
         if any(g is None for g in grads):
             raise RuntimeError("a parameter has no gradient: run backward first")
@@ -153,8 +211,20 @@ class Optimizer:
             torch._foreach_add_(updates, self.params, alpha=self.weight_decay)
         torch._foreach_add_(self.params, updates, alpha=-lr)
 
+    @torch.no_grad()
+    def reset(self) -> None:
+        """A fresh state in place (``--reset_opt_state``): count 0, the
+        moments zeroed, the EMA restarted from the current parameters.
+        In place, because the train step holds this object."""
+        self.count = 0
+        for k in ("trace", "mu", "nu"):
+            for b in getattr(self, k, None) or []:
+                b.zero_()
+        if self.ema_state is not None:
+            self.ema_state = param_ema(self.params, self.ema_state.decay)
+
     def state_dict(self) -> dict:
-        """The update count and moment buffers (CPU copies)."""
+        """The update count, moment and EMA buffers (CPU copies)."""
         out = {"count": self.count}
         for k in _STATE:
             bufs = getattr(self, k, None)
@@ -164,18 +234,20 @@ class Optimizer:
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         """Restore :meth:`state_dict`'s output in place; the buffers it
-        holds must match this optimizer's."""
+        holds must match this optimizer's (checked before anything is
+        copied)."""
         for k in _STATE:
             mine, theirs = getattr(self, k, None), state.get(k)
             if (mine is None) != (theirs is None) or (
                     mine is not None and len(mine) != len(theirs)):
                 raise ValueError(
                     f"optimizer state {k!r} does not match this optimizer "
-                    f"({self.name}, momentum {self.momentum}): was it "
-                    "saved under another --optimizer or --momentum?")
-            if mine is not None:
-                for b, v in zip(mine, theirs):
-                    b.copy_(v)
+                    f"({self.name}, momentum {self.momentum}, ema "
+                    f"{self.ema_state is not None}): was it saved under "
+                    "another --optimizer, --momentum or --ema_decay?")
+        for k in _STATE:
+            for b, v in zip(getattr(self, k, None) or [], state.get(k) or []):
+                b.copy_(v)
         self.count = int(state["count"])
 
 
@@ -187,9 +259,11 @@ def make_optimizer(
     momentum: float = 0.0,
     weight_decay: float = 0.0,
     grad_clip_norm: float = 0.0,
+    ema_decay: float = 0.0,
 ) -> Optimizer:
     """The update rule over ``params``, with the JAX package's checks;
-    ``lr`` is a float or a :func:`make_schedule` callable."""
+    ``lr`` is a float or a :func:`make_schedule` callable;
+    ``ema_decay`` > 0 adds the parameter EMA."""
     if name == "adamw" and momentum:
         raise ValueError("momentum is an SGD knob; adamw has betas")
     if name == "adam":
@@ -200,4 +274,5 @@ def make_optimizer(
     if name not in ("sgd", "adam", "adamw"):
         raise ValueError(f"unknown optimizer {name!r}")
     return Optimizer(params, name=name, lr=lr, momentum=momentum,
-                     weight_decay=weight_decay, grad_clip_norm=grad_clip_norm)
+                     weight_decay=weight_decay, grad_clip_norm=grad_clip_norm,
+                     ema_decay=ema_decay)

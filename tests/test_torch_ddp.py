@@ -416,3 +416,30 @@ def test_spawn_2_over_gloo_equals_world_1(tmp_path):
         torch.testing.assert_close(b["params"][k], a["params"][k], atol=1e-6,
                                    rtol=0)
     print(f"spawn-2 run: {seconds:.1f} s")
+
+
+def test_dist_setup_picks_another_port_when_taken(monkeypatch):
+    """A world of one picks its own rendezvous port; one taken between the
+    pick and the store's bind (EADDRINUSE) is replaced by a fresh pick."""
+    import socket
+
+    from ddp_tpu_torch.runtime import dist as tdist
+
+    taken = socket.socket()
+    taken.bind(("", 0))
+    taken.listen()
+    picks = [taken.getsockname()[1]]
+    real = tdist.free_port
+
+    def free_port():
+        return picks.pop() if picks else real()
+
+    monkeypatch.setattr(tdist, "free_port", free_port)
+    monkeypatch.delenv("MASTER_PORT", raising=False)
+    try:
+        ctx = tdist.setup(device="cpu")
+        assert ctx.coordinator_address != f"localhost:{taken.getsockname()[1]}"
+        assert picks == []
+    finally:
+        tdist.cleanup()
+        taken.close()

@@ -372,3 +372,7 @@ def test_port_imports_no_jax():
         assert f"ddp_tpu_torch.{m}" in mods
     for m in ("tracer", "reqtrace", "slo", "recorder", "promtext"):
         assert f"ddp_tpu_torch.obs.{m}" in mods  # serving observability
+    for m in ("runtime.consensus", "runtime.chaos", "runtime.launch",
+              "utils.watchdog", "interop.torch_checkpoint",
+              "interop.import_torch_checkpoint"):  # the fault-tolerance layer
+        assert f"ddp_tpu_torch.{m}" in mods
