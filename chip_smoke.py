@@ -56,8 +56,20 @@ order; any failure exits non-zero and prints no result:
    greedy requests then run alone (a fixed schedule), through the
    kernel and through decode_attn="reference", and their streams must
    match (a divergence passes only where the top-2 logit gap at the
-   first divergent token is below 1e-3). Last, torch.profiler reads
-   the device busy share of steady decode steps.
+   first divergent token is below 1e-3). Then torch.profiler reads
+   the device busy share of steady decode steps. Last, the flag runs:
+   ``python -m ddp_tpu_torch.serve``'s main() with --prefill_chunk 32
+   --min_bucket 8 --step_token_budget 40 (SERVE_FLAGS) serves the same
+   ten requests in fp32 (--decode_attn flash), int8 and paged fp32:
+   every request complete; compile_counts() after the traffic equal to
+   its value after warmup() and to FLAG_COMPILE_COUNTS (JAX's warmup()
+   for these flags, pinned by tests/test_torch_serve_flags.py); the run's
+   kernel launched decode steps x depth times and no other; fp32 greedy
+   streams equal the default-flag run's, parted only at a near tie
+   (counted; int8 streams counted, not gated: another chunk split is
+   another int8 computation). A small model with --decode_attn reference
+   --max_queue 2 answers a burst of 16 with 429s and launches no decode
+   kernel.
 4c. Paged serving end to end: ``python -m ddp_tpu_torch.serve``'s own
    main() at phase 4's full width with --page_size 16, serving over
    HTTP bench.py run_serve_prefix_bench's traffic (a seed request with
@@ -313,8 +325,9 @@ order; any failure exits non-zero and prints no result:
    lm_prompts traffic: streams equal an in-process fixed-lane engine's on
    the restored weights (near ties excepted), B4p = decode steps x depth,
    nothing else; POST /reload of the dense bf16 directory answers 409
-   spec_skew; where the training forward dropped no token, the served
-   prompt's last-position logits equal train_forward's (fp32) within
+   spec_skew; the served prompts' last-position logits equal
+   train_forward's (fp32, at capacity factor E/k, where no token can
+   drop: every prompt compares, and none compared fails) within
    MOE_LOGITS_ATOL. 5m's checkpoint is removed at the end.
 9. The trainer's fault tolerance (check_fault_tolerance; every command
    on the card, every generation's run_start naming it).
@@ -327,10 +340,18 @@ order; any failure exits non-zero and prints no result:
    parameters and Adam state (bitwise, or within the spread); B1-B3
    launched in training steps x depth over the two invocations (the
    evaluations' B1 counted apart); the control, re-entering one batch
-   late, must fail the comparison; the synchronizing calls of 8 steady
-   LM steps with the watchdog, a chaos engine and the SIGTERM handler
-   armed equal those with none; the steady step without and with the
-   parameter EMA, timed in turns (a reading).
+   late, must fail the comparison; 8 steady LM steps make no
+   synchronizing call, with the watchdog, a chaos engine and the SIGTERM
+   handler armed and with none (sync debug mode "warn" plus wrappers:
+   0), and raise nothing under the mode "error", where one .item() a
+   step (the control) must raise; the asynchronous save: save()'s hold
+   of the loop against the blocking save, wait(), the step p50 right
+   after a save against none, the epoch restoring the state at save()
+   bit for bit, the manifest read before the commit (and a writer that
+   skips that wait caught), a process that returns right after save()
+   leaving a verified epoch with the saved state's digest; the steady
+   step without and with the parameter EMA, timed in turns (a
+   reading).
    9b: SimpleCNN on the reference's path (--epochs 3 --batch_size 64,
    SGD 0.01) on 12,800 synthetic MNIST images, --deterministic, each run
    under the supervisor: two uninterrupted runs; --max_restarts 1 --chaos
@@ -355,9 +376,31 @@ order; any failure exits non-zero and prints no result:
    python -m ddp_tpu_torch.interop.import_torch_checkpoint: logits on
    the card within FT_IMPORT_ATOL of the CPU forward, then one epoch
    from the imported checkpoint with a finite, falling loss.
-10. A "kernels" JSON line (each decode kernel's launches on the MoE path,
-   moe_launches, beside its own; B1-B3's in 5m and 7c, and phase 9's as
-   fault_tolerance_launches), the card line, and the last line
+10. The ImageNet family at 224² on the synthetic set (check_imagenet),
+   written once as the memory-mapped arrays --dataset imagenet reads.
+   10a: ResNet-50 (ImageNet stem) in bf16 and fp32 through main() on the
+   loader path with --num_workers 2: the native pool's batch counter =
+   the steps, losses falling, the bf16 resume exact, the pool's batches
+   bit for bit the Python gather's, one fp32 step card vs CPU at batch 4
+   from the trained weights (ReLU masks tied, CNN_STEP_TOL; from the
+   seeded ones a reading). 10b: ViT-Tiny at 224² (T 3137: the last key
+   tile holds 65) in bf16: B1 = B2 = B3 = depth x steps in training
+   (evaluation apart), nothing routed, resume exact, one step through
+   the kernels vs the plain attention at batch 8, bf16 and fp32
+   (STEP_TOL, the bf16 loss VIT_BF16_LOSS_TOL, key row 3136's dK/dV
+   too), a B3 that drops key row 3136 must fail it.
+   10c: --remat: the step equals the step without (bf16 ViT, fp32
+   ResNet-50), remat lowers peak memory, and a --remat run launches B1
+   2 x depth x steps. 10d: --profile_dir's trace names B1's kernel. 10e:
+   --no_shuffle's first batch is rows 0..63, --num_classes sizes the
+   head. 10f: B1-B3 alone at B 32, T 3137, H 3, D 64, bf16 and fp32,
+   held to FLASH_TOL and timed with their bounds and SDPA.
+11. A "kernels" JSON line (each decode kernel's launches on the MoE path,
+   moe_launches, beside its own, and in phase 4's flag runs,
+   flag_launches; B1-B3's in 5m and 7c, phase 9's as
+   fault_tolerance_launches, phase 10's as imagenet_launches, and their
+   timings at T 3137 as the vit224_* variants), the card line, and the
+   last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -370,6 +413,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -385,6 +429,13 @@ DIVERGENCE_GAP = 1e-3
 FULL = dict(vocab_size=8192, total_len=256, d_model=1024, depth=8,
             num_heads=8)
 SLOTS, PREFILL_LEN = 8, 128
+# Phase 4's flag runs: the scheduler flags at values phase 4 never
+# serves with (chunk 32, buckets {8, 16, 32}, 40 tokens a step), and the
+# compile contract JAX's warmup() gives for them at SLOTS and PREFILL_LEN
+# (tests/test_torch_serve_flags.py pins it).
+SERVE_FLAGS = ["--prefill_chunk", "32", "--min_bucket", "8",
+               "--step_token_budget", "40"]
+FLAG_COMPILE_COUNTS = {"prefill_first": 3, "prefill_chunk": 3, "decode": 1}
 REQUESTS = [  # (prompt_len, max_new_tokens, sampling)
     (5, 16, {}),
     (128, 128, {}),
@@ -2248,29 +2299,14 @@ def _get_text(url: str, route: str) -> tuple[str, str]:
         return r.headers["Content-Type"], r.read().decode()
 
 
-def requestz_events(doc: dict) -> list[dict]:
-    """A /requestz timeline → the events reconstruct_requests makes of an
-    exported trace (µs; spans with their dur, instants as "n"; the
-    request umbrella from the digest's total), for
-    validate_request_timeline."""
-    out = [{"name": "request", "ph": "X", "ts": 0.0,
-            "dur": doc["summary"]["total_s"] * 1e6}]
-    for e in doc["events"]:
-        ev = {"name": e["name"], "ts": e["t_s"] * 1e6,
-              **({"args": e["args"]} if e.get("args") else {})}
-        if e["dur_s"] > 0:
-            ev.update(ph="X", dur=e["dur_s"] * 1e6)
-        else:
-            ev["ph"] = "n"
-        out.append(ev)
-    return sorted(out, key=lambda e: e["ts"])
-
-
 def _timeline_failures(doc, prompt_len, reply, label) -> list[str]:
     """One completion's /requestz timeline: it validates, its prefill
     tokens are the prompt minus the prefix hit, its decode tokens the new
     tokens minus the first, and it retires complete."""
-    from ddp_tpu_torch.obs.reqtrace import validate_request_timeline
+    from ddp_tpu_torch.obs.reqtrace import (
+        requestz_events,
+        validate_request_timeline,
+    )
 
     failed = []
     try:
@@ -3673,7 +3709,8 @@ DRAIN_REQUESTS, DRAIN_NEW = 8, 128
 
 @contextlib.contextmanager
 def _timed_saves():
-    """Seconds of each ``CheckpointManager.save`` inside the block."""
+    """Seconds of each ``CheckpointManager.save`` call inside the block:
+    what it holds the loop (an asynchronous save writes on after it)."""
     from ddp_tpu_torch.train.checkpoint import CheckpointManager
 
     real, seconds = CheckpointManager.save, []
@@ -3720,7 +3757,7 @@ def check_lm_checkpoint(torch, trainer, ckdir, dname, save_s) -> None:
     restore_s = time.perf_counter() - t0
     sidecar = load_lm_spec_fields(ckdir)
     log(f"[ckpt] {dname}: epochs {mgr.all_epochs()} in {ckdir} "
-        f"({_dir_bytes(ckdir) / 1e9:.3f} GB), saves "
+        f"({_dir_bytes(ckdir) / 1e9:.3f} GB), save() held the loop "
         + ", ".join(f"{s:.2f}" for s in save_s)
         + f" s, manifests verified in {verify_s:.2f} s ({problems}), "
         f"restore_for_inference epoch {epoch} read and compared in "
@@ -4535,8 +4572,9 @@ TRAIN_MOE_ARGS = TRAIN_ARGS + ["--moe_experts", "8", "--moe_every", "2",
                                "--max_checkpoints", "1"]
 TRAIN_MOE_ARGS[TRAIN_MOE_ARGS.index("--epochs") + 1] = "1"
 # 8f: the served prompt's last-position logits (the serving forward, fp32)
-# against train_forward's (fp32, capacity routing, B1 through its fp32
-# kernel) where the training forward dropped no token.
+# against train_forward's (fp32, B1 through its fp32 kernel) at a
+# capacity factor of E/k, where no expert can overflow (capacity = the
+# forward's tokens), so that no token is dropped: every prompt compares.
 MOE_LOGITS_ATOL = 1e-3
 
 
@@ -4664,7 +4702,7 @@ def check_moe_training(torch, card, ckdir) -> dict:
     log(f"[moe-train] {n_params / 1e6:.1f} M params (routed blocks "
         f"{[i + 1 for i in range(spec.depth) if spec.routed(i)]}), {steps} "
         f"steps, launches {got} (depth x steps = {want}), routed to the "
-        f"plain block {routed}; saves "
+        f"plain block {routed}; save() held the loop "
         + ", ".join(f"{x:.2f}" for x in save_s) + " s")
     failed = [f"{n} bf16 launched {got[f'{n}_bf16']} < {want}"
               for n in FLASH_NAMES if got[f"{n}_bf16"] < want]
@@ -4714,8 +4752,9 @@ def check_moe_served(torch, moe_dir, dense_dir) -> dict:
     else launched or routed; POST /reload of the dense phase-5 directory
     answers 409 spec_skew; each served prompt's last-position logits
     against the full-sequence serving forward (``CausalLM.forward``), and
-    against train_forward's (fp32, each prompt alone) where that dropped
-    no token → B4p's launches."""
+    against train_forward's (fp32, each prompt alone, at capacity factor
+    E/k: no token can drop, so every prompt compares; none compared fails)
+    → B4p's launches."""
     import ddp_tpu_torch.models.lm as lm_mod
     from ddp_tpu_torch.ops import decode as dec
     from ddp_tpu_torch.serve.engine import ServeEngine
@@ -4762,6 +4801,8 @@ def check_moe_served(torch, moe_dir, dense_dir) -> dict:
     real = lm_mod.moe_mlp
 
     def spy(*a, **kw):
+        # cf = E/k: each expert's capacity is every token of the forward.
+        kw["capacity_factor"] = kw["num_experts"] / kw["top_k"]
         res = real(*a, **kw)
         kept[-1] = kept[-1] and bool(res[2].kept.all())
         return res
@@ -4787,11 +4828,16 @@ def check_moe_served(torch, moe_dir, dense_dir) -> dict:
         f"{status} {body.get('error')}; last-position logits of the served "
         f"prompts (the paged engine's prefill) vs the full-sequence serving "
         f"forward: max |diff| {max(dense_gaps):.3e}; vs train_forward (fp32, "
-        f"each prompt alone): {len(gaps)}/{len(prompts)} prompts without a "
-        f"dropped token, max |diff| over them {gap:.3e} (limit "
-        f"{MOE_LOGITS_ATOL} both)")
-    if max(dense_gaps) > MOE_LOGITS_ATOL or (gaps and gap > MOE_LOGITS_ATOL):
+        f"each prompt alone, capacity factor E/k): {len(gaps)}/{len(prompts)} "
+        f"prompts without a dropped token compared, max |diff| over them "
+        f"{gap:.3e} (limit {MOE_LOGITS_ATOL} both)")
+    if max(dense_gaps) > MOE_LOGITS_ATOL or not gap <= MOE_LOGITS_ATOL:
         failed.append(f"served logits differ: {max(dense_gaps)}, {gap}")
+    if len(gaps) != len(prompts):
+        failed.append(f"train_forward dropped a token at capacity factor E/k "
+                      f"in {len(prompts) - len(gaps)} of {len(prompts)} "
+                      "prompts: the train-vs-serve comparison must cover "
+                      "every prompt")
     del model, eager, made
     torch.cuda.empty_cache()
     if failed:
@@ -5153,13 +5199,18 @@ def profile_cnn_epoch(torch, trainer, label, steps=None) -> float:
 
 def time_cnn(torch, readings, tmp, card) -> dict:
     """images/s per card, step p50 and busy share: the step path at batch
-    64 (6a's last epoch), the fast path at batch 64, then both paths at
+    64 (6a's last epoch), the fast path at batch 64 (on SPAWN_SIZE
+    images: its profiled epoch is the whole epoch), then both paths at
     global batch 16384 (fp32) and the fast path there in bf16, each after
-    a warm-up epoch, with cuDNN's default (non-deterministic) choices."""
+    a warm-up epoch, with cuDNN's default (non-deterministic) choices.
+    The step path's busy share is read over PROFILE_STEPS steps: with
+    whole profiled epochs of 937 steps the script, phase 10 included,
+    took over 1,000 s on an H100 80GB HBM3 host."""
     out = {}
     runs = [("step path, batch 64", readings["main_trainer"])]
     for label, batch, flags in (
-            ("fast path, batch 64", 64, ["--fast_epoch"]),
+            ("fast path, batch 64", 64,
+             ["--fast_epoch", "--synthetic_size", str(SPAWN_SIZE)]),
             ("step path, batch 16384", BENCH_BATCH, []),
             ("fast path, batch 16384", BENCH_BATCH, ["--fast_epoch"]),
             ("fast path, batch 16384, bf16", BENCH_BATCH,
@@ -5170,7 +5221,7 @@ def time_cnn(torch, readings, tmp, card) -> dict:
         runs.append((label, trainer))
     for label, trainer in runs:
         h = trainer.history[-1]
-        busy = profile_cnn_epoch(torch, trainer, label)
+        busy = profile_cnn_epoch(torch, trainer, label, PROFILE_STEPS)
         rate = trainer.global_batch_size / h["step_p50_s"]
         peak = H100_BF16_FLOPS if "bf16" in label else H100_FP32_FLOPS
         out[label] = dict(images_per_s=h["images_per_s_per_card"],
@@ -5281,17 +5332,19 @@ def _image_readings(torch, trainer, label, card, flops=None) -> dict:
                 step_p50_ms=h["step_p50_s"] * 1e3, busy=busy, mfu=mfu)
 
 
-def _vit_step(torch, trainer, x, y, attention_fn, dtype):
+def _vit_step(torch, trainer, x, y, attention_fn, dtype, remat=False):
     """One SGD-momentum step in ``dtype`` of a copy of ``trainer``'s ViT
     on (x, y), every block's attention through ``attention_fn`` (None:
-    the default, B1-B3) → (loss, {parameter name: gradient})."""
+    the default, B1-B3), each block recomputed in the backward with
+    ``remat`` → (loss, {parameter name: gradient})."""
     from ddp_tpu_torch.models import get_model
     from ddp_tpu_torch.parallel.ddp import TrainState, make_train_step
     from ddp_tpu_torch.train.optim import make_optimizer
 
     src = trainer.state.model
     model = get_model(trainer.config.model, num_classes=src.head.out_features,
-                      side=32, in_channels=3, depth=len(src.block_names))
+                      side=trainer.train_split.images.shape[1], in_channels=3,
+                      depth=len(src.block_names), remat=remat)
     model.load_state_dict(src.state_dict())
     model = model.to(trainer.device)
     for name in model.block_names:
@@ -5317,7 +5370,35 @@ def _zero_keys_counted(torch, q, k, v):
     return o.to(q.dtype)
 
 
-def check_vit_step(torch, trainer, *, batch=64, tag="vit") -> list[str]:
+def _tail_rows(torch, fn, rows: list):
+    """``fn`` (an attention function) that records, for each call (each
+    block, in the forward's order), the gradients of the last key row of
+    its k and v in the backward: ``rows`` gets {"k": [B, H, D], "v": ...}
+    a call."""
+    def wrapped(q, k, v):
+        entry = {}
+        rows.append(entry)
+        for name, t in (("k", k), ("v", v)):
+            t.register_hook(lambda g, name=name: entry.__setitem__(
+                name, g[:, -1].float().clone()))
+        return fn(q, k, v)
+
+    return wrapped
+
+
+def _tail_error(torch, got: list, want: list) -> float:
+    """Relative norm error of the last key row's dK and dV over every
+    block (_tail_rows' lists); 1.0 where a gradient is missing."""
+    if len(got) != len(want) or any(len(e) != 2 for e in got + want):
+        return 1.0
+    pairs = [(a[n], b[n]) for a, b in zip(got, want) for n in ("k", "v")]
+    diff = sum(float((a - b).norm()) ** 2 for a, b in pairs)
+    norm = sum(float(b.norm()) ** 2 for _, b in pairs)
+    return (diff / max(norm, 1e-60)) ** 0.5
+
+
+def check_vit_step(torch, trainer, *, batch=64, tag="vit", controls=None,
+                   dtypes=("bf16", "fp32"), tail=False) -> list[str]:
     """Phase 7a's step check: one step through B1-B3 against the same step
     through the plain attention (which must launch nothing), from the
     trained weights on the first ``batch`` training images, held to
@@ -5325,53 +5406,77 @@ def check_vit_step(torch, trainer, *, batch=64, tag="vit") -> list[str]:
     controls must fail the same limits: a B1 that counts the tile's
     zero-filled keys past row 64 (it moves the loss), and a B3 that drops
     the ragged tail (the dK and dV of key row 64; it leaves the loss and
-    moves the gradients)."""
+    moves the gradients). With ``tail`` the last key row's dK and dV in
+    every block are held to the attention limit too (_tail_rows): at a
+    long T one row moves the parameters' gradients by too little for the
+    step's limits to see a dropped one."""
     from ddp_tpu_torch.ops import flash as fl
 
     images, labels = trainer.train_split
-    x = torch.from_numpy(images[:batch]).to(trainer.device)
+    x = torch.from_numpy(np.array(images[:batch])).to(trainer.device)
     y = torch.from_numpy(labels[:batch]).to(trainer.device)
     drop = _drop_key_grad(torch, slice(-1, None))
 
     def plain(q, k, v):
         return fl.attention_with_lse_reference(q, k, v, False)[0]
 
-    controls = {
-        "zero-filled keys 65-127 counted by the softmax":
-            lambda q, k, v: _zero_keys_counted(torch, q, k, v),
-        "dK/dV of key row 64 dropped": lambda q, k, v: plain(q, drop(k),
-                                                             drop(v)),
-    }
+    last = trainer.train_split.images.shape[1] // trainer.state.model.patch_size
+    last = last * last + int(trainer.state.model.use_cls_token) - 1
+    if controls is None:
+        controls = {
+            "zero-filled keys 65-127 counted by the softmax":
+                lambda q, k, v: _zero_keys_counted(torch, q, k, v),
+        }
+    controls[f"dK/dV of key row {last} dropped"] = \
+        lambda q, k, v: plain(q, drop(k), drop(v))
     failed = []
     for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        if dname not in dtypes:
+            continue
         limits = STEP_TOL[dname]
         if dname == "bf16":
             limits = dict(limits, loss=VIT_BF16_LOSS_TOL)
         routes, flips = [], []
+        rows = {"kernel": [], "plain": []}
+        kernel_fn = (_tail_rows(torch, fl.flash_attention, rows["kernel"])
+                     if tail else None)
         with fixed_routing(torch, routes, flips):
-            kernel = _vit_step(torch, trainer, x, y, None, dtype)
+            kernel = _vit_step(torch, trainer, x, y, kernel_fn, dtype)
         _zero(fl.flash_attention.launches)
         with fixed_routing(torch, routes, flips):
-            want = _vit_step(torch, trainer, x, y, plain, dtype)
+            want = _vit_step(torch, trainer, x, y, _tail_rows(
+                torch, plain, rows["plain"]) if tail else plain, dtype)
         e = _grad_errors(kernel, want)
+        tail_err = (_tail_error(torch, rows["kernel"], rows["plain"])
+                    if tail else 0.0)
         log(f"[{tag}] one {dname} step, kernel vs plain attention (batch "
             f"{batch}): loss {kernel[0]:.6f} vs {want[0]:.6f}; "
-            f"{_errors_text(e)} (limits {limits})"
+            f"{_errors_text(e)}"
+            + (f"; key row {last}'s dK/dV in every block rel "
+               f"{tail_err:.2e}" if tail else "")
+            + f" (limits {limits})"
             + (f"; routing held to the kernel step's, own choices would "
                f"differ at {flips} (token, k) per routed block"
                if routes else ""))
-        if not _within(e, limits):
+        if not _within(e, limits) or tail_err > limits["attn"]:
             failed.append(f"the {dname} kernel step disagrees with the "
                           "plain one")
         del kernel
         for label, attention_fn in controls.items():
+            got_rows = []
+            if tail:
+                attention_fn = _tail_rows(torch, attention_fn, got_rows)
             with fixed_routing(torch, routes, []):
                 got = _vit_step(torch, trainer, x, y, attention_fn, dtype)
             e = _grad_errors(got, want)
+            control_tail = (_tail_error(torch, got_rows, rows["plain"])
+                            if tail else 0.0)
             del got
             log(f"[{tag}] {dname} control, {label}, vs plain: "
-                f"{_errors_text(e)}")
-            if _within(e, limits):
+                f"{_errors_text(e)}"
+                + (f"; key row {last}'s dK/dV rel {control_tail:.2e}"
+                   if tail else ""))
+            if _within(e, limits) and control_tail <= limits["attn"]:
                 failed.append(f"the {dname} check passes a control: {label}")
         if any(fl.flash_attention.launches.values()):
             failed.append(f"the plain path launched "
@@ -5492,7 +5597,8 @@ class _TiedRelu:
         return x.where(m, x.new_zeros(()))
 
 
-def _resnet_step(torch, state_np, x, y, device, dtype=None, relu=None):
+def _resnet_step(torch, state_np, x, y, device, dtype=None, relu=None,
+                 arch=("resnet18", 10)):
     """One step of the recipe (SGD 0.1, momentum 0.9, wd 1e-4, fp32, or
     fp64 with ``dtype=torch.float64``) of ResNet-18 from ``state_np`` on
     (x, y) on ``device``, its ReLUs through ``relu`` (a _TiedRelu) if
@@ -5503,7 +5609,8 @@ def _resnet_step(torch, state_np, x, y, device, dtype=None, relu=None):
     from ddp_tpu_torch.train.optim import make_optimizer
 
     dtype = dtype or torch.float32
-    model = get_model("resnet18", num_classes=10, side=32, in_channels=3)
+    model = get_model(arch[0], num_classes=arch[1], side=x.shape[1],
+                      in_channels=3)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state_np.items()})
     model = model.to(device, dtype)
     state = TrainState(0, model, make_optimizer(
@@ -5545,7 +5652,9 @@ def _resnet_text(e, bufs) -> str:
             f"({bufs[0]})")
 
 
-def check_resnet_step(torch, trainer, *, batch=32) -> list[str]:
+def check_resnet_step(torch, trainer, *, batch=32, tag="resnet",
+                      gated=("seeded", "trained"),
+                      control="seeded") -> list[str]:
     """Phase 7b's step check, as phase 6c's: one step on the card (fp32,
     TF32 off) against the same step on the CPU on the first ``batch``
     training images, from the seeded weights with live BatchNorm scales
@@ -5556,11 +5665,14 @@ def check_resnet_step(torch, trainer, *, batch=32) -> list[str]:
     the gradients of the blocks' convs zeroed (what the zero-gamma init
     would let pass). Readings: the masks' flips, the CPU's step with its
     own masks, and a witness, the CPU's fp64 step on the card's masks,
-    from which each fp32 step's distance is printed."""
+    from which each fp32 step's distance is printed. ``gated``: the
+    weight sets held to the limits (the others are readings);
+    ``control``: the one the control runs on."""
     import torch.nn.functional as F
 
     images, labels = trainer.train_split
-    x, y = images[:batch], labels[:batch]
+    x, y = np.array(images[:batch]), labels[:batch]
+    arch = (trainer.config.model, trainer.num_classes)
     seeded = _live_bn_scales(trainer.state.model.init_state(
         trainer.config.seed))
     trained = {k: v.detach().cpu().numpy()
@@ -5568,33 +5680,36 @@ def check_resnet_step(torch, trainer, *, batch=32) -> list[str]:
     failed = []
     for label, state_np in (("seeded", seeded), ("trained", trained)):
         card = _TiedRelu(F)
-        got = _resnet_step(torch, state_np, x, y, trainer.device, relu=card)
+        got = _resnet_step(torch, state_np, x, y, trainer.device, relu=card,
+                           arch=arch)
         tied = _TiedRelu(F, card.masks)
-        want = _resnet_step(torch, state_np, x, y, "cpu", relu=tied)
-        own = _resnet_step(torch, state_np, x, y, "cpu")
+        want = _resnet_step(torch, state_np, x, y, "cpu", relu=tied,
+                            arch=arch)
+        own = _resnet_step(torch, state_np, x, y, "cpu", arch=arch)
         exact = _resnet_step(torch, state_np, x, y, "cpu", torch.float64,
-                             relu=_TiedRelu(F, card.masks))
+                             relu=_TiedRelu(F, card.masks), arch=arch)
         e, bufs = _resnet_errors(got, want)
-        log(f"[resnet] one step from the {label} weights, card vs CPU (fp32, "
+        log(f"[{tag}] one step from the {label} weights, card vs CPU (fp32, "
             f"TF32 off, batch {batch}, ReLU masks tied): loss {got[0]:.6f} "
             f"vs {want[0]:.6f}; {_resnet_text(e, bufs)} (limits "
             f"{CNN_STEP_TOL})")
-        log(f"[resnet] reading, {label}: {tied.flips} of "
+        log(f"[{tag}] reading, {label}: {tied.flips} of "
             f"{sum(m.numel() for m in card.masks)} ReLU inputs on the other "
             f"side of 0 on the CPU; the CPU's step with its own masks vs the "
             f"card's: {_resnet_text(*_resnet_errors(got, own))}")
         for side, step in (("card", got), ("CPU", want)):
-            log(f"[resnet] witness, {label}: the {side}'s fp32 step vs the "
+            log(f"[{tag}] witness, {label}: the {side}'s fp32 step vs the "
                 f"CPU's fp64 (masks tied): "
                 f"{_resnet_text(*_resnet_errors(step, exact))}")
-        if not (_cnn_within(e) and bufs[1] <= CNN_STEP_TOL["leaf"]):
+        if label in gated and not (_cnn_within(e)
+                                   and bufs[1] <= CNN_STEP_TOL["leaf"]):
             failed.append(f"the card's step from the {label} weights "
                           "disagrees with the CPU's")
-        if label == "seeded":
+        if label == control:
             blind = (got[0], {n: g * 0 if ".Conv_" in n else g
                               for n, g in got[1].items()}, got[2], got[3])
             e, bufs = _resnet_errors(blind, want)
-            log(f"[resnet] control, the card's step with the blocks' conv "
+            log(f"[{tag}] control, the card's step with the blocks' conv "
                 f"gradients zeroed: {_resnet_text(e, bufs)}")
             if _cnn_within(e):
                 failed.append("the check passes a step without the blocks' "
@@ -5830,11 +5945,70 @@ def _lm_ft_run(torch, args, *, late=0, timing=None):
     return trainer, train, evals
 
 
+def manifest_order_failures(state, root, *, writer_skips_wait=False) -> list:
+    """Save epoch 0 of ``state`` into ``root`` (asynchronously) with the
+    writer held just before its commit, the rename of the temporary
+    directory, and read the directory there: neither ``epoch_0`` nor its
+    manifest may show yet; after ``wait()`` both must. → failures.
+    ``writer_skips_wait`` is the control: a writer that manifests the
+    epoch from its temporary directory without waiting for the commit
+    (the read before the commit must catch it)."""
+    import os
+
+    from ddp_tpu_torch.train import checkpoint as ck
+
+    held, go = threading.Event(), threading.Event()
+    real = ck.CheckpointManager._commit
+
+    def commit(self, tmp, final):
+        if writer_skips_wait:
+            with open(os.path.join(os.path.dirname(final),
+                                   "epoch_0" + ck.MANIFEST_SUFFIX), "w") as f:
+                json.dump(ck.build_manifest(tmp), f)
+        held.set()
+        go.wait(600)
+        real(self, tmp, final)
+
+    names = ["epoch_0", "epoch_0" + ck.MANIFEST_SUFFIX]
+    mgr = ck.CheckpointManager(root)
+    with _patched((ck.CheckpointManager, "_commit", commit)):
+        mgr.save(0, state)
+        held.wait(600)
+        before = sorted(n for n in os.listdir(root) if n in names)
+        go.set()
+        mgr.wait()
+    after = sorted(n for n in os.listdir(root) if n in names)
+    failed = []
+    if before:
+        failed.append(f"before the commit the directory shows {before}")
+    if after != names or mgr.verify_epoch(0) != []:
+        failed.append(f"after wait() the directory shows {after}")
+    return failed
+
+
+def steady_sync_error(torch, step, batches) -> str | None:
+    """``step`` over ``batches`` under ``torch.cuda.set_sync_debug_mode(
+    "error")`` → None when no call synchronized, else the error the mode
+    raised at the first that did."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for args in batches:
+            step(*args)
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return None
+
+
 def _lm_sync_failures(torch, trainer, seen) -> list:
-    """FT_SYNC_STEPS steady LM steps of ``trainer`` with the watchdog,
-    a chaos engine (an event past the run) and the SIGTERM handler armed,
-    against the same steps with none: the synchronizing calls (sync
-    debug mode "warn" plus wrappers) must be equal."""
+    """C10: FT_SYNC_STEPS steady LM steps of ``trainer`` with the
+    watchdog, a chaos engine (an event past the run) and the SIGTERM
+    handler armed, and with none: no synchronizing call in either
+    (sync debug mode "warn" plus wrappers count 0), and none under the
+    mode "error". Control: the same steps with one ``.item()`` each must
+    fail the "error" check."""
     from ddp_tpu_torch.runtime.chaos import ChaosEngine
     from ddp_tpu_torch.train.fast import run_steps
     from ddp_tpu_torch.utils.watchdog import StepWatchdog
@@ -5867,12 +6041,197 @@ def _lm_sync_failures(torch, trainer, seen) -> list:
                 import signal
 
                 signal.signal(signal.SIGTERM, prev)
+    error = steady_sync_error(torch, trainer.runner.step, batches)
+
+    def with_item(*args):
+        m = trainer.runner.step(*args)
+        m.loss.item()  # the control: one host read a step
+        return m
+
+    control = steady_sync_error(torch, with_item, batches)
     log(f"[ft] 9a {FT_SYNC_STEPS} steady LM steps, synchronizing calls: "
         f"off {counts['off']}, watchdog + chaos + preempt check armed "
-        f"{counts['armed']}")
-    if counts["armed"] != counts["off"]:
-        return [f"arming added synchronizing calls: {counts}"]
+        f"{counts['armed']}; under the sync debug mode \"error\": "
+        f"{error or 'none raised'}; control, one .item() a step: "
+        f"{control or 'none raised'}")
+    failed = []
+    if counts["off"]["total"] or counts["armed"]["total"]:
+        failed.append(f"synchronizing calls in the steady LM step: {counts}")
+    if error is not None:
+        failed.append(f"the steady LM step synchronizes: {error}")
+    if control is None:
+        failed.append("the sync check passes a step with an .item()")
+    return failed
+
+
+ASYNC_STEPS = 8  # steady LM steps timed without a save, and right after one
+
+
+def _timed_steps(torch, step, batches) -> list[float]:
+    """ms of each step of ``step`` over ``batches`` (CUDA events)."""
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(len(batches) + 1)]
+    marks[0].record()
+    for args, mark in zip(batches, marks[1:]):
+        step(*args)
+        mark.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+
+def state_digest(torch, params: dict, opt: dict, step: int) -> str:
+    """sha256 of a training state: the step, the parameters by name and
+    the optimizer's count and buffers, each tensor's bytes on the host."""
+    import hashlib
+
+    h = hashlib.sha256(f"{step} {opt['count']}".encode())
+    tensors = [params[k] for k in sorted(params)]
+    tensors += [b for k in ("trace", "mu", "nu", "ema")
+                for b in opt.get(k) or []]
+    for t in tensors:
+        t = t.detach().cpu().contiguous()
+        h.update(t.view(torch.uint8).numpy().tobytes()
+                 if t.element_size() == 1 else
+                 t.view({2: torch.int16, 4: torch.int32,
+                         8: torch.int64}[t.element_size()]).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _exit_after_save(torch, tmp) -> list:
+    """A process that builds the LM (TRAIN_ARGS' width at depth 2), takes
+    two steps, saves asynchronously with ``mid_batch`` 2 (a preemption
+    save) and returns from its main at once, the writer in flight: the
+    epoch it leaves verifies and restores the state's digest bit for
+    bit."""
+    import os
+
+    root = os.path.join(tmp, "exit_after_save")
+    args = TRAIN_ARGS + FT_DEVICE_ARGS + ["--checkpoint_dir", root]
+    args[args.index("--synthetic_size") + 1] = "16"
+    args[args.index("--model_depth") + 1] = "2"
+    code = (
+        "import json, torch, chip_smoke\n"
+        "from ddp_tpu_torch.train import trainer as tr\n"
+        "from ddp_tpu_torch.train.config import TrainConfig\n"
+        "from ddp_tpu_torch.train.checkpoint import CheckpointManager\n"
+        f"t = tr.LMTrainer(TrainConfig.from_args({args!r}))\n"
+        "G = t.global_batch_size\n"
+        "for i in range(2):\n"
+        "    t.runner.step(t.tokens[i * G:(i + 1) * G])\n"
+        "t.state.step = t.optimizer.count\n"
+        "digest = chip_smoke.state_digest(torch, t.model.state_dict(), "
+        "t.optimizer.state_dict(), t.state.step)\n"
+        f"mgr = CheckpointManager({root!r})\n"
+        "mgr.save(0, t.state, steps_per_epoch=t.steps_per_epoch, "
+        "mid_batch=2)\n"
+        "print(json.dumps({'digest': digest, 'in_flight': mgr.in_flight}), "
+        "flush=True)\n")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if res.returncode:
+        return [f"the exit-after-save process failed: {res.stderr[-1500:]}"]
+    said = json.loads(res.stdout.strip().splitlines()[-1])
+    from ddp_tpu_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(root)
+    blob = mgr.read(0)
+    got = state_digest(torch, blob["params"], blob["opt_state"], blob["step"])
+    problems = mgr.verify_epoch(0)
+    log(f"[ft] 9a a process that returned right after save() (in flight: "
+        f"epoch {said['in_flight']}; {wall:.1f} s with the CUDA start): "
+        f"epoch 0 manifest problems {problems}, mid_batch "
+        f"{blob.get('mid_batch')}, restored digest "
+        + ("equal to the saved state's" if got == said["digest"] else
+           "DIFFERS from the saved state's"))
+    if said["in_flight"] != 0 or problems != [] or got != said["digest"] \
+            or blob.get("mid_batch") != 2:
+        return ["the save of a process that exited right after save() is "
+                "not durable and exact"]
     return []
+
+
+def check_async_save(torch, trainer, tmp) -> tuple[dict, list]:
+    """Phase 9a's asynchronous save at run_lm_bench's width: steady step
+    times (CUDA events) without a save and right after one, the time
+    save() holds the loop against the blocking save's (async_save=False),
+    the time wait() then blocks, the saved epoch restored bit for bit;
+    the manifest-order check with its control (a writer that skips the
+    commit wait, caught by a read before the commit); and a process that
+    exits right after save() (_exit_after_save) → (readings, failures)."""
+    import os
+
+    from ddp_tpu_torch.models.cnn import SimpleCNN, init_cnn_state
+    from ddp_tpu_torch.parallel.ddp import TrainState
+    from ddp_tpu_torch.train.checkpoint import CheckpointManager
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    G = trainer.global_batch_size
+    batches = [(trainer.tokens[(i * G) % len(trainer.tokens):][:G],)
+               for i in range(ASYNC_STEPS)]
+    step = trainer.runner.step
+    _timed_steps(torch, step, batches[:2])  # warm
+    trainer.state.step = trainer.optimizer.count
+    quiet = _timed_steps(torch, step, batches)
+    want = state_digest(torch, trainer.model.state_dict(),
+                        trainer.optimizer.state_dict(), trainer.state.step)
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 list(trainer.model.state_dict().values())
+                 + [b for k in ("trace", "mu", "nu", "ema")
+                    for b in getattr(trainer.optimizer, k, None) or []])
+    holds, waits, around = [], [], []
+    for turn in range(2):  # the first save allocates its pinned buffers
+        mgr = CheckpointManager(os.path.join(tmp, f"async{turn}"))
+        t0 = time.perf_counter()
+        mgr.save(0, trainer.state, steps_per_epoch=trainer.steps_per_epoch)
+        holds.append(time.perf_counter() - t0)
+        around.append(_timed_steps(torch, step, batches))
+        t0 = time.perf_counter()
+        mgr.wait()
+        waits.append(time.perf_counter() - t0)
+        if turn == 0:
+            blob = mgr.read(0)
+            got = state_digest(torch, blob["params"], blob["opt_state"],
+                               blob["step"])
+            del blob
+        trainer.state.step = trainer.optimizer.count
+    blocking = CheckpointManager(os.path.join(tmp, "blocking"),
+                                 async_save=False)
+    t0 = time.perf_counter()
+    blocking.save(0, trainer.state, steps_per_epoch=trainer.steps_per_epoch)
+    blocking_s = time.perf_counter() - t0
+    readings = {
+        "step_p50_ms_no_save": float(np.median(quiet)),
+        "step_p50_ms_after_save": [float(np.median(a)) for a in around],
+        "save_hold_s": holds, "wait_s": waits, "blocking_save_s": blocking_s}
+    log(f"[ft] 9a asynchronous save of the LM state ({nbytes / 1e9:.2f} GB "
+        f"with Adam's moments): "
+        f"save() held the loop {', '.join(f'{h:.3f}' for h in holds)} s "
+        f"(first, then with the pinned buffers cached), the blocking save "
+        f"{blocking_s:.3f} s; wait() after {ASYNC_STEPS} more steps "
+        f"blocked {', '.join(f'{w:.3f}' for w in waits)} s; step p50 "
+        f"{readings['step_p50_ms_no_save']:.2f} ms without a save, "
+        + ", ".join(f"{a:.2f}" for a in readings["step_p50_ms_after_save"])
+        + f" ms in the {ASYNC_STEPS} steps right after save(); the first "
+        "save's epoch restores the state at save() "
+        + ("bit for bit" if got == want else "WITH A DIFFERENCE"))
+    failed = [] if got == want else [
+        "the asynchronous save does not restore the state at save()"]
+    model = SimpleCNN.from_state(init_cnn_state(), trainer.device)
+    small = TrainState(0, model, make_optimizer(model.parameters(), "sgd"))
+    order = manifest_order_failures(small, os.path.join(tmp, "order"))
+    control = manifest_order_failures(small, os.path.join(tmp, "skips"),
+                                      writer_skips_wait=True)
+    log(f"[ft] 9a manifest order, the directory read with the writer held "
+        f"before its commit: {order or 'no epoch, no manifest'}; control, "
+        f"a writer that skips the commit wait: {control or 'NOT caught'}")
+    failed += order
+    if not control:
+        failed.append("a writer that manifests before the commit passed")
+    failed += _exit_after_save(torch, tmp)
+    return readings, failed
 
 
 def time_lm_ema(torch, trainer) -> None:
@@ -5980,6 +6339,8 @@ def check_lm_preemption(torch, tmp, seen) -> tuple[dict, list]:
                           f"{steps * depth}")
     failed += _platform_failures(_records(f"{tmp}/cut.jsonl"), "sigterm")
     failed += _lm_sync_failures(torch, resumed, seen)
+    readings["async_save"], bad = check_async_save(torch, resumed, tmp)
+    failed += bad
     time_lm_ema(torch, resumed)
     del resumed
     late, _, _ = _lm_ft_run(torch, args("late", *chaos), late=1)
@@ -6335,6 +6696,444 @@ def check_fault_tolerance(torch, card) -> dict:
     return readings
 
 
+# ---- phase 10: the ImageNet family at 224² (the synthetic set) -----------
+
+# The synthetic 224² set (data/imagenet.synthetic, JAX's bytes), written
+# once as the preprocessed arrays --dataset imagenet reads memory-mapped
+# (--data_root): 2,048 train images (308 MB of uint8), the test split a
+# quarter of it, as the registry sizes a synthetic one. 10d-10e's short
+# runs read a 64-image split.
+IMAGENET_TRAIN = 2048
+IMAGENET_SMALL = 64
+# 10a: ResNet-50 with the ImageNet stem, He et al. 2016's recipe (SGD
+# momentum 0.9, weight decay 1e-4, lr 0.1 x batch / 256), batch 64 (a
+# 9.6 MB batch: the native pool's gate opens at 7 images), the loader
+# path with --num_workers 2, two epochs of 32 steps.
+RESNET50_ARGS = ["--model", "resnet50", "--dataset", "imagenet",
+                 "--batch_size", "64", "--epochs", "2", "--lr", "0.025",
+                 "--momentum", "0.9", "--weight_decay", "1e-4", "--augment",
+                 "crop_flip", "--num_workers", "2", "--log_interval", "1000"]
+# 10b: ViT-Tiny at 224², patch 4 as JAX's ViTTiny keeps it: 56² + 1 = 3137
+# tokens (the last 128-key tile holds 65), bf16, batch 32, phase 7a's
+# recipe, two epochs of 64 steps.
+VIT224_ARGS = ["--model", "vit_tiny", "--dataset", "imagenet",
+               "--batch_size", "32", "--epochs", "2", "--optimizer", "sgd",
+               "--lr", "0.01", "--momentum", "0.9", "--compute_dtype",
+               "bfloat16", "--augment", "crop_flip", "--num_workers", "2",
+               "--log_interval", "1000"]
+VIT224_SHAPE = ("ViT 224² non-causal T=S=3137", 32, 3137, 3137, 3, 64, False)
+# Train flops an image at 224²: 6 x the 5.5 M parameters x 3137 tokens,
+# plus the attention's 2 products of 2 x T² x 192 per block, x 3.
+VIT224_TRAIN_FLOPS = int(6 * 5.53e6 * 3137 + 3 * 12 * 2 * 2 * 3137**2 * 192)
+RESNET50_TRAIN_FLOPS = int(3 * 2 * 4.1e9)  # 4.1 G multiply-adds an image
+
+
+def write_imagenet(root: str, n: int) -> float:
+    """The synthetic set's train (n, seed 0) and test (n // 4, seed 1)
+    splits as imagenet_{split}_{images,labels}.npy under ``root`` →
+    seconds."""
+    import os
+
+    from ddp_tpu_torch.data import imagenet
+
+    t0 = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    for split, count, seed in (("train", n, 0), ("test", n // 4, 1)):
+        data = imagenet.synthetic(count, seed=seed)
+        np.save(os.path.join(root, f"imagenet_{split}_images.npy"),
+                data.images)
+        np.save(os.path.join(root, f"imagenet_{split}_labels.npy"),
+                data.labels)
+    return time.perf_counter() - t0
+
+
+def _launches_apart(torch, args, base):
+    """_train with B1-B3's launches of training and of evaluation apart
+    → (trainer, the printed lines, training launches, eval launches)."""
+    from ddp_tpu_torch.ops import flash as fl
+    from ddp_tpu_torch.train import trainer as tr
+
+    launches = fl.flash_attention.launches
+    evals = dict.fromkeys(launches, 0)
+    real = tr.ImageTrainer.evaluate_raw
+
+    def evaluate_raw(self):
+        before = dict(launches)
+        out = real(self)
+        for k in launches:
+            evals[k] += launches[k] - before[k]
+        return out
+
+    _zero(launches)
+    fl.flash_attention.plain_routed = 0
+    with _patched((tr.ImageTrainer, "evaluate_raw", evaluate_raw)):
+        trainer, text = _train(args, base)
+    torch.cuda.synchronize()
+    return trainer, text, {k: launches[k] - evals[k] for k in launches}, evals
+
+
+def _pool_equals_python(torch, trainer) -> list:
+    """The native pool's batches against the Python gather's, on the card,
+    bit for bit, over one epoch and a resumed (skip_batches) one."""
+    from ddp_tpu_torch.data.loader import ShardedLoader
+
+    images, labels = trainer.train_split
+    kw = dict(device=trainer.device, seed=trainer.config.seed)
+    pool = ShardedLoader(images, labels, trainer.global_batch_size,
+                         num_workers=2, **kw)
+    py = ShardedLoader(images, labels, trainer.global_batch_size,
+                       num_workers=0, **kw)
+    n, bad = 0, []
+    try:
+        if not pool.pool_engaged:
+            return ["the native pool did not engage for 224² batches"]
+        for epoch, skip in ((0, 0), (1, 3)):
+            for a, b in zip(pool.epoch(epoch, skip), py.epoch(epoch, skip),
+                            strict=True):
+                n += 1
+                if not (torch.equal(a.images, b.images)
+                        and torch.equal(a.labels, b.labels)):
+                    bad.append(f"epoch {epoch} batch {n}")
+    finally:
+        pool.close()
+    log(f"[imagenet] 10a the native pool's {pool.pool_batches} batches vs "
+        f"the Python gather's, on the card: "
+        + (f"{n} bit for bit" if not bad else f"differ at {bad[:4]}"))
+    if pool.pool_batches != n:
+        bad.append(f"pool counted {pool.pool_batches} of {n} batches")
+    return bad
+
+
+def check_resnet50(torch, card, data, tmp) -> tuple[dict, list, object]:
+    """10a: ResNet-50 / ImageNet-shaped 224² in bf16 and fp32 through
+    main() on the loader path with --num_workers 2: the pool's batch
+    counter = the steps, losses finite and falling, the bf16 run's
+    resume exact, the pool's batches = the Python gather's, one step
+    card vs CPU (fp32, batch 4, ReLU masks tied, CNN_STEP_TOL) from the
+    trained weights (from the seeded ones, a reading); readings →
+    (readings, failures, the fp32 trainer)."""
+    readings, failed = {}, []
+    trainer = None
+    for dname in ("bfloat16", "float32"):
+        ckdir = f"{tmp}/rn50_{dname}"
+        args = ["--data_root", data, "--checkpoint_dir", ckdir,
+                "--compute_dtype", dname]
+        trainer, _ = _train(args, RESNET50_ARGS)
+        steps = trainer.steps_per_epoch * trainer.config.epochs
+        pool = trainer.loader.pool_batches
+        log(f"[imagenet] 10a resnet50 {dname}: {steps} steps, the native "
+            f"pool produced {pool} batches")
+        for h in trainer.history:
+            log(_epoch_line(h, f"resnet50 imagenet-224 {dname},")
+                .replace("[cnn]", "[imagenet]"))
+        if pool != steps:
+            failed.append(f"resnet50 {dname}: the pool produced {pool} of "
+                          f"{steps} batches")
+        failed += [f"resnet50 {dname}: {f}" for f in _losses_fall(trainer)]
+        label = f"resnet50 imagenet-224 {dname}, batch 64"
+        readings[dname] = _image_readings(torch, trainer, label, card,
+                                          RESNET50_TRAIN_FLOPS)
+        if dname == "bfloat16":
+            failed += _resume_failures(torch, args, RESNET50_ARGS, ckdir)
+            failed += _pool_equals_python(torch, trainer)
+        else:
+            # Gated from the trained weights: from the seeded ones with
+            # live BatchNorm scales, fp32's own error on ResNet-50 (the
+            # CPU's fp32 step against its fp64 step, masks tied) is
+            # 1.0e-4 to 3.3e-4 of the gradient at batches 2-16, at or
+            # above CNN_STEP_TOL: that comparison is printed, not held.
+            # Batch 4: at batch 2 BatchNorm's statistics over two images
+            # put the trained step's stem_bn.bias gradient 4.19e-04 off
+            # (an H100 80GB HBM3 at 700 W against the CPU).
+            failed += check_resnet_step(torch, trainer, batch=4,
+                                        tag="imagenet", gated=("trained",),
+                                        control="trained")
+        torch.cuda.empty_cache()
+    return readings, failed, trainer
+
+
+def check_vit224(torch, card, data, tmp) -> tuple[dict, list]:
+    """10b: ViT-Tiny at 224² (T 3137) in bf16 through main(): B1 = B2 =
+    B3 = depth x steps in training (evaluation's B1 apart), nothing
+    routed to the plain block, no fp32 launch, losses falling, resume
+    exact, one step through the kernels against the plain attention
+    (batch 8, bf16 and fp32) within STEP_TOL with VIT_BF16_LOSS_TOL for
+    the bf16 loss, key row 3136's dK/dV held too, and a B3 that drops
+    that row (the ragged tile's last) must fail it → (readings,
+    failures, the trainer)."""
+    from ddp_tpu_torch.ops import flash as fl
+
+    ckdir = f"{tmp}/vit224"
+    args = ["--data_root", data, "--checkpoint_dir", ckdir]
+    trainer, _, train, evals = _launches_apart(torch, args, VIT224_ARGS)
+    routed = fl.flash_attention.plain_routed
+    depth = len(trainer.state.model.block_names)
+    steps = trainer.steps_per_epoch * trainer.config.epochs
+    log(f"[imagenet] 10b vit_tiny at 224² (T 3137), depth {depth}, {steps} "
+        f"steps: training launches {train} (depth x steps = "
+        f"{depth * steps}), evaluation {evals}, routed {routed}, the pool "
+        f"produced {trainer.loader.pool_batches} batches")
+    for h in trainer.history:
+        log(_epoch_line(h, "vit_tiny imagenet-224 bf16,")
+            .replace("[cnn]", "[imagenet]"))
+    failed = [f"{n} bf16: {train[f'{n}_bf16']} training launches, not "
+              f"{depth * steps}" for n in FLASH_NAMES
+              if train[f"{n}_bf16"] != depth * steps]
+    if routed or any(train[f"{n}_fp32"] for n in FLASH_NAMES):
+        failed.append(f"routed {routed}, launches {train}")
+    if evals["flash_attn_fwd_bf16"] == 0:
+        failed.append("evaluation launched no B1")
+    failed += _losses_fall(trainer)
+    failed += _resume_failures(torch, args, VIT224_ARGS, ckdir)
+    failed += check_vit_step(torch, trainer, batch=8, tag="imagenet",
+                             controls={}, tail=True)
+    readings = _image_readings(torch, trainer, "vit_tiny imagenet-224 bf16, "
+                               "batch 32", card, VIT224_TRAIN_FLOPS)
+    readings["launches"] = {n: train[f"{n}_bf16"] for n in FLASH_NAMES}
+    return readings, failed, trainer
+
+
+def _peak_step_mb(torch, step, x, y) -> float:
+    """Peak memory allocated (MB) over one call of ``step``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(x, y)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
+REMAT_STEPS = 5  # steps timed with and without --remat (CUDA events)
+
+
+def _remat_pair(torch, trainer, batch, dtype) -> dict:
+    """One step of a copy of ``trainer``'s model from its weights on its
+    first ``batch`` images, without and with remat (the kernels' path,
+    cuDNN deterministic), after the peak memory of one step and the p50
+    of REMAT_STEPS timed ones → {"plain"|"remat": (loss, grads, peak MB,
+    step ms)}."""
+    from ddp_tpu_torch.models import get_model
+    from ddp_tpu_torch.parallel.ddp import TrainState, make_train_step
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    images, labels = trainer.train_split
+    x = torch.from_numpy(np.array(images[:batch])).to(trainer.device)
+    y = torch.from_numpy(labels[:batch]).to(trainer.device)
+    src = trainer.state.model
+    kw = ({"depth": len(src.block_names)} if hasattr(src, "block_names")
+          and trainer.config.model.startswith("vit") else {})
+    out = {}
+    for label, remat in (("plain", False), ("remat", True)):
+        model = get_model(trainer.config.model,
+                          num_classes=trainer.num_classes,
+                          side=images.shape[1], in_channels=3, remat=remat,
+                          **kw)
+        model.load_state_dict(src.state_dict())
+        model = model.to(trainer.device)
+        state = TrainState(0, model, make_optimizer(
+            model.parameters(), "sgd", lr=0.01, momentum=0.9))
+        step = make_train_step(state, reduce=lambda t: t,
+                               compute_dtype=dtype)
+        peak = _peak_step_mb(torch, step, x, y)
+        ms = float(np.median(_timed_steps(torch, step, [(x, y)] * REMAT_STEPS)))
+        model.load_state_dict(src.state_dict())  # the steps moved them
+        m = step(x, y)
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        torch.cuda.synchronize()
+        out[label] = (float(m.loss), grads, peak, ms)
+        del model, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_remat224(torch, card, small, tmp, resnet, vit) -> tuple[dict, list]:
+    """10c: --remat. ViT-Tiny at 224² (bf16, batch 32) and ResNet-50
+    (fp32, batch 64): one step with remat against one without, from the
+    trained weights, within the same limits (STEP_TOL bf16 /
+    CNN_STEP_TOL), and the peak memory of each (remat must lower it);
+    then a short ViT run with --remat through main(): B1 = 2 x depth x
+    steps in training, B2 = B3 = depth x steps."""
+    import torch.backends.cudnn as cudnn
+
+    readings, failed = {}, []
+    prev = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for label, trainer, batch, dtype, tol in (
+                ("vit_tiny bf16", vit, 32, torch.bfloat16,
+                 dict(STEP_TOL["bf16"], loss=VIT_BF16_LOSS_TOL)),
+                ("resnet50 fp32", resnet, 64, torch.float32, CNN_STEP_TOL)):
+            pair = _remat_pair(torch, trainer, batch, dtype)
+            (l0, g0, m0, t0), (l1, g1, m1, t1) = pair["plain"], pair["remat"]
+            per = {n: float((g1[n] - g0[n]).norm()
+                            / g0[n].norm().clamp_min(1e-30)) for n in g0}
+            grad = (sum(float((g1[n] - g0[n]).norm()) ** 2 for n in g0)
+                    / sum(float(g0[n].norm()) ** 2 for n in g0)) ** 0.5
+            loss = abs(l1 - l0) / abs(l0)
+            leaf = max(per.items(), key=lambda x: x[1])
+            ok = (loss <= tol["loss"] and grad <= tol["grad"]
+                  and leaf[1] <= tol["leaf"])
+            log(f"[imagenet] 10c {label}, one step with --remat vs without "
+                f"(batch {batch}): loss {l1:.6f} vs {l0:.6f}; loss rel "
+                f"{loss:.2e}, gradient rel {grad:.2e}, worst leaf "
+                f"{leaf[1]:.2e} ({leaf[0]}) (limits {tol}); peak memory "
+                f"{m1:.0f} MB with remat, {m0:.0f} MB without "
+                f"({m1 / m0:.3f}); step p50 {t1:.2f} ms with remat, "
+                f"{t0:.2f} ms without ({t1 / t0:.3f})")
+            readings[label] = {"peak_mb_remat": m1, "peak_mb": m0,
+                               "step_ms_remat": t1, "step_ms": t0}
+            if not ok:
+                failed.append(f"{label}: the remat step differs")
+            if not m1 < m0:
+                failed.append(f"{label}: remat did not lower peak memory")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+    args = ["--data_root", small, "--checkpoint_dir", f"{tmp}/remat",
+            "--remat", "--epochs", "1"]
+    trainer, _, train, _ = _launches_apart(torch, args, VIT224_ARGS)
+    depth = len(trainer.state.model.block_names)
+    steps = trainer.steps_per_epoch
+    log(f"[imagenet] 10c vit_tiny --remat through main(), {steps} steps: "
+        f"training launches {train} (B1 want 2 x depth x steps = "
+        f"{2 * depth * steps}, B2/B3 {depth * steps})")
+    want = {"flash_attn_fwd": 2 * depth * steps,
+            "flash_attn_dq": depth * steps, "flash_attn_dkv": depth * steps}
+    for n, w in want.items():
+        if train[f"{n}_bf16"] != w:
+            failed.append(f"--remat: {n} {train[f'{n}_bf16']} launches, "
+                          f"not {w}")
+    readings["launches"] = {n: train[f"{n}_bf16"] for n in FLASH_NAMES}
+    return readings, failed
+
+
+def check_profile_dir(torch, small, tmp) -> list:
+    """10d: --profile_dir on a short 10b run (2 steps): the chrome trace
+    rank 0 writes names B1's kernel."""
+    import os
+
+    prof = f"{tmp}/prof"
+    _train(["--data_root", small, "--checkpoint_dir", f"{tmp}/prof_ck",
+            "--epochs", "1", "--eval_every", "0", "--profile_dir", prof],
+           VIT224_ARGS)
+    names = os.listdir(prof) if os.path.isdir(prof) else []
+    events = []
+    if names:
+        with open(os.path.join(prof, names[0])) as f:
+            events = json.load(f).get("traceEvents", [])
+    b1 = sorted({e.get("name", "")[:60] for e in events
+                 if "fwd_sm90" in e.get("name", "")})
+    log(f"[imagenet] 10d --profile_dir wrote {names}: {len(events)} events, "
+        f"B1 kernel names {b1}")
+    return [] if names == ["trace_rank0.json"] and b1 else [
+        "--profile_dir's trace does not name B1's kernel"]
+
+
+def check_trainer_flags(torch, tmp) -> list:
+    """10e: --no_shuffle and --num_classes on a short SimpleCNN run: the
+    first batch is the unshuffled indices' (rows 0..63), the head has
+    --num_classes outputs."""
+    trainer, _ = _train(["--synthetic_size", "640", "--epochs", "1",
+                         "--no_shuffle", "--num_classes", "12",
+                         "--checkpoint_dir", f"{tmp}/flags"])
+    first = next(iter(trainer.loader.epoch(0)))
+    labels = trainer.train_split.labels
+    order = trainer.loader.sampler.shard_indices(0)
+    head = trainer.state.model.state_dict()["fl.weight"].shape[0]
+    same = bool(np.array_equal(first.labels.cpu().numpy(), labels[:64])
+                and np.array_equal(order, np.arange(len(order))))
+    log(f"[imagenet] 10e --no_shuffle --num_classes 12: the first batch is "
+        f"rows 0..63 {same}, head outputs {head}")
+    return [] if same and head == 12 else ["--no_shuffle / --num_classes"]
+
+
+def time_vit224_attention(torch) -> dict:
+    """10f: B1-B3 alone at VIT224_SHAPE (B 32, T 3137, H 3, D 64,
+    non-causal), bf16 and fp32: each held to FLASH_TOL against its plain
+    version (out, lse, dq, dk, dv), then timed with its bound and SDPA's
+    forward and whole backward → {"vit224_bf16"|"vit224_fp32": ...}."""
+    import torch.nn.functional as F
+
+    from ddp_tpu_torch.ops import flash as fl
+
+    label, B, T, S, H, D, causal = VIT224_SHAPE
+    out, failed = {}, []
+    for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        q, k, v, dout, dlse = _flash_inputs(torch, B, T, S, H, D, dtype,
+                                            seed=224)
+        got = _with_grads(torch, lambda *a: fl.flash_attention_with_lse(
+            *a, causal), q, k, v, dout, dlse)
+        want = _with_grads(torch, lambda *a: fl.attention_with_lse_reference(
+            *a, causal), q.float(), k.float(), v.float(), dout.float(), dlse)
+        errs = {}
+        for name, keys in (("flash_attn_fwd", ("out", "lse")),
+                           ("flash_attn_dq", ("dq",)),
+                           ("flash_attn_dkv", ("dk", "dv"))):
+            errs[name] = 0.0
+            for key in keys:
+                ok, text = _compare(torch, got[key], want[key],
+                                    FLASH_TOL[dname])
+                log(f"[flash] {dname} {label}: {key}: {text}"
+                    + ("" if ok else "  <-- FAILS"))
+                if not ok:
+                    failed.append(f"{dname} {key}")
+                errs[name] = max(errs[name], float(
+                    (got[key].float() - want[key].float()).abs()
+                    .nan_to_num(0.0).max()))
+        del q, k, v, dout, dlse, got, want
+        torch.cuda.empty_cache()
+        out[f"vit224_{dname}"] = _time_flash(torch, F, fl, dtype, dname,
+                                             errs, VIT224_SHAPE)
+    if failed:
+        raise AssertionError(f"10f: B1-B3 at T 3137 vs plain: {failed}")
+    return out
+
+
+def check_imagenet(torch, card) -> dict:
+    """Phase 10, the ImageNet family at 224² on the synthetic set: 10a
+    ResNet-50, 10b ViT-Tiny through B1-B3 at T 3137, 10c --remat, 10d
+    --profile_dir, 10e --no_shuffle / --num_classes, 10f B1-B3 timed at
+    T 3137. Every reading is printed before any raise."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    failed, readings = [], {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_in_") as tmp:
+        data, small = f"{tmp}/imagenet", f"{tmp}/imagenet_small"
+        secs = write_imagenet(data, IMAGENET_TRAIN)
+        write_imagenet(small, IMAGENET_SMALL)
+        log(f"[imagenet] the synthetic 224² set: {IMAGENET_TRAIN} train + "
+            f"{IMAGENET_TRAIN // 4} test images written in {secs:.1f} s")
+        s0 = time.perf_counter()
+
+        def lap(label):
+            nonlocal s0
+            log(f"[imagenet] {label}: {time.perf_counter() - s0:.1f} s")
+            s0 = time.perf_counter()
+
+        readings["resnet50"], bad, resnet = check_resnet50(torch, card,
+                                                           data, tmp)
+        failed += [f"10a: {b}" for b in bad]
+        lap("10a")
+        readings["vit"], bad, vit = check_vit224(torch, card, data, tmp)
+        failed += [f"10b: {b}" for b in bad]
+        lap("10b")
+        readings["remat"], bad = check_remat224(torch, card, small, tmp,
+                                                resnet, vit)
+        failed += [f"10c: {b}" for b in bad]
+        del resnet, vit
+        torch.cuda.empty_cache()
+        lap("10c")
+        failed += [f"10d: {b}" for b in check_profile_dir(torch, small, tmp)]
+        failed += [f"10e: {b}" for b in check_trainer_flags(torch, tmp)]
+        lap("10d and 10e")
+    readings["flash"] = time_vit224_attention(torch)
+    lap("10f")
+    log(f"[imagenet] phase 10: {time.perf_counter() - t0:.1f} s on {card}")
+    if failed:
+        raise AssertionError(f"phase 10: {failed}")
+    return readings
+
+
 def check_serving(torch) -> dict:
     from ddp_tpu_torch.models.lm import LMSpec, init_lm
     from ddp_tpu_torch.ops import decode as dec
@@ -6355,10 +7154,11 @@ def check_serving(torch) -> dict:
     prompts = [rng.integers(0, spec.vocab_size, n).tolist()
                for n, _, _ in REQUESTS]
     launches = dec.flash_decode_attention.launches
-    counted = {}
+    counted, defaults = {}, {}
     for kv_dtype, name in (("fp32", "flash_decode_fp32"),
                            ("int8", "flash_decode_int8")):
-        _, engine = serve_run(torch, model, prompts, kv_dtype=kv_dtype)
+        defaults[kv_dtype], engine = serve_run(torch, model, prompts,
+                                               kv_dtype=kv_dtype)
         got = dict(launches)
         routed = dec.flash_decode_attention.plain_routed
         want = engine.decode_steps * spec.depth
@@ -6400,6 +7200,170 @@ def check_serving(torch) -> dict:
             f"{len(greedy) - parted} streams identical, {parted} parted at "
             f"a near tie")
     profile_steps(torch, model)
+    counted["flags"] = check_serving_flags(torch, model, prompts, defaults)
+    return counted
+
+
+def _requests_traffic(url, prompts, requests=None) -> dict:
+    """Every request of ``requests`` (default REQUESTS) posted at once
+    over HTTP → {index: reply}."""
+    requests = requests or REQUESTS
+    replies, errors = {}, []
+
+    def client(i):
+        _, n_new, sampling = requests[i]
+        try:
+            replies[i] = _post(url, {"prompt_tokens": prompts[i],
+                                     "max_new_tokens": n_new, **sampling})
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError("; ".join(errors) or "a client did not finish")
+    return replies
+
+
+# Phase 4's flag runs through the CLI: (label, KV dtype, extra flags).
+FLAG_RUNS = [("fp32", "fp32", ["--decode_attn", "flash"]),
+             ("int8", "int8", []),
+             ("paged fp32", "fp32", ["--page_size", str(SERVE_PAGE)])]
+QUEUE_BURST = 16  # the --max_queue 2 run's concurrent requests
+
+
+def check_serving_flags(torch, model, prompts, defaults) -> dict:
+    """Phase 4's flag runs: ``python -m ddp_tpu_torch.serve``'s main()
+    with SERVE_FLAGS (chunk 32, min bucket 8, 40 tokens a step), parsed
+    by its own argparse, serving phase 4's workload at full width in fp32
+    (``--decode_attn flash``), int8 and paged fp32. Each: every request
+    complete; compile_counts() after the traffic equal to its value after
+    warmup() and to FLAG_COMPILE_COUNTS (JAX's warmup() for these flags);
+    decode launches = decode steps x depth of the run's kernel and none
+    of another. fp32 greedy streams equal phase 4's default-flag run's
+    (fixed-lane and paged), parted only at a near tie (counted). int8
+    streams are compared and the parted ones counted, not gated: the
+    chunk split decides which K/V a chunk attends quantized (a first
+    chunk its own fp32 K/V, a later one the int8 lane), so another split
+    is another int8 computation, in the JAX engine too. Then a small
+    model with ``--decode_attn reference --max_queue 2``: a burst past
+    the queue answers 429, and no decode kernel launches → {kernel:
+    launches}."""
+    from ddp_tpu_torch.ops import decode as dec
+
+    spec = model.spec
+    base = ["--init_demo", "--seed", "0",
+            "--vocab_size", str(spec.vocab_size),
+            "--seq_len", str(spec.total_len), "--d_model", str(spec.d_model),
+            "--depth", str(spec.depth), "--num_heads", str(spec.num_heads),
+            "--slots", str(SLOTS), "--prefill_len", str(PREFILL_LEN),
+            *SERVE_FLAGS]
+    greedy = [i for i, (_, _, s) in enumerate(REQUESTS) if not s]
+    counted, failed, parted = {}, [], {}
+    for label, kv_dtype, extra in FLAG_RUNS:
+        out = {}
+
+        def traffic(url, made, stop):
+            out["replies"] = _requests_traffic(url, prompts)
+
+        t0 = time.perf_counter()
+        made, lines = serve_main_with(
+            torch, base + ["--kv_dtype", kv_dtype, *extra], traffic)
+        wall = time.perf_counter() - t0
+        flat, paged, routed = _lm_launches(dec)
+        engine = made[0]
+        kernel = ("flash_decode_paged_fp32" if engine.paged else
+                  f"flash_decode_{kv_dtype}")
+        got = {**flat, **paged}
+        want = engine.decode_steps * spec.depth
+        start = json.loads(next(line for line in lines
+                                if line.startswith('{"serving"')))
+        after = engine.compile_counts()
+        replies = out["replies"]
+        bad = [i for i, r in replies.items() if r["status"] != "complete"
+               or len(r["tokens"]) != REQUESTS[i][1]]
+        n, fails = _stream_failures(
+            torch, model, prompts, {i: replies[i]["tokens"] for i in greedy},
+            {i: defaults[kv_dtype][i]["tokens"] for i in greedy}, kv_dtype,
+            f"flags {label}")
+        parted[label] = n
+        log(f"[serve-flags] {label} ({' '.join(SERVE_FLAGS + extra)}): "
+            f"{len(replies)} requests in {wall:.1f} s (server start "
+            f"included), {engine.decode_steps} decode steps; chunk "
+            f"{engine.prefill_chunk}, buckets {engine.buckets}, budget "
+            f"{engine.step_token_budget}; compile_counts after warmup "
+            f"{start['compile_counts']}, after the traffic {after} (want "
+            f"{FLAG_COMPILE_COUNTS}); launches {got} (want {kernel} = "
+            f"{want}), routed {routed}; greedy streams vs the default-flag "
+            f"run: {len(greedy) - n} identical, {n} parted"
+            + (" at a near tie" if not fails else ""))
+        if bad:
+            failed.append(f"{label}: requests {bad} did not complete")
+        if not (start["compile_counts"] == after == FLAG_COMPILE_COUNTS):
+            failed.append(f"{label}: compile counts {start['compile_counts']}"
+                          f" then {after}, not {FLAG_COMPILE_COUNTS}")
+        if (got[kernel] != want or want == 0 or routed
+                or sum(got.values()) != got[kernel]):
+            failed.append(f"{label}: launches {got}, routed {routed}, want "
+                          f"{kernel} = {want}")
+        if engine.prefill_chunk != 32 or engine.step_token_budget != 40:
+            failed.append(f"{label}: the flags did not reach the engine")
+        if kv_dtype == "fp32":
+            failed += [f"{label}: {f}" for f in fails]
+        counted[kernel] = counted.get(kernel, 0) + got[kernel]
+    # --decode_attn reference and --max_queue 2, on a small model.
+    out = {}
+    small = dict(FULL, d_model=256, depth=2)
+    burst = [(8, 64, {})] * QUEUE_BURST
+
+    def queue_traffic(url, made, stop):
+        codes = []
+
+        def client(i):
+            req = urllib.request.Request(
+                url + "/generate", method="POST", data=json.dumps(
+                    {"prompt_tokens": list(range(1, 9)),
+                     "max_new_tokens": 64}).encode())
+            try:
+                with urllib.request.urlopen(req, timeout=900) as r:
+                    codes.append((r.status, json.loads(r.read())["status"]))
+            except urllib.error.HTTPError as e:
+                codes.append((e.code, json.loads(e.read()).get("error")))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(burst))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        out["codes"] = sorted(codes)
+
+    made, _ = serve_main_with(torch, [
+        "--init_demo", "--seed", "0", "--vocab_size", str(small["vocab_size"]),
+        "--seq_len", str(small["total_len"]), "--d_model",
+        str(small["d_model"]), "--depth", str(small["depth"]), "--num_heads",
+        str(small["num_heads"]), "--slots", str(SLOTS), "--max_queue", "2",
+        "--decode_attn", "reference", *SERVE_FLAGS], queue_traffic)
+    flat, paged, routed = _lm_launches(dec)
+    codes = out["codes"]
+    n429 = sum(c == 429 and e == "queue_full" for c, e in codes)
+    done = sum(c == 200 and e == "complete" for c, e in codes)
+    log(f"[serve-flags] --decode_attn reference --max_queue 2, a burst of "
+        f"{len(burst)} at once: {done} complete, {n429} answered 429 "
+        f"queue_full; engine attn {made[0].decode_attn}; decode launches "
+        f"{flat} {paged}, routed {routed}")
+    if (n429 == 0 or done + n429 != len(burst) or any(flat.values())
+            or any(paged.values()) or made[0].decode_attn != "reference"):
+        failed.append(f"--max_queue 2 / --decode_attn reference: codes "
+                      f"{codes}, launches {flat} {paged}")
+    log(f"[serve-flags] greedy streams parted from the default-flag run "
+        f"(near ties for fp32; int8 not gated): {parted}")
+    if failed:
+        raise AssertionError(f"phase 4 flag runs: {failed}")
     return counted
 
 
@@ -6633,20 +7597,28 @@ def main() -> int:
     log_ptxas(_build)
     log_decode_ptxas(_build)
 
-    timings = check_kernels(torch)
-    paged_timings = check_paged_kernels(torch)
-    launches = check_serving(torch)
-    paged_launches = check_paged_serving(torch)
-    spec_launches = check_spec_serving(torch, card)
-    obs = check_serving_obs(torch, card)
-    graphs = check_graphs(torch, card)
-    moe = check_moe_serving(torch, card)
-    check_moe_layer(torch)
-    flash = check_flash(torch)
-    trained, served = check_lm_phases(torch, card)
-    check_cnn(torch, card)
-    images = check_image_families(torch, card)
-    fault = check_fault_tolerance(torch, card)
+    def timed(label, fn, *args):
+        s0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[main] {label}: {time.perf_counter() - s0:.1f} s")
+        return out
+
+    timings = timed("phase 3", check_kernels, torch)
+    paged_timings = timed("phase 3c", check_paged_kernels, torch)
+    launches = timed("phase 4", check_serving, torch)
+    paged_launches = timed("phase 4c", check_paged_serving, torch)
+    spec_launches = timed("phase 4d", check_spec_serving, torch, card)
+    obs = timed("phase 4e", check_serving_obs, torch, card)
+    graphs = timed("phase 4f", check_graphs, torch, card)
+    moe = timed("phase 4g", check_moe_serving, torch, card)
+    timed("phase 4h", check_moe_layer, torch)
+    flash = timed("phase 3b", check_flash, torch)
+    trained, served = timed("phases 5 and 8", check_lm_phases, torch, card)
+    timed("phase 6", check_cnn, torch, card)
+    images = timed("phase 7", check_image_families, torch, card)
+    fault = timed("phase 9", check_fault_tolerance, torch, card)
+    imagenet = timed("phase 10", check_imagenet, torch, card)
+    log(f"[main] all phases and the build: {time.perf_counter() - t0:.1f} s")
 
     replaces = {"flash_decode_fp32": "ddp_tpu/ops/decode.py:260",
                 "flash_decode_int8": "ddp_tpu/ops/decode.py:270",
@@ -6687,6 +7659,10 @@ def main() -> int:
     for k in kernels:
         k["graph_launches"] = graphs["launches"].get(k["name"], 0)
     kernels[0]["graph_spec_launches"] = graphs["b4_spec"]
+    # Phase 4's flag runs (SERVE_FLAGS through the serve CLI): B4 fp32
+    # with --decode_attn flash, B5 int8, B4p paged fp32.
+    for k in kernels:
+        k["flag_launches"] = launches["flags"].get(k["name"], 0)
     # The MoE causal LM (decode_moe's width): phase 4g's graph runs (B4
     # fixed-lane fp32, B5 int8, B4p paged fp32), (d)'s draft steps (B4),
     # and phase 8f serving the trained MoE checkpoint (B4p).
@@ -6716,6 +7692,11 @@ def main() -> int:
             "fault_tolerance_launches": {"lm_preempt_resume":
                                          fault["9a"][name],
                                          "vit_ema": fault["9d"][name]},
+            # Phase 10: ViT-Tiny at 224² (T 3137) training (10b) and its
+            # --remat run (10c; B1 twice a block).
+            "imagenet_launches": {
+                "vit224": imagenet["vit"]["launches"][name],
+                "vit224_remat": imagenet["remat"]["launches"][name]},
             "variants": {
                 "fp32": {"launches": trained["fp32"][name],
                          **{k: flash["fp32"][name][k] for k in keys}},
@@ -6724,6 +7705,14 @@ def main() -> int:
                                    for k in keys},
                                 "sdpa_bwd_ms":
                                     flash[f"vit_{d}"][name]["sdpa_bwd_ms"]}
+                   for d in ("bf16", "fp32")},
+                **{f"vit224_{d}": {
+                    "launches": imagenet["vit"]["launches"][name]
+                    if d == "bf16" else 0,
+                    **{k: imagenet["flash"][f"vit224_{d}"][name][k]
+                       for k in keys},
+                    "sdpa_bwd_ms":
+                        imagenet["flash"][f"vit224_{d}"][name]["sdpa_bwd_ms"]}
                    for d in ("bf16", "fp32")}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

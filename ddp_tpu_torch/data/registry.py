@@ -1,16 +1,17 @@
-"""Dataset registry: name → (train split, test split) (the MNIST and CIFAR
-families of ``ddp_tpu/data/registry.py``, plus the vendored
+"""Dataset registry: name → (train split, test split) (the MNIST, CIFAR
+and ImageNet families of ``ddp_tpu/data/registry.py``, plus the vendored
 ``uci_digits``)."""
 
 from __future__ import annotations
 
-from ddp_tpu_torch.data import cifar, mnist
+from ddp_tpu_torch.data import cifar, imagenet, mnist
 
 NUM_CLASSES = {**{name: 10 for name in mnist.VARIANTS},
-               "cifar10": 10, "cifar100": 100}
+               "cifar10": 10, "cifar100": 100,
+               "imagenet": imagenet.NUM_CLASSES}
 # A synthetic test split is synthetic_size // this (the JAX loaders').
 _TEST_SHARE = {**{name: 6 for name in mnist.VARIANTS},
-               "cifar10": 5, "cifar100": 5}
+               "cifar10": 5, "cifar100": 5, "imagenet": 4}
 
 
 def load_split(
@@ -28,6 +29,8 @@ def load_split(
         return cifar.load(root, split, name=name, **kw)
     if name in mnist.VARIANTS:
         return mnist.load(root, split, variant=name, **kw)
+    if name == "imagenet":
+        return imagenet.load(root, split, **kw)
     raise KeyError(f"unknown dataset {name!r}; have {sorted(NUM_CLASSES)}")
 
 
@@ -39,7 +42,7 @@ def load_dataset(
     synthetic_size: int | None = None,
 ) -> tuple[mnist.Split, mnist.Split]:
     """(train, test); a synthetic test split is ``synthetic_size // 6``
-    (MNIST family) or ``// 5`` (CIFAR)."""
+    (MNIST family), ``// 5`` (CIFAR) or ``// 4`` (ImageNet)."""
     if name not in NUM_CLASSES:
         raise KeyError(f"unknown dataset {name!r}; have {sorted(NUM_CLASSES)}")
     test_size = (max(1, synthetic_size // _TEST_SHARE[name])

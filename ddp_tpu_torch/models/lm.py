@@ -388,8 +388,10 @@ def _shifted_targets(tokens):
     (target 0, weight 0) → (targets [B, T] int64, mask [T] fp32)."""
     tokens = tokens.long()
     targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], 1)
-    mask = torch.ones(tokens.shape[1], device=tokens.device)
-    mask[-1] = 0.0
+    # Built on the device: ``mask[-1] = 0.0`` would copy a host scalar
+    # into it, a synchronizing call each time (two a training step).
+    T = tokens.shape[1]
+    mask = (torch.arange(T, device=tokens.device) < T - 1).float()
     return targets, mask
 
 

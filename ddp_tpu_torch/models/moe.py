@@ -319,11 +319,12 @@ class MoEViT(_vit.ViT):
                  embed_dim: int = 192, depth: int = 12, num_heads: int = 3,
                  mlp_ratio: int = 4, *, num_experts: int = 8, top_k: int = 2,
                  capacity_factor: float = 2.0, moe_every: int = 2,
-                 attention_fn=None, side: int = 32, in_channels: int = 3):
+                 attention_fn=None, side: int = 32, in_channels: int = 3,
+                 remat: bool = False):
         super().__init__(num_classes, patch_size, embed_dim, depth,
                          num_heads, mlp_ratio, use_cls_token=False,
                          attention_fn=attention_fn, side=side,
-                         in_channels=in_channels)
+                         in_channels=in_channels, remat=remat)
         self.num_experts, self.moe_every = num_experts, moe_every
         mlp_dim = embed_dim * mlp_ratio
         for i, name in enumerate(self.block_names):

@@ -26,6 +26,9 @@ defaults differ:
 
 ``compute_dtype`` runs the forward on parameters cast to that dtype, as
 the JAX step casts its params (the running statistics stay fp32).
+``remat`` recomputes each residual block in the backward
+(``models/remat.py``); its BatchNorms advance their running statistics
+on the first forward only.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ddp_tpu_torch.models.remat import remat_block
 
 BN_MOMENTUM = 0.9  # Flax's: running = momentum · running + (1 − momentum) · batch
 BN_EPS = 1e-5
@@ -86,11 +91,14 @@ class BatchNorm(nn.Module):
     """Flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=x.dtype)``
     over the channels of NCHW; the mode is the module's (``train()``:
     batch statistics, the running averages advanced; ``eval()``: the
-    running averages)."""
+    running averages). While ``recomputing`` (a remat backward's second
+    forward) it normalises by the batch statistics without folding them
+    into the running averages again."""
 
     def __init__(self, features: int, *, zero_init: bool = False):
         super().__init__()
         self.zero_init = zero_init  # zero-gamma: init_state's scale is 0
+        self.recomputing = False
         self.weight = nn.Parameter(torch.ones(features))  # Flax "scale"
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -102,10 +110,13 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 scale, bias, False, 0.0, BN_EPS)
-        with torch.no_grad():
-            mean, var = batch_stats(x)
-            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
-            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+        if not self.recomputing:
+            with torch.no_grad():
+                mean, var = batch_stats(x)
+                self.running_mean.mul_(BN_MOMENTUM).add_(
+                    mean, alpha=1 - BN_MOMENTUM)
+                self.running_var.mul_(BN_MOMENTUM).add_(
+                    var, alpha=1 - BN_MOMENTUM)
         return F.batch_norm(x, None, None, scale, bias, True, 0.0, BN_EPS)
 
 
@@ -160,9 +171,10 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes, block, num_classes: int = 1000, *,
                  width: int = 64, cifar_stem: bool = False,
-                 in_channels: int = 3):
+                 in_channels: int = 3, remat: bool = False):
         super().__init__()
         self.cifar_stem = cifar_stem
+        self.remat = remat
         self.stem_conv = (Conv(in_channels, width, 3) if cifar_stem
                           else Conv(in_channels, width, 7, 2))
         self.stem_bn = BatchNorm(width)
@@ -188,8 +200,10 @@ class ResNet(nn.Module):
         if not self.cifar_stem:
             x, _ = _pad_same(x, 3, 2, value=-math.inf)
             x = F.max_pool2d(x, 3, 2)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for name in self.block_names:
-            x = getattr(self, name)(x, dt)
+            block = getattr(self, name)
+            x = remat_block(block, x, dt) if remat else block(x, dt)
         x = x.mean(dim=(2, 3))  # global average pool
         wide = _wide(dt)
         return F.linear(x.to(wide), self.fc.weight.to(dt).to(wide),

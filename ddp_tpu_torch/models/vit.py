@@ -20,6 +20,8 @@ Where torch's defaults differ from Flax's: LayerNorm eps is 1e-6
 the tanh approximation (torch's default is exact). Under
 ``compute_dtype`` the parameters are cast to that dtype, as the JAX
 step casts its params; LayerNorm and the head compute in fp32 on them.
+``remat`` recomputes each encoder block in the backward
+(``models/remat.py``): the forward's attention (B1) runs twice a step.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ddp_tpu_torch.models.remat import remat_block
 from ddp_tpu_torch.ops.attention import best_attention
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
@@ -112,8 +115,10 @@ class ViT(nn.Module):
     def __init__(self, num_classes: int = 100, patch_size: int = 4,
                  embed_dim: int = 192, depth: int = 12, num_heads: int = 3,
                  mlp_ratio: int = 4, *, use_cls_token: bool = True,
-                 attention_fn=None, side: int = 32, in_channels: int = 3):
+                 attention_fn=None, side: int = 32, in_channels: int = 3,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         p, d = patch_size, embed_dim
         tokens = (side // p) ** 2 + int(use_cls_token)
         self.patch_size, self.use_cls_token = p, use_cls_token
@@ -145,8 +150,10 @@ class ViT(nn.Module):
             x = torch.cat([cls, x], dim=1)
         x = x + self.pos_embed.to(dt)
         aux = x.new_zeros((), dtype=torch.float32)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for name in self.block_names:
-            x = getattr(self, name)(x, dt)
+            block = getattr(self, name)
+            x = remat_block(block, x, dt) if remat else block(x, dt)
             if isinstance(x, tuple):  # a routed block: (x, aux)
                 x, a = x
                 aux = aux + a

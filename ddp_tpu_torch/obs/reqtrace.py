@@ -528,3 +528,31 @@ def validate_request_timeline(timeline: list[dict]) -> dict:
         "queue_us": queue["dur"] if queue else None,
         "total_us": round(t_retire - t_admit, 3),
     }
+
+
+def requestz_events(doc: dict) -> list[dict]:
+    """A ``/requestz`` timeline → the events :func:`reconstruct_requests`
+    makes of an exported trace, for :func:`validate_request_timeline`:
+    spans with their ``dur``, instants as ``"n"``, the ``request``
+    umbrella from the digest's ``total_s``.
+
+    The wire rounds each ``t_s`` and ``dur_s`` to 1 µs on its own, so a
+    span's rounded end can pass a later instant's rounded time by 1 µs;
+    times are rebuilt here as whole µs (``round(t_s * 1e6)``), where that
+    overrun is exactly 1 and inside the validator's epsilon. Rebuilt as
+    floats (``t_s * 1e6``), their sum can land a hair past it.
+    """
+    def us(seconds: float) -> int:
+        return round(seconds * 1e6)
+
+    out = [{"name": REQUEST_SPAN, "ph": "X", "ts": 0,
+            "dur": us(doc["summary"]["total_s"])}]
+    for e in doc["events"]:
+        ev = {"name": e["name"], "ts": us(e["t_s"]),
+              **({"args": e["args"]} if e.get("args") else {})}
+        if e["dur_s"] > 0:
+            ev.update(ph="X", dur=us(e["dur_s"]))
+        else:
+            ev["ph"] = "n"
+        out.append(ev)
+    return sorted(out, key=lambda e: e["ts"])

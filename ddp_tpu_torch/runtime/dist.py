@@ -8,6 +8,13 @@ rank pins its card (``torch.cuda.set_device``). A process group exists
 at world 1 too, so the gradient average always goes through it. The data
 axis is the only mesh this slice has: rank ``r`` of ``num_processes`` is
 data shard ``r``.
+
+Multi-host runs (``ddp_tpu/runtime/dist.py:94-170``) start each rank by
+hand with ``coordinator_address`` (the rendezvous ``host:port``, which
+rank 0 binds), ``num_processes`` (the world) and ``process_id`` (the
+rank): :func:`multi_host_world` checks them as ``jax.distributed``
+would, and a missing or inconsistent value raises rather than running a
+world of one.
 """
 
 from __future__ import annotations
@@ -41,6 +48,36 @@ _ACTIVE: DistContext | None = None
 _PICKS = 3  # tries of a free port for a world of one
 
 
+def multi_host_world(coordinator_address: str | None,
+                     num_processes: int | None,
+                     process_id: int | None) -> tuple[str, int, int] | None:
+    """The multi-host flags → (``host:port``, world, rank), or None when
+    none of the three is given (a local run). Raises ValueError for a
+    missing or inconsistent value: a world or a rank without an address,
+    an address without both, a malformed address, a world below 1, a
+    rank outside the world."""
+    given = (coordinator_address, num_processes, process_id)
+    if all(v is None for v in given):
+        return None
+    missing = [flag for flag, v in zip(
+        ("--coordinator_address", "--num_processes", "--process_id"), given)
+        if v is None]
+    if missing:
+        raise ValueError(
+            f"a multi-host rank needs --coordinator_address host:port, "
+            f"--num_processes and --process_id; missing {missing}")
+    host, sep, port = coordinator_address.rpartition(":")
+    if not sep or not host or not port.isdigit() or not 0 < int(port) < 65536:
+        raise ValueError(f"--coordinator_address must be host:port, got "
+                         f"{coordinator_address!r}")
+    if num_processes < 1:
+        raise ValueError(f"--num_processes must be >= 1, got {num_processes}")
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"--process_id {process_id} is outside the world "
+                         f"of --num_processes {num_processes}")
+    return coordinator_address, num_processes, process_id
+
+
 def free_port() -> int:
     """A TCP port on localhost that is free now."""
     with socket.socket() as s:
@@ -54,12 +91,16 @@ def setup(
     *,
     backend: str | None = None,
     device=None,
+    coordinator_address: str | None = None,
 ) -> DistContext:
     """Bring up the process group and return its context.
 
     ``rank``/``world_size`` default to ``RANK``/``WORLD_SIZE`` (0 and 1);
     ``LOCAL_RANK`` (default: the rank) picks the card, modulo the cards
-    present, unless ``device`` names one. ``backend=None``
+    present, unless ``device`` names one. ``coordinator_address``
+    (``host:port``) is the rendezvous of a multi-host world, in place of
+    ``MASTER_ADDR``/``MASTER_PORT``; the rank and world are then the
+    caller's (:func:`multi_host_world`). ``backend=None``
     chooses nccl on CUDA and gloo on the CPU; an explicit backend that
     the runtime resolves otherwise raises. nccl never puts two ranks on
     one card.
@@ -71,6 +112,11 @@ def setup(
     world = int(os.environ.get("WORLD_SIZE", 1)) if world_size is None else world_size
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
     dev = resolve_device(device)
+    if (coordinator_address is not None and "LOCAL_RANK" not in os.environ
+            and dev.type == "cuda"):
+        # A rank of a multi-host world takes the card its rank names on
+        # its own host.
+        local_rank = rank % torch.cuda.device_count()
     if dev.type == "cuda" and device in (None, "cuda"):
         dev = torch.device("cuda", local_rank % torch.cuda.device_count())
     want = backend or ("nccl" if dev.type == "cuda" else "gloo")
@@ -85,8 +131,11 @@ def setup(
             )
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    addr = os.environ.get("MASTER_ADDR", "localhost")
-    port = os.environ.get("MASTER_PORT")
+    if coordinator_address is not None:
+        addr, _, port = coordinator_address.rpartition(":")
+    else:
+        addr = os.environ.get("MASTER_ADDR", "localhost")
+        port = os.environ.get("MASTER_PORT")
     if port is None and world > 1:
         raise ValueError(f"world {world} needs MASTER_ADDR/MASTER_PORT")
     # A port picked here (one process alone) can be taken by another

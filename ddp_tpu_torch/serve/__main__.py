@@ -100,6 +100,37 @@ def main(argv=None) -> None:
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--prefill_len", type=int, default=None,
                    help="longest admissible prompt (default total_len/2)")
+    p.add_argument(
+        "--prefill_chunk", type=int, default=None,
+        help="chunked-prefill width (rounded to a power of two; "
+        "default min(pow2(prefill_len), 64)) — prompts are ingested "
+        "in chunks co-scheduled with decode steps",
+    )
+    p.add_argument(
+        "--min_bucket", type=int, default=None,
+        help="smallest power-of-two bucket for the final partial "
+        "chunk (default min(8, prefill_chunk); clamped so the "
+        "smallest bucket always fits total_len - prefill_len + 1) — "
+        "short prompts pay bucket-sized compute, not "
+        "prefill_len-sized",
+    )
+    p.add_argument(
+        "--step_token_budget", type=int, default=None,
+        help="max prefill-chunk tokens + decode tokens dispatched "
+        "per engine step (default prefill_chunk + slots)",
+    )
+    p.add_argument("--max_queue", type=int, default=64,
+                   help="queued requests beyond which /generate answers "
+                   "429")
+    p.add_argument(
+        "--decode_attn", default="auto",
+        choices=["auto", "flash", "reference"],
+        help="single-query decode attention (ops/decode.py): 'flash' "
+        "is the CUDA flash-decode kernel (B4/B5, their paged forms "
+        "under --page_size; raises where the kernel cannot take the "
+        "model's heads), 'reference' the plain PyTorch version; 'auto' "
+        "takes the kernel on the GPU where it takes the shape",
+    )
     p.add_argument("--kv_dtype", default="fp32", choices=["fp32", "int8"])
     p.add_argument(
         "--page_size", type=int, default=0,
@@ -265,7 +296,11 @@ def main(argv=None) -> None:
         return SLOEngine(model_slos[name]) if model_slos.get(name) else None
 
     knobs = dict(slots=args.slots, metrics=metrics, kv_dtype=args.kv_dtype,
-                 page_size=args.page_size, kv_pages=args.kv_pages)
+                 page_size=args.page_size, kv_pages=args.kv_pages,
+                 prefill_chunk=args.prefill_chunk,
+                 min_bucket=args.min_bucket,
+                 step_token_budget=args.step_token_budget,
+                 max_queue=args.max_queue, decode_attn=args.decode_attn)
     engine = ServeEngine(
         model, prefill_len=args.prefill_len, spec_tokens=args.spec_tokens,
         draft_model=draft, model_version=version, tracer=tracer,
@@ -305,7 +340,9 @@ def main(argv=None) -> None:
                 "spec": spec._asdict(),
                 "slots": engine.num_slots,
                 "prefill_len": engine.prefill_len,
+                "prefill_chunk": engine.prefill_chunk,
                 "buckets": engine.buckets,
+                "step_token_budget": engine.step_token_budget,
                 "decode_attn": engine.decode_attn,
                 "kv_dtype": engine.kv_dtype,
                 "cache_bytes_per_slot": engine.cache_bytes_per_slot(),

@@ -29,6 +29,24 @@ Layout under the checkpoint directory, as the JAX package's:
   directory and at what world, the ``restarts`` and
   ``prev_data_shards`` of the metrics stream's ``run_start`` record.
 
+Saves are asynchronous by default (``checkpoint.py:367-383``,
+``async_save=True``): :meth:`CheckpointManager.save` snapshots the state
+on the device (a clone ordered on the current stream, so the training
+loop may go on writing its parameters at once), copies the snapshot to
+pinned host memory on a side stream that waits on the current one, and
+returns; a writer thread waits for the copy's event, then runs
+``torch.save`` into the temporary directory, ``fsync``, the rename and a
+directory ``fsync``, and only then writes the manifest and prunes
+(``_flush_manifests``: a manifest is written for a committed epoch
+only). At most one save is in flight: the next ``save`` waits for it,
+and so does every read (:meth:`~CheckpointManager.restore`,
+:meth:`~CheckpointManager.latest_epoch`, quarantine, discovery).
+:meth:`~CheckpointManager.wait` and :meth:`~CheckpointManager.close`
+block until the save is durable and raise what the writer raised; the
+writer is not a daemon thread, so an interpreter that exits right after
+``save`` returns finishes it first. On the CPU the snapshot is a plain
+host copy. ``async_save=False`` writes before ``save`` returns.
+
 The optimizer state is restored with the parameters (the reference
 dropped it). Rank 0 verifies and quarantines; every rank reads after a
 barrier. Reads use ``weights_only=True``: a checkpoint is data.
@@ -44,6 +62,7 @@ import logging
 import os
 import re
 import shutil
+import threading
 import zlib
 
 import torch
@@ -62,6 +81,10 @@ METRICS_FILE = "metrics.json"
 ELASTIC_FILENAME = "elastic.json"
 GENERATIONS_FILENAME = "generations.json"
 _EPOCH_DIR = re.compile(r"epoch_(\d+)$")
+# The save in flight of each checkpoint directory, whichever manager
+# started it: a read through any manager of that directory waits for it.
+_WRITERS: dict[str, threading.Thread] = {}
+_WRITERS_LOCK = threading.Lock()
 
 
 def _crc32_file(path: str, chunk: int = 1 << 20) -> int:
@@ -235,6 +258,77 @@ def verify_manifest(root: str, epoch: int) -> list[str] | None:
     return problems
 
 
+def _fsync_dir(path: str) -> None:
+    """Make a rename in ``path`` durable (a no-op where directories
+    cannot be opened)."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def _map_tensors(obj, fn):
+    """``obj`` with every tensor in its dicts, lists and tuples replaced
+    by ``fn(tensor)``."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: _map_tensors(v, fn) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_tensors(v, fn) for v in obj)
+    return obj
+
+
+class _Staged:
+    """A host snapshot of a checkpoint blob in the making: ``blob`` holds
+    host tensors that are final once :meth:`ready` returns."""
+
+    def __init__(self, blob: dict):
+        self._clones = []  # device snapshots, alive until copied out
+        self._event = None
+        cuda = []
+
+        def snap(t):
+            t = t.detach()
+            if t.device.type != "cuda":
+                return t.clone()  # the CPU: the copy is the snapshot
+            dev = t.clone()  # ordered on the current stream: the loop
+            cuda.append(dev)  # may overwrite t from the next kernel on
+            return dev
+
+        staged = _map_tensors(blob, snap)
+        if cuda:
+            device = cuda[0].device
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            hosts = {}
+            with torch.cuda.stream(side):
+                for dev in cuda:
+                    host = torch.empty(dev.shape, dtype=dev.dtype,
+                                       pin_memory=True)
+                    host.copy_(dev, non_blocking=True)
+                    hosts[id(dev)] = host
+            self._event = torch.cuda.Event()
+            self._event.record(side)
+            self._clones = cuda
+            staged = _map_tensors(staged, lambda t: hosts.get(id(t), t))
+        self.blob = staged
+
+    def ready(self) -> dict:
+        """Wait for the copy to the host → the blob; the device snapshot
+        is released."""
+        if self._event is not None:
+            self._event.synchronize()
+            self._event, self._clones = None, []
+        return self.blob
+
+
 class CheckpointManager:
     """Per-epoch checkpoints with latest-intact-epoch auto-resume.
 
@@ -251,21 +345,54 @@ class CheckpointManager:
     under, and how many batches into its epoch the state is (0: the
     epoch completed). The trainer re-enters a preempted epoch by this
     explicit marker, never by step arithmetic.
+
+    ``async_save`` (default True) writes on a writer thread, as the
+    module docstring says; ``in_flight`` is the epoch it is writing, or
+    None.
     """
 
     def __init__(self, directory: str = "./checkpoints", *,
                  max_to_keep: int | None = None, is_main: bool = True,
-                 keep_best_metric: str | None = None):
+                 keep_best_metric: str | None = None,
+                 async_save: bool = True):
         self._dir = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.keep_best_metric = keep_best_metric
         self.is_main = is_main
+        self.async_save = async_save
         self.quarantined: list[dict] = []
         self.last_restored_spe: int | None = None
         self.last_restored_mid_batch = 0
+        self.in_flight: int | None = None
+        self._error: BaseException | None = None
 
-    def all_epochs(self) -> list[int]:
-        """Every committed epoch tag, ascending."""
+    @property
+    def directory(self) -> str:
+        return self._dir
+
+    def wait(self) -> None:
+        """Block until the save in flight in this directory (from this
+        manager or another) is durable, its manifest written and
+        retention applied; raise what this manager's writer raised."""
+        with _WRITERS_LOCK:
+            writer = _WRITERS.get(self._dir)
+        if writer is not None:
+            writer.join()
+            with _WRITERS_LOCK:
+                if _WRITERS.get(self._dir) is writer:
+                    del _WRITERS[self._dir]
+        error, self._error = self._error, None
+        if error is not None:
+            raise RuntimeError(
+                f"the checkpoint save of epoch {self.in_flight} failed: "
+                f"{error}") from error
+        self.in_flight = None
+
+    def close(self) -> None:
+        """:meth:`wait`; the manager may be dropped afterwards."""
+        self.wait()
+
+    def _committed_epochs(self) -> list[int]:
         try:
             names = os.listdir(self._dir)
         except FileNotFoundError:
@@ -274,11 +401,18 @@ class CheckpointManager:
                       if (m := _EPOCH_DIR.match(n))
                       and os.path.isdir(os.path.join(self._dir, n)))
 
+    def all_epochs(self) -> list[int]:
+        """Every committed epoch tag, ascending (after any save in
+        flight)."""
+        self.wait()
+        return self._committed_epochs()
+
     def latest_epoch(self) -> int | None:
         epochs = self.all_epochs()
         return epochs[-1] if epochs else None
 
     def verify_epoch(self, epoch: int) -> list[str] | None:
+        self.wait()
         return verify_manifest(self._dir, epoch)
 
     def _delete_epoch(self, epoch: int) -> None:
@@ -289,20 +423,26 @@ class CheckpointManager:
         except OSError:
             pass
 
-    def saved_metrics(self, epoch: int) -> dict | None:
-        """The metrics ``epoch`` was saved with, or None (a save without
-        metrics)."""
+    def _metrics_of(self, epoch: int) -> dict | None:
         path = os.path.join(self._dir, f"epoch_{epoch}", METRICS_FILE)
         return _read_json(path) if os.path.exists(path) else None
 
+    def saved_metrics(self, epoch: int) -> dict | None:
+        """The metrics ``epoch`` was saved with, or None (a save without
+        metrics)."""
+        self.wait()
+        return self._metrics_of(epoch)
+
     def _prune(self) -> None:
-        epochs = self.all_epochs()
+        """Retention over the committed epochs (the writer runs it after
+        its commit, the only save in flight)."""
+        epochs = self._committed_epochs()
         if not epochs:
             return
         if self.keep_best_metric:
             name, seen = self.keep_best_metric, {}
             for e in epochs:
-                m = self.saved_metrics(e)
+                m = self._metrics_of(e)
                 if m is not None and m.get(name) is not None:
                     seen[e] = float(m[name])
             best = sorted(seen, key=lambda e: seen[e], reverse=True)
@@ -325,17 +465,20 @@ class CheckpointManager:
         saved (the same answer on every rank).
 
         A collective: every rank calls it; barriers before (every rank
-        sees the same directory) and after. Same-epoch conflicts
-        (``checkpoint.py:629-639``): an existing ``epoch_N`` (a
-        preemption's artifact) is kept without ``overwrite`` and the
-        save is skipped — a later save supersedes it, and no crash
-        window leaves the directory without a usable latest; with
-        ``overwrite`` it is deleted, then saved (a crash in between
-        falls back to the epoch before: recompute, never corruption).
-        ``mid_batch`` > 0 marks a preempted epoch; ``metrics`` ride in
-        ``metrics.json`` for ``keep_best_metric``.
+        sees the same directory, after rank 0's previous save committed)
+        and after. Same-epoch conflicts (``checkpoint.py:629-639``): an
+        existing ``epoch_N`` (a preemption's artifact) is kept without
+        ``overwrite`` and the save is skipped — a later save supersedes
+        it, and no crash window leaves the directory without a usable
+        latest; with ``overwrite`` it is deleted, then saved (a crash in
+        between falls back to the epoch before: recompute, never
+        corruption). ``mid_batch`` > 0 marks a preempted epoch;
+        ``metrics`` ride in ``metrics.json`` for ``keep_best_metric``.
+        Under ``async_save`` it returns once the state is snapshotted;
+        the writer thread does the rest.
         """
         final = os.path.join(self._dir, f"epoch_{epoch}")
+        self.wait()  # at most one save in flight
         sync_global_devices("ckpt_save_begin")
         exists = os.path.isdir(final)
         sync_global_devices("ckpt_save_looked")  # no write before every look
@@ -348,36 +491,67 @@ class CheckpointManager:
             if exists:
                 self._delete_epoch(epoch)
             os.makedirs(self._dir, exist_ok=True)
-            tmp = f"{final}.tmp-{os.getpid()}"
-            shutil.rmtree(tmp, ignore_errors=True)
-            os.makedirs(tmp)
-            blob = {
+            staged = _Staged({
                 "step": int(state.step),
-                "params": {k: v.detach().cpu()
-                           for k, v in state.model.state_dict().items()},
-                "opt_state": state.optimizer.state_dict(),
+                "params": state.model.state_dict(),
+                "opt_state": state.optimizer.state_dict(copy=False),
                 "model_state": state.model_state,
                 "spe": int(steps_per_epoch),
                 "mid_batch": int(mid_batch),
                 "fmt": CHECKPOINT_FORMAT,
-            }
-            path = os.path.join(tmp, STATE_FILE)
-            with open(path, "wb") as f:
-                torch.save(blob, f)
-                f.flush()
-                os.fsync(f.fileno())
-            if metrics is not None:
-                _write_json(os.path.join(tmp, METRICS_FILE), dict(metrics))
-            os.rename(tmp, final)  # the commit point
-            write_manifest(self._dir, epoch)
-            self._prune()
+            })
+            job = (epoch, staged, None if metrics is None else dict(metrics))
+            self.in_flight = epoch
+            if self.async_save:
+                writer = threading.Thread(
+                    target=self._write_guarded, args=job,
+                    name=f"ckpt-writer-epoch{epoch}")
+                with _WRITERS_LOCK:
+                    _WRITERS[self._dir] = writer
+                writer.start()
+            else:
+                self._write(*job)
+                self.in_flight = None
         sync_global_devices("ckpt_save")
         return True
+
+    def _write_guarded(self, *job) -> None:
+        try:
+            self._write(*job)
+        except BaseException as e:  # raised again by wait()
+            self._error = e
+
+    def _write(self, epoch: int, staged: _Staged, metrics) -> None:
+        """The writer's work: the blob into a temporary directory, the
+        rename (the commit point), then the manifest and retention."""
+        final = os.path.join(self._dir, f"epoch_{epoch}")
+        tmp = f"{final}.tmp-{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        self._write_files(tmp, staged.ready(), metrics)
+        self._commit(tmp, final)
+        write_manifest(self._dir, epoch)
+        self._prune()
+
+    @staticmethod
+    def _write_files(tmp: str, blob: dict, metrics) -> None:
+        with open(os.path.join(tmp, STATE_FILE), "wb") as f:
+            torch.save(blob, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if metrics is not None:
+            _write_json(os.path.join(tmp, METRICS_FILE), metrics)
+        _fsync_dir(tmp)
+
+    def _commit(self, tmp: str, final: str) -> None:
+        os.rename(tmp, final)  # the commit point
+        _fsync_dir(self._dir)
 
     def quarantine_epoch(self, epoch: int, problems: list[str]) -> str | None:
         """Rename a corrupt epoch aside to ``quarantine.epoch-N`` (its
         manifest moves inside); returns the new path, or None when the
         rename failed."""
+        self.wait()
         src = os.path.join(self._dir, f"epoch_{epoch}")
         dst = os.path.join(self._dir, f"{QUARANTINE_PREFIX}epoch-{epoch}")
         n = 0
@@ -430,6 +604,7 @@ class CheckpointManager:
 
     def read(self, epoch: int, device="cpu") -> dict:
         """The raw checkpoint dict of ``epoch``."""
+        self.wait()
         path = os.path.join(self._dir, f"epoch_{epoch}", STATE_FILE)
         return torch.load(path, map_location=device, weights_only=True)
 
@@ -437,6 +612,7 @@ class CheckpointManager:
         """``epoch``'s parameters, memory-mapped from the file: a tensor's
         bytes are read when it is used, and nothing else of the
         checkpoint (the optimizer's moments) is read at all."""
+        self.wait()
         path = os.path.join(self._dir, f"epoch_{epoch}", STATE_FILE)
         return torch.load(path, map_location="cpu", weights_only=True,
                           mmap=True)["params"]
@@ -479,6 +655,7 @@ class CheckpointManager:
         """Only ``keys`` of ``epoch``'s checkpoint (``checkpoint.py:817``):
         the file is memory-mapped, so entries not asked for are never
         read (an Adam state is twice the parameters)."""
+        self.wait()
         path = os.path.join(self._dir, f"epoch_{epoch}", STATE_FILE)
         blob = torch.load(path, map_location="cpu", weights_only=True,
                           mmap=True)

@@ -15,7 +15,7 @@ MODELS = IMAGE_MODELS + ("causal_lm",)
 # the pipelined ViT (A4).
 UNPORTED = {"long_context": "A2.4", "pipe_vit": "A4"}
 IMAGE_DATASETS = ("mnist", "fashion_mnist", "kmnist", "uci_digits",
-                  "cifar10", "cifar100")
+                  "cifar10", "cifar100", "imagenet")
 SEQ_DATASETS = ("synthetic_seq", "text")
 
 
@@ -30,6 +30,11 @@ class TrainConfig:
     # Image models: the synthetic train split (None → the dataset's size;
     # test n // 6, CIFAR n // 5). causal_lm: sequences (None → 2048).
     synthetic_size: int | None = None
+    no_shuffle: bool = False  # the sampler's order is the index order
+    # The native C++ gather pool (``native/dataio.cpp``) of the loader
+    # path, gated as JAX's: batches of at least 1 MiB and a spare core.
+    num_workers: int = 2
+    num_classes: int | None = None  # None: the dataset's
     seq_len: int = 2048
     vocab_size: int = 256
     model_dim: int | None = None  # None → 64
@@ -44,6 +49,9 @@ class TrainConfig:
     moe_every: int = 2
     moe_top_k: int = 2
     moe_raw_gates: bool = False
+    # Recompute each residual/encoder block in the backward instead of
+    # keeping its activations (resnet*, vit*, vit_moe*).
+    remat: bool = False
     batch_size: int = 32  # per rank (data shard)
     epochs: int = 10
     optimizer: str = "sgd"  # sgd | adam | adamw
@@ -71,6 +79,14 @@ class TrainConfig:
     spawn: int = 1  # >1: N local ranks through torch.multiprocessing
     backend: str | None = None  # None: nccl on CUDA, gloo on the CPU
     device: str | None = None  # None → the GPU; "cpu" only when asked
+    # A torch.profiler trace (CPU and CUDA activities, chrome-trace JSON)
+    # of the training loop, from rank 0.
+    profile_dir: str | None = None
+    # Multi-host: one process a card, each started by hand with the
+    # rendezvous host:port, the world and its rank (``config.py:513-515``).
+    coordinator_address: str | None = None
+    num_processes: int | None = None
+    process_id: int | None = None
     # Fault tolerance (``ddp_tpu/train/config.py:67-270``, ROADMAP A1).
     # >0: an EMA of the parameters in the optimizer state, used by eval.
     ema_decay: float = 0.0
@@ -159,6 +175,35 @@ class TrainConfig:
         if config.moe_experts and config.moe_every < 1:
             raise ValueError(
                 f"--moe_every must be >= 1, got {config.moe_every}")
+        if config.remat and config.model == "causal_lm":
+            raise ValueError(
+                "--remat is ported for the image models (resnet*, vit*, "
+                "vit_moe*); the causal LM trains without it")
+        if config.remat and config.model == "simple_cnn":
+            # ``trainer.py:768-771``'s message.
+            raise ValueError(
+                f"--remat is not supported by model {config.model!r} "
+                "(no block stack to rematerialize)"
+            )
+        if config.fast_epoch and config.no_shuffle:
+            raise ValueError(
+                "--fast_epoch always reshuffles per epoch (on-device "
+                "permutation); drop --no_shuffle"
+            )
+        if config.num_workers < 0:
+            raise ValueError(
+                f"--num_workers must be >= 0, got {config.num_workers}")
+        if config.multi_host() is not None:
+            if config.spawn > 1 or config.max_restarts:
+                raise ValueError(
+                    "--coordinator_address/--num_processes/--process_id "
+                    "start one rank of a world by hand; --spawn and "
+                    "--max_restarts start the ranks themselves"
+                )
+            if config.model == "causal_lm" and config.num_processes > 1:
+                raise ValueError(
+                    "--model causal_lm trains on one card: no multi-host "
+                    "world")
         # The supervisor's guards (``train.py:79-96``).
         if config.min_world != cls.min_world and not config.elastic:
             raise ValueError(
@@ -201,6 +246,19 @@ class TrainConfig:
                 "use epoch-triggered events (…@epochN) or drop "
                 "--fast_epoch"
             )
+
+    def multi_host(self) -> tuple[str, int, int] | None:
+        """(rendezvous host:port, world, rank) of the multi-host flags, or
+        None when none is given; raises for a missing or inconsistent
+        value (``runtime/dist.multi_host_world``)."""
+        from ddp_tpu_torch.runtime.dist import multi_host_world
+
+        return multi_host_world(self.coordinator_address,
+                                self.num_processes, self.process_id)
+
+    @property
+    def shuffle(self) -> bool:
+        return not self.no_shuffle
 
     @property
     def milestones(self) -> tuple[int, ...]:

@@ -223,12 +223,15 @@ class Optimizer:
         if self.ema_state is not None:
             self.ema_state = param_ema(self.params, self.ema_state.decay)
 
-    def state_dict(self) -> dict:
-        """The update count, moment and EMA buffers (CPU copies)."""
+    def state_dict(self, *, copy: bool = True) -> dict:
+        """The update count, moment and EMA buffers: CPU copies, or with
+        ``copy=False`` the live buffers themselves (detached; the
+        asynchronous checkpoint stages those)."""
         out = {"count": self.count}
         for k in _STATE:
             bufs = getattr(self, k, None)
-            out[k] = None if bufs is None else [b.detach().cpu() for b in bufs]
+            out[k] = None if bufs is None else [
+                b.detach().cpu() if copy else b.detach() for b in bufs]
         return out
 
     @torch.no_grad()

@@ -3,8 +3,11 @@
 :class:`ImageTrainer` is the port's counterpart of the JAX package's
 ``Trainer`` for the image models (``ddp_tpu/train/trainer.py:2047-3006``,
 the data-parallel subset), ``train.py``'s main path: SimpleCNN, ResNet
-or ViT (``models.get_model``) on MNIST-family or CIFAR data sharded over
-the ranks of ``torch.distributed`` (``data/loader``, ``data/sampler``;
+or ViT (``models.get_model``, ``--remat`` recomputing each block in the
+backward) on MNIST-family, CIFAR or ImageNet data (224², memory-mapped
+arrays or the synthetic set) sharded over the ranks of
+``torch.distributed`` (``data/loader`` with the native gather pool of
+``--num_workers``, ``data/sampler``, ``--no_shuffle``;
 the MoE ViTs add their blocks' load-balance losses to the loss),
 the data-parallel step (``parallel/ddp``, one all-reduce a step,
 BatchNorm's running statistics averaged in it, ``--augment`` on the
@@ -29,16 +32,20 @@ Both carry the fault-tolerance layer (:class:`_FaultTolerant`,
 its ``mid_batch`` and a re-run re-enters it at that batch; ``--chaos``
 drills; the step watchdog; the parameter EMA (``--ema_decay``) that
 evaluation uses; ``--keep_best``; ``--reset_opt_state``; the
-``--metrics_file`` stream; ``--elastic``'s global-batch contract. The
+``--metrics_file`` stream; ``--elastic``'s global-batch contract;
+``--profile_dir``'s ``torch.profiler`` trace of the training loop. The
 chaos trigger, the watchdog beat and the preemption check run on the
-host between two dispatches and read nothing of the device.
+host between two dispatches and read nothing of the device. Checkpoints
+are saved asynchronously (``train/checkpoint.py``); the preemption save
+and the end of training wait until the save is durable.
 
 :func:`main` is the CLI: ``--spawn N`` (and ``--max_restarts``, even
 for one rank) runs the ranks under the supervisor of
 ``runtime/launch`` (nccl: one card each, never more ranks than cards;
 ``--backend gloo`` may share cards, and is the transport of ``--device
 cpu``), which restarts a dead world and, under ``--elastic``, resizes
-it.
+it; ``--coordinator_address --num_processes --process_id`` run this
+process as one rank of a multi-host world.
 """
 
 from __future__ import annotations
@@ -166,6 +173,7 @@ class _FaultTolerant:
     """
 
     lm_mode = False
+    loader = None  # the image trainer's loader path
 
     def _init_fault_tolerance(self, is_main: bool) -> None:
         cfg = self.config
@@ -453,6 +461,7 @@ class _FaultTolerant:
         self._preempt_requested = False
         installed, prev_handler = self._install_preemption_handler()
         preempted, last_eval = False, None
+        profiler = self._start_profile()
         try:
             for epoch in range(start, cfg.epochs):
                 skip = start_batch if epoch == start else 0
@@ -469,6 +478,7 @@ class _FaultTolerant:
                     self.ckpt.save(epoch, self.state, overwrite=True,
                                    steps_per_epoch=spe,
                                    mid_batch=ran if 0 < ran < spe else 0)
+                    self.ckpt.wait()  # durable before the process exits
                     self.log(f"Preempted during epoch {epoch} at step "
                              f"{int(self.state.step)} — checkpointed; "
                              "re-run to resume")
@@ -499,6 +509,11 @@ class _FaultTolerant:
             else:
                 final_acc, final_loss = last_eval or self.evaluate()
         finally:
+            if profiler is not None:
+                self._stop_profile(profiler)
+            self.ckpt.wait()
+            if self.loader is not None:
+                self.loader.close()  # the native pool's threads
             self.watchdog.stop()
             if installed:
                 signal.signal(signal.SIGTERM, prev_handler
@@ -522,6 +537,30 @@ class _FaultTolerant:
                 epochs_run=len(self.history), **perplexity)
         self.metrics_writer.close()
         return self.summary
+
+    def _start_profile(self):
+        """``--profile_dir``: a ``torch.profiler`` over the epoch loop,
+        the window JAX traces (``trainer.py:2353-2356``), on rank 0 →
+        the running profiler, or None."""
+        if not (self.config.profile_dir and self.is_main):
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler) -> None:
+        """Stop the trace and write it as chrome-trace JSON."""
+        profiler.stop()
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        path = os.path.join(self.config.profile_dir,
+                            f"trace_rank{self.rank}.json")
+        profiler.export_chrome_trace(path)
+        self.log(f"Profile trace written to {path}")
 
     def _train_epoch(self, epoch: int, skip: int) -> tuple[dict, int]:
         """One epoch from batch ``skip`` → (its history record, the
@@ -674,7 +713,8 @@ class ImageTrainer(_FaultTolerant):
     the global batch is batch_size × world × grad_accum_steps (under
     ``--elastic``, the one ``elastic.json`` recorded). The dataset gives
     the classes and the input shape; ``--dataset auto`` is mnist for
-    every image model, as in the JAX trainer."""
+    every image model, as in the JAX trainer; ``--num_classes`` overrides
+    the dataset's class count (``trainer.py:762``)."""
 
     def __init__(self, config: TrainConfig, ctx: dist.DistContext):
         if config.model not in IMAGE_MODELS:
@@ -699,10 +739,12 @@ class ImageTrainer(_FaultTolerant):
         if config.elastic:
             self._honour_elastic_contract(self.world)
         _, side, _, channels = self.train_split.images.shape
+        self.num_classes = config.num_classes or NUM_CLASSES[self.dataset]
         model = get_model(
-            config.model, num_classes=NUM_CLASSES[self.dataset], side=side,
+            config.model, num_classes=self.num_classes, side=side,
             in_channels=channels,
             **({"depth": config.model_depth} if config.model_depth else {}),
+            **({"remat": True} if config.remat else {}),
         )
         model.load_state_dict({k: torch.from_numpy(v) for k, v in
                                model.init_state(config.seed).items()})
@@ -740,6 +782,7 @@ class ImageTrainer(_FaultTolerant):
                 self.train_split.images, self.train_split.labels,
                 self.global_batch_size, rank=self.rank, world=self.world,
                 device=self.device, seed=config.seed,
+                shuffle=config.shuffle, num_workers=config.num_workers,
             )
             self.steps_per_epoch = self.loader.steps_per_epoch()
             self.train_step = make_train_step(
@@ -921,4 +964,10 @@ def main(argv=None):
         return None
     if config.model == "causal_lm":
         return run_lm(config)
+    world = config.multi_host()
+    if world is not None:
+        address, num_processes, process_id = world
+        return run_image(config, dist.setup(
+            process_id, num_processes, backend=config.backend,
+            device=config.device, coordinator_address=address))
     return run_image(config)

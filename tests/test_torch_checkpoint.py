@@ -85,6 +85,7 @@ def test_save_restore_round_trip_is_bitwise(tmp_path, opt_kw):
 def test_manifest_equals_jax_build_manifest(tmp_path):
     mgr = ck.CheckpointManager(str(tmp_path))
     mgr.save(3, _trained_state(dict(name="sgd", lr=0.05)))
+    mgr.wait()  # the save is asynchronous: durable once wait() returns
     step_dir = tmp_path / "epoch_3"
     assert ck.build_manifest(str(step_dir)) == jax_build_manifest(str(step_dir))
     on_disk = json.loads((tmp_path / "epoch_3.manifest.json").read_text())
@@ -103,6 +104,7 @@ def test_corrupt_byte_quarantines_and_falls_back(tmp_path):
     mgr.save(0, s0)
     s1 = _trained_state(dict(name="sgd", lr=0.05, momentum=0.9), steps=2)
     mgr.save(1, s1)
+    mgr.wait()  # the save is asynchronous: durable once wait() returns
     _flip_byte(tmp_path / "epoch_1" / "state.pt")
     problems = mgr.verify_epoch(1)
     assert problems == ["state.pt: checksum mismatch"]
@@ -122,6 +124,7 @@ def test_corrupt_byte_quarantines_and_falls_back(tmp_path):
     # Nothing intact left: quarantined, and training starts from scratch.
     lone = ck.CheckpointManager(str(tmp_path / "lone"))
     lone.save(0, s0)
+    lone.wait()
     _flip_byte(tmp_path / "lone" / "epoch_0" / "state.pt", offset=10)
     assert lone.restore_or_init(target) == 0
     assert (tmp_path / "lone" / "quarantine.epoch-0").is_dir()

@@ -353,6 +353,8 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import ddp_tpu_torch.native as native\n"
+        "assert native._LIB is None and not native._TRIED, 'built at import'\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'ddp_tpu' or "
         "m.startswith('ddp_tpu.'))\n"
@@ -375,4 +377,7 @@ def test_port_imports_no_jax():
     for m in ("runtime.consensus", "runtime.chaos", "runtime.launch",
               "utils.watchdog", "interop.torch_checkpoint",
               "interop.import_torch_checkpoint"):  # the fault-tolerance layer
+        assert f"ddp_tpu_torch.{m}" in mods
+    for m in ("data.imagenet", "data.ppm", "data.preprocess_imagenet",
+              "native", "models.remat"):  # the ImageNet family
         assert f"ddp_tpu_torch.{m}" in mods

@@ -87,7 +87,9 @@ def save_port_ckpt(directory, seed, *, epoch=0, jspec=JSPEC):
                                      num_heads=jspec.num_heads)
     model = CausalLM.from_state(spec, state, "cpu", trainable=True)
     opt = make_optimizer(model.parameters(), "sgd")
-    CheckpointManager(str(directory)).save(epoch, TrainState(0, model, opt))
+    mgr = CheckpointManager(str(directory))
+    mgr.save(epoch, TrainState(0, model, opt))
+    mgr.wait()  # the save is asynchronous: durable once wait() returns
     save_lm_spec(str(directory), spec)
     return str(directory)
 
