@@ -5398,7 +5398,7 @@ def _tail_error(torch, got: list, want: list) -> float:
 
 
 def check_vit_step(torch, trainer, *, batch=64, tag="vit", controls=None,
-                   dtypes=("bf16", "fp32"), tail=False) -> list[str]:
+                   tail=False) -> list[str]:
     """Phase 7a's step check: one step through B1-B3 against the same step
     through the plain attention (which must launch nothing), from the
     trained weights on the first ``batch`` training images, held to
@@ -5431,8 +5431,6 @@ def check_vit_step(torch, trainer, *, batch=64, tag="vit", controls=None,
         lambda q, k, v: plain(q, drop(k), drop(v))
     failed = []
     for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
-        if dname not in dtypes:
-            continue
         limits = STEP_TOL[dname]
         if dname == "bf16":
             limits = dict(limits, loss=VIT_BF16_LOSS_TOL)
@@ -6157,8 +6155,11 @@ def check_async_save(torch, trainer, tmp) -> tuple[dict, list]:
     """Phase 9a's asynchronous save at run_lm_bench's width: steady step
     times (CUDA events) without a save and right after one, the time
     save() holds the loop against the blocking save's (async_save=False),
-    the time wait() then blocks, the saved epoch restored bit for bit;
-    the manifest-order check with its control (a writer that skips the
+    the time wait() then blocks, the saved epoch restored bit for bit,
+    the peak memory allocated over a save and the steps after it against
+    the steps' own (a save makes no second copy of the state on the
+    card: it adds less than a tenth of the state's bytes); the
+    manifest-order check with its control (a writer that skips the
     commit wait, caught by a read before the commit); and a process that
     exits right after save() (_exit_after_save) → (readings, failures)."""
     import os
@@ -6174,23 +6175,35 @@ def check_async_save(torch, trainer, tmp) -> tuple[dict, list]:
     step = trainer.runner.step
     _timed_steps(torch, step, batches[:2])  # warm
     trainer.state.step = trainer.optimizer.count
+    torch.cuda.reset_peak_memory_stats()
     quiet = _timed_steps(torch, step, batches)
+    quiet_peak = torch.cuda.max_memory_allocated()
     want = state_digest(torch, trainer.model.state_dict(),
                         trainer.optimizer.state_dict(), trainer.state.step)
     nbytes = sum(t.numel() * t.element_size() for t in
                  list(trainer.model.state_dict().values())
                  + [b for k in ("trace", "mu", "nu", "ema")
                     for b in getattr(trainer.optimizer, k, None) or []])
-    holds, waits, around = [], [], []
+    holds, waits, around, peaks, card_holds = [], [], [], [], []
     for turn in range(2):  # the first save allocates its pinned buffers
         mgr = CheckpointManager(os.path.join(tmp, f"async{turn}"))
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
         t0 = time.perf_counter()
         mgr.save(0, trainer.state, steps_per_epoch=trainer.steps_per_epoch)
         holds.append(time.perf_counter() - t0)
         around.append(_timed_steps(torch, step, batches))
+        end.record()
+        end.synchronize()
+        # The card's time from save() to the last step's end, less the
+        # steps': what the copy held the training stream.
+        card_holds.append(start.elapsed_time(end) - sum(around[-1]))
         t0 = time.perf_counter()
         mgr.wait()
         waits.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
         if turn == 0:
             blob = mgr.read(0)
             got = state_digest(torch, blob["params"], blob["opt_state"],
@@ -6205,7 +6218,10 @@ def check_async_save(torch, trainer, tmp) -> tuple[dict, list]:
     readings = {
         "step_p50_ms_no_save": float(np.median(quiet)),
         "step_p50_ms_after_save": [float(np.median(a)) for a in around],
-        "save_hold_s": holds, "wait_s": waits, "blocking_save_s": blocking_s}
+        "card_hold_ms": card_holds,
+        "save_hold_s": holds, "wait_s": waits, "blocking_save_s": blocking_s,
+        "peak_mb_no_save": quiet_peak / 2**20,
+        "peak_mb_with_save": [p / 2**20 for p in peaks]}
     log(f"[ft] 9a asynchronous save of the LM state ({nbytes / 1e9:.2f} GB "
         f"with Adam's moments): "
         f"save() held the loop {', '.join(f'{h:.3f}' for h in holds)} s "
@@ -6214,11 +6230,23 @@ def check_async_save(torch, trainer, tmp) -> tuple[dict, list]:
         f"blocked {', '.join(f'{w:.3f}' for w in waits)} s; step p50 "
         f"{readings['step_p50_ms_no_save']:.2f} ms without a save, "
         + ", ".join(f"{a:.2f}" for a in readings["step_p50_ms_after_save"])
-        + f" ms in the {ASYNC_STEPS} steps right after save(); the first "
+        + f" ms in the {ASYNC_STEPS} steps right after save(); the copy "
+        "to the host held the training stream on the card "
+        + ", ".join(f"{h:.2f}" for h in card_holds)
+        + f" ms (from save() to the first step's start); peak "
+        f"memory allocated {quiet_peak / 2**20:.0f} MiB over the steps "
+        f"without a save, "
+        + ", ".join(f"{p / 2**20:.0f}" for p in peaks)
+        + " MiB over a save and the steps after it; the first "
         "save's epoch restores the state at save() "
         + ("bit for bit" if got == want else "WITH A DIFFERENCE"))
     failed = [] if got == want else [
         "the asynchronous save does not restore the state at save()"]
+    # No second copy of the state on the card: a save adds less than a
+    # tenth of the state's bytes to the steps' peak.
+    if max(peaks) - quiet_peak >= nbytes / 10:
+        failed.append(f"a save raised the peak memory by "
+                      f"{(max(peaks) - quiet_peak) / 2**20:.0f} MiB")
     model = SimpleCNN.from_state(init_cnn_state(), trainer.device)
     small = TrainState(0, model, make_optimizer(model.parameters(), "sgd"))
     order = manifest_order_failures(small, os.path.join(tmp, "order"))
@@ -6810,7 +6838,8 @@ def check_resnet50(torch, card, data, tmp) -> tuple[dict, list, object]:
     counter = the steps, losses finite and falling, the bf16 run's
     resume exact, the pool's batches = the Python gather's, one step
     card vs CPU (fp32, batch 4, ReLU masks tied, CNN_STEP_TOL) from the
-    trained weights (from the seeded ones, a reading); readings →
+    trained weights (from the seeded ones, and at batch 2, readings);
+    readings →
     (readings, failures, the fp32 trainer)."""
     readings, failed = {}, []
     trainer = None
@@ -6842,12 +6871,18 @@ def check_resnet50(torch, card, data, tmp) -> tuple[dict, list, object]:
             # CPU's fp32 step against its fp64 step, masks tied) is
             # 1.0e-4 to 3.3e-4 of the gradient at batches 2-16, at or
             # above CNN_STEP_TOL: that comparison is printed, not held.
-            # Batch 4: at batch 2 BatchNorm's statistics over two images
-            # put the trained step's stem_bn.bias gradient 4.19e-04 off
-            # (an H100 80GB HBM3 at 700 W against the CPU).
+            # Batch 4, chosen after a whole run read the trained step's
+            # stem_bn.bias gradient 4.19e-04 off at batch 2 (an H100 80GB
+            # HBM3 at 700 W against the CPU); --step-spread's runs at
+            # batch 2 read <= 6.13e-06.
             failed += check_resnet_step(torch, trainer, batch=4,
                                         tag="imagenet", gated=("trained",),
                                         control="trained")
+            # A reading (ROADMAP C14): batch 2, where one whole run read
+            # stem_bn.bias 4.19e-04 off, with its fp64 witness.
+            check_resnet_step(torch, trainer, batch=2,
+                              tag="imagenet batch 2, a reading", gated=(),
+                              control=None)
         torch.cuda.empty_cache()
     return readings, failed, trainer
 
@@ -7566,6 +7601,119 @@ def time_flash_main(argv) -> int:
     return 0
 
 
+# --step-spread: the seeds 10b's and 10a's step checks are read at, on
+# the committed 2,048-image split (seed 0 twice: a rerun must repeat its
+# reading), and the batches of ResNet-50's card-vs-CPU step.
+SPREAD_VIT_SEEDS = (0, 0, 1, 2, 3, 4)
+SPREAD_RESNET_SEEDS = (0, 1)
+SPREAD_RESNET_BATCHES = (2, 4)
+
+
+def step_spread_main() -> int:
+    """``--step-spread``: readings, not gates. For each of
+    SPREAD_VIT_SEEDS (``--seed``: the weights, the order and the
+    augmentation), 10b's ViT-Tiny 224² run, then its first 8 images'
+    step four ways (B1-B3 and the plain attention, bf16 and fp32) and a
+    fifth, bf16 through PyTorch's FlashAttention-2 (SDPA, which rounds P
+    and dS to bf16 as B1-B3 do): each pair's errors, the gate's pairs
+    judged by 10b's limits, and the bf16 steps against the fp32 plain one
+    (a witness: how far bf16 alone moves each). For each of SPREAD_RESNET_SEEDS, 10a's fp32 ResNet-50 run, then
+    its card-vs-CPU step (check_resnet_step, with its fp64 witness) at
+    each of SPREAD_RESNET_BATCHES. Prints the card and one JSON line."""
+    import tempfile
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from ddp_tpu_torch.ops import _build
+    from ddp_tpu_torch.ops import flash as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build(("flash_attn.cu",))
+    card = card_line()
+    bf16_tol = dict(STEP_TOL["bf16"], loss=VIT_BF16_LOSS_TOL)
+
+    def plain(q, k, v):
+        return fl.attention_with_lse_reference(q, k, v, False)[0]
+
+    def library(q, k, v):  # PyTorch's FlashAttention-2: P, dS in bf16 too
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2),
+                v.transpose(1, 2)).transpose(1, 2)
+
+    fns = {"kernel": None, "plain": plain, "sdpa": library}
+    vit, resnet = [], []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spread_") as tmp:
+        data = f"{tmp}/imagenet"
+        write_imagenet(data, IMAGENET_TRAIN)
+        for i, seed in enumerate(SPREAD_VIT_SEEDS):
+            trainer, _ = _train(["--data_root", data, "--checkpoint_dir",
+                                 f"{tmp}/vit{i}", "--seed", str(seed)],
+                                VIT224_ARGS)
+            images, labels = trainer.train_split
+            x = torch.from_numpy(np.array(images[:8])).to(trainer.device)
+            y = torch.from_numpy(labels[:8]).to(trainer.device)
+            steps = {(fn, d): _vit_step(torch, trainer, x, y, fns[fn], dtype)
+                     for fn in ("kernel", "plain")
+                     for d, dtype in (("bf16", torch.bfloat16),
+                                      ("fp32", torch.float32))}
+            steps["sdpa", "bf16"] = _vit_step(torch, trainer, x, y,
+                                              library, torch.bfloat16)
+            row = {"seed": seed}
+            for label, a, b, tol in (
+                    ("bf16 kernel vs bf16 plain", ("kernel", "bf16"),
+                     ("plain", "bf16"), bf16_tol),
+                    ("fp32 kernel vs fp32 plain", ("kernel", "fp32"),
+                     ("plain", "fp32"), STEP_TOL["fp32"]),
+                    ("bf16 kernel vs fp32 plain", ("kernel", "bf16"),
+                     ("plain", "fp32"), None),
+                    ("bf16 plain vs fp32 plain", ("plain", "bf16"),
+                     ("plain", "fp32"), None),
+                    ("bf16 SDPA vs fp32 plain", ("sdpa", "bf16"),
+                     ("plain", "fp32"), None),
+                    ("bf16 kernel vs bf16 SDPA", ("kernel", "bf16"),
+                     ("sdpa", "bf16"), None)):
+                e = _grad_errors(steps[a], steps[b])
+                verdict = ("" if tol is None else " within 10b's limits"
+                           if _within(e, tol) else " OUTSIDE 10b's limits")
+                log(f"[spread] vit_tiny 224² seed {seed}: {label}: "
+                    f"{_errors_text(e)}{verdict}")
+                row[label] = {"loss": e["loss"], "grad": e["grad"],
+                              "leaf": list(e["leaf"]),
+                              "attn": list(e["attn"])}
+                if tol is not None:
+                    row[label]["within"] = _within(e, tol)
+            vit.append(row)
+            del trainer, steps
+            torch.cuda.empty_cache()
+        for seed in SPREAD_RESNET_SEEDS:
+            trainer, _ = _train(["--data_root", data, "--checkpoint_dir",
+                                 f"{tmp}/rn{seed}", "--compute_dtype",
+                                 "float32", "--seed", str(seed)],
+                                RESNET50_ARGS)
+            for batch in SPREAD_RESNET_BATCHES:
+                bad = check_resnet_step(
+                    torch, trainer, batch=batch,
+                    tag=f"spread resnet50 seed {seed} batch {batch}",
+                    gated=("trained",), control="trained")
+                log(f"[spread] resnet50 seed {seed} batch {batch}: "
+                    + ("within 10a's limits" if not bad else str(bad)))
+                resnet.append({"seed": seed, "batch": batch,
+                               "within": not bad})
+            del trainer
+            torch.cuda.empty_cache()
+    log(card)
+    print(json.dumps({"card": card, "vit224": vit, "resnet50": resnet}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     if "--time-flash" in sys.argv:
         return time_flash_main(sys.argv)
@@ -7573,6 +7721,8 @@ def main() -> int:
         return time_decode_main(sys.argv)
     if "--time-serve" in sys.argv:
         return time_serve_main(sys.argv)
+    if "--step-spread" in sys.argv:
+        return step_spread_main()
     import torch
 
     if not torch.cuda.is_available():

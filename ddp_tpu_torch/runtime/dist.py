@@ -100,7 +100,8 @@ def setup(
     present, unless ``device`` names one. ``coordinator_address``
     (``host:port``) is the rendezvous of a multi-host world, in place of
     ``MASTER_ADDR``/``MASTER_PORT``; the rank and world are then the
-    caller's (:func:`multi_host_world`). ``backend=None``
+    caller's (:func:`multi_host_world`), and a rank whose card on its
+    host is not its rank names it by ``LOCAL_RANK``. ``backend=None``
     chooses nccl on CUDA and gloo on the CPU; an explicit backend that
     the runtime resolves otherwise raises. nccl never puts two ranks on
     one card.
@@ -112,11 +113,6 @@ def setup(
     world = int(os.environ.get("WORLD_SIZE", 1)) if world_size is None else world_size
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
     dev = resolve_device(device)
-    if (coordinator_address is not None and "LOCAL_RANK" not in os.environ
-            and dev.type == "cuda"):
-        # A rank of a multi-host world takes the card its rank names on
-        # its own host.
-        local_rank = rank % torch.cuda.device_count()
     if dev.type == "cuda" and device in (None, "cuda"):
         dev = torch.device("cuda", local_rank % torch.cuda.device_count())
     want = backend or ("nccl" if dev.type == "cuda" else "gloo")

@@ -30,11 +30,12 @@ Layout under the checkpoint directory, as the JAX package's:
   ``prev_data_shards`` of the metrics stream's ``run_start`` record.
 
 Saves are asynchronous by default (``checkpoint.py:367-383``,
-``async_save=True``): :meth:`CheckpointManager.save` snapshots the state
-on the device (a clone ordered on the current stream, so the training
-loop may go on writing its parameters at once), copies the snapshot to
-pinned host memory on a side stream that waits on the current one, and
-returns; a writer thread waits for the copy's event, then runs
+``async_save=True``): :meth:`CheckpointManager.save` copies the state to
+pinned host memory on a side stream that waits on the current one, makes
+the current stream wait for that copy (on the card: the host is not
+held, and no second copy of the state is made in device memory; the
+loop's next kernels, which write the parameters in place, start after
+it), and returns; a writer thread waits for the copy's event, then runs
 ``torch.save`` into the temporary directory, ``fsync``, the rename and a
 directory ``fsync``, and only then writes the manifest and prunes
 (``_flush_manifests``: a manifest is written for a committed epoch
@@ -287,10 +288,15 @@ def _map_tensors(obj, fn):
 
 class _Staged:
     """A host snapshot of a checkpoint blob in the making: ``blob`` holds
-    host tensors that are final once :meth:`ready` returns."""
+    host tensors that are final once :meth:`ready` returns.
+
+    A CUDA tensor is copied from where it lives, with no second copy on
+    the card: a side stream waits for the work queued so far, copies to
+    pinned host memory, and the current stream waits for that copy (on
+    the card; the host goes on) before the loop's next kernel can write
+    the tensor in place."""
 
     def __init__(self, blob: dict):
-        self._clones = []  # device snapshots, alive until copied out
         self._event = None
         cuda = []
 
@@ -298,34 +304,33 @@ class _Staged:
             t = t.detach()
             if t.device.type != "cuda":
                 return t.clone()  # the CPU: the copy is the snapshot
-            dev = t.clone()  # ordered on the current stream: the loop
-            cuda.append(dev)  # may overwrite t from the next kernel on
-            return dev
+            cuda.append(t)
+            return t
 
         staged = _map_tensors(blob, snap)
         if cuda:
             device = cuda[0].device
+            current = torch.cuda.current_stream(device)
             side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
+            side.wait_stream(current)
             hosts = {}
             with torch.cuda.stream(side):
-                for dev in cuda:
-                    host = torch.empty(dev.shape, dtype=dev.dtype,
+                for t in cuda:
+                    host = torch.empty(t.shape, dtype=t.dtype,
                                        pin_memory=True)
-                    host.copy_(dev, non_blocking=True)
-                    hosts[id(dev)] = host
+                    host.copy_(t, non_blocking=True)
+                    hosts[id(t)] = host
             self._event = torch.cuda.Event()
             self._event.record(side)
-            self._clones = cuda
+            current.wait_event(self._event)
             staged = _map_tensors(staged, lambda t: hosts.get(id(t), t))
         self.blob = staged
 
     def ready(self) -> dict:
-        """Wait for the copy to the host → the blob; the device snapshot
-        is released."""
+        """Wait for the copy to the host → the blob."""
         if self._event is not None:
             self._event.synchronize()
-            self._event, self._clones = None, []
+            self._event = None
         return self.blob
 
 

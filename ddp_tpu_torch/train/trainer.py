@@ -460,7 +460,7 @@ class _FaultTolerant:
         self.watchdog.start()
         self._preempt_requested = False
         installed, prev_handler = self._install_preemption_handler()
-        preempted, last_eval = False, None
+        preempted, last_eval, finished = False, None, False
         profiler = self._start_profile()
         try:
             for epoch in range(start, cfg.epochs):
@@ -508,16 +508,20 @@ class _FaultTolerant:
                 final_acc = final_loss = None
             else:
                 final_acc, final_loss = last_eval or self.evaluate()
+            finished = True
         finally:
-            if profiler is not None:
-                self._stop_profile(profiler)
-            self.ckpt.wait()
-            if self.loader is not None:
-                self.loader.close()  # the native pool's threads
-            self.watchdog.stop()
-            if installed:
-                signal.signal(signal.SIGTERM, prev_handler
-                              if prev_handler is not None else signal.SIG_DFL)
+            try:
+                if profiler is not None:
+                    self._stop_profile(profiler)
+                if self.loader is not None:
+                    self.loader.close()  # the native pool's threads
+                self.watchdog.stop()
+                if installed:
+                    signal.signal(signal.SIGTERM, prev_handler
+                                  if prev_handler is not None
+                                  else signal.SIG_DFL)
+            finally:
+                self._settle_save(raise_error=finished)
         self.summary = {
             "epochs_run": len(self.history),
             "final_accuracy": final_acc,
@@ -537,6 +541,17 @@ class _FaultTolerant:
                 epochs_run=len(self.history), **perplexity)
         self.metrics_writer.close()
         return self.summary
+
+    def _settle_save(self, *, raise_error: bool) -> None:
+        """Wait for the save in flight, after the loop's clean-up: the
+        writer's error is raised after a clean run, and only logged after
+        a failed one, whose own error it must not replace."""
+        try:
+            self.ckpt.wait()
+        except Exception as e:
+            if raise_error:
+                raise
+            self.log(f"The checkpoint save in flight failed too: {e}")
 
     def _start_profile(self):
         """``--profile_dir``: a ``torch.profiler`` over the epoch loop,

@@ -190,3 +190,58 @@ def test_exit_right_after_save_leaves_a_durable_epoch(tmp_path):
     fresh = _state(seed=7)
     mgr.restore(fresh)
     assert _same(fresh, _state(3))
+
+
+@pytest.mark.parametrize("loop_fails", [False, True],
+                         ids=["clean-run", "loop-fails-too"])
+def test_trainer_cleans_up_before_a_writer_error(tmp_path, monkeypatch,
+                                                 loop_fails):
+    """The trainer's epoch loop ends with the writer's error only after
+    its clean-up: the step watchdog stopped (it could otherwise abort the
+    caller later), the SIGTERM handler put back, the loader closed. When
+    the loop failed as well, its own error is the one raised. The clean
+    run takes one epoch, so that its failing save is the one waited for
+    at the end."""
+    import signal
+
+    from ddp_tpu_torch.train import trainer as ttrainer
+    from ddp_tpu_torch.train.config import TrainConfig
+
+    def broken(tmp, blob, metrics):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(ck.CheckpointManager, "_write_files",
+                        staticmethod(broken))
+    cfg = TrainConfig.from_args([
+        "--device", "cpu", "--synthetic_data", "--synthetic_size", "32",
+        "--batch_size", "16", "--epochs", "2" if loop_fails else "1",
+        "--eval_every", "0",
+        "--watchdog_timeout", "600", "--checkpoint_dir", str(tmp_path)])
+
+    def ours(signum, frame):
+        pass
+
+    prev = signal.signal(signal.SIGTERM, ours)
+    ctx = ttrainer.dist.setup(device="cpu")
+    try:
+        t = ttrainer.ImageTrainer(cfg, ctx)
+        if loop_fails:
+            real = t._train_epoch
+
+            def train_epoch(epoch, skip):
+                if epoch == 1:
+                    raise ValueError("the loop's own error")
+                return real(epoch, skip)
+
+            t._train_epoch = train_epoch
+        want = ((ValueError, "the loop's own error") if loop_fails else
+                (RuntimeError, "failed: disk full"))
+        with pytest.raises(want[0], match=want[1]):
+            t.train()
+        assert t.watchdog._thread is None
+        assert signal.getsignal(signal.SIGTERM) is ours
+        assert t.loader is None or t.loader._prefetcher is None
+        t.ckpt.wait()  # the writer was joined, its error reported once
+    finally:
+        ttrainer.dist.cleanup()
+        signal.signal(signal.SIGTERM, prev)
