@@ -213,7 +213,8 @@ order; any failure exits non-zero and prints no result:
    limits); then the fp32 variant at depth 2. Both write checkpoints to a
    temporary directory each (phase 8a), which phase 8 serves.
 5m. (Runs after 8e, on the same temporary directories.) The MoE causal LM
-   trained through main() at run_lm_bench's width with --moe_experts 8
+   trained through main() at run_lm_bench's width, depth 4, with
+   --moe_experts 8
    --moe_every 2 --moe_top_k 2 --num_kv_heads 2 (bf16, 2 epochs of 6
    steps, --max_checkpoints 1): each of B1-B3 at least depth x steps,
    nothing routed; losses finite and falling; the reported loss is CE +
@@ -260,9 +261,11 @@ order; any failure exits non-zero and prints no result:
    launch counters set to 0 before and read after (each of B1-B3 at
    least depth x steps in bf16, nothing routed to the plain block),
    losses finite and falling, epoch_0..1 verified and a re-run resuming
-   epoch 1's state bit for bit, one bf16 step through the kernels vs the
-   plain attention from the trained weights (STEP_TOL; a B3 that drops
-   key row 64 must fail it); step p50, images/s per card, est. MFU and
+   epoch 1's state bit for bit, one step through the kernels vs the
+   plain attention from the trained weights (fp32: STEP_TOL against the
+   exact step; bf16: BF16_GATE_RATIO against SDPA's distance from it and
+   VIT_BF16_LOSS_TOL; a B1 that counts the zero-filled keys 65-127 and a
+   B3 that drops key row 64 must fail it); step p50, images/s per card, est. MFU and
    the busy share and B1-B3's share of device time under torch.profiler.
    7b: ResNet-18 on CIFAR-10 (config 3; He et al. 2016 §4.2's recipe:
    batch 128, SGD 0.1, momentum 0.9, weight decay 1e-4, crop-and-flip),
@@ -331,7 +334,8 @@ order; any failure exits non-zero and prints no result:
    MOE_LOGITS_ATOL. 5m's checkpoint is removed at the end.
 9. The trainer's fault tolerance (check_fault_tolerance; every command
    on the card, every generation's run_start naming it).
-   9a: phase 5's LM at run_lm_bench's width (bf16, 2 epochs of 6 steps)
+   9a: phase 5's LM at run_lm_bench's width, depth 4 (bf16, 2 epochs of 6
+   steps)
    through main(): the uninterrupted command twice (bitwise equal, or
    their spread logged); the same under --chaos sigterm:rank0@step8
    exits clean with epoch 1 saved at mid_batch 2 (the save's seconds
@@ -381,26 +385,55 @@ order; any failure exits non-zero and prints no result:
    10a: ResNet-50 (ImageNet stem) in bf16 and fp32 through main() on the
    loader path with --num_workers 2: the native pool's batch counter =
    the steps, losses falling, the bf16 resume exact, the pool's batches
-   bit for bit the Python gather's, one fp32 step card vs CPU at batch 4
-   from the trained weights (ReLU masks tied, CNN_STEP_TOL; from the
-   seeded ones a reading). 10b: ViT-Tiny at 224² (T 3137: the last key
-   tile holds 65) in bf16: B1 = B2 = B3 = depth x steps in training
-   (evaluation apart), nothing routed, resume exact, one step through
-   the kernels vs the plain attention at batch 8, bf16 and fp32
-   (STEP_TOL, the bf16 loss VIT_BF16_LOSS_TOL, key row 3136's dK/dV
-   too), a B3 that drops key row 3136 must fail it.
+   bit for bit the Python gather's, one fp32 step on the card against
+   the CPU's fp64 step at batches 2 and 4 from the trained weights (ReLU
+   masks tied, CNN_STEP_TOL; from the seeded ones a reading; the step
+   without the blocks' conv gradients must fail). 10b: ViT-Tiny at 224²
+   (T 3137: the last key tile holds 65) in bf16: B1 = B2 = B3 = depth x
+   steps in training (evaluation apart), nothing routed, resume exact,
+   one step through the kernels vs the plain attention at batch 8: fp32
+   within STEP_TOL of the exact step; bf16 within BF16_GATE_RATIO of
+   SDPA's distance from it, the loss within VIT_BF16_LOSS_TOL of the bf16
+   plain step (STEP_TOL's old reading printed); key row 3136's dK/dV
+   too; a B1 that counts the last tile's zero-filled keys and a B3 that
+   drops key row 3136 must fail it.
    10c: --remat: the step equals the step without (bf16 ViT, fp32
    ResNet-50), remat lowers peak memory, and a --remat run launches B1
    2 x depth x steps. 10d: --profile_dir's trace names B1's kernel. 10e:
    --no_shuffle's first batch is rows 0..63, --num_classes sizes the
    head. 10f: B1-B3 alone at B 32, T 3137, H 3, D 64, bf16 and fp32,
    held to FLASH_TOL and timed with their bounds and SDPA.
-11. A "kernels" JSON line (each decode kernel's launches on the MoE path,
+11. The long-context slice (check_long_context). 11a: the long-context
+   classifier at full width (LC_ARGS: d 64, depth 2, 4 heads so head dim
+   16, T 8192, batch 32, non-causal; 2 epochs of 4 steps) through main()
+   in bf16 and fp32: B1 = B2 = B3 = depth x steps in training in the
+   run's dtype (evaluation apart), nothing routed, losses falling, resume
+   exact; step p50, sequences/s, tokens/s, busy share, B1-B3's share of
+   device time; a --seq_strategy ulysses epoch launches the same
+   kernels. 11b: one step through B1-B3 against the plain attention at
+   batch 2 (fp32 STEP_TOL; bf16 the gate BF16_GATE_RATIO against SDPA's
+   distance from the exact step; key row 8191's dK/dV), a B3 that drops
+   that row must fail. 11c: B1-B3 alone at B 32, T 8192, H 4, D 16
+   (FLASH_TOL at B 2; timed with the bound, SDPA, the plain version in
+   chunks, and the exponentials as a reading) and at 11d's shape. 11d:
+   the causal LM at bench.py run_lm_long_bench's shape (vocab 8192, d
+   1024, depth 8, 8 heads, T 8192, batch 2, bf16, 4 steps): launches,
+   tokens/s, step p50, est. MFU; one step at depth 2 kernel vs plain
+   (the bf16 gate, the fp32 kernel step against the exact one, a dropped
+   dK tile must fail), peak memory. 11e: --dataset text on README.md at
+   --vocab_size 1024: tokenizer.json byte-identical to a --device cpu
+   run's, reused on resume, loss falling. 11f: the LM at --spawn 2
+   --backend gloo (both ranks on the one card) against three world-1
+   runs of the same global batch (batch 8; 4 x accumulation 2; 2 x 4),
+   within their spread; a world-2 average divided twice must not be.
+12. A "kernels" JSON line (each decode kernel's launches on the MoE path,
    moe_launches, beside its own, and in phase 4's flag runs,
    flag_launches; B1-B3's in 5m and 7c, phase 9's as
-   fault_tolerance_launches, phase 10's as imagenet_launches, and their
-   timings at T 3137 as the vit224_* variants), the card line, and the
-   last line
+   fault_tolerance_launches, phase 10's as imagenet_launches, phase
+   11's as long_context_launches and lm_long_launches, and their
+   timings at T 3137, at the long-context shape and at the LM's T 8192
+   as the vit224_*, long_context_* and lm_long_* variants), the card
+   line, and the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -1025,6 +1058,9 @@ FLASH_SHAPES = [  # label, B, T, S, H, D, causal
     ("causal ragged T=S=1000", 2, 1000, 1000, 8, 128, True),
     ("causal head dim 64", 2, 1024, 1024, 16, 64, True),
     ("causal head dim 96", 2, 512, 512, 8, 96, True),
+    # The long-context classifier's attention (phase 11) at batch 2: head
+    # dim 16 in the kernels' 64-column head tile, 64 key tiles.
+    ("long_context non-causal T=S=8192 D 16", 2, 8192, 8192, 4, 16, False),
     # ViT-Tiny's attention (phase 7a): 64 patches + cls at batch 256,
     # non-causal, one mostly empty key tile, q/k/v strided views of the
     # fused qkv projection.
@@ -1367,10 +1403,14 @@ def time_flash_kernels(torch, dtype) -> dict:
 
 
 def _time_flash(torch, F, fl, dtype, dname, errs,
-                shape=("the training shape",) + TRAIN_SHAPE) -> dict:
+                shape=("the training shape",) + TRAIN_SHAPE,
+                plain_batch=None) -> dict:
     """Kernel, plain version and SDPA times at a main path's shape: the
-    causal LM's training step (B 8, T = S 2048, H 8, D 128, causal), or
-    ViT-Tiny's (VIT_SHAPE)."""
+    causal LM's training step (B 8, T = S 2048, H 8, D 128, causal),
+    ViT-Tiny's (VIT_SHAPE) or a long one. ``plain_batch``: the plain
+    version runs over the batch in chunks of that many (its [B, H, T, S]
+    fp32 logits would not fit the card at once); its time is the whole
+    batch's."""
     label, B, T, S, H, D, causal = shape
     q, k, v, dout, _ = _flash_inputs(torch, B, T, S, H, D, dtype, seed=99)
     out, lse = fl.flash_forward(q, k, v, causal)
@@ -1378,13 +1418,21 @@ def _time_flash(torch, F, fl, dtype, dname, errs,
     qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
     n, reps = (10, 5) if dname == "bf16" else (5, 3)
     kernel = _kernel_calls(fl, q, k, v, dout, lse, delta, causal)
+    step = plain_batch or B
+
+    def chunked(fn, *args):
+        def run():
+            for b in range(0, B, step):
+                fn(*(a[b:b + step] for a in args), causal)
+        return run
+
     plain = {
-        "flash_attn_fwd": lambda: fl.attention_with_lse_reference(
-            qf, kf, vf, causal),
-        "flash_attn_dq": lambda: fl.flash_dq_reference(
-            qf, kf, vf, df, lse, delta, causal),
-        "flash_attn_dkv": lambda: fl.flash_dkv_reference(
-            qf, kf, vf, df, lse, delta, causal),
+        "flash_attn_fwd": chunked(fl.attention_with_lse_reference,
+                                  qf, kf, vf),
+        "flash_attn_dq": chunked(fl.flash_dq_reference,
+                                 qf, kf, vf, df, lse, delta),
+        "flash_attn_dkv": chunked(fl.flash_dkv_reference,
+                                  qf, kf, vf, df, lse, delta),
     }
     # The yardstick: SDPA forward, and its backward (dq, dk and dv in one
     # call), on the same tensors in [B, H, T, D]; timed only.
@@ -1401,7 +1449,8 @@ def _time_flash(torch, F, fl, dtype, dname, errs,
     res = {}
     for name in FLASH_NAMES:
         ms = _median_ms(torch, kernel[name], n=n, reps=reps)
-        plain_ms = _median_ms(torch, plain[name], n=2, reps=3)
+        plain_ms = _median_ms(torch, plain[name], n=1 if plain_batch else 2,
+                              reps=3)
         bound_ms, bound_by = _flash_bound(name, pairs, nbytes, D, dname)
         library_ms = sdpa_fwd_ms if name == "flash_attn_fwd" else None
         log(f"[flash] {name} {dname} {label} B={B} T=S={T} H={H} D={D} "
@@ -3355,8 +3404,9 @@ TRAIN_FP32_ARGS[TRAIN_FP32_ARGS.index("--epochs") + 1] = "1"
 # same weights and batch: relative error of the loss, of the whole
 # gradient, and of each parameter's gradient, the worst over every
 # block's attn.qkv and attn.proj apart. bf16: the kernel rounds P and dS
-# to bf16 for their products, the plain version does not; fp32: summation
-# order only.
+# to bf16 for their products, the plain version does not (phase 5 holds
+# these limits; 7a, 7c, 10b and 11 hold BF16_GATE_RATIO and print them as
+# a reading); fp32: summation order only.
 STEP_TOL = {"bf16": dict(loss=1e-5, grad=1e-2, leaf=2e-2, attn=2e-2),
             "fp32": dict(loss=1e-5, grad=1e-4, leaf=1e-4, attn=1e-4)}
 
@@ -3435,9 +3485,10 @@ def fixed_routing(torch, record: list, flips: list):
         moe.route = real
 
 
-def _step_grads(torch, trainer, toks, block_fn):
-    """One Adam step from the trainer's current weights on ``toks`` →
-    (loss, {parameter name: gradient})."""
+def _step_grads(torch, trainer, toks, block_fn, compute_dtype=None):
+    """One Adam step from the trainer's current weights on ``toks`` in
+    ``compute_dtype`` (None: the trainer's) → (loss, {parameter name:
+    gradient})."""
     from ddp_tpu_torch.models.lm import CausalLM, make_lm_train_step
     from ddp_tpu_torch.train.optim import make_optimizer
 
@@ -3446,8 +3497,9 @@ def _step_grads(torch, trainer, toks, block_fn):
     model = CausalLM.from_state(trainer.spec, state, trainer.device,
                                 trainable=True)
     opt = make_optimizer(model.parameters(), "adam", lr=3e-4)
-    step = make_lm_train_step(model, opt, compute_dtype=trainer.compute_dtype,
-                              block_fn=block_fn)
+    step = make_lm_train_step(
+        model, opt, compute_dtype=compute_dtype or trainer.compute_dtype,
+        block_fn=block_fn)
     m = step(toks)
     grads = {n: p.grad for n, p in model.named_parameters()}
     torch.cuda.synchronize()
@@ -3482,7 +3534,7 @@ def _within(e, tol) -> bool:
             and e["leaf"][1] <= tol["leaf"] and e["attn"][1] <= tol["attn"])
 
 
-def compare_step(torch, trainer, dname, *, batch=2) -> None:
+def compare_step(torch, trainer, dname, *, batch=2, gate="step_tol") -> dict:
     """One Adam step from the trainer's current weights on its first
     ``batch`` sequences, through the kernels and through the plain
     attention (which must launch nothing), held to STEP_TOL. Then a
@@ -3491,8 +3543,20 @@ def compare_step(torch, trainer, dname, *, batch=2) -> None:
     B3 that skipped a tile would give. In bf16 one more reading, for
     information only: an attention computed in bf16 throughout (S,
     softmax and P·V) lands next to the kernel's own bf16 rounding here,
-    so no limit can tell the two apart."""
+    so no limit can tell the two apart.
+
+    ``gate="ratio"`` (phase 11d, bf16): the kernel step is held to
+    BF16_GATE_RATIO against the exact step (fp32, plain attention),
+    measured by the same bf16 step through SDPA, with the loss within
+    STEP_TOL["bf16"]["loss"] of the bf16 plain step (the old reading
+    against that step printed), and the dK/dV of the control's keys
+    512-575 in every block within STEP_TOL["bf16"]["attn"] of the plain
+    step's (at T 8192 one tile moves the leaves by less than bf16 does);
+    the fp32 kernel step is held to STEP_TOL["fp32"] against the exact
+    step; the control must fail. Returns the peak memory of the kernel
+    and plain steps (MB)."""
     from ddp_tpu_torch.ops import flash as fl
+    from ddp_tpu_torch.parallel.ring import default_block_fn
 
     drop_tile = _drop_key_grad(torch, slice(512, 576))
 
@@ -3509,35 +3573,81 @@ def compare_step(torch, trainer, dname, *, batch=2) -> None:
                            v.bfloat16())
         return out.to(q.dtype), lse
 
+    def sdpa(q, k, v, causal):
+        return _sdpa_attention(torch, causal)(q, k, v), None
+
     toks = trainer.tokens[:batch]
     tol = STEP_TOL[dname]
+    ratio = gate == "ratio" and dname == "bf16"
     routes, flips = [], []
-    with fixed_routing(torch, routes, flips):
-        kernel = _step_grads(torch, trainer, toks, None)
+    peak = {}
+
+    tile = {}  # label → the dK/dV rows of keys 512-575 a block (ratio)
+
+    def grads(block_fn, label, dtype=None):
+        if ratio:
+            tile[label] = []
+            block_fn = _tail_rows(torch, block_fn or default_block_fn,
+                                  tile[label], slice(512, 576))
+        torch.cuda.reset_peak_memory_stats()
+        with fixed_routing(torch, routes, flips if label == "plain" else []):
+            out = _step_grads(torch, trainer, toks, block_fn, dtype)
+        peak[label] = torch.cuda.max_memory_allocated() / 2**20
+        return out
+
+    kernel = grads(None, "kernel")
+    if ratio:  # the fp32 kernel step, before the counters go to 0
+        fp32 = grads(None, "kernel fp32", torch.float32)
     _zero(fl.flash_attention.launches)
-    with fixed_routing(torch, routes, flips):
-        plain = _step_grads(torch, trainer, toks,
-                            fl.attention_with_lse_reference)
+    plain = grads(fl.attention_with_lse_reference, "plain")
     e = _grad_errors(kernel, plain)
     log(f"[train] {dname} one step, kernel vs plain attention (batch "
         f"{batch}): loss {kernel[0]:.6f} vs {plain[0]:.6f}; {_errors_text(e)} "
-        f"(tolerances {tol})"
+        f"(tolerances {tol}{'; the old reading' if ratio else ''}); peak "
+        f"memory {peak['kernel']:.0f} / {peak['plain']:.0f} MB"
         + (f"; routing held to the kernel step's, routed blocks' own "
            f"choices would differ at {flips} of {toks.numel() * 2} "
            f"(token, k) per block" if routes else ""))
-    failed = [] if _within(e, tol) else ["the kernel step disagrees"]
+    if ratio:
+        exact = grads(fl.attention_with_lse_reference, "exact",
+                      torch.float32)
+        e_sdpa = _grad_errors(grads(sdpa, "sdpa"), exact)
+
+        def passes(got, label):
+            g = _bf16_gate(_grad_errors(got, exact), e_sdpa)
+            loss = _grad_errors(got, plain)["loss"]
+            rows = _tail_error(torch, tile[label], tile["plain"])
+            return (g["ok"] and loss <= tol["loss"] and rows <= tol["attn"],
+                    f"{_gate_text(g)}, loss rel {loss:.2e} vs the bf16 plain "
+                    f"step (limit {tol['loss']}), keys 512-575's dK/dV in "
+                    f"every block rel {rows:.2e} (limit {tol['attn']})")
+
+        ok, text = passes(kernel, "kernel")
+        log(f"[train] bf16 gate: {text}; SDPA bf16 vs exact: "
+            f"{_errors_text(e_sdpa)}")
+        failed = [] if ok else ["the kernel step fails the bf16 gate"]
+        e32 = _grad_errors(fp32, exact)
+        del fp32
+        log(f"[train] fp32 one step, kernel vs exact: {_errors_text(e32)} "
+            f"(tolerances {STEP_TOL['fp32']})")
+        if not _within(e32, STEP_TOL["fp32"]):
+            failed.append("the fp32 kernel step disagrees")
+    else:
+        failed = [] if _within(e, tol) else ["the kernel step disagrees"]
     del kernel
-    with fixed_routing(torch, routes, []):
-        dropped = _step_grads(torch, trainer, toks, dropped_dk)
-    e = _grad_errors(dropped, plain)
+    dropped = grads(dropped_dk, "control")
+    if ratio:
+        caught, text = passes(dropped, "control")
+        caught = not caught
+    else:
+        text = _errors_text(_grad_errors(dropped, plain))
+        caught = not _within(_grad_errors(dropped, plain), tol)
     del dropped
-    log(f"[train] {dname} control, dK tile dropped vs plain: "
-        f"{_errors_text(e)}")
-    if _within(e, tol):
+    log(f"[train] {dname} control, dK tile dropped: {text}")
+    if not caught:
         failed.append("the check passes a B3 that drops a dK tile")
     if dname == "bf16":
-        with fixed_routing(torch, routes, []):
-            low = _step_grads(torch, trainer, toks, low_precision)
+        low = grads(low_precision, "low")
         e = _grad_errors(low, plain)
         del low
         log(f"[train] bf16 reading, attention in bf16 throughout vs plain "
@@ -3548,6 +3658,7 @@ def compare_step(torch, trainer, dname, *, batch=2) -> None:
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"{dname} step: {failed}")
+    return {"kernel_mb": peak["kernel"], "plain_mb": peak["plain"]}
 
 
 def profile_train_steps(torch, trainer, *, steps=3) -> None:
@@ -4565,12 +4676,15 @@ def check_lm_serving(torch, card, dirs) -> dict:
 
 # run_lm_bench's width (TRAIN_ARGS) with decode_moe's routing: 8 experts in
 # every 2nd block, top-2, 2 KV heads; one epoch of 6 steps, then a second
-# by resuming. One epoch's checkpoint with its Adam moments is about 4 GB,
-# so only the latest is kept (it is what 8f serves).
+# by resuming. Depth 4 (PR 17; 8 before): the checkpoints' writes and
+# reads are most of the phase's time, and the script must stay within its
+# limit. One epoch's checkpoint with its Adam moments is about 2 GB (4 GB
+# at depth 8), so only the latest is kept (it is what 8f serves).
 TRAIN_MOE_ARGS = TRAIN_ARGS + ["--moe_experts", "8", "--moe_every", "2",
                                "--moe_top_k", "2", "--num_kv_heads", "2",
                                "--max_checkpoints", "1"]
 TRAIN_MOE_ARGS[TRAIN_MOE_ARGS.index("--epochs") + 1] = "1"
+TRAIN_MOE_ARGS[TRAIN_MOE_ARGS.index("--model_depth") + 1] = "4"
 # 8f: the served prompt's last-position logits (the serving forward, fp32)
 # against train_forward's (fp32, B1 through its fp32 kernel) at a
 # capacity factor of E/k, where no expert can overflow (capacity = the
@@ -4674,7 +4788,7 @@ def _moe_epoch_readings(spec, cfg, h) -> dict:
 
 def check_moe_training(torch, card, ckdir) -> dict:
     """Phase 5m: ``python -m ddp_tpu_torch.train``'s main() on the MoE LM
-    at run_lm_bench's width (TRAIN_MOE_ARGS, bf16): epoch 0 (6 steps),
+    at run_lm_bench's width, depth 4 (TRAIN_MOE_ARGS, bf16): epoch 0 (6 steps),
     each of B1-B3 at least depth x steps, nothing routed to the plain
     block; the reported loss is CE + 0.01 · aux; the sidecar carries the
     routing; one step through the kernels against the plain attention
@@ -4917,8 +5031,13 @@ def _cnn_state_errors(torch, trainer, blob) -> list[str]:
         bad.append(f"step {trainer.state.step} != {blob['step']}")
     if opt["count"] != blob["opt_state"]["count"]:
         bad.append("optimizer count")
-    bad += [f"momentum buffer {i}" for i, (a, b) in enumerate(
-        zip(opt["trace"], blob["opt_state"]["trace"])) if not torch.equal(a, b)]
+    for key in ("trace", "mu", "nu"):  # momentum; Adam's moments
+        mine, saved = opt.get(key), blob["opt_state"].get(key)
+        if (mine is None) != (saved is None):
+            bad.append(f"optimizer {key} present on one side only")
+        elif mine is not None:
+            bad += [f"{key} buffer {i}" for i, (a, b) in enumerate(
+                zip(mine, saved)) if not torch.equal(a, b)]
     return bad
 
 
@@ -5140,11 +5259,12 @@ def check_cnn_two_ranks(torch, tmp) -> None:
         raise AssertionError("phase 6e: two ranks part from world 1")
 
 
-def profile_cnn_epoch(torch, trainer, label, steps=None) -> float:
+def profile_cnn_epoch(torch, trainer, label, steps=None, out=None) -> float:
     """Busy share of one more epoch of ``trainer`` under torch.profiler
     (its first ``steps`` steps on the loader path, when given): summed
     CUDA kernel time over the wall time (the profiler's own host cost
-    included)."""
+    included). ``out`` (a dict) gets B1-B3's share of the device time and
+    the device milliseconds a step."""
     import itertools
 
     from torch.profiler import ProfilerActivity, profile
@@ -5187,6 +5307,8 @@ def profile_cnn_epoch(torch, trainer, label, steps=None) -> float:
     log(f"[profile] {label}: {steps} steps, wall {wall * 1e3:.2f} ms, device "
         f"kernel time {busy * 1e3:.2f} ms, busy share {busy / wall:.3f}, "
         f"flash kernels B1-B3 {flash / busy:.3f} of device time")
+    if out is not None:
+        out.update(flash_share=flash / busy, device_ms=busy * 1e3 / steps)
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile]   {e.self_device_time_total / steps:9.2f} us/step "
             f"x{e.count / steps:<5.1f} {e.key[:90]}")
@@ -5332,23 +5454,41 @@ def _image_readings(torch, trainer, label, card, flops=None) -> dict:
                 step_p50_ms=h["step_p50_s"] * 1e3, busy=busy, mfu=mfu)
 
 
-def _vit_step(torch, trainer, x, y, attention_fn, dtype, remat=False):
-    """One SGD-momentum step in ``dtype`` of a copy of ``trainer``'s ViT
-    on (x, y), every block's attention through ``attention_fn`` (None:
-    the default, B1-B3), each block recomputed in the backward with
-    ``remat`` → (loss, {parameter name: gradient})."""
+def _copy_model(trainer, remat=False):
+    """A fresh copy of ``trainer``'s model (a ViT, or the long-context
+    classifier) with its current weights, on its device."""
     from ddp_tpu_torch.models import get_model
+    from ddp_tpu_torch.models.seq_transformer import LongContextTransformer
+
+    src = trainer.state.model
+    if trainer.config.model == "long_context":
+        model = LongContextTransformer(src.spec._replace(remat=remat))
+    else:
+        model = get_model(trainer.config.model,
+                          num_classes=src.head.out_features,
+                          side=trainer.train_split.images.shape[1],
+                          in_channels=3, depth=len(src.block_names),
+                          remat=remat)
+    model.load_state_dict(src.state_dict())
+    for name in model.block_names:
+        getattr(model, name).attn.attention_fn = \
+            getattr(src, name).attn.attention_fn
+    return model.to(trainer.device)
+
+
+def _vit_step(torch, trainer, x, y, attention_fn, dtype, remat=False):
+    """One SGD-momentum step in ``dtype`` of a copy of ``trainer``'s model
+    (a ViT or the long-context classifier) on (x, y), every block's
+    attention through ``attention_fn`` (None: the trainer's own, B1-B3),
+    each block recomputed in the backward with ``remat`` → (loss,
+    {parameter name: gradient})."""
     from ddp_tpu_torch.parallel.ddp import TrainState, make_train_step
     from ddp_tpu_torch.train.optim import make_optimizer
 
-    src = trainer.state.model
-    model = get_model(trainer.config.model, num_classes=src.head.out_features,
-                      side=trainer.train_split.images.shape[1], in_channels=3,
-                      depth=len(src.block_names), remat=remat)
-    model.load_state_dict(src.state_dict())
-    model = model.to(trainer.device)
-    for name in model.block_names:
-        getattr(model, name).attn.attention_fn = attention_fn
+    model = _copy_model(trainer, remat)
+    if attention_fn is not None:
+        for name in model.block_names:
+            getattr(model, name).attn.attention_fn = attention_fn
     state = TrainState(0, model, make_optimizer(model.parameters(), "sgd",
                                                 lr=0.01, momentum=0.9))
     m = make_train_step(state, reduce=lambda t: t, compute_dtype=dtype)(x, y)
@@ -5357,11 +5497,37 @@ def _vit_step(torch, trainer, x, y, attention_fn, dtype, remat=False):
     return float(m.loss), grads
 
 
+def _kernel_attention(trainer):
+    """The attention a trainer's model runs (B1-B3 on the card):
+    flash_attention for a ViT, --seq_strategy's for long_context."""
+    from ddp_tpu_torch.ops import flash as fl
+
+    fn = trainer.state.model.block1.attn.attention_fn
+    return fn or (lambda q, k, v: fl.flash_attention(q, k, v))
+
+
+def _sdpa_attention(torch, causal=False):
+    """PyTorch's FlashAttention-2 (scaled_dot_product_attention, flash
+    backend) on [B, T, H, D]: P and dS rounded to bf16 as B1-B3 round
+    them. The bf16 step checks' yardstick, never on the path."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def fn(q, k, v):
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal).transpose(1, 2)
+
+    return fn
+
+
 def _zero_keys_counted(torch, q, k, v):
-    """The plain non-causal attention over the one 128-key tile with the
-    63 rows past S filled with zeros and counted by the softmax: what a
-    B1 that forgot the key mask of TMA's zero fill would give."""
-    pad = (0, 0, 0, 0, 0, 128 - k.shape[1])
+    """The plain non-causal attention with the key rows of the last
+    128-key tile past S filled with zeros and counted by the softmax: what
+    a B1 that forgot the key mask of TMA's zero fill would give (at T 65,
+    63 zero keys; at T 3137, 63)."""
+    pad = (0, 0, 0, 0, 0, -k.shape[1] % 128)
     s = torch.einsum("bthd,bshd->bhts", q.float(),
                      torch.nn.functional.pad(k.float(), pad))
     p = torch.softmax(s * q.shape[-1] ** -0.5, dim=-1)
@@ -5370,18 +5536,19 @@ def _zero_keys_counted(torch, q, k, v):
     return o.to(q.dtype)
 
 
-def _tail_rows(torch, fn, rows: list):
-    """``fn`` (an attention function) that records, for each call (each
-    block, in the forward's order), the gradients of the last key row of
-    its k and v in the backward: ``rows`` gets {"k": [B, H, D], "v": ...}
-    a call."""
-    def wrapped(q, k, v):
+def _tail_rows(torch, fn, rows: list, keys=-1):
+    """``fn`` (an attention function, ``(q, k, v)`` or an LM block's ``(q,
+    k, v, causal)``) that records, for each call (each block, in the
+    forward's order), the gradients of key rows ``keys`` (the last) of its
+    k and v in the backward: ``rows`` gets {"k": [B, H, D], "v": ...} a
+    call."""
+    def wrapped(q, k, v, *rest):
         entry = {}
         rows.append(entry)
         for name, t in (("k", k), ("v", v)):
             t.register_hook(lambda g, name=name: entry.__setitem__(
-                name, g[:, -1].float().clone()))
-        return fn(q, k, v)
+                name, g[:, keys].float().clone()))
+        return fn(q, k, v, *rest)
 
     return wrapped
 
@@ -5397,19 +5564,62 @@ def _tail_error(torch, got: list, want: list) -> float:
     return (diff / max(norm, 1e-60)) ** 0.5
 
 
+# The bf16 step gate (ROADMAP C15): a bf16 step through B1-B3 may be at
+# most BF16_GATE_RATIO times as far from the exact step (fp32 throughout,
+# the plain attention) as the same bf16 step through PyTorch's
+# FlashAttention-2 is, in the worst leaf's and in the whole gradient's
+# relative error. Every flash kernel rounds P and dS to bf16 for its
+# products, so the bf16 plain step (fp32 attention inside) is not the
+# reference a bf16 flash step can meet: that old reading, STEP_TOL["bf16"]
+# against the bf16 plain step, is still printed beside the gate. The
+# loss against the bf16 plain step and the last key row (_tail_rows)
+# keep their limits. On an NVIDIA H100 80GB HBM3 at 700 W, 10b's ratio
+# read 0.84-1.21 over five seeds (kernel against SDPA, worst leaf).
+BF16_GATE_RATIO = 1.5
+
+
+def _bf16_gate(e_kernel, e_sdpa) -> dict:
+    """The gate's ratios from _grad_errors of the kernel's and SDPA's bf16
+    steps against the exact step."""
+    leaf = e_kernel["leaf"][1] / max(e_sdpa["leaf"][1], 1e-30)
+    grad = e_kernel["grad"] / max(e_sdpa["grad"], 1e-30)
+    return dict(leaf=leaf, grad=grad,
+                ok=leaf <= BF16_GATE_RATIO and grad <= BF16_GATE_RATIO)
+
+
+def _gate_text(g) -> str:
+    return (f"worst leaf {g['leaf']:.3f}x, gradient {g['grad']:.3f}x SDPA's "
+            f"distance from the exact step (limit {BF16_GATE_RATIO}x)")
+
+
+def _tokens_of(trainer) -> int:
+    """The sequence length a trainer's model attends over."""
+    if trainer.config.model == "long_context":
+        return trainer.config.seq_len
+    model = trainer.state.model
+    side = trainer.train_split.images.shape[1] // model.patch_size
+    return side * side + int(model.use_cls_token)
+
+
 def check_vit_step(torch, trainer, *, batch=64, tag="vit", controls=None,
-                   tail=False) -> list[str]:
-    """Phase 7a's step check: one step through B1-B3 against the same step
-    through the plain attention (which must launch nothing), from the
-    trained weights on the first ``batch`` training images, held to
-    STEP_TOL (in bf16 with VIT_BF16_LOSS_TOL for the loss). Two negative
-    controls must fail the same limits: a B1 that counts the tile's
-    zero-filled keys past row 64 (it moves the loss), and a B3 that drops
-    the ragged tail (the dK and dV of key row 64; it leaves the loss and
-    moves the gradients). With ``tail`` the last key row's dK and dV in
+                   tail=False, record=None) -> list[str]:
+    """One step through B1-B3 against the same step through the plain
+    attention (which must launch nothing), from the trained weights on the
+    first ``batch`` training examples (a ViT's images or the long-context
+    model's sequences).
+
+    fp32: STEP_TOL["fp32"] against the exact step (fp32, plain attention).
+    bf16: the gate of BF16_GATE_RATIO against the exact step, measured by
+    the same bf16 step through SDPA; the loss within VIT_BF16_LOSS_TOL of
+    the bf16 plain step; the old reading (STEP_TOL["bf16"] against the
+    bf16 plain step) printed. With ``tail`` the last key row's dK and dV in
     every block are held to the attention limit too (_tail_rows): at a
     long T one row moves the parameters' gradients by too little for the
-    step's limits to see a dropped one."""
+    leaf limits to see a dropped one. Negative controls must fail the same
+    checks in both dtypes: ``controls`` (None: a B1 that counts the last
+    tile's zero-filled keys, where S is not a multiple of 128) and always
+    a B3 that drops the last key row. ``record`` (a dict) gets the
+    readings and verdicts."""
     from ddp_tpu_torch.ops import flash as fl
 
     images, labels = trainer.train_split
@@ -5420,65 +5630,103 @@ def check_vit_step(torch, trainer, *, batch=64, tag="vit", controls=None,
     def plain(q, k, v):
         return fl.attention_with_lse_reference(q, k, v, False)[0]
 
-    last = trainer.train_split.images.shape[1] // trainer.state.model.patch_size
-    last = last * last + int(trainer.state.model.use_cls_token) - 1
+    tokens = _tokens_of(trainer)
+    last = tokens - 1
     if controls is None:
-        controls = {
-            "zero-filled keys 65-127 counted by the softmax":
-                lambda q, k, v: _zero_keys_counted(torch, q, k, v),
-        }
+        controls = {}
+        if tokens % 128:
+            controls[f"zero-filled keys {tokens}-{tokens - 1 + -tokens % 128}"
+                     " counted by the softmax"] = \
+                lambda q, k, v: _zero_keys_counted(torch, q, k, v)
+    controls = dict(controls)
     controls[f"dK/dV of key row {last} dropped"] = \
         lambda q, k, v: plain(q, drop(k), drop(v))
-    failed = []
+    record = {} if record is None else record
+    base = _kernel_attention(trainer)
+    failed, exact_cache = [], {}
+
+    def step(fn, dtype, routes, flips, rows=None):
+        with fixed_routing(torch, routes, flips):
+            return _vit_step(torch, trainer, x, y,
+                             _tail_rows(torch, fn, rows) if tail else fn,
+                             dtype)
+
     for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
-        limits = STEP_TOL[dname]
-        if dname == "bf16":
-            limits = dict(limits, loss=VIT_BF16_LOSS_TOL)
         routes, flips = [], []
-        rows = {"kernel": [], "plain": []}
-        kernel_fn = (_tail_rows(torch, fl.flash_attention, rows["kernel"])
-                     if tail else None)
-        with fixed_routing(torch, routes, flips):
-            kernel = _vit_step(torch, trainer, x, y, kernel_fn, dtype)
+        rows = {"kernel": [], "plain": [], "exact": []}
+        kernel = step(base, dtype, routes, flips, rows["kernel"])
         _zero(fl.flash_attention.launches)
-        with fixed_routing(torch, routes, flips):
-            want = _vit_step(torch, trainer, x, y, _tail_rows(
-                torch, plain, rows["plain"]) if tail else plain, dtype)
-        e = _grad_errors(kernel, want)
-        tail_err = (_tail_error(torch, rows["kernel"], rows["plain"])
-                    if tail else 0.0)
+        # The exact step, under the kernel step's routing; a dense model's
+        # is the same in both dtypes.
+        if routes or "exact" not in exact_cache:
+            exact_cache["exact"] = step(plain, torch.float32, routes,
+                                        flips if dname == "fp32" else [],
+                                        rows["exact"])
+            exact_cache["rows"] = rows["exact"]
+        exact, exact_rows = exact_cache["exact"], exact_cache["rows"]
+        if dname == "fp32":
+            want, want_rows = exact, exact_rows
+        else:
+            want = step(plain, dtype, routes, flips, rows["plain"])
+            want_rows = rows["plain"]
+            sdpa = step(_sdpa_attention(torch), dtype, routes, [], [])
+            e_sdpa = _grad_errors(sdpa, exact)
+            del sdpa
+        limits = STEP_TOL[dname]
+        loss_tol = VIT_BF16_LOSS_TOL if dname == "bf16" else limits["loss"]
+
+        def judge(got, got_rows, label):
+            """(within every limit, the reading) of one step."""
+            e = _grad_errors(got, want)
+            tail_err = (_tail_error(torch, got_rows, want_rows)
+                        if tail else 0.0)
+            text = f"{_errors_text(e)}"
+            if dname == "fp32":
+                ok = _within(e, limits)
+                text += f" (limits {limits})"
+            else:
+                g = _bf16_gate(_grad_errors(got, exact), e_sdpa)
+                ok = g["ok"] and e["loss"] <= loss_tol
+                text += (f" (old reading; STEP_TOL bf16 {limits} "
+                         f"{'holds' if _within(e, dict(limits, loss=loss_tol)) else 'is exceeded'}); "
+                         f"gate: {_gate_text(g)}, loss rel {e['loss']:.2e} "
+                         f"(limit {loss_tol})")
+                record.setdefault(dname, {})[label] = dict(
+                    leaf_ratio=g["leaf"], grad_ratio=g["grad"],
+                    old_leaf=e["leaf"][1], loss=e["loss"])
+            if tail:
+                text += (f"; key row {last}'s dK/dV in every block rel "
+                         f"{tail_err:.2e} (limit {limits['attn']})")
+                ok = ok and tail_err <= limits["attn"]
+            return ok, text
+
+        ok, text = judge(kernel, rows["kernel"], "kernel")
         log(f"[{tag}] one {dname} step, kernel vs plain attention (batch "
-            f"{batch}): loss {kernel[0]:.6f} vs {want[0]:.6f}; "
-            f"{_errors_text(e)}"
-            + (f"; key row {last}'s dK/dV in every block rel "
-               f"{tail_err:.2e}" if tail else "")
-            + f" (limits {limits})"
+            f"{batch}): loss {kernel[0]:.6f} vs {want[0]:.6f}; {text}"
+            + (f"; SDPA bf16 vs exact: {_errors_text(e_sdpa)}"
+               if dname == "bf16" else "")
             + (f"; routing held to the kernel step's, own choices would "
                f"differ at {flips} (token, k) per routed block"
                if routes else ""))
-        if not _within(e, limits) or tail_err > limits["attn"]:
+        record.setdefault("verdict", {})[dname] = ok
+        if not ok:
             failed.append(f"the {dname} kernel step disagrees with the "
                           "plain one")
         del kernel
         for label, attention_fn in controls.items():
             got_rows = []
-            if tail:
-                attention_fn = _tail_rows(torch, attention_fn, got_rows)
-            with fixed_routing(torch, routes, []):
-                got = _vit_step(torch, trainer, x, y, attention_fn, dtype)
-            e = _grad_errors(got, want)
-            control_tail = (_tail_error(torch, got_rows, rows["plain"])
-                            if tail else 0.0)
+            got = step(attention_fn, dtype, routes, [], got_rows)
+            ok, text = judge(got, got_rows, label)
             del got
-            log(f"[{tag}] {dname} control, {label}, vs plain: "
-                f"{_errors_text(e)}"
-                + (f"; key row {last}'s dK/dV rel {control_tail:.2e}"
-                   if tail else ""))
-            if _within(e, limits) and control_tail <= limits["attn"]:
+            log(f"[{tag}] {dname} control, {label}: {text}")
+            record.setdefault("controls", {})[f"{dname} {label}"] = not ok
+            if ok:
                 failed.append(f"the {dname} check passes a control: {label}")
         if any(fl.flash_attention.launches.values()):
             failed.append(f"the plain path launched "
                           f"{fl.flash_attention.launches}")
+        del want
+        torch.cuda.empty_cache()
     return failed
 
 
@@ -5652,7 +5900,7 @@ def _resnet_text(e, bufs) -> str:
 
 def check_resnet_step(torch, trainer, *, batch=32, tag="resnet",
                       gated=("seeded", "trained"),
-                      control="seeded") -> list[str]:
+                      control="seeded", against="cpu") -> list[str]:
     """Phase 7b's step check, as phase 6c's: one step on the card (fp32,
     TF32 off) against the same step on the CPU on the first ``batch``
     training images, from the seeded weights with live BatchNorm scales
@@ -5665,7 +5913,10 @@ def check_resnet_step(torch, trainer, *, batch=32, tag="resnet",
     own masks, and a witness, the CPU's fp64 step on the card's masks,
     from which each fp32 step's distance is printed. ``gated``: the
     weight sets held to the limits (the others are readings);
-    ``control``: the one the control runs on."""
+    ``control``: the one the control runs on. ``against="fp64"`` holds
+    the card's step, and the control, to that fp64 step instead of the
+    CPU's fp32 one (ROADMAP C14: at a small batch the CPU's own fp32 step
+    can sit 4e-4 from fp64, where the card's sits 6e-6)."""
     import torch.nn.functional as F
 
     images, labels = trainer.train_split
@@ -5686,10 +5937,13 @@ def check_resnet_step(torch, trainer, *, batch=32, tag="resnet",
         own = _resnet_step(torch, state_np, x, y, "cpu", arch=arch)
         exact = _resnet_step(torch, state_np, x, y, "cpu", torch.float64,
                              relu=_TiedRelu(F, card.masks), arch=arch)
-        e, bufs = _resnet_errors(got, want)
-        log(f"[{tag}] one step from the {label} weights, card vs CPU (fp32, "
-            f"TF32 off, batch {batch}, ReLU masks tied): loss {got[0]:.6f} "
-            f"vs {want[0]:.6f}; {_resnet_text(e, bufs)} (limits "
+        ref = exact if against == "fp64" else want
+        ref_name = ("the CPU's fp64" if against == "fp64"
+                    else "the CPU's fp32")
+        e, bufs = _resnet_errors(got, ref)
+        log(f"[{tag}] one step from the {label} weights, card (fp32, TF32 "
+            f"off) vs {ref_name} step (batch {batch}, ReLU masks tied): loss "
+            f"{got[0]:.6f} vs {ref[0]:.6f}; {_resnet_text(e, bufs)} (limits "
             f"{CNN_STEP_TOL})")
         log(f"[{tag}] reading, {label}: {tied.flips} of "
             f"{sum(m.numel() for m in card.masks)} ReLU inputs on the other "
@@ -5706,9 +5960,10 @@ def check_resnet_step(torch, trainer, *, batch=32, tag="resnet",
         if label == control:
             blind = (got[0], {n: g * 0 if ".Conv_" in n else g
                               for n, g in got[1].items()}, got[2], got[3])
-            e, bufs = _resnet_errors(blind, want)
+            e, bufs = _resnet_errors(blind, ref)
             log(f"[{tag}] control, the card's step with the blocks' conv "
-                f"gradients zeroed: {_resnet_text(e, bufs)}")
+                f"gradients zeroed, vs {ref_name} step: "
+                f"{_resnet_text(e, bufs)}")
             if _cnn_within(e):
                 failed.append("the check passes a step without the blocks' "
                               "conv gradients")
@@ -5794,7 +6049,11 @@ def check_image_families(torch, card) -> dict:
 # Appended to every phase-9 command (["--device", "cpu"] when rehearsing).
 FT_DEVICE_ARGS: list[str] = []
 # 9a: run_lm_bench's width (phase 5's TRAIN_ARGS: 2 epochs of 6 steps,
-# bf16); the SIGTERM lands before global step 8, epoch 1's batch 2.
+# bf16) at depth 4 (PR 17; 8 before: its checkpoints' 1.34 GB writes were
+# most of the phase's time); the SIGTERM lands before global step 8,
+# epoch 1's batch 2.
+FT_LM_ARGS = list(TRAIN_ARGS)
+FT_LM_ARGS[FT_LM_ARGS.index("--model_depth") + 1] = "4"
 FT_SIGTERM_STEP = 8
 # 9b: the reference's path (train.py --epochs 3 --batch_size 64, SGD
 # 0.01) on synthetic MNIST cut from 60,000 to 12,800 images (200 steps an
@@ -6152,7 +6411,7 @@ def _exit_after_save(torch, tmp) -> list:
 
 
 def check_async_save(torch, trainer, tmp) -> tuple[dict, list]:
-    """Phase 9a's asynchronous save at run_lm_bench's width: steady step
+    """Phase 9a's asynchronous save at run_lm_bench's width, depth 4: steady step
     times (CUDA events) without a save and right after one, the time
     save() holds the loop against the blocking save's (async_save=False),
     the time wait() then blocks, the saved epoch restored bit for bit,
@@ -6301,7 +6560,7 @@ def check_lm_preemption(torch, tmp, seen) -> tuple[dict, list]:
     failed, readings = [], {}
 
     def args(name, *extra):
-        return TRAIN_ARGS + FT_DEVICE_ARGS + [
+        return FT_LM_ARGS + FT_DEVICE_ARGS + [
             "--checkpoint_dir", os.path.join(tmp, name),
             "--metrics_file", os.path.join(tmp, f"{name}.jsonl"), *extra]
 
@@ -6313,7 +6572,7 @@ def check_lm_preemption(torch, tmp, seen) -> tuple[dict, list]:
         shutil.rmtree(os.path.join(tmp, name))  # 1.34 GB an epoch
         del t
     bitwise, spread = _state_diff(torch, runs[0], runs[1])
-    log(f"[ft] 9a two uninterrupted runs ({' '.join(TRAIN_ARGS)}): "
+    log(f"[ft] 9a two uninterrupted runs ({' '.join(FT_LM_ARGS)}): "
         + ("bitwise equal" if bitwise else f"spread {spread:.3e}"))
     chaos = ["--chaos", f"sigterm:rank0@step{FT_SIGTERM_STEP}"]
     timing = {}
@@ -6775,15 +7034,18 @@ def write_imagenet(root: str, n: int) -> float:
     return time.perf_counter() - t0
 
 
-def _launches_apart(torch, args, base):
+def _launches_apart(torch, args, base, cls="ImageTrainer"):
     """_train with B1-B3's launches of training and of evaluation apart
-    → (trainer, the printed lines, training launches, eval launches)."""
+    (``cls``: the trainer class whose evaluate_raw is counted; SeqTrainer
+    inherits ImageTrainer's) → (trainer, the printed lines, training
+    launches, eval launches)."""
     from ddp_tpu_torch.ops import flash as fl
     from ddp_tpu_torch.train import trainer as tr
 
     launches = fl.flash_attention.launches
     evals = dict.fromkeys(launches, 0)
-    real = tr.ImageTrainer.evaluate_raw
+    owner = getattr(tr, cls)
+    real = owner.evaluate_raw
 
     def evaluate_raw(self):
         before = dict(launches)
@@ -6794,7 +7056,7 @@ def _launches_apart(torch, args, base):
 
     _zero(launches)
     fl.flash_attention.plain_routed = 0
-    with _patched((tr.ImageTrainer, "evaluate_raw", evaluate_raw)):
+    with _patched((owner, "evaluate_raw", evaluate_raw)):
         trainer, text = _train(args, base)
     torch.cuda.synchronize()
     return trainer, text, {k: launches[k] - evals[k] for k in launches}, evals
@@ -6836,11 +7098,10 @@ def check_resnet50(torch, card, data, tmp) -> tuple[dict, list, object]:
     """10a: ResNet-50 / ImageNet-shaped 224² in bf16 and fp32 through
     main() on the loader path with --num_workers 2: the pool's batch
     counter = the steps, losses finite and falling, the bf16 run's
-    resume exact, the pool's batches = the Python gather's, one step
-    card vs CPU (fp32, batch 4, ReLU masks tied, CNN_STEP_TOL) from the
-    trained weights (from the seeded ones, and at batch 2, readings);
-    readings →
-    (readings, failures, the fp32 trainer)."""
+    resume exact, the pool's batches = the Python gather's, one step on
+    the card (fp32) vs the CPU's fp64 step (batches 2 and 4, ReLU masks
+    tied, CNN_STEP_TOL) from the trained weights (from the seeded ones a
+    reading) → (readings, failures, the fp32 trainer)."""
     readings, failed = {}, []
     trainer = None
     for dname in ("bfloat16", "float32"):
@@ -6866,23 +7127,19 @@ def check_resnet50(torch, card, data, tmp) -> tuple[dict, list, object]:
             failed += _resume_failures(torch, args, RESNET50_ARGS, ckdir)
             failed += _pool_equals_python(torch, trainer)
         else:
-            # Gated from the trained weights: from the seeded ones with
-            # live BatchNorm scales, fp32's own error on ResNet-50 (the
-            # CPU's fp32 step against its fp64 step, masks tied) is
-            # 1.0e-4 to 3.3e-4 of the gradient at batches 2-16, at or
-            # above CNN_STEP_TOL: that comparison is printed, not held.
-            # Batch 4, chosen after a whole run read the trained step's
-            # stem_bn.bias gradient 4.19e-04 off at batch 2 (an H100 80GB
-            # HBM3 at 700 W against the CPU); --step-spread's runs at
-            # batch 2 read <= 6.13e-06.
-            failed += check_resnet_step(torch, trainer, batch=4,
-                                        tag="imagenet", gated=("trained",),
-                                        control="trained")
-            # A reading (ROADMAP C14): batch 2, where one whole run read
-            # stem_bn.bias 4.19e-04 off, with its fp64 witness.
-            check_resnet_step(torch, trainer, batch=2,
-                              tag="imagenet batch 2, a reading", gated=(),
-                              control=None)
+            # Gated from the trained weights at batches 2 and 4, against
+            # the CPU's fp64 step (masks tied; ROADMAP C14): a whole run
+            # read the trained step's stem_bn.bias gradient 4.19e-04 off
+            # the CPU's fp32 step at batch 2, and the fp64 witness put
+            # that error on the CPU's fp32 (the card's step 6.06e-06 off
+            # fp64; an H100 80GB HBM3 at 700 W). From the seeded weights
+            # with live BatchNorm scales, fp32's own error on ResNet-50
+            # is 1.0e-4 to 3.3e-4 of the gradient at batches 2-16: that
+            # set is printed, not held.
+            for batch in (2, 4):
+                failed += check_resnet_step(
+                    torch, trainer, batch=batch, tag=f"imagenet batch {batch}",
+                    gated=("trained",), control="trained", against="fp64")
         torch.cuda.empty_cache()
     return readings, failed, trainer
 
@@ -6892,9 +7149,10 @@ def check_vit224(torch, card, data, tmp) -> tuple[dict, list]:
     B3 = depth x steps in training (evaluation's B1 apart), nothing
     routed to the plain block, no fp32 launch, losses falling, resume
     exact, one step through the kernels against the plain attention
-    (batch 8, bf16 and fp32) within STEP_TOL with VIT_BF16_LOSS_TOL for
-    the bf16 loss, key row 3136's dK/dV held too, and a B3 that drops
-    that row (the ragged tile's last) must fail it → (readings,
+    (batch 8, bf16 and fp32; check_vit_step's gates), key row 3136's
+    dK/dV held too, and a B1 that counts the last tile's zero-filled keys
+    and a B3 that drops that row (the ragged tile's last) must fail it →
+    (readings,
     failures, the trainer)."""
     from ddp_tpu_torch.ops import flash as fl
 
@@ -6921,7 +7179,7 @@ def check_vit224(torch, card, data, tmp) -> tuple[dict, list]:
     failed += _losses_fall(trainer)
     failed += _resume_failures(torch, args, VIT224_ARGS, ckdir)
     failed += check_vit_step(torch, trainer, batch=8, tag="imagenet",
-                             controls={}, tail=True)
+                             tail=True)
     readings = _image_readings(torch, trainer, "vit_tiny imagenet-224 bf16, "
                                "batch 32", card, VIT224_TRAIN_FLOPS)
     readings["launches"] = {n: train[f"{n}_bf16"] for n in FLASH_NAMES}
@@ -7081,20 +7339,23 @@ def check_trainer_flags(torch, tmp) -> list:
     return [] if same and head == 12 else ["--no_shuffle / --num_classes"]
 
 
-def time_vit224_attention(torch) -> dict:
-    """10f: B1-B3 alone at VIT224_SHAPE (B 32, T 3137, H 3, D 64,
-    non-causal), bf16 and fp32: each held to FLASH_TOL against its plain
-    version (out, lse, dq, dk, dv), then timed with its bound and SDPA's
-    forward and whole backward → {"vit224_bf16"|"vit224_fp32": ...}."""
+def check_and_time_flash(torch, shape, prefix, *, check_batch=None,
+                         plain_batch=None, seed=224) -> dict:
+    """B1-B3 alone at ``shape`` (label, B, T, S, H, D, causal), bf16 and
+    fp32: each held to FLASH_TOL against its plain version (out, lse, dq,
+    dk, dv) at ``check_batch`` rows of the batch (all when None), then
+    timed at the whole batch with their bound and SDPA's forward and
+    whole backward (_time_flash, the plain version in chunks of
+    ``plain_batch``) → {f"{prefix}_bf16"|f"{prefix}_fp32": ...}."""
     import torch.nn.functional as F
 
     from ddp_tpu_torch.ops import flash as fl
 
-    label, B, T, S, H, D, causal = VIT224_SHAPE
+    label, B, T, S, H, D, causal = shape
     out, failed = {}, []
     for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
-        q, k, v, dout, dlse = _flash_inputs(torch, B, T, S, H, D, dtype,
-                                            seed=224)
+        q, k, v, dout, dlse = _flash_inputs(torch, check_batch or B, T, S, H,
+                                            D, dtype, seed=seed)
         got = _with_grads(torch, lambda *a: fl.flash_attention_with_lse(
             *a, causal), q, k, v, dout, dlse)
         want = _with_grads(torch, lambda *a: fl.attention_with_lse_reference(
@@ -7107,8 +7368,8 @@ def time_vit224_attention(torch) -> dict:
             for key in keys:
                 ok, text = _compare(torch, got[key], want[key],
                                     FLASH_TOL[dname])
-                log(f"[flash] {dname} {label}: {key}: {text}"
-                    + ("" if ok else "  <-- FAILS"))
+                log(f"[flash] {dname} {label} (B {check_batch or B}): {key}: "
+                    f"{text}" + ("" if ok else "  <-- FAILS"))
                 if not ok:
                     failed.append(f"{dname} {key}")
                 errs[name] = max(errs[name], float(
@@ -7116,10 +7377,10 @@ def time_vit224_attention(torch) -> dict:
                     .nan_to_num(0.0).max()))
         del q, k, v, dout, dlse, got, want
         torch.cuda.empty_cache()
-        out[f"vit224_{dname}"] = _time_flash(torch, F, fl, dtype, dname,
-                                             errs, VIT224_SHAPE)
+        out[f"{prefix}_{dname}"] = _time_flash(torch, F, fl, dtype, dname,
+                                               errs, shape, plain_batch)
     if failed:
-        raise AssertionError(f"10f: B1-B3 at T 3137 vs plain: {failed}")
+        raise AssertionError(f"B1-B3 at {label} vs plain: {failed}")
     return out
 
 
@@ -7161,11 +7422,372 @@ def check_imagenet(torch, card) -> dict:
         failed += [f"10d: {b}" for b in check_profile_dir(torch, small, tmp)]
         failed += [f"10e: {b}" for b in check_trainer_flags(torch, tmp)]
         lap("10d and 10e")
-    readings["flash"] = time_vit224_attention(torch)
+    readings["flash"] = check_and_time_flash(torch, VIT224_SHAPE, "vit224")
     lap("10f")
     log(f"[imagenet] phase 10: {time.perf_counter() - t0:.1f} s on {card}")
     if failed:
         raise AssertionError(f"phase 10: {failed}")
+    return readings
+
+
+# Phase 11: the long-context classifier at the repository's full width
+# (``ddp_tpu/train/config.py``'s defaults and README.md's command: d_model
+# 64, depth 2, 4 heads so head dim 16, seq_dim 16, 10 classes, T 8192,
+# batch 32 a rank), non-causal, at a seq world of 1; Adam 1e-3 (the JAX
+# seq trainer tests' recipe); 128 sequences = 4 steps an epoch.
+LC_ARGS = ["--model", "long_context", "--seq_len", "8192", "--seq_dim", "16",
+           "--batch_size", "32", "--synthetic_size", "128", "--epochs", "2",
+           "--optimizer", "adam", "--lr", "1e-3", "--log_interval", "1000"]
+LC_SHAPE = ("long_context non-causal T=S=8192 D 16", 32, 8192, 8192, 4, 16,
+            False)
+# 11c's plain version runs over the batch in chunks of 4: at B 32 its
+# fp32 logits alone would take 34 GB.
+LC_PLAIN_BATCH = 4
+# The exponentials of one B1 at LC_SHAPE, B·H·T·S, against the H100's
+# exponential unit, ~3.9 TFLOP/s (FlashAttention-3, Shah et al. 2024):
+# a reading beside the bound, not the bound.
+H100_EXP_PER_S = 3.9e12
+# 11d: bench.py run_lm_long_bench (:584), run_lm_bench's model at T 8192:
+# vocab 8192, d 1024, depth 8, 8 heads (D 128), batch 2, bf16, Adam 3e-4,
+# causal; 8 sequences = 4 steps.
+LM_LONG_ARGS = [
+    "--model", "causal_lm", "--dataset", "synthetic_seq",
+    "--synthetic_size", "8", "--seq_len", "8192", "--vocab_size", "8192",
+    "--model_dim", "1024", "--model_depth", "8", "--num_heads", "8",
+    "--batch_size", "2", "--epochs", "1", "--optimizer", "adam",
+    "--lr", "3e-4", "--compute_dtype", "bfloat16",
+]
+LM_LONG_SHAPE = ("LM causal T=S=8192 D 128", 2, 8192, 8192, 8, 128, True)
+LM_LONG_STEP_DEPTH = 2  # 11d's kernel-vs-plain step: 4.3 GB of logits a layer
+# 11e: the BPE tokenizer trained on this repository's README.md.
+BPE_ARGS = ["--model", "causal_lm", "--dataset", "text", "--vocab_size",
+            "1024", "--seq_len", "128", "--batch_size", "8", "--optimizer",
+            "adam", "--lr", "3e-3"]
+# 11f: a small LM, world 2 (per-rank batch 4) against world 1 (batch 8),
+# SGD so that a gradient divided twice moves the parameters (Adam's
+# update would not see the scale).
+W2_ARGS = ["--model", "causal_lm", "--synthetic_size", "64", "--seq_len",
+           "256", "--vocab_size", "512", "--model_dim", "128", "--num_heads",
+           "4", "--epochs", "2", "--optimizer", "sgd", "--lr", "0.1",
+           "--compute_dtype", "float32", "--deterministic"]
+
+
+def _readme() -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "README.md")
+
+
+def check_lc_training(torch, card, tmp) -> tuple[dict, list, object]:
+    """11a: ``main()`` with LC_ARGS in bf16 and fp32: B1 = B2 = B3 = depth
+    x steps in training in the run's dtype (evaluation apart), none in
+    the other, nothing routed; losses finite and falling; resume exact;
+    the step p50, sequences/s and tokens/s, the busy share and B1-B3's
+    share of device time; then one bf16 epoch with --seq_strategy
+    ulysses launching the same kernels → (readings, failures, the bf16
+    trainer)."""
+    from ddp_tpu_torch.ops import flash as fl
+
+    readings, failed, kept = {}, [], None
+    for dname, d in (("bfloat16", "bf16"), ("float32", "fp32")):
+        ckdir = f"{tmp}/lc_{d}"
+        args = ["--checkpoint_dir", ckdir, "--compute_dtype", dname]
+        trainer, _, train, evals = _launches_apart(torch, args, LC_ARGS)
+        routed = fl.flash_attention.plain_routed
+        other = "fp32" if d == "bf16" else "bf16"
+        depth = trainer.spec.depth
+        steps = trainer.steps_per_epoch * trainer.config.epochs
+        log(f"[lc] 11a long_context {d}, T {trainer.config.seq_len}, head dim "
+            f"{trainer.spec.d_model // trainer.spec.num_heads}, depth "
+            f"{depth}, {steps} steps: training launches {train} (depth x "
+            f"steps = {depth * steps}), evaluation {evals}, routed {routed}")
+        for h in trainer.history:
+            log(_epoch_line(h, f"long_context {d},").replace("[cnn]", "[lc]"))
+        failed += [f"{d}: {n} {train[f'{n}_{d}']} training launches, not "
+                   f"{depth * steps}" for n in FLASH_NAMES
+                   if train[f"{n}_{d}"] != depth * steps]
+        if routed or any(train[f"{n}_{other}"] for n in FLASH_NAMES):
+            failed.append(f"{d}: routed {routed}, launches {train}")
+        failed += [f"{d}: {f}" for f in _losses_fall(trainer)]
+        failed += [f"{d}: {f}" for f in
+                   _resume_failures(torch, args, LC_ARGS, ckdir)]
+        h, out = trainer.history[-1], {}
+        busy = profile_cnn_epoch(torch, trainer, f"long_context {d}",
+                                 PROFILE_STEPS, out)
+        rate = trainer.global_batch_size / h["step_p50_s"]
+        T = trainer.config.seq_len
+        log(f"[time] long_context {d} ({card}): step p50 "
+            f"{h['step_p50_s'] * 1e3:.3f} ms, {rate:.2f} sequences/s, "
+            f"{rate * T:.1f} tokens/s at the p50 step "
+            f"({h['images_per_s_per_card'] * T:.1f} over the epoch), busy "
+            f"share {busy:.3f}, B1-B3 {out['flash_share']:.3f} of device "
+            f"time ({out['device_ms']:.3f} ms of kernels a step)")
+        readings[d] = dict(step_p50_ms=h["step_p50_s"] * 1e3,
+                           sequences_per_s=rate, tokens_per_s=rate * T,
+                           busy=busy, **out,
+                           launches={n: train[f"{n}_{d}"]
+                                     for n in FLASH_NAMES})
+        if d == "bf16":
+            kept = trainer
+        else:
+            del trainer
+        torch.cuda.empty_cache()
+    args = ["--checkpoint_dir", f"{tmp}/lc_ulysses", "--compute_dtype",
+            "bfloat16", "--seq_strategy", "ulysses", "--epochs", "1"]
+    trainer, _, train, _ = _launches_apart(torch, args, LC_ARGS)
+    steps = trainer.steps_per_epoch
+    log(f"[lc] 11a --seq_strategy ulysses, bf16, {steps} steps: training "
+        f"launches {train}, routed {fl.flash_attention.plain_routed}")
+    if any(train[f"{n}_bf16"] != kept.spec.depth * steps
+           for n in FLASH_NAMES) or fl.flash_attention.plain_routed:
+        failed.append(f"ulysses: launches {train}")
+    readings["ulysses_bf16"] = {n: train[f"{n}_bf16"] for n in FLASH_NAMES}
+    del trainer
+    torch.cuda.empty_cache()
+    return readings, failed, kept
+
+
+def time_lc_attention(torch) -> dict:
+    """11c: B1-B3 alone at LC_SHAPE, bf16 and fp32, held to FLASH_TOL at
+    B 2 and timed at B 32 (the plain version in chunks of
+    LC_PLAIN_BATCH), with the exponentials one B1 computes beside its
+    bound; then the same at 11d's LM_LONG_SHAPE (B 2, T 8192, H 8, D 128,
+    causal)."""
+    out = check_and_time_flash(torch, LC_SHAPE, "long_context", check_batch=2,
+                               plain_batch=LC_PLAIN_BATCH, seed=11)
+    out.update(check_and_time_flash(torch, LM_LONG_SHAPE, "lm_long", seed=12))
+    _, B, T, S, H, D, _ = LC_SHAPE
+    exps = B * H * T * S
+    for d in ("bf16", "fp32"):
+        b1 = out[f"long_context_{d}"]["flash_attn_fwd"]
+        log(f"[flash] B1 {d} at {LC_SHAPE[0]} B {B}: {exps:.3g} "
+            f"exponentials, {exps / H100_EXP_PER_S * 1e3:.3f} ms at the "
+            f"exponential unit's ~3.9 TFLOP/s (a reading); bound "
+            f"{b1['bound_ms']:.3f} ms ({b1['bound_by']}); kernel "
+            f"{b1['ms']:.3f} ms")
+        out[f"long_context_{d}"]["flash_attn_fwd"]["exp_ms"] = \
+            exps / H100_EXP_PER_S * 1e3
+    return out
+
+
+def check_lm_long(torch, card, tmp) -> tuple[dict, list]:
+    """11d: the causal LM at LM_LONG_ARGS through main(): B1 = B2 = B3 =
+    depth x steps in training (evaluation apart), nothing routed, the
+    loss finite; tokens/s, step p50 and the estimated MFU (bench.py
+    run_lm_bench's flops per token); then one step at depth 2 through
+    the kernels against the plain attention (compare_step's bf16 gate,
+    peak memory printed) → (readings, failures)."""
+    import types
+
+    from ddp_tpu_torch.models.lm import truncated_draft
+    from ddp_tpu_torch.ops import flash as fl
+
+    trainer, _, train, evals = _launches_apart(
+        torch, ["--checkpoint_dir", f"{tmp}/lm_long"], LM_LONG_ARGS,
+        cls="LMTrainer")
+    routed = fl.flash_attention.plain_routed
+    spec = trainer.spec
+    steps = trainer.steps_per_epoch * trainer.config.epochs
+    h = trainer.history[-1]
+    tokens = trainer.global_batch_size * spec.total_len / h["step_p50_s"]
+    mfu = tokens * _lm_flops_per_token(spec) / H100_BF16_FLOPS
+    log(f"[lm-long] 11d run_lm_long_bench's shape, {steps} steps: training "
+        f"launches {train} (depth x steps = {spec.depth * steps}), "
+        f"evaluation {evals}, routed {routed}; losses {h['loss']}")
+    log(f"[time] lm T 8192 bf16 ({card}): step p50 "
+        f"{h['step_p50_s'] * 1e3:.3f} ms, {tokens:.1f} tokens/s, est. MFU "
+        f"{mfu:.4f}")
+    failed = [f"{n}: {train[f'{n}_bf16']} training launches, not "
+              f"{spec.depth * steps}" for n in FLASH_NAMES
+              if train[f"{n}_bf16"] != spec.depth * steps]
+    if routed or not all(np.isfinite(h["loss"])):
+        failed.append(f"routed {routed}, losses {h['loss']}")
+    view = types.SimpleNamespace(
+        model=truncated_draft(trainer.model, LM_LONG_STEP_DEPTH),
+        spec=spec._replace(depth=LM_LONG_STEP_DEPTH), tokens=trainer.tokens,
+        device=trainer.device, compute_dtype=trainer.compute_dtype)
+    try:
+        peak = compare_step(torch, view, "bf16", batch=2, gate="ratio")
+    except AssertionError as e:
+        failed.append(str(e))
+        peak = {}
+    del trainer, view
+    torch.cuda.empty_cache()
+    return dict(step_p50_ms=h["step_p50_s"] * 1e3, tokens_per_s=tokens,
+                mfu=mfu, peak_mb=peak,
+                launches={n: train[f"{n}_bf16"] for n in FLASH_NAMES}), failed
+
+
+def check_bpe(torch, tmp) -> list:
+    """11e: --dataset text on README.md at --vocab_size 1024 on the card,
+    two epochs: tokenizer.json next to the checkpoints, byte-identical to
+    the one a --device cpu run of the same command writes; --epochs 3
+    resumes with the same file (bytes and mtime) and the same splits;
+    the loss falls."""
+    import os
+
+    args = BPE_ARGS + ["--text_file", _readme()]
+    card_dir, cpu_dir = f"{tmp}/bpe_card", f"{tmp}/bpe_cpu"
+    t0 = time.perf_counter()
+    first, _ = _train(args + ["--epochs", "2", "--checkpoint_dir", card_dir],
+                      [])
+    secs = time.perf_counter() - t0
+    path = os.path.join(card_dir, "tokenizer.json")
+    written, mtime = open(path, "rb").read(), os.stat(path).st_mtime_ns
+    again, text = _train(args + ["--epochs", "3", "--checkpoint_dir",
+                                 card_dir], [])
+    cpu, _ = _train(args + ["--epochs", "1", "--device", "cpu",
+                            "--checkpoint_dir", cpu_dir], [])
+    cpu_bytes = open(os.path.join(cpu_dir, "tokenizer.json"), "rb").read()
+    means = [h["train_loss"] for h in first.history + again.history]
+    vocab = len(json.loads(written)["merges"]) + 256
+    log(f"[bpe] 11e README.md at --vocab_size 1024: {vocab} ids, "
+        f"{len(first.train_split.images)} train sequences of 128, "
+        f"tokenizer.json {len(written)} bytes (the first run {secs:.1f} s, "
+        f"training the vocabulary included); the CPU's file "
+        f"{'byte-identical' if cpu_bytes == written else 'DIFFERS'}; "
+        f"resumed: {'Resumed from checkpoint epoch 1' in text}, the file "
+        f"{'unchanged' if open(path, 'rb').read() == written and os.stat(path).st_mtime_ns == mtime else 'CHANGED'}; "
+        f"epoch mean losses {[round(m, 4) for m in means]}")
+    failed = []
+    if cpu_bytes != written:
+        failed.append("the card's tokenizer.json differs from the CPU's")
+    if ("Resumed from checkpoint epoch 1" not in text
+            or open(path, "rb").read() != written
+            or os.stat(path).st_mtime_ns != mtime
+            or not np.array_equal(again.train_split.images,
+                                  first.train_split.images)):
+        failed.append("the resumed run did not reuse tokenizer.json")
+    if not (len(means) == 3 and all(np.isfinite(means))
+            and means[2] < means[1] < means[0]):
+        failed.append(f"the loss does not fall: {means}")
+    del first, again, cpu
+    return failed
+
+
+def _lm_world2_control(torch, argv) -> dict:
+    """The world-2 run with its average divided by the world twice: two
+    ranks in threads on the card (runtime/dist.ThreadWorld), each an
+    LMTrainer's model, optimizer and tokens driven by the LM epoch runner
+    over its strided shard, the bucket summed then halved once more →
+    rank 0's final parameters."""
+    from ddp_tpu_torch.runtime.dist import DistContext, ThreadWorld
+    from ddp_tpu_torch.train import trainer as tr
+    from ddp_tpu_torch.train.config import TrainConfig
+    from ddp_tpu_torch.train.fast import make_lm_epoch_runner
+
+    from ddp_tpu_torch.device import resolve_device
+
+    config = TrainConfig.from_args(argv)
+    device = resolve_device(config.device)
+    tw = ThreadWorld(2)
+
+    def rank_run(r):
+        t = tr.LMTrainer(config, DistContext("gloo", r, 2, device))
+        total = tw.reduce(r)
+        run = make_lm_epoch_runner(
+            t.model, t.optimizer, t.tokens, t.global_batch_size,
+            compute_dtype=t.compute_dtype, seed=config.seed, rank=r, world=2,
+            reduce=lambda x: total(x).div_(2))
+        for epoch in range(config.epochs):
+            run(epoch)
+        return {k: v.detach().cpu() for k, v in t.model.state_dict().items()}
+
+    return tw.run(rank_run)[0]
+
+
+def check_lm_world2(torch, tmp) -> list:
+    """11f: W2_ARGS at world 2 (--spawn 2 --backend gloo, both ranks on the
+    one card, batch 4 each) against three world-1 runs of the same global
+    batch and plan: batch 8, batch 4 with --grad_accum_steps 2 (which sums
+    the same two strided halves world 2's ranks do) and batch 2 with 4
+    steps of accumulation. They differ only in the order of their sums,
+    and their spread (the largest distance between two of them) is the
+    limit (C13's rule): world 2's final parameters must be within it of
+    the nearest (bitwise when the spread is 0); the same run with its
+    average divided by the world twice must not be."""
+    def final(name):
+        return torch.load(f"{tmp}/{name}/epoch_1/state.pt",
+                          weights_only=True)
+
+    def diff(a, b):
+        return max(float((a[k].float() - b[k].float()).abs().max())
+                   for k in a)
+
+    world1 = {"w1_b8": ["--batch_size", "8"],
+              "w1_b4_accum2": ["--batch_size", "4", "--grad_accum_steps", "2"],
+              "w1_b2_accum4": ["--batch_size", "2", "--grad_accum_steps", "4"]}
+    runs = dict(world1, w2_b4=["--batch_size", "4", "--spawn", "2",
+                               "--backend", "gloo"])
+    for name, extra in runs.items():
+        _train(extra + ["--checkpoint_dir", f"{tmp}/{name}"], W2_ARGS)
+    blobs = {name: final(name) for name in runs}
+    steps = {name: b["step"] for name, b in blobs.items()}
+    p = {name: b["params"] for name, b in blobs.items()}
+    names = list(world1)
+    spread = max(diff(p[a], p[b]) for i, a in enumerate(names)
+                 for b in names[i + 1:])
+    w2 = {ref: diff(p["w2_b4"], p[ref]) for ref in names}
+    control = _lm_world2_control(torch, W2_ARGS + ["--batch_size", "4",
+                                                   "--checkpoint_dir",
+                                                   f"{tmp}/w2_control"])
+    ctl = {ref: diff(control, p[ref]) for ref in names}
+    log(f"[lm-w2] 11f steps {steps}; the world-1 runs' spread "
+        f"{spread:.3e}; world 2 (--spawn 2 --backend gloo) vs "
+        + ", ".join(f"{ref} {v:.3e}" for ref, v in w2.items())
+        + "; control, the world-2 average divided twice, vs "
+        + ", ".join(f"{ref} {v:.3e}" for ref, v in ctl.items()))
+    failed = []
+    if len(set(steps.values())) != 1:
+        failed.append(f"the runs took different step counts {steps}")
+    if not min(w2.values()) <= spread:
+        failed.append("world 2 parts from world 1 by more than the spread")
+    if min(ctl.values()) <= spread:
+        failed.append("the check passes a world-2 average divided twice")
+    return failed
+
+
+def check_long_context(torch, card) -> dict:
+    """Phase 11, the long-context slice: 11a the long-context classifier
+    trained at full width through main(); 11b its step through B1-B3
+    against the plain attention; 11c B1-B3 alone at its shape, timed;
+    11d the causal LM at T 8192; 11e the BPE tokenizer; 11f the LM at
+    world 2. Every reading is printed before any raise."""
+    import tempfile
+
+    t0 = s0 = time.perf_counter()
+    failed, readings = [], {}
+
+    def lap(label):
+        nonlocal s0
+        log(f"[lc] {label}: {time.perf_counter() - s0:.1f} s")
+        s0 = time.perf_counter()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lc_") as tmp:
+        readings["train"], bad, trainer = check_lc_training(torch, card, tmp)
+        failed += [f"11a: {b}" for b in bad]
+        lap("11a")
+        rec = {}
+        failed += [f"11b: {b}" for b in check_vit_step(
+            torch, trainer, batch=2, tag="lc", controls={}, tail=True,
+            record=rec)]
+        readings["step"] = rec
+        del trainer
+        torch.cuda.empty_cache()
+        lap("11b")
+        readings["flash"] = time_lc_attention(torch)
+        lap("11c")
+        readings["lm_long"], bad = check_lm_long(torch, card, tmp)
+        failed += [f"11d: {b}" for b in bad]
+        lap("11d")
+        failed += [f"11e: {b}" for b in check_bpe(torch, tmp)]
+        lap("11e")
+        failed += [f"11f: {b}" for b in check_lm_world2(torch, tmp)]
+        lap("11f")
+    log(f"[lc] phase 11: {time.perf_counter() - t0:.1f} s on {card}")
+    if failed:
+        raise AssertionError(f"phase 11: {failed}")
     return readings
 
 
@@ -7603,23 +8225,24 @@ def time_flash_main(argv) -> int:
 
 # --step-spread: the seeds 10b's and 10a's step checks are read at, on
 # the committed 2,048-image split (seed 0 twice: a rerun must repeat its
-# reading), and the batches of ResNet-50's card-vs-CPU step.
+# reading), and the batches of ResNet-50's card-vs-fp64 step.
 SPREAD_VIT_SEEDS = (0, 0, 1, 2, 3, 4)
 SPREAD_RESNET_SEEDS = (0, 1)
 SPREAD_RESNET_BATCHES = (2, 4)
 
 
 def step_spread_main() -> int:
-    """``--step-spread``: readings, not gates. For each of
-    SPREAD_VIT_SEEDS (``--seed``: the weights, the order and the
-    augmentation), 10b's ViT-Tiny 224² run, then its first 8 images'
-    step four ways (B1-B3 and the plain attention, bf16 and fp32) and a
-    fifth, bf16 through PyTorch's FlashAttention-2 (SDPA, which rounds P
-    and dS to bf16 as B1-B3 do): each pair's errors, the gate's pairs
-    judged by 10b's limits, and the bf16 steps against the fp32 plain one
-    (a witness: how far bf16 alone moves each). For each of SPREAD_RESNET_SEEDS, 10a's fp32 ResNet-50 run, then
-    its card-vs-CPU step (check_resnet_step, with its fp64 witness) at
-    each of SPREAD_RESNET_BATCHES. Prints the card and one JSON line."""
+    """``--step-spread``: 10b's and 10a's step checks over seeds. For each
+    of SPREAD_VIT_SEEDS (``--seed``: the weights, the order and the
+    augmentation), 10b's ViT-Tiny 224² run, then 10b's check_vit_step on
+    its first 8 images: the bf16 gate (BF16_GATE_RATIO against SDPA's
+    distance from the exact step), the old 2e-2 reading, the fp32 gate,
+    and both negative controls (a B1 that counts the last tile's
+    zero-filled keys, a B3 that drops key row 3136), each of which must
+    fail at every seed. For each of SPREAD_RESNET_SEEDS, 10a's fp32
+    ResNet-50 run, then its card-vs-fp64 step at each of
+    SPREAD_RESNET_BATCHES. Prints the card and one JSON line; exits 1
+    when a gate fails or a control passes at any seed."""
     import tempfile
 
     import torch
@@ -7628,27 +8251,12 @@ def step_spread_main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from ddp_tpu_torch.ops import _build
-    from ddp_tpu_torch.ops import flash as fl
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build(("flash_attn.cu",))
     card = card_line()
-    bf16_tol = dict(STEP_TOL["bf16"], loss=VIT_BF16_LOSS_TOL)
-
-    def plain(q, k, v):
-        return fl.attention_with_lse_reference(q, k, v, False)[0]
-
-    def library(q, k, v):  # PyTorch's FlashAttention-2: P, dS in bf16 too
-        from torch.nn.attention import SDPBackend, sdpa_kernel
-
-        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-            return torch.nn.functional.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2),
-                v.transpose(1, 2)).transpose(1, 2)
-
-    fns = {"kernel": None, "plain": plain, "sdpa": library}
-    vit, resnet = [], []
+    vit, resnet, bad = [], [], []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spread_") as tmp:
         data = f"{tmp}/imagenet"
         write_imagenet(data, IMAGENET_TRAIN)
@@ -7656,41 +8264,17 @@ def step_spread_main() -> int:
             trainer, _ = _train(["--data_root", data, "--checkpoint_dir",
                                  f"{tmp}/vit{i}", "--seed", str(seed)],
                                 VIT224_ARGS)
-            images, labels = trainer.train_split
-            x = torch.from_numpy(np.array(images[:8])).to(trainer.device)
-            y = torch.from_numpy(labels[:8]).to(trainer.device)
-            steps = {(fn, d): _vit_step(torch, trainer, x, y, fns[fn], dtype)
-                     for fn in ("kernel", "plain")
-                     for d, dtype in (("bf16", torch.bfloat16),
-                                      ("fp32", torch.float32))}
-            steps["sdpa", "bf16"] = _vit_step(torch, trainer, x, y,
-                                              library, torch.bfloat16)
             row = {"seed": seed}
-            for label, a, b, tol in (
-                    ("bf16 kernel vs bf16 plain", ("kernel", "bf16"),
-                     ("plain", "bf16"), bf16_tol),
-                    ("fp32 kernel vs fp32 plain", ("kernel", "fp32"),
-                     ("plain", "fp32"), STEP_TOL["fp32"]),
-                    ("bf16 kernel vs fp32 plain", ("kernel", "bf16"),
-                     ("plain", "fp32"), None),
-                    ("bf16 plain vs fp32 plain", ("plain", "bf16"),
-                     ("plain", "fp32"), None),
-                    ("bf16 SDPA vs fp32 plain", ("sdpa", "bf16"),
-                     ("plain", "fp32"), None),
-                    ("bf16 kernel vs bf16 SDPA", ("kernel", "bf16"),
-                     ("sdpa", "bf16"), None)):
-                e = _grad_errors(steps[a], steps[b])
-                verdict = ("" if tol is None else " within 10b's limits"
-                           if _within(e, tol) else " OUTSIDE 10b's limits")
-                log(f"[spread] vit_tiny 224² seed {seed}: {label}: "
-                    f"{_errors_text(e)}{verdict}")
-                row[label] = {"loss": e["loss"], "grad": e["grad"],
-                              "leaf": list(e["leaf"]),
-                              "attn": list(e["attn"])}
-                if tol is not None:
-                    row[label]["within"] = _within(e, tol)
+            failed = check_vit_step(torch, trainer, batch=8,
+                                    tag=f"spread vit224 seed {seed}",
+                                    tail=True, record=row)
+            log(f"[spread] vit_tiny 224² seed {seed}: "
+                + ("every gate holds and every control fails" if not failed
+                   else str(failed)))
+            row["failed"] = failed
+            bad += failed
             vit.append(row)
-            del trainer, steps
+            del trainer
             torch.cuda.empty_cache()
         for seed in SPREAD_RESNET_SEEDS:
             trainer, _ = _train(["--data_root", data, "--checkpoint_dir",
@@ -7698,20 +8282,21 @@ def step_spread_main() -> int:
                                  "float32", "--seed", str(seed)],
                                 RESNET50_ARGS)
             for batch in SPREAD_RESNET_BATCHES:
-                bad = check_resnet_step(
+                failed = check_resnet_step(
                     torch, trainer, batch=batch,
                     tag=f"spread resnet50 seed {seed} batch {batch}",
-                    gated=("trained",), control="trained")
+                    gated=("trained",), control="trained", against="fp64")
                 log(f"[spread] resnet50 seed {seed} batch {batch}: "
-                    + ("within 10a's limits" if not bad else str(bad)))
+                    + ("within 10a's limits" if not failed else str(failed)))
+                bad += failed
                 resnet.append({"seed": seed, "batch": batch,
-                               "within": not bad})
+                               "within": not failed})
             del trainer
             torch.cuda.empty_cache()
     log(card)
     print(json.dumps({"card": card, "vit224": vit, "resnet50": resnet}),
           flush=True)
-    return 0
+    return 1 if bad else 0
 
 
 def main() -> int:
@@ -7768,6 +8353,7 @@ def main() -> int:
     images = timed("phase 7", check_image_families, torch, card)
     fault = timed("phase 9", check_fault_tolerance, torch, card)
     imagenet = timed("phase 10", check_imagenet, torch, card)
+    lc = timed("phase 11", check_long_context, torch, card)
     log(f"[main] all phases and the build: {time.perf_counter() - t0:.1f} s")
 
     replaces = {"flash_decode_fp32": "ddp_tpu/ops/decode.py:260",
@@ -7847,6 +8433,14 @@ def main() -> int:
             "imagenet_launches": {
                 "vit224": imagenet["vit"]["launches"][name],
                 "vit224_remat": imagenet["remat"]["launches"][name]},
+            # Phase 11: the long-context classifier's training (11a; T
+            # 8192, D 16, non-causal; ring in both dtypes, then Ulysses)
+            # and the causal LM at T 8192 (11d).
+            "long_context_launches": {
+                "bf16": lc["train"]["bf16"]["launches"][name],
+                "fp32": lc["train"]["fp32"]["launches"][name],
+                "ulysses_bf16": lc["train"]["ulysses_bf16"][name]},
+            "lm_long_launches": lc["lm_long"]["launches"][name],
             "variants": {
                 "fp32": {"launches": trained["fp32"][name],
                          **{k: flash["fp32"][name][k] for k in keys}},
@@ -7863,6 +8457,15 @@ def main() -> int:
                        for k in keys},
                     "sdpa_bwd_ms":
                         imagenet["flash"][f"vit224_{d}"][name]["sdpa_bwd_ms"]}
+                   for d in ("bf16", "fp32")},
+                **{f"long_context_{d}": {
+                    "launches": lc["train"][d]["launches"][name],
+                    **lc["flash"][f"long_context_{d}"][name]}
+                   for d in ("bf16", "fp32")},
+                **{f"lm_long_{d}": {
+                    "launches": lc["lm_long"]["launches"][name]
+                    if d == "bf16" else 0,
+                    **lc["flash"][f"lm_long_{d}"][name]}
                    for d in ("bf16", "fp32")}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -36,7 +36,7 @@ _RING = 3  # pinned buffers: one being filled, one in flight, one in use
 
 
 class Batch(NamedTuple):
-    images: torch.Tensor  # [b, H, W, C] uint8, on the device
+    images: torch.Tensor  # [b, H, W, C] uint8 (or [b, T, d] float), on the device
     labels: torch.Tensor  # [b] int32, on the device
 
 
@@ -129,7 +129,8 @@ class ShardedLoader:
         of its last copy), once that copy has left it."""
         if len(self._ring) <= slot:
             lb = self.local_batch_size
-            img = torch.empty((lb, *self.images.shape[1:]), dtype=torch.uint8,
+            img = torch.empty((lb, *self.images.shape[1:]),
+                              dtype=torch.from_numpy(self.images[:0]).dtype,
                               pin_memory=True)
             lbl = torch.empty((lb,), dtype=torch.int32, pin_memory=True)
             self._ring.append([img, lbl, None])

@@ -1,8 +1,9 @@
-"""A text file as byte-level causal-LM data.
+"""A text file as causal-LM data, byte-level or BPE subwords.
 
-A numpy copy of the byte-level branch of ``ddp_tpu/data/text.py``
-(vocab ≤ 256, raw bytes as tokens). The BPE branch (vocab > 256) is not
-ported yet; it raises here.
+A numpy copy of ``ddp_tpu/data/text.py``: ``vocab_size`` ≤ 256 takes
+raw bytes as tokens; above, a BPE tokenizer (``data/bpe.py``) trained on
+the leading train fraction of the byte stream (the test tail never
+shapes the vocabulary), or the one already at ``tokenizer_path``.
 """
 
 from __future__ import annotations
@@ -26,17 +27,22 @@ def load_text_corpus(
     *,
     vocab_size: int = 256,
     test_fraction: float = 0.1,
+    tokenizer_path: str | None = None,
 ) -> tuple[Split, Split]:
-    """File of bytes → (train, test) Splits, chunked into non-overlapping
+    """File of text → (train, test) Splits, chunked into non-overlapping
     ``seq_len`` sequences and cut by sequence index (the test tail never
-    leaks into a training window)."""
-    if vocab_size > 256:
-        raise ValueError(
-            f"--vocab_size {vocab_size} > 256 needs the BPE tokenizer, which "
-            "the port does not have yet; use --vocab_size 256 or less"
-        )
+    leaks into a training window). ``vocab_size > 256``: BPE ids, the
+    tokenizer reused from ``tokenizer_path`` when it exists, else trained
+    and saved there."""
     data = np.fromfile(path, dtype=np.uint8)
-    if vocab_size < 256:
+    if vocab_size > 256:
+        from ddp_tpu_torch.data.bpe import load_or_train
+
+        n_train_bytes = len(data) - max(1, int(len(data) * test_fraction))
+        tok = load_or_train(tokenizer_path, data[:n_train_bytes].tobytes(),
+                            vocab_size)
+        data = tok.encode(data.tobytes())
+    elif vocab_size < 256:
         hi = int(data.max())
         if hi >= vocab_size:
             raise ValueError(
@@ -56,5 +62,7 @@ def load_text_corpus(
     )
     n_test = max(1, int(n_seq * test_fraction))
     n_train = n_seq - n_test
+    if n_train < 1:
+        raise ValueError(f"{path}: corpus too small to split ({n_seq} seqs)")
     mk = lambda t: Split(t, np.zeros(len(t), np.int32))  # noqa: E731
     return mk(tokens[:n_train]), mk(tokens[n_train:])

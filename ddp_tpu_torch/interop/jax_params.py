@@ -1,7 +1,8 @@
 """JAX parameter trees → the port's state dicts: the causal LM's
 (``CausalLM``), SimpleCNN's (:func:`cnn_params_from_jax`), ResNet's
-(:func:`resnet_params_from_jax`, with its BatchNorm ``batch_stats``) and
-ViT's (:func:`vit_params_from_jax`), and back.
+(:func:`resnet_params_from_jax`, with its BatchNorm ``batch_stats``),
+ViT's (:func:`vit_params_from_jax`) and the long-context classifier's
+(:func:`seq_transformer_params_from_jax`), and back.
 
 For the causal LM, the inverse of ``ddp_tpu.models.lm.init_lm``'s tree
 layout (and of a checkpoint's): ``embed`` [V, d], ``pos_embed`` [1, L,
@@ -296,4 +297,16 @@ def vit_params_from_jax(params) -> dict[str, np.ndarray]:
 def vit_params_to_jax(state) -> dict:
     """The port's ``ViT`` state dict (or gradients keyed alike) → the
     nested JAX tree; the inverse of :func:`vit_params_from_jax`."""
+    return _flax_to_jax(state)[0]
+
+
+def seq_transformer_params_from_jax(params) -> dict[str, np.ndarray]:
+    """A JAX ``LongContextTransformer`` ``params`` tree → the port's state
+    dict (Flax names, kernels transposed)."""
+    return _flax_from_jax(params)
+
+
+def seq_transformer_params_to_jax(state) -> dict:
+    """The port's ``LongContextTransformer`` state dict (or gradients
+    keyed alike) → the JAX ``params`` tree of numpy fp32 arrays."""
     return _flax_to_jax(state)[0]

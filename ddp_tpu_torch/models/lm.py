@@ -42,6 +42,7 @@ from ddp_tpu_torch.models.moe import MoEMLP, is_moe_block, moe_init, moe_mlp
 from ddp_tpu_torch.ops.attention import dot_product_attention
 from ddp_tpu_torch.parallel.ddp import StepMetrics, global_norm
 from ddp_tpu_torch.parallel.ring import ring_attention
+from ddp_tpu_torch.runtime.dist import all_reduce_sum
 
 LN_EPS = 1e-6  # Flax's LayerNorm default (torch's is 1e-5)
 
@@ -419,9 +420,18 @@ def make_lm_train_step(
     grad_accum_steps: int = 1,
     label_smoothing: float = 0.0,
     block_fn=None,
+    world: int = 1,
+    reduce=all_reduce_sum,
 ):
-    """The one-rank causal-LM step (``lm.py:572``): ``step(tokens) ->
+    """The causal-LM step (``lm.py:572``): ``step(tokens) ->
     StepMetrics`` updates ``model``'s parameters in place.
+
+    ``world`` > 1: ``tokens`` is this rank's shard of the global batch;
+    the gradients, the loss and the correct count go through one
+    ``reduce`` (a sum over the world in place) of one flat fp32 bucket,
+    and all but the count are divided by the world
+    (``parallel/ddp.make_train_step``'s bucket; JAX's ``pmean`` over the
+    data axis).
 
     ``grad_accum_steps=k`` splits the batch into k STRIDED microbatches
     (rows ``i::k``, ``lm.py:650-656``), sums their gradients and divides
@@ -472,14 +482,34 @@ def make_lm_train_step(
             for p in params:
                 p.grad.div_(grad_accum_steps)
             loss = loss / grad_accum_steps
+        if world > 1:
+            loss, correct = _all_reduce_grads(params, loss, correct, world,
+                                              reduce)
         grads = [p.grad for p in params]
         grad_norm = global_norm(grads)
         optimizer.step()
         return StepMetrics(
-            loss=loss, accuracy=correct / (B * (T - 1)), grad_norm=grad_norm
+            loss=loss, accuracy=correct / (B * world * (T - 1)),
+            grad_norm=grad_norm,
         )
 
     return step
+
+
+def _all_reduce_grads(params, loss, correct, world, reduce):
+    """Sum [every gradient, loss, correct] over the world in one bucket,
+    divide all but the count by the world, put the gradients back →
+    (loss, correct), views no longer of the bucket."""
+    sizes = [p.numel() for p in params]
+    bucket = torch.cat([p.grad.reshape(-1) for p in params]
+                       + [torch.as_tensor(loss).reshape(1).float(),
+                          torch.as_tensor(correct).reshape(1).float()])
+    reduce(bucket)
+    bucket[:-1].div_(world)
+    for p, g in zip(params, bucket[:-2].split(sizes)):
+        p.grad = g.view_as(p)
+    loss, correct = bucket[-2:].clone()
+    return loss, correct
 
 
 def make_lm_eval_step(model: CausalLM, *, compute_dtype=torch.float32):

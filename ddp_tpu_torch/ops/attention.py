@@ -5,6 +5,9 @@ The PyTorch counterpart of ``ddp_tpu/ops/attention.py``:
 - ``dot_product_attention`` — plain torch by design (einsum + softmax):
   the chunked-prefill attention of the serving engine and the dense
   causal forward of ``models/lm.CausalLM``.
+- ``blockwise_attention`` — plain torch by design: the online softmax
+  over key/value blocks, exact, O(T) memory in the key length (the JAX
+  function is a ``lax.scan``, not a Pallas kernel).
 - ``best_attention`` — the framework's default ``(q, k, v) -> out``:
   the flash kernels B1–B3 (``ops/flash.py``) on a CUDA tensor of a
   shape they take, at every length, ``dot_product_attention`` elsewhere. The JAX package switches
@@ -44,6 +47,35 @@ def dot_product_attention(q, k, v, *, causal: bool = False, q_offset=None):
         logits = logits.masked_fill(~mask, MASK_VALUE)
     weights = torch.softmax(logits, dim=-1)
     return torch.einsum("bhts,bshd->bthd", weights.to(dtype), v)
+
+
+def blockwise_attention(q, k, v, *, block_size: int = 512):
+    """Softmax attention over [B, T, H, D] by an online softmax over key
+    blocks of ``block_size`` (one block when ``S % block_size`` != 0, as
+    the JAX function falls back rather than padding with masks). fp32
+    accumulation; the result in q's dtype; non-causal."""
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    if S % block_size:
+        block_size = S
+    qf = q.float()
+    scale = D ** -0.5
+    acc = q.new_zeros((B, H, T, D), dtype=torch.float32)
+    row_max = q.new_full((B, H, T), -torch.inf, dtype=torch.float32)
+    row_sum = q.new_zeros((B, H, T), dtype=torch.float32)
+    for j in range(0, S, block_size):
+        kb = k[:, j:j + block_size].float()
+        vb = v[:, j:j + block_size].float()
+        logits = torch.einsum("bthd,bshd->bhts", qf, kb) * scale
+        new_max = torch.maximum(row_max, logits.amax(dim=-1))
+        correction = torch.exp(row_max - new_max)
+        p = torch.exp(logits - new_max[..., None])
+        acc = acc * correction[..., None] + torch.einsum(
+            "bhts,bshd->bhtd", p, vb)
+        row_sum = row_sum * correction + p.sum(dim=-1)
+        row_max = new_max
+    out = acc / row_sum[..., None]
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def best_attention(*, causal: bool = False):

@@ -12,11 +12,13 @@ import torch.nn.functional as F
 
 def _preprocess(images: torch.Tensor, compute_dtype) -> torch.Tensor:
     """ToTensor's scaling (``common.py:32``): uint8 NHWC → compute dtype,
-    ``/ 255`` in that dtype, as NCHW (a view for one channel)."""
+    ``/ 255`` in that dtype, as NCHW (a view for one channel). Feature
+    sequences [B, T, d] (the long-context model's) only take the dtype."""
     x = images
     if x.dtype == torch.uint8:
         x = x.to(compute_dtype) / torch.tensor(255.0, dtype=compute_dtype)
-    return x.to(compute_dtype).permute(0, 3, 1, 2)
+    x = x.to(compute_dtype)
+    return x.permute(0, 3, 1, 2) if x.dim() == 4 else x
 
 
 def xent(logits32: torch.Tensor, labels: torch.Tensor,

@@ -103,6 +103,7 @@ def make_train_step(
     augment_fn=None,
     seed: int = 0,
     rank: int = 0,
+    strided: bool = False,
 ):
     """``step(images, labels) -> StepMetrics`` (``ddp.py:98-235``):
     this rank's uint8 batch through forward (the model in train mode)
@@ -110,7 +111,8 @@ def make_train_step(
     ``state.step`` counts it.
 
     ``grad_accum_steps=k`` splits the local batch into k contiguous
-    microbatches and averages their gradients; the running statistics
+    microbatches (``strided``: rows ``i::k``, the sequence models'
+    split) and averages their gradients; the running statistics
     advance once a microbatch (``grad_accum_scan`` threads
     ``model_state``). ``augment_fn(key, x)`` (``data/augment``) runs on
     the scaled batch with the key of (``seed``, step, ``rank``,
@@ -145,7 +147,8 @@ def make_train_step(
                 mb = check_accum_divisible(n, grad_accum_steps)
                 loss = correct = 0.0
                 for i in range(grad_accum_steps):
-                    rows = slice(i * mb, (i + 1) * mb)
+                    rows = (slice(i, None, grad_accum_steps) if strided
+                            else slice(i * mb, (i + 1) * mb))
                     l_i, c_i = _loss_and_correct(
                         model, images[rows], labels[rows], compute_dtype,
                         label_smoothing, augment_fn, key(i))

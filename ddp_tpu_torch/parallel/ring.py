@@ -18,9 +18,15 @@ module ports exactly that:
   two partial results over disjoint keys; differentiable, so it pins the
   lse gradient of the kernels.
 - :func:`ring_attention` at world size 1.
+- :func:`ulysses_attention` at world size 1: the all-to-alls that trade
+  the sequence shard for a head shard are the identity there, so it is
+  the size dispatch ``ops.attention.best_attention`` over the full
+  sequence (B1–B3 through ``flash_attention``).
+- :func:`sequence_sharded_attention`, the dispatch between the two that
+  the long-context model calls.
 
 The multi-rank ring and Ulysses over ``torch.distributed`` wait for a
-later slice (ROADMAP A3).
+later slice (ROADMAP A2.5); a ``seq`` world above 1 raises.
 """
 
 from __future__ import annotations
@@ -84,7 +90,7 @@ def combine_attention_partials(o1, l1, o2, l2):
 
 def ring_attention(q, k, v, *, causal: bool = False, block_fn=None):
     """Exact attention over a ``seq`` ring of one rank, where the ring is
-    its hop-0 (diagonal) block; the multi-rank ring is ROADMAP A3.
+    its hop-0 (diagonal) block; the multi-rank ring is ROADMAP A2.5.
 
     ``block_fn(q, k, v, causal) -> (out, lse)`` defaults to
     :func:`default_block_fn`. The result is in q's dtype, as the JAX
@@ -92,3 +98,33 @@ def ring_attention(q, k, v, *, causal: bool = False, block_fn=None):
     """
     o, _ = (block_fn or default_block_fn)(q, k, v, causal)
     return o.to(q.dtype)
+
+
+def _one_rank(seq_world: int) -> None:
+    if seq_world != 1:
+        raise NotImplementedError(
+            f"a seq world of {seq_world}: the multi-rank ring and Ulysses "
+            "wait for ROADMAP A2.5; the port runs a seq world of 1"
+        )
+
+
+def ulysses_attention(q, k, v, *, causal: bool = False, seq_world: int = 1):
+    """All-to-all sequence parallelism over a ``seq`` world of one: the
+    re-shards are the identity, so it is ``best_attention`` over the full
+    sequence and every head, in q's dtype."""
+    from ddp_tpu_torch.ops.attention import best_attention
+
+    _one_rank(seq_world)
+    return best_attention(causal=causal)(q, k, v)
+
+
+def sequence_sharded_attention(q, k, v, *, strategy: str = "ring",
+                               causal: bool = False, seq_world: int = 1):
+    """``strategy`` ∈ {"ring", "ulysses"} over a ``seq`` world of
+    ``seq_world`` ranks (only 1 for now)."""
+    if strategy == "ring":
+        _one_rank(seq_world)
+        return ring_attention(q, k, v, causal=causal)
+    if strategy == "ulysses":
+        return ulysses_attention(q, k, v, causal=causal, seq_world=seq_world)
+    raise ValueError(f"unknown sequence-parallel strategy {strategy!r}")

@@ -1,6 +1,8 @@
-"""Flags of ``python -m ddp_tpu_torch.train`` (the image-model and
-causal-LM subset of ``ddp_tpu/train/config.py``, under the JAX names and
-defaults), with the JAX trainer's guards on them."""
+"""Flags of ``python -m ddp_tpu_torch.train`` (the image-model,
+long-context and causal-LM subset of ``ddp_tpu/train/config.py``, under
+the JAX names and defaults), with the JAX trainer's guards on them. The
+sequence models run a ``seq`` world of one: ``--mesh_seq`` above 1 is
+refused, naming ROADMAP A2.5."""
 
 from __future__ import annotations
 
@@ -9,11 +11,11 @@ import dataclasses
 
 from ddp_tpu_torch.models import IMAGE_MODELS
 
-MODELS = IMAGE_MODELS + ("causal_lm",)
+SEQ_MODELS = ("long_context", "causal_lm")
+MODELS = IMAGE_MODELS + SEQ_MODELS
 # JAX-package models the port does not train yet, by name prefix, with the
-# ROADMAP item that brings them: the long-context classifier (A2.4) and
-# the pipelined ViT (A4).
-UNPORTED = {"long_context": "A2.4", "pipe_vit": "A4"}
+# ROADMAP item that brings them: the pipelined ViT (A4).
+UNPORTED = {"pipe_vit": "A4"}
 IMAGE_DATASETS = ("mnist", "fashion_mnist", "kmnist", "uci_digits",
                   "cifar10", "cifar100", "imagenet")
 SEQ_DATASETS = ("synthetic_seq", "text")
@@ -22,7 +24,8 @@ SEQ_DATASETS = ("synthetic_seq", "text")
 @dataclasses.dataclass
 class TrainConfig:
     model: str = "simple_cnn"
-    # "auto": mnist for the image models, synthetic_seq for causal_lm.
+    # "auto": mnist for the image models, synthetic_seq for the sequence
+    # models.
     dataset: str = "auto"
     data_root: str = "./data"
     synthetic_data: bool = False  # image models: the offline synthetic split
@@ -34,8 +37,12 @@ class TrainConfig:
     # The native C++ gather pool (``native/dataio.cpp``) of the loader
     # path, gated as JAX's: batches of at least 1 MiB and a spare core.
     num_workers: int = 2
-    num_classes: int | None = None  # None: the dataset's
+    num_classes: int | None = None  # None: the dataset's (long_context: 10)
     seq_len: int = 2048
+    seq_dim: int = 16  # long_context: input feature channels per token
+    seq_strategy: str = "ring"  # long_context's attention: ring | ulysses
+    # Tokens sharded over this many ranks: only 1 for now (ROADMAP A2.5).
+    mesh_seq: int = 1
     vocab_size: int = 256
     model_dim: int | None = None  # None → 64
     model_depth: int | None = None  # None → 2 (causal_lm), the model's own
@@ -50,7 +57,7 @@ class TrainConfig:
     moe_top_k: int = 2
     moe_raw_gates: bool = False
     # Recompute each residual/encoder block in the backward instead of
-    # keeping its activations (resnet*, vit*, vit_moe*).
+    # keeping its activations (resnet*, vit*, vit_moe*, long_context).
     remat: bool = False
     batch_size: int = 32  # per rank (data shard)
     epochs: int = 10
@@ -72,7 +79,7 @@ class TrainConfig:
     checkpoint_dir: str = "./checkpoints"
     max_checkpoints: int | None = None  # None = keep all
     resume_epoch: int | None = None  # rewind: later epochs are deleted
-    # Image models only: evaluation, logging, the fast path, the ranks.
+    # Evaluation, logging, the fast path (not long_context), the ranks.
     eval_every: int = 1  # epochs between test-split evals (0 = only final)
     log_interval: int = 100
     fast_epoch: bool = False  # dataset on the device, one host read an epoch
@@ -121,9 +128,9 @@ class TrainConfig:
     def parser(cls) -> argparse.ArgumentParser:
         p = argparse.ArgumentParser(
             prog="python -m ddp_tpu_torch.train",
-            description="Train an image model (SimpleCNN, ResNet, ViT) "
-            "data-parallel, or the causal LM on one GPU (the PyTorch/CUDA "
-            "port of train.py).",
+            description="Train an image model (SimpleCNN, ResNet, ViT), "
+            "the long-context classifier or the causal LM data-parallel "
+            "(the PyTorch/CUDA port of train.py).",
         )
         choices = {
             "optimizer": ("sgd", "adam", "adamw"),
@@ -131,6 +138,7 @@ class TrainConfig:
             "dataset": ("auto",) + IMAGE_DATASETS + SEQ_DATASETS,
             "backend": ("nccl", "gloo"),
             "augment": ("none", "crop_flip", "flip", "shift"),
+            "seq_strategy": ("ring", "ulysses"),
         }
         for f in dataclasses.fields(cls):
             kw = {"default": f.default}
@@ -166,7 +174,31 @@ class TrainConfig:
                 f"{', '.join(MODELS)}"
                 + (f"; {config.model} waits for ROADMAP {item}" if item else "")
             )
-        # JAX's guards (``ddp_tpu/train/trainer.py:251-262``).
+        # JAX's guards (``ddp_tpu/train/trainer.py:251-262``, ``:284-291``,
+        # ``:585-599``, ``:691-695``).
+        if config.mesh_seq > 1 and config.model not in SEQ_MODELS:
+            raise ValueError(
+                "--mesh_seq shards tokens, which only the sequence models "
+                "have: use --model long_context, causal_lm, or pipe_lm "
+                "(PP×SP)"
+            )
+        if config.mesh_seq < 1:
+            raise ValueError(f"--mesh_seq must be >= 1, got {config.mesh_seq}")
+        if config.seq_len % config.mesh_seq:
+            raise ValueError(f"--seq_len {config.seq_len} not divisible by "
+                             f"--mesh_seq {config.mesh_seq}")
+        if config.mesh_seq > 1:
+            raise ValueError(
+                f"--mesh_seq {config.mesh_seq}: the port runs a seq world of "
+                "1; the multi-rank ring and Ulysses wait for ROADMAP A2.5"
+            )
+        if config.model == "long_context" and (
+                config.fast_epoch or config.augment != "none"):
+            raise ValueError(
+                "--model long_context composes with the data axis, "
+                "accumulation, label smoothing and bf16 — but not augment, "
+                "or --fast_epoch (causal_lm only)"
+            )
         if config.moe_experts and config.model != "causal_lm":
             raise ValueError(
                 "--moe_experts routes the causal LM's MLPs: use --model "
@@ -200,10 +232,6 @@ class TrainConfig:
                     "start one rank of a world by hand; --spawn and "
                     "--max_restarts start the ranks themselves"
                 )
-            if config.model == "causal_lm" and config.num_processes > 1:
-                raise ValueError(
-                    "--model causal_lm trains on one card: no multi-host "
-                    "world")
         # The supervisor's guards (``train.py:79-96``).
         if config.min_world != cls.min_world and not config.elastic:
             raise ValueError(

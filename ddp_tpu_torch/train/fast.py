@@ -150,19 +150,31 @@ def make_lm_epoch_runner(
     grad_accum_steps: int = 1,
     label_smoothing: float = 0.0,
     permutation=None,
+    rank: int = 0,
+    world: int = 1,
+    reduce=all_reduce_sum,
 ):
     """``run(epoch) -> StepMetrics`` of [steps] device tensors.
 
     ``tokens`` [N, T] int lives on the model's device; the tail that
-    does not fill a batch is dropped. ``run(epoch, skip_batches,
+    does not fill a batch is dropped. Over a ``world`` of ranks, rank
+    ``r`` takes rows ``r::world`` of each global batch of the epoch's
+    plan (padded by wrapping to a multiple of the world): the loader's
+    strided shards (``data/sampler.ShardSampler``), so one step's union
+    over the ranks is the world-1 batch; the step all-reduces once
+    (``models/lm.make_lm_train_step``). ``run(epoch, skip_batches,
     between)`` starts at batch ``skip_batches`` of the epoch's plan (a
     preempted epoch's re-entry) and hands ``between`` to
     :func:`run_steps`. ``run.step_seconds`` holds the
     last epoch's per-step times (CUDA events on a GPU, read after the
     epoch's one host sync).
     """
+    if global_batch_size % world:
+        raise ValueError(
+            f"global batch {global_batch_size} not divisible by {world} ranks")
     n = tokens.shape[0]
-    steps = n // global_batch_size
+    padded = -(-n // world) * world
+    steps = padded // global_batch_size
     if steps == 0:
         raise ValueError(
             f"dataset of {n} sequences yields zero batches of "
@@ -173,13 +185,16 @@ def make_lm_epoch_runner(
     step = make_lm_train_step(
         model, optimizer, compute_dtype=compute_dtype,
         grad_accum_steps=grad_accum_steps, label_smoothing=label_smoothing,
+        world=world, reduce=reduce,
     )
 
     def run(epoch: int, skip_batches: int = 0, between=None) -> StepMetrics:
         perm = torch.as_tensor(np.array(plan(epoch)), dtype=torch.long)
+        if padded > n:
+            perm = torch.cat([perm, perm[:padded - n]])
         perm = perm.to(tokens.device, non_blocking=True)
         G = global_batch_size
-        batches = ((tokens[perm[t * G:(t + 1) * G]],)
+        batches = ((tokens[perm[t * G:(t + 1) * G][rank::world]],)
                    for t in range(skip_batches, steps))
         metrics, run.marks = run_steps(step, batches,
                                        on_gpu=tokens.device.type == "cuda",

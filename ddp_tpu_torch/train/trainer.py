@@ -18,14 +18,26 @@ statistics, and an evaluation on the test split every ``eval_every``
 epochs. Rank 0 prints the JAX trainer's log lines (0-based epoch tags, as
 the reference's checkpoints) and ``final_accuracy=``.
 
+:class:`SeqTrainer` runs the long-context classifier
+(``--model long_context``, ``models/seq_transformer``; ``trainer.py``'s
+seq mode) through the same machinery: synthetic [N, T, seq_dim] feature
+sequences (``data/sequences.synthetic``) on the loader path without the
+native pool, the step with strided microbatches, every block's attention
+through ``parallel/ring.sequence_sharded_attention`` at a ``seq`` world
+of one (B1–B3 on the card).
+
 :class:`LMTrainer` trains the causal LM, dense or expert-routed
-(``--moe_experts``), on one card
-(``trainer.py:812-966``, causal-LM subset): synthetic token streams or a
-byte-level text file, fp32 master weights, the epoch runner of
-``train/fast.py``, one host read per epoch, a checkpoint every epoch
-(with the ``lm_spec.json`` sidecar that ``python -m ddp_tpu_torch.serve
---checkpoint_dir`` reads) and auto-resume with the Adam state and the
-step count, as the image trainer's. It runs one rank (ROADMAP A2.4).
+(``--moe_experts``), data-parallel (``trainer.py:812-966``, causal-LM
+subset): synthetic token streams or a text file, bytes or BPE subwords
+(``--vocab_size`` > 256: the tokenizer trained on the corpus, written by
+rank 0 to ``tokenizer.json`` next to the checkpoints and reused from
+there), fp32 master weights, the epoch runner of ``train/fast.py`` (each
+rank its strided shard of the global batch ``batch_size × world ×
+grad_accum_steps``, one gradient all-reduce a step), one host read per
+epoch, a checkpoint every epoch from rank 0 (with the ``lm_spec.json``
+sidecar that ``python -m ddp_tpu_torch.serve --checkpoint_dir`` reads)
+and auto-resume with the Adam state and the step count, as the image
+trainer's.
 
 Both carry the fault-tolerance layer (:class:`_FaultTolerant`,
 ``trainer.py:1938-2523``): SIGTERM checkpoints the epoch in flight with
@@ -75,6 +87,11 @@ from ddp_tpu_torch.models.lm import (
     init_lm_state,
     make_lm_eval_step,
 )
+from ddp_tpu_torch.models.seq_transformer import (
+    SeqTransformerSpec,
+    init_seq_transformer,
+)
+from ddp_tpu_torch.models.seq_transformer import build_model as build_seq_model
 from ddp_tpu_torch.obs.recorder import build_info
 from ddp_tpu_torch.parallel.ddp import TrainState, make_eval_step, make_train_step
 from ddp_tpu_torch.runtime import dist, launch
@@ -109,24 +126,42 @@ logger = logging.getLogger("ddp_tpu_torch")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def build_splits(config: TrainConfig) -> tuple[Split, Split]:
-    """(train, test) token splits: a train split of ``synthetic_size``
-    sequences at ``seed`` and a test split of max(1, n // 6) at
-    ``seed + 1`` (``trainer.py:842-858``), or the text file's."""
+TOKENIZER_FILE = "tokenizer.json"
+
+
+def build_splits(config: TrainConfig, *,
+                 tokenizer_path: str | None = None) -> tuple[Split, Split]:
+    """(train, test) splits of a sequence model (``trainer.py:842-858``):
+    a train split of ``synthetic_size`` sequences at ``seed`` and a test
+    split of max(1, n // 6) at ``seed + 1`` — token streams for the causal
+    LM, labelled feature sequences for long_context — or the text file's
+    (the causal LM only; a BPE vocabulary at, or saved to,
+    ``tokenizer_path``)."""
+    token_mode = config.model == "causal_lm"
     if config.dataset == "text":
+        if not token_mode:
+            raise ValueError(
+                "--dataset text is causal-LM data (bytes, no class labels): "
+                "use --model causal_lm or pipe_lm")
         if not config.text_file:
             raise ValueError("--dataset text needs --text_file PATH")
         return load_text_corpus(
-            config.text_file, config.seq_len, vocab_size=config.vocab_size
+            config.text_file, config.seq_len, vocab_size=config.vocab_size,
+            tokenizer_path=tokenizer_path,
         )
     if config.dataset not in ("auto", "synthetic_seq"):
         raise ValueError(
-            f"--model causal_lm trains on sequences, not {config.dataset!r}: "
-            "use --dataset synthetic_seq or --dataset text"
+            f"--model {config.model} trains on sequences, not "
+            f"{config.dataset!r}: use --dataset synthetic_seq, --dataset "
+            "text (or leave --dataset unset)"
         )
     n = config.synthetic_size or 2048
 
     def split(count, seed):
+        if not token_mode:
+            return sequences.synthetic(
+                count, total_len=config.seq_len, d_in=config.seq_dim,
+                num_classes=config.num_classes or 10, seed=seed)
         toks = sequences.synthetic_tokens(
             count, total_len=config.seq_len, vocab_size=config.vocab_size,
             seed=seed,
@@ -134,6 +169,18 @@ def build_splits(config: TrainConfig) -> tuple[Split, Split]:
         return Split(toks, np.zeros(count, np.int32))
 
     return split(n, config.seed), split(max(1, n // 6), config.seed + 1)
+
+
+def check_ulysses_heads(num_heads: int, mesh_model: int, mesh_seq: int):
+    """Ulysses re-shards each model member's local heads over ``seq``
+    (``trainer.py:91``): they must divide by ``mesh_seq``."""
+    local_heads = num_heads // max(1, mesh_model)
+    if local_heads % max(1, mesh_seq):
+        raise ValueError(
+            f"ulysses shards attention heads: {local_heads} heads per model "
+            f"shard ({num_heads} total / --mesh_model {mesh_model}) not "
+            f"divisible by --mesh_seq {mesh_seq}"
+        )
 
 
 def restore_or_init(ckpt: CheckpointManager, state: TrainState,
@@ -598,15 +645,21 @@ class _FaultTolerant:
 class LMTrainer(_FaultTolerant):
     lm_mode = True
 
-    def __init__(self, config: TrainConfig):
+    def __init__(self, config: TrainConfig,
+                 ctx: dist.DistContext | None = None):
+        """``ctx`` None: one rank, no process group."""
         if config.model != "causal_lm":
             raise ValueError(f"LMTrainer trains --model causal_lm, not "
                              f"{config.model!r}")
         self.config = config
-        self.rank, self.world = 0, 1
-        self.device = resolve_device(config.device)
+        if ctx is None:
+            self.rank, self.world = 0, 1
+            self.device = resolve_device(config.device)
+        else:
+            self.rank, self.world = ctx.process_id, ctx.num_processes
+            self.device = ctx.device
         self.compute_dtype = DTYPES[config.compute_dtype]
-        self.train_split, self.test_split = build_splits(config)
+        self.train_split, self.test_split = self._splits()
         self.spec = LMSpec(
             vocab_size=config.vocab_size,
             total_len=config.seq_len,
@@ -619,9 +672,11 @@ class LMTrainer(_FaultTolerant):
             moe_top_k=config.moe_top_k,
             moe_normalize_gates=not config.moe_raw_gates,
         )
-        self.per_shard_batch = self.global_batch_size = config.batch_size
+        self.per_shard_batch = config.batch_size
+        self.global_batch_size = (config.batch_size * self.world
+                                  * config.grad_accum_steps)
         if config.elastic:
-            self._honour_elastic_contract(1)
+            self._honour_elastic_contract(self.world)
         self.model = CausalLM.from_state(
             self.spec, init_lm_state(self.spec, seed=config.seed),
             self.device, trainable=True,
@@ -638,6 +693,7 @@ class LMTrainer(_FaultTolerant):
             compute_dtype=self.compute_dtype, seed=config.seed,
             grad_accum_steps=config.grad_accum_steps,
             label_smoothing=config.label_smoothing,
+            rank=self.rank, world=self.world,
         )
         self.steps_per_epoch = self.runner.steps_per_epoch
         self.eval_step = make_lm_eval_step(
@@ -645,21 +701,44 @@ class LMTrainer(_FaultTolerant):
         )
         self.state = TrainState(step=0, model=self.model,
                                 optimizer=self.optimizer)
+        self.is_main = self.rank == 0
         self.ckpt = CheckpointManager(
             config.checkpoint_dir, max_to_keep=config.max_checkpoints,
+            is_main=self.is_main,
             keep_best_metric="accuracy" if config.keep_best else None,
         )
         self.history: list[dict] = []
-        self._init_fault_tolerance(is_main=True)
+        self._init_fault_tolerance(is_main=self.is_main)
+        if self.world > 1:
+            n = sum(p.numel() for p in self.optimizer.params)
+            self._comm_bytes = int(2 * (self.world - 1) / self.world * n * 4)
+
+    def _splits(self) -> tuple[Split, Split]:
+        """The data splits; a BPE vocabulary is trained and written by
+        rank 0 (or read where it exists), and the other ranks read it
+        after a barrier."""
+        cfg = self.config
+        path = os.path.join(cfg.checkpoint_dir, TOKENIZER_FILE)
+        if self.world == 1 or self.rank == 0:
+            splits = build_splits(cfg, tokenizer_path=path)
+        if self.world > 1:
+            dist.sync_global_devices("tokenizer")
+            if self.rank:
+                splits = build_splits(cfg, tokenizer_path=path)
+        return splits
 
     def log(self, msg: str) -> None:
-        print(msg, flush=True)
+        if self.rank == 0:
+            print(msg, flush=True)
 
     def evaluate_raw(self) -> tuple[float, float]:
-        """Test-split (accuracy, loss): padded with wraparound to a batch
-        multiple, padding weighted 0, totals divided by the split size."""
+        """Test-split (accuracy, loss): padded with wraparound to a
+        global batch multiple, the padding weighted 0, each rank feeding
+        its contiguous slice of every batch, totals summed over the world
+        and divided by the split size."""
         tokens = self.test_split.images
-        bs = self.per_shard_batch
+        local = self.per_shard_batch
+        bs = local * self.world
         n = len(tokens)
         padded = -(-n // bs) * bs
         weights = np.ones(padded, np.float32)
@@ -667,19 +746,24 @@ class LMTrainer(_FaultTolerant):
         idx = np.arange(padded) % n
         acc = loss = torch.zeros((), device=self.device)
         for b in range(padded // bs):
-            sel = idx[b * bs:(b + 1) * bs]
+            lo = b * bs + self.rank * local
             a, l = self.eval_step(
-                torch.as_tensor(tokens[sel]).to(self.device),
-                torch.as_tensor(weights[b * bs:(b + 1) * bs]).to(self.device),
+                torch.as_tensor(tokens[idx[lo:lo + local]]).to(self.device),
+                torch.as_tensor(weights[lo:lo + local]).to(self.device),
             )
             acc, loss = acc + a, loss + l
             self.watchdog.beat()
-        return float(acc) / n, float(loss) / n
+        totals = torch.stack([acc, loss])
+        if self.world > 1:
+            dist.all_reduce_sum(totals)
+        acc, loss = totals.tolist()
+        return acc / n, loss / n
 
     def _before_train(self) -> None:
         # The sidecar is written here, not at construction: a trainer
         # that never trains creates no checkpoint directory.
-        save_lm_spec(self.config.checkpoint_dir, self.spec)
+        if self.is_main:
+            save_lm_spec(self.config.checkpoint_dir, self.spec)
 
     def _step_count(self) -> int:
         return self.optimizer.count
@@ -710,13 +794,11 @@ class LMTrainer(_FaultTolerant):
         if last_eval is not None:
             rec["test_accuracy"], rec["test_loss"] = last_eval
             test = f" | test loss {last_eval[1]:.4f} acc {last_eval[0]:.4f}"
-        print(
+        self.log(
             f"epoch {rec['epoch']}/{self.config.epochs}: train loss "
             f"{rec['train_loss']:.4f} acc {rec['train_accuracy']:.4f}{test} | "
             f"{rec['tokens_per_s']:.1f} tokens/s, step p50 "
-            f"{rec['step_p50_s'] * 1e3:.2f} ms ({self.device})",
-            flush=True,
-        )
+            f"{rec['step_p50_s'] * 1e3:.2f} ms ({self.device})")
 
     def _log_final(self, acc, loss) -> None:
         pass
@@ -731,39 +813,23 @@ class ImageTrainer(_FaultTolerant):
     every image model, as in the JAX trainer; ``--num_classes`` overrides
     the dataset's class count (``trainer.py:762``)."""
 
+    # The sequence models split accumulation into strided microbatches;
+    # the image models into contiguous ones (``parallel/ddp``).
+    strided_accum = False
+    num_workers = None  # None: --num_workers
+
     def __init__(self, config: TrainConfig, ctx: dist.DistContext):
-        if config.model not in IMAGE_MODELS:
-            raise ValueError(f"ImageTrainer trains {IMAGE_MODELS}, not "
-                             f"{config.model!r}")
         self.config, self.ctx = config, ctx
         self.device = ctx.device
         self.rank, self.world = ctx.process_id, ctx.num_processes
-        self.dataset = "mnist" if config.dataset == "auto" else config.dataset
-        if self.dataset not in IMAGE_DATASETS:
-            raise ValueError(f"--model {config.model} trains on images, not "
-                             f"{self.dataset!r}")
-        self.train_split, self.test_split = load_dataset(
-            self.dataset, config.data_root,
-            allow_synthetic=config.synthetic_data,
-            synthetic_size=config.synthetic_size,
-        )
+        self.train_split, self.test_split = self._splits()
         self.compute_dtype = DTYPES[config.compute_dtype]
         self.per_shard_batch = config.batch_size
         self.global_batch_size = (config.batch_size * self.world
                                   * config.grad_accum_steps)
         if config.elastic:
             self._honour_elastic_contract(self.world)
-        _, side, _, channels = self.train_split.images.shape
-        self.num_classes = config.num_classes or NUM_CLASSES[self.dataset]
-        model = get_model(
-            config.model, num_classes=self.num_classes, side=side,
-            in_channels=channels,
-            **({"depth": config.model_depth} if config.model_depth else {}),
-            **({"remat": True} if config.remat else {}),
-        )
-        model.load_state_dict({k: torch.from_numpy(v) for k, v in
-                               model.init_state(config.seed).items()})
-        model = model.to(self.device)
+        model = self._model().to(self.device)
         augment_fn = get_augmentation(config.augment)
         self.lr_schedule = make_schedule(
             config.lr, warmup_steps=config.warmup_steps,
@@ -797,7 +863,9 @@ class ImageTrainer(_FaultTolerant):
                 self.train_split.images, self.train_split.labels,
                 self.global_batch_size, rank=self.rank, world=self.world,
                 device=self.device, seed=config.seed,
-                shuffle=config.shuffle, num_workers=config.num_workers,
+                shuffle=config.shuffle,
+                num_workers=(config.num_workers if self.num_workers is None
+                             else self.num_workers),
             )
             self.steps_per_epoch = self.loader.steps_per_epoch()
             self.train_step = make_train_step(
@@ -806,6 +874,7 @@ class ImageTrainer(_FaultTolerant):
                 grad_accum_steps=config.grad_accum_steps,
                 label_smoothing=config.label_smoothing,
                 augment_fn=augment_fn, seed=config.seed, rank=self.rank,
+                strided=self.strided_accum,
             )
         self.ckpt = CheckpointManager(
             config.checkpoint_dir, max_to_keep=config.max_checkpoints,
@@ -818,6 +887,35 @@ class ImageTrainer(_FaultTolerant):
         # bytes (``parallel/zero.py:981``'s analytic payload).
         n = sum(p.numel() for p in self.optimizer.params)
         self._comm_bytes = int(2 * (self.world - 1) / self.world * n * 4)
+
+    def _splits(self):
+        """(train, test) image splits of ``--dataset`` (auto: mnist)."""
+        cfg = self.config
+        if cfg.model not in IMAGE_MODELS:
+            raise ValueError(f"ImageTrainer trains {IMAGE_MODELS}, not "
+                             f"{cfg.model!r}")
+        self.dataset = "mnist" if cfg.dataset == "auto" else cfg.dataset
+        if self.dataset not in IMAGE_DATASETS:
+            raise ValueError(f"--model {cfg.model} trains on images, not "
+                             f"{self.dataset!r}")
+        return load_dataset(self.dataset, cfg.data_root,
+                            allow_synthetic=cfg.synthetic_data,
+                            synthetic_size=cfg.synthetic_size)
+
+    def _model(self):
+        """The registry's model with its seeded weights, on the CPU."""
+        cfg = self.config
+        _, side, _, channels = self.train_split.images.shape
+        self.num_classes = cfg.num_classes or NUM_CLASSES[self.dataset]
+        model = get_model(
+            cfg.model, num_classes=self.num_classes, side=side,
+            in_channels=channels,
+            **({"depth": cfg.model_depth} if cfg.model_depth else {}),
+            **({"remat": True} if cfg.remat else {}),
+        )
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                               model.init_state(cfg.seed).items()})
+        return model
 
     def log(self, msg: str) -> None:
         if self.ctx.is_main:
@@ -902,15 +1000,52 @@ class ImageTrainer(_FaultTolerant):
         return float(acc) / n, float(loss) / n
 
 
+class SeqTrainer(ImageTrainer):
+    """The long-context classifier (``--model long_context``) on the image
+    trainer's data-parallel machinery: synthetic feature sequences from
+    ``--seq_len``, ``--seq_dim`` and ``--num_classes`` (default 10), the
+    loader path without the native pool (float sequences; JAX's
+    ``num_workers=0``), strided microbatches, the model of
+    ``models/seq_transformer`` with ``--seq_strategy``'s attention."""
+
+    strided_accum = True
+    num_workers = 0
+
+    def _splits(self):
+        cfg = self.config
+        if cfg.model != "long_context":
+            raise ValueError(f"SeqTrainer trains --model long_context, not "
+                             f"{cfg.model!r}")
+        self.dataset = ("synthetic_seq" if cfg.dataset == "auto"
+                        else cfg.dataset)
+        return build_splits(cfg)
+
+    def _model(self):
+        cfg = self.config
+        self.num_classes = cfg.num_classes or 10
+        self.spec = SeqTransformerSpec(
+            num_classes=self.num_classes, total_len=cfg.seq_len,
+            d_in=cfg.seq_dim, d_model=cfg.model_dim or 64,
+            depth=cfg.model_depth or 2, num_heads=cfg.num_heads,
+            strategy=cfg.seq_strategy, remat=cfg.remat)
+        if cfg.seq_strategy == "ulysses":
+            check_ulysses_heads(self.spec.num_heads, 1, cfg.mesh_seq)
+        return build_seq_model(self.spec,
+                               init_seq_transformer(self.spec, seed=cfg.seed),
+                               "cpu")
+
+
 def run_image(config: TrainConfig,
               ctx: dist.DistContext | None = None) -> ImageTrainer:
-    """One rank of an image model: the process group (world 1 unless
-    ``ctx`` is given), training, teardown; rank 0 prints
-    ``final_accuracy=`` last (``preempted`` when SIGTERM stopped it)."""
+    """One rank of an image model or the long-context classifier: the
+    process group (world 1 unless ``ctx`` is given), training, teardown;
+    rank 0 prints ``final_accuracy=`` last (``preempted`` when SIGTERM
+    stopped it)."""
     if ctx is None:
         ctx = dist.setup(backend=config.backend, device=config.device)
     try:
-        trainer = ImageTrainer(config, ctx)
+        cls = SeqTrainer if config.model == "long_context" else ImageTrainer
+        trainer = cls(config, ctx)
         summary = trainer.train()
     finally:
         dist.cleanup()
@@ -926,9 +1061,18 @@ def _print_outcome(summary: dict) -> None:
         print(f"final_accuracy={summary['final_accuracy']:.4f}", flush=True)
 
 
-def run_lm(config: TrainConfig) -> LMTrainer:
-    trainer = LMTrainer(config)
-    _print_outcome(trainer.train())
+def run_lm(config: TrainConfig,
+           ctx: dist.DistContext | None = None) -> LMTrainer:
+    """The causal LM: one rank without a process group, or this rank of
+    ``ctx``'s world (torn down after)."""
+    try:
+        trainer = LMTrainer(config, ctx)
+        summary = trainer.train()
+    finally:
+        if ctx is not None:
+            dist.cleanup()
+    if trainer.is_main:
+        _print_outcome(summary)
     return trainer
 
 
@@ -939,11 +1083,12 @@ def _spawned_worker(rank: int, world: int, argv: list) -> None:
     config = TrainConfig.from_args(argv)
     if config.device == "cpu":  # ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    ctx = dist.setup(rank, world, backend=config.backend,
+                     device=config.device)
     if config.model == "causal_lm":
-        run_lm(config)
+        run_lm(config, ctx)
         return
-    run_image(config, dist.setup(rank, world, backend=config.backend,
-                                 device=config.device))
+    run_image(config, ctx)
 
 
 def spawn(config: TrainConfig, argv: list) -> int:
@@ -972,17 +1117,14 @@ def main(argv=None):
     processes)."""
     args = sys.argv[1:] if argv is None else list(argv)
     config = TrainConfig.from_args(args)
-    if config.model == "causal_lm" and config.spawn > 1:
-        raise ValueError("--model causal_lm trains on one card: no --spawn")
     if config.spawn > 1 or config.max_restarts:
         spawn(config, args)
         return None
-    if config.model == "causal_lm":
-        return run_lm(config)
+    run = run_lm if config.model == "causal_lm" else run_image
     world = config.multi_host()
     if world is not None:
         address, num_processes, process_id = world
-        return run_image(config, dist.setup(
+        return run(config, dist.setup(
             process_id, num_processes, backend=config.backend,
             device=config.device, coordinator_address=address))
-    return run_image(config)
+    return run(config)

@@ -381,3 +381,6 @@ def test_port_imports_no_jax():
     for m in ("data.imagenet", "data.ppm", "data.preprocess_imagenet",
               "native", "models.remat"):  # the ImageNet family
         assert f"ddp_tpu_torch.{m}" in mods
+    for m in ("data.bpe", "data.sequences", "models.seq_transformer",
+              "parallel.ring"):  # LM breadth and the long-context model
+        assert f"ddp_tpu_torch.{m}" in mods

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from ddp_tpu.ops import attention as jattn
 from ddp_tpu.ops import flash as jflash
 from ddp_tpu.parallel import ring as jring
 from ddp_tpu_torch.ops import _build
@@ -200,6 +201,63 @@ def test_ring_block_matches_jax(causal):
         *map(torch.tensor, (q, k, v)), causal)
     torch.testing.assert_close(fo, to, atol=ATOL, rtol=0)
     torch.testing.assert_close(fl, tl, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("T,S,block", [
+    (32, 32, 8),     # four key blocks
+    (16, 48, 16),    # T < S, three blocks
+    (24, 24, 24),    # one block
+    (20, 30, 8),     # 30 % 8 != 0: one whole block, as JAX falls back
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_blockwise_attention_matches_jax(T, S, block, dtype):
+    """``ops.attention.blockwise_attention`` ≡ JAX's (the online softmax
+    over key blocks, fp32 accumulation, the result in q's dtype), and ≡
+    the dense attention: fp32 within ATOL, bf16 within BF16_TOL."""
+    q, k, v, _, _ = _inputs(15, 2, T, S, 2, 16)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    want = jattn.blockwise_attention(*(jnp.asarray(x, jdt) for x in (q, k, v)),
+                                     block_size=block)
+    got = tattn.blockwise_attention(*(torch.tensor(x).to(tdt)
+                                      for x in (q, k, v)), block_size=block)
+    assert got.dtype == tdt
+    tol = ATOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=0 if dtype == "float32" else tol)
+    dense = tattn.dot_product_attention(*(torch.tensor(x) for x in (q, k, v)))
+    if dtype == "float32":
+        torch.testing.assert_close(got, dense, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("strategy", ["ring", "ulysses"])
+def test_sequence_sharded_attention_at_seq_world_1(strategy):
+    """``parallel.ring.sequence_sharded_attention`` at a seq world of one
+    ≡ JAX's on a one-device ``seq`` mesh (ring: the hop-0 block; Ulysses:
+    the identity all-to-alls, then the size dispatch); a seq world above
+    1 names ROADMAP A2.5; an unknown strategy is refused."""
+    from jax.sharding import PartitionSpec as P
+
+    from ddp_tpu.runtime.mesh import MeshSpec, make_mesh
+
+    q, k, v, _, _ = _inputs(16, 2, 24, 24, 2, 16)
+    mesh = make_mesh(MeshSpec(seq=1), devices=jax.devices()[:1])
+    spec = P(None, "seq")
+    want = jax.shard_map(
+        functools.partial(jring.sequence_sharded_attention, axis_name="seq",
+                          strategy=strategy),
+        mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec,
+        check_vma=False)(*map(jnp.asarray, (q, k, v)))
+    got = tring.sequence_sharded_attention(*map(torch.tensor, (q, k, v)),
+                                           strategy=strategy)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    with pytest.raises(NotImplementedError, match="A2.5"):
+        tring.sequence_sharded_attention(*map(torch.tensor, (q, k, v)),
+                                         strategy=strategy, seq_world=2)
+    with pytest.raises(ValueError, match="unknown"):
+        tring.sequence_sharded_attention(*map(torch.tensor, (q, k, v)),
+                                         strategy="tree")
 
 
 def test_best_attention_on_cpu_is_the_dense_path():

@@ -299,7 +299,8 @@ def test_synthetic_tokens_equal_jax(seed):
 
 def test_byte_text_loader_equals_jax(tmp_path):
     """The byte-level branch: the same (train, test) arrays; an
-    out-of-vocabulary byte and a BPE vocabulary are refused."""
+    out-of-vocabulary byte is refused. A BPE vocabulary (tests/
+    test_torch_bpe.py pins that branch) gives JAX's splits too."""
     rng = np.random.default_rng(9)
     path = tmp_path / "corpus.bin"
     rng.integers(0, 100, 1234).astype(np.uint8).tofile(path)
@@ -312,8 +313,12 @@ def test_byte_text_loader_equals_jax(tmp_path):
     for loader in (ttext.load_text_corpus, jtext.load_text_corpus):
         with pytest.raises(ValueError, match="byte 99"):
             loader(str(path), 32, vocab_size=64)
-    with pytest.raises(ValueError, match="BPE"):
-        ttext.load_text_corpus(str(path), 32, vocab_size=512)
+    got = ttext.load_text_corpus(str(path), 32, vocab_size=512,
+                                 tokenizer_path=str(tmp_path / "t.json"))
+    want = jtext.load_text_corpus(str(path), 32, vocab_size=512,
+                                  tokenizer_path=str(tmp_path / "j.json"))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.images, w.images)
 
 
 def test_params_to_jax_inverts_from_jax():
@@ -345,9 +350,12 @@ def test_train_cli_on_cpu_prints_final_accuracy(tmp_path):
 
 
 def test_train_cli_refuses_other_models():
-    """A model the port does not train yet is refused with a message
-    naming the ROADMAP item that brings it."""
-    for model, item in (("long_context", "A2.4"), ("pipe_vit", "A4")):
-        bad = subprocess.run(CLI + ["--model", model], cwd=REPO,
+    """A model or layout the port does not train yet is refused with a
+    message naming the ROADMAP item that brings it: the pipelined ViT
+    (A4), and a seq world above one for long_context (A2.5)."""
+    for argv, item in ((["--model", "pipe_vit"], "A4"),
+                       (["--model", "long_context", "--mesh_seq", "2"],
+                        "A2.5")):
+        bad = subprocess.run(CLI + argv, cwd=REPO,
                              capture_output=True, text=True, timeout=120)
         assert bad.returncode != 0 and f"ROADMAP {item}" in bad.stderr
