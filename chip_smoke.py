@@ -413,7 +413,8 @@ order; any failure exits non-zero and prints no result:
    kernels. 11b: one step through B1-B3 against the plain attention at
    batch 2 (fp32 STEP_TOL; bf16 the gate BF16_GATE_RATIO against SDPA's
    distance from the exact step; key row 8191's dK/dV), a B3 that drops
-   that row must fail. 11c: B1-B3 alone at B 32, T 8192, H 4, D 16
+   that row must fail, and a B3 that drops the dK of keys 512-575 must
+   fail the bf16 gate itself (and the fp32 limits). 11c: B1-B3 alone at B 32, T 8192, H 4, D 16
    (FLASH_TOL at B 2; timed with the bound, SDPA, the plain version in
    chunks, and the exponentials as a reading) and at 11d's shape. 11d:
    the causal LM at bench.py run_lm_long_bench's shape (vocab 8192, d
@@ -422,15 +423,19 @@ order; any failure exits non-zero and prints no result:
    (the bf16 gate, the fp32 kernel step against the exact one, a dropped
    dK tile must fail), peak memory. 11e: --dataset text on README.md at
    --vocab_size 1024: tokenizer.json byte-identical to a --device cpu
-   run's, reused on resume, loss falling. 11f: the LM at --spawn 2
-   --backend gloo (both ranks on the one card) against three world-1
-   runs of the same global batch (batch 8; 4 x accumulation 2; 2 x 4),
-   within their spread; a world-2 average divided twice must not be.
+   run's, reused on resume, loss falling. 11f: the LM at run_lm_bench's
+   width (vocab 8192, d 1024, 8 heads, T 2048; depth cut to 2, 4 steps,
+   fp32, SGD) at --spawn 2 --backend gloo (both ranks on the one card,
+   batch 2 each) against two world-1 runs of the same global batch
+   (batch 4; 2 x accumulation 2), within their distance; a world-2
+   average divided twice must not be; rank 0's --profile_dir trace
+   counts its B1-B3 launches.
 12. A "kernels" JSON line (each decode kernel's launches on the MoE path,
    moe_launches, beside its own, and in phase 4's flag runs,
    flag_launches; B1-B3's in 5m and 7c, phase 9's as
    fault_tolerance_launches, phase 10's as imagenet_launches, phase
-   11's as long_context_launches and lm_long_launches, and their
+   11's as long_context_launches, lm_long_launches and
+   lm_world2_rank0_launches, and their
    timings at T 3137, at the long-context shape and at the LM's T 8192
    as the vit224_*, long_context_* and lm_long_* variants), the card
    line, and the last line
@@ -5602,7 +5607,8 @@ def _tokens_of(trainer) -> int:
 
 
 def check_vit_step(torch, trainer, *, batch=64, tag="vit", controls=None,
-                   tail=False, record=None) -> list[str]:
+                   gate_controls=None, tail=False,
+                   record=None) -> list[str]:
     """One step through B1-B3 against the same step through the plain
     attention (which must launch nothing), from the trained weights on the
     first ``batch`` training examples (a ViT's images or the long-context
@@ -5618,8 +5624,10 @@ def check_vit_step(torch, trainer, *, batch=64, tag="vit", controls=None,
     leaf limits to see a dropped one. Negative controls must fail the same
     checks in both dtypes: ``controls`` (None: a B1 that counts the last
     tile's zero-filled keys, where S is not a multiple of 128) and always
-    a B3 that drops the last key row. ``record`` (a dict) gets the
-    readings and verdicts."""
+    a B3 that drops the last key row. ``gate_controls`` must fail the bf16
+    gate itself, whatever the loss and tail-row checks say (and STEP_TOL
+    in fp32): they show that the gate can see an attention fault at this
+    shape. ``record`` (a dict) gets the readings and verdicts."""
     from ddp_tpu_torch.ops import flash as fl
 
     images, labels = trainer.train_split
@@ -5641,6 +5649,7 @@ def check_vit_step(torch, trainer, *, batch=64, tag="vit", controls=None,
     controls = dict(controls)
     controls[f"dK/dV of key row {last} dropped"] = \
         lambda q, k, v: plain(q, drop(k), drop(v))
+    gate_controls = dict(gate_controls or {})
     record = {} if record is None else record
     base = _kernel_attention(trainer)
     failed, exact_cache = [], {}
@@ -5675,8 +5684,9 @@ def check_vit_step(torch, trainer, *, batch=64, tag="vit", controls=None,
         limits = STEP_TOL[dname]
         loss_tol = VIT_BF16_LOSS_TOL if dname == "bf16" else limits["loss"]
 
-        def judge(got, got_rows, label):
-            """(within every limit, the reading) of one step."""
+        def judge(got, got_rows, label, gate_only=False):
+            """(within every limit, the reading) of one step; with
+            ``gate_only``, the bf16 gate alone decides."""
             e = _grad_errors(got, want)
             tail_err = (_tail_error(torch, got_rows, want_rows)
                         if tail else 0.0)
@@ -5686,7 +5696,7 @@ def check_vit_step(torch, trainer, *, batch=64, tag="vit", controls=None,
                 text += f" (limits {limits})"
             else:
                 g = _bf16_gate(_grad_errors(got, exact), e_sdpa)
-                ok = g["ok"] and e["loss"] <= loss_tol
+                ok = g["ok"] and (gate_only or e["loss"] <= loss_tol)
                 text += (f" (old reading; STEP_TOL bf16 {limits} "
                          f"{'holds' if _within(e, dict(limits, loss=loss_tol)) else 'is exceeded'}); "
                          f"gate: {_gate_text(g)}, loss rel {e['loss']:.2e} "
@@ -5697,7 +5707,8 @@ def check_vit_step(torch, trainer, *, batch=64, tag="vit", controls=None,
             if tail:
                 text += (f"; key row {last}'s dK/dV in every block rel "
                          f"{tail_err:.2e} (limit {limits['attn']})")
-                ok = ok and tail_err <= limits["attn"]
+                ok = ok and (gate_only and dname == "bf16"
+                             or tail_err <= limits["attn"])
             return ok, text
 
         ok, text = judge(kernel, rows["kernel"], "kernel")
@@ -5713,12 +5724,15 @@ def check_vit_step(torch, trainer, *, batch=64, tag="vit", controls=None,
             failed.append(f"the {dname} kernel step disagrees with the "
                           "plain one")
         del kernel
-        for label, attention_fn in controls.items():
+        for label, attention_fn in {**controls, **gate_controls}.items():
             got_rows = []
             got = step(attention_fn, dtype, routes, [], got_rows)
-            ok, text = judge(got, got_rows, label)
+            ok, text = judge(got, got_rows, label,
+                             gate_only=label in gate_controls)
             del got
-            log(f"[{tag}] {dname} control, {label}: {text}")
+            alone = (" (the gate alone)"
+                     if label in gate_controls and dname == "bf16" else "")
+            log(f"[{tag}] {dname} control{alone}, {label}: {text}")
             record.setdefault("controls", {})[f"{dname} {label}"] = not ok
             if ok:
                 failed.append(f"the {dname} check passes a control: {label}")
@@ -5764,6 +5778,7 @@ def check_vit(torch, card, tmp) -> dict:
     readings = _image_readings(torch, trainer, "vit_tiny cifar100 bf16, "
                                "batch 256", card, VIT_TRAIN_FLOPS)
     readings["launches"] = {n: got[f"{n}_bf16"] for n in FLASH_NAMES}
+    readings["launches_fp32"] = {n: got[f"{n}_fp32"] for n in FLASH_NAMES}
     if failed:
         raise AssertionError(f"phase 7a: {failed}")
     return readings
@@ -7183,6 +7198,7 @@ def check_vit224(torch, card, data, tmp) -> tuple[dict, list]:
     readings = _image_readings(torch, trainer, "vit_tiny imagenet-224 bf16, "
                                "batch 32", card, VIT224_TRAIN_FLOPS)
     readings["launches"] = {n: train[f"{n}_bf16"] for n in FLASH_NAMES}
+    readings["launches_fp32"] = {n: train[f"{n}_fp32"] for n in FLASH_NAMES}
     return readings, failed, trainer
 
 
@@ -7463,13 +7479,22 @@ LM_LONG_STEP_DEPTH = 2  # 11d's kernel-vs-plain step: 4.3 GB of logits a layer
 BPE_ARGS = ["--model", "causal_lm", "--dataset", "text", "--vocab_size",
             "1024", "--seq_len", "128", "--batch_size", "8", "--optimizer",
             "adam", "--lr", "3e-3"]
-# 11f: a small LM, world 2 (per-rank batch 4) against world 1 (batch 8),
-# SGD so that a gradient divided twice moves the parameters (Adam's
-# update would not see the scale).
-W2_ARGS = ["--model", "causal_lm", "--synthetic_size", "64", "--seq_len",
-           "256", "--vocab_size", "512", "--model_dim", "128", "--num_heads",
-           "4", "--epochs", "2", "--optimizer", "sgd", "--lr", "0.1",
-           "--compute_dtype", "float32", "--deterministic"]
+# 11f: run_lm_bench's width (vocab 8192, d 1024, 8 heads so D 128, T
+# 2048), cut to depth 2 and 8 sequences (2 steps an epoch at a global
+# batch of 4, 2 epochs): world 2 (per-rank batch 2) against world 1
+# (batch 4). fp32 and --deterministic, so that the runs differ only in the
+# order of their sums; SGD, so that a gradient divided twice moves the
+# parameters (Adam's update would not see the scale).
+W2_ARGS = ["--model", "causal_lm", "--synthetic_size", "8", "--seq_len",
+           "2048", "--vocab_size", "8192", "--model_dim", "1024",
+           "--model_depth", "2", "--num_heads", "8", "--epochs", "2",
+           "--optimizer", "sgd", "--lr", "0.1", "--compute_dtype", "float32",
+           "--deterministic"]
+# The CUDA kernel of each of B1-B3 in each dtype, as a profiler trace
+# names it.
+FLASH_KERNELS = {f"{n}_{d}": f"{n.removeprefix('flash_attn_')}_{k}"
+                 for n in FLASH_NAMES
+                 for d, k in (("bf16", "sm90"), ("fp32", "tf32"))}
 
 
 def _readme() -> str:
@@ -7601,8 +7626,10 @@ def check_lm_long(torch, card, tmp) -> tuple[dict, list]:
     failed = [f"{n}: {train[f'{n}_bf16']} training launches, not "
               f"{spec.depth * steps}" for n in FLASH_NAMES
               if train[f"{n}_bf16"] != spec.depth * steps]
-    if routed or not all(np.isfinite(h["loss"])):
-        failed.append(f"routed {routed}, losses {h['loss']}")
+    if (routed or not all(np.isfinite(h["loss"]))
+            or any(train[f"{n}_fp32"] for n in FLASH_NAMES)):
+        failed.append(f"routed {routed}, launches {train}, losses "
+                      f"{h['loss']}")
     view = types.SimpleNamespace(
         model=truncated_draft(trainer.model, LM_LONG_STEP_DEPTH),
         spec=spec._replace(depth=LM_LONG_STEP_DEPTH), tokens=trainer.tokens,
@@ -7616,7 +7643,9 @@ def check_lm_long(torch, card, tmp) -> tuple[dict, list]:
     torch.cuda.empty_cache()
     return dict(step_p50_ms=h["step_p50_s"] * 1e3, tokens_per_s=tokens,
                 mfu=mfu, peak_mb=peak,
-                launches={n: train[f"{n}_bf16"] for n in FLASH_NAMES}), failed
+                launches={n: train[f"{n}_bf16"] for n in FLASH_NAMES},
+                launches_fp32={n: train[f"{n}_fp32"] for n in FLASH_NAMES}
+                ), failed
 
 
 def check_bpe(torch, tmp) -> list:
@@ -7697,16 +7726,30 @@ def _lm_world2_control(torch, argv) -> dict:
     return tw.run(rank_run)[0]
 
 
-def check_lm_world2(torch, tmp) -> list:
+def _trace_kernel_counts(path) -> dict:
+    """The launches of B1-B3's CUDA kernels (FLASH_KERNELS) that a
+    ``--profile_dir`` chrome trace records."""
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f).get("traceEvents", [])
+                 if e.get("cat") == "kernel"]
+    return {key: sum(bool(re.search(rf"\b{k}\b", n)) for n in names)
+            for key, k in FLASH_KERNELS.items()}
+
+
+def check_lm_world2(torch, tmp) -> tuple[dict, list]:
     """11f: W2_ARGS at world 2 (--spawn 2 --backend gloo, both ranks on the
-    one card, batch 4 each) against three world-1 runs of the same global
-    batch and plan: batch 8, batch 4 with --grad_accum_steps 2 (which sums
-    the same two strided halves world 2's ranks do) and batch 2 with 4
-    steps of accumulation. They differ only in the order of their sums,
-    and their spread (the largest distance between two of them) is the
-    limit (C13's rule): world 2's final parameters must be within it of
-    the nearest (bitwise when the spread is 0); the same run with its
-    average divided by the world twice must not be."""
+    one card, batch 2 each) against two world-1 runs of the same global
+    batch and plan: batch 4, and batch 2 with --grad_accum_steps 2 (which
+    sums the same two strided halves world 2's ranks do). They differ only
+    in the order of their sums, and their distance is the limit (C13's
+    rule): world 2's final parameters must be within it of the nearer
+    (bitwise when it is 0); the same run with its average divided by the
+    world twice must not be. Rank 0's --profile_dir trace counts its B1-B3
+    launches: B2 = B3 = depth x steps in fp32, B1 at least that (the
+    evaluation's forward adds to it), none in bf16 → (readings,
+    failures)."""
+    import os
+
     def final(name):
         return torch.load(f"{tmp}/{name}/epoch_1/state.pt",
                           weights_only=True)
@@ -7715,29 +7758,36 @@ def check_lm_world2(torch, tmp) -> list:
         return max(float((a[k].float() - b[k].float()).abs().max())
                    for k in a)
 
-    world1 = {"w1_b8": ["--batch_size", "8"],
-              "w1_b4_accum2": ["--batch_size", "4", "--grad_accum_steps", "2"],
-              "w1_b2_accum4": ["--batch_size", "2", "--grad_accum_steps", "4"]}
-    runs = dict(world1, w2_b4=["--batch_size", "4", "--spawn", "2",
-                               "--backend", "gloo"])
+    prof = f"{tmp}/w2_prof"
+    world1 = {"w1_b4": ["--batch_size", "4"],
+              "w1_b2_accum2": ["--batch_size", "2", "--grad_accum_steps",
+                               "2"]}
+    runs = dict(world1, w2_b2=["--batch_size", "2", "--spawn", "2",
+                               "--backend", "gloo", "--profile_dir", prof])
+    t0 = time.perf_counter()
     for name, extra in runs.items():
         _train(extra + ["--checkpoint_dir", f"{tmp}/{name}"], W2_ARGS)
     blobs = {name: final(name) for name in runs}
     steps = {name: b["step"] for name, b in blobs.items()}
     p = {name: b["params"] for name, b in blobs.items()}
-    names = list(world1)
-    spread = max(diff(p[a], p[b]) for i, a in enumerate(names)
-                 for b in names[i + 1:])
-    w2 = {ref: diff(p["w2_b4"], p[ref]) for ref in names}
-    control = _lm_world2_control(torch, W2_ARGS + ["--batch_size", "4",
-                                                   "--checkpoint_dir",
-                                                   f"{tmp}/w2_control"])
-    ctl = {ref: diff(control, p[ref]) for ref in names}
-    log(f"[lm-w2] 11f steps {steps}; the world-1 runs' spread "
-        f"{spread:.3e}; world 2 (--spawn 2 --backend gloo) vs "
-        + ", ".join(f"{ref} {v:.3e}" for ref, v in w2.items())
+    spread = diff(p["w1_b4"], p["w1_b2_accum2"])
+    w2 = {ref: diff(p["w2_b2"], p[ref]) for ref in world1}
+    control = _lm_world2_control(torch, W2_ARGS + CNN_DEVICE_ARGS + [
+        "--batch_size", "2", "--checkpoint_dir", f"{tmp}/w2_control"])
+    ctl = {ref: diff(control, p[ref]) for ref in world1}
+    trace = f"{prof}/trace_rank0.json"
+    launches = _trace_kernel_counts(trace) if os.path.exists(trace) else {}
+    depth = int(W2_ARGS[W2_ARGS.index("--model_depth") + 1])
+    want = depth * steps["w2_b2"]
+    log(f"[lm-w2] 11f run_lm_bench's width at depth {depth}, "
+        f"{sum(v.numel() for v in p['w1_b4'].values()) / 1e6:.1f} M "
+        f"parameters, steps {steps} ({time.perf_counter() - t0:.1f} s); the "
+        f"world-1 runs' distance {spread:.3e}; world 2 (--spawn 2 --backend "
+        f"gloo) vs " + ", ".join(f"{ref} {v:.3e}" for ref, v in w2.items())
         + "; control, the world-2 average divided twice, vs "
-        + ", ".join(f"{ref} {v:.3e}" for ref, v in ctl.items()))
+        + ", ".join(f"{ref} {v:.3e}" for ref, v in ctl.items())
+        + f"; rank 0's B1-B3 kernel launches in its trace {launches} "
+        f"(depth x steps = {want})")
     failed = []
     if len(set(steps.values())) != 1:
         failed.append(f"the runs took different step counts {steps}")
@@ -7745,7 +7795,15 @@ def check_lm_world2(torch, tmp) -> list:
         failed.append("world 2 parts from world 1 by more than the spread")
     if min(ctl.values()) <= spread:
         failed.append("the check passes a world-2 average divided twice")
-    return failed
+    if not (launches
+            and launches["flash_attn_fwd_fp32"] >= want
+            and launches["flash_attn_dq_fp32"] == want
+            and launches["flash_attn_dkv_fp32"] == want
+            and not any(launches[f"{n}_bf16"] for n in FLASH_NAMES)):
+        failed.append(f"rank 0 launched {launches}, not B2 = B3 = {want} "
+                      "in fp32")
+    return dict(spread=spread, world2=w2, control=ctl, launches=launches,
+                steps=steps["w2_b2"]), failed
 
 
 def check_long_context(torch, card) -> dict:
@@ -7755,6 +7813,8 @@ def check_long_context(torch, card) -> dict:
     11d the causal LM at T 8192; 11e the BPE tokenizer; 11f the LM at
     world 2. Every reading is printed before any raise."""
     import tempfile
+
+    from ddp_tpu_torch.ops import flash as fl
 
     t0 = s0 = time.perf_counter()
     failed, readings = [], {}
@@ -7769,9 +7829,13 @@ def check_long_context(torch, card) -> dict:
         failed += [f"11a: {b}" for b in bad]
         lap("11a")
         rec = {}
+        drop_tile = _drop_key_grad(torch, slice(512, 576))
         failed += [f"11b: {b}" for b in check_vit_step(
-            torch, trainer, batch=2, tag="lc", controls={}, tail=True,
-            record=rec)]
+            torch, trainer, batch=2, tag="lc", controls={},
+            gate_controls={"dK of keys 512-575 dropped": lambda q, k, v:
+                           fl.attention_with_lse_reference(
+                               q, drop_tile(k), v, False)[0]},
+            tail=True, record=rec)]
         readings["step"] = rec
         del trainer
         torch.cuda.empty_cache()
@@ -7783,7 +7847,8 @@ def check_long_context(torch, card) -> dict:
         lap("11d")
         failed += [f"11e: {b}" for b in check_bpe(torch, tmp)]
         lap("11e")
-        failed += [f"11f: {b}" for b in check_lm_world2(torch, tmp)]
+        readings["world2"], bad = check_lm_world2(torch, tmp)
+        failed += [f"11f: {b}" for b in bad]
         lap("11f")
     log(f"[lc] phase 11: {time.perf_counter() - t0:.1f} s on {card}")
     if failed:
@@ -8413,7 +8478,8 @@ def main() -> int:
     for name in FLASH_NAMES:
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
-        vit_launches = {"bf16": images["vit"]["launches"][name], "fp32": 0}
+        vit_launches = {d: images["vit"][k][name] for d, k in
+                        (("bf16", "launches"), ("fp32", "launches_fp32"))}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "ddp_tpu_torch/ops/csrc/flash_attn.cu",
@@ -8441,6 +8507,9 @@ def main() -> int:
                 "fp32": lc["train"]["fp32"]["launches"][name],
                 "ulysses_bf16": lc["train"]["ulysses_bf16"][name]},
             "lm_long_launches": lc["lm_long"]["launches"][name],
+            # 11f's world-2 rank 0, from its profiler trace (fp32).
+            "lm_world2_rank0_launches":
+                lc["world2"]["launches"].get(f"{name}_fp32", 0),
             "variants": {
                 "fp32": {"launches": trained["fp32"][name],
                          **{k: flash["fp32"][name][k] for k in keys}},
@@ -8451,8 +8520,8 @@ def main() -> int:
                                     flash[f"vit_{d}"][name]["sdpa_bwd_ms"]}
                    for d in ("bf16", "fp32")},
                 **{f"vit224_{d}": {
-                    "launches": imagenet["vit"]["launches"][name]
-                    if d == "bf16" else 0,
+                    "launches": imagenet["vit"][
+                        "launches" if d == "bf16" else "launches_fp32"][name],
                     **{k: imagenet["flash"][f"vit224_{d}"][name][k]
                        for k in keys},
                     "sdpa_bwd_ms":
@@ -8463,8 +8532,8 @@ def main() -> int:
                     **lc["flash"][f"long_context_{d}"][name]}
                    for d in ("bf16", "fp32")},
                 **{f"lm_long_{d}": {
-                    "launches": lc["lm_long"]["launches"][name]
-                    if d == "bf16" else 0,
+                    "launches": lc["lm_long"][
+                        "launches" if d == "bf16" else "launches_fp32"][name],
                     **lc["flash"][f"lm_long_{d}"][name]}
                    for d in ("bf16", "fp32")}},
         })

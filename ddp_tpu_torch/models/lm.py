@@ -40,7 +40,11 @@ from ddp_tpu_torch.device import resolve_device
 from ddp_tpu_torch.models.moe import PARAM_NAMES as MOE_PARAMS
 from ddp_tpu_torch.models.moe import MoEMLP, is_moe_block, moe_init, moe_mlp
 from ddp_tpu_torch.ops.attention import dot_product_attention
-from ddp_tpu_torch.parallel.ddp import StepMetrics, global_norm
+from ddp_tpu_torch.parallel.ddp import (
+    StepMetrics,
+    bucket_all_reduce,
+    global_norm,
+)
 from ddp_tpu_torch.parallel.ring import ring_attention
 from ddp_tpu_torch.runtime.dist import all_reduce_sum
 
@@ -483,8 +487,10 @@ def make_lm_train_step(
                 p.grad.div_(grad_accum_steps)
             loss = loss / grad_accum_steps
         if world > 1:
-            loss, correct = _all_reduce_grads(params, loss, correct, world,
-                                              reduce)
+            _, rest = bucket_all_reduce(
+                params, [torch.as_tensor(loss).float(),
+                         torch.as_tensor(correct).float()], world, reduce)
+            loss, correct = rest
         grads = [p.grad for p in params]
         grad_norm = global_norm(grads)
         optimizer.step()
@@ -494,22 +500,6 @@ def make_lm_train_step(
         )
 
     return step
-
-
-def _all_reduce_grads(params, loss, correct, world, reduce):
-    """Sum [every gradient, loss, correct] over the world in one bucket,
-    divide all but the count by the world, put the gradients back →
-    (loss, correct), views no longer of the bucket."""
-    sizes = [p.numel() for p in params]
-    bucket = torch.cat([p.grad.reshape(-1) for p in params]
-                       + [torch.as_tensor(loss).reshape(1).float(),
-                          torch.as_tensor(correct).reshape(1).float()])
-    reduce(bucket)
-    bucket[:-1].div_(world)
-    for p, g in zip(params, bucket[:-2].split(sizes)):
-        p.grad = g.view_as(p)
-    loss, correct = bucket[-2:].clone()
-    return loss, correct
 
 
 def make_lm_eval_step(model: CausalLM, *, compute_dtype=torch.float32):

@@ -68,6 +68,36 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
+def bucket_all_reduce(params, extras, world: int, reduce, *, accum: int = 1):
+    """The one all-reduce of a step: every parameter's gradient (divided
+    by ``accum``, the microbatches it sums) and then ``extras`` (tensors,
+    the last a count) concatenated into one flat bucket, summed over the
+    world by ``reduce``, all but the count divided by the world; each
+    parameter's gradient becomes its view of the bucket → (the flat
+    averaged gradient, the reduced extras as one flat copy, so that no
+    metric keeps the bucket alive)."""
+    sizes = [p.numel() for p in params]
+    n = sum(sizes)
+    bucket = torch.cat([p.grad.reshape(-1) for p in params]
+                       + [e.reshape(-1) for e in extras])
+    if accum > 1:
+        bucket[:n].div_(accum)
+    reduce(bucket)
+    bucket[:-1].div_(world)
+    grads = bucket[:n]
+    for p, g in zip(params, grads.split(sizes)):
+        p.grad = g.view_as(p)
+    return grads, bucket[n:].clone()
+
+
+def ring_all_reduce_bytes(params, world: int) -> int:
+    """The bytes a rank sends in a ring all-reduce of the full fp32
+    gradient a step, 2·(N−1)/N of its size (``parallel/zero.py:981``'s
+    analytic payload)."""
+    n = sum(p.numel() for p in params)
+    return int(2 * (world - 1) / world * n * 4)
+
+
 # The weight of a routed model's load-balance losses in its loss
 # (``ddp.py:106``'s default, the only value the trainers use).
 AUX_LOSS_WEIGHT = 0.01
@@ -124,8 +154,6 @@ def make_train_step(
     model, optimizer = state.model, state.optimizer
     params = [p for p in model.parameters() if p.requires_grad]
     buffers = [b for b in model.buffers() if b.is_floating_point()]
-    sizes = [p.numel() for p in params]
-    n_grad = sum(sizes)
     buf_sizes = [b.numel() for b in buffers]
     n_buf = sum(buf_sizes)
 
@@ -154,24 +182,15 @@ def make_train_step(
                         label_smoothing, augment_fn, key(i))
                     l_i.backward()
                     loss, correct = loss + l_i.detach(), correct + c_i
-        bucket = torch.cat([p.grad.reshape(-1) for p in params]
-                           + [b.reshape(-1) for b in buffers]
-                           + [loss.detach().reshape(1), correct.reshape(1)])
-        grads = bucket[:n_grad]
-        if grad_accum_steps > 1:
-            grads.div_(grad_accum_steps)
-            bucket[-2:-1].div_(grad_accum_steps)
-        reduce(bucket)
-        bucket[:-1].div_(world)
-        for p, g in zip(params, grads.split(sizes)):
-            p.grad = g.view_as(p)
-        stats = bucket[n_grad:n_grad + n_buf].split(buf_sizes)
-        for b, v in zip(buffers, stats):
+        grads, rest = bucket_all_reduce(
+            params, buffers + [loss.detach() / grad_accum_steps, correct],
+            world, reduce, accum=grad_accum_steps)
+        for b, v in zip(buffers, rest[:n_buf].split(buf_sizes)):
             b.copy_(v.view_as(b))
         grad_norm = torch.linalg.vector_norm(grads)  # one reduction
         optimizer.step()
         state.step += 1
-        loss, correct = bucket[-2:].clone()  # not views: the bucket is freed
+        loss, correct = rest[n_buf:]
         return StepMetrics(loss=loss, accuracy=correct / (n * world),
                            grad_norm=grad_norm)
 

@@ -93,7 +93,12 @@ from ddp_tpu_torch.models.seq_transformer import (
 )
 from ddp_tpu_torch.models.seq_transformer import build_model as build_seq_model
 from ddp_tpu_torch.obs.recorder import build_info
-from ddp_tpu_torch.parallel.ddp import TrainState, make_eval_step, make_train_step
+from ddp_tpu_torch.parallel.ddp import (
+    TrainState,
+    make_eval_step,
+    make_train_step,
+    ring_all_reduce_bytes,
+)
 from ddp_tpu_torch.runtime import dist, launch
 from ddp_tpu_torch.runtime.chaos import ChaosEngine
 from ddp_tpu_torch.runtime.consensus import agree_any
@@ -710,8 +715,8 @@ class LMTrainer(_FaultTolerant):
         self.history: list[dict] = []
         self._init_fault_tolerance(is_main=self.is_main)
         if self.world > 1:
-            n = sum(p.numel() for p in self.optimizer.params)
-            self._comm_bytes = int(2 * (self.world - 1) / self.world * n * 4)
+            self._comm_bytes = ring_all_reduce_bytes(self.optimizer.params,
+                                                     self.world)
 
     def _splits(self) -> tuple[Split, Split]:
         """The data splits; a BPE vocabulary is trained and written by
@@ -883,10 +888,8 @@ class ImageTrainer(_FaultTolerant):
         )
         self.history: list[dict] = []
         self._init_fault_tolerance(is_main=ctx.is_main)
-        # The full fp32 gradient ring all-reduce a step, 2·(N−1)/N of its
-        # bytes (``parallel/zero.py:981``'s analytic payload).
-        n = sum(p.numel() for p in self.optimizer.params)
-        self._comm_bytes = int(2 * (self.world - 1) / self.world * n * 4)
+        self._comm_bytes = ring_all_reduce_bytes(self.optimizer.params,
+                                                 self.world)
 
     def _splits(self):
         """(train, test) image splits of ``--dataset`` (auto: mnist)."""
