@@ -430,14 +430,42 @@ order; any failure exits non-zero and prints no result:
    (batch 4; 2 x accumulation 2), within their distance; a world-2
    average divided twice must not be; rank 0's --profile_dir trace
    counts its B1-B3 launches.
-12. A "kernels" JSON line (each decode kernel's launches on the MoE path,
+12. The sequence models across ranks (check_mesh), every rank a process
+   on the one card through --spawn N --backend gloo (exchanges staged
+   through pinned host memory; step times are N processes sharing one
+   card, no scaling figure; every run at once): 12a long_context
+   at README's command (--mesh_seq 4; T 8192, batch 32, bf16; one epoch
+   of 2 steps), ring and Ulysses; 12b the LM at run_lm_long_bench's
+   width (d 1024, 8 heads, T 8192, batch 2, bf16; depth cut to 2, 2
+   steps) at --mesh_seq 2 (causal: rank 0 one block call a layer, rank
+   1 two), --mesh_model 2 and both (world 4); 12c phase 5m's routed LM
+   (8 experts, top-2; depth cut to 2, 2 steps of 8 a replica) at
+   --mesh_expert 2. Each rank's --profile_dir trace gives its B1-B3
+   launches in training (the hop schedule: none routed, none in fp32),
+   its step p50 and busy share; rank 0's --metrics_file where the run's
+   wall time went (start-up, training, evaluation and checkpoint, the
+   rest of the runs). A run past P12_RUN_TIMEOUT fails. The ring hops'
+   blocks ([32, 2048, 4, 16] and [2, 4096, 8, 128], non-causal) held to
+   their plain versions and timed with SDPA. 12d: one fp32 step of each
+   mesh through B1-B3 (a gloo world of 4 processes on the card, beside
+   the runs; if it fails, or hangs past P12D_DEADLINE s from its start,
+   it is killed and fails every check) against the world-1 exact step
+   (the plain attention) within STEP_TOL["fp32"], at depth 2 and batch 2
+   (long_context), 1 a replica (the LM and the routed LM, the latter
+   against world 1 on each replica's rows with the routing held); a
+   dropped past hop, a model reduction counted twice and slots sent to
+   the wrong owner must fail it; and --mesh_seq 2 --spawn 2 against
+   world 1 after 2 fp32 SGD steps (W2_ARGS's width) within
+   P12_PARAM_ATOL, a gradient divided by the world once more outside.
+13. A "kernels" JSON line (each decode kernel's launches on the MoE path,
    moe_launches, beside its own, and in phase 4's flag runs,
    flag_launches; B1-B3's in 5m and 7c, phase 9's as
    fault_tolerance_launches, phase 10's as imagenet_launches, phase
    11's as long_context_launches, lm_long_launches and
-   lm_world2_rank0_launches, and their
-   timings at T 3137, at the long-context shape and at the LM's T 8192
-   as the vit224_*, long_context_* and lm_long_* variants), the card
+   lm_world2_rank0_launches, phase 12's as mesh_launches_by_rank, and
+   their timings at T 3137, at the long-context shape, at the LM's T
+   8192 and at the ring hops' shapes as the vit224_*, long_context_*,
+   lm_long_* and hop12a_*/hop12b_* variants), the card
    line, and the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -3472,22 +3500,34 @@ def fixed_routing(torch, record: list, flips: list):
         old = record[calls[0]]
         calls[0] += 1
         flips.append(int((r.expert != old.expert).sum()))
-        gates = torch.softmax(torch.nn.functional.linear(
-            tokens.float(), router_weight.float(), router_bias.float()), -1)
-        gate = torch.stack([gates.gather(-1, e[:, None])[:, 0]
-                            for e in old.expert]) * old.kept
-        if normalize_gates:
-            gate = gate / torch.clamp(gate.sum(0, keepdim=True), min=1e-9)
-        first = (old.expert[0][:, None]
-                 == torch.arange(num_experts, device=tokens.device)).float()
-        aux = num_experts * torch.sum(gates.mean(0) * first.mean(0))
-        return old._replace(gates=gate, aux=aux)
+        return _replayed(torch, old, tokens, router_weight, router_bias,
+                         num_experts, normalize_gates)
 
     moe.route = route
     try:
         yield
     finally:
         moe.route = real
+
+
+def _replayed(torch, old, tokens, router_weight, router_bias, num_experts,
+              normalize_gates):
+    """A recorded routing ``old`` (its experts, slots and kept
+    assignments, on any device) on ``tokens``: its gates and aux loss
+    recomputed from this router."""
+    dev = tokens.device
+    expert, kept = old.expert.to(dev), old.kept.to(dev)
+    gates = torch.softmax(torch.nn.functional.linear(
+        tokens.float(), router_weight.float(), router_bias.float()), -1)
+    gate = torch.stack([gates.gather(-1, e[:, None])[:, 0]
+                        for e in expert]) * kept
+    if normalize_gates:
+        gate = gate / torch.clamp(gate.sum(0, keepdim=True), min=1e-9)
+    first = (expert[0][:, None]
+             == torch.arange(num_experts, device=dev)).float()
+    aux = num_experts * torch.sum(gates.mean(0) * first.mean(0))
+    return old._replace(expert=expert, slot=old.slot.to(dev), kept=kept,
+                        gates=gate, aux=aux)
 
 
 def _step_grads(torch, trainer, toks, block_fn, compute_dtype=None):
@@ -6668,14 +6708,14 @@ def _launch(argv, log_path):
                             cwd=os.path.dirname(os.path.abspath(__file__)))
 
 
-def _run_all(commands: dict, tmp) -> dict:
+def _run_all(commands: dict, tmp, timeout: float = 600) -> dict:
     """The commands (name → argv) at once, each in its own process, all
-    awaited (and killed on the way out) → name → (exit code, the lines
-    of its output)."""
+    awaited for at most ``timeout`` s (and killed on the way out) → name
+    → (exit code, the lines of its output)."""
     procs = {name: _launch(argv, f"{tmp}/{name}.log")
              for name, argv in commands.items()}
     try:
-        codes = {name: p.wait(timeout=600) for name, p in procs.items()}
+        codes = {name: p.wait(timeout=timeout) for name, p in procs.items()}
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -7856,6 +7896,604 @@ def check_long_context(torch, card) -> dict:
     return readings
 
 
+# Phase 12: the sequence models across ranks, every rank on the one card
+# (nccl takes one rank a card), through the CLI's --spawn N --backend
+# gloo: the exchanges are staged through pinned host buffers
+# (runtime/dist.DistComm). The step times are those of N processes
+# sharing one card, and of every run sharing it too (all at once, 12d's
+# world of ranks beside them): no scaling figure.
+# Cuts, for the phase's time: one epoch of 2 steps each (12a 64
+# sequences, 12b 4, 12c 32); 12a in bf16; 12b at depth 2 (of 8), 12c at
+# depth 2 (of 5m's 4: block 2 routed).
+GLOO = ["--backend", "gloo"]
+P12_LC_ARGS = list(LC_ARGS) + ["--mesh_seq", "4", "--compute_dtype",
+                               "bfloat16"]
+P12_LC_ARGS[P12_LC_ARGS.index("--epochs") + 1] = "1"
+P12_LC_ARGS[P12_LC_ARGS.index("--synthetic_size") + 1] = "64"
+P12_LM_ARGS = list(LM_LONG_ARGS)
+P12_LM_ARGS[P12_LM_ARGS.index("--synthetic_size") + 1] = "4"
+P12_LM_ARGS[P12_LM_ARGS.index("--model_depth") + 1] = "2"
+P12_MOE_ARGS = list(TRAIN_MOE_ARGS)
+P12_MOE_ARGS[P12_MOE_ARGS.index("--synthetic_size") + 1] = "32"
+P12_MOE_ARGS[P12_MOE_ARGS.index("--model_depth") + 1] = "2"
+P12_RUNS = {  # name: (base, extra flags, world)
+    "12a_ring": (P12_LC_ARGS, [], 4),
+    "12a_ulysses": (P12_LC_ARGS, ["--seq_strategy", "ulysses"], 4),
+    "12b_seq2": (P12_LM_ARGS, ["--mesh_seq", "2"], 2),
+    "12b_model2": (P12_LM_ARGS, ["--mesh_model", "2"], 2),
+    "12b_model2_seq2": (P12_LM_ARGS, ["--mesh_model", "2", "--mesh_seq",
+                                      "2"], 4),
+    "12c_expert2": (P12_MOE_ARGS, ["--mesh_expert", "2"], 2),
+}
+# 12d's spawned check: W2_ARGS's width (d 1024, 8 heads, vocab 8192, T
+# 2048, depth 2), fp32 SGD 0.1, --deterministic, 2 steps of the global
+# batch 4, at --mesh_seq 2 (world 2: the causal ring and the shifted
+# targets) against world 1. The limit on their final parameters'
+# distance (the runs differ in the order of their sums); the control,
+# the gradient divided by the world once more, must part by more.
+P12_SPAWN_ARGS = list(W2_ARGS) + ["--batch_size", "4"]
+P12_SPAWN_ARGS[P12_SPAWN_ARGS.index("--synthetic_size") + 1] = "8"
+P12_SPAWN_ARGS[P12_SPAWN_ARGS.index("--epochs") + 1] = "1"
+P12_SPAWN_WORLD = 2
+P12_PARAM_ATOL = 1e-5
+# The runs, 12d's spawned one and 12d's world of processes start at once
+# (on an H100 at 700 W: 117.9 s so, 125.4 s in two waves; the start-up
+# of ~30 processes on the host's 8 cores is half of it). A run is killed,
+# and fails the phase, past P12_RUN_TIMEOUT s; 12d's world past
+# P12D_DEADLINE s from its start (both 2-3x their time on the card).
+P12_RUN_TIMEOUT = 300
+P12D_DEADLINE = 300
+# The ring hops' block shapes (label, B, T, S, H, D, causal): 12a's past
+# hop (T 8192 over 4 ranks) and 12b's (T 8192 over 2), unmasked.
+HOP12A_SHAPE = ("12a ring hop T=S=2048 D 16", 32, 2048, 2048, 4, 16, False)
+HOP12B_SHAPE = ("12b ring hop T=S=4096 D 128", 2, 4096, 4096, 8, 128, False)
+# 12d, one fp32 step from the same weights: each mesh over a gloo world of
+# P12_WORLD processes on the card (the data axis the rest), B1-B3 in
+# fp32, against world 1 through the plain attention, STEP_TOL["fp32"].
+# Cuts: depth 2; the long-context batch 32 -> 2; the LM's 2 -> 1 a
+# replica; the routed LM's 8 -> 1 a replica (its depth 4 -> 2: block 2
+# routed).
+P12_WORLD = 4
+P12_LC = dict(num_classes=10, total_len=8192, d_in=16, d_model=64, depth=2,
+              num_heads=4)
+P12_LM = dict(vocab_size=8192, total_len=8192, d_model=1024, depth=2,
+              num_heads=8)
+P12_MOE = dict(vocab_size=8192, total_len=2048, d_model=1024, depth=2,
+               num_heads=8, num_kv_heads=2, num_experts=8, moe_every=2)
+# label: (family, mesh axes, control)
+P12_CHECKS = {
+    "12a ring seq 4": ("lc", dict(seq=4), None),
+    "12a ring seq 4, a dropped past hop": ("lc", dict(seq=4), "drop_hop"),
+    "12a ulysses seq 4": ("lc_ulysses", dict(seq=4), None),
+    "12b seq 2": ("lm", dict(seq=2), None),
+    "12b model 2": ("lm", dict(model=2), None),
+    "12b model 2, the model reduction counted twice": ("lm", dict(model=2),
+                                                       "double"),
+    "12b model 2 x seq 2": ("lm", dict(model=2, seq=2), None),
+    "12c expert 2": ("moe", dict(expert=2), None),
+    "12c expert 2, slots to the wrong owner": ("moe", dict(expert=2),
+                                               "misroute"),
+}
+
+
+def _rank_trace(path) -> dict:
+    """A rank's ``--profile_dir`` trace → its B1-B3 kernel launches in
+    training (before the last ``train_step`` span ends) and in all, its
+    step p50 (the host spans, ms: with the exchanges staged through the
+    host a step's span waits for its device work) and its busy share
+    (the union of its kernels over the training window)."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("name") == "train_step" and e.get("ph") == "X"
+                   and e.get("cat") == "user_annotation")
+    kernels = sorted((e["ts"], e["ts"] + e.get("dur", 0), e.get("name", ""))
+                     for e in events if e.get("cat") == "kernel")
+    lo, hi = spans[0][0], spans[-1][1]
+    busy, reach = 0.0, lo
+    for a, b, _ in kernels:
+        a, b = max(a, reach, lo), min(b, hi)
+        if b > a:
+            busy += b - a
+            reach = b
+    count = {key: 0 for key in FLASH_KERNELS}
+    train = dict(count)
+    for a, _, name in kernels:
+        for key, k in FLASH_KERNELS.items():
+            if re.search(rf"\b{k}\b", name):
+                count[key] += 1
+                train[key] += a < hi
+    return dict(train=train, total=count,
+                step_p50_ms=float(np.median([b - a for a, b in spans])) / 1e3,
+                busy=busy / (hi - lo), steps=len(spans))
+
+
+def _p12_expected(name, depth, steps, rank) -> int:
+    """B1 = B2 = B3 launches of a rank in training: a ring hop is one
+    block call, so the non-causal ring (12a) runs 4 a layer, the causal
+    one (12b) seq rank + 1 (the future hops skip); Ulysses, TP and EP
+    one a layer."""
+    if name == "12a_ring":
+        return depth * steps * 4
+    if name == "12b_seq2":
+        return depth * steps * (rank + 1)
+    if name == "12b_model2_seq2":  # rank = seq · 2 + model
+        return depth * steps * (rank // 2 + 1)
+    return depth * steps
+
+
+def _hop_launches(run, key, causal) -> int:
+    """A ring run's training launches of ``key`` at its past hops' shape:
+    every rank's under a non-causal ring (hop 0 is one more unmasked
+    block); under a causal one rank r's r past hops of its r + 1 live
+    ones (hop 0, the causal diagonal block, is other work)."""
+    return sum(rk["train"][key] * r // (r + 1) if causal else rk["train"][key]
+               for r, rk in enumerate(run["ranks"]))
+
+
+def _p12_argv(name, tmp) -> list:
+    base, extra, world = P12_RUNS[name]
+    return (base + CNN_DEVICE_ARGS + extra + GLOO + [
+        "--spawn", str(world), "--profile_dir", f"{tmp}/{name}_prof",
+        "--checkpoint_dir", f"{tmp}/{name}",
+        "--metrics_file", f"{tmp}/{name}.jsonl"])
+
+
+def _p12_breakdown(tmp, name, span) -> dict:
+    """Where a run's wall time went (``span``: the start and end of the
+    runs, host clock), from rank 0's ``--metrics_file`` records (s):
+    ``start`` to ``run_start`` (the processes, the mesh, the data and
+    the model), ``train`` to the ``epoch`` record (the steps and the
+    epoch's host read), ``after`` to ``final`` (the evaluation and the
+    checkpoint), ``tail`` to the runs' end (the traces, the teardown,
+    the slower runs)."""
+    with open(f"{tmp}/{name}.jsonl") as f:
+        at = {r["kind"]: r["time"] for r in map(json.loads, f)}
+    return dict(start=at["run_start"] - span[0],
+                train=at["epoch"] - at["run_start"],
+                after=at["final"] - at["epoch"], tail=span[1] - at["final"])
+
+
+def _p12_readings(torch, tmp, name, code, lines, span) -> tuple[dict, list]:
+    """One phase-12 run's per-rank readings from its traces, and its
+    wall time's breakdown (``span``: the runs' start and end, host
+    clock) → (readings, failures)."""
+    import os
+
+    base, _, world = P12_RUNS[name]
+    if code != 0:
+        return {}, [f"{name}: exit {code}: {lines[-20:]}"]
+    depth = int(base[base.index("--model_depth") + 1]) \
+        if "--model_depth" in base else 2
+    steps = int(torch.load(f"{tmp}/{name}/epoch_0/state.pt",
+                           weights_only=True)["step"])
+    ranks, failed = [], []
+    for r in range(world):
+        path = f"{tmp}/{name}_prof/trace_rank{r}.json"
+        if not os.path.exists(path):
+            failed.append(f"{name}: rank {r} wrote no trace")
+            continue
+        t = _rank_trace(path)
+        want = _p12_expected(name, depth, steps, r)
+        if not (all(t["train"][f"{n}_bf16"] == want for n in FLASH_NAMES)
+                and not any(t["total"][f"{n}_fp32"] for n in FLASH_NAMES)):
+            failed.append(f"{name}: rank {r} launched {t['train']} in "
+                          f"training, not B1 = B2 = B3 = {want} in bf16")
+        ranks.append(dict(t, want=want))
+        log(f"[mesh] {name} rank {r}/{world}: step p50 "
+            f"{t['step_p50_ms']:.3f} ms over {t['steps']} steps, busy share "
+            f"{t['busy']:.3f}, B1-B3 in training "
+            f"{[t['train'][f'{n}_bf16'] for n in FLASH_NAMES]} (want "
+            f"{want} each), in all "
+            f"{[t['total'][f'{n}_bf16'] for n in FLASH_NAMES]}")
+    text = [ln for ln in lines if ln.startswith(("epoch 1/", "Epoch 0 done",
+                                                 "final_accuracy="))]
+    parts = _p12_breakdown(tmp, name, span)
+    log(f"[mesh] {name}: {world} processes on one card through gloo, "
+        f"{steps} steps, depth {depth}; of the runs' {span[1] - span[0]:.1f} "
+        f"s (all at once): start-up {parts['start']:.1f}, training "
+        f"{parts['train']:.1f}, eval and checkpoint {parts['after']:.1f}, "
+        f"then to the runs' end {parts['tail']:.1f} s: {text}")
+    return dict(world=world, depth=depth, steps=steps,
+                seconds=span[1] - span[0], wall=parts, ranks=ranks), failed
+
+
+def _p12_cfgs() -> dict:
+    """12d's model configurations by family (passed to the spawned
+    ranks, so that a rehearsal's cut sizes reach them)."""
+    return dict(lc=dict(P12_LC), lm=dict(P12_LM), moe=dict(P12_MOE))
+
+
+def _p12d_models(torch, family, state, dev, cfgs):
+    """(a function building the model from the FULL state on a mesh, a
+    step maker) of a 12d family."""
+    from ddp_tpu_torch.models import lm as tlm
+    from ddp_tpu_torch.models import seq_transformer as tst
+    from ddp_tpu_torch.parallel.ddp import TrainState
+    from ddp_tpu_torch.parallel.tp import shard_module
+
+    if family.startswith("lc"):
+        spec = tst.SeqTransformerSpec(
+            **cfgs["lc"], strategy="ulysses" if family == "lc_ulysses" else
+            "ring")
+        return (lambda mesh: tst.build_model(spec, state, dev, mesh=mesh),
+                lambda model, opt, mesh: tst.make_seq_parallel_train_step(
+                    TrainState(0, model, opt), mesh))
+    spec = tlm.LMSpec(**cfgs["moe" if family == "moe" else "lm"])
+
+    def build(mesh):
+        model = tlm.CausalLM.from_state(spec, state, "cpu", trainable=True)
+        shard_module(model, mesh)
+        return model.to(dev)
+
+    return build, lambda model, opt, mesh: tlm.make_lm_train_step(
+        model, opt, mesh=mesh)
+
+
+def _p12d_inputs(torch, family, dev, cfgs):
+    """12d's seeded full state and global batch of a family."""
+    from ddp_tpu_torch.models import lm as tlm
+    from ddp_tpu_torch.models import seq_transformer as tst
+
+    rng = np.random.default_rng(12)
+    if family.startswith("lc"):
+        lc = cfgs["lc"]
+        state = tst.init_seq_transformer(tst.SeqTransformerSpec(**lc),
+                                         seed=12)
+        x = rng.standard_normal((2, lc["total_len"], lc["d_in"]))
+        y = rng.integers(0, lc["num_classes"], 2)
+        return state, (torch.from_numpy(x.astype(np.float32)).to(dev),
+                       torch.from_numpy(y).to(dev))
+    cfg = cfgs["moe" if family == "moe" else "lm"]
+    state = tlm.init_lm_state(tlm.LMSpec(**cfg), seed=12)
+    toks = rng.integers(0, cfg["vocab_size"],
+                        (P12_WORLD if family == "moe" else 2,
+                         cfg["total_len"]))
+    return state, (torch.from_numpy(toks).to(dev),)
+
+
+def _p12d_controls(torch, control):
+    """The (owner, name, value) patches of a 12d control."""
+    from ddp_tpu_torch.models import lm as tlm
+    from ddp_tpu_torch.models import moe as tmoe
+    from ddp_tpu_torch.parallel import ring
+
+    if control == "drop_hop":
+        real, calls = ring.default_block_fn, [0]
+
+        def dropped(q, k, v, causal):
+            calls[0] += 1
+            o, lse = real(q, k, v, causal)
+            if calls[0] % 4 == 2:  # hop 1 of each ring call (n 4)
+                return torch.zeros_like(o), torch.full_like(lse,
+                                                            -float("inf"))
+            return o, lse
+        return ((ring, "default_block_fn", dropped),)
+    if control == "double":
+        real = tlm._reduce_gradients
+
+        def doubled(params, names, layout, mesh, extras):
+            rest = real(params, names, layout, mesh, extras)
+            for n, p in zip(names, params):
+                if n not in layout.specs:
+                    mesh.comm("model").all_reduce_(p.grad)
+            return rest
+        return ((tlm, "_reduce_gradients", doubled),)
+    if control == "misroute":
+        real = tmoe.all_to_all
+
+        def wrong_owner(t, comm, split_dim, concat_dim):
+            shift = t.shape[split_dim] // comm.size
+            return real(torch.roll(t, shift, split_dim), comm, split_dim,
+                        concat_dim)
+        return ((tmoe, "all_to_all", wrong_owner),)
+    return ()
+
+
+def _p12d_worker(rank, world, out, device, cfgs):
+    """One rank of 12d's gloo world: the fp32 step of every P12_CHECKS
+    mesh from the seeded weights on its data replica's rows; rank 0
+    saves the losses and the gathered gradients, every rank of the
+    routed mesh its routing."""
+    import torch
+
+    from ddp_tpu_torch.models import moe as tmoe
+    from ddp_tpu_torch.runtime import dist
+    from ddp_tpu_torch.runtime.mesh import dist_mesh, mesh_sizes
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = dist.setup(rank, world, backend="gloo", device=device)
+    results, routes = {}, []
+    try:
+        inputs = {}
+        for label, (family, axes, control) in P12_CHECKS.items():
+            if family not in inputs:
+                inputs[family] = _p12d_inputs(torch, family, ctx.device,
+                                              cfgs)
+            state, batch = inputs[family]
+            mesh = dist_mesh(mesh_sizes(world, **axes), rank)
+            build, step_of = _p12d_models(torch, family, state, ctx.device,
+                                          cfgs)
+            model = build(mesh)
+            opt = make_optimizer(model.parameters(), "sgd", lr=0.1)
+            opt.norm = model.shard_layout.norm
+            per = batch[0].shape[0] // mesh.data_size
+            rows = [b[mesh.data_rank * per:][:per] for b in batch]
+            real_route = tmoe.route
+
+            def route(*a, **kw):
+                r = real_route(*a, **kw)
+                if family == "moe" and control is None:
+                    routes.append((mesh.data_rank, r._replace(
+                        expert=r.expert.cpu(), slot=r.slot.cpu(),
+                        kept=r.kept.cpu(), gates=r.gates.cpu(),
+                        aux=r.aux.cpu())))
+                return r
+
+            with _patched((tmoe, "route", route),
+                          *_p12d_controls(torch, control)):
+                m = step_of(model, opt, mesh)(*rows)
+            grads = model.shard_layout.gather(
+                {n: p.grad for n, p in model.named_parameters()})
+            results[label] = (float(m.loss),
+                              {k: v.detach().cpu() for k, v in grads.items()})
+            del model, opt, grads
+        torch.save(routes, f"{out}/12d_routes{rank}.pt")
+        if rank == 0:
+            torch.save(results, f"{out}/12d_steps.pt")
+    finally:
+        dist.cleanup()
+
+
+def _p12d_reference(torch, family, dev, cfgs, routes=None):
+    """World 1's exact step (fp32, the plain attention) of a family from
+    the same weights → (loss, {name: gradient}); the routed LM's is the
+    mean over the data replicas of world 1 on each replica's rows, each
+    replaying that replica's routing from the mesh step (C12)."""
+    from ddp_tpu_torch.models import lm as tlm
+    from ddp_tpu_torch.models import moe as tmoe
+    from ddp_tpu_torch.models import seq_transformer as tst
+    from ddp_tpu_torch.parallel import ring
+    from ddp_tpu_torch.parallel.ddp import TrainState
+    from ddp_tpu_torch.runtime.mesh import local_mesh
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    state, batch = _p12d_inputs(torch, family, dev, cfgs)
+    plain = ring._xla_block_with_lse
+    if family.startswith("lc"):
+        one = local_mesh()
+        model = tst.build_model(tst.SeqTransformerSpec(**cfgs["lc"]), state,
+                                dev,
+                                attention_fn=lambda q, k, v:
+                                plain(q, k, v, False)[0], mesh=one)
+        st = TrainState(0, model, make_optimizer(model.parameters(), "sgd",
+                                                 lr=0.1))
+        m = tst.make_seq_parallel_train_step(st, one)(*batch)
+        return float(m.loss), {n: p.grad.detach().cpu()
+                               for n, p in model.named_parameters()}
+    spec = tlm.LMSpec(**cfgs["moe" if family == "moe" else "lm"])
+
+    def step(rows):
+        model = tlm.CausalLM.from_state(spec, state, dev, trainable=True)
+        opt = make_optimizer(model.parameters(), "sgd", lr=0.1)
+        m = tlm.make_lm_train_step(model, opt, block_fn=plain)(rows)
+        return float(m.loss), {n: p.grad.detach().cpu()
+                               for n, p in model.named_parameters()}
+
+    if family != "moe":
+        return step(batch[0])
+    parts = []
+    for replica, old in routes:
+        def held(tokens, router_weight, router_bias, *, num_experts, top_k,
+                 capacity_factor, normalize_gates, old=old):
+            return _replayed(torch, old, tokens, router_weight, router_bias,
+                             num_experts, normalize_gates)
+
+        with _patched((tmoe, "route", held)):
+            parts.append(step(batch[0][replica:replica + 1]))
+    n = len(parts)
+    return (sum(p[0] for p in parts) / n,
+            {k: sum(p[1][k] for p in parts) / n for k in parts[0][1]})
+
+
+def start_mesh_steps(tmp, dev="cuda"):
+    """Start 12d's gloo world of P12_WORLD processes on the card (its
+    ranks run the fp32 step of every P12_CHECKS mesh) → its context,
+    joined by :func:`check_mesh_steps`."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    from ddp_tpu_torch.runtime import dist
+
+    os.environ["MASTER_ADDR"] = "localhost"
+    os.environ["MASTER_PORT"] = str(dist.free_port())
+    return mp.start_processes(_p12d_worker,
+                              args=(P12_WORLD, tmp, dev, _p12_cfgs()),
+                              nprocs=P12_WORLD, join=False,
+                              start_method="spawn")
+
+
+def _join_world(world, started) -> str | None:
+    """Join 12d's world (:func:`start_mesh_steps`; ``started`` its start,
+    ``time.perf_counter``) until P12D_DEADLINE s from its start → None
+    when every rank finished, else why not (a hung world's processes are
+    killed)."""
+    from torch.multiprocessing import (
+        ProcessExitedException,
+        ProcessRaisedException,
+    )
+
+    try:
+        while not world.join(timeout=max(
+                0.0, started + P12D_DEADLINE - time.perf_counter())):
+            if time.perf_counter() >= started + P12D_DEADLINE:
+                for proc in world.processes:
+                    if proc.is_alive():
+                        proc.kill()
+                    proc.join()
+                return f"hung past {P12D_DEADLINE} s"
+    except (ProcessExitedException, ProcessRaisedException) as e:
+        return f"{type(e).__name__}: {e}"  # join killed the other ranks
+    return None
+
+
+def check_mesh_steps(torch, tmp, world, started,
+                     dev="cuda") -> tuple[dict, list]:
+    """12d: every P12_CHECKS mesh's fp32 step (B1-B3 in fp32) from
+    ``world`` (:func:`start_mesh_steps` at ``started``, joined here
+    against P12D_DEADLINE), against world 1's exact step, held to
+    STEP_TOL["fp32"]; each control (a dropped past hop, the model
+    reduction counted twice, slots sent to the wrong owner) must fail it.
+    A world that failed or hung fails every check."""
+    t0 = time.perf_counter()
+    fault = _join_world(world, started)
+    log(f"[mesh] 12d: waited {time.perf_counter() - t0:.1f} s more for "
+        f"the {P12_WORLD}-process world's steps"
+        + (f"; it failed: {fault}" if fault else ""))
+    if fault:
+        return {}, [f"12d: {fault}"]
+    got = torch.load(f"{tmp}/12d_steps.pt", weights_only=False)
+    cfgs = _p12_cfgs()
+    routes = sorted(
+        (pair for rank in range(P12_WORLD)
+         for pair in torch.load(f"{tmp}/12d_routes{rank}.pt",
+                                weights_only=False)), key=lambda p: p[0])
+    tol = STEP_TOL["fp32"]
+    readings, failed, refs = {}, [], {}
+    for label, (family, _, control) in P12_CHECKS.items():
+        if family not in refs:
+            refs[family] = _p12d_reference(torch, family, dev, cfgs, routes)
+            torch.cuda.empty_cache()
+        e = _grad_errors(got[label], refs[family])
+        ok = _within(e, tol)
+        readings[label] = dict(loss=e["loss"], grad=e["grad"],
+                               leaf=e["leaf"], attn=e["attn"])
+        log(f"[mesh] 12d {label}: {_errors_text(e)}"
+            + (" (a control: must fail)" if control else ""))
+        if ok == bool(control):
+            failed.append(f"12d {label}: " + ("the control passes" if control
+                                              else _errors_text(e)))
+    return readings, failed
+
+
+def check_mesh_spawn_params(torch, tmp, codes) -> tuple[dict, list]:
+    """12d's spawned check (its run starts with the others; ``codes`` its
+    exit code and lines): P12_SPAWN_ARGS at --mesh_seq 2 --spawn 2 --backend
+    gloo against world 1, 2 fp32 SGD steps of the global batch 4 with
+    --deterministic: the final parameters within P12_PARAM_ATOL; world 1
+    with its gradient divided by the world once more must part by
+    more."""
+    from ddp_tpu_torch.train import optim
+
+    if codes[0] != 0:
+        return {}, [f"12d spawned: exit {codes[0]}: {codes[1][-20:]}"]
+    _train(["--checkpoint_dir", f"{tmp}/p12_w1"], P12_SPAWN_ARGS)
+    real = optim.Optimizer._update
+
+    def divided(self):
+        for p in self.params:
+            p.grad.div_(P12_SPAWN_WORLD)
+        real(self)
+
+    with _patched((optim.Optimizer, "_update", divided)):
+        _train(["--checkpoint_dir", f"{tmp}/p12_ctl"], P12_SPAWN_ARGS)
+
+    def final(name):
+        return torch.load(f"{tmp}/{name}/epoch_0/state.pt",
+                          weights_only=True)
+
+    a, b, c = final("p12_w1"), final("p12_seq2"), final("p12_ctl")
+
+    def diff(p, q):
+        return max(float((p[k].float() - q[k].float()).abs().max())
+                   for k in p)
+
+    d, dc = diff(b["params"], a["params"]), diff(c["params"], a["params"])
+    log(f"[mesh] 12d spawned --mesh_seq 2 ({P12_SPAWN_WORLD} gloo ranks) vs "
+        f"world 1 after {a['step']} SGD steps, fp32: max |param diff| "
+        f"{d:.3e} (limit {P12_PARAM_ATOL:.0e}); control, the gradient "
+        f"divided by the world once more: {dc:.3e}")
+    failed = []
+    if a["step"] != b["step"]:
+        failed.append(f"12d spawned: steps {a['step']} vs {b['step']}")
+    if not d <= P12_PARAM_ATOL:
+        failed.append(f"12d spawned: parameters part by {d:.3e}")
+    if dc <= P12_PARAM_ATOL:
+        failed.append("12d spawned: the control passes")
+    return dict(param_diff=d, control_diff=dc, steps=int(a["step"])), failed
+
+
+@contextlib.contextmanager
+def _reaped(world):
+    """Kill every process of ``world`` (12d's) still running on the way
+    out."""
+    try:
+        yield
+    finally:
+        for proc in world.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+
+
+def check_mesh(torch, card) -> dict:
+    """Phase 12, the sequence models across ranks: 12a the long-context
+    model at README's command (--mesh_seq 4, ring and Ulysses), 12b the
+    LM at run_lm_long_bench's width (--mesh_seq 2, --mesh_model 2, both),
+    12c the routed LM at --mesh_expert 2, each `python -m
+    ddp_tpu_torch.train --spawn N --backend gloo` with every rank on the
+    one card (all at once, with 12d's world), launches by rank from each
+    rank's trace; the ring hops' B1-B3 timed alone; 12d the step checks.
+    Every reading is printed before any raise."""
+    import tempfile
+
+    t0 = s0 = time.perf_counter()
+    failed, readings = [], {"runs": {}}
+
+    def lap(label):
+        nonlocal s0
+        log(f"[mesh] {label}: {time.perf_counter() - s0:.1f} s")
+        s0 = time.perf_counter()
+
+    dev = "cpu" if CNN_DEVICE_ARGS else "cuda"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        w0, started = time.perf_counter(), time.time()
+        world = start_mesh_steps(tmp, dev)
+        with _reaped(world):
+            commands = {name: _p12_argv(name, tmp) for name in P12_RUNS}
+            commands["spawned"] = P12_SPAWN_ARGS + CNN_DEVICE_ARGS + GLOO + [
+                "--mesh_seq", "2", "--spawn", str(P12_SPAWN_WORLD),
+                "--checkpoint_dir", f"{tmp}/p12_seq2"]
+            done = _run_all(commands, tmp, timeout=P12_RUN_TIMEOUT)
+            spawned = done.pop("spawned")
+            span = (started, time.time())
+            for name, (code, lines) in done.items():
+                readings["runs"][name], bad = _p12_readings(
+                    torch, tmp, name, code, lines, span)
+                failed += bad
+            lap(f"the runs ({len(commands)} at once, 12d's world beside "
+                "them)")
+            readings["flash"] = check_and_time_flash(torch, HOP12A_SHAPE,
+                                                     "hop12a", seed=121)
+            readings["flash"].update(check_and_time_flash(
+                torch, HOP12B_SHAPE, "hop12b", seed=122))
+            lap("hops timed")
+            readings["steps"], bad = check_mesh_steps(torch, tmp, world, w0,
+                                                      dev)
+        failed += bad
+        lap("12d steps")
+        readings["spawned"], bad = check_mesh_spawn_params(torch, tmp,
+                                                           spawned)
+        failed += bad
+        lap("12d spawned")
+    log(f"[mesh] phase 12: {time.perf_counter() - t0:.1f} s on {card}")
+    if failed:
+        raise AssertionError(f"phase 12: {failed}")
+    return readings
+
+
 def check_serving(torch) -> dict:
     from ddp_tpu_torch.models.lm import LMSpec, init_lm
     from ddp_tpu_torch.ops import decode as dec
@@ -8419,6 +9057,7 @@ def main() -> int:
     fault = timed("phase 9", check_fault_tolerance, torch, card)
     imagenet = timed("phase 10", check_imagenet, torch, card)
     lc = timed("phase 11", check_long_context, torch, card)
+    mesh = timed("phase 12", check_mesh, torch, card)
     log(f"[main] all phases and the build: {time.perf_counter() - t0:.1f} s")
 
     replaces = {"flash_decode_fp32": "ddp_tpu/ops/decode.py:260",
@@ -8510,6 +9149,13 @@ def main() -> int:
             # 11f's world-2 rank 0, from its profiler trace (fp32).
             "lm_world2_rank0_launches":
                 lc["world2"]["launches"].get(f"{name}_fp32", 0),
+            # Phase 12: each --spawn run's training launches by rank
+            # (bf16, from each rank's trace): 12a long_context at
+            # --mesh_seq 4 (ring, Ulysses), 12b the LM at T 8192
+            # (--mesh_seq 2, --mesh_model 2, both), 12c --mesh_expert 2.
+            "mesh_launches_by_rank": {
+                run: [rk["train"][f"{name}_bf16"] for rk in r["ranks"]]
+                for run, r in mesh["runs"].items()},
             "variants": {
                 "fp32": {"launches": trained["fp32"][name],
                          **{k: flash["fp32"][name][k] for k in keys}},
@@ -8535,6 +9181,16 @@ def main() -> int:
                     "launches": lc["lm_long"][
                         "launches" if d == "bf16" else "launches_fp32"][name],
                     **lc["flash"][f"lm_long_{d}"][name]}
+                   for d in ("bf16", "fp32")},
+                # The ring hops' shapes (non-causal past hops), timed
+                # alone; launches: those at that shape in 12a ring
+                # (every hop) and 12b seq 2 (the past hops alone).
+                **{f"{hop}_{d}": {
+                    "launches": _hop_launches(mesh["runs"][run],
+                                              f"{name}_{d}", causal),
+                    **mesh["flash"][f"{hop}_{d}"][name]}
+                   for hop, run, causal in (("hop12a", "12a_ring", False),
+                                            ("hop12b", "12b_seq2", True))
                    for d in ("bf16", "fp32")}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,7 +17,9 @@ unchanged. The MoE ViT's routed blocks map the same way, name for name.
 
 Takes numpy arrays only — nested dicts, or a flat dict with
 ``/``-joined keys (an ``np.load`` of an ``.npz``) — so the port never
-needs JAX to read a JAX model.
+needs JAX to read a JAX model. The results are full states; a mesh
+rank's shard of one is ``parallel/tp.shard_params(state, mesh, rank)``
+(how the tests carry JAX's parameters into every rank).
 """
 
 from __future__ import annotations

@@ -17,14 +17,30 @@ It serves (``forward``, the slot-level decode in ``models/generate``)
 and trains: ``train_forward`` casts the fp32 master weights to the
 compute dtype inside the forward, as ``ddp_tpu.models.lm`` does
 (``lm.py:368-371``), and sends attention through
-``parallel/ring.ring_attention`` → ``default_block_fn`` (the flash
-kernels B1–B3 on a CUDA tensor), as the JAX step does through
-``_sharded_lm``. ``make_lm_train_step`` / ``make_lm_eval_step`` are the
-one-rank counterparts of the JAX steps (``lm.py:492-712``).
+``parallel/ring.sequence_sharded_attention`` by ``--seq_strategy`` (the
+ring → ``default_block_fn``: the flash kernels B1–B3 on a CUDA tensor),
+as the JAX step does through ``_sharded_lm``. ``make_lm_train_step`` /
+``make_lm_eval_step`` are the counterparts of the JAX steps
+(``lm.py:492-712``).
 ``truncated_draft`` is a speculative-decoding draft made of the first
 blocks of a model, sharing its tensors.
 
-Remat and tensor/expert/sequence parallelism wait for later slices.
+Across ranks (``runtime/mesh.Mesh``; ``_make_sharded_forward`` :341,
+``_make_sharded_token_metrics`` :414, ``_make_sharded_seq_metrics``
+:515): the tokens shard over ``seq`` (each rank a [B, T/n] column slice,
+its positions from ``seq_rank · T_local``, attention through
+``parallel/ring.sequence_sharded_attention`` — the multi-rank ring or
+Ulysses); the blocks are Megatron blocks over ``model``
+(``parallel/tp``: column-parallel ``attn.qkv`` and ``mlp1`` behind f,
+row-parallel ``attn.proj`` and ``mlp2`` with g, the model built from its
+shards); routed blocks exchange their expert buffer over ``expert``.
+Each shard's last position targets the first token of the next shard (a
+ring exchange) and the last global position has weight 0; each rank's
+loss is its shard's sum over B_local·(T_global − 1), so the losses sum
+over ``seq`` to the replica's mean, and the gradients are summed over
+``seq`` and averaged over the data axes (data × expert), except over
+``model``, where Megatron's f/g already made every replicated leaf's
+gradient whole. Remat waits for a later slice.
 """
 
 from __future__ import annotations
@@ -45,7 +61,8 @@ from ddp_tpu_torch.parallel.ddp import (
     bucket_all_reduce,
     global_norm,
 )
-from ddp_tpu_torch.parallel.ring import ring_attention
+from ddp_tpu_torch.parallel.ring import sequence_sharded_attention
+from ddp_tpu_torch.parallel.tp import megatron_f, row_parallel
 from ddp_tpu_torch.runtime.dist import all_reduce_sum
 
 LN_EPS = 1e-6  # Flax's LayerNorm default (torch's is 1e-5)
@@ -304,7 +321,8 @@ class CausalLM(nn.Module):
         return self.head(x)
 
     def train_forward(self, tokens, *, compute_dtype=torch.float32,
-                      block_fn=None, return_aux: bool = False):
+                      block_fn=None, return_aux: bool = False, mesh=None,
+                      strategy: str = "ring"):
         """The training forward → [B, T, vocab] fp32 logits; with
         ``return_aux``, ``(logits, aux)``: the mean of the routed blocks'
         load-balance losses (``lm.py:377-380``; 0 for a dense model).
@@ -314,11 +332,18 @@ class CausalLM(nn.Module):
         compute in fp32 and cast back (``vit.py:203,215``); ``ln_final``
         and the tied-head logits stay fp32 (``lm.py:129-131``). Under GQA
         K/V are repeated to H heads before attention (``vit.py:152``).
-        ``block_fn`` overrides the attention block of the one-rank ring
+        Attention is ``parallel/ring.sequence_sharded_attention`` by
+        ``strategy``; ``block_fn`` overrides the ring's block
         (``parallel.ring.default_block_fn`` by default). Routed blocks
         route the B·T tokens of this forward with capacity
         (``models/moe.moe_mlp``), their router in fp32 over the cast
         weights (``moe.py:70-72``).
+
+        ``mesh`` (a ``runtime/mesh.Mesh`` whose model holds this rank's
+        shards): ``tokens`` is this rank's [B, T/n] column slice, the
+        attention runs over the ``seq`` group, the blocks over ``model``
+        (Megatron f/g) and the routed MLPs over ``expert``; the logits
+        are this shard's.
         """
         s = self.spec
         p = {
@@ -337,29 +362,44 @@ class CausalLM(nn.Module):
             return F.linear(x, p[name + ".weight"], p[name + ".bias"])
 
         B, T = tokens.shape
-        x = p["embed"][tokens.long()] + p["pos_embed"][:, :T]
+        H, H_kv, pos0 = s.num_heads, s.kv_heads, 0
+        seq = tp = ep = None
+        if mesh is not None:
+            seq, tp, ep = (mesh.comm(a) for a in ("seq", "model", "expert"))
+            H, H_kv, pos0 = H // tp.size, H_kv // tp.size, seq.rank * T
+
+        def row(x, name):
+            return row_parallel(x, p[name + ".weight"], p[name + ".bias"],
+                                tp)
+
+        def col_in(y):
+            return y if tp is None else megatron_f(y, tp)
+
+        x = p["embed"][tokens.long()] + p["pos_embed"][:, pos0:pos0 + T]
         G = s.num_heads // s.kv_heads
         for i in range(1, s.depth + 1):
             b = f"block{i}."
-            y = norm(x, b + "ln1").to(x.dtype)
-            q, k, v = split_qkv(dense(y, b + "attn.qkv"), s.num_heads,
-                                s.kv_heads, s.head_dim)
+            y = col_in(norm(x, b + "ln1").to(x.dtype))
+            q, k, v = split_qkv(dense(y, b + "attn.qkv"), H, H_kv,
+                                s.head_dim)
             if G > 1:
                 k = k.repeat_interleave(G, dim=2)
                 v = v.repeat_interleave(G, dim=2)
-            o = ring_attention(q, k, v, causal=True, block_fn=block_fn)
-            x = x + dense(o.reshape(B, T, s.d_model), b + "attn.proj")
+            o = sequence_sharded_attention(q, k, v, strategy=strategy,
+                                           causal=True, comm=seq,
+                                           block_fn=block_fn)
+            x = x + row(o.reshape(B, T, H * s.head_dim), b + "attn.proj")
             y = norm(x, b + "ln2").to(x.dtype)
             if s.routed(i - 1):
                 y, aux, _ = moe_mlp(
                     y, {k: p[b + "moe." + k] for k in MOE_PARAMS},
                     num_experts=s.num_experts, top_k=s.moe_top_k,
-                    normalize_gates=s.moe_normalize_gates)
+                    normalize_gates=s.moe_normalize_gates, ep=ep)
                 auxes.append(aux)
                 x = x + y
             else:
-                h = F.gelu(dense(y, b + "mlp1"), approximate="tanh")
-                x = x + dense(h, b + "mlp2")
+                h = F.gelu(dense(col_in(y), b + "mlp1"), approximate="tanh")
+                x = x + row(h, b + "mlp2")
         x = norm(x, "ln_final")
         logits = x @ p["embed"].float().T
         if not return_aux:
@@ -407,15 +447,6 @@ def next_token_loss(logits, tokens, *, label_smoothing: float = 0.0):
     return (per_tok * mask).sum() / (mask.sum() * tokens.shape[0])
 
 
-def _token_metrics(logits, tokens, label_smoothing: float):
-    """(mean loss, correct count) over the next-token targets — the
-    one-rank ``_make_sharded_token_metrics`` (``lm.py:414``)."""
-    targets, mask = _shifted_targets(tokens)
-    correct = ((logits.argmax(-1) == targets).float() * mask).sum()
-    loss = next_token_loss(logits, tokens, label_smoothing=label_smoothing)
-    return loss, correct
-
-
 def make_lm_train_step(
     model: CausalLM,
     optimizer,
@@ -426,6 +457,8 @@ def make_lm_train_step(
     block_fn=None,
     world: int = 1,
     reduce=all_reduce_sum,
+    mesh=None,
+    strategy: str = "ring",
 ):
     """The causal-LM step (``lm.py:572``): ``step(tokens) ->
     StepMetrics`` updates ``model``'s parameters in place.
@@ -445,81 +478,152 @@ def make_lm_train_step(
     (``lm.py:633-636``); accuracy the next-token top-1, grad_norm the
     global norm of the (averaged, unclipped) gradient. Metrics stay on
     the device: no host read.
+
+    ``mesh`` (a ``runtime/mesh.Mesh`` over more than the data axes; the
+    model sharded by ``parallel/tp.shard_module``; ``world`` and
+    ``reduce`` unused): ``tokens`` is this data replica's rows at full
+    length, the step takes its ``seq`` columns, and one reduction
+    (:func:`_reduce_gradients`) averages over the replicas; the grad
+    norm is the full model's (``tp.ShardLayout.norm``).
     """
     params = [p for p in model.parameters() if p.requires_grad]
     if not params:
         raise ValueError("the model has no trainable parameters: build it "
                          "with CausalLM.from_state(..., trainable=True)")
-
     spec = model.spec
+    seq = None if mesh is None else mesh.comm("seq")
+    n_seq = 1 if seq is None else seq.size
+    layout = getattr(model, "shard_layout", None)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    norm = global_norm if layout is None else layout.norm
+    replicas = world if mesh is None else mesh.data_size
 
-    def loss_and_correct(tokens):
+    def objective(rows):
+        """This rank's loss (its shard's summed next-token loss over
+        B·(T_global − 1), plus a routed model's weighted aux loss over
+        n_seq: summed over ``seq`` and averaged over the data replicas,
+        JAX's mean over every rank) and correct count."""
+        cols = rows if mesh is None else mesh.seq_shard(rows)
         logits, aux = model.train_forward(
-            tokens, compute_dtype=compute_dtype, block_fn=block_fn,
-            return_aux=True,
-        )
-        loss, correct = _token_metrics(logits, tokens, label_smoothing)
+            cols, compute_dtype=compute_dtype, block_fn=block_fn,
+            return_aux=True, mesh=mesh, strategy=strategy)
+        targets, mask = shard_targets(cols, seq)
+        per_tok = _per_token_nll(logits.float(), targets, label_smoothing)
+        loss = (per_tok * mask).sum() / (rows.shape[0] * (rows.shape[1] - 1))
+        correct = ((logits.argmax(-1) == targets).float() * mask).sum()
         if spec.num_experts:
-            loss = loss + spec.aux_loss_weight * aux
+            loss = loss + spec.aux_loss_weight * aux / n_seq
         return loss, correct
 
     def step(tokens) -> StepMetrics:
         B, T = tokens.shape
         for p in params:
             p.grad = None
-        if grad_accum_steps == 1:
-            loss, correct = loss_and_correct(tokens)
-            loss.backward()
-            loss = loss.detach()
-        else:
-            if B % grad_accum_steps:
-                raise ValueError(
-                    f"batch {B} not divisible by grad_accum_steps "
-                    f"{grad_accum_steps}"
-                )
-            loss = correct = 0.0
-            for i in range(grad_accum_steps):
-                l_i, c_i = loss_and_correct(tokens[i::grad_accum_steps])
-                l_i.backward()
-                loss = loss + l_i.detach()
-                correct = correct + c_i
+        k = grad_accum_steps
+        if B % k:
+            raise ValueError(f"batch {B} not divisible by grad_accum_steps "
+                             f"{k}")
+        loss = correct = 0.0
+        for i in range(k):
+            l_i, c_i = objective(tokens[i::k])
+            l_i.backward()
+            loss, correct = loss + l_i.detach(), correct + c_i
+        if k > 1:
             for p in params:
-                p.grad.div_(grad_accum_steps)
-            loss = loss / grad_accum_steps
-        if world > 1:
-            _, rest = bucket_all_reduce(
-                params, [torch.as_tensor(loss).float(),
-                         torch.as_tensor(correct).float()], world, reduce)
-            loss, correct = rest
-        grads = [p.grad for p in params]
-        grad_norm = global_norm(grads)
+                p.grad.div_(k)
+        extras = [torch.as_tensor(loss / k).float(),
+                  torch.as_tensor(correct).float()]
+        if mesh is not None:
+            loss, correct = _reduce_gradients(params, names, layout, mesh,
+                                              extras)
+        elif world > 1:
+            _, (loss, correct) = bucket_all_reduce(params, extras, world,
+                                                   reduce)
+        else:
+            loss, correct = extras
+        grad_norm = norm([p.grad for p in params])
         optimizer.step()
-        return StepMetrics(
-            loss=loss, accuracy=correct / (B * world * (T - 1)),
-            grad_norm=grad_norm,
-        )
+        return StepMetrics(loss=loss,
+                           accuracy=correct / (B * replicas * (T - 1)),
+                           grad_norm=grad_norm)
 
     return step
 
 
-def make_lm_eval_step(model: CausalLM, *, compute_dtype=torch.float32):
+def make_lm_eval_step(model: CausalLM, *, compute_dtype=torch.float32,
+                      mesh=None, strategy: str = "ring"):
     """Eval over held-out tokens (``lm.py:492``): ``step(tokens,
     weights) -> (Σ w·per-sequence token accuracy, Σ w·per-sequence mean
-    loss)``, device scalars; the caller divides by the split size."""
+    loss)``, device scalars; the caller divides by the split size.
+    ``mesh``: ``tokens`` is this data replica's rows at full length, each
+    sequence's sums are reduced over ``seq`` (``_make_sharded_seq_metrics``
+    :515), and the sums are this replica's (the caller sums them over the
+    data axes)."""
+    seq = None if mesh is None else mesh.comm("seq")
 
     @torch.no_grad()
     def step(tokens, weights):
-        logits = model.train_forward(tokens, compute_dtype=compute_dtype)
-        targets, mask = _shifted_targets(tokens)
+        T_global = tokens.shape[1]
+        if mesh is not None:
+            tokens = mesh.seq_shard(tokens)
+        logits = model.train_forward(tokens, compute_dtype=compute_dtype,
+                                     mesh=mesh, strategy=strategy)
+        targets, mask = shard_targets(tokens, seq)
         logits32 = logits.float()
         per_tok = _per_token_nll(logits32, targets, 0.0)
-        denom = tokens.shape[1] - 1
-        seq_loss = (per_tok * mask).sum(1) / denom
-        seq_acc = ((logits32.argmax(-1) == targets).float() * mask).sum(1) / denom
+        sums = torch.stack([
+            (per_tok * mask).sum(1),
+            ((logits32.argmax(-1) == targets).float() * mask).sum(1)])
+        if seq is not None:
+            seq.all_reduce_(sums)
+        seq_loss, seq_acc = sums / (T_global - 1)
         w = weights.float()
         return (seq_acc * w).sum(), (seq_loss * w).sum()
 
     return step
+
+
+# ---- across ranks -------------------------------------------------------
+
+
+def shard_targets(tokens, seq):
+    """The next-token targets of a [B, T_local] shard and their weights
+    [T_local] (``lm.py:434-450``): the shard's last position targets the
+    next shard's first token, passed back round the ``seq`` ring; the
+    last global position has target 0 and weight 0. ``seq`` None or of
+    one rank: :func:`_shifted_targets`."""
+    if seq is None or seq.size == 1:
+        return _shifted_targets(tokens)
+    tokens = tokens.long()
+    nxt = seq.shift(tokens[:, :1].contiguous(), -1)  # from rank + 1
+    targets = torch.cat([tokens[:, 1:], nxt], 1)
+    T = tokens.shape[1]
+    last = T - 1 if seq.rank == seq.size - 1 else T
+    mask = (torch.arange(T, device=tokens.device) < last).float()
+    return targets, mask
+
+
+def _reduce_gradients(params, names, layout, mesh, extras):
+    """The step's reduction → the reduced ``extras``: every gradient
+    summed over ``seq`` and averaged over the data replicas (data ×
+    expert), never reduced over ``model`` (f/g made the replicated
+    leaves' gradients whole there). An expert leaf's gradient is summed
+    over data and ``seq`` only: the all-to-all's backward already brought
+    every ``expert`` member's share to its owner. ``extras`` (the loss
+    and, last, the count) ride the first bucket; all but the count are
+    divided too."""
+    specs = layout.specs if layout is not None else {}
+    expert = [p for n, p in zip(names, params)
+              if specs.get(n, (0, ""))[1] == "expert"]
+    dense = [p for n, p in zip(names, params)
+             if specs.get(n, (0, ""))[1] != "expert"]
+    dp = mesh.data_size
+    _, rest = bucket_all_reduce(
+        dense, extras, dp, mesh.comm("data", "expert", "seq").all_reduce_)
+    if expert:
+        bucket_all_reduce(expert, [expert[0].new_zeros(())], dp,
+                          mesh.comm("data", "seq").all_reduce_)
+    return rest
 
 
 def init_lm_state(spec: LMSpec, *, seed: int = 0) -> dict[str, np.ndarray]:

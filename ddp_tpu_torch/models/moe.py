@@ -24,8 +24,14 @@ Two forms of the same function:
   path.
 
 The forward returns its aux loss with its output, ``(y, aux)``, not as
-module state, so that autograd sees it. Expert parallelism (the JAX
-module's ``ep_axis`` all-to-all) is not ported (ROADMAP A2.5).
+module state, so that autograd sees it. Expert parallelism
+(``moe.py:131-145``): given an ``expert`` communicator of ``ep`` ranks,
+each holding E/ep experts (``wi``/``bi``/``wo``/``bo`` sharded on their
+leading dim, the router replicated), the [E, C, d] dispatch buffer goes
+through an all-to-all to [E/ep, ep·C, d] — every rank's slots for this
+rank's experts, blocked by source — through the local experts' FFN, and
+back by the inverse all-to-all before the combine (``parallel/tp.
+all_to_all``: differentiable, its backward the inverse exchange).
 
 :meth:`MoEMLP.serve` is the serving form, the counterpart of
 ``ddp_tpu/models/generate.py``'s ``_moe_mlp`` (:107-147): no capacity,
@@ -45,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddp_tpu_torch.models import vit as _vit
+from ddp_tpu_torch.parallel.tp import all_to_all
 
 GELU_APPROXIMATE = "tanh"  # flax.linen.gelu's default
 FORMS = ("indexed", "onehot")
@@ -178,10 +185,12 @@ def combine(ys, r: Routing, form: str = "indexed"):
 
 def moe_mlp(x, w, *, num_experts: int, top_k: int = 2,
             capacity_factor: float = 2.0, normalize_gates: bool = True,
-            form: str = "indexed"):
+            form: str = "indexed", ep=None):
     """The routed MLP on ``x`` [B, T, d] with weights ``w`` (the
     :data:`PARAM_NAMES`, already in the compute dtype) → ``(y [B, T, d],
-    aux, routing)``. ``n`` is B·T: the tokens of this forward."""
+    aux, routing)``. ``n`` is B·T: the tokens of this forward. ``ep``:
+    the ``expert`` communicator; over more than one rank ``w``'s experts
+    are this rank's E/ep and the buffer is exchanged around their FFN."""
     if form not in FORMS:
         raise ValueError(f"form {form!r} is not one of {FORMS}")
     B, T, d = x.shape
@@ -190,7 +199,12 @@ def moe_mlp(x, w, *, num_experts: int, top_k: int = 2,
               num_experts=num_experts, top_k=top_k,
               capacity_factor=capacity_factor,
               normalize_gates=normalize_gates)
-    ys = _ffn(dispatch(tokens, r, num_experts, form), w)
+    xs = dispatch(tokens, r, num_experts, form)
+    if ep is not None and ep.size > 1:
+        # [E, C, d] → [E/ep, ep·C, d] and back.
+        ys = all_to_all(_ffn(all_to_all(xs, ep, 0, 1), w), ep, 1, 0)
+    else:
+        ys = _ffn(xs, w)
     return combine(ys, r, form).reshape(B, T, d), r.aux, r
 
 

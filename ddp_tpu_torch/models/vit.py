@@ -22,6 +22,12 @@ the tanh approximation (torch's default is exact). Under
 step casts its params; LayerNorm and the head compute in fp32 on them.
 ``remat`` recomputes each encoder block in the backward
 (``models/remat.py``): the forward's attention (B1) runs twice a step.
+
+An encoder block with ``tp`` set (a ``model`` communicator; the
+long-context model across ranks) is a Megatron block (``vit.py:36-160``,
+``parallel/tp``): its module weights are this rank's shards, qkv and
+mlp1 column-parallel behind f, proj and mlp2 row-parallel
+(``RowParallelDense``: the partial products summed by g, then the bias).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from torch import nn
 
 from ddp_tpu_torch.models.remat import remat_block
 from ddp_tpu_torch.ops.attention import best_attention
+from ddp_tpu_torch.parallel.tp import megatron_f, row_parallel
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 GELU_APPROXIMATE = "tanh"  # flax.linen.gelu's default (approximate=True)
@@ -48,6 +55,10 @@ def _layer_norm(ln: nn.LayerNorm, x, dt):
 
 def _dense(lin: nn.Linear, x, dt):
     return F.linear(x, lin.weight.to(dt), lin.bias.to(dt))
+
+
+def _row_dense(lin: nn.Linear, x, dt, tp):
+    return row_parallel(x, lin.weight.to(dt), lin.bias.to(dt), tp)
 
 
 class MultiHeadAttention(nn.Module):
@@ -67,10 +78,16 @@ class MultiHeadAttention(nn.Module):
         self.attention_fn = attention_fn
         self.qkv = nn.Linear(dim, (num_heads + 2 * kv) * self.head_dim)
         self.proj = nn.Linear(dim, dim)
+        self.tp = None  # the ``model`` communicator of a Megatron block
 
     def forward(self, x, dt):
-        B, T, C = x.shape
+        B, T, _ = x.shape
         H, kv, D = self.num_heads, self.num_kv_heads, self.head_dim
+        tp = self.tp
+        if tp is not None:  # this rank's heads (whole kv groups)
+            H, kv = H // tp.size, kv // tp.size
+            x = megatron_f(x, tp)
+        C = H * D
         fn = self.attention_fn or best_attention()
         qkv = _dense(self.qkv, x, dt)
         if kv == H:  # head-major: [head, (q|k|v), D]
@@ -83,7 +100,7 @@ class MultiHeadAttention(nn.Module):
             k = qkv[..., g, :].repeat_interleave(g, dim=2)
             v = qkv[..., g + 1, :].repeat_interleave(g, dim=2)
         out = fn(q, k, v)  # [B, T, H, D]
-        return _dense(self.proj, out.reshape(B, T, C), dt)
+        return _row_dense(self.proj, out.reshape(B, T, C), dt, tp)
 
 
 class EncoderBlock(nn.Module):
@@ -99,12 +116,15 @@ class EncoderBlock(nn.Module):
         self.ln2 = nn.LayerNorm(dim)
         self.mlp1 = nn.Linear(dim, mlp_dim)
         self.mlp2 = nn.Linear(mlp_dim, dim)
+        self.tp = None  # the ``model`` communicator of a Megatron block
 
     def forward(self, x, dt):
         x = x + self.attn(_layer_norm(self.ln1, x, dt).to(x.dtype), dt)
         y = _layer_norm(self.ln2, x, dt).to(x.dtype)
+        if self.tp is not None:
+            y = megatron_f(y, self.tp)
         y = F.gelu(_dense(self.mlp1, y, dt), approximate=GELU_APPROXIMATE)
-        return x + _dense(self.mlp2, y, dt)
+        return x + _row_dense(self.mlp2, y, dt, self.tp)
 
 
 class ViT(nn.Module):

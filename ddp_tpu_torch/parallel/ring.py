@@ -1,10 +1,10 @@
-"""Ring attention: the one-rank part the training step runs.
+"""Sequence parallelism: ring attention and Ulysses over a ``seq`` group.
 
 The PyTorch counterpart of ``ddp_tpu/parallel/ring.py``. The JAX
-causal-LM step sends every layer's attention through
-``sequence_sharded_attention`` → ``ring_attention``; on a ``seq`` axis
-of one rank that is its hop-0 block alone, ``_default_block_fn``. This
-module ports exactly that:
+sequence models send every layer's attention through
+``sequence_sharded_attention`` → ``ring_attention`` or
+``ulysses_attention`` on [B, T_local, H, D] token shards; on a ``seq``
+axis of one rank the ring is its hop-0 block alone. This module ports:
 
 - :func:`_xla_block_with_lse` — the plain per-block attention giving
   ``(out, lse)``, with the JAX block's own causal mask (query t sees keys
@@ -17,23 +17,50 @@ module ports exactly that:
 - :func:`combine_attention_partials` — the (out, lse) log-space merge of
   two partial results over disjoint keys; differentiable, so it pins the
   lse gradient of the kernels.
-- :func:`ring_attention` at world size 1.
-- :func:`ulysses_attention` at world size 1: the all-to-alls that trade
-  the sequence shard for a head shard are the identity there, so it is
-  the size dispatch ``ops.attention.best_attention`` over the full
-  sequence (B1–B3 through ``flash_attention``).
-- :func:`sequence_sharded_attention`, the dispatch between the two that
-  the long-context model calls.
+- :func:`ring_attention` over a ``seq`` communicator of n ranks
+  (``runtime/dist``; None or a group of one: the hop-0 block alone, as
+  before). Hop j holds the K/V block of rank (r − j) mod n: hop 0 is the
+  diagonal block, causal when the model is; hops 1..n−1 are unmasked
+  blocks. Under ``causal`` the strictly-future hops (j > r) skip their
+  compute but not their exchange (``ring.py:158-164``). Each hop is one
+  block call, merged into an fp32 carry through the (out, lse) combine
+  and cast once at the end.
+- :func:`ulysses_attention`: one all-to-all trades the sequence shard
+  for a head shard ([B, T/n, H, D] → [B, T, H/n, D]; q, k and v in one
+  exchange), ``best_attention`` runs over the full sequence, and a
+  second all-to-all trades back (``ring.py:175-209``). The heads must
+  divide by n.
+- :func:`sequence_sharded_attention`, the dispatch between the two.
 
-The multi-rank ring and Ulysses over ``torch.distributed`` wait for a
-later slice (ROADMAP A2.5); a ``seq`` world above 1 raises.
+The multi-rank ring is ONE ``torch.autograd.Function`` (:class:`_Ring`),
+whose backward runs the same exchange schedule on every rank whatever
+it skips: plain autograd over per-hop send/receive would leave a rank
+whose future hops are all skipped (rank 0 under ``causal``) never
+running the backward of the exchanges it received, and its neighbour
+would wait for it forever. The backward rotates K/V again with fp32
+dK/dV accumulators riding along, each live hop running B2 and B3
+(:func:`default_block_bwd`) against the MERGED out and lse: with lse the
+logsumexp over every key, P = exp(S_block − lse) is the global softmax
+restricted to the block, and delta = rowsum(dO∘O) of the merged output,
+so the block's dQ and dK/dV are exactly its share of the gradient. After
+n shifts the dK/dV are back with their owner. Every shift pairs its send
+with its receive (``batch_isend_irecv``), so a ring of 2 cannot block.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ddp_tpu_torch.ops.flash import flash_attention_with_lse, takes_block
+from ddp_tpu_torch.ops.flash import (
+    flash_attention_with_lse,
+    flash_dkv,
+    flash_dkv_reference,
+    flash_dq,
+    flash_dq_reference,
+    route,
+    takes_block,
+)
+from ddp_tpu_torch.parallel.tp import all_to_all
 
 
 def _xla_block_with_lse(q, k, v, causal: bool):
@@ -88,43 +115,121 @@ def combine_attention_partials(o1, l1, o2, l2):
     return o_new, l_new
 
 
-def ring_attention(q, k, v, *, causal: bool = False, block_fn=None):
-    """Exact attention over a ``seq`` ring of one rank, where the ring is
-    its hop-0 (diagonal) block; the multi-rank ring is ROADMAP A2.5.
+def default_block_bwd(q, k, v, dout, lse, delta, causal: bool):
+    """A ring hop's backward against the merged statistics → (dq, dk,
+    dv) in q's dtype: B2 then B3 (``ops.flash.flash_dq`` /
+    ``flash_dkv``) where :func:`default_block_fn` ran B1, their plain
+    versions elsewhere. Nothing is counted as routed here: the hop's
+    forward counted it."""
+    if route(q.device.type, q.dtype, q.shape[-1]) == "kernel":
+        dout = dout.to(q.dtype)
+        return (flash_dq(q, k, v, dout, lse, delta, causal),
+                *flash_dkv(q, k, v, dout, lse, delta, causal))
+    return (flash_dq_reference(q, k, v, dout, lse, delta, causal),
+            *flash_dkv_reference(q, k, v, dout, lse, delta, causal))
+
+
+def _live(hop: int, rank: int, causal: bool) -> bool:
+    """Hop ``hop`` of rank ``rank`` holds the block of rank − hop: under
+    ``causal`` a block from a later rank (hop > rank) is all masked."""
+    return not causal or hop <= rank
+
+
+class _Ring(torch.autograd.Function):
+    """The whole ring, forward and backward, as one Function (the module
+    docstring says why)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, comm, causal, block_fn, block_bwd):
+        n, r = comm.size, comm.rank
+        kv = torch.stack([k, v])
+        o = l = None
+        for hop in range(n):
+            if hop:
+                kv = comm.shift(kv)
+            if not _live(hop, r, causal):
+                continue
+            oj, lj = block_fn(q, kv[0], kv[1], causal and hop == 0)
+            if o is None:
+                o, l = oj.float(), lj
+            else:
+                o, l = combine_attention_partials(o, l, oj, lj)
+        ctx.save_for_backward(q, k, v, o, l)
+        ctx.args = comm, causal, block_bwd
+        return o.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        comm, causal, block_bwd = ctx.args
+        n, r = comm.size, comm.rank
+        dout = dout.contiguous()
+        delta = (dout.float() * o).sum(-1)  # rowsum(dO∘O), fp32 [B, T, H]
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        kv = torch.stack([k, v])
+        dkv = torch.zeros(kv.shape, dtype=torch.float32, device=q.device)
+        for hop in range(n):
+            if hop:
+                kv = comm.shift(kv)
+                dkv = comm.shift(dkv)
+            if _live(hop, r, causal):
+                dqj, dkj, dvj = block_bwd(q, kv[0], kv[1], dout.to(q.dtype),
+                                          lse, delta, causal and hop == 0)
+                dq += dqj.float()
+                dkv[0] += dkj.float()
+                dkv[1] += dvj.float()
+        dkv = comm.shift(dkv)  # the n-th shift: home to the owner
+        return (dq.to(q.dtype), dkv[0].to(k.dtype), dkv[1].to(v.dtype),
+                None, None, None, None)
+
+
+def ring_attention(q, k, v, *, causal: bool = False, block_fn=None,
+                   comm=None, block_bwd=None):
+    """Exact attention over the ``seq`` ring of ``comm`` (None or a group
+    of one: the hop-0 block alone). q, k, v are this rank's [B, T_local,
+    H, D] token shard; the result is in q's dtype, as the JAX ring's is.
 
     ``block_fn(q, k, v, causal) -> (out, lse)`` defaults to
-    :func:`default_block_fn`. The result is in q's dtype, as the JAX
-    ring's is.
+    :func:`default_block_fn`; over more than one rank ``block_bwd(q, k,
+    v, dout, lse, delta, causal) -> (dq, dk, dv)`` (default
+    :func:`default_block_bwd`) is each live hop's backward against the
+    merged statistics.
     """
-    o, _ = (block_fn or default_block_fn)(q, k, v, causal)
-    return o.to(q.dtype)
+    block_fn = block_fn or default_block_fn
+    if comm is None or comm.size == 1:
+        o, _ = block_fn(q, k, v, causal)
+        return o.to(q.dtype)
+    return _Ring.apply(q, k, v, comm, causal, block_fn,
+                       block_bwd or default_block_bwd)
 
 
-def _one_rank(seq_world: int) -> None:
-    if seq_world != 1:
-        raise NotImplementedError(
-            f"a seq world of {seq_world}: the multi-rank ring and Ulysses "
-            "wait for ROADMAP A2.5; the port runs a seq world of 1"
-        )
-
-
-def ulysses_attention(q, k, v, *, causal: bool = False, seq_world: int = 1):
-    """All-to-all sequence parallelism over a ``seq`` world of one: the
-    re-shards are the identity, so it is ``best_attention`` over the full
-    sequence and every head, in q's dtype."""
+def ulysses_attention(q, k, v, *, causal: bool = False, comm=None):
+    """All-to-all sequence parallelism over ``comm`` (None or a group of
+    one: the re-shards are the identity): [B, T/n, H, D] → [B, T, H/n, D]
+    for q, k and v in one exchange, ``best_attention`` over the full
+    sequence, and back. Raises when n does not divide the heads."""
     from ddp_tpu_torch.ops.attention import best_attention
 
-    _one_rank(seq_world)
-    return best_attention(causal=causal)(q, k, v)
+    fn = best_attention(causal=causal)
+    if comm is None or comm.size == 1:
+        return fn(q, k, v)
+    n, H = comm.size, q.shape[2]
+    if H % n:
+        raise ValueError(f"{H} heads not divisible by seq axis size {n}")
+    qkv = all_to_all(torch.stack([q, k, v]), comm, 3, 2)  # [3, B, T, H/n, D]
+    out = fn(qkv[0], qkv[1], qkv[2])
+    return all_to_all(out, comm, 1, 2)
 
 
 def sequence_sharded_attention(q, k, v, *, strategy: str = "ring",
-                               causal: bool = False, seq_world: int = 1):
-    """``strategy`` ∈ {"ring", "ulysses"} over a ``seq`` world of
-    ``seq_world`` ranks (only 1 for now)."""
+                               causal: bool = False, comm=None,
+                               block_fn=None):
+    """``strategy`` ∈ {"ring", "ulysses"} over the ``seq`` communicator
+    ``comm`` (None: a seq world of one); ``block_fn`` is the ring's (see
+    :func:`ring_attention`)."""
     if strategy == "ring":
-        _one_rank(seq_world)
-        return ring_attention(q, k, v, causal=causal)
+        return ring_attention(q, k, v, causal=causal, comm=comm,
+                              block_fn=block_fn)
     if strategy == "ulysses":
-        return ulysses_attention(q, k, v, causal=causal, seq_world=seq_world)
+        return ulysses_attention(q, k, v, causal=causal, comm=comm)
     raise ValueError(f"unknown sequence-parallel strategy {strategy!r}")

@@ -1,0 +1,262 @@
+"""Tensor and expert parallelism for the sequence models
+(``ddp_tpu/parallel/tp.py``): which parameter shards over which axis,
+Megatron's f/g, the differentiable collectives the models call, and the
+shard/gather of a whole state.
+
+Layout per block (``tp.py:9-31``), ``model`` axis of size ``tp``:
+
+- ``attn.qkv`` and ``mlp1`` — COLUMN parallel: the weight's output rows
+  (torch's dim 0; the JAX kernel's dim 1) and the bias shard, so each
+  member holds whole heads (the fused qkv is head-major, or group-major
+  under GQA: whole kv groups) and a slice of the MLP's hidden units;
+- ``attn.proj`` and ``mlp2`` — ROW parallel: the weight's input columns
+  (torch's dim 1; the kernel's dim 0) shard, each member's partial
+  product is summed by one all-reduce, and the bias (replicated) is added
+  after it;
+- MoE expert weights ``moe.{wi,bi,wo,bo}`` shard their leading (expert)
+  dim over ``expert``; the router stays replicated;
+- everything else (LayerNorms, the embeddings, the tied head, the
+  position table) is replicated.
+
+The JAX package gets the gradient reductions from the ``shard_map``
+transpose (``tp.py:30-40``); eager autograd writes them out. Megatron's
+``f`` (identity forward, all-reduce backward, :func:`megatron_f`) sits at
+the input of the column products and ``g`` (all-reduce forward, identity
+backward, :func:`megatron_g`) at the output of the row products, so a
+replicated leaf's gradient is already the same on every ``model`` member
+and is never reduced over ``model``. :func:`psum` (all-reduce forward and
+backward, ``lax.psum``'s transpose) is the long-context model's pool over
+``seq``; :func:`all_to_all` is Ulysses' and the expert layer's exchange,
+its backward the inverse exchange.
+
+:func:`shard_params` slices a full state into one rank's shard, and
+:func:`gather_params` all-gathers a rank's shards back into the full
+state in fp32; :class:`ShardLayout` does both for a model's parameters
+and an optimizer's buffers (the checkpoint holds the full state).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+# Name suffixes → (torch dim, mesh axis). The names are the port's
+# state-dict names (``models/lm``, ``models/vit``, ``models/moe``).
+_COLUMN = ("attn.qkv.weight", "attn.qkv.bias", "mlp1.weight", "mlp1.bias")
+_ROW = ("attn.proj.weight", "mlp2.weight")
+_EXPERT = ("moe.wi", "moe.bi", "moe.wo", "moe.bo")
+
+
+def tp_size(mesh) -> int:
+    return 1 if mesh is None else int(mesh.shape.get("model", 1))
+
+
+def ep_size(mesh) -> int:
+    return 1 if mesh is None else int(mesh.shape.get("expert", 1))
+
+
+def _check_divides(path: str, dim: int, axis: int) -> None:
+    if dim % axis:
+        raise ValueError(
+            f"{path}: dim {dim} not divisible by the sharding axis "
+            f"size {axis} (num_heads and mlp_dim must divide by "
+            f"--mesh_model; num_experts by --mesh_expert)"
+        )
+
+
+def seq_param_specs(shapes: dict, mesh) -> dict[str, tuple[int, str]]:
+    """``{name: (dim, axis)}`` for every sharded leaf of a state of
+    ``shapes`` (name → shape) on ``mesh`` (``tp.py:133-187`` at an
+    ``fsdp`` of 1); a leaf not named is replicated. Raises for a dim the
+    axis does not divide, with JAX's message."""
+    tp, ep = tp_size(mesh), ep_size(mesh)
+    out = {}
+    for name, shape in shapes.items():
+        shape = tuple(shape)
+        if ep > 1 and name.endswith(_EXPERT):
+            _check_divides(name, shape[0], ep)
+            out[name] = (0, "expert")
+        elif tp > 1 and name.endswith(_COLUMN):
+            _check_divides(name, shape[0], tp)
+            out[name] = (0, "model")
+        elif tp > 1 and name.endswith(_ROW):
+            _check_divides(name, shape[1], tp)
+            out[name] = (1, "model")
+    return out
+
+
+def shard_params(full: dict, mesh, rank: int | None = None) -> dict:
+    """Rank ``rank``'s (default: the mesh's) shard of a full state:
+    every sharded leaf sliced at its axis coordinate, contiguous; the
+    replicated leaves as they are."""
+    coords = mesh.coords if rank is None else mesh.coords_of(rank)
+    specs = seq_param_specs({k: tuple(v.shape) for k, v in full.items()},
+                            mesh)
+    out = {}
+    for k, v in full.items():
+        if k in specs:
+            dim, axis = specs[k]
+            v = torch.as_tensor(v)
+            v = v.chunk(mesh.shape[axis], dim)[coords[axis]].contiguous()
+        out[k] = v
+    return out
+
+
+def gather_params(local: dict, mesh, specs: dict) -> dict:
+    """The full state from every rank's ``local`` shards: each sharded
+    leaf all-gathered over its axis in fp32 (a collective: every rank
+    calls it), cast back to its dtype; the others as they are."""
+    out = {}
+    for k, v in local.items():
+        if k in specs:
+            dim, axis = specs[k]
+            v = mesh.comm(axis).all_gather(v.detach().float(), dim).to(v.dtype)
+        out[k] = v
+    return out
+
+
+class ShardLayout:
+    """The sharding of a model's parameters on a mesh: ``names`` in
+    parameter order (the optimizer's buffer order), ``specs`` the
+    :func:`seq_param_specs` of their FULL shapes."""
+
+    def __init__(self, full_shapes: dict, names: list[str], mesh):
+        self.mesh, self.names = mesh, list(names)
+        self.specs = seq_param_specs(full_shapes, mesh)
+
+    def gather(self, local: dict) -> dict:
+        return gather_params(local, self.mesh, self.specs)
+
+    def shard(self, full: dict) -> dict:
+        return shard_params(full, self.mesh)
+
+    def gather_opt(self, opt_state: dict) -> dict:
+        """An optimizer ``state_dict`` with every per-parameter buffer
+        list gathered (a collective)."""
+        out = dict(opt_state)
+        for key, bufs in opt_state.items():
+            if isinstance(bufs, list) and len(bufs) == len(self.names):
+                out[key] = list(self.gather(dict(zip(self.names, bufs)))
+                                .values())
+        return out
+
+    def shard_opt(self, opt_state: dict) -> dict:
+        out = dict(opt_state)
+        for key, bufs in opt_state.items():
+            if isinstance(bufs, list) and len(bufs) == len(self.names):
+                out[key] = list(self.shard(dict(zip(self.names, bufs)))
+                                .values())
+        return out
+
+    def norm(self, tensors) -> torch.Tensor:
+        """√Σ‖g‖² of the FULL tensors from their local shards: each
+        sharded leaf's squares summed over its axis, a replicated leaf's
+        counted once (two all-reduces, one an axis)."""
+        zero = tensors[0].new_zeros((), dtype=torch.float32)
+        parts = {None: zero.clone(), "model": zero.clone(),
+                 "expert": zero.clone()}
+        for name, t in zip(self.names, tensors):
+            axis = self.specs.get(name, (None, None))[1]
+            parts[axis] = parts[axis] + t.float().pow(2).sum()
+        total = parts[None]
+        for axis in ("model", "expert"):
+            if self.mesh.shape[axis] > 1:
+                total = total + self.mesh.comm(axis).all_reduce_(parts[axis])
+        return torch.sqrt(total)
+
+
+# ---- differentiable collectives ----------------------------------------
+
+
+class _F(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce_(g.contiguous().clone()), None
+
+
+class _G(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm.all_reduce_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.all_reduce_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce_(g.contiguous().clone()), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, split_dim, concat_dim):
+        ctx.args = comm, split_dim, concat_dim
+        return comm.all_to_all(x, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, split_dim, concat_dim = ctx.args
+        return comm.all_to_all(g.contiguous(), concat_dim, split_dim), \
+            None, None, None
+
+
+def megatron_f(x, comm):
+    """Identity forward; the backward sums the cotangent over ``comm``."""
+    return x if comm.size == 1 else _F.apply(x, comm)
+
+
+def megatron_g(x, comm):
+    """Sum over ``comm`` forward; the backward passes the cotangent on."""
+    return x if comm.size == 1 else _G.apply(x, comm)
+
+
+def row_parallel(x, weight, bias, comm):
+    """A row-parallel product (``RowParallelDense``, ``vit.py:36-66``):
+    this rank's partial ``x·Wᵀ`` summed over ``comm`` by g, then the
+    replicated bias; a plain ``F.linear`` without a group."""
+    if comm is None or comm.size == 1:
+        return F.linear(x, weight, bias)
+    return megatron_g(F.linear(x, weight), comm) + bias
+
+
+def psum(x, comm):
+    """Sum over ``comm``, forward and backward (``lax.psum`` and its
+    transpose)."""
+    return x if comm.size == 1 else _Psum.apply(x, comm)
+
+
+def all_to_all(x, comm, split_dim: int, concat_dim: int):
+    """``lax.all_to_all(tiled=True)`` over ``comm``; the backward is the
+    inverse exchange."""
+    return x if comm.size == 1 else _AllToAll.apply(x, comm, split_dim,
+                                                   concat_dim)
+
+
+def shard_module(module, mesh) -> ShardLayout:
+    """Make ``module`` (holding the FULL parameters) this rank's: each
+    sharded parameter's data becomes its shard, in place (the Parameter
+    objects stay, so an optimizer built after sees the shards). Returns
+    the layout, also left in ``module.shard_layout``."""
+    named = list(module.named_parameters())
+    layout = ShardLayout({n: tuple(p.shape) for n, p in named},
+                         [n for n, p in named if p.requires_grad], mesh)
+    local = layout.shard({n: p.detach() for n, p in named})
+    with torch.no_grad():
+        for n, p in named:
+            if n in layout.specs:
+                p.data = local[n]
+    module.shard_layout = layout
+    return layout

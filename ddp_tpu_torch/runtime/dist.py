@@ -5,9 +5,25 @@ The reference's ``utils.py`` switch: nccl when the process runs on a
 CUDA device, gloo on the CPU. Rendezvous is ``MASTER_ADDR`` /
 ``MASTER_PORT`` (a free local port when one process runs alone); each
 rank pins its card (``torch.cuda.set_device``). A process group exists
-at world 1 too, so the gradient average always goes through it. The data
-axis is the only mesh this slice has: rank ``r`` of ``num_processes`` is
-data shard ``r``.
+at world 1 too, so the gradient average always goes through it. A pure
+data-parallel world makes rank ``r`` of ``num_processes`` data shard
+``r``; ``runtime/mesh`` lays the other axes (``seq``, ``model``,
+``expert``) over the ranks and runs their collectives through the
+communicators here.
+
+A communicator is one axis slice's group seen from one rank: ``size``,
+``rank`` (within the group), ``all_reduce_`` (a sum in place),
+``all_gather(t, dim)``, ``all_to_all(t, split_dim, concat_dim)`` (chunk
+``i`` of ``split_dim`` goes to member ``i``; what member ``j`` sent lands
+``j``-th along ``concat_dim``: ``lax.all_to_all(tiled=True)``) and
+``shift(t, offset)`` (send to member ``rank + offset``, receive from
+``rank - offset``, mod ``size``: ``lax.ppermute`` over a ring).
+:class:`LocalComm` is the group of one; :class:`DistComm` runs over a
+``torch.distributed`` subgroup; ``ThreadWorld.comm`` over threads of one
+process, for the tests. Under gloo a device tensor is staged through a
+pinned host buffer for every collective (gloo's point-to-point and
+all-to-all on CUDA tensors are not relied on); under nccl device tensors
+go as they are.
 
 Multi-host runs (``ddp_tpu/runtime/dist.py:94-170``) start each rank by
 hand with ``coordinator_address`` (the rendezvous ``host:port``, which
@@ -23,6 +39,7 @@ import dataclasses
 import os
 import socket
 import threading
+from typing import Sequence
 
 import torch
 import torch.distributed as tdist
@@ -188,29 +205,170 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-class ThreadWorld:
-    """A world of ``n`` ranks inside one process, one thread each, for
-    checks that hold a data-parallel step against a multi-device
-    reference without processes: ``reduce(rank)`` is that rank's
-    :func:`all_reduce_sum`, adding the ranks' tensors in rank order, so
-    every rank holds the same bits."""
+class LocalComm:
+    """The communicator of a group of one rank: every collective is the
+    identity (a copy where the group would return a new tensor)."""
 
-    def __init__(self, n: int, timeout: float = 120.0):
-        self.n, self.timeout = n, timeout
+    size, rank = 1, 0
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return t.clone()
+
+    def all_to_all(self, t: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        return t.clone()
+
+    def shift(self, t: torch.Tensor, offset: int = 1) -> torch.Tensor:
+        return t.clone()
+
+
+def _split_for_all_to_all(t: torch.Tensor, n: int, split_dim: int):
+    if t.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(t.shape)} "
+                         f"does not split over {n} ranks")
+    return t.chunk(n, split_dim)
+
+
+class DistComm:
+    """One axis slice over ``torch.distributed``: ``ranks`` are the global
+    ranks of the slice in member order, ``group`` its process group (made
+    by ``new_group`` on every rank), ``rank`` this process's member index.
+    Under gloo a CUDA tensor goes through a pinned host buffer (a blocking
+    copy each way); under nccl it goes as it is."""
+
+    def __init__(self, ranks: Sequence[int], group, rank: int):
+        self.ranks, self.group = list(ranks), group
+        self.size, self.rank = len(self.ranks), rank
+        self.stage = tdist.get_backend(group) == "gloo"
+
+    def _out(self, t: torch.Tensor) -> torch.Tensor:
+        if self.stage and t.is_cuda:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return h.copy_(t)
+        return t.contiguous()
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        x = self._out(t)
+        tdist.all_reduce(x, group=self.group)
+        if x is not t:
+            t.copy_(x)
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        x = self._out(t)
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        tdist.all_gather(parts, x, group=self.group)
+        return torch.cat(parts, dim).to(t.device)
+
+    def all_to_all(self, t: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        chunks = _split_for_all_to_all(t, self.size, split_dim)
+        x = self._out(torch.stack(chunks))  # [n, ...], row i for member i
+        y = torch.empty_like(x)
+        tdist.all_to_all_single(y, x, group=self.group)
+        return torch.cat(list(y.to(t.device).unbind(0)), concat_dim)
+
+    def shift(self, t: torch.Tensor, offset: int = 1) -> torch.Tensor:
+        x = self._out(t)
+        y = torch.empty_like(x)
+        dst = self.ranks[(self.rank + offset) % self.size]
+        src = self.ranks[(self.rank - offset) % self.size]
+        for work in tdist.batch_isend_irecv([
+                tdist.P2POp(tdist.isend, x, dst),
+                tdist.P2POp(tdist.irecv, y, src)]):
+            work.wait()
+        return y.to(t.device)
+
+
+class _Slots:
+    """What the members of one in-process group share: a barrier and
+    one slot a member."""
+
+    def __init__(self, n: int, timeout: float):
         self.barrier = threading.Barrier(n, timeout=timeout)
         self.slots = [None] * n
 
-    def reduce(self, rank: int):
-        def fn(t: torch.Tensor) -> torch.Tensor:
-            self.slots[rank] = t.clone()
-            self.barrier.wait()
-            total = self.slots[0].clone()
-            for other in self.slots[1:]:
-                total += other
-            self.barrier.wait()  # nobody overwrites a slot still being read
-            return t.copy_(total)
 
-        return fn
+class ThreadComm:
+    """A communicator over threads of one process (``ThreadWorld.comm``):
+    each collective posts this member's tensor, waits for every member,
+    reads, and waits again before anyone posts the next one. Sums run in
+    member order, so every member holds the same bits."""
+
+    def __init__(self, shared: _Slots, rank: int):
+        self._s, self.rank, self.size = shared, rank, len(shared.slots)
+
+    def _exchange(self, value, read):
+        s = self._s
+        s.slots[self.rank] = value
+        s.barrier.wait()
+        out = read(s.slots)
+        s.barrier.wait()  # nobody overwrites a slot still being read
+        return out
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        def total(slots):
+            acc = slots[0].clone()
+            for other in slots[1:]:
+                acc += other
+            return acc
+
+        return t.copy_(self._exchange(t.clone(), total))
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return self._exchange(t.clone(), lambda slots: torch.cat(slots, dim))
+
+    def all_to_all(self, t: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        chunks = [c.clone() for c in
+                  _split_for_all_to_all(t, self.size, split_dim)]
+        return self._exchange(chunks, lambda slots: torch.cat(
+            [slots[j][self.rank] for j in range(self.size)], concat_dim))
+
+    def shift(self, t: torch.Tensor, offset: int = 1) -> torch.Tensor:
+        return self._exchange(
+            t.clone(),
+            lambda slots: slots[(self.rank - offset) % self.size].clone())
+
+
+class ThreadWorld:
+    """A world of ``n`` ranks inside one process, one thread each, for
+    checks that hold a parallel step against a multi-device reference
+    without processes: ``reduce(rank)`` is that rank's
+    :func:`all_reduce_sum`, adding the ranks' tensors in rank order, so
+    every rank holds the same bits; ``comm(ranks, rank)`` is the
+    communicator of the group of global ``ranks`` (one shared group per
+    list) as member ``rank`` sees it. A barrier that waits past
+    ``timeout`` fails the run instead of hanging it."""
+
+    def __init__(self, n: int, timeout: float = 120.0):
+        self.n, self.timeout = n, timeout
+        self._groups: dict[tuple, _Slots] = {}
+        self._lock = threading.Lock()
+
+    def comm(self, ranks: Sequence[int], rank: int):
+        """The communicator of global ``ranks`` for global ``rank``
+        (:class:`LocalComm` for a group of one)."""
+        ranks = tuple(ranks)
+        if len(ranks) == 1:
+            return LocalComm()
+        with self._lock:
+            shared = self._groups.get(ranks)
+            if shared is None:
+                shared = self._groups[ranks] = _Slots(len(ranks), self.timeout)
+        return ThreadComm(shared, ranks.index(rank))
+
+    def reduce(self, rank: int):
+        """Rank ``rank``'s sum over the whole world, in place."""
+        return self.comm(range(self.n), rank).all_reduce_
+
+    def _abort(self) -> None:
+        with self._lock:
+            for g in self._groups.values():
+                g.barrier.abort()
 
     def run(self, fn) -> list:
         """``fn(rank)`` on every rank's thread → the results by rank; the
@@ -222,7 +380,7 @@ class ThreadWorld:
                 out[rank] = fn(rank)
             except Exception as e:  # re-raised below, in the caller
                 errs.append(e)
-                self.barrier.abort()
+                self._abort()
 
         threads = [threading.Thread(target=body, args=(r,))
                    for r in range(self.n)]
@@ -231,6 +389,7 @@ class ThreadWorld:
         for t in threads:
             t.join(self.timeout)
         if any(t.is_alive() for t in threads):
+            self._abort()
             raise TimeoutError(
                 f"a rank of the thread world hung past {self.timeout} s")
         if errs:

@@ -7,7 +7,11 @@ Layout under the checkpoint directory, as the JAX package's:
   spe, mid_batch, fmt}`` (``checkpoint.py:609-665``; ``mid_batch`` > 0
   tags an epoch preempted after that many batches; ``params`` is the
   model's ``state_dict()``, so BatchNorm's running statistics, JAX's
-  ``batch_stats``, are saved and restored with it), written by rank 0
+  ``batch_stats``, are saved and restored with it; a model sharded over
+  a mesh — ``layout``, ``parallel/tp.ShardLayout`` — saves its FULL
+  parameters and optimizer buffers, gathered on every rank first, and
+  restores by slicing its shard, so a run at any mesh restores at any
+  other, as the JAX trainer does), written by rank 0
   into a temporary directory first; the rename to ``epoch_N`` is the
   commit point, so a crash mid-save leaves no half-written latest;
 - ``epoch_N/metrics.json``: the metrics a save was given (the eval
@@ -353,14 +357,16 @@ class CheckpointManager:
 
     ``async_save`` (default True) writes on a writer thread, as the
     module docstring says; ``in_flight`` is the epoch it is writing, or
-    None.
+    None. ``layout`` (a ``parallel/tp.ShardLayout``): the state is this
+    rank's shard of a model on a mesh; the file holds the full one.
     """
 
     def __init__(self, directory: str = "./checkpoints", *,
                  max_to_keep: int | None = None, is_main: bool = True,
                  keep_best_metric: str | None = None,
-                 async_save: bool = True):
+                 async_save: bool = True, layout=None):
         self._dir = os.path.abspath(directory)
+        self.layout = layout
         self.max_to_keep = max_to_keep
         self.keep_best_metric = keep_best_metric
         self.is_main = is_main
@@ -492,14 +498,19 @@ class CheckpointManager:
                         "artifact) — keeping it; a later save supersedes it",
                         epoch)
             return False
+        params = state.model.state_dict()
+        opt_state = state.optimizer.state_dict(copy=False)
+        if self.layout is not None:  # collectives: every rank gathers
+            params = self.layout.gather(params)
+            opt_state = self.layout.gather_opt(opt_state)
         if self.is_main:
             if exists:
                 self._delete_epoch(epoch)
             os.makedirs(self._dir, exist_ok=True)
             staged = _Staged({
                 "step": int(state.step),
-                "params": state.model.state_dict(),
-                "opt_state": state.optimizer.state_dict(copy=False),
+                "params": params,
+                "opt_state": opt_state,
                 "model_state": state.model_state,
                 "spe": int(steps_per_epoch),
                 "mid_batch": int(mid_batch),
@@ -511,9 +522,11 @@ class CheckpointManager:
                 writer = threading.Thread(
                     target=self._write_guarded, args=job,
                     name=f"ckpt-writer-epoch{epoch}")
+                # Started before it is visible: another manager's wait()
+                # (a rank in a thread of this process) may join it at once.
                 with _WRITERS_LOCK:
+                    writer.start()
                     _WRITERS[self._dir] = writer
-                writer.start()
             else:
                 self._write(*job)
                 self.in_flight = None
@@ -673,8 +686,11 @@ class CheckpointManager:
         ``last_restored_mid_batch`` take its position markers."""
         epoch = self.verified_epoch(epoch)
         blob = self.read(epoch)
-        state.model.load_state_dict(blob["params"])
-        state.optimizer.load_state_dict(blob["opt_state"])
+        state.model.load_state_dict(self.local(blob["params"]))
+        opt_state = blob["opt_state"]
+        if self.layout is not None:
+            opt_state = self.layout.shard_opt(opt_state)
+        state.optimizer.load_state_dict(opt_state)
         state.model_state = blob.get("model_state") or {}
         state.step = int(blob["step"])
         self.last_restored_spe = int(blob.get("spe", 0)) or None
@@ -685,6 +701,11 @@ class CheckpointManager:
         else:
             self.last_restored_mid_batch = 0
         return epoch
+
+    def local(self, params: dict) -> dict:
+        """This rank's shard of full ``params`` (they as they are without
+        a layout)."""
+        return params if self.layout is None else self.layout.shard(params)
 
     def restore_or_init(self, state: TrainState) -> int:
         """The auto-resume entry: the start epoch — the latest intact

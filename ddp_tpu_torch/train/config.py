@@ -1,8 +1,11 @@
 """Flags of ``python -m ddp_tpu_torch.train`` (the image-model,
 long-context and causal-LM subset of ``ddp_tpu/train/config.py``, under
 the JAX names and defaults), with the JAX trainer's guards on them. The
-sequence models run a ``seq`` world of one: ``--mesh_seq`` above 1 is
-refused, naming ROADMAP A2.5."""
+sequence models shard over the mesh axes ``--mesh_seq``, ``--mesh_model``
+and ``--mesh_expert`` (``runtime/mesh``), the world being their product
+times the data axis; ``--mesh_fsdp`` above 1 is refused, naming ROADMAP
+A2.5-fsdp, and the image models' tensor parallelism (GSPMD) waits for
+A2.5-gspmd."""
 
 from __future__ import annotations
 
@@ -40,9 +43,15 @@ class TrainConfig:
     num_classes: int | None = None  # None: the dataset's (long_context: 10)
     seq_len: int = 2048
     seq_dim: int = 16  # long_context: input feature channels per token
-    seq_strategy: str = "ring"  # long_context's attention: ring | ulysses
-    # Tokens sharded over this many ranks: only 1 for now (ROADMAP A2.5).
+    seq_strategy: str = "ring"  # the sequence models' attention: ring | ulysses
+    # The sequence models' mesh (``runtime/mesh``): tokens sharded over
+    # --mesh_seq ranks, Megatron tensor parallelism over --mesh_model,
+    # MoE experts over --mesh_expert (a data axis too); the data axis is
+    # the rest of the world. --mesh_fsdp is parsed and refused above 1.
     mesh_seq: int = 1
+    mesh_model: int = 1
+    mesh_expert: int = 1
+    mesh_fsdp: int = 1
     vocab_size: int = 256
     model_dim: int | None = None  # None → 64
     model_depth: int | None = None  # None → 2 (causal_lm), the model's own
@@ -187,11 +196,7 @@ class TrainConfig:
         if config.seq_len % config.mesh_seq:
             raise ValueError(f"--seq_len {config.seq_len} not divisible by "
                              f"--mesh_seq {config.mesh_seq}")
-        if config.mesh_seq > 1:
-            raise ValueError(
-                f"--mesh_seq {config.mesh_seq}: the port runs a seq world of "
-                "1; the multi-rank ring and Ulysses wait for ROADMAP A2.5"
-            )
+        config._check_mesh()
         if config.model == "long_context" and (
                 config.fast_epoch or config.augment != "none"):
             raise ValueError(
@@ -244,6 +249,77 @@ class TrainConfig:
                 f"[1, --spawn {config.spawn}]"
             )
         return config
+
+    @property
+    def mesh_axes(self) -> int:
+        """The product of the non-data axes."""
+        return self.mesh_seq * self.mesh_model * self.mesh_expert
+
+    def world_size(self) -> int:
+        """The ranks this command runs: --spawn, the multi-host world, or
+        one."""
+        if self.spawn > 1:
+            return self.spawn
+        return self.num_processes or 1
+
+    def _check_mesh(self) -> None:
+        """The mesh guards (``ddp_tpu/train/trainer.py:91-122``,
+        ``:349-375``, ``:600-621``) and the world's tiling."""
+        for flag in ("mesh_model", "mesh_expert", "mesh_fsdp"):
+            if getattr(self, flag) < 1:
+                raise ValueError(f"--{flag} must be >= 1, got "
+                                 f"{getattr(self, flag)}")
+        if self.mesh_fsdp > 1:
+            raise ValueError(
+                f"--mesh_fsdp {self.mesh_fsdp}: the port does not shard "
+                "parameters and optimizer state yet; FSDP with ZeRO waits "
+                "for ROADMAP A2.5-fsdp")
+        if (self.mesh_model > 1 or self.mesh_expert > 1) \
+                and self.model not in SEQ_MODELS:
+            raise ValueError(
+                "--mesh_model and --mesh_expert shard the sequence models "
+                "(--model long_context or causal_lm); the image family's "
+                "tensor parallelism (GSPMD) waits for ROADMAP A2.5-gspmd")
+        d_model = self.model_dim or 64
+        if self.mesh_model > 1:
+            if self.num_heads % self.mesh_model:
+                raise ValueError(
+                    f"tensor parallelism splits attention heads: "
+                    f"--num_heads {self.num_heads} not divisible by "
+                    f"--mesh_model {self.mesh_model}")
+            if (d_model * 4) % self.mesh_model:
+                raise ValueError(
+                    f"tensor parallelism splits the MLP hidden dim: "
+                    f"{d_model * 4} (4 × --model_dim) not divisible "
+                    f"by --mesh_model {self.mesh_model}")
+            if self.num_kv_heads and self.num_kv_heads % self.mesh_model:
+                raise ValueError(
+                    "GQA under TP shards whole kv groups: "
+                    f"--num_kv_heads {self.num_kv_heads} not "
+                    f"divisible by --mesh_model {self.mesh_model}")
+        if self.mesh_expert > 1:
+            if not self.moe_experts:
+                raise ValueError(
+                    "--mesh_expert shards MoE expert weights: give the "
+                    "LM experts with --moe_experts N (or drop the axis)")
+            if self.moe_experts % self.mesh_expert:
+                raise ValueError(
+                    f"--moe_experts {self.moe_experts} not divisible "
+                    f"by --mesh_expert {self.mesh_expert}")
+        if self.mesh_axes > 1:
+            world = self.world_size()
+            if world % self.mesh_axes:
+                raise ValueError(
+                    f"a world of {world} rank(s) does not tile --mesh_seq "
+                    f"{self.mesh_seq} × --mesh_model {self.mesh_model} × "
+                    f"--mesh_expert {self.mesh_expert}: run --spawn N with N "
+                    f"a multiple of {self.mesh_axes} (the data axis is the "
+                    "rest)")
+            if self.elastic:
+                raise ValueError(
+                    "--elastic resizes the data axis of a data-parallel "
+                    "world; with --mesh_seq/--mesh_model/--mesh_expert it "
+                    "is not ported")
 
     def check_robustness(self, *, has_step_events: bool) -> None:
         """The trainer's guards on the fault-tolerance flags

@@ -50,7 +50,8 @@ def run_steps(step, batches, *, on_gpu: bool, between=None):
     ``between(k) -> stop`` runs on the host before the dispatch of the
     ``k``-th batch (from 0), once that batch exists: the trainer's
     chaos trigger, watchdog beat and preemption check. It must not read
-    the device. True stops the loop before that dispatch."""
+    the device. True stops the loop before that dispatch. Each dispatch
+    is a ``train_step`` span in a ``--profile_dir`` trace."""
     marks, metrics = [], []
     batches = iter(batches)
     while True:
@@ -58,7 +59,8 @@ def run_steps(step, batches, *, on_gpu: bool, between=None):
         args = next(batches, None)
         if args is None or (between is not None and between(len(metrics))):
             break
-        metrics.append(step(*args))
+        with torch.profiler.record_function("train_step"):
+            metrics.append(step(*args))
     if not metrics:
         return None, marks
     return StepMetrics(*(
@@ -153,6 +155,8 @@ def make_lm_epoch_runner(
     rank: int = 0,
     world: int = 1,
     reduce=all_reduce_sum,
+    mesh=None,
+    strategy: str = "ring",
 ):
     """``run(epoch) -> StepMetrics`` of [steps] device tensors.
 
@@ -167,7 +171,10 @@ def make_lm_epoch_runner(
     preempted epoch's re-entry) and hands ``between`` to
     :func:`run_steps`. ``run.step_seconds`` holds the
     last epoch's per-step times (CUDA events on a GPU, read after the
-    epoch's one host sync).
+    epoch's one host sync). On a ``mesh`` (``runtime/mesh``) ``rank`` and
+    ``world`` are the data replica and the replicas, and the step
+    (``models/lm.make_lm_train_step(mesh=)``) takes its ``seq`` columns
+    of those rows.
     """
     if global_batch_size % world:
         raise ValueError(
@@ -185,7 +192,7 @@ def make_lm_epoch_runner(
     step = make_lm_train_step(
         model, optimizer, compute_dtype=compute_dtype,
         grad_accum_steps=grad_accum_steps, label_smoothing=label_smoothing,
-        world=world, reduce=reduce,
+        world=world, reduce=reduce, mesh=mesh, strategy=strategy,
     )
 
     def run(epoch: int, skip_batches: int = 0, between=None) -> StepMetrics:

@@ -158,13 +158,16 @@ class Optimizer:
             self.mu, self.nu = zeros(), zeros()
         self.ema_state = (param_ema(self.params, ema_decay) if ema_decay
                           else None)
+        # The global norm the clip divides by: a sharded model's layout
+        # sums its shards' squares over their axes (parallel/tp).
+        self.norm = global_norm
 
     @property
     def ema(self) -> list | None:
         return None if self.ema_state is None else self.ema_state.ema
 
     def _clip(self, grads) -> None:
-        norm = global_norm(grads)
+        norm = self.norm(grads)
         coef = torch.where(norm < self.grad_clip_norm,
                            torch.ones_like(norm), self.grad_clip_norm / norm)
         torch._foreach_mul_(grads, coef)

@@ -22,9 +22,20 @@ the reference's checkpoints) and ``final_accuracy=``.
 (``--model long_context``, ``models/seq_transformer``; ``trainer.py``'s
 seq mode) through the same machinery: synthetic [N, T, seq_dim] feature
 sequences (``data/sequences.synthetic``) on the loader path without the
-native pool, the step with strided microbatches, every block's attention
-through ``parallel/ring.sequence_sharded_attention`` at a ``seq`` world
-of one (B1–B3 on the card).
+native pool, every block's attention through
+``parallel/ring.sequence_sharded_attention`` (B1–B3 on the card), and one
+train and eval step (``models/seq_transformer``, strided microbatches)
+for every world: without mesh axes its mesh is the data-only one.
+
+Both sequence models shard over a mesh of the world's ranks
+(``runtime/mesh``, :func:`build_mesh`): ``--mesh_seq`` (the multi-rank
+ring or Ulysses), ``--mesh_model`` (Megatron blocks), ``--mesh_expert``
+(the LM's experts), the data axis the rest. A rank's data replica
+(data × expert) takes the strided row shards, its ``seq`` rank the
+column slice of them; each model holds its rank's shards
+(``parallel/tp.shard_module``), the checkpoints the full state
+(``train/checkpoint.CheckpointManager(layout=)``), so a run resumes at
+any other mesh.
 
 :class:`LMTrainer` trains the causal LM, dense or expert-routed
 (``--moe_experts``), data-parallel (``trainer.py:812-966``, causal-LM
@@ -90,6 +101,8 @@ from ddp_tpu_torch.models.lm import (
 from ddp_tpu_torch.models.seq_transformer import (
     SeqTransformerSpec,
     init_seq_transformer,
+    make_seq_parallel_eval_step,
+    make_seq_parallel_train_step,
 )
 from ddp_tpu_torch.models.seq_transformer import build_model as build_seq_model
 from ddp_tpu_torch.obs.recorder import build_info
@@ -99,7 +112,9 @@ from ddp_tpu_torch.parallel.ddp import (
     make_train_step,
     ring_all_reduce_bytes,
 )
+from ddp_tpu_torch.parallel.tp import shard_module
 from ddp_tpu_torch.runtime import dist, launch
+from ddp_tpu_torch.runtime.mesh import dist_mesh, mesh_sizes
 from ddp_tpu_torch.runtime.chaos import ChaosEngine
 from ddp_tpu_torch.runtime.consensus import agree_any
 from ddp_tpu_torch.train.checkpoint import (
@@ -188,6 +203,20 @@ def check_ulysses_heads(num_heads: int, mesh_model: int, mesh_seq: int):
         )
 
 
+def build_mesh(config: TrainConfig, ctx: dist.DistContext | None, *,
+               always: bool = False):
+    """The sequence models' mesh over ``ctx``'s world (None: one rank;
+    ``runtime/mesh``). A world that only shards data gets None, or with
+    ``always`` its data-only mesh (one ``LocalComm`` a group at world 1)."""
+    if config.mesh_axes == 1 and not always:
+        return None
+    world, rank = ((1, 0) if ctx is None
+                   else (ctx.num_processes, ctx.process_id))
+    sizes = mesh_sizes(world, seq=config.mesh_seq, model=config.mesh_model,
+                       expert=config.mesh_expert)
+    return dist_mesh(sizes, rank)
+
+
 def restore_or_init(ckpt: CheckpointManager, state: TrainState,
                     config: TrainConfig, log) -> int:
     """The start epoch: ``--resume_epoch`` (its later epochs deleted),
@@ -226,6 +255,7 @@ class _FaultTolerant:
 
     lm_mode = False
     loader = None  # the image trainer's loader path
+    mesh = None  # runtime/mesh.Mesh of a sequence model sharded over ranks
 
     def _init_fault_tolerance(self, is_main: bool) -> None:
         cfg = self.config
@@ -416,7 +446,7 @@ class _FaultTolerant:
                 "--reset_opt_state restored a mid-epoch artifact (epoch %d "
                 "stopped at batch %d); its remaining batches are skipped and "
                 "training continues at epoch %d", epoch, mid, epoch + 1)
-        self.state.model.load_state_dict(params)
+        self.state.model.load_state_dict(self.ckpt.local(params))
         self.optimizer.reset()  # count, moments; the EMA from these weights
         self.log(f"Restored epoch {epoch} weights with a FRESH optimizer "
                  "state (--reset_opt_state)")
@@ -454,7 +484,8 @@ class _FaultTolerant:
                 "fallback", epoch=q["epoch"], resumed_epoch=resumed,
                 quarantined_path=q["path"], problems=q["problems"][:8])
         gen = record_generation(self.config.checkpoint_dir, self.world)
-        world = {"world_size": self.world, "data_shards": self.world}
+        world = {"world_size": self.world,
+                 "data_shards": getattr(self, "data_world", self.world)}
         if gen["prev_world"] is not None:
             world["prev_data_shards"] = gen["prev_world"]
         self.metrics_writer.write(
@@ -607,9 +638,11 @@ class _FaultTolerant:
 
     def _start_profile(self):
         """``--profile_dir``: a ``torch.profiler`` over the epoch loop,
-        the window JAX traces (``trainer.py:2353-2356``), on rank 0 →
+        the window JAX traces (``trainer.py:2353-2356``), on rank 0 (on
+        every rank of a sharded mesh, whose ranks run different hops) →
         the running profiler, or None."""
-        if not (self.config.profile_dir and self.is_main):
+        if not (self.config.profile_dir
+                and (self.is_main or self.config.mesh_axes > 1)):
             return None
         from torch.profiler import ProfilerActivity, profile
 
@@ -664,6 +697,10 @@ class LMTrainer(_FaultTolerant):
             self.rank, self.world = ctx.process_id, ctx.num_processes
             self.device = ctx.device
         self.compute_dtype = DTYPES[config.compute_dtype]
+        self.mesh = build_mesh(config, ctx)
+        self.data_rank, self.data_world = (
+            (self.mesh.data_rank, self.mesh.data_size) if self.mesh
+            else (self.rank, self.world))
         self.train_split, self.test_split = self._splits()
         self.spec = LMSpec(
             vocab_size=config.vocab_size,
@@ -678,31 +715,46 @@ class LMTrainer(_FaultTolerant):
             moe_normalize_gates=not config.moe_raw_gates,
         )
         self.per_shard_batch = config.batch_size
-        self.global_batch_size = (config.batch_size * self.world
+        self.global_batch_size = (config.batch_size * self.data_world
                                   * config.grad_accum_steps)
         if config.elastic:
-            self._honour_elastic_contract(self.world)
-        self.model = CausalLM.from_state(
-            self.spec, init_lm_state(self.spec, seed=config.seed),
-            self.device, trainable=True,
-        )
+            self._honour_elastic_contract(self.data_world)
+        layout = None
+        if config.seq_strategy == "ulysses":
+            check_ulysses_heads(self.spec.num_heads, config.mesh_model,
+                                config.mesh_seq)
+        if self.mesh is None:
+            self.model = CausalLM.from_state(
+                self.spec, init_lm_state(self.spec, seed=config.seed),
+                self.device, trainable=True,
+            )
+        else:  # this rank's shards, cut on the host
+            self.model = CausalLM.from_state(
+                self.spec, init_lm_state(self.spec, seed=config.seed),
+                "cpu", trainable=True)
+            layout = shard_module(self.model, self.mesh)
+            self.model.to(self.device)
         self.lr_schedule = config.lr
         self.optimizer = make_optimizer(
             self.model.parameters(), config.optimizer, lr=config.lr,
             momentum=config.momentum, weight_decay=config.weight_decay,
             grad_clip_norm=config.grad_clip_norm, ema_decay=config.ema_decay,
         )
+        if layout is not None:
+            self.optimizer.norm = layout.norm
         self.tokens = torch.as_tensor(self.train_split.images).to(self.device)
         self.runner = make_lm_epoch_runner(
             self.model, self.optimizer, self.tokens, self.global_batch_size,
             compute_dtype=self.compute_dtype, seed=config.seed,
             grad_accum_steps=config.grad_accum_steps,
             label_smoothing=config.label_smoothing,
-            rank=self.rank, world=self.world,
+            rank=self.data_rank, world=self.data_world, mesh=self.mesh,
+            strategy=config.seq_strategy,
         )
         self.steps_per_epoch = self.runner.steps_per_epoch
         self.eval_step = make_lm_eval_step(
-            self.model, compute_dtype=self.compute_dtype
+            self.model, compute_dtype=self.compute_dtype, mesh=self.mesh,
+            strategy=config.seq_strategy,
         )
         self.state = TrainState(step=0, model=self.model,
                                 optimizer=self.optimizer)
@@ -711,10 +763,11 @@ class LMTrainer(_FaultTolerant):
             config.checkpoint_dir, max_to_keep=config.max_checkpoints,
             is_main=self.is_main,
             keep_best_metric="accuracy" if config.keep_best else None,
+            layout=layout,
         )
         self.history: list[dict] = []
         self._init_fault_tolerance(is_main=self.is_main)
-        if self.world > 1:
+        if self.world > 1 and self.mesh is None:
             self._comm_bytes = ring_all_reduce_bytes(self.optimizer.params,
                                                      self.world)
 
@@ -743,7 +796,7 @@ class LMTrainer(_FaultTolerant):
         and divided by the split size."""
         tokens = self.test_split.images
         local = self.per_shard_batch
-        bs = local * self.world
+        bs = local * self.data_world
         n = len(tokens)
         padded = -(-n // bs) * bs
         weights = np.ones(padded, np.float32)
@@ -751,7 +804,7 @@ class LMTrainer(_FaultTolerant):
         idx = np.arange(padded) % n
         acc = loss = torch.zeros((), device=self.device)
         for b in range(padded // bs):
-            lo = b * bs + self.rank * local
+            lo = b * bs + self.data_rank * local
             a, l = self.eval_step(
                 torch.as_tensor(tokens[idx[lo:lo + local]]).to(self.device),
                 torch.as_tensor(weights[lo:lo + local]).to(self.device),
@@ -759,7 +812,9 @@ class LMTrainer(_FaultTolerant):
             acc, loss = acc + a, loss + l
             self.watchdog.beat()
         totals = torch.stack([acc, loss])
-        if self.world > 1:
+        if self.mesh is not None:  # each replica's sums, once
+            self.mesh.comm("data", "expert").all_reduce_(totals)
+        elif self.world > 1:
             dist.all_reduce_sum(totals)
         acc, loss = totals.tolist()
         return acc / n, loss / n
@@ -818,23 +873,28 @@ class ImageTrainer(_FaultTolerant):
     every image model, as in the JAX trainer; ``--num_classes`` overrides
     the dataset's class count (``trainer.py:762``)."""
 
-    # The sequence models split accumulation into strided microbatches;
-    # the image models into contiguous ones (``parallel/ddp``).
-    strided_accum = False
+    # The long-context model trains on a mesh at every world (a data-only
+    # one without mesh axes); the image models shard data alone.
+    always_mesh = False
     num_workers = None  # None: --num_workers
 
     def __init__(self, config: TrainConfig, ctx: dist.DistContext):
         self.config, self.ctx = config, ctx
         self.device = ctx.device
         self.rank, self.world = ctx.process_id, ctx.num_processes
+        self.mesh = build_mesh(config, ctx, always=self.always_mesh)
+        self.data_rank, self.data_world = (
+            (self.mesh.data_rank, self.mesh.data_size) if self.mesh
+            else (self.rank, self.world))
         self.train_split, self.test_split = self._splits()
         self.compute_dtype = DTYPES[config.compute_dtype]
         self.per_shard_batch = config.batch_size
-        self.global_batch_size = (config.batch_size * self.world
+        self.global_batch_size = (config.batch_size * self.data_world
                                   * config.grad_accum_steps)
         if config.elastic:
-            self._honour_elastic_contract(self.world)
+            self._honour_elastic_contract(self.data_world)
         model = self._model().to(self.device)
+        layout = getattr(model, "shard_layout", None)
         augment_fn = get_augmentation(config.augment)
         self.lr_schedule = make_schedule(
             config.lr, warmup_steps=config.warmup_steps,
@@ -846,8 +906,10 @@ class ImageTrainer(_FaultTolerant):
             momentum=config.momentum, weight_decay=config.weight_decay,
             grad_clip_norm=config.grad_clip_norm, ema_decay=config.ema_decay,
         )
+        if layout is not None:
+            self.optimizer.norm = layout.norm
         self.state = TrainState(step=0, model=model, optimizer=self.optimizer)
-        self.eval_step = make_eval_step(model, compute_dtype=self.compute_dtype)
+        self.eval_step = self._make_eval_step()
         self.fast_runner = self.loader = None
         if config.fast_epoch:
             if config.grad_accum_steps != 1:
@@ -866,30 +928,39 @@ class ImageTrainer(_FaultTolerant):
         else:
             self.loader = ShardedLoader(
                 self.train_split.images, self.train_split.labels,
-                self.global_batch_size, rank=self.rank, world=self.world,
+                self.global_batch_size, rank=self.data_rank,
+                world=self.data_world,
                 device=self.device, seed=config.seed,
                 shuffle=config.shuffle,
                 num_workers=(config.num_workers if self.num_workers is None
                              else self.num_workers),
             )
             self.steps_per_epoch = self.loader.steps_per_epoch()
-            self.train_step = make_train_step(
-                self.state, world=self.world,
-                compute_dtype=self.compute_dtype,
-                grad_accum_steps=config.grad_accum_steps,
-                label_smoothing=config.label_smoothing,
-                augment_fn=augment_fn, seed=config.seed, rank=self.rank,
-                strided=self.strided_accum,
-            )
+            self.train_step = self._make_train_step(augment_fn)
         self.ckpt = CheckpointManager(
             config.checkpoint_dir, max_to_keep=config.max_checkpoints,
             is_main=ctx.is_main,
             keep_best_metric="accuracy" if config.keep_best else None,
+            layout=layout,
         )
         self.history: list[dict] = []
         self._init_fault_tolerance(is_main=ctx.is_main)
-        self._comm_bytes = ring_all_reduce_bytes(self.optimizer.params,
-                                                 self.world)
+        if config.mesh_axes == 1:
+            self._comm_bytes = ring_all_reduce_bytes(self.optimizer.params,
+                                                     self.world)
+
+    def _make_train_step(self, augment_fn):
+        """The data-parallel step of ``parallel/ddp``."""
+        cfg = self.config
+        return make_train_step(
+            self.state, world=self.world, compute_dtype=self.compute_dtype,
+            grad_accum_steps=cfg.grad_accum_steps,
+            label_smoothing=cfg.label_smoothing, augment_fn=augment_fn,
+            seed=cfg.seed, rank=self.rank)
+
+    def _make_eval_step(self):
+        return make_eval_step(self.state.model,
+                              compute_dtype=self.compute_dtype)
 
     def _splits(self):
         """(train, test) image splits of ``--dataset`` (auto: mnist)."""
@@ -980,7 +1051,7 @@ class ImageTrainer(_FaultTolerant):
         contiguous slice of every batch, totals over the split size."""
         images, labels = self.test_split
         local = self.per_shard_batch
-        bs = local * self.world
+        bs = local * self.data_world
         n = len(images)
         if n == 0:
             return float("nan"), float("nan")
@@ -994,7 +1065,7 @@ class ImageTrainer(_FaultTolerant):
 
         acc = loss = torch.zeros((), device=self.device)
         for b in range(padded // bs):
-            lo = b * bs + self.rank * local
+            lo = b * bs + self.data_rank * local
             sel = idx[lo:lo + local]
             c, l = self.eval_step(put(images[sel]), put(labels[sel]),
                                   put(weights[lo:lo + local]))
@@ -1008,10 +1079,12 @@ class SeqTrainer(ImageTrainer):
     trainer's data-parallel machinery: synthetic feature sequences from
     ``--seq_len``, ``--seq_dim`` and ``--num_classes`` (default 10), the
     loader path without the native pool (float sequences; JAX's
-    ``num_workers=0``), strided microbatches, the model of
-    ``models/seq_transformer`` with ``--seq_strategy``'s attention."""
+    ``num_workers=0``), the model of ``models/seq_transformer`` with
+    ``--seq_strategy``'s attention on the mesh of the world (data-only
+    without mesh axes) and its one train and eval step, strided
+    microbatches included."""
 
-    strided_accum = True
+    always_mesh = True
     num_workers = 0
 
     def _splits(self):
@@ -1032,10 +1105,22 @@ class SeqTrainer(ImageTrainer):
             depth=cfg.model_depth or 2, num_heads=cfg.num_heads,
             strategy=cfg.seq_strategy, remat=cfg.remat)
         if cfg.seq_strategy == "ulysses":
-            check_ulysses_heads(self.spec.num_heads, 1, cfg.mesh_seq)
+            check_ulysses_heads(self.spec.num_heads, cfg.mesh_model,
+                                cfg.mesh_seq)
         return build_seq_model(self.spec,
                                init_seq_transformer(self.spec, seed=cfg.seed),
-                               "cpu")
+                               "cpu", mesh=self.mesh)
+
+    def _make_train_step(self, augment_fn):
+        cfg = self.config
+        return make_seq_parallel_train_step(
+            self.state, self.mesh, compute_dtype=self.compute_dtype,
+            grad_accum_steps=cfg.grad_accum_steps,
+            label_smoothing=cfg.label_smoothing)
+
+    def _make_eval_step(self):
+        return make_seq_parallel_eval_step(self.state.model, self.mesh,
+                                           compute_dtype=self.compute_dtype)
 
 
 def run_image(config: TrainConfig,

@@ -235,8 +235,9 @@ def test_blockwise_attention_matches_jax(T, S, block, dtype):
 def test_sequence_sharded_attention_at_seq_world_1(strategy):
     """``parallel.ring.sequence_sharded_attention`` at a seq world of one
     ≡ JAX's on a one-device ``seq`` mesh (ring: the hop-0 block; Ulysses:
-    the identity all-to-alls, then the size dispatch); a seq world above
-    1 names ROADMAP A2.5; an unknown strategy is refused."""
+    the identity all-to-alls, then the size dispatch), with no seq group
+    and with a group of one (``runtime/dist.LocalComm``) alike; an unknown
+    strategy is refused. (The multi-rank forms: test_torch_ring.py.)"""
     from jax.sharding import PartitionSpec as P
 
     from ddp_tpu.runtime.mesh import MeshSpec, make_mesh
@@ -252,9 +253,12 @@ def test_sequence_sharded_attention_at_seq_world_1(strategy):
     got = tring.sequence_sharded_attention(*map(torch.tensor, (q, k, v)),
                                            strategy=strategy)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
-    with pytest.raises(NotImplementedError, match="A2.5"):
-        tring.sequence_sharded_attention(*map(torch.tensor, (q, k, v)),
-                                         strategy=strategy, seq_world=2)
+    from ddp_tpu_torch.runtime.dist import LocalComm
+
+    alone = tring.sequence_sharded_attention(*map(torch.tensor, (q, k, v)),
+                                             strategy=strategy,
+                                             comm=LocalComm())
+    assert torch.equal(alone, got)
     with pytest.raises(ValueError, match="unknown"):
         tring.sequence_sharded_attention(*map(torch.tensor, (q, k, v)),
                                          strategy="tree")

@@ -39,7 +39,8 @@ from ddp_tpu_torch.interop.jax_params import (
     seq_transformer_params_to_jax,
 )
 from ddp_tpu_torch.models import seq_transformer as tst
-from ddp_tpu_torch.parallel.ddp import TrainState, make_eval_step, make_train_step
+from ddp_tpu_torch.parallel.ddp import TrainState
+from ddp_tpu_torch.runtime.mesh import local_mesh
 from ddp_tpu_torch.train import checkpoint as ck
 from ddp_tpu_torch.train.config import TrainConfig
 from ddp_tpu_torch.train.optim import make_optimizer
@@ -194,11 +195,12 @@ def test_train_steps_equal_jax_make_seq_parallel_train_step(
     jstep = jst.make_seq_parallel_train_step(
         jspec, tx, mesh, donate=False, compute_dtype=jdt,
         grad_accum_steps=accum, label_smoothing=smoothing)
-    model = tst.build_model(spec, state, "cpu")
+    one = local_mesh()
+    model = tst.build_model(spec, state, "cpu", mesh=one)
     tstate = TrainState(0, model, make_optimizer(model.parameters(), **opt_kw))
-    tstep = make_train_step(
-        tstate, reduce=lambda t: t, compute_dtype=getattr(torch, dtype),
-        grad_accum_steps=accum, label_smoothing=smoothing, strided=True)
+    tstep = tst.make_seq_parallel_train_step(
+        tstate, one, compute_dtype=getattr(torch, dtype),
+        grad_accum_steps=accum, label_smoothing=smoothing)
     rtol, atol = (RTOL, ATOL) if dtype == "float32" else (BF16_TOL, 1e-3)
     steps = 3 if dtype == "float32" else 2
     for s in range(steps):
@@ -226,8 +228,9 @@ def test_eval_step_equals_jax_weighted_sums():
     w = np.array([1, 1, 1, 0], np.float32)
     jeval = jst.make_seq_parallel_eval_step(jspec, _mesh())
     jc, jl = jeval(tree, {}, jnp.asarray(x), jnp.asarray(y), jnp.asarray(w))
-    step = make_eval_step(tst.build_model(spec, state, "cpu"),
-                          reduce=lambda t: t)
+    one = local_mesh()
+    step = tst.make_seq_parallel_eval_step(
+        tst.build_model(spec, state, "cpu", mesh=one), one)
     tc, tl = step(*(torch.from_numpy(a) for a in (x, y, w)))
     assert float(tc) == float(jc)
     np.testing.assert_allclose(float(tl), float(jl), rtol=RTOL)
@@ -286,14 +289,15 @@ def test_ulysses_and_remat_train(tmp_path):
     (["--model", "simple_cnn", "--mesh_seq", "4"], "long_context"),
     (["--model", "long_context", "--mesh_seq", "4", "--seq_len", "66"],
      "divisible"),
-    (["--model", "long_context", "--mesh_seq", "2"], "A2.5"),
+    (["--model", "long_context", "--mesh_fsdp", "2"], "A2.5"),
     (["--model", "long_context", "--augment", "flip"], "augment"),
     (["--model", "long_context", "--fast_epoch"], "fast_epoch"),
 ])
 def test_config_guards(argv, match):
     """The JAX trainer's guards on the sequence flags: --mesh_seq needs a
-    sequence model and must divide --seq_len; the port refuses a seq
-    world above 1 (ROADMAP A2.5), augment and the fast path."""
+    sequence model and must divide --seq_len; the port refuses
+    --mesh_fsdp above 1 (ROADMAP A2.5-fsdp), augment and the fast
+    path."""
     with pytest.raises(ValueError, match=match):
         TrainConfig.from_args(argv)
 

@@ -352,10 +352,21 @@ def test_train_cli_on_cpu_prints_final_accuracy(tmp_path):
 def test_train_cli_refuses_other_models():
     """A model or layout the port does not train yet is refused with a
     message naming the ROADMAP item that brings it: the pipelined ViT
-    (A4), and a seq world above one for long_context (A2.5)."""
+    (A4), and --mesh_fsdp above 1 (A2.5-fsdp, FSDP with ZeRO). --mesh_seq
+    2 is taken by the sequence models (over a world it tiles) and
+    refused for the image models."""
     for argv, item in ((["--model", "pipe_vit"], "A4"),
-                       (["--model", "long_context", "--mesh_seq", "2"],
-                        "A2.5")):
+                       (["--model", "long_context", "--mesh_fsdp", "2"],
+                        "A2.5-fsdp")):
         bad = subprocess.run(CLI + argv, cwd=REPO,
                              capture_output=True, text=True, timeout=120)
         assert bad.returncode != 0 and f"ROADMAP {item}" in bad.stderr
+    from ddp_tpu_torch.train.config import TrainConfig
+
+    for model in ("long_context", "causal_lm"):
+        config = TrainConfig.from_args(["--model", model, "--mesh_seq", "2",
+                                        "--spawn", "2"])
+        assert config.mesh_seq == 2
+    with pytest.raises(ValueError, match="only the sequence models"):
+        TrainConfig.from_args(["--model", "simple_cnn", "--mesh_seq", "2",
+                               "--spawn", "2"])
