@@ -202,7 +202,7 @@ order; any failure exits non-zero and prints no result:
    launch, finite losses).
 5. The training slice end to end: ``python -m ddp_tpu_torch.train``'s
    own main() at the repo's full-width training configuration (bench.py
-   run_lm_bench: 111.3 M params, T 2048, batch 8, Adam 3e-4, bf16), 12
+   run_lm_bench's width, T 2048, batch 8, Adam 3e-4, bf16) at depth 4, 12
    steps and an eval each epoch, launch counters set to 0 before and
    read after (each of B1-B3 at least depth x steps times, no block
    routed to the plain block), finite
@@ -213,7 +213,7 @@ order; any failure exits non-zero and prints no result:
    limits); then the fp32 variant at depth 2. Both write checkpoints to a
    temporary directory each (phase 8a), which phase 8 serves.
 5m. (Runs after 8e, on the same temporary directories.) The MoE causal LM
-   trained through main() at run_lm_bench's width, depth 4, with
+   trained through main() at run_lm_bench's width, depth 2, with
    --moe_experts 8
    --moe_every 2 --moe_top_k 2 --num_kv_heads 2 (bf16, 2 epochs of 6
    steps, --max_checkpoints 1): each of B1-B3 at least depth x steps,
@@ -255,7 +255,8 @@ order; any failure exits non-zero and prints no result:
    batch 16384 (bench.py's), and the fast path at 16384 in bf16.
 7. The image families of BASELINE.json through ``python -m
    ddp_tpu_torch.train``'s own main(), on synthetic splits of 12,800
-   images, world 1 over nccl.
+   images (ResNet-18's 6,400), world 1 over nccl; vit_moe_tiny at depth
+   4.
    7a: ViT-Tiny on CIFAR-100 (configs 4; bench.py run_vit_bench's model,
    batch 256 and SGD 0.01 + momentum 0.9, bf16, crop-and-flip), 2 epochs:
    launch counters set to 0 before and read after (each of B1-B3 at
@@ -334,7 +335,7 @@ order; any failure exits non-zero and prints no result:
    MOE_LOGITS_ATOL. 5m's checkpoint is removed at the end.
 9. The trainer's fault tolerance (check_fault_tolerance; every command
    on the card, every generation's run_start naming it).
-   9a: phase 5's LM at run_lm_bench's width, depth 4 (bf16, 2 epochs of 6
+   9a: phase 5's LM at run_lm_bench's width, depth 2 (bf16, 2 epochs of 6
    steps)
    through main(): the uninterrupted command twice (bitwise equal, or
    their spread logged); the same under --chaos sigterm:rank0@step8
@@ -357,17 +358,17 @@ order; any failure exits non-zero and prints no result:
    step without and with the parameter EMA, timed in turns (a
    reading).
    9b: SimpleCNN on the reference's path (--epochs 3 --batch_size 64,
-   SGD 0.01) on 12,800 synthetic MNIST images, --deterministic, each run
+   SGD 0.01) on 6,400 synthetic MNIST images, --deterministic, each run
    under the supervisor: two uninterrupted runs; --max_restarts 1 --chaos
-   kill:rank0@step300 (the supervisor logs "killed by SIGKILL",
+   kill:rank0@step150 (the supervisor logs "killed by SIGKILL",
    relaunches, and the run ends on the uninterrupted state by the same
    rule; kill to the next run_start printed); ckpt_corrupt:latest on
    that directory (epoch 2 quarantined, a fallback record, epoch 2
    retrained from epoch 1); --watchdog_timeout 5 --max_restarts 1 --chaos
-   stall:input@step250:30s (one exit 124 classified as a watchdog
+   stall:input@step125:30s (one exit 124 classified as a watchdog
    timeout, the run completes, the stall in the ledger once).
    9c: --spawn 2 --backend gloo --elastic --min_world 1 --max_restarts 2
-   --chaos shrink:rank1@step300,grow:+1@epoch2 on the one card: worlds
+   --chaos shrink:rank1@step150,grow:+1@epoch2 on the one card: worlds
    2, 1, 2 by their run_start records, the global batch 64 in each,
    elastic.json as the first generation wrote it, equal epochs.
    9d: phase 7a's ViT-Tiny (bf16, B1-B3 at T 65) with --ema_decay 0.999
@@ -457,12 +458,28 @@ order; any failure exits non-zero and prints no result:
    the wrong owner must fail it; and --mesh_seq 2 --spawn 2 against
    world 1 after 2 fp32 SGD steps (W2_ARGS's width) within
    P12_PARAM_ATOL, a gradient divided by the world once more outside.
-13. A "kernels" JSON line (each decode kernel's launches on the MoE path,
+13. FSDP and ZeRO, in phase 12's wave and 12d's world: 13a the LM at
+   12b's width (T 8192, bf16, depth 2, a sequence a rank) at --mesh_fsdp
+   2 --mesh_seq 2 --spawn 4; 13b ViT-Tiny at 7a's width (T 65, bf16, 64
+   images a rank) under --parallel zero --zero_gather_dtype bf16 --spawn
+   2; each rank's launches (the hop schedule; 12 a step for ViT), its
+   bytes of parameters and optimizer state at rest against the shard
+   specs and the bucket layout (13a against 12b_seq2's), 13b's
+   comm_bytes against zero_comm_bytes. 13c in 12d's world: one fp32 step
+   of the LM (cut to T 2048) at fsdp 2 x seq 2, fsdp 2 x model 2 and data
+   2 x fsdp 2, under zero at data 4 and data 2 x model 2 (the clip
+   engaged), and of ViT-Tiny under zero at data 4 with the fp32 and the
+   bf16 gather, against world 1's exact step (STEP_TOL["fp32"]; ViT's
+   updated parameters within P12_PARAM_ATOL; the bf16 master against the
+   fp32 gather's parameters); the reduce-scatter's 1/n dropped, the
+   clip's model sum doubled and the neighbour's shard offset must fail.
+14. A "kernels" JSON line (each decode kernel's launches on the MoE path,
    moe_launches, beside its own, and in phase 4's flag runs,
    flag_launches; B1-B3's in 5m and 7c, phase 9's as
    fault_tolerance_launches, phase 10's as imagenet_launches, phase
    11's as long_context_launches, lm_long_launches and
-   lm_world2_rank0_launches, phase 12's as mesh_launches_by_rank, and
+   lm_world2_rank0_launches, phases 12's and 13's as
+   mesh_launches_by_rank, and
    their timings at T 3137, at the long-context shape, at the LM's T
    8192 and at the ring hops' shapes as the vit224_*, long_context_*,
    lm_long_* and hop12a_*/hop12b_* variants), the card
@@ -2832,7 +2849,9 @@ def check_serving_obs(torch, card) -> dict:
 
 # ---- phase 4f: the compile contract, step programs as CUDA graphs ---------
 
-GRAPH_STEPS = 64  # (d): steady decode steps timed a turn
+# (d): steady decode steps timed a turn (64 until phase 13 joined the
+# script: a cut for its time).
+GRAPH_STEPS = 32
 # (b): phase 4's REQUESTS as one fixed schedule (all at once, in-process,
 # under SPEC_BUDGET), on each cache layout and dtype.
 GRAPH_RUNS = {"fp32": {"kv_dtype": "fp32"}, "int8": {"kv_dtype": "int8"},
@@ -3099,6 +3118,19 @@ def check_rebound_weight(torch, prompts) -> list:
     return failed
 
 
+def _laps(tag):
+    """``lap(label)`` logs the seconds since the last lap (or the call),
+    tagged: where a phase's time goes."""
+    mark = [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        log(f"[{tag}] {label}: {now - mark[0]:.1f} s")
+        mark[0] = now
+
+    return lap
+
+
 def check_graphs(torch, card) -> dict:
     """Phase 4f: the serving engine's compile contract at phase 4's full
     width → {"launches": graph launches by kernel, "b4_spec": B4 launches
@@ -3113,13 +3145,19 @@ def check_graphs(torch, card) -> dict:
     prompts = [rng.integers(0, spec.vocab_size, n).tolist()
                for n, _, _ in REQUESTS]
     log(f"[graphs] {card}")
+    lap = _laps("graphs")
     warm, failed = check_graph_warmup(torch, model, draft)
+    lap("warmup")
     launched, bad = check_graph_streams(torch, model, prompts)
     failed += bad
+    lap("streams")
     spec_readings, bad = check_graph_spec(torch, model, prompts, draft)
     failed += bad
+    lap("spec")
     failed += check_rebound_weight(torch, prompts)
+    lap("rebound weight")
     timing = time_graph_steps(torch, model, card)
+    lap("timing")
     log(f"[graphs] phase 4f wall {time.perf_counter() - t0:.1f} s")
     if failed:
         raise AssertionError(f"phase 4f: {failed}")
@@ -3420,12 +3458,13 @@ def check_moe_layer(torch, device="cuda") -> dict:
 # ---- phase 5: the training slice end to end ----------------------------
 
 # The repo's full-width training configuration (bench.py run_lm_bench:
-# vocab 8192, d_model 1024, depth 8, 8 heads, T 2048, batch 8, Adam 3e-4,
-# bf16 compute): 48 sequences = 6 steps per epoch, an eval of 8.
+# vocab 8192, d_model 1024, 8 heads, T 2048, batch 8, Adam 3e-4, bf16
+# compute) at depth 4 of its 8 (a cut for the script's time since phase
+# 13 joined it): 48 sequences = 6 steps per epoch, an eval of 8.
 TRAIN_ARGS = [
     "--model", "causal_lm", "--dataset", "synthetic_seq",
     "--synthetic_size", "48", "--seq_len", "2048", "--vocab_size", "8192",
-    "--model_dim", "1024", "--model_depth", "8", "--num_heads", "8",
+    "--model_dim", "1024", "--model_depth", "4", "--num_heads", "8",
     "--batch_size", "8", "--epochs", "2", "--optimizer", "adam",
     "--lr", "3e-4", "--compute_dtype", "bfloat16",
 ]
@@ -4721,15 +4760,16 @@ def check_lm_serving(torch, card, dirs) -> dict:
 
 # run_lm_bench's width (TRAIN_ARGS) with decode_moe's routing: 8 experts in
 # every 2nd block, top-2, 2 KV heads; one epoch of 6 steps, then a second
-# by resuming. Depth 4 (PR 17; 8 before): the checkpoints' writes and
-# reads are most of the phase's time, and the script must stay within its
-# limit. One epoch's checkpoint with its Adam moments is about 2 GB (4 GB
-# at depth 8), so only the latest is kept (it is what 8f serves).
+# by resuming. Depth 2 (4 until phase 13 joined the script, 8 before):
+# the checkpoints' writes and reads are most of the phase's time, and the
+# script must stay within its limit. One epoch's
+# checkpoint with its Adam moments is about 1 GB (4 GB at depth 8), so
+# only the latest is kept (it is what 8f serves).
 TRAIN_MOE_ARGS = TRAIN_ARGS + ["--moe_experts", "8", "--moe_every", "2",
                                "--moe_top_k", "2", "--num_kv_heads", "2",
                                "--max_checkpoints", "1"]
 TRAIN_MOE_ARGS[TRAIN_MOE_ARGS.index("--epochs") + 1] = "1"
-TRAIN_MOE_ARGS[TRAIN_MOE_ARGS.index("--model_depth") + 1] = "4"
+TRAIN_MOE_ARGS[TRAIN_MOE_ARGS.index("--model_depth") + 1] = "2"
 # 8f: the served prompt's last-position logits (the serving forward, fp32)
 # against train_forward's (fp32, B1 through its fp32 kernel) at a
 # capacity factor of E/k, where no expert can overflow (capacity = the
@@ -4833,7 +4873,7 @@ def _moe_epoch_readings(spec, cfg, h) -> dict:
 
 def check_moe_training(torch, card, ckdir) -> dict:
     """Phase 5m: ``python -m ddp_tpu_torch.train``'s main() on the MoE LM
-    at run_lm_bench's width, depth 4 (TRAIN_MOE_ARGS, bf16): epoch 0 (6 steps),
+    at run_lm_bench's width, depth 2 (TRAIN_MOE_ARGS, bf16): epoch 0 (6 steps),
     each of B1-B3 at least depth x steps, nothing routed to the plain
     block; the reported loss is CE + 0.01 · aux; the sidecar carries the
     routing; one step through the kernels against the plain attention
@@ -5410,13 +5450,20 @@ def check_cnn(torch, card) -> dict:
     import tempfile
 
     repo = os.path.dirname(os.path.abspath(__file__))
+    lap = _laps("cnn")
     with tempfile.TemporaryDirectory() as tmp:
         readings = check_cnn_main_path(torch, tmp)
+        lap("6a main path")
         check_cnn_fast_path(torch, tmp)
+        lap("fast path")
         check_cnn_step(torch)
+        lap("step check")
         readings["uci_digits_accuracy"] = check_cnn_real_digits(repo)
+        lap("uci_digits")
         check_cnn_two_ranks(torch, tmp)
+        lap("two ranks")
         readings["timing"] = time_cnn(torch, readings, tmp, card)
+        lap("timing")
     return readings
 
 
@@ -5444,9 +5491,10 @@ VIT_TRAIN_FLOPS = 2_187_095_040
 PROFILE_STEPS = 12
 # BASELINE.json config 3, ResNet-18 on CIFAR-10: He et al. 2016 §4.2's
 # CIFAR recipe (batch 128, lr 0.1, momentum 0.9, weight decay 1e-4), fp32,
-# the synthetic split cut to 12,800 images (100 steps an epoch).
+# the synthetic split cut to 6,400 images (50 steps an epoch; 12,800 until
+# phase 13 joined the script).
 RESNET_ARGS = ["--model", "resnet18", "--dataset", "cifar10",
-               "--synthetic_data", "--synthetic_size", "12800",
+               "--synthetic_data", "--synthetic_size", "6400",
                "--batch_size", "128", "--epochs", "2", "--lr", "0.1",
                "--momentum", "0.9", "--weight_decay", "1e-4", "--augment",
                "crop_flip", "--log_interval", "1000"]
@@ -5826,7 +5874,10 @@ def check_vit(torch, card, tmp) -> dict:
 
 # Phase 7c: vit_moe_tiny (8 experts, top-2, every 2nd of 12 blocks
 # routed; 64 tokens, no cls) on the same split and recipe as 7a.
-VIT_MOE_ARGS = VIT_ARGS[:1] + ["vit_moe_tiny"] + VIT_ARGS[2:]
+# At depth 4 of its 12 (blocks 2 and 4 routed): a cut for the script's
+# time since phase 13 joined it.
+VIT_MOE_ARGS = (VIT_ARGS[:1] + ["vit_moe_tiny"] + VIT_ARGS[2:]
+                + ["--model_depth", "4"])
 
 
 def check_vit_moe(torch, card, tmp) -> dict:
@@ -6090,12 +6141,16 @@ def check_image_families(torch, card) -> dict:
     then vit_moe_tiny / CIFAR-100 (7c)."""
     import tempfile
 
+    lap = _laps("images")
     with tempfile.TemporaryDirectory() as tmp:
         vit = check_vit(torch, card, tmp)
         torch.cuda.empty_cache()
+        lap("7a")
         resnet = check_resnet(torch, card, tmp)
         torch.cuda.empty_cache()
+        lap("7b")
         vit_moe = check_vit_moe(torch, card, tmp)
+        lap("7c")
     return {"vit": vit, "resnet": resnet, "vit_moe": vit_moe}
 
 
@@ -6104,26 +6159,26 @@ def check_image_families(torch, card) -> dict:
 # Appended to every phase-9 command (["--device", "cpu"] when rehearsing).
 FT_DEVICE_ARGS: list[str] = []
 # 9a: run_lm_bench's width (phase 5's TRAIN_ARGS: 2 epochs of 6 steps,
-# bf16) at depth 4 (PR 17; 8 before: its checkpoints' 1.34 GB writes were
-# most of the phase's time); the SIGTERM lands before global step 8,
-# epoch 1's batch 2.
+# bf16) at depth 2 (4 until phase 13 joined the script, 8 before: its
+# checkpoints' writes are most of the phase's time); the SIGTERM lands
+# before global step 8, epoch 1's batch 2.
 FT_LM_ARGS = list(TRAIN_ARGS)
-FT_LM_ARGS[FT_LM_ARGS.index("--model_depth") + 1] = "4"
+FT_LM_ARGS[FT_LM_ARGS.index("--model_depth") + 1] = "2"
 FT_SIGTERM_STEP = 8
 # 9b: the reference's path (train.py --epochs 3 --batch_size 64, SGD
-# 0.01) on synthetic MNIST cut from 60,000 to 12,800 images (200 steps an
-# epoch), every run under the supervisor (one worker process, as the
-# drills run), cuDNN deterministic (without it two uninterrupted runs
-# part by ~6e-8: a conv backward's order); the kill lands in epoch 1, the
-# stall in epoch 1.
+# 0.01) on synthetic MNIST cut from 60,000 to 6,400 images (100 steps an
+# epoch; 12,800 until phase 13 joined the script), every run under the
+# supervisor (one worker process, as the drills run), cuDNN deterministic
+# (without it two uninterrupted runs part by ~6e-8: a conv backward's
+# order); the kill lands in epoch 1, the stall in epoch 1.
 FT_CNN_ARGS = ["--model", "simple_cnn", "--synthetic_data",
-               "--synthetic_size", "12800", "--epochs", "3", "--batch_size",
+               "--synthetic_size", "6400", "--epochs", "3", "--batch_size",
                "64", "--log_interval", "300", "--deterministic"]
-FT_KILL_STEP = 300
-FT_STALL = "stall:input@step250:30s"
+FT_KILL_STEP = 150
+FT_STALL = "stall:input@step125:30s"
 # 9c: two gloo ranks on the one card at 32 each (global 64), 3 epochs of
-# 200 steps; rank 1 is lost in epoch 1, a host comes back at epoch 2.
-FT_ELASTIC_CHAOS = "shrink:rank1@step300,grow:+1@epoch2"
+# 100 steps; rank 1 is lost in epoch 1, a host comes back at epoch 2.
+FT_ELASTIC_CHAOS = "shrink:rank1@step150,grow:+1@epoch2"
 # 9d: phase 7a's ViT-Tiny recipe with the EMA and keep_best.
 FT_EMA_DECAY = 0.999
 FT_EMA_TOL = 1e-6  # relative norm error, card fp32 EMA vs fp64 recurrence
@@ -7942,7 +7997,7 @@ P12_PARAM_ATOL = 1e-5
 # and fails the phase, past P12_RUN_TIMEOUT s; 12d's world past
 # P12D_DEADLINE s from its start (both 2-3x their time on the card).
 P12_RUN_TIMEOUT = 300
-P12D_DEADLINE = 300
+P12D_DEADLINE = 420
 # The ring hops' block shapes (label, B, T, S, H, D, causal): 12a's past
 # hop (T 8192 over 4 ranks) and 12b's (T 8192 over 2), unmasked.
 HOP12A_SHAPE = ("12a ring hop T=S=2048 D 16", 32, 2048, 2048, 4, 16, False)
@@ -7974,6 +8029,78 @@ P12_CHECKS = {
     "12c expert 2, slots to the wrong owner": ("moe", dict(expert=2),
                                                "misroute"),
 }
+
+
+# Phase 13, FSDP and ZeRO, rides phase 12's wave and 12d's world (it
+# starts no world of its own: the start-up of ~30 processes on the host's
+# 8 cores is half of phase 12). 13a: the LM at P12_LM_ARGS' width (d 1024,
+# 8 heads, vocab 8192, T 8192, bf16, depth 2) at --mesh_fsdp 2 --mesh_seq
+# 2 --spawn 4; 13b: ViT-Tiny at VIT_ARGS' width (CIFAR-100, T 65, bf16,
+# depth 12) under --parallel zero --zero_gather_dtype bf16 --spawn 2.
+# Both --backend gloo, every rank on the one card: four (two) processes
+# sharing it through host-staged exchanges, no scaling figure. Cuts: one
+# epoch of 2 steps; a sequence a rank (13a: 4 sequences, the global batch
+# 2) and 64 images a rank (13b: 256 images, the global batch 128), so
+# that the wave's ~40 processes fit the card's 80 GB (at 2 and 256 a rank
+# a run died of CUDA's out of memory at its checkpoint).
+P13A_ARGS = list(P12_LM_ARGS)
+P13A_ARGS[P13A_ARGS.index("--batch_size") + 1] = "1"
+P13B_ARGS = list(VIT_ARGS) + ["--model_depth", "12", "--parallel", "zero",
+                              "--zero_gather_dtype", "bf16"]
+P13B_ARGS[P13B_ARGS.index("--synthetic_size") + 1] = "256"
+P13B_ARGS[P13B_ARGS.index("--batch_size") + 1] = "64"
+P13B_ARGS[P13B_ARGS.index("--epochs") + 1] = "1"
+P12_RUNS.update({
+    "13a_fsdp2_seq2": (P13A_ARGS, ["--mesh_fsdp", "2", "--mesh_seq", "2"],
+                       4),
+    "13b_vit_zero": (P13B_ARGS, [], 2),
+})
+# 13c, in 12d's world: one fp32 step from the same weights through B1-B3
+# (fp32) under FSDP and ZeRO against world 1's exact step, STEP_TOL["fp32"]:
+# the LM (P12_LM) at fsdp 2 x seq 2, fsdp 2 x model 2 and data 2 x fsdp 2,
+# and under zero at data 4 and data 2 x model 2 with the in-step clip
+# (P13_CLIP engages: the reference's gradient is clipped alike); ViT-Tiny
+# (P13_VIT, T 65) under zero at data 4 with the fp32 and the bf16 gather,
+# the bf16 gather's master held to the fp32 gather's parameters within
+# P13_MASTER_ATOL. Controls that must fail: the reduce-scatter's 1/n
+# dropped, the clip's sum over model counting the replicated leaves too,
+# the update at the neighbour's shard offset. Cuts: the LM at T 2048 (12d's
+# is at 8192: phase 13 had to pay for its wave's place), depth 2; 1 row
+# (image) a replica, so the meshes of 4 replicas take the "lm4" batch of
+# 4 rows, whose exact step is the mean of two world-1 steps of 2 rows.
+P13_LM = dict(P12_LM, total_len=2048)
+P13_CLIP = 1e-3
+P13_MASTER_ATOL = 1e-6
+P13_VIT = dict(num_classes=100, side=32, in_channels=3, depth=2)
+P12_CHECKS.update({
+    "13c lm fsdp 2 x seq 2": ("lm2", dict(fsdp=2, seq=2), None),
+    "13c lm fsdp 2 x model 2": ("lm2", dict(fsdp=2, model=2), None),
+    "13c lm data 2 x fsdp 2": ("lm4", dict(fsdp=2), None),
+    "13c lm data 2 x fsdp 2, the reduce-scatter's 1/n dropped":
+        ("lm4", dict(fsdp=2), "drop_scale"),
+    "13c lm zero data 4": ("lm4_zero", {}, None),
+    "13c lm zero data 2 x model 2": ("lm2_zero", dict(model=2), None),
+    "13c lm zero data 2 x model 2, the clip's model sum doubled":
+        ("lm2_zero", dict(model=2), "clip_model"),
+    "13c vit zero data 4": ("vit_zero", {}, None),
+    "13c vit zero data 4, the neighbour's shard offset":
+        ("vit_zero", {}, "offset"),
+    "13c vit zero data 4, bf16 gather": ("vit_zero_bf16", {}, None),
+})
+
+
+def _lm_cfg(cfgs, family) -> dict:
+    """The LMSpec fields of a 12d/13c LM family."""
+    base = _p13_base(family)
+    return cfgs["moe" if base == "moe" else "lm13" if base in ("lm2", "lm4")
+                else "lm"]
+
+
+def _p13_base(family) -> str:
+    """A 12d family's inputs and reference: "lm", "lc", "moe" (12d's);
+    "lm2", "lm4" (13c's LM, P13_LM, 2 and 4 rows), "vit" (the zero and
+    gather variants share their base's)."""
+    return family.removesuffix("_bf16").removesuffix("_zero")
 
 
 def _rank_trace(path) -> dict:
@@ -8019,6 +8146,8 @@ def _p12_expected(name, depth, steps, rank) -> int:
         return depth * steps * (rank + 1)
     if name == "12b_model2_seq2":  # rank = seq · 2 + model
         return depth * steps * (rank // 2 + 1)
+    if name == "13a_fsdp2_seq2":  # rank = fsdp · 2 + seq
+        return depth * steps * (rank % 2 + 1)
     return depth * steps
 
 
@@ -8062,6 +8191,10 @@ def _p12_readings(torch, tmp, name, code, lines, span) -> tuple[dict, list]:
 
     base, _, world = P12_RUNS[name]
     if code != 0:
+        first = next((i for i, ln in enumerate(lines) if "Traceback" in ln),
+                     max(0, len(lines) - 20))
+        log(f"[mesh] {name} exited {code}; its output from the first "
+            "traceback:\n" + "\n".join(lines[first:first + 80]))
         return {}, [f"{name}: exit {code}: {lines[-20:]}"]
     depth = int(base[base.index("--model_depth") + 1]) \
         if "--model_depth" in base else 2
@@ -8101,7 +8234,8 @@ def _p12_readings(torch, tmp, name, code, lines, span) -> tuple[dict, list]:
 def _p12_cfgs() -> dict:
     """12d's model configurations by family (passed to the spawned
     ranks, so that a rehearsal's cut sizes reach them)."""
-    return dict(lc=dict(P12_LC), lm=dict(P12_LM), moe=dict(P12_MOE))
+    return dict(lc=dict(P12_LC), lm=dict(P12_LM), moe=dict(P12_MOE),
+                lm13=dict(P13_LM), vit=dict(P13_VIT), clip=P13_CLIP)
 
 
 def _p12d_models(torch, family, state, dev, cfgs):
@@ -8119,7 +8253,19 @@ def _p12d_models(torch, family, state, dev, cfgs):
         return (lambda mesh: tst.build_model(spec, state, dev, mesh=mesh),
                 lambda model, opt, mesh: tst.make_seq_parallel_train_step(
                     TrainState(0, model, opt), mesh))
-    spec = tlm.LMSpec(**cfgs["moe" if family == "moe" else "lm"])
+    if family.startswith("vit"):
+        from ddp_tpu_torch.models import get_model
+        from ddp_tpu_torch.parallel.zero import make_zero_train_step
+
+        def build_vit(mesh):
+            model = get_model("vit_tiny", **cfgs["vit"])
+            model.load_state_dict({k: torch.from_numpy(v)
+                                   for k, v in state.items()})
+            return model.to(dev)
+
+        return build_vit, lambda model, opt, mesh: make_zero_train_step(
+            TrainState(0, model, opt), mesh.comm("data"))
+    spec = tlm.LMSpec(**_lm_cfg(cfgs, family))
 
     def build(mesh):
         model = tlm.CausalLM.from_state(spec, state, "cpu", trainable=True)
@@ -8135,7 +8281,17 @@ def _p12d_inputs(torch, family, dev, cfgs):
     from ddp_tpu_torch.models import lm as tlm
     from ddp_tpu_torch.models import seq_transformer as tst
 
-    rng = np.random.default_rng(12)
+    family = _p13_base(family)
+    if family == "vit":
+        from ddp_tpu_torch.models import get_model
+
+        rng = np.random.default_rng(13)
+        state = get_model("vit_tiny", **cfgs["vit"]).init_state(seed=13)
+        x = rng.integers(0, 256, (P12_WORLD, 32, 32, 3), dtype=np.uint8)
+        y = rng.integers(0, cfgs["vit"]["num_classes"], P12_WORLD)
+        return state, (torch.from_numpy(x).to(dev),
+                       torch.from_numpy(y).to(dev))
+    rng = np.random.default_rng(12 if family != "lm4" else 14)
     if family.startswith("lc"):
         lc = cfgs["lc"]
         state = tst.init_seq_transformer(tst.SeqTransformerSpec(**lc),
@@ -8144,10 +8300,10 @@ def _p12d_inputs(torch, family, dev, cfgs):
         y = rng.integers(0, lc["num_classes"], 2)
         return state, (torch.from_numpy(x.astype(np.float32)).to(dev),
                        torch.from_numpy(y).to(dev))
-    cfg = cfgs["moe" if family == "moe" else "lm"]
+    cfg = _lm_cfg(cfgs, family)
     state = tlm.init_lm_state(tlm.LMSpec(**cfg), seed=12)
     toks = rng.integers(0, cfg["vocab_size"],
-                        (P12_WORLD if family == "moe" else 2,
+                        (P12_WORLD if family in ("moe", "lm4") else 2,
                          cfg["total_len"]))
     return state, (torch.from_numpy(toks).to(dev),)
 
@@ -8179,6 +8335,12 @@ def _p12d_controls(torch, control):
                     mesh.comm("model").all_reduce_(p.grad)
             return rest
         return ((tlm, "_reduce_gradients", doubled),)
+    if control == "drop_scale":
+        from ddp_tpu_torch.parallel import seq_fsdp
+        return ((seq_fsdp, "FAULT", control),)
+    if control in ("clip_model", "offset"):
+        from ddp_tpu_torch.parallel import zero
+        return ((zero, "FAULT", control),)
     if control == "misroute":
         real = tmoe.all_to_all
 
@@ -8198,26 +8360,51 @@ def _p12d_worker(rank, world, out, device, cfgs):
     import torch
 
     from ddp_tpu_torch.models import moe as tmoe
+    from ddp_tpu_torch.parallel.zero import ZeroOptimizer
     from ddp_tpu_torch.runtime import dist
     from ddp_tpu_torch.runtime.mesh import dist_mesh, mesh_sizes
     from ddp_tpu_torch.train.optim import make_optimizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     ctx = dist.setup(rank, world, backend="gloo", device=device)
-    results, routes = {}, []
+    results, routes, states = {}, [], {}
     try:
+        # C7: does this torch's gloo take reduce_scatter_tensor? (The
+        # port's gloo reduce-scatter is written from all_to_all either
+        # way: runtime/dist.DistComm.reduce_scatter.)
+        import torch.distributed as tdist
+
+        rs = torch.empty(2)
+        try:
+            tdist.reduce_scatter_tensor(rs, torch.arange(2.0 * world))
+            results["gloo_reduce_scatter_tensor"] = f"takes it: {rs.tolist()}"
+        except Exception as e:  # noqa: BLE001 — the reading
+            results["gloo_reduce_scatter_tensor"] = \
+                f"refuses it: {type(e).__name__}: {str(e)[:160]}"
         inputs = {}
         for label, (family, axes, control) in P12_CHECKS.items():
-            if family not in inputs:
-                inputs[family] = _p12d_inputs(torch, family, ctx.device,
-                                              cfgs)
-            state, batch = inputs[family]
+            base = _p13_base(family)
+            if base not in inputs:
+                inputs[base] = _p12d_inputs(torch, base, ctx.device, cfgs)
+            state, batch = inputs[base]
             mesh = dist_mesh(mesh_sizes(world, **axes), rank)
             build, step_of = _p12d_models(torch, family, state, ctx.device,
                                           cfgs)
             model = build(mesh)
-            opt = make_optimizer(model.parameters(), "sgd", lr=0.1)
-            opt.norm = model.shard_layout.norm
+            layout = getattr(model, "shard_layout", None)
+            if family.endswith(("_zero", "_bf16")):
+                opt = ZeroOptimizer(
+                    model.named_parameters(), mesh.comm("data"), name="sgd",
+                    lr=0.1, grad_clip_norm=cfgs["clip"] if base != "vit"
+                    else 0.0,
+                    gather_dtype="bf16" if family.endswith("_bf16")
+                    else "fp32",
+                    model_comm=mesh.comm("model"),
+                    model_names={n for n in (layout.specs if layout else ())
+                                 if "model" in layout.axes(n)})
+            else:
+                opt = make_optimizer(model.parameters(), "sgd", lr=0.1)
+                opt.norm = layout.norm
             per = batch[0].shape[0] // mesh.data_size
             rows = [b[mesh.data_rank * per:][:per] for b in batch]
             real_route = tmoe.route
@@ -8234,13 +8421,25 @@ def _p12d_worker(rank, world, out, device, cfgs):
             with _patched((tmoe, "route", route),
                           *_p12d_controls(torch, control)):
                 m = step_of(model, opt, mesh)(*rows)
-            grads = model.shard_layout.gather(
-                {n: p.grad for n, p in model.named_parameters()})
+                if isinstance(opt, ZeroOptimizer):
+                    grads = opt.last_grads()  # the update's, clipped
+                    if layout is not None:
+                        grads = layout.gather(grads)
+                    if base == "vit":  # the parameters the update gave
+                        full = (opt.state_dict()["master"] if opt.master_mode
+                                else [p.detach().cpu() for p in opt.params])
+                        states[label] = dict(zip(opt.names, full))
+                else:
+                    grads = layout.gather(
+                        {n: p.grad for n, p in model.named_parameters()})
             results[label] = (float(m.loss),
                               {k: v.detach().cpu() for k, v in grads.items()})
             del model, opt, grads
+            if torch.cuda.is_available():  # the wave beside shares the card
+                torch.cuda.empty_cache()
         torch.save(routes, f"{out}/12d_routes{rank}.pt")
         if rank == 0:
+            results["13c_states"] = states
             torch.save(results, f"{out}/12d_steps.pt")
     finally:
         dist.cleanup()
@@ -8261,6 +8460,26 @@ def _p12d_reference(torch, family, dev, cfgs, routes=None):
 
     state, batch = _p12d_inputs(torch, family, dev, cfgs)
     plain = ring._xla_block_with_lse
+    if family == "vit":
+        from ddp_tpu_torch.models import get_model
+        from ddp_tpu_torch.ops import flash as fl
+        from ddp_tpu_torch.parallel.ddp import make_train_step
+
+        model = get_model("vit_tiny", **cfgs["vit"])
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in state.items()})
+        model = model.to(dev)
+        for name in model.block_names:
+            getattr(model, name).attn.attention_fn = \
+                lambda q, k, v: fl.attention_with_lse_reference(
+                    q, k, v, False)[0]
+        st = TrainState(0, model, make_optimizer(model.parameters(), "sgd",
+                                                 lr=0.1))
+        m = make_train_step(st, reduce=lambda t: t)(*batch)
+        named = dict(model.named_parameters())
+        return (float(m.loss), {n: p.grad.detach().cpu()
+                                for n, p in named.items()},
+                {n: p.detach().cpu() for n, p in named.items()})
     if family.startswith("lc"):
         one = local_mesh()
         model = tst.build_model(tst.SeqTransformerSpec(**cfgs["lc"]), state,
@@ -8272,7 +8491,7 @@ def _p12d_reference(torch, family, dev, cfgs, routes=None):
         m = tst.make_seq_parallel_train_step(st, one)(*batch)
         return float(m.loss), {n: p.grad.detach().cpu()
                                for n, p in model.named_parameters()}
-    spec = tlm.LMSpec(**cfgs["moe" if family == "moe" else "lm"])
+    spec = tlm.LMSpec(**_lm_cfg(cfgs, family))
 
     def step(rows):
         model = tlm.CausalLM.from_state(spec, state, dev, trainable=True)
@@ -8281,6 +8500,11 @@ def _p12d_reference(torch, family, dev, cfgs, routes=None):
         return float(m.loss), {n: p.grad.detach().cpu()
                                for n, p in model.named_parameters()}
 
+    if family == "lm4":  # the mean of two world-1 steps of 2 rows
+        parts = [step(batch[0][i:i + 2]) for i in (0, 2)]
+        return (sum(p[0] for p in parts) / 2,
+                {k: (parts[0][1][k] + parts[1][1][k]) / 2
+                 for k in parts[0][1]})
     if family != "moe":
         return step(batch[0])
     parts = []
@@ -8362,20 +8586,57 @@ def check_mesh_steps(torch, tmp, world, started,
                                 weights_only=False)), key=lambda p: p[0])
     tol = STEP_TOL["fp32"]
     readings, failed, refs = {}, [], {}
+    log(f"[mesh] 13c: gloo's reduce_scatter_tensor on this torch "
+        f"{torch.__version__}: {got['gloo_reduce_scatter_tensor']}")
     for label, (family, _, control) in P12_CHECKS.items():
-        if family not in refs:
-            refs[family] = _p12d_reference(torch, family, dev, cfgs, routes)
+        base = _p13_base(family)
+        if base not in refs:
+            refs[base] = _p12d_reference(torch, base, dev, cfgs, routes)
             torch.cuda.empty_cache()
-        e = _grad_errors(got[label], refs[family])
+        want = refs[base]
+        if family.startswith("lm") and family.endswith("_zero"):
+            want = _clipped(torch, want, cfgs["clip"])
+        e = _grad_errors(got[label], want)
         ok = _within(e, tol)
+        if base == "vit":  # the update: the parameters it gave
+            d = max(float((got["13c_states"][label][n] - w).abs().max())
+                    for n, w in want[2].items())
+            e["params"] = d
+            ok = ok and d <= P12_PARAM_ATOL
         readings[label] = dict(loss=e["loss"], grad=e["grad"],
-                               leaf=e["leaf"], attn=e["attn"])
+                               leaf=e["leaf"], attn=e["attn"],
+                               **({"params": e["params"]} if "params" in e
+                                  else {}))
         log(f"[mesh] 12d {label}: {_errors_text(e)}"
+            + (f", updated parameters max |diff| {e['params']:.3e} (limit "
+               f"{P12_PARAM_ATOL:.0e})" if "params" in e else "")
             + (" (a control: must fail)" if control else ""))
         if ok == bool(control):
             failed.append(f"12d {label}: " + ("the control passes" if control
                                               else _errors_text(e)))
+    states = got["13c_states"]
+    fp32, bf16 = (states[k] for k in ("13c vit zero data 4",
+                                      "13c vit zero data 4, bf16 gather"))
+    d = max(float((fp32[n] - bf16[n]).abs().max()) for n in fp32)
+    readings["13c vit bf16 master vs fp32 gather"] = d
+    log(f"[mesh] 13c vit zero data 4: the bf16 gather's master vs the fp32 "
+        f"gather's parameters after one step: max |diff| {d:.3e} (limit "
+        f"{P13_MASTER_ATOL:.0e})")
+    if not d <= P13_MASTER_ATOL:
+        failed.append(f"13c: the bf16 gather's master parts by {d:.3e}")
     return readings, failed
+
+
+def _clipped(torch, ref, clip):
+    """World 1's (loss, gradients) with the global-norm clip applied as
+    the zero step applies it (``g / norm · clip`` where the norm reaches
+    ``clip``)."""
+    loss, grads = ref
+    norm = float(torch.sqrt(sum(g.double().pow(2).sum()
+                                for g in grads.values())))
+    if norm < clip:
+        return ref
+    return loss, {k: (g / norm) * clip for k, g in grads.items()}
 
 
 def check_mesh_spawn_params(torch, tmp, codes) -> tuple[dict, list]:
@@ -8438,6 +8699,100 @@ def _reaped(world):
             proc.join()
 
 
+def _rank_state(tmp, name, world) -> list[dict]:
+    """Each rank's bytes at rest of a run (``state_rank<r>.json`` beside
+    its trace: parameters, optimizer state)."""
+    out = []
+    for r in range(world):
+        with open(f"{tmp}/{name}_prof/state_rank{r}.json") as f:
+            out.append(json.load(f))
+    return out
+
+
+def check_fsdp_zero_runs(torch, tmp, runs) -> tuple[dict, list]:
+    """13a and 13b beyond their launches: each rank's bytes of parameters
+    and optimizer state at rest against what the specs and the bucket
+    layout give (13a against 12b_seq2's, replicated over seq), and 13b's
+    ``comm_bytes`` records against ``zero_comm_bytes``."""
+    from ddp_tpu_torch.interop.jax_params import jax_leaf_order
+    from ddp_tpu_torch.models import get_model
+    from ddp_tpu_torch.models.lm import LMSpec, init_lm_state
+    from ddp_tpu_torch.parallel import zero
+    from ddp_tpu_torch.parallel.tp import seq_param_specs
+    from ddp_tpu_torch.runtime.mesh import Mesh, mesh_sizes
+    from ddp_tpu_torch.train.config import TrainConfig
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    failed, out = [], {}
+    if not all(runs.get(n) for n in ("13a_fsdp2_seq2", "13b_vit_zero",
+                                     "12b_seq2")):
+        return out, ["13a/13b: a run failed: no state readings"]
+    c = TrainConfig.from_args(P13A_ARGS)
+    spec = LMSpec(vocab_size=c.vocab_size, total_len=c.seq_len,
+                  d_model=c.model_dim, depth=c.model_depth,
+                  num_heads=c.num_heads)
+    shapes = {k: v.shape for k, v in init_lm_state(spec).items()}
+    full = sum(int(np.prod(v)) for v in shapes.values()) * 4
+    sizes = mesh_sizes(4, fsdp=2, seq=2)
+    specs = seq_param_specs(shapes, Mesh(sizes, 0))
+    local = sum(int(np.prod(v)) // int(np.prod(
+        [sizes[a] for _, a in specs.get(k, ())])) for k, v in shapes.items()) * 4
+    want = {"13a_fsdp2_seq2": local, "12b_seq2": full}
+    for name, world in (("13a_fsdp2_seq2", 4), ("12b_seq2", 2)):
+        st = _rank_state(tmp, name, world)
+        out[name] = st
+        for r, b in enumerate(st):
+            # Adam: two moments a parameter and optax's int32 count.
+            ok = (b["params"] == want[name]
+                  and b["optimizer"] == 2 * want[name] + 4)
+            log(f"[mesh] {name} rank {r}: at rest {b['params']} bytes of "
+                f"parameters, {b['optimizer']} of Adam state (the specs "
+                f"give {want[name]} and {2 * want[name] + 4})")
+            if not ok:
+                failed.append(f"{name} rank {r}: state {b} is not the "
+                              "specs'")
+    ratio = local / full
+    log(f"[mesh] 13a: a rank's parameters and moments at fsdp 2 x seq 2 "
+        f"are {out['13a_fsdp2_seq2'][0]['params'] / out['12b_seq2'][0]['params']:.4f}"
+        f" of 12b_seq2's (the specs give {ratio:.4f}: every leaf but the "
+        f"[1, L, d] position table halves)")
+    out["13a_ratio"], out["13a_ratio_want"] = (
+        out["13a_fsdp2_seq2"][0]["params"] / out["12b_seq2"][0]["params"],
+        ratio)
+    # 13b: ViT-Tiny's zero state against the DDP optimizer's, and the
+    # records' comm_bytes against zero_comm_bytes.
+    vit = get_model("vit_tiny", num_classes=100, side=32, in_channels=3)
+    named = [(n, tuple(p.shape)) for n, p in vit.named_parameters()]
+    order = jax_leaf_order([n for n, _ in named], [s for _, s in named])
+    layout = zero.build_layout([named[i][1] for i in order], 2,
+                               bucket_mb=4.0)
+    ddp = zero.opt_bytes_per_device(make_optimizer(
+        vit.parameters(), "sgd", lr=0.01, momentum=0.9))
+    # SGD momentum's trace and the bf16 gather's fp32 master, 1/2 each.
+    expect = 2 * (layout.padded_total // 2) * 4
+    st = _rank_state(tmp, "13b_vit_zero", 2)
+    out["13b_vit_zero"] = st
+    for r, b in enumerate(st):
+        log(f"[mesh] 13b rank {r}: at rest {b['optimizer']} bytes of "
+            f"optimizer state (momentum and fp32 master shards; the layout "
+            f"gives {expect}), {b['optimizer'] / ddp:.4f} of the DDP "
+            f"optimizer's {ddp} (momentum alone, whole)")
+        if b["optimizer"] != expect:
+            failed.append(f"13b rank {r}: optimizer state {b['optimizer']} "
+                          f"bytes, not {expect}")
+    want_comm = zero.zero_comm_bytes(layout, 2, gather_dtype="bf16")["total"]
+    with open(f"{tmp}/13b_vit_zero.jsonl") as f:
+        comm = {r["comm_bytes"] for r in map(json.loads, f)
+                if r.get("kind") == "step"}
+    out["13b_comm_bytes"], out["13b_comm_bytes_want"] = sorted(comm), want_comm
+    log(f"[mesh] 13b: comm_bytes in the step records {sorted(comm)}, "
+        f"zero_comm_bytes gives {want_comm} a step (reduce-scatter fp32, "
+        f"all-gather bf16)")
+    if comm != {want_comm}:
+        failed.append(f"13b: comm_bytes {sorted(comm)} != {want_comm}")
+    return out, failed
+
+
 def check_mesh(torch, card) -> dict:
     """Phase 12, the sequence models across ranks: 12a the long-context
     model at README's command (--mesh_seq 4, ring and Ulysses), 12b the
@@ -8475,6 +8830,9 @@ def check_mesh(torch, card) -> dict:
                 failed += bad
             lap(f"the runs ({len(commands)} at once, 12d's world beside "
                 "them)")
+            readings["phase13"], bad = check_fsdp_zero_runs(
+                torch, tmp, readings["runs"])
+            failed += bad
             readings["flash"] = check_and_time_flash(torch, HOP12A_SHAPE,
                                                      "hop12a", seed=121)
             readings["flash"].update(check_and_time_flash(
@@ -8488,9 +8846,10 @@ def check_mesh(torch, card) -> dict:
                                                            spawned)
         failed += bad
         lap("12d spawned")
-    log(f"[mesh] phase 12: {time.perf_counter() - t0:.1f} s on {card}")
+    log(f"[mesh] phases 12 and 13: {time.perf_counter() - t0:.1f} s on "
+        f"{card}")
     if failed:
-        raise AssertionError(f"phase 12: {failed}")
+        raise AssertionError(f"phases 12 and 13: {failed}")
     return readings
 
 
@@ -9057,7 +9416,7 @@ def main() -> int:
     fault = timed("phase 9", check_fault_tolerance, torch, card)
     imagenet = timed("phase 10", check_imagenet, torch, card)
     lc = timed("phase 11", check_long_context, torch, card)
-    mesh = timed("phase 12", check_mesh, torch, card)
+    mesh = timed("phases 12 and 13", check_mesh, torch, card)
     log(f"[main] all phases and the build: {time.perf_counter() - t0:.1f} s")
 
     replaces = {"flash_decode_fp32": "ddp_tpu/ops/decode.py:260",

@@ -224,6 +224,30 @@ def cnn_params_to_jax(state) -> dict:
 # ``running_mean``/``running_var``.
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
+# SimpleCNN's modules by their JAX names (:func:`cnn_params_from_jax`).
+_CNN_MODULES = {"net.0": "conv1", "net.2": "conv2", "fl": "fc"}
+
+
+def jax_leaf_path(name: str, ndim: int) -> tuple[str, ...]:
+    """The JAX tree path of the port's parameter ``name`` (``ndim``
+    dims), as the maps of this module carry it: a Dense or Conv
+    ``weight`` is the ``kernel``, a norm's the ``scale``."""
+    *mod, leaf = name.split(".")
+    if not mod:  # embed, pos_embed, cls_token
+        return (leaf,)
+    joined = ".".join(mod)
+    if joined in _CNN_MODULES:
+        mod = [_CNN_MODULES[joined]]
+    if leaf == "weight":
+        leaf = "kernel" if ndim in (2, 4) else "scale"
+    return (*mod, leaf)
+
+
+def jax_leaf_order(names, shapes) -> list[int]:
+    """The indices of ``names`` (with their ``shapes``) in the order JAX
+    flattens their tree: dict keys sorted at every level."""
+    return sorted(range(len(names)),
+                  key=lambda i: jax_leaf_path(names[i], len(shapes[i])))
 
 
 def _flax_from_jax(params, batch_stats=None) -> dict[str, np.ndarray]:

@@ -62,6 +62,11 @@ from ddp_tpu_torch.parallel.ddp import (
     global_norm,
 )
 from ddp_tpu_torch.parallel.ring import sequence_sharded_attention
+from ddp_tpu_torch.parallel.seq_fsdp import (
+    gather_fsdp,
+    has_fsdp,
+    reduce_gradients,
+)
 from ddp_tpu_torch.parallel.tp import megatron_f, row_parallel
 from ddp_tpu_torch.runtime.dist import all_reduce_sum
 
@@ -322,7 +327,7 @@ class CausalLM(nn.Module):
 
     def train_forward(self, tokens, *, compute_dtype=torch.float32,
                       block_fn=None, return_aux: bool = False, mesh=None,
-                      strategy: str = "ring"):
+                      strategy: str = "ring", params=None):
         """The training forward → [B, T, vocab] fp32 logits; with
         ``return_aux``, ``(logits, aux)``: the mean of the routed blocks'
         load-balance losses (``lm.py:377-380``; 0 for a dense model).
@@ -343,12 +348,15 @@ class CausalLM(nn.Module):
         shards): ``tokens`` is this rank's [B, T/n] column slice, the
         attention runs over the ``seq`` group, the blocks over ``model``
         (Megatron f/g) and the routed MLPs over ``expert``; the logits
-        are this shard's.
+        are this shard's. ``params``: ``{name: tensor}`` to run in place of
+        the parameters (FSDP's gathered leaves, ``parallel/seq_fsdp``).
         """
         s = self.spec
+        named = (params.items() if params is not None
+                 else self.named_parameters())
         p = {
             name: w if w.dtype == compute_dtype else w.to(compute_dtype)
-            for name, w in self.named_parameters()
+            for name, w in named
         }
         auxes = []
 
@@ -484,7 +492,15 @@ def make_lm_train_step(
     ``reduce`` unused): ``tokens`` is this data replica's rows at full
     length, the step takes its ``seq`` columns, and one reduction
     (:func:`_reduce_gradients`) averages over the replicas; the grad
-    norm is the full model's (``tp.ShardLayout.norm``).
+    norm is the full model's (``tp.ShardLayout.norm``). Leaves sharded
+    over ``fsdp`` are gathered for the forward, their gradients
+    reduce-scattered by the gather's backward (``parallel/seq_fsdp``).
+
+    ``optimizer`` a ``parallel/zero.ZeroOptimizer`` (``--parallel
+    zero``, on a mesh): the gradients are summed over ``seq``, reduce-
+    scattered over ``data`` bucket by bucket and updated there
+    (``zero_gspmd_update``); the loss and count are summed over data and
+    ``seq``; the grad norm is the zero update's.
     """
     params = [p for p in model.parameters() if p.requires_grad]
     if not params:
@@ -497,6 +513,8 @@ def make_lm_train_step(
     names = [n for n, p in model.named_parameters() if p.requires_grad]
     norm = global_norm if layout is None else layout.norm
     replicas = world if mesh is None else mesh.data_size
+    fsdp = has_fsdp(layout)
+    zero = getattr(optimizer, "scatter_grads", None) is not None
 
     def objective(rows):
         """This rank's loss (its shard's summed next-token loss over
@@ -506,7 +524,8 @@ def make_lm_train_step(
         cols = rows if mesh is None else mesh.seq_shard(rows)
         logits, aux = model.train_forward(
             cols, compute_dtype=compute_dtype, block_fn=block_fn,
-            return_aux=True, mesh=mesh, strategy=strategy)
+            return_aux=True, mesh=mesh, strategy=strategy,
+            params=gather_fsdp(model, layout, mesh) if fsdp else None)
         targets, mask = shard_targets(cols, seq)
         per_tok = _per_token_nll(logits.float(), targets, label_smoothing)
         loss = (per_tok * mask).sum() / (rows.shape[0] * (rows.shape[1] - 1))
@@ -533,6 +552,14 @@ def make_lm_train_step(
                 p.grad.div_(k)
         extras = [torch.as_tensor(loss / k).float(),
                   torch.as_tensor(correct).float()]
+        if zero:
+            shards = optimizer.scatter_grads(pre_sum=seq)
+            loss, correct = mesh.comm("data", "seq").all_reduce_(
+                torch.stack(extras))
+            grad_norm = optimizer.apply(shards, 1.0 / replicas)
+            return StepMetrics(loss=loss / replicas,
+                               accuracy=correct / (B * replicas * (T - 1)),
+                               grad_norm=grad_norm)
         if mesh is not None:
             loss, correct = _reduce_gradients(params, names, layout, mesh,
                                               extras)
@@ -560,14 +587,18 @@ def make_lm_eval_step(model: CausalLM, *, compute_dtype=torch.float32,
     :515), and the sums are this replica's (the caller sums them over the
     data axes)."""
     seq = None if mesh is None else mesh.comm("seq")
+    layout = getattr(model, "shard_layout", None)
+    fsdp = has_fsdp(layout)
 
     @torch.no_grad()
     def step(tokens, weights):
         T_global = tokens.shape[1]
         if mesh is not None:
             tokens = mesh.seq_shard(tokens)
-        logits = model.train_forward(tokens, compute_dtype=compute_dtype,
-                                     mesh=mesh, strategy=strategy)
+        logits = model.train_forward(
+            tokens, compute_dtype=compute_dtype, mesh=mesh,
+            strategy=strategy,
+            params=gather_fsdp(model, layout, mesh) if fsdp else None)
         targets, mask = shard_targets(tokens, seq)
         logits32 = logits.float()
         per_tok = _per_token_nll(logits32, targets, 0.0)
@@ -604,26 +635,16 @@ def shard_targets(tokens, seq):
 
 
 def _reduce_gradients(params, names, layout, mesh, extras):
-    """The step's reduction → the reduced ``extras``: every gradient
-    summed over ``seq`` and averaged over the data replicas (data ×
-    expert), never reduced over ``model`` (f/g made the replicated
-    leaves' gradients whole there). An expert leaf's gradient is summed
-    over data and ``seq`` only: the all-to-all's backward already brought
-    every ``expert`` member's share to its owner. ``extras`` (the loss
-    and, last, the count) ride the first bucket; all but the count are
+    """The step's reduction → the reduced ``extras``
+    (``parallel/seq_fsdp.reduce_gradients``): every gradient summed over
+    ``seq`` and the data axes and averaged over the data replicas (data ×
+    fsdp × expert), never reduced over ``model`` (f/g made the
+    replicated leaves' gradients whole there), and not over ``expert``
+    or ``fsdp`` where the expert all-to-all or the FSDP gather's
+    reduce-scatter already summed it. ``extras`` (the loss and, last,
+    the count) ride the replicated leaves' bucket; all but the count are
     divided too."""
-    specs = layout.specs if layout is not None else {}
-    expert = [p for n, p in zip(names, params)
-              if specs.get(n, (0, ""))[1] == "expert"]
-    dense = [p for n, p in zip(names, params)
-             if specs.get(n, (0, ""))[1] != "expert"]
-    dp = mesh.data_size
-    _, rest = bucket_all_reduce(
-        dense, extras, dp, mesh.comm("data", "expert", "seq").all_reduce_)
-    if expert:
-        bucket_all_reduce(expert, [expert[0].new_zeros(())], dp,
-                          mesh.comm("data", "seq").all_reduce_)
-    return rest
+    return reduce_gradients(params, names, layout, mesh, extras)
 
 
 def init_lm_state(spec: LMSpec, *, seed: int = 0) -> dict[str, np.ndarray]:

@@ -53,8 +53,14 @@ from torch import nn
 from ddp_tpu_torch.models.remat import remat_block
 from ddp_tpu_torch.models.vit import EncoderBlock, _dense, _layer_norm
 from ddp_tpu_torch.parallel.common import check_accum_divisible, precision, xent
-from ddp_tpu_torch.parallel.ddp import StepMetrics, bucket_all_reduce
+from ddp_tpu_torch.parallel.ddp import StepMetrics
 from ddp_tpu_torch.parallel.ring import sequence_sharded_attention
+from ddp_tpu_torch.parallel.seq_fsdp import (
+    gather_fsdp,
+    has_fsdp,
+    reduce_gradients,
+    swapped,
+)
 from ddp_tpu_torch.parallel.tp import psum, shard_module
 
 
@@ -205,17 +211,20 @@ def make_seq_parallel_train_step(state, mesh, *,
 
     Each rank's loss is the replica's mean cross-entropy ×
     :func:`seq_loss_scale`; its gradients and the loss and count go
-    through one bucket summed over (data, expert, seq) and divided by the
-    data replicas — never over ``model``, whose replicated leaves f/g
-    made whole. ``grad_accum_steps=k``: strided microbatches (rows
-    ``i::k``). Metrics: the loss, the accuracy and the global norm of the
-    full model's gradient."""
+    through one bucket summed over the data axes and ``seq`` and divided
+    by the data replicas — never over ``model``, whose replicated leaves
+    f/g made whole, and not over ``fsdp`` for the leaves the FSDP
+    gather's reduce-scatter summed (``parallel/seq_fsdp``; the forward
+    and backward run on the gathered leaves). ``grad_accum_steps=k``:
+    strided microbatches (rows ``i::k``). Metrics: the loss, the
+    accuracy and the global norm of the full model's gradient."""
     model, optimizer = state.model, state.optimizer
-    params = [p for p in model.parameters() if p.requires_grad]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    names, params = [n for n, _ in named], [p for _, p in named]
     layout = model.shard_layout
     n_seq = mesh.shape["seq"]
     scale = seq_loss_scale(n_seq)
-    reduce = mesh.comm("data", "expert", "seq").all_reduce_
+    fsdp = has_fsdp(layout)
 
     def loss_and_correct(x, labels):
         x = mesh.seq_shard(x).to(compute_dtype)
@@ -234,12 +243,13 @@ def make_seq_parallel_train_step(state, mesh, *,
         loss = correct = 0.0
         with precision(compute_dtype):
             for i in range(k):
-                l_i, c_i = loss_and_correct(x[i::k], labels[i::k])
-                l_i.backward()
+                with swapped(model, gather_fsdp(model, layout, mesh)
+                             if fsdp else {}):
+                    l_i, c_i = loss_and_correct(x[i::k], labels[i::k])
+                    l_i.backward()
                 loss, correct = loss + l_i.detach(), correct + c_i
-        _, rest = bucket_all_reduce(
-            params, [loss / k, correct * scale], mesh.data_size, reduce,
-            accum=k)
+        rest = reduce_gradients(params, names, layout, mesh,
+                                [loss / k, correct * scale], accum=k)
         grad_norm = layout.norm([p.grad for p in params])
         optimizer.step()
         state.step += 1
@@ -256,12 +266,15 @@ def make_seq_parallel_eval_step(model: LongContextTransformer, mesh, *,
     data replica's rows (``make_seq_parallel_eval_step`` :381), summed
     over the data axes (every ``seq`` and ``model`` rank of a replica
     computes the same logits)."""
-    reduce = mesh.comm("data", "expert").all_reduce_
+    reduce = mesh.comm("data", "fsdp", "expert").all_reduce_
+    layout = model.shard_layout
+    fsdp = has_fsdp(layout)
 
     @torch.no_grad()
     def step(x, labels, weights):
         model.eval()
-        with precision(compute_dtype):
+        with precision(compute_dtype), swapped(
+                model, gather_fsdp(model, layout, mesh) if fsdp else {}):
             logits = model(mesh.seq_shard(x).to(compute_dtype),
                            compute_dtype=compute_dtype).float()
         w = weights.float()

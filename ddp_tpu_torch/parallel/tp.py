@@ -16,7 +16,13 @@ Layout per block (``tp.py:9-31``), ``model`` axis of size ``tp``:
 - MoE expert weights ``moe.{wi,bi,wo,bo}`` shard their leading (expert)
   dim over ``expert``; the router stays replicated;
 - everything else (LayerNorms, the embeddings, the tied head, the
-  position table) is replicated.
+  position table) is replicated over ``model`` and ``expert``;
+- ``fsdp`` (``parallel/seq_fsdp``) shards the other dim of a TP or EP
+  kernel where it divides, and (JAX's) dim 0 of every other leaf where
+  it divides: JAX picks its dims on flax's [in, out] kernels, and
+  :func:`jax_dim` maps each pick through the port's [out, in] weights,
+  so a rank holds the bytes of the JAX device of its index and a leaf
+  JAX leaves replicated stays replicated (the [1, L, d] position table).
 
 The JAX package gets the gradient reductions from the ``shard_map``
 transpose (``tp.py:30-40``); eager autograd writes them out. Megatron's
@@ -27,7 +33,9 @@ replicated leaf's gradient is already the same on every ``model`` member
 and is never reduced over ``model``. :func:`psum` (all-reduce forward and
 backward, ``lax.psum``'s transpose) is the long-context model's pool over
 ``seq``; :func:`all_to_all` is Ulysses' and the expert layer's exchange,
-its backward the inverse exchange.
+its backward the inverse exchange. :func:`gather_sharded` is FSDP's
+all-gather of each ``fsdp`` dim in fp32, its backward the fp32
+reduce-scatter (``lax.all_gather``'s transpose).
 
 :func:`shard_params` slices a full state into one rank's shard, and
 :func:`gather_params` all-gathers a rank's shards back into the full
@@ -40,10 +48,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-# Name suffixes → (torch dim, mesh axis). The names are the port's
-# state-dict names (``models/lm``, ``models/vit``, ``models/moe``).
-_COLUMN = ("attn.qkv.weight", "attn.qkv.bias", "mlp1.weight", "mlp1.bias")
-_ROW = ("attn.proj.weight", "mlp2.weight")
+# Name suffixes of the leaves TP and EP shard, in the port's state-dict
+# names (``models/lm``, ``models/vit``, ``models/moe``).
+_COLUMN_WEIGHTS = ("attn.qkv.weight", "mlp1.weight")
+_COLUMN_BIASES = ("attn.qkv.bias", "mlp1.bias")
+_ROW_WEIGHTS = ("attn.proj.weight", "mlp2.weight")
 _EXPERT = ("moe.wi", "moe.bi", "moe.wo", "moe.bo")
 
 
@@ -55,6 +64,10 @@ def ep_size(mesh) -> int:
     return 1 if mesh is None else int(mesh.shape.get("expert", 1))
 
 
+def fsdp_size(mesh) -> int:
+    return 1 if mesh is None else int(mesh.shape.get("fsdp", 1))
+
+
 def _check_divides(path: str, dim: int, axis: int) -> None:
     if dim % axis:
         raise ValueError(
@@ -64,53 +77,90 @@ def _check_divides(path: str, dim: int, axis: int) -> None:
         )
 
 
-def seq_param_specs(shapes: dict, mesh) -> dict[str, tuple[int, str]]:
-    """``{name: (dim, axis)}`` for every sharded leaf of a state of
-    ``shapes`` (name → shape) on ``mesh`` (``tp.py:133-187`` at an
-    ``fsdp`` of 1); a leaf not named is replicated. Raises for a dim the
-    axis does not divide, with JAX's message."""
-    tp, ep = tp_size(mesh), ep_size(mesh)
+def jax_dim(name: str, ndim: int, dim: int) -> int:
+    """The dim of the JAX leaf that dim ``dim`` of the port's ``name`` is
+    (and back): a Dense ``weight`` [out, in] is the kernel [in, out]
+    transposed, every other leaf has JAX's layout."""
+    return 1 - dim if name.endswith(".weight") and ndim == 2 else dim
+
+
+def _jax_spec(name: str, shape: tuple, tp: int, ep: int, n: int) -> tuple:
+    """``tp.py:133-187``'s PartitionSpec of the JAX leaf of ``shape`` (the
+    JAX layout) named ``name``: an axis or None for each dim."""
+    def fsdp_if(d):
+        return "fsdp" if n > 1 and shape[d] > 0 and shape[d] % n == 0 \
+            else None
+
+    if ep > 1 and name.endswith(_EXPERT):
+        _check_divides(name, shape[0], ep)
+        # wi [E, d, mlp] / wo [E, mlp, d]: fsdp rides dim 1 where it
+        # divides; biases [E, 1, f] shard the expert dim only.
+        if len(shape) > 1 and shape[1] > 1 and fsdp_if(1):
+            return ("expert", "fsdp")
+        return ("expert",)
+    if tp > 1:
+        if name.endswith(_COLUMN_WEIGHTS):
+            _check_divides(name, shape[1], tp)
+            return (fsdp_if(0), "model")
+        if name.endswith(_COLUMN_BIASES):
+            _check_divides(name, shape[0], tp)
+            return ("model",)
+        if name.endswith(_ROW_WEIGHTS):
+            _check_divides(name, shape[0], tp)
+            return ("model", fsdp_if(1))
+    return (fsdp_if(0),) if shape else ()
+
+
+def seq_param_specs(shapes: dict, mesh) -> dict[str, tuple]:
+    """``{name: ((dim, axis), ...)}`` for every sharded leaf of a state
+    of ``shapes`` (name → FULL shape) on ``mesh`` (``tp.py:133-187``); a
+    leaf not named is replicated. JAX's rule runs on the JAX layout of
+    each leaf and its dims map back through :func:`jax_dim`, so a rank
+    holds the bytes of the JAX device of its index: TP's ``model`` and
+    EP's ``expert`` dims, ``fsdp`` on the other kernel dim where it
+    divides, and ``fsdp`` on (JAX's) dim 0 for every other leaf where it
+    divides. Raises for a dim the axis does not divide, with JAX's
+    message."""
+    tp, ep, n = tp_size(mesh), ep_size(mesh), fsdp_size(mesh)
     out = {}
     for name, shape in shapes.items():
         shape = tuple(shape)
-        if ep > 1 and name.endswith(_EXPERT):
-            _check_divides(name, shape[0], ep)
-            out[name] = (0, "expert")
-        elif tp > 1 and name.endswith(_COLUMN):
-            _check_divides(name, shape[0], tp)
-            out[name] = (0, "model")
-        elif tp > 1 and name.endswith(_ROW):
-            _check_divides(name, shape[1], tp)
-            out[name] = (1, "model")
+        nd = len(shape)
+        linear = jax_dim(name, nd, 0) == 1
+        jshape = shape[::-1] if linear else shape
+        pairs = tuple((jax_dim(name, nd, d), axis) for d, axis in
+                      enumerate(_jax_spec(name, jshape, tp, ep, n)) if axis)
+        if pairs:
+            out[name] = tuple(sorted(pairs))
     return out
 
 
 def shard_params(full: dict, mesh, rank: int | None = None) -> dict:
     """Rank ``rank``'s (default: the mesh's) shard of a full state:
-    every sharded leaf sliced at its axis coordinate, contiguous; the
+    every sharded leaf sliced at its axes' coordinates, contiguous; the
     replicated leaves as they are."""
     coords = mesh.coords if rank is None else mesh.coords_of(rank)
     specs = seq_param_specs({k: tuple(v.shape) for k, v in full.items()},
                             mesh)
     out = {}
     for k, v in full.items():
-        if k in specs:
-            dim, axis = specs[k]
-            v = torch.as_tensor(v)
-            v = v.chunk(mesh.shape[axis], dim)[coords[axis]].contiguous()
-        out[k] = v
+        for dim, axis in specs.get(k, ()):
+            v = torch.as_tensor(v).chunk(mesh.shape[axis], dim)[coords[axis]]
+        out[k] = v.contiguous() if k in specs else v
     return out
 
 
 def gather_params(local: dict, mesh, specs: dict) -> dict:
     """The full state from every rank's ``local`` shards: each sharded
-    leaf all-gathered over its axis in fp32 (a collective: every rank
+    leaf all-gathered over its axes in fp32 (a collective: every rank
     calls it), cast back to its dtype; the others as they are."""
     out = {}
     for k, v in local.items():
         if k in specs:
-            dim, axis = specs[k]
-            v = mesh.comm(axis).all_gather(v.detach().float(), dim).to(v.dtype)
+            full = v.detach().float()
+            for dim, axis in specs[k]:
+                full = mesh.comm(axis).all_gather(full, dim)
+            v = full.to(v.dtype)
         out[k] = v
     return out
 
@@ -123,6 +173,10 @@ class ShardLayout:
     def __init__(self, full_shapes: dict, names: list[str], mesh):
         self.mesh, self.names = mesh, list(names)
         self.specs = seq_param_specs(full_shapes, mesh)
+
+    def axes(self, name: str) -> frozenset:
+        """The axes leaf ``name`` is sharded over."""
+        return frozenset(axis for _, axis in self.specs.get(name, ()))
 
     def gather(self, local: dict) -> dict:
         return gather_params(local, self.mesh, self.specs)
@@ -149,19 +203,19 @@ class ShardLayout:
         return out
 
     def norm(self, tensors) -> torch.Tensor:
-        """√Σ‖g‖² of the FULL tensors from their local shards: each
-        sharded leaf's squares summed over its axis, a replicated leaf's
-        counted once (two all-reduces, one an axis)."""
-        zero = tensors[0].new_zeros((), dtype=torch.float32)
-        parts = {None: zero.clone(), "model": zero.clone(),
-                 "expert": zero.clone()}
+        """√Σ‖g‖² of the FULL tensors from their local shards: the
+        squares of the leaves sharded over the same axes summed, then
+        over each of those axes; a replicated leaf's counted once."""
+        parts = {}
         for name, t in zip(self.names, tensors):
-            axis = self.specs.get(name, (None, None))[1]
-            parts[axis] = parts[axis] + t.float().pow(2).sum()
-        total = parts[None]
-        for axis in ("model", "expert"):
-            if self.mesh.shape[axis] > 1:
-                total = total + self.mesh.comm(axis).all_reduce_(parts[axis])
+            axes = self.axes(name)
+            sq = t.float().pow(2).sum()
+            parts[axes] = parts[axes] + sq if axes in parts else sq
+        total = None
+        for axes, part in parts.items():
+            for axis in sorted(axes):
+                part = self.mesh.comm(axis).all_reduce_(part)
+            total = part if total is None else total + part
         return torch.sqrt(total)
 
 
@@ -211,6 +265,38 @@ class _AllToAll(torch.autograd.Function):
         comm, split_dim, concat_dim = ctx.args
         return comm.all_to_all(g.contiguous(), concat_dim, split_dim), \
             None, None, None
+
+
+class _GatherDim(torch.autograd.Function):
+    """All-gather ``x`` along ``dim`` over ``comm``; the backward is the
+    reduce-scatter of the cotangent: each member keeps its chunk of the
+    sum."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.args = comm, dim
+        return comm.all_gather(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, dim = ctx.args
+        moved = g.movedim(dim, 0).contiguous()
+        shard = comm.reduce_scatter(moved.reshape(-1))
+        return (shard.reshape(moved.shape[0] // comm.size, *moved.shape[1:])
+                .movedim(0, dim)), None, None
+
+
+def gather_sharded(x, pairs, mesh):
+    """Inside a step: leaf ``x`` (a rank's shard, ``pairs`` its
+    :func:`seq_param_specs` entry) with every ``fsdp`` dim all-gathered
+    in fp32, before any cast to the compute dtype, so that its transpose
+    reduces the gradient in fp32 (``tp.py:204-222``); ``model`` and
+    ``expert`` dims stay local: they ARE the tensor and expert
+    parallelism."""
+    for dim, axis in pairs:
+        if axis == "fsdp":
+            x = _GatherDim.apply(x.float(), mesh.comm("fsdp"), dim)
+    return x
 
 
 def megatron_f(x, comm):

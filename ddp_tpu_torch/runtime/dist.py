@@ -13,7 +13,10 @@ communicators here.
 
 A communicator is one axis slice's group seen from one rank: ``size``,
 ``rank`` (within the group), ``all_reduce_`` (a sum in place),
-``all_gather(t, dim)``, ``all_to_all(t, split_dim, concat_dim)`` (chunk
+``all_gather(t, dim)``, ``reduce_scatter(t)`` (the sum over the group of
+a flat tensor, of which member ``r`` keeps block ``r``: JAX's
+``lax.psum_scatter(tiled=True)``; ``async_op=True`` returns a handle
+whose ``wait()`` gives it), ``all_to_all(t, split_dim, concat_dim)`` (chunk
 ``i`` of ``split_dim`` goes to member ``i``; what member ``j`` sent lands
 ``j``-th along ``concat_dim``: ``lax.all_to_all(tiled=True)``) and
 ``shift(t, offset)`` (send to member ``rank + offset``, receive from
@@ -23,7 +26,11 @@ A communicator is one axis slice's group seen from one rank: ``size``,
 process, for the tests. Under gloo a device tensor is staged through a
 pinned host buffer for every collective (gloo's point-to-point and
 all-to-all on CUDA tensors are not relied on); under nccl device tensors
-go as they are.
+go as they are. The reduce-scatter is nccl's ``reduce_scatter_tensor``;
+under gloo it is written from ``all_to_all_single`` (member ``j`` sends
+block ``r`` to member ``r``, which sums the ``n`` blocks in member order:
+the bytes of a ring reduce-scatter, (n−1)/n of the tensor, and the same
+bits on every backend), whatever gloo's own reduce-scatter takes.
 
 Multi-host runs (``ddp_tpu/runtime/dist.py:94-170``) start each rank by
 hand with ``coordinator_address`` (the rendezvous ``host:port``, which
@@ -205,6 +212,15 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def world_comm(ctx: DistContext | None):
+    """The communicator of the whole running world (a :class:`LocalComm`
+    alone or without a process group)."""
+    if ctx is None or ctx.num_processes == 1:
+        return LocalComm()
+    return DistComm(range(ctx.num_processes), tdist.group.WORLD,
+                    ctx.process_id)
+
+
 class LocalComm:
     """The communicator of a group of one rank: every collective is the
     identity (a copy where the group would return a new tensor)."""
@@ -217,12 +233,49 @@ class LocalComm:
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         return t.clone()
 
+    def reduce_scatter(self, t: torch.Tensor, *, async_op: bool = False):
+        return _done(t.clone(), async_op)
+
     def all_to_all(self, t: torch.Tensor, split_dim: int,
                    concat_dim: int) -> torch.Tensor:
         return t.clone()
 
     def shift(self, t: torch.Tensor, offset: int = 1) -> torch.Tensor:
         return t.clone()
+
+
+class _Done:
+    """The handle of a collective that has already completed."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def wait(self):
+        return self.value
+
+
+def _done(value, async_op: bool):
+    return _Done(value) if async_op else value
+
+
+class _Pending:
+    """The handle of an asynchronous collective: ``wait()`` waits for
+    ``work`` and returns ``finish()``."""
+
+    def __init__(self, work, finish):
+        self.work, self.finish = work, finish
+
+    def wait(self):
+        self.work.wait()
+        return self.finish()
+
+
+def _blocks(t: torch.Tensor, n: int) -> torch.Tensor:
+    """A flat tensor as [n, len/n], row ``r`` member ``r``'s block."""
+    if t.dim() != 1 or t.numel() % n:
+        raise ValueError(f"reduce_scatter: a flat tensor whose length "
+                         f"divides by {n}, got {tuple(t.shape)}")
+    return t.reshape(n, -1)
 
 
 def _split_for_all_to_all(t: torch.Tensor, n: int, split_dim: int):
@@ -262,6 +315,30 @@ class DistComm:
         parts = [torch.empty_like(x) for _ in range(self.size)]
         tdist.all_gather(parts, x, group=self.group)
         return torch.cat(parts, dim).to(t.device)
+
+    def reduce_scatter(self, t: torch.Tensor, *, async_op: bool = False):
+        """This member's block of the sum of ``t`` (flat, its length a
+        multiple of the group) over the group; a handle with
+        ``async_op``."""
+        blocks = _blocks(t, self.size)
+        if not self.stage:  # nccl
+            out = torch.empty_like(blocks[0])
+            work = tdist.reduce_scatter_tensor(out, t.contiguous(),
+                                               group=self.group,
+                                               async_op=async_op)
+            return _Pending(work, lambda: out) if async_op else out
+        x = self._out(blocks)
+        y = torch.empty_like(x)  # row j: member j's block of mine
+        work = tdist.all_to_all_single(y, x, group=self.group,
+                                       async_op=async_op)
+
+        def finish():
+            acc = y[0].clone()
+            for j in range(1, self.size):
+                acc += y[j]
+            return acc.to(t.device)
+
+        return _Pending(work, finish) if async_op else finish()
 
     def all_to_all(self, t: torch.Tensor, split_dim: int,
                    concat_dim: int) -> torch.Tensor:
@@ -320,6 +397,16 @@ class ThreadComm:
 
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         return self._exchange(t.clone(), lambda slots: torch.cat(slots, dim))
+
+    def reduce_scatter(self, t: torch.Tensor, *, async_op: bool = False):
+        def mine(slots):
+            acc = slots[0][self.rank].clone()
+            for other in slots[1:]:
+                acc += other[self.rank]
+            return acc
+
+        return _done(self._exchange(_blocks(t, self.size).clone(), mine),
+                     async_op)
 
     def all_to_all(self, t: torch.Tensor, split_dim: int,
                    concat_dim: int) -> torch.Tensor:

@@ -8,11 +8,13 @@ sits at the coordinates of ``r`` in the mesh's shape, axes in
 placement ``make_mesh``'s reshape gives on CPU devices (``mesh.py:183``),
 so a rank and the JAX device of the same index hold the same shard.
 
-The axes (``mesh.py:10-39``): ``data`` shards the batch; ``expert``
-shards MoE expert weights and the batch too (a data axis for the dense
-layers); ``seq`` shards the tokens (ring or Ulysses attention);
-``model`` is Megatron tensor parallelism. ``fsdp``, ``pipe`` and ``dcn``
-are parsed and refused above 1, naming the ROADMAP item that brings them.
+The axes (``mesh.py:10-39``): ``data`` shards the batch; ``fsdp``
+shards the sequence models' parameters and moments (``parallel/seq_fsdp``)
+and the batch too; ``expert`` shards MoE expert weights and the batch too
+(a data axis for the dense layers); ``seq`` shards the tokens (ring or
+Ulysses attention); ``model`` is Megatron tensor parallelism. ``pipe``
+and ``dcn`` are parsed and refused above 1, naming the ROADMAP item that
+brings them.
 
 :class:`Mesh` answers where a rank sits and holds one communicator
 (``runtime/dist``) for each group of axes a step reduces over: the
@@ -36,16 +38,19 @@ import numpy as np
 AXIS_ORDER = ("dcn", "pipe", "data", "fsdp", "expert", "seq", "model")
 # Axes the port does not shard over yet, with the ROADMAP item that
 # brings each.
-REFUSED = {"fsdp": "A2.5-fsdp (FSDP with ZeRO)", "pipe": "A4 (the pipeline)",
-           "dcn": "A4 (multi-slice, with MPMD)"}
-# The groups of axes the sequence models' steps reduce over: each axis
-# alone (the ring, Megatron's f/g, the expert all-to-all, a sharded
-# leaf's gather), the data axes (evaluation sums), the data axes with
-# ``seq`` (replicated leaves' gradients and the step's metrics), and
-# ``data`` with ``seq`` (the expert leaves' gradients: the all-to-all
-# already summed them over ``expert``).
-GROUPS = (("seq",), ("model",), ("expert",), ("data", "expert"),
-          ("data", "expert", "seq"), ("data", "seq"))
+REFUSED = {"pipe": "A4 (the pipeline)", "dcn": "A4 (multi-slice, with MPMD)"}
+# The groups of axes the steps reduce over: each axis alone (the ring,
+# Megatron's f/g, the expert all-to-all, a sharded leaf's gather and
+# reduce-scatter, ZeRO's bucket reduce-scatter over ``data``), the data
+# axes (evaluation sums), the data axes with ``seq`` (replicated leaves'
+# gradients and the step's metrics), and those less ``fsdp`` or
+# ``expert`` (the gradients of leaves whose reduce-scatter or all-to-all
+# already summed them over that axis). A group's communicator is found
+# by its axes of size above one.
+GROUPS = (("seq",), ("model",), ("expert",), ("fsdp",), ("data",),
+          ("data", "fsdp", "expert"), ("data", "fsdp", "expert", "seq"),
+          ("data", "expert", "seq"), ("data", "fsdp", "seq"),
+          ("data", "seq"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +125,9 @@ class Mesh:
         self._comms = {}
         if comm_of is not None:
             for axes in GROUPS:
-                self._comms[frozenset(axes)] = comm_of(self.group_ranks(axes))
+                key = self._key(axes)
+                if key not in self._comms:
+                    self._comms[key] = comm_of(self.group_ranks(axes))
 
     def coords_of(self, rank: int) -> dict[str, int]:
         """Rank → {axis: index}, innermost axis fastest."""
@@ -143,10 +150,14 @@ class Mesh:
             out.append(self.rank_of({**base, **dict(zip(axes, idx))}))
         return out
 
+    def _key(self, axes) -> frozenset:
+        return frozenset(a for a in axes if self.shape[a] > 1)
+
     def comm(self, *axes: str):
         """The communicator of the group over ``axes`` (one of
-        :data:`GROUPS`, in any order)."""
-        return self._comms[frozenset(axes)]
+        :data:`GROUPS`, in any order, or one that equals one on this
+        mesh: the axes of size one do not count)."""
+        return self._comms[self._key(axes)]
 
     def seq_shard(self, x):
         """This rank's ``seq`` slice of dim 1 (the tokens) of ``x``."""
@@ -159,13 +170,15 @@ class Mesh:
 
     @property
     def data_size(self) -> int:
-        """Data replicas: the product of the data axes (data × expert)."""
+        """Data replicas: the product of the data axes (data × fsdp ×
+        expert)."""
         return math.prod(self.shape[a] for a in data_axes(self))
 
     @property
     def data_rank(self) -> int:
         """This rank's data replica, row-major over the data axes (the
-        order JAX's batch sharding ``P(("data", "expert"))`` takes)."""
+        order JAX's batch sharding ``P(("data", "fsdp", "expert"))``
+        takes)."""
         idx = 0
         for a in data_axes(self):
             idx = idx * self.shape[a] + self.coords[a]

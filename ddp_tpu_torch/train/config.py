@@ -1,11 +1,14 @@
 """Flags of ``python -m ddp_tpu_torch.train`` (the image-model,
 long-context and causal-LM subset of ``ddp_tpu/train/config.py``, under
 the JAX names and defaults), with the JAX trainer's guards on them. The
-sequence models shard over the mesh axes ``--mesh_seq``, ``--mesh_model``
-and ``--mesh_expert`` (``runtime/mesh``), the world being their product
-times the data axis; ``--mesh_fsdp`` above 1 is refused, naming ROADMAP
-A2.5-fsdp, and the image models' tensor parallelism (GSPMD) waits for
-A2.5-gspmd."""
+sequence models shard over the mesh axes ``--mesh_fsdp``, ``--mesh_seq``,
+``--mesh_model`` and ``--mesh_expert`` (``runtime/mesh``), the world
+being their product times the data axis. ``--parallel zero``
+(``parallel/zero``: ``--zero_bucket_mb``, ``--zero_gather_dtype``)
+shards the weight update over the data axis of the image models and of
+the causal LM (with ``--mesh_model``/``--mesh_seq`` too). The image
+models' ``--mesh_fsdp``, ``--mesh_model``, ``--mesh_expert`` and
+``--zero1`` ride JAX's GSPMD step and wait for ROADMAP A2.5-gspmd."""
 
 from __future__ import annotations
 
@@ -46,12 +49,21 @@ class TrainConfig:
     seq_strategy: str = "ring"  # the sequence models' attention: ring | ulysses
     # The sequence models' mesh (``runtime/mesh``): tokens sharded over
     # --mesh_seq ranks, Megatron tensor parallelism over --mesh_model,
-    # MoE experts over --mesh_expert (a data axis too); the data axis is
-    # the rest of the world. --mesh_fsdp is parsed and refused above 1.
+    # MoE experts over --mesh_expert (a data axis too), parameters and
+    # moments over --mesh_fsdp (a data axis too); the data axis is the
+    # rest of the world.
     mesh_seq: int = 1
     mesh_model: int = 1
     mesh_expert: int = 1
     mesh_fsdp: int = 1
+    # The weight-update strategy (``parallel/zero``): "zero" reduce-
+    # scatters the gradients in --zero_bucket_mb buckets, updates 1/N
+    # shards and all-gathers the parameters in --zero_gather_dtype (bf16
+    # over fp32 master shards). --zero1 (GSPMD) is parsed and refused.
+    parallel: str = "auto"  # auto | zero
+    zero_bucket_mb: float = 4.0
+    zero_gather_dtype: str = "fp32"  # fp32 | bf16
+    zero1: bool = False
     vocab_size: int = 256
     model_dim: int | None = None  # None → 64
     model_depth: int | None = None  # None → 2 (causal_lm), the model's own
@@ -148,6 +160,8 @@ class TrainConfig:
             "backend": ("nccl", "gloo"),
             "augment": ("none", "crop_flip", "flip", "shift"),
             "seq_strategy": ("ring", "ulysses"),
+            "parallel": ("auto", "zero"),
+            "zero_gather_dtype": ("fp32", "bf16"),
         }
         for f in dataclasses.fields(cls):
             kw = {"default": f.default}
@@ -196,13 +210,18 @@ class TrainConfig:
         if config.seq_len % config.mesh_seq:
             raise ValueError(f"--seq_len {config.seq_len} not divisible by "
                              f"--mesh_seq {config.mesh_seq}")
+        config._check_zero()
         config._check_mesh()
-        if config.model == "long_context" and (
-                config.fast_epoch or config.augment != "none"):
+        if config.model in SEQ_MODELS and (
+                config.zero1 or config.augment != "none"
+                or (config.fast_epoch and config.model != "causal_lm")):
+            # ``trainer.py:585-599``.
             raise ValueError(
-                "--model long_context composes with the data axis, "
-                "accumulation, label smoothing and bf16 — but not augment, "
-                "or --fast_epoch (causal_lm only)"
+                f"--model {config.model} composes with data/seq/fsdp/"
+                "model/expert mesh axes, accumulation, label smoothing "
+                "and bf16 — but not zero1 (use --mesh_fsdp), augment"
+                + ("" if config.model == "causal_lm"
+                   else ", or --fast_epoch (causal_lm only)")
             )
         if config.moe_experts and config.model != "causal_lm":
             raise ValueError(
@@ -252,8 +271,56 @@ class TrainConfig:
 
     @property
     def mesh_axes(self) -> int:
-        """The product of the non-data axes."""
-        return self.mesh_seq * self.mesh_model * self.mesh_expert
+        """The product of the axes other than ``data``."""
+        return (self.mesh_seq * self.mesh_model * self.mesh_expert
+                * self.mesh_fsdp)
+
+    @property
+    def zero(self) -> bool:
+        return self.parallel == "zero"
+
+    def _check_zero(self) -> None:
+        """``--parallel zero``'s guards (``trainer.py:497-530``), before
+        the mesh's, with JAX's messages."""
+        if not self.zero:
+            return
+        if self.zero1 or self.mesh_fsdp > 1 or self.mesh_expert > 1:
+            raise ValueError(
+                "--parallel zero shards the update over the data "
+                "axis; fsdp/expert meshes (and --zero1) already "
+                "shard optimizer state their own way — fsdp IS "
+                "ZeRO-3 — drop the axes/flag or --parallel"
+            )
+        if (self.mesh_model > 1 or self.mesh_seq > 1) \
+                and self.model != "causal_lm":
+            raise ValueError(
+                "--parallel zero composes with model/seq axes on "
+                "--model causal_lm only (the GSPMD expression "
+                "shards buckets over data and replicates them over "
+                "the model axes); this model keeps the data axis "
+                "only"
+            )
+        if self.model == "long_context":
+            raise ValueError(
+                f"--parallel zero covers the DDP image family and "
+                f"--model causal_lm; {self.model!r} keeps its "
+                "own update path"
+            )
+        if self.fast_epoch:
+            raise ValueError(
+                "--fast_epoch scans the plain DDP step; the zero "
+                "strategy has its own hot loop — drop one"
+            )
+        from ddp_tpu_torch.parallel.zero import _resolve_gather_dtype
+        from ddp_tpu_torch.train.optim import check_zero_compatible
+
+        check_zero_compatible(self.optimizer,
+                              grad_clip_norm=self.grad_clip_norm,
+                              ema_decay=self.ema_decay)
+        if self.zero_bucket_mb <= 0:
+            raise ValueError(
+                f"--zero_bucket_mb must be > 0, got {self.zero_bucket_mb}")
+        _resolve_gather_dtype(self.zero_gather_dtype)
 
     def world_size(self) -> int:
         """The ranks this command runs: --spawn, the multi-host world, or
@@ -269,17 +336,15 @@ class TrainConfig:
             if getattr(self, flag) < 1:
                 raise ValueError(f"--{flag} must be >= 1, got "
                                  f"{getattr(self, flag)}")
-        if self.mesh_fsdp > 1:
+        if (self.mesh_model > 1 or self.mesh_expert > 1 or self.mesh_fsdp > 1
+                or self.zero1) and self.model not in SEQ_MODELS:
             raise ValueError(
-                f"--mesh_fsdp {self.mesh_fsdp}: the port does not shard "
-                "parameters and optimizer state yet; FSDP with ZeRO waits "
-                "for ROADMAP A2.5-fsdp")
-        if (self.mesh_model > 1 or self.mesh_expert > 1) \
-                and self.model not in SEQ_MODELS:
-            raise ValueError(
-                "--mesh_model and --mesh_expert shard the sequence models "
-                "(--model long_context or causal_lm); the image family's "
-                "tensor parallelism (GSPMD) waits for ROADMAP A2.5-gspmd")
+                "--mesh_fsdp, --mesh_model, --mesh_expert and --zero1 "
+                "shard the image family through JAX's GSPMD step "
+                "(parallel/spmd), which waits for ROADMAP A2.5-gspmd; "
+                "the sequence models (--model long_context or causal_lm) "
+                "take the mesh axes, and --parallel zero shards the image "
+                "models' update over the data axis")
         d_model = self.model_dim or 64
         if self.mesh_model > 1:
             if self.num_heads % self.mesh_model:
@@ -310,16 +375,16 @@ class TrainConfig:
             world = self.world_size()
             if world % self.mesh_axes:
                 raise ValueError(
-                    f"a world of {world} rank(s) does not tile --mesh_seq "
-                    f"{self.mesh_seq} × --mesh_model {self.mesh_model} × "
-                    f"--mesh_expert {self.mesh_expert}: run --spawn N with N "
-                    f"a multiple of {self.mesh_axes} (the data axis is the "
-                    "rest)")
+                    f"a world of {world} rank(s) does not tile --mesh_fsdp "
+                    f"{self.mesh_fsdp} × --mesh_seq {self.mesh_seq} × "
+                    f"--mesh_model {self.mesh_model} × --mesh_expert "
+                    f"{self.mesh_expert}: run --spawn N with N a multiple "
+                    f"of {self.mesh_axes} (the data axis is the rest)")
             if self.elastic:
                 raise ValueError(
                     "--elastic resizes the data axis of a data-parallel "
-                    "world; with --mesh_seq/--mesh_model/--mesh_expert it "
-                    "is not ported")
+                    "world; with --mesh_fsdp/--mesh_seq/--mesh_model/"
+                    "--mesh_expert it is not ported")
 
     def check_robustness(self, *, has_step_events: bool) -> None:
         """The trainer's guards on the fault-tolerance flags

@@ -257,6 +257,25 @@ class Optimizer:
         self.count = int(state["count"])
 
 
+def check_zero_compatible(name: str, *, grad_clip_norm: float = 0.0,
+                          ema_decay: float = 0.0) -> None:
+    """Refuse what ``--parallel zero`` cannot run (``optim.py:129-170``):
+    the sharded update runs the rule on 1/N flat shards, so it must be
+    elementwise — sgd, momentum, adam, adamw, weight decay and the
+    schedules are. The parameter EMA is not: it keeps a full-shape
+    average that evaluation reads back. ``--grad_clip_norm`` composes:
+    the step clips by the norm of the shards, summed over the data group
+    (``parallel/zero``), and the optimizer is built without the chained
+    clip."""
+    del name, grad_clip_norm
+    if ema_decay:
+        raise ValueError(
+            "--ema_decay keeps a full-shape parameter average inside "
+            "opt_state, which --parallel zero shards flat — "
+            "evaluate-with-EMA could never see whole params; drop one"
+        )
+
+
 def make_optimizer(
     params,
     name: str = "sgd",

@@ -74,6 +74,7 @@ process as one rank of a multi-host world.
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import os
 import signal
@@ -112,7 +113,16 @@ from ddp_tpu_torch.parallel.ddp import (
     make_train_step,
     ring_all_reduce_bytes,
 )
+from ddp_tpu_torch.interop.jax_params import jax_leaf_order
 from ddp_tpu_torch.parallel.tp import shard_module
+from ddp_tpu_torch.parallel.zero import (
+    ZeroOptimizer,
+    build_layout,
+    check_zero_mesh,
+    make_zero_train_step,
+    opt_bytes_per_device,
+    zero_comm_bytes,
+)
 from ddp_tpu_torch.runtime import dist, launch
 from ddp_tpu_torch.runtime.mesh import dist_mesh, mesh_sizes
 from ddp_tpu_torch.runtime.chaos import ChaosEngine
@@ -213,8 +223,42 @@ def build_mesh(config: TrainConfig, ctx: dist.DistContext | None, *,
     world, rank = ((1, 0) if ctx is None
                    else (ctx.num_processes, ctx.process_id))
     sizes = mesh_sizes(world, seq=config.mesh_seq, model=config.mesh_model,
-                       expert=config.mesh_expert)
+                       expert=config.mesh_expert, fsdp=config.mesh_fsdp)
     return dist_mesh(sizes, rank)
+
+
+def zero_optimizer(config: TrainConfig, model, comm, lr, *, mesh=None):
+    """``--parallel zero``'s optimizer over ``model``'s parameters on the
+    data group ``comm`` (``parallel/zero.ZeroOptimizer``), the clip in
+    its step; on a ``mesh``, the leaves sharded over ``model`` marked for
+    the clip's norm."""
+    layout = getattr(model, "shard_layout", None)
+    check_zero_mesh({} if mesh is None else mesh.shape,
+                    allow_model_axes=config.model == "causal_lm")
+    return ZeroOptimizer(
+        model.named_parameters(), comm, name=config.optimizer, lr=lr,
+        momentum=config.momentum, weight_decay=config.weight_decay,
+        grad_clip_norm=config.grad_clip_norm,
+        bucket_mb=config.zero_bucket_mb,
+        gather_dtype=config.zero_gather_dtype,
+        model_comm=None if mesh is None else mesh.comm("model"),
+        model_names={n for n in (layout.specs if layout else ())
+                     if "model" in layout.axes(n)})
+
+
+def zero_comm_total(config: TrainConfig, full_shapes: dict, world: int, *,
+                    gspmd: bool = False) -> int:
+    """``zero_comm_bytes``' total of a zero run, on the layout of the
+    FULL leaves in JAX's order (``trainer.py:914-925``, ``:1322-1328``:
+    the LM prices JAX's in-graph expression)."""
+    names = list(full_shapes)
+    shapes = [tuple(full_shapes[n]) for n in names]
+    layout = build_layout([shapes[i] for i in jax_leaf_order(names, shapes)],
+                          world, bucket_mb=config.zero_bucket_mb)
+    return zero_comm_bytes(layout, world,
+                           grad_accum_steps=config.grad_accum_steps,
+                           gspmd=gspmd,
+                           gather_dtype=config.zero_gather_dtype)["total"]
 
 
 def restore_or_init(ckpt: CheckpointManager, state: TrainState,
@@ -493,6 +537,16 @@ class _FaultTolerant:
             global_batch_size=self.global_batch_size,
             build_info=build_info(self.device), **world)
 
+    def _state_bytes(self) -> dict:
+        """The bytes this rank holds at rest: its parameters (shards on a
+        mesh) and its optimizer state (``parallel/zero.
+        opt_bytes_per_device``'s count: 1/N flat shards under zero, the
+        moments of the shards under FSDP)."""
+        params = sum(p.numel() * p.element_size()
+                     for p in self.state.model.parameters())
+        return {"params": params,
+                "optimizer": opt_bytes_per_device(self.optimizer)}
+
     def _write_step_records(self, epoch, skip, step0, loss, gnorm) -> list:
         """The ``step`` records of an epoch's log cadence, written after
         its one host read (so they add no sync) → the logged losses."""
@@ -639,10 +693,12 @@ class _FaultTolerant:
     def _start_profile(self):
         """``--profile_dir``: a ``torch.profiler`` over the epoch loop,
         the window JAX traces (``trainer.py:2353-2356``), on rank 0 (on
-        every rank of a sharded mesh, whose ranks run different hops) →
-        the running profiler, or None."""
-        if not (self.config.profile_dir
-                and (self.is_main or self.config.mesh_axes > 1)):
+        every rank of a sharded mesh, whose ranks run different hops, and
+        of a ``--parallel zero`` world) → the running profiler, or
+        None."""
+        cfg = self.config
+        if not (cfg.profile_dir
+                and (self.is_main or cfg.mesh_axes > 1 or cfg.zero)):
             return None
         from torch.profiler import ProfilerActivity, profile
 
@@ -654,12 +710,18 @@ class _FaultTolerant:
         return profiler
 
     def _stop_profile(self, profiler) -> None:
-        """Stop the trace and write it as chrome-trace JSON."""
+        """Stop the trace and write it as chrome-trace JSON; a rank of a
+        sharded mesh or of a ``--parallel zero`` world writes beside it
+        ``state_rank<r>.json``, the bytes it holds at rest."""
         profiler.stop()
-        os.makedirs(self.config.profile_dir, exist_ok=True)
-        path = os.path.join(self.config.profile_dir,
-                            f"trace_rank{self.rank}.json")
+        cfg = self.config
+        os.makedirs(cfg.profile_dir, exist_ok=True)
+        path = os.path.join(cfg.profile_dir, f"trace_rank{self.rank}.json")
         profiler.export_chrome_trace(path)
+        if cfg.mesh_axes > 1 or cfg.zero:
+            with open(os.path.join(cfg.profile_dir,
+                                   f"state_rank{self.rank}.json"), "w") as f:
+                json.dump(self._state_bytes(), f)
         self.log(f"Profile trace written to {path}")
 
     def _train_epoch(self, epoch: int, skip: int) -> tuple[dict, int]:
@@ -697,7 +759,7 @@ class LMTrainer(_FaultTolerant):
             self.rank, self.world = ctx.process_id, ctx.num_processes
             self.device = ctx.device
         self.compute_dtype = DTYPES[config.compute_dtype]
-        self.mesh = build_mesh(config, ctx)
+        self.mesh = build_mesh(config, ctx, always=config.zero)
         self.data_rank, self.data_world = (
             (self.mesh.data_rank, self.mesh.data_size) if self.mesh
             else (self.rank, self.world))
@@ -723,24 +785,29 @@ class LMTrainer(_FaultTolerant):
         if config.seq_strategy == "ulysses":
             check_ulysses_heads(self.spec.num_heads, config.mesh_model,
                                 config.mesh_seq)
+        init = init_lm_state(self.spec, seed=config.seed)
+        full_shapes = {k: v.shape for k, v in init.items()}
         if self.mesh is None:
-            self.model = CausalLM.from_state(
-                self.spec, init_lm_state(self.spec, seed=config.seed),
-                self.device, trainable=True,
-            )
+            self.model = CausalLM.from_state(self.spec, init, self.device,
+                                             trainable=True)
         else:  # this rank's shards, cut on the host
-            self.model = CausalLM.from_state(
-                self.spec, init_lm_state(self.spec, seed=config.seed),
-                "cpu", trainable=True)
+            self.model = CausalLM.from_state(self.spec, init, "cpu",
+                                             trainable=True)
             layout = shard_module(self.model, self.mesh)
             self.model.to(self.device)
         self.lr_schedule = config.lr
-        self.optimizer = make_optimizer(
-            self.model.parameters(), config.optimizer, lr=config.lr,
-            momentum=config.momentum, weight_decay=config.weight_decay,
-            grad_clip_norm=config.grad_clip_norm, ema_decay=config.ema_decay,
-        )
-        if layout is not None:
+        if config.zero:
+            self.optimizer = zero_optimizer(config, self.model,
+                                            self.mesh.comm("data"), config.lr,
+                                            mesh=self.mesh)
+        else:
+            self.optimizer = make_optimizer(
+                self.model.parameters(), config.optimizer, lr=config.lr,
+                momentum=config.momentum, weight_decay=config.weight_decay,
+                grad_clip_norm=config.grad_clip_norm,
+                ema_decay=config.ema_decay,
+            )
+        if layout is not None and not config.zero:
             self.optimizer.norm = layout.norm
         self.tokens = torch.as_tensor(self.train_split.images).to(self.device)
         self.runner = make_lm_epoch_runner(
@@ -767,7 +834,10 @@ class LMTrainer(_FaultTolerant):
         )
         self.history: list[dict] = []
         self._init_fault_tolerance(is_main=self.is_main)
-        if self.world > 1 and self.mesh is None:
+        if config.zero:
+            self._comm_bytes = zero_comm_total(
+                config, full_shapes, self.mesh.shape["data"], gspmd=True)
+        elif self.world > 1 and self.mesh is None:
             self._comm_bytes = ring_all_reduce_bytes(self.optimizer.params,
                                                      self.world)
 
@@ -813,7 +883,7 @@ class LMTrainer(_FaultTolerant):
             self.watchdog.beat()
         totals = torch.stack([acc, loss])
         if self.mesh is not None:  # each replica's sums, once
-            self.mesh.comm("data", "expert").all_reduce_(totals)
+            self.mesh.comm("data", "fsdp", "expert").all_reduce_(totals)
         elif self.world > 1:
             dist.all_reduce_sum(totals)
         acc, loss = totals.tolist()
@@ -901,11 +971,17 @@ class ImageTrainer(_FaultTolerant):
             decay_steps=config.decay_steps, lr_milestones=config.milestones,
             lr_decay_factor=config.lr_decay_factor,
         )
-        self.optimizer = make_optimizer(
-            model.parameters(), config.optimizer, lr=self.lr_schedule,
-            momentum=config.momentum, weight_decay=config.weight_decay,
-            grad_clip_norm=config.grad_clip_norm, ema_decay=config.ema_decay,
-        )
+        if config.zero:
+            self.zero_comm = dist.world_comm(ctx)
+            self.optimizer = zero_optimizer(config, model, self.zero_comm,
+                                            self.lr_schedule)
+        else:
+            self.optimizer = make_optimizer(
+                model.parameters(), config.optimizer, lr=self.lr_schedule,
+                momentum=config.momentum, weight_decay=config.weight_decay,
+                grad_clip_norm=config.grad_clip_norm,
+                ema_decay=config.ema_decay,
+            )
         if layout is not None:
             self.optimizer.norm = layout.norm
         self.state = TrainState(step=0, model=model, optimizer=self.optimizer)
@@ -945,13 +1021,25 @@ class ImageTrainer(_FaultTolerant):
         )
         self.history: list[dict] = []
         self._init_fault_tolerance(is_main=ctx.is_main)
-        if config.mesh_axes == 1:
+        if config.zero:
+            self._comm_bytes = zero_comm_total(
+                config, {n: p.shape for n, p in model.named_parameters()
+                         if p.requires_grad}, self.world)
+        elif config.mesh_axes == 1:
             self._comm_bytes = ring_all_reduce_bytes(self.optimizer.params,
                                                      self.world)
 
     def _make_train_step(self, augment_fn):
-        """The data-parallel step of ``parallel/ddp``."""
+        """The data-parallel step of ``parallel/ddp``, or under
+        ``--parallel zero`` the sharded update's (``parallel/zero``)."""
         cfg = self.config
+        if cfg.zero:
+            return make_zero_train_step(
+                self.state, self.zero_comm,
+                compute_dtype=self.compute_dtype,
+                grad_accum_steps=cfg.grad_accum_steps,
+                label_smoothing=cfg.label_smoothing, augment_fn=augment_fn,
+                seed=cfg.seed)
         return make_train_step(
             self.state, world=self.world, compute_dtype=self.compute_dtype,
             grad_accum_steps=cfg.grad_accum_steps,
@@ -1169,8 +1257,9 @@ def _spawned_worker(rank: int, world: int, argv: list) -> None:
     rendezvous is in the environment (``runtime/launch``), the world is
     the generation's (an elastic relaunch may differ from --spawn)."""
     config = TrainConfig.from_args(argv)
-    if config.device == "cpu":  # ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    # The ranks share the host's cores, on the CPU and beside a card (the
+    # gloo exchanges and their host copies run on them).
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     ctx = dist.setup(rank, world, backend=config.backend,
                      device=config.device)
     if config.model == "causal_lm":

@@ -194,32 +194,53 @@ def test_hot_swap_in_flight_then_streams_equal_jax_at_b(monkeypatch, ckpt_a,
     before the pause), every request completes, those bound before the
     barrier under A and the queued ones under B, each stream the JAX
     engine's at its version's weights; afterwards the engine serves B
-    with the new version label."""
+    with the new version label.
+
+    The burst forms by construction: the engine loop starts only once
+    all six requests sit in the scheduler, and after its first step (two
+    lanes bound, four queued) it holds until the load has seen them. A
+    free-running loop could retire the first two lanes, or take the
+    lock step after step ahead of the submitting threads, before the
+    queue ever held three: the window closed on a loaded host."""
     engine = _engine(0, lc.model_version_token(ckpt_a, 0))
     real_load = lc.load_reload_target
+    burst_seen = threading.Event()
 
     def load_with_a_queue(target):
         deadline = time.monotonic() + 30
         while not (engine.active == 2 and engine.scheduler.depth >= 3):
             assert time.monotonic() < deadline, "the burst never queued"
             time.sleep(0.0005)
+        burst_seen.set()
         return real_load(target)
 
-    monkeypatch.setattr(lc, "load_reload_target", load_with_a_queue)
-    results, lock = [], threading.Lock()
-    with LMServer(engine) as srv:
-        def client(i):
-            status, payload = srv.submit_and_wait(
-                {"prompt_tokens": PROMPTS[i % len(PROMPTS)],
-                 "max_new_tokens": LONG_NEW})
-            with lock:
-                results.append((i, status, payload))
+    real_step = engine.step
 
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(6)]
-        for t in threads:
-            t.start()
-        deadline = time.monotonic() + 30
+    def step_then_hold():
+        out = real_step()
+        burst_seen.wait(30)
+        return out
+
+    monkeypatch.setattr(lc, "load_reload_target", load_with_a_queue)
+    monkeypatch.setattr(engine, "step", step_then_hold)
+    results, lock = [], threading.Lock()
+    srv = LMServer(engine)  # started once the burst is queued
+
+    def client(i):
+        status, payload = srv.submit_and_wait(
+            {"prompt_tokens": PROMPTS[i % len(PROMPTS)],
+             "max_new_tokens": LONG_NEW})
+        with lock:
+            results.append((i, status, payload))
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(6)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 30
+    while engine.scheduler.depth < 6 and time.monotonic() < deadline:
+        time.sleep(0.001)
+    with srv:
         while engine.active == 0 and time.monotonic() < deadline:
             time.sleep(0.001)
         status, payload = srv.reload_model({"checkpoint_dir": ckpt_b})

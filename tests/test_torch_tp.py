@@ -282,11 +282,10 @@ def test_head_summed_over_seq_without_the_scale_fails(monkeypatch):
 
 
 def _jax_spec_of(port_name, port_specs, ndim):
-    """A port (dim, axis) as JAX's PartitionSpec tuple on the JAX leaf: a
-    Dense weight is the kernel transposed."""
+    """A port ((dim, axis), ...) entry as JAX's PartitionSpec tuple on the
+    JAX leaf: a Dense weight is the kernel transposed."""
     entry = [None] * ndim
-    if port_name in port_specs:
-        dim, axis = port_specs[port_name]
+    for dim, axis in port_specs.get(port_name, ()):
         linear = port_name.endswith(".weight") and ndim == 2
         entry[1 - dim if linear else dim] = axis
     return tuple(entry)

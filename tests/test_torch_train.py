@@ -352,12 +352,15 @@ def test_train_cli_on_cpu_prints_final_accuracy(tmp_path):
 def test_train_cli_refuses_other_models():
     """A model or layout the port does not train yet is refused with a
     message naming the ROADMAP item that brings it: the pipelined ViT
-    (A4), and --mesh_fsdp above 1 (A2.5-fsdp, FSDP with ZeRO). --mesh_seq
-    2 is taken by the sequence models (over a world it tiles) and
-    refused for the image models."""
+    (A4), and an image model's --mesh_fsdp or --zero1 (A2.5-gspmd, JAX's
+    GSPMD step). --mesh_seq 2 and --mesh_fsdp 2 are taken by the
+    sequence models (over a world they tile); --mesh_seq is refused for
+    the image models."""
     for argv, item in ((["--model", "pipe_vit"], "A4"),
-                       (["--model", "long_context", "--mesh_fsdp", "2"],
-                        "A2.5-fsdp")):
+                       (["--model", "simple_cnn", "--mesh_fsdp", "2"],
+                        "A2.5-gspmd"),
+                       (["--model", "simple_cnn", "--zero1"],
+                        "A2.5-gspmd")):
         bad = subprocess.run(CLI + argv, cwd=REPO,
                              capture_output=True, text=True, timeout=120)
         assert bad.returncode != 0 and f"ROADMAP {item}" in bad.stderr
@@ -367,6 +370,9 @@ def test_train_cli_refuses_other_models():
         config = TrainConfig.from_args(["--model", model, "--mesh_seq", "2",
                                         "--spawn", "2"])
         assert config.mesh_seq == 2
+        config = TrainConfig.from_args(["--model", model, "--mesh_fsdp",
+                                        "2", "--spawn", "2"])
+        assert config.mesh_fsdp == 2
     with pytest.raises(ValueError, match="only the sequence models"):
         TrainConfig.from_args(["--model", "simple_cnn", "--mesh_seq", "2",
                                "--spawn", "2"])
