@@ -12,7 +12,9 @@ order; any failure exits non-zero and prints no result:
 
 1. The card (nvidia-smi name and power limit), torch, CUDA and nvcc.
 2. Build the CUDA kernels from ddp_tpu_torch/ops/csrc (one nvcc per
-   source, started together), print the build seconds and, from ptxas's
+   source, started together; phases 3-4h, which launch only the decode
+   kernels, run beside flash_attn.cu's build, and phase 3b waits for
+   it), print the build seconds and, from ptxas's
    report, each flash-attention and flash-decode kernel's registers,
    shared memory and spill bytes (a spill raises).
 3. The flash-decode kernels B4 (fp32 K/V) and B5 (int8 K/V) against their
@@ -44,7 +46,8 @@ order; any failure exits non-zero and prints no result:
    then B4/B5), the plain version and the library call (the gather,
    then SDPA with the band mask), beside the bound.
 4. The serving slice end to end: the full-width causal LM (vocab 8192,
-   d_model 1024, depth 8, 8 heads, total_len 256) from seeded random
+   d_model 1024, depth 4 (of 8: a cut), 8 heads, total_len 256) from
+   seeded random
    weights, ServeEngine(slots=8, prefill_len=128) behind LMServer on
    127.0.0.1, ten concurrent POST /generate requests (greedy and
    seeded sampling), once with fp32 and once with int8 KV. Each engine
@@ -87,8 +90,8 @@ order; any failure exits non-zero and prints no result:
    paged decode steps.
 4d. Speculative decoding at phase 4's full width: a draft proposes γ 4
    tokens a lane through B4 on its own fp32 cache, the target verifies
-   them in one step. With ``truncated_draft(model, 4)`` (the target's
-   first 4 blocks, bench.py's zero-training draft), fp32 and int8
+   them in one step. With ``truncated_draft(model, DRAFT_DEPTH)`` (the
+   target's first half, bench.py's zero-training draft), fp32 and int8
    target KV, phase 4's REQUESTS run in-process on a fixed schedule
    (SPEC_BUDGET: every prompt's chunk split is its own), and every
    greedy and seeded stream must equal the plain engine's or part only
@@ -227,9 +230,9 @@ order; any failure exits non-zero and prints no result:
    by JAX's active-expert flops, busy share and B1-B3's share.
 6. The reference trainer's main path (train.py --epochs 3 --batch_size
    64, which BASELINE.json measures): ``python -m ddp_tpu_torch.train
-   --model simple_cnn``'s own main() on the synthetic split at MNIST's
-   full size (60,000 / 10,000), SimpleCNN at full width (32, 64), world 1
-   over nccl, SGD 0.01 with momentum 0.9 (so the restored optimizer
+   --model simple_cnn``'s own main() on a synthetic split of a quarter
+   of MNIST's size (15,000 / 2,500: a cut), SimpleCNN at full width (32,
+   64), world 1 over nccl, SGD 0.01 with momentum 0.9 (so the restored optimizer
    state has buffers). No kernel of the repo lies on it (its convs and
    linear are cuDNN's and cuBLAS's through torch).
    6a: 3 epochs, losses finite and falling, epoch_0..2 with verified
@@ -254,8 +257,8 @@ order; any failure exits non-zero and prints no result:
    torch.profiler, for the step and fast paths at batch 64 and at global
    batch 16384 (bench.py's), and the fast path at 16384 in bf16.
 7. The image families of BASELINE.json through ``python -m
-   ddp_tpu_torch.train``'s own main(), on synthetic splits of 12,800
-   images (ResNet-18's 6,400), world 1 over nccl; vit_moe_tiny at depth
+   ddp_tpu_torch.train``'s own main(), on synthetic splits of 6,400
+   images (ResNet-18's 3,200), world 1 over nccl; vit_moe_tiny at depth
    4.
    7a: ViT-Tiny on CIFAR-100 (configs 4; bench.py run_vit_bench's model,
    batch 256 and SGD 0.01 + momentum 0.9, bf16, crop-and-flip), 2 epochs:
@@ -358,17 +361,17 @@ order; any failure exits non-zero and prints no result:
    step without and with the parameter EMA, timed in turns (a
    reading).
    9b: SimpleCNN on the reference's path (--epochs 3 --batch_size 64,
-   SGD 0.01) on 6,400 synthetic MNIST images, --deterministic, each run
+   SGD 0.01) on 3,200 synthetic MNIST images, --deterministic, each run
    under the supervisor: two uninterrupted runs; --max_restarts 1 --chaos
-   kill:rank0@step150 (the supervisor logs "killed by SIGKILL",
+   kill:rank0@step75 (the supervisor logs "killed by SIGKILL",
    relaunches, and the run ends on the uninterrupted state by the same
    rule; kill to the next run_start printed); ckpt_corrupt:latest on
    that directory (epoch 2 quarantined, a fallback record, epoch 2
    retrained from epoch 1); --watchdog_timeout 5 --max_restarts 1 --chaos
-   stall:input@step125:30s (one exit 124 classified as a watchdog
+   stall:input@step62:30s (one exit 124 classified as a watchdog
    timeout, the run completes, the stall in the ledger once).
    9c: --spawn 2 --backend gloo --elastic --min_world 1 --max_restarts 2
-   --chaos shrink:rank1@step150,grow:+1@epoch2 on the one card: worlds
+   --chaos shrink:rank1@step75,grow:+1@epoch2 on the one card: worlds
    2, 1, 2 by their run_start records, the global batch 64 in each,
    elastic.json as the first generation wrote it, equal epochs.
    9d: phase 7a's ViT-Tiny (bf16, B1-B3 at T 65) with --ema_decay 0.999
@@ -388,7 +391,7 @@ order; any failure exits non-zero and prints no result:
    the steps, losses falling, the bf16 resume exact, the pool's batches
    bit for bit the Python gather's, one fp32 step on the card against
    the CPU's fp64 step at batches 2 and 4 from the trained weights (ReLU
-   masks tied, CNN_STEP_TOL; from the seeded ones a reading; the step
+   masks tied, CNN_STEP_TOL; the seeded ones in --step-spread; the step
    without the blocks' conv gradients must fail). 10b: ViT-Tiny at 224²
    (T 3137: the last key tile holds 65) in bf16: B1 = B2 = B3 = depth x
    steps in training (evaluation apart), nothing routed, resume exact,
@@ -419,7 +422,8 @@ order; any failure exits non-zero and prints no result:
    (FLASH_TOL at B 2; timed with the bound, SDPA, the plain version in
    chunks, and the exponentials as a reading) and at 11d's shape. 11d:
    the causal LM at bench.py run_lm_long_bench's shape (vocab 8192, d
-   1024, depth 8, 8 heads, T 8192, batch 2, bf16, 4 steps): launches,
+   1024, depth 4 (of 8: a cut), 8 heads, T 8192, batch 2, bf16, 4
+   steps): launches,
    tokens/s, step p50, est. MFU; one step at depth 2 kernel vs plain
    (the bf16 gate, the fp32 kernel step against the exact one, a dropped
    dK tile must fail), peak memory. 11e: --dataset text on README.md at
@@ -452,8 +456,9 @@ order; any failure exits non-zero and prints no result:
    the runs; if it fails, or hangs past P12D_DEADLINE s from its start,
    it is killed and fails every check) against the world-1 exact step
    (the plain attention) within STEP_TOL["fp32"], at depth 2 and batch 2
-   (long_context), 1 a replica (the LM and the routed LM, the latter
-   against world 1 on each replica's rows with the routing held); a
+   (long_context), 1 a replica (the LM at T 4096, and the routed LM,
+   the latter against world 1 on each replica's rows with the routing
+   held); a
    dropped past hop, a model reduction counted twice and slots sent to
    the wrong owner must fail it; and --mesh_seq 2 --spawn 2 against
    world 1 after 2 fp32 SGD steps (W2_ARGS's width) within
@@ -473,18 +478,59 @@ order; any failure exits non-zero and prints no result:
    updated parameters within P12_PARAM_ATOL; the bf16 master against the
    fp32 gather's parameters); the reduce-scatter's 1/n dropped, the
    clip's model sum doubled and the neighbour's shard offset must fail.
-14. A "kernels" JSON line (each decode kernel's launches on the MoE path,
+14. GSPMD for the image family (check_mesh, in phase 12's wave and 12d's
+   world): 14a ViT-Tiny at 7a's width (CIFAR-100, T 65, d 192, depth 12,
+   3 heads, bf16) at --mesh_model 3 --spawn 3: every rank's B1 = B2 = B3
+   = depth x steps in training, all on [64, 65, 1, 64] (one head a
+   rank), none in fp32; its bytes at rest the specs'; rank 0's
+   checkpoint restored by a world-1 run to the same parameters, bit for
+   bit. 14b vit_moe_tiny at --mesh_expert 2 --spawn 2 (launches by rank,
+   4 experts a rank at rest); 14c ResNet-18 on CIFAR-10 at --mesh_fsdp 2
+   and under --zero1 (--spawn 2 each): parameters and momentum at rest
+   against the specs, finite losses. 14d in 12d's world: one fp32 step
+   of ViT-Tiny at model 2 x fsdp 2 (3 heads: qkv gathered), vit_moe_tiny
+   at expert 2 x data 2 (capacity factor P14_MOE_CF: tokens drop, the
+   count printed), ResNet-18 at fsdp 4 (synchronized BN), simple_cnn and
+   ViT-Tiny under --zero1 at data 4, against world 1's exact step on the
+   same global batch (STEP_TOL["fp32"]; the MoE's global routing and the
+   ResNet's ReLU masks held; --zero1's updated parameters within
+   P12_PARAM_ATOL); BN by the rank's own moments, MoE capacity and slots
+   per rank, an fsdp gradient unscaled by its axis and a --zero1 update
+   without the parameter all-gather must fail. 14e in the same world:
+   shard_decode_attention at model 2 and 4, B4 and B5, S 8, H 8, H_kv 8
+   and 2, Dh 128, L 256 and 8192, every lane at L-1: one launch a rank on
+   its heads, the gathered heads bitwise the world-1 kernel's and within
+   KERNEL_ATOL of the plain version's, H_kv 2 at model 4 JAX's
+   whole-head call (counted), an off-by-one head offset failing. B1-B3
+   alone at 14a's shape [64, 65, 1, 64], timed with their bound and
+   SDPA.
+15. A "kernels" JSON line (each decode kernel's launches on the MoE path,
    moe_launches, beside its own, and in phase 4's flag runs,
    flag_launches; B1-B3's in 5m and 7c, phase 9's as
    fault_tolerance_launches, phase 10's as imagenet_launches, phase
    11's as long_context_launches, lm_long_launches and
-   lm_world2_rank0_launches, phases 12's and 13's as
-   mesh_launches_by_rank, and
+   lm_world2_rank0_launches, phases 12's, 13's and 14's as
+   mesh_launches_by_rank, 14a's and 14b's as gspmd_launches_by_rank,
+   14e's decode launches as shard_decode_launches_by_rank, and
    their timings at T 3137, at the long-context shape, at the LM's T
-   8192 and at the ring hops' shapes as the vit224_*, long_context_*,
-   lm_long_* and hop12a_*/hop12b_* variants), the card
-   line, and the last line
+   8192, at the ring hops' shapes and at 14a's as the vit224_*,
+   long_context_*, lm_long_*, hop12a_*/hop12b_* and vit14a_* variants),
+   the card line, and the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+
+Cuts for the time limit (each at its constant): phase 5 at depth 4, 5m,
+8f and 9a at 2, 7c at 4, 9b/9c and 7b on half their sets, 4f/4g timing
+32 steps a turn, 13c's LM at T 2048 (before phase 14); with phase 14:
+the serving phases 4-4g at depth 4 (FULL, of 8), 11d's LM at depth 4,
+6a on 15,000 images, 7a/9d on 6,400 and 7b on 3,200, phase 10 on 1,024 (10a 16 steps
+an epoch, 10b 32), 9b/9c on 3,200 images, 10a's fp64 step gate from
+the trained weights only (--step-spread reads the seeded weights too: a
+reading, not a gate), B1-B3's timings at 2 turns after 2 warm calls (fp32 at 3
+calls a turn), the fast path's timing at batch 64 on 6,400 images
+(TIME_FAST_SIZE) and 4h's at 2
+turns of 2, 12d's LM at T 4096 (of 8192).
+No kernel's
+check against its plain version and no path is cut.
 """
 
 from __future__ import annotations
@@ -509,7 +555,7 @@ H100_FP32_FLOPS = 67e12  # non-tensor-core fp32, H100 SXM data sheet
 KERNEL_ATOL = 1e-4
 # Greedy streams may part only at a near tie of the top-2 logits.
 DIVERGENCE_GAP = 1e-3
-FULL = dict(vocab_size=8192, total_len=256, d_model=1024, depth=8,
+FULL = dict(vocab_size=8192, total_len=256, d_model=1024, depth=4,
             num_heads=8)
 SLOTS, PREFILL_LEN = 8, 128
 # Phase 4's flag runs: the scheduler flags at values phase 4 never
@@ -573,12 +619,13 @@ def _inputs(torch, S, H, H_kv, Dh, L, pos, quantized, seed):
     return q, k[1], v[1], pos_t, ks, vs
 
 
-def _median_ms(torch, fn, *, n=50, reps=7):
+def _median_ms(torch, fn, *, n=50, reps=7, warm=5):
     """Median device time of one call, from CUDA events around ``n``
-    back-to-back calls. A sleep kernel queued first keeps the card busy
-    while the host enqueues, so host overhead does not show as idle
-    device time (the sleep is lengthened until it covers the enqueue)."""
-    for _ in range(5):
+    back-to-back calls (after ``warm`` untimed ones). A sleep kernel
+    queued first keeps the card busy while the host enqueues, so host
+    overhead does not show as idle device time (the sleep is lengthened
+    until it covers the enqueue)."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     cycles = 20_000_000
@@ -1466,7 +1513,9 @@ def _time_flash(torch, F, fl, dtype, dname, errs,
     out, lse = fl.flash_forward(q, k, v, causal)
     delta = fl.backward_delta(out, dout)
     qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
-    n, reps = (10, 5) if dname == "bf16" else (5, 3)
+    # Timing repeats (cut to 2 turns after 2 warm calls, fp32 to 3 calls
+    # a turn, since phase 14 joined the script).
+    n, reps, warm = (10, 2, 2) if dname == "bf16" else (3, 2, 2)
     kernel = _kernel_calls(fl, q, k, v, dout, lse, delta, causal)
     step = plain_batch or B
 
@@ -1488,19 +1537,20 @@ def _time_flash(torch, F, fl, dtype, dname, errs,
     # call), on the same tensors in [B, H, T, D]; timed only.
     qs, ks, vs = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
     sdpa_fwd_ms = _median_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=causal), n=n, reps=reps)
+        qs, ks, vs, is_causal=causal), n=n, reps=reps, warm=warm)
     o_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
     do_s = dout.transpose(1, 2)
     sdpa_bwd_ms = _median_ms(torch, lambda: torch.autograd.grad(
-        o_s, (qs, ks, vs), do_s, retain_graph=True), n=n, reps=reps)
+        o_s, (qs, ks, vs), do_s, retain_graph=True), n=n, reps=reps,
+        warm=warm)
     if dname == "fp32" and shape[1:] == TRAIN_SHAPE:
         _log_sdpa_numerics(torch, F, fl, qs, ks, vs, qf, kf, vf)
     pairs, nbytes = _flash_counts(B, T, S, H, D, causal, q.element_size())
     res = {}
     for name in FLASH_NAMES:
-        ms = _median_ms(torch, kernel[name], n=n, reps=reps)
+        ms = _median_ms(torch, kernel[name], n=n, reps=reps, warm=warm)
         plain_ms = _median_ms(torch, plain[name], n=1 if plain_batch else 2,
-                              reps=3)
+                              reps=reps, warm=warm)
         bound_ms, bound_by = _flash_bound(name, pairs, nbytes, D, dname)
         library_ms = sdpa_fwd_ms if name == "flash_attn_fwd" else None
         log(f"[flash] {name} {dname} {label} B={B} T=S={T} H={H} D={D} "
@@ -2010,7 +2060,7 @@ def check_paged_serving(torch) -> dict:
 # bench.py's speculative variants (bench.py:960-983): γ 4, a draft of the
 # target's first depth // 2 blocks sharing its weights; the self-draft is
 # all of them.
-SPEC_GAMMA, DRAFT_DEPTH = 4, 4
+SPEC_GAMMA, DRAFT_DEPTH = 4, FULL["depth"] // 2
 # A budget no chunk plan ever meets: each prompt's chunk split is then
 # its own (as a lone request's), whatever the decode lanes cost, so the
 # speculative and plain engines ingest every prompt alike.
@@ -3230,7 +3280,7 @@ def check_moe_runs(torch, model, prompts) -> tuple[dict, dict, list]:
 
 def check_moe_spec_and_control(torch, model, prompts, fp32) -> tuple[int, list]:
     """Phase 4g (d): γ SPEC_GAMMA speculation with ``truncated_draft(model,
-    DRAFT_DEPTH)`` (routed blocks 2 and 4) through the draft_decode and
+    DRAFT_DEPTH)`` (its routed blocks) through the draft_decode and
     spec_verify graphs (warmed up under the sync debug mode "error", as
     (b)'s engines): streams equal the plain graph engine's (near
     ties by replay_gap), B4 = rounds x γ x draft depth. (e) the control:
@@ -3256,7 +3306,8 @@ def check_moe_spec_and_control(torch, model, prompts, fp32) -> tuple[int, list]:
         f"identical to the plain graph engine's, {parted} parted at a near "
         f"tie; {engine.decode_steps} rounds, launches {launches}, "
         f"acceptance {engine.spec_acceptance_rate()}")
-    if routed != [2, 4]:
+    if not routed or routed != [i + 1 for i in range(DRAFT_DEPTH)
+                                if model.spec.routed(i)]:
         failed.append(f"(d) the draft routes blocks {routed}")
     b4 = launches["flash_decode_fp32"]
     del engine
@@ -3445,7 +3496,8 @@ def check_moe_layer(torch, device="cuda") -> dict:
                 for form in moe.FORMS:
                     readings[f"{dname}_{form}_ms"] = _median_ms(
                         torch, lambda f=form: _moe_layer_run(
-                            torch, layer, x, dy, f, dt), n=3, reps=3)
+                            torch, layer, x, dy, f, dt), n=2, reps=2,
+                            warm=2)
     del layer
     log(f"[moe] (4h) fwd+bwd ms at n {c['n']}, cf 2.0 (route, dispatch, "
         f"FFN, combine, backward): {readings}")
@@ -3600,7 +3652,7 @@ def _grad_errors(got, want) -> dict:
     per = {n: rel(n) for n in want[1]}
     diff2 = sum(float((got[1][n] - want[1][n]).norm()) ** 2 for n in want[1])
     norm2 = sum(float(want[1][n].norm()) ** 2 for n in want[1])
-    attn = {n: e for n, e in per.items() if ".attn." in n}
+    attn = {n: e for n, e in per.items() if ".attn." in n} or {"-": 0.0}
     return dict(loss=abs(got[0] - want[0]) / abs(want[0]),
                 grad=(diff2 / norm2) ** 0.5,
                 leaf=max(per.items(), key=lambda x: x[1]),
@@ -5053,6 +5105,9 @@ def check_moe_served(torch, moe_dir, dense_dir) -> dict:
 CNN_ARGS = ["--model", "simple_cnn", "--synthetic_data", "--batch_size", "64",
             "--log_interval", "300", "--momentum", "0.9"]
 CNN_DEVICE_ARGS: list[str] = []  # ["--device", "cpu"] when rehearsing
+# 6a's synthetic split: a quarter of MNIST's 60,000 (234 steps an epoch;
+# the whole set until phase 14 joined the script), the test split 2,500.
+MAIN_6A = ["--synthetic_size", "15000"]
 # The fast path against the step path, one epoch on the same plan, with
 # deterministic cuDNN: the same step on the same batches (host gather vs
 # device gather of the same bytes), so the parameters should agree bit for
@@ -5067,6 +5122,9 @@ CNN_STEP_TOL = dict(loss=1e-5, grad=1e-4, leaf=1e-4)
 # bucket sum, cuDNN at batch 32 vs 64) parts them; it compounds over the
 # steps.
 SPAWN_SIZE, SPAWN_ATOL = 12800, 1e-4
+# The fast path's timing set at batch 64: 100 steps an epoch (SPAWN_SIZE
+# until phase 14 joined the script).
+TIME_FAST_SIZE = 6400
 BENCH_BATCH = 16384  # bench.py run_bench's global batch (bench.py:88-92)
 # Training flops per image, SimpleCNN at (32, 64): forward
 # 2·784·(1·32 + 32·64)·9 + 2·50176·10, times 3 for the backward.
@@ -5142,7 +5200,8 @@ def check_cnn_main_path(torch, tmp) -> dict:
 
     ckdir = f"{tmp}/main"
     failed = []
-    trainer, out = _train(["--epochs", "3", "--checkpoint_dir", ckdir])
+    trainer, out = _train(MAIN_6A + ["--epochs", "3", "--checkpoint_dir",
+                                     ckdir])
     for h in trainer.history:
         log(_epoch_line(h, "step path, batch 64,"))
     losses = [h["train_loss"] for h in trainer.history]
@@ -5162,14 +5221,16 @@ def check_cnn_main_path(torch, tmp) -> dict:
 
     # The same run again: nothing left to train; the restored state must
     # be epoch 2's, bit for bit.
-    again, out = _train(["--epochs", "3", "--checkpoint_dir", ckdir])
+    again, out = _train(MAIN_6A + ["--epochs", "3", "--checkpoint_dir",
+                                     ckdir])
     bad = _cnn_state_errors(torch, again, mgr.read(2))
     log(f"[cnn] re-run at --epochs 3: epochs trained {len(again.history)}, "
         f"state vs epoch_2 differs in {bad or 'nothing'}")
     if "Resumed from checkpoint epoch 2" not in out or again.history or bad:
         failed.append("the restore is not epoch 2's state")
     del again
-    resumed, out = _train(["--epochs", "4", "--checkpoint_dir", ckdir])
+    resumed, out = _train(MAIN_6A + ["--epochs", "4", "--checkpoint_dir",
+                                     ckdir])
     log(f"[cnn] --epochs 4: epochs trained "
         f"{[h['epoch'] for h in resumed.history]}")
     if ("Resumed from checkpoint epoch 2" not in out
@@ -5180,7 +5241,8 @@ def check_cnn_main_path(torch, tmp) -> dict:
     # One flipped byte in epoch 3's state file: discovery quarantines it and
     # resumes from epoch 2.
     _flip_byte(f"{ckdir}/epoch_3/state.pt")
-    healed, out = _train(["--epochs", "5", "--checkpoint_dir", ckdir])
+    healed, out = _train(MAIN_6A + ["--epochs", "5", "--checkpoint_dir",
+                                     ckdir])
     import os
 
     quarantined = os.path.isdir(f"{ckdir}/quarantine.epoch-3")
@@ -5406,7 +5468,7 @@ def profile_cnn_epoch(torch, trainer, label, steps=None, out=None) -> float:
 
 def time_cnn(torch, readings, tmp, card) -> dict:
     """images/s per card, step p50 and busy share: the step path at batch
-    64 (6a's last epoch), the fast path at batch 64 (on SPAWN_SIZE
+    64 (6a's last epoch), the fast path at batch 64 (on TIME_FAST_SIZE
     images: its profiled epoch is the whole epoch), then both paths at
     global batch 16384 (fp32) and the fast path there in bf16, each after
     a warm-up epoch, with cuDNN's default (non-deterministic) choices.
@@ -5417,7 +5479,7 @@ def time_cnn(torch, readings, tmp, card) -> dict:
     runs = [("step path, batch 64", readings["main_trainer"])]
     for label, batch, flags in (
             ("fast path, batch 64", 64,
-             ["--fast_epoch", "--synthetic_size", str(SPAWN_SIZE)]),
+             ["--fast_epoch", "--synthetic_size", str(TIME_FAST_SIZE)]),
             ("step path, batch 16384", BENCH_BATCH, []),
             ("fast path, batch 16384", BENCH_BATCH, ["--fast_epoch"]),
             ("fast path, batch 16384, bf16", BENCH_BATCH,
@@ -5471,10 +5533,10 @@ def check_cnn(torch, card) -> dict:
 
 # BASELINE.json config 4, ViT-Tiny on CIFAR-100 (attention path, bf16):
 # bench.py run_vit_bench's model, batch and optimizer (bench.py:380-416),
-# the synthetic split cut to 12,800 images (50 steps an epoch) so that the
-# phase stays short.
+# the synthetic split cut to 6,400 images (25 steps an epoch; 12,800
+# until phase 14 joined the script) so that the phase stays short.
 VIT_ARGS = ["--model", "vit_tiny", "--dataset", "cifar100", "--synthetic_data",
-            "--synthetic_size", "12800", "--batch_size", "256", "--epochs",
+            "--synthetic_size", "6400", "--batch_size", "256", "--epochs",
             "2", "--optimizer", "sgd", "--lr", "0.01", "--momentum", "0.9",
             "--compute_dtype", "bfloat16", "--augment", "crop_flip",
             "--log_interval", "1000"]
@@ -5491,10 +5553,10 @@ VIT_TRAIN_FLOPS = 2_187_095_040
 PROFILE_STEPS = 12
 # BASELINE.json config 3, ResNet-18 on CIFAR-10: He et al. 2016 §4.2's
 # CIFAR recipe (batch 128, lr 0.1, momentum 0.9, weight decay 1e-4), fp32,
-# the synthetic split cut to 6,400 images (50 steps an epoch; 12,800 until
-# phase 13 joined the script).
+# the synthetic split cut to 3,200 images (25 steps an epoch; 6,400 until
+# phase 14 joined the script, 12,800 until phase 13).
 RESNET_ARGS = ["--model", "resnet18", "--dataset", "cifar10",
-               "--synthetic_data", "--synthetic_size", "6400",
+               "--synthetic_data", "--synthetic_size", "3200",
                "--batch_size", "128", "--epochs", "2", "--lr", "0.1",
                "--momentum", "0.9", "--weight_decay", "1e-4", "--augment",
                "crop_flip", "--log_interval", "1000"]
@@ -6006,7 +6068,8 @@ def _resnet_text(e, bufs) -> str:
 
 def check_resnet_step(torch, trainer, *, batch=32, tag="resnet",
                       gated=("seeded", "trained"),
-                      control="seeded", against="cpu") -> list[str]:
+                      control="seeded", against="cpu",
+                      sets=("seeded", "trained")) -> list[str]:
     """Phase 7b's step check, as phase 6c's: one step on the card (fp32,
     TF32 off) against the same step on the CPU on the first ``batch``
     training images, from the seeded weights with live BatchNorm scales
@@ -6022,7 +6085,8 @@ def check_resnet_step(torch, trainer, *, batch=32, tag="resnet",
     ``control``: the one the control runs on. ``against="fp64"`` holds
     the card's step, and the control, to that fp64 step instead of the
     CPU's fp32 one (ROADMAP C14: at a small batch the CPU's own fp32 step
-    can sit 4e-4 from fp64, where the card's sits 6e-6)."""
+    can sit 4e-4 from fp64, where the card's sits 6e-6). ``sets``: the
+    weight sets stepped."""
     import torch.nn.functional as F
 
     images, labels = trainer.train_split
@@ -6034,6 +6098,8 @@ def check_resnet_step(torch, trainer, *, batch=32, tag="resnet",
                for k, v in trainer.state.model.state_dict().items()}
     failed = []
     for label, state_np in (("seeded", seeded), ("trained", trained)):
+        if label not in sets:
+            continue
         card = _TiedRelu(F)
         got = _resnet_step(torch, state_np, x, y, trainer.device, relu=card,
                            arch=arch)
@@ -6166,19 +6232,20 @@ FT_LM_ARGS = list(TRAIN_ARGS)
 FT_LM_ARGS[FT_LM_ARGS.index("--model_depth") + 1] = "2"
 FT_SIGTERM_STEP = 8
 # 9b: the reference's path (train.py --epochs 3 --batch_size 64, SGD
-# 0.01) on synthetic MNIST cut from 60,000 to 6,400 images (100 steps an
-# epoch; 12,800 until phase 13 joined the script), every run under the
+# 0.01) on synthetic MNIST cut from 60,000 to 3,200 images (50 steps an
+# epoch; 6,400 until phase 14 joined the script, 12,800 until phase 13),
+# every run under the
 # supervisor (one worker process, as the drills run), cuDNN deterministic
 # (without it two uninterrupted runs part by ~6e-8: a conv backward's
 # order); the kill lands in epoch 1, the stall in epoch 1.
 FT_CNN_ARGS = ["--model", "simple_cnn", "--synthetic_data",
-               "--synthetic_size", "6400", "--epochs", "3", "--batch_size",
+               "--synthetic_size", "3200", "--epochs", "3", "--batch_size",
                "64", "--log_interval", "300", "--deterministic"]
-FT_KILL_STEP = 150
-FT_STALL = "stall:input@step125:30s"
+FT_KILL_STEP = 75
+FT_STALL = "stall:input@step62:30s"
 # 9c: two gloo ranks on the one card at 32 each (global 64), 3 epochs of
-# 100 steps; rank 1 is lost in epoch 1, a host comes back at epoch 2.
-FT_ELASTIC_CHAOS = "shrink:rank1@step150,grow:+1@epoch2"
+# 50 steps; rank 1 is lost in epoch 1, a host comes back at epoch 2.
+FT_ELASTIC_CHAOS = "shrink:rank1@step75,grow:+1@epoch2"
 # 9d: phase 7a's ViT-Tiny recipe with the EMA and keep_best.
 FT_EMA_DECAY = 0.999
 FT_EMA_TOL = 1e-6  # relative norm error, card fp32 EMA vs fp64 recurrence
@@ -7097,15 +7164,21 @@ def check_fault_tolerance(torch, card) -> dict:
 
 # The synthetic 224² set (data/imagenet.synthetic, JAX's bytes), written
 # once as the preprocessed arrays --dataset imagenet reads memory-mapped
-# (--data_root): 2,048 train images (308 MB of uint8), the test split a
+# (--data_root): 1,024 train images (154 MB of uint8; 2,048 until phase 14
+# joined the script), the test split a
 # quarter of it, as the registry sizes a synthetic one. 10d-10e's short
 # runs read a 64-image split.
-IMAGENET_TRAIN = 2048
+IMAGENET_TRAIN = 1024
 IMAGENET_SMALL = 64
 # 10a: ResNet-50 with the ImageNet stem, He et al. 2016's recipe (SGD
 # momentum 0.9, weight decay 1e-4, lr 0.1 x batch / 256), batch 64 (a
 # 9.6 MB batch: the native pool's gate opens at 7 images), the loader
-# path with --num_workers 2, two epochs of 32 steps.
+# path with --num_workers 2, two epochs of 16 steps (32 until phase 14
+# joined the script).
+# The batches of 10a's card-vs-fp64 step gate, from the trained weights
+# (the seeded weights' reading was left out when phase 14 joined the
+# script; --step-spread reads both weight sets).
+RESNET50_GATE_BATCHES = (2, 4)
 RESNET50_ARGS = ["--model", "resnet50", "--dataset", "imagenet",
                  "--batch_size", "64", "--epochs", "2", "--lr", "0.025",
                  "--momentum", "0.9", "--weight_decay", "1e-4", "--augment",
@@ -7209,7 +7282,7 @@ def check_resnet50(torch, card, data, tmp) -> tuple[dict, list, object]:
     main() on the loader path with --num_workers 2: the pool's batch
     counter = the steps, losses finite and falling, the bf16 run's
     resume exact, the pool's batches = the Python gather's, one step on
-    the card (fp32) vs the CPU's fp64 step (batches 2 and 4, ReLU masks
+    the card (fp32) vs the CPU's fp64 step (RESNET50_GATE_BATCHES, ReLU masks
     tied, CNN_STEP_TOL) from the trained weights (from the seeded ones a
     reading) → (readings, failures, the fp32 trainer)."""
     readings, failed = {}, []
@@ -7246,10 +7319,11 @@ def check_resnet50(torch, card, data, tmp) -> tuple[dict, list, object]:
             # with live BatchNorm scales, fp32's own error on ResNet-50
             # is 1.0e-4 to 3.3e-4 of the gradient at batches 2-16: that
             # set is printed, not held.
-            for batch in (2, 4):
+            for batch in RESNET50_GATE_BATCHES:
                 failed += check_resnet_step(
                     torch, trainer, batch=batch, tag=f"imagenet batch {batch}",
-                    gated=("trained",), control="trained", against="fp64")
+                    gated=("trained",), control="trained", against="fp64",
+                    sets=("trained",))
         torch.cuda.empty_cache()
     return readings, failed, trainer
 
@@ -7559,12 +7633,13 @@ LC_PLAIN_BATCH = 4
 # a reading beside the bound, not the bound.
 H100_EXP_PER_S = 3.9e12
 # 11d: bench.py run_lm_long_bench (:584), run_lm_bench's model at T 8192:
-# vocab 8192, d 1024, depth 8, 8 heads (D 128), batch 2, bf16, Adam 3e-4,
-# causal; 8 sequences = 4 steps.
+# vocab 8192, d 1024, depth 4 (of 8: a cut, since phase 14 joined the
+# script), 8 heads (D 128), batch 2, bf16, Adam 3e-4, causal; 8
+# sequences = 4 steps.
 LM_LONG_ARGS = [
     "--model", "causal_lm", "--dataset", "synthetic_seq",
     "--synthetic_size", "8", "--seq_len", "8192", "--vocab_size", "8192",
-    "--model_dim", "1024", "--model_depth", "8", "--num_heads", "8",
+    "--model_dim", "1024", "--model_depth", "4", "--num_heads", "8",
     "--batch_size", "2", "--epochs", "1", "--optimizer", "adam",
     "--lr", "3e-4", "--compute_dtype", "bfloat16",
 ]
@@ -7958,8 +8033,9 @@ def check_long_context(torch, card) -> dict:
 # sharing one card, and of every run sharing it too (all at once, 12d's
 # world of ranks beside them): no scaling figure.
 # Cuts, for the phase's time: one epoch of 2 steps each (12a 64
-# sequences, 12b 4, 12c 32); 12a in bf16; 12b at depth 2 (of 8), 12c at
-# depth 2 (of 5m's 4: block 2 routed).
+# sequences, 12b 4, 12c 32); 12a
+# in bf16; 12b at depth 2 (of 8), 12c at depth 2 (of 5m's 4: block 2
+# routed).
 GLOO = ["--backend", "gloo"]
 P12_LC_ARGS = list(LC_ARGS) + ["--mesh_seq", "4", "--compute_dtype",
                                "bfloat16"]
@@ -8006,12 +8082,12 @@ HOP12B_SHAPE = ("12b ring hop T=S=4096 D 128", 2, 4096, 4096, 8, 128, False)
 # P12_WORLD processes on the card (the data axis the rest), B1-B3 in
 # fp32, against world 1 through the plain attention, STEP_TOL["fp32"].
 # Cuts: depth 2; the long-context batch 32 -> 2; the LM's 2 -> 1 a
-# replica; the routed LM's 8 -> 1 a replica (its depth 4 -> 2: block 2
-# routed).
+# replica, at T 4096 (8192 until phase 14 joined the script); the routed
+# LM's 8 -> 1 a replica (its depth 4 -> 2: block 2 routed).
 P12_WORLD = 4
 P12_LC = dict(num_classes=10, total_len=8192, d_in=16, d_model=64, depth=2,
               num_heads=4)
-P12_LM = dict(vocab_size=8192, total_len=8192, d_model=1024, depth=2,
+P12_LM = dict(vocab_size=8192, total_len=4096, d_model=1024, depth=2,
               num_heads=8)
 P12_MOE = dict(vocab_size=8192, total_len=2048, d_model=1024, depth=2,
                num_heads=8, num_kv_heads=2, num_experts=8, moe_every=2)
@@ -8089,6 +8165,297 @@ P12_CHECKS.update({
 })
 
 
+# Phase 14, GSPMD for the image family, rides phase 12's wave and 12d's
+# world too. 14a: ViT-Tiny at 7a's width (CIFAR-100, 32², patch 4, T 65,
+# d 192, depth 12, 3 heads, bf16) at --mesh_model 3 --spawn 3: whole
+# heads, one a rank, so B1-B3 run on [b, 65, 1, 64]; 14b: vit_moe_tiny
+# (7c's: 8 experts, top-2, depth 4) at --mesh_expert 2 --spawn 2, 4
+# experts a rank; 14c: ResNet-18 at 7b's recipe on CIFAR-10 at
+# --mesh_fsdp 2 and under --zero1, --spawn 2 each. Cuts: one epoch of 2
+# steps each, 64 images a data replica.
+P14A_ARGS = list(VIT_ARGS) + ["--model_depth", "12"]
+P14B_ARGS = list(VIT_MOE_ARGS)
+P14C_ARGS = list(RESNET_ARGS)
+for _args, _size in ((P14A_ARGS, "128"), (P14B_ARGS, "256"),
+                     (P14C_ARGS, "256")):
+    _args[_args.index("--synthetic_size") + 1] = _size
+    _args[_args.index("--batch_size") + 1] = "64"
+    _args[_args.index("--epochs") + 1] = "1"
+P12_RUNS.update({
+    "14a_vit_model3": (P14A_ARGS, ["--mesh_model", "3"], 3),
+    "14b_moe_expert2": (P14B_ARGS, ["--mesh_expert", "2"], 2),
+    "14c_resnet_fsdp2": (P14C_ARGS, ["--mesh_fsdp", "2"], 2),
+    "14c_resnet_zero1": (P14C_ARGS, ["--zero1"], 2),
+})
+# 14a's heads a rank (whole heads: 3 over --mesh_model 3).
+P14A_SHAPE = "64x65x1x64"
+# 14d, in 12d's world: one fp32 step (SGD 0.1, B1-B3 in fp32) of each
+# GSPMD mesh from the same seeded weights on the global batch of
+# P14_ROWS images (so 1 a data replica at data 4, 2 at model 2 x fsdp
+# 2), against world 1's exact step on it (the plain attention; the MoE
+# with the mesh's global routing replayed, ResNet with its ReLU masks
+# tied to the mesh's), STEP_TOL["fp32"] on the loss, the whole gradient
+# and the worst leaf; under --zero1 the updated parameters within
+# P12_PARAM_ATOL too. Controls that must fail: BatchNorm by each rank's
+# own moments, MoE capacity and slot order per rank, an fsdp gradient
+# unscaled by its axis, a --zero1 update without the parameter
+# all-gather. Cuts: ViT-Tiny and vit_moe_tiny at depth 2 (block 2
+# routed), the MoE at capacity factor P14_MOE_CF (tokens drop).
+# B1-B3 alone at 14a's shape: 64 images a rank, T 65, one head of 64.
+P14A_FLASH_SHAPE = ("14a ViT-Tiny one head a rank T=S=65 D 64", 64, 65, 65,
+                    1, 64, False)
+P14_ROWS = 4
+P14_MOE_CF = 1.0
+P14_CHECKS = {  # label: (family, mesh axes, zero1, control)
+    # ViT-Tiny's 3 heads do not divide model 2: qkv is gathered.
+    "14d vit model 2 x fsdp 2": ("vit14", dict(model=2, fsdp=2), False,
+                                 None),
+    "14d vit model 2 x fsdp 2, an fsdp gradient unscaled":
+        ("vit14", dict(model=2, fsdp=2), False, "drop_scale"),
+    "14d vit_moe expert 2 x data 2": ("moe14", dict(expert=2), False, None),
+    "14d vit_moe expert 2 x data 2, capacity and slots per rank":
+        ("moe14", dict(expert=2), False, "local_routing"),
+    "14d resnet18 fsdp 4": ("rn14", dict(fsdp=4), False, None),
+    "14d resnet18 fsdp 4, BN by the rank's own moments":
+        ("rn14", dict(fsdp=4), False, "local_bn"),
+    "14d simple_cnn zero1 data 4": ("cnn14", {}, True, None),
+    "14d simple_cnn zero1 data 4, no parameter all-gather":
+        ("cnn14", {}, True, "skip_gather"),
+    "14d vit zero1 data 4": ("vit14", {}, True, None),
+}
+# 14e, in 12d's world: shard_decode_attention at model 2 (data 2) and 4,
+# B4 and B5, at phase 3's shapes (S 8, H 8, Dh 128; H_kv 8 and 2; L 256
+# and 8192; every lane at L-1); the gathered heads bitwise the world-1
+# kernel's, within KERNEL_ATOL of the plain version's; H_kv 2 at model
+# 4 is JAX's whole-head call; an off-by-one head offset must fail.
+P14E_CASES = [(tp, kv, L, q8) for tp in (2, 4) for kv in (8, 2)
+              for L in (256, 8192) for q8 in (False, True)]
+
+
+def _p14_model(torch, family, cfgs):
+    """(the model with its seeded full state loaded, on the CPU, the
+    state) of a 14d family."""
+    from ddp_tpu_torch.models import get_model
+
+    name, kw = {"vit14": ("vit_tiny", dict(num_classes=100, side=32,
+                                           in_channels=3, depth=2)),
+                "moe14": ("vit_moe_tiny", dict(
+                    num_classes=100, side=32, in_channels=3, depth=2,
+                    capacity_factor=cfgs["moe_cf"])),
+                "rn14": ("resnet18", dict(num_classes=10, side=32,
+                                          in_channels=3)),
+                "cnn14": ("simple_cnn", dict(num_classes=10, side=28,
+                                             in_channels=1))}[family]
+    model = get_model(name, **kw)
+    state = model.init_state(seed=14)
+    if family == "rn14":
+        state = _live_bn_scales(state)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model, state
+
+
+def _p14_batch(torch, family, dev):
+    rng = np.random.default_rng(140)
+    side, ch, classes = {"cnn14": (28, 1, 10), "rn14": (32, 3, 10)}.get(
+        family, (32, 3, 100))
+    x = rng.integers(0, 256, (P14_ROWS, side, side, ch), dtype=np.uint8)
+    y = rng.integers(0, classes, P14_ROWS)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def _p14_controls(torch, control):
+    """(owner, name, value) patches of a 14d control; the model patches
+    (applied after the model takes its GSPMD form) separately."""
+    from ddp_tpu_torch.parallel import seq_fsdp
+    from ddp_tpu_torch.train.optim import Zero1Optimizer
+
+    if control == "drop_scale":
+        return ((seq_fsdp, "FAULT", control),)
+    if control == "skip_gather":
+        return ((Zero1Optimizer, "FAULT", control),)
+    return ()
+
+
+def _p14_local(model, control) -> None:
+    """A model-level 14d control: BatchNorm by the rank's own moments, or
+    MoE routing over the rank's own tokens."""
+    from ddp_tpu_torch.models.moe import MoEMLP
+    from ddp_tpu_torch.models.resnet import BatchNorm
+    from ddp_tpu_torch.runtime.dist import LocalComm
+
+    for m in model.modules():
+        if control == "local_bn" and isinstance(m, BatchNorm):
+            m.sync = LocalComm()
+        if control == "local_routing" and isinstance(m, MoEMLP):
+            m.spmd.data = LocalComm()
+
+
+def _p14d_step(torch, label, mesh, dev, cfgs, masks, routes) -> tuple:
+    """One 14d mesh step on this rank → (loss, full gradients, full
+    parameters after the update), on the CPU; records the ResNet's ReLU
+    masks and the MoE's routing of the uncontrolled runs."""
+    from ddp_tpu_torch.models import moe as tmoe
+    from ddp_tpu_torch.models import resnet
+    from ddp_tpu_torch.parallel import spmd
+    from ddp_tpu_torch.parallel.ddp import TrainState
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    family, _, zero1, control = P14_CHECKS[label]
+    model, _ = _p14_model(torch, family, cfgs)
+    layout = spmd.shard_model(model, mesh, zero1=zero1)
+    _p14_local(model, control)
+    model = model.to(dev)
+    opt = make_optimizer(model.parameters(), "sgd", lr=0.1,
+                         zero1_layout=layout if zero1 else None)
+    opt.norm = layout.norm
+    x, y = _p14_batch(torch, family, dev)
+    per = P14_ROWS // mesh.data_size
+    rows = slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
+    tied = _TiedRelu(resnet.F)
+    real_route = tmoe.route_global
+
+    def route(*a, **kw):
+        r = real_route(*a, **kw)
+        if control is None:
+            routes.append((label, mesh.data_rank, r._replace(
+                expert=r.expert.cpu(), slot=r.slot.cpu(), kept=r.kept.cpu(),
+                gates=r.gates.cpu(), aux=r.aux.cpu())))
+        return r
+
+    patches = [(tmoe, "route_global", route)]
+    if family == "rn14":
+        patches.append((resnet, "F", tied))
+    with _patched(*patches, *_p14_controls(torch, control)):
+        m = spmd.make_spmd_train_step(TrainState(0, model, opt), mesh)(
+            x[rows], y[rows])
+        named = dict(model.named_parameters())
+        grads = layout.gather({n: p.grad for n, p in named.items()})
+        params = layout.gather({n: p.detach() for n, p in named.items()})
+    if family == "rn14" and control is None:
+        masks[label] = (mesh.data_rank, tied.masks)
+    return (float(m.loss), {k: v.detach().cpu() for k, v in grads.items()},
+            {k: v.detach().cpu() for k, v in params.items()})
+
+
+def _p14e_checks(torch, mesh_of, dev) -> dict:
+    """14e on this rank of 12d's world (``mesh_of(axes)``: its mesh of
+    those axes): each P14E_CASES shard call's launches, and whether its
+    gathered heads equal the world-1 kernel's bits, the plain version's
+    within KERNEL_ATOL, and (the control) part from them under an
+    off-by-one head offset."""
+    from ddp_tpu_torch.ops import decode as dec
+
+    out = {}
+    meshes = {tp: mesh_of(dict(model=tp)) for tp in (2, 4)}
+    S, H, Dh = 8, 8, 128
+    for tp, kv, L, q8 in P14E_CASES:
+        # Drawn on the device: the wave's processes share the host's cores.
+        g = torch.Generator(device=dev).manual_seed(14 + kv + L)
+        q, k, v = (torch.randn(shape, generator=g, device=dev) for shape in
+                   ((S, H, Dh), (S, L, kv, Dh), (S, L, kv, Dh)))
+        scales = (None, None)
+        if q8:
+            (k, ks), (v, vs) = dec.quantize_kv(k), dec.quantize_kv(v)
+            scales = (ks, vs)
+        pos = torch.full((S,), L - 1, dtype=torch.int32, device=dev)
+        whole = dec.flash_decode_attention(q, k, v, pos, *scales)
+        plain = dec.decode_attention_reference(q, k, v, pos, *scales)
+        fn = dec.shard_decode_attention(meshes[tp], impl="flash")
+        before = dict(dec.flash_decode_attention.launches)
+        w0 = dec.shard_decode_attention.whole
+        got = fn(q, k, v, pos, *scales)
+        torch.cuda.synchronize()
+        launched = {n: dec.flash_decode_attention.launches[n] - before[n]
+                    for n in before}
+        whole_calls = dec.shard_decode_attention.whole - w0
+        dec.SHARD_FAULT = "offset"
+        try:
+            bad = fn(q, k, v, pos, *scales)
+        finally:
+            dec.SHARD_FAULT = None
+        out[(tp, kv, L, q8)] = dict(
+            launches=sum(launched.values()),
+            whole=whole_calls,
+            bitwise=bool(torch.equal(got, whole)),
+            plain_err=float((got - plain).abs().max()),
+            control_err=float((bad - whole).abs().max()))
+        del k, v, whole, plain, got, bad
+    return out
+
+
+def _replayed_global(torch, olds, tokens, router_weight, router_bias,
+                     num_experts, normalize_gates, capacity_factor):
+    """The mesh's global routing (``olds``: each data replica's, in its
+    rank order) on world 1's ``tokens`` (all of them): the experts and
+    kept assignments concatenated, the slots numbered in the global
+    k-major order, the gates and aux loss recomputed from this router."""
+    from ddp_tpu_torch.models import moe as tmoe
+
+    expert = torch.cat([o.expert for _, o in olds], 1).to(tokens.device)
+    kept = torch.cat([o.kept for _, o in olds], 1).to(tokens.device)
+    K, n = expert.shape
+    masks = (expert[..., None] == torch.arange(
+        num_experts, device=tokens.device)).float()
+    flat = masks.reshape(K * n, num_experts)
+    pos = (flat.cumsum(0) - flat).reshape(K, n, num_experts)
+    slot = (pos * masks * kept[..., None]).sum(-1).long()
+    C = tmoe.expert_capacity(n, num_experts, K, capacity_factor)
+    old = tmoe.Routing(expert, slot, kept, None, None, C)
+    return _replayed(torch, old, tokens, router_weight, router_bias,
+                     num_experts, normalize_gates)
+
+
+def _p14d_reference(torch, label, dev, cfgs, masks, routes) -> tuple:
+    """World 1's exact fp32 step (SGD 0.1, the plain attention) of a 14d
+    label's family on the global batch → (loss, gradients, updated
+    parameters), with the mesh's routing or ReLU masks held."""
+    from ddp_tpu_torch.models import moe as tmoe
+    from ddp_tpu_torch.models import resnet
+    from ddp_tpu_torch.ops import flash as fl
+    from ddp_tpu_torch.parallel.ddp import TrainState, make_train_step
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    family = P14_CHECKS[label][0]
+    model, _ = _p14_model(torch, family, cfgs)
+    model = model.to(dev)
+    for name in getattr(model, "block_names", ()):
+        block = getattr(model, name)
+        if hasattr(block, "attn"):
+            block.attn.attention_fn = \
+                lambda q, k, v: fl.attention_with_lse_reference(q, k, v,
+                                                                False)[0]
+    patches, tied = [], None
+    if family == "rn14":
+        ranks = sorted(masks[label][1], key=lambda p: p[0])
+        tied = _TiedRelu(resnet.F, [torch.cat(parts, 0) for parts in
+                                    zip(*(m for _, m in ranks))])
+        patches.append((resnet, "F", tied))
+    if family == "moe14":
+        # Each data replica's routings in call order, replica-major: call
+        # i's global routing is every replica's i-th.
+        mine = sorted(((r, o) for lab, r, o in routes if lab == label),
+                      key=lambda p: p[0])
+        ncalls = len(mine) // len({r for r, _ in mine})
+        it = iter([mine[i::ncalls] for i in range(ncalls)])
+
+        def held(tokens, router_weight, router_bias, *, num_experts, top_k,
+                 capacity_factor, normalize_gates):
+            return _replayed_global(torch, next(it), tokens, router_weight,
+                                    router_bias, num_experts,
+                                    normalize_gates, capacity_factor)
+
+        patches.append((tmoe, "route", held))
+    opt = make_optimizer(model.parameters(), "sgd", lr=0.1)
+    with _patched(*patches):
+        m = make_train_step(TrainState(0, model, opt),
+                            reduce=lambda t: t)(*_p14_batch(torch, family,
+                                                            dev))
+    named = dict(model.named_parameters())
+    out = (float(m.loss), {n: p.grad.detach().cpu() for n, p in named.items()},
+           {n: p.detach().cpu() for n, p in named.items()})
+    return out, (tied.flips if tied else None)
+
+
 def _lm_cfg(cfgs, family) -> dict:
     """The LMSpec fields of a 12d/13c LM family."""
     base = _p13_base(family)
@@ -8108,7 +8475,8 @@ def _rank_trace(path) -> dict:
     training (before the last ``train_step`` span ends) and in all, its
     step p50 (the host spans, ms: with the exchanges staged through the
     host a step's span waits for its device work) and its busy share
-    (the union of its kernels over the training window)."""
+    (the union of its kernels over the steps' window), both without the
+    first step, the warm-up, where a run took more than one."""
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
@@ -8116,7 +8484,8 @@ def _rank_trace(path) -> dict:
                    and e.get("cat") == "user_annotation")
     kernels = sorted((e["ts"], e["ts"] + e.get("dur", 0), e.get("name", ""))
                      for e in events if e.get("cat") == "kernel")
-    lo, hi = spans[0][0], spans[-1][1]
+    timed = spans[1:] or spans
+    lo, hi = timed[0][0], spans[-1][1]
     busy, reach = 0.0, lo
     for a, b, _ in kernels:
         a, b = max(a, reach, lo), min(b, hi)
@@ -8131,8 +8500,8 @@ def _rank_trace(path) -> dict:
                 count[key] += 1
                 train[key] += a < hi
     return dict(train=train, total=count,
-                step_p50_ms=float(np.median([b - a for a, b in spans])) / 1e3,
-                busy=busy / (hi - lo), steps=len(spans))
+                step_p50_ms=float(np.median([b - a for a, b in timed])) / 1e3,
+                busy=busy / (hi - lo), steps=len(spans), timed=len(timed))
 
 
 def _p12_expected(name, depth, steps, rank) -> int:
@@ -8148,6 +8517,8 @@ def _p12_expected(name, depth, steps, rank) -> int:
         return depth * steps * (rank // 2 + 1)
     if name == "13a_fsdp2_seq2":  # rank = fsdp · 2 + seq
         return depth * steps * (rank % 2 + 1)
+    if name.startswith("14c"):  # ResNet: no attention
+        return 0
     return depth * steps
 
 
@@ -8214,7 +8585,8 @@ def _p12_readings(torch, tmp, name, code, lines, span) -> tuple[dict, list]:
                           f"training, not B1 = B2 = B3 = {want} in bf16")
         ranks.append(dict(t, want=want))
         log(f"[mesh] {name} rank {r}/{world}: step p50 "
-            f"{t['step_p50_ms']:.3f} ms over {t['steps']} steps, busy share "
+            f"{t['step_p50_ms']:.3f} ms over {t['timed']} of its {t['steps']} "
+            f"steps (the warm-up left out), busy share "
             f"{t['busy']:.3f}, B1-B3 in training "
             f"{[t['train'][f'{n}_bf16'] for n in FLASH_NAMES]} (want "
             f"{want} each), in all "
@@ -8235,7 +8607,8 @@ def _p12_cfgs() -> dict:
     """12d's model configurations by family (passed to the spawned
     ranks, so that a rehearsal's cut sizes reach them)."""
     return dict(lc=dict(P12_LC), lm=dict(P12_LM), moe=dict(P12_MOE),
-                lm13=dict(P13_LM), vit=dict(P13_VIT), clip=P13_CLIP)
+                lm13=dict(P13_LM), vit=dict(P13_VIT), clip=P13_CLIP,
+                moe_cf=P14_MOE_CF)
 
 
 def _p12d_models(torch, family, state, dev, cfgs):
@@ -8381,13 +8754,22 @@ def _p12d_worker(rank, world, out, device, cfgs):
         except Exception as e:  # noqa: BLE001 — the reading
             results["gloo_reduce_scatter_tensor"] = \
                 f"refuses it: {type(e).__name__}: {str(e)[:160]}"
-        inputs = {}
+        inputs, meshes = {}, {}
+
+        def mesh_of(axes):
+            # One mesh (and its process groups) a set of axes: every rank
+            # makes them in the same order, as new_group requires.
+            key = tuple(sorted(axes.items()))
+            if key not in meshes:
+                meshes[key] = dist_mesh(mesh_sizes(world, **axes), rank)
+            return meshes[key]
+
         for label, (family, axes, control) in P12_CHECKS.items():
             base = _p13_base(family)
             if base not in inputs:
                 inputs[base] = _p12d_inputs(torch, base, ctx.device, cfgs)
             state, batch = inputs[base]
-            mesh = dist_mesh(mesh_sizes(world, **axes), rank)
+            mesh = mesh_of(axes)
             build, step_of = _p12d_models(torch, family, state, ctx.device,
                                           cfgs)
             model = build(mesh)
@@ -8438,6 +8820,15 @@ def _p12d_worker(rank, world, out, device, cfgs):
             if torch.cuda.is_available():  # the wave beside shares the card
                 torch.cuda.empty_cache()
         torch.save(routes, f"{out}/12d_routes{rank}.pt")
+        p14_masks, p14_routes = {}, []
+        for label, (_, axes, _, _) in P14_CHECKS.items():
+            mesh = mesh_of(axes)
+            results[label] = _p14d_step(torch, label, mesh, ctx.device, cfgs,
+                                        p14_masks, p14_routes)
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+        p14e = _p14e_checks(torch, mesh_of, ctx.device)
+        torch.save((p14_masks, p14_routes, p14e), f"{out}/14d_rank{rank}.pt")
         if rank == 0:
             results["13c_states"] = states
             torch.save(results, f"{out}/12d_steps.pt")
@@ -8793,6 +9184,162 @@ def check_fsdp_zero_runs(torch, tmp, runs) -> tuple[dict, list]:
     return out, failed
 
 
+def _p14_state_want(name, args, sizes, rank, zero1=False) -> dict:
+    """The bytes a rank of a phase-14 run holds at rest by the specs: its
+    parameters and its SGD momentum (the parameter's shard, or under
+    --zero1 the ZeRO-1 slice)."""
+    from ddp_tpu_torch.models import get_model
+    from ddp_tpu_torch.parallel import spmd
+    from ddp_tpu_torch.runtime.mesh import Mesh
+
+    kw = dict(num_classes=100 if "cifar100" in args else 10, side=32,
+              in_channels=3)
+    if "--model_depth" in args:
+        kw["depth"] = int(args[args.index("--model_depth") + 1])
+    model = get_model(name, **kw)
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    layout = spmd.SpmdLayout(shapes, list(shapes), Mesh(sizes, rank),
+                             zero1=zero1)
+
+    def local(n, specs):
+        div = 1
+        for a in specs.get(n, ()):
+            div *= sizes[a] if a else 1
+        return int(np.prod(shapes[n])) // div * 4
+
+    return dict(params=sum(local(n, layout.specs) for n in shapes),
+                optimizer=sum(local(n, layout.state_specs) for n in shapes))
+
+
+def check_p14_runs(torch, tmp, runs) -> tuple[dict, list]:
+    """14a-14c beyond their launches: every rank's bytes of parameters and
+    momentum at rest against the specs', 14a's launches all at one head
+    a rank ([b, 65, 1, 64]) and its checkpoint restored by a world-1 run
+    to the same parameters, bit for bit; the losses finite."""
+    from ddp_tpu_torch.runtime.mesh import mesh_sizes
+
+    failed, out = [], {}
+    cases = {"14a_vit_model3": ("vit_tiny", P14A_ARGS, dict(model=3), False),
+             "14b_moe_expert2": ("vit_moe_tiny", P14B_ARGS, dict(expert=2),
+                                 False),
+             "14c_resnet_fsdp2": ("resnet18", P14C_ARGS, dict(fsdp=2),
+                                  False),
+             "14c_resnet_zero1": ("resnet18", P14C_ARGS, {}, True)}
+    for run, (name, args, axes, zero1) in cases.items():
+        if not runs.get(run):
+            failed.append(f"{run}: the run failed: no state readings")
+            continue
+        world = P12_RUNS[run][2]
+        sizes = mesh_sizes(world, **axes)
+        st = _rank_state(tmp, run, world)
+        out[run] = [{k: v for k, v in b.items()} for b in st]
+        for r, b in enumerate(st):
+            want = _p14_state_want(name, args, sizes, r, zero1)
+            shapes = b.get("flash_launch_shapes", {})
+            log(f"[mesh] {run} rank {r}: at rest {b['params']} bytes of "
+                f"parameters, {b['optimizer']} of momentum (the specs give "
+                f"{want['params']} and {want['optimizer']}); B1-B3 by q's "
+                f"shape {shapes}")
+            if (b["params"], b["optimizer"]) != (want["params"],
+                                                 want["optimizer"]):
+                failed.append(f"{run} rank {r}: state {b['params']}, "
+                              f"{b['optimizer']} is not the specs' {want}")
+            if run.startswith("14a") and any(
+                    set(v) != {P14A_SHAPE} for v in shapes.values()):
+                failed.append(f"{run} rank {r}: B1-B3 on {shapes}, not "
+                              f"one head a rank ({P14A_SHAPE})")
+        blob = torch.load(f"{tmp}/{run}/epoch_0/state.pt", weights_only=True)
+        with open(f"{tmp}/{run}.jsonl") as f:
+            losses = [r["loss"] for r in map(json.loads, f)
+                      if r.get("kind") == "step"]
+        log(f"[mesh] {run}: step losses {losses}")
+        if not losses or not all(np.isfinite(losses)):
+            failed.append(f"{run}: losses {losses}")
+        if run.startswith("14a"):
+            trainer, _ = _train(["--checkpoint_dir", f"{tmp}/{run}",
+                                 "--epochs", "1", "--synthetic_size", "128"],
+                                base=P14A_ARGS)
+            bad = [k for k, v in trainer.state.model.state_dict().items()
+                   if not torch.equal(v.cpu(), blob["params"][k])]
+            log(f"[mesh] 14a: rank 0's checkpoint restored by a world-1 "
+                f"run: {len(bad)} parameters differ")
+            if bad or trainer.state.step != blob["step"]:
+                failed.append(f"14a: the world-1 restore differs: {bad[:4]}")
+            out["14a_resume_differs"] = len(bad)
+            del trainer
+    return out, failed
+
+
+def check_p14_steps(torch, tmp, dev="cuda") -> tuple[dict, list]:
+    """14d (each P14_CHECKS mesh step against world 1's exact step, the
+    controls failing) and 14e (shard_decode_attention's launches, bits
+    and control) from 12d's world's files."""
+    got = torch.load(f"{tmp}/12d_steps.pt", weights_only=False)
+    masks, routes, p14e = {}, [], []
+    for r in range(P12_WORLD):
+        m, rt, e = torch.load(f"{tmp}/14d_rank{r}.pt", weights_only=False)
+        for label, (dr, mk) in m.items():
+            masks.setdefault(label, (None, []))[1].append((dr, mk))
+        routes += rt
+        p14e.append(e)
+    cfgs = _p12_cfgs()
+    tol = STEP_TOL["fp32"]
+    readings, failed, refs = {}, [], {}
+    for label, (family, _, zero1, control) in P14_CHECKS.items():
+        base = label.split(",")[0]  # a control's uncontrolled run
+        if base not in refs:
+            refs[base] = _p14d_reference(torch, base, dev, cfgs, masks,
+                                         routes)
+        want, flips = refs[base]
+        e = _grad_errors(got[label][:2], want[:2])
+        d = max(float((got[label][2][n] - w).abs().max())
+                for n, w in want[2].items())
+        ok = _within(e, tol) and (not zero1 or d <= P12_PARAM_ATOL)
+        extra = ""
+        if family == "moe14" and control is None:
+            drops = sum(int((~o.kept).sum()) for lab, _, o in routes
+                        if lab == label)
+            total = sum(o.kept.numel() for lab, _, o in routes
+                        if lab == label)
+            extra = f", {drops} of {total} (token, k) dropped"
+            readings[label + " dropped"] = drops
+            if not drops:
+                failed.append(f"{label}: no token dropped at capacity "
+                              f"factor {P14_MOE_CF}")
+        if flips is not None:
+            extra += f", {flips} ReLU sign(s) of world 1 off the mesh's masks"
+        readings[label] = dict(loss=e["loss"], grad=e["grad"],
+                               leaf=e["leaf"], params=d)
+        log(f"[mesh] {label}: {_errors_text(e)}, updated parameters max "
+            f"|diff| {d:.3e}{extra}"
+            + (" (a control: must fail)" if control else ""))
+        if ok == bool(control):
+            failed.append(f"{label}: " + ("the control passes" if control
+                                          else _errors_text(e)))
+        torch.cuda.empty_cache()
+    by_rank = {}
+    for r, cases in enumerate(p14e):
+        for (tp, kv, L, q8), c in cases.items():
+            key = (f"model {tp}, H_kv {kv}, L {L}, "
+                   + ("int8 (B5)" if q8 else "fp32 (B4)"))
+            whole = kv % tp != 0
+            by_rank.setdefault(key, []).append(c["launches"])
+            ok = (c["launches"] == 1 and c["bitwise"]
+                  and c["plain_err"] <= KERNEL_ATOL
+                  and c["whole"] == int(whole)
+                  and (whole or c["control_err"] > KERNEL_ATOL))
+            if r == 0 or not ok:
+                log(f"[mesh] 14e rank {r} {key}: {c['launches']} launch(es)"
+                    f"{' (the whole-head call)' if whole else ''}, bitwise "
+                    f"the world-1 kernel's: {c['bitwise']}, max |err| vs "
+                    f"plain {c['plain_err']:.2e}, off-by-one head offset "
+                    f"{c['control_err']:.2e}")
+            if not ok:
+                failed.append(f"14e rank {r} {key}: {c}")
+    readings["14e_launches_by_rank"] = by_rank
+    return readings, failed
+
+
 def check_mesh(torch, card) -> dict:
     """Phase 12, the sequence models across ranks: 12a the long-context
     model at README's command (--mesh_seq 4, ring and Ulysses), 12b the
@@ -8837,19 +9384,28 @@ def check_mesh(torch, card) -> dict:
                                                      "hop12a", seed=121)
             readings["flash"].update(check_and_time_flash(
                 torch, HOP12B_SHAPE, "hop12b", seed=122))
-            lap("hops timed")
+            readings["flash"].update(check_and_time_flash(
+                torch, P14A_FLASH_SHAPE, "vit14a", seed=141))
+            lap("hops and 14a's shape timed")
             readings["steps"], bad = check_mesh_steps(torch, tmp, world, w0,
                                                       dev)
         failed += bad
         lap("12d steps")
+        if not any(b.startswith("12d: ") for b in bad):
+            readings["phase14_steps"], bad = check_p14_steps(torch, tmp, dev)
+            failed += bad
+        readings["phase14"], bad = check_p14_runs(torch, tmp,
+                                                  readings["runs"])
+        failed += bad
+        lap("phase 14's checks")
         readings["spawned"], bad = check_mesh_spawn_params(torch, tmp,
                                                            spawned)
         failed += bad
         lap("12d spawned")
-    log(f"[mesh] phases 12 and 13: {time.perf_counter() - t0:.1f} s on "
+    log(f"[mesh] phases 12, 13 and 14: {time.perf_counter() - t0:.1f} s on "
         f"{card}")
     if failed:
-        raise AssertionError(f"phases 12 and 13: {failed}")
+        raise AssertionError(f"phases 12, 13 and 14: {failed}")
     return readings
 
 
@@ -9286,7 +9842,7 @@ def time_flash_main(argv) -> int:
 
 
 # --step-spread: the seeds 10b's and 10a's step checks are read at, on
-# the committed 2,048-image split (seed 0 twice: a rerun must repeat its
+# the committed IMAGENET_TRAIN-image split (seed 0 twice: a rerun must repeat its
 # reading), and the batches of ResNet-50's card-vs-fp64 step.
 SPREAD_VIT_SEEDS = (0, 0, 1, 2, 3, 4)
 SPREAD_RESNET_SEEDS = (0, 1)
@@ -9389,9 +9945,21 @@ def main() -> int:
         f"{nvcc.stdout.strip().splitlines()[-1]}")
 
     t0 = time.perf_counter()
-    seconds = _build.build()
+    # Both sources' nvcc start together; the decode phases (3-4h, which
+    # launch no flash-attention kernel) run beside flash_attn.cu's build,
+    # which phase 3b joins (a load of it before then waits for the build).
+    attn_build = {}
+
+    def build_attn():
+        try:
+            attn_build["seconds"] = _build.build(("flash_attn.cu",))
+        except BaseException as e:  # raised again by the join below
+            attn_build["error"] = e
+
+    builder = threading.Thread(target=build_attn, name="nvcc flash_attn.cu")
+    builder.start()
+    seconds = _build.build(("flash_decode.cu",))
     log(f"[build] {json.dumps(seconds)} (wall {time.perf_counter() - t0:.2f} s)")
-    log_ptxas(_build)
     log_decode_ptxas(_build)
 
     def timed(label, fn, *args):
@@ -9409,6 +9977,11 @@ def main() -> int:
     graphs = timed("phase 4f", check_graphs, torch, card)
     moe = timed("phase 4g", check_moe_serving, torch, card)
     timed("phase 4h", check_moe_layer, torch)
+    builder.join()
+    if "error" in attn_build:
+        raise attn_build["error"]
+    log(f"[build] {json.dumps(attn_build['seconds'])} (beside phases 3-4h)")
+    log_ptxas(_build)
     flash = timed("phase 3b", check_flash, torch)
     trained, served = timed("phases 5 and 8", check_lm_phases, torch, card)
     timed("phase 6", check_cnn, torch, card)
@@ -9431,6 +10004,13 @@ def main() -> int:
          **timings[name]}
         for name in ("flash_decode_fp32", "flash_decode_int8")
     ]
+    # Phase 14e: shard_decode_attention's launches by rank of 12d's world,
+    # each case's key "model tp, H_kv n, L n, fp32 (B4)|int8 (B5)".
+    for k, tag in ((kernels[0], "fp32"), (kernels[1], "int8")):
+        k["shard_decode_launches_by_rank"] = {
+            case: counts for case, counts in
+            mesh["phase14_steps"]["14e_launches_by_rank"].items()
+            if tag in case}
     # B4 is also the draft's decode attention on the speculative path
     # (phase 4d, truncated draft, fp32 and int8 target KV; phase 8c, the
     # trained draft, with phase 8d's named depth-2 engine).
@@ -9515,6 +10095,13 @@ def main() -> int:
             "mesh_launches_by_rank": {
                 run: [rk["train"][f"{name}_bf16"] for rk in r["ranks"]]
                 for run, r in mesh["runs"].items()},
+            # Phase 14: the GSPMD runs' training launches by rank (14a
+            # ViT-Tiny at --mesh_model 3, one head a rank; 14b vit_moe_tiny
+            # at --mesh_expert 2).
+            "gspmd_launches_by_rank": {
+                run: [rk["train"][f"{name}_bf16"]
+                      for rk in mesh["runs"][run]["ranks"]]
+                for run in ("14a_vit_model3", "14b_moe_expert2")},
             "variants": {
                 "fp32": {"launches": trained["fp32"][name],
                          **{k: flash["fp32"][name][k] for k in keys}},
@@ -9550,6 +10137,14 @@ def main() -> int:
                     **mesh["flash"][f"{hop}_{d}"][name]}
                    for hop, run, causal in (("hop12a", "12a_ring", False),
                                             ("hop12b", "12b_seq2", True))
+                   for d in ("bf16", "fp32")},
+                # Phase 14a's shape, one head a rank ([64, 65, 1, 64]);
+                # launches: 14a's over its 3 ranks (bf16).
+                **{f"vit14a_{d}": {
+                    "launches": sum(
+                        rk["train"][f"{name}_{d}"] for rk in
+                        mesh["runs"]["14a_vit_model3"]["ranks"]),
+                    **mesh["flash"][f"vit14a_{d}"][name]}
                    for d in ("bf16", "fp32")}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

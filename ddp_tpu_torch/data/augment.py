@@ -37,23 +37,27 @@ def step_key(seed: int, step: int, rank: int, micro: int = 0) -> int:
     return fold(seed, step, rank, micro, AUGMENT_STREAM)
 
 
-def _bits(key: int, n: int, device) -> torch.Tensor:
-    """n uniform uint32 values (in int64) from ``key``."""
-    ctr = mix32(torch.arange(n, device=device, dtype=torch.int64))
+def _bits(key: int, n: int, device, start: int = 0) -> torch.Tensor:
+    """Uniform uint32 values (in int64) ``start``..``start + n`` of
+    ``key``'s stream."""
+    ctr = mix32(torch.arange(start, start + n, device=device,
+                             dtype=torch.int64))
     return mix32(mix32(ctr ^ key) ^ key)
 
 
-def draw_offsets(key: int, n: int, pad: int, device) -> torch.Tensor:
+def draw_offsets(key: int, n: int, pad: int, device,
+                 start: int = 0) -> torch.Tensor:
     """[n, 2] int64 crop offsets (row, column), each uniform on
-    [0, 2·pad] (``jax.random.randint(rng, (B, 2), 0, 2 * pad + 1)``)."""
-    h = _bits(fold(key, _OFFSETS), 2 * n, device)
+    [0, 2·pad] (``jax.random.randint(rng, (B, 2), 0, 2 * pad + 1)``), of
+    images ``start``.. of the batch the key draws for."""
+    h = _bits(fold(key, _OFFSETS), 2 * n, device, 2 * start)
     return ((h * (2 * pad + 1)) >> 32).view(n, 2)
 
 
-def draw_flips(key: int, n: int, device) -> torch.Tensor:
+def draw_flips(key: int, n: int, device, start: int = 0) -> torch.Tensor:
     """[n] bool, each True with probability 1/2
-    (``jax.random.bernoulli(rng, 0.5, (B,))``)."""
-    return (_bits(fold(key, _FLIPS), n, device) >> 31) == 1
+    (``jax.random.bernoulli(rng, 0.5, (B,))``), of images ``start``.."""
+    return (_bits(fold(key, _FLIPS), n, device, start) >> 31) == 1
 
 
 def crop(images: torch.Tensor, offsets: torch.Tensor, pad: int,
@@ -78,23 +82,28 @@ def flip(images: torch.Tensor, flips: torch.Tensor) -> torch.Tensor:
     return torch.where(flips[:, None, None, None], images.flip(-1), images)
 
 
-def random_shift(key: int, images: torch.Tensor, *, pad: int = 2):
-    """Random translation by up to ``pad`` pixels (zero fill), no flip."""
-    return crop(images, draw_offsets(key, images.shape[0], pad, images.device),
-                pad)
+def random_shift(key: int, images: torch.Tensor, *, pad: int = 2,
+                 start: int = 0):
+    """Random translation by up to ``pad`` pixels (zero fill), no flip.
+    ``start``: the place of ``images`` in the batch the key draws for
+    (a GSPMD rank's rows of the global batch)."""
+    return crop(images, draw_offsets(key, images.shape[0], pad, images.device,
+                                     start), pad)
 
 
-def random_crop_flip(key: int, images: torch.Tensor, *, pad: int = 4):
+def random_crop_flip(key: int, images: torch.Tensor, *, pad: int = 4,
+                     start: int = 0):
     """Zero-pad by ``pad``, random-crop back, random horizontal flip
     (torchvision's ``RandomCrop(padding=4)`` + ``RandomHorizontalFlip``)."""
     n, dev = images.shape[0], images.device
-    return crop(images, draw_offsets(key, n, pad, dev), pad,
-                draw_flips(key, n, dev))
+    return crop(images, draw_offsets(key, n, pad, dev, start), pad,
+                draw_flips(key, n, dev, start))
 
 
-def random_flip(key: int, images: torch.Tensor):
+def random_flip(key: int, images: torch.Tensor, *, start: int = 0):
     """Horizontal flip only."""
-    return flip(images, draw_flips(key, images.shape[0], images.device))
+    return flip(images, draw_flips(key, images.shape[0], images.device,
+                                   start))
 
 
 AUGMENTATIONS = {

@@ -20,6 +20,12 @@ Takes numpy arrays only — nested dicts, or a flat dict with
 needs JAX to read a JAX model. The results are full states; a mesh
 rank's shard of one is ``parallel/tp.shard_params(state, mesh, rank)``
 (how the tests carry JAX's parameters into every rank).
+
+:class:`LeafMap` is the map of one leaf between the two layouts, as
+tensors (differentiable both ways): the image family's GSPMD step holds
+a sharded leaf as a chunk of its JAX layout (``parallel/spmd``), so a
+rank's shard is the bytes of the JAX device's ``addressable_shards``
+entry of its index.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import math
 import re
 
 import numpy as np
+import torch
 
 from ddp_tpu_torch.models.lm import LMSpec, derive_lm_spec
 
@@ -241,6 +248,57 @@ def jax_leaf_path(name: str, ndim: int) -> tuple[str, ...]:
     if leaf == "weight":
         leaf = "kernel" if ndim in (2, 4) else "scale"
     return (*mod, leaf)
+
+
+class LeafMap:
+    """A port leaf ``name`` of port ``shape`` and its JAX leaf: ``path``,
+    the JAX shape, and the two (differentiable) maps between the
+    layouts. ``cnn_channels``: SimpleCNN's conv2 width, when the leaf is
+    its head (the port flattens NCHW, JAX NHWC)."""
+
+    def __init__(self, name: str, shape: tuple, cnn_channels: int = 0):
+        self.name, self.shape = name, tuple(shape)
+        nd = len(self.shape)
+        self.path = jax_leaf_path(name, nd)
+        self.kind = "id"
+        if self.path[-1] == "kernel":
+            self.kind = {2: "dense", 4: "conv"}[nd]
+            if self.path == ("fc", "kernel") and cnn_channels:
+                self.kind = "cnn_head"
+                self.channels = cnn_channels
+                self.side = math.isqrt(self.shape[1] // cnn_channels)
+        self.jax_shape = tuple(self.to_jax(torch.empty(self.shape,
+                                                       device="meta")).shape)
+
+    def to_jax(self, t: torch.Tensor) -> torch.Tensor:
+        if self.kind == "dense":
+            return t.t()
+        if self.kind == "conv":  # OIHW → HWIO
+            return t.permute(2, 3, 1, 0)
+        if self.kind == "cnn_head":  # [out, C·H·W] → [H·W·C, out]
+            s, c = self.side, self.channels
+            return t.reshape(-1, c, s, s).permute(2, 3, 1, 0).reshape(
+                s * s * c, -1)
+        return t
+
+    def to_port(self, t: torch.Tensor) -> torch.Tensor:
+        if self.kind == "dense":
+            return t.t()
+        if self.kind == "conv":  # HWIO → OIHW
+            return t.permute(3, 2, 0, 1)
+        if self.kind == "cnn_head":
+            s, c = self.side, self.channels
+            return t.reshape(s, s, c, -1).permute(3, 2, 0, 1).reshape(
+                -1, c * s * s)
+        return t
+
+
+def leaf_maps(shapes: dict) -> dict[str, LeafMap]:
+    """A :class:`LeafMap` for every leaf of ``shapes`` (port name → port
+    shape)."""
+    cnn = shapes.get("net.2.weight")
+    ch = int(cnn[0]) if cnn is not None and "fl.weight" in shapes else 0
+    return {n: LeafMap(n, s, ch) for n, s in shapes.items()}
 
 
 def jax_leaf_order(names, shapes) -> list[int]:

@@ -39,6 +39,20 @@ every expert's FFN on every token, combined by each token's top-k gates.
 It is per token, so a decode step, a prefill chunk and a speculative
 verify give a token the same answer whatever else is in the batch, and it
 equals the training form wherever training dropped nothing.
+
+Under the image family's GSPMD step (``parallel/spmd``: a ``spmd`` plan
+on the module) routing is global, as XLA partitions JAX's ``MoEMLP``
+over a batch sharded on the data axes (:func:`route_global`): ``n``
+counts every data rank's tokens, so the capacity is
+``round(cf · n_global · k / E)``; an assignment's slot is its exclusive
+prefix count over all global tokens in rank order, every k=0 choice
+ahead of every k=1 choice; the aux loss takes global means. A rank then
+dispatches its own kept tokens (the kept ones are a prefix of its
+k-major order, so its slots number at most min(C, n_local)); the
+buffer goes through the ``expert`` all-to-all to the experts' owners
+when the experts shard over ``expert``, the FFN's hidden dim splits over
+``model`` when ``wi``/``wo`` shard over it (f before, g after, ``bi``
+sliced behind f), and the inverse exchange brings it back.
 """
 
 from __future__ import annotations
@@ -51,7 +65,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddp_tpu_torch.models import vit as _vit
-from ddp_tpu_torch.parallel.tp import all_to_all
+from ddp_tpu_torch.parallel.tp import (
+    all_to_all,
+    megatron_f,
+    megatron_g,
+    psum,
+    replicated_chunk,
+)
 
 GELU_APPROXIMATE = "tanh"  # flax.linen.gelu's default
 FORMS = ("indexed", "onehot")
@@ -82,6 +102,46 @@ class Routing(NamedTuple):
     capacity: int
 
 
+def _choices(tokens, router_weight, router_bias, E: int, K: int):
+    """The fp32 router's gates [n, E] and the iterative top-k → (gates,
+    the one-hot choices [K, n, E], their gate values [K, n], their
+    experts [K, n])."""
+    gates = torch.softmax(
+        F.linear(tokens.float(), router_weight.float(), router_bias.float()),
+        dim=-1,
+    )  # [n, E]
+    experts = torch.arange(E, device=tokens.device)
+    remaining = gates
+    masks, vals, idxs = [], [], []
+    for _ in range(K):
+        idx = remaining.argmax(-1)
+        mask = (idx[:, None] == experts).float()  # one-hot, no host read
+        vals.append((remaining * mask).sum(-1))
+        masks.append(mask)
+        idxs.append(idx)
+        remaining = remaining * (1.0 - mask)
+    return gates, torch.stack(masks), torch.stack(vals), torch.stack(idxs)
+
+
+def _k_major_positions(masks):
+    """Each assignment's exclusive count in the k-major order of ``masks``
+    [K, n, E]. The cumsum runs along the inner dim of the [E, K·n]
+    transpose: a scan down the outer dim of [K·n, E] took ~5 ms a call on
+    the card at run_lm_bench's width."""
+    K, n, E = masks.shape
+    flat = masks.reshape(K * n, E)
+    return (flat.t().contiguous().cumsum(1).t() - flat).reshape(K, n, E)
+
+
+def _gated(vals, in_cap, normalize_gates: bool):
+    """(the kept slots' combine weights [K, n], the kept mask [K, n])."""
+    kept = in_cap.sum(-1)  # [K, n] 0/1
+    gate = vals * kept
+    if normalize_gates:
+        gate = gate / torch.clamp(gate.sum(0, keepdim=True), min=1e-9)
+    return gate, kept > 0
+
+
 def route(tokens, router_weight, router_bias, *, num_experts: int,
           top_k: int, capacity_factor: float,
           normalize_gates: bool) -> Routing:
@@ -90,34 +150,48 @@ def route(tokens, router_weight, router_bias, *, num_experts: int,
     the bf16-rounded ones, as JAX's Dense promotes them)."""
     n, E = tokens.shape[0], num_experts
     C = expert_capacity(n, E, top_k, capacity_factor)
-    gates = torch.softmax(
-        F.linear(tokens.float(), router_weight.float(), router_bias.float()),
-        dim=-1,
-    )  # [n, E]
-    experts = torch.arange(E, device=tokens.device)
-    remaining = gates
-    masks, vals, idxs = [], [], []
-    for _ in range(top_k):
-        idx = remaining.argmax(-1)
-        mask = (idx[:, None] == experts).float()  # one-hot, no host read
-        vals.append((remaining * mask).sum(-1))
-        masks.append(mask)
-        idxs.append(idx)
-        remaining = remaining * (1.0 - mask)
-    masks = torch.stack(masks)  # [K, n, E]
-    flat = masks.reshape(top_k * n, E)
-    # The cumsum runs along the inner dim of the [E, K·n] transpose: a
-    # scan down the outer dim of [K·n, E] took ~5 ms a call on the card
-    # at run_lm_bench's width.
-    pos = (flat.t().contiguous().cumsum(1).t() - flat).reshape(top_k, n, E)
+    gates, masks, vals, idxs = _choices(tokens, router_weight, router_bias,
+                                        E, top_k)
+    pos = _k_major_positions(masks)
     in_cap = masks * (pos < C)
     slot = (pos * in_cap).sum(-1).long()
-    kept = in_cap.sum(-1)  # [K, n] 0/1
-    gate = torch.stack(vals) * kept
-    if normalize_gates:
-        gate = gate / torch.clamp(gate.sum(0, keepdim=True), min=1e-9)
+    gate, kept = _gated(vals, in_cap, normalize_gates)
     aux = E * torch.sum(gates.mean(0) * masks[0].mean(0))
-    return Routing(torch.stack(idxs), slot, kept > 0, gate, aux, C)
+    return Routing(idxs, slot, kept, gate, aux, C)
+
+
+def route_global(tokens, router_weight, router_bias, data, *,
+                 num_experts: int, top_k: int, capacity_factor: float,
+                 normalize_gates: bool) -> Routing:
+    """:func:`route` over the global batch of the data axes' communicator
+    ``data`` (this rank's ``tokens`` [n, d], every rank the same n):
+    global capacity, global slot order (``moe.py:85-92`` over every
+    rank's tokens in rank order) and global aux means. The returned
+    ``slot`` is the assignment's row in this rank's buffer of
+    ``capacity`` = min(C, n) rows a expert."""
+    n, E, K = tokens.shape[0], num_experts, top_k
+    dp, me = data.size, data.rank
+    C = expert_capacity(n * dp, E, K, capacity_factor)
+    gates, masks, vals, idxs = _choices(tokens, router_weight, router_bias,
+                                        E, K)
+    with torch.no_grad():
+        counts = data.all_gather(masks.sum(1)[None], 0)  # [dp, K, E]
+        totals = counts.sum(0)
+        offset = ((totals.cumsum(0) - totals)  # the earlier choices
+                  + counts[:me].sum(0))  # the earlier ranks' of this choice
+    # This rank's exclusive count within each choice, placed after the
+    # earlier choices and ranks: the global position.
+    inner = masks.transpose(1, 2).contiguous().cumsum(-1).transpose(1, 2)
+    in_cap = masks * (inner - masks + offset[:, None, :] < C)
+    # The kept assignments are a prefix of this rank's k-major order, so
+    # their rows in its buffer are their local k-major counts.
+    slot = (_k_major_positions(masks) * in_cap).sum(-1).long()
+    gate, kept = _gated(vals, in_cap, normalize_gates)
+    with torch.no_grad():
+        first = data.all_reduce_(masks[0].sum(0))
+    aux = E * torch.sum(psum(gates.sum(0), data) / (n * dp)
+                        * (first / (n * dp)))
+    return Routing(idxs, slot, kept, gate, aux, min(C, n))
 
 
 def _ffn(xs, w):
@@ -227,11 +301,18 @@ class MoEMLP(nn.Module):
         self.bi = nn.Parameter(torch.zeros(E, 1, mlp_dim))
         self.wo = nn.Parameter(torch.zeros(E, mlp_dim, dim))
         self.bo = nn.Parameter(torch.zeros(E, 1, dim))
+        self.spmd = None  # the GSPMD plan (parallel/spmd.MoEPlan)
 
     def weights(self, dt=None) -> dict:
-        """The parameters by :data:`PARAM_NAMES`, cast to ``dt``."""
-        return {name: p if dt is None else p.to(dt)
-                for name, p in self.named_parameters()}
+        """The parameters by :data:`PARAM_NAMES` (as the module reads
+        them: a GSPMD step's gathered tensors where it put them), cast
+        to ``dt``."""
+        out = {}
+        for name in PARAM_NAMES:
+            p = getattr(self.router, name.split(".")[1]) \
+                if name.startswith("router.") else getattr(self, name)
+            out[name] = p if dt is None else p.to(dt)
+        return out
 
     def routed(self, x, w=None, *, form: str = "indexed"):
         """:func:`moe_mlp` with this module's routing config → ``(y, aux,
@@ -244,8 +325,40 @@ class MoEMLP(nn.Module):
     def forward(self, x, dt=None):
         """→ ``(y, aux)`` with the parameters cast to ``dt`` (the compute
         dtype; default ``x``'s)."""
+        if self.spmd is not None:
+            y, aux, _ = self.routed_spmd(x, self.weights(dt or x.dtype))
+            return y, aux
         y, aux, _ = self.routed(x, self.weights(dt or x.dtype))
         return y, aux
+
+    def routed_spmd(self, x, w):
+        """The GSPMD form (module docstring) → ``(y, aux, routing)``."""
+        plan = self.spmd
+        B, T, d = x.shape
+        tokens = x.reshape(B * T, d)
+        r = route_global(tokens, w["router.weight"], w["router.bias"],
+                         plan.data, num_experts=self.num_experts,
+                         top_k=self.top_k,
+                         capacity_factor=self.capacity_factor,
+                         normalize_gates=self.normalize_gates)
+        xs = dispatch(tokens, r, self.num_experts)
+        ep = plan.ep if plan.experts_sharded else None
+        if ep is not None and ep.size > 1:
+            xs = all_to_all(xs, ep, 0, 1)  # [E/ep, ep·C, d]
+        tp = plan.tp
+        if "wi" in plan.sharded:  # the hidden dim over model
+            h = torch.matmul(megatron_f(xs, tp), w["wi"]) \
+                + replicated_chunk(w["bi"], tp, -1)
+        else:
+            h = torch.matmul(xs, w["wi"]) + w["bi"]
+        h = F.gelu(h, approximate=GELU_APPROXIMATE)
+        if "wo" in plan.sharded:
+            ys = megatron_g(torch.matmul(h, w["wo"]), tp) + w["bo"]
+        else:
+            ys = torch.matmul(h, w["wo"]) + w["bo"]
+        if ep is not None and ep.size > 1:
+            ys = all_to_all(ys, ep, 1, 0)
+        return combine(ys, r).reshape(B, T, d), r.aux, r
 
     def serve(self, x, *, top_k: int, normalize_gates: bool):
         """The serving form (``generate.py:107-147``): no capacity; each

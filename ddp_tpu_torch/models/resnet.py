@@ -29,6 +29,14 @@ the JAX step casts its params (the running statistics stay fp32).
 ``remat`` recomputes each residual block in the backward
 (``models/remat.py``); its BatchNorms advance their running statistics
 on the first forward only.
+
+Under the image family's GSPMD step (``parallel/spmd``) each BatchNorm
+has ``sync``, the communicator of the data axes: in training it
+normalises by the moments of the global batch, as flax's
+``nn.BatchNorm`` does when XLA partitions it (its fast variance,
+E[x²] − E[x]², from one all-reduce of the per-channel sums that is
+differentiable: the gradient goes through it), and advances the
+running averages by them, so every replica holds the same.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddp_tpu_torch.models.remat import remat_block
+from ddp_tpu_torch.parallel.tp import psum
 
 BN_MOMENTUM = 0.9  # Flax's: running = momentum · running + (1 − momentum) · batch
 BN_EPS = 1e-5
@@ -99,6 +108,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.zero_init = zero_init  # zero-gamma: init_state's scale is 0
         self.recomputing = False
+        self.sync = None  # the data axes' communicator under GSPMD
         self.weight = nn.Parameter(torch.ones(features))  # Flax "scale"
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -110,6 +120,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 scale, bias, False, 0.0, BN_EPS)
+        if self.sync is not None:
+            return self._synced(x, scale, bias, wide)
         if not self.recomputing:
             with torch.no_grad():
                 mean, var = batch_stats(x)
@@ -118,6 +130,25 @@ class BatchNorm(nn.Module):
                 self.running_var.mul_(BN_MOMENTUM).add_(
                     var, alpha=1 - BN_MOMENTUM)
         return F.batch_norm(x, None, None, scale, bias, True, 0.0, BN_EPS)
+
+    def _synced(self, x, scale, bias, wide):
+        """Training over the global batch of ``sync``'s ranks."""
+        xw = x.to(wide)
+        n = xw.numel() // xw.shape[1] * self.sync.size
+        sums = psum(torch.stack([xw.sum((0, 2, 3)),
+                                 xw.square().sum((0, 2, 3))]), self.sync)
+        mean = sums[0] / n
+        var = torch.clamp(sums[1] / n - mean.square(), min=0.0)
+        if not self.recomputing:
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_(
+                    mean, alpha=1 - BN_MOMENTUM)
+                self.running_var.mul_(BN_MOMENTUM).add_(
+                    var, alpha=1 - BN_MOMENTUM)
+        mul = torch.rsqrt(var + BN_EPS) * scale
+        y = (xw - mean[:, None, None]) * mul[:, None, None] \
+            + bias[:, None, None]
+        return y.to(x.dtype)
 
 
 class BasicBlock(nn.Module):

@@ -28,6 +28,20 @@ long-context model across ranks) is a Megatron block (``vit.py:36-160``,
 ``parallel/tp``): its module weights are this rank's shards, qkv and
 mlp1 column-parallel behind f, proj and mlp2 row-parallel
 (``RowParallelDense``: the partial products summed by g, then the bias).
+
+Under the image family's GSPMD step (``parallel/spmd``) a block has a
+``spmd`` plan instead: the ``model`` communicator and which of its
+kernels shard over it (JAX's rules, by name and divisibility). Each
+product then follows its kernel — :func:`column_dense` (f, then this
+rank's output columns, the replicated bias sliced behind f),
+:func:`row_dense` (this rank's input features, g, the whole bias) or the
+plain product — and an activation sharded over ``model`` is gathered
+where the next product wants it whole. Where the heads divide ``model``
+this is the Megatron block with replicated biases; where they do not
+(ViT-Tiny's 3 heads at ``--mesh_model 2``, qkv 288 of 576 columns a
+rank) every rank gathers qkv and runs the attention on all heads, as
+JAX's ``head_ax = None``, and feeds its slice of the features into the
+row-parallel ``proj``.
 """
 
 from __future__ import annotations
@@ -39,7 +53,12 @@ from torch import nn
 
 from ddp_tpu_torch.models.remat import remat_block
 from ddp_tpu_torch.ops.attention import best_attention
-from ddp_tpu_torch.parallel.tp import megatron_f, row_parallel
+from ddp_tpu_torch.parallel.tp import (
+    gather_replicated,
+    megatron_f,
+    replicated_chunk,
+    row_parallel,
+)
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 GELU_APPROXIMATE = "tanh"  # flax.linen.gelu's default (approximate=True)
@@ -61,6 +80,30 @@ def _row_dense(lin: nn.Linear, x, dt, tp):
     return row_parallel(x, lin.weight.to(dt), lin.bias.to(dt), tp)
 
 
+def column_dense(lin: nn.Linear, x, dt, plan, name: str):
+    """A GSPMD product on a ``model``-replicated ``x`` → (y, whether y is
+    sharded over ``model``): column-parallel where the plan shards the
+    kernel ``name``, the plain product elsewhere."""
+    if name not in plan.sharded:
+        return _dense(lin, x, dt), False
+    tp = plan.tp
+    bias = replicated_chunk(lin.bias, tp, 0)
+    return F.linear(megatron_f(x, tp), lin.weight.to(dt), bias.to(dt)), True
+
+
+def row_dense(lin: nn.Linear, x, dt, plan, name: str, x_sharded: bool):
+    """A GSPMD product whose input ``x`` is sharded over ``model`` along
+    its features or not → the ``model``-replicated output."""
+    tp = plan.tp
+    if name not in plan.sharded:
+        if x_sharded:
+            x = gather_replicated(x, tp, -1)
+        return _dense(lin, x, dt)
+    if not x_sharded:
+        x = replicated_chunk(x, tp, -1)
+    return row_parallel(x, lin.weight.to(dt), lin.bias.to(dt), tp)
+
+
 class MultiHeadAttention(nn.Module):
     """Fused qkv projection → attention → output projection."""
 
@@ -79,8 +122,11 @@ class MultiHeadAttention(nn.Module):
         self.qkv = nn.Linear(dim, (num_heads + 2 * kv) * self.head_dim)
         self.proj = nn.Linear(dim, dim)
         self.tp = None  # the ``model`` communicator of a Megatron block
+        self.spmd = None  # the GSPMD plan (parallel/spmd.BlockPlan)
 
     def forward(self, x, dt):
+        if self.spmd is not None:
+            return self._spmd_forward(x, dt)
         B, T, _ = x.shape
         H, kv, D = self.num_heads, self.num_kv_heads, self.head_dim
         tp = self.tp
@@ -102,6 +148,20 @@ class MultiHeadAttention(nn.Module):
         out = fn(q, k, v)  # [B, T, H, D]
         return _row_dense(self.proj, out.reshape(B, T, C), dt, tp)
 
+    def _spmd_forward(self, x, dt):
+        B, T, _ = x.shape
+        plan, H, D = self.spmd, self.num_heads, self.head_dim
+        qkv, sharded = column_dense(self.qkv, x, dt, plan, "qkv")
+        if sharded and H % plan.tp.size:  # heads split mid-head
+            qkv, sharded = gather_replicated(qkv, plan.tp, -1), False
+        if sharded:
+            H //= plan.tp.size
+        qkv = qkv.view(B, T, H, 3, D)
+        out = self.attention_fn(qkv[:, :, :, 0], qkv[:, :, :, 1],
+                                qkv[:, :, :, 2])
+        return row_dense(self.proj, out.reshape(B, T, H * D), dt, plan,
+                         "proj", sharded)
+
 
 class EncoderBlock(nn.Module):
     """Pre-LN block: x + attn(ln1(x)), then x + mlp2(gelu(mlp1(ln2(x))))."""
@@ -117,10 +177,16 @@ class EncoderBlock(nn.Module):
         self.mlp1 = nn.Linear(dim, mlp_dim)
         self.mlp2 = nn.Linear(mlp_dim, dim)
         self.tp = None  # the ``model`` communicator of a Megatron block
+        self.spmd = None  # the GSPMD plan (parallel/spmd.BlockPlan)
 
     def forward(self, x, dt):
         x = x + self.attn(_layer_norm(self.ln1, x, dt).to(x.dtype), dt)
         y = _layer_norm(self.ln2, x, dt).to(x.dtype)
+        if self.spmd is not None:
+            y, sharded = column_dense(self.mlp1, y, dt, self.spmd, "mlp1")
+            y = F.gelu(y, approximate=GELU_APPROXIMATE)
+            return x + row_dense(self.mlp2, y, dt, self.spmd, "mlp2",
+                                 sharded)
         if self.tp is not None:
             y = megatron_f(y, self.tp)
         y = F.gelu(_dense(self.mlp1, y, dt), approximate=GELU_APPROXIMATE)

@@ -8,9 +8,11 @@ header builds anew, an unchanged one is loaded as it is. ``build``
 starts one ``nvcc`` per missing library, all at once, and waits for them
 together. nvcc's output, ptxas's register, shared-memory and spill
 report included (``-Xptxas -v``), is kept beside each library as
-``<stem>-<hash>.log``; :func:`ptxas_report` reads it. The build
-directory is listed in ``.gitignore``; nothing here runs at import time,
-because the CPU test host has no ``nvcc``.
+``<stem>-<hash>.log``; :func:`ptxas_report` reads it. A source being
+built in one thread is waited for by any other thread of the process that
+builds or loads it. The build directory is listed in ``.gitignore``;
+nothing here runs at import time, because the CPU test host has no
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -22,12 +24,16 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_decode.cu", "flash_attn.cu")
+# One lock a source: a build in flight is waited for, never started twice
+# (the temporary names are per process).
+_LOCKS = {s: threading.Lock() for s in SOURCES}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -71,6 +77,17 @@ def log_path(source: str) -> Path:
 def build(sources=SOURCES) -> dict[str, float]:
     """Compile every missing library in parallel → {source: seconds}
     (0.0 for one already built). Raises with nvcc's output on failure."""
+    locks = [_LOCKS.setdefault(s, threading.Lock()) for s in sorted(sources)]
+    for lock in locks:
+        lock.acquire()
+    try:
+        return _compile(sources)
+    finally:
+        for lock in locks:
+            lock.release()
+
+
+def _compile(sources) -> dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [s for s in sources if not library_path(s).is_file()]
     seconds = {s: 0.0 for s in sources}

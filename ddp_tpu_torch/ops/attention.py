@@ -13,6 +13,18 @@ The PyTorch counterpart of ``ddp_tpu/ops/attention.py``:
   shape they take, at every length, ``dot_product_attention`` elsewhere. The JAX package switches
   to its kernel only from ``FLASH_MIN_LEN = 1024`` keys, a TPU v5e
   measurement; chip_smoke.py prints the H100 data for re-measuring it.
+- ``gspmd_flash_attention(mesh)`` — the attention of the image family's
+  GSPMD blocks (``parallel/spmd``): B1–B3 on this rank's rows (the batch
+  over the data axes) and, where the heads divide ``model``, its heads.
+  JAX wraps the kernel in a ``shard_map`` island because a Mosaic call
+  has no partitioning rule; here the block's activations already ARE
+  the rank's shard (its rows, and the column-parallel qkv's heads, or
+  every head where they do not divide), so the island is the identity
+  on the layout. Every length goes to the kernels on the card, as
+  ``best_attention`` does (JAX's ``FLASH_MIN_LEN`` dense cut-off is a
+  TPU measurement); the plain path runs only on a CPU tensor, and on
+  any other tensor a shape the kernels do not take raises (nothing is
+  routed).
 """
 
 from __future__ import annotations
@@ -87,5 +99,20 @@ def best_attention(*, causal: bool = False):
         if takes_block(q):
             return flash_attention(q, k, v, causal)
         return dot_product_attention(q, k, v, causal=causal)
+
+    return fn
+
+
+def gspmd_flash_attention(mesh, *, causal: bool = False):
+    """``(q, k, v) -> out`` on this rank's shard of [B, T, H, D] under
+    the GSPMD step on ``mesh`` (``ops/attention.py:63``; module
+    docstring): B1–B3 on every tensor that is not on the CPU, where a
+    shape they do not take raises; the plain path on a CPU tensor."""
+    del mesh  # the layout is the block's; nothing to re-shard here
+
+    def fn(q, k, v):
+        if q.device.type == "cpu":
+            return dot_product_attention(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal)
 
     return fn

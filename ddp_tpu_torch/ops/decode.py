@@ -24,6 +24,11 @@ of up to ``total_len`` keys, once per layer:
 - :func:`decode_attention` — the engine-facing switch (``impl`` =
   ``auto | flash | reference``; ``auto`` is the kernel on a CUDA tensor
   of a shape it takes and the plain version elsewhere).
+- :func:`shard_decode_attention` — the kernels on a ``model`` mesh
+  (``decode.py:433``): each rank runs B4/B5 on its KV-head group (whole
+  GQA groups) and their query heads, read in place, and the heads are
+  all-gathered; where ``H_kv`` does not divide, one whole
+  :func:`decode_attention` call on every rank, as JAX does.
 - The paged forms, over a page pool ([num_pages, page_size, H_kv, Dh])
   and an int32 page table [S, lane_pages] (``models/generate.
   PagedSlotCache``): :func:`gather_paged_kv` (the lanes' views, the
@@ -347,7 +352,8 @@ def _check_inputs(q, k, v, pos, k_scale, v_scale) -> None:
     )
 
 
-def flash_decode_attention(q, k, v, pos, k_scale=None, v_scale=None):
+def flash_decode_attention(q, k, v, pos, k_scale=None, v_scale=None, *,
+                           plan_kv_heads: int | None = None):
     """Banded single-query attention through the CUDA kernel →
     [S, H, Dh] fp32 (the contract of :func:`decode_attention_reference`).
 
@@ -356,6 +362,9 @@ def flash_decode_attention(q, k, v, pos, k_scale=None, v_scale=None):
     cache, read in place. ``pos`` is an int32 [S] device tensor, read by
     the kernel (no host sync). A CPU tensor takes the plain version; a
     CUDA tensor of a shape the kernel does not take raises.
+    ``plan_kv_heads``: the KV heads the cache's split is planned for
+    (default ``k``'s), so that a shard of the heads is split as the
+    whole call splits it and each head's result is the same bits.
     """
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, pos, k_scale, v_scale)
@@ -373,7 +382,8 @@ def flash_decode_attention(q, k, v, pos, k_scale=None, v_scale=None):
     G = H // H_kv
     gt = group_tile(G)
     y = H_kv * -(-G // gt)
-    chunk, n_chunks = split_plan(L, S * y, _sm_count(q.device.index),
+    plan_y = (plan_kv_heads or H_kv) * -(-G // gt)
+    chunk, n_chunks = split_plan(L, S * plan_y, _sm_count(q.device.index),
                                  k.dtype, Dh)
     out = torch.empty((S, H, Dh), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -610,6 +620,61 @@ def decode_attention(
         flash_decode_attention.plain_routed += 1
         return decode_attention_reference(q, k, v, pos, k_scale, v_scale)
     return flash_decode_attention(q, k, v, pos, k_scale, v_scale)
+
+
+# A deliberate fault for the controls of the tests and the card's check:
+# "offset" takes each rank's heads one KV head further on (wrapping).
+SHARD_FAULT: str | None = None
+
+
+def shard_decode_attention(mesh_or_comm, *, impl: str = "auto"):
+    """The kernels over the ``model`` axis (``decode.py:433-481``):
+    ``mesh_or_comm`` is a ``runtime/mesh.Mesh`` (its ``model``
+    communicator) or that communicator. → ``fn(q, k, v, pos,
+    k_scale=None, v_scale=None)`` on the full [S, H, Dh] queries and
+    [S, L, H_kv, Dh] caches of every rank: rank r runs
+    :func:`decode_attention` on KV heads [r·H_kv/tp, (r+1)·H_kv/tp) (and
+    their scales, and the query heads of those groups), views of the
+    inputs read in place, split as the whole call would be
+    (``plan_kv_heads``), and the outputs are all-gathered along the heads
+    → [S, H, Dh] on every rank. Where ``tp`` is 1 or does not divide
+    ``H_kv``, one whole call on every rank (counted in
+    ``shard_decode_attention.whole``)."""
+    comm = (mesh_or_comm.comm("model") if hasattr(mesh_or_comm, "comm")
+            else mesh_or_comm)
+    tp = comm.size
+
+    def fn(q, k, v, pos, k_scale=None, v_scale=None):
+        H_kv = k.shape[2]
+        if tp <= 1 or H_kv % tp:
+            shard_decode_attention.whole += 1
+            return decode_attention(q, k, v, pos, k_scale, v_scale,
+                                    impl=impl)
+        hk, hq = H_kv // tp, q.shape[1] // tp
+        r = comm.rank
+        if SHARD_FAULT == "offset":
+            q, k, v = (t.roll(-(t.shape[h] // H_kv), h)
+                       for t, h in ((q, 1), (k, 2), (v, 2)))
+            if k_scale is not None:
+                k_scale, v_scale = (s.roll(-1, 2) for s in (k_scale, v_scale))
+        qs = q[:, r * hq:(r + 1) * hq]
+        ks, vs = k[:, :, r * hk:(r + 1) * hk], v[:, :, r * hk:(r + 1) * hk]
+        scales = (None, None) if k_scale is None else (
+            k_scale[:, :, r * hk:(r + 1) * hk],
+            v_scale[:, :, r * hk:(r + 1) * hk])
+        impl_r = resolve_impl(impl, q.device)
+        if impl_r == "flash" and q.device.type == "cuda" and \
+                (impl == "flash" or _tensors_take(qs, ks, vs)):
+            out = flash_decode_attention(qs, ks, vs, pos, *scales,
+                                         plan_kv_heads=H_kv)
+        else:
+            out = decode_attention(qs, ks, vs, pos, *scales, impl=impl)
+        return comm.all_gather(out, 1)
+
+    return fn
+
+
+shard_decode_attention.whole = 0
 
 
 def paged_decode_attention(

@@ -24,7 +24,8 @@ causal-LM training step runs it once forward and once backward:
   main path calls them).
 
 Launches are counted per kernel and dtype in ``flash_attention.launches``
-(one increment where a kernel is launched, nowhere else).
+(one increment where a kernel is launched, nowhere else), and by q's
+shape in ``flash_attention.launch_shapes``.
 """
 
 from __future__ import annotations
@@ -320,11 +321,15 @@ def _strides(*tensors) -> ctypes.Array:
     return (ctypes.c_int64 * len(vals))(*vals)
 
 
-def _launch(name: str, dtype: torch.dtype, fn, *args) -> None:
+def _launch(name: str, dtype: torch.dtype, shape, fn, *args) -> None:
     err = fn(*args)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    flash_attention.launches[f"{name}_{_DTYPE_NAME[dtype]}"] += 1
+    key = f"{name}_{_DTYPE_NAME[dtype]}"
+    flash_attention.launches[key] += 1
+    shapes = flash_attention.launch_shapes.setdefault(key, {})
+    q = "x".join(map(str, shape))
+    shapes[q] = shapes.get(q, 0) + 1
 
 
 def flash_forward(q, k, v, causal: bool):
@@ -339,7 +344,7 @@ def flash_forward(q, k, v, causal: bool):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch(
-            "flash_attn_fwd", q.dtype, _lib().flash_attn_fwd,
+            "flash_attn_fwd", q.dtype, q.shape, _lib().flash_attn_fwd,
             _IS_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), B, T, S, H, D, int(causal),
             D**-0.5, _strides(q, k, v, out), tma, _ptr(ticket), stream,
@@ -369,7 +374,7 @@ def flash_dq(q, k, v, dout, lse, delta, causal: bool):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch(
-            "flash_attn_dq", q.dtype, _lib().flash_attn_dq,
+            "flash_attn_dq", q.dtype, q.shape, _lib().flash_attn_dq,
             _IS_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), B, T, k.shape[1], H, D, int(causal), D**-0.5,
@@ -388,7 +393,7 @@ def flash_dkv(q, k, v, dout, lse, delta, causal: bool):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch(
-            "flash_attn_dkv", q.dtype, _lib().flash_attn_dkv,
+            "flash_attn_dkv", q.dtype, q.shape, _lib().flash_attn_dkv,
             _IS_BF16[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, T, k.shape[1], H, D,
@@ -451,6 +456,9 @@ flash_attention.launches = {
     f"{name}_{dt}": 0 for name in KERNELS for dt in ("bf16", "fp32")
 }
 flash_attention_with_lse.launches = flash_attention.launches
+# The same launches by q's shape [B, T, H, D] ("BxTxHxD"), a dict a
+# kernel key: which shapes a run's kernels took (a GSPMD rank's heads).
+flash_attention.launch_shapes = {}
 # Blocks that the dispatchers (parallel/ring.default_block_fn,
 # ops/attention.best_attention) sent to the plain block on a device
 # because B1–B3 do not take their shape (:func:`takes_block`).

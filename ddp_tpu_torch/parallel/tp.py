@@ -184,23 +184,23 @@ class ShardLayout:
     def shard(self, full: dict) -> dict:
         return shard_params(full, self.mesh)
 
-    def gather_opt(self, opt_state: dict) -> dict:
-        """An optimizer ``state_dict`` with every per-parameter buffer
-        list gathered (a collective)."""
+    def _map_opt(self, opt_state: dict, fn) -> dict:
+        """``opt_state`` with every per-parameter buffer list ``bufs``
+        under ``key`` replaced by ``fn(key, {name: buffer})``'s values."""
         out = dict(opt_state)
         for key, bufs in opt_state.items():
             if isinstance(bufs, list) and len(bufs) == len(self.names):
-                out[key] = list(self.gather(dict(zip(self.names, bufs)))
+                out[key] = list(fn(key, dict(zip(self.names, bufs)))
                                 .values())
         return out
 
+    def gather_opt(self, opt_state: dict) -> dict:
+        """An optimizer ``state_dict`` with every per-parameter buffer
+        list gathered (a collective)."""
+        return self._map_opt(opt_state, lambda _, bufs: self.gather(bufs))
+
     def shard_opt(self, opt_state: dict) -> dict:
-        out = dict(opt_state)
-        for key, bufs in opt_state.items():
-            if isinstance(bufs, list) and len(bufs) == len(self.names):
-                out[key] = list(self.shard(dict(zip(self.names, bufs)))
-                                .values())
-        return out
+        return self._map_opt(opt_state, lambda _, bufs: self.shard(bufs))
 
     def norm(self, tensors) -> torch.Tensor:
         """√Σ‖g‖² of the FULL tensors from their local shards: the
@@ -284,6 +284,41 @@ class _GatherDim(torch.autograd.Function):
         shard = comm.reduce_scatter(moved.reshape(-1))
         return (shard.reshape(moved.shape[0] // comm.size, *moved.shape[1:])
                 .movedim(0, dim)), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """All-gather ``x`` along ``dim`` over ``comm`` into a tensor every
+    member then uses alike; the backward keeps this member's chunk of
+    the (already complete) cotangent. The gather rides in fp32 (gloo
+    takes no bf16 gather; the round trip is exact)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.args = comm, dim
+        return comm.all_gather(x.float().contiguous(), dim).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, dim = ctx.args
+        return g.chunk(comm.size, dim)[comm.rank].contiguous(), None, None
+
+
+def gather_replicated(x, comm, dim: int):
+    """``x`` sharded along ``dim`` over ``comm`` → the whole of it on
+    every member, for a computation they all run alike (the GSPMD
+    block's qkv where the heads do not divide ``model``)."""
+    return x if comm.size == 1 else _GatherReplicated.apply(x, comm, dim)
+
+
+def replicated_chunk(x, comm, dim: int):
+    """This member's chunk along ``dim`` of ``x``, replicated over
+    ``comm``, behind f: the backward sums the members' zero-padded
+    chunk cotangents, so ``x``'s gradient is whole on every member (a
+    replicated bias in front of a column-parallel product, a replicated
+    activation into a row-parallel one)."""
+    if comm.size == 1:
+        return x
+    return megatron_f(x, comm).chunk(comm.size, dim)[comm.rank]
 
 
 def gather_sharded(x, pairs, mesh):

@@ -7,8 +7,9 @@ being their product times the data axis. ``--parallel zero``
 (``parallel/zero``: ``--zero_bucket_mb``, ``--zero_gather_dtype``)
 shards the weight update over the data axis of the image models and of
 the causal LM (with ``--mesh_model``/``--mesh_seq`` too). The image
-models' ``--mesh_fsdp``, ``--mesh_model``, ``--mesh_expert`` and
-``--zero1`` ride JAX's GSPMD step and wait for ROADMAP A2.5-gspmd."""
+models' ``--mesh_fsdp``, ``--mesh_model``, ``--mesh_expert`` (in any
+combination) and ``--zero1`` (on a pure data mesh) ride JAX's GSPMD step
+(``parallel/spmd``; :attr:`TrainConfig.use_spmd`)."""
 
 from __future__ import annotations
 
@@ -59,7 +60,8 @@ class TrainConfig:
     # The weight-update strategy (``parallel/zero``): "zero" reduce-
     # scatters the gradients in --zero_bucket_mb buckets, updates 1/N
     # shards and all-gathers the parameters in --zero_gather_dtype (bf16
-    # over fp32 master shards). --zero1 (GSPMD) is parsed and refused.
+    # over fp32 master shards). --zero1: the image models' GSPMD step with
+    # the optimizer state sharded over the data axis (parallel/spmd).
     parallel: str = "auto"  # auto | zero
     zero_bucket_mb: float = 4.0
     zero_gather_dtype: str = "fp32"  # fp32 | bf16
@@ -279,6 +281,14 @@ class TrainConfig:
     def zero(self) -> bool:
         return self.parallel == "zero"
 
+    @property
+    def use_spmd(self) -> bool:
+        """An image model on JAX's GSPMD step (``trainer.py:404-411``): any
+        non-data axis above one, or ``--zero1``."""
+        return self.model not in SEQ_MODELS and (
+            self.mesh_model > 1 or self.mesh_fsdp > 1
+            or self.mesh_expert > 1 or self.zero1)
+
     def _check_zero(self) -> None:
         """``--parallel zero``'s guards (``trainer.py:497-530``), before
         the mesh's, with JAX's messages."""
@@ -336,17 +346,26 @@ class TrainConfig:
             if getattr(self, flag) < 1:
                 raise ValueError(f"--{flag} must be >= 1, got "
                                  f"{getattr(self, flag)}")
-        if (self.mesh_model > 1 or self.mesh_expert > 1 or self.mesh_fsdp > 1
-                or self.zero1) and self.model not in SEQ_MODELS:
+        if self.zero1 and self.model not in SEQ_MODELS:
+            from ddp_tpu_torch.parallel.spmd import check_zero1_mesh
+
+            check_zero1_mesh({"model": self.mesh_model,
+                              "fsdp": self.mesh_fsdp,
+                              "expert": self.mesh_expert})
+        if self.fast_epoch and self.model not in SEQ_MODELS and (
+                self.use_spmd or self.grad_accum_steps > 1):
+            # ``trainer.py:1373-1380``.
             raise ValueError(
-                "--mesh_fsdp, --mesh_model, --mesh_expert and --zero1 "
-                "shard the image family through JAX's GSPMD step "
-                "(parallel/spmd), which waits for ROADMAP A2.5-gspmd; "
-                "the sequence models (--model long_context or causal_lm) "
-                "take the mesh axes, and --parallel zero shards the image "
-                "models' update over the data axis")
+                "--fast_epoch supports the pure-DDP step without "
+                "gradient accumulation (or the causal LM / "
+                "pipeline families)"
+            )
         d_model = self.model_dim or 64
-        if self.mesh_model > 1:
+        # The Megatron and expert dims of the sequence family
+        # (``trainer.py:104-123``, ``:600-621``): JAX checks them for the
+        # pipe and sequence families only; the image models' GSPMD rules
+        # leave an axis off a dim it does not divide.
+        if self.mesh_model > 1 and self.model in SEQ_MODELS:
             if self.num_heads % self.mesh_model:
                 raise ValueError(
                     f"tensor parallelism splits attention heads: "
@@ -362,7 +381,7 @@ class TrainConfig:
                     "GQA under TP shards whole kv groups: "
                     f"--num_kv_heads {self.num_kv_heads} not "
                     f"divisible by --mesh_model {self.mesh_model}")
-        if self.mesh_expert > 1:
+        if self.mesh_expert > 1 and self.model in SEQ_MODELS:
             if not self.moe_experts:
                 raise ValueError(
                     "--mesh_expert shards MoE expert weights: give the "

@@ -185,17 +185,22 @@ class Optimizer:
         if self.grad_clip_norm:
             grads = [g.clone() for g in grads]
             self._clip(grads)
+        self._apply(self.params, grads)
+
+    def _apply(self, params, grads) -> None:
+        """One update of the rule on ``params`` in place from ``grads``
+        (both lists in the state buffers' order and shapes)."""
         lr = lr_at(self.lr, self.count)
         self.count += 1
         if self.name == "sgd":
             if self.weight_decay:
-                grads = torch._foreach_add(grads, self.params,
+                grads = torch._foreach_add(grads, params,
                                            alpha=self.weight_decay)
             if self.trace is not None:
                 torch._foreach_mul_(self.trace, self.momentum)
                 torch._foreach_add_(self.trace, grads)
                 grads = self.trace
-            torch._foreach_add_(self.params, grads, alpha=-lr)
+            torch._foreach_add_(params, grads, alpha=-lr)
             return
         # Adam: moments, then bias correction in float32 as optax does it.
         torch._foreach_mul_(self.mu, ADAM_B1)
@@ -211,8 +216,8 @@ class Optimizer:
         torch._foreach_add_(denom, ADAM_EPS)
         updates = torch._foreach_div(mu_hat, denom)
         if self.name == "adamw" and self.weight_decay:
-            torch._foreach_add_(updates, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, updates, alpha=-lr)
+            torch._foreach_add_(updates, params, alpha=self.weight_decay)
+        torch._foreach_add_(params, updates, alpha=-lr)
 
     @torch.no_grad()
     def reset(self) -> None:
@@ -257,6 +262,52 @@ class Optimizer:
         self.count = int(state["count"])
 
 
+class Zero1Optimizer(Optimizer):
+    """``--zero1`` (``spmd.py:143-185``): the rule's state sharded over
+    the ``data`` axis while the parameters stay whole. ``layout`` is the
+    model's ``parallel/spmd.SpmdLayout`` (its ``state_specs``: each state
+    leaf's ZeRO-1 slice of its JAX layout, gathered over its mesh's
+    ``data`` axis). A step reads the whole, reduced gradients, clips them
+    by their norm, runs the rule on this rank's slice of every leaf
+    (parameter, gradient and moments), then all-gathers the updated
+    slices into the parameters; a leaf too small to shard updates whole
+    on every rank. The EMA (``--ema_decay``) stays whole: evaluation
+    reads it as parameters."""
+
+    # A deliberate fault for the controls: "skip_gather" leaves out the
+    # parameters' all-gather (a sharded leaf keeps its old value).
+    FAULT: str | None = None
+
+    def __init__(self, params, layout, **kw):
+        super().__init__(params, **kw)
+        self.layout = layout
+        self.names = list(layout.names)
+        with torch.no_grad():
+            for k in ("trace", "mu", "nu"):
+                bufs = getattr(self, k, None)
+                if bufs is not None:
+                    setattr(self, k, [self._slice(n, b).clone()
+                                      for n, b in zip(self.names, bufs)])
+
+    def _slice(self, name, t):
+        return self.layout.shard_leaf(name, t,
+                                      self.layout.state_specs.get(name, ()))
+
+    def _apply(self, params, grads) -> None:
+        specs = self.layout.state_specs
+        # This rank's slices (copies; a whole leaf is the parameter itself,
+        # updated in place).
+        own = [self._slice(n, p.detach()).clone() if n in specs
+               else p.detach() for n, p in zip(self.names, params)]
+        super()._apply(own, [self._slice(n, g) for n, g in zip(self.names,
+                                                               grads)])
+        if self.FAULT == "skip_gather":
+            return
+        for n, p, s in zip(self.names, params, own):
+            if n in specs:
+                p.copy_(self.layout.gather_leaf(n, s, specs[n]))
+
+
 def check_zero_compatible(name: str, *, grad_clip_norm: float = 0.0,
                           ema_decay: float = 0.0) -> None:
     """Refuse what ``--parallel zero`` cannot run (``optim.py:129-170``):
@@ -285,10 +336,13 @@ def make_optimizer(
     weight_decay: float = 0.0,
     grad_clip_norm: float = 0.0,
     ema_decay: float = 0.0,
+    zero1_layout=None,
 ) -> Optimizer:
     """The update rule over ``params``, with the JAX package's checks;
     ``lr`` is a float or a :func:`make_schedule` callable;
-    ``ema_decay`` > 0 adds the parameter EMA."""
+    ``ema_decay`` > 0 adds the parameter EMA; ``zero1_layout`` (a
+    ``parallel/spmd.SpmdLayout`` made with ``zero1=True``) shards its
+    state over ``data`` (:class:`Zero1Optimizer`)."""
     if name == "adamw" and momentum:
         raise ValueError("momentum is an SGD knob; adamw has betas")
     if name == "adam":
@@ -298,6 +352,8 @@ def make_optimizer(
             raise ValueError("momentum is an SGD knob; adam has betas")
     if name not in ("sgd", "adam", "adamw"):
         raise ValueError(f"unknown optimizer {name!r}")
-    return Optimizer(params, name=name, lr=lr, momentum=momentum,
-                     weight_decay=weight_decay, grad_clip_norm=grad_clip_norm,
-                     ema_decay=ema_decay)
+    kw = dict(name=name, lr=lr, momentum=momentum, weight_decay=weight_decay,
+              grad_clip_norm=grad_clip_norm, ema_decay=ema_decay)
+    if zero1_layout is not None:
+        return Zero1Optimizer(params, zero1_layout, **kw)
+    return Optimizer(params, **kw)

@@ -27,6 +27,12 @@ native pool, every block's attention through
 train and eval step (``models/seq_transformer``, strided microbatches)
 for every world: without mesh axes its mesh is the data-only one.
 
+The image models shard over a mesh too (``--mesh_model``, ``--mesh_fsdp``,
+``--mesh_expert``, ``--zero1``: ``config.use_spmd``): their step is
+then JAX's GSPMD step (``parallel/spmd``), each rank its data replica's
+rows and its shards of the state (``spmd.shard_model``), the
+checkpoints the full state.
+
 Both sequence models shard over a mesh of the world's ranks
 (``runtime/mesh``, :func:`build_mesh`): ``--mesh_seq`` (the multi-rank
 ring or Ulysses), ``--mesh_model`` (Megatron blocks), ``--mesh_expert``
@@ -114,6 +120,7 @@ from ddp_tpu_torch.parallel.ddp import (
     ring_all_reduce_bytes,
 )
 from ddp_tpu_torch.interop.jax_params import jax_leaf_order
+from ddp_tpu_torch.parallel import spmd
 from ddp_tpu_torch.parallel.tp import shard_module
 from ddp_tpu_torch.parallel.zero import (
     ZeroOptimizer,
@@ -697,8 +704,7 @@ class _FaultTolerant:
         of a ``--parallel zero`` world) → the running profiler, or
         None."""
         cfg = self.config
-        if not (cfg.profile_dir
-                and (self.is_main or cfg.mesh_axes > 1 or cfg.zero)):
+        if not (cfg.profile_dir and (self.is_main or self._sharded)):
             return None
         from torch.profiler import ProfilerActivity, profile
 
@@ -709,19 +715,30 @@ class _FaultTolerant:
         profiler.start()
         return profiler
 
+    @property
+    def _sharded(self) -> bool:
+        """Ranks that run different work or hold different state: a
+        sharded mesh, ``--parallel zero`` or ``--zero1``."""
+        cfg = self.config
+        return cfg.mesh_axes > 1 or cfg.zero or cfg.zero1
+
     def _stop_profile(self, profiler) -> None:
         """Stop the trace and write it as chrome-trace JSON; a rank of a
-        sharded mesh or of a ``--parallel zero`` world writes beside it
-        ``state_rank<r>.json``, the bytes it holds at rest."""
+        sharded mesh, of a ``--parallel zero`` or of a ``--zero1`` world
+        writes beside it ``state_rank<r>.json``: the bytes it holds at
+        rest, and its B1-B3 launches by q's shape."""
         profiler.stop()
         cfg = self.config
         os.makedirs(cfg.profile_dir, exist_ok=True)
         path = os.path.join(cfg.profile_dir, f"trace_rank{self.rank}.json")
         profiler.export_chrome_trace(path)
-        if cfg.mesh_axes > 1 or cfg.zero:
+        if self._sharded:
+            from ddp_tpu_torch.ops.flash import flash_attention
+
             with open(os.path.join(cfg.profile_dir,
                                    f"state_rank{self.rank}.json"), "w") as f:
-                json.dump(self._state_bytes(), f)
+                json.dump(dict(self._state_bytes(), flash_launch_shapes=
+                               flash_attention.launch_shapes), f)
         self.log(f"Profile trace written to {path}")
 
     def _train_epoch(self, epoch: int, skip: int) -> tuple[dict, int]:
@@ -952,7 +969,9 @@ class ImageTrainer(_FaultTolerant):
         self.config, self.ctx = config, ctx
         self.device = ctx.device
         self.rank, self.world = ctx.process_id, ctx.num_processes
-        self.mesh = build_mesh(config, ctx, always=self.always_mesh)
+        self.use_spmd = config.use_spmd
+        self.mesh = build_mesh(config, ctx,
+                               always=self.always_mesh or self.use_spmd)
         self.data_rank, self.data_world = (
             (self.mesh.data_rank, self.mesh.data_size) if self.mesh
             else (self.rank, self.world))
@@ -963,7 +982,10 @@ class ImageTrainer(_FaultTolerant):
                                   * config.grad_accum_steps)
         if config.elastic:
             self._honour_elastic_contract(self.data_world)
-        model = self._model().to(self.device)
+        model = self._model()
+        if self.use_spmd:
+            spmd.shard_model(model, self.mesh, zero1=config.zero1)
+        model = model.to(self.device)
         layout = getattr(model, "shard_layout", None)
         augment_fn = get_augmentation(config.augment)
         self.lr_schedule = make_schedule(
@@ -981,16 +1003,14 @@ class ImageTrainer(_FaultTolerant):
                 momentum=config.momentum, weight_decay=config.weight_decay,
                 grad_clip_norm=config.grad_clip_norm,
                 ema_decay=config.ema_decay,
+                zero1_layout=layout if config.zero1 else None,
             )
         if layout is not None:
             self.optimizer.norm = layout.norm
         self.state = TrainState(step=0, model=model, optimizer=self.optimizer)
         self.eval_step = self._make_eval_step()
         self.fast_runner = self.loader = None
-        if config.fast_epoch:
-            if config.grad_accum_steps != 1:
-                raise ValueError("--fast_epoch runs no gradient accumulation "
-                                 "(as in the JAX package)")
+        if config.fast_epoch:  # config: no accumulation, no GSPMD mesh
             self.fast_runner = make_epoch_runner(
                 self.state,
                 torch.from_numpy(self.train_split.images).to(self.device),
@@ -1025,14 +1045,21 @@ class ImageTrainer(_FaultTolerant):
             self._comm_bytes = zero_comm_total(
                 config, {n: p.shape for n, p in model.named_parameters()
                          if p.requires_grad}, self.world)
-        elif config.mesh_axes == 1:
+        elif config.mesh_axes == 1 and not self.use_spmd:
             self._comm_bytes = ring_all_reduce_bytes(self.optimizer.params,
                                                      self.world)
 
     def _make_train_step(self, augment_fn):
-        """The data-parallel step of ``parallel/ddp``, or under
-        ``--parallel zero`` the sharded update's (``parallel/zero``)."""
+        """The data-parallel step of ``parallel/ddp``, under ``--parallel
+        zero`` the sharded update's (``parallel/zero``), or on a GSPMD
+        mesh JAX's GSPMD step (``parallel/spmd``)."""
         cfg = self.config
+        if self.use_spmd:
+            return spmd.make_spmd_train_step(
+                self.state, self.mesh, compute_dtype=self.compute_dtype,
+                grad_accum_steps=cfg.grad_accum_steps,
+                label_smoothing=cfg.label_smoothing, augment_fn=augment_fn,
+                seed=cfg.seed)
         if cfg.zero:
             return make_zero_train_step(
                 self.state, self.zero_comm,
@@ -1047,6 +1074,9 @@ class ImageTrainer(_FaultTolerant):
             seed=cfg.seed, rank=self.rank)
 
     def _make_eval_step(self):
+        if self.use_spmd:
+            return spmd.make_spmd_eval_step(self.state.model, self.mesh,
+                                            compute_dtype=self.compute_dtype)
         return make_eval_step(self.state.model,
                               compute_dtype=self.compute_dtype)
 

@@ -350,17 +350,16 @@ def test_train_cli_on_cpu_prints_final_accuracy(tmp_path):
 
 
 def test_train_cli_refuses_other_models():
-    """A model or layout the port does not train yet is refused with a
-    message naming the ROADMAP item that brings it: the pipelined ViT
-    (A4), and an image model's --mesh_fsdp or --zero1 (A2.5-gspmd, JAX's
-    GSPMD step). --mesh_seq 2 and --mesh_fsdp 2 are taken by the
-    sequence models (over a world they tile); --mesh_seq is refused for
-    the image models."""
+    """A model the port does not train yet is refused with a message
+    naming the ROADMAP item that brings it, whatever its mesh flags: the
+    pipelined ViT (A4), alone, with --mesh_fsdp and with --zero1 (the
+    image models take those on JAX's GSPMD step, tests/
+    test_torch_spmd_cli.py). --mesh_seq 2 and --mesh_fsdp 2 are taken by
+    the sequence models (over a world they tile); --mesh_seq is refused
+    for the image models."""
     for argv, item in ((["--model", "pipe_vit"], "A4"),
-                       (["--model", "simple_cnn", "--mesh_fsdp", "2"],
-                        "A2.5-gspmd"),
-                       (["--model", "simple_cnn", "--zero1"],
-                        "A2.5-gspmd")):
+                       (["--model", "pipe_vit", "--mesh_fsdp", "2"], "A4"),
+                       (["--model", "pipe_vit", "--zero1"], "A4")):
         bad = subprocess.run(CLI + argv, cwd=REPO,
                              capture_output=True, text=True, timeout=120)
         assert bad.returncode != 0 and f"ROADMAP {item}" in bad.stderr
