@@ -504,17 +504,47 @@ order; any failure exits non-zero and prints no result:
    whole-head call (counted), an off-by-one head offset failing. B1-B3
    alone at 14a's shape [64, 65, 1, 64], timed with their bound and
    SDPA.
-15. A "kernels" JSON line (each decode kernel's launches on the MoE path,
+15. The in-graph pipeline (check_mesh: its runs a second wave, started
+   after phase 12's wave and the kernel timings, beside 12-14's checks —
+   the first wave alone peaks at ~75 GB of the card's 80, and one wave of
+   both died of CUDA's out of memory — and 15c/15d in 12d's world): 15a
+   pipe_lm at run_lm_bench's width (vocab 8192, d 1024, 8
+   heads of 128, T 2048, batch 8, M 4, bf16, Adam; 8 blocks) at
+   --mesh_pipe 2 --model_depth 4 under gpipe and 1f1b and --virtual_stages
+   2 --model_depth 2 under interleaved; 15b pipe_vit at ViT-Tiny's width
+   (CIFAR-100 synthetic, d 192, 3 heads, T 64) at --mesh_pipe 2
+   --model_depth 6, batch 256, M 8, 1f1b, --augment crop_flip, bf16 input
+   (fp32 compute, as JAX's pipe_vit promotes: its B1-B3 are the fp32
+   kernels); each --spawn 2 over gloo, 2 steps and the evaluation. Every
+   rank's B1-B3 launches in training equal its timetable's count (M x v
+   x depth a step, B1 twice under 1f1b and interleaved: the backward slot
+   rebuilds the chunk), none in the other dtype (nothing routed); finite
+   losses; 15a's checkpoint restored bit for bit by each pipe rank, and
+   its to_dense_lm through CausalLM gives the pipeline's eval loss within
+   P15_DENSE_ATOL. Readings: step p50, busy share and the bubble
+   fraction. 15c in 12d's world: one fp32 step of pipe_lm (P15_LM: d
+   1024, T 1024, one block a chunk) at pipe 2 x data 2 under each
+   schedule and at pipe 4 with v 2, and of pipe_vit under 1f1b, against
+   world 1's exact sequential step (STEP_TOL["fp32"]); a 1F1B backward
+   dropped at stage 0, the tied embedding without the head's part and
+   interleaved chunks placed stage-major must fail it. 15d: stage 0's
+   peak allocated memory over a 1F1B step at M 16 within
+   P15_MEMORY_RATIO of its peak at M 4 (microbatches of one row), GPipe's
+   two peaks printed beside. B1-B3 alone at 15a's microbatch [2, 2048, 8,
+   128], causal, timed with their bound and SDPA.
+16. A "kernels" JSON line (each decode kernel's launches on the MoE path,
    moe_launches, beside its own, and in phase 4's flag runs,
    flag_launches; B1-B3's in 5m and 7c, phase 9's as
    fault_tolerance_launches, phase 10's as imagenet_launches, phase
    11's as long_context_launches, lm_long_launches and
    lm_world2_rank0_launches, phases 12's, 13's and 14's as
    mesh_launches_by_rank, 14a's and 14b's as gspmd_launches_by_rank,
-   14e's decode launches as shard_decode_launches_by_rank, and
+   14e's decode launches as shard_decode_launches_by_rank, phase 15's
+   as pipe_launches_by_rank, and
    their timings at T 3137, at the long-context shape, at the LM's T
-   8192, at the ring hops' shapes and at 14a's as the vit224_*,
-   long_context_*, lm_long_*, hop12a_*/hop12b_* and vit14a_* variants),
+   8192, at the ring hops' shapes, at 14a's and at 15a's as the
+   vit224_*, long_context_*, lm_long_*, hop12a_*/hop12b_*, vit14a_* and
+   pipe15a_* variants),
    the card line, and the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -528,7 +558,8 @@ the trained weights only (--step-spread reads the seeded weights too: a
 reading, not a gate), B1-B3's timings at 2 turns after 2 warm calls (fp32 at 3
 calls a turn), the fast path's timing at batch 64 on 6,400 images
 (TIME_FAST_SIZE) and 4h's at 2
-turns of 2, 12d's LM at T 4096 (of 8192).
+turns of 2, 12d's LM at T 4096 (of 8192); with phase 15: its runs at 2
+steps each, 15c's LM at T 1024 (of 2048) and one block a chunk.
 No kernel's
 check against its plain version and no path is cut.
 """
@@ -6834,8 +6865,13 @@ def _run_all(commands: dict, tmp, timeout: float = 600) -> dict:
     """The commands (name → argv) at once, each in its own process, all
     awaited for at most ``timeout`` s (and killed on the way out) → name
     → (exit code, the lines of its output)."""
-    procs = {name: _launch(argv, f"{tmp}/{name}.log")
-             for name, argv in commands.items()}
+    return _await_all({name: _launch(argv, f"{tmp}/{name}.log")
+                       for name, argv in commands.items()}, tmp, timeout)
+
+
+def _await_all(procs: dict, tmp, timeout: float = 600) -> dict:
+    """:func:`_run_all`'s wait on processes already started (name →
+    ``_launch``'s process, its log ``{tmp}/{name}.log``)."""
     try:
         codes = {name: p.wait(timeout=timeout) for name, p in procs.items()}
     finally:
@@ -6844,7 +6880,7 @@ def _run_all(commands: dict, tmp, timeout: float = 600) -> dict:
                 p.kill()
                 p.wait()
     return {name: (codes[name], open(f"{tmp}/{name}.log").read().splitlines())
-            for name in commands}
+            for name in procs}
 
 
 def _final_state(torch, ckdir):
@@ -8232,6 +8268,81 @@ P14E_CASES = [(tp, kv, L, q8) for tp in (2, 4) for kv in (8, 2)
               for L in (256, 8192) for q8 in (False, True)]
 
 
+# Phase 15, the in-graph pipeline: its runs a second wave after phase 12's
+# (check_mesh), 15c/15d in 12d's world.
+# 15a: pipe_lm at run_lm_bench's width (vocab 8192, d 1024, 8 heads of
+# 128, T 2048, batch 8, M 4: microbatches of [2, 2048], bf16, Adam), 8
+# blocks: --mesh_pipe 2 --model_depth 4 under gpipe and 1f1b, and
+# --virtual_stages 2 --model_depth 2 under interleaved; 15b: pipe_vit at
+# ViT-Tiny's width (CIFAR-100 synthetic, d 192, 3 heads, T 64: patch 4
+# and no class token) at --mesh_pipe 2 --model_depth 6, batch 256, M 8,
+# 1f1b, --augment crop_flip, --compute_dtype bfloat16, which rounds the
+# input to bf16 and computes in fp32 as JAX's pipe_vit does (its Flax
+# layers take no dtype: a bf16 input meets fp32 parameters and
+# promotes), so its B1-B3 are the fp32 kernels. Each --spawn 2 --backend
+# gloo, one epoch of 2 steps, then the evaluation.
+P15A_ARGS = ["--model", "pipe_lm", "--dataset", "synthetic_seq",
+             "--synthetic_size", "16", "--seq_len", "2048", "--vocab_size",
+             "8192", "--model_dim", "1024", "--num_heads", "8",
+             "--batch_size", "8", "--num_microbatches", "4", "--epochs", "1",
+             "--optimizer", "adam", "--lr", "3e-4", "--compute_dtype",
+             "bfloat16", "--mesh_pipe", "2", "--log_interval", "1"]
+P15B_ARGS = (VIT_ARGS[:1] + ["pipe_vit"] + VIT_ARGS[2:]
+             + ["--model_dim", "192", "--num_heads", "3", "--mesh_pipe",
+                "2", "--model_depth", "6", "--num_microbatches", "8",
+                "--pipe_schedule", "1f1b"])
+P15B_ARGS[P15B_ARGS.index("--synthetic_size") + 1] = "512"
+P15B_ARGS[P15B_ARGS.index("--epochs") + 1] = "1"
+P15_RUNS = {
+    "15a_pipe_gpipe": (P15A_ARGS, ["--model_depth", "4", "--pipe_schedule",
+                                   "gpipe"], 2),
+    "15a_pipe_1f1b": (P15A_ARGS, ["--model_depth", "4", "--pipe_schedule",
+                                  "1f1b"], 2),
+    "15a_pipe_interleaved": (P15A_ARGS, ["--model_depth", "2",
+                                         "--pipe_schedule", "interleaved",
+                                         "--virtual_stages", "2"], 2),
+    "15b_pipe_vit": (P15B_ARGS, [], 2),
+}
+P12_RUNS.update(P15_RUNS)
+# B1-B3 alone at 15a's microbatch: [2, 2048, 8, 128], causal.
+P15A_SHAPE = ("15a pipe_lm microbatch T=S=2048 D 128", 2, 2048, 2048, 8, 128,
+              True)
+# 15a: the pipeline's eval loss against its checkpoint's to_dense_lm
+# through CausalLM (bf16 both; the same products in another module).
+P15_DENSE_ATOL = 1e-3
+# 15c, in 12d's world: one fp32 step (SGD 0.1, B1-B3 in fp32) of pipe_lm
+# at pipe 2 x data 2 under each schedule (interleaved: v 2) and at pipe 4
+# with v 2, and of pipe_vit under 1f1b at pipe 2 x data 2, from the same
+# seeded weights on the same global batch, against world 1's exact
+# sequential step (the plain attention) within STEP_TOL["fp32"]; a 1F1B
+# backward dropped at stage 0, the tied embedding without the head's
+# part and interleaved chunks placed stage-major must fail it. Cuts: the
+# LM at T 1024 (of 2048), one block a chunk, M 4 of one row each.
+P15_LM = dict(vocab_size=8192, seq_len=1024, d_model=1024, num_heads=8,
+              depth_per_stage=1, num_microbatches=4)
+P15_VIT = dict(num_classes=100, patch_size=4, embed_dim=192, num_heads=3,
+               depth_per_stage=1, num_microbatches=4, side=32, in_channels=3)
+P15_CHECKS = {  # label: (family, pipe, virtual stages, schedule, control)
+    "15c pipe_lm gpipe pipe 2 x data 2": ("lm", 2, 1, "gpipe", None),
+    "15c pipe_lm 1f1b pipe 2 x data 2": ("lm", 2, 1, "1f1b", None),
+    "15c pipe_lm 1f1b, a backward dropped at stage 0":
+        ("lm", 2, 1, "1f1b", "dropped_backward"),
+    "15c pipe_lm 1f1b, the tied embedding without the head's part":
+        ("lm", 2, 1, "1f1b", "untied_head"),
+    "15c pipe_lm interleaved v 2 pipe 2 x data 2":
+        ("lm", 2, 2, "interleaved", None),
+    "15c pipe_lm interleaved v 2 pipe 4": ("lm", 4, 2, "interleaved", None),
+    "15c pipe_lm interleaved v 2 pipe 4, chunks stage-major":
+        ("lm", 4, 2, "interleaved", "stage_major"),
+    "15c pipe_vit 1f1b pipe 2 x data 2": ("vit", 2, 1, "1f1b", None),
+}
+# 15d, in 12d's world at pipe 2 x data 2 (P15_LM, fp32, microbatches of
+# one row): stage 0's peak allocated memory over a step at M 4 and M 16;
+# under 1f1b the M 16 peak is at most P15_MEMORY_RATIO x the M 4 one.
+P15D_MICROBATCHES = (4, 16)
+P15_MEMORY_RATIO = 1.1
+
+
 def _p14_model(torch, family, cfgs):
     """(the model with its seeded full state loaded, on the CPU, the
     state) of a 14d family."""
@@ -8522,6 +8633,32 @@ def _p12_expected(name, depth, steps, rank) -> int:
     return depth * steps
 
 
+# 15b's kernels: fp32 (the Flax promotion JAX's pipe_vit keeps), none bf16.
+P15_DTYPE = {"15b_pipe_vit": ("fp32", "bf16")}
+
+
+def _p15_dtype(run) -> str:
+    """The dtype of a phase-12 wave run's B1-B3 launches."""
+    return P15_DTYPE.get(run, ("bf16",))[0]
+
+
+def _p15_expected(args, steps) -> dict:
+    """A pipe rank's B1-B3 launches in training from its timetable: each
+    of the M microbatches through each of its v chunks of ``depth``
+    blocks forward and backward a step (B2, B3 once a block), B1 twice
+    under the hand-scheduled schedules (the backward slot rebuilds the
+    chunk)."""
+    def flag(name, default):
+        return args[args.index(name) + 1] if name in args else default
+
+    M, V = int(flag("--num_microbatches", 4)), int(flag("--virtual_stages",
+                                                        1))
+    n = steps * M * V * int(flag("--model_depth", 1))
+    twice = flag("--pipe_schedule", "gpipe") != "gpipe"
+    return {"flash_attn_fwd": n * (2 if twice else 1), "flash_attn_dq": n,
+            "flash_attn_dkv": n}
+
+
 def _hop_launches(run, key, causal) -> int:
     """A ring run's training launches of ``key`` at its past hops' shape:
     every rank's under a non-causal ring (hop 0 is one more unmasked
@@ -8567,10 +8704,12 @@ def _p12_readings(torch, tmp, name, code, lines, span) -> tuple[dict, list]:
         log(f"[mesh] {name} exited {code}; its output from the first "
             "traceback:\n" + "\n".join(lines[first:first + 80]))
         return {}, [f"{name}: exit {code}: {lines[-20:]}"]
-    depth = int(base[base.index("--model_depth") + 1]) \
-        if "--model_depth" in base else 2
+    args = base + P12_RUNS[name][1]
+    depth = int(args[args.index("--model_depth") + 1]) \
+        if "--model_depth" in args else 2
     steps = int(torch.load(f"{tmp}/{name}/epoch_0/state.pt",
                            weights_only=True)["step"])
+    dt, other = P15_DTYPE.get(name, ("bf16", "fp32"))
     ranks, failed = [], []
     for r in range(world):
         path = f"{tmp}/{name}_prof/trace_rank{r}.json"
@@ -8578,19 +8717,22 @@ def _p12_readings(torch, tmp, name, code, lines, span) -> tuple[dict, list]:
             failed.append(f"{name}: rank {r} wrote no trace")
             continue
         t = _rank_trace(path)
-        want = _p12_expected(name, depth, steps, r)
-        if not (all(t["train"][f"{n}_bf16"] == want for n in FLASH_NAMES)
-                and not any(t["total"][f"{n}_fp32"] for n in FLASH_NAMES)):
+        want = (_p15_expected(args, steps) if name in P15_RUNS else
+                dict.fromkeys(FLASH_NAMES,
+                              _p12_expected(name, depth, steps, r)))
+        if not (all(t["train"][f"{n}_{dt}"] == want[n] for n in FLASH_NAMES)
+                and not any(t["total"][f"{n}_{other}"] for n in FLASH_NAMES)):
             failed.append(f"{name}: rank {r} launched {t['train']} in "
-                          f"training, not B1 = B2 = B3 = {want} in bf16")
+                          f"training, not B1, B2, B3 = "
+                          f"{[want[n] for n in FLASH_NAMES]} in {dt}")
         ranks.append(dict(t, want=want))
         log(f"[mesh] {name} rank {r}/{world}: step p50 "
             f"{t['step_p50_ms']:.3f} ms over {t['timed']} of its {t['steps']} "
             f"steps (the warm-up left out), busy share "
             f"{t['busy']:.3f}, B1-B3 in training "
-            f"{[t['train'][f'{n}_bf16'] for n in FLASH_NAMES]} (want "
-            f"{want} each), in all "
-            f"{[t['total'][f'{n}_bf16'] for n in FLASH_NAMES]}")
+            f"{[t['train'][f'{n}_{dt}'] for n in FLASH_NAMES]} (want "
+            f"{[want[n] for n in FLASH_NAMES]}), in all "
+            f"{[t['total'][f'{n}_{dt}'] for n in FLASH_NAMES]}")
     text = [ln for ln in lines if ln.startswith(("epoch 1/", "Epoch 0 done",
                                                  "final_accuracy="))]
     parts = _p12_breakdown(tmp, name, span)
@@ -8608,7 +8750,8 @@ def _p12_cfgs() -> dict:
     ranks, so that a rehearsal's cut sizes reach them)."""
     return dict(lc=dict(P12_LC), lm=dict(P12_LM), moe=dict(P12_MOE),
                 lm13=dict(P13_LM), vit=dict(P13_VIT), clip=P13_CLIP,
-                moe_cf=P14_MOE_CF)
+                moe_cf=P14_MOE_CF, p15_lm=dict(P15_LM),
+                p15_vit=dict(P15_VIT))
 
 
 def _p12d_models(torch, family, state, dev, cfgs):
@@ -8832,6 +8975,9 @@ def _p12d_worker(rank, world, out, device, cfgs):
         if rank == 0:
             results["13c_states"] = states
             torch.save(results, f"{out}/12d_steps.pt")
+        p15 = _p15_worker_steps(torch, mesh_of, ctx.device, cfgs, rank)
+        if rank == 0:
+            torch.save(p15, f"{out}/15_steps.pt")
     finally:
         dist.cleanup()
 
@@ -9075,6 +9221,19 @@ def check_mesh_spawn_params(torch, tmp, codes) -> tuple[dict, list]:
     if dc <= P12_PARAM_ATOL:
         failed.append("12d spawned: the control passes")
     return dict(param_diff=d, control_diff=dc, steps=int(a["step"])), failed
+
+
+@contextlib.contextmanager
+def _killed(procs: dict):
+    """``procs`` (name → process, filled inside the block), every one
+    still running killed on the way out."""
+    try:
+        yield procs
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 @contextlib.contextmanager
@@ -9340,6 +9499,327 @@ def check_p14_steps(torch, tmp, dev="cuda") -> tuple[dict, list]:
     return readings, failed
 
 
+def _p15_cfg(family, pipe, virtual, cfgs):
+    """A 15c/15d family's PipeLMConfig or PipeViTConfig."""
+    from ddp_tpu_torch.models import pipeline_lm as tplm
+    from ddp_tpu_torch.models import pipeline_vit as tpv
+
+    if family == "vit":
+        return tpv.PipeViTConfig(**cfgs["p15_vit"], num_stages=pipe,
+                                 virtual_stages=virtual)
+    return tplm.PipeLMConfig(**cfgs["p15_lm"], num_stages=pipe,
+                             virtual_stages=virtual)
+
+
+def _p15_inputs(torch, family, pipe, virtual, dev, cfgs, rows=None):
+    """(the config, the seeded full state, the global batch) of a 15c/15d
+    case: by default one row a microbatch a data replica of 12d's world."""
+    from ddp_tpu_torch.models import pipeline_lm as tplm
+    from ddp_tpu_torch.models import pipeline_vit as tpv
+
+    cfg = _p15_cfg(family, pipe, virtual, cfgs)
+    rows = rows or cfg.num_microbatches * (P12_WORLD // pipe)
+    rng = np.random.default_rng(15)
+    if family == "vit":
+        state = tpv.init_pipe_vit(cfg, seed=15, interleaved=virtual > 1)
+        x = rng.integers(0, 256, (rows, cfg.side, cfg.side, cfg.in_channels),
+                         dtype=np.uint8)
+        y = rng.integers(0, cfg.num_classes, rows)
+        return cfg, state, (torch.from_numpy(x).to(dev),
+                            torch.from_numpy(y).to(dev))
+    state = tplm.init_pipe_lm(cfg, seed=15, interleaved=virtual > 1)
+    toks = rng.integers(0, cfg.vocab_size, (rows, cfg.seq_len))
+    return cfg, state, (torch.from_numpy(toks).to(dev),)
+
+
+def _p15_step(torch, family, schedule, cfg, state, batch, mesh, dev, *,
+              grads=True):
+    """One fp32 SGD step of a pipe world on this rank's rows of ``batch``
+    → (loss, the full gradients gathered over pipe, or None)."""
+    from ddp_tpu_torch.models import pipeline_lm as tplm
+    from ddp_tpu_torch.models import pipeline_vit as tpv
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    inter = schedule == "interleaved"
+    build, make = ((tpv.build_pipe_vit, tpv.make_pipe_vit_train_step)
+                   if family == "vit" else
+                   (tplm.build_pipe_lm, tplm.make_pipe_lm_train_step))
+    model = build(cfg, state, mesh, dev, interleaved=inter)
+    opt = make_optimizer(model.parameters(), "sgd", lr=0.1)
+    opt.norm = model.shard_layout.norm
+    per = batch[0].shape[0] // mesh.data_size
+    rows = [b[mesh.data_rank * per:][:per] for b in batch]
+    m = make(model, opt, mesh, schedule=schedule)(*rows)
+    out = None
+    if grads:
+        out = model.shard_layout.gather(
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    return float(m.loss), out
+
+
+def _p15_worker_steps(torch, mesh_of, dev, cfgs, rank) -> dict:
+    """15c's steps and 15d's peaks on this rank of 12d's world → what
+    rank 0 saves (15c: label → (loss, full gradients); 15d: (schedule,
+    M) → stage 0's peak allocated bytes and what it held before)."""
+    from ddp_tpu_torch.models import pipeline_lm as tplm
+    from ddp_tpu_torch.parallel import interleaved as tinter
+    from ddp_tpu_torch.parallel import one_f1b as tf1b
+
+    faults = {"dropped_backward": (tf1b, "FAULT", (0, 1)),
+              "untied_head": (tplm, "FAULT", "untied_head"),
+              "stage_major": (tinter, "FAULT", "stage_major")}
+    out = {}
+    for label, (family, pipe, virtual, schedule, control) in \
+            P15_CHECKS.items():
+        mesh = mesh_of(dict(pipe=pipe))
+        cfg, state, batch = _p15_inputs(torch, family, pipe, virtual, dev,
+                                        cfgs)
+        with _patched(*([faults[control]] if control else [])):
+            out[label] = _p15_step(torch, family, schedule, cfg, state,
+                                   batch, mesh, dev)
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    mesh = mesh_of(dict(pipe=2))
+    for schedule in ("gpipe", "1f1b"):
+        for M in P15D_MICROBATCHES:
+            cfgs_m = dict(cfgs, p15_lm=dict(cfgs["p15_lm"],
+                                            num_microbatches=M))
+            cfg, state, batch = _p15_inputs(torch, "lm", 2, 1, dev, cfgs_m,
+                                            rows=M * mesh.data_size)
+            held = peak = 0
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            _p15_step(torch, "lm", schedule, cfg, state, batch, mesh, dev,
+                      grads=False)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+            out[("15d", schedule, M, rank)] = (held, peak)
+    return out
+
+
+def _p15_reference(torch, family, pipe, virtual, dev, cfgs):
+    """World 1's exact sequential step (fp32, the plain attention) of a
+    15c case from the same weights on the global batch → (loss, {full
+    name: gradient})."""
+    import torch.nn.functional as F
+
+    from ddp_tpu_torch.models import lm as tlm
+    from ddp_tpu_torch.models import pipeline_lm as tplm
+    from ddp_tpu_torch.models import pipeline_vit as tpv
+    from ddp_tpu_torch.ops import flash as fl
+    from ddp_tpu_torch.parallel import ring
+    from ddp_tpu_torch.parallel.common import _preprocess, precision
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    cfg, state, batch = _p15_inputs(torch, family, pipe, virtual, dev, cfgs)
+    if family == "lm":
+        spec, dense = tplm.to_dense_lm(cfg, state)
+        model = tlm.CausalLM.from_state(spec, dense, dev, trainable=True)
+        opt = make_optimizer(model.parameters(), "sgd", lr=0.1)
+        m = tlm.make_lm_train_step(model, opt,
+                                   block_fn=ring._xla_block_with_lse)(*batch)
+        return float(m.loss), {n: p.grad.detach().cpu()
+                               for n, p in model.named_parameters()}
+
+    def plain(q, k, v):
+        return fl.attention_with_lse_reference(q, k, v, False)[0]
+
+    def load(module, prefix, source):
+        module.load_state_dict({k[len(prefix):]: torch.from_numpy(
+            np.ascontiguousarray(v)) for k, v in source.items()
+            if k.startswith(prefix)})
+        return module.to(dev)
+
+    embed = load(tpv.PatchEmbed(cfg), "embed.", state)
+    head = load(tpv.PipeHead(cfg), "head.", state)
+    chunks = []
+    for c in tpv.chunk_states(state):
+        blocks = tpv.StageBlocks(cfg.depth_per_stage, cfg.embed_dim,
+                                 cfg.num_heads, cfg.embed_dim * cfg.mlp_ratio,
+                                 attention_fn=plain)
+        chunks.append(load(blocks, "", c))
+    with precision(torch.float32):  # the patch conv in full fp32
+        h = embed(_preprocess(batch[0], torch.float32))
+        for blocks in chunks:
+            h = blocks(h, torch.float32)
+        loss = F.cross_entropy(head(h), batch[1].long())
+        loss.backward()
+    loss = loss.detach()
+    grads = {f"embed.{n}": p.grad.cpu() for n, p in embed.named_parameters()}
+    grads.update({f"head.{n}": p.grad.cpu()
+                  for n, p in head.named_parameters()})
+    for n, _ in chunks[0].named_parameters():
+        stacked = torch.stack([dict(b.named_parameters())[n].grad.cpu()
+                               for b in chunks])
+        grads["stages." + n] = stacked.reshape(state["stages." + n].shape)
+    return float(loss), grads
+
+
+def check_p15_steps(torch, tmp, dev="cuda") -> tuple[dict, list]:
+    """15c (each P15_CHECKS pipe world's step against world 1's exact
+    step, the controls failing) and 15d (the 1F1B memory contract) from
+    12d's world's file."""
+    from ddp_tpu_torch.models import pipeline_lm as tplm
+
+    got = torch.load(f"{tmp}/15_steps.pt", weights_only=False)
+    cfgs = _p12_cfgs()
+    tol = STEP_TOL["fp32"]
+    readings, failed, refs = {}, [], {}
+    for label, (family, pipe, virtual, _, control) in P15_CHECKS.items():
+        key = (family, pipe, virtual)
+        if key not in refs:
+            refs[key] = _p15_reference(torch, family, pipe, virtual, dev,
+                                       cfgs)
+            torch.cuda.empty_cache()
+        loss, grads = got[label]
+        if family == "lm":  # the stacked names → the dense CausalLM's
+            grads = tplm.to_dense_lm(_p15_cfg(family, pipe, virtual, cfgs),
+                                     grads)[1]
+        e = _grad_errors((loss, grads), refs[key])
+        ok = _within(e, tol)
+        readings[label] = dict(loss=e["loss"], grad=e["grad"], leaf=e["leaf"])
+        log(f"[mesh] {label}: {_errors_text(e)}"
+            + (" (a control: must fail)" if control else ""))
+        if ok == bool(control):
+            failed.append(f"{label}: " + ("the control passes" if control
+                                          else _errors_text(e)))
+    peaks = {}
+    for key, (held, peak) in got.items():
+        if isinstance(key, tuple):  # ("15d", schedule, M, rank 0)
+            _, schedule, M, _ = key
+            peaks[f"{schedule} M {M}"] = dict(held_mb=held / 2**20,
+                                              peak_mb=peak / 2**20)
+    lo, hi = (peaks[f"1f1b M {M}"]["peak_mb"] for M in P15D_MICROBATCHES)
+    glo, ghi = (peaks[f"gpipe M {M}"]["peak_mb"] for M in P15D_MICROBATCHES)
+    log(f"[mesh] 15d stage 0 (rank 0, pipe 2 x data 2, microbatches of one "
+        f"row of T {cfgs['p15_lm']['seq_len']}, fp32) peak allocated over a "
+        f"step: 1f1b M {P15D_MICROBATCHES[0]} {lo:.1f} MiB, M "
+        f"{P15D_MICROBATCHES[1]} {hi:.1f} MiB (ratio {hi / max(lo, 1):.3f}, "
+        f"limit {P15_MEMORY_RATIO}); gpipe {glo:.1f} MiB and {ghi:.1f} MiB "
+        f"(ratio {ghi / max(glo, 1):.3f}); held before each step: "
+        f"{[round(v['held_mb'], 1) for v in peaks.values()]} MiB")
+    readings["15d"] = peaks
+    if not hi <= P15_MEMORY_RATIO * lo:
+        failed.append(f"15d: 1F1B stage 0's peak grows with M: {lo:.1f} -> "
+                      f"{hi:.1f} MiB")
+    return readings, failed
+
+
+def _p15_resume_failures(torch, ckdir, args, dev="cuda") -> list[str]:
+    """Rank 0's checkpoint of a 15a run restored by each pipe rank (the
+    trainer's path: ``CheckpointManager(layout=)`` at the same mesh): its
+    parameters, Adam moments and count are the file's slices, bit for
+    bit."""
+    from ddp_tpu_torch.models import pipeline_lm as tplm
+    from ddp_tpu_torch.parallel.ddp import TrainState
+    from ddp_tpu_torch.train.checkpoint import CheckpointManager
+    from ddp_tpu_torch.train.config import TrainConfig
+    from ddp_tpu_torch.train.optim import make_optimizer
+
+    c = TrainConfig.from_args(args + ["--spawn", "2"])
+    inter = c.pipe_schedule == "interleaved"
+    cfg = tplm.PipeLMConfig(
+        vocab_size=c.vocab_size, seq_len=c.seq_len, d_model=c.model_dim,
+        num_heads=c.num_heads, num_stages=c.mesh_pipe,
+        depth_per_stage=c.model_depth, num_microbatches=c.num_microbatches,
+        virtual_stages=c.virtual_stages)
+    blob = torch.load(f"{ckdir}/epoch_0/state.pt", weights_only=True)
+    failed = []
+    for d in range(c.mesh_pipe):
+        model = tplm.PipeLM(cfg, d, interleaved=inter).to(dev)
+        layout = model.layout(comm=None)
+        opt = make_optimizer(model.parameters(), "adam", lr=c.lr)
+        st = TrainState(0, model, opt)
+        CheckpointManager(ckdir, layout=layout).restore(st)
+        want = layout.shard(blob["params"])
+        moments = {k: layout.shard(blob["opt_state"][k]) for k in ("mu",
+                                                                 "nu")}
+        for n, p in model.named_parameters():
+            i = layout.names.index(n)
+            if not (torch.equal(p.detach().cpu(), want[n])
+                    and all(torch.equal(getattr(opt, k)[i].cpu(),
+                                        moments[k][n]) for k in moments)):
+                failed.append(f"pipe rank {d}: {n} restored off its slice")
+        if (st.step, opt.count) != (blob["step"], blob["opt_state"]["count"]):
+            failed.append(f"pipe rank {d}: step {st.step}, count "
+                          f"{opt.count} restored")
+    return failed
+
+
+def _p15_dense_loss(torch, ckdir, args, dev="cuda") -> float:
+    """A 15a checkpoint's ``to_dense_lm`` through the port's CausalLM
+    (bf16, as the run evaluated) on the run's test split → the mean of
+    its per-sequence losses."""
+    from ddp_tpu_torch.models import lm as tlm
+    from ddp_tpu_torch.models import pipeline_lm as tplm
+    from ddp_tpu_torch.train.config import TrainConfig
+    from ddp_tpu_torch.train.trainer import build_splits
+
+    c = TrainConfig.from_args(args + ["--spawn", "2"])
+    cfg = tplm.PipeLMConfig(
+        vocab_size=c.vocab_size, seq_len=c.seq_len, d_model=c.model_dim,
+        num_heads=c.num_heads, num_stages=c.mesh_pipe,
+        depth_per_stage=c.model_depth, virtual_stages=c.virtual_stages)
+    params = torch.load(f"{ckdir}/epoch_0/state.pt",
+                        weights_only=True)["params"]
+    spec, dense = tplm.to_dense_lm(cfg, params)
+    model = tlm.CausalLM.from_state(spec, dense, dev)
+    tokens = torch.as_tensor(build_splits(c)[1].images).to(dev)
+    _, loss = tlm.make_lm_eval_step(model, compute_dtype=torch.bfloat16)(
+        tokens, torch.ones(tokens.shape[0], device=dev))
+    return float(loss) / tokens.shape[0]
+
+
+def check_p15_runs(torch, tmp, runs, dev="cuda") -> tuple[dict, list]:
+    """15a and 15b beyond their launches: finite losses in each run's
+    --metrics_file; 15a's checkpoint restored bit for bit by each pipe
+    rank, and its to_dense_lm's eval loss the pipeline's within
+    P15_DENSE_ATOL; the timetables' bubble fractions."""
+    from ddp_tpu_torch.parallel.interleaved import schedule_interleaved
+    from ddp_tpu_torch.parallel.pipeline import bubble_fraction
+
+    readings, failed = {}, []
+    for name, (base, extra, _) in P15_RUNS.items():
+        if name not in runs or not runs[name]:
+            continue  # its exit already failed the phase
+        args = base + extra
+        with open(f"{tmp}/{name}.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in recs if r["kind"] == "step"]
+        final = next(r for r in recs if r["kind"] == "final")
+        if not (losses and all(np.isfinite(losses))
+                and np.isfinite(final["loss"])):
+            failed.append(f"{name}: losses {losses}, eval {final['loss']}")
+        M = int(args[args.index("--num_microbatches") + 1])
+        V = int(args[args.index("--virtual_stages") + 1]) \
+            if "--virtual_stages" in args else 1
+        bubble = (schedule_interleaved(2, M, V).bubble_fraction() if V > 1
+                  else bubble_fraction(2, M))
+        r = dict(losses=losses, eval_loss=final["loss"], bubble=bubble)
+        if name.startswith("15a"):
+            bad = _p15_resume_failures(torch, f"{tmp}/{name}", args, dev)
+            dense = _p15_dense_loss(torch, f"{tmp}/{name}", args, dev)
+            r.update(resumed_bitwise=not bad, dense_eval_loss=dense)
+            failed += [f"{name}: {b}" for b in bad]
+            if not abs(dense - final["loss"]) <= P15_DENSE_ATOL:
+                failed.append(f"{name}: to_dense_lm's eval loss {dense} vs "
+                              f"the pipeline's {final['loss']}")
+            torch.cuda.empty_cache()
+        readings[name] = r
+        log(f"[mesh] {name}: step losses {losses}, eval loss "
+            f"{final['loss']:.6f}"
+            + (f", to_dense_lm's {r['dense_eval_loss']:.6f} (limit "
+               f"{P15_DENSE_ATOL:.0e}), checkpoint restored bit for bit by "
+               f"every pipe rank: {r['resumed_bitwise']}"
+               if name.startswith("15a") else "")
+            + f"; the timetable's bubble fraction {bubble:.3f}")
+    return readings, failed
+
+
 def check_mesh(torch, card) -> dict:
     """Phase 12, the sequence models across ranks: 12a the long-context
     model at README's command (--mesh_seq 4, ring and Ulysses), 12b the
@@ -9348,7 +9828,9 @@ def check_mesh(torch, card) -> dict:
     ddp_tpu_torch.train --spawn N --backend gloo` with every rank on the
     one card (all at once, with 12d's world), launches by rank from each
     rank's trace; the ring hops' B1-B3 timed alone; 12d the step checks.
-    Every reading is printed before any raise."""
+    Phases 13, 14 and 15 (the in-graph pipeline: 15a/15b runs, 15c/15d in
+    12d's world) ride the same wave. Every reading is printed before any
+    raise."""
     import tempfile
 
     t0 = s0 = time.perf_counter()
@@ -9360,11 +9842,13 @@ def check_mesh(torch, card) -> dict:
         s0 = time.perf_counter()
 
     dev = "cpu" if CNN_DEVICE_ARGS else "cuda"
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp, \
+            _killed({}) as second:
         w0, started = time.perf_counter(), time.time()
         world = start_mesh_steps(tmp, dev)
         with _reaped(world):
-            commands = {name: _p12_argv(name, tmp) for name in P12_RUNS}
+            commands = {name: _p12_argv(name, tmp) for name in P12_RUNS
+                        if name not in P15_RUNS}
             commands["spawned"] = P12_SPAWN_ARGS + CNN_DEVICE_ARGS + GLOO + [
                 "--mesh_seq", "2", "--spawn", str(P12_SPAWN_WORLD),
                 "--checkpoint_dir", f"{tmp}/p12_seq2"]
@@ -9386,7 +9870,18 @@ def check_mesh(torch, card) -> dict:
                 torch, HOP12B_SHAPE, "hop12b", seed=122))
             readings["flash"].update(check_and_time_flash(
                 torch, P14A_FLASH_SHAPE, "vit14a", seed=141))
-            lap("hops and 14a's shape timed")
+            readings["flash"].update(check_and_time_flash(
+                torch, P15A_SHAPE, "pipe15a", seed=151))
+            lap("hops, 14a's and 15a's shapes timed")
+            # Phase 15's runs, a second wave: the first wave alone peaks at
+            # ~75 GB of the card's 80 (every run of a try at one wave died
+            # of CUDA's out of memory); they start after the kernel
+            # timings above (which they would crowd) and run beside the
+            # checks below.
+            started15 = time.time()
+            second.update({name: _launch(_p12_argv(name, tmp),
+                                         f"{tmp}/{name}.log")
+                           for name in P15_RUNS})
             readings["steps"], bad = check_mesh_steps(torch, tmp, world, w0,
                                                       dev)
         failed += bad
@@ -9394,18 +9889,32 @@ def check_mesh(torch, card) -> dict:
         if not any(b.startswith("12d: ") for b in bad):
             readings["phase14_steps"], bad = check_p14_steps(torch, tmp, dev)
             failed += bad
+            readings["phase15_steps"], bad = check_p15_steps(torch, tmp, dev)
+            failed += bad
         readings["phase14"], bad = check_p14_runs(torch, tmp,
                                                   readings["runs"])
         failed += bad
-        lap("phase 14's checks")
+        lap("phases 14's and 15's checks")
         readings["spawned"], bad = check_mesh_spawn_params(torch, tmp,
                                                            spawned)
         failed += bad
         lap("12d spawned")
-    log(f"[mesh] phases 12, 13 and 14: {time.perf_counter() - t0:.1f} s on "
-        f"{card}")
+        done = _await_all(second, tmp, timeout=P12_RUN_TIMEOUT)
+        span = (started15, time.time())
+        for name, (code, lines) in done.items():
+            readings["runs"][name], bad = _p12_readings(
+                torch, tmp, name, code, lines, span)
+            failed += bad
+        lap(f"phase 15's runs ({len(second)} at once, after the first "
+            "wave)")
+        readings["phase15"], bad = check_p15_runs(torch, tmp,
+                                                  readings["runs"], dev)
+        failed += bad
+        lap("phase 15's runs checked")
+    log(f"[mesh] phases 12, 13, 14 and 15: {time.perf_counter() - t0:.1f} s "
+        f"on {card}")
     if failed:
-        raise AssertionError(f"phases 12, 13 and 14: {failed}")
+        raise AssertionError(f"phases 12, 13, 14 and 15: {failed}")
     return readings
 
 
@@ -9989,7 +10498,7 @@ def main() -> int:
     fault = timed("phase 9", check_fault_tolerance, torch, card)
     imagenet = timed("phase 10", check_imagenet, torch, card)
     lc = timed("phase 11", check_long_context, torch, card)
-    mesh = timed("phases 12 and 13", check_mesh, torch, card)
+    mesh = timed("phases 12-15", check_mesh, torch, card)
     log(f"[main] all phases and the build: {time.perf_counter() - t0:.1f} s")
 
     replaces = {"flash_decode_fp32": "ddp_tpu/ops/decode.py:260",
@@ -10102,6 +10611,15 @@ def main() -> int:
                 run: [rk["train"][f"{name}_bf16"]
                       for rk in mesh["runs"][run]["ranks"]]
                 for run in ("14a_vit_model3", "14b_moe_expert2")},
+            # Phase 15: the pipe runs' training launches by pipe rank
+            # (15a pipe_lm under gpipe, 1f1b and interleaved, bf16; 15b
+            # pipe_vit under 1f1b, fp32: JAX's promotion), each the
+            # timetable's count (B1 twice a block under the hand-
+            # scheduled schedules).
+            "pipe_launches_by_rank": {
+                run: [rk["train"][f"{name}_{_p15_dtype(run)}"]
+                      for rk in mesh["runs"][run]["ranks"]]
+                for run in P15_RUNS},
             "variants": {
                 "fp32": {"launches": trained["fp32"][name],
                          **{k: flash["fp32"][name][k] for k in keys}},
@@ -10145,6 +10663,15 @@ def main() -> int:
                         rk["train"][f"{name}_{d}"] for rk in
                         mesh["runs"]["14a_vit_model3"]["ranks"]),
                     **mesh["flash"][f"vit14a_{d}"][name]}
+                   for d in ("bf16", "fp32")},
+                # Phase 15a's microbatch ([2, 2048, 8, 128], causal);
+                # launches: 15a's three runs over their ranks.
+                **{f"pipe15a_{d}": {
+                    "launches": sum(
+                        rk["train"][f"{name}_{d}"] for run in P15_RUNS
+                        if run.startswith("15a")
+                        for rk in mesh["runs"][run]["ranks"]),
+                    **mesh["flash"][f"pipe15a_{d}"][name]}
                    for d in ("bf16", "fp32")}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -394,3 +394,71 @@ def seq_transformer_params_to_jax(state) -> dict:
     """The port's ``LongContextTransformer`` state dict (or gradients
     keyed alike) → the JAX ``params`` tree of numpy fp32 arrays."""
     return _flax_to_jax(state)[0]
+
+
+# ---- the pipelined families: the stacked stages ------------------------
+#
+# A pipe model's full state (``models/pipeline_vit``, ``models/pipeline_lm``)
+# is JAX's ``PipeViTParams`` (``embed``, ``stages``, ``head``) or
+# ``PipeLMParams`` (``front``, ``stages``, ``back``) under "."-joined
+# names, the ``stages`` leaves stacked [S, …] or [v, S, …] ahead of each
+# leaf's own dims; the maps are the Flax ones on those trailing dims.
+
+
+def _stage_lead(names_ndims) -> int:
+    """Stacked dims of the ``stages`` leaves: 2 when the smallest (a
+    LayerNorm bias) has 3 dims ([v, S, d]), else 1 (``sequential_apply``'s
+    rule)."""
+    dims = [nd for name, nd in names_ndims if name.startswith("stages")]
+    return 2 if dims and min(dims) == 3 else 1
+
+
+def pipe_params_to_jax(state) -> dict:
+    """A pipe model's full state (arrays or tensors, or gradients and
+    moments keyed alike) → the nested JAX tree of numpy fp32 arrays."""
+
+    def arr(x):
+        if hasattr(x, "detach"):
+            x = x.detach().float().cpu().numpy()
+        return np.asarray(x, np.float32)
+
+    lead = _stage_lead((k, np.ndim(arr(v))) for k, v in state.items())
+    tree: dict = {}
+    for key, val in state.items():
+        a = arr(val)
+        *mod, leaf = key.split(".")
+        nd = a.ndim - (lead if mod[0] == "stages" else 0)
+        if leaf == "weight" and nd == 1:
+            leaf = "scale"
+        elif leaf == "weight" and nd == 2:
+            leaf, a = "kernel", np.swapaxes(a, -1, -2)
+        elif leaf == "weight" and nd == 4:  # OIHW → HWIO
+            leaf = "kernel"
+            a = np.moveaxis(a, (-4, -3, -2, -1), (-1, -2, -4, -3))
+        node = tree
+        for part in mod:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return tree
+
+
+def pipe_params_from_jax(tree) -> dict[str, np.ndarray]:
+    """A JAX ``PipeViTParams`` / ``PipeLMParams`` tree (as nested dicts of
+    its three fields) → the port's full pipe state; the inverse of
+    :func:`pipe_params_to_jax`."""
+    flat = flatten_tree(tree)
+    lead = _stage_lead((k, np.ndim(v)) for k, v in flat.items())
+    state = {}
+    for path, a in flat.items():
+        a = np.asarray(a, np.float32)
+        *mod, leaf = path.split("/")
+        nd = a.ndim - (lead if mod[0] == "stages" else 0)
+        if leaf == "scale":
+            leaf = "weight"
+        elif leaf == "kernel" and nd == 2:
+            leaf, a = "weight", np.swapaxes(a, -1, -2)
+        elif leaf == "kernel" and nd == 4:  # HWIO → OIHW
+            leaf = "weight"
+            a = np.moveaxis(a, (-1, -2, -4, -3), (-4, -3, -2, -1))
+        state[".".join(mod + [leaf])] = np.ascontiguousarray(a)
+    return state

@@ -1,2 +1,3 @@
 """Parallel strategies of the port: data parallelism over
-torch.distributed, and the one-rank ring attention."""
+torch.distributed, the ring and Ulysses, tensor parallelism, FSDP and
+ZeRO, the image family's GSPMD step, and the in-graph pipeline."""

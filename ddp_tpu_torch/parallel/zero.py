@@ -48,7 +48,7 @@ full-state file in place of re-bucketing a saved layout.
 
 :func:`ddp_comm_bytes`, :func:`zero_comm_bytes` and
 :func:`opt_bytes_per_device` are JAX's estimates (the flat mesh: the
-hierarchical ``dcn`` geometry waits for ROADMAP A4).
+hierarchical ``dcn`` geometry waits for ROADMAP A4.2).
 """
 
 from __future__ import annotations
@@ -501,10 +501,10 @@ def zero_comm_bytes(layout: BucketLayout, world: int, *,
     meshes: a reduce-scatter a bucket a microbatch ((N−1)/N of the padded
     fp32 bytes) and one all-gather in the gather dtype; ``gspmd`` prices
     JAX's in-graph LM expression (the transpose's all-reduce a microbatch
-    and the all-gather). ``dcn`` > 1 waits for ROADMAP A4."""
+    and the all-gather). ``dcn`` > 1 waits for ROADMAP A4.2."""
     if dcn > 1:
         raise ValueError("--mesh_dcn > 1 (hierarchical zero) is not "
-                         "ported: it waits for ROADMAP A4")
+                         "ported: it waits for ROADMAP A4.2")
     gdtype, _ = _resolve_gather_dtype(gather_dtype)
     b4 = layout.padded_total * 4
     bg = layout.padded_total * torch.empty((), dtype=gdtype).element_size()

@@ -20,7 +20,13 @@ whose ``wait()`` gives it), ``all_to_all(t, split_dim, concat_dim)`` (chunk
 ``i`` of ``split_dim`` goes to member ``i``; what member ``j`` sent lands
 ``j``-th along ``concat_dim``: ``lax.all_to_all(tiled=True)``) and
 ``shift(t, offset)`` (send to member ``rank + offset``, receive from
-``rank - offset``, mod ``size``: ``lax.ppermute`` over a ring).
+``rank - offset``, mod ``size``: ``lax.ppermute`` over a ring) and
+``p2p(sends, recvs)`` (the pipeline's neighbour exchange: every
+``(member, tag, tensor)`` of ``sends`` posted and every ``(member, tag,
+shape, dtype, device)`` of ``recvs`` received, all at once, so that two
+members that send to each other cannot deadlock; a send pairs with the
+receive of the same tag from its sender, in the order both posted them;
+a pipe has two stages or more, so a group of one has no ``p2p``).
 :class:`LocalComm` is the group of one; :class:`DistComm` runs over a
 ``torch.distributed`` subgroup; ``ThreadWorld.comm`` over threads of one
 process, for the tests. Under gloo a device tensor is staged through a
@@ -359,6 +365,26 @@ class DistComm:
             work.wait()
         return y.to(t.device)
 
+    def p2p(self, sends, recvs) -> list:
+        """Post every send and receive as one batch, wait for all → the
+        received tensors, in ``recvs``' order, on their devices. Under
+        gloo a CUDA tensor goes through pinned host memory both ways."""
+        ops, bufs = [], []
+        for peer, tag, t in sends:
+            ops.append(tdist.P2POp(tdist.isend, self._out(t),
+                                   self.ranks[peer], self.group, tag))
+        for peer, tag, shape, dtype, device in recvs:
+            host = self.stage and torch.device(device).type == "cuda"
+            buf = torch.empty(shape, dtype=dtype, pin_memory=host,
+                              device="cpu" if host else device)
+            ops.append(tdist.P2POp(tdist.irecv, buf, self.ranks[peer],
+                                   self.group, tag))
+            bufs.append((buf, device))
+        if ops:
+            for work in tdist.batch_isend_irecv(ops):
+                work.wait()
+        return [b.to(dev) for b, dev in bufs]
+
 
 class _Slots:
     """What the members of one in-process group share: a barrier and
@@ -367,6 +393,11 @@ class _Slots:
     def __init__(self, n: int, timeout: float):
         self.barrier = threading.Barrier(n, timeout=timeout)
         self.slots = [None] * n
+        self.timeout = timeout
+        # Point to point: (sender, receiver, tag) → tensors in flight.
+        self.mail: dict[tuple, list] = {}
+        self.mail_cv = threading.Condition()
+        self.aborted = False
 
 
 class ThreadComm:
@@ -420,6 +451,29 @@ class ThreadComm:
             t.clone(),
             lambda slots: slots[(self.rank - offset) % self.size].clone())
 
+    def p2p(self, sends, recvs) -> list:
+        """Sends go to the receivers' mailboxes at once (they never
+        block); each receive waits for its sender's tensor, and fails the
+        run past the world's timeout instead of hanging it."""
+        s, out = self._s, []
+        with s.mail_cv:
+            for peer, tag, t in sends:
+                s.mail.setdefault((self.rank, peer, tag), []).append(
+                    t.detach().clone())
+            s.mail_cv.notify_all()
+        for peer, tag, *_ in recvs:
+            key = (peer, self.rank, tag)
+            with s.mail_cv:
+                if not s.mail_cv.wait_for(
+                        lambda: s.aborted or s.mail.get(key), s.timeout):
+                    raise TimeoutError(
+                        f"member {self.rank}: no tensor from member {peer} "
+                        f"(tag {tag}) within {s.timeout} s")
+                if s.aborted and not s.mail.get(key):
+                    raise RuntimeError("the thread world was aborted")
+                out.append(s.mail[key].pop(0))
+        return out
+
 
 class ThreadWorld:
     """A world of ``n`` ranks inside one process, one thread each, for
@@ -456,6 +510,9 @@ class ThreadWorld:
         with self._lock:
             for g in self._groups.values():
                 g.barrier.abort()
+                with g.mail_cv:
+                    g.aborted = True
+                    g.mail_cv.notify_all()
 
     def run(self, fn) -> list:
         """``fn(rank)`` on every rank's thread → the results by rank; the

@@ -12,9 +12,11 @@ The axes (``mesh.py:10-39``): ``data`` shards the batch; ``fsdp``
 shards the sequence models' parameters and moments (``parallel/seq_fsdp``)
 and the batch too; ``expert`` shards MoE expert weights and the batch too
 (a data axis for the dense layers); ``seq`` shards the tokens (ring or
-Ulysses attention); ``model`` is Megatron tensor parallelism. ``pipe``
-and ``dcn`` are parsed and refused above 1, naming the ROADMAP item that
-brings them.
+Ulysses attention); ``model`` is Megatron tensor parallelism; ``pipe``
+holds the stages of the pipelined models (``parallel/pipeline``): its
+coordinate is the rank's stage, and activations and their cotangents
+move point to point over its group. ``dcn`` is parsed and refused above
+1, naming the ROADMAP item that brings it.
 
 :class:`Mesh` answers where a rank sits and holds one communicator
 (``runtime/dist``) for each group of axes a step reduces over: the
@@ -38,16 +40,19 @@ import numpy as np
 AXIS_ORDER = ("dcn", "pipe", "data", "fsdp", "expert", "seq", "model")
 # Axes the port does not shard over yet, with the ROADMAP item that
 # brings each.
-REFUSED = {"pipe": "A4 (the pipeline)", "dcn": "A4 (multi-slice, with MPMD)"}
+REFUSED = {"dcn": "A4.2 (multi-slice, with MPMD)"}
 # The groups of axes the steps reduce over: each axis alone (the ring,
 # Megatron's f/g, the expert all-to-all, a sharded leaf's gather and
 # reduce-scatter, ZeRO's bucket reduce-scatter over ``data``), the data
 # axes (evaluation sums), the data axes with ``seq`` (replicated leaves'
 # gradients and the step's metrics), and those less ``fsdp`` or
 # ``expert`` (the gradients of leaves whose reduce-scatter or all-to-all
-# already summed them over that axis). A group's communicator is found
-# by its axes of size above one.
+# already summed them over that axis), and ``pipe`` alone (the stages'
+# point-to-point exchanges) and with ``data`` (the pipelined models'
+# replicated ends: their gradients live on the end stages). A group's
+# communicator is found by its axes of size above one.
 GROUPS = (("seq",), ("model",), ("expert",), ("fsdp",), ("data",),
+          ("pipe",), ("pipe", "data"),
           ("data", "fsdp", "expert"), ("data", "fsdp", "expert", "seq"),
           ("data", "expert", "seq"), ("data", "fsdp", "seq"),
           ("data", "seq"))
@@ -186,11 +191,11 @@ class Mesh:
 
 
 def mesh_sizes(world: int, *, seq: int = 1, model: int = 1, expert: int = 1,
-               fsdp: int = 1) -> dict[str, int]:
+               fsdp: int = 1, pipe: int = 1) -> dict[str, int]:
     """The axis sizes of a world: the named axes fixed, ``data`` the rest
     (raises when they do not tile the world)."""
     sizes = MeshSpec(data=-1, seq=seq, model=model, expert=expert,
-                     fsdp=fsdp).resolve(world)
+                     fsdp=fsdp, pipe=pipe).resolve(world)
     check_supported(sizes)
     return sizes
 

@@ -9,7 +9,10 @@ shards the weight update over the data axis of the image models and of
 the causal LM (with ``--mesh_model``/``--mesh_seq`` too). The image
 models' ``--mesh_fsdp``, ``--mesh_model``, ``--mesh_expert`` (in any
 combination) and ``--zero1`` (on a pure data mesh) ride JAX's GSPMD step
-(``parallel/spmd``; :attr:`TrainConfig.use_spmd`)."""
+(``parallel/spmd``; :attr:`TrainConfig.use_spmd`). The pipelined models,
+``--model pipe_lm`` and ``pipe_vit``, cut over ``--mesh_pipe`` stages
+under ``--pipe_schedule`` (``parallel/pipeline``), the data axis the rest
+of the world."""
 
 from __future__ import annotations
 
@@ -19,10 +22,11 @@ import dataclasses
 from ddp_tpu_torch.models import IMAGE_MODELS
 
 SEQ_MODELS = ("long_context", "causal_lm")
-MODELS = IMAGE_MODELS + SEQ_MODELS
-# JAX-package models the port does not train yet, by name prefix, with the
-# ROADMAP item that brings them: the pipelined ViT (A4).
-UNPORTED = {"pipe_vit": "A4"}
+PIPE_MODELS = ("pipe_lm", "pipe_vit")
+MODELS = IMAGE_MODELS + SEQ_MODELS + PIPE_MODELS
+# What JAX's pipe family composes with that the port's does not yet: each
+# is refused by name until ROADMAP A4.1b.
+PIPE_LATER = "ROADMAP A4.1b"
 IMAGE_DATASETS = ("mnist", "fashion_mnist", "kmnist", "uci_digits",
                   "cifar10", "cifar100", "imagenet")
 SEQ_DATASETS = ("synthetic_seq", "text")
@@ -66,6 +70,14 @@ class TrainConfig:
     zero_bucket_mb: float = 4.0
     zero_gather_dtype: str = "fp32"  # fp32 | bf16
     zero1: bool = False
+    # The pipelined models (``parallel/pipeline``): --mesh_pipe stages
+    # (one a rank), --pipe_schedule gpipe | 1f1b | interleaved (with
+    # --virtual_stages chunks a rank), --num_microbatches strided
+    # microbatches a step; --model_depth is each chunk's depth.
+    mesh_pipe: int = 1
+    pipe_schedule: str = "gpipe"
+    virtual_stages: int = 1
+    num_microbatches: int = 4
     vocab_size: int = 256
     model_dim: int | None = None  # None → 64
     model_depth: int | None = None  # None → 2 (causal_lm), the model's own
@@ -152,8 +164,8 @@ class TrainConfig:
         p = argparse.ArgumentParser(
             prog="python -m ddp_tpu_torch.train",
             description="Train an image model (SimpleCNN, ResNet, ViT), "
-            "the long-context classifier or the causal LM data-parallel "
-            "(the PyTorch/CUDA port of train.py).",
+            "the long-context classifier, the causal LM or a pipelined "
+            "model (the PyTorch/CUDA port of train.py).",
         )
         choices = {
             "optimizer": ("sgd", "adam", "adamw"),
@@ -164,6 +176,7 @@ class TrainConfig:
             "seq_strategy": ("ring", "ulysses"),
             "parallel": ("auto", "zero"),
             "zero_gather_dtype": ("fp32", "bf16"),
+            "pipe_schedule": ("gpipe", "1f1b", "interleaved"),
         }
         for f in dataclasses.fields(cls):
             kw = {"default": f.default}
@@ -192,13 +205,10 @@ class TrainConfig:
                 "resume — or drop --elastic"
             )
         if config.model not in MODELS:
-            item = next((v for k, v in UNPORTED.items()
-                         if config.model.startswith(k)), None)
             raise ValueError(
                 f"--model {config.model!r} is not ported: the port trains "
-                f"{', '.join(MODELS)}"
-                + (f"; {config.model} waits for ROADMAP {item}" if item else "")
-            )
+                f"{', '.join(MODELS)}")
+        config._refuse_pipe_later()
         # JAX's guards (``ddp_tpu/train/trainer.py:251-262``, ``:284-291``,
         # ``:585-599``, ``:691-695``).
         if config.mesh_seq > 1 and config.model not in SEQ_MODELS:
@@ -207,6 +217,7 @@ class TrainConfig:
                 "have: use --model long_context, causal_lm, or pipe_lm "
                 "(PP×SP)"
             )
+        config._check_pipe()
         if config.mesh_seq < 1:
             raise ValueError(f"--mesh_seq must be >= 1, got {config.mesh_seq}")
         if config.seq_len % config.mesh_seq:
@@ -275,7 +286,117 @@ class TrainConfig:
     def mesh_axes(self) -> int:
         """The product of the axes other than ``data``."""
         return (self.mesh_seq * self.mesh_model * self.mesh_expert
-                * self.mesh_fsdp)
+                * self.mesh_fsdp * self.mesh_pipe)
+
+    @property
+    def pipe_mode(self) -> bool:
+        return self.model in PIPE_MODELS
+
+    def _refuse_pipe_later(self) -> None:
+        """What JAX's pipe family composes with and the port's does not
+        yet, refused by name before any other guard."""
+        if not self.pipe_mode:
+            return
+        lm = self.model == "pipe_lm"
+        later = [flag for flag, on in (
+            ("--mesh_fsdp", self.mesh_fsdp > 1),
+            ("--mesh_model", self.mesh_model > 1),
+            ("--mesh_expert", self.mesh_expert > 1 and lm),
+            ("--mesh_seq", self.mesh_seq > 1 and lm),
+            ("--moe_experts", self.moe_experts > 0),
+            ("--fast_epoch", self.fast_epoch)) if on]
+        if later:
+            raise ValueError(
+                f"--model {self.model} with {', '.join(later)}: the port's "
+                "pipeline composes with the data axis only; fsdp, PP×TP, "
+                f"PP×EP, PP×SP and --fast_epoch wait for {PIPE_LATER}")
+
+    def _check_pipe(self) -> None:
+        """The pipe family's guards, with JAX's messages
+        (``trainer.py:293-402``)."""
+        pipe, lm = self.pipe_mode, self.model == "pipe_lm"
+        if self.mesh_pipe > 1 and not pipe:
+            raise ValueError(
+                "--mesh_pipe cuts a model into stages, which only the "
+                "pipeline family has: use --model pipe_vit or pipe_lm")
+        if pipe and self.mesh_pipe < 2:
+            raise ValueError(
+                f"--model {self.model} needs --mesh_pipe >= 2 (a "
+                "1-stage pipeline is the plain step — drop the flag)")
+        if pipe and ((self.mesh_expert > 1 and not lm)
+                     or (self.mesh_seq > 1 and not lm)
+                     or self.zero1 or self.grad_accum_steps > 1
+                     or (lm and self.augment not in (None, "none"))):
+            raise ValueError(
+                f"--model {self.model} composes with the data axis, "
+                "fsdp (ZeRO-sharded stage params), tp (--mesh_model, "
+                "PP×TP)"
+                + (", expert (--mesh_expert, PP×EP), seq "
+                   "(--mesh_seq, PP×SP — ulysses under 1f1b/"
+                   "interleaved, ring under gpipe)"
+                   if lm else ", augment")
+                + ", --fast_epoch, bf16, remat, label smoothing, EMA "
+                "and LR schedules — not "
+                + ("" if lm else "expert/seq/")
+                + "zero1, accumulation (use --num_microbatches)"
+                + (", or augment" if lm else ""))
+        if pipe and (self.num_heads < 1
+                     or (self.model_dim or 64) % self.num_heads):
+            raise ValueError(
+                f"--num_heads {self.num_heads} must be >= 1 and "
+                f"divide --model_dim {self.model_dim or 64}")
+        if self.num_kv_heads and self.model == "pipe_vit":
+            raise ValueError(
+                "--num_kv_heads (grouped-query attention) shrinks "
+                "the causal LM's generation KV cache: use --model "
+                "causal_lm or pipe_lm (or drop the flag)")
+        if lm and self.num_kv_heads and (
+                self.num_kv_heads < 1
+                or self.num_heads % self.num_kv_heads):
+            raise ValueError(
+                f"--num_kv_heads {self.num_kv_heads} must be >= 1 "
+                f"and divide --num_heads {self.num_heads}")
+        if pipe and self.num_microbatches < 1:
+            raise ValueError(
+                f"--num_microbatches must be >= 1, got "
+                f"{self.num_microbatches}")
+        if self.virtual_stages < 1:
+            raise ValueError(
+                f"--virtual_stages must be >= 1, got {self.virtual_stages}")
+        if self.virtual_stages > 1 and not pipe:
+            raise ValueError(
+                "--virtual_stages cuts a pipelined model into chunks: "
+                "use --model pipe_vit or pipe_lm (with --mesh_pipe "
+                "and --pipe_schedule interleaved)")
+        if self.virtual_stages > 1 and self.pipe_schedule != "interleaved":
+            raise ValueError(
+                "--virtual_stages places multiple model chunks per "
+                "device, which only the interleaved schedule streams: "
+                "add --pipe_schedule interleaved")
+        if pipe and self.num_microbatches % self.mesh_pipe:
+            raise ValueError(
+                f"--num_microbatches {self.num_microbatches} must be "
+                f"a multiple of --mesh_pipe {self.mesh_pipe} (the "
+                "sharded stream rests microbatch m on device m mod S)")
+
+    def check_pipe_batch(self, global_batch_size: int,
+                         data_shards: int) -> None:
+        """Microbatch divisibility guards of both pipe families
+        (``trainer.py:1653-1669``)."""
+        M = self.num_microbatches
+        if global_batch_size % M:
+            raise ValueError(
+                f"global batch {global_batch_size} (batch_size "
+                f"× data shards) not divisible by "
+                f"--num_microbatches {M}")
+        mb_size = global_batch_size // M
+        if mb_size % data_shards:
+            raise ValueError(
+                f"microbatch size {mb_size} (global batch "
+                f"{global_batch_size} / {M} "
+                f"microbatches) not divisible by {data_shards} "
+                "data shards — each microbatch shards over the data "
+                "axis")
 
     @property
     def zero(self) -> bool:
@@ -285,7 +406,7 @@ class TrainConfig:
     def use_spmd(self) -> bool:
         """An image model on JAX's GSPMD step (``trainer.py:404-411``): any
         non-data axis above one, or ``--zero1``."""
-        return self.model not in SEQ_MODELS and (
+        return self.model not in SEQ_MODELS + PIPE_MODELS and (
             self.mesh_model > 1 or self.mesh_fsdp > 1
             or self.mesh_expert > 1 or self.zero1)
 
@@ -310,7 +431,13 @@ class TrainConfig:
                 "the model axes); this model keeps the data axis "
                 "only"
             )
-        if self.model == "long_context":
+        if self.mesh_pipe > 1:
+            raise ValueError(
+                "--parallel zero composes with the data axis only "
+                "(the sharded update scatters over it); drop "
+                "--mesh_pipe or --parallel"
+            )
+        if self.model == "long_context" or self.pipe_mode:
             raise ValueError(
                 f"--parallel zero covers the DDP image family and "
                 f"--model causal_lm; {self.model!r} keeps its "
@@ -342,7 +469,7 @@ class TrainConfig:
     def _check_mesh(self) -> None:
         """The mesh guards (``ddp_tpu/train/trainer.py:91-122``,
         ``:349-375``, ``:600-621``) and the world's tiling."""
-        for flag in ("mesh_model", "mesh_expert", "mesh_fsdp"):
+        for flag in ("mesh_model", "mesh_expert", "mesh_fsdp", "mesh_pipe"):
             if getattr(self, flag) < 1:
                 raise ValueError(f"--{flag} must be >= 1, got "
                                  f"{getattr(self, flag)}")
@@ -397,8 +524,9 @@ class TrainConfig:
                     f"a world of {world} rank(s) does not tile --mesh_fsdp "
                     f"{self.mesh_fsdp} × --mesh_seq {self.mesh_seq} × "
                     f"--mesh_model {self.mesh_model} × --mesh_expert "
-                    f"{self.mesh_expert}: run --spawn N with N a multiple "
-                    f"of {self.mesh_axes} (the data axis is the rest)")
+                    f"{self.mesh_expert} × --mesh_pipe {self.mesh_pipe}: "
+                    f"run --spawn N with N a multiple of {self.mesh_axes} "
+                    "(the data axis is the rest)")
             if self.elastic:
                 raise ValueError(
                     "--elastic resizes the data axis of a data-parallel "

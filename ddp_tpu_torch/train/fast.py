@@ -63,8 +63,12 @@ def run_steps(step, batches, *, on_gpu: bool, between=None):
             metrics.append(step(*args))
     if not metrics:
         return None, marks
+    # A step that computes no grad norm (None) reads NaN.
+    nan = torch.full((), float("nan"), device=torch.as_tensor(
+        metrics[0].loss).device)
     return StepMetrics(*(
-        torch.stack([torch.as_tensor(getattr(m, f)) for m in metrics])
+        torch.stack([torch.as_tensor(nan if getattr(m, f) is None
+                                     else getattr(m, f)) for m in metrics])
         for f in ("loss", "accuracy", "grad_norm")
     )), marks
 
@@ -157,6 +161,7 @@ def make_lm_epoch_runner(
     reduce=all_reduce_sum,
     mesh=None,
     strategy: str = "ring",
+    step=None,
 ):
     """``run(epoch) -> StepMetrics`` of [steps] device tensors.
 
@@ -174,7 +179,8 @@ def make_lm_epoch_runner(
     epoch's one host sync). On a ``mesh`` (``runtime/mesh``) ``rank`` and
     ``world`` are the data replica and the replicas, and the step
     (``models/lm.make_lm_train_step(mesh=)``) takes its ``seq`` columns
-    of those rows.
+    of those rows. ``step(tokens) -> StepMetrics`` replaces the causal
+    LM's step (the pipelined LM's, ``models/pipeline_lm``).
     """
     if global_batch_size % world:
         raise ValueError(
@@ -189,11 +195,13 @@ def make_lm_epoch_runner(
         )
     tokens = tokens.to(model.device)
     plan = permutation or default_permutation(n, seed)
-    step = make_lm_train_step(
-        model, optimizer, compute_dtype=compute_dtype,
-        grad_accum_steps=grad_accum_steps, label_smoothing=label_smoothing,
-        world=world, reduce=reduce, mesh=mesh, strategy=strategy,
-    )
+    if step is None:
+        step = make_lm_train_step(
+            model, optimizer, compute_dtype=compute_dtype,
+            grad_accum_steps=grad_accum_steps,
+            label_smoothing=label_smoothing, world=world, reduce=reduce,
+            mesh=mesh, strategy=strategy,
+        )
 
     def run(epoch: int, skip_batches: int = 0, between=None) -> StepMetrics:
         perm = torch.as_tensor(np.array(plan(epoch)), dtype=torch.long)

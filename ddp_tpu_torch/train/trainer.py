@@ -56,6 +56,13 @@ sidecar that ``python -m ddp_tpu_torch.serve --checkpoint_dir`` reads)
 and auto-resume with the Adam state and the step count, as the image
 trainer's.
 
+The pipelined models (``--model pipe_lm``, ``pipe_vit``; ``--mesh_pipe``
+stages, ``--pipe_schedule``) run in :class:`PipeLMTrainer` and
+:class:`PipeViTTrainer`, the LM and image trainers with the pipe step
+(``models/pipeline_lm``, ``models/pipeline_vit``) and its evaluation on
+the mesh of the world; a data replica's pipe ranks read the same rows,
+and the checkpoints hold the full stacked state.
+
 Both carry the fault-tolerance layer (:class:`_FaultTolerant`,
 ``trainer.py:1938-2523``): SIGTERM checkpoints the epoch in flight with
 its ``mid_batch`` and a re-run re-enters it at that batch; ``--chaos``
@@ -161,6 +168,7 @@ from ddp_tpu_torch.utils.watchdog import StepWatchdog
 logger = logging.getLogger("ddp_tpu_torch")
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+LM_MODELS = ("causal_lm", "pipe_lm")  # the models run_lm trains
 
 
 TOKENIZER_FILE = "tokenizer.json"
@@ -174,7 +182,7 @@ def build_splits(config: TrainConfig, *,
     LM, labelled feature sequences for long_context — or the text file's
     (the causal LM only; a BPE vocabulary at, or saved to,
     ``tokenizer_path``)."""
-    token_mode = config.model == "causal_lm"
+    token_mode = config.model in ("causal_lm", "pipe_lm")
     if config.dataset == "text":
         if not token_mode:
             raise ValueError(
@@ -230,7 +238,8 @@ def build_mesh(config: TrainConfig, ctx: dist.DistContext | None, *,
     world, rank = ((1, 0) if ctx is None
                    else (ctx.num_processes, ctx.process_id))
     sizes = mesh_sizes(world, seq=config.mesh_seq, model=config.mesh_model,
-                       expert=config.mesh_expert, fsdp=config.mesh_fsdp)
+                       expert=config.mesh_expert, fsdp=config.mesh_fsdp,
+                       pipe=config.mesh_pipe)
     return dist_mesh(sizes, rank)
 
 
@@ -564,11 +573,13 @@ class _FaultTolerant:
                 continue
             logged.append(float(value))
             step = step0 + i + 1
+            norm = ({} if np.isnan(gnorm[i])  # the step reports none
+                    else {"grad_norm": round(float(gnorm[i]), 6)})
             self.metrics_writer.write(
                 "step", epoch=epoch, batch=batch, step=step,
                 loss=float(value),
                 lr=round(lr_at(self.lr_schedule, max(0, step - 1)), 8),
-                grad_norm=round(float(gnorm[i]), 6),
+                **norm,
                 **({} if self._comm_bytes is None
                    else {"comm_bytes": self._comm_bytes}))
         return logged
@@ -1241,6 +1252,192 @@ class SeqTrainer(ImageTrainer):
                                            compute_dtype=self.compute_dtype)
 
 
+def _log_bubble(log, config: TrainConfig, family: str) -> None:
+    """The pipeline's start-up line with its bubble fraction, as JAX logs
+    it (``trainer.py:1077-1092``, ``:1170-1197``)."""
+    from ddp_tpu_torch.parallel.interleaved import schedule_interleaved
+    from ddp_tpu_torch.parallel.pipeline import bubble_fraction
+
+    S, M, V = (config.mesh_pipe, config.num_microbatches,
+               config.virtual_stages)
+    depth = config.model_depth or 1
+    if family == "pipe_lm":
+        log(f"Pipeline LM: {S} stages × {V} virtual × {depth} blocks, {M} "
+            f"microbatches, {config.pipe_schedule} schedule, tp=1, bubble "
+            f"fraction {bubble_fraction(S, M * V):.3f}")
+    elif config.pipe_schedule == "interleaved":
+        log(f"Pipeline: {S} stages × {V} virtual × {depth} blocks, {M} "
+            "microbatches, interleaved schedule, bubble fraction "
+            f"{schedule_interleaved(S, M, V).bubble_fraction():.3f} (plain "
+            f"1F1B: {bubble_fraction(S, M):.3f})")
+    else:
+        log(f"Pipeline: {S} stages × {depth} blocks, {M} microbatches, "
+            f"{config.pipe_schedule} schedule, bubble fraction "
+            f"{bubble_fraction(S, M):.3f}")
+
+
+class PipeLMTrainer(LMTrainer):
+    """``--model pipe_lm`` (``trainer.py:1008-1136``): the causal LM cut
+    into ``--mesh_pipe`` stages of ``--model_depth`` blocks a chunk
+    (``models/pipeline_lm``) over the mesh of the world, the data axis
+    the rest; the LM trainer's data, epoch runner (each data replica its
+    strided rows; the pipe ranks of a replica the same ones), evaluation
+    and fault tolerance, with the LR schedules; the checkpoints hold the
+    full stacked state, gathered from the pipe ranks (its ``to_dense_lm``
+    is the servable ``CausalLM``)."""
+
+    def __init__(self, config: TrainConfig,
+                 ctx: dist.DistContext | None = None):
+        from ddp_tpu_torch.models.pipeline_lm import (
+            PipeLMConfig,
+            build_pipe_lm,
+            init_pipe_lm,
+            make_pipe_lm_eval_step,
+            make_pipe_lm_train_step,
+        )
+
+        if config.model != "pipe_lm":
+            raise ValueError(f"PipeLMTrainer trains --model pipe_lm, not "
+                             f"{config.model!r}")
+        self.config = config
+        if ctx is None:
+            self.rank, self.world = 0, 1
+            self.device = resolve_device(config.device)
+        else:
+            self.rank, self.world = ctx.process_id, ctx.num_processes
+            self.device = ctx.device
+        self.compute_dtype = DTYPES[config.compute_dtype]
+        self.mesh = build_mesh(config, ctx, always=True)
+        self.data_rank, self.data_world = (self.mesh.data_rank,
+                                           self.mesh.data_size)
+        self.train_split, self.test_split = self._splits()
+        interleaved = config.pipe_schedule == "interleaved"
+        self.pipe_cfg = PipeLMConfig(
+            vocab_size=config.vocab_size, seq_len=config.seq_len,
+            d_model=config.model_dim or 64, num_heads=config.num_heads,
+            num_stages=config.mesh_pipe,
+            depth_per_stage=config.model_depth or 1,
+            num_microbatches=config.num_microbatches, remat=config.remat,
+            virtual_stages=config.virtual_stages,
+            label_smoothing=config.label_smoothing,
+            num_kv_heads=config.num_kv_heads)
+        self.per_shard_batch = config.batch_size
+        self.global_batch_size = config.batch_size * self.data_world
+        config.check_pipe_batch(self.global_batch_size, self.data_world)
+        _log_bubble(self.log, config, "pipe_lm")
+        self.model = build_pipe_lm(
+            self.pipe_cfg, init_pipe_lm(self.pipe_cfg, seed=config.seed,
+                                        interleaved=interleaved),
+            self.mesh, self.device, interleaved=interleaved)
+        layout = self.model.shard_layout
+        self.lr_schedule = make_schedule(
+            config.lr, warmup_steps=config.warmup_steps,
+            decay_steps=config.decay_steps, lr_milestones=config.milestones,
+            lr_decay_factor=config.lr_decay_factor,
+        )
+        self.optimizer = make_optimizer(
+            self.model.parameters(), config.optimizer, lr=self.lr_schedule,
+            momentum=config.momentum, weight_decay=config.weight_decay,
+            grad_clip_norm=config.grad_clip_norm, ema_decay=config.ema_decay,
+        )
+        self.optimizer.norm = layout.norm
+        self.tokens = torch.as_tensor(self.train_split.images).to(self.device)
+        self.runner = make_lm_epoch_runner(
+            self.model, self.optimizer, self.tokens, self.global_batch_size,
+            seed=config.seed, rank=self.data_rank, world=self.data_world,
+            step=make_pipe_lm_train_step(
+                self.model, self.optimizer, self.mesh,
+                schedule=config.pipe_schedule,
+                compute_dtype=self.compute_dtype))
+        self.steps_per_epoch = self.runner.steps_per_epoch
+        self.eval_step = make_pipe_lm_eval_step(
+            self.model, self.mesh, compute_dtype=self.compute_dtype)
+        self.state = TrainState(step=0, model=self.model,
+                                optimizer=self.optimizer)
+        self.is_main = self.rank == 0
+        self.ckpt = CheckpointManager(
+            config.checkpoint_dir, max_to_keep=config.max_checkpoints,
+            is_main=self.is_main,
+            keep_best_metric="accuracy" if config.keep_best else None,
+            layout=layout,
+        )
+        self.history: list[dict] = []
+        self._init_fault_tolerance(is_main=self.is_main)
+
+    def _before_train(self) -> None:
+        pass  # no lm_spec.json: the stacked state is not a CausalLM's
+
+
+class PipeViTTrainer(ImageTrainer):
+    """``--model pipe_vit`` (``trainer.py:1137-1274``): the ViT cut into
+    ``--mesh_pipe`` stages (``models/pipeline_vit``: patch ``7`` on 28²
+    images, else 4; no class token) on the image trainer's loader path,
+    each data replica its rows (the pipe ranks of a replica the same
+    ones), ``--augment`` on stage 0, evaluation through the pipelined
+    forward, checkpoints of the full stacked state."""
+
+    always_mesh = True
+
+    def _splits(self):
+        cfg = self.config
+        self.dataset = "mnist" if cfg.dataset == "auto" else cfg.dataset
+        if self.dataset not in IMAGE_DATASETS:
+            raise ValueError(f"--model {cfg.model} trains on images, not "
+                             f"{self.dataset!r}")
+        return load_dataset(self.dataset, cfg.data_root,
+                            allow_synthetic=cfg.synthetic_data,
+                            synthetic_size=cfg.synthetic_size)
+
+    def _model(self):
+        from ddp_tpu_torch.models.pipeline_vit import (
+            PipeViTConfig,
+            build_pipe_vit,
+            init_pipe_vit,
+        )
+
+        cfg = self.config
+        _, side, _, channels = self.train_split.images.shape
+        self.num_classes = cfg.num_classes or NUM_CLASSES[self.dataset]
+        cfg.check_pipe_batch(self.global_batch_size, self.data_world)
+        self.pipe_cfg = PipeViTConfig(
+            num_classes=self.num_classes,
+            patch_size=7 if side % 7 == 0 else 4,
+            embed_dim=cfg.model_dim or 64, num_heads=cfg.num_heads,
+            num_stages=cfg.mesh_pipe, depth_per_stage=cfg.model_depth or 1,
+            num_microbatches=cfg.num_microbatches, remat=cfg.remat,
+            virtual_stages=cfg.virtual_stages, side=side,
+            in_channels=channels)
+        _log_bubble(self.log, cfg, "pipe_vit")
+        interleaved = cfg.pipe_schedule == "interleaved"
+        return build_pipe_vit(
+            self.pipe_cfg, init_pipe_vit(self.pipe_cfg, seed=cfg.seed,
+                                         interleaved=interleaved),
+            self.mesh, "cpu", interleaved=interleaved)
+
+    def _make_train_step(self, augment_fn):
+        from ddp_tpu_torch.models.pipeline_vit import make_pipe_vit_train_step
+
+        cfg, state = self.config, self.state
+        inner = make_pipe_vit_train_step(
+            state.model, self.optimizer, self.mesh,
+            schedule=cfg.pipe_schedule, compute_dtype=self.compute_dtype,
+            label_smoothing=cfg.label_smoothing, augment_fn=augment_fn,
+            seed=cfg.seed, step_counter=lambda: int(state.step))
+
+        def step(images, labels):
+            metrics = inner(images, labels)
+            state.step += 1
+            return metrics
+
+        return step
+
+    def _make_eval_step(self):
+        from ddp_tpu_torch.models.pipeline_vit import make_pipe_vit_eval_step
+
+        return make_pipe_vit_eval_step(self.state.model, self.mesh,
+                                       compute_dtype=self.compute_dtype)
+
+
 def run_image(config: TrainConfig,
               ctx: dist.DistContext | None = None) -> ImageTrainer:
     """One rank of an image model or the long-context classifier: the
@@ -1250,7 +1447,8 @@ def run_image(config: TrainConfig,
     if ctx is None:
         ctx = dist.setup(backend=config.backend, device=config.device)
     try:
-        cls = SeqTrainer if config.model == "long_context" else ImageTrainer
+        cls = {"long_context": SeqTrainer, "pipe_vit": PipeViTTrainer}.get(
+            config.model, ImageTrainer)
         trainer = cls(config, ctx)
         summary = trainer.train()
     finally:
@@ -1269,10 +1467,11 @@ def _print_outcome(summary: dict) -> None:
 
 def run_lm(config: TrainConfig,
            ctx: dist.DistContext | None = None) -> LMTrainer:
-    """The causal LM: one rank without a process group, or this rank of
-    ``ctx``'s world (torn down after)."""
+    """The causal LM (or the pipelined one): one rank without a process
+    group, or this rank of ``ctx``'s world (torn down after)."""
     try:
-        trainer = LMTrainer(config, ctx)
+        cls = PipeLMTrainer if config.model == "pipe_lm" else LMTrainer
+        trainer = cls(config, ctx)
         summary = trainer.train()
     finally:
         if ctx is not None:
@@ -1292,7 +1491,7 @@ def _spawned_worker(rank: int, world: int, argv: list) -> None:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     ctx = dist.setup(rank, world, backend=config.backend,
                      device=config.device)
-    if config.model == "causal_lm":
+    if config.model in LM_MODELS:
         run_lm(config, ctx)
         return
     run_image(config, ctx)
@@ -1327,7 +1526,7 @@ def main(argv=None):
     if config.spawn > 1 or config.max_restarts:
         spawn(config, args)
         return None
-    run = run_lm if config.model == "causal_lm" else run_image
+    run = run_lm if config.model in LM_MODELS else run_image
     world = config.multi_host()
     if world is not None:
         address, num_processes, process_id = world

@@ -350,19 +350,22 @@ def test_train_cli_on_cpu_prints_final_accuracy(tmp_path):
 
 
 def test_train_cli_refuses_other_models():
-    """A model the port does not train yet is refused with a message
-    naming the ROADMAP item that brings it, whatever its mesh flags: the
-    pipelined ViT (A4), alone, with --mesh_fsdp and with --zero1 (the
-    image models take those on JAX's GSPMD step, tests/
+    """The CLI refuses what the port does not train, naming why: the
+    pipelined ViT alone (JAX's guard: it needs --mesh_pipe >= 2), under
+    --zero1 (JAX's: the pipe family composes with the data axis and not
+    zero1) and with --mesh_fsdp (JAX takes it; the port waits for ROADMAP
+    A4.1b; the image models take those two on JAX's GSPMD step, tests/
     test_torch_spmd_cli.py). --mesh_seq 2 and --mesh_fsdp 2 are taken by
     the sequence models (over a world they tile); --mesh_seq is refused
     for the image models."""
-    for argv, item in ((["--model", "pipe_vit"], "A4"),
-                       (["--model", "pipe_vit", "--mesh_fsdp", "2"], "A4"),
-                       (["--model", "pipe_vit", "--zero1"], "A4")):
+    for argv, why in (
+            (["--model", "pipe_vit"], "needs --mesh_pipe >= 2"),
+            (["--model", "pipe_vit", "--mesh_fsdp", "2"], "ROADMAP A4.1b"),
+            (["--model", "pipe_vit", "--mesh_pipe", "2", "--spawn", "2",
+              "--zero1"], "not expert/seq/zero1")):
         bad = subprocess.run(CLI + argv, cwd=REPO,
                              capture_output=True, text=True, timeout=120)
-        assert bad.returncode != 0 and f"ROADMAP {item}" in bad.stderr
+        assert bad.returncode != 0 and why in bad.stderr
     from ddp_tpu_torch.train.config import TrainConfig
 
     for model in ("long_context", "causal_lm"):

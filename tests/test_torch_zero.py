@@ -187,7 +187,7 @@ def test_comm_bytes_equal_jax():
                             assert tz.zero_comm_bytes(port, world, **kw) == \
                                 jz.zero_comm_bytes(jl, world, **kw), (
                                     family, world, mb, kw)
-    with pytest.raises(ValueError, match="A4"):
+    with pytest.raises(ValueError, match="ROADMAP A4.2"):
         tz.zero_comm_bytes(port, 2, dcn=2)
 
 
