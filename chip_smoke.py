@@ -438,7 +438,8 @@ order; any failure exits non-zero and prints no result:
 12. The sequence models across ranks (check_mesh), every rank a process
    on the one card through --spawn N --backend gloo (exchanges staged
    through pinned host memory; step times are N processes sharing one
-   card, no scaling figure; every run at once): 12a long_context
+   card, no scaling figure; the runs in one wave, half of them
+   WAVE_STAGGER s after the rest): 12a long_context
    at README's command (--mesh_seq 4; T 8192, batch 32, bf16; one epoch
    of 2 steps), ring and Ulysses; 12b the LM at run_lm_long_bench's
    width (d 1024, 8 heads, T 8192, batch 2, bf16; depth cut to 2, 2
@@ -509,9 +510,10 @@ order; any failure exits non-zero and prints no result:
    the first wave alone peaks at ~75 GB of the card's 80, and one wave of
    both died of CUDA's out of memory — and 15c/15d in 12d's world): 15a
    pipe_lm at run_lm_bench's width (vocab 8192, d 1024, 8
-   heads of 128, T 2048, batch 8, M 4, bf16, Adam; 8 blocks) at
-   --mesh_pipe 2 --model_depth 4 under gpipe and 1f1b and --virtual_stages
-   2 --model_depth 2 under interleaved; 15b pipe_vit at ViT-Tiny's width
+   heads of 128, T 2048, batch 8, M 4, bf16, Adam) at --mesh_pipe 2,
+   --model_depth 4 under 1f1b (8 blocks), 2 under gpipe and
+   --virtual_stages 2 --model_depth 1 under interleaved (4 blocks: a
+   cut); 15b pipe_vit at ViT-Tiny's width
    (CIFAR-100 synthetic, d 192, 3 heads, T 64) at --mesh_pipe 2
    --model_depth 6, batch 256, M 8, 1f1b, --augment crop_flip, bf16 input
    (fp32 compute, as JAX's pipe_vit promotes: its B1-B3 are the fp32
@@ -532,19 +534,47 @@ order; any failure exits non-zero and prints no result:
    P15_MEMORY_RATIO of its peak at M 4 (microbatches of one row), GPipe's
    two peaks printed beside. B1-B3 alone at 15a's microbatch [2, 2048, 8,
    128], causal, timed with their bound and SDPA.
-16. A "kernels" JSON line (each decode kernel's launches on the MoE path,
+16. The pipe family's compositions (check_mesh: 16a in phase 15's second
+   wave, the wave's peak of the card's used memory read every second and
+   printed; 16c in 12d's world): 16a pipe_lm at 15a's width at README's
+   PP x TP command (--mesh_pipe 2 --mesh_model 2 --model_depth 4
+   --pipe_schedule 1f1b --num_microbatches 8), at PP x SP (--mesh_seq 2
+   --seq_strategy ulysses --model_depth 2 --pipe_schedule interleaved
+   --virtual_stages 2) and PP x EP (--mesh_expert 2 --model_depth 4
+   --moe_experts 8 --moe_every 2, gpipe, top-2), and pipe_vit at 15b's
+   width at --mesh_fsdp 2 --fast_epoch; each --spawn 4 over gloo, 2 steps
+   and the evaluation. Every rank's B1-B3 launches in training equal its
+   timetable's count, all on its composition's q (P16_Q: [1, 2048, 4,
+   128] under PP x TP), none routed, none in the other dtype; each rank's
+   bytes of parameters and optimizer state at rest the specs'
+   (pipe_common.stage_specs: 4 experts a rank under PP x EP, the fsdp
+   shards of pipe_vit); finite losses; the PP x TP checkpoint restored at
+   --mesh_pipe 2 (no model axis) by each pipe rank to the file's full
+   state, bit for bit. Readings: step p50, busy share, the bubble
+   fraction. 16c in 12d's world: one fp32 step of pipe_lm (P15_LM) at pipe
+   2 x fsdp 2 (gpipe, 1f1b), pipe 2 x model 2 (1f1b, interleaved v 2),
+   pipe 2 x expert 2 (every block routed over 4 experts at capacity factor
+   E/k: drops counted, 0), pipe 2 x seq 2 (Ulysses under 1f1b, the ring
+   under gpipe), and of pipe_vit at pipe 2 x model 2 (d 192, 2 heads of
+   96) and pipe 2 x fsdp 2 (1f1b), against world 1's exact sequential
+   step (STEP_TOL["fp32"]); a stage gradient scattered over fsdp unsummed,
+   the rebuilt 1F1B chunk's f without its all-reduce, an expert leaf
+   summed over expert and stage 0's positions without the seq offset must
+   fail it. B1-B3 alone at 16a's PP x TP microbatch [1, 2048, 4, 128],
+   causal, timed with their bound and SDPA.
+17. A "kernels" JSON line (each decode kernel's launches on the MoE path,
    moe_launches, beside its own, and in phase 4's flag runs,
    flag_launches; B1-B3's in 5m and 7c, phase 9's as
    fault_tolerance_launches, phase 10's as imagenet_launches, phase
    11's as long_context_launches, lm_long_launches and
    lm_world2_rank0_launches, phases 12's, 13's and 14's as
    mesh_launches_by_rank, 14a's and 14b's as gspmd_launches_by_rank,
-   14e's decode launches as shard_decode_launches_by_rank, phase 15's
-   as pipe_launches_by_rank, and
+   14e's decode launches as shard_decode_launches_by_rank, phases 15's
+   and 16a's as pipe_launches_by_rank, and
    their timings at T 3137, at the long-context shape, at the LM's T
-   8192, at the ring hops' shapes, at 14a's and at 15a's as the
-   vit224_*, long_context_*, lm_long_*, hop12a_*/hop12b_*, vit14a_* and
-   pipe15a_* variants),
+   8192, at the ring hops' shapes, at 14a's, at 15a's and at 16a's as the
+   vit224_*, long_context_*, lm_long_*, hop12a_*/hop12b_*, vit14a_*,
+   pipe15a_* and pipe16_* variants),
    the card line, and the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -559,7 +589,9 @@ reading, not a gate), B1-B3's timings at 2 turns after 2 warm calls (fp32 at 3
 calls a turn), the fast path's timing at batch 64 on 6,400 images
 (TIME_FAST_SIZE) and 4h's at 2
 turns of 2, 12d's LM at T 4096 (of 8192); with phase 15: its runs at 2
-steps each, 15c's LM at T 1024 (of 2048) and one block a chunk.
+steps each, 15c's LM at T 1024 (of 2048) and one block a chunk; with
+phase 16: 15a's gpipe and interleaved runs at 4 blocks (of 8), 16a's at
+2 steps each, 16c's at 15c's sizes.
 No kernel's
 check against its plain version and no path is cut.
 """
@@ -612,6 +644,19 @@ REQUESTS = [  # (prompt_len, max_new_tokens, sampling)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _kineto(torch, *, cpu: bool = True):
+    """A Kineto profiler of the card's kernels (and the CPU's ops with
+    ``cpu``): ``torch.autograd.profiler.profile``, whose context gives
+    ``key_averages()`` as ``torch.profiler.profile``'s does, without the
+    latter's start importing the compiler stack (``hasattr(torch,
+    "_inductor")``: ~6-8 s of CPU a process on an H100 80GB HBM3 host at
+    700 W)."""
+    from torch.autograd import profiler as autograd_profiler
+
+    return autograd_profiler.profile(use_device="cuda", use_cpu=cpu,
+                                     use_kineto=True)
 
 
 def card_line() -> str:
@@ -1603,9 +1648,7 @@ def _log_sdpa_numerics(torch, F, fl, qs, ks, vs, qf, kf, vf) -> None:
     """The fp32 yardstick's numerics: the device kernels one SDPA forward
     and backward launch (torch.profiler), and its out against the plain
     version's at the training shape, in the phase's own measure."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _kineto(torch, cpu=False) as prof:
         o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
         torch.autograd.grad(o, (qs, ks, vs), torch.ones_like(o))
         torch.cuda.synchronize()
@@ -1842,8 +1885,6 @@ def profile_steps(torch, model, *, steps=16, page_size=0, label="",
     ``steps`` engine steps, and the top kernels → {"busy": share,
     "kernel_us_per_step": µs} (empty when the profiler saw no device
     time)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from ddp_tpu_torch.serve.engine import ServeEngine
 
     engine = ServeEngine(model, slots=SLOTS, prefill_len=PREFILL_LEN,
@@ -1859,8 +1900,7 @@ def profile_steps(torch, model, *, steps=16, page_size=0, label="",
     for _ in range(8):  # prefill done, every lane decoding
         engine.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _kineto(torch) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             engine.step()
@@ -3832,14 +3872,11 @@ def profile_train_steps(torch, trainer, *, steps=3) -> None:
     """Device busy share of steady training steps from torch.profiler:
     summed CUDA kernel time over the wall time of ``steps`` steps, and
     the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     B = trainer.config.batch_size
     batches = [trainer.tokens[i * B:(i + 1) * B] for i in range(steps + 1)]
     trainer.runner.step(batches[0])  # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _kineto(torch) as prof:
         t0 = time.perf_counter()
         for b in batches[1:]:
             trainer.runner.step(b)
@@ -5445,8 +5482,6 @@ def profile_cnn_epoch(torch, trainer, label, steps=None, out=None) -> float:
     the device milliseconds a step."""
     import itertools
 
-    from torch.profiler import ProfilerActivity, profile
-
     from ddp_tpu_torch.runtime import dist
     from ddp_tpu_torch.train.fast import run_steps
 
@@ -5459,8 +5494,7 @@ def profile_cnn_epoch(torch, trainer, label, steps=None, out=None) -> float:
             run_steps(trainer.train_step, itertools.islice(
                 trainer.loader.epoch(epoch - 1), 1), on_gpu=True)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _kineto(torch) as prof:
             t0 = time.perf_counter()
             if trainer.fast_runner is not None:
                 trainer.fast_runner(epoch)
@@ -6869,6 +6903,29 @@ def _run_all(commands: dict, tmp, timeout: float = 600) -> dict:
                        for name, argv in commands.items()}, tmp, timeout)
 
 
+def _launch_staggered(commands: dict, tmp, procs: dict,
+                      delay: float) -> threading.Thread:
+    """Launch every other command (name → argv) into ``procs`` now and the
+    rest ``delay`` s later, from a thread (returned: join it before the
+    wait): the halves' training, when a process holds the most of the
+    card's memory, then falls apart."""
+    names = list(commands)
+
+    def launch(part):
+        procs.update({name: _launch(commands[name], f"{tmp}/{name}.log")
+                      for name in part})
+
+    launch(names[0::2])
+
+    def rest():
+        time.sleep(delay)
+        launch(names[1::2])
+
+    thread = threading.Thread(target=rest, name="wave's second half")
+    thread.start()
+    return thread
+
+
 def _await_all(procs: dict, tmp, timeout: float = 600) -> dict:
     """:func:`_run_all`'s wait on processes already started (name →
     ``_launch``'s process, its log ``{tmp}/{name}.log``)."""
@@ -8066,8 +8123,9 @@ def check_long_context(torch, card) -> dict:
 # (nccl takes one rank a card), through the CLI's --spawn N --backend
 # gloo: the exchanges are staged through pinned host buffers
 # (runtime/dist.DistComm). The step times are those of N processes
-# sharing one card, and of every run sharing it too (all at once, 12d's
-# world of ranks beside them): no scaling figure.
+# sharing one card, and of every run sharing it too (one wave, half of it
+# WAVE_STAGGER s late, 12d's world of ranks beside them): no scaling
+# figure.
 # Cuts, for the phase's time: one epoch of 2 steps each (12a 64
 # sequences, 12b 4, 12c 32); 12a
 # in bf16; 12b at depth 2 (of 8), 12c at depth 2 (of 5m's 4: block 2
@@ -8110,6 +8168,13 @@ P12_PARAM_ATOL = 1e-5
 # P12D_DEADLINE s from its start (both 2-3x their time on the card).
 P12_RUN_TIMEOUT = 300
 P12D_DEADLINE = 420
+# Each wave starts every other run WAVE_STAGGER s after the rest, so that
+# the halves' training (where a process holds the most of the card's
+# memory) falls apart: launched at once (on an H100 80GB HBM3 at 700 W)
+# their peaks met past the card's 80 GB once the trainer's profiler no
+# longer slowed their start; staggered, the waves peaked at 49.1 and 61.9
+# GB.
+WAVE_STAGGER = 25
 # The ring hops' block shapes (label, B, T, S, H, D, causal): 12a's past
 # hop (T 8192 over 4 ranks) and 12b's (T 8192 over 2), unmasked.
 HOP12A_SHAPE = ("12a ring hop T=S=2048 D 16", 32, 2048, 2048, 4, 16, False)
@@ -8294,11 +8359,11 @@ P15B_ARGS = (VIT_ARGS[:1] + ["pipe_vit"] + VIT_ARGS[2:]
 P15B_ARGS[P15B_ARGS.index("--synthetic_size") + 1] = "512"
 P15B_ARGS[P15B_ARGS.index("--epochs") + 1] = "1"
 P15_RUNS = {
-    "15a_pipe_gpipe": (P15A_ARGS, ["--model_depth", "4", "--pipe_schedule",
+    "15a_pipe_gpipe": (P15A_ARGS, ["--model_depth", "2", "--pipe_schedule",
                                    "gpipe"], 2),
     "15a_pipe_1f1b": (P15A_ARGS, ["--model_depth", "4", "--pipe_schedule",
                                   "1f1b"], 2),
-    "15a_pipe_interleaved": (P15A_ARGS, ["--model_depth", "2",
+    "15a_pipe_interleaved": (P15A_ARGS, ["--model_depth", "1",
                                          "--pipe_schedule", "interleaved",
                                          "--virtual_stages", "2"], 2),
     "15b_pipe_vit": (P15B_ARGS, [], 2),
@@ -8341,6 +8406,95 @@ P15_CHECKS = {  # label: (family, pipe, virtual stages, schedule, control)
 # under 1f1b the M 16 peak is at most P15_MEMORY_RATIO x the M 4 one.
 P15D_MICROBATCHES = (4, 16)
 P15_MEMORY_RATIO = 1.1
+
+
+# Phase 16, the pipe family's compositions: its 16a runs join phase 15's
+# second wave, 16c runs in 12d's world. 16a, each --spawn 4 --backend gloo
+# on the one card, one epoch of 2 steps, then the evaluation: pipe_lm at
+# 15a's width (vocab 8192, d 1024, 8 heads of 128, T 2048, bf16, Adam;
+# 8 blocks) at README's PP x TP command (--mesh_pipe 2 --mesh_model 2
+# --model_depth 4 --pipe_schedule 1f1b --num_microbatches 8: microbatches
+# of one row, B1-B3 on 4 heads a rank), at PP x SP (--mesh_seq 2, Ulysses,
+# interleaved v 2, --model_depth 2) and at PP x EP (--mesh_expert 2
+# --moe_experts 8 --moe_every 2, top-2, gpipe, --model_depth 4: 4 experts
+# a rank; 32 sequences, the global batch 16 over 2 replicas); pipe_vit at
+# 15b's width at --mesh_fsdp 2 --fast_epoch (1f1b; 128 images a replica,
+# so 15b's microbatch halves).
+P16_EP_ARGS = list(P15A_ARGS)
+P16_EP_ARGS[P16_EP_ARGS.index("--synthetic_size") + 1] = "32"
+P16_VIT_ARGS = list(P15B_ARGS)
+P16_VIT_ARGS[P16_VIT_ARGS.index("--batch_size") + 1] = "128"
+P16_RUNS = {
+    "16a_pp_tp": (P15A_ARGS, ["--mesh_model", "2", "--model_depth", "4",
+                              "--pipe_schedule", "1f1b",
+                              "--num_microbatches", "8"], 4),
+    "16a_pp_sp": (P15A_ARGS, ["--mesh_seq", "2", "--seq_strategy", "ulysses",
+                              "--model_depth", "2", "--pipe_schedule",
+                              "interleaved", "--virtual_stages", "2"], 4),
+    "16a_pp_ep": (P16_EP_ARGS, ["--mesh_expert", "2", "--model_depth", "4",
+                                "--moe_experts", "8", "--moe_every", "2",
+                                "--pipe_schedule", "gpipe"], 4),
+    "16a_vit_fsdp": (P16_VIT_ARGS, ["--mesh_fsdp", "2", "--fast_epoch"], 4),
+}
+P12_RUNS.update(P16_RUNS)
+# Phase 15's second wave: its runs and 16a's.
+PIPE_RUNS = {**P15_RUNS, **P16_RUNS}
+# The q every B1-B3 launch of a 16a run takes ("BxTxHxD"), and its dtype.
+P16_Q = {"16a_pp_tp": "1x2048x4x128", "16a_pp_sp": "2x2048x4x128",
+         "16a_pp_ep": "2x2048x8x128", "16a_vit_fsdp": "16x64x3x64"}
+# B1-B3 alone at 16a's PP x TP microbatch: [1, 2048, 4, 128], causal.
+P16A_SHAPE = ("16a pipe_lm PP x TP microbatch T=S=2048 D 128", 1, 2048, 2048,
+              4, 128, True)
+# 16c, in 12d's world: one fp32 step (SGD 0.1, B1-B3 in fp32) of each
+# composition from the same seeded weights on the same global batch (M 4
+# microbatches of one row a data replica), against world 1's exact
+# sequential step (the plain attention) within STEP_TOL["fp32"]: pipe_lm
+# (P15_LM: d 1024, T 1024, one block a chunk) at pipe 2 x fsdp 2, pipe 2 x
+# model 2, pipe 2 x expert 2 (every block routed over 4 experts, top-2, at
+# the capacity factor E/k = 2.0 that drops nothing: the drops are counted
+# and must be 0) and pipe 2 x seq 2 (Ulysses, and the causal ring hops of
+# [1, 512, 8, 128] under gpipe); pipe_vit at pipe 2 x model 2 (d 192, 2
+# heads of 96: P15_VIT's 3 heads do not split over 2) and pipe 2 x fsdp 2.
+# A control an axis must fail.
+P16_CHECKS = {  # label: (family, axes, virtual, schedule, config, control)
+    "16c pipe_lm gpipe pipe 2 x fsdp 2":
+        ("lm", dict(pipe=2, fsdp=2), 1, "gpipe", {}, None),
+    "16c pipe_lm 1f1b pipe 2 x fsdp 2":
+        ("lm", dict(pipe=2, fsdp=2), 1, "1f1b", {}, None),
+    "16c pipe_lm 1f1b pipe 2 x fsdp 2, a stage gradient scattered unsummed":
+        ("lm", dict(pipe=2, fsdp=2), 1, "1f1b", {}, "fsdp_unsummed"),
+    "16c pipe_lm 1f1b pipe 2 x model 2":
+        ("lm", dict(pipe=2, model=2), 1, "1f1b", dict(tp_size=2), None),
+    "16c pipe_lm interleaved v 2 pipe 2 x model 2":
+        ("lm", dict(pipe=2, model=2), 2, "interleaved", dict(tp_size=2),
+         None),
+    "16c pipe_lm 1f1b pipe 2 x model 2, the rebuilt chunk's f unsummed":
+        ("lm", dict(pipe=2, model=2), 1, "1f1b", dict(tp_size=2),
+         "unsummed_f"),
+    "16c pipe_lm gpipe pipe 2 x expert 2":
+        ("lm", dict(pipe=2, expert=2), 1, "gpipe",
+         dict(num_experts=4, moe_every=1, ep_size=2), None),
+    "16c pipe_lm 1f1b pipe 2 x expert 2":
+        ("lm", dict(pipe=2, expert=2), 1, "1f1b",
+         dict(num_experts=4, moe_every=1, ep_size=2), None),
+    "16c pipe_lm 1f1b pipe 2 x expert 2, an expert leaf summed over expert":
+        ("lm", dict(pipe=2, expert=2), 1, "1f1b",
+         dict(num_experts=4, moe_every=1, ep_size=2), "expert_summed"),
+    "16c pipe_lm 1f1b pipe 2 x seq 2 ulysses":
+        ("lm", dict(pipe=2, seq=2), 1, "1f1b",
+         dict(sp_size=2, sp_strategy="ulysses"), None),
+    "16c pipe_lm gpipe pipe 2 x seq 2 ring":
+        ("lm", dict(pipe=2, seq=2), 1, "gpipe",
+         dict(sp_size=2, sp_strategy="ring"), None),
+    "16c pipe_lm 1f1b pipe 2 x seq 2 ulysses, stage 0 without the offset":
+        ("lm", dict(pipe=2, seq=2), 1, "1f1b",
+         dict(sp_size=2, sp_strategy="ulysses"), "no_pos_offset"),
+    "16c pipe_vit 1f1b pipe 2 x model 2":
+        ("vit", dict(pipe=2, model=2), 1, "1f1b",
+         dict(num_heads=2, tp_size=2), None),
+    "16c pipe_vit 1f1b pipe 2 x fsdp 2":
+        ("vit", dict(pipe=2, fsdp=2), 1, "1f1b", {}, None),
+}
 
 
 def _p14_model(torch, family, cfgs):
@@ -8634,12 +8788,20 @@ def _p12_expected(name, depth, steps, rank) -> int:
 
 
 # 15b's kernels: fp32 (the Flax promotion JAX's pipe_vit keeps), none bf16.
-P15_DTYPE = {"15b_pipe_vit": ("fp32", "bf16")}
+P15_DTYPE = {"15b_pipe_vit": ("fp32", "bf16"),
+             "16a_vit_fsdp": ("fp32", "bf16")}
 
 
 def _p15_dtype(run) -> str:
     """The dtype of a phase-12 wave run's B1-B3 launches."""
     return P15_DTYPE.get(run, ("bf16",))[0]
+
+
+def _flag(args, name, default):
+    """The value of flag ``name`` in ``args`` (its last, as argparse
+    takes it), or ``default``."""
+    at = [i for i, a in enumerate(args) if a == name]
+    return args[at[-1] + 1] if at else default
 
 
 def _p15_expected(args, steps) -> dict:
@@ -8648,13 +8810,10 @@ def _p15_expected(args, steps) -> dict:
     blocks forward and backward a step (B2, B3 once a block), B1 twice
     under the hand-scheduled schedules (the backward slot rebuilds the
     chunk)."""
-    def flag(name, default):
-        return args[args.index(name) + 1] if name in args else default
-
-    M, V = int(flag("--num_microbatches", 4)), int(flag("--virtual_stages",
-                                                        1))
-    n = steps * M * V * int(flag("--model_depth", 1))
-    twice = flag("--pipe_schedule", "gpipe") != "gpipe"
+    M = int(_flag(args, "--num_microbatches", 4))
+    V = int(_flag(args, "--virtual_stages", 1))
+    n = steps * M * V * int(_flag(args, "--model_depth", 1))
+    twice = _flag(args, "--pipe_schedule", "gpipe") != "gpipe"
     return {"flash_attn_fwd": n * (2 if twice else 1), "flash_attn_dq": n,
             "flash_attn_dkv": n}
 
@@ -8705,8 +8864,7 @@ def _p12_readings(torch, tmp, name, code, lines, span) -> tuple[dict, list]:
             "traceback:\n" + "\n".join(lines[first:first + 80]))
         return {}, [f"{name}: exit {code}: {lines[-20:]}"]
     args = base + P12_RUNS[name][1]
-    depth = int(args[args.index("--model_depth") + 1]) \
-        if "--model_depth" in args else 2
+    depth = int(_flag(args, "--model_depth", 2))
     steps = int(torch.load(f"{tmp}/{name}/epoch_0/state.pt",
                            weights_only=True)["step"])
     dt, other = P15_DTYPE.get(name, ("bf16", "fp32"))
@@ -8717,7 +8875,7 @@ def _p12_readings(torch, tmp, name, code, lines, span) -> tuple[dict, list]:
             failed.append(f"{name}: rank {r} wrote no trace")
             continue
         t = _rank_trace(path)
-        want = (_p15_expected(args, steps) if name in P15_RUNS else
+        want = (_p15_expected(args, steps) if name in PIPE_RUNS else
                 dict.fromkeys(FLASH_NAMES,
                               _p12_expected(name, depth, steps, r)))
         if not (all(t["train"][f"{n}_{dt}"] == want[n] for n in FLASH_NAMES)
@@ -8751,7 +8909,7 @@ def _p12_cfgs() -> dict:
     return dict(lc=dict(P12_LC), lm=dict(P12_LM), moe=dict(P12_MOE),
                 lm13=dict(P13_LM), vit=dict(P13_VIT), clip=P13_CLIP,
                 moe_cf=P14_MOE_CF, p15_lm=dict(P15_LM),
-                p15_vit=dict(P15_VIT))
+                p15_vit=dict(P15_VIT), p16=dict(P16_CHECKS))
 
 
 def _p12d_models(torch, family, state, dev, cfgs):
@@ -8978,6 +9136,9 @@ def _p12d_worker(rank, world, out, device, cfgs):
         p15 = _p15_worker_steps(torch, mesh_of, ctx.device, cfgs, rank)
         if rank == 0:
             torch.save(p15, f"{out}/15_steps.pt")
+        p16 = _p16_worker_steps(torch, mesh_of, ctx.device, cfgs)
+        if rank == 0:
+            torch.save(p16, f"{out}/16_steps.pt")
     finally:
         dist.cleanup()
 
@@ -9605,6 +9766,16 @@ def _p15_reference(torch, family, pipe, virtual, dev, cfgs):
     """World 1's exact sequential step (fp32, the plain attention) of a
     15c case from the same weights on the global batch → (loss, {full
     name: gradient})."""
+    return _pipe_reference(torch, family, *_p15_inputs(
+        torch, family, pipe, virtual, dev, cfgs), dev)
+
+
+def _pipe_reference(torch, family, cfg, state, batch, dev):
+    """World 1's exact sequential step (fp32, the plain attention) of a
+    pipe model ``cfg`` from its full ``state`` on the global ``batch`` →
+    (loss, {full name: gradient}); the LM's through its ``to_dense_lm``
+    (routed blocks routed over the whole batch: at a capacity that drops
+    nothing, the pipeline's per-microbatch routing's)."""
     import torch.nn.functional as F
 
     from ddp_tpu_torch.models import lm as tlm
@@ -9615,9 +9786,10 @@ def _p15_reference(torch, family, pipe, virtual, dev, cfgs):
     from ddp_tpu_torch.parallel.common import _preprocess, precision
     from ddp_tpu_torch.train.optim import make_optimizer
 
-    cfg, state, batch = _p15_inputs(torch, family, pipe, virtual, dev, cfgs)
     if family == "lm":
         spec, dense = tplm.to_dense_lm(cfg, state)
+        # The pipe path collects no load-balance loss (pipeline_lm.py:91).
+        spec = spec._replace(aux_loss_weight=0.0)
         model = tlm.CausalLM.from_state(spec, dense, dev, trainable=True)
         opt = make_optimizer(model.parameters(), "sgd", lr=0.1)
         m = tlm.make_lm_train_step(model, opt,
@@ -9794,9 +9966,8 @@ def check_p15_runs(torch, tmp, runs, dev="cuda") -> tuple[dict, list]:
         if not (losses and all(np.isfinite(losses))
                 and np.isfinite(final["loss"])):
             failed.append(f"{name}: losses {losses}, eval {final['loss']}")
-        M = int(args[args.index("--num_microbatches") + 1])
-        V = int(args[args.index("--virtual_stages") + 1]) \
-            if "--virtual_stages" in args else 1
+        M = int(_flag(args, "--num_microbatches", 4))
+        V = int(_flag(args, "--virtual_stages", 1))
         bubble = (schedule_interleaved(2, M, V).bubble_fraction() if V > 1
                   else bubble_fraction(2, M))
         r = dict(losses=losses, eval_loss=final["loss"], bubble=bubble)
@@ -9820,16 +9991,274 @@ def check_p15_runs(torch, tmp, runs, dev="cuda") -> tuple[dict, list]:
     return readings, failed
 
 
+def _p16_replicas(axes) -> int:
+    """A 16c mesh's data replicas in 12d's world: data × fsdp × expert."""
+    return (P12_WORLD // int(np.prod(list(axes.values())))
+            * axes.get("fsdp", 1) * axes.get("expert", 1))
+
+
+def _p16_inputs(torch, label, dev, cfgs, state=True):
+    """(the config, the seeded full state, the global batch: M rows a
+    data replica) of a 16c case; without ``state``, the config alone."""
+    from ddp_tpu_torch.models import pipeline_lm as tplm
+    from ddp_tpu_torch.models import pipeline_vit as tpv
+
+    family, axes, virtual, _, fields, _ = cfgs["p16"][label]
+    pipe = axes["pipe"]
+    base = dict(cfgs["p15_vit" if family == "vit" else "p15_lm"], **fields)
+    cls = tpv.PipeViTConfig if family == "vit" else tplm.PipeLMConfig
+    cfg = cls(**base, num_stages=pipe, virtual_stages=virtual)
+    if not state:
+        return (cfg,)
+    rows = cfg.num_microbatches * _p16_replicas(axes)
+    rng = np.random.default_rng(16)
+    if family == "vit":
+        state = tpv.init_pipe_vit(cfg, seed=16, interleaved=virtual > 1)
+        x = rng.integers(0, 256, (rows, cfg.side, cfg.side, cfg.in_channels),
+                         dtype=np.uint8)
+        y = rng.integers(0, cfg.num_classes, rows)
+        return cfg, state, (torch.from_numpy(x).to(dev),
+                            torch.from_numpy(y).to(dev))
+    state = tplm.init_pipe_lm(cfg, seed=16, interleaved=virtual > 1)
+    toks = rng.integers(0, cfg.vocab_size, (rows, cfg.seq_len))
+    return cfg, state, (torch.from_numpy(toks).to(dev),)
+
+
+def _p16_worker_steps(torch, mesh_of, dev, cfgs) -> dict:
+    """16c's steps on this rank of 12d's world → what rank 0 saves:
+    label → (loss, the full gradients gathered over every axis, the
+    (token, k) assignments routing dropped on this rank)."""
+    from ddp_tpu_torch.models import moe as tmoe
+    from ddp_tpu_torch.models import pipeline_lm as tplm
+    from ddp_tpu_torch.parallel import pipeline as tpipe
+    from ddp_tpu_torch.parallel import tp as ttp
+
+    faults = {"fsdp_unsummed": (tpipe, "FAULT", "fsdp_unsummed"),
+              "unsummed_f": (ttp, "FAULT", "unsummed_f"),
+              "expert_summed": (tpipe, "FAULT", "expert_summed"),
+              "no_pos_offset": (tplm, "FAULT", "no_pos_offset")}
+    real_route, out, inputs = tmoe.route, {}, {}
+    for label, (family, axes, virtual, schedule, fields, control) in \
+            cfgs["p16"].items():
+        t0, dropped = time.perf_counter(), []
+
+        def route(*a, **kw):
+            r = real_route(*a, **kw)
+            dropped.append(int((~r.kept).sum()))
+            return r
+
+        key = (family, virtual, tuple(sorted(fields.items())),
+               tuple(sorted(axes.items())))
+        if key not in inputs:  # a control shares its case's
+            inputs[key] = _p16_inputs(torch, label, dev, cfgs)
+        cfg, state, batch = inputs[key]
+        with _patched((tmoe, "route", route),
+                      *([faults[control]] if control else [])):
+            loss, grads = _p15_step(torch, family, schedule, cfg, state,
+                                    batch, mesh_of(axes), dev)
+        out[label] = (loss, grads, sum(dropped), time.perf_counter() - t0)
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_p16_steps(torch, tmp, dev="cuda") -> tuple[dict, list]:
+    """16c: each P16_CHECKS composition's step against world 1's exact
+    step (STEP_TOL["fp32"]), every control failing, no routed token
+    dropped, from 12d's world's file."""
+    from ddp_tpu_torch.models import pipeline_lm as tplm
+
+    got = torch.load(f"{tmp}/16_steps.pt", weights_only=False)
+    cfgs = _p12_cfgs()
+    tol = STEP_TOL["fp32"]
+    readings, failed, refs = {}, [], {}
+    parallel = ("tp_size", "ep_size", "sp_size", "sp_strategy")
+    for label, (family, axes, virtual, _, fields, control) in \
+            P16_CHECKS.items():
+        cfg = _p16_inputs(torch, label, dev, cfgs, state=False)[0]
+        # One reference a model and global batch: the axes that do not
+        # change either (model, expert, seq, the schedule) share it.
+        key = (family, virtual, _p16_replicas(axes),
+               tuple(sorted((k, v) for k, v in fields.items()
+                            if k not in parallel)))
+        if key not in refs:
+            refs[key] = _pipe_reference(
+                torch, family, *_p16_inputs(torch, label, dev, cfgs), dev)
+            torch.cuda.empty_cache()
+        loss, grads, dropped, seconds = got[label]
+        if family == "lm":  # the stacked names → the dense CausalLM's
+            grads = tplm.to_dense_lm(cfg, grads)[1]
+        e = _grad_errors((loss, grads), refs[key])
+        ok = _within(e, tol)
+        readings[label] = dict(loss=e["loss"], grad=e["grad"], leaf=e["leaf"],
+                               dropped=dropped, seconds=seconds)
+        log(f"[mesh] {label}: {_errors_text(e)}, (token, k) dropped on rank 0"
+            f": {dropped}; {seconds:.1f} s in the world"
+            + (" (a control: must fail)" if control else ""))
+        if ok == bool(control):
+            failed.append(f"{label}: " + ("the control passes" if control
+                                          else _errors_text(e)))
+        if dropped:
+            failed.append(f"{label}: {dropped} (token, k) dropped at the "
+                          "capacity factor E/k")
+    return readings, failed
+
+
+def _p16_state_want(args, world, rank) -> dict:
+    """The bytes a rank of a 16a run holds at rest by the specs
+    (``pipe_common.stage_specs``): its ends whole, its chunks' leaves
+    each its pipe slice cut over its axes, fp32; Adam two moments a
+    parameter and the int32 count, SGD's momentum one."""
+    import torch
+
+    from ddp_tpu_torch.models import pipeline_lm as tplm
+    from ddp_tpu_torch.models import pipeline_vit as tpv
+    from ddp_tpu_torch.parallel.pipe_common import stage_specs
+    from ddp_tpu_torch.runtime.mesh import Mesh, mesh_sizes
+    from ddp_tpu_torch.train.config import TrainConfig
+
+    c = TrainConfig.from_args(args + ["--spawn", str(world)])
+    inter = c.pipe_schedule == "interleaved"
+    sizes = mesh_sizes(world, pipe=c.mesh_pipe, model=c.mesh_model,
+                       expert=c.mesh_expert, fsdp=c.mesh_fsdp,
+                       seq=c.mesh_seq)
+    with torch.device("meta"):
+        if c.model == "pipe_lm":
+            cfg = tplm.PipeLMConfig(
+                vocab_size=c.vocab_size, seq_len=c.seq_len,
+                d_model=c.model_dim, num_heads=c.num_heads,
+                num_stages=c.mesh_pipe, depth_per_stage=c.model_depth,
+                virtual_stages=c.virtual_stages, num_experts=c.moe_experts,
+                moe_every=c.moe_every)
+            model = tplm.PipeLM(cfg, 0, interleaved=inter)
+        else:
+            cfg = tpv.PipeViTConfig(
+                num_classes=100, patch_size=4, embed_dim=c.model_dim,
+                num_heads=c.num_heads, num_stages=c.mesh_pipe,
+                depth_per_stage=c.model_depth, side=32, in_channels=3)
+            model = tpv.PipeViT(cfg, 0, interleaved=inter)
+    lead = (c.virtual_stages, c.mesh_pipe) if inter else (c.mesh_pipe,)
+    full = {}
+    for n, p in model.named_parameters():
+        if n.startswith("chunks.0."):
+            full["stages." + n[len("chunks.0."):]] = lead + tuple(p.shape)
+        elif not n.startswith("chunks."):
+            full[n] = tuple(p.shape)
+    specs = stage_specs(full, Mesh(sizes, rank), lead=len(lead),
+                        tp=c.mesh_model, ep=c.mesh_expert)
+    params = 0
+    for n, shape in full.items():
+        numel = int(np.prod(shape))
+        if n.startswith("stages."):
+            numel //= c.mesh_pipe * int(np.prod(
+                [sizes[a] for _, a in specs.get(n[len("stages."):], ())]))
+        params += numel * 4
+    adam = c.optimizer == "adam"
+    return dict(params=params, optimizer=2 * params + 4 if adam else params)
+
+
+def check_p16_runs(torch, tmp, runs, wave_peak_mib, dev="cuda"
+                   ) -> tuple[dict, list]:
+    """16a beyond the launches its readings gated: every B1-B3 launch on
+    its composition's q (P16_Q); each rank's bytes of parameters and
+    optimizer state at rest against the specs'; finite losses; the PP x
+    TP run's checkpoint restored at --mesh_pipe 2 (no model axis) by each
+    pipe rank to the file's full state, bit for bit; the second wave's
+    peak memory under the card's."""
+    readings, failed = {"wave_peak_mib": wave_peak_mib}, []
+    total = torch.cuda.get_device_properties(0).total_memory / 2**20
+    log(f"[mesh] phases 15's and 16's wave: peak {wave_peak_mib} MiB of "
+        f"the card's {total:.0f} used (nvidia-smi, every second)")
+    if not wave_peak_mib or wave_peak_mib >= total:
+        failed.append(f"the second wave's peak {wave_peak_mib} MiB")
+    for name, (base, extra, world) in P16_RUNS.items():
+        if not runs.get(name):
+            failed.append(f"{name}: the run failed: no readings")
+            continue
+        args = base + extra
+        st = _rank_state(tmp, name, world)
+        dt = _p15_dtype(name)
+        for r, b in enumerate(st):
+            want = _p16_state_want(args, world, r)
+            shapes = {k: v for k, v in b.get("flash_launch_shapes",
+                                             {}).items() if v}
+            log(f"[mesh] {name} rank {r}: at rest {b['params']} bytes of "
+                f"parameters, {b['optimizer']} of optimizer state (the specs "
+                f"give {want['params']} and {want['optimizer']}); B1-B3 by "
+                f"q's shape {shapes}")
+            if (b["params"], b["optimizer"]) != (want["params"],
+                                                 want["optimizer"]):
+                failed.append(f"{name} rank {r}: state {b['params']}, "
+                              f"{b['optimizer']} is not the specs' {want}")
+            if set(shapes) != {f"{n}_{dt}" for n in FLASH_NAMES} or any(
+                    set(v) != {P16_Q[name]} for v in shapes.values()):
+                failed.append(f"{name} rank {r}: B1-B3 on {shapes}, not all "
+                              f"on {P16_Q[name]} in {dt}")
+        with open(f"{tmp}/{name}.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in recs if r["kind"] == "step"]
+        final = next(r for r in recs if r["kind"] == "final")
+        if not (losses and all(np.isfinite(losses))
+                and np.isfinite(final["loss"])):
+            failed.append(f"{name}: losses {losses}, eval {final['loss']}")
+        readings[name] = dict(state=st, losses=losses,
+                              eval_loss=final["loss"])
+        if name == "16a_pp_tp":
+            bad = _p15_resume_failures(torch, f"{tmp}/{name}",
+                                       args + ["--mesh_model", "1"], dev)
+            readings[name]["restored_at_pipe_2_bitwise"] = not bad
+            failed += [f"{name} at --mesh_pipe 2: {b}" for b in bad]
+            torch.cuda.empty_cache()
+        restored = readings[name].get("restored_at_pipe_2_bitwise")
+        log(f"[mesh] {name}: step losses {losses}, eval loss "
+            f"{final['loss']:.6f}"
+            + (f"; its checkpoint restored at --mesh_pipe 2 bit for bit by "
+               f"every pipe rank: {restored}" if name == "16a_pp_tp" else ""))
+    return readings, failed
+
+
+def _memory_peak():
+    """Start a thread reading the card's used memory (nvidia-smi) every
+    second → (a dict whose ``mib`` is the highest reading, the function
+    that stops the thread and prints it)."""
+    peak, stop = {"mib": 0}, threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            try:
+                used = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=memory.used",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=30).stdout.split()
+                peak["mib"] = max(peak["mib"], int(used[0]))
+            except (OSError, ValueError, IndexError,
+                    subprocess.SubprocessError):
+                pass
+            stop.wait(1.0)
+
+    thread = threading.Thread(target=poll, name="memory peak", daemon=True)
+    thread.start()
+
+    def done():
+        stop.set()
+        thread.join()
+        log(f"[mesh] the card's used memory peaked at {peak['mib']} MiB")
+
+    return peak, done
+
+
 def check_mesh(torch, card) -> dict:
     """Phase 12, the sequence models across ranks: 12a the long-context
     model at README's command (--mesh_seq 4, ring and Ulysses), 12b the
     LM at run_lm_long_bench's width (--mesh_seq 2, --mesh_model 2, both),
     12c the routed LM at --mesh_expert 2, each `python -m
     ddp_tpu_torch.train --spawn N --backend gloo` with every rank on the
-    one card (all at once, with 12d's world), launches by rank from each
-    rank's trace; the ring hops' B1-B3 timed alone; 12d the step checks.
-    Phases 13, 14 and 15 (the in-graph pipeline: 15a/15b runs, 15c/15d in
-    12d's world) ride the same wave. Every reading is printed before any
+    one card (one wave, half of it WAVE_STAGGER s late, with 12d's
+    world), launches by rank from each rank's trace; the ring hops' B1-B3
+    timed alone; 12d the step checks. Phases 13 and 14 ride the same wave;
+    phases 15 and 16 (the pipeline and its compositions) a second wave
+    after it, their steps in 12d's world; each wave's peak of the card's
+    used memory is printed. Every reading is printed before any
     raise."""
     import tempfile
 
@@ -9848,11 +10277,18 @@ def check_mesh(torch, card) -> dict:
         world = start_mesh_steps(tmp, dev)
         with _reaped(world):
             commands = {name: _p12_argv(name, tmp) for name in P12_RUNS
-                        if name not in P15_RUNS}
+                        if name not in PIPE_RUNS}
             commands["spawned"] = P12_SPAWN_ARGS + CNN_DEVICE_ARGS + GLOO + [
                 "--mesh_seq", "2", "--spawn", str(P12_SPAWN_WORLD),
                 "--checkpoint_dir", f"{tmp}/p12_seq2"]
-            done = _run_all(commands, tmp, timeout=P12_RUN_TIMEOUT)
+            first_peak, stop_polling = _memory_peak()
+            try:
+                procs = {}
+                _launch_staggered(commands, tmp, procs, WAVE_STAGGER).join()
+                done = _await_all(procs, tmp, timeout=P12_RUN_TIMEOUT)
+            finally:
+                stop_polling()
+            readings["first_wave_peak_mib"] = first_peak["mib"]
             spawned = done.pop("spawned")
             span = (started, time.time())
             for name, (code, lines) in done.items():
@@ -9872,16 +10308,19 @@ def check_mesh(torch, card) -> dict:
                 torch, P14A_FLASH_SHAPE, "vit14a", seed=141))
             readings["flash"].update(check_and_time_flash(
                 torch, P15A_SHAPE, "pipe15a", seed=151))
-            lap("hops, 14a's and 15a's shapes timed")
-            # Phase 15's runs, a second wave: the first wave alone peaks at
-            # ~75 GB of the card's 80 (every run of a try at one wave died
-            # of CUDA's out of memory); they start after the kernel
-            # timings above (which they would crowd) and run beside the
-            # checks below.
+            readings["flash"].update(check_and_time_flash(
+                torch, P16A_SHAPE, "pipe16", seed=161))
+            lap("hops, 14a's, 15a's and 16a's shapes timed")
+            # Phases 15's and 16's runs, a second wave: the first wave
+            # alone peaks at ~75 GB of the card's 80 (every run of a try at
+            # one wave died of CUDA's out of memory); they start after the
+            # kernel timings above (which they would crowd) and run beside
+            # the checks below, the card's used memory read every second.
             started15 = time.time()
-            second.update({name: _launch(_p12_argv(name, tmp),
-                                         f"{tmp}/{name}.log")
-                           for name in P15_RUNS})
+            wave_peak, stop_polling = _memory_peak()
+            halves = _launch_staggered(
+                {name: _p12_argv(name, tmp) for name in PIPE_RUNS}, tmp,
+                second, WAVE_STAGGER)
             readings["steps"], bad = check_mesh_steps(torch, tmp, world, w0,
                                                       dev)
         failed += bad
@@ -9891,30 +10330,39 @@ def check_mesh(torch, card) -> dict:
             failed += bad
             readings["phase15_steps"], bad = check_p15_steps(torch, tmp, dev)
             failed += bad
+            readings["phase16_steps"], bad = check_p16_steps(torch, tmp, dev)
+            failed += bad
         readings["phase14"], bad = check_p14_runs(torch, tmp,
                                                   readings["runs"])
         failed += bad
-        lap("phases 14's and 15's checks")
+        lap("phases 14's, 15's and 16's checks")
         readings["spawned"], bad = check_mesh_spawn_params(torch, tmp,
                                                            spawned)
         failed += bad
         lap("12d spawned")
-        done = _await_all(second, tmp, timeout=P12_RUN_TIMEOUT)
+        try:
+            halves.join()
+            done = _await_all(second, tmp, timeout=P12_RUN_TIMEOUT)
+        finally:
+            stop_polling()
         span = (started15, time.time())
         for name, (code, lines) in done.items():
             readings["runs"][name], bad = _p12_readings(
                 torch, tmp, name, code, lines, span)
             failed += bad
-        lap(f"phase 15's runs ({len(second)} at once, after the first "
-            "wave)")
+        lap(f"phases 15's and 16's runs ({len(second)} at once, after the "
+            "first wave)")
         readings["phase15"], bad = check_p15_runs(torch, tmp,
                                                   readings["runs"], dev)
         failed += bad
-        lap("phase 15's runs checked")
-    log(f"[mesh] phases 12, 13, 14 and 15: {time.perf_counter() - t0:.1f} s "
-        f"on {card}")
+        readings["phase16"], bad = check_p16_runs(
+            torch, tmp, readings["runs"], wave_peak["mib"], dev)
+        failed += bad
+        lap("phases 15's and 16's runs checked")
+    log(f"[mesh] phases 12, 13, 14, 15 and 16: "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
     if failed:
-        raise AssertionError(f"phases 12, 13, 14 and 15: {failed}")
+        raise AssertionError(f"phases 12, 13, 14, 15 and 16: {failed}")
     return readings
 
 
@@ -10498,7 +10946,7 @@ def main() -> int:
     fault = timed("phase 9", check_fault_tolerance, torch, card)
     imagenet = timed("phase 10", check_imagenet, torch, card)
     lc = timed("phase 11", check_long_context, torch, card)
-    mesh = timed("phases 12-15", check_mesh, torch, card)
+    mesh = timed("phases 12-16", check_mesh, torch, card)
     log(f"[main] all phases and the build: {time.perf_counter() - t0:.1f} s")
 
     replaces = {"flash_decode_fp32": "ddp_tpu/ops/decode.py:260",
@@ -10619,7 +11067,7 @@ def main() -> int:
             "pipe_launches_by_rank": {
                 run: [rk["train"][f"{name}_{_p15_dtype(run)}"]
                       for rk in mesh["runs"][run]["ranks"]]
-                for run in P15_RUNS},
+                for run in PIPE_RUNS},
             "variants": {
                 "fp32": {"launches": trained["fp32"][name],
                          **{k: flash["fp32"][name][k] for k in keys}},
@@ -10672,6 +11120,14 @@ def main() -> int:
                         if run.startswith("15a")
                         for rk in mesh["runs"][run]["ranks"]),
                     **mesh["flash"][f"pipe15a_{d}"][name]}
+                   for d in ("bf16", "fp32")},
+                # Phase 16a's PP x TP microbatch ([1, 2048, 4, 128],
+                # causal); launches: that run's over its 4 ranks.
+                **{f"pipe16_{d}": {
+                    "launches": sum(
+                        rk["train"][f"{name}_{d}"]
+                        for rk in mesh["runs"]["16a_pp_tp"]["ranks"]),
+                    **mesh["flash"][f"pipe16_{d}"][name]}
                    for d in ("bf16", "fp32")}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -405,6 +405,29 @@ def seq_transformer_params_to_jax(state) -> dict:
 # leaf's own dims; the maps are the Flax ones on those trailing dims.
 
 
+def _check_moe_subtrees(flat: dict, lead: int) -> None:
+    """Each routed stage block's ``moe`` subtree, keyed ``stages/blockN/
+    moe/...`` in JAX's names: exactly ``router`` {kernel, bias}, ``wi``,
+    ``bi``, ``wo``, ``bo``, of their ranks after the ``lead`` stacked
+    dims; else ValueError naming ``moe``."""
+    want = {"router/kernel": 2, "router/bias": 1, **_EXPERTS}
+    blocks = {k.split("/moe/")[0] for k in flat
+              if k.startswith("stages/") and "/moe/" in k}
+    for b in sorted(blocks):
+        got = {k[len(b) + 5:]: np.ndim(v) - lead for k, v in flat.items()
+               if k.startswith(b + "/moe/")}
+        for name, rank in want.items():
+            if got.get(name) != rank:
+                raise ValueError(
+                    f"malformed moe subtree: {b}/moe/{name} "
+                    + ("is missing" if name not in got else
+                       f"has rank {got[name]}, not {rank}"))
+        extra = sorted(set(got) - set(want))
+        if extra:
+            raise ValueError(f"malformed moe subtree: {b}/moe has "
+                             f"unexpected leaves {extra}")
+
+
 def _stage_lead(names_ndims) -> int:
     """Stacked dims of the ``stages`` leaves: 2 when the smallest (a
     LayerNorm bias) has 3 dims ([v, S, d]), else 1 (``sequential_apply``'s
@@ -415,7 +438,9 @@ def _stage_lead(names_ndims) -> int:
 
 def pipe_params_to_jax(state) -> dict:
     """A pipe model's full state (arrays or tensors, or gradients and
-    moments keyed alike) → the nested JAX tree of numpy fp32 arrays."""
+    moments keyed alike) → the nested JAX tree of numpy fp32 arrays; a
+    routed stage block's ``moe`` leaves map as the causal LM's do (the
+    router a Dense, the expert tensors as they are)."""
 
     def arr(x):
         if hasattr(x, "detach"):
@@ -439,15 +464,18 @@ def pipe_params_to_jax(state) -> dict:
         for part in mod:
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(a)
+    _check_moe_subtrees(flatten_tree(tree), lead)
     return tree
 
 
 def pipe_params_from_jax(tree) -> dict[str, np.ndarray]:
     """A JAX ``PipeViTParams`` / ``PipeLMParams`` tree (as nested dicts of
     its three fields) → the port's full pipe state; the inverse of
-    :func:`pipe_params_to_jax`."""
+    :func:`pipe_params_to_jax`. Raises ValueError on a malformed ``moe``
+    subtree of a routed stage block (the message names ``moe``)."""
     flat = flatten_tree(tree)
     lead = _stage_lead((k, np.ndim(v)) for k, v in flat.items())
+    _check_moe_subtrees(flat, lead)
     state = {}
     for path, a in flat.items():
         a = np.asarray(a, np.float32)

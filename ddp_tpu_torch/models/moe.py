@@ -302,6 +302,9 @@ class MoEMLP(nn.Module):
         self.wo = nn.Parameter(torch.zeros(E, mlp_dim, dim))
         self.bo = nn.Parameter(torch.zeros(E, 1, dim))
         self.spmd = None  # the GSPMD plan (parallel/spmd.MoEPlan)
+        # The ``expert`` communicator of a pipe stage (PP×EP,
+        # ``models/pipeline_vit.StageBlocks``): this rank's E/ep experts.
+        self.ep = None
 
     def weights(self, dt=None) -> dict:
         """The parameters by :data:`PARAM_NAMES` (as the module reads
@@ -328,7 +331,10 @@ class MoEMLP(nn.Module):
         if self.spmd is not None:
             y, aux, _ = self.routed_spmd(x, self.weights(dt or x.dtype))
             return y, aux
-        y, aux, _ = self.routed(x, self.weights(dt or x.dtype))
+        y, aux, _ = moe_mlp(x, self.weights(dt or x.dtype),
+                            num_experts=self.num_experts, top_k=self.top_k,
+                            capacity_factor=self.capacity_factor,
+                            normalize_gates=self.normalize_gates, ep=self.ep)
         return y, aux
 
     def routed_spmd(self, x, w):

@@ -36,6 +36,12 @@ The stage-0 front (``first_fn``) and the stage S−1 back (``last_fn`` and
 the loss) run inside the end chunks, as JAX's non-uniform stages do; the
 parameter gradients accumulate in the parameters' ``.grad`` as SUMS over
 the microbatches — the step divides them once.
+
+A stage may run collectives of its own inside its op: Megatron's f/g over
+``model``, the expert all-to-all over ``expert``, the ring's hops or
+Ulysses' all-to-alls over ``seq``. Every member of such a group shares
+its pipe coordinate, so they run the same timetable column and issue the
+group's collectives in the same order.
 """
 
 from __future__ import annotations
@@ -45,10 +51,19 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ddp_tpu_torch.parallel.pipe_common import stack_stage_params
+from ddp_tpu_torch.parallel.pipe_common import (
+    ENDS_AXES,
+    scatter_stage_grads,
+    stack_stage_params,
+)
 
 __all__ = ["BWD", "FWD", "IDLE", "bubble_fraction", "run_timetable",
            "schedule_gpipe", "spmd_pipeline", "stack_stage_params"]
+
+# A deliberate fault for the controls: "expert_summed" sums an expert
+# leaf's gradient over ``expert`` too; "fsdp_unsummed" scatters a stage
+# gradient over ``fsdp`` without its sum.
+FAULT: str | None = None
 
 IDLE, FWD, BWD = 0, 1, 2
 ACT_TAG, COT_TAG = 0, 1  # the activation and cotangent streams' tags
@@ -122,6 +137,14 @@ def run_timetable(op, mb, ck, fns: StageFns, *, comm, inputs, labels,
     table's hook for the last chunk's output (evaluation). ``dropped``:
     slots whose backward on this rank consumes its inputs and applies
     nothing (a deliberate fault, for the controls).
+
+    The order within a slot: the op, with every collective the stage
+    makes over its ``model``, ``expert`` or ``seq`` group, returns
+    before the slot's p2p batch over ``pipe`` is posted. A rank that
+    posted its exchange first could wait on a neighbour that is still in
+    a group collective with a third rank, which waits in turn for this
+    one (gloo deadlocks on two groups' operations interleaved in
+    different orders on two ranks).
     """
     S, d, V = comm.size, comm.rank, virtual_stages
     C = S * V
@@ -248,14 +271,20 @@ def make_pipe_step(model, optimizer, mesh, *, fns: StageFns, schedule: str,
     ``split(*batch)`` → (inputs, labels), the M microbatches;
     ``act_shape(inputs)`` the boundary activation's shape;
     ``denom(*batch)`` the global count the sums are divided by (the
-    global batch, or its B·(T−1) targets). The timetable of ``schedule``
-    (gpipe | 1f1b | interleaved) runs over the ``pipe`` group; then the
-    ends' gradients (the front's, the back's, the tied embedding's two
-    parts) and the loss and correct count are summed over pipe × data in
-    one bucket, the chunks' gradients over data in another, all divided
-    by ``denom``; the grad norm is the whole model's (``layout.norm``),
-    and the optimizer (its clip by that norm) updates every rank's
-    parameters in place.
+    global batch, or its B·(T−1) targets). The ``fsdp`` leaves are
+    gathered once (``layout.gathered``), the timetable of ``schedule``
+    (gpipe | 1f1b | interleaved) runs over the ``pipe`` group, and the
+    gradients are reduced as ``_make_handsched_lm_step`` reduces them
+    (``pipeline_lm.py:638-688``), GPipe's too: the fsdp leaves' are
+    reduce-scattered over ``fsdp``; the ends' (the front's, the back's,
+    the tied embedding's two parts), the loss and the correct count sum
+    over pipe × the batch axes × ``seq`` in one bucket; each stage leaf's
+    over ``data`` and ``seq``, over ``expert`` unless the leaf is an
+    expert's, and over ``fsdp`` unless it was scattered — a bucket for
+    each such group; ``model`` adds nothing (f and g made the sums). All
+    are divided by ``denom``; the grad norm is the whole model's
+    (``layout.norm``), and the optimizer (its clip by that norm) updates
+    every rank's parameters in place.
     """
     from ddp_tpu_torch.parallel.ddp import StepMetrics
     from ddp_tpu_torch.parallel.interleaved import (
@@ -267,13 +296,20 @@ def make_pipe_step(model, optimizer, mesh, *, fns: StageFns, schedule: str,
         spmd_pipeline_1f1b,
     )
 
-    pipe, ends, data = (mesh.comm("pipe"), mesh.comm("pipe", "data"),
-                        mesh.comm("data"))
+    pipe, ends = mesh.comm("pipe"), mesh.comm(*ENDS_AXES)
     S, M = pipe.size, num_microbatches
     layout = model.shard_layout
     named = list(model.named_parameters())
-    stage_p = [p for n, p in named if n.startswith("chunks.")]
     end_p = [p for n, p in named if not n.startswith("chunks.")]
+    stage_buckets = {}  # the axes a stage leaf's gradient sums over
+    for n, p in named:
+        if n.startswith("chunks."):
+            axes = layout.axes(n)
+            if FAULT == "expert_summed":
+                axes = axes - {"expert"}
+            over = tuple(a for a in ("data", "fsdp", "expert", "seq")
+                         if a not in axes)
+            stage_buckets.setdefault(over, []).append(p)
     if schedule == "gpipe":
         def run(**kw):
             return spmd_pipeline(fns, **kw)
@@ -300,20 +336,24 @@ def make_pipe_step(model, optimizer, mesh, *, fns: StageFns, schedule: str,
             p.grad = g.view_as(p)
 
     def step(*batch):
-        for p in stage_p + end_p:
+        for _, p in named:
             p.grad = None
         inputs, labels = split(*batch)
-        loss, aux = run(comm=pipe, inputs=inputs, labels=labels,
-                        act_shape=act_shape(inputs), act_dtype=act_dtype,
-                        device=model.device)
+        with layout.gathered(model) as swaps:
+            loss, aux = run(comm=pipe, inputs=inputs, labels=labels,
+                            act_shape=act_shape(inputs), act_dtype=act_dtype,
+                            device=model.device)
+        if swaps:
+            scatter_stage_grads(swaps, mesh.comm("fsdp"),
+                                summed=FAULT != "fsdp_unsummed")
         n = float(denom(*batch))
         bucket = torch.cat([flat(end_p).float(), loss.reshape(1),
                             aux.reshape(1)])
         ends.all_reduce_(bucket).div_(n)
         unflat(end_p, bucket[:-2])
-        if stage_p:
-            body = data.all_reduce_(flat(stage_p).float()).div_(n)
-            unflat(stage_p, body)
+        for over, params in stage_buckets.items():
+            body = mesh.comm(*over).all_reduce_(flat(params).float()).div_(n)
+            unflat(params, body)
         grad_norm = (layout.norm([p.grad for _, p in named])
                      if report_grad_norm else None)
         optimizer.step()

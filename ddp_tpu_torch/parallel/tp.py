@@ -54,6 +54,10 @@ _COLUMN_WEIGHTS = ("attn.qkv.weight", "mlp1.weight")
 _COLUMN_BIASES = ("attn.qkv.bias", "mlp1.bias")
 _ROW_WEIGHTS = ("attn.proj.weight", "mlp2.weight")
 _EXPERT = ("moe.wi", "moe.bi", "moe.wo", "moe.bo")
+# A deliberate fault for the controls: "unsummed_f" leaves the all-reduce
+# out of f's backward (the cross-member sum a rebuilt 1F1B chunk's
+# Megatron backward owes its replicated input).
+FAULT: str | None = None
 
 
 def tp_size(mesh) -> int:
@@ -230,6 +234,8 @@ class _F(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if FAULT == "unsummed_f":
+            return g, None
         return ctx.comm.all_reduce_(g.contiguous().clone()), None
 
 

@@ -49,13 +49,16 @@ REFUSED = {"dcn": "A4.2 (multi-slice, with MPMD)"}
 # ``expert`` (the gradients of leaves whose reduce-scatter or all-to-all
 # already summed them over that axis), and ``pipe`` alone (the stages'
 # point-to-point exchanges) and with ``data`` (the pipelined models'
-# replicated ends: their gradients live on the end stages). A group's
+# replicated ends: their gradients live on the end stages), with the
+# batch axes and ``seq`` (the composed pipe step's ends, loss and count)
+# and with ``seq`` (the pipelined LM's evaluation sums). A group's
 # communicator is found by its axes of size above one.
 GROUPS = (("seq",), ("model",), ("expert",), ("fsdp",), ("data",),
           ("pipe",), ("pipe", "data"),
           ("data", "fsdp", "expert"), ("data", "fsdp", "expert", "seq"),
           ("data", "expert", "seq"), ("data", "fsdp", "seq"),
-          ("data", "seq"))
+          ("data", "seq"), ("pipe", "data", "fsdp", "expert", "seq"),
+          ("pipe", "seq"))
 
 
 @dataclasses.dataclass(frozen=True)

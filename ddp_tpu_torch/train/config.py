@@ -11,8 +11,10 @@ models' ``--mesh_fsdp``, ``--mesh_model``, ``--mesh_expert`` (in any
 combination) and ``--zero1`` (on a pure data mesh) ride JAX's GSPMD step
 (``parallel/spmd``; :attr:`TrainConfig.use_spmd`). The pipelined models,
 ``--model pipe_lm`` and ``pipe_vit``, cut over ``--mesh_pipe`` stages
-under ``--pipe_schedule`` (``parallel/pipeline``), the data axis the rest
-of the world."""
+under ``--pipe_schedule`` (``parallel/pipeline``), compose with
+``--mesh_fsdp`` and ``--mesh_model``, and the LM with ``--moe_experts``,
+``--mesh_expert`` and ``--mesh_seq``, as JAX's do; the data axis is the
+rest of the world."""
 
 from __future__ import annotations
 
@@ -24,9 +26,6 @@ from ddp_tpu_torch.models import IMAGE_MODELS
 SEQ_MODELS = ("long_context", "causal_lm")
 PIPE_MODELS = ("pipe_lm", "pipe_vit")
 MODELS = IMAGE_MODELS + SEQ_MODELS + PIPE_MODELS
-# What JAX's pipe family composes with that the port's does not yet: each
-# is refused by name until ROADMAP A4.1b.
-PIPE_LATER = "ROADMAP A4.1b"
 IMAGE_DATASETS = ("mnist", "fashion_mnist", "kmnist", "uci_digits",
                   "cifar10", "cifar100", "imagenet")
 SEQ_DATASETS = ("synthetic_seq", "text")
@@ -83,10 +82,11 @@ class TrainConfig:
     model_depth: int | None = None  # None → 2 (causal_lm), the model's own
     num_heads: int = 4
     num_kv_heads: int = 0  # 0 → MHA
-    # causal_lm: route every --moe_every-th block's MLP to this many
-    # experts (0 = dense), top --moe_top_k each, gates renormalised unless
-    # --moe_raw_gates (``ddp_tpu/train/config.py:103-116``). The image
-    # family has its own models: vit_moe_tiny, vit_moe_micro.
+    # causal_lm and pipe_lm: route every --moe_every-th block's MLP to
+    # this many experts (0 = dense), top --moe_top_k each, gates
+    # renormalised unless --moe_raw_gates (``ddp_tpu/train/config.py:
+    # 103-116``). The image family has its own models: vit_moe_tiny,
+    # vit_moe_micro.
     moe_experts: int = 0
     moe_every: int = 2
     moe_top_k: int = 2
@@ -208,10 +208,29 @@ class TrainConfig:
             raise ValueError(
                 f"--model {config.model!r} is not ported: the port trains "
                 f"{', '.join(MODELS)}")
-        config._refuse_pipe_later()
-        # JAX's guards (``ddp_tpu/train/trainer.py:251-262``, ``:284-291``,
-        # ``:585-599``, ``:691-695``).
-        if config.mesh_seq > 1 and config.model not in SEQ_MODELS:
+        # JAX's guards (``ddp_tpu/train/trainer.py:251-291``, ``:585-599``,
+        # ``:691-695``).
+        if config.moe_experts and config.model not in ("causal_lm",
+                                                       "pipe_lm"):
+            raise ValueError(
+                "--moe_experts routes the causal LM's MLPs: use "
+                "--model causal_lm or pipe_lm (images have "
+                "--model vit_moe_tiny)"
+            )
+        if config.moe_experts and config.moe_every < 1:
+            raise ValueError(
+                f"--moe_every must be >= 1, got {config.moe_every}")
+        if (config.moe_experts and config.model == "pipe_lm"
+                and (config.model_depth or 1) % config.moe_every):
+            raise ValueError(
+                "the pipelined MoE-LM needs --moe_every "
+                f"({config.moe_every}) to divide --model_depth "
+                f"({config.model_depth or 1}): stages must be "
+                "structure-uniform for parameter stacking (the flat "
+                "--model causal_lm expresses any pattern)"
+            )
+        if config.mesh_seq > 1 and config.model not in SEQ_MODELS + (
+                "pipe_lm",):
             raise ValueError(
                 "--mesh_seq shards tokens, which only the sequence models "
                 "have: use --model long_context, causal_lm, or pipe_lm "
@@ -236,14 +255,6 @@ class TrainConfig:
                 + ("" if config.model == "causal_lm"
                    else ", or --fast_epoch (causal_lm only)")
             )
-        if config.moe_experts and config.model != "causal_lm":
-            raise ValueError(
-                "--moe_experts routes the causal LM's MLPs: use --model "
-                "causal_lm (images have --model vit_moe_tiny)"
-            )
-        if config.moe_experts and config.moe_every < 1:
-            raise ValueError(
-                f"--moe_every must be >= 1, got {config.moe_every}")
         if config.remat and config.model == "causal_lm":
             raise ValueError(
                 "--remat is ported for the image models (resnet*, vit*, "
@@ -292,25 +303,6 @@ class TrainConfig:
     def pipe_mode(self) -> bool:
         return self.model in PIPE_MODELS
 
-    def _refuse_pipe_later(self) -> None:
-        """What JAX's pipe family composes with and the port's does not
-        yet, refused by name before any other guard."""
-        if not self.pipe_mode:
-            return
-        lm = self.model == "pipe_lm"
-        later = [flag for flag, on in (
-            ("--mesh_fsdp", self.mesh_fsdp > 1),
-            ("--mesh_model", self.mesh_model > 1),
-            ("--mesh_expert", self.mesh_expert > 1 and lm),
-            ("--mesh_seq", self.mesh_seq > 1 and lm),
-            ("--moe_experts", self.moe_experts > 0),
-            ("--fast_epoch", self.fast_epoch)) if on]
-        if later:
-            raise ValueError(
-                f"--model {self.model} with {', '.join(later)}: the port's "
-                "pipeline composes with the data axis only; fsdp, PP×TP, "
-                f"PP×EP, PP×SP and --fast_epoch wait for {PIPE_LATER}")
-
     def _check_pipe(self) -> None:
         """The pipe family's guards, with JAX's messages
         (``trainer.py:293-402``)."""
@@ -340,6 +332,8 @@ class TrainConfig:
                 + ("" if lm else "expert/seq/")
                 + "zero1, accumulation (use --num_microbatches)"
                 + (", or augment" if lm else ""))
+        if pipe and self.mesh_model > 1:
+            self._check_tp_dims()
         if pipe and (self.num_heads < 1
                      or (self.model_dim or 64) % self.num_heads):
             raise ValueError(
@@ -356,6 +350,12 @@ class TrainConfig:
             raise ValueError(
                 f"--num_kv_heads {self.num_kv_heads} must be >= 1 "
                 f"and divide --num_heads {self.num_heads}")
+        if lm and self.num_kv_heads and self.mesh_model > 1 \
+                and self.num_kv_heads % self.mesh_model:
+            raise ValueError(
+                "GQA under TP shards whole kv groups: "
+                f"--num_kv_heads {self.num_kv_heads} not "
+                f"divisible by --mesh_model {self.mesh_model}")
         if pipe and self.num_microbatches < 1:
             raise ValueError(
                 f"--num_microbatches must be >= 1, got "
@@ -378,6 +378,57 @@ class TrainConfig:
                 f"--num_microbatches {self.num_microbatches} must be "
                 f"a multiple of --mesh_pipe {self.mesh_pipe} (the "
                 "sharded stream rests microbatch m on device m mod S)")
+        if lm:
+            self._check_pipe_lm()
+
+    def _check_pipe_lm(self) -> None:
+        """The pipelined LM's compositions (``trainer.py:600-609``,
+        ``:1022-1045``, and ``pipeline_lm.py:187-194``'s TP×MoE rule),
+        with JAX's messages."""
+        if self.mesh_expert > 1:
+            if not self.moe_experts:
+                raise ValueError(
+                    "--mesh_expert shards MoE expert weights: give the "
+                    "LM experts with --moe_experts N (or drop the axis)")
+            if self.moe_experts % self.mesh_expert:
+                raise ValueError(
+                    f"--moe_experts {self.moe_experts} not divisible "
+                    f"by --mesh_expert {self.mesh_expert}")
+        hand = self.pipe_schedule != "gpipe"
+        if self.moe_experts and self.mesh_model > 1 and hand:
+            from ddp_tpu_torch.models.pipeline_lm import TP_MOE_HAND_SCHEDULED
+
+            raise ValueError(TP_MOE_HAND_SCHEDULED)
+        if self.mesh_seq > 1 and not self.seq_len % self.mesh_seq:
+            if hand and self.seq_strategy == "ring":
+                raise ValueError(
+                    "PP×SP under the hand-scheduled schedules "
+                    "(1f1b/interleaved) needs --seq_strategy "
+                    "ulysses: ring's ppermute hops have no replica "
+                    "groups and the schedules' fwd/bwd branches "
+                    "diverge across pipe stages "
+                    "(models/pipeline_lm.py has the full story); "
+                    "ring works under --pipe_schedule gpipe")
+            if self.seq_strategy == "ulysses":
+                from ddp_tpu_torch.train.trainer import check_ulysses_heads
+
+                check_ulysses_heads(self.num_heads, self.mesh_model,
+                                    self.mesh_seq)
+
+    def _check_tp_dims(self) -> None:
+        """``_check_tp_dims`` (``trainer.py:104-123``): the heads and the
+        4 × d MLP hidden dim split over ``model``."""
+        d_model = self.model_dim or 64
+        if self.num_heads % self.mesh_model:
+            raise ValueError(
+                f"tensor parallelism splits attention heads: "
+                f"--num_heads {self.num_heads} not divisible by "
+                f"--mesh_model {self.mesh_model}")
+        if (d_model * 4) % self.mesh_model:
+            raise ValueError(
+                f"tensor parallelism splits the MLP hidden dim: "
+                f"{d_model * 4} (4 × --model_dim) not divisible "
+                f"by --mesh_model {self.mesh_model}")
 
     def check_pipe_batch(self, global_batch_size: int,
                          data_shards: int) -> None:
@@ -487,22 +538,13 @@ class TrainConfig:
                 "gradient accumulation (or the causal LM / "
                 "pipeline families)"
             )
-        d_model = self.model_dim or 64
         # The Megatron and expert dims of the sequence family
-        # (``trainer.py:104-123``, ``:600-621``): JAX checks them for the
-        # pipe and sequence families only; the image models' GSPMD rules
+        # (``trainer.py:104-123``, ``:600-621``; the pipe family's are
+        # checked in :meth:`_check_pipe`): JAX checks them for the pipe
+        # and sequence families only; the image models' GSPMD rules
         # leave an axis off a dim it does not divide.
         if self.mesh_model > 1 and self.model in SEQ_MODELS:
-            if self.num_heads % self.mesh_model:
-                raise ValueError(
-                    f"tensor parallelism splits attention heads: "
-                    f"--num_heads {self.num_heads} not divisible by "
-                    f"--mesh_model {self.mesh_model}")
-            if (d_model * 4) % self.mesh_model:
-                raise ValueError(
-                    f"tensor parallelism splits the MLP hidden dim: "
-                    f"{d_model * 4} (4 × --model_dim) not divisible "
-                    f"by --mesh_model {self.mesh_model}")
+            self._check_tp_dims()
             if self.num_kv_heads and self.num_kv_heads % self.mesh_model:
                 raise ValueError(
                     "GQA under TP shards whole kv groups: "

@@ -95,6 +95,7 @@ def make_epoch_runner(
     label_smoothing: float = 0.0,
     augment_fn=None,
     permutation=None,
+    step=None,
 ):
     """``run(epoch) -> StepMetrics`` of [steps] device tensors.
 
@@ -104,8 +105,11 @@ def make_epoch_runner(
     shards differ, and both are the reference's); the tail that does not
     fill a global batch is dropped. The step is
     ``parallel/ddp.make_train_step``'s, one all-reduce each (BatchNorm's
-    running statistics in its bucket; ``augment_fn`` on the device).
-    ``run.step_seconds()`` gives the last epoch's per-step times.
+    running statistics in its bucket; ``augment_fn`` on the device), or
+    ``step(images, labels) -> StepMetrics`` (the pipelined ViT's,
+    ``make_pipe_vit_epoch_runner`` :288; ``rank`` and ``world`` then the
+    data replica and the replicas). ``run.step_seconds()`` gives the last
+    epoch's per-step times.
     """
     if global_batch_size % world:
         raise ValueError(
@@ -119,10 +123,11 @@ def make_epoch_runner(
             f"dataset of {n} examples yields zero batches of {global_batch_size}"
         )
     plan = permutation or default_permutation(n, seed)
-    step = make_train_step(state, world=world, reduce=reduce,
-                           compute_dtype=compute_dtype,
-                           label_smoothing=label_smoothing,
-                           augment_fn=augment_fn, seed=seed, rank=rank)
+    if step is None:
+        step = make_train_step(state, world=world, reduce=reduce,
+                               compute_dtype=compute_dtype,
+                               label_smoothing=label_smoothing,
+                               augment_fn=augment_fn, seed=seed, rank=rank)
     offset = rank * local
 
     def run(epoch: int) -> StepMetrics:

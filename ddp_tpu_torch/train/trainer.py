@@ -69,8 +69,8 @@ its ``mid_batch`` and a re-run re-enters it at that batch; ``--chaos``
 drills; the step watchdog; the parameter EMA (``--ema_decay``) that
 evaluation uses; ``--keep_best``; ``--reset_opt_state``; the
 ``--metrics_file`` stream; ``--elastic``'s global-batch contract;
-``--profile_dir``'s ``torch.profiler`` trace of the training loop. The
-chaos trigger, the watchdog beat and the preemption check run on the
+``--profile_dir``'s Kineto trace (the autograd profiler) of the training
+loop. The chaos trigger, the watchdog beat and the preemption check run on the
 host between two dispatches and read nothing of the device. Checkpoints
 are saved asynchronously (``train/checkpoint.py``); the preemption save
 and the end of training wait until the save is durable.
@@ -709,7 +709,7 @@ class _FaultTolerant:
             self.log(f"The checkpoint save in flight failed too: {e}")
 
     def _start_profile(self):
-        """``--profile_dir``: a ``torch.profiler`` over the epoch loop,
+        """``--profile_dir``: a Kineto profiler over the epoch loop,
         the window JAX traces (``trainer.py:2353-2356``), on rank 0 (on
         every rank of a sharded mesh, whose ranks run different hops, and
         of a ``--parallel zero`` world) → the running profiler, or
@@ -717,13 +717,18 @@ class _FaultTolerant:
         cfg = self.config
         if not (cfg.profile_dir and (self.is_main or self._sharded)):
             return None
-        from torch.profiler import ProfilerActivity, profile
+        # The autograd profiler: the same Kineto trace (CPU ops, the
+        # ``train_step`` annotations, the card's kernels) without
+        # ``torch.profiler.profile.start``'s ``hasattr(torch, "_inductor")``,
+        # which imports the compiler stack (~6-8 s of CPU a process on an
+        # NVIDIA H100 80GB HBM3 host at 700 W; every rank of a mesh run
+        # paid it).
+        from torch.autograd import profiler as autograd_profiler
 
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        profiler = profile(activities=activities)
-        profiler.start()
+        profiler = autograd_profiler.profile(
+            use_device="cuda" if self.device.type == "cuda" else None,
+            use_kineto=True)
+        profiler.__enter__()
         return profiler
 
     @property
@@ -738,7 +743,7 @@ class _FaultTolerant:
         sharded mesh, of a ``--parallel zero`` or of a ``--zero1`` world
         writes beside it ``state_rank<r>.json``: the bytes it holds at
         rest, and its B1-B3 launches by q's shape."""
-        profiler.stop()
+        profiler.__exit__(None, None, None)
         cfg = self.config
         os.makedirs(cfg.profile_dir, exist_ok=True)
         path = os.path.join(cfg.profile_dir, f"trace_rank{self.rank}.json")
@@ -1026,9 +1031,12 @@ class ImageTrainer(_FaultTolerant):
                 self.state,
                 torch.from_numpy(self.train_split.images).to(self.device),
                 torch.from_numpy(self.train_split.labels).to(self.device),
-                self.global_batch_size, rank=self.rank, world=self.world,
+                self.global_batch_size, rank=self.data_rank,
+                world=self.data_world,
                 compute_dtype=self.compute_dtype, seed=config.seed,
                 label_smoothing=config.label_smoothing, augment_fn=augment_fn,
+                step=(self._make_train_step(augment_fn)
+                      if config.pipe_mode else None),
             )
             self.steps_per_epoch = self.fast_runner.steps_per_epoch
             self.train_step = self.fast_runner.step
@@ -1262,9 +1270,16 @@ def _log_bubble(log, config: TrainConfig, family: str) -> None:
                config.virtual_stages)
     depth = config.model_depth or 1
     if family == "pipe_lm":
+        if config.moe_experts:
+            log(f"Pipelined MoE: {config.moe_experts} experts every "
+                f"{config.moe_every}-th block; the GShard load-balance aux "
+                "loss is not collected on the pipe path (routing + capacity "
+                "dropping still apply) — use --model causal_lm for the full "
+                "aux objective")
         log(f"Pipeline LM: {S} stages × {V} virtual × {depth} blocks, {M} "
-            f"microbatches, {config.pipe_schedule} schedule, tp=1, bubble "
-            f"fraction {bubble_fraction(S, M * V):.3f}")
+            f"microbatches, {config.pipe_schedule} schedule, "
+            f"tp={config.mesh_model}, bubble fraction "
+            f"{bubble_fraction(S, M * V):.3f}")
     elif config.pipe_schedule == "interleaved":
         log(f"Pipeline: {S} stages × {V} virtual × {depth} blocks, {M} "
             "microbatches, interleaved schedule, bubble fraction "
@@ -1279,12 +1294,15 @@ def _log_bubble(log, config: TrainConfig, family: str) -> None:
 class PipeLMTrainer(LMTrainer):
     """``--model pipe_lm`` (``trainer.py:1008-1136``): the causal LM cut
     into ``--mesh_pipe`` stages of ``--model_depth`` blocks a chunk
-    (``models/pipeline_lm``) over the mesh of the world, the data axis
-    the rest; the LM trainer's data, epoch runner (each data replica its
-    strided rows; the pipe ranks of a replica the same ones), evaluation
-    and fault tolerance, with the LR schedules; the checkpoints hold the
-    full stacked state, gathered from the pipe ranks (its ``to_dense_lm``
-    is the servable ``CausalLM``)."""
+    (``models/pipeline_lm``) over the mesh of the world — composed with
+    ``--mesh_fsdp``, ``--mesh_model``, ``--moe_experts`` (and
+    ``--mesh_expert``) and ``--mesh_seq`` —, the data axis the rest; the
+    LM trainer's data, epoch runner (each data replica, data × fsdp ×
+    expert, its strided rows; its pipe, model and seq ranks the same
+    ones), evaluation and fault tolerance, with the LR schedules; the
+    checkpoints hold the full stacked state, gathered from every axis
+    (its ``to_dense_lm`` is the servable ``CausalLM``), so a checkpoint
+    written on one mesh restores on another."""
 
     def __init__(self, config: TrainConfig,
                  ctx: dist.DistContext | None = None):
@@ -1295,6 +1313,7 @@ class PipeLMTrainer(LMTrainer):
             make_pipe_lm_eval_step,
             make_pipe_lm_train_step,
         )
+        from ddp_tpu_torch.models.pipeline_vit import rank_chunks
 
         if config.model != "pipe_lm":
             raise ValueError(f"PipeLMTrainer trains --model pipe_lm, not "
@@ -1320,14 +1339,20 @@ class PipeLMTrainer(LMTrainer):
             num_microbatches=config.num_microbatches, remat=config.remat,
             virtual_stages=config.virtual_stages,
             label_smoothing=config.label_smoothing,
-            num_kv_heads=config.num_kv_heads)
+            num_kv_heads=config.num_kv_heads, tp_size=config.mesh_model,
+            num_experts=config.moe_experts, moe_every=config.moe_every,
+            moe_top_k=config.moe_top_k,
+            moe_normalize_gates=not config.moe_raw_gates,
+            ep_size=config.mesh_expert, sp_size=config.mesh_seq,
+            sp_strategy=config.seq_strategy)
         self.per_shard_batch = config.batch_size
         self.global_batch_size = config.batch_size * self.data_world
         config.check_pipe_batch(self.global_batch_size, self.data_world)
         _log_bubble(self.log, config, "pipe_lm")
+        only = rank_chunks(self.pipe_cfg, self.mesh, interleaved=interleaved)
         self.model = build_pipe_lm(
             self.pipe_cfg, init_pipe_lm(self.pipe_cfg, seed=config.seed,
-                                        interleaved=interleaved),
+                                        interleaved=interleaved, only=only),
             self.mesh, self.device, interleaved=interleaved)
         layout = self.model.shard_layout
         self.lr_schedule = make_schedule(
@@ -1371,8 +1396,10 @@ class PipeLMTrainer(LMTrainer):
 class PipeViTTrainer(ImageTrainer):
     """``--model pipe_vit`` (``trainer.py:1137-1274``): the ViT cut into
     ``--mesh_pipe`` stages (``models/pipeline_vit``: patch ``7`` on 28²
-    images, else 4; no class token) on the image trainer's loader path,
-    each data replica its rows (the pipe ranks of a replica the same
+    images, else 4; no class token), composed with ``--mesh_fsdp`` and
+    ``--mesh_model``, on the image trainer's loader path or, under
+    ``--fast_epoch``, its epoch runner driving the pipe step, each data
+    replica (data × fsdp) its rows (its pipe and model ranks the same
     ones), ``--augment`` on stage 0, evaluation through the pipelined
     forward, checkpoints of the full stacked state."""
 
@@ -1393,6 +1420,7 @@ class PipeViTTrainer(ImageTrainer):
             PipeViTConfig,
             build_pipe_vit,
             init_pipe_vit,
+            rank_chunks,
         )
 
         cfg = self.config
@@ -1406,12 +1434,13 @@ class PipeViTTrainer(ImageTrainer):
             num_stages=cfg.mesh_pipe, depth_per_stage=cfg.model_depth or 1,
             num_microbatches=cfg.num_microbatches, remat=cfg.remat,
             virtual_stages=cfg.virtual_stages, side=side,
-            in_channels=channels)
+            in_channels=channels, tp_size=cfg.mesh_model)
         _log_bubble(self.log, cfg, "pipe_vit")
         interleaved = cfg.pipe_schedule == "interleaved"
+        only = rank_chunks(self.pipe_cfg, self.mesh, interleaved=interleaved)
         return build_pipe_vit(
             self.pipe_cfg, init_pipe_vit(self.pipe_cfg, seed=cfg.seed,
-                                         interleaved=interleaved),
+                                         interleaved=interleaved, only=only),
             self.mesh, "cpu", interleaved=interleaved)
 
     def _make_train_step(self, augment_fn):

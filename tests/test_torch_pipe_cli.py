@@ -1,15 +1,20 @@
 """``python -m ddp_tpu_torch.train --model pipe_lm|pipe_vit --mesh_pipe S``:
 the flags and guards, the checkpoint, and one run over processes.
 
-- Each of the JAX trainer's pipe guards (``ddp_tpu/train/trainer.py:284-
-  402``, ``:497-524``, ``:634-642``, ``:1653-1669``) is pinned by a case
-  whose message is JAX's; each composition JAX's pipe family takes and the
-  port's does not yet is refused naming ``ROADMAP A4.1b``; the ``dcn``
-  axis names A4.2.
+- Each of the JAX trainer's pipe guards (``ddp_tpu/train/trainer.py:251-
+  402``, ``:497-524``, ``:600-642``, ``:1022-1045``, ``:1653-1669``, and
+  ``pipeline_lm.py:187-194``'s TP×MoE rule) is pinned by a case whose
+  message is JAX's; each composition JAX's pipe family takes parses to
+  the composed config; the ``dcn`` axis names A4.2.
 - A checkpoint of a pipe world holds the full stacked state (JAX's [S, …]
-  and [v, S, …] layouts) gathered from the pipe ranks, and a world that
+  and [v, S, …] layouts) gathered from every axis, and a world that
   restores it takes the next step to the same bits as the world that
-  never stopped (in-process: ``runtime/dist.ThreadWorld``).
+  never stopped, at pipe 2 and at pipe 2 × model 2 (in-process:
+  ``runtime/dist.ThreadWorld``); one written at pipe 2 × fsdp 2 restores
+  at pipe 2 to the same full state.
+- ``--fast_epoch``'s epoch runners drive the pipe steps: their losses
+  are those of the step loop over the same rows, each data replica its
+  own (pipe 2 × data 2).
 - One spawned run (``--spawn 2`` over gloo on the CPU, interleaved,
   pipe_lm): it trains, evaluates, logs the bubble fraction, writes
   ``--metrics_file``, and its checkpoint's ``to_dense_lm`` is a
@@ -35,6 +40,7 @@ from ddp_tpu_torch.train.config import TrainConfig
 from ddp_tpu_torch.train.optim import make_optimizer
 
 LM = ["--model", "pipe_lm", "--mesh_pipe", "2", "--spawn", "2"]
+LM4 = LM[:-1] + ["4"]
 VIT = ["--model", "pipe_vit", "--mesh_pipe", "2", "--spawn", "2"]
 
 # argv → a piece of JAX's message.
@@ -75,16 +81,58 @@ GUARDS = {
     "parallel_zero": (LM + ["--parallel", "zero"], "--parallel zero "
                       "composes with the data axis only (the sharded "
                       "update scatters over it)"),
+    "fsdp_vit_one_stage": (["--model", "pipe_vit", "--mesh_fsdp", "2"],
+                           "needs --mesh_pipe >= 2"),
+    "ring_1f1b": (LM4 + ["--mesh_seq", "2", "--pipe_schedule", "1f1b"],
+                  "PP×SP under the hand-scheduled schedules (1f1b/"
+                  "interleaved) needs --seq_strategy ulysses"),
+    "ring_interleaved": (LM4 + ["--mesh_seq", "2", "--pipe_schedule",
+                                "interleaved", "--virtual_stages", "2"],
+                         "ring works under --pipe_schedule gpipe"),
+    "tp_moe_1f1b": (LM4 + ["--mesh_model", "2", "--moe_experts", "4",
+                           "--model_depth", "2", "--pipe_schedule", "1f1b"],
+                    "the pipelined MoE-LM composes with tp under the GPipe "
+                    "schedule only"),
+    "moe_every": (LM + ["--moe_experts", "4"], "the pipelined MoE-LM needs "
+                  "--moe_every (2) to divide --model_depth (1)"),
+    "moe_vit": (VIT + ["--moe_experts", "4"], "--moe_experts routes the "
+                "causal LM's MLPs: use --model causal_lm or pipe_lm"),
+    "expert_without_experts": (LM4 + ["--mesh_expert", "2"],
+                               "--mesh_expert shards MoE expert weights"),
+    "experts_not_divisible": (LM4 + ["--mesh_expert", "2", "--moe_experts",
+                                     "3", "--moe_every", "1"],
+                              "--moe_experts 3 not divisible by "
+                              "--mesh_expert 2"),
+    "tp_heads_lm": (LM + ["--mesh_model", "3", "--spawn", "6"],
+                    "tensor parallelism splits attention heads: "
+                    "--num_heads 4 not divisible by --mesh_model 3"),
+    "tp_heads_vit": (VIT + ["--mesh_model", "8", "--spawn", "16",
+                            "--num_heads", "4"],
+                     "--num_heads 4 not divisible by --mesh_model 8"),
+    "tp_kv_heads": (LM4 + ["--mesh_model", "2", "--num_kv_heads", "1"],
+                    "GQA under TP shards whole kv groups: --num_kv_heads 1 "
+                    "not divisible by --mesh_model 2"),
+    "ulysses_heads": (LM + ["--mesh_model", "2", "--mesh_seq", "4",
+                            "--seq_strategy", "ulysses", "--spawn", "16"],
+                      "ulysses shards attention heads: 2 heads per model "
+                      "shard (4 total / --mesh_model 2) not divisible by "
+                      "--mesh_seq 4"),
 }
-# The compositions of JAX's pipe family the port refuses until A4.1b.
-LATER = {
-    "fsdp_vit": ["--model", "pipe_vit", "--mesh_fsdp", "2"],
-    "fsdp": LM + ["--mesh_fsdp", "2", "--spawn", "4"],
-    "model": LM + ["--mesh_model", "2", "--spawn", "4"],
-    "expert": LM + ["--mesh_expert", "2", "--spawn", "4"],
-    "seq": LM + ["--mesh_seq", "2", "--spawn", "4"],
-    "moe": LM + ["--moe_experts", "4"],
-    "fast_epoch": VIT + ["--fast_epoch"],
+# Each composition of JAX's pipe family (pipe_lm and pipe_vit over fsdp and
+# model, pipe_lm over expert with routed stages and over seq, fast_epoch)
+# → the config fields it sets.
+COMPOSED = {
+    "fsdp_vit": (VIT + ["--mesh_fsdp", "2", "--spawn", "4"],
+                 dict(mesh_fsdp=2, mesh_axes=4)),
+    "fsdp": (LM4 + ["--mesh_fsdp", "2"], dict(mesh_fsdp=2, mesh_axes=4)),
+    "model": (LM4 + ["--mesh_model", "2"], dict(mesh_model=2, mesh_axes=4)),
+    "expert": (LM4 + ["--mesh_expert", "2", "--moe_experts", "4",
+                      "--model_depth", "2"],
+               dict(mesh_expert=2, moe_experts=4, mesh_axes=4)),
+    "seq": (LM4 + ["--mesh_seq", "2"], dict(mesh_seq=2, mesh_axes=4)),
+    "moe": (LM + ["--moe_experts", "4", "--model_depth", "2"],
+            dict(moe_experts=4, moe_every=2)),
+    "fast_epoch": (VIT + ["--fast_epoch"], dict(fast_epoch=True)),
 }
 
 
@@ -95,10 +143,13 @@ def test_guards_carry_jax_messages(argv, match):
     assert match in str(e.value)
 
 
-@pytest.mark.parametrize("argv", list(LATER.values()), ids=list(LATER))
-def test_compositions_refused_naming_a41b(argv):
-    with pytest.raises(ValueError, match="ROADMAP A4.1b"):
-        TrainConfig.from_args(argv)
+@pytest.mark.parametrize("argv,fields", list(COMPOSED.values()),
+                         ids=list(COMPOSED))
+def test_compositions_parse_to_the_composed_config(argv, fields):
+    config = TrainConfig.from_args(argv)
+    assert config.pipe_mode and not config.use_spmd
+    for name, value in fields.items():
+        assert getattr(config, name) == value, name
 
 
 def test_flags_parse_and_batch_guards():
@@ -118,14 +169,17 @@ def test_flags_parse_and_batch_guards():
         Mesh({"dcn": 2, "data": 1}, 0)
 
 
-def _world_steps(cfg, state, toks, ckdir, *, restore: bool, steps):
-    """A pipe 2 world's ``steps`` 1F1B steps after saving (or, with
-    ``restore``, restoring) epoch 0 → rank 0's gathered parameters and
-    moments."""
-    world = ThreadWorld(2, timeout=60)
+def _world_steps(cfg, state, toks, ckdir, *, restore: bool, steps,
+                 axes=None):
+    """A pipe world's (``axes``, default pipe 2) ``steps`` 1F1B steps
+    after saving (or, with ``restore``, restoring) epoch 0 → rank 0's
+    gathered parameters and moments."""
+    axes = axes or dict(pipe=2)
+    n = int(np.prod(list(axes.values())))
+    world = ThreadWorld(n, timeout=60)
 
     def body(r):
-        mesh = thread_mesh(mesh_sizes(2, pipe=2), world, r)
+        mesh = thread_mesh(mesh_sizes(n, **axes), world, r)
         model = tplm.build_pipe_lm(cfg, state, mesh, "cpu")
         opt = make_optimizer(model.parameters(), "adam", lr=1e-2)
         opt.norm = model.shard_layout.norm
@@ -169,6 +223,148 @@ def test_checkpoint_holds_the_stacked_state_and_resumes_bit_for_bit(tmp_path):
     for got, want in zip(resumed[:2], ran[:2]):
         for k in want:
             assert torch.equal(got[k], want[k]), k
+
+
+def test_resume_bit_for_bit_at_pipe_2_model_2(tmp_path):
+    cfg = tplm.PipeLMConfig(vocab_size=64, seq_len=16, d_model=32,
+                            num_heads=4, num_stages=2, num_microbatches=2,
+                            tp_size=2)
+    state = tplm.init_pipe_lm(cfg, seed=4)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, 64, (4, 16)))
+    axes = dict(pipe=2, model=2)
+    ckdir = str(tmp_path / "ck")
+    ran = _world_steps(cfg, state, toks, ckdir, restore=False, steps=1,
+                       axes=axes)
+    blob = torch.load(os.path.join(ckdir, "epoch_0", "state.pt"),
+                      weights_only=True)
+    for k, v in state.items():  # the full stacked state, uncut
+        assert tuple(blob["params"][k].shape) == v.shape, k
+    resumed = _world_steps(cfg, state, toks, ckdir, restore=True, steps=1,
+                           axes=axes)
+    assert ran[2] == resumed[2] == 2
+    for got, want in zip(resumed[:2], ran[:2]):
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+
+
+def _vit_world(cfg, state, axes, fn):
+    """``fn(rank, model, optimizer, mesh)`` on every rank of a pipe_vit
+    world over ``axes`` → the results by rank."""
+    n = int(np.prod(list(axes.values())))
+    world = ThreadWorld(n, timeout=60)
+
+    def body(r):
+        mesh = thread_mesh(mesh_sizes(n, **axes), world, r)
+        model = tpv.build_pipe_vit(cfg, state, mesh, "cpu")
+        opt = make_optimizer(model.parameters(), "adam", lr=1e-2)
+        return fn(r, model, opt, mesh)
+
+    return world.run(body)
+
+
+def test_fsdp_checkpoint_restores_at_another_mesh(tmp_path):
+    """A checkpoint written at pipe 2 × fsdp 2 (its stage leaves rest cut
+    over fsdp) holds the full state, and a pipe 2 world restores it to
+    that state, moments included."""
+    cfg = tpv.PipeViTConfig(num_classes=10, patch_size=7, embed_dim=64,
+                            num_heads=4, num_stages=2, num_microbatches=2)
+    state = tpv.init_pipe_vit(cfg, seed=5)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(0, 256, (4, 28, 28, 1), dtype=np.uint8))
+    y = torch.from_numpy(rng.integers(0, 10, 4))
+    ckdir = str(tmp_path / "ck")
+
+    def save(r, model, opt, mesh):
+        lay = model.shard_layout
+        assert lay.axes("chunks.0.block1.mlp1.weight") == {"fsdp"}
+        step = tpv.make_pipe_vit_train_step(model, opt, mesh,
+                                            schedule="1f1b")
+        b = x.shape[0] // mesh.data_size
+        step(x[mesh.data_rank * b:][:b], y[mesh.data_rank * b:][:b])
+        ck = CheckpointManager(ckdir, is_main=r == 0, async_save=False,
+                               layout=lay)
+        ck.save(0, TrainState(int(opt.count), model, opt))
+        return lay.gather({n: p.detach().clone()
+                           for n, p in model.named_parameters()})
+
+    saved = _vit_world(cfg, state, dict(pipe=2, fsdp=2), save)[0]
+    blob = torch.load(os.path.join(ckdir, "epoch_0", "state.pt"),
+                      weights_only=True)
+    for k, v in state.items():
+        assert tuple(blob["params"][k].shape) == v.shape, k
+        assert torch.equal(blob["params"][k], saved[k]), k
+
+    def restore(r, model, opt, mesh):
+        st = TrainState(0, model, opt)
+        CheckpointManager(ckdir, is_main=r == 0,
+                          layout=model.shard_layout).restore(st)
+        lay = model.shard_layout
+        return (st.step, lay.gather({n: p.detach().clone()
+                                     for n, p in model.named_parameters()}),
+                lay.gather(dict(zip(lay.names, opt.mu))))
+
+    step, params, mu = _vit_world(cfg, state, dict(pipe=2), restore)[0]
+    assert step == 1
+    for k in state:
+        assert torch.equal(params[k], blob["params"][k]), k
+        assert torch.equal(mu[k], blob["opt_state"]["mu"][k]), k
+
+
+@pytest.mark.parametrize("family", ["pipe_lm", "pipe_vit"])
+def test_fast_epoch_losses_equal_the_step_loop(family):
+    """``--fast_epoch``'s runners (``train/fast``: the LM's, and the image
+    one's with ``step=``) drive the pipe step over each data replica's
+    rows of the epoch's plan: their losses are the step loop's over the
+    same rows, bit for bit (pipe 2 × data 2, 2 steps)."""
+    from ddp_tpu_torch.data.sampler import default_permutation
+    from ddp_tpu_torch.train.fast import (
+        make_epoch_runner,
+        make_lm_epoch_runner,
+    )
+
+    rng = np.random.default_rng(6)
+    G, world = 8, ThreadWorld(4, timeout=60)
+    if family == "pipe_lm":
+        cfg = tplm.PipeLMConfig(vocab_size=64, seq_len=16, d_model=32,
+                                num_heads=4, num_stages=2, num_microbatches=2)
+        state = tplm.init_pipe_lm(cfg, seed=6)
+        data = (torch.from_numpy(rng.integers(0, 64, (16, 16))),)
+    else:
+        cfg = tpv.PipeViTConfig(num_classes=10, patch_size=7, embed_dim=32,
+                                num_heads=4, num_stages=2, num_microbatches=2)
+        state = tpv.init_pipe_vit(cfg, seed=6)
+        data = (torch.from_numpy(rng.integers(0, 256, (16, 28, 28, 1),
+                                              dtype=np.uint8)),
+                torch.from_numpy(rng.integers(0, 10, 16)))
+
+    def body(r, fast):
+        mesh = thread_mesh(mesh_sizes(4, pipe=2), world, r)
+        build, make = ((tplm.build_pipe_lm, tplm.make_pipe_lm_train_step)
+                       if family == "pipe_lm" else
+                       (tpv.build_pipe_vit, tpv.make_pipe_vit_train_step))
+        model = build(cfg, state, mesh, "cpu")
+        opt = make_optimizer(model.parameters(), "adam", lr=1e-2)
+        step = make(model, opt, mesh, schedule="1f1b")
+        me, n = mesh.data_rank, mesh.data_size
+        if fast and family == "pipe_lm":
+            return make_lm_epoch_runner(model, opt, data[0], G, rank=me,
+                                        world=n, step=step)(0).loss
+        if fast:
+            return make_epoch_runner(None, *data, G, rank=me, world=n,
+                                     step=step)(0).loss
+        perm = default_permutation(16, 0)(0)
+        losses = []
+        for t in range(2):
+            rows = perm[t * G:(t + 1) * G]
+            rows = (rows[me::n] if family == "pipe_lm"
+                    else rows[me * G // n:][:G // n])
+            losses.append(step(*(d[rows] for d in data)).loss)
+        return torch.stack(losses)
+
+    fast = world.run(lambda r: body(r, True))
+    loop = world.run(lambda r: body(r, False))
+    for a, b in zip(fast, loop):
+        assert a.shape == (2,) and torch.equal(a, b)
 
 
 def test_vit_checkpoint_layout_interleaved(tmp_path):

@@ -290,18 +290,17 @@ def test_ulysses_and_remat_train(tmp_path):
     (["--model", "long_context", "--mesh_seq", "4", "--seq_len", "66"],
      "divisible"),
     pytest.param(["--model", "pipe_vit", "--mesh_fsdp", "2"],
-                 "ROADMAP A4.1b", id="argv2-A2.5"),
+                 "needs --mesh_pipe >= 2", id="argv2-A2.5"),
     (["--model", "long_context", "--augment", "flip"], "augment"),
     (["--model", "long_context", "--fast_epoch"], "fast_epoch"),
 ])
 def test_config_guards(argv, match):
     """The JAX trainer's guards on the sequence flags: --mesh_seq needs a
-    sequence model and must divide --seq_len; a composition of the
-    pipelined models the port does not take yet is refused by name
-    (the pipelined ViT's fsdp, ROADMAP A4.1b; this case pinned the image
+    sequence model and must divide --seq_len; the pipelined ViT's fsdp
+    without --mesh_pipe gets JAX's guard (this case pinned the image
     models' --mesh_fsdp refusal until their GSPMD step came, then the
-    unported pipe_vit's, and keeps its id); long_context refuses augment
-    and the fast path."""
+    unported pipe_vit's fsdp, and keeps its id); long_context refuses
+    augment and the fast path."""
     with pytest.raises(ValueError, match=match):
         TrainConfig.from_args(argv)
 

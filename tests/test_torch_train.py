@@ -351,16 +351,17 @@ def test_train_cli_on_cpu_prints_final_accuracy(tmp_path):
 
 def test_train_cli_refuses_other_models():
     """The CLI refuses what the port does not train, naming why: the
-    pipelined ViT alone (JAX's guard: it needs --mesh_pipe >= 2), under
-    --zero1 (JAX's: the pipe family composes with the data axis and not
-    zero1) and with --mesh_fsdp (JAX takes it; the port waits for ROADMAP
-    A4.1b; the image models take those two on JAX's GSPMD step, tests/
+    pipelined ViT alone and with --mesh_fsdp but no --mesh_pipe (JAX's
+    guard: it needs --mesh_pipe >= 2) and under --zero1 (JAX's: the pipe
+    family composes with the data axis and not zero1; the image models
+    take --mesh_fsdp and --zero1 on JAX's GSPMD step, tests/
     test_torch_spmd_cli.py). --mesh_seq 2 and --mesh_fsdp 2 are taken by
     the sequence models (over a world they tile); --mesh_seq is refused
     for the image models."""
     for argv, why in (
             (["--model", "pipe_vit"], "needs --mesh_pipe >= 2"),
-            (["--model", "pipe_vit", "--mesh_fsdp", "2"], "ROADMAP A4.1b"),
+            (["--model", "pipe_vit", "--mesh_fsdp", "2"],
+             "needs --mesh_pipe >= 2"),
             (["--model", "pipe_vit", "--mesh_pipe", "2", "--spawn", "2",
               "--zero1"], "not expert/seq/zero1")):
         bad = subprocess.run(CLI + argv, cwd=REPO,
